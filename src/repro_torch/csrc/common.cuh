@@ -1,0 +1,66 @@
+// Shared helpers of the port's hand-written Hopper kernels.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace repro {
+
+// Operand / output type codes passed from Python (kernels/*.py).
+enum DType : int { kF32 = 0, kBF16 = 1 };
+
+// Activation codes (kernels/epilogue.py ACT_CODES).
+enum Act : int { kNone = 0, kSilu = 1, kGelu = 2, kRelu = 3 };
+
+// Large-negative mask value of the JAX reference (kernels/ref.py NEG_INF).
+constexpr float kNegInf = -1e30f;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);  // round to nearest even, like torch's cast
+}
+
+// The epilogue activations in f32; gelu is the tanh approximation.
+__device__ __forceinline__ float activate(float x, int act) {
+  switch (act) {
+    case kSilu:
+      return x / (1.0f + expf(-x));
+    case kGelu: {
+      const float c = 0.7978845608028654f;  // sqrt(2 / pi)
+      return 0.5f * x * (1.0f + tanhf(c * (x + 0.044715f * x * x * x)));
+    }
+    case kRelu:
+      return fmaxf(x, 0.0f);
+    default:
+      return x;
+  }
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+}  // namespace repro

@@ -1,0 +1,78 @@
+"""Dual-B gated GEMM ``act(A Wg) * (A Wu)`` (kernel B2).
+
+Replaces the Pallas kernel ``repro/kernels/gemm_gated.py``
+``gemm_gated`` (pallas_call :114, body ``_gated_kernel`` :34) with the
+hand-written CUDA kernel ``csrc/gemm_gated.cu``.  On an H100 the decode
+calls are bound by the bytes of the two weight matrices; one A tile
+feeds both B streams and the gate/up sums never leave registers.
+
+Dispatch goes by device: a CPU tensor takes :func:`gemm_gated_plain`, a
+CUDA tensor launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.epilogue import ACT_CODES
+from repro_torch.kernels.ref import gemm_gated_ref
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def gemm_gated_plain(a: torch.Tensor, b_gate: torch.Tensor,
+                     b_up: torch.Tensor, *, activation: str = "silu",
+                     out_dtype=None) -> torch.Tensor:
+    """The kernel's function in plain PyTorch, on any device."""
+    gemm_gated_plain.launches += 1
+    return gemm_gated_ref(a, b_gate, b_up, activation=activation,
+                          out_dtype=out_dtype)
+
+
+gemm_gated_plain.launches = 0
+
+
+def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
+               *, activation: str = "silu", out_dtype=None,
+               bg_scale: Optional[torch.Tensor] = None,
+               bu_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """C[m,n] = act(A @ B_gate) * (A @ B_up); output A's dtype by
+    default (gemm_gated.py:94)."""
+    if bg_scale is not None or bu_scale is not None \
+            or a.dtype == torch.int8:
+        raise NotImplementedError(
+            "int8 operands / dequant scales arrive with ROADMAP queue A8")
+    if activation is None or activation not in ACT_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    if a.dim() != 2 or b_gate.dim() != 2 or a.shape[1] != b_gate.shape[0] \
+            or b_up.shape != b_gate.shape:
+        raise ValueError(f"gemm_gated: bad shapes {tuple(a.shape)}, "
+                         f"{tuple(b_gate.shape)}, {tuple(b_up.shape)}")
+    m, k = a.shape
+    n = b_gate.shape[1]
+    out_dtype = out_dtype or a.dtype
+    if a.device.type == "cpu":
+        return gemm_gated_plain(a, b_gate, b_up, activation=activation,
+                                out_dtype=out_dtype)
+    _build.require_cuda("gemm_gated", a, b_gate, b_up)
+    if not a.dtype == b_gate.dtype == b_up.dtype:
+        raise TypeError("gemm_gated: operand dtypes differ")
+    in_code = _build.dtype_code(a.dtype, "gemm_gated A")
+    out_code = _build.dtype_code(out_dtype, "gemm_gated out")
+    a, b_gate, b_up = a.contiguous(), b_gate.contiguous(), \
+        b_up.contiguous()
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    rc = _build.entry("gemm_gated_launch", _ARGTYPES)(
+        a.data_ptr(), b_gate.data_ptr(), b_up.data_ptr(), c.data_ptr(),
+        m, n, k, in_code, out_code, ACT_CODES[activation],
+        _build.stream_of(a))
+    _build.check(rc, "gemm_gated")
+    gemm_gated.launches += 1
+    return c
+
+
+gemm_gated.launches = 0

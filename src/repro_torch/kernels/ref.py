@@ -1,0 +1,169 @@
+"""Plain PyTorch oracles (port of ``repro/kernels/ref.py``).
+
+These are the CPU execution path of every kernel wrapper and the
+references the CUDA kernels are held against on the card.  Operands are
+widened to f32 before each product: a bf16 x bf16 product is exact in
+f32, so this is the same arithmetic as the JAX package's storage-dtype
+dots with ``preferred_element_type=f32``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.epilogue import ACTIVATIONS, apply_epilogue
+
+NEG_INF = -1e30          # large-negative for masking (bf16-safe)
+
+
+def gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
+             acc_dtype=torch.float32, out_dtype=None) -> torch.Tensor:
+    """C = A @ B with explicit accumulation dtype: int8 x int8
+    accumulates in int32, floats in f32."""
+    if a.dtype == torch.int8 and b.dtype == torch.int8:
+        out = a.to(torch.int32) @ b.to(torch.int32)
+        return out.to(out_dtype or torch.int32)
+    out = (a.to(acc_dtype) @ b.to(acc_dtype)).to(acc_dtype)
+    return out.to(out_dtype or acc_dtype)
+
+
+def _acc_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Accumulate A @ B into f32 the way the kernels do: int8 x int8 in
+    int32 then widened; a float A sees B widened to its dtype first."""
+    if a.dtype == torch.int8 and b.dtype == torch.int8:
+        return (a.to(torch.int32) @ b.to(torch.int32)).float()
+    if b.dtype == torch.int8:
+        b = b.to(a.dtype)
+    return a.float() @ b.float()
+
+
+def gemm_epilogue_ref(a: torch.Tensor, b: torch.Tensor, *,
+                      b_scale: Optional[torch.Tensor] = None,
+                      bias: Optional[torch.Tensor] = None,
+                      activation: Optional[str] = None,
+                      residual: Optional[torch.Tensor] = None,
+                      out_dtype=None) -> torch.Tensor:
+    """Oracle for the fused-epilogue flush: accumulate, optional
+    per-output-channel dequant scale, then bias -> activation ->
+    residual, all in f32.  Default output f32."""
+    x = _acc_f32(a, b)
+    if b_scale is not None:
+        x = x * b_scale.float()
+    x = apply_epilogue(x, activation=activation, bias=bias,
+                       residual=residual)
+    return x.to(out_dtype or torch.float32)
+
+
+def gemm_gated_ref(a: torch.Tensor, b_gate: torch.Tensor,
+                   b_up: torch.Tensor, *, activation: str = "silu",
+                   bg_scale: Optional[torch.Tensor] = None,
+                   bu_scale: Optional[torch.Tensor] = None,
+                   out_dtype=None) -> torch.Tensor:
+    """Oracle for the dual-B gated kernel: ``act(A @ B_gate) * (A @
+    B_up)`` in f32; default output A's dtype (f32 for int8 A)."""
+    xg = _acc_f32(a, b_gate)
+    xu = _acc_f32(a, b_up)
+    if bg_scale is not None:
+        xg = xg * bg_scale.float()
+        xu = xu * bu_scale.float()
+    out = ACTIVATIONS[activation](xg) * xu
+    if out_dtype is None:
+        out_dtype = a.dtype if a.dtype != torch.int8 else torch.float32
+    return out.to(out_dtype)
+
+
+def _pos_vector(pos, b: int, device) -> torch.Tensor:
+    """(b,) int32 per-slot positions; a scalar broadcasts."""
+    p = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    return p.expand(b) if p.dim() == 0 else p
+
+
+def _decode_mask(pos: torch.Tensor, skv: int, window: int) -> torch.Tensor:
+    k_pos = torch.arange(skv, device=pos.device)
+    mask = k_pos[None, :] <= pos[:, None]
+    if window > 0:
+        mask &= k_pos[None, :] > pos[:, None] - window
+    return mask                                        # (b, skv)
+
+
+def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos, *, window: int = 0,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Single-token attention over a cache, all in f32.
+
+    q: (b, hq, d); caches: (b, S, hkv, d); pos: (b,) int32 per-slot
+    positions (a scalar broadcasts) — row i masks slots > pos[i]; a
+    sliding window masks slots <= pos[i] - window.  Returns (b, hq, d).
+    """
+    b, hq, d = q.shape
+    _, skv, hkv, _ = k_cache.shape
+    groups = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, hkv, groups, d).float() * scale
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg, k_cache.float())
+    mask = _decode_mask(_pos_vector(pos, b, q.device), skv, window)
+    logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v_cache.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def decode_attention_xla(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, pos, *,
+                         window: int = 0) -> torch.Tensor:
+    """The storage-dtype decode path (``attn_api._decode_attention_xla``):
+    the probabilities are rounded to the cache dtype before the PV
+    product, as the JAX package's XLA path does; products accumulate in
+    f32 and the cache itself is never kept in f32."""
+    b, hq, d = q.shape
+    _, skv, hkv, _ = k_cache.shape
+    groups = hq // hkv
+    qg = q.reshape(b, hkv, groups, d)
+    logits = torch.einsum("bhgd,bkhd->bhgk", qg.float(),
+                          k_cache.float()) * d ** -0.5
+    mask = _decode_mask(_pos_vector(pos, b, q.device), skv, window)
+    logits = logits.masked_fill(~mask[:, None, None, :], NEG_INF)
+    probs = torch.softmax(logits, dim=-1).to(v_cache.dtype)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs.float(), v_cache.float())
+    return out.reshape(b, hq, d).to(q.dtype)
+
+
+def _window_mask(q_len: int, kv_len: int, *, causal: bool, window: int,
+                 q_offset: int, device) -> torch.Tensor:
+    """(q_len, kv_len) boolean mask; ``window`` <= 0 means unbounded."""
+    q_pos = torch.arange(q_len, device=device)[:, None] + q_offset
+    k_pos = torch.arange(kv_len, device=device)[None, :]
+    mask = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window and window > 0:
+        mask &= k_pos > q_pos - window
+    return mask
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0,
+                  q_offset: Optional[int] = None,
+                  scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention with GQA + sliding window, softmax in f32.
+
+    q: (b, sq, hq, d); k, v: (b, skv, hkv, d) with hq % hkv == 0.
+    """
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    groups = hq // hkv
+    if q_offset is None:
+        q_offset = skv - sq
+    scale = scale if scale is not None else d ** -0.5
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(groups, dim=2)
+    vf = v.float().repeat_interleave(groups, dim=2)
+    logits = torch.einsum("bqhd,bkhd->bhqk", qf, kf)
+    mask = _window_mask(sq, skv, causal=causal, window=window,
+                        q_offset=q_offset, device=q.device)
+    logits = logits.masked_fill(~mask[None, None], NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs, vf)
+    return out.to(q.dtype)

@@ -1,0 +1,172 @@
+"""Shared model layers (port of ``repro/models/layers.py``, dense
+self-attention path): RMS norm, rotary embeddings, the SwiGLU MLP, GQA
+attention with a dense per-slot KV cache, embeddings.
+
+Parameters are plain dicts of tensors in the JAX layout ((d_in, d_out)
+weights).  Every projection goes through :func:`repro_torch.ops.gemm`,
+so on a card each one launches a hand-written kernel.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import ops
+
+
+def dense_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
+    """N(0, 1/d_in) weights of ``shape`` (..., d_in, d_out), drawn in f32
+    and cast, as ``layers.dense_init`` does; a leading repeats axis
+    gives the stacked layout."""
+    std = 1.0 / math.sqrt(shape[-2])
+    w = torch.randn(tuple(shape), generator=generator,
+                    device=generator.device, dtype=torch.float32) * std
+    return w.to(dtype)
+
+
+def _row_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim by pairwise halving with elementwise adds
+    only.  A reduction kernel's summation order can depend on how many
+    rows it is given; elementwise adds cannot, so a row's sum has the
+    same bits at batch 1 and inside a continuous batch (the greedy
+    bit-identity contract)."""
+    while x.shape[-1] > 1:
+        n = x.shape[-1]
+        h = n // 2
+        y = x[..., :h] + x[..., h:2 * h]
+        x = torch.cat([y, x[..., 2 * h:]], dim=-1) if n % 2 else y
+    return x
+
+
+def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    xf = x.float()
+    var = _row_sum(xf * xf) / x.shape[-1]
+    out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (b, s, h, d) with even d; positions: (b, s) or (s,).  Rotates
+    split halves (not interleaved pairs), as ``layers.rope`` does."""
+    d = x.shape[-1]
+    half = d // 2
+    # a Python-scalar base keeps this on the device: a host tensor here
+    # would be a host-to-device copy, and a stall, in every layer
+    freqs = torch.pow(
+        float(theta),
+        -torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    if positions.dim() == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs          # (b, s, half)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = x.float().split(half, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def swiglu(params: dict, x: torch.Tensor,
+           residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """silu(x W_gate) * (x W_up) in one gated-kernel call, then the down
+    projection with the residual add on its flush."""
+    h = ops.gemm(x, params["w_gate"], b2=params["w_up"], activation="silu")
+    return ops.gemm(h, params["w_down"], residual=residual)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnLayerSpec:
+    """Layer configuration (weights + head geometry)."""
+
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    head_dim: int
+    window: int = 0          # 0 = full attention
+    rope_theta: float = 10000.0
+    causal: bool = True
+    use_rope: bool = True
+
+
+def _project_qkv(params, x, spec: AttnLayerSpec, positions):
+    b, s, _ = x.shape
+    q = ops.gemm(x, params["wq"]).reshape(b, s, spec.n_heads, spec.head_dim)
+    k = ops.gemm(x, params["wk"]).reshape(b, s, spec.n_kv_heads,
+                                          spec.head_dim)
+    v = ops.gemm(x, params["wv"]).reshape(b, s, spec.n_kv_heads,
+                                          spec.head_dim)
+    if spec.use_rope:
+        q = rope(q, positions, spec.rope_theta)
+        k = rope(k, positions, spec.rope_theta)
+    return q, k, v
+
+
+def attention_block(params: dict, x: torch.Tensor, spec: AttnLayerSpec,
+                    positions: Optional[torch.Tensor] = None,
+                    residual: Optional[torch.Tensor] = None
+                    ) -> torch.Tensor:
+    """Full-sequence self-attention; ``residual`` fuses into the output
+    projection's flush.  (Cross-attention arrives with ROADMAP A9.)"""
+    b, s, _ = x.shape
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q, k, v = _project_qkv(params, x, spec, positions)
+    out = ops.attention(q, k, v, causal=spec.causal, window=spec.window)
+    return ops.gemm(out.reshape(b, s, -1), params["wo"], residual=residual)
+
+
+def init_kv_cache(batch: int, max_len: int, spec: AttnLayerSpec, dtype,
+                  device) -> dict:
+    shape = (batch, max_len, spec.n_kv_heads, spec.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def scatter_rows(cache: torch.Tensor, new: torch.Tensor,
+                 idx: torch.Tensor) -> torch.Tensor:
+    """Row ``i`` of ``cache`` (b, S, ...) takes ``new[i]`` (1, ...) at
+    sequence position ``idx[i]`` — the per-slot write of continuous
+    batching.  The JAX version returns a new array; this one writes in
+    place (one indexed copy, no host sync) to keep a single cache
+    resident.  Positions past the end clamp to the last slot, as
+    ``dynamic_update_slice`` does."""
+    b, s = cache.shape[:2]
+    rows = torch.arange(b, device=cache.device)
+    cache[rows, idx.long().clamp(max=s - 1)] = new[:, 0].to(cache.dtype)
+    return cache
+
+
+def attention_decode(params: dict, x: torch.Tensor, cache: dict,
+                     pos: torch.Tensor, spec: AttnLayerSpec,
+                     residual: Optional[torch.Tensor] = None
+                     ) -> Tuple[torch.Tensor, dict]:
+    """Single-step decode: write each row's k/v at its own position
+    ``pos`` ((b,) int32) and attend over the cache with per-row
+    masking.  x: (b, 1, d).  Returns (out (b, 1, d), cache updated in
+    place)."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"decode takes one token per row, got {s}")
+    q, k_new, v_new = _project_qkv(params, x, spec, pos[:, None])
+    scatter_rows(cache["k"], k_new, pos)
+    scatter_rows(cache["v"], v_new, pos)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos,
+                               window=spec.window)
+    out = ops.gemm(out.reshape(b, 1, -1), params["wo"], residual=residual)
+    return out, cache
+
+
+def init_embedding(generator: torch.Generator, vocab: int, d: int,
+                   dtype) -> torch.Tensor:
+    e = torch.randn((vocab, d), generator=generator,
+                    device=generator.device, dtype=torch.float32) * 0.02
+    return e.to(dtype)
+
+
+def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    return table[tokens.long()]

@@ -1,0 +1,214 @@
+"""Decoder stack for serving (port of ``repro/models/transformer.py``,
+dense ``attn`` layers): parameter init, the dense per-slot KV cache,
+prefill, one decode step, and slot-targeted prefill for continuous
+batching.
+
+The JAX package scans one compiled unit over the stacked ``repeats``
+axis; here a Python loop walks the stacked leaves, taking layer ``r`` as
+a view ``leaf[r]``.  Caches are updated in place (one resident cache, no
+per-step copy); the functions still return the cache so call sites read
+like the JAX ones.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch import ops, resolve_device
+from repro_torch.bridge import map_tree
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as L
+
+_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """The port serves dense ``attn`` stacks with full attention; every
+    other feature raises, naming the ROADMAP queue item that brings it."""
+    bad = sorted({k for k in cfg.all_kinds if k != "attn"})
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {bad} are not ported yet "
+            "(ROADMAP queue A9)")
+    if cfg.window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention and its ring-buffer "
+            "decode are not ported yet (ROADMAP queue A5)")
+    if cfg.tail_pattern or cfg.encoder_layers or cfg.prefix_tokens \
+            or not cfg.use_rope:
+        raise NotImplementedError(
+            f"{cfg.name}: tail layers, encoder-decoder, prefix embeddings "
+            "and absolute positions are not ported yet (ROADMAP queue A9)")
+
+
+def _attn_spec(cfg: ModelConfig) -> L.AttnLayerSpec:
+    return L.AttnLayerSpec(
+        d_model=cfg.d_model, n_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, window=cfg.window,
+        rope_theta=cfg.rope_theta, causal=True, use_rope=cfg.use_rope)
+
+
+def _layer(tree: dict, r: int) -> dict:
+    """Layer ``r`` of a stacked subtree, as views."""
+    return map_tree(lambda t: t[r], tree)
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator,
+                device=None) -> dict:
+    """Random parameters in the JAX layout and with the JAX init's
+    standard deviations (embedding 0.02, projections 1/sqrt(d_in), norm
+    scales 1 in f32), drawn from ``generator`` on ``device`` (default
+    the CUDA card; the generator must live on that device)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    if generator.device.type != device.type:
+        raise ValueError(f"generator is on {generator.device}, parameters "
+                         f"go to {device}")
+    dt = _DTYPES[cfg.dtype]
+    r, d, hd = cfg.repeats, cfg.d_model, cfg.hd
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=device)
+
+    unit = {
+        "norm1": {"scale": ones(r, d)},
+        "attn": {
+            "wq": L.dense_init(generator, (r, d, cfg.n_heads * hd), dt),
+            "wk": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd), dt),
+            "wv": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd), dt),
+            "wo": L.dense_init(generator, (r, cfg.n_heads * hd, d), dt),
+        },
+        "norm2": {"scale": ones(r, d)},
+        "mlp": {
+            "w_gate": L.dense_init(generator, (r, d, cfg.d_ff), dt),
+            "w_up": L.dense_init(generator, (r, d, cfg.d_ff), dt),
+            "w_down": L.dense_init(generator, (r, cfg.d_ff, d), dt),
+        },
+    }
+    return {
+        "embed": L.init_embedding(generator, cfg.vocab, d, dt),
+        "final_norm": {"scale": ones(d)},
+        "lm_head": L.dense_init(generator, (d, cfg.vocab), dt),
+        "layers": {"u0": unit},
+    }
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               device=None) -> dict:
+    """Dense per-slot KV cache: ``pos`` is a (batch,) int32 vector, every
+    slot decoding at its own position; k/v leaves are stacked
+    (repeats, batch, max_len, n_kv_heads, head_dim)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    shape = (cfg.repeats, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    dt = _DTYPES[cfg.dtype]
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "layers": {"u0": {
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}},
+    }
+
+
+def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
+                 x: torch.Tensor, pos: torch.Tensor
+                 ) -> Tuple[torch.Tensor, dict]:
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
+    h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+    x, cache = L.attention_decode(p["attn"], h, cache, pos, _attn_spec(cfg),
+                                  residual=x)
+    h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
+    return L.swiglu(p["mlp"], h, residual=x), cache
+
+
+def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
+                cache: dict) -> Tuple[torch.Tensor, dict]:
+    """One decode step.  token: (b, 1) ints.  Returns (logits (b, V) f32,
+    cache) — the cache's k/v are written in place and ``pos`` advances
+    by one for every slot."""
+    pos = cache["pos"]
+    x = L.embed(params["embed"], token)
+    stack = params["layers"]["u0"]
+    kv = cache["layers"]["u0"]
+    for r in range(cfg.repeats):
+        layer_cache = {"k": kv["k"][r], "v": kv["v"][r]}
+        x, _ = decode_layer(_layer(stack, r), layer_cache, cfg, "attn", x,
+                            pos)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = ops.gemm(x[:, 0], params["lm_head"], out_dtype=torch.float32)
+    return logits, dict(cache, pos=pos + 1)
+
+
+def prefill_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
+                  x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
+    """Full-prompt forward that also fills this layer's cache (the
+    prompt starts at position 0)."""
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
+    b, s, _ = x.shape
+    spec = _attn_spec(cfg)
+    if s > cache["k"].shape[1]:
+        raise ValueError(f"prompt of {s} tokens exceeds the cache's "
+                         f"{cache['k'].shape[1]} positions")
+    h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+    positions = torch.arange(s, device=x.device)
+    q, k, v = L._project_qkv(p["attn"], h, spec, positions)
+    out = ops.attention(q, k, v, causal=True, window=spec.window)
+    x = ops.gemm(out.reshape(b, s, -1), p["attn"]["wo"], residual=x)
+    cache["k"][:, :s] = k
+    cache["v"][:, :s] = v
+    hh = L.rms_norm(p["norm2"], x, cfg.norm_eps)
+    return L.swiglu(p["mlp"], hh, residual=x), cache
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            cache: dict, *, prefix_embeds=None, frames=None
+            ) -> Tuple[torch.Tensor, dict]:
+    """Run the prompt, fill the cache.  Returns (last-token logits
+    (b, V) f32, cache)."""
+    if prefix_embeds is not None or frames is not None:
+        raise NotImplementedError(
+            "prefix embeddings and encoder frames are not ported yet "
+            "(ROADMAP queue A9)")
+    x = L.embed(params["embed"], tokens)
+    stack = params["layers"]["u0"]
+    kv = cache["layers"]["u0"]
+    for r in range(cfg.repeats):
+        layer_cache = {"k": kv["k"][r], "v": kv["v"][r]}
+        x, _ = prefill_layer(_layer(stack, r), layer_cache, cfg, "attn", x)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = ops.gemm(x[:, -1], params["lm_head"], out_dtype=torch.float32)
+    b, s = tokens.shape
+    pos = torch.full((b,), s, dtype=torch.int32, device=tokens.device)
+    return logits, dict(cache, pos=pos)
+
+
+def insert_cache_slot(live: dict, sub: dict, slot: int) -> dict:
+    """Copy a batch-1 cache into batch row ``slot`` of a live multi-slot
+    cache, in place; resident slots are untouched."""
+    for name in ("k", "v"):
+        live["layers"]["u0"][name][:, slot] = sub["layers"]["u0"][name][:, 0]
+    live["pos"][slot] = sub["pos"][0]
+    return live
+
+
+def prefill_into_slot(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                      cache: dict, slot: int, *, max_len: int,
+                      prefix_embeds=None, frames=None
+                      ) -> Tuple[torch.Tensor, dict]:
+    """Admit ONE request into slot ``slot`` of a live multi-slot cache:
+    the (1, s) prompt prefills a fresh batch-1 cache whose rows are then
+    copied into the slot.  Stale entries beyond the new request's length
+    stay invisible: decode masks positions > ``pos[slot]``.
+
+    Returns (last-token logits (1, V), cache)."""
+    if tokens.shape[0] != 1:
+        raise ValueError("slot prefill admits one request")
+    fresh = init_cache(cfg, 1, max_len, device=cache["pos"].device)
+    logits, sub = prefill(params, cfg, tokens, fresh,
+                          prefix_embeds=prefix_embeds, frames=frames)
+    return logits, insert_cache_slot(cache, sub, slot)
+

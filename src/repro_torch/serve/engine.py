@@ -1,0 +1,380 @@
+"""Continuous-batching decode engine on the dense KV cache (port of
+``repro/serve/engine.py``).
+
+A request queue feeds a :class:`SlotScheduler`; admission prefills ONE
+request into a free slot of the live cache (resident slots untouched);
+every batched ``decode_step`` advances all slots at their own positions
+(the ``(b,)`` ``cache["pos"]`` contract, masked per row down to the
+flash-decode kernel); per-slot temperature / eos / max_tokens,
+completion and eviction, and tokens/sec + occupancy metrics.
+
+Host syncs are amortized: decode runs in bursts of up to
+``EOS_CHECK_EVERY`` steps (bounded by the tightest remaining
+``max_tokens``), EOS is detected at burst boundaries and tokens sampled
+after it are dropped before a result is returned.
+
+Not ported yet: the block-paged cache (``page_size``, ROADMAP queue
+A5), telemetry spans (A10) and the modeled-bytes methods that need the
+cost model (A6).
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+import time
+from typing import Callable, Deque, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models import transformer as T
+
+# EOS completion is checked on the host only every this-many steps; a
+# per-token check would force a device->host sync every decode step.
+EOS_CHECK_EVERY = 8
+
+#: the ragged acceptance trace — (prompt_len, max_tokens) pairs — whose
+#: every request must decode bit-identically to a solo batch-1 greedy run
+ACCEPTANCE_TRACE = ((4, 8), (16, 32), (8, 16), (32, 4))
+
+
+def acceptance_requests(vocab: int, seed: int = 0) -> List["Request"]:
+    """The acceptance trace as requests (the same prompts the JAX
+    package draws: numpy's generator from ``seed``)."""
+    rng = np.random.default_rng(seed)
+    return [Request(prompt=rng.integers(0, vocab, (p,)).astype(np.int32),
+                    max_tokens=mt)
+            for p, mt in ACCEPTANCE_TRACE]
+
+
+@torch.inference_mode()
+def solo_greedy(params, cfg: ModelConfig, prompt: np.ndarray,
+                max_tokens: int, max_len: int) -> np.ndarray:
+    """The parity oracle: one request alone at batch 1, greedy — prefill
+    then token-by-token decode, on the parameters' device."""
+    device = params["embed"].device
+    cache = T.init_cache(cfg, 1, max_len, device=device)
+    toks = torch.as_tensor(np.asarray(prompt)[None], dtype=torch.int64,
+                           device=device)
+    logits, cache = T.prefill(params, cfg, toks, cache)
+    out = []
+    tok = torch.argmax(logits, -1)[:, None]
+    for _ in range(max_tokens):
+        out.append(tok[0, 0])
+        logits, cache = T.decode_step(params, cfg, tok, cache)
+        tok = torch.argmax(logits, -1)[:, None]
+    return torch.stack(out).cpu().numpy().astype(np.int32)
+
+
+@dataclasses.dataclass
+class Request:
+    """One generation request (host-side)."""
+    prompt: np.ndarray                   # (s,) int32 prompt token ids
+    max_tokens: int
+    temperature: float = 0.0
+    eos_id: Optional[int] = None
+    arrival: float = 0.0                 # seconds since trace start
+    rid: int = -1                        # assigned by submit()
+
+
+@dataclasses.dataclass
+class RequestResult:
+    rid: int
+    prompt_len: int
+    tokens: np.ndarray                   # generated ids (EOS-terminated)
+    admitted_step: int
+    finished_step: int
+    arrival: float
+    admitted_time: float
+    finished_time: float
+    queue_wait: float = 0.0              # arrival -> admission seconds
+    ttft: float = 0.0                    # arrival -> first sampled token
+
+    @property
+    def n_tokens(self) -> int:
+        return int(self.tokens.shape[0])
+
+
+class SlotScheduler:
+    """Pure-host slot allocator: FIFO request queue over ``n_slots``
+    cache slots, lowest free slot first."""
+
+    def __init__(self, n_slots: int):
+        if n_slots < 1:
+            raise ValueError("a scheduler needs at least one slot")
+        self.n_slots = n_slots
+        self.queue: Deque[int] = collections.deque()
+        self.slot_rid: List[Optional[int]] = [None] * n_slots
+        self._free: List[int] = list(range(n_slots))
+
+    @property
+    def n_active(self) -> int:
+        return self.n_slots - len(self._free)
+
+    @property
+    def active_slots(self) -> List[int]:
+        return [s for s, r in enumerate(self.slot_rid) if r is not None]
+
+    def has_work(self) -> bool:
+        return bool(self.queue) or self.n_active > 0
+
+    def submit(self, rid: int) -> None:
+        self.queue.append(rid)
+
+    def admit(self) -> Optional[tuple]:
+        """Pop (slot, rid) when a slot is free and a request is queued."""
+        if not self.queue or not self._free:
+            return None
+        slot = min(self._free)
+        self._free.remove(slot)
+        rid = self.queue.popleft()
+        if self.slot_rid[slot] is not None:
+            raise RuntimeError("slot double-booked")
+        self.slot_rid[slot] = rid
+        return slot, rid
+
+    def release(self, slot: int) -> int:
+        rid = self.slot_rid[slot]
+        if rid is None:
+            raise RuntimeError("releasing a free slot")
+        self.slot_rid[slot] = None
+        self._free.append(slot)
+        return rid
+
+
+@dataclasses.dataclass
+class _SlotState:
+    """Host-side decode state of one occupied slot."""
+    req: Request
+    gen: List[int]                       # synced generated token ids
+    first: Optional[int]                 # prefill-sampled token
+    remaining: int                       # decode steps left
+    admitted_step: int
+    admitted_time: float
+    queue_wait: float = 0.0
+    first_token_time: float = 0.0
+
+
+class DecodeEngine:
+    """Continuous-batching serving engine over ``batch`` cache slots of
+    ``max_len`` positions each, on ``device`` (default the CUDA card).
+    Temperature and EOS come with each request; temperature sampling
+    draws from a ``torch.Generator`` seeded with ``seed``."""
+
+    def __init__(self, params, cfg: ModelConfig, *, batch: int,
+                 max_len: int, page_size: Optional[int] = None,
+                 seed: int = 0, device=None):
+        if page_size is not None:
+            raise NotImplementedError(
+                "the block-paged KV cache is not ported yet (ROADMAP "
+                "queue A5)")
+        T.check_supported(cfg)
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"parameters are on {params['embed'].device}, "
+                             f"the engine runs on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.n_slots = self.batch = batch
+        self.max_len = max_len
+        self._requests: Dict[int, Request] = {}
+        self._sched = SlotScheduler(self.n_slots)
+        self._state: Dict[int, _SlotState] = {}
+        self._next_rid = 0
+        self._cache = None
+        self._tok = torch.zeros((self.n_slots, 1), dtype=torch.int64,
+                                device=self.device)
+        self._temps = np.zeros((self.n_slots,), np.float32)
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(seed)
+        self.reset_metrics()
+
+    # ------------------------------------------------------------ sampling
+
+    def _sample(self, logits: torch.Tensor, temps: np.ndarray
+                ) -> torch.Tensor:
+        """logits: (n, V) -> (n,) tokens; greedy rows where temperature
+        is 0, categorical at ``logits / temp`` elsewhere."""
+        greedy = torch.argmax(logits, dim=-1)
+        if not (temps > 0).any():
+            return greedy
+        t = torch.as_tensor(temps, device=logits.device)
+        probs = torch.softmax(logits / t.clamp(min=1e-6)[:, None], dim=-1)
+        sampled = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        return torch.where(t > 0, sampled, greedy)
+
+    # ------------------------------------------------------------- metrics
+
+    def reset_metrics(self) -> None:
+        self.metrics = {
+            "decode_steps": 0,           # batched decode_step calls
+            "useful_slot_steps": 0,      # sum over steps of active slots
+            "prefill_tokens": 0,         # exact prompt tokens prefilled
+            "generated_tokens": 0,       # tokens in returned results
+            "completed": 0,
+            "decode_time": 0.0,          # wall seconds inside bursts
+            "prefill_time": 0.0,         # wall seconds inside admissions
+        }
+
+    def occupancy(self) -> float:
+        """Mean fraction of slots serving a live request per decode step."""
+        steps = self.metrics["decode_steps"]
+        if steps == 0:
+            return 0.0
+        return self.metrics["useful_slot_steps"] / (steps * self.n_slots)
+
+    def tokens_per_sec(self) -> float:
+        """Decode throughput: generated tokens over wall time spent in
+        decode bursts."""
+        t = self.metrics["decode_time"]
+        return self.metrics["generated_tokens"] / t if t > 0 else 0.0
+
+    # ----------------------------------------------------------- lifecycle
+
+    def submit(self, req: Request) -> int:
+        """Queue a request; returns its rid (admission order = FIFO)."""
+        # the last generated token is sampled but never written back, so
+        # a request occupies cache positions 0..prompt+max_tokens-2
+        need = int(req.prompt.shape[0]) + req.max_tokens - 1
+        if need > self.max_len:
+            raise ValueError(
+                f"request needs {need} cache positions (prompt "
+                f"{int(req.prompt.shape[0])} + max_tokens {req.max_tokens} "
+                f"- 1) but the engine was built with max_len={self.max_len}")
+        rid = self._next_rid
+        self._next_rid += 1
+        req.rid = rid
+        self._requests[rid] = req
+        self._sched.submit(rid)
+        return rid
+
+    def _admit(self, slot: int, req: Request,
+               clock: Callable[[], float]) -> None:
+        """Prefill the request into ``slot`` and sample its first token;
+        admission is the time-to-first-token boundary, so the token is
+        synced here."""
+        adm_time = clock()
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(req.prompt[None, :], dtype=torch.int64,
+                               device=self.device)
+        logits, self._cache = T.prefill_into_slot(
+            self.params, self.cfg, toks, self._cache, slot,
+            max_len=self.max_len)
+        temp = np.float32(req.temperature)
+        first = self._sample(logits, temp[None])
+        self._tok[slot, 0] = first[0]
+        first_tok = int(first[0])                      # host sync
+        self.metrics["prefill_time"] += time.perf_counter() - t0
+        self._temps[slot] = temp
+        self.metrics["prefill_tokens"] += int(req.prompt.shape[0])
+        self._state[slot] = _SlotState(
+            req=req, gen=[], first=first_tok,
+            remaining=req.max_tokens - 1,
+            admitted_step=self.metrics["decode_steps"],
+            admitted_time=adm_time,
+            queue_wait=max(adm_time - req.arrival, 0.0),
+            first_token_time=clock())
+
+    def _finish(self, slot: int, now: float) -> RequestResult:
+        """Truncate at EOS / max_tokens, emit the result, free the slot."""
+        st = self._state.pop(slot)
+        req = st.req
+        toks = st.gen[:req.max_tokens]
+        eos = req.eos_id
+        if eos is not None and eos in toks:
+            toks = toks[:toks.index(eos) + 1]
+        self._temps[slot] = 0.0
+        self._sched.release(slot)
+        self._requests.pop(req.rid, None)
+        self.metrics["generated_tokens"] += len(toks)
+        self.metrics["completed"] += 1
+        return RequestResult(
+            rid=req.rid, prompt_len=int(req.prompt.shape[0]),
+            tokens=np.asarray(toks, np.int32),
+            admitted_step=st.admitted_step,
+            finished_step=self.metrics["decode_steps"],
+            arrival=req.arrival, admitted_time=st.admitted_time,
+            finished_time=now, queue_wait=st.queue_wait,
+            ttft=max(st.first_token_time - req.arrival, 0.0))
+
+    def _sync_slot(self, slot: int, burst_host: Optional[np.ndarray]
+                   ) -> None:
+        """Pull this burst's tokens for one slot into host state."""
+        st = self._state[slot]
+        if st.first is not None:
+            st.gen.append(st.first)
+            st.first = None
+        if burst_host is not None:
+            st.gen.extend(int(t) for t in burst_host[:, slot])
+
+    def _slot_done(self, slot: int) -> bool:
+        st = self._state[slot]
+        if len(st.gen) >= st.req.max_tokens:
+            return True
+        eos = st.req.eos_id
+        return eos is not None and eos in st.gen
+
+    @torch.inference_mode()
+    def run(self, requests: Optional[List[Request]] = None, *,
+            now_fn: Optional[Callable[[], float]] = None,
+            poll: float = 0.001) -> List[RequestResult]:
+        """Drain the queue (plus ``requests``, submitted first) through
+        the slot pool; returns results in completion order.  ``now_fn``
+        is the trace clock gating admissions by ``Request.arrival``;
+        without it every queued request is admittable at once."""
+        for req in requests or ():
+            self.submit(req)
+        if self._cache is None:
+            self._cache = T.init_cache(self.cfg, self.n_slots, self.max_len,
+                                       device=self.device)
+        now = now_fn or (lambda: float("inf"))
+        t_run0 = time.perf_counter()
+        clock = now_fn or (lambda: time.perf_counter() - t_run0)
+        done: List[RequestResult] = []
+
+        while self._sched.has_work():
+            # ---- admissions: fill every free slot with an arrived req
+            while self._sched.queue and self._sched._free and \
+                    self._requests[self._sched.queue[0]].arrival <= now():
+                req = self._requests[self._sched.queue[0]]
+                slot, _ = self._sched.admit()
+                self._admit(slot, req, clock)
+                if req.max_tokens <= 1:
+                    self._sync_slot(slot, None)
+                    done.append(self._finish(slot, clock()))
+
+            active = [s for s in self._sched.active_slots
+                      if s in self._state]
+            if not active:
+                if self._sched.queue:
+                    time.sleep(poll)       # waiting on the next arrival
+                continue
+
+            # ---- decode burst: exact to the tightest max_tokens,
+            #      EOS checked at the boundary
+            k = min([EOS_CHECK_EVERY]
+                    + [self._state[s].remaining for s in active])
+            burst: List[torch.Tensor] = []
+            t_burst0 = time.perf_counter()
+            for _ in range(max(k, 1)):
+                logits, self._cache = T.decode_step(
+                    self.params, self.cfg, self._tok, self._cache)
+                samp = self._sample(logits, self._temps)
+                self._tok = samp[:, None]
+                burst.append(samp)
+            host = torch.stack(burst, dim=0).cpu().numpy()  # (k, slots)
+            self.metrics["decode_time"] += time.perf_counter() - t_burst0
+            self.metrics["decode_steps"] += len(burst)
+            self.metrics["useful_slot_steps"] += len(burst) * len(active)
+            for s in active:
+                self._state[s].remaining -= len(burst)
+
+            # ---- sync + completions
+            for s in active:
+                self._sync_slot(s, host)
+                if self._slot_done(s):
+                    done.append(self._finish(s, clock()))
+        return done
