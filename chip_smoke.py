@@ -60,7 +60,7 @@ from repro_torch.serve.engine import (  # noqa: E402
     ACCEPTANCE_TRACE, DecodeEngine, Request, acceptance_requests,
     solo_greedy)
 
-# H100 SXM datasheet peaks (on-chip-measurement guide): HBM bytes/s and
+# H100 SXM datasheet peaks: HBM bytes/s and
 # dense operations/s by operand type (bf16 tensor cores; f32 outside them)
 PEAK_BYTES = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
