@@ -1,5 +1,6 @@
-// The online-softmax kv-block step shared by flash_attention.cu (prefill)
-// and flash_decode.cu (decode).
+// The online-softmax kv-block step shared by flash_attention.cu (prefill),
+// flash_decode.cu (decode over a dense cache) and flash_decode_paged.cu
+// (decode over a page pool).
 //
 // A CTA of kFaThreads = 128 threads holds up to kFaRows = 16 query rows:
 // 16 consecutive query positions of one head in prefill, or the GQA group of
@@ -8,8 +9,9 @@
 // block's row max and row sum are one xor-shuffle tree over the warp and no
 // (rows x keys) score tile is ever kept beyond one 32-wide row of p.
 //
-// Accumulation order of one row (a paged decode kernel must repeat it, with
-// a page of 32 keys per block, to be bit-identical to the dense one):
+// Accumulation order of one row (the paged decode kernel repeats it over
+// logical 32-key blocks, whatever the page size, so it is bit-identical to
+// the dense one; only where a key's row is found differs, see KeyRows):
 //   * kv blocks are visited in ascending key order;
 //   * a score is one fmaf chain over the head dim in order, on q already
 //     multiplied by the softmax scale;
@@ -72,24 +74,57 @@ __device__ __forceinline__ void flash_load_q(FlashSmem& sm, const T* q,
   __syncthreads();
 }
 
-// One kv block [kv0, kv0 + 32).  Key j of the cache lives at
-// k + j * kv_row_stride.  Row r's query position is qpos0 + r * qpos_step;
-// a key is visible when kp < kv_len, kp <= qpos (causal) and
-// kp > qpos - window (window > 0).
-template <typename T>
+// Where a key's row starts, in elements from the k / v base pointer.
+// flash_block calls begin_block(kv0, kv_len) once per block (every thread),
+// then at(kp, j) for block key j = kp - kv0 < kv_len.
+// Dense caches: kp rows of row_stride.
+struct DenseRows {
+  size_t row_stride;
+  __device__ __forceinline__ void begin_block(int, int) const {}
+  __device__ __forceinline__ size_t at(int kp, int) const {
+    return (size_t)kp * row_stride;
+  }
+};
+
+// A page pool seen through one slot's table: key kp lives in physical page
+// table[kp / ps] at offset kp % ps.  The block's 32 row offsets are looked
+// up once, by the first warp, into row_at (shared memory), so the staging
+// loop does no division and no table read per element.
+struct PagedRows {
+  const int* table;
+  int ps;
+  size_t page_stride;
+  size_t row_stride;
+  size_t* row_at;  // kFaBkv entries in shared memory
+  __device__ __forceinline__ void begin_block(int kv0, int kv_len) const {
+    const int kp = kv0 + (int)threadIdx.x;
+    if (threadIdx.x < kFaBkv && kp < kv_len)
+      row_at[threadIdx.x] =
+          (size_t)table[kp / ps] * page_stride + (size_t)(kp % ps) * row_stride;
+    __syncthreads();
+  }
+  __device__ __forceinline__ size_t at(int, int j) const { return row_at[j]; }
+};
+
+// One kv block [kv0, kv0 + 32).  Key kp of the cache starts at
+// k + rows.at(kp, kp - kv0).  Row r's query position is
+// qpos0 + r * qpos_step; a key is visible when kp < kv_len, kp <= qpos
+// (causal) and kp > qpos - window (window > 0).
+template <typename T, typename KeyRows>
 __device__ __forceinline__ void flash_block(FlashSmem& sm, FlashState& st,
                                             const T* k, const T* v,
-                                            size_t kv_row_stride, int kv0,
+                                            const KeyRows& rows, int kv0,
                                             int kv_len, int d, int n_rows,
                                             int qpos0, int qpos_step,
                                             bool causal, int window) {
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  rows.begin_block(kv0, kv_len);
   for (int i = threadIdx.x; i < kFaBkv * d; i += kFaThreads) {
     const int j = i / d, c = i % d;
     const int kp = kv0 + j;
     const bool ok = kp < kv_len;
-    const size_t at = (size_t)kp * kv_row_stride + c;
+    const size_t at = ok ? rows.at(kp, j) + c : 0;
     sm.k[j][c] = ok ? to_f32(k[at]) : 0.0f;
     sm.v[j][c] = ok ? to_f32(v[at]) : 0.0f;
   }
@@ -124,7 +159,7 @@ __device__ __forceinline__ void flash_block(FlashSmem& sm, FlashState& st,
       }
     }
   }
-  __syncthreads();  // the next block overwrites k, v and p
+  __syncthreads();  // the next block overwrites k, v, p (and row_at)
 }
 
 // Write acc / (l > 0 ? l : 1) for n_rows rows (row r at o + r * row_stride).

@@ -52,8 +52,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_begin =
       window > 0 ? max(0, qpos_first - window + 1) / kFaBkv * kFaBkv : 0;
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kFaBkv)
-    flash_block(sm, st, k + kv_at, v + kv_at, kv_row_stride, kv0, skv, d,
-                n_rows, qpos_first, 1, causal != 0, window);
+    flash_block(sm, st, k + kv_at, v + kv_at, DenseRows{kv_row_stride}, kv0,
+                skv, d, n_rows, qpos_first, 1, causal != 0, window);
   flash_store(st, o + q_at, q_row_stride, n_rows, d);
 }
 

@@ -16,7 +16,7 @@
 // host sync.  The kv-block accumulation order is the one written down in
 // csrc/flash.cuh: 32-key blocks in ascending order from block
 // floor(max(0, pos - window + 1) / 32) to block floor(min(pos, S - 1) / 32).
-// A paged kernel over 32-key pages that repeats it gives the same bits.
+// flash_decode_paged.cu repeats it over a page pool and gives the same bits.
 #include "flash.cuh"
 
 namespace repro {
@@ -43,8 +43,8 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kv_end = min(S, p + 1);
   const int kv_begin = window > 0 ? max(0, p - window + 1) / kFaBkv * kFaBkv : 0;
   for (int kv0 = kv_begin; kv0 < kv_end; kv0 += kFaBkv)
-    flash_block(sm, st, k + kv_at, v + kv_at, kv_row_stride, kv0, S, d, groups,
-                p, 0, true, window);
+    flash_block(sm, st, k + kv_at, v + kv_at, DenseRows{kv_row_stride}, kv0, S,
+                d, groups, p, 0, true, window);
   flash_store(st, o + q_at, d, groups, d);
 }
 

@@ -1,13 +1,21 @@
-"""Single-token attention over a dense KV cache (kernel B4).
+"""Single-token attention over a dense KV cache (kernel B4) and over a
+shared page pool (kernel B5).
 
-Replaces the Pallas kernel ``repro/kernels/flash_decode.py``
+B4 replaces the Pallas kernel ``repro/kernels/flash_decode.py``
 ``flash_decode`` (pallas_call :144, body ``_flash_decode_kernel`` :37)
 with the hand-written CUDA kernel ``csrc/flash_decode.cu``.  On an H100
 it is bound by the cache bytes each slot has written; it reads ``pos``
 from device memory (no host sync) and stops at ``pos[row]``.
 
-Dispatch goes by device: a CPU tensor takes :func:`flash_decode_plain`,
-a CUDA tensor launches the kernel or raises.
+B5 replaces ``flash_decode_paged`` (pallas_call :275, body
+``_flash_decode_paged_kernel`` :156) with ``csrc/flash_decode_paged.cu``:
+B4's blocks and accumulation order, with each key's row looked up
+through the slot's page table, so paged decode equals dense decode bit
+for bit at any page size.  It reads ``pos`` and the table from device
+memory.
+
+Dispatch goes by device: a CPU tensor takes the ``*_plain`` version, a
+CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -18,13 +26,38 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
-from repro_torch.kernels.ref import decode_attention_ref
+from repro_torch.kernels.ref import (decode_attention_paged_ref,
+                                    decode_attention_ref)
 
 #: most q heads one kv head may serve (the kernel's 16 rows per CTA)
 MAX_GROUP = 16
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _pos_vector(pos, b: int, device, name: str) -> torch.Tensor:
+    """(b,) contiguous int32 positions on ``device``; a scalar
+    broadcasts."""
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=device)
+    pos = pos.expand(b).contiguous() if pos.dim() == 0 else pos.contiguous()
+    if tuple(pos.shape) != (b,):
+        raise ValueError(f"{name}: pos must be ({b},), got "
+                         f"{tuple(pos.shape)}")
+    return pos
+
+
+def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor,
+                    v: torch.Tensor, hq: int, hkv: int, d: int) -> None:
+    """What both kernels take: one dtype, head_dim and GQA group within
+    the kernel's tiles."""
+    if not q.dtype == k.dtype == v.dtype:
+        raise TypeError(f"{name}: q and cache dtypes differ")
+    if d > MAX_HEAD_DIM or hq // hkv > MAX_GROUP:
+        raise ValueError(f"{name}: head_dim {d} (max {MAX_HEAD_DIM}) "
+                         f"or group {hq // hkv} (max {MAX_GROUP}) too large")
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -53,17 +86,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                          f"caches {tuple(k_cache.shape)}")
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos, window=window)
-    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
-    pos = pos.expand(b).contiguous() if pos.dim() == 0 else pos.contiguous()
-    if tuple(pos.shape) != (b,):
-        raise ValueError(f"flash_decode: pos must be ({b},), got "
-                         f"{tuple(pos.shape)}")
+    pos = _pos_vector(pos, b, q.device, "flash_decode")
     _build.require_cuda("flash_decode", q, k_cache, v_cache, pos)
-    if not q.dtype == k_cache.dtype == v_cache.dtype:
-        raise TypeError("flash_decode: q and cache dtypes differ")
-    if d > MAX_HEAD_DIM or hq // hkv > MAX_GROUP:
-        raise ValueError(f"flash_decode: head_dim {d} (max {MAX_HEAD_DIM}) "
-                         f"or group {hq // hkv} (max {MAX_GROUP}) too large")
+    _check_operands("flash_decode", q, k_cache, v_cache, hq, hkv, d)
     code = _build.dtype_code(q.dtype, "flash_decode")
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
@@ -78,3 +103,66 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 
 flash_decode.launches = 0
+
+
+def flash_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                             v_pages: torch.Tensor,
+                             page_table: torch.Tensor, pos, *,
+                             window: int = 0) -> torch.Tensor:
+    """The paged kernel's function in plain PyTorch, on any device: the
+    pages gathered into a dense view, then the dense reference."""
+    flash_decode_paged_plain.launches += 1
+    return decode_attention_paged_ref(q, k_pages, v_pages, page_table, pos,
+                                      window=window)
+
+
+flash_decode_paged_plain.launches = 0
+
+
+def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, page_table: torch.Tensor,
+                       pos, *, window: int = 0) -> torch.Tensor:
+    """q: (b, hq, d) one token per slot; k_pages/v_pages: (n_pages,
+    page_size, hkv, d), one pool shared by every slot; page_table:
+    (b, max_pages) int32, row i's logical key kp in physical page
+    ``page_table[i, kp // page_size]``; pos: (b,) int32 (a scalar
+    broadcasts).  Row i sees keys <= pos[i] and < max_pages * page_size
+    (and > pos[i] - window when window > 0); a row that sees no key at
+    all (only a masked row whose position has run past its table, under
+    a window) gets zeros from the kernel, as from the Pallas kernel, and
+    the mean of the values from the plain version — the serve loop never
+    reads such a row.  Table entries are not checked against n_pages on
+    the card (that would cost a host sync); the serve loop's pool hands
+    out only pages it holds.  Returns (b, hq, d) in q's dtype."""
+    b, hq, d = q.shape
+    _, ps, hkv, dk = k_pages.shape
+    if tuple(v_pages.shape) != tuple(k_pages.shape) or dk != d \
+            or hq % hkv != 0 or page_table.dim() != 2 \
+            or page_table.shape[0] != b:
+        raise ValueError(f"flash_decode_paged: bad shapes q "
+                         f"{tuple(q.shape)}, pools {tuple(k_pages.shape)}, "
+                         f"table {tuple(page_table.shape)}")
+    if q.device.type == "cpu":
+        return flash_decode_paged_plain(q, k_pages, v_pages, page_table,
+                                        pos, window=window)
+    pos = _pos_vector(pos, b, q.device, "flash_decode_paged")
+    _build.require_cuda("flash_decode_paged", q, k_pages, v_pages,
+                        page_table, pos)
+    _check_operands("flash_decode_paged", q, k_pages, v_pages, hq, hkv, d)
+    if page_table.dtype != torch.int32:
+        raise TypeError("flash_decode_paged: the page table must be int32")
+    code = _build.dtype_code(q.dtype, "flash_decode_paged")
+    q, page_table = q.contiguous(), page_table.contiguous()
+    k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
+    o = torch.empty_like(q)
+    rc = _build.entry("flash_decode_paged_launch", _PAGED_ARGTYPES)(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        page_table.data_ptr(), pos.data_ptr(), o.data_ptr(), b, ps,
+        page_table.shape[1], hq, hkv, d, int(window), float(d ** -0.5),
+        code, _build.stream_of(q))
+    _build.check(rc, "flash_decode_paged")
+    flash_decode_paged.launches += 1
+    return o
+
+
+flash_decode_paged.launches = 0

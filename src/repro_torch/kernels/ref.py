@@ -110,6 +110,27 @@ def decode_attention_ref(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, hq, d).to(q.dtype)
 
 
+def decode_attention_paged_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor,
+                               page_table: torch.Tensor, pos, *,
+                               window: int = 0) -> torch.Tensor:
+    """Single-token attention over a page pool, all in f32
+    (``attn_api._decode_attention_paged_xla``): each row's pages are
+    gathered back into a dense (b, max_pages * page_size, hkv, d) view
+    and attended by :func:`decode_attention_ref`.  With the gathered
+    length equal to a dense cache's length the result is the dense
+    result, bit for bit.
+
+    q: (b, hq, d); pools: (n_pages, page_size, hkv, d); page_table:
+    (b, max_pages) int32; pos: (b,) int32 (a scalar broadcasts)."""
+    _, ps, hkv, d = k_pages.shape
+    b, max_pages = page_table.shape
+    idx = page_table.long()
+    k = k_pages[idx].reshape(b, max_pages * ps, hkv, d)
+    v = v_pages[idx].reshape(b, max_pages * ps, hkv, d)
+    return decode_attention_ref(q, k, v, pos, window=window)
+
+
 def decode_attention_xla(q: torch.Tensor, k_cache: torch.Tensor,
                          v_cache: torch.Tensor, pos, *,
                          window: int = 0) -> torch.Tensor:

@@ -7,6 +7,10 @@ continuous-batching engine on the CUDA card (or on the CPU when asked).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --trace 8 --slots 2 --steps 8 --device cpu
 
+    # block-paged KV pool, chunked prefill, prefix sharing
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
+        --smoke --page-size 16 --prefill-chunk 8 --device cpu
+
 Weights are random, drawn from ``--seed``.  Prints the same ``[serve]``
 lines as ``repro.launch.serve``.
 """
@@ -87,6 +91,14 @@ def run_trace(engine: DecodeEngine, cfg, args) -> None:
           f"p99 {np.percentile(ttft, 99)*1e3:.0f} ms; "
           f"queue wait: mean {qwait.mean()*1e3:.0f} ms, "
           f"p99 {np.percentile(qwait, 99)*1e3:.0f} ms")
+    if engine.paged:
+        print(f"[serve] paged KV: {m['prefill_chunks']} prefill "
+              f"chunks, max decode stall "
+              f"{m['max_prefill_stall_tokens']} prompt tokens; "
+              f"prefix cache {m['prefix_hits']} hits / "
+              f"{m['prefix_misses']} misses "
+              f"({m['shared_prompt_tokens']} prompt tokens shared); "
+              f"peak {m['peak_pages_used']} pages in use")
 
 
 def main(argv: Optional[List[str]] = None) -> None:
@@ -106,9 +118,25 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the CUDA card (raises without one)")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="block-paged KV cache with this page size "
+                         "(tokens); max_len rounds up to a page multiple")
+    ap.add_argument("--pages", type=int, default=None,
+                    help="KV pool size in pages incl. the sink page "
+                         "(default: dense-equivalent capacity)")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="split paged admissions into chunks of this many "
+                         "prompt tokens, interleaved with decode bursts")
+    ap.add_argument("--no-prefix-cache", action="store_true",
+                    help="disable content-hash prefix sharing of paged "
+                         "prompt pages")
     args = ap.parse_args(argv)
     if args.trace < 1:
         ap.error("--trace must be at least 1")
+    if args.page_size is None and (args.pages or args.prefill_chunk
+                                   or args.no_prefix_cache):
+        ap.error("--pages, --prefill-chunk and --no-prefix-cache need "
+                 "--page-size")
 
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke \
@@ -119,11 +147,20 @@ def main(argv: Optional[List[str]] = None) -> None:
     # trace prompts come from the buckets; the warm-up needs 2 tokens
     max_len = args.max_len or max(TRACE_PROMPT_BUCKETS) + max(args.steps, 2)
     engine = DecodeEngine(params, cfg, batch=args.slots, max_len=max_len,
+                          page_size=args.page_size, n_pages=args.pages,
+                          prefill_chunk=args.prefill_chunk,
+                          prefix_cache=not args.no_prefix_cache,
                           seed=args.seed, device=device)
     name = torch.cuda.get_device_name(device) if device.type == "cuda" \
         else "cpu"
     print(f"[serve] {cfg.name} ({cfg.dtype}) on {name}: {args.slots} "
-          f"slots x {max_len} positions")
+          f"slots x {engine.max_len} positions")
+    if engine.paged:
+        print(f"[serve] paged KV: {engine.kv.pool.n_pages - 1} pages x "
+              f"{engine.page_size} tokens (+1 sink), "
+              f"{engine.kv.max_pages} pages/slot"
+              + (f", prefill chunk {engine.prefill_chunk}"
+                 if engine.prefill_chunk else ""))
     run_trace(engine, cfg, args)
 
 

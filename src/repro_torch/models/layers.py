@@ -1,6 +1,7 @@
 """Shared model layers (port of ``repro/models/layers.py``, dense
 self-attention path): RMS norm, rotary embeddings, the SwiGLU MLP, GQA
-attention with a dense per-slot KV cache, embeddings.
+attention over a dense per-slot KV cache or a shared page pool,
+embeddings.
 
 Parameters are plain dicts of tensors in the JAX layout ((d_in, d_out)
 weights).  Every projection goes through :func:`repro_torch.ops.gemm`,
@@ -157,6 +158,38 @@ def attention_decode(params: dict, x: torch.Tensor, cache: dict,
     scatter_rows(cache["v"], v_new, pos)
     out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], pos,
                                window=spec.window)
+    out = ops.gemm(out.reshape(b, 1, -1), params["wo"], residual=residual)
+    return out, cache
+
+
+def paged_attention_decode(params: dict, x: torch.Tensor, cache: dict,
+                           page_table: torch.Tensor, pos: torch.Tensor,
+                           spec: AttnLayerSpec,
+                           residual: Optional[torch.Tensor] = None
+                           ) -> Tuple[torch.Tensor, dict]:
+    """Single-step decode against a block-paged KV pool.
+
+    ``cache``: {"k", "v"} of (n_pages, page_size, hkv, hd), one pool
+    shared by every slot; ``page_table``: (b, max_pages) int32 per-slot
+    tables.  Row i's new k/v lands in physical page
+    ``page_table[i, min(pos[i] // page_size, max_pages - 1)]`` at offset
+    ``pos[i] % page_size``: the clamp keeps a masked row whose position
+    has run past its table in bounds, and masked rows (all-sink tables)
+    write into the sink page, which no live table references.  The write
+    is in place; colliding sink writes are harmless.  x: (b, 1, d)."""
+    b, s, _ = x.shape
+    if s != 1:
+        raise ValueError(f"decode takes one token per row, got {s}")
+    ps = cache["k"].shape[1]
+    max_pages = page_table.shape[1]
+    q, k_new, v_new = _project_qkv(params, x, spec, pos[:, None])
+    rows = torch.arange(b, device=x.device)
+    pages = page_table[rows, (pos // ps).clamp(max=max_pages - 1).long()]
+    pages, offs = pages.long(), (pos % ps).long()
+    cache["k"][pages, offs] = k_new[:, 0].to(cache["k"].dtype)
+    cache["v"][pages, offs] = v_new[:, 0].to(cache["v"].dtype)
+    out = ops.decode_attention_paged(q[:, 0], cache["k"], cache["v"],
+                                     page_table, pos, window=spec.window)
     out = ops.gemm(out.reshape(b, 1, -1), params["wo"], residual=residual)
     return out, cache
 

@@ -1,7 +1,9 @@
 """Decoder stack for serving (port of ``repro/models/transformer.py``,
 dense ``attn`` layers): parameter init, the dense per-slot KV cache,
-prefill, one decode step, and slot-targeted prefill for continuous
-batching.
+prefill, one decode step, slot-targeted prefill for continuous
+batching, and the block-paged cache (pool init, chunked prefill into
+pages, copy-on-write page copies; ``decode_step`` takes the pool's
+page table when the cache has one).
 
 The JAX package scans one compiled unit over the stacked ``repeats``
 axis; here a Python loop walks the stacked leaves, taking layer ``r`` as
@@ -12,8 +14,9 @@ like the JAX ones.
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import ops, resolve_device
@@ -25,8 +28,9 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense ``attn`` stacks with full attention; every
-    other feature raises, naming the ROADMAP queue item that brings it."""
+    """The port serves dense ``attn`` stacks with full attention, on the
+    dense cache and on the page pool; every other feature raises, naming
+    the ROADMAP queue item that brings it."""
     bad = sorted({k for k in cfg.all_kinds if k != "attn"})
     if bad:
         raise NotImplementedError(
@@ -34,8 +38,9 @@ def check_supported(cfg: ModelConfig) -> None:
             "(ROADMAP queue A9)")
     if cfg.window:
         raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention and its ring-buffer "
-            "decode are not ported yet (ROADMAP queue A5)")
+            f"{cfg.name}: sliding-window serving (the dense path's "
+            "ring-buffer decode, the window on the paged path) is not "
+            "ported yet (ROADMAP queue A12)")
     if cfg.tail_pattern or cfg.encoder_layers or cfg.prefix_tokens \
             or not cfg.use_rope:
         raise NotImplementedError(
@@ -113,13 +118,20 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
-                 x: torch.Tensor, pos: torch.Tensor
+                 x: torch.Tensor, pos: torch.Tensor,
+                 page_table: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, dict]:
+    """One layer of a decode step; ``page_table`` set means ``cache`` is
+    this layer's page pool."""
     if kind != "attn":
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
-    x, cache = L.attention_decode(p["attn"], h, cache, pos, _attn_spec(cfg),
-                                  residual=x)
+    if page_table is not None:
+        x, cache = L.paged_attention_decode(p["attn"], h, cache, page_table,
+                                            pos, _attn_spec(cfg), residual=x)
+    else:
+        x, cache = L.attention_decode(p["attn"], h, cache, pos,
+                                      _attn_spec(cfg), residual=x)
     h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
     return L.swiglu(p["mlp"], h, residual=x), cache
 
@@ -128,15 +140,17 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
     """One decode step.  token: (b, 1) ints.  Returns (logits (b, V) f32,
     cache) — the cache's k/v are written in place and ``pos`` advances
-    by one for every slot."""
+    by one for every slot.  A cache with a ``page_table`` (from
+    :func:`init_paged_cache`) is a page pool addressed through it."""
     pos = cache["pos"]
+    table = cache.get("page_table")
     x = L.embed(params["embed"], token)
     stack = params["layers"]["u0"]
     kv = cache["layers"]["u0"]
     for r in range(cfg.repeats):
         layer_cache = {"k": kv["k"][r], "v": kv["v"][r]}
         x, _ = decode_layer(_layer(stack, r), layer_cache, cfg, "attn", x,
-                            pos)
+                            pos, page_table=table)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = ops.gemm(x[:, 0], params["lm_head"], out_dtype=torch.float32)
     return logits, dict(cache, pos=pos + 1)
@@ -212,3 +226,113 @@ def prefill_into_slot(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                           prefix_embeds=prefix_embeds, frames=frames)
     return logits, insert_cache_slot(cache, sub, slot)
 
+
+# ---------------------------------------------------------------------------
+# Block-paged KV cache (serve)
+# ---------------------------------------------------------------------------
+
+def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
+                     page_size: int, max_pages: int, device=None) -> dict:
+    """Decode cache whose K/V live in a shared block pool: k/v leaves
+    stacked (repeats, n_pages, page_size, n_kv_heads, head_dim); slots
+    address them through ``page_table`` ((batch, max_pages) int32, all
+    pointing at page 0, the serve loop's sink, until a slot is
+    promoted)."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    shape = (cfg.repeats, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
+    dt = _DTYPES[cfg.dtype]
+    return {
+        "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
+        "page_table": torch.zeros((batch, max_pages), dtype=torch.int32,
+                                  device=device),
+        "layers": {"u0": {
+            "k": torch.zeros(shape, dtype=dt, device=device),
+            "v": torch.zeros(shape, dtype=dt, device=device)}},
+    }
+
+
+def _prefill_chunk_layer(p: dict, cache: dict, cfg: ModelConfig,
+                         kind: str, x: torch.Tensor, pages: torch.Tensor,
+                         offs: torch.Tensor, hist: torch.Tensor, start: int
+                         ) -> Tuple[torch.Tensor, dict]:
+    """One layer of a prompt chunk at positions [start, start + s)
+    against this layer's page pool.  The chunk's k/v go to
+    ``(pages[j], offs[j])``; the history pages ``hist`` are gathered
+    into an exact (1, start + s) view, so attention sees the operands a
+    whole-prompt prefill's rows see."""
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
+    b, s, _ = x.shape
+    spec = _attn_spec(cfg)
+    h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+    positions = torch.arange(start, start + s, device=x.device)
+    q, k, v = L._project_qkv(p["attn"], h, spec, positions)
+    cache["k"][pages, offs] = k[0].to(cache["k"].dtype)
+    cache["v"][pages, offs] = v[0].to(cache["v"].dtype)
+    n = start + s
+    kf = cache["k"][hist].reshape(1, -1, spec.n_kv_heads, spec.head_dim)
+    vf = cache["v"][hist].reshape(1, -1, spec.n_kv_heads, spec.head_dim)
+    out = ops.attention(q, kf[:, :n], vf[:, :n], causal=True,
+                        window=spec.window, q_offset=start)
+    x = ops.gemm(out.reshape(b, s, -1), p["attn"]["wo"], residual=x)
+    hh = L.rms_norm(p["norm2"], x, cfg.norm_eps)
+    return L.swiglu(p["mlp"], hh, residual=x), cache
+
+
+def prefill_paged_chunk(params: dict, cfg: ModelConfig,
+                        tokens: torch.Tensor, cache: dict, slot: int,
+                        table_row, start_pos: int
+                        ) -> Tuple[torch.Tensor, dict]:
+    """Prefill ONE chunk of a prompt into the page pool.
+
+    tokens: (1, s), prompt positions [start_pos, start_pos + s);
+    ``table_row``: the slot's TRUE (max_pages,) int32 table, a host
+    array (the device ``page_table`` row stays all-sink until the engine
+    promotes the slot after its last chunk, so interleaved decode steps
+    never read a half-written prompt); ``start_pos``: a Python int.  The
+    chunk's page / offset indices and its history pages are worked out
+    on the host once per chunk and cross to the card in one copy.  A
+    prompt whose first ``start_pos`` tokens ride shared prefix pages
+    prefills only its suffix, attending that history through the table.
+
+    Returns (last-position logits (1, V) f32, cache) with the pool
+    written in place and ``pos[slot] = start_pos + s``."""
+    if tokens.shape[0] != 1:
+        raise ValueError("chunk prefill admits one request")
+    s = tokens.shape[1]
+    kv = cache["layers"]["u0"]
+    ps = kv["k"].shape[2]
+    row = np.asarray(table_row, dtype=np.int64)
+    at = np.arange(start_pos, start_pos + s)
+    n_hist = -(-(start_pos + s) // ps)
+    if n_hist > row.shape[0]:
+        raise ValueError(f"chunk ends at position {start_pos + s}, past the "
+                         f"table's {row.shape[0]} pages of {ps}")
+    idx = torch.as_tensor(np.concatenate([row[at // ps], at % ps,
+                                          row[:n_hist]]))
+    idx = idx.to(kv["k"].device)
+    pages, offs, hist = idx[:s], idx[s:2 * s], idx[2 * s:]
+    x = L.embed(params["embed"], tokens)
+    stack = params["layers"]["u0"]
+    for r in range(cfg.repeats):
+        layer_cache = {"k": kv["k"][r], "v": kv["v"][r]}
+        x, _ = _prefill_chunk_layer(_layer(stack, r), layer_cache, cfg,
+                                    "attn", x, pages, offs, hist, start_pos)
+    x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
+    logits = ops.gemm(x[:, -1], params["lm_head"], out_dtype=torch.float32)
+    cache["pos"][slot] = start_pos + s
+    return logits, cache
+
+
+def copy_kv_pages(cache: dict, src, dst) -> dict:
+    """Copy physical pages ``src[i] -> dst[i]`` in every layer's pool, in
+    place (the copy-on-write step: a slot about to write into a shared
+    page gets its own copy first).  src / dst: sequences of page ids."""
+    kv = cache["layers"]["u0"]
+    device = kv["k"].device
+    src = torch.as_tensor(np.asarray(src, np.int64)).to(device)
+    dst = torch.as_tensor(np.asarray(dst, np.int64)).to(device)
+    for name in ("k", "v"):
+        kv[name][:, dst] = kv[name][:, src]
+    return cache

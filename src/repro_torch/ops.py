@@ -17,7 +17,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_paged)
 from repro_torch.kernels.gemm_aie import gemm_aie
 from repro_torch.kernels.gemm_gated import gemm_gated
 
@@ -73,3 +74,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     """Single-token attention over a dense KV cache.  q: (b, hq, d);
     caches: (b, S, hkv, d); pos: (b,) int32 -> (b, hq, d)."""
     return flash_decode(q, k_cache, v_cache, pos, window=window)
+
+
+def decode_attention_paged(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, page_table: torch.Tensor,
+                           pos, *, window: int = 0) -> torch.Tensor:
+    """Single-token attention over a shared page pool.  q: (b, hq, d);
+    pools: (n_pages, page_size, hkv, d); page_table: (b, max_pages)
+    int32; pos: (b,) int32 -> (b, hq, d)."""
+    return flash_decode_paged(q, k_pages, v_pages, page_table, pos,
+                              window=window)

@@ -1,21 +1,29 @@
-"""Continuous-batching decode engine on the dense KV cache (port of
-``repro/serve/engine.py``).
+"""Continuous-batching decode engine on the dense KV cache or on a
+block-paged pool (port of ``repro/serve/engine.py``).
 
-A request queue feeds a :class:`SlotScheduler`; admission prefills ONE
-request into a free slot of the live cache (resident slots untouched);
-every batched ``decode_step`` advances all slots at their own positions
-(the ``(b,)`` ``cache["pos"]`` contract, masked per row down to the
-flash-decode kernel); per-slot temperature / eos / max_tokens,
-completion and eviction, and tokens/sec + occupancy metrics.
+A request queue feeds a :class:`SlotScheduler`; every batched
+``decode_step`` advances all slots at their own positions (the ``(b,)``
+``cache["pos"]`` contract, masked per row down to the flash-decode
+kernels); per-slot temperature / eos / max_tokens, completion and
+eviction, and tokens/sec + occupancy metrics.
+
+* Dense cache: admission prefills ONE request into a free slot of the
+  live cache (resident slots untouched).
+* Paged pool (``page_size``): admission maps pages through
+  :class:`~repro_torch.serve.paging.PagedKV` (content-hash prefix
+  sharing, copy-on-write of a shared page the slot will write into),
+  the prompt lands in ``prefill_chunk``-token chunks interleaved with
+  decode bursts, and the slot joins the decode batch (its device
+  page-table row leaves the sink) after its last chunk.
 
 Host syncs are amortized: decode runs in bursts of up to
 ``EOS_CHECK_EVERY`` steps (bounded by the tightest remaining
 ``max_tokens``), EOS is detected at burst boundaries and tokens sampled
 after it are dropped before a result is returned.
 
-Not ported yet: the block-paged cache (``page_size``, ROADMAP queue
-A5), telemetry spans (A10) and the modeled-bytes methods that need the
-cost model (A6).
+Not ported yet: telemetry spans (ROADMAP queue A10) and the
+modeled-bytes methods (``modeled_kv_bytes*``,
+``modeled_bytes_per_token``), which need the cost model (A6).
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import transformer as T
+from repro_torch.serve import paging
 
 # EOS completion is checked on the host only every this-many steps; a
 # per-token check would force a device->host sync every decode step.
@@ -92,6 +101,7 @@ class RequestResult:
     finished_time: float
     queue_wait: float = 0.0              # arrival -> admission seconds
     ttft: float = 0.0                    # arrival -> first sampled token
+    prefill_chunks: int = 1              # chunked-prefill admissions > 1
 
     @property
     def n_tokens(self) -> int:
@@ -156,21 +166,43 @@ class _SlotState:
     admitted_time: float
     queue_wait: float = 0.0
     first_token_time: float = 0.0
+    prefill_chunks: int = 1
+
+
+@dataclasses.dataclass
+class _PrefillState:
+    """A paged slot mid-admission: its prompt lands in chunks
+    interleaved with decode bursts, and the slot joins the decode batch
+    (device page-table row unmasked, first token sampled) after the
+    last chunk."""
+    req: Request
+    row: np.ndarray                      # true (max_pages,) page table
+    next_pos: int                        # prompt positions written so far
+    chunks: int
+    admitted_time: float
+    queue_wait: float
 
 
 class DecodeEngine:
     """Continuous-batching serving engine over ``batch`` cache slots of
     ``max_len`` positions each, on ``device`` (default the CUDA card).
     Temperature and EOS come with each request; temperature sampling
-    draws from a ``torch.Generator`` seeded with ``seed``."""
+    draws from a ``torch.Generator`` seeded with ``seed``.
+
+    ``page_size`` switches the KV cache from dense per-slot rows to a
+    block-paged pool (``max_len`` rounds up to a page multiple):
+    ``n_pages`` sizes the pool (default: dense-equivalent capacity,
+    ``batch * max_len / page_size`` plus the reserved sink page),
+    ``prefill_chunk`` splits admissions into chunks of that many prompt
+    tokens interleaved with decode bursts, and ``prefix_cache`` turns on
+    content-hash prefix sharing (a shared prompt prefix prefills once;
+    copy-on-write on the first divergent mid-page write)."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  max_len: int, page_size: Optional[int] = None,
-                 seed: int = 0, device=None):
-        if page_size is not None:
-            raise NotImplementedError(
-                "the block-paged KV cache is not ported yet (ROADMAP "
-                "queue A5)")
+                 n_pages: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 prefix_cache: bool = True, seed: int = 0, device=None):
         T.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
@@ -179,6 +211,28 @@ class DecodeEngine:
         self.params = params
         self.cfg = cfg
         self.n_slots = self.batch = batch
+        self.paged = page_size is not None
+        self.page_size = page_size
+        self.prefill_chunk = prefill_chunk
+        self.kv: Optional[paging.PagedKV] = None
+        self._prefilling: Dict[int, _PrefillState] = {}
+        if self.paged:
+            if page_size < 1 or (prefill_chunk is not None
+                                 and prefill_chunk < 1):
+                raise ValueError("page_size and prefill_chunk must be "
+                                 "positive")
+            # a gathered table as long as a dense cache keeps paged
+            # decode bit-identical to dense decode; round up, never down
+            max_len = -(-max_len // page_size) * page_size
+            max_pages = max_len // page_size
+            if n_pages is None:
+                n_pages = 1 + self.n_slots * max_pages
+            self.kv = paging.PagedKV(self.n_slots, n_pages, page_size,
+                                     max_pages, prefix_cache=prefix_cache)
+            # the device table is uploaded from this host copy only when
+            # a slot is promoted or finishes, never per decode step
+            self._table_np = np.full((self.n_slots, max_pages),
+                                     paging.SINK_PAGE, np.int32)
         self.max_len = max_len
         self._requests: Dict[int, Request] = {}
         self._sched = SlotScheduler(self.n_slots)
@@ -217,7 +271,16 @@ class DecodeEngine:
             "completed": 0,
             "decode_time": 0.0,          # wall seconds inside bursts
             "prefill_time": 0.0,         # wall seconds inside admissions
+            "prefill_chunks": 0,         # admission chunks across reqs
+            # longest run of prompt tokens prefilled while >= 1
+            # decode-ready slot sat waiting — the stall chunking bounds
+            "max_prefill_stall_tokens": 0,
+            "prefix_hits": 0,
+            "prefix_misses": 0,
+            "shared_prompt_tokens": 0,   # prompt tokens never prefilled
+            "peak_pages_used": 0,        # most pool pages held at once
         }
+        self._stall_run = 0
 
     def occupancy(self) -> float:
         """Mean fraction of slots serving a live request per decode step."""
@@ -244,12 +307,46 @@ class DecodeEngine:
                 f"request needs {need} cache positions (prompt "
                 f"{int(req.prompt.shape[0])} + max_tokens {req.max_tokens} "
                 f"- 1) but the engine was built with max_len={self.max_len}")
+        if self.paged:
+            total = self.kv.total_pages(need)
+            cap = self.kv.pool.n_pages - 1
+            if total > cap:
+                raise ValueError(
+                    f"request needs {total} pages but the pool only has "
+                    f"{cap} allocatable pages")
         rid = self._next_rid
         self._next_rid += 1
         req.rid = rid
         self._requests[rid] = req
         self._sched.submit(rid)
         return rid
+
+    def _ensure_cache(self) -> None:
+        if self._cache is None:
+            if self.paged:
+                self._cache = T.init_paged_cache(
+                    self.cfg, self.n_slots, self.kv.pool.n_pages,
+                    self.page_size, self.kv.max_pages, device=self.device)
+            else:
+                self._cache = T.init_cache(self.cfg, self.n_slots,
+                                           self.max_len, device=self.device)
+
+    def _note_prefill_stall(self, n_tokens: int) -> None:
+        """Account ``n_tokens`` of prefill work done while at least one
+        decode-ready slot sat waiting (the stall chunked prefill
+        bounds); a decode burst resets the running stall."""
+        if self._state:
+            self._stall_run += n_tokens
+            self.metrics["max_prefill_stall_tokens"] = max(
+                self.metrics["max_prefill_stall_tokens"], self._stall_run)
+
+    def _note_pages(self) -> None:
+        self.metrics["peak_pages_used"] = max(
+            self.metrics["peak_pages_used"], self.kv.pool.n_used)
+
+    def _upload_table(self) -> None:
+        """Copy the host page table into the device one, in place."""
+        self._cache["page_table"].copy_(torch.from_numpy(self._table_np))
 
     def _admit(self, slot: int, req: Request,
                clock: Callable[[], float]) -> None:
@@ -270,6 +367,8 @@ class DecodeEngine:
         self.metrics["prefill_time"] += time.perf_counter() - t0
         self._temps[slot] = temp
         self.metrics["prefill_tokens"] += int(req.prompt.shape[0])
+        self.metrics["prefill_chunks"] += 1
+        self._note_prefill_stall(int(req.prompt.shape[0]))
         self._state[slot] = _SlotState(
             req=req, gen=[], first=first_tok,
             remaining=req.max_tokens - 1,
@@ -278,8 +377,83 @@ class DecodeEngine:
             queue_wait=max(adm_time - req.arrival, 0.0),
             first_token_time=clock())
 
+    def _admit_paged(self, slot: int, req: Request,
+                     clock: Callable[[], float]) -> None:
+        """Map pages for the request and stage its prompt for chunked
+        prefill.  Nothing is computed here beyond a possible
+        copy-on-write page copy; the slot joins the decode batch when
+        :meth:`_run_prefill_chunk` lands its last chunk."""
+        plen = int(req.prompt.shape[0])
+        adm_time = clock()
+        plan = self.kv.admit(slot, req.prompt, plen + req.max_tokens - 1)
+        if plan.cow_src:
+            self._cache = T.copy_kv_pages(self._cache, plan.cow_src,
+                                          plan.cow_dst)
+        if self.kv.prefix is not None:
+            key = "prefix_hits" if plan.prefix_hit else "prefix_misses"
+            self.metrics[key] += 1
+            self.metrics["shared_prompt_tokens"] += plan.shared_tokens
+        self._note_pages()
+        self._prefilling[slot] = _PrefillState(
+            req=req, row=self.kv.table_row(slot),
+            next_pos=plan.shared_tokens, chunks=0, admitted_time=adm_time,
+            queue_wait=max(adm_time - req.arrival, 0.0))
+
+    def _run_prefill_chunk(self, clock: Callable[[], float]
+                           ) -> Optional[RequestResult]:
+        """Land ONE prompt chunk for the oldest mid-prefill slot.  On the
+        last chunk: sample the first token (the TTFT boundary, synced
+        here), unmask the slot's device page-table row, publish its
+        prompt pages to the prefix cache and promote it to the decode
+        batch.  Returns a result only for max_tokens <= 1 requests,
+        which finish at promotion."""
+        slot = next(iter(self._prefilling))
+        st = self._prefilling[slot]
+        req = st.req
+        plen = int(req.prompt.shape[0])
+        csize = self.prefill_chunk or (plen - st.next_pos)
+        chunk = req.prompt[st.next_pos:st.next_pos + csize]
+        s = int(chunk.shape[0])
+        t0 = time.perf_counter()
+        toks = torch.as_tensor(chunk[None, :], dtype=torch.int64,
+                               device=self.device)
+        logits, self._cache = T.prefill_paged_chunk(
+            self.params, self.cfg, toks, self._cache, slot, st.row,
+            st.next_pos)
+        st.next_pos += s
+        st.chunks += 1
+        self.metrics["prefill_tokens"] += s
+        self._note_prefill_stall(s)
+        if st.next_pos < plen:
+            self.metrics["prefill_time"] += time.perf_counter() - t0
+            return None
+
+        temp = np.float32(req.temperature)
+        first = self._sample(logits, temp[None])
+        self._tok[slot, 0] = first[0]
+        first_tok = int(first[0])                      # host sync
+        self.metrics["prefill_time"] += time.perf_counter() - t0
+        del self._prefilling[slot]
+        self._temps[slot] = temp
+        self._table_np[slot] = st.row
+        self._upload_table()
+        self.kv.register_prefix(slot, req.prompt)
+        self.metrics["prefill_chunks"] += st.chunks
+        self._note_pages()
+        self._state[slot] = _SlotState(
+            req=req, gen=[], first=first_tok,
+            remaining=req.max_tokens - 1,
+            admitted_step=self.metrics["decode_steps"],
+            admitted_time=st.admitted_time, queue_wait=st.queue_wait,
+            first_token_time=clock(), prefill_chunks=st.chunks)
+        if req.max_tokens <= 1:
+            self._sync_slot(slot, None)
+            return self._finish(slot, clock())
+        return None
+
     def _finish(self, slot: int, now: float) -> RequestResult:
-        """Truncate at EOS / max_tokens, emit the result, free the slot."""
+        """Truncate at EOS / max_tokens, emit the result, free the slot
+        (and, paged, its pages and its device table row)."""
         st = self._state.pop(slot)
         req = st.req
         toks = st.gen[:req.max_tokens]
@@ -288,6 +462,10 @@ class DecodeEngine:
             toks = toks[:toks.index(eos) + 1]
         self._temps[slot] = 0.0
         self._sched.release(slot)
+        if self.paged:
+            self.kv.release(slot)
+            self._table_np[slot] = paging.SINK_PAGE
+            self._upload_table()
         self._requests.pop(req.rid, None)
         self.metrics["generated_tokens"] += len(toks)
         self.metrics["completed"] += 1
@@ -298,7 +476,8 @@ class DecodeEngine:
             finished_step=self.metrics["decode_steps"],
             arrival=req.arrival, admitted_time=st.admitted_time,
             finished_time=now, queue_wait=st.queue_wait,
-            ttft=max(st.first_token_time - req.arrival, 0.0))
+            ttft=max(st.first_token_time - req.arrival, 0.0),
+            prefill_chunks=st.prefill_chunks)
 
     def _sync_slot(self, slot: int, burst_host: Optional[np.ndarray]
                    ) -> None:
@@ -324,12 +503,16 @@ class DecodeEngine:
         """Drain the queue (plus ``requests``, submitted first) through
         the slot pool; returns results in completion order.  ``now_fn``
         is the trace clock gating admissions by ``Request.arrival``;
-        without it every queued request is admittable at once."""
+        without it every queued request is admittable at once.
+
+        Paged, one admission is in flight at a time (the next request's
+        prefix match must see this prompt's pages, which publish when
+        its last chunk lands), and a head-of-line request that does not
+        fit waits for pages to free up (after evicting prefix pages no
+        slot holds)."""
         for req in requests or ():
             self.submit(req)
-        if self._cache is None:
-            self._cache = T.init_cache(self.cfg, self.n_slots, self.max_len,
-                                       device=self.device)
+        self._ensure_cache()
         now = now_fn or (lambda: float("inf"))
         t_run0 = time.perf_counter()
         clock = now_fn or (lambda: time.perf_counter() - t_run0)
@@ -340,16 +523,33 @@ class DecodeEngine:
             while self._sched.queue and self._sched._free and \
                     self._requests[self._sched.queue[0]].arrival <= now():
                 req = self._requests[self._sched.queue[0]]
+                if self.paged:
+                    if self._prefilling:
+                        break
+                    need = int(req.prompt.shape[0]) + req.max_tokens - 1
+                    if not self.kv.can_admit(req.prompt, need) and \
+                            not self.kv.try_reclaim(req.prompt, need):
+                        break   # head-of-line waits for freed pages
                 slot, _ = self._sched.admit()
+                if self.paged:
+                    self._admit_paged(slot, req, clock)
+                    continue    # finishes (if ever) at promotion
                 self._admit(slot, req, clock)
                 if req.max_tokens <= 1:
                     self._sync_slot(slot, None)
                     done.append(self._finish(slot, clock()))
 
+            # ---- chunked prefill: one chunk of the oldest admission,
+            #      interleaved with the decode bursts below
+            if self._prefilling:
+                r = self._run_prefill_chunk(clock)
+                if r is not None:
+                    done.append(r)
+
             active = [s for s in self._sched.active_slots
                       if s in self._state]
             if not active:
-                if self._sched.queue:
+                if self._sched.queue and not self._prefilling:
                     time.sleep(poll)       # waiting on the next arrival
                 continue
 
@@ -369,6 +569,7 @@ class DecodeEngine:
             self.metrics["decode_time"] += time.perf_counter() - t_burst0
             self.metrics["decode_steps"] += len(burst)
             self.metrics["useful_slot_steps"] += len(burst) * len(active)
+            self._stall_run = 0            # decode ran; stall over
             for s in active:
                 self._state[s].remaining -= len(burst)
 

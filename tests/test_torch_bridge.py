@@ -45,7 +45,8 @@ def test_import_leaves_jax_and_repro_out():
         "import sys\n"
         "import repro_torch, repro_torch.ops, repro_torch.bridge\n"
         "import repro_torch.configs, repro_torch.models.transformer\n"
-        "import repro_torch.serve.engine, repro_torch.launch.serve\n"
+        "import repro_torch.serve.engine, repro_torch.serve.paging\n"
+        "import repro_torch.launch.serve\n"
         "import repro_torch.kernels.gemm_aie, repro_torch.kernels.gemm_gated\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.flash_decode\n"

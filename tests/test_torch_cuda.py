@@ -9,13 +9,19 @@ than the plain matmul); bf16 outputs compared in f32 at
 ``atol=rtol=2e-2`` (a few bf16 ulps after differently ordered f32 sums).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from repro_torch.configs import get_smoke_config
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_paged,
+                                              flash_decode_paged_plain,
+                                              flash_decode_plain)
 from repro_torch.kernels.gemm_aie import gemm_aie, gemm_aie_plain
 from repro_torch.kernels.gemm_gated import gemm_gated, gemm_gated_plain
 
@@ -146,3 +152,126 @@ def test_launch_counters_count_kernel_launches(cuda_device):
     gemm_aie(a, w)
     assert gemm_aie.launches == before + 1
     assert gemm_aie_plain.launches == plain_before
+    q = _randn((2, 3, 8), torch.float32, cuda_device, 2)
+    pool = _randn((5, 4, 1, 8), torch.float32, cuda_device, 3)
+    table = torch.ones((2, 2), dtype=torch.int32, device=cuda_device)
+    before = flash_decode_paged.launches
+    plain_before = flash_decode_paged_plain.launches
+    flash_decode_paged(q, pool, pool, table, 3)
+    assert flash_decode_paged.launches == before + 1
+    assert flash_decode_paged_plain.launches == plain_before
+
+
+def _paged_pool(k, v, ps, seed):
+    """Scatter dense (b, S, hkv, d) caches into a pool over a random
+    permutation of pages 1..b*S/ps (page 0, the sink, keeps noise);
+    returns the pools and the (b, S/ps) int32 table."""
+    b, S, hkv, d = k.shape
+    max_pages = S // ps
+    n_pages = 1 + b * max_pages
+    perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
+    table = torch.as_tensor(perm.reshape(b, max_pages).astype(np.int32),
+                            device=k.device)
+    k_pages = _randn((n_pages, ps, hkv, d), k.dtype, k.device, seed + 1)
+    v_pages = _randn((n_pages, ps, hkv, d), k.dtype, k.device, seed + 2)
+    k_pages[table.long()] = k.reshape(b, max_pages, ps, hkv, d)
+    v_pages[table.long()] = v.reshape(b, max_pages, ps, hkv, d)
+    return k_pages, v_pages, table
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("hq,hkv,d,window", [
+    (15, 5, 64, 0),                          # smollm heads
+    (3, 1, 20, 24),                          # smoke head_dim, window
+    (16, 1, 128, 0),                         # MQA group 16
+    (4, 4, 120, 100),                        # MHA, d 120, wide window
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, hq, hkv,
+                                                 d, window, dtype):
+    b, S = 4, 256
+    q = _randn((b, hq, d), dtype, cuda_device, 0)
+    k = _randn((b, S, hkv, d), dtype, cuda_device, 1)
+    v = _randn((b, S, hkv, d), dtype, cuda_device, 2)
+    k_pages, v_pages, table = _paged_pool(k, v, ps, 3)
+    table[2] = 0                              # a masked, all-sink row
+    # row 2's position has run past its table, as a masked row's does; it
+    # still sees keys under every window here (a row that sees none gets
+    # zeros from the kernel and the mean of the values from the plain
+    # version, and is never read)
+    pos = torch.as_tensor([0, 77, S + 10, S - 1], dtype=torch.int32,
+                          device=cuda_device)
+    _close(flash_decode_paged(q, k_pages, v_pages, table, pos,
+                              window=window),
+           flash_decode_paged_plain(q, k_pages, v_pages, table, pos,
+                                    window=window), dtype)
+
+
+@pytest.mark.parametrize("ps", [8, 16, 32, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_decode_paged_equals_dense_bitwise(cuda_device, ps, dtype):
+    """One logical cache, dense and in a permuted pool: B5's output has
+    B4's bits at every page size, windows included."""
+    b, S, hq, hkv, d = 8, 1024, 15, 5, 64
+    q = _randn((b, hq, d), dtype, cuda_device, 0)
+    k = _randn((b, S, hkv, d), dtype, cuda_device, 1)
+    v = _randn((b, S, hkv, d), dtype, cuda_device, 2)
+    k_pages, v_pages, table = _paged_pool(k, v, ps, 4)
+    pos = torch.as_tensor([17, 40, 95, 160, 210, 300, 1023, 1500],
+                          dtype=torch.int32, device=cuda_device)
+    for window in (0, 64):
+        got = flash_decode_paged(q, k_pages, v_pages, table, pos,
+                                 window=window)
+        want = flash_decode(q, k, v, pos, window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (ps, window)
+
+
+def test_flash_decode_paged_is_batch_invariant(cuda_device):
+    dt = torch.bfloat16
+    q = _randn((8, 15, 64), dt, cuda_device, 0)
+    k = _randn((8, 256, 5, 64), dt, cuda_device, 1)
+    v = _randn((8, 256, 5, 64), dt, cuda_device, 2)
+    k_pages, v_pages, table = _paged_pool(k, v, 16, 5)
+    pos = torch.arange(8, dtype=torch.int32, device=cuda_device) * 30
+    out = flash_decode_paged(q, k_pages, v_pages, table, pos)
+    for i in (0, 3, 7):
+        assert torch.equal(
+            flash_decode_paged(q[i:i + 1], k_pages, v_pages,
+                               table[i:i + 1], pos[i:i + 1]),
+            out[i:i + 1])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_prefill_equals_unchunked_bitwise(cuda_device, dtype):
+    """The smoke model on the card: a 45-token prompt prefilled into the
+    page pool in chunks of 7 gives the logits and the pools of one
+    whole-prompt chunk, and the dense prefill's logits, bit for bit."""
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_smoke_config("smollm-360m"), dtype=dtype)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    params = T.init_params(cfg, gen, device=cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(1).integers(
+        0, cfg.vocab, (1, 45)), device=cuda_device)
+    ps, max_pages = 8, 8
+    row = np.random.default_rng(2).permutation(np.arange(1, 1 + max_pages)) \
+        .astype(np.int32)
+    caches, logits = [], []
+    with torch.inference_mode():
+        for chunk in (45, 7):
+            cache = T.init_paged_cache(cfg, 1, 1 + max_pages, ps, max_pages,
+                                       device=cuda_device)
+            for start in range(0, 45, chunk):
+                lg, cache = T.prefill_paged_chunk(
+                    params, cfg, toks[:, start:start + chunk], cache, 0,
+                    row, start)
+            caches.append(cache)
+            logits.append(lg)
+        dense, _ = T.prefill(params, cfg, toks,
+                             T.init_cache(cfg, 1, 64, device=cuda_device))
+    torch.cuda.synchronize()
+    assert torch.equal(logits[0], logits[1])
+    assert torch.equal(logits[0], dense)
+    for name in ("k", "v"):
+        assert torch.equal(caches[0]["layers"]["u0"][name],
+                           caches[1]["layers"]["u0"][name])

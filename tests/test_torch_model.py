@@ -257,9 +257,9 @@ def test_unported_features_raise(smoke, what):
         elif what in ("local", "ssm"):
             T.init_params(dataclasses.replace(cfg, layer_pattern=(what,)),
                           torch.Generator().manual_seed(0), device=CPU)
-        elif what == "page_size":
-            DecodeEngine(params, cfg, batch=1, max_len=8, page_size=4,
-                         device=CPU)
+        elif what == "page_size":           # paging, but windowed
+            DecodeEngine(params, dataclasses.replace(cfg, window=8),
+                         batch=1, max_len=8, page_size=4, device=CPU)
         else:
             T.prefill(params, cfg, toks, T.init_cache(cfg, 1, 8, device=CPU),
                       **{what: torch.zeros((1, 2, cfg.d_model))})
