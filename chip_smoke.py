@@ -12,29 +12,40 @@ Phases (any failure raises and the script exits non-zero):
    the plain version and one PyTorch library call for the same function
    where one exists (CUDA events over CUDA-graph replays, median of 20;
    operands cycled over more than 100 MB so each call finds the L2
-   cache cold, as a layer of the real model does); then the paged
-   decode kernel must equal the dense one bit for bit on one logical
-   cache scattered into a permuted pool, at page sizes 16, 32 and 64;
-4. serve smollm-360m at full width (bf16, random weights from seed 0)
+   cache cold, as a layer of the real model does); the A-stationary
+   gemm_tb (B6) runs at every GEMM shape of the serve path at the tile
+   its 'tb' plan gives; then the paged decode kernel must equal the
+   dense one bit for bit on one logical cache scattered into a permuted
+   pool, at page sizes 16, 32 and 64; and gemm_tb must equal gemm_aie
+   bit for bit at the serve shapes, in bf16 and f32, with each epilogue,
+   at tiles giving one, two and four or more k-chunks;
+4. the operator API: for each GEMM shape of the serve path at m = 8 and
+   m = 300 and for the 1024^3 GEMM, print the HOPPER_H100 plan's
+   ``explain()`` and time the one-shot ``ops.gemm`` with the planner's
+   choice, with ``strategy="aie"`` and with ``strategy="tb"``, measured
+   beside modeled;
+5. serve smollm-360m at full width (bf16, random weights from seed 0)
    through ``DecodeEngine`` with 8 slots x 1024 positions, on the dense
    cache and then on the page pool (16-token pages, 64-token prefill
    chunks, prefix cache on, two requests sharing a 64-token prefix):
-   each path's kernels must have launched exactly as often as its steps
-   and prefill chunks say, the other decode kernel and every plain
-   version not at all; then one 8-slot decode step of each cache is
-   timed from CUDA-graph replays (device time alone) beside the same
+   each pass runs 193 planned GEMMs, and each kernel must have launched
+   exactly as often as the executed plans (B1, B2, or B6's chunks) and
+   the steps and prefill chunks say, the other decode kernel and every
+   plain version not at all; then one 8-slot decode step of each cache
+   is timed from CUDA-graph replays (device time alone) beside the same
    step run eagerly, which gives the device's idle share of an eager
    step;
-5. continuous-batched greedy == solo greedy on the dense cache, token
+6. continuous-batched greedy == solo greedy on the dense cache, token
    for token, at full width (the acceptance trace); then paged greedy
    (2 slots, 16-token pages, 16-token chunks) == dense solo greedy on
    the acceptance trace plus a short and a 96-token prompt, and on two
    prompts sharing a prefix with the prefix cache on;
-6. smollm-360m-smoke (f32): prefill + 8 decode steps on the card match
+7. smollm-360m-smoke (f32): prefill + 8 decode steps on the card match
    the same port on the CPU within atol=rtol=1e-4.
 
-Prints a ``{"kernels": [...]}`` line and the card line before the last
-line, which is ``{"ok": true, "device": {...}}``.  Details go to
+Prints a ``{"kernels": [...]}`` line (six kernels; gemm_tb's launches
+sum its two Pallas sites, listed under ``sites``) and the card line
+before the last line, which is ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
@@ -54,6 +65,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch import ops  # noqa: E402
 from repro_torch.bridge import to_device  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -63,8 +75,10 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain)
 from repro_torch.kernels.gemm_aie import gemm_aie, gemm_aie_plain  # noqa
+from repro_torch.kernels import api  # noqa: E402
 from repro_torch.kernels.gemm_gated import (  # noqa: E402
     gemm_gated, gemm_gated_plain)
+from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     ACCEPTANCE_TRACE, DecodeEngine, Request, acceptance_requests,
@@ -93,7 +107,14 @@ KERNELS = {
     "flash_decode_paged": (flash_decode_paged, flash_decode_paged_plain,
                            "src/repro_torch/csrc/flash_decode_paged.cu",
                            "src/repro/kernels/flash_decode.py:275"),
+    "gemm_tb": (gemm_tb, gemm_tb_plain, "src/repro_torch/csrc/gemm_tb.cu",
+                "src/repro/kernels/gemm_tb.py:96"),
 }
+#: B6's second Pallas site, the final k-chunk, and its launch counter
+GEMM_TB_FINAL_SITE = "src/repro/kernels/gemm_tb.py:139"
+#: the one-shot GEMMs of one decode step, prefill or prefill chunk of
+#: smollm-360m: six a layer (q, k, v, o, gate/up, down) and the lm_head
+GEMMS_PER_PASS = 32 * 6 + 1
 
 
 def log(msg: str) -> None:
@@ -121,12 +142,27 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if t is not None)
 
 
+def tb_tile(m, k, n, dtype, *, residual=False, bias=False, act=None,
+            out_dtype=None):
+    """The tile HOPPER_H100's planner gives a 'tb' GEMM of this shape."""
+    ep = ops.Epilogue(bias=bias, activation=act, residual=residual)
+    spec = ops.GemmSpec(a_dtype=dtype, b_dtype=dtype, epilogue=ep,
+                        out_dtype=out_dtype, strategy="tb")
+    return ops.plan(spec, (m, k, n)).tile
+
+
 def gemm_case(name, weight, m, k, n, dtype, *, residual=False, bias=False,
-              act=None, out_dtype=None):
+              act=None, out_dtype=None, tb=False):
+    """A GEMM case for B1 or, ``tb``, for B6 at the tile its 'tb' plan
+    gives the shape."""
     out_dtype = out_dtype or dtype
+    tile = tb_tile(m, k, n, dtype, residual=residual, bias=bias, act=act,
+                   out_dtype=out_dtype) if tb else None
 
     def make():
         kw = {"out_dtype": out_dtype}
+        if tile is not None:
+            kw["tile"] = tile
         if residual:
             kw["residual"] = rand((m, n), dtype)
         if bias:
@@ -135,7 +171,8 @@ def gemm_case(name, weight, m, k, n, dtype, *, residual=False, bias=False,
             kw["activation"] = act
         return (rand((m, k), dtype), rand((k, n), dtype, k ** -0.5)), kw
 
-    def library(a, b, out_dtype, residual=None, bias=None, activation=None):
+    def library(a, b, out_dtype, residual=None, bias=None, activation=None,
+                tile=None):
         x = torch.matmul(a, b)
         if bias is not None:
             x = x + bias
@@ -150,6 +187,8 @@ def gemm_case(name, weight, m, k, n, dtype, *, residual=False, bias=False,
         out = m * n * torch.empty((), dtype=out_dtype).element_size()
         return (nbytes(a, b, kw.get("residual"), kw.get("bias")) + out,
                 2.0 * m * n * k)
+    if tile is not None:
+        name += f" tile {tile.bm}x{tile.bk}x{tile.bn}"
     return dict(name=name, weight=weight, dtype=dtype, make=make,
                 library=library, cost=cost)
 
@@ -356,6 +395,27 @@ def kernel_phase():
             gemm_case("edge f32 3x60x49152 bias+silu+res", 0, 3, 60, V, f32,
                       residual=True, bias=True, act="silu"),
         ],
+        # weights: the decode step's non-gated GEMMs, as for gemm_aie, so
+        # the two dataflows' sums compare on one shape set
+        "gemm_tb": [
+            gemm_case("decode wq 8x960x960", 32, 8, d, d, bf, tb=True),
+            gemm_case("decode wk/wv 8x960x320", 64, 8, d, 320, bf, tb=True),
+            gemm_case("decode wo+res 8x960x960", 32, 8, d, d, bf,
+                      residual=True, tb=True),
+            gemm_case("decode down+res 8x2560x960", 32, 8, ff, d, bf,
+                      residual=True, tb=True),
+            gemm_case("decode lm_head 8x960x49152", 1, 8, d, V, bf,
+                      out_dtype=f32, tb=True),
+            gemm_case("prefill wq 300x960x960", 0, 300, d, d, bf, tb=True),
+            gemm_case("prefill wk/wv 300x960x320", 0, 300, d, 320, bf,
+                      tb=True),
+            gemm_case("prefill wo+res 300x960x960", 0, 300, d, d, bf,
+                      residual=True, tb=True),
+            gemm_case("prefill down+res 300x2560x960", 0, 300, ff, d, bf,
+                      residual=True, tb=True),
+            gemm_case("edge f32 37x200x131 bias+silu+res", 0, 37, 200, 131,
+                      f32, residual=True, bias=True, act="silu", tb=True),
+        ],
         "gemm_gated": [
             gated_case("decode gate/up 8x960x2560", 32, 8, d, ff, bf),
             gated_case("prefill gate/up 300x960x2560", 0, 300, d, ff, bf),
@@ -417,6 +477,127 @@ def paged_bitwise_phase():
     return [16, 32, 64]
 
 
+def tb_bitwise_phase():
+    """B6 == B1, bit for bit: at every GEMM shape of the serve path
+    (decode m = 8 and a 300-token prefill) and an f32 edge shape, in bf16
+    and f32, with each epilogue, at three tiles that give one k-chunk,
+    two, and four or more."""
+    d, ff, V = 960, 2560, 49152
+    shapes = [(8, d, d), (8, d, 320), (8, ff, d), (8, d, V), (300, d, d),
+              (300, d, 320), (300, ff, d), (37, 200, 131)]
+    epilogues = [{}, {"residual": True}, {"bias": True, "act": "gelu"},
+                 {"bias": True, "act": "silu", "residual": True},
+                 {"out_dtype": torch.float32}]
+    checked, chunk_counts = 0, set()
+    for m, k, n in shapes:
+        for dtype in (torch.bfloat16, torch.float32):
+            a = rand((m, k), dtype, k ** -0.5)
+            b = rand((k, n), dtype)
+            res = rand((m, n), dtype)
+            bias = rand((n,), torch.float32)
+            half = -(-k // 2 // 32) * 32
+            tiles = [(8, 4096, 16), (16, half, 32), (8, 128, 64)]
+            for ep in epilogues:
+                kw = {"out_dtype": ep.get("out_dtype", dtype)}
+                if ep.get("residual"):
+                    kw["residual"] = res
+                if ep.get("bias"):
+                    kw["bias"] = bias
+                if ep.get("act"):
+                    kw["activation"] = ep["act"]
+                want = gemm_aie(a, b, **kw)
+                for tile in tiles:
+                    t = ops.TileConfig(*tile, "tb")
+                    got = gemm_tb(a, b, tile=t, **kw)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got, want):
+                        raise RuntimeError(
+                            f"gemm_tb != gemm_aie at {m}x{k}x{n} {dtype} "
+                            f"{ep} tile {tile}")
+                    pl = ops.plan(ops.GemmSpec(
+                        a_dtype=dtype, b_dtype=dtype, tile=t,
+                        epilogue=ops.Epilogue(
+                            bias=bool(ep.get("bias")),
+                            activation=ep.get("act"),
+                            residual=bool(ep.get("residual"))),
+                        out_dtype=kw["out_dtype"]), (m, k, n))
+                    chunk_counts.add(-(-k // pl.chunk_bk))
+                    checked += 1
+    if not {1, 2} <= chunk_counts or max(chunk_counts) < 4:
+        raise RuntimeError(f"tb bitwise: chunk counts {chunk_counts}")
+    log(f"gemm_tb == gemm_aie, bit for bit: {checked} cases ({len(shapes)} "
+        f"shapes x bf16/f32 x {len(epilogues)} epilogues x 3 tiles; "
+        f"k-chunk counts {sorted(chunk_counts)})")
+    return {"cases": checked, "chunk_counts": sorted(chunk_counts)}
+
+
+def api_phase():
+    """The paper's question on this card: which dataflow wins where.  For
+    each GEMM shape of the serve path at m = 8 and m = 300, and the
+    1024^3 bf16 GEMM, print the HOPPER_H100 plan's explain(), then time
+    the one-shot ops.gemm with the planner's choice, with strategy="aie"
+    and with strategy="tb" (CUDA-graph replays, cold L2), measured beside
+    modeled.  Kernel launch counts are set to 0 before and read after."""
+    d, ff, V = 960, 2560, 49152
+    bf = torch.bfloat16
+    cases = []
+    for m in (8, 300):
+        cases += [(f"wq {m}x960x960", m, d, d, {}),
+                  (f"wk/wv {m}x960x320", m, d, 320, {}),
+                  (f"wo+res {m}x960x960", m, d, d, {"residual": True}),
+                  (f"gate/up {m}x960x2560", m, d, ff, {"gated": True}),
+                  (f"down+res {m}x2560x960", m, ff, d, {"residual": True})]
+    cases += [("lm_head 8x960x49152", 8, d, V, {"f32": True}),
+              ("bench 1024x1024x1024", 1024, 1024, 1024, {})]
+    reset_counters()
+    rows = []
+    for name, m, k, n, opt in cases:
+        def make():
+            a = rand((m, k), bf, k ** -0.5)
+            kw = {"out_dtype": torch.float32} if opt.get("f32") else {}
+            if opt.get("gated"):
+                kw.update(b2=rand((k, n), bf, k ** -0.5), activation="silu")
+            if opt.get("residual"):
+                kw["residual"] = rand((m, n), bf)
+            return (a, rand((k, n), bf, k ** -0.5)), kw
+        first = make()
+        args, kw = first
+        per = nbytes(*args, *(v for v in kw.values()
+                              if isinstance(v, torch.Tensor)))
+        copies = max(1, min(64, math.ceil(COLD_BYTES / per)))
+        inputs = [first] + [make() for _ in range(copies - 1)]
+        row = {"case": name, "m": m, "k": k, "n": n}
+        for label, strategy in (("planned", None), ("aie", "aie"),
+                                ("tb", "tb")):
+            if strategy == "tb" and opt.get("gated"):
+                continue                    # the gated kernel is 'aie' only
+            pl = ops.plan(ops.GemmSpec.for_operands(
+                *args, strategy=strategy, **kw), (m, k, n))
+            if label == "planned":
+                log(f"plan {name}:\n{pl.explain()}")
+            t = pl.tile
+            row[label] = {
+                "strategy": t.strategy, "tile": [t.bm, t.bk, t.bn],
+                "chunk_bk": pl.chunk_bk, "launches": pl.launches,
+                "modeled_us": pl.traffic.t_model * 1e6,
+                "modeled_bytes": pl.hbm_bytes,
+                "measured_us": device_ms(
+                    lambda a, b, _s=strategy, **kk: ops.gemm(
+                        a, b, strategy=_s, **kk), inputs) * 1e3}
+        del inputs
+        rows.append(row)
+        cells = "  ".join(
+            f"{lab} {row[lab]['strategy']} "
+            f"{'x'.join(map(str, row[lab]['tile']))}: "
+            f"{row[lab]['measured_us']:.1f} us (modeled "
+            f"{row[lab]['modeled_us']:.2f})"
+            for lab in ("planned", "aie", "tb") if lab in row)
+        log(f"api {name:24s} {cells}")
+    launches = counts()
+    log(f"api: launches {launches}")
+    return {"rows": rows, "launches": launches}
+
+
 # ---------------------------------------------------------------- phase 4
 
 #: prompts of the serve trace: mostly short, two past 128 tokens
@@ -427,6 +608,40 @@ def reset_counters():
     for kernel, plain, _, _ in KERNELS.values():
         kernel.launches = 0
         plain.launches = 0
+    gemm_tb.final_launches = 0
+
+
+def counts():
+    """Kernel launch counts by counter (B6's final chunk apart)."""
+    out = {n: k.launches for n, (k, _, _, _) in KERNELS.items()}
+    out["gemm_tb_final"] = gemm_tb.final_launches
+    return out
+
+
+class PlanRecorder:
+    """Counts the GEMM plans the one-shot ops.gemm executes, by wrapping
+    the operator API's kernel fan-out for the length of a ``with``."""
+
+    def __enter__(self):
+        self.plans = {}
+        self._launch = api._launch
+
+        def record(pl, *args):
+            self.plans[pl] = self.plans.get(pl, 0) + 1
+            return self._launch(pl, *args)
+        api._launch = record
+        return self
+
+    def __exit__(self, *exc):
+        api._launch = self._launch
+
+    def implied(self):
+        """Launches the executed plans imply, by counter."""
+        out = {}
+        for pl, times in self.plans.items():
+            for name, n in pl.launches.items():
+                out[name] = out.get(name, 0) + times * n
+        return out
 
 
 def serve_trace(cfg):
@@ -460,11 +675,12 @@ def serve_phase(cfg, params, *, paged):
     engine.reset_metrics()
 
     reset_counters()
-    t0 = time.perf_counter()
-    results = engine.run(trace)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = {n: k.launches for n, (k, _, _, _) in KERNELS.items()}
+    with PlanRecorder() as rec:
+        t0 = time.perf_counter()
+        results = engine.run(trace)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launches = counts()
     plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
 
     m = engine.metrics
@@ -472,14 +688,26 @@ def serve_phase(cfg, params, *, paged):
     prefills = m["prefill_chunks"]
     decode, other = ("flash_decode_paged", "flash_decode") if paged \
         else ("flash_decode", "flash_decode_paged")
-    want = {"gemm_aie": 161 * (steps + prefills),
-            "gemm_gated": 32 * (steps + prefills),
-            decode: 32 * steps, other: 0,
-            "flash_attention": 32 * prefills}
+    # every pass runs 193 planned GEMMs; their plans say which kernel
+    # takes each and how often (a 'tb' plan: one B6a a chunk but the
+    # last, and one B6b)
+    executed = sum(rec.plans.values())
+    if executed != GEMMS_PER_PASS * (steps + prefills):
+        raise RuntimeError(f"{executed} GEMMs ran, expected "
+                           f"{GEMMS_PER_PASS} x {steps + prefills} passes")
+    want = {"gemm_aie": 0, "gemm_gated": 0, "gemm_tb": 0,
+            "gemm_tb_final": 0}
+    want.update(rec.implied())
+    want.update({decode: 32 * steps, other: 0,
+                 "flash_attention": 32 * prefills})
     if launches != want or any(plain.values()):
         raise RuntimeError(f"{'paged' if paged else 'dense'} path launches "
                            f"{launches} (expected {want}), plain versions "
                            f"{plain}")
+    by_kernel = {}
+    for pl, times in rec.plans.items():
+        key = f"{pl.kernel} m={pl.m} {pl.k}x{pl.n}"
+        by_kernel[key] = by_kernel.get(key, 0) + times
     if paged and (m["prefix_hits"] < 1
                   or m["max_prefill_stall_tokens"] > 64):
         raise RuntimeError(f"paged serve: {m['prefix_hits']} prefix hits, "
@@ -502,6 +730,7 @@ def serve_phase(cfg, params, *, paged):
            "ttft_mean_ms": float(ttft.mean() * 1e3),
            "ttft_p99_ms": float(np.percentile(ttft, 99) * 1e3),
            "occupancy": engine.occupancy(), "launches": launches,
+           "gemm_plans_executed": by_kernel,
            "plain_launches": plain, "prefill_chunks": prefills,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     tag = "paged serve" if paged else "serve"
@@ -672,6 +901,8 @@ def main() -> None:
     with torch.inference_mode():
         checked = kernel_phase()
         bitwise_page_sizes = paged_bitwise_phase()
+        tb_bitwise = tb_bitwise_phase()
+        api_run = api_phase()
 
     cfg = get_config("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -684,19 +915,31 @@ def main() -> None:
     n_paged_bit = paged_bit_identity_phase(cfg, params)
     cross = cross_device_phase()
 
+    def driven(counter):
+        """Launches on the paths the script drives: dense and paged
+        serving and the operator-API phase."""
+        return sum(run["launches"][counter]
+                   for run in (serve, paged, api_run))
+
     line = []
     for name, (rows, worst, total) in checked.items():
         _, _, source, replaces = KERNELS[name]
-        line.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces,
-            # launches on the two main paths, dense and paged serving
-            "launches": serve["launches"][name] + paged["launches"][name],
+            "replaces": replaces, "launches": driven(name),
             "max_abs_err": worst, "ms": total["ms"],
             "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
             "bound_by": "bytes" if total["bytes"] / PEAK_BYTES
             >= total["ops"] / PEAK_OPS[torch.bfloat16] else "operations",
-            "library_ms": total["library_ms"]})
+            "library_ms": total["library_ms"]}
+        if name == "gemm_tb":       # two Pallas sites: B6a and B6b
+            entry["launches"] += driven("gemm_tb_final")
+            entry["sites"] = {replaces: driven("gemm_tb"),
+                              GEMM_TB_FINAL_SITE: driven("gemm_tb_final")}
+        line.append(entry)
+    if driven("gemm_tb") + driven("gemm_tb_final") == 0:
+        raise RuntimeError("gemm_tb was launched on no path the script "
+                           "drives")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
@@ -705,6 +948,7 @@ def main() -> None:
         "cases": {n: rows for n, (rows, _, _) in checked.items()},
         "serve": serve, "paged_serve": paged,
         "paged_bitwise_page_sizes": bitwise_page_sizes,
+        "tb_bitwise": tb_bitwise, "operator_api": api_run,
         "bit_identity_requests": n_bit,
         "paged_bit_identity_requests": n_paged_bit,
         "cross_device_max_abs_err": cross,
@@ -713,8 +957,10 @@ def main() -> None:
     if _build.build_log:
         (out_dir / "ptxas.log").write_text(_build.build_log)
     log("kernel times are per decode step of 8 slots (flash_attention: "
-        "per 300-token prefill), summed over the main paths' shapes; "
-        "launches are summed over the dense and the paged serve runs")
+        "per 300-token prefill; gemm_tb: the step's non-gated GEMMs, as "
+        "for gemm_aie), summed over the main paths' shapes; launches are "
+        "summed over the dense and paged serve runs and the operator-API "
+        "phase")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,146 @@
+"""Hardware sheets for the cost model (port of ``repro/core/hardware.py``).
+
+* ``HOPPER_H100`` — the port's target: one NVIDIA H100 SXM card, its
+  datasheet rates, and the on-chip budget and tile rules of the port's
+  GEMM kernels (``csrc/gemm_tb.cu``, ``csrc/gemm_aie.cu``).
+* ``TPU_V5E`` — a copy of the JAX package's sheet, kept only so that the
+  tests can hold this package's search against ``repro.core.dse``.  No
+  number on it describes the port's card.
+
+Besides the rates, a sheet carries what ``repro.core.dse`` and
+``repro.core.memory_model`` hard-code for the TPU: the candidate tile
+edges, the alignment rule, whether blocks pad to (sublane, lane) tiles,
+the share of on-chip memory a tiling may plan for, and how many (bm, bn)
+f32 buffers the A-stationary dataflow keeps for C.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+KiB = 1024
+MiB = 1024 * KiB
+GiB = 1024 * MiB
+
+#: Kernel B6 (csrc/gemm_tb.cu) runs 256 threads a CTA; a thread owns one
+#: C column and at most 16 of its rows.
+B6_THREADS = 256
+B6_MAX_ROWS_PER_THREAD = 16
+
+
+@dataclasses.dataclass(frozen=True)
+class TPUChip:
+    """A TPU chip model used for roofline + DSE constraints."""
+
+    name: str
+    peak_bf16_flops: float          # FLOP/s
+    peak_int8_ops: float            # OP/s (2x bf16 on v5e MXU)
+    hbm_bytes: int                  # HBM capacity per chip
+    hbm_bw: float                   # bytes/s
+    vmem_bytes: int                 # VMEM scratchpad per core
+    ici_link_bw: float              # bytes/s per link, per direction
+    ici_links: int                  # torus links per chip
+    dcn_bw: float                   # bytes/s per chip for pod-to-pod traffic
+    mxu_dim: int = 128              # systolic array edge
+    sublanes: int = 8               # fp32 sublane count; bf16=16, int8=32
+    lane: int = 128
+    # What repro/core/dse.py and memory_model.py hard-code for the TPU:
+    m_candidates: Tuple[int, ...] = (8, 16, 32, 64, 128, 256, 512, 1024,
+                                     2048)   # _LANE_CANDIDATES + _M_EXTRA
+    k_candidates: Tuple[int, ...] = (128, 256, 512, 1024, 2048)
+    n_candidates: Tuple[int, ...] = (128, 256, 512, 1024, 2048)
+    pads_tiles: bool = True         # blocks pad to (sublane, lane) tiles
+    budget_fraction: float = 0.75   # compiler headroom in fits_vmem
+    tb_c_buffers: int = 4           # C in + out, two pipeline stages each
+
+    @property
+    def peak_f32_flops(self) -> float:
+        """The JAX package prices every non-int8 GEMM at the bf16 rate."""
+        return self.peak_bf16_flops
+
+    @staticmethod
+    def launchable(bm: int, bn: int) -> bool:
+        """Pallas launches any block the VMEM budget admits."""
+        return True
+
+    def tile_aligned(self, bm: int, bk: int, bn: int) -> bool:
+        """MXU-friendly: lane dims multiples of 128, sublane dim aligned
+        (``repro/core/tiling.py:170``)."""
+        return (bn % self.lane == 0 and bk % self.lane == 0
+                and bm % self.sublanes == 0)
+
+
+TPU_V5E = TPUChip(
+    name="tpu_v5e",
+    peak_bf16_flops=197e12,
+    peak_int8_ops=394e12,
+    hbm_bytes=16 * GiB,
+    hbm_bw=819e9,
+    vmem_bytes=128 * MiB,
+    ici_link_bw=50e9,
+    ici_links=4,            # 2D torus on v5e: 4 links
+    dcn_bw=25e9,            # conservative per-chip share of pod-to-pod DCN
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class HopperChip:
+    """One NVIDIA Hopper card as the cost model sees it.
+
+    ``vmem_bytes`` is the on-chip budget of one kernel instance: on a
+    Hopper card the shared memory one CTA can take, which the tiling
+    search and the B6 launcher both check against.  The attribute keeps
+    the JAX package's name so the two searches line up one for one.
+    """
+
+    name: str
+    peak_bf16_flops: float          # dense tensor-core FLOP/s
+    peak_int8_ops: float            # dense tensor-core OP/s
+    peak_f32_flops: float           # FLOP/s outside the tensor cores
+    hbm_bytes: int
+    hbm_bw: float                   # bytes/s
+    vmem_bytes: int                 # shared memory per CTA
+    sm_count: int
+    sublanes: int = 8               # smallest row edge of a tile
+    lane: int = 32                  # warp width: the k / n edge quantum
+    m_candidates: Tuple[int, ...] = (8, 16, 32, 64, 128)
+    k_candidates: Tuple[int, ...] = (32, 64, 128, 256, 512, 1024)
+    n_candidates: Tuple[int, ...] = (32, 64, 128, 256)
+    pads_tiles: bool = False        # the kernels mask ragged edges
+    budget_fraction: float = 1.0    # vmem_bytes is already the CTA limit
+    tb_c_buffers: int = 2           # B6 prefetches C in; C leaves from
+                                    # registers
+
+    def tile_aligned(self, bm: int, bk: int, bn: int) -> bool:
+        """A DSE candidate: edges on the sheet's quanta and a (bm, bn)
+        tile that kernel B6 launches (:meth:`launchable`)."""
+        return (bm % self.sublanes == 0 and bk % self.lane == 0
+                and bn % self.lane == 0 and self.launchable(bm, bn))
+
+    @staticmethod
+    def launchable(bm: int, bn: int) -> bool:
+        """Whether B6's 256 threads cover a (bm, bn) C tile: one column a
+        thread, ``256 // bn`` row groups, at most 16 rows a thread."""
+        if not 1 <= bn <= B6_THREADS or bm < 1:
+            return False
+        groups = B6_THREADS // bn
+        return -(-bm // groups) <= B6_MAX_ROWS_PER_THREAD
+
+
+HOPPER_H100 = HopperChip(
+    name="h100_sxm",
+    # NVIDIA H100 SXM datasheet, dense (no sparsity), at the 700 W limit:
+    # 989 TFLOP/s bf16, 1979 TOP/s int8 tensor-core rates, 67 TFLOP/s f32
+    # on the CUDA cores; 80 GB HBM3 at 3.35 TB/s.
+    peak_bf16_flops=989e12,
+    peak_int8_ops=1979e12,
+    peak_f32_flops=67e12,
+    hbm_bytes=80 * GiB,
+    hbm_bw=3.35e12,
+    # Hopper (compute capability 9.0): 227 KiB = 232448 bytes of the SM's
+    # 256 KB shared memory / L1 is the most one CTA can take, as dynamic
+    # shared memory.
+    vmem_bytes=227 * KiB,
+    sm_count=132,           # H100 SXM
+)

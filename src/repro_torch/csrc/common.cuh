@@ -49,6 +49,18 @@ __device__ __forceinline__ float activate(float x, int act) {
   }
 }
 
+// The fused flush on a finished f32 accumulator: + bias -> activation ->
+// + residual.  Kernels B1 (gemm_aie.cu) and B6 (gemm_tb.cu) both call it,
+// and the adds are __fadd_rn (never contracted into an FMA with what comes
+// before), so the two dataflows round identically.
+__device__ __forceinline__ float epilogue(float x, bool has_bias, float bias,
+                                          int act, bool has_res, float res) {
+  if (has_bias) x = __fadd_rn(x, bias);
+  x = activate(x, act);
+  if (has_res) x = __fadd_rn(x, res);
+  return x;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));

@@ -102,10 +102,10 @@ gemm_aie_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int row = row0 + ty + kRowGroups * i;
     if (row >= M) continue;
-    float x = acc[i];
-    if (bias != nullptr) x += bias[col];
-    x = activate(x, act);
-    if (res != nullptr) x += to_f32(res[(size_t)row * N + col]);
+    const float x = epilogue(
+        acc[i], bias != nullptr, bias != nullptr ? bias[col] : 0.0f, act,
+        res != nullptr,
+        res != nullptr ? to_f32(res[(size_t)row * N + col]) : 0.0f);
     C[(size_t)row * N + col] = from_f32<TOut>(x);
   }
 }

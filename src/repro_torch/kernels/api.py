@@ -1,0 +1,598 @@
+"""The GEMM operator API: ``GemmSpec`` -> ``plan`` -> ``execute`` (port of
+``repro/kernels/api.py``, dense family).
+
+* :class:`GemmSpec` — a frozen, hashable description of the GEMM family
+  member asked for: per-operand dtypes, an optional fused
+  :class:`~repro_torch.kernels.epilogue.Epilogue`, an optional gated
+  second B operand (``act(A W_g) * (A W_u)``), and strategy / tile /
+  out-dtype overrides.  Invalid requests fail at construction.
+* :func:`plan` — resolves a spec for concrete ``(m, k, n)`` once (cached
+  on the spec+shape key): the tiling search (:mod:`repro_torch.core.dse`)
+  on the ``HOPPER_H100`` sheet picks the dataflow and tile, an explicit
+  tile is checked and raises when infeasible, and the modeled traffic,
+  on-chip footprint and flops ride on the :class:`GemmPlan`, whose
+  ``explain()`` says which kernel runs and why.
+* :func:`execute` — runs a plan: a gated plan launches kernel B2
+  (``gemm_gated``), a ``tb`` plan kernel B6 (``gemm_tb``) with the plan's
+  tile, anything else kernel B1 (``gemm_aie``).  The kernels mask ragged
+  edges, so nothing is padded.  :func:`gemm` is the one-shot form every
+  model layer calls.
+
+The plan is the same on every device: a CPU tensor runs the chosen
+kernel's plain version, a CUDA tensor the kernel itself.  Not in the
+port yet, and raising ``NotImplementedError`` with their ROADMAP item:
+int8 operands and quantized weights (A8), the grouped MoE family (A9),
+measured tuning (A10), and the gradient (A7).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.core import dse
+from repro_torch.core.bandwidth import TrafficEstimate, estimate
+from repro_torch.core.hardware import HOPPER_H100
+from repro_torch.core.memory_model import VmemFootprint, budget_bytes, \
+    fits_vmem, vmem_efficiency, vmem_footprint
+from repro_torch.core.tiling import STRATEGIES, GemmProblem, TileConfig, \
+    cdiv, dtype_name, round_up
+from repro_torch.kernels.epilogue import ACTIVATIONS, Epilogue
+from repro_torch.kernels.gemm_aie import CTA_TILE as _AIE_CTA
+from repro_torch.kernels.gemm_aie import gemm_aie
+from repro_torch.kernels.gemm_gated import CTA_TILE as _GATED_CTA
+from repro_torch.kernels.gemm_gated import gemm_gated
+from repro_torch.kernels.gemm_tb import feasible_bk, gemm_tb
+
+
+def _is_quant(b) -> bool:
+    return isinstance(b, dict) and {"q", "scale"} <= set(b)
+
+
+def _not_yet(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} arrives with ROADMAP queue {item}")
+
+
+# ---------------------------------------------------------------------------
+# GemmSpec
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GemmSpec:
+    """What GEMM-family member is asked for (shapes excluded: they
+    arrive at :func:`plan` time, so one spec serves every shape).
+
+    * ``a_dtype`` / ``b_dtype`` — per-operand dtypes (strings or torch
+      dtypes; stored as ``"bfloat16"``-style names).
+    * ``gated`` — dual-B kernel ``act(A B_gate) * (A B_up)``; requires an
+      epilogue activation, rejects bias / residual / out-quant and 'tb'.
+    * ``epilogue`` — bias / activation / residual fused into the flush
+      (an :class:`Epilogue` or its key string).
+    * ``strategy`` / ``tile`` — overrides for the search; an explicit
+      tile is honoured after a feasibility check and raises at plan time
+      when infeasible.
+    * ``out_dtype`` — ``None`` resolves to ``a_dtype``.
+    * ``b_quant``, ``grouped``, ``tune`` — the JAX package's quantized,
+      grouped and tuned members; the port raises for them (A8, A9, A10).
+    """
+
+    a_dtype: str = "bfloat16"
+    b_dtype: str = "bfloat16"
+    b_quant: bool = False
+    gated: bool = False
+    grouped: bool = False
+    epilogue: Epilogue = Epilogue()
+    out_dtype: Optional[str] = None
+    strategy: Optional[str] = None
+    tile: Optional[TileConfig] = None
+    tune: Optional[bool] = None
+
+    def __post_init__(self):
+        object.__setattr__(self, "a_dtype", dtype_name(self.a_dtype))
+        if self.b_quant:
+            object.__setattr__(self, "b_dtype", "int8")
+        else:
+            object.__setattr__(self, "b_dtype", dtype_name(self.b_dtype))
+        if self.out_dtype is not None:
+            object.__setattr__(self, "out_dtype",
+                               dtype_name(self.out_dtype))
+        if isinstance(self.epilogue, str):
+            object.__setattr__(self, "epilogue",
+                               Epilogue.parse(self.epilogue))
+        if self.strategy is not None and self.strategy not in STRATEGIES:
+            raise ValueError(
+                f"unknown strategy {self.strategy!r}: choose from "
+                f"{STRATEGIES} (or None for the DSE to search both)")
+        if self.tile is not None and not isinstance(self.tile, TileConfig):
+            raise ValueError(f"tile must be a TileConfig, got {self.tile!r}")
+        tb = self.strategy == "tb" or (self.tile is not None
+                                       and self.tile.strategy == "tb")
+        if self.gated:
+            if self.epilogue.activation is None:
+                raise ValueError(
+                    "gated GEMM requires an epilogue activation: choose "
+                    f"from {tuple(ACTIVATIONS)}")
+            if self.epilogue.bias or self.epilogue.residual \
+                    or self.epilogue.out_quant:
+                raise ValueError(
+                    "gated GEMM fuses only the gate activation; bias / "
+                    "residual / out-quant epilogue terms are unsupported "
+                    f"(got {self.epilogue.key!r})")
+            if tb:
+                raise ValueError(
+                    "the gated dual-B kernel is output-stationary "
+                    "('aie') only; strategy/tile 'tb' is infeasible")
+        if self.grouped:
+            if self.gated:
+                raise ValueError("grouped GEMM is single-B; it cannot "
+                                 "be gated")
+            if self.epilogue.residual or self.epilogue.out_quant:
+                raise ValueError(
+                    "grouped GEMM fuses only a per-expert bias + "
+                    "activation; residual / out-quant epilogue terms "
+                    f"are unsupported (got {self.epilogue.key!r})")
+            if tb:
+                raise ValueError(
+                    "the grouped ragged kernel is output-stationary "
+                    "('aie') only; strategy/tile 'tb' is infeasible")
+        # what the JAX package has and this slice of the port does not
+        if self.b_quant or "int8" in (self.a_dtype, self.b_dtype) \
+                or self.epilogue.out_quant:
+            raise _not_yet("int8 operands, quantized weights and int8 "
+                           "output", "A8")
+        if self.grouped:
+            raise _not_yet("the grouped GEMM (B7 gemm_grouped)", "A9")
+        if self.tune:
+            raise _not_yet("measured tile tuning", "A10")
+
+    @property
+    def key(self) -> str:
+        """Compact canonical string (as ``repro.kernels.api.GemmSpec``)."""
+        s = f"{self.a_dtype}x{self.b_dtype}"
+        if self.b_quant:
+            s += "{q}"
+        if self.gated:
+            s += ":gated"
+        if self.grouped:
+            s += ":grouped"
+        if self.epilogue.key:
+            s += f":{self.epilogue.key}"
+        if self.out_dtype:
+            s += f"->{self.out_dtype}"
+        if self.strategy:
+            s += f"!{self.strategy}"
+        if self.tile is not None:
+            s += f"!{self.tile.bm}x{self.tile.bk}x{self.tile.bn}"
+        return s
+
+    @classmethod
+    def for_operands(cls, a, b, b2=None, *, bias=None,
+                     activation: Optional[str] = None, residual=None,
+                     out_scale=None, strategy: Optional[str] = None,
+                     tile: Optional[TileConfig] = None, out_dtype=None,
+                     tune: Optional[bool] = None) -> "GemmSpec":
+        """Spec inferred from concrete operands plus the optional
+        epilogue set — what the one-shot :func:`gemm` builds."""
+        if _is_quant(b) or (b2 is not None and _is_quant(b2)):
+            raise _not_yet("quantized {'q', 'scale'} weights", "A8")
+        gated = b2 is not None
+        if gated:
+            if bias is not None or residual is not None \
+                    or out_scale is not None:
+                raise ValueError("gated GEMM takes no bias/residual/"
+                                 "out_scale epilogue operands")
+            ep = Epilogue(activation=activation)
+        else:
+            ep = Epilogue.from_args(bias, activation, residual, out_scale)
+        return cls(a_dtype=dtype_name(a.dtype), b_dtype=dtype_name(b.dtype),
+                   gated=gated, epilogue=ep,
+                   out_dtype=None if out_dtype is None
+                   else dtype_name(out_dtype),
+                   strategy=strategy, tile=tile, tune=tune)
+
+
+def gemm_shapes(a, b) -> Tuple[int, int, int]:
+    """The planned ``(m, k, n)``: leading dims of ``a`` flatten into M."""
+    k = a.shape[-1]
+    n = (b["q"] if _is_quant(b) else b).shape[-1]
+    return (math.prod(a.shape[:-1]), k, n)
+
+
+# ---------------------------------------------------------------------------
+# GemmPlan and the plan cache
+# ---------------------------------------------------------------------------
+
+#: what each kernel is, for explain(): (kernel, source, CTA tile it
+#: launches whatever the plan's tile says, or None when it runs the plan's)
+_KERNELS = {
+    "aie": ("B1 gemm_aie", "src/repro_torch/csrc/gemm_aie.cu",
+            _AIE_CTA),
+    "gated": ("B2 gemm_gated", "src/repro_torch/csrc/gemm_gated.cu",
+              _GATED_CTA),
+    "tb": ("B6 gemm_tb", "src/repro_torch/csrc/gemm_tb.cu", None),
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class GemmPlan:
+    """One resolved execution decision: spec x (m, k, n) on a sheet ->
+    strategy, tile, and the modeled costs the search ranked it by.
+    ``chunk_bk`` is the k-chunk a ``tb`` plan runs at (0 for ``aie``)."""
+
+    spec: GemmSpec
+    m: int
+    k: int
+    n: int
+    problem: GemmProblem
+    tile: TileConfig
+    traffic: TrafficEstimate
+    vmem: VmemFootprint
+    chip: object = HOPPER_H100
+    chunk_bk: int = 0
+    fallback_reason: Optional[str] = None
+
+    @property
+    def hbm_bytes(self) -> float:
+        return self.traffic.hbm_bytes
+
+    @property
+    def vmem_bytes(self) -> int:
+        return self.vmem.total
+
+    def __post_init__(self):
+        # what every execution reads, resolved once (the one-shot gemm's
+        # repeat path touches nothing else of the plan)
+        object.__setattr__(self, "_run", (
+            "gated" if self.spec.gated else self.tile.strategy,
+            self.spec.epilogue.activation,
+            getattr(torch, self.problem.out_dtype)))
+
+    @property
+    def out_dtype(self) -> torch.dtype:
+        return self._run[2]
+
+    @property
+    def kernel(self) -> str:
+        """``"gated"``, ``"tb"`` or ``"aie"``: which kernel executes."""
+        return self._run[0]
+
+    @property
+    def launches(self) -> dict:
+        """Kernel launches one execution makes, by launch counter:
+        ``gemm_aie`` / ``gemm_gated`` (one), or a ``tb`` plan's
+        ``gemm_tb`` (B6a, one a k-chunk but the last) and
+        ``gemm_tb_final`` (B6b, one)."""
+        if self.kernel != "tb":
+            return {f"gemm_{self.kernel}": 1}
+        return {"gemm_tb": cdiv(self.k, self.chunk_bk) - 1,
+                "gemm_tb_final": 1}
+
+    def explain(self) -> str:
+        """Human-readable decision record: the kernel that runs, its
+        source, the tile, the modeled traffic / footprint / time, and why
+        any fallback happened."""
+        s, p, t = self.spec, self.problem, self.tile
+        name, src, cta = _KERNELS[self.kernel]
+        gm, gn, gk = t.grid(p)
+        if self.kernel == "tb":
+            chunks = cdiv(self.k, self.chunk_bk)
+            how = (f"k in {chunks} chunk(s) of {self.chunk_bk}: "
+                   f"{chunks - 1} B6a accumulate + 1 B6b final launch; "
+                   "each CTA keeps a (bm x chunk) A panel in shared memory "
+                   "and sweeps its share of the n tiles (the panel re-read "
+                   "per CTA hits L2; the model bills A once)")
+        else:
+            how = (f"launches its compiled {cta[0]}x{cta[1]}x{cta[2]} "
+                   "(bm x bk x bn) CTA tile whatever the plan's tile says; "
+                   "the tile below is the cost model's")
+        b_desc = ("2x " if s.gated else "") + p.b_dtype
+        budget = budget_bytes(self.chip)
+        tm = self.traffic
+        lines = [
+            f"GemmPlan {self.m}x{self.k}x{self.n}  A {p.a_dtype}  "
+            f"B {b_desc}  -> {p.out_dtype} (acc {p.acc_dtype})",
+            f"  kernel   : {name} ({src}) on CUDA tensors; its plain "
+            "version on CPU tensors",
+            f"             {how}",
+            f"  tile     : {t.strategy} {t.bm}x{t.bk}x{t.bn}"
+            f"{'  (user override)' if s.tile is not None else ''}  "
+            f"grid (gm,gn,gk)=({gm},{gn},{gk})  "
+            f"pad eff {t.tile_efficiency(p):.0%}",
+            f"  on-chip  : {self.vmem.total / 1024:.1f} KiB of "
+            f"{budget / 1024:.0f} KiB budget on {self.chip.name}  "
+            f"(a {self.vmem.a_bytes / 1024:.1f} KiB, b "
+            f"{self.vmem.b_bytes / 1024:.1f} KiB, c "
+            f"{(self.vmem.out_bytes + self.vmem.acc_bytes) / 1024:.1f} KiB)"
+            f"  eff {vmem_efficiency(t, p, self.chip):.0%}",
+            f"  traffic  : {tm.hbm_bytes / 2**20:.3f} MiB modeled  "
+            f"AI {tm.arithmetic_intensity:.0f} flop/B",
+            f"  roofline : {tm.bound}-bound  t_model "
+            f"{tm.t_model * 1e6:.2f} us modeled on {self.chip.name} "
+            f"(t_comp {tm.t_compute * 1e6:.2f}, "
+            f"t_mem {tm.t_memory * 1e6:.2f}); not a measurement",
+            f"  epilogue : {s.epilogue.key or '(none)'}"
+            + (f"  gated({s.epilogue.activation})" if s.gated else ""),
+            "  source   : analytic",
+        ]
+        if self.fallback_reason:
+            lines.append(f"  fallback : {self.fallback_reason}")
+        return "\n".join(lines)
+
+
+class PlanCacheInfo(NamedTuple):
+    entries: int
+    hits: int
+    misses: int
+
+
+_plan_cache: dict = {}
+_oneshot: dict = {}             # gemm()'s operand key -> plan
+_plan_hits = 0
+_plan_misses = 0
+
+
+def plan_cache_info() -> PlanCacheInfo:
+    """(entries, hits, misses) of the spec+shape plan cache; a one-shot
+    :func:`gemm` call that reuses a plan counts as a hit."""
+    return PlanCacheInfo(len(_plan_cache), _plan_hits, _plan_misses)
+
+
+def plan_cache_clear() -> None:
+    """Drop every cached plan and zero the hit/miss counters."""
+    global _plan_hits, _plan_misses
+    _plan_cache.clear()
+    _oneshot.clear()
+    _plan_hits = 0
+    _plan_misses = 0
+
+
+def plans() -> Tuple[GemmPlan, ...]:
+    """Every plan resolved so far, in insertion order."""
+    return tuple(_plan_cache.values())
+
+
+def _clamp_tile(tile: TileConfig, m: int, k: int, n: int,
+                chip=HOPPER_H100) -> TileConfig:
+    bm = min(tile.bm, round_up(m, chip.sublanes))
+    bk = min(tile.bk, round_up(k, chip.lane))
+    bn = min(tile.bn, round_up(n, chip.lane))
+    return TileConfig(bm, bk, bn, tile.strategy)
+
+
+def _acc_name(a_dtype: str) -> str:
+    return "int32" if a_dtype == "int8" else "float32"
+
+
+def _infeasible_reason(tile: TileConfig, p: GemmProblem,
+                       chip=HOPPER_H100) -> Optional[str]:
+    """Why a tile cannot run, or None.  'tb' keeps a (bm, bk) A panel
+    resident and refines its own k-chunking, so its gate is
+    ``feasible_bk`` (and, on the card, a (bm, bn) tile kernel B6 can
+    launch); 'aie' streams everything, so plain ``fits_vmem``."""
+    if tile.strategy == "tb":
+        if not chip.launchable(tile.bm, tile.bn):
+            return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
+                    "kernel B6's 256 threads (bn <= 256, at most 16 rows "
+                    "a thread)")
+        if feasible_bk(round_up(p.m, tile.bm), round_up(p.k, tile.bk),
+                           round_up(p.n, tile.bn), tile, p.a_dtype,
+                           p.b_dtype, p.out_dtype, _acc_name(p.a_dtype),
+                           epilogue=p.epilogue, chip=chip) > 0:
+            return None
+        return ("no k-chunk keeps the resident (bm, bn) blocks inside "
+                "the on-chip budget (feasible_bk == 0)")
+    if fits_vmem(tile, p, chip):
+        return None
+    return (f"on-chip footprint {vmem_footprint(tile, p, chip).total} "
+            f"bytes exceeds the {budget_bytes(chip):.0f}-byte budget of "
+            f"{chip.name}")
+
+
+def _problem_for(spec: GemmSpec, m: int, k: int, n: int) -> GemmProblem:
+    """The cost-model problem a spec resolves to at concrete shapes."""
+    out_dtype = spec.out_dtype or spec.a_dtype
+    return GemmProblem(m, k, n, spec.a_dtype, out_dtype,
+                       _acc_name(spec.a_dtype), spec.b_dtype,
+                       spec.epilogue.key, 2 if spec.gated else 1)
+
+
+def solve_topk(spec: GemmSpec, shapes: Tuple[int, int, int], k: int = 5,
+               chip=HOPPER_H100) -> Tuple:
+    """The ranked tile candidates for ``spec`` at ``shapes`` on ``chip``
+    (:class:`repro_torch.core.dse.TileDesign` rows, best first,
+    restricted to the spec's strategy when one is pinned)."""
+    m, kk, n = (int(x) for x in shapes[:3])
+    k = max(int(k), 1)
+    designs = dse.solve(_problem_for(spec, m, kk, n), chip, top=k)
+    if spec.strategy is not None:
+        designs = [d for d in designs if d.tile.strategy == spec.strategy]
+    return tuple(designs[:k])
+
+
+def _resolve(spec: GemmSpec, m: int, k: int, n: int,
+             chip=HOPPER_H100) -> GemmPlan:
+    """Strategy + tile for ``spec`` at (m, k, n) on ``chip``: a checked
+    explicit tile, else the search's winner, falling back to its best
+    'aie' design when a 'tb' winner fails the post-clamp check."""
+    problem = _problem_for(spec, m, k, n)
+    fallback = None
+    if spec.tile is not None:
+        tile = _clamp_tile(spec.tile, m, k, n, chip)
+        err = _infeasible_reason(tile, problem, chip)
+        if err:
+            raise ValueError(
+                f"explicit tile {tile.strategy} {tile.bm}x{tile.bk}x"
+                f"{tile.bn} is infeasible for {problem}: {err}")
+    else:
+        designs = dse.solve(problem, chip)
+        chosen = next((d for d in designs
+                       if spec.strategy in (None, d.tile.strategy)), None)
+        if chosen is None:
+            raise ValueError(
+                f"no feasible {spec.strategy!r} tiling for {problem}")
+        tile = _clamp_tile(chosen.tile, m, k, n, chip)
+        err = _infeasible_reason(tile, problem, chip)
+        if err:
+            aie = next((d for d in designs if d.tile.strategy == "aie"),
+                       None)
+            if aie is None:
+                raise ValueError(f"no feasible tiling for {problem}: {err}")
+            fallback = (f"tb tile {tile.bm}x{tile.bk}x{tile.bn} "
+                        f"infeasible ({err}); fell back to the DSE's aie "
+                        "winner")
+            tile = _clamp_tile(aie.tile, m, k, n, chip)
+    chunk = 0
+    if tile.strategy == "tb":
+        chunk = min(tile.bk, feasible_bk(
+            m, k, n, tile, problem.a_dtype, problem.b_dtype,
+            problem.out_dtype, problem.acc_dtype, problem.epilogue, chip))
+    return GemmPlan(spec, m, k, n, problem, tile,
+                    estimate(tile, problem, chip),
+                    vmem_footprint(tile, problem, chip), chip, chunk,
+                    fallback)
+
+
+def plan(spec: GemmSpec, shapes: Tuple[int, ...]) -> GemmPlan:
+    """Resolve ``spec`` for concrete ``(m, k, n)`` on ``HOPPER_H100``,
+    once per (spec, shape) key."""
+    global _plan_hits, _plan_misses
+    shapes = tuple(int(x) for x in shapes)
+    if len(shapes) != 3:
+        raise ValueError(
+            f"a dense spec plans with (m, k, n) shapes — got {shapes}")
+    key = (spec,) + shapes
+    cached = _plan_cache.get(key)
+    if cached is not None:
+        _plan_hits += 1
+        return cached
+    _plan_misses += 1
+    resolved = _resolve(spec, *shapes)
+    _plan_cache[key] = resolved
+    return resolved
+
+
+# ---------------------------------------------------------------------------
+# execute and the one-shot gemm
+# ---------------------------------------------------------------------------
+
+def _launch(pl: GemmPlan, a2, b, b2, bias, res2) -> torch.Tensor:
+    """The one kernel fan-out, driven by the plan: B2 for a gated plan,
+    B6 with the plan's tile for 'tb', else B1."""
+    kind, act, out_dtype = pl._run
+    if kind == "aie":
+        return gemm_aie(a2, b, bias=bias, activation=act, residual=res2,
+                        out_dtype=out_dtype)
+    if kind == "tb":
+        return gemm_tb(a2, b, tile=pl.tile, out_dtype=out_dtype, bias=bias,
+                       activation=act, residual=res2)
+    return gemm_gated(a2, b, b2, activation=act, out_dtype=out_dtype)
+
+
+def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
+            bias: Optional[torch.Tensor] = None,
+            residual: Optional[torch.Tensor] = None,
+            out_scale=None, group_sizes=None) -> torch.Tensor:
+    """Run a resolved plan on concrete operands.
+
+    ``a``: (..., k) — leading dims flatten into the planned M; ``b`` /
+    ``b2``: (k, n).  Epilogue operands must match the spec (a plan for a
+    bias epilogue requires ``bias=``, and vice versa); mismatches raise
+    rather than silently computing something else.
+    """
+    spec = pl.spec
+    ep = spec.epilogue
+    if spec.gated != (b2 is not None):
+        raise ValueError(f"plan {'expects' if spec.gated else 'forbids'} "
+                         "a second gated B operand `b2`")
+    if spec.grouped != (group_sizes is not None):
+        raise ValueError(
+            f"plan {'requires' if spec.grouped else 'forbids'} "
+            "`group_sizes=`")
+    for name, want, got in (("bias", ep.bias, bias is not None),
+                            ("residual", ep.residual,
+                             residual is not None),
+                            ("out_scale", ep.out_quant,
+                             out_scale is not None)):
+        if want != got:
+            raise ValueError(
+                f"plan epilogue {ep.key or '(none)'!r} "
+                f"{'requires' if want else 'forbids'} `{name}=`")
+    if spec.b_quant != _is_quant(b):
+        raise ValueError(
+            "plan expects B as a {'q','scale'} struct" if spec.b_quant
+            else "plan expects a plain B array, got a quant struct")
+    lead = a.shape[:-1]
+    a2 = a.reshape(-1, a.shape[-1])
+    if tuple(a2.shape) != (pl.m, pl.k) or tuple(b.shape) != (pl.k, pl.n):
+        raise ValueError(
+            f"operands {tuple(a.shape)} @ {tuple(b.shape)} do not match "
+            f"the plan's {pl.m}x{pl.k}x{pl.n}")
+    if b2 is not None and tuple(b2.shape) != (pl.k, pl.n):
+        raise ValueError(
+            f"gated operand b2 {tuple(b2.shape)} does not match the "
+            f"plan's ({pl.k}, {pl.n})")
+    if dtype_name(a2.dtype) != spec.a_dtype \
+            or dtype_name(b.dtype) != spec.b_dtype:
+        raise ValueError(
+            f"operand dtypes ({dtype_name(a2.dtype)}, "
+            f"{dtype_name(b.dtype)}) do not match the spec "
+            f"({spec.a_dtype}, {spec.b_dtype})")
+    n = pl.n
+    if bias is not None and bias.numel() != n:
+        raise ValueError(f"bias {tuple(bias.shape)} does not hold the "
+                         f"plan's {n} columns")
+    res2 = residual.reshape(-1, n) if residual is not None else None
+    if res2 is not None and res2.shape[0] != pl.m:
+        raise ValueError(
+            f"residual {tuple(residual.shape)} does not match the plan's "
+            f"({pl.m}, {n}) output")
+    return _launch(pl, a2, b, b2, bias, res2).reshape(*lead, n)
+
+
+def gemm(a: torch.Tensor, b, *, b2=None,
+         bias: Optional[torch.Tensor] = None,
+         activation: Optional[str] = None,
+         residual: Optional[torch.Tensor] = None, out_scale=None,
+         strategy: Optional[str] = None,
+         tile: Optional[TileConfig] = None, out_dtype=None,
+         tune: Optional[bool] = None) -> torch.Tensor:
+    """The one-shot planned GEMM: ``spec -> plan -> execute`` in a
+    single call.
+
+    * ``gemm(a, b)`` — C = A @ B;
+    * ``gemm(a, b, bias=..., activation="gelu", residual=...)`` — the
+      epilogue fused into the kernel's flush;
+    * ``gemm(a, b_gate, b2=b_up, activation="silu")`` — the gated pair.
+
+    The output dtype is ``out_dtype or a.dtype``.  The first call with a
+    given operand signature builds the spec, plans and checks the
+    operands through :func:`execute`; a repeat resolves its plan with one
+    tuple key and one dict lookup and launches, building no spec.
+    """
+    global _plan_hits
+    if isinstance(b, dict):
+        raise _not_yet("quantized {'q', 'scale'} weights", "A8")
+    key = (a.shape, b.shape, a.dtype, b.dtype, b2 is not None,
+           bias is not None, activation, residual is not None,
+           out_scale is not None, out_dtype, strategy, tile, tune)
+    pl = _oneshot.get(key)
+    if pl is None:
+        spec = GemmSpec.for_operands(
+            a, b, b2, bias=bias, activation=activation, residual=residual,
+            out_scale=out_scale, strategy=strategy, tile=tile,
+            out_dtype=out_dtype, tune=tune)
+        pl = plan(spec, gemm_shapes(a, b))
+        out = execute(pl, a, b, b2=b2, bias=bias, residual=residual,
+                      out_scale=out_scale)
+        _oneshot[key] = pl
+        return out
+    _plan_hits += 1
+    if a.dim() == 2 and (residual is None or residual.dim() == 2):
+        return _launch(pl, a, b, b2, bias, residual)
+    n = pl.n
+    res2 = residual.reshape(-1, n) if residual is not None else None
+    return _launch(pl, a.reshape(-1, pl.k), b, b2, bias, res2) \
+        .reshape(*a.shape[:-1], n)

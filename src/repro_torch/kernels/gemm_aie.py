@@ -22,6 +22,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.ref import gemm_epilogue_ref
 
+#: the (bm, bk, bn) CTA tile the kernel is compiled for (csrc/gemm_aie.cu kBM, kBK, kBN)
+CTA_TILE = (16, 128, 32)
+
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 

@@ -21,6 +21,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.ref import gemm_gated_ref
 
+#: the (bm, bk, bn) CTA tile the kernel is compiled for (csrc/gemm_gated.cu kBM, kBK, kBN)
+CTA_TILE = (16, 64, 32)
+
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
 
 

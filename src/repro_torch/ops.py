@@ -1,13 +1,26 @@
-"""One-shot operator entry points every model layer calls.
+"""``repro_torch.ops`` — the public operator API (port of ``repro/ops.py``).
 
-The counterparts of ``repro.ops.gemm`` / ``attention`` /
-``decode_attention`` with the same arguments.  The JAX package plans
-each call (Spec -> Plan -> Execute, the DSE's choice between the
-output-stationary and the A-stationary dataflow); that planner arrives
-with ROADMAP queue A6.  Until then every non-gated GEMM takes
-``gemm_aie``, which computes the same function the A-stationary kernel
-would (api.py:666).  The CUDA kernels mask ragged edges themselves, so
-nothing is padded here.
+The GEMM family is the planned pipeline of
+:mod:`repro_torch.kernels.api`:
+
+    spec = ops.GemmSpec.for_operands(x, w, residual=r)   # or GemmSpec(...)
+    pl   = ops.plan(spec, ops.gemm_shapes(x, w))         # cached, once
+    y    = ops.execute(pl, x, w, residual=r)
+    print(pl.explain())                  # kernel, source, tile, modeled cost
+
+or the one-shot form every model layer calls (the same plans):
+
+    y = ops.gemm(x, w, residual=r)
+
+The planner runs the paper's tiling search on the ``HOPPER_H100`` sheet
+and picks, per GEMM shape, the output-stationary dataflow (kernel B1,
+``gemm_aie``) or the A-stationary one (kernel B6, ``gemm_tb``); a gated
+GEMM runs kernel B2 (``gemm_gated``).  A repeated one-shot call costs
+one tuple key and one dict lookup before its launch.
+
+Attention keeps the JAX package's one-shot entry points
+(``attention``, ``decode_attention``, ``decode_attention_paged``); their
+planner (``AttnSpec``) arrives with the rest of ROADMAP queue A6.
 """
 
 from __future__ import annotations
@@ -16,46 +29,24 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.tiling import TileConfig  # noqa: F401
+from repro_torch.kernels.api import (  # noqa: F401
+    GemmPlan,
+    GemmSpec,
+    PlanCacheInfo,
+    execute,
+    gemm,
+    gemm_shapes,
+    plan,
+    plan_cache_clear,
+    plan_cache_info,
+    plans,
+    solve_topk,
+)
+from repro_torch.kernels.epilogue import ACTIVATIONS, Epilogue  # noqa: F401
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_paged)
-from repro_torch.kernels.gemm_aie import gemm_aie
-from repro_torch.kernels.gemm_gated import gemm_gated
-
-
-def gemm(a: torch.Tensor, b: torch.Tensor, *,
-         b2: Optional[torch.Tensor] = None,
-         bias: Optional[torch.Tensor] = None,
-         activation: Optional[str] = None,
-         residual: Optional[torch.Tensor] = None,
-         out_dtype=None, b_scale=None) -> torch.Tensor:
-    """C = epilogue(A @ B) over A's leading dims.
-
-    * ``gemm(a, b)`` — C = A @ B;
-    * ``gemm(a, b, bias=..., activation=..., residual=...)`` — the
-      epilogue on the kernel's flush;
-    * ``gemm(a, b_gate, b2=b_up, activation="silu")`` — the gated pair.
-
-    The output dtype is ``out_dtype or a.dtype`` (api.py:539), unlike
-    the raw ``gemm_aie`` whose default is f32.
-    """
-    if b_scale is not None or isinstance(b, dict):
-        raise NotImplementedError(
-            "int8 weight structs / b_scale arrive with ROADMAP queue A8")
-    lead = a.shape[:-1]
-    a2 = a.reshape(-1, a.shape[-1])
-    out_dtype = out_dtype or a.dtype
-    if b2 is not None:
-        if bias is not None or residual is not None:
-            raise ValueError("the gated GEMM takes no bias or residual")
-        out = gemm_gated(a2, b, b2, activation=activation,
-                         out_dtype=out_dtype)
-    else:
-        res2 = residual.reshape(-1, b.shape[1]) \
-            if residual is not None else None
-        out = gemm_aie(a2, b, bias=bias, activation=activation,
-                       residual=res2, out_dtype=out_dtype)
-    return out.reshape(*lead, b.shape[1])
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

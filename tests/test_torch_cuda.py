@@ -275,3 +275,103 @@ def test_chunked_prefill_equals_unchunked_bitwise(cuda_device, dtype):
     for name in ("k", "v"):
         assert torch.equal(caches[0]["layers"]["u0"][name],
                            caches[1]["layers"]["u0"][name])
+
+
+# ---------------------------------------------------------------- B6 gemm_tb
+
+from repro_torch import ops  # noqa: E402
+from repro_torch.core.hardware import HOPPER_H100  # noqa: E402
+from repro_torch.core.memory_model import vmem_footprint  # noqa: E402
+from repro_torch.core.tiling import GemmProblem, TileConfig  # noqa: E402
+from repro_torch.kernels.gemm_tb import (gemm_tb, gemm_tb_plain,  # noqa
+                                         smem_bytes)
+
+
+def _tb_operands(m, k, n, dtype, epi, device, seed=0):
+    a = _randn((m, k), dtype, device, seed) * k ** -0.5
+    w = _randn((k, n), dtype, device, seed + 1)
+    kw = {"out_dtype": dtype}
+    if epi in ("residual", "bias+gelu+res"):
+        kw["residual"] = _randn((m, n), dtype, device, seed + 2)
+    if epi in ("bias+silu", "bias+gelu+res"):
+        kw["bias"] = _randn((n,), torch.float32, device, seed + 3)
+        kw["activation"] = "silu" if epi == "bias+silu" else "gelu"
+    if epi == "f32out":
+        kw["out_dtype"] = torch.float32
+    return a, w, kw
+
+
+@pytest.mark.parametrize("m,k,n,tile", [
+    (8, 960, 320, (8, 512, 32)),       # wk/wv at decode: 2 chunks, ragged
+    (8, 2560, 960, (8, 512, 64)),      # w_down at decode: 5 chunks
+    (300, 960, 960, (128, 512, 32)),   # prefill: m not a multiple of bm
+    (17, 100, 70, (16, 32, 64)),       # ragged everything, 4 chunks
+    (3, 60, 200, (8, 1024, 256)),      # one chunk: B6b alone
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", ["none", "residual", "bias+silu", "f32out"])
+def test_gemm_tb_kernel_matches_plain(cuda_device, m, k, n, tile, dtype,
+                                      epi):
+    a, w, kw = _tb_operands(m, k, n, dtype, epi, cuda_device)
+    t = TileConfig(*tile, "tb")
+    _close(gemm_tb(a, w, tile=t, **kw), gemm_tb_plain(a, w, tile=t, **kw),
+           dtype)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 960, 320), (8, 2560, 960),
+                                   (300, 960, 960), (5, 131, 77)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", ["none", "residual", "bias+gelu+res",
+                                 "f32out"])
+def test_gemm_tb_equals_gemm_aie_bitwise(cuda_device, m, k, n, dtype, epi):
+    """Both dataflows run one fmaf chain over k in order per element and
+    the same flush, so B6 == B1 bit for bit at any tile (1, 2 and >= 4
+    k-chunks here) and any split of the n sweep over CTAs."""
+    a, w, kw = _tb_operands(m, k, n, dtype, epi, cuda_device, seed=7)
+    want = gemm_aie(a, w, **kw)
+    for tile in ((8, 1024, 256), (16, 512, 64), (64, 128, 32),
+                 (8, 32, 128)):
+        t = TileConfig(*tile, "tb")
+        for split in (None, 1, 3):
+            got = gemm_tb(a, w, tile=t, n_split_tiles=split, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (tile, split)
+
+
+def test_gemm_tb_launch_counters_follow_the_plan(cuda_device):
+    a = _randn((8, 2560), torch.bfloat16, cuda_device, 0)
+    w = _randn((2560, 960), torch.bfloat16, cuda_device, 1)
+    pl = ops.plan(ops.GemmSpec(strategy="tb"), (8, 2560, 960))
+    want = pl.launches
+    assert want["gemm_tb"] >= 1 and want["gemm_tb_final"] == 1
+    before = (gemm_tb.launches, gemm_tb.final_launches,
+              gemm_tb_plain.launches, gemm_aie.launches)
+    ops.execute(pl, a, w)
+    assert (gemm_tb.launches - before[0],
+            gemm_tb.final_launches - before[1]) == \
+        (want["gemm_tb"], want["gemm_tb_final"])
+    assert gemm_tb_plain.launches == before[2]
+    assert gemm_aie.launches == before[3]
+
+
+@pytest.mark.parametrize("tile,epi,dtype", [
+    ((8, 512, 32), "", "bfloat16"), ((128, 512, 32), "", "bfloat16"),
+    ((64, 512, 32), "res", "bfloat16"), ((16, 256, 64), "bias+silu+res",
+                                         "float32")])
+def test_gemm_tb_smem_is_the_modeled_footprint(cuda_device, tile, epi,
+                                               dtype):
+    t = TileConfig(*tile, "tb")
+    p = GemmProblem(300, 960, 960, dtype, dtype, "float32", dtype, epi)
+    td = getattr(torch, dtype)
+    assert smem_bytes(*tile, td, td, bias="bias" in epi,
+                      residual="res" in epi) == \
+        vmem_footprint(t, p, HOPPER_H100).total
+
+
+def test_gemm_tb_refuses_what_it_cannot_launch(cuda_device):
+    a = _randn((64, 960), torch.bfloat16, cuda_device, 0)
+    w = _randn((960, 320), torch.bfloat16, cuda_device, 1)
+    with pytest.raises(ValueError, match="256 threads"):
+        gemm_tb(a, w, tile=TileConfig(64, 128, 256, "tb"))
+    with pytest.raises(ValueError, match="infeasible"):
+        ops.gemm(a, w, tile=TileConfig(64, 128, 256, "tb"))
