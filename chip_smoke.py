@@ -14,11 +14,23 @@ Phases (any failure raises and the script exits non-zero):
    operands cycled over more than 100 MB so each call finds the L2
    cache cold, as a layer of the real model does); the A-stationary
    gemm_tb (B6) runs at every GEMM shape of the serve path at the tile
-   its 'tb' plan gives; then the paged decode kernel must equal the
-   dense one bit for bit on one logical cache scattered into a permuted
-   pool, at page sizes 16, 32 and 64; and gemm_tb must equal gemm_aie
-   bit for bit at the serve shapes, in bf16 and f32, with each epilogue,
-   at tiles giving one, two and four or more k-chunks;
+   its 'tb' plan gives; each dense GEMM of qwen3-moe's served path (the
+   decode step's, timed, a 300-token prefill's, timed, a paged chunk's
+   and the last-token lm_head) runs on B1 or B6 as its HOPPER_H100 plan
+   picks, at the plan's tile; the grouped gemm_grouped (B7) at
+   qwen3-moe's expert GEMMs (a decode step's 64 routed rows and a 300-token
+   prefill's 2400, beside ``torch._grouped_mm``; its plain version
+   reads the group ends on the host and is timed from eager calls) and
+   at edges with empty groups, a dropped tail and a straddled tile; the
+   attention kernels also at qwen3-moe's GQA group of 16 and head_dim
+   of 128;
+   then the paged decode kernel must equal the dense one bit for bit on
+   one logical cache scattered into a permuted pool, at page sizes 16,
+   32 and 64; gemm_tb must equal gemm_aie bit for bit at both models'
+   dense serve shapes, in bf16 and f32, with each epilogue, at the 'tb'
+   plan's tile and tiles giving one, two and four or more k-chunks; and
+   every group's rows of each gemm_grouped case must equal gemm_aie on
+   them, bit for bit;
 4. the operator API: for each GEMM shape of the serve path at m = 8 and
    m = 300 and for the 1024^3 GEMM, print the HOPPER_H100 plan's
    ``explain()`` and time the one-shot ``ops.gemm`` with the planner's
@@ -41,16 +53,27 @@ Phases (any failure raises and the script exits non-zero):
    the acceptance trace plus a short and a 96-token prompt, and on two
    prompts sharing a prefix with the prefix cache on;
 7. smollm-360m-smoke (f32): prefill + 8 decode steps on the card match
-   the same port on the CPU within atol=rtol=1e-4.
+   the same port on the CPU within atol=rtol=1e-4;
+8. with smollm-360m freed, qwen3-moe-235b-a22b at full width with its
+   depth cut to 4 layers (printed with the reason; random weights from
+   seed 0): phases 5 and 6 again, dense and paged, every MoE layer
+   launching B7 three times a pass and no plain version running; its
+   paged greedy is held to paged solo greedy (chunked prefill sets the
+   expert capacity by the chunk, so it may drop otherwise than a
+   whole-prompt prefill).
 
-Prints a ``{"kernels": [...]}`` line (six kernels; gemm_tb's launches
-sum its two Pallas sites, listed under ``sites``) and the card line
-before the last line, which is ``{"ok": true, "device": {...}}``.  Details go to
+Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
+sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
+splits each count by model; each entry's times sum the step its
+``timed_on`` names, and a ``qwen3-moe-235b-a22b`` key holds the 4-layer
+MoE step's) and the card line before the last line, which is
+``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -78,6 +101,8 @@ from repro_torch.kernels.gemm_aie import gemm_aie, gemm_aie_plain  # noqa
 from repro_torch.kernels import api  # noqa: E402
 from repro_torch.kernels.gemm_gated import (  # noqa: E402
     gemm_gated, gemm_gated_plain)
+from repro_torch.kernels.gemm_grouped import (  # noqa: E402
+    gemm_grouped, gemm_grouped_plain)
 from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
@@ -109,12 +134,54 @@ KERNELS = {
                            "src/repro/kernels/flash_decode.py:275"),
     "gemm_tb": (gemm_tb, gemm_tb_plain, "src/repro_torch/csrc/gemm_tb.cu",
                 "src/repro/kernels/gemm_tb.py:96"),
+    "gemm_grouped": (gemm_grouped, gemm_grouped_plain,
+                     "src/repro_torch/csrc/gemm_grouped.cu",
+                     "src/repro/kernels/gemm_grouped.py:196"),
 }
 #: B6's second Pallas site, the final k-chunk, and its launch counter
 GEMM_TB_FINAL_SITE = "src/repro/kernels/gemm_tb.py:139"
-#: the one-shot GEMMs of one decode step, prefill or prefill chunk of
-#: smollm-360m: six a layer (q, k, v, o, gate/up, down) and the lm_head
-GEMMS_PER_PASS = 32 * 6 + 1
+#: the shape set each kernel's times in the kernels line sum over
+TIMED_ON = {
+    "gemm_aie": "smollm-360m: one 8-slot decode step",
+    "gemm_tb": "smollm-360m: one 8-slot decode step's non-gated GEMMs, "
+               "the shape set of gemm_aie",
+    "gemm_gated": "smollm-360m: one 8-slot decode step",
+    "flash_attention": "smollm-360m: one 300-token prefill",
+    "flash_decode": "smollm-360m: one 8-slot decode step",
+    "flash_decode_paged": "smollm-360m: one 8-slot decode step",
+    "gemm_grouped": "qwen3-moe-235b-a22b at 4 layers: one 8-slot decode "
+                    "step",
+}
+#: the same for qwen3-moe-235b-a22b at 4 layers, under its own key
+MOE_TIMED_ON = {
+    "gemm_aie": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+                "planner gives this kernel",
+    "gemm_tb": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+               "planner gives this kernel",
+    "flash_attention": "one 300-token prefill",
+    "flash_decode": "one 8-slot decode step",
+    "flash_decode_paged": "one 8-slot decode step",
+}
+#: qwen3-moe-235b-a22b is served at full width with its depth cut to this
+#: many layers: 94 layers of bf16 weights (about 470 GB) do not fit one
+#: 80 GB card, 4 (about 22.4 GB) do
+MOE_LAYERS = 4
+
+
+def gemms_per_pass(cfg) -> int:
+    """The planned GEMMs of one decode step, prefill or prefill chunk: q,
+    k, v, o a layer, then gate/up and down (an attn layer) or the router
+    and three grouped expert GEMMs (a moe layer), and the lm_head."""
+    per_kind = {"attn": 6, "moe": 8}
+    return sum(per_kind[k] for k in cfg.layer_pattern) * cfg.repeats + 1
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
 
 
 def log(msg: str) -> None:
@@ -152,12 +219,13 @@ def tb_tile(m, k, n, dtype, *, residual=False, bias=False, act=None,
 
 
 def gemm_case(name, weight, m, k, n, dtype, *, residual=False, bias=False,
-              act=None, out_dtype=None, tb=False):
-    """A GEMM case for B1 or, ``tb``, for B6 at the tile its 'tb' plan
-    gives the shape."""
+              act=None, out_dtype=None, tb=False, tile=None, **extra):
+    """A GEMM case for B1 or, ``tb``, for B6 at ``tile`` or else the tile
+    its 'tb' plan gives the shape; ``extra`` keys go into the case."""
     out_dtype = out_dtype or dtype
-    tile = tb_tile(m, k, n, dtype, residual=residual, bias=bias, act=act,
-                   out_dtype=out_dtype) if tb else None
+    if tb and tile is None:
+        tile = tb_tile(m, k, n, dtype, residual=residual, bias=bias,
+                       act=act, out_dtype=out_dtype)
 
     def make():
         kw = {"out_dtype": out_dtype}
@@ -190,7 +258,46 @@ def gemm_case(name, weight, m, k, n, dtype, *, residual=False, bias=False,
     if tile is not None:
         name += f" tile {tile.bm}x{tile.bk}x{tile.bn}"
     return dict(name=name, weight=weight, dtype=dtype, make=make,
-                library=library, cost=cost)
+                library=library, cost=cost, **extra)
+
+
+def moe_gemm_cases():
+    """B1 or B6, as the HOPPER_H100 planner picks, at each dense GEMM of
+    qwen3-moe-235b-a22b's served path and at its plan's tile: a decode
+    step of 8 slots (timed; ``moe_weight`` = launches in one step of the
+    4-layer model), a 300-token prefill (timed), a 64-token paged chunk
+    and the prefill's last-token lm_head.  Returns {kernel: [cases]}."""
+    bf, f32 = torch.bfloat16, torch.float32
+    d, q, kv, e, V = 4096, 8192, 512, 128, 151936
+    n_l = MOE_LAYERS
+    shapes = []
+    for m, per_step, tag in ((8, 1, "decode"), (300, 0, "prefill"),
+                             (64, 0, "chunk")):
+        shapes += [(f"{tag} wq {m}x{d}x{q}", per_step * n_l, m, d, q, bf,
+                    {}),
+                   (f"{tag} wk/wv {m}x{d}x{kv}", per_step * 2 * n_l, m, d,
+                    kv, bf, {}),
+                   (f"{tag} wo+res {m}x{q}x{d}", per_step * n_l, m, q, d,
+                    bf, {"residual": True}),
+                   (f"{tag} router f32 {m}x{d}x{e}", per_step * n_l, m, d,
+                    e, f32, {})]
+    shapes += [(f"decode lm_head 8x{d}x{V}", 1, 8, d, V, bf,
+                {"out_dtype": f32}),
+               (f"prefill lm_head 1x{d}x{V}", 0, 1, d, V, bf,
+                {"out_dtype": f32})]
+    out = {"gemm_aie": [], "gemm_tb": []}
+    for name, per_step, m, k, n, dtype, kw in shapes:
+        out_dtype = kw.get("out_dtype", dtype)
+        spec = ops.GemmSpec(a_dtype=dtype, b_dtype=dtype, out_dtype=out_dtype,
+                            epilogue=ops.Epilogue(
+                                residual=kw.get("residual", False)))
+        tile = ops.plan(spec, (m, k, n)).tile
+        tb = tile.strategy == "tb"
+        out["gemm_tb" if tb else "gemm_aie"].append(gemm_case(
+            "qwen3 " + name, 0, m, k, n, dtype, tb=tb,
+            tile=tile if tb else None, moe_weight=per_step,
+            timed=per_step > 0 or m == 300, **kw))
+    return out
 
 
 def gated_case(name, weight, m, k, n, dtype):
@@ -287,6 +394,61 @@ def paged_case(name, weight, pos, ps, max_pages, hq, hkv, d, dtype, *,
                 library=None, two_calls=gather_sdpa, cost=cost)
 
 
+def routed_sizes(tokens, n_experts, top_k, cap, seed):
+    """Group sizes of ``tokens`` routed top-k over the experts uniformly
+    at random, each clipped to the capacity ``cap`` (the rows past the
+    groups are the dropped tail)."""
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(n_experts, np.int64)
+    for _ in range(tokens):
+        counts[rng.choice(n_experts, top_k, replace=False)] += 1
+    return np.minimum(counts, cap)
+
+
+def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
+                 bias=False, timed=False):
+    """A case for B7 at the tile its HOPPER_H100 plan gives the shape;
+    ``sizes`` are the group sizes, ``m`` >= their sum the rows."""
+    sizes = np.asarray(sizes, np.int64)
+    e = len(sizes)
+    ep = ops.Epilogue(bias=bias, activation=act)
+    tile = ops.plan(ops.GemmSpec(a_dtype=dtype, b_dtype=dtype, grouped=True,
+                                 epilogue=ep), (m, k, n, e)).tile
+
+    def make():
+        kw = {"tile": tile, "out_dtype": dtype}
+        if act:
+            kw["activation"] = act
+        if bias:
+            kw["bias"] = rand((e, n), torch.float32)
+        gs = torch.as_tensor(sizes.astype(np.int32), device="cuda")
+        return (rand((m, k), dtype), rand((e, k, n), dtype, k ** -0.5),
+                gs), kw
+
+    def library(a, b, gs, tile, out_dtype, activation=None, bias=None):
+        """torch._grouped_mm over the group ends (one call), then the
+        activation; the rows past the groups are not its business."""
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        x = torch._grouped_mm(a, b, offs=offs)
+        if activation == "silu":
+            x = F.silu(x)
+        return x.to(out_dtype)
+
+    def cost(args, kw):
+        """Bytes: the live experts' banks, A and C (and their biases);
+        operations: the routed rows' products."""
+        a, b, _ = args
+        es = a.element_size()
+        live = int((sizes > 0).sum())
+        byts = (live * k * n + m * k + m * n) * es \
+            + (live * n * 4 if bias else 0)
+        return byts, 2.0 * float(sizes.sum()) * k * n
+    name += f" tile {tile.bm}x{tile.bn}"
+    return dict(name=name, weight=weight, moe_weight=weight, dtype=dtype,
+                make=make, library=library, cost=cost,
+                timed=timed or weight > 0, plain_eager=True)
+
+
 def device_ms(fn, inputs) -> float:
     """Median device time of one call, from CUDA-graph replays of one
     call per input set (the sets together exceed the L2 cache)."""
@@ -316,6 +478,24 @@ def device_ms(fn, inputs) -> float:
     return float(np.median(times))
 
 
+def eager_ms(fn, inputs) -> float:
+    """Mean device-timeline time of one eager call (CUDA events around
+    REPS calls over the input sets), for a function that reads values on
+    the host and so cannot be captured in a CUDA graph."""
+    for args, kw in inputs[:2]:
+        fn(*args, **kw)
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for i in range(REPS):
+        args, kw = inputs[i % len(inputs)]
+        fn(*args, **kw)
+    t1.record()
+    t1.synchronize()
+    return t0.elapsed_time(t1) / REPS
+
+
 def check_kernel(name, cases):
     kernel, plain, _, _ = KERNELS[name]
     rows, worst = [], 0.0
@@ -335,20 +515,22 @@ def check_kernel(name, cases):
                 f"{name} {case['name']}: {int(bad.sum())} elements off, "
                 f"max abs err {err.max().item():.3e}")
         row = {"case": case["name"], "weight": case["weight"],
+               "moe_weight": case.get("moe_weight", 0),
                "max_abs_err": err.max().item()}
         worst = max(worst, row["max_abs_err"])
-        if case["weight"]:
+        if case.get("timed", case["weight"] > 0):
             per = nbytes(*args, *(v for v in kw.values()
                                   if isinstance(v, torch.Tensor)))
             copies = max(1, min(64, math.ceil(COLD_BYTES / per)))
             inputs = [first] + [case["make"]() for _ in range(copies - 1)]
             b, ops = case["cost"](args, kw)
-            library = case["library"]
             if "two_calls" in case:
                 row["gather_sdpa_ms"] = device_ms(case["two_calls"], inputs)
+            library = case["library"]
             row.update(
                 ms=device_ms(kernel, inputs),
-                plain_ms=device_ms(plain, inputs),
+                plain_ms=(eager_ms if case.get("plain_eager")
+                          else device_ms)(plain, inputs),
                 library_ms=device_ms(library, inputs) if library else None,
                 bytes=b, ops=ops,
                 bound_ms=max(b / PEAK_BYTES, ops / PEAK_OPS[case["dtype"]])
@@ -367,19 +549,33 @@ def check_kernel(name, cases):
                   f"{row['gather_sdpa_ms']*1e3:.1f} us"
                   if "gather_sdpa_ms" in row else "")
                if "ms" in row else "  (edge shape, not timed)"))
-    timed = [r for r in rows if "ms" in r]
-    total = {key: sum(r["weight"] * r[key] for r in timed)
+    return rows, worst, weighted(rows, "weight"), weighted(rows, "moe_weight")
+
+
+def weighted(rows, weight):
+    """The timed rows' times, bytes and operations, each row counted
+    ``row[weight]`` times (its launches in one step); None if no row
+    has that weight."""
+    timed = [r for r in rows if "ms" in r and r[weight]]
+    if not timed:
+        return None
+    total = {key: sum(r[weight] * r[key] for r in timed)
              for key in ("ms", "plain_ms", "bound_ms", "bytes", "ops")}
     libs = [r["library_ms"] for r in timed]
     total["library_ms"] = None if None in libs else \
-        sum(r["weight"] * r["library_ms"] for r in timed)
-    return rows, worst, total
+        sum(r[weight] * r["library_ms"] for r in timed)
+    by_bytes = sum(r[weight] * r["bound_ms"] for r in timed
+                   if r["bound_by"] == "bytes")
+    total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] \
+        else "operations"
+    return total
 
 
 def kernel_phase():
     bf, f32 = torch.bfloat16, torch.float32
     d, hq, hkv, ff, V = 960, 15, 5, 2560, 49152
     pos = [17, 40, 95, 160, 210, 300, 333, 363]
+    moe_gemms = moe_gemm_cases()
     plan = {
         # weights = launches of that shape in one decode step (8 slots)
         "gemm_aie": [
@@ -394,7 +590,7 @@ def kernel_phase():
             gemm_case("prefill wq 300x960x960", 0, 300, d, d, bf),
             gemm_case("edge f32 3x60x49152 bias+silu+res", 0, 3, 60, V, f32,
                       residual=True, bias=True, act="silu"),
-        ],
+        ] + moe_gemms["gemm_aie"],
         # weights: the decode step's non-gated GEMMs, as for gemm_aie, so
         # the two dataflows' sums compare on one shape set
         "gemm_tb": [
@@ -415,7 +611,7 @@ def kernel_phase():
                       residual=True, tb=True),
             gemm_case("edge f32 37x200x131 bias+silu+res", 0, 37, 200, 131,
                       f32, residual=True, bias=True, act="silu", tb=True),
-        ],
+        ] + moe_gemms["gemm_tb"],
         "gemm_gated": [
             gated_case("decode gate/up 8x960x2560", 32, 8, d, ff, bf),
             gated_case("prefill gate/up 300x960x2560", 0, 300, d, ff, bf),
@@ -427,12 +623,20 @@ def kernel_phase():
                       bf),
             attn_case("prefill 1x12 h15/5 d64", 0, 1, 12, hq, hkv, 64, bf),
             attn_case("edge f32 2x45 h3/1 d20", 0, 2, 45, 3, 1, 20, f32),
+            # qwen3-moe: GQA group 16 (the kernels' MAX_GROUP) and head_dim
+            # 128 (MAX_HEAD_DIM), reached for the first time; moe_weight =
+            # launches in one prefill / decode step of the 4-layer model
+            dict(attn_case("qwen3 prefill 1x300 h64/4 d128", 0, 1, 300, 64,
+                           4, 128, bf), timed=True, moe_weight=MOE_LAYERS),
         ],
         "flash_decode": [
             decode_case("decode 8 slots S1024 h15/5 d64", 32, pos, 1024,
                         hq, hkv, 64, bf),
             decode_case("edge f32 3 slots S50 h3/1 d20", 0, [0, 17, 49],
                         50, 3, 1, 20, f32),
+            dict(decode_case("qwen3 decode 8 slots S1024 h64/4 d128", 0, pos,
+                             1024, 64, 4, 128, bf), timed=True,
+                 moe_weight=MOE_LAYERS),
         ],
         "flash_decode_paged": [
             paged_case("decode 8 slots 64x16 h15/5 d64", 32, pos, 16, 64,
@@ -440,9 +644,46 @@ def kernel_phase():
             paged_case("edge f32 4 slots 7x8 h3/1 d20 w20", 0,
                        [0, 17, 55, 70], 8, 7, 3, 1, 20, f32, window=20,
                        sink_row=2),
+            dict(paged_case("qwen3 decode 8 slots 64x16 h64/4 d128", 0, pos,
+                            16, 64, 64, 4, 128, bf), timed=True,
+                 moe_weight=MOE_LAYERS),
         ],
+        # weights = launches in one decode step of the 4-layer MoE
+        "gemm_grouped": grouped_cases(),
     }
     return {name: check_kernel(name, cases) for name, cases in plan.items()}
+
+
+def grouped_cases():
+    """B7 at qwen3-moe-235b-a22b's expert GEMMs (d 4096, d_ff 1536, 128
+    experts, top-8): a decode step of 8 slots (64 routed rows over the
+    experts 8 tokens pick) and a 300-token prefill (2400 rows, capacity
+    24, so a full expert drops its overflow into the tail), both timed;
+    then untimed edges: empty groups at the ends and in the middle, a
+    dropped tail, and a tile straddled by several groups."""
+    bf, f32 = torch.bfloat16, torch.float32
+    d, ff, e = 4096, 1536, 128
+    dec = routed_sizes(8, e, 8, 8, seed=21)
+    pre = routed_sizes(300, e, 8, 24, seed=22)
+    return [
+        grouped_case("decode gate+silu 64x4096x1536", MOE_LAYERS, dec, 64,
+                     d, ff, bf, act="silu"),
+        grouped_case("decode up 64x4096x1536", MOE_LAYERS, dec, 64, d, ff,
+                     bf),
+        grouped_case("decode down 64x1536x4096", MOE_LAYERS, dec, 64, ff, d,
+                     bf),
+        grouped_case("prefill gate+silu 2400x4096x1536", 0, pre, 2400, d,
+                     ff, bf, act="silu", timed=True),
+        grouped_case("prefill down 2400x1536x4096", 0, pre, 2400, ff, d, bf,
+                     timed=True),
+        grouped_case("edge f32 empty groups bias+silu", 0,
+                     [0, 0, 37, 0, 20, 0, 0], 57, 100, 70, f32, act="silu",
+                     bias=True),
+        grouped_case("edge bf16 dropped tail", 0, [5, 9, 0, 4], 30, 256, 192,
+                     bf),
+        grouped_case("edge f32 straddled tile", 0, [3, 2, 1, 1, 4, 2, 50], 63,
+                     300, 200, f32),
+    ]
 
 
 def paged_bitwise_phase():
@@ -478,13 +719,19 @@ def paged_bitwise_phase():
 
 
 def tb_bitwise_phase():
-    """B6 == B1, bit for bit: at every GEMM shape of the serve path
-    (decode m = 8 and a 300-token prefill) and an f32 edge shape, in bf16
-    and f32, with each epilogue, at three tiles that give one k-chunk,
-    two, and four or more."""
+    """B6 == B1, bit for bit: at every dense GEMM shape of both models'
+    serve paths (smollm-360m and qwen3-moe-235b-a22b: decode m = 8, a
+    300-token prefill, qwen3's 64-token paged chunk and last-token
+    lm_head) and an f32 edge shape, in bf16 and f32, with each epilogue,
+    at the tile HOPPER_H100's 'tb' plan gives the shape and three tiles
+    that give one k-chunk, two, and four or more."""
     d, ff, V = 960, 2560, 49152
+    qd, qq, qkv, qe, qV = 4096, 8192, 512, 128, 151936
     shapes = [(8, d, d), (8, d, 320), (8, ff, d), (8, d, V), (300, d, d),
               (300, d, 320), (300, ff, d), (37, 200, 131)]
+    for m in (8, 300, 64):
+        shapes += [(m, qd, qq), (m, qd, qkv), (m, qq, qd), (m, qd, qe)]
+    shapes += [(8, qd, qV), (1, qd, qV)]
     epilogues = [{}, {"residual": True}, {"bias": True, "act": "gelu"},
                  {"bias": True, "act": "silu", "residual": True},
                  {"out_dtype": torch.float32}]
@@ -496,7 +743,9 @@ def tb_bitwise_phase():
             res = rand((m, n), dtype)
             bias = rand((n,), torch.float32)
             half = -(-k // 2 // 32) * 32
-            tiles = [(8, 4096, 16), (16, half, 32), (8, 128, 64)]
+            pt = tb_tile(m, k, n, dtype)
+            tiles = [(pt.bm, pt.bk, pt.bn), (8, 4096, 16), (16, half, 32),
+                     (8, 128, 64)]
             for ep in epilogues:
                 kw = {"out_dtype": ep.get("out_dtype", dtype)}
                 if ep.get("residual"):
@@ -523,12 +772,48 @@ def tb_bitwise_phase():
                         out_dtype=kw["out_dtype"]), (m, k, n))
                     chunk_counts.add(-(-k // pl.chunk_bk))
                     checked += 1
+            del a, b, res
     if not {1, 2} <= chunk_counts or max(chunk_counts) < 4:
         raise RuntimeError(f"tb bitwise: chunk counts {chunk_counts}")
     log(f"gemm_tb == gemm_aie, bit for bit: {checked} cases ({len(shapes)} "
-        f"shapes x bf16/f32 x {len(epilogues)} epilogues x 3 tiles; "
+        f"shapes x bf16/f32 x {len(epilogues)} epilogues x 4 tiles; "
         f"k-chunk counts {sorted(chunk_counts)})")
     return {"cases": checked, "chunk_counts": sorted(chunk_counts)}
+
+
+def grouped_bitwise_phase():
+    """B7 == B1 on every group's rows, bit for bit: in each B7 case, at
+    the plan's tile and at an 8 x 32 tile (one row a thread), row block
+    ``g`` of the grouped GEMM equals gemm_aie of those rows against
+    expert ``g``'s weights with the same epilogue; rows past the groups
+    are zero."""
+    checked = 0
+    for case in grouped_cases():
+        (a, b, gs), kw = case["make"]()
+        sizes = gs.tolist()
+        for tile in (kw["tile"], ops.TileConfig(8, 64, 32)):
+            got = gemm_grouped(a, b, gs, **dict(kw, tile=tile))
+            start = 0
+            for g, size in enumerate(sizes):
+                if size:
+                    want = gemm_aie(
+                        a[start:start + size], b[g],
+                        bias=kw["bias"][g] if "bias" in kw else None,
+                        activation=kw.get("activation"),
+                        out_dtype=kw["out_dtype"])
+                    if not torch.equal(got[start:start + size], want):
+                        raise RuntimeError(
+                            f"gemm_grouped != gemm_aie on group {g} of "
+                            f"{case['name']} at tile {tile}")
+                    checked += 1
+                start += size
+            if got[start:].any():
+                raise RuntimeError(f"gemm_grouped: rows past the groups of "
+                                   f"{case['name']} are not zero")
+        del a, b
+    log(f"gemm_grouped == gemm_aie, bit for bit: {checked} groups over "
+        "the B7 cases at two tiles each; rows past the groups zero")
+    return checked
 
 
 def api_phase():
@@ -664,7 +949,8 @@ def serve_phase(cfg, params, *, paged):
     """Serve the trace through the dense engine or, ``paged``, through
     the paged one (16-token pages, 64-token chunks, prefix cache on)
     with two shared-prefix requests added.  The kernel counts are set to
-    0 just before the run and read just after."""
+    0 just before the run and read just after; a MoE model must launch
+    B7 three times a layer a pass."""
     trace = serve_trace(cfg)
     kw = dict(page_size=16, prefill_chunk=64) if paged else {}
     if paged:
@@ -688,18 +974,23 @@ def serve_phase(cfg, params, *, paged):
     prefills = m["prefill_chunks"]
     decode, other = ("flash_decode_paged", "flash_decode") if paged \
         else ("flash_decode", "flash_decode_paged")
-    # every pass runs 193 planned GEMMs; their plans say which kernel
-    # takes each and how often (a 'tb' plan: one B6a a chunk but the
-    # last, and one B6b)
+    # every pass runs gemms_per_pass planned GEMMs; their plans say which
+    # kernel takes each and how often (a 'tb' plan: one B6a a chunk but
+    # the last, and one B6b)
+    passes = steps + prefills
     executed = sum(rec.plans.values())
-    if executed != GEMMS_PER_PASS * (steps + prefills):
+    if executed != gemms_per_pass(cfg) * passes:
         raise RuntimeError(f"{executed} GEMMs ran, expected "
-                           f"{GEMMS_PER_PASS} x {steps + prefills} passes")
+                           f"{gemms_per_pass(cfg)} x {passes} passes")
+    n_moe = cfg.repeats * cfg.layer_pattern.count("moe")
     want = {"gemm_aie": 0, "gemm_gated": 0, "gemm_tb": 0,
-            "gemm_tb_final": 0}
+            "gemm_tb_final": 0, "gemm_grouped": 0}
     want.update(rec.implied())
-    want.update({decode: 32 * steps, other: 0,
-                 "flash_attention": 32 * prefills})
+    want.update({decode: cfg.n_layers * steps, other: 0,
+                 "flash_attention": cfg.n_layers * prefills})
+    if want["gemm_grouped"] != 3 * n_moe * passes:
+        raise RuntimeError(f"{want['gemm_grouped']} grouped GEMMs planned, "
+                           f"expected 3 x {n_moe} MoE layers x {passes}")
     if launches != want or any(plain.values()):
         raise RuntimeError(f"{'paged' if paged else 'dense'} path launches "
                            f"{launches} (expected {want}), plain versions "
@@ -733,7 +1024,7 @@ def serve_phase(cfg, params, *, paged):
            "gemm_plans_executed": by_kernel,
            "plain_launches": plain, "prefill_chunks": prefills,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    tag = "paged serve" if paged else "serve"
+    tag = ("paged serve" if paged else "serve") + f" {cfg.name}"
     if paged:
         out.update({k: m[k] for k in (
             "max_prefill_stall_tokens", "prefix_hits", "prefix_misses",
@@ -795,7 +1086,8 @@ def step_phase(cfg, params, *, paged):
     eager = (time.perf_counter() - t0) / REPS * 1e3
     out = {"device_ms_per_step": device, "eager_ms_per_step": eager,
            "device_idle_share": 1.0 - device / eager}
-    log(f"{'paged' if paged else 'dense'} decode step (8 slots): device "
+    log(f"{cfg.name} {'paged' if paged else 'dense'} decode step (8 "
+        "slots): device "
         f"{device:.2f} ms (CUDA graph), eager {eager:.2f} ms; device idle "
         f"{out['device_idle_share']:.1%} of an eager step")
     return out
@@ -822,36 +1114,53 @@ def bit_identity_phase(cfg, params):
 PAGED_TRACE = ACCEPTANCE_TRACE + ((8, 8), (96, 8))
 
 
-def paged_bit_identity_phase(cfg, params):
-    """Paged greedy == dense solo greedy at full width: 2 slots, 16-token
+def paged_bit_identity_phase(cfg, params, *, reference="dense"):
+    """Paged greedy == solo greedy at full width: 2 slots, 16-token
     pages, 16-token chunks, prefix cache off, on the paged trace; then
-    two prompts sharing a 32-token prefix with the prefix cache on."""
+    two prompts sharing a 32-token prefix with the prefix cache on.  The
+    reference is each request alone, by dense ``solo_greedy``
+    (``reference="dense"``) or on a 1-slot paged engine with the same
+    pages and chunks (``"paged"``): a MoE model's prefill chunk sets the
+    expert capacity by the chunk's tokens, so chunked prefill may drop
+    other assignments than a whole-prompt prefill (in the JAX package
+    too), and the paged MoE path is held to paged solo runs."""
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, (p,)).astype(np.int32),
                     max_tokens=mt) for p, mt in PAGED_TRACE]
     max_len = -(-max(p + mt - 1 for p, mt in PAGED_TRACE) // 16) * 16
+    kw = dict(max_len=max_len, page_size=16, prefill_chunk=16,
+              device="cuda")
+
+    def solo(req):
+        if reference == "dense":
+            return solo_greedy(params, cfg, req.prompt, req.max_tokens,
+                               max_len)
+        return DecodeEngine(params, cfg, batch=1, prefix_cache=False,
+                            **kw).run([Request(prompt=req.prompt,
+                                               max_tokens=req.max_tokens)]
+                                      )[0].tokens
+
     runs = [(reqs, False), (shared_prefix_requests(cfg, 32, 8, 8, seed=7),
                             True)]
     n = 0
     for trace, prefix in runs:
-        engine = DecodeEngine(params, cfg, batch=2, max_len=max_len,
-                              page_size=16, prefill_chunk=16,
-                              prefix_cache=prefix, device="cuda")
+        engine = DecodeEngine(params, cfg, batch=2, prefix_cache=prefix,
+                              **kw)
         results = {r.rid: r.tokens for r in engine.run(trace)}
         for req in trace:
-            want = solo_greedy(params, cfg, req.prompt, req.max_tokens,
-                               max_len)
+            want = solo(req)
             if not np.array_equal(results[req.rid], want):
                 raise RuntimeError(
-                    f"paged != dense solo greedy for request {req.rid} "
-                    f"(prefix cache {prefix}): {results[req.rid]} vs {want}")
+                    f"paged != {reference} solo greedy for request "
+                    f"{req.rid} (prefix cache {prefix}): "
+                    f"{results[req.rid]} vs {want}")
         if prefix and engine.metrics["prefix_hits"] != 1:
             raise RuntimeError("paged bit identity: the shared prefix was "
                                "not shared")
         n += len(trace)
-    log(f"paged bit identity: {n} requests, paged greedy (pages 16, chunks "
-        "16) == dense solo greedy at full width, 2 of them sharing a "
-        "32-token prefix")
+    log(f"paged bit identity ({cfg.name}): {n} requests, paged greedy "
+        f"(pages 16, chunks 16) == {reference} solo greedy at full width, "
+        "2 of them sharing a 32-token prefix")
     return n
 
 
@@ -902,7 +1211,9 @@ def main() -> None:
         checked = kernel_phase()
         bitwise_page_sizes = paged_bitwise_phase()
         tb_bitwise = tb_bitwise_phase()
+        grouped_bitwise = grouped_bitwise_phase()
         api_run = api_phase()
+    torch.cuda.empty_cache()
 
     cfg = get_config("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -914,41 +1225,85 @@ def main() -> None:
     n_bit = bit_identity_phase(cfg, params)
     n_paged_bit = paged_bit_identity_phase(cfg, params)
     cross = cross_device_phase()
+    del params
+    torch.cuda.empty_cache()
 
-    def driven(counter):
-        """Launches on the paths the script drives: dense and paged
-        serving and the operator-API phase."""
-        return sum(run["launches"][counter]
-                   for run in (serve, paged, api_run))
+    full = get_config("qwen3-moe-235b-a22b")
+    moe_cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    log(f"{full.name}: full width (d {full.d_model}, {full.n_heads}/"
+        f"{full.n_kv_heads} heads of {full.hd}, {full.n_experts} experts "
+        f"top-{full.top_k}, expert d_ff {full.d_ff}, vocab {full.vocab}, "
+        f"bf16), depth cut {full.n_layers} -> {MOE_LAYERS} layers: "
+        f"{full.n_layers} layers of bf16 weights (about "
+        f"{full.param_count() * 2 / 1e9:.0f} GB) do not fit one 80 GB card")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    moe_params = T.init_params(moe_cfg, gen, device="cuda")
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _leaves(moe_params)) / 1e9
+    log(f"{moe_cfg.name} at {MOE_LAYERS} layers: {weights_gb:.1f} GB of "
+        f"weights made from seed 0 in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.reset_peak_memory_stats()
+    moe_serve = serve_phase(moe_cfg, moe_params, paged=False)
+    moe_paged = serve_phase(moe_cfg, moe_params, paged=True)
+    moe_serve["step"] = step_phase(moe_cfg, moe_params, paged=False)
+    moe_paged["step"] = step_phase(moe_cfg, moe_params, paged=True)
+    moe_bit = bit_identity_phase(moe_cfg, moe_params)
+    moe_paged_bit = paged_bit_identity_phase(moe_cfg, moe_params,
+                                             reference="paged")
+    del moe_params
+    torch.cuda.empty_cache()
+
+    paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
+             "operator_api": (api_run,)}
+
+    def driven(counter, runs=sum(paths.values(), ())):
+        """Launches on the paths the script drives (by default all:
+        dense and paged serving of both models and the operator-API
+        phase)."""
+        return sum(run["launches"][counter] for run in runs)
+
+    def times(total, timed_on):
+        keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return dict({k: total[k] for k in keys}, timed_on=timed_on)
 
     line = []
-    for name, (rows, worst, total) in checked.items():
+    for name, (rows, worst, total, moe_total) in checked.items():
         _, _, source, replaces = KERNELS[name]
+        counters = [name] + (["gemm_tb_final"] if name == "gemm_tb" else [])
         entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": driven(name),
-            "max_abs_err": worst, "ms": total["ms"],
-            "plain_ms": total["plain_ms"], "bound_ms": total["bound_ms"],
-            "bound_by": "bytes" if total["bytes"] / PEAK_BYTES
-            >= total["ops"] / PEAK_OPS[torch.bfloat16] else "operations",
-            "library_ms": total["library_ms"]}
+            "replaces": replaces,
+            "launches": sum(driven(c) for c in counters),
+            "launches_by_path": {p: sum(driven(c, runs) for c in counters)
+                                 for p, runs in paths.items()},
+            "max_abs_err": worst, **times(total, TIMED_ON[name])}
+        if moe_total is not None and name != "gemm_grouped":
+            entry[moe_cfg.name] = times(moe_total, MOE_TIMED_ON[name])
         if name == "gemm_tb":       # two Pallas sites: B6a and B6b
-            entry["launches"] += driven("gemm_tb_final")
             entry["sites"] = {replaces: driven("gemm_tb"),
                               GEMM_TB_FINAL_SITE: driven("gemm_tb_final")}
         line.append(entry)
-    if driven("gemm_tb") + driven("gemm_tb_final") == 0:
-        raise RuntimeError("gemm_tb was launched on no path the script "
-                           "drives")
+    for name in KERNELS:
+        if driven(name) == 0:
+            raise RuntimeError(f"{name} was launched on no path the script "
+                               "drives")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke.json").write_text(json.dumps({
         "card": card, "torch": torch.__version__,
         "cuda": torch.version.cuda, "kernels": line,
-        "cases": {n: rows for n, (rows, _, _) in checked.items()},
+        "cases": {n: rows for n, (rows, *_) in checked.items()},
         "serve": serve, "paged_serve": paged,
+        "moe": {"config": moe_cfg.name, "layers": MOE_LAYERS,
+                "weights_gb": weights_gb, "serve": moe_serve,
+                "paged_serve": moe_paged,
+                "bit_identity_requests": moe_bit,
+                "paged_bit_identity_requests": moe_paged_bit,
+                "paged_bit_identity_reference": "paged solo"},
         "paged_bitwise_page_sizes": bitwise_page_sizes,
-        "tb_bitwise": tb_bitwise, "operator_api": api_run,
+        "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
+        "operator_api": api_run,
         "bit_identity_requests": n_bit,
         "paged_bit_identity_requests": n_paged_bit,
         "cross_device_max_abs_err": cross,
@@ -956,11 +1311,11 @@ def main() -> None:
         "seconds": time.perf_counter() - t_start}, indent=1))
     if _build.build_log:
         (out_dir / "ptxas.log").write_text(_build.build_log)
-    log("kernel times are per decode step of 8 slots (flash_attention: "
-        "per 300-token prefill; gemm_tb: the step's non-gated GEMMs, as "
-        "for gemm_aie), summed over the main paths' shapes; launches are "
-        "summed over the dense and paged serve runs and the operator-API "
-        "phase")
+    log("kernels line: ms / plain_ms / bound_ms / library_ms are summed "
+        "over the shapes of the step each entry's timed_on names, the "
+        f"{moe_cfg.name} key holds the same for the 4-layer MoE; launches "
+        "sum the dense and paged serve runs of both models and the "
+        "operator-API phase (launches_by_path splits them)")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

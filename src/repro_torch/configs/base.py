@@ -13,10 +13,10 @@ import importlib
 from typing import Dict, Optional, Tuple
 
 #: architectures with a config module in this package
-ARCH_IDS = ("smollm-360m",)
+ARCH_IDS = ("smollm-360m", "qwen3-moe-235b-a22b")
 
 # Layer kinds usable in ``layer_pattern`` (the JAX package's vocabulary;
-# the port's model code serves 'attn' only so far):
+# the port's model code serves 'attn' and 'moe' so far):
 #   'attn'  GQA attention (+ SwiGLU MLP), window = cfg.window
 #   'local' GQA attention with window = cfg.local_window (+ MLP)
 #   'moe'   GQA attention + MoE FFN

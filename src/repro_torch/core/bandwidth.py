@@ -14,7 +14,8 @@ import dataclasses
 from typing import Optional
 
 from repro_torch.core.hardware import TPU_V5E
-from repro_torch.core.tiling import GemmProblem, TileConfig, dtype_bytes
+from repro_torch.core.tiling import GemmProblem, TileConfig, dtype_bytes, \
+    grouped_instances
 
 
 @dataclasses.dataclass(frozen=True)
@@ -100,12 +101,15 @@ def hbm_traffic_bytes(tile: TileConfig, p: GemmProblem) -> float:
     Operands are billed at their own dtype widths; int8 operands move
     their f32 scale vectors; a fused bias (1, n) rides with every m-row
     of B panels and a residual (m, n) is read once.
+
+    Grouped ragged GEMMs (``p.n_groups > 0``, output-stationary only):
+    A is charged at the true routed rows ``p.m``, each of the worst-case
+    ``gm + E - 1`` straddling tile instances re-reading its (bm, pk) A
+    rows once per n-block column; B one (pk, pn) expert panel per
+    instance (never the whole (E, k, n) bank); the per-expert (1, n)
+    scale / bias vectors ride per instance; C is written once.
     """
     from repro_torch.kernels.epilogue import Epilogue
-    if p.n_groups:
-        raise NotImplementedError(
-            "the grouped GEMM's traffic model arrives with ROADMAP queue "
-            "A9 (B7 gemm_grouped)")
     ep = Epilogue.parse(p.epilogue)
     gm, gn, gk = tile.grid(p)
     pm_, pk, pn = tile.padded_dims(p)
@@ -120,6 +124,15 @@ def hbm_traffic_bytes(tile: TileConfig, p: GemmProblem) -> float:
     b_scale = pn * 4 * p.n_b_operands if p.b_dtype == "int8" else 0
     bias_bytes = pn * 4 * gm if ep.bias else 0
     res_bytes = pm_ * pn * out_b if ep.residual else 0
+    if p.n_groups:
+        inst = grouped_instances(tile, p)
+        a_inst = inst * tile.bm * pk * a_b
+        a_s_inst = inst * tile.bm * 4 if p.a_dtype == "int8" else 0
+        b_inst = inst * pk * pn * b_b
+        b_s_inst = inst * pn * 4 if p.b_dtype == "int8" else 0
+        bias_inst = inst * pn * 4 if ep.bias else 0
+        return ((a_inst + a_s_inst) * gn + b_inst + b_s_inst
+                + c_bytes + bias_inst)
     if tile.strategy == "aie":
         return ((a_bytes + a_scale) * gn + (b_bytes + b_scale) * gm
                 + c_bytes + bias_bytes + res_bytes)
@@ -132,6 +145,10 @@ def estimate(tile: TileConfig, p: GemmProblem, chip=TPU_V5E
              ) -> TrafficEstimate:
     pm_, pk, pn = tile.padded_dims(p)
     flops = 2.0 * pm_ * pk * pn * p.n_b_operands
+    if p.n_groups:
+        # executed flops: every straddling instance computes its whole
+        # (bm, pk, pn) block
+        flops = 2.0 * grouped_instances(tile, p) * tile.bm * pk * pn
     # the int8 rate needs both operands at 8 bits
     int8 = dtype_bytes(p.a_dtype) == 1 and dtype_bytes(p.b_dtype) == 1
     f32 = "float32" in (p.a_dtype, p.b_dtype)

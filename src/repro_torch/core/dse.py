@@ -73,21 +73,21 @@ def _solve_cached(m: int, k: int, n: int, a_dtype: str, b_dtype: str,
                   n_b_operands: int, n_groups: int, chip,
                   budget_fraction: Optional[float], top: int,
                   cal_version: int) -> Tuple["TileDesign", ...]:
-    if n_groups:
-        raise NotImplementedError(
-            "the grouped GEMM's search arrives with ROADMAP queue A9 "
-            "(B7 gemm_grouped)")
     p = GemmProblem(m, k, n, a_dtype, out_dtype, acc_dtype, b_dtype,
                     epilogue, n_b_operands, n_groups)
     designs: List[TileDesign] = []
     for strategy in STRATEGIES:
         if n_b_operands > 1 and strategy == "tb":
             continue    # the gated dual-B kernel is output-stationary only
+        if n_groups and strategy == "tb":
+            continue    # the grouped sweep is output-stationary only
         for bm in _m_candidates(m, a_dtype, chip):
             for bk in _lane_candidates(k, chip, chip.k_candidates):
                 for bn in _lane_candidates(n, chip, chip.n_candidates):
                     tile = TileConfig(bm, bk, bn, strategy)
                     if not tile.mxu_aligned(chip):
+                        continue
+                    if n_groups and not chip.grouped_launchable(bm, bn):
                         continue
                     if not fits_vmem(tile, p, chip, budget_fraction):
                         continue

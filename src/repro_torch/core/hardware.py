@@ -27,6 +27,11 @@ GiB = 1024 * MiB
 #: C column and at most 16 of its rows.
 B6_THREADS = 256
 B6_MAX_ROWS_PER_THREAD = 16
+#: Kernel B7 (csrc/gemm_grouped.cu) runs 256 threads a CTA; a thread owns
+#: one C column and at most 4 of its rows, so the FMAs per streamed B
+#: element stay few (the grouped sweep is bound by the expert banks' bytes).
+B7_THREADS = 256
+B7_MAX_ROWS_PER_THREAD = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,6 +67,11 @@ class TPUChip:
     @staticmethod
     def launchable(bm: int, bn: int) -> bool:
         """Pallas launches any block the VMEM budget admits."""
+        return True
+
+    @staticmethod
+    def grouped_launchable(bm: int, bn: int) -> bool:
+        """The grouped Pallas sweep too."""
         return True
 
     def tile_aligned(self, bm: int, bk: int, bn: int) -> bool:
@@ -126,6 +136,16 @@ class HopperChip:
             return False
         groups = B6_THREADS // bn
         return -(-bm // groups) <= B6_MAX_ROWS_PER_THREAD
+
+    @staticmethod
+    def grouped_launchable(bm: int, bn: int) -> bool:
+        """Whether B7's 256 threads cover a (bm, bn) C tile of the
+        grouped sweep: one column a thread, ``256 // bn`` row groups, at
+        most 4 rows a thread.  The grouped search admits only these."""
+        if not 1 <= bn <= B7_THREADS or bm < 1:
+            return False
+        groups = B7_THREADS // bn
+        return -(-bm // groups) <= B7_MAX_ROWS_PER_THREAD
 
 
 HOPPER_H100 = HopperChip(

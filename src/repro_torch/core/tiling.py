@@ -61,9 +61,11 @@ class GemmProblem:
     :class:`repro_torch.kernels.epilogue.Epilogue` key (``"bias+silu+res"``,
     ``""`` for none): bias and residual operands take on-chip blocks and
     device-memory reads of their own.  ``n_b_operands`` is 2 for the
-    dual-B gated kernel.  ``n_groups`` (the grouped MoE sweep) is
-    carried for parity with the JAX package; the port's cost model
-    rejects it until ROADMAP queue A9.
+    dual-B gated kernel.  Grouped ragged GEMMs (the MoE expert sweep)
+    set ``n_groups`` to the expert count E: ``m`` is then the true total
+    of routed rows, B an (E, k, n) bank of which each m-tile instance
+    streams one expert's panels, and the billing charges the up to
+    ``gm + E - 1`` tile instances the straddling sweep executes.
     """
 
     m: int
@@ -120,3 +122,13 @@ class TileConfig:
         multiples of 128 and the sublane dim of 8; on ``HOPPER_H100`` it
         is a tile kernel B6 can launch (:meth:`HopperChip.tile_aligned`)."""
         return chip.tile_aligned(self.bm, self.bk, self.bn)
+
+
+def grouped_instances(tile: TileConfig, p: GemmProblem) -> int:
+    """Static worst-case m-tile instances of a grouped sweep: every
+    m-tile once, plus one revisit per group boundary that can land
+    mid-tile (``gm + E - 1``).  The traffic model bills this; the live
+    instance count (``kernels.gemm_grouped.group_metadata``) is at most
+    this."""
+    gm, _, _ = tile.grid(p)
+    return gm + max(p.n_groups - 1, 0)

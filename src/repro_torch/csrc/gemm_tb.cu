@@ -35,9 +35,7 @@
 // one kernel B1 runs (common.cuh epilogue).  gemm_tb therefore equals
 // gemm_aie bit for bit at any tile, chunk count and n split, and the
 // planner may switch dataflow with the batch size without changing a token.
-#include "common.cuh"
-
-#include <cstddef>
+#include "staging.cuh"
 
 namespace repro {
 namespace {
@@ -82,78 +80,6 @@ struct TbArgs {
   int modes;           // 2 bits an operand: A, B, C, bias, residual
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int src_bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// Stage the rows x cols block at src (row stride ld elements) into dst (row
-// stride dst_ld), zero-filling rows >= rows_valid and columns >=
-// cols_valid.  mode 2: 16-byte cp.async; 1: 4-byte cp.async; 0: plain loads
-// and stores (an operand whose base, stride or tile width is not 4-byte
-// aligned).  The wrapper picks the mode from the alignments.
-template <typename T>
-__device__ __forceinline__ void stage(T* dst, int dst_ld, const T* src,
-                                      size_t ld, int rows, int cols,
-                                      int rows_valid, int cols_valid,
-                                      int mode) {
-  if (mode == 0) {
-    for (int i = threadIdx.x; i < rows * cols; i += kThreads) {
-      const int r = i / cols, c = i - (i / cols) * cols;
-      dst[r * dst_ld + c] = (r < rows_valid && c < cols_valid)
-                                ? src[r * ld + c]
-                                : from_f32<T>(0.0f);
-    }
-    return;
-  }
-  const int e = (mode == 2 ? 16 : 4) / static_cast<int>(sizeof(T));
-  const int units = (cols + e - 1) / e;
-  for (int i = threadIdx.x; i < rows * units; i += kThreads) {
-    const int r = i / units, c = (i - r * units) * e;
-    const int valid = r < rows_valid ? min(e, max(0, cols_valid - c)) : 0;
-    const T* s = valid ? src + r * ld + c : src;
-    const int nbytes = valid * static_cast<int>(sizeof(T));
-    if (mode == 2)
-      cp_async16(dst + r * dst_ld + c, s, nbytes);
-    else
-      cp_async4(dst + r * dst_ld + c, s, nbytes);
-  }
-}
-
-// Four consecutive panel values, widened to f32 (8- or 16-byte aligned).
-__device__ __forceinline__ void load4(const float* p, float* v) {
-  const float4 x = *reinterpret_cast<const float4*>(p);
-  v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
-}
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* v) {
-  const uint2 x = *reinterpret_cast<const uint2*>(p);
-  const float2 lo =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.x));
-  const float2 hi =
-      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x.y));
-  v[0] = lo.x, v[1] = lo.y, v[2] = hi.x, v[3] = hi.y;
-}
-
 // kFinal false: B6a, writes the f32 partial to Cacc.  kFinal true: B6b,
 // applies the epilogue and writes C at the out dtype (p.out_dtype; the
 // residual's p.res_dtype).  Cin is the partial of the earlier chunks (null
@@ -197,30 +123,32 @@ gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   auto issue = [&](int t, int s) {
     const int col0 = t * bn;
     const int cols_valid = min(bn, p.N - col0);
-    stage(Bs + s * tile_b, bn, B + static_cast<size_t>(p.k0) * p.N + col0,
-          p.N, kc, bn, kc, cols_valid, mode_b);
+    stage<kThreads>(Bs + s * tile_b, bn,
+                    B + static_cast<size_t>(p.k0) * p.N + col0, p.N, kc, bn,
+                    kc, cols_valid, mode_b);
     if (Cin != nullptr)
-      stage(Cs + s * tile_c, bn, Cin + static_cast<size_t>(row0) * p.N + col0,
-            p.N, bm, bn, rows_valid, cols_valid, mode_c);
+      stage<kThreads>(Cs + s * tile_c, bn,
+                      Cin + static_cast<size_t>(row0) * p.N + col0, p.N, bm,
+                      bn, rows_valid, cols_valid, mode_c);
     if (kFinal && bias != nullptr)
-      stage(Bias_s + s * bn, bn, bias + col0, 0, 1, bn, 1, cols_valid,
-            mode_bias);
+      stage<kThreads>(Bias_s + s * bn, bn, bias + col0, 0, 1, bn, 1,
+                      cols_valid, mode_bias);
     if (kFinal && res != nullptr) {
       const size_t at = static_cast<size_t>(row0) * p.N + col0;
       if (res_size == 2)
-        stage(reinterpret_cast<__nv_bfloat16*>(Rs) + s * tile_c, bn,
-              static_cast<const __nv_bfloat16*>(res) + at, p.N, bm, bn,
-              rows_valid, cols_valid, mode_r);
+        stage<kThreads>(reinterpret_cast<__nv_bfloat16*>(Rs) + s * tile_c,
+                        bn, static_cast<const __nv_bfloat16*>(res) + at, p.N,
+                        bm, bn, rows_valid, cols_valid, mode_r);
       else
-        stage(reinterpret_cast<float*>(Rs) + s * tile_c, bn,
-              static_cast<const float*>(res) + at, p.N, bm, bn, rows_valid,
-              cols_valid, mode_r);
+        stage<kThreads>(reinterpret_cast<float*>(Rs) + s * tile_c, bn,
+                        static_cast<const float*>(res) + at, p.N, bm, bn,
+                        rows_valid, cols_valid, mode_r);
     }
   };
 
   // The A panel, resident for the whole sweep, rides in the first group.
-  stage(As, p.bk, A + static_cast<size_t>(row0) * p.K + p.k0, p.K, bm, kc,
-        rows_valid, kc, mode_a);
+  stage<kThreads>(As, p.bk, A + static_cast<size_t>(row0) * p.K + p.k0, p.K,
+                  bm, kc, rows_valid, kc, mode_a);
   issue(t_begin, 0);
   cp_async_commit();
   const bool vec_a = (p.bk & 3) == 0;  // panel rows 8/16-byte aligned

@@ -137,6 +137,21 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def copy_mode(t: Optional[torch.Tensor], ld: int, tile_cols: int) -> int:
+    """How a kernel that stages through ``csrc/staging.cuh`` (B6, B7)
+    copies an operand into shared memory: 2 = 16-byte ``cp.async``
+    (base, row stride and tile width on 16 bytes), 1 = 4-byte
+    ``cp.async``, 0 = plain loads."""
+    if t is None:
+        return 0
+    es = t.element_size()
+    for mode, unit in ((2, 16), (1, 4)):
+        if t.data_ptr() % unit == 0 and (ld * es) % unit == 0 \
+                and (tile_cols * es) % unit == 0:
+            return mode
+    return 0
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every operand on one CUDA device; anything else raises."""
     dev = tensors[0].device

@@ -13,15 +13,16 @@
   on-chip footprint and flops ride on the :class:`GemmPlan`, whose
   ``explain()`` says which kernel runs and why.
 * :func:`execute` — runs a plan: a gated plan launches kernel B2
-  (``gemm_gated``), a ``tb`` plan kernel B6 (``gemm_tb``) with the plan's
-  tile, anything else kernel B1 (``gemm_aie``).  The kernels mask ragged
-  edges, so nothing is padded.  :func:`gemm` is the one-shot form every
-  model layer calls.
+  (``gemm_gated``), a grouped plan kernel B7 (``gemm_grouped``) and a
+  ``tb`` plan kernel B6 (``gemm_tb``), each with the plan's tile, anything
+  else kernel B1 (``gemm_aie``).  The kernels mask ragged edges, so
+  nothing is padded.  :func:`gemm` is the one-shot form every model
+  layer calls, :func:`gemm_grouped` the MoE experts'.
 
 The plan is the same on every device: a CPU tensor runs the chosen
 kernel's plain version, a CUDA tensor the kernel itself.  Not in the
 port yet, and raising ``NotImplementedError`` with their ROADMAP item:
-int8 operands and quantized weights (A8), the grouped MoE family (A9),
+int8 operands and quantized weights (A8; quantized expert banks too),
 measured tuning (A10), and the gradient (A7).
 """
 
@@ -39,12 +40,14 @@ from repro_torch.core.hardware import HOPPER_H100
 from repro_torch.core.memory_model import VmemFootprint, budget_bytes, \
     fits_vmem, vmem_efficiency, vmem_footprint
 from repro_torch.core.tiling import STRATEGIES, GemmProblem, TileConfig, \
-    cdiv, dtype_name, round_up
+    cdiv, dtype_name, grouped_instances, round_up
 from repro_torch.kernels.epilogue import ACTIVATIONS, Epilogue
 from repro_torch.kernels.gemm_aie import CTA_TILE as _AIE_CTA
 from repro_torch.kernels.gemm_aie import gemm_aie
 from repro_torch.kernels.gemm_gated import CTA_TILE as _GATED_CTA
 from repro_torch.kernels.gemm_gated import gemm_gated
+from repro_torch.kernels.gemm_grouped import CTA_K as _GROUPED_CTA_K
+from repro_torch.kernels.gemm_grouped import gemm_grouped as _gemm_grouped
 from repro_torch.kernels.gemm_tb import feasible_bk, gemm_tb
 
 
@@ -74,9 +77,12 @@ class GemmSpec:
     * ``strategy`` / ``tile`` — overrides for the search; an explicit
       tile is honoured after a feasibility check and raises at plan time
       when infeasible.
+    * ``grouped`` — the ragged MoE member: A is (m, k) tokens sorted by
+      expert, B an (E, k, n) bank; plans take ``(m, k, n, E[,
+      dense_rows])``; 'aie' only, single-B, bias + activation only.
     * ``out_dtype`` — ``None`` resolves to ``a_dtype``.
-    * ``b_quant``, ``grouped``, ``tune`` — the JAX package's quantized,
-      grouped and tuned members; the port raises for them (A8, A9, A10).
+    * ``b_quant``, ``tune`` — the JAX package's quantized and tuned
+      members; the port raises for them (A8, A10).
     """
 
     a_dtype: str = "bfloat16"
@@ -143,8 +149,6 @@ class GemmSpec:
                 or self.epilogue.out_quant:
             raise _not_yet("int8 operands, quantized weights and int8 "
                            "output", "A8")
-        if self.grouped:
-            raise _not_yet("the grouped GEMM (B7 gemm_grouped)", "A9")
         if self.tune:
             raise _not_yet("measured tile tuning", "A10")
 
@@ -201,6 +205,19 @@ def gemm_shapes(a, b) -> Tuple[int, int, int]:
     return (math.prod(a.shape[:-1]), k, n)
 
 
+def gemm_grouped_shapes(a, b, dense_rows: Optional[int] = None
+                        ) -> Tuple[int, int, int, int, int]:
+    """The planned ``(m, k, n, E, dense_rows)`` of a grouped spec: ``a``
+    is the (m, k) group-sorted token buffer (m = true routed rows), ``b``
+    the (E, k, n) expert bank.  ``dense_rows`` is what the dense
+    capacity-padded formulation would multiply (E * capacity); it rides
+    the plan so ``explain()`` can state the padding flops saved, and
+    defaults to ``m``."""
+    e, k, n = b.shape
+    m = math.prod(a.shape[:-1])
+    return (m, k, n, e, int(dense_rows) if dense_rows else m)
+
+
 # ---------------------------------------------------------------------------
 # GemmPlan and the plan cache
 # ---------------------------------------------------------------------------
@@ -213,6 +230,8 @@ _KERNELS = {
     "gated": ("B2 gemm_gated", "src/repro_torch/csrc/gemm_gated.cu",
               _GATED_CTA),
     "tb": ("B6 gemm_tb", "src/repro_torch/csrc/gemm_tb.cu", None),
+    "grouped": ("B7 gemm_grouped", "src/repro_torch/csrc/gemm_grouped.cu",
+                None),
 }
 
 
@@ -220,7 +239,9 @@ _KERNELS = {
 class GemmPlan:
     """One resolved execution decision: spec x (m, k, n) on a sheet ->
     strategy, tile, and the modeled costs the search ranked it by.
-    ``chunk_bk`` is the k-chunk a ``tb`` plan runs at (0 for ``aie``)."""
+    ``chunk_bk`` is the k-chunk a ``tb`` plan runs at (0 for ``aie``);
+    a grouped plan carries its expert count ``n_groups`` and the
+    ``dense_rows`` a capacity-padded formulation would multiply."""
 
     spec: GemmSpec
     m: int
@@ -233,10 +254,17 @@ class GemmPlan:
     chip: object = HOPPER_H100
     chunk_bk: int = 0
     fallback_reason: Optional[str] = None
+    n_groups: int = 0
+    dense_rows: int = 0
 
     @property
     def hbm_bytes(self) -> float:
         return self.traffic.hbm_bytes
+
+    @property
+    def flops(self) -> float:
+        """Executed (padded) flops at this tile."""
+        return self.traffic.flops
 
     @property
     def vmem_bytes(self) -> int:
@@ -246,7 +274,8 @@ class GemmPlan:
         # what every execution reads, resolved once (the one-shot gemm's
         # repeat path touches nothing else of the plan)
         object.__setattr__(self, "_run", (
-            "gated" if self.spec.gated else self.tile.strategy,
+            "gated" if self.spec.gated else
+            "grouped" if self.spec.grouped else self.tile.strategy,
             self.spec.epilogue.activation,
             getattr(torch, self.problem.out_dtype)))
 
@@ -256,14 +285,15 @@ class GemmPlan:
 
     @property
     def kernel(self) -> str:
-        """``"gated"``, ``"tb"`` or ``"aie"``: which kernel executes."""
+        """``"gated"``, ``"grouped"``, ``"tb"`` or ``"aie"``: which
+        kernel executes."""
         return self._run[0]
 
     @property
     def launches(self) -> dict:
         """Kernel launches one execution makes, by launch counter:
-        ``gemm_aie`` / ``gemm_gated`` (one), or a ``tb`` plan's
-        ``gemm_tb`` (B6a, one a k-chunk but the last) and
+        ``gemm_aie`` / ``gemm_gated`` / ``gemm_grouped`` (one), or a
+        ``tb`` plan's ``gemm_tb`` (B6a, one a k-chunk but the last) and
         ``gemm_tb_final`` (B6b, one)."""
         if self.kernel != "tb":
             return {f"gemm_{self.kernel}": 1}
@@ -284,6 +314,12 @@ class GemmPlan:
                    "each CTA keeps a (bm x chunk) A panel in shared memory "
                    "and sweeps its share of the n tiles (the panel re-read "
                    "per CTA hits L2; the model bills A once)")
+        elif self.kernel == "grouped":
+            how = (f"launches the plan's {t.bm}x{t.bn} (bm x bn) C tile "
+                   f"with its compiled k stage of {_GROUPED_CTA_K}: one "
+                   "CTA per (m-tile instance, n tile) of the static "
+                   "worst case, the CTAs past the device-side live count "
+                   "exit")
         else:
             how = (f"launches its compiled {cta[0]}x{cta[1]}x{cta[2]} "
                    "(bm x bk x bn) CTA tile whatever the plan's tile says; "
@@ -317,6 +353,19 @@ class GemmPlan:
             + (f"  gated({s.epilogue.activation})" if s.gated else ""),
             "  source   : analytic",
         ]
+        if p.n_groups:
+            inst = grouped_instances(t, p)
+            dense_flops = 2.0 * self.dense_rows * p.k * p.n
+            saved = 1.0 - self.flops / dense_flops if dense_flops else 0.0
+            lines.insert(4, (
+                f"  grouped  : E={p.n_groups} groups, <={inst} tile "
+                f"instances  A/HBM billed at true rows "
+                f"(m={self.m} of {self.dense_rows} dense-capacity), "
+                f"B one {t.bk}x{t.bn} panel per instance"))
+            lines.insert(5, (
+                f"  padding  : {self.flops / 1e9:.2f} GFLOP executed vs "
+                f"{dense_flops / 1e9:.2f} dense-capacity "
+                f"({saved:+.0%} saved)"))
         if self.fallback_reason:
             lines.append(f"  fallback : {self.fallback_reason}")
         return "\n".join(lines)
@@ -371,7 +420,12 @@ def _infeasible_reason(tile: TileConfig, p: GemmProblem,
     """Why a tile cannot run, or None.  'tb' keeps a (bm, bk) A panel
     resident and refines its own k-chunking, so its gate is
     ``feasible_bk`` (and, on the card, a (bm, bn) tile kernel B6 can
-    launch); 'aie' streams everything, so plain ``fits_vmem``."""
+    launch); 'aie' streams everything, so plain ``fits_vmem`` (and a
+    grouped tile must be one kernel B7 launches)."""
+    if p.n_groups and not chip.grouped_launchable(tile.bm, tile.bn):
+        return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
+                "kernel B7's 256 threads (bn <= 256, at most 4 rows a "
+                "thread)")
     if tile.strategy == "tb":
         if not chip.launchable(tile.bm, tile.bn):
             return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
@@ -391,12 +445,14 @@ def _infeasible_reason(tile: TileConfig, p: GemmProblem,
             f"{chip.name}")
 
 
-def _problem_for(spec: GemmSpec, m: int, k: int, n: int) -> GemmProblem:
+def _problem_for(spec: GemmSpec, m: int, k: int, n: int,
+                 n_groups: int = 0) -> GemmProblem:
     """The cost-model problem a spec resolves to at concrete shapes."""
     out_dtype = spec.out_dtype or spec.a_dtype
     return GemmProblem(m, k, n, spec.a_dtype, out_dtype,
                        _acc_name(spec.a_dtype), spec.b_dtype,
-                       spec.epilogue.key, 2 if spec.gated else 1)
+                       spec.epilogue.key, 2 if spec.gated else 1,
+                       n_groups if spec.grouped else 0)
 
 
 def solve_topk(spec: GemmSpec, shapes: Tuple[int, int, int], k: int = 5,
@@ -405,19 +461,22 @@ def solve_topk(spec: GemmSpec, shapes: Tuple[int, int, int], k: int = 5,
     (:class:`repro_torch.core.dse.TileDesign` rows, best first,
     restricted to the spec's strategy when one is pinned)."""
     m, kk, n = (int(x) for x in shapes[:3])
+    problem = _problem_for(spec, m, kk, n,
+                           int(shapes[3]) if len(shapes) > 3 else 0)
     k = max(int(k), 1)
-    designs = dse.solve(_problem_for(spec, m, kk, n), chip, top=k)
+    designs = dse.solve(problem, chip, top=k)
     if spec.strategy is not None:
         designs = [d for d in designs if d.tile.strategy == spec.strategy]
     return tuple(designs[:k])
 
 
-def _resolve(spec: GemmSpec, m: int, k: int, n: int,
-             chip=HOPPER_H100) -> GemmPlan:
-    """Strategy + tile for ``spec`` at (m, k, n) on ``chip``: a checked
-    explicit tile, else the search's winner, falling back to its best
-    'aie' design when a 'tb' winner fails the post-clamp check."""
-    problem = _problem_for(spec, m, k, n)
+def _resolve(spec: GemmSpec, m: int, k: int, n: int, chip=HOPPER_H100,
+             n_groups: int = 0, dense_rows: int = 0) -> GemmPlan:
+    """Strategy + tile for ``spec`` at (m, k, n) (and ``n_groups``
+    expert groups) on ``chip``: a checked explicit tile, else the
+    search's winner, falling back to its best 'aie' design when a 'tb'
+    winner fails the post-clamp check."""
+    problem = _problem_for(spec, m, k, n, n_groups)
     fallback = None
     if spec.tile is not None:
         tile = _clamp_tile(spec.tile, m, k, n, chip)
@@ -452,24 +511,38 @@ def _resolve(spec: GemmSpec, m: int, k: int, n: int,
     return GemmPlan(spec, m, k, n, problem, tile,
                     estimate(tile, problem, chip),
                     vmem_footprint(tile, problem, chip), chip, chunk,
-                    fallback)
+                    fallback, n_groups, dense_rows)
 
 
 def plan(spec: GemmSpec, shapes: Tuple[int, ...]) -> GemmPlan:
     """Resolve ``spec`` for concrete ``(m, k, n)`` on ``HOPPER_H100``,
-    once per (spec, shape) key."""
+    once per (spec, shape) key.  Grouped specs take the extended shapes
+    ``(m, k, n, E[, dense_rows])`` (:func:`gemm_grouped_shapes`)."""
     global _plan_hits, _plan_misses
     shapes = tuple(int(x) for x in shapes)
-    if len(shapes) != 3:
-        raise ValueError(
-            f"a dense spec plans with (m, k, n) shapes — got {shapes}")
-    key = (spec,) + shapes
+    if spec.grouped:
+        if len(shapes) not in (4, 5):
+            raise ValueError(
+                "a grouped spec plans with (m, k, n, E[, dense_rows]) "
+                f"shapes — got {shapes}")
+        m, k, n, e = shapes[:4]
+        dense_rows = shapes[4] if len(shapes) == 5 else m
+        if e < 1:
+            raise ValueError(f"grouped spec needs E >= 1 groups, got {e}")
+    else:
+        if len(shapes) != 3:
+            raise ValueError(
+                f"a dense spec plans with (m, k, n) shapes — got {shapes}")
+        m, k, n = shapes
+        e, dense_rows = 0, 0
+    key = (spec, m, k, n, e, dense_rows)
     cached = _plan_cache.get(key)
     if cached is not None:
         _plan_hits += 1
         return cached
     _plan_misses += 1
-    resolved = _resolve(spec, *shapes)
+    grouped = (HOPPER_H100, e, dense_rows) if spec.grouped else ()
+    resolved = _resolve(spec, m, k, n, *grouped)
     _plan_cache[key] = resolved
     return resolved
 
@@ -478,9 +551,11 @@ def plan(spec: GemmSpec, shapes: Tuple[int, ...]) -> GemmPlan:
 # execute and the one-shot gemm
 # ---------------------------------------------------------------------------
 
-def _launch(pl: GemmPlan, a2, b, b2, bias, res2) -> torch.Tensor:
+def _launch(pl: GemmPlan, a2, b, b2, bias, res2,
+            group_sizes=None) -> torch.Tensor:
     """The one kernel fan-out, driven by the plan: B2 for a gated plan,
-    B6 with the plan's tile for 'tb', else B1."""
+    B7 for a grouped one and B6 for 'tb', each with the plan's tile,
+    else B1."""
     kind, act, out_dtype = pl._run
     if kind == "aie":
         return gemm_aie(a2, b, bias=bias, activation=act, residual=res2,
@@ -488,6 +563,9 @@ def _launch(pl: GemmPlan, a2, b, b2, bias, res2) -> torch.Tensor:
     if kind == "tb":
         return gemm_tb(a2, b, tile=pl.tile, out_dtype=out_dtype, bias=bias,
                        activation=act, residual=res2)
+    if kind == "grouped":
+        return _gemm_grouped(a2, b, group_sizes, tile=pl.tile,
+                             out_dtype=out_dtype, bias=bias, activation=act)
     return gemm_gated(a2, b, b2, activation=act, out_dtype=out_dtype)
 
 
@@ -501,6 +579,11 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
     ``b2``: (k, n).  Epilogue operands must match the spec (a plan for a
     bias epilogue requires ``bias=``, and vice versa); mismatches raise
     rather than silently computing something else.
+
+    A grouped plan requires ``group_sizes=`` (an (E,) integer vector on
+    A's device) and takes ``b`` as the (E, k, n) expert bank; ``bias``
+    is then per-expert (E, n).  Rows of ``a`` must be group-sorted; rows
+    at and beyond ``sum(group_sizes)`` come back zero.
     """
     spec = pl.spec
     ep = spec.epilogue
@@ -526,6 +609,15 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             else "plan expects a plain B array, got a quant struct")
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
+    if dtype_name(a2.dtype) != spec.a_dtype \
+            or dtype_name(b.dtype) != spec.b_dtype:
+        raise ValueError(
+            f"operand dtypes ({dtype_name(a2.dtype)}, "
+            f"{dtype_name(b.dtype)}) do not match the spec "
+            f"({spec.a_dtype}, {spec.b_dtype})")
+    if spec.grouped:
+        return _execute_grouped(pl, a2, b, bias, group_sizes) \
+            .reshape(*lead, pl.n)
     if tuple(a2.shape) != (pl.m, pl.k) or tuple(b.shape) != (pl.k, pl.n):
         raise ValueError(
             f"operands {tuple(a.shape)} @ {tuple(b.shape)} do not match "
@@ -534,12 +626,6 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
         raise ValueError(
             f"gated operand b2 {tuple(b2.shape)} does not match the "
             f"plan's ({pl.k}, {pl.n})")
-    if dtype_name(a2.dtype) != spec.a_dtype \
-            or dtype_name(b.dtype) != spec.b_dtype:
-        raise ValueError(
-            f"operand dtypes ({dtype_name(a2.dtype)}, "
-            f"{dtype_name(b.dtype)}) do not match the spec "
-            f"({spec.a_dtype}, {spec.b_dtype})")
     n = pl.n
     if bias is not None and bias.numel() != n:
         raise ValueError(f"bias {tuple(bias.shape)} does not hold the "
@@ -550,6 +636,29 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             f"residual {tuple(residual.shape)} does not match the plan's "
             f"({pl.m}, {n}) output")
     return _launch(pl, a2, b, b2, bias, res2).reshape(*lead, n)
+
+
+def _execute_grouped(pl: GemmPlan, a2, b, bias, group_sizes
+                     ) -> torch.Tensor:
+    """A grouped plan's operand checks, then its launch."""
+    e = pl.n_groups
+    if tuple(b.shape) != (e, pl.k, pl.n):
+        raise ValueError(
+            f"grouped plan expects the ({e}, {pl.k}, {pl.n}) expert bank, "
+            f"got B {tuple(b.shape)}")
+    if tuple(a2.shape) != (pl.m, pl.k):
+        raise ValueError(
+            f"operands {tuple(a2.shape)} @ {tuple(b.shape)} do not match "
+            f"the plan's {pl.m}x{pl.k}x{pl.n}")
+    if not isinstance(group_sizes, torch.Tensor) \
+            or tuple(group_sizes.shape) != (e,) \
+            or group_sizes.dtype.is_floating_point:
+        raise ValueError(f"group_sizes must be an ({e},) integer tensor, "
+                         f"got {group_sizes!r}")
+    if bias is not None and bias.numel() != e * pl.n:
+        raise ValueError(f"grouped bias must be per-expert ({e}, {pl.n}), "
+                         f"got {tuple(bias.shape)}")
+    return _launch(pl, a2, b, None, bias, None, group_sizes)
 
 
 def gemm(a: torch.Tensor, b, *, b2=None,
@@ -596,3 +705,41 @@ def gemm(a: torch.Tensor, b, *, b2=None,
     res2 = residual.reshape(-1, n) if residual is not None else None
     return _launch(pl, a.reshape(-1, pl.k), b, b2, bias, res2) \
         .reshape(*a.shape[:-1], n)
+
+
+def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
+                 bias: Optional[torch.Tensor] = None,
+                 activation: Optional[str] = None,
+                 tile: Optional[TileConfig] = None, out_dtype=None,
+                 dense_rows: Optional[int] = None) -> torch.Tensor:
+    """The one-shot planned grouped ragged GEMM (the MoE expert sweep):
+    ``C[r] = epilogue(A[r] @ B[g(r)])`` with ``g(r)`` the expert owning
+    row ``r`` under ``group_sizes``.
+
+    ``a``: (..., k) tokens sorted by expert (leading dims flatten into
+    the routed row count m); ``b``: (E, k, n) expert bank; ``bias``:
+    per-expert (E, n).  Rows at and beyond ``sum(group_sizes)`` come
+    back zero.  ``dense_rows`` (the E*capacity rows a padded einsum
+    would multiply) feeds ``explain()``'s padding line.  As with
+    :func:`gemm`, a repeat resolves its plan with one tuple key and one
+    dict lookup; ``group_sizes`` stays on the device.
+    """
+    global _plan_hits
+    if isinstance(b, dict):
+        raise _not_yet("quantized {'q', 'scale'} expert banks", "A8")
+    key = ("grouped", a.shape, b.shape, a.dtype, b.dtype, bias is not None,
+           activation, tile, out_dtype, dense_rows)
+    pl = _oneshot.get(key)
+    if pl is None:
+        spec = GemmSpec(
+            a_dtype=dtype_name(a.dtype), b_dtype=dtype_name(b.dtype),
+            grouped=True, epilogue=Epilogue.from_args(bias, activation),
+            out_dtype=None if out_dtype is None else dtype_name(out_dtype),
+            tile=tile)
+        pl = plan(spec, gemm_grouped_shapes(a, b, dense_rows))
+        out = execute(pl, a, b, bias=bias, group_sizes=group_sizes)
+        _oneshot[key] = pl
+        return out
+    _plan_hits += 1
+    return _launch(pl, a.reshape(-1, pl.k), b, None, bias, None,
+                   group_sizes).reshape(*a.shape[:-1], pl.n)

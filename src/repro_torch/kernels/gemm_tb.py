@@ -114,20 +114,6 @@ def n_split(gm: int, n_tiles: int) -> int:
     return cdiv(n_tiles, ctas)
 
 
-def _copy_mode(t: Optional[torch.Tensor], ld: int, tile_cols: int) -> int:
-    """How B6 stages an operand into shared memory: 2 = 16-byte
-    ``cp.async`` (base, row stride and tile width on 16 bytes), 1 =
-    4-byte ``cp.async``, 0 = plain loads."""
-    if t is None:
-        return 0
-    es = t.element_size()
-    for mode, unit in ((2, 16), (1, 4)):
-        if t.data_ptr() % unit == 0 and (ld * es) % unit == 0 \
-                and (tile_cols * es) % unit == 0:
-            return mode
-    return 0
-
-
 def smem_bytes(bm: int, bk: int, bn: int, in_dtype, res_dtype=None, *,
                bias: bool = False, residual: bool = False) -> int:
     """Dynamic shared memory B6 allocates for a tile (``tb_layout`` in
@@ -205,9 +191,9 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     part = torch.empty((m, n), dtype=torch.float32, device=a.device) \
         if gk > 1 else None
     # 2 bits an operand: A, B, the f32 partial C, bias, residual
-    modes = (_copy_mode(a, k, bk) | _copy_mode(b, n, bn) << 2
-             | _copy_mode(part, n, bn) << 4 | _copy_mode(bias32, 0, bn) << 6
-             | _copy_mode(residual, n, bn) << 8)
+    mode = _build.copy_mode
+    modes = (mode(a, k, bk) | mode(b, n, bn) << 2 | mode(part, n, bn) << 4
+             | mode(bias32, 0, bn) << 6 | mode(residual, n, bn) << 8)
     for i in range(gk - 1):
         rc = _build.entry("gemm_tb_accumulate_launch", _ACC_ARGTYPES)(
             a.data_ptr(), b.data_ptr(),

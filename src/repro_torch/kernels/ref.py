@@ -74,6 +74,36 @@ def gemm_gated_ref(a: torch.Tensor, b_gate: torch.Tensor,
     return out.to(out_dtype)
 
 
+def gemm_grouped_ref(a: torch.Tensor, b: torch.Tensor,
+                     group_sizes: torch.Tensor, *,
+                     bias: Optional[torch.Tensor] = None,
+                     activation: Optional[str] = None,
+                     out_dtype=None) -> torch.Tensor:
+    """Oracle (and CPU path) of the grouped ragged GEMM:
+    ``C[r] = epilogue(A[r] @ B[g(r)])`` with ``g(r)`` the group owning
+    row ``r`` of the group-sorted ``a`` under ``group_sizes``.
+
+    One full-k f32 matmul per group over the group's own rows (groups
+    are contiguous, so the other groups' rows are masked out by slicing;
+    the JAX oracle computes every row and selects), then the epilogue
+    with the per-expert ``bias`` ((E, n) or (E, 1, n)).  Rows at and
+    beyond ``sum(group_sizes)`` come back zero.  The group ends are read
+    on the host."""
+    m = a.shape[0]
+    e, _, n = b.shape
+    out = torch.zeros((m, n), dtype=torch.float32, device=a.device)
+    start = 0
+    for g, end in enumerate(torch.cumsum(group_sizes.to(torch.int64), 0)
+                            .tolist()):
+        end = min(end, m)
+        if end > start:
+            out[start:end] = apply_epilogue(
+                _acc_f32(a[start:end], b[g]), activation=activation,
+                bias=bias.reshape(e, n)[g] if bias is not None else None)
+        start = max(start, end)
+    return out.to(out_dtype or torch.float32)
+
+
 def _pos_vector(pos, b: int, device) -> torch.Tensor:
     """(b,) int32 per-slot positions; a scalar broadcasts."""
     p = torch.as_tensor(pos, dtype=torch.int32, device=device)

@@ -1,15 +1,18 @@
 """Decoder stack for serving (port of ``repro/models/transformer.py``,
-dense ``attn`` layers): parameter init, the dense per-slot KV cache,
+``attn`` and ``moe`` layers): parameter init, the dense per-slot KV cache,
 prefill, one decode step, slot-targeted prefill for continuous
 batching, and the block-paged cache (pool init, chunked prefill into
 pages, copy-on-write page copies; ``decode_step`` takes the pool's
 page table when the cache has one).
 
-The JAX package scans one compiled unit over the stacked ``repeats``
-axis; here a Python loop walks the stacked leaves, taking layer ``r`` as
-a view ``leaf[r]``.  Caches are updated in place (one resident cache, no
-per-step copy); the functions still return the cache so call sites read
-like the JAX ones.
+The JAX package scans one compiled unit (``layers/u{i}``, one entry per
+position of ``cfg.layer_pattern``) over the stacked ``repeats`` axis;
+here a Python loop walks the stacked leaves, taking layer ``r`` as a
+view ``leaf[r]``.  A ``moe`` layer is an ``attn`` layer whose SwiGLU MLP
+is the mixture of experts (:mod:`repro_torch.models.moe`), its output
+added to the residual stream as ``x + y``.  Caches are updated in place
+(one resident cache, no per-step copy); the functions still return the
+cache so call sites read like the JAX ones.
 """
 
 from __future__ import annotations
@@ -23,15 +26,23 @@ from repro_torch import ops, resolve_device
 from repro_torch.bridge import map_tree
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
+#: layer kinds the port serves
+KINDS = ("attn", "moe")
+
+#: the MoE layer's capacity factor at decode (the JAX package's, :369)
+DECODE_CAPACITY_FACTOR = 4.0
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense ``attn`` stacks with full attention, on the
-    dense cache and on the page pool; every other feature raises, naming
-    the ROADMAP queue item that brings it."""
-    bad = sorted({k for k in cfg.all_kinds if k != "attn"})
+    """The port serves ``attn`` and ``moe`` stacks with full attention,
+    on the dense cache and on the page pool; every other feature raises,
+    naming the ROADMAP queue item that brings it."""
+    bad = sorted({k for k in cfg.all_kinds if k not in KINDS})
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {bad} are not ported yet "
@@ -60,11 +71,29 @@ def _layer(tree: dict, r: int) -> dict:
     return map_tree(lambda t: t[r], tree)
 
 
+def _units(cfg: ModelConfig):
+    """(unit key, layer kind) of each position of the layer pattern."""
+    return [(f"u{i}", kind) for i, kind in enumerate(cfg.layer_pattern)]
+
+
+def _ffn(p: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
+         x: torch.Tensor, capacity_factor: float) -> torch.Tensor:
+    """The layer's second half on the normed ``h``: the SwiGLU MLP with
+    the residual ``x`` fused into its down projection, or the mixture of
+    experts added to ``x``."""
+    if kind == "moe":
+        y, _ = MOE.moe_ffn(p["moe"], h, top_k=cfg.top_k,
+                           capacity_factor=capacity_factor, aux_loss=False)
+        return x + y
+    return L.swiglu(p["mlp"], h, residual=x)
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> dict:
     """Random parameters in the JAX layout and with the JAX init's
     standard deviations (embedding 0.02, projections 1/sqrt(d_in), norm
-    scales 1 in f32), drawn from ``generator`` on ``device`` (default
+    scales 1 in f32; a ``moe`` unit's router in f32 and its (E, d, f) /
+    (E, f, d) banks), drawn from ``generator`` on ``device`` (default
     the CUDA card; the generator must live on that device)."""
     check_supported(cfg)
     device = resolve_device(device)
@@ -77,44 +106,67 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
 
-    unit = {
-        "norm1": {"scale": ones(r, d)},
-        "attn": {
-            "wq": L.dense_init(generator, (r, d, cfg.n_heads * hd), dt),
-            "wk": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd), dt),
-            "wv": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd), dt),
-            "wo": L.dense_init(generator, (r, cfg.n_heads * hd, d), dt),
-        },
-        "norm2": {"scale": ones(r, d)},
-        "mlp": {
-            "w_gate": L.dense_init(generator, (r, d, cfg.d_ff), dt),
-            "w_up": L.dense_init(generator, (r, d, cfg.d_ff), dt),
-            "w_down": L.dense_init(generator, (r, cfg.d_ff, d), dt),
-        },
-    }
+    def unit(kind):
+        u = {
+            "norm1": {"scale": ones(r, d)},
+            "attn": {
+                "wq": L.dense_init(generator, (r, d, cfg.n_heads * hd), dt),
+                "wk": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd),
+                                   dt),
+                "wv": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd),
+                                   dt),
+                "wo": L.dense_init(generator, (r, cfg.n_heads * hd, d), dt),
+            },
+            "norm2": {"scale": ones(r, d)},
+        }
+        if kind == "moe":
+            u["moe"] = MOE.init_moe(generator, d, cfg.d_ff, cfg.n_experts,
+                                    dt, r)
+        else:
+            u["mlp"] = {
+                "w_gate": L.dense_init(generator, (r, d, cfg.d_ff), dt),
+                "w_up": L.dense_init(generator, (r, d, cfg.d_ff), dt),
+                "w_down": L.dense_init(generator, (r, cfg.d_ff, d), dt),
+            }
+        return u
+
+    layers = {ck: unit(kind) for ck, kind in _units(cfg)}
     return {
         "embed": L.init_embedding(generator, cfg.vocab, d, dt),
         "final_norm": {"scale": ones(d)},
         "lm_head": L.dense_init(generator, (d, cfg.vocab), dt),
-        "layers": {"u0": unit},
+        "layers": layers,
     }
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Dense per-slot KV cache: ``pos`` is a (batch,) int32 vector, every
-    slot decoding at its own position; k/v leaves are stacked
-    (repeats, batch, max_len, n_kv_heads, head_dim)."""
+    slot decoding at its own position; each unit's k/v leaves are
+    stacked (repeats, batch, max_len, n_kv_heads, head_dim)."""
     check_supported(cfg)
     device = resolve_device(device)
     shape = (cfg.repeats, batch, max_len, cfg.n_kv_heads, cfg.hd)
-    dt = _DTYPES[cfg.dtype]
     return {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "layers": {"u0": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}},
+        "layers": _kv_units(cfg, shape, device),
     }
+
+
+def _kv_units(cfg: ModelConfig, shape, device) -> dict:
+    dt = _DTYPES[cfg.dtype]
+    return {ck: {"k": torch.zeros(shape, dtype=dt, device=device),
+                 "v": torch.zeros(shape, dtype=dt, device=device)}
+            for ck, _ in _units(cfg)}
+
+
+def _layer_caches(cfg: ModelConfig, cache: dict):
+    """(layer params key, kind, this layer's {"k", "v"} views) of every
+    layer in order: repeat r, then the pattern's units."""
+    for r in range(cfg.repeats):
+        for ck, kind in _units(cfg):
+            kv = cache["layers"][ck]
+            yield r, ck, kind, {"k": kv["k"][r], "v": kv["v"][r]}
 
 
 def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
@@ -123,7 +175,7 @@ def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
                  ) -> Tuple[torch.Tensor, dict]:
     """One layer of a decode step; ``page_table`` set means ``cache`` is
     this layer's page pool."""
-    if kind != "attn":
+    if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
     if page_table is not None:
@@ -133,7 +185,7 @@ def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
         x, cache = L.attention_decode(p["attn"], h, cache, pos,
                                       _attn_spec(cfg), residual=x)
     h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
-    return L.swiglu(p["mlp"], h, residual=x), cache
+    return _ffn(p, cfg, kind, h, x, DECODE_CAPACITY_FACTOR), cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -145,12 +197,9 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
     pos = cache["pos"]
     table = cache.get("page_table")
     x = L.embed(params["embed"], token)
-    stack = params["layers"]["u0"]
-    kv = cache["layers"]["u0"]
-    for r in range(cfg.repeats):
-        layer_cache = {"k": kv["k"][r], "v": kv["v"][r]}
-        x, _ = decode_layer(_layer(stack, r), layer_cache, cfg, "attn", x,
-                            pos, page_table=table)
+    for r, ck, kind, layer_cache in _layer_caches(cfg, cache):
+        x, _ = decode_layer(_layer(params["layers"][ck], r), layer_cache,
+                            cfg, kind, x, pos, page_table=table)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = ops.gemm(x[:, 0], params["lm_head"], out_dtype=torch.float32)
     return logits, dict(cache, pos=pos + 1)
@@ -160,7 +209,7 @@ def prefill_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
                   x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """Full-prompt forward that also fills this layer's cache (the
     prompt starts at position 0)."""
-    if kind != "attn":
+    if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     b, s, _ = x.shape
     spec = _attn_spec(cfg)
@@ -175,7 +224,7 @@ def prefill_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
     cache["k"][:, :s] = k
     cache["v"][:, :s] = v
     hh = L.rms_norm(p["norm2"], x, cfg.norm_eps)
-    return L.swiglu(p["mlp"], hh, residual=x), cache
+    return _ffn(p, cfg, kind, hh, x, cfg.capacity_factor), cache
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -188,11 +237,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             "prefix embeddings and encoder frames are not ported yet "
             "(ROADMAP queue A9)")
     x = L.embed(params["embed"], tokens)
-    stack = params["layers"]["u0"]
-    kv = cache["layers"]["u0"]
-    for r in range(cfg.repeats):
-        layer_cache = {"k": kv["k"][r], "v": kv["v"][r]}
-        x, _ = prefill_layer(_layer(stack, r), layer_cache, cfg, "attn", x)
+    for r, ck, kind, layer_cache in _layer_caches(cfg, cache):
+        x, _ = prefill_layer(_layer(params["layers"][ck], r), layer_cache,
+                             cfg, kind, x)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = ops.gemm(x[:, -1], params["lm_head"], out_dtype=torch.float32)
     b, s = tokens.shape
@@ -203,8 +250,9 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 def insert_cache_slot(live: dict, sub: dict, slot: int) -> dict:
     """Copy a batch-1 cache into batch row ``slot`` of a live multi-slot
     cache, in place; resident slots are untouched."""
-    for name in ("k", "v"):
-        live["layers"]["u0"][name][:, slot] = sub["layers"]["u0"][name][:, 0]
+    for ck, unit in live["layers"].items():
+        for name in ("k", "v"):
+            unit[name][:, slot] = sub["layers"][ck][name][:, 0]
     live["pos"][slot] = sub["pos"][0]
     return live
 
@@ -233,22 +281,19 @@ def prefill_into_slot(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 
 def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
                      page_size: int, max_pages: int, device=None) -> dict:
-    """Decode cache whose K/V live in a shared block pool: k/v leaves
-    stacked (repeats, n_pages, page_size, n_kv_heads, head_dim); slots
-    address them through ``page_table`` ((batch, max_pages) int32, all
-    pointing at page 0, the serve loop's sink, until a slot is
-    promoted)."""
+    """Decode cache whose K/V live in a shared block pool: each unit's
+    k/v leaves stacked (repeats, n_pages, page_size, n_kv_heads,
+    head_dim); slots address them through ``page_table`` ((batch,
+    max_pages) int32, all pointing at page 0, the serve loop's sink,
+    until a slot is promoted)."""
     check_supported(cfg)
     device = resolve_device(device)
     shape = (cfg.repeats, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
-    dt = _DTYPES[cfg.dtype]
     return {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
         "page_table": torch.zeros((batch, max_pages), dtype=torch.int32,
                                   device=device),
-        "layers": {"u0": {
-            "k": torch.zeros(shape, dtype=dt, device=device),
-            "v": torch.zeros(shape, dtype=dt, device=device)}},
+        "layers": _kv_units(cfg, shape, device),
     }
 
 
@@ -261,7 +306,7 @@ def _prefill_chunk_layer(p: dict, cache: dict, cfg: ModelConfig,
     ``(pages[j], offs[j])``; the history pages ``hist`` are gathered
     into an exact (1, start + s) view, so attention sees the operands a
     whole-prompt prefill's rows see."""
-    if kind != "attn":
+    if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     b, s, _ = x.shape
     spec = _attn_spec(cfg)
@@ -277,7 +322,7 @@ def _prefill_chunk_layer(p: dict, cache: dict, cfg: ModelConfig,
                         window=spec.window, q_offset=start)
     x = ops.gemm(out.reshape(b, s, -1), p["attn"]["wo"], residual=x)
     hh = L.rms_norm(p["norm2"], x, cfg.norm_eps)
-    return L.swiglu(p["mlp"], hh, residual=x), cache
+    return _ffn(p, cfg, kind, hh, x, cfg.capacity_factor), cache
 
 
 def prefill_paged_chunk(params: dict, cfg: ModelConfig,
@@ -314,11 +359,10 @@ def prefill_paged_chunk(params: dict, cfg: ModelConfig,
     idx = idx.to(kv["k"].device)
     pages, offs, hist = idx[:s], idx[s:2 * s], idx[2 * s:]
     x = L.embed(params["embed"], tokens)
-    stack = params["layers"]["u0"]
-    for r in range(cfg.repeats):
-        layer_cache = {"k": kv["k"][r], "v": kv["v"][r]}
-        x, _ = _prefill_chunk_layer(_layer(stack, r), layer_cache, cfg,
-                                    "attn", x, pages, offs, hist, start_pos)
+    for r, ck, kind, layer_cache in _layer_caches(cfg, cache):
+        x, _ = _prefill_chunk_layer(_layer(params["layers"][ck], r),
+                                    layer_cache, cfg, kind, x, pages, offs,
+                                    hist, start_pos)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = ops.gemm(x[:, -1], params["lm_head"], out_dtype=torch.float32)
     cache["pos"][slot] = start_pos + s
@@ -329,10 +373,10 @@ def copy_kv_pages(cache: dict, src, dst) -> dict:
     """Copy physical pages ``src[i] -> dst[i]`` in every layer's pool, in
     place (the copy-on-write step: a slot about to write into a shared
     page gets its own copy first).  src / dst: sequences of page ids."""
-    kv = cache["layers"]["u0"]
-    device = kv["k"].device
+    device = cache["pos"].device
     src = torch.as_tensor(np.asarray(src, np.int64)).to(device)
     dst = torch.as_tensor(np.asarray(dst, np.int64)).to(device)
-    for name in ("k", "v"):
-        kv[name][:, dst] = kv[name][:, src]
+    for kv in cache["layers"].values():
+        for name in ("k", "v"):
+            kv[name][:, dst] = kv[name][:, src]
     return cache

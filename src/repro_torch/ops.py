@@ -15,8 +15,10 @@ or the one-shot form every model layer calls (the same plans):
 The planner runs the paper's tiling search on the ``HOPPER_H100`` sheet
 and picks, per GEMM shape, the output-stationary dataflow (kernel B1,
 ``gemm_aie``) or the A-stationary one (kernel B6, ``gemm_tb``); a gated
-GEMM runs kernel B2 (``gemm_gated``).  A repeated one-shot call costs
-one tuple key and one dict lookup before its launch.
+GEMM runs kernel B2 (``gemm_gated``), and the MoE experts' grouped
+ragged GEMM (``gemm_grouped(xs, bank, group_sizes)``, planned with
+``gemm_grouped_shapes``) kernel B7.  A repeated one-shot call costs one
+tuple key and one dict lookup before its launch.
 
 Attention keeps the JAX package's one-shot entry points
 (``attention``, ``decode_attention``, ``decode_attention_paged``); their
@@ -36,6 +38,8 @@ from repro_torch.kernels.api import (  # noqa: F401
     PlanCacheInfo,
     execute,
     gemm,
+    gemm_grouped,
+    gemm_grouped_shapes,
     gemm_shapes,
     plan,
     plan_cache_clear,

@@ -53,7 +53,9 @@ def test_import_leaves_jax_and_repro_out():
         "import repro_torch.kernels.gemm_tb, repro_torch.kernels.api\n"
         "import repro_torch.core.tiling, repro_torch.core.hardware\n"
         "import repro_torch.core.memory_model, repro_torch.core.bandwidth\n"
-        "import repro_torch.core.dse\n"
+        "import repro_torch.core.dse, repro_torch.models.moe\n"
+        "import repro_torch.kernels.gemm_grouped\n"
+        "import repro_torch.configs.qwen3_moe_235b_a22b\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'repro' or m.startswith('repro.')]\n"
         "print(bad)\n"

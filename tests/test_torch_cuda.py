@@ -375,3 +375,177 @@ def test_gemm_tb_refuses_what_it_cannot_launch(cuda_device):
         gemm_tb(a, w, tile=TileConfig(64, 128, 256, "tb"))
     with pytest.raises(ValueError, match="infeasible"):
         ops.gemm(a, w, tile=TileConfig(64, 128, 256, "tb"))
+
+
+# ---------------------------------------------------------------------------
+# B7: the grouped ragged GEMM of the MoE experts
+# ---------------------------------------------------------------------------
+
+from repro_torch.kernels.gemm_grouped import (  # noqa: E402
+    gemm_grouped, gemm_grouped_plain)
+
+#: group sizes: routed decode rows over many experts (some empty), empty
+#: groups at both ends and in the middle, a dropped tail (rows past the
+#: groups), and a tile straddled by several groups
+GROUP_CASES = {
+    "decode": ([0, 1, 2, 0, 1, 1, 0, 3, 1, 0, 2, 1], 13),
+    "empty": ([0, 0, 37, 0, 20, 0], 57),
+    "dropped_tail": ([5, 9, 0, 4], 30),
+    "straddled": ([3, 2, 1, 1, 4, 2, 50], 63),
+}
+
+
+def _grouped_operands(sizes, m, k, n, dtype, device, seed):
+    e = len(sizes)
+    a = _randn((m, k), dtype, device, seed) / k ** 0.5
+    b = _randn((e, k, n), dtype, device, seed + 1)
+    gs = torch.as_tensor(np.asarray(sizes, np.int32), device=device)
+    bias = _randn((e, n), torch.float32, device, seed + 2)
+    return a, b, gs, bias
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+@pytest.mark.parametrize("k,n", [(256, 192), (100, 70)])
+@pytest.mark.parametrize("tile", [(8, 128), (16, 64), (32, 32), (8, 32)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", ["none", "bias+silu", "f32out"])
+def test_gemm_grouped_kernel_matches_plain(cuda_device, case, k, n, tile,
+                                           dtype, epi):
+    sizes, m = GROUP_CASES[case]
+    a, b, gs, bias = _grouped_operands(sizes, m, k, n, dtype, cuda_device, 0)
+    kw = {"out_dtype": torch.float32 if epi == "f32out" else dtype}
+    if epi == "bias+silu":
+        kw.update(bias=bias, activation="silu")
+    t = TileConfig(tile[0], 64, tile[1])
+    got = gemm_grouped(a, b, gs, tile=t, **kw)
+    want = gemm_grouped_plain(a, b, gs, **kw)
+    assert got.dtype == want.dtype
+    _close(got, want, dtype)
+    live = int(sum(sizes))
+    assert not got[live:].any(), "rows past the groups must be zero"
+
+
+@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", ["none", "bias+gelu"])
+def test_gemm_grouped_rows_equal_gemm_aie_bitwise(cuda_device, case, dtype,
+                                                  epi):
+    """Each row is B1's A[r] @ B[g(r)] bit for bit: one fmaf chain over k
+    in order and the shared flush, at every tile."""
+    sizes, m = GROUP_CASES[case]
+    k, n = 300, 200
+    a, b, gs, bias = _grouped_operands(sizes, m, k, n, dtype, cuda_device, 3)
+    kw = {"out_dtype": dtype}
+    if epi != "none":
+        kw.update(activation="gelu")
+    for tile in ((8, 128), (16, 64), (32, 32)):
+        got = gemm_grouped(a, b, gs, tile=TileConfig(tile[0], 64, tile[1]),
+                           bias=bias if epi != "none" else None, **kw)
+        torch.cuda.synchronize()
+        start = 0
+        for g, size in enumerate(sizes):
+            if size:
+                want = gemm_aie(a[start:start + size], b[g],
+                                bias=bias[g] if epi != "none" else None,
+                                **kw)
+                assert torch.equal(got[start:start + size], want), (tile, g)
+            start += size
+
+
+def test_gemm_grouped_is_batch_invariant(cuda_device):
+    """One row's output does not depend on the other rows in the call."""
+    a, b, gs, _ = _grouped_operands([3, 0, 4, 1], 8, 512, 384,
+                                    torch.bfloat16, cuda_device, 5)
+    full = gemm_grouped(a, b, gs, tile=TileConfig(8, 64, 128),
+                        out_dtype=torch.bfloat16)
+    for r, g in ((0, 0), (5, 2), (7, 3)):
+        one = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+        one[g] = 1
+        solo = gemm_grouped(a[r:r + 1], b, one, tile=TileConfig(8, 64, 128),
+                            out_dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        assert torch.equal(solo[0], full[r]), r
+
+
+def test_gemm_grouped_planned_launches_and_refusals(cuda_device):
+    a, b, gs, _ = _grouped_operands([10, 0, 20, 3], 40, 256, 128,
+                                    torch.bfloat16, cuda_device, 6)
+    before = (gemm_grouped.launches, gemm_grouped_plain.launches)
+    y = ops.gemm_grouped(a, b, gs, activation="silu")
+    ops.gemm_grouped(a, b, gs, activation="silu")            # the repeat
+    assert (gemm_grouped.launches - before[0],
+            gemm_grouped_plain.launches - before[1]) == (2, 0)
+    pl = ops.plan(ops.GemmSpec(grouped=True, epilogue="silu"),
+                  ops.gemm_grouped_shapes(a, b))
+    assert pl.launches == {"gemm_grouped": 1}
+    torch.testing.assert_close(
+        y.float(), gemm_grouped_plain(a, b, gs, activation="silu",
+                                      out_dtype=torch.bfloat16).float(),
+        atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="256 threads"):
+        gemm_grouped(a, b, gs, tile=TileConfig(16, 64, 256))
+    with pytest.raises(NotImplementedError, match="A8"):
+        gemm_grouped(a, b.to(torch.int8), gs, tile=TileConfig(8, 64, 128))
+    with pytest.raises(TypeError, match="differ"):
+        gemm_grouped(a, b.float(), gs, tile=TileConfig(8, 64, 128))
+
+
+def test_moe_ffn_is_batch_invariant_on_the_card(cuda_device):
+    """A token's MoE output (router, softmax, top-k, the grouped GEMMs,
+    the combine) has the same bits alone and inside a batch of 8, at the
+    decode capacity, where nothing drops."""
+    from repro_torch.models import moe as TM
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p = {k: v[0] for k, v in TM.init_moe(g, 256, 128, 16, torch.bfloat16,
+                                         1).items()}
+    x = _randn((8, 1, 256), torch.bfloat16, cuda_device, 9)
+    full, _ = TM.moe_ffn(p, x, top_k=4, capacity_factor=4.0)
+    for r in (0, 3, 7):
+        solo, _ = TM.moe_ffn(p, x[r:r + 1], top_k=4, capacity_factor=4.0)
+        torch.cuda.synchronize()
+        assert torch.equal(solo[0], full[r]), r
+
+
+def test_moe_layer_builds_its_steering_tables_once(cuda_device,
+                                                  monkeypatch):
+    """A MoE layer's three grouped GEMMs launch B7 three times on one set
+    of steering tables (built once, on the device)."""
+    from repro_torch.kernels import gemm_grouped as G
+    from repro_torch.models import moe as TM
+    built = []
+    real = G.group_metadata
+    monkeypatch.setattr(G, "group_metadata",
+                        lambda gs, m, bm: built.append((m, bm)) or
+                        real(gs, m, bm))
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    p = {k: v[0] for k, v in TM.init_moe(g, 256, 128, 16, torch.bfloat16,
+                                         1).items()}
+    x = _randn((8, 1, 256), torch.bfloat16, cuda_device, 9)
+    before = G.gemm_grouped.launches
+    y, aux = TM.moe_ffn(p, x, top_k=4, capacity_factor=4.0, aux_loss=False)
+    assert G.gemm_grouped.launches - before == 3 and aux is None
+    assert len(built) == 1 and G._shared is None
+    assert torch.isfinite(y.float()).all()
+
+
+def test_moe_smoke_model_on_the_card_matches_the_cpu(cuda_device):
+    """qwen3-moe-235b-a22b-smoke (f32): prefill + 6 decode steps on the
+    card within 1e-4 of the same port on the CPU."""
+    from repro_torch.bridge import to_device
+    from repro_torch.models import transformer as T
+    cfg = get_smoke_config("qwen3-moe-235b-a22b")
+    cpu = T.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    gpu = to_device(cpu, cuda_device)
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 12)))
+    c_log, c_cache = T.prefill(cpu, cfg, toks,
+                               T.init_cache(cfg, 2, 40, device="cpu"))
+    g_log, g_cache = T.prefill(gpu, cfg, toks.to(cuda_device),
+                               T.init_cache(cfg, 2, 40, device=cuda_device))
+    for _ in range(6):
+        torch.testing.assert_close(g_log.cpu(), c_log, atol=1e-4, rtol=1e-4)
+        tok = torch.argmax(c_log, -1)[:, None]
+        c_log, c_cache = T.decode_step(cpu, cfg, tok, c_cache)
+        g_log, g_cache = T.decode_step(gpu, cfg, tok.to(cuda_device),
+                                       g_cache)
+    torch.testing.assert_close(g_log.cpu(), c_log, atol=1e-4, rtol=1e-4)

@@ -170,11 +170,23 @@ def test_calibration_reranks_instead_of_serving_stale_answers():
 
 
 def test_grouped_problems_wait_for_a9():
-    p = t_tiling.GemmProblem(64, 128, 128, n_groups=4)
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_dse.solve(p, HOPPER_H100)
-    with pytest.raises(NotImplementedError, match="A9"):
-        t_bw.hbm_traffic_bytes(t_tiling.TileConfig(8, 128, 128), p)
+    """ROADMAP A9's grouped GEMM has landed: a grouped problem is now
+    searched ('aie' only) and billed per tile instance, as the reference
+    bills it, and on HOPPER_H100 only at tiles kernel B7 launches."""
+    args = (64, 128, 128, "bfloat16", "bfloat16", "float32", "bfloat16",
+            "", 1, 4)
+    jp, tp = j_tiling.GemmProblem(*args), t_tiling.GemmProblem(*args)
+    for tile in (t_tiling.TileConfig(8, 128, 128),
+                 t_tiling.TileConfig(16, 128, 128)):
+        jt = j_tiling.TileConfig(tile.bm, tile.bk, tile.bn)
+        assert _same(t_bw.hbm_traffic_bytes(tile, tp),
+                     j_bw.hbm_traffic_bytes(jt, jp))
+        assert _same(t_bw.estimate(tile, tp, TPU_V5E).flops,
+                     j_bw.estimate(jt, jp).flops)
+    designs = t_dse.solve(tp, HOPPER_H100)
+    assert designs and all(d.tile.strategy == "aie" for d in designs)
+    assert all(HOPPER_H100.grouped_launchable(d.tile.bm, d.tile.bn)
+               for d in designs)
 
 
 @pytest.mark.parametrize("strategy", [None, "aie", "tb"])

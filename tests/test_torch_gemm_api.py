@@ -11,6 +11,7 @@ over a direct ``gemm_aie`` call (median of 1000):
     PYTHONPATH=src python tests/test_torch_gemm_api.py
 """
 
+import dataclasses
 import statistics
 import time
 
@@ -22,10 +23,12 @@ from repro.kernels import api as japi
 from repro.kernels.epilogue import Epilogue as JEpilogue
 from repro_torch import ops
 from repro_torch.core.hardware import HOPPER_H100, TPU_V5E
+from repro_torch.configs import get_smoke_config
 from repro_torch.core.tiling import TileConfig
 from repro_torch.kernels import api
 from repro_torch.kernels.epilogue import Epilogue
 from repro_torch.kernels.gemm_aie import gemm_aie
+from repro_torch.models import transformer as T
 
 D, FF, V = 960, 2560, 49152
 
@@ -252,7 +255,9 @@ def test_execute_rejects_operands_that_mismatch_the_plan():
     (lambda: api.GemmSpec(b_quant=True), "A8"),
     (lambda: api.GemmSpec(a_dtype="int8", b_dtype="int8"), "A8"),
     (lambda: api.GemmSpec(epilogue="q8"), "A8"),
-    (lambda: api.GemmSpec(grouped=True), "A9"),
+    (lambda: T.check_supported(dataclasses.replace(
+        get_smoke_config("qwen3-moe-235b-a22b"), layer_pattern=("ssm",))),
+     "A9"),
     (lambda: api.GemmSpec(tune=True), "A10"),
     (lambda: ops.gemm(torch.zeros((2, 4)), {"q": torch.zeros(
         (4, 3), dtype=torch.int8), "scale": torch.ones(3)}), "A8"),
