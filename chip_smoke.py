@@ -29,13 +29,15 @@ Phases (any failure raises and the script exits non-zero):
    32 and 64; gemm_tb must equal gemm_aie bit for bit at both models'
    dense serve shapes, in bf16 and f32, with each epilogue, at the 'tb'
    plan's tile and tiles giving one, two and four or more k-chunks; and
-   every group's rows of each gemm_grouped case must equal gemm_aie on
-   them, bit for bit;
-4. the operator API: for each GEMM shape of the serve path at m = 8 and
-   m = 300 and for the 1024^3 GEMM, print the HOPPER_H100 plan's
-   ``explain()`` and time the one-shot ``ops.gemm`` with the planner's
-   choice, with ``strategy="aie"`` and with ``strategy="tb"``, measured
-   beside modeled;
+   every group's rows of each gemm_grouped case must equal gemm_aie's
+   fmaf body on them (the operands widened to f32, which is exact: B7
+   keeps the fmaf chain, B1's bf16 body runs the tensor cores), bit for
+   bit;
+4. the operator API: for each dense GEMM shape of both models' serve
+   paths at m = 8 and m = 300 and for the 1024^3 GEMM, print the
+   HOPPER_H100 plan's ``explain()`` and time the one-shot ``ops.gemm``
+   with the planner's choice, with ``strategy="aie"`` and with
+   ``strategy="tb"``, measured beside modeled;
 5. serve smollm-360m at full width (bf16, random weights from seed 0)
    through ``DecodeEngine`` with 8 slots x 1024 positions, on the dense
    cache and then on the page pool (16-token pages, 64-token prefill
@@ -590,6 +592,15 @@ def kernel_phase():
             gemm_case("prefill wq 300x960x960", 0, 300, d, d, bf),
             gemm_case("edge f32 3x60x49152 bias+silu+res", 0, 3, 60, V, f32,
                       residual=True, bias=True, act="silu"),
+            gemm_case("edge 5x131x77 k % 16 != 0", 0, 5, 131, 77, bf),
+            # qwen3-moe's 300-token prefill GEMMs, which its plans give
+            # B6: timed on B1 too, so the two dataflows compare there
+            gemm_case("qwen3 prefill wq 300x4096x8192", 0, 300, 4096, 8192,
+                      bf, timed=True),
+            gemm_case("qwen3 prefill wk/wv 300x4096x512", 0, 300, 4096, 512,
+                      bf, timed=True),
+            gemm_case("qwen3 prefill wo+res 300x8192x4096", 0, 300, 8192,
+                      4096, bf, residual=True, timed=True),
         ] + moe_gemms["gemm_aie"],
         # weights: the decode step's non-gated GEMMs, as for gemm_aie, so
         # the two dataflows' sums compare on one shape set
@@ -782,11 +793,13 @@ def tb_bitwise_phase():
 
 
 def grouped_bitwise_phase():
-    """B7 == B1 on every group's rows, bit for bit: in each B7 case, at
-    the plan's tile and at an 8 x 32 tile (one row a thread), row block
-    ``g`` of the grouped GEMM equals gemm_aie of those rows against
-    expert ``g``'s weights with the same epilogue; rows past the groups
-    are zero."""
+    """B7 == B1's fmaf body on every group's rows, bit for bit: in each B7
+    case, at the plan's tile and at an 8 x 32 tile (one row a thread),
+    row block ``g`` of the grouped GEMM equals gemm_aie of those rows
+    against expert ``g``'s weights with the same epilogue, the operands
+    widened to f32 (exact; a no-op for the f32 cases): B7 keeps the fmaf
+    chain, which B1 runs for f32 operands, while B1's bf16 body runs the
+    tensor-core chain.  Rows past the groups are zero."""
     checked = 0
     for case in grouped_cases():
         (a, b, gs), kw = case["make"]()
@@ -797,7 +810,7 @@ def grouped_bitwise_phase():
             for g, size in enumerate(sizes):
                 if size:
                     want = gemm_aie(
-                        a[start:start + size], b[g],
+                        a[start:start + size].float(), b[g].float(),
                         bias=kw["bias"][g] if "bias" in kw else None,
                         activation=kw.get("activation"),
                         out_dtype=kw["out_dtype"])
@@ -811,19 +824,22 @@ def grouped_bitwise_phase():
                 raise RuntimeError(f"gemm_grouped: rows past the groups of "
                                    f"{case['name']} are not zero")
         del a, b
-    log(f"gemm_grouped == gemm_aie, bit for bit: {checked} groups over "
-        "the B7 cases at two tiles each; rows past the groups zero")
+    log(f"gemm_grouped == gemm_aie's fmaf body (operands widened to f32), "
+        f"bit for bit: {checked} groups over the B7 cases at two tiles "
+        "each; rows past the groups zero")
     return checked
 
 
 def api_phase():
     """The paper's question on this card: which dataflow wins where.  For
-    each GEMM shape of the serve path at m = 8 and m = 300, and the
-    1024^3 bf16 GEMM, print the HOPPER_H100 plan's explain(), then time
-    the one-shot ops.gemm with the planner's choice, with strategy="aie"
-    and with strategy="tb" (CUDA-graph replays, cold L2), measured beside
+    each dense GEMM shape of both models' serve paths (smollm-360m's and
+    qwen3-moe-235b-a22b's) at m = 8 and m = 300, and the 1024^3 bf16
+    GEMM, print the HOPPER_H100 plan's explain(), then time the one-shot
+    ops.gemm with the planner's choice, with strategy="aie" and with
+    strategy="tb" (CUDA-graph replays, cold L2), measured beside
     modeled.  Kernel launch counts are set to 0 before and read after."""
     d, ff, V = 960, 2560, 49152
+    qd, qq, qkv = 4096, 8192, 512
     bf = torch.bfloat16
     cases = []
     for m in (8, 300):
@@ -831,7 +847,11 @@ def api_phase():
                   (f"wk/wv {m}x960x320", m, d, 320, {}),
                   (f"wo+res {m}x960x960", m, d, d, {"residual": True}),
                   (f"gate/up {m}x960x2560", m, d, ff, {"gated": True}),
-                  (f"down+res {m}x2560x960", m, ff, d, {"residual": True})]
+                  (f"down+res {m}x2560x960", m, ff, d, {"residual": True}),
+                  (f"qwen3 wq {m}x{qd}x{qq}", m, qd, qq, {}),
+                  (f"qwen3 wk/wv {m}x{qd}x{qkv}", m, qd, qkv, {}),
+                  (f"qwen3 wo+res {m}x{qq}x{qd}", m, qq, qd,
+                   {"residual": True})]
     cases += [("lm_head 8x960x49152", 8, d, V, {"f32": True}),
               ("bench 1024x1024x1024", 1024, 1024, 1024, {})]
     reset_counters()

@@ -23,9 +23,12 @@ KiB = 1024
 MiB = 1024 * KiB
 GiB = 1024 * MiB
 
-#: Kernel B6 (csrc/gemm_tb.cu) runs 256 threads a CTA; a thread owns one
-#: C column and at most 16 of its rows.
+#: Kernel B6 (csrc/gemm_tb.cu) runs 256 threads (8 warps) a CTA.  Its bf16
+#: body splits the C tile into m16 x n8 tensor-core fragments, a warp owning
+#: at most 4 neighbouring ones of one 16-row block; its f32 body gives a
+#: thread one C column and at most 16 of its rows.
 B6_THREADS = 256
+B6_MAX_FRAGS_PER_WARP = 4
 B6_MAX_ROWS_PER_THREAD = 16
 #: Kernel B7 (csrc/gemm_grouped.cu) runs 256 threads a CTA; a thread owns
 #: one C column and at most 4 of its rows, so the FMAs per streamed B
@@ -130,12 +133,18 @@ class HopperChip:
 
     @staticmethod
     def launchable(bm: int, bn: int) -> bool:
-        """Whether B6's 256 threads cover a (bm, bn) C tile: one column a
-        thread, ``256 // bn`` row groups, at most 16 rows a thread."""
+        """Whether B6's 256 threads cover a (bm, bn) C tile in both of its
+        bodies: the bf16 one gives each of its 8 warps at most 4
+        neighbouring m16 x n8 fragments of one 16-row block
+        (``cdiv(bm, 16) * cdiv(bn, 32) <= 8``), the f32 one a thread one
+        column, ``256 // bn`` row groups, at most 16 rows a thread."""
         if not 1 <= bn <= B6_THREADS or bm < 1:
             return False
+        warps = B6_THREADS // 32
+        per_warp = 8 * B6_MAX_FRAGS_PER_WARP
         groups = B6_THREADS // bn
-        return -(-bm // groups) <= B6_MAX_ROWS_PER_THREAD
+        return (-(-bm // 16) * -(-bn // per_warp) <= warps
+                and -(-bm // groups) <= B6_MAX_ROWS_PER_THREAD)
 
     @staticmethod
     def grouped_launchable(bm: int, bn: int) -> bool:

@@ -51,8 +51,10 @@ __device__ __forceinline__ float activate(float x, int act) {
 
 // The fused flush on a finished f32 accumulator: + bias -> activation ->
 // + residual.  Kernels B1 (gemm_aie.cu) and B6 (gemm_tb.cu) both call it,
-// and the adds are __fadd_rn (never contracted into an FMA with what comes
-// before), so the two dataflows round identically.
+// on the accumulators of mma_chain.cuh's tensor-core chain (bf16 operands)
+// and of their fmaf chains (f32 operands), and B7 (gemm_grouped.cu) on its
+// fmaf chain's; the adds are __fadd_rn (never contracted into an FMA with
+// what comes before), so the dataflows round identically.
 __device__ __forceinline__ float epilogue(float x, bool has_bias, float bias,
                                           int act, bool has_res, float res) {
   if (has_bias) x = __fadd_rn(x, bias);
@@ -71,6 +73,19 @@ __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
+}
+
+// Programmatic dependent launch (sm_90): a kernel launched with
+// cudaLaunchAttributeProgrammaticStreamSerialization may start before the
+// kernel ahead of it in the stream ends.  grid_dependency_wait() blocks until
+// that kernel has completed and its writes are visible (a no-op in a kernel
+// launched without the attribute); grid_launch_dependents() lets the next
+// such kernel start once every CTA of this one has called it or exited.
+__device__ __forceinline__ void grid_dependency_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+__device__ __forceinline__ void grid_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n");
 }
 
 inline int cdiv(int a, int b) { return (a + b - 1) / b; }

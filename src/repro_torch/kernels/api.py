@@ -42,7 +42,7 @@ from repro_torch.core.memory_model import VmemFootprint, budget_bytes, \
 from repro_torch.core.tiling import STRATEGIES, GemmProblem, TileConfig, \
     cdiv, dtype_name, grouped_instances, round_up
 from repro_torch.kernels.epilogue import ACTIVATIONS, Epilogue
-from repro_torch.kernels.gemm_aie import CTA_TILE as _AIE_CTA
+from repro_torch.kernels.gemm_aie import cta_tile as _aie_cta
 from repro_torch.kernels.gemm_aie import gemm_aie
 from repro_torch.kernels.gemm_gated import CTA_TILE as _GATED_CTA
 from repro_torch.kernels.gemm_gated import gemm_gated
@@ -223,10 +223,11 @@ def gemm_grouped_shapes(a, b, dense_rows: Optional[int] = None
 # ---------------------------------------------------------------------------
 
 #: what each kernel is, for explain(): (kernel, source, CTA tile it
-#: launches whatever the plan's tile says, or None when it runs the plan's)
+#: launches whatever the plan's tile says — B1's by (m, n, dtype) — or None
+#: when it runs the plan's)
 _KERNELS = {
     "aie": ("B1 gemm_aie", "src/repro_torch/csrc/gemm_aie.cu",
-            _AIE_CTA),
+            _aie_cta),
     "gated": ("B2 gemm_gated", "src/repro_torch/csrc/gemm_gated.cu",
               _GATED_CTA),
     "tb": ("B6 gemm_tb", "src/repro_torch/csrc/gemm_tb.cu", None),
@@ -321,6 +322,8 @@ class GemmPlan:
                    "worst case, the CTAs past the device-side live count "
                    "exit")
         else:
+            if callable(cta):
+                cta = cta(self.m, self.n, getattr(torch, p.a_dtype))
             how = (f"launches its compiled {cta[0]}x{cta[1]}x{cta[2]} "
                    "(bm x bk x bn) CTA tile whatever the plan's tile says; "
                    "the tile below is the cost model's")
@@ -429,8 +432,9 @@ def _infeasible_reason(tile: TileConfig, p: GemmProblem,
     if tile.strategy == "tb":
         if not chip.launchable(tile.bm, tile.bn):
             return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
-                    "kernel B6's 256 threads (bn <= 256, at most 16 rows "
-                    "a thread)")
+                    "kernel B6's 256 threads (bn <= 256; bf16: at most 4 "
+                    "m16 x n8 fragments a warp, f32: at most 16 rows a "
+                    "thread)")
         if feasible_bk(round_up(p.m, tile.bm), round_up(p.k, tile.bk),
                            round_up(p.n, tile.bn), tile, p.a_dtype,
                            p.b_dtype, p.out_dtype, _acc_name(p.a_dtype),

@@ -5,7 +5,10 @@ Replaces the Pallas kernel ``repro/kernels/gemm_aie.py`` ``gemm_aie``
 CUDA kernel ``csrc/gemm_aie.cu``.  On an H100 the serving-path calls are
 bound by the bytes of the weight matrix (few rows, B read once); the
 kernel keeps the epilogue on its register flush so C is written once,
-and walks k in a fixed order so a row's bits do not depend on the batch.
+and walks k in a fixed order so a row's bits do not depend on the batch:
+bf16 operands run the m16n8k16 tensor-core chain of
+``csrc/mma_chain.cuh`` (shared with kernel B6) at a CTA shape
+:func:`cta_tile` picks by m and n, f32 operands an fmaf chain.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_aie_plain`, a
 CUDA tensor launches the kernel or raises.
@@ -18,14 +21,44 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.hardware import HOPPER_H100
+from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.ref import gemm_epilogue_ref
 
-#: the (bm, bk, bn) CTA tile the kernel is compiled for (csrc/gemm_aie.cu kBM, kBK, kBN)
-CTA_TILE = (16, 128, 32)
+#: the (bm, bk, bn) CTA tile of the f32 body (csrc/gemm_aie.cu kBM, kBK,
+#: kBN)
+F32_TILE = (16, 128, 32)
+#: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
+#: entry point takes (csrc/gemm_aie.cu launch_bf16): one 16-row fragment
+#: and 8 to 64 columns for few rows, 64 x 64 for more
+BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 16), 3: (16, 128, 32),
+              4: (16, 128, 64), 5: (64, 64, 64)}
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+
+
+def _config(m: int, n: int, dtype) -> int:
+    """The bf16 body's CTA shape for an (m, n) C (0: the f32 body).  With
+    m <= 16 rows the widest n split that still gives 7 of every 8 SMs a
+    CTA (one SM streams only a share of the card's memory rate, so the
+    decode GEMMs spread their weights over as many SMs as n / 8 allows);
+    with more rows 64 x 64."""
+    if dtype != torch.bfloat16:
+        return 0
+    if m > 16:
+        return 5
+    for config in (4, 3, 2):
+        if 8 * cdiv(n, BF16_TILES[config][2]) >= 7 * HOPPER_H100.sm_count:
+            return config
+    return 1
+
+
+def cta_tile(m: int, n: int, dtype=torch.bfloat16):
+    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C."""
+    config = _config(m, n, dtype)
+    return BF16_TILES[config] if config else F32_TILE
 
 
 def gemm_aie_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -88,12 +121,16 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
     bias32 = bias.reshape(n).float().contiguous() if bias is not None \
         else None
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    config, modes = _config(m, n, a.dtype), 0
+    if config:  # the bf16 body's staging copy modes of A and B
+        _, bk, bn = BF16_TILES[config]
+        modes = _build.copy_mode(a, k, bk) | _build.copy_mode(b, n, bn) << 2
     rc = _build.entry("gemm_aie_launch", _ARGTYPES)(
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         bias32.data_ptr() if bias32 is not None else None,
         residual.data_ptr() if residual is not None else None,
         m, n, k, in_code, out_code, res_code, ACT_CODES[activation],
-        _build.stream_of(a))
+        config, modes, _build.stream_of(a))
     _build.check(rc, "gemm_aie")
     gemm_aie.launches += 1
     return c

@@ -9,10 +9,18 @@ with the hand-written CUDA kernel ``csrc/gemm_tb.cu`` (B6a and B6b).
 
 K is chunked here on the host, as the JAX package does (gemm_tb.py:232):
 ``gk = cdiv(k, bk)`` launches, ``bk`` refined by :func:`feasible_bk`
-against the sheet.  The f32 partial C is one ``torch.empty`` a call;
-with a single chunk only B6b runs.  Each C element is the same fmaf
-chain over k = 0..K-1 in order as in kernel B1, so ``gemm_tb`` equals
-``gemm_aie`` bit for bit at any tile, chunk count and n split.
+against the sheet (and, for bf16, down to the tensor cores' k-depth of
+16 when there are several chunks).  The f32 partial C is one
+``torch.empty`` a call; with a single chunk only B6b runs.  Each C element
+is the same chain over k = 0..K-1 as in kernel B1 — for bf16 operands
+the m16n8k16 tensor-core chain of ``csrc/mma_chain.cuh``, each later
+chunk starting from the stored f32 partial; for f32 operands the fmaf
+chain — so ``gemm_tb`` equals ``gemm_aie`` bit for bit at any tile, chunk
+count and n split.
+
+The bf16 chunks launch as programmatic dependents: a chunk's CTAs stage
+the A panel and their first B tile while the chunk before it finishes,
+and wait for it only before reading its partial.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_tb_plain`, a
 CUDA tensor launches the kernel or raises.
@@ -38,6 +46,8 @@ _ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 \
 _FINAL_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
     + [ctypes.c_void_p]
 _SMEM_ARGTYPES = [ctypes.c_int] * 7
+#: the k-depth of one tensor-core step of the bf16 body (m16n8k16)
+MMA_K = 16
 
 
 def feasible_bk(m: int, k: int, n: int, tile: TileConfig, a_dtype,
@@ -105,12 +115,15 @@ def gemm_tb_plain(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
 gemm_tb_plain.launches = 0
 
 
-def n_split(gm: int, n_tiles: int) -> int:
+def n_split(gm: int, n_tiles: int, smem: int = 0) -> int:
     """n tiles a CTA sweeps: an m-block's sweep is split over enough
-    CTAs, each with its own copy of the A panel, for the grid to fill
-    the card twice over (or one n tile a CTA, if fewer)."""
-    target = 2 * HOPPER_H100.sm_count
-    ctas = min(n_tiles, max(1, cdiv(target, gm)))
+    CTAs, each with its own copy of the A panel, to give every SM as many
+    CTAs as its shared memory holds (``smem`` bytes a CTA; two when 0),
+    or one n tile a CTA, if fewer.  One wave of CTAs, each sweeping more
+    tiles, beats two: a CTA streams the next tile during this one's
+    products, and fewer CTAs copy the panel."""
+    per_sm = max(1, HOPPER_H100.vmem_bytes // smem) if smem else 2
+    ctas = min(n_tiles, max(1, cdiv(per_sm * HOPPER_H100.sm_count, gm)))
     return cdiv(n_tiles, ctas)
 
 
@@ -166,8 +179,12 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     bm, bn = tile.bm, tile.bn
     if not HOPPER_H100.launchable(bm, bn):
         raise ValueError(f"gemm_tb: a ({bm}, {bn}) C tile does not map "
-                         "onto the kernel's 256 threads (bn <= 256, at "
+                         "onto the kernel's 256 threads (bn <= 256; bf16: "
+                         "at most 4 m16 x n8 fragments a warp, f32: at "
                          "most 16 rows a thread)")
+    if a.dtype == torch.bfloat16 and bk < k:
+        # the chunks continue one tensor-core chain: boundaries on its k-grid
+        bk = max(MMA_K, bk - bk % MMA_K)
     in_code = _build.dtype_code(a.dtype, "gemm_tb A")
     out_code = _build.dtype_code(out_dtype, "gemm_tb out")
     res_code = 0
@@ -185,7 +202,7 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     bias32 = bias.reshape(n).float().contiguous() if bias is not None \
         else None
     n_tiles = cdiv(n, bn)
-    per_cta = n_split_tiles or n_split(cdiv(m, bm), n_tiles)
+    per_cta = n_split_tiles or n_split(cdiv(m, bm), n_tiles, smem)
     stream = _build.stream_of(a)
     gk = cdiv(k, bk)
     part = torch.empty((m, n), dtype=torch.float32, device=a.device) \

@@ -52,10 +52,19 @@ def _close(got, want, dtype):
                                rtol=tol)
 
 
-@pytest.mark.parametrize("m,k,n", [(1, 960, 960), (8, 960, 320),
-                                   (3, 60, 49152), (300, 2560, 960),
-                                   (17, 100, 70)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+#: qwen3-moe-235b-a22b's dense GEMMs (wq, wk/wv, wo) at decode and in a
+#: 300-token prefill
+QWEN3_DENSE = [(m, k, n) for m in (8, 300)
+               for k, n in ((4096, 8192), (4096, 512), (8192, 4096))]
+
+
+@pytest.mark.parametrize("m,k,n,dtype", [
+    (m, k, n, dtype)
+    for m, k, n in [(1, 960, 960), (8, 960, 320), (3, 60, 49152),
+                    (300, 2560, 960), (17, 100, 70), (5, 131, 77)]
+    for dtype in (torch.float32, torch.bfloat16)]
+    # the tensor-core body at qwen3-moe's shapes (the f32 body is unchanged)
+    + [(m, k, n, torch.bfloat16) for m, k, n in QWEN3_DENSE])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+silu",
                                  "f32out"])
 def test_gemm_aie_kernel_matches_plain(cuda_device, m, k, n, dtype, epi):
@@ -125,7 +134,10 @@ def test_flash_decode_kernel_matches_plain(cuda_device, b, S, hq, hkv, d,
 
 def test_kernels_are_batch_invariant(cuda_device):
     """A row's bits do not depend on how many rows share the call —
-    the property continuous-batched greedy == solo greedy rests on."""
+    the property continuous-batched greedy == solo greedy rests on.  B1
+    and B6 rows at m = 1, 8 and 300 (B1 launches another CTA shape at
+    each; B6 runs at the plans' decode and prefill tiles) all equal B1's
+    300-row call."""
     dt = torch.bfloat16
     a = _randn((8, 960), dt, cuda_device, 0)
     w = _randn((960, 2560), dt, cuda_device, 1)
@@ -136,6 +148,21 @@ def test_kernels_are_batch_invariant(cuda_device):
         assert torch.equal(gemm_aie(a[i:i + 1], w, out_dtype=dt),
                            full[i:i + 1])
         assert torch.equal(gemm_gated(a[i:i + 1], w, w2), gated[i:i + 1])
+    big = _randn((300, 960), dt, cuda_device, 6) * 960 ** -0.5
+    res = _randn((300, 2560), dt, cuda_device, 7)
+    ref = gemm_aie(big, w, residual=res, out_dtype=dt)
+    for tile in ((8, 512, 32), (128, 512, 32), (16, 1024, 256)):
+        t = TileConfig(*tile, "tb")
+        assert torch.equal(gemm_tb(big, w, tile=t, residual=res,
+                                   out_dtype=dt), ref), tile
+    for m in (1, 8):
+        for r0 in (0, 5, 292):
+            rows = slice(r0, r0 + m)
+            assert torch.equal(gemm_aie(big[rows], w, residual=res[rows],
+                                        out_dtype=dt), ref[rows]), (m, r0)
+            assert torch.equal(gemm_tb(big[rows], w, residual=res[rows],
+                                       tile=TileConfig(8, 512, 32, "tb"),
+                                       out_dtype=dt), ref[rows]), (m, r0)
     q = _randn((8, 15, 64), dt, cuda_device, 3)
     k = _randn((8, 256, 5, 64), dt, cuda_device, 4)
     v = _randn((8, 256, 5, 64), dt, cuda_device, 5)
@@ -301,14 +328,24 @@ def _tb_operands(m, k, n, dtype, epi, device, seed=0):
     return a, w, kw
 
 
-@pytest.mark.parametrize("m,k,n,tile", [
-    (8, 960, 320, (8, 512, 32)),       # wk/wv at decode: 2 chunks, ragged
-    (8, 2560, 960, (8, 512, 64)),      # w_down at decode: 5 chunks
-    (300, 960, 960, (128, 512, 32)),   # prefill: m not a multiple of bm
-    (17, 100, 70, (16, 32, 64)),       # ragged everything, 4 chunks
-    (3, 60, 200, (8, 1024, 256)),      # one chunk: B6b alone
-])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,tile,dtype", [
+    (m, k, n, tile, dtype) for m, k, n, tile in [
+        (8, 960, 320, (8, 512, 32)),       # wk/wv at decode: 2 chunks, ragged
+        (8, 2560, 960, (8, 512, 64)),      # w_down at decode: 5 chunks
+        (300, 960, 960, (128, 512, 32)),   # prefill: m not a multiple of bm
+        (17, 100, 70, (16, 32, 64)),       # ragged everything, 4 chunks
+        (3, 60, 200, (8, 1024, 256)),      # one chunk: B6b alone
+        (9, 1000, 96, (16, 512, 32)),      # last chunk 488: k % 16 != 0
+    ] for dtype in (torch.float32, torch.bfloat16)] + [
+    # the tensor-core body at qwen3-moe's shapes (the f32 body is unchanged)
+    (m, k, n, tile, torch.bfloat16) for m, k, n, tile in [
+        (8, 4096, 8192, (8, 1024, 32)),    # wq at decode
+        (8, 4096, 512, (8, 1024, 32)),     # wk/wv at decode
+        (8, 8192, 4096, (8, 1024, 32)),    # wo at decode
+        (300, 4096, 8192, (128, 512, 32)),  # wq in prefill
+        (300, 4096, 512, (128, 512, 32)),  # wk/wv in prefill
+        (300, 8192, 4096, (64, 512, 32)),  # wo + residual in prefill
+    ]])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+silu", "f32out"])
 def test_gemm_tb_kernel_matches_plain(cuda_device, m, k, n, tile, dtype,
                                       epi):
@@ -319,14 +356,16 @@ def test_gemm_tb_kernel_matches_plain(cuda_device, m, k, n, tile, dtype,
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 960, 320), (8, 2560, 960),
-                                   (300, 960, 960), (5, 131, 77)])
+                                   (300, 960, 960), (5, 131, 77),
+                                   (300, 4096, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+gelu+res",
                                  "f32out"])
 def test_gemm_tb_equals_gemm_aie_bitwise(cuda_device, m, k, n, dtype, epi):
-    """Both dataflows run one fmaf chain over k in order per element and
-    the same flush, so B6 == B1 bit for bit at any tile (1, 2 and >= 4
-    k-chunks here) and any split of the n sweep over CTAs."""
+    """Both dataflows run one chain over k in order per element (the
+    tensor-core chain for bf16, the fmaf chain for f32) and the same
+    flush, so B6 == B1 bit for bit at any tile (1, 2 and >= 4 k-chunks
+    here) and any split of the n sweep over CTAs."""
     a, w, kw = _tb_operands(m, k, n, dtype, epi, cuda_device, seed=7)
     want = gemm_aie(a, w, **kw)
     for tile in ((8, 1024, 256), (16, 512, 64), (64, 128, 32),
@@ -430,8 +469,10 @@ def test_gemm_grouped_kernel_matches_plain(cuda_device, case, k, n, tile,
 @pytest.mark.parametrize("epi", ["none", "bias+gelu"])
 def test_gemm_grouped_rows_equal_gemm_aie_bitwise(cuda_device, case, dtype,
                                                   epi):
-    """Each row is B1's A[r] @ B[g(r)] bit for bit: one fmaf chain over k
-    in order and the shared flush, at every tile."""
+    """Each row is B1's A[r] @ B[g(r)] bit for bit on the operands widened
+    to f32 (exact, and a no-op for f32): B7 runs one fmaf chain over k in
+    order and the shared flush at every tile, as B1's f32 body does
+    (B1's bf16 body runs the tensor-core chain instead)."""
     sizes, m = GROUP_CASES[case]
     k, n = 300, 200
     a, b, gs, bias = _grouped_operands(sizes, m, k, n, dtype, cuda_device, 3)
@@ -445,7 +486,8 @@ def test_gemm_grouped_rows_equal_gemm_aie_bitwise(cuda_device, case, dtype,
         start = 0
         for g, size in enumerate(sizes):
             if size:
-                want = gemm_aie(a[start:start + size], b[g],
+                want = gemm_aie(a[start:start + size].float(),
+                                b[g].float(),
                                 bias=bias[g] if epi != "none" else None,
                                 **kw)
                 assert torch.equal(got[start:start + size], want), (tile, g)

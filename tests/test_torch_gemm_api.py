@@ -351,3 +351,22 @@ if __name__ == "__main__":
           "median of 1000 calls:")
     for key, val in r.items():
         print(f"  {key:16s} {val:9.2f} us")
+
+
+@pytest.mark.parametrize("m,n,dtype,tile", [
+    (8, 960, "bfloat16", (16, 128, 8)),      # 120 CTAs of one n8 fragment
+    (8, 320, "bfloat16", (16, 128, 8)),
+    (8, 4096, "bfloat16", (16, 128, 32)),    # 128 CTAs
+    (8, 49152, "bfloat16", (16, 128, 64)),
+    (300, 960, "bfloat16", (64, 64, 64)),
+    (8, 960, "float32", (16, 128, 32)),      # the f32 fmaf body
+])
+def test_b1_cta_tile_follows_m_n_and_dtype(m, n, dtype, tile):
+    """B1 launches one 16-row fragment and the widest n split that still
+    reaches 7 of every 8 SMs for few rows, 64 x 64 for more; explain()
+    names the tile it launches."""
+    from repro_torch.kernels.gemm_aie import cta_tile
+    assert cta_tile(m, n, getattr(torch, dtype)) == tile
+    pl = ops.plan(ops.GemmSpec(a_dtype=dtype, b_dtype=dtype,
+                               strategy="aie"), (m, D, n))
+    assert "launches its compiled {}x{}x{}".format(*tile) in pl.explain()

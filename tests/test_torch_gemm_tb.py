@@ -173,3 +173,41 @@ def test_smoke_model_on_the_tb_dataflow_matches_jax(monkeypatch):
         assert {p.kernel for p in ops.plans()} == {"tb", "gated"}
     finally:
         api.plan_cache_clear()
+
+
+# ---------------------------------------------------------------------------
+# B6's launch geometry on the Hopper sheet (host side, no card needed)
+# ---------------------------------------------------------------------------
+
+from repro_torch.core.hardware import HOPPER_H100  # noqa: E402
+from repro_torch.kernels.gemm_tb import n_split  # noqa: E402
+
+
+@pytest.mark.parametrize("bm,bn,ok", [
+    (8, 256, True), (16, 256, True),     # one 16-row block, 32 fragments
+    (32, 128, True), (64, 64, True),     # 4 fragments a warp
+    (128, 32, True), (8, 16, True),
+    (80, 48, False),   # f32 body fits (16 rows a thread), 10 warps needed
+    (32, 256, False),  # both bodies refuse
+    (64, 128, False)])
+def test_launchable_needs_both_bodies_of_b6(bm, bn, ok):
+    """A tile is launchable when B6's bf16 body (at most 4 m16 x n8
+    fragments of one 16-row block a warp, 8 warps) and its f32 body (one
+    column a thread, at most 16 rows) both cover it."""
+    assert HOPPER_H100.launchable(bm, bn) is ok
+
+
+@pytest.mark.parametrize("gm,n_tiles,smem,want", [
+    (3, 256, 224 << 10, 6),    # qwen3 wq, m = 300: one CTA an SM
+    (5, 128, 152 << 10, 5),    # qwen3 wo + residual, m = 300
+    (1, 1536, 74 << 10, 4),    # smollm lm_head at decode: three an SM
+    (1, 30, 74 << 10, 1),      # fewer tiles than CTAs: one tile a CTA
+    (1, 4748, 146 << 10, 36),  # qwen3 lm_head at decode
+])
+def test_n_split_gives_each_sm_what_its_shared_memory_holds(gm, n_tiles,
+                                                            smem, want):
+    per = n_split(gm, n_tiles, smem)
+    assert per == want
+    ctas = -(-n_tiles // per) * gm
+    per_sm = max(1, HOPPER_H100.vmem_bytes // smem)
+    assert ctas <= per_sm * HOPPER_H100.sm_count + gm
