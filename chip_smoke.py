@@ -590,6 +590,17 @@ def kernel_phase():
             gemm_case("decode lm_head 8x960x49152", 1, 8, d, V, bf,
                       out_dtype=f32),
             gemm_case("prefill wq 300x960x960", 0, 300, d, d, bf),
+            # 9..16 rows: B1's 16-row fragment with every row staged (at
+            # most 8 rows stage 8 and zero the rest), as the serve paths'
+            # 9- to 16-token prompts run wq/wo (and qwen3's wk/wv/wo)
+            gemm_case("prefill wq 9x960x960", 0, 9, d, d, bf),
+            gemm_case("prefill wq 12x960x960", 0, 12, d, d, bf),
+            gemm_case("prefill wo+res 16x960x960", 0, 16, d, d, bf,
+                      residual=True),
+            gemm_case("qwen3 prefill wk/wv 12x4096x512", 0, 12, 4096, 512,
+                      bf),
+            gemm_case("qwen3 prefill wo+res 16x8192x4096", 0, 16, 8192,
+                      4096, bf, residual=True),
             gemm_case("edge f32 3x60x49152 bias+silu+res", 0, 3, 60, V, f32,
                       residual=True, bias=True, act="silu"),
             gemm_case("edge 5x131x77 k % 16 != 0", 0, 5, 131, 77, bf),
@@ -732,8 +743,8 @@ def paged_bitwise_phase():
 def tb_bitwise_phase():
     """B6 == B1, bit for bit: at every dense GEMM shape of both models'
     serve paths (smollm-360m and qwen3-moe-235b-a22b: decode m = 8, a
-    300-token prefill, qwen3's 64-token paged chunk and last-token
-    lm_head) and an f32 edge shape, in bf16 and f32, with each epilogue,
+    300-token prefill, 12- and 16-token prompts, qwen3's 64-token paged
+    chunk and last-token lm_head) and an f32 edge shape, in bf16 and f32, with each epilogue,
     at the tile HOPPER_H100's 'tb' plan gives the shape and three tiles
     that give one k-chunk, two, and four or more."""
     d, ff, V = 960, 2560, 49152
@@ -742,6 +753,7 @@ def tb_bitwise_phase():
               (300, d, 320), (300, ff, d), (37, 200, 131)]
     for m in (8, 300, 64):
         shapes += [(m, qd, qq), (m, qd, qkv), (m, qq, qd), (m, qd, qe)]
+    shapes += [(12, d, 320), (16, d, d), (12, qd, qkv), (16, qq, qd)]
     shapes += [(8, qd, qV), (1, qd, qV)]
     epilogues = [{}, {"residual": True}, {"bias": True, "act": "gelu"},
                  {"bias": True, "act": "silu", "residual": True},

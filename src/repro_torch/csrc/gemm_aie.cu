@@ -18,7 +18,7 @@
 // oldest one; the products are mma_chain.cuh's m16n8k16 chain, each warp
 // owning kFM x kFN fragments.  The wrapper (kernels/gemm_aie.py
 // cta_tile) picks the CTA shape by m and n: with few rows (m <= 16) one
-// 16-row fragment and n split 8, 16, 32 or 64 columns a CTA so that the
+// 16-row fragment and n split 8, 32 or 64 columns a CTA so that the
 // weight-streaming CTAs cover the card (at least one an SM where n / 8
 // allows), each with 16 KB or more of B in flight; with more rows a
 // 64 x 64 tile.  Ragged edges (m, n, k) load zeros and are not stored,
@@ -343,8 +343,8 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
 
 // The CTA shapes of the bf16 body, by the index kernels/gemm_aie.py
 // BF16_TILES gives them (its (bm, bk, bn) must match): with m <= 16 one
-// 16-row fragment and 1, 2, 4 or 8 MMA warps of one 8-column fragment each,
-// 128-deep slabs; the three narrow shapes beside 4 copy warps and 8 stages
+// 16-row fragment and 1, 4 or 8 MMA warps of one 8-column fragment each,
+// 128-deep slabs; the two narrow shapes beside 4 copy warps and 8 stages
 // (so 16 KB or more of B is in flight and the MMA warps start on the first
 // slab), the widest (many CTAs) staging itself through 4; with more rows
 // 64 x 64 (4 warps of 2 x 4 fragments that stage too), 64-deep slabs, 4
@@ -357,15 +357,12 @@ int launch_bf16(int config, const void* a, const void* b, void* c,
       return launch_mma<MmaShape<1, 1, 1, 1, 128, 8, 4>>(a, b, c, bias, res,
                                                           p, s);
     case 2:
-      return launch_mma<MmaShape<1, 2, 1, 1, 128, 8, 4>>(a, b, c, bias, res,
-                                                          p, s);
-    case 3:
       return launch_mma<MmaShape<1, 4, 1, 1, 128, 8, 4>>(a, b, c, bias, res,
                                                           p, s);
-    case 4:
+    case 3:
       return launch_mma<MmaShape<1, 8, 1, 1, 128, 4>>(a, b, c, bias, res, p,
                                                        s);
-    case 5:
+    case 4:
       return launch_mma<MmaShape<2, 2, 2, 4, 64, 4>>(a, b, c, bias, res, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -377,7 +374,7 @@ int launch_bf16(int config, const void* a, const void* b, void* c,
 
 // A (m,k), B (k,n), C (m,n) row-major and contiguous; bias (n,) f32 or
 // null; residual (m,n) or null.  bf16 operands run the tensor-core body with
-// CTA shape ``config`` (1..5, see launch_bf16) and the staging copy modes
+// CTA shape ``config`` (1..4, see launch_bf16) and the staging copy modes
 // ``modes`` (2 bits each: A, then B); f32 operands the fmaf body, which
 // ignores both.  Returns cudaGetLastError() after the launch.
 extern "C" int gemm_aie_launch(const void* a, const void* b, void* c,

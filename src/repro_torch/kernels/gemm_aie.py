@@ -32,9 +32,9 @@ from repro_torch.kernels.ref import gemm_epilogue_ref
 F32_TILE = (16, 128, 32)
 #: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
 #: entry point takes (csrc/gemm_aie.cu launch_bf16): one 16-row fragment
-#: and 8 to 64 columns for few rows, 64 x 64 for more
-BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 16), 3: (16, 128, 32),
-              4: (16, 128, 64), 5: (64, 64, 64)}
+#: and 8, 32 or 64 columns for few rows, 64 x 64 for more
+BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 32), 3: (16, 128, 64),
+              4: (64, 64, 64)}
 
 _ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
@@ -48,8 +48,8 @@ def _config(m: int, n: int, dtype) -> int:
     if dtype != torch.bfloat16:
         return 0
     if m > 16:
-        return 5
-    for config in (4, 3, 2):
+        return 4
+    for config in (3, 2):
         if 8 * cdiv(n, BF16_TILES[config][2]) >= 7 * HOPPER_H100.sm_count:
             return config
     return 1

@@ -115,14 +115,14 @@ def gemm_tb_plain(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
 gemm_tb_plain.launches = 0
 
 
-def n_split(gm: int, n_tiles: int, smem: int = 0) -> int:
+def n_split(gm: int, n_tiles: int, smem: int) -> int:
     """n tiles a CTA sweeps: an m-block's sweep is split over enough
     CTAs, each with its own copy of the A panel, to give every SM as many
-    CTAs as its shared memory holds (``smem`` bytes a CTA; two when 0),
-    or one n tile a CTA, if fewer.  One wave of CTAs, each sweeping more
-    tiles, beats two: a CTA streams the next tile during this one's
-    products, and fewer CTAs copy the panel."""
-    per_sm = max(1, HOPPER_H100.vmem_bytes // smem) if smem else 2
+    CTAs as its shared memory holds (``smem`` bytes a CTA), or one n tile
+    a CTA, if fewer.  One wave of CTAs, each sweeping more tiles, beats
+    two: a CTA streams the next tile during this one's products, and
+    fewer CTAs copy the panel."""
+    per_sm = max(1, HOPPER_H100.vmem_bytes // smem)
     ctas = min(n_tiles, max(1, cdiv(per_sm * HOPPER_H100.sm_count, gm)))
     return cdiv(n_tiles, ctas)
 

@@ -61,10 +61,16 @@ QWEN3_DENSE = [(m, k, n) for m in (8, 300)
 @pytest.mark.parametrize("m,k,n,dtype", [
     (m, k, n, dtype)
     for m, k, n in [(1, 960, 960), (8, 960, 320), (3, 60, 49152),
-                    (300, 2560, 960), (17, 100, 70), (5, 131, 77)]
+                    (300, 2560, 960), (17, 100, 70), (5, 131, 77),
+                    # 9..16 rows: the 16-row fragment with every row staged
+                    (9, 960, 960), (12, 960, 960), (16, 960, 960)]
     for dtype in (torch.float32, torch.bfloat16)]
-    # the tensor-core body at qwen3-moe's shapes (the f32 body is unchanged)
-    + [(m, k, n, torch.bfloat16) for m, k, n in QWEN3_DENSE])
+    # the tensor-core body at qwen3-moe's shapes (the f32 body is
+    # unchanged), 12- and 16-token prompts included
+    + [(m, k, n, torch.bfloat16) for m, k, n in
+       QWEN3_DENSE + [(12, 4096, 512), (16, 8192, 4096)]]
+    # the f32 body at qwen3-moe's router shape, k = 4096
+    + [(8, 4096, 128, torch.float32)])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+silu",
                                  "f32out"])
 def test_gemm_aie_kernel_matches_plain(cuda_device, m, k, n, dtype, epi):
@@ -135,9 +141,10 @@ def test_flash_decode_kernel_matches_plain(cuda_device, b, S, hq, hkv, d,
 def test_kernels_are_batch_invariant(cuda_device):
     """A row's bits do not depend on how many rows share the call —
     the property continuous-batched greedy == solo greedy rests on.  B1
-    and B6 rows at m = 1, 8 and 300 (B1 launches another CTA shape at
-    each; B6 runs at the plans' decode and prefill tiles) all equal B1's
-    300-row call."""
+    and B6 rows at m = 1, 8, 9, 12, 16 and 300 (B1 stages 8 rows of its
+    16-row fragment up to m = 8, all 16 up to m = 16 and runs 64 x 64
+    tiles beyond; B6 runs at the plans' decode and prefill tiles) all
+    equal B1's 300-row call."""
     dt = torch.bfloat16
     a = _randn((8, 960), dt, cuda_device, 0)
     w = _randn((960, 2560), dt, cuda_device, 1)
@@ -155,8 +162,8 @@ def test_kernels_are_batch_invariant(cuda_device):
         t = TileConfig(*tile, "tb")
         assert torch.equal(gemm_tb(big, w, tile=t, residual=res,
                                    out_dtype=dt), ref), tile
-    for m in (1, 8):
-        for r0 in (0, 5, 292):
+    for m in (1, 8, 9, 12, 16):
+        for r0 in (0, 5, 300 - m):
             rows = slice(r0, r0 + m)
             assert torch.equal(gemm_aie(big[rows], w, residual=res[rows],
                                         out_dtype=dt), ref[rows]), (m, r0)
@@ -356,8 +363,8 @@ def test_gemm_tb_kernel_matches_plain(cuda_device, m, k, n, tile, dtype,
 
 
 @pytest.mark.parametrize("m,k,n", [(8, 960, 320), (8, 2560, 960),
-                                   (300, 960, 960), (5, 131, 77),
-                                   (300, 4096, 512)])
+                                   (12, 960, 320), (300, 960, 960),
+                                   (5, 131, 77), (300, 4096, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+gelu+res",
                                  "f32out"])

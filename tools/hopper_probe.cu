@@ -5,7 +5,10 @@
 //      B1 and B6);
 //   2. the rate at which one CTA a SM streams rows from device memory into
 //      shared memory with 16-byte cp.async, by row width and by the bytes in
-//      flight (the B tiles of the decode GEMMs).
+//      flight (the B tiles of the decode GEMMs);
+//   3. the cycles a 16-deep step of the port's own chain (mma_chain.cuh
+//      mma_slab) takes for one warp owning one m16n8 fragment, the decode
+//      GEMMs' case, beside probe 1's bare dependent chain.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o hopper_probe tools/hopper_probe.cu && ./hopper_probe
@@ -15,6 +18,8 @@
 
 #include <cstdint>
 #include <cstdio>
+
+#include "../src/repro_torch/csrc/mma_chain.cuh"
 
 template <int kChains>
 __global__ void mma_rate(float* out, int iters, long long* cycles) {
@@ -131,6 +136,36 @@ void probe_stream(long long* cycles, float* sink) {
   cudaFree(src);
 }
 
+// One warp runs mma_slab over a staged 16 x 128 slab of A and 128 x 8 of B,
+// `reps` times in a row (one chain of 8 reps 16-deep steps).
+__global__ void slab_rate(float* out, int reps, long long* cycles) {
+  __shared__ __align__(16) __nv_bfloat16 a[16 * 128], b[128 * 8];
+  for (int i = threadIdx.x; i < 16 * 128; i += 32)
+    a[i] = __float2bfloat16(0.001f * (i % 7));
+  for (int i = threadIdx.x; i < 128 * 8; i += 32)
+    b[i] = __float2bfloat16(0.001f * (i % 5));
+  __syncwarp();
+  const repro::SmemTile at = repro::smem_tile(a, 128);
+  const repro::SmemTile bt = repro::smem_tile(b, 8);
+  float acc[1][1][4] = {};
+  const long long t0 = clock64();
+  for (int r = 0; r < reps; ++r)
+    repro::mma_slab<1, 1, true>(acc, at, 0, 16, bt, 0, 8, 128);
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+  out[threadIdx.x] = acc[0][0][0] + acc[0][0][1] + acc[0][0][2] +
+                     acc[0][0][3];
+}
+
+void probe_slab(float* out, long long* cycles) {
+  const int reps = 256;
+  slab_rate<<<1, 32>>>(out, reps, cycles);
+  cudaDeviceSynchronize();
+  printf("mma_slab: 1 warp, one m16n8 fragment, 128-deep slabs: %.1f "
+         "cycles a 16-deep step\n",
+         *cycles / (8.0 * reps));
+}
+
 int main() {
   float* out;
   long long* cycles;
@@ -140,6 +175,7 @@ int main() {
   probe_mma<2>(out, cycles);
   probe_mma<4>(out, cycles);
   probe_stream(cycles, out);
+  probe_slab(out, cycles);
   const cudaError_t err = cudaGetLastError();
   printf("%s\n", cudaGetErrorString(err));
   return err == cudaSuccess ? 0 : 1;
