@@ -32,7 +32,12 @@ Phases (any failure raises and the script exits non-zero):
    every group's rows of each gemm_grouped case must equal gemm_aie's
    fmaf body on them (the operands widened to f32, which is exact: B7
    keeps the fmaf chain, B1's bf16 body runs the tensor cores), bit for
-   bit;
+   bit; B3's bf16 body must give a prompt's rows the bits of one
+   whole-prompt call when they run in chunks of 7, 16 and 64 (q_offset =
+   start) or one q head alone, at d 64 / 128 / 120 (window) / 20; B2's
+   bf16 body with relu must equal relu(B1) * B1 bit for bit at m = 1, 8,
+   9, 16 and 300, and its rows at m = 9, 16 and 300 those of its 300-row
+   call; every B2 and B3 case names the body and CTA shape that ran;
 4. the operator API: for each dense GEMM shape of both models' serve
    paths at m = 8 and m = 300 and for the 1024^3 GEMM, print the
    HOPPER_H100 plan's ``explain()`` and time the one-shot ``ops.gemm``
@@ -95,14 +100,14 @@ from repro_torch.bridge import to_device  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    flash_attention, flash_attention_plain)
+    cta_shape as attn_cta_shape, flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain)
 from repro_torch.kernels.gemm_aie import gemm_aie, gemm_aie_plain  # noqa
 from repro_torch.kernels import api  # noqa: E402
 from repro_torch.kernels.gemm_gated import (  # noqa: E402
-    gemm_gated, gemm_gated_plain)
+    cta_tile as gated_cta_tile, gemm_gated, gemm_gated_plain)
 from repro_torch.kernels.gemm_grouped import (  # noqa: E402
     gemm_grouped, gemm_grouped_plain)
 from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
@@ -302,7 +307,7 @@ def moe_gemm_cases():
     return out
 
 
-def gated_case(name, weight, m, k, n, dtype):
+def gated_case(name, weight, m, k, n, dtype, **extra):
     def make():
         return (rand((m, k), dtype), rand((k, n), dtype, k ** -0.5),
                 rand((k, n), dtype, k ** -0.5)), {}
@@ -313,16 +318,26 @@ def gated_case(name, weight, m, k, n, dtype):
     def cost(args, kw):
         a, bg, bu = args
         return nbytes(a, bg, bu, a.new_empty((m, n))), 4.0 * m * n * k
+    bm, bk, bn = gated_cta_tile(m, n, dtype)
+    body = "tensor cores" if dtype == torch.bfloat16 else "fmaf"
     return dict(name=name, weight=weight, dtype=dtype, make=make,
-                library=library, cost=cost)
+                library=library, cost=cost,
+                body=f"{body}, CTA tile {bm}x{bk}x{bn}", **extra)
 
 
-def attn_case(name, weight, b, s, hq, hkv, d, dtype):
+def attn_case(name, weight, b, s, hq, hkv, d, dtype, *, skv=None,
+              causal=True, window=0, **extra):
+    """B3 on q (b, s, hq, d) against ``skv`` keys (default s; the
+    q_offset is skv - s); the library yardstick is SDPA where one call
+    computes the function (causal or not, no window, skv == s)."""
+    skv = skv or s
+
     def make():
-        return (rand((b, s, hq, d), dtype), rand((b, s, hkv, d), dtype),
-                rand((b, s, hkv, d), dtype)), {"causal": True}
+        return (rand((b, s, hq, d), dtype), rand((b, skv, hkv, d), dtype),
+                rand((b, skv, hkv, d), dtype)), \
+            {"causal": causal, "window": window}
 
-    def library(q, k, v, causal):
+    def library(q, k, v, causal, window):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=causal, enable_gqa=True)
@@ -331,8 +346,12 @@ def attn_case(name, weight, b, s, hq, hkv, d, dtype):
         q, k, v = args
         pairs = b * s * (s + 1) / 2                 # causal (q, k) pairs
         return nbytes(q, k, v, q), 4.0 * hq * d * pairs
+    shape = attn_cta_shape(b, s, hq, hkv, d, dtype)
     return dict(name=name, weight=weight, dtype=dtype, make=make,
-                library=library, cost=cost)
+                library=library if skv == s and not window else None,
+                cost=cost, body=f"{shape.body}, {shape.rows} rows x "
+                f"{shape.ctas} CTAs, head padded to {shape.head_dim}",
+                **extra)
 
 
 def decode_case(name, weight, pos, S, hq, hkv, d, dtype):
@@ -519,6 +538,8 @@ def check_kernel(name, cases):
         row = {"case": case["name"], "weight": case["weight"],
                "moe_weight": case.get("moe_weight", 0),
                "max_abs_err": err.max().item()}
+        if "body" in case:
+            row["body"] = case["body"]
         worst = max(worst, row["max_abs_err"])
         if case.get("timed", case["weight"] > 0):
             per = nbytes(*args, *(v for v in kw.values()
@@ -550,7 +571,8 @@ def check_kernel(name, cases):
                + (f"  gather+sdpa (2 calls) "
                   f"{row['gather_sdpa_ms']*1e3:.1f} us"
                   if "gather_sdpa_ms" in row else "")
-               if "ms" in row else "  (edge shape, not timed)"))
+               if "ms" in row else "  (edge shape, not timed)")
+            + (f"  [{row['body']}]" if "body" in row else ""))
     return rows, worst, weighted(rows, "weight"), weighted(rows, "moe_weight")
 
 
@@ -636,7 +658,15 @@ def kernel_phase():
         ] + moe_gemms["gemm_tb"],
         "gemm_gated": [
             gated_case("decode gate/up 8x960x2560", 32, 8, d, ff, bf),
-            gated_case("prefill gate/up 300x960x2560", 0, 300, d, ff, bf),
+            # a 300-token prefill, timed beside silu(a@bg)*(a@bu)
+            gated_case("prefill gate/up 300x960x2560", 0, 300, d, ff, bf,
+                       timed=True),
+            # 1, 9..16 rows: the 16-row fragment at 8 and at 16 rows staged
+            gated_case("prefill gate/up 1x960x2560", 0, 1, d, ff, bf),
+            gated_case("prefill gate/up 9x960x2560", 0, 9, d, ff, bf),
+            gated_case("prefill gate/up 16x960x2560", 0, 16, d, ff, bf),
+            gated_case("edge 7x131x77 k % 16 != 0", 0, 7, 131, 77, bf),
+            gated_case("edge 37x200x131 ragged 64x64", 0, 37, 200, 131, bf),
             gated_case("edge f32 3x60x160", 0, 3, 60, 160, f32),
         ],
         "flash_attention": [
@@ -644,7 +674,18 @@ def kernel_phase():
             attn_case("prefill 1x300 h15/5 d64", 32, 1, 300, hq, hkv, 64,
                       bf),
             attn_case("prefill 1x12 h15/5 d64", 0, 1, 12, hq, hkv, 64, bf),
+            attn_case("prefill 1x160 h15/5 d64", 0, 1, 160, hq, hkv, 64, bf),
             attn_case("edge f32 2x45 h3/1 d20", 0, 2, 45, 3, 1, 20, f32),
+            # the bf16 body's edges: the smoke config's d 20, h2o-danube's
+            # d 120 with a window and a q_offset, kimi's d 112, non-causal
+            attn_case("edge 2x45 h3/1 d20", 0, 2, 45, 3, 1, 20, bf),
+            attn_case("edge 64x96 h4/2 d120 window 32 q_offset 32", 0, 1,
+                      64, 4, 2, 120, bf, skv=96, window=32),
+            attn_case("edge 70 h6/3 d112", 0, 1, 70, 6, 3, 112, bf),
+            attn_case("edge non-causal 1x40 h2/2 d64", 0, 1, 40, 2, 2, 64,
+                      bf, causal=False),
+            attn_case("edge 33x100 h16/1 d128 q_offset 67", 0, 1, 33, 16, 1,
+                      128, bf, skv=100),
             # qwen3-moe: GQA group 16 (the kernels' MAX_GROUP) and head_dim
             # 128 (MAX_HEAD_DIM), reached for the first time; moe_weight =
             # launches in one prefill / decode step of the 4-layer model
@@ -840,6 +881,75 @@ def grouped_bitwise_phase():
         f"bit for bit: {checked} groups over the B7 cases at two tiles "
         "each; rows past the groups zero")
     return checked
+
+
+def redesign_bitwise_phase():
+    """The bitwise gates of B3's and B2's bf16 tensor-core bodies.
+
+    (a) B3 q-split invariance: a prompt's full prefill equals, bit for
+    bit, its rows computed in chunks of 7, 16 and 64 with q_offset =
+    start against the key prefix, and one q head's rows computed alone
+    against its kv head, at smollm-360m's d 64 / group 3, qwen3-moe's d
+    128 / group 16, d 120 with window 32 and the smoke config's d 20;
+    (b) gemm_gated(relu, f32 out) == relu(gemm_aie) * gemm_aie on
+    smollm-360m's 960 x 2560 at m = 1, 8, 9, 16 and 300; (c) B2's rows at
+    m = 9, 16 and 300 equal its 300-row call."""
+    bf, f32 = torch.bfloat16, torch.float32
+    attn = []
+    for s, hq, hkv, d, window in ((300, 15, 5, 64, 0), (300, 64, 4, 128, 0),
+                                  (200, 8, 2, 120, 32), (90, 3, 1, 20, 0)):
+        q = rand((1, s, hq, d), bf)
+        k = rand((1, s, hkv, d), bf)
+        v = rand((1, s, hkv, d), bf)
+        full = flash_attention(q, k, v, window=window)
+        for chunk in (7, 16, 64):
+            got = torch.cat([
+                flash_attention(q[:, a:a + chunk], k[:, :a + chunk],
+                                v[:, :a + chunk], window=window, q_offset=a)
+                for a in range(0, s, chunk)], dim=1)
+            torch.cuda.synchronize()
+            if not torch.equal(got, full):
+                raise RuntimeError(f"flash_attention: chunks of {chunk} != "
+                                   f"the whole prompt at s {s} h{hq}/{hkv} "
+                                   f"d{d} window {window}")
+        group = hq // hkv
+        for h in (0, hq // 2, hq - 1):
+            solo = flash_attention(q[:, :, h:h + 1],
+                                   k[:, :, h // group:h // group + 1],
+                                   v[:, :, h // group:h // group + 1],
+                                   window=window)
+            torch.cuda.synchronize()
+            if not torch.equal(solo[:, :, 0], full[:, :, h]):
+                raise RuntimeError(f"flash_attention: head {h} alone != in "
+                                   f"its group at s {s} h{hq}/{hkv} d{d}")
+        attn.append(f"s{s} h{hq}/{hkv} d{d} window {window}")
+    log("flash_attention q-split invariance, bit for bit: chunks of 7/16/64 "
+        f"and single heads == the whole prompt at {attn}")
+    a = rand((300, 960), bf, 960 ** -0.5)
+    bg = rand((960, 2560), bf)
+    bu = rand((960, 2560), bf)
+    for m in (1, 8, 9, 16, 300):
+        got = gemm_gated(a[:m], bg, bu, activation="relu", out_dtype=f32)
+        want = torch.relu(gemm_aie(a[:m], bg, out_dtype=f32)) \
+            * gemm_aie(a[:m], bu, out_dtype=f32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"gemm_gated != relu(gemm_aie) * gemm_aie at "
+                               f"m = {m}")
+    full = gemm_gated(a, bg, bu)
+    for m in (9, 16, 300):
+        for r0 in sorted({0, 5, 300 - m}):
+            got = gemm_gated(a[r0:r0 + m], bg, bu)
+            torch.cuda.synchronize()
+            if not torch.equal(got, full[r0:r0 + m]):
+                raise RuntimeError(f"gemm_gated rows {r0}..{r0 + m} != its "
+                                   "300-row call")
+    log("gemm_gated == relu(gemm_aie) * gemm_aie, bit for bit, at m = 1, 8, "
+        "9, 16, 300 (960x2560); its rows at m = 9, 16, 300 == its 300-row "
+        "call")
+    return {"flash_attention_q_split": attn,
+            "gemm_gated_relu_identity_m": [1, 8, 9, 16, 300],
+            "gemm_gated_batch_invariance_m": [9, 16, 300]}
 
 
 def api_phase():
@@ -1244,6 +1354,7 @@ def main() -> None:
         bitwise_page_sizes = paged_bitwise_phase()
         tb_bitwise = tb_bitwise_phase()
         grouped_bitwise = grouped_bitwise_phase()
+        redesign_bitwise = redesign_bitwise_phase()
         api_run = api_phase()
     torch.cuda.empty_cache()
 
@@ -1335,6 +1446,7 @@ def main() -> None:
                 "paged_bit_identity_reference": "paged solo"},
         "paged_bitwise_page_sizes": bitwise_page_sizes,
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
+        "b3_b2_bitwise": redesign_bitwise,
         "operator_api": api_run,
         "bit_identity_requests": n_bit,
         "paged_bit_identity_requests": n_paged_bit,

@@ -1,10 +1,11 @@
-// The online-softmax kv-block step shared by flash_attention.cu (prefill),
-// flash_decode.cu (decode over a dense cache) and flash_decode_paged.cu
-// (decode over a page pool).
+// The online-softmax kv-block step of kernels B4 (flash_decode.cu, decode
+// over a dense cache) and B5 (flash_decode_paged.cu, decode over a page
+// pool), and of B3's f32 body (flash_attention.cu; its bf16 prefill body
+// runs the tensor cores with its own block order, see there).
 //
 // A CTA of kFaThreads = 128 threads holds up to kFaRows = 16 query rows:
-// 16 consecutive query positions of one head in prefill, or the GQA group of
-// q heads that share one kv head in decode.  Warp w owns rows w, w+4, w+8,
+// the GQA group of q heads that share one kv head in decode, or 16
+// consecutive query positions of one head in B3's f32 prefill.  Warp w owns rows w, w+4, w+8,
 // w+12; inside a kv block of kFaBkv = 32 keys, lane j scores key j, so the
 // block's row max and row sum are one xor-shuffle tree over the warp and no
 // (rows x keys) score tile is ever kept beyond one 32-wide row of p.

@@ -44,7 +44,7 @@ from repro_torch.core.tiling import STRATEGIES, GemmProblem, TileConfig, \
 from repro_torch.kernels.epilogue import ACTIVATIONS, Epilogue
 from repro_torch.kernels.gemm_aie import cta_tile as _aie_cta
 from repro_torch.kernels.gemm_aie import gemm_aie
-from repro_torch.kernels.gemm_gated import CTA_TILE as _GATED_CTA
+from repro_torch.kernels.gemm_gated import cta_tile as _gated_cta
 from repro_torch.kernels.gemm_gated import gemm_gated
 from repro_torch.kernels.gemm_grouped import CTA_K as _GROUPED_CTA_K
 from repro_torch.kernels.gemm_grouped import gemm_grouped as _gemm_grouped
@@ -223,13 +223,13 @@ def gemm_grouped_shapes(a, b, dense_rows: Optional[int] = None
 # ---------------------------------------------------------------------------
 
 #: what each kernel is, for explain(): (kernel, source, CTA tile it
-#: launches whatever the plan's tile says — B1's by (m, n, dtype) — or None
-#: when it runs the plan's)
+#: launches whatever the plan's tile says — B1's and B2's by (m, n, dtype) —
+#: or None when it runs the plan's)
 _KERNELS = {
     "aie": ("B1 gemm_aie", "src/repro_torch/csrc/gemm_aie.cu",
             _aie_cta),
     "gated": ("B2 gemm_gated", "src/repro_torch/csrc/gemm_gated.cu",
-              _GATED_CTA),
+              _gated_cta),
     "tb": ("B6 gemm_tb", "src/repro_torch/csrc/gemm_tb.cu", None),
     "grouped": ("B7 gemm_grouped", "src/repro_torch/csrc/gemm_grouped.cu",
                 None),

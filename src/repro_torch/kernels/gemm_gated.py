@@ -2,9 +2,13 @@
 
 Replaces the Pallas kernel ``repro/kernels/gemm_gated.py``
 ``gemm_gated`` (pallas_call :114, body ``_gated_kernel`` :34) with the
-hand-written CUDA kernel ``csrc/gemm_gated.cu``.  On an H100 the decode
-calls are bound by the bytes of the two weight matrices; one A tile
-feeds both B streams and the gate/up sums never leave registers.
+hand-written CUDA kernel ``csrc/gemm_gated.cu``.  On an H100 the serving
+calls are bound by the bytes of the two weight matrices; one staged A
+slab feeds both B streams and the gate/up sums never leave registers.
+bf16 operands run B1's m16n8k16 tensor-core chain (``csrc/mma_chain.cuh``)
+on both accumulators, at a CTA shape :func:`cta_tile` picks by m and n,
+so each accumulator is bit for bit ``gemm_aie(a, b, out_dtype=float32)``
+and a row's bits do not depend on m; f32 operands run an fmaf chain.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_gated_plain`, a
 CUDA tensor launches the kernel or raises.
@@ -17,14 +21,44 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.hardware import HOPPER_H100
+from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.ref import gemm_gated_ref
 
-#: the (bm, bk, bn) CTA tile the kernel is compiled for (csrc/gemm_gated.cu kBM, kBK, kBN)
-CTA_TILE = (16, 64, 32)
+#: the (bm, bk, bn) CTA tile of the f32 body (csrc/gemm_gated.cu kBM, kBK,
+#: kBN)
+F32_TILE = (16, 64, 32)
+#: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
+#: entry point takes (csrc/gemm_gated.cu launch_bf16): one 16-row fragment
+#: and 8, 16 or 32 columns of both products for few rows, 64 x 64 for more
+BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 16), 3: (16, 128, 32),
+              4: (64, 64, 64)}
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def _config(m: int, n: int, dtype) -> int:
+    """The bf16 body's CTA shape for an (m, n) C (0: the f32 body).  With
+    m <= 16 rows the widest n split that still gives 7 of every 8 SMs a
+    CTA (one SM streams only a share of the card's memory rate, so the
+    two weights spread over as many SMs as n / 8 allows); with more rows
+    64 x 64."""
+    if dtype != torch.bfloat16:
+        return 0
+    if m > 16:
+        return 4
+    for config in (3, 2):
+        if 8 * cdiv(n, BF16_TILES[config][2]) >= 7 * HOPPER_H100.sm_count:
+            return config
+    return 1
+
+
+def cta_tile(m: int, n: int, dtype=torch.bfloat16):
+    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C."""
+    config = _config(m, n, dtype)
+    return BF16_TILES[config] if config else F32_TILE
 
 
 def gemm_gated_plain(a: torch.Tensor, b_gate: torch.Tensor,
@@ -69,9 +103,15 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
     a, b_gate, b_up = a.contiguous(), b_gate.contiguous(), \
         b_up.contiguous()
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    config, modes = _config(m, n, a.dtype), 0
+    if config:  # the bf16 body's staging copy modes of A and of both Bs
+        _, bk, bn = BF16_TILES[config]
+        modes = _build.copy_mode(a, k, bk) | min(
+            _build.copy_mode(b_gate, n, bn),
+            _build.copy_mode(b_up, n, bn)) << 2
     rc = _build.entry("gemm_gated_launch", _ARGTYPES)(
         a.data_ptr(), b_gate.data_ptr(), b_up.data_ptr(), c.data_ptr(),
-        m, n, k, in_code, out_code, ACT_CODES[activation],
+        m, n, k, in_code, out_code, ACT_CODES[activation], config, modes,
         _build.stream_of(a))
     _build.check(rc, "gemm_gated")
     gemm_gated.launches += 1

@@ -91,7 +91,11 @@ def test_gemm_aie_kernel_matches_plain(cuda_device, m, k, n, dtype, epi):
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 960, 2560), (8, 960, 2560),
-                                   (300, 960, 2560), (5, 60, 160)])
+                                   (300, 960, 2560), (5, 60, 160),
+                                   # every row of the 16-row fragment, a
+                                   # ragged 64 x 64 tile, odd k and n
+                                   (9, 960, 2560), (16, 960, 2560),
+                                   (17, 100, 70), (7, 131, 77)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_gemm_gated_kernel_matches_plain(cuda_device, m, k, n, dtype):
     a = _randn((m, k), dtype, cuda_device, 0) / k ** 0.5
@@ -100,12 +104,32 @@ def test_gemm_gated_kernel_matches_plain(cuda_device, m, k, n, dtype):
     _close(gemm_gated(a, bg, bu), gemm_gated_plain(a, bg, bu), dtype)
 
 
+@pytest.mark.parametrize("m", [1, 8, 9, 16, 300])
+def test_gemm_gated_equals_relu_gemm_aie_bitwise(cuda_device, m):
+    """Both accumulators of B2's bf16 body run B1's tensor-core chain, so
+    relu(A Wg) * (A Wu) in f32 is relu(B1(A, Wg)) * B1(A, Wu) bit for bit,
+    at every CTA shape m picks, on smollm-360m's 960 x 2560."""
+    a = _randn((m, 960), torch.bfloat16, cuda_device, 0) / 960 ** 0.5
+    bg = _randn((960, 2560), torch.bfloat16, cuda_device, 1)
+    bu = _randn((960, 2560), torch.bfloat16, cuda_device, 2)
+    f32 = torch.float32
+    got = gemm_gated(a, bg, bu, activation="relu", out_dtype=f32)
+    want = torch.relu(gemm_aie(a, bg, out_dtype=f32)) \
+        * gemm_aie(a, bu, out_dtype=f32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", [
     (1, 300, 300, 15, 5, 64, True, 0),       # smollm prefill
     (1, 7, 7, 15, 5, 64, True, 0),           # short prompt
     (2, 45, 45, 3, 1, 20, True, 0),          # smoke head_dim, ragged sq
     (1, 64, 96, 4, 2, 120, True, 32),        # q_offset, window, d 120
     (1, 40, 40, 2, 2, 64, False, 0),         # non-causal
+    (1, 300, 300, 64, 4, 128, True, 0),      # qwen3-moe prefill, group 16
+    (1, 33, 100, 16, 1, 128, True, 0),       # q_offset, d 128, group 16
+    (2, 70, 70, 6, 3, 112, True, 0),         # d 112, two batch rows
+    (1, 50, 130, 3, 1, 20, False, 40),       # non-causal window, d 20
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
@@ -144,7 +168,8 @@ def test_kernels_are_batch_invariant(cuda_device):
     and B6 rows at m = 1, 8, 9, 12, 16 and 300 (B1 stages 8 rows of its
     16-row fragment up to m = 8, all 16 up to m = 16 and runs 64 x 64
     tiles beyond; B6 runs at the plans' decode and prefill tiles) all
-    equal B1's 300-row call."""
+    equal B1's 300-row call; B2 rows at m = 9, 16 and 300 equal its
+    300-row call."""
     dt = torch.bfloat16
     a = _randn((8, 960), dt, cuda_device, 0)
     w = _randn((960, 2560), dt, cuda_device, 1)
@@ -170,6 +195,15 @@ def test_kernels_are_batch_invariant(cuda_device):
             assert torch.equal(gemm_tb(big[rows], w, residual=res[rows],
                                        tile=TileConfig(8, 512, 32, "tb"),
                                        out_dtype=dt), ref[rows]), (m, r0)
+    # B2 rows at m = 9, 16 (the 16-row fragment) and 300 (64 x 64 tiles)
+    # equal its 300-row call, as its m = 1 and 8 rows equal its 8-row one
+    up = _randn((960, 2560), dt, cuda_device, 8)
+    gated300 = gemm_gated(big, w, up)
+    for m in (9, 16, 300):
+        for r0 in sorted({0, 5, 300 - m}):
+            rows = slice(r0, r0 + m)
+            assert torch.equal(gemm_gated(big[rows], w, up),
+                               gated300[rows]), (m, r0)
     q = _randn((8, 15, 64), dt, cuda_device, 3)
     k = _randn((8, 256, 5, 64), dt, cuda_device, 4)
     v = _randn((8, 256, 5, 64), dt, cuda_device, 5)
@@ -274,6 +308,38 @@ def test_flash_decode_paged_is_batch_invariant(cuda_device):
             flash_decode_paged(q[i:i + 1], k_pages, v_pages,
                                table[i:i + 1], pos[i:i + 1]),
             out[i:i + 1])
+
+
+@pytest.mark.parametrize("s,hq,hkv,d,window", [
+    (300, 15, 5, 64, 0),                     # smollm-360m, group 3
+    (300, 64, 4, 128, 0),                    # qwen3-moe, group 16
+    (200, 8, 2, 120, 32),                    # h2o-danube's d 120, window
+    (90, 3, 1, 20, 0),                       # the smoke config's d 20
+])
+def test_flash_attention_q_split_invariance_bitwise(cuda_device, s, hq, hkv,
+                                                    d, window):
+    """B3's bf16 body: a prompt's full prefill equals, bit for bit, its
+    rows computed in chunks of 7, 16 and 64 with q_offset = start against
+    the key prefix (other CTA row counts, tiles and key ranges), and one
+    q head's rows computed alone against its kv head."""
+    dt = torch.bfloat16
+    q = _randn((1, s, hq, d), dt, cuda_device, 0)
+    k = _randn((1, s, hkv, d), dt, cuda_device, 1)
+    v = _randn((1, s, hkv, d), dt, cuda_device, 2)
+    full = flash_attention(q, k, v, window=window)
+    for chunk in (7, 16, 64):
+        parts = [flash_attention(q[:, a:a + chunk], k[:, :a + chunk],
+                                 v[:, :a + chunk], window=window, q_offset=a)
+                 for a in range(0, s, chunk)]
+        torch.cuda.synchronize()
+        assert torch.equal(torch.cat(parts, dim=1), full), chunk
+    group = hq // hkv
+    for h in (0, hq // 2, hq - 1):
+        kvh = h // group
+        solo = flash_attention(q[:, :, h:h + 1], k[:, :, kvh:kvh + 1],
+                               v[:, :, kvh:kvh + 1], window=window)
+        torch.cuda.synchronize()
+        assert torch.equal(solo[:, :, 0], full[:, :, h]), h
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
