@@ -38,11 +38,14 @@
 //   * A CTA's rows are (q position, q head) pairs of one kv head's GQA
 //     group, flattened position-major, so each staged block serves every q
 //     head of the group (3 in smollm-360m, 16 in qwen3-moe): the old body
-//     staged it once per q head.  kernels/flash_attention.py cta_shape picks
-//     16 x kWarps = 16, 32 or 64 rows so that a prompt gives at least 7/8 of
-//     the SMs a CTA, and the grid runs the causally heaviest q tiles first.
-//     (128-row CTAs were slower: at d = 128 a thread holds 248 registers,
-//     so one 256-thread CTA fills an SM's register file.)
+//     staged it once per q head.  A CTA holds 64 rows, four warps of 16
+//     (kernels/flash_attention.py cta_shape gives its grid), and the grid
+//     runs the causally heaviest q tiles first.  Measured on an H100
+//     (PERF.md §6), 64 rows beat 16 and 32 at every served prompt and
+//     chunk length even where they leave most SMs idle: fewer warps a CTA
+//     stage each block more slowly.  128 rows were slower too: at d = 128
+//     a thread holds 248 registers, so one 256-thread CTA fills an SM's
+//     register file.
 //   * head_dim is padded in shared memory to kD = 32, 64 or 128 with zeros
 //     (QK^T's k-dim reads zeros up to the 16-grid; P V's columns past d are
 //     not stored).  Rows that are not whole 16-byte chunks (d = 20: 40-byte
@@ -112,6 +115,8 @@ flash_attention_kernel(const float* __restrict__ q,
 // ---------------------------------------------------------------------------
 
 constexpr int kBkv = 64;     // keys a block: the fixed key grid
+constexpr int kWarps = 4;    // a warp holds 16 rows of the CTA's 64
+constexpr int kRows = 16 * kWarps, kThreads = 32 * kWarps;
 constexpr float kLog2e = 1.4426950408889634f;
 
 struct FaArgs {
@@ -127,14 +132,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
              << 16;
 }
 
-// 16 kWarps rows, head_dim padded to kD.
-template <int kWarps, int kD>
-__global__ void __launch_bounds__(32 * kWarps)
+// kRows rows, head_dim padded to kD.
+template <int kD>
+__global__ void __launch_bounds__(kThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
                            const __nv_bfloat16* __restrict__ k,
                            const __nv_bfloat16* __restrict__ v,
                            __nv_bfloat16* __restrict__ o, FaArgs p) {
-  constexpr int kRows = 16 * kWarps, kThreads = 32 * kWarps;
   constexpr int kQK = kD / 16;   // k16 steps of S = Q K^T
   constexpr int kSF = kBkv / 8;  // n8 score fragments a block
   constexpr int kPV = kBkv / 16; // k16 steps of O += P V
@@ -353,10 +357,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int kWarps, int kD>
+template <int kD>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                const FaArgs& p, cudaStream_t stream) {
-  auto kernel = flash_attention_mma_kernel<kWarps, kD>;
+  auto kernel = flash_attention_mma_kernel<kD>;
   constexpr size_t kSmem = 2 * 2 * static_cast<size_t>(kBkv) * kD *
                            sizeof(__nv_bfloat16);
   static bool configured = false;  // one attribute call per shape
@@ -365,8 +369,8 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                          static_cast<int>(kSmem));
     configured = true;
   }
-  const int tiles = cdiv(p.rows, 16 * kWarps);
-  kernel<<<tiles * p.hkv * p.batch, 32 * kWarps, kSmem, stream>>>(
+  const int tiles = cdiv(p.rows, kRows);
+  kernel<<<tiles * p.hkv * p.batch, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
@@ -374,42 +378,27 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kWarps>
-int launch_d(const void* q, const void* k, const void* v, void* o,
-             const FaArgs& p, cudaStream_t s) {
-  if (p.d <= 32) return launch_mma<kWarps, 32>(q, k, v, o, p, s);
-  if (p.d <= 64) return launch_mma<kWarps, 64>(q, k, v, o, p, s);
-  return launch_mma<kWarps, 128>(q, k, v, o, p, s);
-}
-
-int launch_bf16(int rows, const void* q, const void* k, const void* v,
-                void* o, const FaArgs& p, cudaStream_t s) {
+int launch_bf16(const void* q, const void* k, const void* v, void* o,
+                const FaArgs& p, cudaStream_t s) {
   if (p.d < 1 || p.d > kFaDmax) return static_cast<int>(cudaErrorInvalidValue);
-  switch (rows) {
-    case 16:
-      return launch_d<1>(q, k, v, o, p, s);
-    case 32:
-      return launch_d<2>(q, k, v, o, p, s);
-    case 64:
-      return launch_d<4>(q, k, v, o, p, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (p.d <= 32) return launch_mma<32>(q, k, v, o, p, s);
+  if (p.d <= 64) return launch_mma<64>(q, k, v, o, p, s);
+  return launch_mma<128>(q, k, v, o, p, s);
 }
 
 }  // namespace
 }  // namespace repro
 
 // All operands contiguous in the (b, s, h, d) layout.  bf16 runs the
-// tensor-core body with ``rows`` (16, 32 or 64) rows a CTA and the
-// staging copy modes ``modes`` (2 bits each: k, then v); f32 the fmaf body,
-// which ignores both.  Returns cudaGetLastError() after the launch.
+// tensor-core body with the staging copy modes ``modes`` (2 bits each: k,
+// then v); f32 the fmaf body, which ignores them.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int b, int sq,
                                       int skv, int hq, int hkv, int d,
                                       int causal, int window, int q_offset,
-                                      float scale, int dtype, int rows,
-                                      int modes, void* stream) {
+                                      float scale, int dtype, int modes,
+                                      void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == kBF16) {
@@ -420,7 +409,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     p.rows = sq * p.group;
     p.mode_k = modes & 3, p.mode_v = (modes >> 2) & 3;
     p.scale_log2 = scale * kLog2e;
-    return launch_bf16(rows, q, k, v, o, p, s);
+    return launch_bf16(q, k, v, o, p, s);
   }
   dim3 grid(cdiv(sq, kFaRows), hq, b);
   flash_attention_kernel<<<grid, kFaThreads, 0, s>>>(

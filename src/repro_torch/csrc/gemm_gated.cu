@@ -18,13 +18,13 @@
 // k; A, Wg and Wu come in BK-deep slabs through a ring of kStages stages
 // filled by 16-byte cp.async (staging.cuh), and one staged A slab feeds both
 // the Wg and the Wu fragments.  kernels/gemm_gated.py cta_tile picks the CTA
-// shape by m and n: with m <= 16 one 16-row fragment and 8, 16 or 32
-// columns, the widest split that still gives at least 7/8 of the SMs a CTA
-// (smollm-360m's n = 2560 at 16 columns: 160 CTAs), four copy warps and 8
-// stages, so 64-160 KB of weights are in flight an SM and the MMA warps never
-// stall on issuing copies; with more rows a 64 x 64 tile whose four warps own
-// 32 x 32 of each product (2 x 32 f32 accumulators a thread).  Ragged edges
-// (m, n, k) load zeros and are not stored, so no caller pads.
+// shape by m: with m <= 16 one 16-row fragment and 16 columns, so that
+// smollm-360m's n = 2560 gives 160 CTAs, at least 7/8 of the SMs, with four
+// copy warps and 8 stages: 64 KB of weights in flight an SM, and the MMA
+// warps never stall on issuing copies; with more rows a 64 x 64 tile whose
+// four warps own 32 x 32 of each product (2 x 32 f32 accumulators a
+// thread).  Ragged edges (m, n, k) load zeros and are not stored, so no
+// caller pads.
 //
 // Both accumulators run mma_chain.cuh's chain (mma_slab), the one B1 and B6
 // run: each gate and each up element is one mma.sync m16n8k16 sequence over
@@ -316,20 +316,16 @@ int launch_mma(const void* a, const void* bg, const void* bu, void* c,
 
 // The CTA shapes of the bf16 body, by the index kernels/gemm_gated.py
 // BF16_TILES gives them (its (bm, bk, bn) must match): with m <= 16 one
-// 16-row fragment and 1, 2 or 4 MMA warps of one 8-column fragment of each
-// product, 128-deep slabs, 4 copy warps and 8 stages (8 x 8 / 12 / 20 KB of
-// shared memory); with more rows 64 x 64 (4 warps of 2 x 4 fragments of
-// each product that stage too), 64-deep slabs, 4 stages (96 KB).
+// 16-row fragment and 2 MMA warps of one 8-column fragment of each
+// product, 128-deep slabs, 4 copy warps and 8 stages (8 x 12 KB of shared
+// memory); with more rows 64 x 64 (4 warps of 2 x 4 fragments of each
+// product that stage too), 64-deep slabs, 4 stages (96 KB).
 int launch_bf16(int config, const void* a, const void* bg, const void* bu,
                 void* c, const GatedArgs& p, cudaStream_t s) {
   switch (config) {
     case 1:
-      return launch_mma<GatedShape<1, 1, 1, 1, 128, 8, 4>>(a, bg, bu, c, p, s);
-    case 2:
       return launch_mma<GatedShape<1, 2, 1, 1, 128, 8, 4>>(a, bg, bu, c, p, s);
-    case 3:
-      return launch_mma<GatedShape<1, 4, 1, 1, 128, 8, 4>>(a, bg, bu, c, p, s);
-    case 4:
+    case 2:
       return launch_mma<GatedShape<2, 2, 2, 4, 64, 4>>(a, bg, bu, c, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -340,8 +336,8 @@ int launch_bf16(int config, const void* a, const void* bg, const void* bu,
 }  // namespace repro
 
 // A (m,k), Wg/Wu (k,n), C (m,n) row-major and contiguous.  bf16 operands run
-// the tensor-core body with CTA shape ``config`` (1..4, see launch_bf16) and
-// the staging copy modes ``modes`` (2 bits each: A, then both Bs); f32
+// the tensor-core body with CTA shape ``config`` (1 or 2, see launch_bf16)
+// and the staging copy modes ``modes`` (2 bits each: A, then both Bs); f32
 // operands the fmaf body, which ignores both.  Returns cudaGetLastError()
 // after the launch.
 extern "C" int gemm_gated_launch(const void* a, const void* bg,

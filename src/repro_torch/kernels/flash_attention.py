@@ -7,9 +7,9 @@ prompt lengths its bytes and operations are far below a launch, so what
 it pays is the latency of its key-block loop and of staging.  bf16
 operands run both products on the tensor cores (``mma.sync`` m16n8k16),
 the softmax in registers, K and V staged once per kv head's GQA group
-through a ``cp.async`` ring; a CTA holds the (q position, q head) rows
-:func:`cta_shape` gives it.  f32 operands keep the ``fmaf`` body of
-``csrc/flash.cuh``.  Either way a row's bits depend only on its absolute
+through a ``cp.async`` ring; a CTA holds 64 (q position, q head) rows,
+on the grid :func:`cta_shape` gives.  f32 operands keep the ``fmaf``
+body of ``csrc/flash.cuh``.  Either way a row's bits depend only on its absolute
 position and the keys (a fixed key-block grid, visited in order), so
 chunked == unchunked prefill bit for bit.  The TPU's sq >= 128 gate
 (attn_api.py:403) came from its (8, 128) tiling: here every prefill,
@@ -26,7 +26,6 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.hardware import HOPPER_H100
 from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
@@ -39,11 +38,13 @@ KEY_BLOCK = 64
 #: rows a CTA of the f32 body holds: 16 positions of one q head
 #: (csrc/flash.cuh kFaRows)
 F32_ROWS = 16
-#: rows a CTA of the bf16 body may hold (16 a warp)
-BF16_ROWS = (64, 32, 16)
+#: rows a CTA of the bf16 body holds, 16 a warp (csrc/flash_attention.cu
+#: kRows): on an H100 64 rows beat 16 and 32 at every served prompt and
+#: chunk length (PERF.md §6)
+BF16_ROWS = 64
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
-    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
 
 
 class CtaShape(NamedTuple):
@@ -65,11 +66,10 @@ def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
     """The CTA shape and grid the kernel launches for q (b, sq, hq, d)
     against k/v with ``hkv`` heads.
 
-    bf16: a CTA holds ``rows`` (q position, q head) pairs of one kv
-    head's group, flattened position-major (row f is position f //
-    group, q head kv_head * group + f % group), so each staged K/V block
-    serves the whole group.  ``rows`` is the larger of 64 and 32 that
-    still gives 7 of every 8 SMs a CTA, else 16.  CTA x runs q tile
+    bf16: a CTA holds :data:`BF16_ROWS` (q position, q head) pairs of
+    one kv head's group, flattened position-major (row f is position f
+    // group, q head kv_head * group + f % group), so each staged K/V
+    block serves the whole group.  CTA x runs q tile
     ``tiles - 1 - x // (hkv b)`` (the causally heaviest first), kv head
     ``x % (hkv b) % hkv`` and batch row ``x % (hkv b) // hkv``.  head_dim
     is padded to 32, 64 or 128 in shared memory, two stages of K and V
@@ -82,15 +82,9 @@ def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
                     + 32 * MAX_HEAD_DIM + F32_ROWS * 32)
         return CtaShape(F32_ROWS, tiles, tiles * hq * b, MAX_HEAD_DIM, smem,
                         "fmaf")
-    group_rows = sq * (hq // hkv)
-    rows = BF16_ROWS[-1]
-    for r in BF16_ROWS[:-1]:
-        if 8 * cdiv(group_rows, r) * hkv * b >= 7 * HOPPER_H100.sm_count:
-            rows = r
-            break
     head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
-    tiles = cdiv(group_rows, rows)
-    return CtaShape(rows, tiles, tiles * hkv * b, head_dim,
+    tiles = cdiv(sq * (hq // hkv), BF16_ROWS)
+    return CtaShape(BF16_ROWS, tiles, tiles * hkv * b, head_dim,
                     2 * 2 * KEY_BLOCK * head_dim * 2, "tensor cores")
 
 
@@ -134,14 +128,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     code = _build.dtype_code(q.dtype, "flash_attention")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
-    shape = cta_shape(b, sq, hq, hkv, d, q.dtype)
     # the bf16 body's staging copy modes of k and v
     modes = _build.copy_mode(k, hkv * d, d) | _build.copy_mode(v, hkv * d,
                                                                d) << 2
     rc = _build.entry("flash_attention_launch", _ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         b, sq, skv, hq, hkv, d, int(causal), int(window), int(q_offset),
-        scale, code, shape.rows, modes, _build.stream_of(q))
+        scale, code, modes, _build.stream_of(q))
     _build.check(rc, "flash_attention")
     flash_attention.launches += 1
     return o

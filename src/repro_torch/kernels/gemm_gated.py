@@ -6,8 +6,8 @@ hand-written CUDA kernel ``csrc/gemm_gated.cu``.  On an H100 the serving
 calls are bound by the bytes of the two weight matrices; one staged A
 slab feeds both B streams and the gate/up sums never leave registers.
 bf16 operands run B1's m16n8k16 tensor-core chain (``csrc/mma_chain.cuh``)
-on both accumulators, at a CTA shape :func:`cta_tile` picks by m and n,
-so each accumulator is bit for bit ``gemm_aie(a, b, out_dtype=float32)``
+on both accumulators, at a CTA shape :func:`cta_tile` picks by m, so
+each accumulator is bit for bit ``gemm_aie(a, b, out_dtype=float32)``
 and a row's bits do not depend on m; f32 operands run an fmaf chain.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_gated_plain`, a
@@ -21,8 +21,6 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.hardware import HOPPER_H100
-from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.ref import gemm_gated_ref
@@ -32,32 +30,25 @@ from repro_torch.kernels.ref import gemm_gated_ref
 F32_TILE = (16, 64, 32)
 #: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
 #: entry point takes (csrc/gemm_gated.cu launch_bf16): one 16-row fragment
-#: and 8, 16 or 32 columns of both products for few rows, 64 x 64 for more
-BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 16), 3: (16, 128, 32),
-              4: (64, 64, 64)}
+#: and 16 columns of both products for m <= 16 (smollm-360m's n = 2560
+#: gives 160 CTAs, at least 7 of every 8 SMs: one SM streams only a share
+#: of the card's memory rate), 64 x 64 for more rows
+BF16_TILES = {1: (16, 128, 16), 2: (64, 64, 64)}
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
-def _config(m: int, n: int, dtype) -> int:
-    """The bf16 body's CTA shape for an (m, n) C (0: the f32 body).  With
-    m <= 16 rows the widest n split that still gives 7 of every 8 SMs a
-    CTA (one SM streams only a share of the card's memory rate, so the
-    two weights spread over as many SMs as n / 8 allows); with more rows
-    64 x 64."""
+def _config(m: int, dtype) -> int:
+    """The bf16 body's CTA shape for m rows (0: the f32 body)."""
     if dtype != torch.bfloat16:
         return 0
-    if m > 16:
-        return 4
-    for config in (3, 2):
-        if 8 * cdiv(n, BF16_TILES[config][2]) >= 7 * HOPPER_H100.sm_count:
-            return config
-    return 1
+    return 1 if m <= 16 else 2
 
 
 def cta_tile(m: int, n: int, dtype=torch.bfloat16):
-    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C."""
-    config = _config(m, n, dtype)
+    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C; n
+    does not choose it (ragged n is masked)."""
+    config = _config(m, dtype)
     return BF16_TILES[config] if config else F32_TILE
 
 
@@ -103,7 +94,7 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
     a, b_gate, b_up = a.contiguous(), b_gate.contiguous(), \
         b_up.contiguous()
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    config, modes = _config(m, n, a.dtype), 0
+    config, modes = _config(m, a.dtype), 0
     if config:  # the bf16 body's staging copy modes of A and of both Bs
         _, bk, bn = BF16_TILES[config]
         modes = _build.copy_mode(a, k, bk) | min(

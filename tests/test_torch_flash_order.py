@@ -204,12 +204,16 @@ def test_cta_shape_covers_every_row_once(b, sq, hq, hkv, d):
 
 @pytest.mark.parametrize("hq,hkv,d", [(15, 5, 64), (64, 4, 128)])
 def test_cta_shape_fills_the_card_at_a_300_token_prefill(hq, hkv, d):
-    """smollm-360m's (4500 rows) and qwen3-moe's (19200 rows) 300-token
-    prefills give at least 7 of every 8 SMs a CTA, each CTA a whole
-    number of warps."""
+    """What smollm-360m's (4500 rows) and qwen3-moe's (19200 rows)
+    300-token prefills put on the card: 64-row CTAs of four warps, 75 and
+    300 of them.  smollm-360m's 75 leave SMs idle, yet on an H100 they
+    beat the 16- and 32-row CTAs that would reach 7 of every 8 SMs, at
+    every served prompt and chunk length (PERF.md §6)."""
     shape = cta_shape(1, 300, hq, hkv, d)
-    assert 8 * shape.ctas >= 7 * HOPPER_H100.sm_count
-    assert shape.rows % 16 == 0 and shape.body == "tensor cores"
+    assert shape.rows == 64 and shape.body == "tensor cores"
+    assert shape.ctas == -(-300 * (hq // hkv) // 64) * hkv
+    assert shape.ctas == {5: 75, 4: 300}[hkv]
+    assert (shape.ctas >= HOPPER_H100.sm_count) == (hkv == 4)
 
 
 @pytest.mark.parametrize("d,head_dim", [(20, 32), (64, 64), (112, 128),

@@ -376,23 +376,22 @@ def test_b1_cta_tile_follows_m_n_and_dtype(m, n, dtype, tile):
     (8, 2560, "bfloat16", (16, 128, 16)),    # smollm decode: 160 CTAs
     (1, 2560, "bfloat16", (16, 128, 16)),
     (16, 2560, "bfloat16", (16, 128, 16)),   # every row of the fragment
-    (8, 960, "bfloat16", (16, 128, 8)),      # 120 CTAs of one n8 fragment
-    (8, 6144, "bfloat16", (16, 128, 32)),    # 192 CTAs
+    (8, 960, "bfloat16", (16, 128, 16)),     # n does not choose the tile
+    (8, 6144, "bfloat16", (16, 128, 16)),
     (17, 2560, "bfloat16", (64, 64, 64)),
     (300, 2560, "bfloat16", (64, 64, 64)),   # a 300-token prefill
     (8, 2560, "float32", (16, 64, 32)),      # the f32 fmaf body
     (300, 2560, "float32", (16, 64, 32)),
 ])
 def test_b2_cta_tile_follows_m_n_and_dtype(m, n, dtype, tile):
-    """B2 launches one 16-row fragment of both products and the widest n
-    split that still reaches 7 of every 8 SMs for few rows, 64 x 64 for
-    more, the f32 body's fixed tile for f32; a gated plan's explain()
-    names the tile it launches."""
+    """B2 launches one 16-row fragment and 16 columns of both products
+    for few rows (smollm-360m's n = 2560 then reaches 7 of every 8 SMs),
+    64 x 64 for more, the f32 body's fixed tile for f32; a gated plan's
+    explain() names the tile it launches."""
     from repro_torch.kernels.gemm_gated import cta_tile
     assert cta_tile(m, n, getattr(torch, dtype)) == tile
     if tile[0] == 16 and dtype == "bfloat16":
-        assert 8 * -(-n // tile[2]) >= 7 * HOPPER_H100.sm_count \
-            or tile[2] == 8
+        assert 8 * -(-2560 // tile[2]) >= 7 * HOPPER_H100.sm_count
     pl = ops.plan(ops.GemmSpec(a_dtype=dtype, b_dtype=dtype, gated=True,
                                epilogue="silu"), (m, D, n))
     assert pl.kernel == "gated"
