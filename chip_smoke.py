@@ -24,9 +24,11 @@ Phases (any failure raises and the script exits non-zero):
    at edges with empty groups, a dropped tail and a straddled tile; the
    attention kernels also at qwen3-moe's GQA group of 16 and head_dim
    of 128;
-   then the paged decode kernel must equal the dense one bit for bit on
-   one logical cache scattered into a permuted pool, at page sizes 16,
-   32 and 64; gemm_tb must equal gemm_aie bit for bit at both models'
+   each decode case names the split grid it launched (the split, the
+   CTAs launched and live, the merge CTAs); then the paged decode kernel
+   must equal the dense one bit for bit on one logical cache scattered
+   into a permuted pool, at both models' heads, page sizes 8, 16, 32 and
+   64, windows 0, 64 and 100, and pools as long as the cache or longer; gemm_tb must equal gemm_aie bit for bit at both models'
    dense serve shapes, in bf16 and f32, with each epilogue, at the 'tb'
    plan's tile and tiles giving one, two and four or more k-chunks; and
    every group's rows of each gemm_grouped case must equal gemm_aie's
@@ -100,7 +102,8 @@ from repro_torch.bridge import to_device  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    cta_shape as attn_cta_shape, flash_attention, flash_attention_plain)
+    cta_shape as attn_cta_shape, decode_grid, decode_live_ctas,
+    flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain)
@@ -354,6 +357,18 @@ def attn_case(name, weight, b, s, hq, hkv, d, dtype, *, skv=None,
                 **extra)
 
 
+def decode_body(pos, length, hq, hkv, d, dtype, window=0):
+    """The grid B4 or B5 launches for these slots: the split, the CTAs
+    launched and those with a live block, and the merge CTAs."""
+    g = decode_grid(len(pos), hq, hkv, length, d, dtype)
+    if g.body == "fmaf":
+        return f"fmaf, {g.ctas} CTAs, one per (kv head, slot)"
+    live = decode_live_ctas(pos, length, window, hkv)
+    return (f"tensor cores, split {g.split} keys ({g.warps} warps x 64), "
+            f"{g.ctas} CTAs launched, {live} live, {g.merge_ctas} merge "
+            f"CTAs, head padded to {g.head_dim}")
+
+
 def decode_case(name, weight, pos, S, hq, hkv, d, dtype):
     b = len(pos)
 
@@ -374,7 +389,8 @@ def decode_case(name, weight, pos, S, hq, hkv, d, dtype):
         row = hkv * d * q.element_size()
         return nbytes(q, q) + 2 * keys * row, 4.0 * hq * d * keys
     return dict(name=name, weight=weight, dtype=dtype, make=make,
-                library=library, cost=cost)
+                library=library, cost=cost,
+                body=decode_body(pos, S, hq, hkv, d, dtype))
 
 
 def paged_case(name, weight, pos, ps, max_pages, hq, hkv, d, dtype, *,
@@ -412,7 +428,8 @@ def paged_case(name, weight, pos, ps, max_pages, hq, hkv, d, dtype, *,
         row = hkv * d * q.element_size()
         return nbytes(q, q, table) + 2 * keys * row, 4.0 * hq * d * keys
     return dict(name=name, weight=weight, dtype=dtype, make=make,
-                library=None, two_calls=gather_sdpa, cost=cost)
+                library=None, two_calls=gather_sdpa, cost=cost,
+                body=decode_body(pos, S, hq, hkv, d, dtype, window))
 
 
 def routed_sizes(tokens, n_experts, top_k, cap, seed):
@@ -751,34 +768,49 @@ def grouped_cases():
 
 def paged_bitwise_phase():
     """B5 == B4, bit for bit: one logical bf16 cache of 8 slots x 1024
-    positions, dense and scattered into a permuted pool, at the serve
-    path's page size and two larger ones, with and without a window."""
-    b, S, hq, hkv, d = 8, 1024, 15, 5, 64
-    q = rand((b, hq, d), torch.bfloat16)
-    k = rand((b, S, hkv, d), torch.bfloat16)
-    v = rand((b, S, hkv, d), torch.bfloat16)
+    positions, dense and scattered into a permuted pool, at smollm-360m's
+    heads (15/5, d 64) and qwen3-moe's (64/4, d 128), page sizes 8, 16,
+    32 and 64, windows 0, 64 and 100, with the table as long as the dense
+    cache or longer (1280 keys; there the slot past the dense cache's
+    end, pos 1500, sees the pool's extra keys and is left out)."""
+    b, S = 8, 1024
     pos = torch.as_tensor([17, 40, 95, 160, 210, 300, 1023, 1500],
                           dtype=torch.int32, device="cuda")
-    for ps in (16, 32, 64):
-        max_pages = S // ps
-        n_pages = 1 + b * max_pages
-        perm = torch.randperm(n_pages - 1, generator=_GEN, device="cuda")
-        table = (perm + 1).reshape(b, max_pages).to(torch.int32)
-        k_pages = rand((n_pages, ps, hkv, d), torch.bfloat16)
-        v_pages = rand((n_pages, ps, hkv, d), torch.bfloat16)
-        k_pages[table.long()] = k.reshape(b, max_pages, ps, hkv, d)
-        v_pages[table.long()] = v.reshape(b, max_pages, ps, hkv, d)
-        for window in (0, 100):
-            got = flash_decode_paged(q, k_pages, v_pages, table, pos,
-                                     window=window)
-            want = flash_decode(q, k, v, pos, window=window)
-            torch.cuda.synchronize()
-            if not torch.equal(got, want):
-                raise RuntimeError(f"flash_decode_paged != flash_decode at "
-                                   f"page size {ps}, window {window}")
-    log("paged == dense decode, bit for bit, at page sizes 16/32/64 "
-        "(8 slots x 1024, permuted pool, window 0 and 100)")
-    return [16, 32, 64]
+    checked = 0
+    for hq, hkv, d in ((15, 5, 64), (64, 4, 128)):
+        q = rand((b, hq, d), torch.bfloat16)
+        k = rand((b, S, hkv, d), torch.bfloat16)
+        v = rand((b, S, hkv, d), torch.bfloat16)
+        for ps in (8, 16, 32, 64):
+            for pool_len in (S, 1280):
+                max_pages, dense_pages = pool_len // ps, S // ps
+                n_pages = 1 + b * max_pages
+                perm = torch.randperm(n_pages - 1, generator=_GEN,
+                                      device="cuda")
+                table = (perm + 1).reshape(b, max_pages).to(torch.int32)
+                k_pages = rand((n_pages, ps, hkv, d), torch.bfloat16)
+                v_pages = rand((n_pages, ps, hkv, d), torch.bfloat16)
+                rows = table[:, :dense_pages].long()
+                k_pages[rows] = k.reshape(b, dense_pages, ps, hkv, d)
+                v_pages[rows] = v.reshape(b, dense_pages, ps, hkv, d)
+                keep = b if pool_len == S else b - 1
+                for window in (0, 64, 100):
+                    got = flash_decode_paged(q, k_pages, v_pages, table, pos,
+                                             window=window)
+                    want = flash_decode(q, k, v, pos, window=window)
+                    torch.cuda.synchronize()
+                    if not torch.equal(got[:keep], want[:keep]):
+                        raise RuntimeError(
+                            f"flash_decode_paged != flash_decode at heads "
+                            f"{hq}/{hkv} d {d}, page size {ps}, pool "
+                            f"{pool_len} keys, window {window}")
+                    checked += 1
+    log(f"paged == dense decode, bit for bit, in {checked} cases: heads "
+        "15/5 d64 and 64/4 d128, page sizes 8/16/32/64, pools of 1024 and "
+        "1280 keys against a 1024-key cache, windows 0/64/100")
+    return {"cases": checked, "page_sizes": [8, 16, 32, 64],
+            "windows": [0, 64, 100], "pool_keys": [S, 1280],
+            "heads": ["15/5 d64", "64/4 d128"]}
 
 
 def tb_bitwise_phase():
@@ -1351,7 +1383,7 @@ def main() -> None:
     _GEN = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         checked = kernel_phase()
-        bitwise_page_sizes = paged_bitwise_phase()
+        paged_bitwise = paged_bitwise_phase()
         tb_bitwise = tb_bitwise_phase()
         grouped_bitwise = grouped_bitwise_phase()
         redesign_bitwise = redesign_bitwise_phase()
@@ -1444,7 +1476,7 @@ def main() -> None:
                 "bit_identity_requests": moe_bit,
                 "paged_bit_identity_requests": moe_paged_bit,
                 "paged_bit_identity_reference": "paged solo"},
-        "paged_bitwise_page_sizes": bitwise_page_sizes,
+        "paged_bitwise": paged_bitwise,
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
         "b3_b2_bitwise": redesign_bitwise,
         "operator_api": api_run,

@@ -17,6 +17,9 @@ enum Act : int { kNone = 0, kSilu = 1, kGelu = 2, kRelu = 3 };
 // Large-negative mask value of the JAX reference (kernels/ref.py NEG_INF).
 constexpr float kNegInf = -1e30f;
 
+// log2 e: the tensor-core attention bodies take exp2 of scores scaled by it.
+constexpr float kLog2e = 1.4426950408889634f;
+
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);

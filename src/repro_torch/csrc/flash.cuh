@@ -1,7 +1,9 @@
-// The online-softmax kv-block step of kernels B4 (flash_decode.cu, decode
-// over a dense cache) and B5 (flash_decode_paged.cu, decode over a page
-// pool), and of B3's f32 body (flash_attention.cu; its bf16 prefill body
-// runs the tensor cores with its own block order, see there).
+// The f32 online-softmax kv-block step: B3's f32 body (flash_attention.cu)
+// and the f32 path of the decode kernels B4 (flash_decode.cu, dense cache)
+// and B5 (flash_decode_paged.cu, page pool).  Their bf16 bodies run the
+// tensor cores with their own block orders (flash_attention.cu,
+// decode_split.cuh).  Only f32 instantiates it: the smoke models, the card
+// == CPU gate and the f32 edge cases.
 //
 // A CTA of kFaThreads = 128 threads holds up to kFaRows = 16 query rows:
 // the GQA group of q heads that share one kv head in decode, or 16
@@ -12,7 +14,8 @@
 //
 // Accumulation order of one row (the paged decode kernel repeats it over
 // logical 32-key blocks, whatever the page size, so it is bit-identical to
-// the dense one; only where a key's row is found differs, see KeyRows):
+// the dense one; only where a key's row is found differs, DenseRows against
+// PagedRows):
 //   * kv blocks are visited in ascending key order;
 //   * a score is one fmaf chain over the head dim in order, on q already
 //     multiplied by the softmax scale;

@@ -117,7 +117,6 @@ flash_attention_kernel(const float* __restrict__ q,
 constexpr int kBkv = 64;     // keys a block: the fixed key grid
 constexpr int kWarps = 4;    // a warp holds 16 rows of the CTA's 64
 constexpr int kRows = 16 * kWarps, kThreads = 32 * kWarps;
-constexpr float kLog2e = 1.4426950408889634f;
 
 struct FaArgs {
   int batch, sq, skv, hq, hkv, d, group, causal, window, q_offset;
@@ -125,12 +124,6 @@ struct FaArgs {
   int mode_k, mode_v;  // staging.cuh copy modes of k and v
   float scale_log2;    // softmax scale * log2 e
 };
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
-         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
-             << 16;
-}
 
 // kRows rows, head_dim padded to kD.
 template <int kD>
@@ -251,25 +244,13 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
         (p.window > 0 && kv0 + kBkv - 1 <= wq_lo - p.window);
     if (!skip) {
       const SmemTile kt = k_tile(j & 1), vt = v_tile(j & 1);
-      // S = Q K^T: x4 ldmatrix of keys 8 jj .. 8 jj + 15, d chunks 2 s, 2 s + 1
+      // S = Q K^T
       float sc[kSF][4];
 #pragma unroll
       for (int jj = 0; jj < kSF; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[jj][e] = 0.0f;
-      const int mi = lane >> 3;
-#pragma unroll
-      for (int s = 0; s < kQK; ++s)
-#pragma unroll
-        for (int jj = 0; jj < kSF; jj += 2) {
-          const int key = 8 * jj + 8 * (mi >> 1) + (lane & 7);
-          const int chunk = 2 * s + (mi & 1);
-          uint32_t b[4];
-          ldsm_x4(b, kt.p + key * kD +
-                         ((chunk ^ ((key >> kt.sh) & kt.mask)) << 3));
-          mma_bf16(sc[jj], qa[s], b[0], b[1]);
-          mma_bf16(sc[jj + 1], qa[s], b[2], b[3]);
-        }
+      mma_qkt<kD>(sc, qa, kt);
       // scale and mask in f32; the row max over the quad
       uint32_t live = 0;  // bit 4 jj + e: (row, key) visible
       float mx[2] = {kNegInf, kNegInf};
@@ -322,21 +303,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           acc[jo][e] = __fmul_rn(acc[jo][e], alpha[e >> 1]);
-      // O += P V: x4 ldmatrix.trans of keys 16 s .. 16 s + 15, d chunks jo,
-      // jo + 1
-#pragma unroll
-      for (int s = 0; s < kPV; ++s)
-#pragma unroll
-        for (int jo = 0; jo < kOF; jo += 2) {
-          const int key = 16 * s + (lane & 15);
-          const int chunk = jo + (lane >> 4);
-          uint32_t b0, b1, b2, b3;
-          ldsm_x4_t(b0, b1, b2, b3,
-                    vt.p + key * kD +
-                        ((chunk ^ ((key >> vt.sh) & vt.mask)) << 3));
-          mma_bf16(acc[jo], pa[s], b0, b1);
-          mma_bf16(acc[jo + 1], pa[s], b2, b3);
-        }
+      // O += P V
+      mma_pv<kD>(acc, pa, vt);
     }
     __syncthreads();  // every warp is done with block j's stage
   }

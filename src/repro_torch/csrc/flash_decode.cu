@@ -5,28 +5,36 @@
 // caches (b, S, hkv, d), pos (b,) int32 per-slot positions; row i sees
 // cache slots k_pos <= pos[i] (and k_pos > pos[i] - window when window > 0).
 //
-// What bounds it on an H100: the bytes of the cache rows each slot has
-// written (pos + 1 keys and values per kv head), read once; the operations
-// are 4 * group * d per key.  The kernel stops at pos[row] instead of
-// streaming all S slots, so it moves what the data needs, not max_len.
+// What bounds it on an H100: the cache bytes of the pos + 1 keys each slot
+// has written (K and V, hkv * d elements a key), read once, and at serving
+// lengths the latency of a launch and of one round of loads: a smollm-360m
+// or qwen3-moe step's 1,526 keys over 8 slots are 2-3 MB, under a
+// microsecond at 3.35 TB/s.  pos is read on the device, so a decode step
+// needs no host sync and replays from a CUDA graph.
 //
-// Design: one CTA per (kv head, batch row).  Its q rows are the `group` q
-// heads that share the kv head (3 for smollm), with no padding to the TPU's
-// 8 sublanes.  pos is read from device memory, so a decode step needs no
-// host sync.  The kv-block accumulation order is the one written down in
-// csrc/flash.cuh: 32-key blocks in ascending order from block
-// floor(max(0, pos - window + 1) / 32) to block floor(min(pos, S - 1) / 32).
-// flash_decode_paged.cu repeats it over a page pool and gives the same bits.
+// Design, bf16 (decode_split.cuh): the keys split across CTAs on a grid of
+// 64-key blocks fixed from key 0, each block's partial computed by one warp
+// on the tensor cores (B3's block step), the partials merged in ascending
+// block order by a second kernel.  A slot of 364 keys thus waits for 6
+// warps that run side by side instead of 12 blocks one after another, and
+// its rows' bits do not depend on the batch, the cache length beyond pos + 1
+// or the grid.  flash_decode_paged.cu runs the same body over a page pool
+// and gives the same bits.
+//
+// f32 (the smoke models, the f32 edge cases): one CTA per (kv head, slot)
+// walks csrc/flash.cuh's fmaf block step over 32-key blocks in ascending
+// order from block floor(max(0, pos - window + 1) / 32) to block
+// floor(min(pos, S - 1) / 32); flash_decode_paged.cu repeats it too.
+#include "decode_split.cuh"
 #include "flash.cuh"
 
 namespace repro {
 namespace {
 
-template <typename T>
 __global__ void __launch_bounds__(kFaThreads)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const int* __restrict__ pos,
-                    T* __restrict__ o, int S, int hq, int hkv, int d,
+flash_decode_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const int* __restrict__ pos,
+                    float* __restrict__ o, int S, int hq, int hkv, int d,
                     int window, float scale) {
   __shared__ FlashSmem sm;
   const int kvh = blockIdx.x;
@@ -48,33 +56,36 @@ flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   flash_store(st, o + q_at, d, groups, d);
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const int* pos,
-            void* o, int b, int S, int hq, int hkv, int d, int window,
-            float scale, cudaStream_t stream) {
-  dim3 grid(hkv, b);
-  flash_decode_kernel<T><<<grid, kFaThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), pos, static_cast<T*>(o), S, hq, hkv, d,
-      window, scale);
-}
-
 }  // namespace
 }  // namespace repro
 
 // q (b, hq, d), caches (b, S, hkv, d) contiguous; pos (b,) int32 on the
-// device.  Returns cudaGetLastError() after the launch.
+// device.  bf16: part_acc / part_ml are the split grid's scratch (sizes in
+// kernels/flash_attention.py decode_grid) and modes the staging copy modes
+// of k and v (2 bits each); f32 ignores all three.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* pos, void* o,
-                                   int b, int S, int hq, int hkv, int d,
-                                   int window, float scale, int dtype,
+                                   void* part_acc, void* part_ml, int b,
+                                   int S, int hq, int hkv, int d, int window,
+                                   float scale, int dtype, int modes,
                                    void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
-  if (dtype == kBF16)
-    launch<__nv_bfloat16>(q, k, v, p, o, b, S, hq, hkv, d, window, scale, s);
-  else
-    launch<float>(q, k, v, p, o, b, S, hq, hkv, d, window, scale, s);
+  if (dtype == kBF16) {
+    SplitArgs a{};
+    a.hq = hq, a.hkv = hkv, a.d = d, a.group = hq / hkv;
+    a.length = S, a.window = window;
+    a.mode_k = modes & 3, a.mode_v = (modes >> 2) & 3;
+    const DenseKeys keys{S, static_cast<size_t>(hkv) * d};
+    return launch_split(q, k, v, p, o, part_acc, part_ml, b, a, keys, scale,
+                        s);
+  }
+  dim3 grid(hkv, b);
+  flash_decode_kernel<<<grid, kFaThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), p, static_cast<float*>(o), S, hq, hkv, d,
+      window, scale);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,40 +10,40 @@
 // window > 0).  Page 0 is the serve loop's sink: rows of free or
 // mid-prefill slots point every entry there.
 //
-// What bounds it on an H100: the same bytes as the dense kernel — the
-// pos + 1 keys and values per kv head each slot has written, read once —
-// plus the table entries those keys name.  Pages are not contiguous, so a
-// 32-key block is gathered row by row; each key row (hkv * d elements) is
-// still one contiguous stretch.
+// What bounds it on an H100: the same bytes as the dense kernel (the pos + 1
+// keys and values per kv head each slot has written, read once) plus the
+// table entries those keys name, and at serving lengths the latency of a
+// launch and of one round of loads, now two dependent ones (the table, then
+// the rows it names).  Pages are not contiguous, so a block is gathered row
+// by row; each key row (hkv * d elements) is still one contiguous stretch.
 //
-// Design: flash_decode.cu with one difference, where a key's row is found
-// (PagedRows in flash.cuh: the first warp looks up the block's 32 row
-// offsets once, so the staging loop stays B4's).  The Pallas kernel uses
-// the page as its kv block, so it matches the dense kernel only when
-// page_size equals the block.  Here the blocks stay the dense kernel's
-// logical 32-key blocks, visited in the same ascending order from block
-// floor(max(0, pos - window + 1) / 32) up to min(max_pages * ps, pos + 1),
-// and each key is looked up by itself: a block may span several pages (the
-// serve loop's 16-key pages, the tests' 8) or lie inside one (64).  So with
-// max_pages * ps equal to the dense cache's length the result is the dense
-// kernel's, bit for bit, for any page size and any table permutation.  One
-// CTA per (kv head, slot); pos and the table are read from device memory,
-// so a decode step needs no host sync.  Reads stop at max_pages * ps, so a
-// masked row whose pos has run past its table stays in bounds.  A row that
-// sees no key at all (only such a row, under a window) gets zeros, as the
-// Pallas kernel and the dense kernel give; the plain version gives the mean
-// of the values there, and the serve loop never reads that row.
+// Design: flash_decode.cu with one difference, where a key's row is found.
+// bf16 runs decode_split.cuh's split grid with PagedKeys: a warp looks its
+// 64-key block's table entries up once (64 / ps of them, or one page when
+// the page is larger), then issues one cp.async per key row and chunk.  The
+// blocks, their order and the merge are the dense kernel's, counted from
+// key 0 whatever the page size, so with the same pos every row equals the
+// dense kernel's bit for bit for any page size, table permutation and pool
+// length (beyond pos + 1).  f32 runs flash.cuh's fmaf step over the dense
+// kernel's 32-key blocks, each key looked up by itself (PagedRows).  pos and
+// the table are read on the device, so a decode step needs no host sync.
+// Reads stop at max_pages * ps, so a masked row whose pos has run past its
+// table stays in bounds.  A row that sees no key at all (only such a row,
+// under a window) gets zeros, as the Pallas kernel and the dense kernel
+// give; the plain version gives the mean of the values there, and the serve
+// loop never reads that row.
+#include "decode_split.cuh"
 #include "flash.cuh"
 
 namespace repro {
 namespace {
 
-template <typename T>
 __global__ void __launch_bounds__(kFaThreads)
-flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                          const T* __restrict__ v,
+flash_decode_paged_kernel(const float* __restrict__ q,
+                          const float* __restrict__ k,
+                          const float* __restrict__ v,
                           const int* __restrict__ table,
-                          const int* __restrict__ pos, T* __restrict__ o,
+                          const int* __restrict__ pos, float* __restrict__ o,
                           int ps, int max_pages, int hq, int hkv, int d,
                           int window, float scale) {
   __shared__ FlashSmem sm;
@@ -70,39 +70,42 @@ flash_decode_paged_kernel(const T* __restrict__ q, const T* __restrict__ k,
   flash_store(st, o + q_at, d, groups, d);
 }
 
-template <typename T>
-void launch(const void* q, const void* k, const void* v, const int* table,
-            const int* pos, void* o, int b, int ps, int max_pages, int hq,
-            int hkv, int d, int window, float scale, cudaStream_t stream) {
-  dim3 grid(hkv, b);
-  flash_decode_paged_kernel<T><<<grid, kFaThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), table, pos, static_cast<T*>(o), ps,
-      max_pages, hq, hkv, d, window, scale);
-}
-
 }  // namespace
 }  // namespace repro
 
 // q (b, hq, d), pools (n_pages, ps, hkv, d), table (b, max_pages) int32,
 // pos (b,) int32, all contiguous on the device; every table entry must be
-// below n_pages.  Returns cudaGetLastError() after the launch.
+// below n_pages.  bf16: part_acc / part_ml are the split grid's scratch
+// (kernels/flash_attention.py decode_grid at length max_pages * ps) and
+// modes the staging copy modes of k and v; f32 ignores all three.  Returns
+// cudaGetLastError() after the launches.
 extern "C" int flash_decode_paged_launch(const void* q, const void* k,
                                          const void* v, const void* table,
-                                         const void* pos, void* o, int b,
-                                         int ps, int max_pages, int hq,
+                                         const void* pos, void* o,
+                                         void* part_acc, void* part_ml,
+                                         int b, int ps, int max_pages, int hq,
                                          int hkv, int d, int window,
-                                         float scale, int dtype,
+                                         float scale, int dtype, int modes,
                                          void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* t = static_cast<const int*>(table);
   const int* p = static_cast<const int*>(pos);
-  if (dtype == kBF16)
-    launch<__nv_bfloat16>(q, k, v, t, p, o, b, ps, max_pages, hq, hkv, d,
-                          window, scale, s);
-  else
-    launch<float>(q, k, v, t, p, o, b, ps, max_pages, hq, hkv, d, window,
-                  scale, s);
+  if (dtype == kBF16) {
+    SplitArgs a{};
+    a.hq = hq, a.hkv = hkv, a.d = d, a.group = hq / hkv;
+    a.length = max_pages * ps, a.window = window;
+    a.mode_k = modes & 3, a.mode_v = (modes >> 2) & 3;
+    const size_t row_stride = static_cast<size_t>(hkv) * d;
+    const PagedKeys keys{t, ps, max_pages,
+                         static_cast<size_t>(ps) * row_stride, row_stride};
+    return launch_split(q, k, v, p, o, part_acc, part_ml, b, a, keys, scale,
+                        s);
+  }
+  dim3 grid(hkv, b);
+  flash_decode_paged_kernel<<<grid, kFaThreads, 0, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), t, p, static_cast<float*>(o), ps,
+      max_pages, hq, hkv, d, window, scale);
   return static_cast<int>(cudaGetLastError());
 }

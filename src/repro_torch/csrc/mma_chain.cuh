@@ -1,6 +1,8 @@
 // The one tensor-core chain of the bf16 GEMMs, shared by kernel B1
 // (gemm_aie.cu, output-stationary) and kernel B6 (gemm_tb.cu,
-// A-stationary), and the fragment -> (row, col) map of their flush.
+// A-stationary), and the fragment -> (row, col) map of their flush; and the
+// two products of the attention block step (mma_qkt, mma_pv), shared by B3
+// and the decode kernels B4 and B5.
 //
 // The chain: every C element is one sequence of
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 instructions with an
@@ -86,6 +88,59 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two f32 values rounded to bf16 (nearest even) and packed low, high: the
+// C layout of two m16n8 fragments repacked as the A layout of one k16 step.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(lo))) |
+         static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16(hi)))
+             << 16;
+}
+
+// The two products of the attention block step (B3 flash_attention.cu, and
+// B4 / B5 through decode_split.cuh), for one warp's 16 rows against a block
+// of 8 kSF keys held in swizzled [key][kD] tiles (smem_tile(p, kD)).
+// S += Q K^T: qa holds Q's kD / 16 k16 steps as A fragments; K is read by
+// x4 ldmatrix, keys 8 jj .. 8 jj + 15 at d chunks 2 s and 2 s + 1, which is
+// already the .col B layout.
+template <int kD, int kSF>
+__device__ __forceinline__ void mma_qkt(float (&sc)[kSF][4],
+                                       const uint32_t (&qa)[kD / 16][4],
+                                       const SmemTile& kt) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+#pragma unroll
+  for (int s = 0; s < kD / 16; ++s)
+#pragma unroll
+    for (int jj = 0; jj < kSF; jj += 2) {
+      const int key = 8 * jj + 8 * (mi >> 1) + (lane & 7);
+      const int chunk = 2 * s + (mi & 1);
+      uint32_t b[4];
+      ldsm_x4(b, kt.p + key * kD + ((chunk ^ ((key >> kt.sh) & kt.mask)) << 3));
+      mma_bf16(sc[jj], qa[s], b[0], b[1]);
+      mma_bf16(sc[jj + 1], qa[s], b[2], b[3]);
+    }
+}
+
+// O += P V over 16 kPV keys: pa holds P's k16 steps as A fragments; V is
+// read by x4 ldmatrix.trans, keys 16 s .. 16 s + 15 at d chunks jo, jo + 1.
+template <int kD, int kPV>
+__device__ __forceinline__ void mma_pv(float (&acc)[kD / 8][4],
+                                      const uint32_t (&pa)[kPV][4],
+                                      const SmemTile& vt) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int s = 0; s < kPV; ++s)
+#pragma unroll
+    for (int jo = 0; jo < kD / 8; jo += 2) {
+      const int key = 16 * s + (lane & 15);
+      const int chunk = jo + (lane >> 4);
+      uint32_t b0, b1, b2, b3;
+      ldsm_x4_t(b0, b1, b2, b3,
+                vt.p + key * kD + ((chunk ^ ((key >> vt.sh) & vt.mask)) << 3));
+      mma_bf16(acc[jo], pa[s], b0, b1);
+      mma_bf16(acc[jo + 1], pa[s], b2, b3);
+    }
 }
 
 // The bits of t's element (r, c), or zero when !ok.

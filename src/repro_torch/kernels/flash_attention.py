@@ -42,6 +42,19 @@ F32_ROWS = 16
 #: kRows): on an H100 64 rows beat 16 and 32 at every served prompt and
 #: chunk length (PERF.md §6)
 BF16_ROWS = 64
+#: shared memory of an f32 CTA (csrc/flash.cuh FlashSmem: q, k with one
+#: column of padding, v and p, in f32)
+F32_SMEM = 4 * (F32_ROWS * MAX_HEAD_DIM + 32 * (MAX_HEAD_DIM + 1)
+                + 32 * MAX_HEAD_DIM + F32_ROWS * 32)
+
+#: keys a block of the decode kernels' bf16 body (B4, B5;
+#: csrc/decode_split.cuh kBlk): one warp's work and one partial, blocks
+#: starting at multiples of it from key 0
+DECODE_BLOCK = KEY_BLOCK
+#: blocks (warps) a CTA of that body takes (kSplitWarps): its split is
+#: DECODE_SPLIT keys
+DECODE_SPLIT_WARPS = 2
+DECODE_SPLIT = DECODE_SPLIT_WARPS * DECODE_BLOCK
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -77,15 +90,88 @@ def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
     CTA, the grid (q tiles, hq, b)."""
     if dtype != torch.bfloat16:
         tiles = cdiv(sq, F32_ROWS)
-        # csrc/flash.cuh FlashSmem: q, k (+1 column), v, p in f32
-        smem = 4 * (F32_ROWS * MAX_HEAD_DIM + 32 * (MAX_HEAD_DIM + 1)
-                    + 32 * MAX_HEAD_DIM + F32_ROWS * 32)
-        return CtaShape(F32_ROWS, tiles, tiles * hq * b, MAX_HEAD_DIM, smem,
-                        "fmaf")
+        return CtaShape(F32_ROWS, tiles, tiles * hq * b, MAX_HEAD_DIM,
+                        F32_SMEM, "fmaf")
     head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
     tiles = cdiv(sq * (hq // hkv), BF16_ROWS)
     return CtaShape(BF16_ROWS, tiles, tiles * hkv * b, head_dim,
                     2 * 2 * KEY_BLOCK * head_dim * 2, "tensor cores")
+
+
+class DecodeGrid(NamedTuple):
+    """What one decode launch (B4 over a cache of ``length`` keys, or B5
+    over a table of ``max_pages * page_size``) runs: ``ctas`` CTAs of
+    ``warps`` warps on the split axis (``splits`` splits of ``split``
+    keys per kv head and slot), then ``merge_ctas`` merge CTAs;
+    ``blocks`` 64-key partials per (slot, kv head), ``head_dim`` the
+    head padded in shared memory, ``smem_bytes`` a split CTA's shared
+    memory, ``acc_floats`` and ``ml_floats`` the f32 scratch the wrapper
+    allocates, and ``body`` ("tensor cores" or "fmaf")."""
+
+    split: int
+    splits: int
+    warps: int
+    blocks: int
+    ctas: int
+    merge_ctas: int
+    head_dim: int
+    smem_bytes: int
+    acc_floats: int
+    ml_floats: int
+    body: str
+
+
+def decode_grid(b: int, hq: int, hkv: int, length: int, d: int,
+                dtype=torch.bfloat16) -> DecodeGrid:
+    """The grid the decode kernels launch for q (b, hq, d) against keys
+    of ``length`` slots and ``hkv`` heads.  It depends on what the host
+    knows (b, the heads, the length), never on the positions.
+
+    bf16: CTA (x, kv head, slot) holds :data:`DECODE_SPLIT_WARPS` warps;
+    warp w takes the 64-key block x * DECODE_SPLIT_WARPS + w and writes
+    its partial (m, l for each of the group's rows; acc at the padded
+    head width), or returns at once when the block holds no key the
+    slot sees; the merge CTAs then fold each slot's partials in
+    ascending block order (:func:`decode_blocks`), a thread taking four
+    columns of one of the group's rows, 128 threads a CTA.  f32:
+    one CTA per (kv head, slot) walks 32-key blocks (csrc/flash.cuh)."""
+    if dtype != torch.bfloat16:
+        return DecodeGrid(length, 1, 4, 0, hkv * b, 0, MAX_HEAD_DIM,
+                          F32_SMEM, 0, 0, "fmaf")
+    head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
+    blocks = cdiv(length, DECODE_BLOCK)
+    splits = cdiv(blocks, DECODE_SPLIT_WARPS)
+    parts = b * hkv * blocks * (hq // hkv)
+    # csrc/decode_split.cuh split_smem: each warp's K and V tiles in bf16
+    # and its 64 row offsets
+    smem = DECODE_SPLIT_WARPS * (2 * DECODE_BLOCK * head_dim * 2
+                                 + DECODE_BLOCK * 8)
+    merge_ctas = cdiv((hq // hkv) * cdiv(d, 4), 128) * hkv * b
+    return DecodeGrid(DECODE_SPLIT, splits, DECODE_SPLIT_WARPS, blocks,
+                      splits * hkv * b, merge_ctas, head_dim, smem,
+                      parts * head_dim, parts * 2, "tensor cores")
+
+
+def decode_blocks(pos: int, length: int, window: int = 0) -> range:
+    """The 64-key blocks whose partials the bf16 decode merges for a
+    slot at ``pos``, in the order it merges them: those that hold a key
+    of [max(0, pos - window + 1), min(length, pos + 1)) (the lower end
+    only under a window).  ``length`` matters only where pos + 1 exceeds
+    it, so a row's blocks, and its bits, are the same in a dense cache
+    and in a page table of another length."""
+    hi = min(length, pos + 1)
+    lo = max(0, pos - window + 1) if window > 0 else 0
+    if hi <= lo:
+        return range(0)
+    return range(lo // DECODE_BLOCK, cdiv(hi, DECODE_BLOCK))
+
+
+def decode_live_ctas(pos, length: int, window: int, hkv: int) -> int:
+    """Split CTAs of a bf16 decode launch that hold a live block (the
+    rest return at once), over the slots' positions ``pos``."""
+    return hkv * sum(len({blk // DECODE_SPLIT_WARPS
+                          for blk in decode_blocks(int(p), length, window)})
+                     for p in pos)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,

@@ -4,16 +4,25 @@ shared page pool (kernel B5).
 B4 replaces the Pallas kernel ``repro/kernels/flash_decode.py``
 ``flash_decode`` (pallas_call :144, body ``_flash_decode_kernel`` :37)
 with the hand-written CUDA kernel ``csrc/flash_decode.cu``.  On an H100
-it is bound by the cache bytes each slot has written; it reads ``pos``
-from device memory (no host sync) and stops at ``pos[row]``.
+it is bound by the cache bytes each slot has written and, at serving
+lengths, by the latency of a launch and of one round of loads.  bf16
+operands run ``csrc/decode_split.cuh``: the keys split across CTAs on a
+grid of 64-key blocks fixed from key 0
+(``flash_attention.decode_grid``), one warp a block on the tensor
+cores, then a merge of the blocks' partials in ascending order
+(``flash_attention.decode_blocks``); so a row's bits depend only on its
+q, its keys, its ``pos`` and the window.  f32 operands keep
+``csrc/flash.cuh``'s ``fmaf`` step, one CTA per (kv head, slot).  It
+reads ``pos`` from device memory (no host sync).
 
 B5 replaces ``flash_decode_paged`` (pallas_call :275, body
 ``_flash_decode_paged_kernel`` :156) with ``csrc/flash_decode_paged.cu``:
-B4's blocks and accumulation order, with each key's row looked up
-through the slot's page table, so paged decode equals dense decode bit
-for bit at any page size.  It reads ``pos`` and the table from device
-memory.
+B4's grid, blocks and merge, with each key's row looked up through the
+slot's page table, so paged decode equals dense decode bit for bit at
+any page size.  It reads ``pos`` and the table from device memory.
 
+Each launch counter counts wrapper calls that launch the kernel: a bf16
+call is two CUDA launches (the split grid and its merge) and counts one.
 Dispatch goes by device: a CPU tensor takes the ``*_plain`` version, a
 CUDA tensor launches the kernel or raises.
 """
@@ -21,21 +30,22 @@ CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import MAX_HEAD_DIM
+from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, decode_grid
 from repro_torch.kernels.ref import (decode_attention_paged_ref,
                                     decode_attention_ref)
 
 #: most q heads one kv head may serve (the kernel's 16 rows per CTA)
 MAX_GROUP = 16
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-_PAGED_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
 
 def _pos_vector(pos, b: int, device, name: str) -> torch.Tensor:
@@ -58,6 +68,24 @@ def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor,
     if d > MAX_HEAD_DIM or hq // hkv > MAX_GROUP:
         raise ValueError(f"{name}: head_dim {d} (max {MAX_HEAD_DIM}) "
                          f"or group {hq // hkv} (max {MAX_GROUP}) too large")
+
+
+def _split_scratch(q: torch.Tensor, hkv: int, length: int, k, v):
+    """The bf16 body's partials (None for f32) and the staging copy
+    modes of k and v, for keys of ``length`` slots."""
+    b, hq, d = q.shape
+    grid = decode_grid(b, hq, hkv, length, d, q.dtype)
+    if not grid.acc_floats:
+        return None, None, 0
+    f32 = dict(dtype=torch.float32, device=q.device)
+    modes = _build.copy_mode(k, hkv * d, d) \
+        | _build.copy_mode(v, hkv * d, d) << 2
+    return (torch.empty(grid.acc_floats, **f32),
+            torch.empty(grid.ml_floats, **f32), modes)
+
+
+def _ptr(t) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
@@ -93,10 +121,12 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     q = q.contiguous()
     k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
     o = torch.empty_like(q)
+    part_acc, part_ml, modes = _split_scratch(q, hkv, skv, k_cache, v_cache)
     rc = _build.entry("flash_decode_launch", _ARGTYPES)(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-        pos.data_ptr(), o.data_ptr(), b, skv, hq, hkv, d, int(window),
-        float(d ** -0.5), code, _build.stream_of(q))
+        pos.data_ptr(), o.data_ptr(), _ptr(part_acc), _ptr(part_ml), b, skv,
+        hq, hkv, d, int(window), float(d ** -0.5), code, modes,
+        _build.stream_of(q))
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1
     return o
@@ -155,11 +185,14 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     q, page_table = q.contiguous(), page_table.contiguous()
     k_pages, v_pages = k_pages.contiguous(), v_pages.contiguous()
     o = torch.empty_like(q)
+    max_pages = page_table.shape[1]
+    part_acc, part_ml, modes = _split_scratch(q, hkv, max_pages * ps,
+                                              k_pages, v_pages)
     rc = _build.entry("flash_decode_paged_launch", _PAGED_ARGTYPES)(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        page_table.data_ptr(), pos.data_ptr(), o.data_ptr(), b, ps,
-        page_table.shape[1], hq, hkv, d, int(window), float(d ** -0.5),
-        code, _build.stream_of(q))
+        page_table.data_ptr(), pos.data_ptr(), o.data_ptr(),
+        _ptr(part_acc), _ptr(part_ml), b, ps, max_pages, hq, hkv, d,
+        int(window), float(d ** -0.5), code, modes, _build.stream_of(q))
     _build.check(rc, "flash_decode_paged")
     flash_decode_paged.launches += 1
     return o

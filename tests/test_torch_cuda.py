@@ -28,6 +28,9 @@ from repro_torch.kernels.gemm_gated import gemm_gated, gemm_gated_plain
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+#: slot positions on both sides of the decode kernels' 64-key blocks and
+#: 128-key splits, and one deep in a 1024-key cache
+STRADDLING_POS = [63, 64, 127, 128, 255, 256, 383, 1000]
 
 
 @pytest.fixture
@@ -147,6 +150,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
     (8, 1024, 15, 5, 64, 0),                 # smollm decode
     (3, 50, 3, 1, 20, 0),                    # smoke config
     (2, 300, 16, 1, 128, 64),                # MQA group 16, window
+    (8, 1024, 64, 4, 128, 0),                # qwen3-moe decode
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(cuda_device, b, S, hq, hkv, d,
@@ -211,6 +215,21 @@ def test_kernels_are_batch_invariant(cuda_device):
     out = flash_decode(q, k, v, pos)
     assert torch.equal(flash_decode(q[3:4], k[3:4], v[3:4], pos[3:4]),
                        out[3:4])
+    # B4 at S 1024, both models' heads, slots on both sides of the
+    # 64-key blocks and the splits: each slot alone equals its row
+    for hq, hkv, d in ((15, 5, 64), (64, 4, 128)):
+        q = _randn((8, hq, d), dt, cuda_device, 10)
+        k = _randn((8, 1024, hkv, d), dt, cuda_device, 11)
+        v = _randn((8, 1024, hkv, d), dt, cuda_device, 12)
+        pos = torch.as_tensor(STRADDLING_POS, dtype=torch.int32,
+                              device=cuda_device)
+        for window in (0, 100):
+            out = flash_decode(q, k, v, pos, window=window)
+            for i in range(8):
+                one = slice(i, i + 1)
+                assert torch.equal(flash_decode(q[one], k[one], v[one],
+                                                pos[one], window=window),
+                                   out[one]), (hq, window, i)
 
 
 def test_launch_counters_count_kernel_launches(cuda_device):
@@ -230,34 +249,38 @@ def test_launch_counters_count_kernel_launches(cuda_device):
     assert flash_decode_paged_plain.launches == plain_before
 
 
-def _paged_pool(k, v, ps, seed):
+def _paged_pool(k, v, ps, seed, max_pages=None):
     """Scatter dense (b, S, hkv, d) caches into a pool over a random
-    permutation of pages 1..b*S/ps (page 0, the sink, keeps noise);
-    returns the pools and the (b, S/ps) int32 table."""
+    permutation of pages 1..b*max_pages (page 0, the sink, keeps noise);
+    returns the pools and the (b, max_pages) int32 table.  ``max_pages``
+    (default S/ps) may exceed S/ps: a row's pages past the cache's keep
+    noise."""
     b, S, hkv, d = k.shape
-    max_pages = S // ps
+    dense_pages = S // ps
+    max_pages = max_pages or dense_pages
     n_pages = 1 + b * max_pages
     perm = np.random.default_rng(seed).permutation(np.arange(1, n_pages))
     table = torch.as_tensor(perm.reshape(b, max_pages).astype(np.int32),
                             device=k.device)
     k_pages = _randn((n_pages, ps, hkv, d), k.dtype, k.device, seed + 1)
     v_pages = _randn((n_pages, ps, hkv, d), k.dtype, k.device, seed + 2)
-    k_pages[table.long()] = k.reshape(b, max_pages, ps, hkv, d)
-    v_pages[table.long()] = v.reshape(b, max_pages, ps, hkv, d)
+    rows = table[:, :dense_pages].long()
+    k_pages[rows] = k.reshape(b, dense_pages, ps, hkv, d)
+    v_pages[rows] = v.reshape(b, dense_pages, ps, hkv, d)
     return k_pages, v_pages, table
 
 
 @pytest.mark.parametrize("ps", [8, 16, 32, 64])
-@pytest.mark.parametrize("hq,hkv,d,window", [
-    (15, 5, 64, 0),                          # smollm heads
-    (3, 1, 20, 24),                          # smoke head_dim, window
-    (16, 1, 128, 0),                         # MQA group 16
-    (4, 4, 120, 100),                        # MHA, d 120, wide window
+@pytest.mark.parametrize("b,S,hq,hkv,d,window", [
+    (4, 256, 15, 5, 64, 0),                  # smollm heads
+    (4, 256, 3, 1, 20, 24),                  # smoke head_dim, window
+    (4, 256, 16, 1, 128, 0),                 # MQA group 16
+    (4, 256, 4, 4, 120, 100),                # MHA, d 120, wide window
+    (8, 1024, 64, 4, 128, 0),                # qwen3-moe decode
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, hq, hkv,
-                                                 d, window, dtype):
-    b, S = 4, 256
+def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, b, S, hq,
+                                                 hkv, d, window, dtype):
     q = _randn((b, hq, d), dtype, cuda_device, 0)
     k = _randn((b, S, hkv, d), dtype, cuda_device, 1)
     v = _randn((b, S, hkv, d), dtype, cuda_device, 2)
@@ -267,8 +290,8 @@ def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, hq, hkv,
     # still sees keys under every window here (a row that sees none gets
     # zeros from the kernel and the mean of the values from the plain
     # version, and is never read)
-    pos = torch.as_tensor([0, 77, S + 10, S - 1], dtype=torch.int32,
-                          device=cuda_device)
+    pos = torch.as_tensor([0, 77, S + 10, S - 1, 17, 160, 363, 700][:b],
+                          dtype=torch.int32, device=cuda_device)
     _close(flash_decode_paged(q, k_pages, v_pages, table, pos,
                               window=window),
            flash_decode_paged_plain(q, k_pages, v_pages, table, pos,
@@ -277,22 +300,31 @@ def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, hq, hkv,
 
 @pytest.mark.parametrize("ps", [8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_flash_decode_paged_equals_dense_bitwise(cuda_device, ps, dtype):
+@pytest.mark.parametrize("hq,hkv,d", [(15, 5, 64), (64, 4, 128)])
+@pytest.mark.parametrize("pool_len", [1024, 1280])
+def test_flash_decode_paged_equals_dense_bitwise(cuda_device, ps, dtype, hq,
+                                                 hkv, d, pool_len):
     """One logical cache, dense and in a permuted pool: B5's output has
-    B4's bits at every page size, windows included."""
-    b, S, hq, hkv, d = 8, 1024, 15, 5, 64
+    B4's bits at every page size, windows included, at smollm-360m's and
+    qwen3-moe's heads, with the pool's table as long as the dense cache
+    (1024 keys) or longer (1280): a row's bits do not depend on the
+    length beyond pos + 1.  The slot past the dense cache's end (pos
+    1500) sees the pool's extra keys, so it is compared only at equal
+    lengths."""
+    b, S = 8, 1024
     q = _randn((b, hq, d), dtype, cuda_device, 0)
     k = _randn((b, S, hkv, d), dtype, cuda_device, 1)
     v = _randn((b, S, hkv, d), dtype, cuda_device, 2)
-    k_pages, v_pages, table = _paged_pool(k, v, ps, 4)
+    k_pages, v_pages, table = _paged_pool(k, v, ps, 4, pool_len // ps)
     pos = torch.as_tensor([17, 40, 95, 160, 210, 300, 1023, 1500],
                           dtype=torch.int32, device=cuda_device)
-    for window in (0, 64):
+    rows = slice(0, b if pool_len == S else b - 1)
+    for window in (0, 64, 100):
         got = flash_decode_paged(q, k_pages, v_pages, table, pos,
                                  window=window)
         want = flash_decode(q, k, v, pos, window=window)
         torch.cuda.synchronize()
-        assert torch.equal(got, want), (ps, window)
+        assert torch.equal(got[rows], want[rows]), (ps, window)
 
 
 def test_flash_decode_paged_is_batch_invariant(cuda_device):
@@ -308,6 +340,24 @@ def test_flash_decode_paged_is_batch_invariant(cuda_device):
             flash_decode_paged(q[i:i + 1], k_pages, v_pages,
                                table[i:i + 1], pos[i:i + 1]),
             out[i:i + 1])
+    # B5 at 64 pages of 16 (1024 keys), both models' heads, slots on both
+    # sides of the 64-key blocks and the splits
+    for hq, hkv, d in ((15, 5, 64), (64, 4, 128)):
+        q = _randn((8, hq, d), dt, cuda_device, 10)
+        k = _randn((8, 1024, hkv, d), dt, cuda_device, 11)
+        v = _randn((8, 1024, hkv, d), dt, cuda_device, 12)
+        k_pages, v_pages, table = _paged_pool(k, v, 16, 13)
+        pos = torch.as_tensor(STRADDLING_POS, dtype=torch.int32,
+                              device=cuda_device)
+        for window in (0, 100):
+            out = flash_decode_paged(q, k_pages, v_pages, table, pos,
+                                     window=window)
+            for i in range(8):
+                one = slice(i, i + 1)
+                assert torch.equal(
+                    flash_decode_paged(q[one], k_pages, v_pages, table[one],
+                                       pos[one], window=window),
+                    out[one]), (hq, window, i)
 
 
 @pytest.mark.parametrize("s,hq,hkv,d,window", [
