@@ -364,9 +364,9 @@ def decode_body(pos, length, hq, hkv, d, dtype, window=0):
     if g.body == "fmaf":
         return f"fmaf, {g.ctas} CTAs, one per (kv head, slot)"
     live = decode_live_ctas(pos, length, window, hkv)
-    return (f"tensor cores, split {g.split} keys ({g.warps} warps x 64), "
-            f"{g.ctas} CTAs launched, {live} live, {g.merge_ctas} merge "
-            f"CTAs, head padded to {g.head_dim}")
+    return (f"tensor cores, split {g.split} keys (one warp), {g.ctas} "
+            f"CTAs launched, {live} live, {g.merge_ctas} merge CTAs, head "
+            f"padded to {g.head_dim}")
 
 
 def decode_case(name, weight, pos, S, hq, hkv, d, dtype):

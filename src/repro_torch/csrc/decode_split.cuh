@@ -1,5 +1,5 @@
 // The bf16 body of the decode kernels B4 (flash_decode.cu, dense cache) and
-// B5 (flash_decode_paged.cu, page pool): a key-split grid whose warps run
+// B5 (flash_decode_paged.cu, page pool): a key-split grid whose CTAs run
 // B3's tensor-core block step, and the merge of their partials.
 //
 // What bounds them on an H100: the cache bytes of the pos + 1 keys each slot
@@ -9,17 +9,17 @@
 // slot's keys over CTAs that each wait out one round of loads, and keeps
 // every row's arithmetic on a grid fixed from key 0:
 //
-//   * The grid is (split, kv head, slot).  A split is kSplitWarps
-//     consecutive blocks of kBlk = 64 keys counted from key 0; its warp w
-//     takes block split * kSplitWarps + w.  The split axis is sized from
-//     what the host knows (the cache's or the table's length), never from
-//     pos: a warp whose block holds no visible key returns at once, and so
-//     does a CTA whose whole split lies outside the slot's keys.
-//   * A warp stages its block's K and V rows with 16-byte cp.async into its
-//     own swizzled [key][kD] tiles (4-byte copies or plain loads where rows
-//     are not 16-byte chunks), K and V in two commit groups so that V lands
+//   * The grid is (split, kv head, slot).  A split is kSplit = 64 keys
+//     counted from key 0, one CTA of one warp.  On an H100 one warp a CTA
+//     beat two and four (128- and 256-key splits) at both models' decode
+//     steps (PERF.md §6).  The split axis is sized from what the host
+//     knows (the cache's or the table's length), never from pos: a CTA
+//     whose split holds no key the slot sees returns at once.
+//   * The warp stages its split's K and V rows with 16-byte cp.async into
+//     swizzled [key][kD] tiles (4-byte copies or plain loads where rows are
+//     not 16-byte chunks), K and V in two commit groups so that V lands
 //     while the scores are computed; keys outside [lo, hi) are zero-filled,
-//     never read.  Nothing is shared between a CTA's warps: no barrier.
+//     never read.
 //   * The block step is B3's (flash_attention.cu): the GQA group's q rows
 //     (3 in smollm-360m, 16 in qwen3-moe) padded to one m16 tile and held as
 //     A fragments; S = Q K^T and O = P V on mma.sync m16n8k16 with K by
@@ -27,9 +27,9 @@
 //     by d^-0.5 log2 e; P rounded to bf16 from S's accumulators; l sums the
 //     rounded P, its row reductions two quad shuffles.  head_dim is padded
 //     with zeros to kD = 32, 64 or 128.
-//   * Each warp writes its block's partial (m, l and acc, in f32, for the
-//     group's rows) to scratch the wrapper allocates.  decode_merge_kernel
-//     then folds a slot's partials in ascending block order, by
+//   * Each split writes its partial (m, l and acc, in f32, for the group's
+//     rows) to scratch the wrapper allocates.  decode_merge_kernel then
+//     folds a slot's partials in ascending split order, by
 //     merge_partial, and writes acc / (l > 0 ? l : 1); a thread takes four
 //     columns of one row, so a (kv head, slot) spreads over
 //     ceil(group * ceil(d / 4) / 128) CTAs (4 at qwen3-moe's 16 x 128).  It
@@ -37,15 +37,15 @@
 //     split grid.
 //
 // Invariance: a row's bits depend only on its q, the keys and values it
-// sees, its pos and the window: the block grid starts at key 0, a block's
-// partial does not depend on which CTA ran it or how many CTAs ran, and the
-// merge visits the blocks [lo / 64, ceil(hi / 64)) in order, with
+// sees, its pos and the window: the split grid starts at key 0, a split's
+// partial does not depend on how many CTAs ran, and the merge visits the
+// splits [lo / 64, ceil(hi / 64)) in order, with
 // [lo, hi) = [max(0, pos - window + 1), min(length, pos + 1)).  Not on b,
 // other slots, the length beyond pos + 1, the page size or the table's
 // order, or the SM count.  B5 differs from B4 only in where a key's row is
 // found (PagedKeys against DenseKeys below), so B5 == B4 bit for bit.  A
 // partial with no visible key (m = NEG_INF) merges as the identity, so a
-// block the merge skips and an empty one merged give the same bits.
+// split the merge skips and an empty one merged give the same bits.
 #pragma once
 
 #include "common.cuh"
@@ -57,17 +57,13 @@
 namespace repro {
 namespace {  // each including kernel file gets its own copy
 
-constexpr int kBlk = 64;        // keys a block: a warp's work and a partial
-#ifndef REPRO_DECODE_SPLIT_WARPS
-#define REPRO_DECODE_SPLIT_WARPS 2
-#endif
-constexpr int kSplitWarps = REPRO_DECODE_SPLIT_WARPS;  // blocks a split (CTA)
+constexpr int kSplit = 64;  // keys a split: one CTA of one warp, one partial
 
 struct SplitArgs {
   int hq, hkv, d, group;
   int length;          // keys a row may see at most: S, or max_pages * ps
   int window;          // > 0: keys > pos - window only
-  int n_blocks;        // cdiv(length, kBlk): partials a (slot, kv head)
+  int n_splits;        // cdiv(length, kSplit): partials a (slot, kv head)
   int mode_k, mode_v;  // staging.cuh copy modes of k and v
   float scale_log2;    // softmax scale * log2 e
 };
@@ -80,8 +76,8 @@ __device__ __forceinline__ void visible_keys(int pos, const SplitArgs& p,
 }
 
 // Where key kp of slot bi starts, in elements from the head's base pointer.
-// begin() runs once a block, on every lane of the warp; at() is then asked
-// for the block's visible keys only (j = kp - kv0).
+// begin() runs once a split, on every lane of the warp; at() is then asked
+// for the split's visible keys only (j = kp - kv0).
 struct DenseKeys {  // caches (b, S, hkv, d)
   int S;
   size_t row_stride;  // hkv * d
@@ -94,9 +90,9 @@ struct DenseKeys {  // caches (b, S, hkv, d)
 };
 
 // A pool (n_pages, ps, hkv, d) seen through slot bi's table row: key kp in
-// page table[bi][kp / ps] at offset kp % ps.  begin() looks the block's
-// visible keys up once into row_at (the warp's kBlk entries in shared
-// memory): kBlk / ps table entries, or one when the page is larger.
+// page table[bi][kp / ps] at offset kp % ps.  begin() looks the split's
+// visible keys up once into row_at (kSplit entries in shared memory):
+// kSplit / ps table entries, or one when the page is larger.
 struct PagedKeys {
   const int* table;
   int ps, max_pages;
@@ -104,7 +100,7 @@ struct PagedKeys {
   __device__ __forceinline__ void begin(size_t* row_at, int bi, int kv0,
                                         int lo, int hi, int lane) const {
     const int* row = table + static_cast<size_t>(bi) * max_pages;
-    for (int j = lane; j < kBlk; j += 32) {
+    for (int j = lane; j < kSplit; j += 32) {
       const int kp = kv0 + j;
       if (kp >= lo && kp < hi)
         row_at[j] = static_cast<size_t>(row[kp / ps]) * page_stride +
@@ -118,12 +114,12 @@ struct PagedKeys {
   }
 };
 
-// Stage block [kv0, kv0 + kBlk) of K or V into one warp's tile: visible key
+// Stage split [kv0, kv0 + kSplit) of K or V into its tile: visible key
 // kp's row from src + keys.at(...), the rest zero-filled, columns past d
 // zero.  mode 2: 16-byte cp.async (d % 8 == 0); 1: 4-byte (d even); 0:
 // plain loads and stores.
 template <int kD, typename Keys>
-__device__ __forceinline__ void stage_block(const SmemTile& t,
+__device__ __forceinline__ void stage_split(const SmemTile& t,
                                             const __nv_bfloat16* src,
                                             const Keys& keys,
                                             const size_t* row_at, int bi,
@@ -134,7 +130,7 @@ __device__ __forceinline__ void stage_block(const SmemTile& t,
     const int r0 = lane / units, c = (lane % units) * 8;
     const int nb = c < d ? 16 : 0;
 #pragma unroll 4
-    for (int r = r0; r < kBlk; r += step) {
+    for (int r = r0; r < kSplit; r += step) {
       const int kp = kv0 + r;
       const int n = kp >= lo && kp < hi ? nb : 0;
       cp_async16(t.p + t.at(r, c),
@@ -142,7 +138,7 @@ __device__ __forceinline__ void stage_block(const SmemTile& t,
     }
   } else if (mode == 1) {
     constexpr int units = kD / 2;
-    for (int i = lane; i < kBlk * units; i += 32) {
+    for (int i = lane; i < kSplit * units; i += 32) {
       const int r = i / units, c = (i % units) * 2;
       const int kp = kv0 + r;
       const int n = kp >= lo && kp < hi && c < d ? 4 : 0;
@@ -150,7 +146,7 @@ __device__ __forceinline__ void stage_block(const SmemTile& t,
                 n ? src + keys.at(row_at, bi, kp, r) + c : src, n);
     }
   } else {
-    for (int i = lane; i < kBlk * kD; i += 32) {
+    for (int i = lane; i < kSplit * kD; i += 32) {
       const int r = i / kD, c = i % kD;
       const int kp = kv0 + r;
       const bool ok = kp >= lo && kp < hi && c < d;
@@ -160,52 +156,39 @@ __device__ __forceinline__ void stage_block(const SmemTile& t,
   }
 }
 
-// Shared memory of a split of `warps` warps at head width kD: each warp's K
-// and V tiles, then its kBlk row offsets.
-template <int kD>
-constexpr size_t split_smem(int warps) {
-  return static_cast<size_t>(warps) *
-         (2 * kBlk * kD * sizeof(__nv_bfloat16) + kBlk * sizeof(size_t));
-}
-
 template <int kD, typename Keys>
-__global__ void __launch_bounds__(32 * kSplitWarps)
+__global__ void __launch_bounds__(32)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
                     const int* __restrict__ pos, float* __restrict__ part_acc,
                     float2* __restrict__ part_ml, SplitArgs p, Keys keys) {
-  constexpr int kQK = kD / 16;    // k16 steps of S = Q K^T
-  constexpr int kSF = kBlk / 8;   // n8 score fragments a block
-  constexpr int kPV = kBlk / 16;  // k16 steps of O = P V
-  constexpr int kOF = kD / 8;     // n8 output fragments
-  constexpr int kTile = kBlk * kD;
+  constexpr int kQK = kD / 16;      // k16 steps of S = Q K^T
+  constexpr int kSF = kSplit / 8;   // n8 score fragments a split
+  constexpr int kPV = kSplit / 16;  // k16 steps of O = P V
+  constexpr int kOF = kD / 8;       // n8 output fragments
+  constexpr int kTile = kSplit * kD;
   // the merge kernel may launch now; it waits for this grid to finish
   grid_launch_dependents();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x;
   const int g = lane >> 2, t = lane & 3;
-  const int kvh = blockIdx.y, bi = blockIdx.z;
-  const int blk = blockIdx.x * kSplitWarps + warp;
-  const int kv0 = blk * kBlk;
+  const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
+  const int kv0 = split * kSplit;
   int lo, hi;
   visible_keys(pos[bi], p, lo, hi);
-  if (kv0 >= hi || kv0 + kBlk <= lo) return;  // no visible key: no partial
+  if (kv0 >= hi || kv0 + kSplit <= lo) return;  // no visible key: no partial
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* tiles =
-      reinterpret_cast<__nv_bfloat16*>(smem) + warp * 2 * kTile;
-  size_t* row_at = reinterpret_cast<size_t*>(
-                       smem + kSplitWarps * 2 * kTile * sizeof(__nv_bfloat16)) +
-                   warp * kBlk;
+  __shared__ __align__(16) __nv_bfloat16 tiles[2 * kTile];  // K, then V
+  __shared__ size_t row_at[kSplit];
   const SmemTile kt = smem_tile(tiles, kD), vt = smem_tile(tiles + kTile, kD);
 
   const size_t head = static_cast<size_t>(kvh) * p.d;
   keys.begin(row_at, bi, kv0, lo, hi, lane);
-  stage_block<kD>(kt, k + head, keys, row_at, bi, kv0, lo, hi, p.d, p.mode_k,
+  stage_split<kD>(kt, k + head, keys, row_at, bi, kv0, lo, hi, p.d, p.mode_k,
                   lane);
   cp_async_commit();
-  stage_block<kD>(vt, v + head, keys, row_at, bi, kv0, lo, hi, p.d, p.mode_v,
+  stage_split<kD>(vt, v + head, keys, row_at, bi, kv0, lo, hi, p.d, p.mode_v,
                   lane);
   cp_async_commit();
 
@@ -236,7 +219,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) sc[jj][e] = 0.0f;
   mma_qkt<kD>(sc, qa, kt);
   // scale and mask in f32 (every row of the slot sees the same keys); the
-  // row max over the quad is the block's m
+  // row max over the quad is the split's m
   uint32_t live = 0;  // bit 4 jj + e: key visible
   float m[2] = {kNegInf, kNegInf};
 #pragma unroll
@@ -287,9 +270,9 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     for (int e = 0; e < 4; ++e) acc[jo][e] = 0.0f;
   mma_pv<kD>(acc, pa, vt);
 
-  // the block's partial: rows of the group only, columns below d
+  // the split's partial: rows of the group only, columns below d
   const size_t at0 =
-      (static_cast<size_t>(bi * p.hkv + kvh) * p.n_blocks + blk) * p.group;
+      (static_cast<size_t>(bi * p.hkv + kvh) * p.n_splits + split) * p.group;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int row = g + 8 * h;
@@ -335,7 +318,7 @@ constexpr int kMergeBatch = 4;  // partials loaded ahead of their merges
 // CTA (x, kv head, slot): thread i merges four columns (one float4 of each
 // partial, padded to kd) of one of the group's rows, element
 // x * kMergeThreads + i of the group's rows x ceil(d / 4) quads, over the
-// slot's live blocks, ascending.
+// slot's live splits, ascending.
 __global__ void __launch_bounds__(kMergeThreads)
 decode_merge_kernel(const float* __restrict__ part_acc,
                     const float2* __restrict__ part_ml,
@@ -346,24 +329,25 @@ decode_merge_kernel(const float* __restrict__ part_acc,
   const int e = blockIdx.x * kMergeThreads + threadIdx.x;
   int lo, hi;
   visible_keys(pos[bi], p, lo, hi);
-  const int b_lo = lo / kBlk, b_hi = hi > lo ? (hi + kBlk - 1) / kBlk : b_lo;
+  const int s_lo = lo / kSplit;
+  const int s_hi = hi > lo ? (hi + kSplit - 1) / kSplit : s_lo;
   grid_dependency_wait();  // the split grid's partials are written
   if (e >= p.group * quads) return;
   const int row = e / quads, c = (e - row * quads) * 4;
-  const size_t base = static_cast<size_t>(bi * p.hkv + kvh) * p.n_blocks;
+  const size_t base = static_cast<size_t>(bi * p.hkv + kvh) * p.n_splits;
   float M = kNegInf, L = 0.0f, A[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  for (int b0 = b_lo; b0 < b_hi; b0 += kMergeBatch) {
+  for (int s0 = s_lo; s0 < s_hi; s0 += kMergeBatch) {
     float2 ml[kMergeBatch];
     float4 a[kMergeBatch];
 #pragma unroll
     for (int u = 0; u < kMergeBatch; ++u) {
-      const size_t at = (base + min(b0 + u, b_hi - 1)) * p.group + row;
+      const size_t at = (base + min(s0 + u, s_hi - 1)) * p.group + row;
       ml[u] = part_ml[at];
       a[u] = *reinterpret_cast<const float4*>(part_acc + at * kd + c);
     }
 #pragma unroll
     for (int u = 0; u < kMergeBatch; ++u)
-      if (b0 + u < b_hi) merge_partial(M, L, A, ml[u].x, ml[u].y, a[u]);
+      if (s0 + u < s_hi) merge_partial(M, L, A, ml[u].x, ml[u].y, a[u]);
   }
   const float denom = L > 0.0f ? L : 1.0f;
   __nv_bfloat16* orow =
@@ -379,16 +363,8 @@ int launch_split_kd(const void* q, const void* k, const void* v,
                     const int* pos, void* o, float* part_acc, float2* part_ml,
                     int b, const SplitArgs& p, const Keys& keys,
                     cudaStream_t stream) {
-  auto kernel = decode_split_kernel<kD, Keys>;
-  constexpr size_t kSmem = split_smem<kD>(kSplitWarps);
-  static bool configured = false;  // one attribute call per instantiation
-  if (!configured) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(kSmem));
-    configured = true;
-  }
-  dim3 grid(cdiv(p.n_blocks, kSplitWarps), p.hkv, b);
-  kernel<<<grid, 32 * kSplitWarps, kSmem, stream>>>(
+  dim3 grid(p.n_splits, p.hkv, b);
+  decode_split_kernel<kD, Keys><<<grid, 32, 0, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), pos, part_acc, part_ml, p, keys);
@@ -413,8 +389,8 @@ int launch_split_kd(const void* q, const void* k, const void* v,
 }
 
 // The bf16 decode: split grid, then merge.  part_acc holds b * hkv *
-// n_blocks * group * kD floats (kD = head_dim padded to 32, 64 or 128),
-// part_ml b * hkv * n_blocks * group float2 (kernels/flash_attention.py
+// n_splits * group * kD floats (kD = head_dim padded to 32, 64 or 128),
+// part_ml b * hkv * n_splits * group float2 (kernels/flash_attention.py
 // decode_grid gives both sizes).
 template <typename Keys>
 int launch_split(const void* q, const void* k, const void* v, const int* pos,
@@ -422,7 +398,7 @@ int launch_split(const void* q, const void* k, const void* v, const int* pos,
                  const Keys& keys, float scale, cudaStream_t s) {
   if (p.d < 1 || p.d > 128 || p.group < 1 || p.group > 16)
     return static_cast<int>(cudaErrorInvalidValue);
-  p.n_blocks = cdiv(p.length, kBlk);
+  p.n_splits = cdiv(p.length, kSplit);
   p.scale_log2 = scale * kLog2e;
   float* acc = static_cast<float*>(part_acc);
   float2* ml = static_cast<float2*>(part_ml);

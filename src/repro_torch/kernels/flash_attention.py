@@ -47,14 +47,12 @@ BF16_ROWS = 64
 F32_SMEM = 4 * (F32_ROWS * MAX_HEAD_DIM + 32 * (MAX_HEAD_DIM + 1)
                 + 32 * MAX_HEAD_DIM + F32_ROWS * 32)
 
-#: keys a block of the decode kernels' bf16 body (B4, B5;
-#: csrc/decode_split.cuh kBlk): one warp's work and one partial, blocks
-#: starting at multiples of it from key 0
-DECODE_BLOCK = KEY_BLOCK
-#: blocks (warps) a CTA of that body takes (kSplitWarps): its split is
-#: DECODE_SPLIT keys
-DECODE_SPLIT_WARPS = 2
-DECODE_SPLIT = DECODE_SPLIT_WARPS * DECODE_BLOCK
+#: keys a split of the decode kernels' bf16 body (B4, B5;
+#: csrc/decode_split.cuh kSplit): one CTA of one warp and one partial,
+#: splits starting at multiples of it from key 0.  On an H100 one warp a
+#: split beat two and four (128 and 256 keys) at both models' decode steps
+#: (PERF.md §6).
+DECODE_SPLIT = 64
 
 _ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 \
     + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]
@@ -100,18 +98,16 @@ def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
 
 class DecodeGrid(NamedTuple):
     """What one decode launch (B4 over a cache of ``length`` keys, or B5
-    over a table of ``max_pages * page_size``) runs: ``ctas`` CTAs of
-    ``warps`` warps on the split axis (``splits`` splits of ``split``
-    keys per kv head and slot), then ``merge_ctas`` merge CTAs;
-    ``blocks`` 64-key partials per (slot, kv head), ``head_dim`` the
-    head padded in shared memory, ``smem_bytes`` a split CTA's shared
-    memory, ``acc_floats`` and ``ml_floats`` the f32 scratch the wrapper
-    allocates, and ``body`` ("tensor cores" or "fmaf")."""
+    over a table of ``max_pages * page_size``) runs: ``ctas`` CTAs on
+    the split axis (``splits`` splits of ``split`` keys, one partial
+    each, per kv head and slot), then ``merge_ctas`` merge CTAs;
+    ``head_dim`` the head padded in shared memory, ``smem_bytes`` a
+    split CTA's shared memory, ``acc_floats`` and ``ml_floats`` the f32
+    scratch the wrapper allocates, and ``body`` ("tensor cores" or
+    "fmaf")."""
 
     split: int
     splits: int
-    warps: int
-    blocks: int
     ctas: int
     merge_ctas: int
     head_dim: int
@@ -127,51 +123,46 @@ def decode_grid(b: int, hq: int, hkv: int, length: int, d: int,
     of ``length`` slots and ``hkv`` heads.  It depends on what the host
     knows (b, the heads, the length), never on the positions.
 
-    bf16: CTA (x, kv head, slot) holds :data:`DECODE_SPLIT_WARPS` warps;
-    warp w takes the 64-key block x * DECODE_SPLIT_WARPS + w and writes
-    its partial (m, l for each of the group's rows; acc at the padded
-    head width), or returns at once when the block holds no key the
-    slot sees; the merge CTAs then fold each slot's partials in
-    ascending block order (:func:`decode_blocks`), a thread taking four
-    columns of one of the group's rows, 128 threads a CTA.  f32:
-    one CTA per (kv head, slot) walks 32-key blocks (csrc/flash.cuh)."""
+    bf16: CTA (x, kv head, slot) is one warp; it takes keys
+    [64 x, 64 x + 64) and writes their partial (m, l for each of the
+    group's rows; acc at the padded head width), or returns at once when
+    they hold no key the slot sees; the merge CTAs then fold each slot's
+    partials in ascending split order (:func:`decode_splits`), a thread
+    taking four columns of one of the group's rows, 128 threads a CTA.
+    f32: one CTA per (kv head, slot) walks 32-key blocks
+    (csrc/flash.cuh)."""
     if dtype != torch.bfloat16:
-        return DecodeGrid(length, 1, 4, 0, hkv * b, 0, MAX_HEAD_DIM,
-                          F32_SMEM, 0, 0, "fmaf")
+        return DecodeGrid(length, 1, hkv * b, 0, MAX_HEAD_DIM, F32_SMEM, 0,
+                          0, "fmaf")
     head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
-    blocks = cdiv(length, DECODE_BLOCK)
-    splits = cdiv(blocks, DECODE_SPLIT_WARPS)
-    parts = b * hkv * blocks * (hq // hkv)
-    # csrc/decode_split.cuh split_smem: each warp's K and V tiles in bf16
-    # and its 64 row offsets
-    smem = DECODE_SPLIT_WARPS * (2 * DECODE_BLOCK * head_dim * 2
-                                 + DECODE_BLOCK * 8)
+    splits = cdiv(length, DECODE_SPLIT)
+    parts = b * hkv * splits * (hq // hkv)
     merge_ctas = cdiv((hq // hkv) * cdiv(d, 4), 128) * hkv * b
-    return DecodeGrid(DECODE_SPLIT, splits, DECODE_SPLIT_WARPS, blocks,
-                      splits * hkv * b, merge_ctas, head_dim, smem,
-                      parts * head_dim, parts * 2, "tensor cores")
+    # csrc/decode_split.cuh: the K and V tiles in bf16, 64 row offsets
+    smem = 2 * DECODE_SPLIT * head_dim * 2 + DECODE_SPLIT * 8
+    return DecodeGrid(DECODE_SPLIT, splits, splits * hkv * b, merge_ctas,
+                      head_dim, smem, parts * head_dim, parts * 2,
+                      "tensor cores")
 
 
-def decode_blocks(pos: int, length: int, window: int = 0) -> range:
-    """The 64-key blocks whose partials the bf16 decode merges for a
-    slot at ``pos``, in the order it merges them: those that hold a key
-    of [max(0, pos - window + 1), min(length, pos + 1)) (the lower end
-    only under a window).  ``length`` matters only where pos + 1 exceeds
-    it, so a row's blocks, and its bits, are the same in a dense cache
-    and in a page table of another length."""
+def decode_splits(pos: int, length: int, window: int = 0) -> range:
+    """The splits whose partials the bf16 decode merges for a slot at
+    ``pos``, in the order it merges them: those that hold a key of
+    [max(0, pos - window + 1), min(length, pos + 1)) (the lower end only
+    under a window).  ``length`` matters only where pos + 1 exceeds it,
+    so a row's splits, and its bits, are the same in a dense cache and
+    in a page table of another length."""
     hi = min(length, pos + 1)
     lo = max(0, pos - window + 1) if window > 0 else 0
     if hi <= lo:
         return range(0)
-    return range(lo // DECODE_BLOCK, cdiv(hi, DECODE_BLOCK))
+    return range(lo // DECODE_SPLIT, cdiv(hi, DECODE_SPLIT))
 
 
 def decode_live_ctas(pos, length: int, window: int, hkv: int) -> int:
-    """Split CTAs of a bf16 decode launch that hold a live block (the
-    rest return at once), over the slots' positions ``pos``."""
-    return hkv * sum(len({blk // DECODE_SPLIT_WARPS
-                          for blk in decode_blocks(int(p), length, window)})
-                     for p in pos)
+    """Split CTAs of a bf16 decode launch that hold a key their slot
+    sees (the rest return at once), over the slots' positions ``pos``."""
+    return hkv * sum(len(decode_splits(int(p), length, window)) for p in pos)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,

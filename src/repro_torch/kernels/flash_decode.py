@@ -7,17 +7,17 @@ with the hand-written CUDA kernel ``csrc/flash_decode.cu``.  On an H100
 it is bound by the cache bytes each slot has written and, at serving
 lengths, by the latency of a launch and of one round of loads.  bf16
 operands run ``csrc/decode_split.cuh``: the keys split across CTAs on a
-grid of 64-key blocks fixed from key 0
-(``flash_attention.decode_grid``), one warp a block on the tensor
-cores, then a merge of the blocks' partials in ascending order
-(``flash_attention.decode_blocks``); so a row's bits depend only on its
+grid of 64-key splits fixed from key 0
+(``flash_attention.decode_grid``), one warp a split on the tensor
+cores, then a merge of the splits' partials in ascending order
+(``flash_attention.decode_splits``); so a row's bits depend only on its
 q, its keys, its ``pos`` and the window.  f32 operands keep
 ``csrc/flash.cuh``'s ``fmaf`` step, one CTA per (kv head, slot).  It
 reads ``pos`` from device memory (no host sync).
 
 B5 replaces ``flash_decode_paged`` (pallas_call :275, body
 ``_flash_decode_paged_kernel`` :156) with ``csrc/flash_decode_paged.cu``:
-B4's grid, blocks and merge, with each key's row looked up through the
+B4's grid, splits and merge, with each key's row looked up through the
 slot's page table, so paged decode equals dense decode bit for bit at
 any page size.  It reads ``pos`` and the table from device memory.
 

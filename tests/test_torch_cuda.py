@@ -28,8 +28,8 @@ from repro_torch.kernels.gemm_gated import gemm_gated, gemm_gated_plain
 pytestmark = pytest.mark.cuda
 
 TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-#: slot positions on both sides of the decode kernels' 64-key blocks and
-#: 128-key splits, and one deep in a 1024-key cache
+#: slot positions on both sides of the decode kernels' 64-key splits, and
+#: one deep in a 1024-key cache
 STRADDLING_POS = [63, 64, 127, 128, 255, 256, 383, 1000]
 
 
@@ -216,7 +216,7 @@ def test_kernels_are_batch_invariant(cuda_device):
     assert torch.equal(flash_decode(q[3:4], k[3:4], v[3:4], pos[3:4]),
                        out[3:4])
     # B4 at S 1024, both models' heads, slots on both sides of the
-    # 64-key blocks and the splits: each slot alone equals its row
+    # 64-key splits: each slot alone equals its row
     for hq, hkv, d in ((15, 5, 64), (64, 4, 128)):
         q = _randn((8, hq, d), dt, cuda_device, 10)
         k = _randn((8, 1024, hkv, d), dt, cuda_device, 11)
@@ -341,7 +341,7 @@ def test_flash_decode_paged_is_batch_invariant(cuda_device):
                                table[i:i + 1], pos[i:i + 1]),
             out[i:i + 1])
     # B5 at 64 pages of 16 (1024 keys), both models' heads, slots on both
-    # sides of the 64-key blocks and the splits
+    # sides of the 64-key splits
     for hq, hkv, d in ((15, 5, 64), (64, 4, 128)):
         q = _randn((8, hq, d), dt, cuda_device, 10)
         k = _randn((8, 1024, hkv, d), dt, cuda_device, 11)

@@ -3,14 +3,14 @@
 ``csrc/decode_split.cuh`` keeps continuous == solo greedy and paged ==
 dense decode bit for bit because a row's bits depend only on its q, the
 keys and values it sees, its ``pos`` and the window: the keys split into
-64-key blocks counted from key 0 (``decode_blocks``), each block's
+64-key splits counted from key 0 (``decode_splits``), each split's
 partial (m, l, acc) computed alone, the partials merged in ascending
-block order, a block without a visible key merging as the identity.
+split order, a split without a visible key merging as the identity.
 :func:`emulate` is that arithmetic in plain PyTorch (f32 scores, l and
 acc, bf16 P, every sum an elementwise chain, keys outside the slot's
 range zero-filled and never read), with a key's row found through a
 dense cache or a page table as the kernels find it, so nothing but the
-block grid and the merge can make two calls differ.  It lives here
+split grid and the merge can make two calls differ.  It lives here
 only; the port's CPU path is ``flash_decode_plain``.  On the card,
 ``tests/test_torch_cuda.py`` holds the kernels themselves to the same
 invariance.
@@ -28,11 +28,10 @@ import torch
 from repro.kernels.flash_decode import flash_decode as j_decode
 from repro.kernels.flash_decode import flash_decode_paged as j_paged
 from repro_torch.bridge import from_jax
-from repro_torch.kernels.flash_attention import (DECODE_BLOCK, DECODE_SPLIT,
-                                                 DECODE_SPLIT_WARPS,
-                                                 MAX_HEAD_DIM, decode_blocks,
+from repro_torch.kernels.flash_attention import (DECODE_SPLIT, MAX_HEAD_DIM,
                                                  decode_grid,
-                                                 decode_live_ctas)
+                                                 decode_live_ctas,
+                                                 decode_splits)
 
 NEG_INF = -1e30
 
@@ -59,23 +58,23 @@ def paged_rows(k_pages, v_pages, table):
     return rows
 
 
-def block_partials(blocks, q, rows, hkv, scale_log2):
-    """Each warp's 64-key block, all at once (elementwise f32 operations
-    round the same wherever an element sits): ``blocks`` lists (slot, kv
-    head, block, lo, hi); returns m, l (n, group) and acc (n, group, d)."""
+def split_partials(splits, q, rows, hkv, scale_log2):
+    """Each CTA's 64-key split, all at once (elementwise f32 operations
+    round the same wherever an element sits): ``splits`` lists (slot, kv
+    head, split, lo, hi); returns m, l (n, group) and acc (n, group, d)."""
     group, d = q.shape[1] // hkv, q.shape[2]
-    n = len(blocks)
+    n = len(splits)
     qb = torch.zeros((n, group, d))
-    kb = torch.zeros((n, DECODE_BLOCK, d))
-    vb = torch.zeros((n, DECODE_BLOCK, d))
-    live = torch.zeros((n, DECODE_BLOCK), dtype=torch.bool)
-    for i, (bi, kvh, blk, lo, hi) in enumerate(blocks):
-        keys = torch.arange(blk * DECODE_BLOCK, (blk + 1) * DECODE_BLOCK)
+    kb = torch.zeros((n, DECODE_SPLIT, d))
+    vb = torch.zeros((n, DECODE_SPLIT, d))
+    live = torch.zeros((n, DECODE_SPLIT), dtype=torch.bool)
+    for i, (bi, kvh, sp, lo, hi) in enumerate(splits):
+        keys = torch.arange(sp * DECODE_SPLIT, (sp + 1) * DECODE_SPLIT)
         live[i] = (keys >= lo) & (keys < hi)
         qb[i] = q[bi, kvh * group:(kvh + 1) * group].float()
         kr, vr = rows(bi, kvh, keys[live[i]])   # the rest zero-filled,
         kb[i, live[i]], vb[i, live[i]] = kr.float(), vr.float()  # never read
-    s = torch.zeros((n, group, DECODE_BLOCK))
+    s = torch.zeros((n, group, DECODE_SPLIT))
     for c in range(d):                          # one chain over d a score
         s = s + qb[:, :, c:c + 1] * kb[:, None, :, c]
     mask = live[:, None, :]
@@ -85,7 +84,7 @@ def block_partials(blocks, q, rows, hkv, scale_log2):
                     torch.zeros(())).to(torch.bfloat16).float()
     l = torch.zeros((n, group))
     acc = torch.zeros((n, group, d))
-    for j in range(DECODE_BLOCK):               # chains over the keys
+    for j in range(DECODE_SPLIT):               # chains over the keys
         l = l + p[:, :, j]
         acc = acc + p[:, :, j:j + 1] * vb[:, None, j]
     return m, l, acc
@@ -122,21 +121,21 @@ def emulate(q, rows, pos, hkv, length, *, window=0, empty_at=()):
     group = hq // hkv
     scale_log2 = torch.tensor(d ** -0.5 * math.log2(math.e),
                               dtype=torch.float32)
-    blocks = []
+    splits = []
     for bi in range(b):
         p = int(pos[bi])
         hi = min(length, p + 1)
         lo = max(0, p - window + 1) if window > 0 else 0
-        blocks += [(bi, kvh, blk, lo, hi) for kvh in range(hkv)
-                   for blk in decode_blocks(p, length, window)]
-    m, l, acc = block_partials(blocks, q, rows, hkv, scale_log2)
+        splits += [(bi, kvh, sp, lo, hi) for kvh in range(hkv)
+                   for sp in decode_splits(p, length, window)]
+    m, l, acc = split_partials(splits, q, rows, hkv, scale_log2)
     empty = (torch.full((group,), NEG_INF), torch.zeros(group),
              torch.zeros((group, d)))
     out = torch.zeros((b, hq, d))
     for bi in range(b):
         for kvh in range(hkv):
-            parts = [(m[i], l[i], acc[i]) for i, blk in enumerate(blocks)
-                     if blk[:2] == (bi, kvh)]
+            parts = [(m[i], l[i], acc[i]) for i, sp in enumerate(splits)
+                     if sp[:2] == (bi, kvh)]
             for i in sorted(empty_at, reverse=True):
                 parts.insert(min(i, len(parts)), empty)
             if not parts:
@@ -175,7 +174,7 @@ def _pool(k, v, ps, max_pages, seed):
 #: (hq, hkv, d): smollm-360m's heads, qwen3-moe's group of 16 at d 128,
 #: the smoke config's d 20
 HEADS = [(15, 5, 64), (64, 4, 128), (3, 1, 20)]
-#: slot positions on both sides of the 64-key blocks and 128-key splits
+#: slot positions on both sides of the 64-key splits
 POS = [0, 63, 64, 127, 128, 200, 255]
 
 
@@ -183,7 +182,7 @@ POS = [0, 63, 64, 127, 128, 200, 255]
 @pytest.mark.parametrize("window", [0, 100])
 def test_row_bits_do_not_depend_on_the_batch(hq, hkv, d, window):
     """Each slot computed alone equals its row of the 7-slot call, bit
-    for bit; window 100 starts mid-block and mid-split."""
+    for bit; window 100 starts mid-split."""
     S = 256
     _, q = _bf16((len(POS), hq, d), 0)
     _, k = _bf16((len(POS), S, hkv, d), 1)
@@ -224,7 +223,7 @@ def test_keys_outside_the_window_are_never_read(hq, hkv, d):
     _, k = _bf16((1, S, hkv, d), 8)
     _, v = _bf16((1, S, hkv, d), 9)
     lo, hi = pos[0] - window + 1, pos[0] + 1
-    assert lo % DECODE_SPLIT and lo % DECODE_BLOCK
+    assert lo % DECODE_SPLIT
     want = emulate(q, dense_rows(k, v), pos, hkv, S, window=window)
     k2, v2 = k.clone(), v.clone()
     for t in (k2, v2):
@@ -237,7 +236,7 @@ def test_keys_outside_the_window_are_never_read(hq, hkv, d):
 @pytest.mark.parametrize("hq,hkv,d", HEADS[:2])
 def test_an_empty_split_merges_as_the_identity(hq, hkv, d):
     """Empty partials (m = NEG_INF, l = 0, acc = 0) merged first, between
-    blocks and last give the bits of the merge that skips them: a
+    splits and last give the bits of the merge that skips them: a
     skipped split and a merged empty one are the same."""
     S = 256
     _, q = _bf16((len(POS), hq, d), 10)
@@ -280,24 +279,24 @@ def test_emulation_matches_jax_interpret(hq, hkv, d, window):
 
 @pytest.mark.parametrize("length", [50, 64, 256, 1024, 1280])
 @pytest.mark.parametrize("window", [0, 1, 64, 100, 300])
-def test_decode_blocks_cover_each_visible_key_once(length, window):
-    """The blocks a row merges hold every key of [lo, hi) exactly once,
+def test_decode_splits_cover_each_visible_key_once(length, window):
+    """The splits a row merges hold every key of [lo, hi) exactly once,
     each holds at least one, they ascend, and they are the same for any
     length past pos + 1 (the function takes no b at all)."""
     for pos in list(range(0, 300, 7)) + [length - 1, length + 40, 2000]:
         hi = min(length, pos + 1)
         lo = max(0, pos - window + 1) if window > 0 else 0
-        blocks = list(decode_blocks(pos, length, window))
-        assert blocks == sorted(set(blocks))
-        seen = [kp for blk in blocks
-                for kp in range(blk * DECODE_BLOCK, (blk + 1) * DECODE_BLOCK)
+        splits = list(decode_splits(pos, length, window))
+        assert splits == sorted(set(splits))
+        seen = [kp for sp in splits
+                for kp in range(sp * DECODE_SPLIT, (sp + 1) * DECODE_SPLIT)
                 if lo <= kp < hi]
-        assert seen == list(range(lo, hi)) if hi > lo else not blocks
-        assert all(max(lo, blk * DECODE_BLOCK)
-                   < min(hi, (blk + 1) * DECODE_BLOCK) for blk in blocks)
+        assert seen == list(range(lo, hi)) if hi > lo else not splits
+        assert all(max(lo, sp * DECODE_SPLIT)
+                   < min(hi, (sp + 1) * DECODE_SPLIT) for sp in splits)
         if pos + 1 <= length:
-            assert decode_blocks(pos, 4096, window) == \
-                decode_blocks(pos, length, window)
+            assert decode_splits(pos, 4096, window) == \
+                decode_splits(pos, length, window)
 
 
 @pytest.mark.parametrize("b,hq,hkv,length,d", [
@@ -308,23 +307,22 @@ def test_decode_blocks_cover_each_visible_key_once(length, window):
 ])
 def test_decode_grid_sizes_the_split_axis_from_the_length(b, hq, hkv,
                                                           length, d):
-    """The grid covers the length with splits of DECODE_SPLIT keys (two
-    64-key blocks a CTA), merge CTAs of 128 threads with four columns of
-    one row each, scratch for every block's partial, and fits a CTA's
-    shared memory; the CTAs with work at the kernel phase's positions
-    are the ones the blocks name."""
+    """The grid covers the length with 64-key splits (one warp a CTA),
+    merge CTAs of 128 threads with four columns of one row each, scratch
+    for every split's partial, and fits the 48 KB of static shared
+    memory; the CTAs with work at the kernel phase's positions are the
+    ones the splits name."""
     grid = decode_grid(b, hq, hkv, length, d)
     group = hq // hkv
-    assert grid.split == DECODE_SPLIT == DECODE_SPLIT_WARPS * DECODE_BLOCK
+    assert grid.split == DECODE_SPLIT == 64
     assert grid.splits * grid.split >= length > (grid.splits - 1) * grid.split
     assert grid.ctas == grid.splits * hkv * b
     per_head = -(-group * -(-d // 4) // 128)     # 1 at smollm, 4 at qwen3
     assert grid.merge_ctas == per_head * hkv * b
-    assert grid.blocks == -(-length // DECODE_BLOCK)
-    assert grid.acc_floats == b * hkv * grid.blocks * group * grid.head_dim
-    assert grid.ml_floats == 2 * b * hkv * grid.blocks * group
+    assert grid.acc_floats == b * hkv * grid.splits * group * grid.head_dim
+    assert grid.ml_floats == 2 * b * hkv * grid.splits * group
     assert d <= grid.head_dim <= MAX_HEAD_DIM and grid.head_dim % 32 == 0
-    assert grid.smem_bytes <= 232448           # 227 KB a CTA on an H100
+    assert grid.smem_bytes <= 48 * 1024
     pos = [17, 40, 95, 160, 210, 300, 333, 363][:b]
     live = decode_live_ctas(pos, length, 0, hkv)
     assert 0 < live <= grid.ctas
