@@ -102,8 +102,8 @@ from repro_torch.bridge import to_device  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    cta_shape as attn_cta_shape, decode_grid, decode_live_ctas,
-    flash_attention, flash_attention_plain)
+    DECODE_SPLIT, cta_shape as attn_cta_shape, decode_grid,
+    decode_live_ctas, flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain)
@@ -364,9 +364,9 @@ def decode_body(pos, length, hq, hkv, d, dtype, window=0):
     if g.body == "fmaf":
         return f"fmaf, {g.ctas} CTAs, one per (kv head, slot)"
     live = decode_live_ctas(pos, length, window, hkv)
-    return (f"tensor cores, split {g.split} keys (one warp), {g.ctas} "
-            f"CTAs launched, {live} live, {g.merge_ctas} merge CTAs, head "
-            f"padded to {g.head_dim}")
+    return (f"tensor cores, split {DECODE_SPLIT} keys (one warp), "
+            f"{g.ctas} CTAs launched, {live} live, {g.merge_ctas} merge "
+            f"CTAs, head padded to {g.head_dim}")
 
 
 def decode_case(name, weight, pos, S, hq, hkv, d, dtype):

@@ -1,11 +1,14 @@
 // The bf16 body of the decode kernels B4 (flash_decode.cu, dense cache) and
 // B5 (flash_decode_paged.cu, page pool): a key-split grid whose CTAs run
-// B3's tensor-core block step, and the merge of their partials.
+// B3's tensor-core block step, and the merge of their partials.  It
+// replaces the bodies of the Pallas kernels repro/kernels/flash_decode.py
+// flash_decode (pallas_call :144) and flash_decode_paged (:275), which walk
+// a slot's kv blocks in sequence on one core.
 //
 // What bounds them on an H100: the cache bytes of the pos + 1 keys each slot
 // has written (K and V rows of hkv * d elements), read once, and at serving
 // lengths (a few hundred keys a slot) the latency of a launch and of one
-// CTA's loads, far above those bytes' 0.6-0.9 us.  So the design spreads a
+// CTA's loads, far above those bytes' 0.6-1.0 us.  So the design spreads a
 // slot's keys over CTAs that each wait out one round of loads, and keeps
 // every row's arithmetic on a grid fixed from key 0:
 //

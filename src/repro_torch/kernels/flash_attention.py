@@ -42,10 +42,6 @@ F32_ROWS = 16
 #: kRows): on an H100 64 rows beat 16 and 32 at every served prompt and
 #: chunk length (PERF.md §6)
 BF16_ROWS = 64
-#: shared memory of an f32 CTA (csrc/flash.cuh FlashSmem: q, k with one
-#: column of padding, v and p, in f32)
-F32_SMEM = 4 * (F32_ROWS * MAX_HEAD_DIM + 32 * (MAX_HEAD_DIM + 1)
-                + 32 * MAX_HEAD_DIM + F32_ROWS * 32)
 
 #: keys a split of the decode kernels' bf16 body (B4, B5;
 #: csrc/decode_split.cuh kSplit): one CTA of one warp and one partial,
@@ -88,8 +84,11 @@ def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
     CTA, the grid (q tiles, hq, b)."""
     if dtype != torch.bfloat16:
         tiles = cdiv(sq, F32_ROWS)
-        return CtaShape(F32_ROWS, tiles, tiles * hq * b, MAX_HEAD_DIM,
-                        F32_SMEM, "fmaf")
+        # csrc/flash.cuh FlashSmem: q, k (+1 column), v, p in f32
+        smem = 4 * (F32_ROWS * MAX_HEAD_DIM + 32 * (MAX_HEAD_DIM + 1)
+                    + 32 * MAX_HEAD_DIM + F32_ROWS * 32)
+        return CtaShape(F32_ROWS, tiles, tiles * hq * b, MAX_HEAD_DIM, smem,
+                        "fmaf")
     head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
     tiles = cdiv(sq * (hq // hkv), BF16_ROWS)
     return CtaShape(BF16_ROWS, tiles, tiles * hkv * b, head_dim,
@@ -99,19 +98,16 @@ def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
 class DecodeGrid(NamedTuple):
     """What one decode launch (B4 over a cache of ``length`` keys, or B5
     over a table of ``max_pages * page_size``) runs: ``ctas`` CTAs on
-    the split axis (``splits`` splits of ``split`` keys, one partial
-    each, per kv head and slot), then ``merge_ctas`` merge CTAs;
-    ``head_dim`` the head padded in shared memory, ``smem_bytes`` a
-    split CTA's shared memory, ``acc_floats`` and ``ml_floats`` the f32
-    scratch the wrapper allocates, and ``body`` ("tensor cores" or
-    "fmaf")."""
+    the split axis (``splits`` splits of :data:`DECODE_SPLIT` keys, one
+    partial each, per kv head and slot), then ``merge_ctas`` merge CTAs;
+    ``head_dim`` the head padded in shared memory, ``acc_floats`` and
+    ``ml_floats`` the f32 scratch the wrapper allocates, and ``body``
+    ("tensor cores" or "fmaf")."""
 
-    split: int
     splits: int
     ctas: int
     merge_ctas: int
     head_dim: int
-    smem_bytes: int
     acc_floats: int
     ml_floats: int
     body: str
@@ -132,17 +128,13 @@ def decode_grid(b: int, hq: int, hkv: int, length: int, d: int,
     f32: one CTA per (kv head, slot) walks 32-key blocks
     (csrc/flash.cuh)."""
     if dtype != torch.bfloat16:
-        return DecodeGrid(length, 1, hkv * b, 0, MAX_HEAD_DIM, F32_SMEM, 0,
-                          0, "fmaf")
+        return DecodeGrid(1, hkv * b, 0, MAX_HEAD_DIM, 0, 0, "fmaf")
     head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
     splits = cdiv(length, DECODE_SPLIT)
     parts = b * hkv * splits * (hq // hkv)
     merge_ctas = cdiv((hq // hkv) * cdiv(d, 4), 128) * hkv * b
-    # csrc/decode_split.cuh: the K and V tiles in bf16, 64 row offsets
-    smem = 2 * DECODE_SPLIT * head_dim * 2 + DECODE_SPLIT * 8
-    return DecodeGrid(DECODE_SPLIT, splits, splits * hkv * b, merge_ctas,
-                      head_dim, smem, parts * head_dim, parts * 2,
-                      "tensor cores")
+    return DecodeGrid(splits, splits * hkv * b, merge_ctas, head_dim,
+                      parts * head_dim, parts * 2, "tensor cores")
 
 
 def decode_splits(pos: int, length: int, window: int = 0) -> range:

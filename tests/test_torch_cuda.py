@@ -151,6 +151,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
     (3, 50, 3, 1, 20, 0),                    # smoke config
     (2, 300, 16, 1, 128, 64),                # MQA group 16, window
     (8, 1024, 64, 4, 128, 0),                # qwen3-moe decode
+    (2, 70, 4, 2, 17, 0),                    # odd head_dim: plain loads
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(cuda_device, b, S, hq, hkv, d,

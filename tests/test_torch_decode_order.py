@@ -308,21 +308,19 @@ def test_decode_splits_cover_each_visible_key_once(length, window):
 def test_decode_grid_sizes_the_split_axis_from_the_length(b, hq, hkv,
                                                           length, d):
     """The grid covers the length with 64-key splits (one warp a CTA),
-    merge CTAs of 128 threads with four columns of one row each, scratch
-    for every split's partial, and fits the 48 KB of static shared
-    memory; the CTAs with work at the kernel phase's positions are the
-    ones the splits name."""
+    merge CTAs of 128 threads with four columns of one row each, and
+    scratch for every split's partial; the CTAs with work at the kernel
+    phase's positions are the ones the splits name."""
     grid = decode_grid(b, hq, hkv, length, d)
     group = hq // hkv
-    assert grid.split == DECODE_SPLIT == 64
-    assert grid.splits * grid.split >= length > (grid.splits - 1) * grid.split
+    assert DECODE_SPLIT == 64
+    assert grid.splits * 64 >= length > (grid.splits - 1) * 64
     assert grid.ctas == grid.splits * hkv * b
     per_head = -(-group * -(-d // 4) // 128)     # 1 at smollm, 4 at qwen3
     assert grid.merge_ctas == per_head * hkv * b
     assert grid.acc_floats == b * hkv * grid.splits * group * grid.head_dim
     assert grid.ml_floats == 2 * b * hkv * grid.splits * group
     assert d <= grid.head_dim <= MAX_HEAD_DIM and grid.head_dim % 32 == 0
-    assert grid.smem_bytes <= 48 * 1024
     pos = [17, 40, 95, 160, 210, 300, 333, 363][:b]
     live = decode_live_ctas(pos, length, 0, hkv)
     assert 0 < live <= grid.ctas
