@@ -21,7 +21,8 @@ Phases (any failure raises and the script exits non-zero):
    qwen3-moe's expert GEMMs (a decode step's 64 routed rows and a 300-token
    prefill's 2400, beside ``torch._grouped_mm``; its plain version
    reads the group ends on the host and is timed from eager calls) and
-   at edges with empty groups, a dropped tail and a straddled tile; the
+   at edges with empty groups, a dropped tail and a straddled tile, each
+   case naming its body and the CTA shape B7 picked; the
    attention kernels also at qwen3-moe's GQA group of 16 and head_dim
    of 128;
    each decode case names the split grid it launched (the split, the
@@ -31,10 +32,9 @@ Phases (any failure raises and the script exits non-zero):
    64, windows 0, 64 and 100, and pools as long as the cache or longer; gemm_tb must equal gemm_aie bit for bit at both models'
    dense serve shapes, in bf16 and f32, with each epilogue, at the 'tb'
    plan's tile and tiles giving one, two and four or more k-chunks; and
-   every group's rows of each gemm_grouped case must equal gemm_aie's
-   fmaf body on them (the operands widened to f32, which is exact: B7
-   keeps the fmaf chain, B1's bf16 body runs the tensor cores), bit for
-   bit; B3's bf16 body must give a prompt's rows the bits of one
+   every group's rows of each gemm_grouped case, at both of B7's CTA
+   shapes, must equal gemm_aie on them, bit for bit (bf16: B1's
+   tensor-core chain; f32: its fmaf body); B3's bf16 body must give a prompt's rows the bits of one
    whole-prompt call when they run in chunks of 7, 16 and 64 (q_offset =
    start) or one q head alone, at d 64 / 128 / 120 (window) / 20; B2's
    bf16 body with relu must equal relu(B1) * B1 bit for bit at m = 1, 8,
@@ -112,7 +112,7 @@ from repro_torch.kernels import api  # noqa: E402
 from repro_torch.kernels.gemm_gated import (  # noqa: E402
     cta_tile as gated_cta_tile, gemm_gated, gemm_gated_plain)
 from repro_torch.kernels.gemm_grouped import (  # noqa: E402
-    gemm_grouped, gemm_grouped_plain)
+    cta_tile as grouped_cta_tile, gemm_grouped, gemm_grouped_plain)
 from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
@@ -445,16 +445,14 @@ def routed_sizes(tokens, n_experts, top_k, cap, seed):
 
 def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
                  bias=False, timed=False):
-    """A case for B7 at the tile its HOPPER_H100 plan gives the shape;
-    ``sizes`` are the group sizes, ``m`` >= their sum the rows."""
+    """A case for B7 at the CTA shape it picks for m rows over the
+    experts; ``sizes`` are the group sizes, ``m`` >= their sum the
+    rows."""
     sizes = np.asarray(sizes, np.int64)
     e = len(sizes)
-    ep = ops.Epilogue(bias=bias, activation=act)
-    tile = ops.plan(ops.GemmSpec(a_dtype=dtype, b_dtype=dtype, grouped=True,
-                                 epilogue=ep), (m, k, n, e)).tile
 
     def make():
-        kw = {"tile": tile, "out_dtype": dtype}
+        kw = {"out_dtype": dtype}
         if act:
             kw["activation"] = act
         if bias:
@@ -463,7 +461,7 @@ def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
         return (rand((m, k), dtype), rand((e, k, n), dtype, k ** -0.5),
                 gs), kw
 
-    def library(a, b, gs, tile, out_dtype, activation=None, bias=None):
+    def library(a, b, gs, out_dtype, activation=None, bias=None):
         """torch._grouped_mm over the group ends (one call), then the
         activation; the rows past the groups are not its business."""
         offs = torch.cumsum(gs, 0, dtype=torch.int32)
@@ -481,10 +479,12 @@ def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
         byts = (live * k * n + m * k + m * n) * es \
             + (live * n * 4 if bias else 0)
         return byts, 2.0 * float(sizes.sum()) * k * n
-    name += f" tile {tile.bm}x{tile.bn}"
+    bm, bk, bn = grouped_cta_tile(m, e, dtype)
+    body = "tensor cores" if dtype == torch.bfloat16 else "fmaf"
     return dict(name=name, weight=weight, moe_weight=weight, dtype=dtype,
                 make=make, library=library, cost=cost,
-                timed=timed or weight > 0, plain_eager=True)
+                timed=timed or weight > 0, plain_eager=True,
+                body=f"{body}, CTA tile {bm}x{bk}x{bn}")
 
 
 def device_ms(fn, inputs) -> float:
@@ -878,40 +878,39 @@ def tb_bitwise_phase():
 
 
 def grouped_bitwise_phase():
-    """B7 == B1's fmaf body on every group's rows, bit for bit: in each B7
-    case, at the plan's tile and at an 8 x 32 tile (one row a thread),
-    row block ``g`` of the grouped GEMM equals gemm_aie of those rows
-    against expert ``g``'s weights with the same epilogue, the operands
-    widened to f32 (exact; a no-op for the f32 cases): B7 keeps the fmaf
-    chain, which B1 runs for f32 operands, while B1's bf16 body runs the
-    tensor-core chain.  Rows past the groups are zero."""
+    """B7 == B1 on every group's rows, bit for bit: in each B7 case, at
+    both of its CTA shapes (the decode and the prefill one, of which the
+    case launches one), row block ``g`` of the grouped GEMM equals
+    gemm_aie of those rows against expert ``g``'s weights with the same
+    epilogue, on the same operands: a bf16 row B1's tensor-core chain,
+    an f32 row B1's fmaf body.  Rows past the groups are zero."""
     checked = 0
     for case in grouped_cases():
         (a, b, gs), kw = case["make"]()
         sizes = gs.tolist()
-        for tile in (kw["tile"], ops.TileConfig(8, 64, 32)):
-            got = gemm_grouped(a, b, gs, **dict(kw, tile=tile))
+        for cta in (1, 2):
+            got = gemm_grouped(a, b, gs, cta=cta, **kw)
             start = 0
             for g, size in enumerate(sizes):
                 if size:
                     want = gemm_aie(
-                        a[start:start + size].float(), b[g].float(),
+                        a[start:start + size], b[g],
                         bias=kw["bias"][g] if "bias" in kw else None,
                         activation=kw.get("activation"),
                         out_dtype=kw["out_dtype"])
                     if not torch.equal(got[start:start + size], want):
                         raise RuntimeError(
                             f"gemm_grouped != gemm_aie on group {g} of "
-                            f"{case['name']} at tile {tile}")
+                            f"{case['name']} at CTA shape {cta}")
                     checked += 1
                 start += size
             if got[start:].any():
                 raise RuntimeError(f"gemm_grouped: rows past the groups of "
                                    f"{case['name']} are not zero")
         del a, b
-    log(f"gemm_grouped == gemm_aie's fmaf body (operands widened to f32), "
-        f"bit for bit: {checked} groups over the B7 cases at two tiles "
-        "each; rows past the groups zero")
+    log(f"gemm_grouped == gemm_aie (bf16: the tensor-core chain; f32: the "
+        f"fmaf body), bit for bit: {checked} groups over the B7 cases at "
+        "both CTA shapes each; rows past the groups zero")
     return checked
 
 

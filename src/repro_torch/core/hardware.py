@@ -2,7 +2,8 @@
 
 * ``HOPPER_H100`` — the port's target: one NVIDIA H100 SXM card, its
   datasheet rates, and the on-chip budget and tile rules of the port's
-  GEMM kernels (``csrc/gemm_tb.cu``, ``csrc/gemm_aie.cu``).
+  GEMM kernels (``csrc/gemm_tb.cu``, ``csrc/gemm_aie.cu``,
+  ``csrc/gemm_grouped.cu``).
 * ``TPU_V5E`` — a copy of the JAX package's sheet, kept only so that the
   tests can hold this package's search against ``repro.core.dse``.  No
   number on it describes the port's card.
@@ -30,11 +31,14 @@ GiB = 1024 * MiB
 B6_THREADS = 256
 B6_MAX_FRAGS_PER_WARP = 4
 B6_MAX_ROWS_PER_THREAD = 16
-#: Kernel B7 (csrc/gemm_grouped.cu) runs 256 threads a CTA; a thread owns
-#: one C column and at most 4 of its rows, so the FMAs per streamed B
-#: element stay few (the grouped sweep is bound by the expert banks' bytes).
-B7_THREADS = 256
-B7_MAX_ROWS_PER_THREAD = 4
+#: Kernel B7 (csrc/gemm_grouped.cu) launches one of its compiled CTA
+#: shapes, picked by rows per expert (kernels/gemm_grouped.py cta_tile)
+#: whatever the plan's tile says.  The largest C block one of them covers
+#: is the bf16 prefill shape's 64 x 128 (four 16-row warps by two
+#: 64-column ones on the tensor cores); the others (bf16 decode 16 x 128,
+#: f32 8 x 128 and 16 x 64) fit inside it.
+B7_MAX_BM = 64
+B7_MAX_BN = 128
 
 
 @dataclasses.dataclass(frozen=True)
@@ -148,13 +152,10 @@ class HopperChip:
 
     @staticmethod
     def grouped_launchable(bm: int, bn: int) -> bool:
-        """Whether B7's 256 threads cover a (bm, bn) C tile of the
-        grouped sweep: one column a thread, ``256 // bn`` row groups, at
-        most 4 rows a thread.  The grouped search admits only these."""
-        if not 1 <= bn <= B7_THREADS or bm < 1:
-            return False
-        groups = B7_THREADS // bn
-        return -(-bm // groups) <= B7_MAX_ROWS_PER_THREAD
+        """Whether one CTA of B7 covers a (bm, bn) C tile of the grouped
+        sweep: ``bm <= 64`` and ``bn <= 128``, the largest CTA tile it
+        launches.  The grouped search admits only these."""
+        return 1 <= bm <= B7_MAX_BM and 1 <= bn <= B7_MAX_BN
 
 
 HOPPER_H100 = HopperChip(

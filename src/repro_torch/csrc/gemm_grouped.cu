@@ -12,22 +12,37 @@
 //
 // What bounds it on an H100: the bytes of the expert banks.  At decode (64
 // routed rows over some fifty experts) every live expert's k x n panel is
-// streamed for one or two rows, so the kernel moves about a gigabyte a
-// projection and does a few operations a byte; in prefill the rows per
-// expert grow, but the banks still dominate the bytes.
+// streamed for one or two rows; in prefill (2400 rows, about 19 an expert)
+// the banks still dominate the bytes and the products stay far below the
+// tensor cores' rate.  So the design streams each live panel once, with
+// enough bytes in flight on every SM (one SM streams 5.5 / 9.2 / 13.5 B a
+// cycle with 32 / 64 / 128 KB of cp.async in flight: PERF.md §6).
 //
-// Design: the steering tables are built on the device by the wrapper with a
-// static length tiles_m + E - 1 (kernels/gemm_grouped.py group_metadata), so
-// no host ever learns the live instance count: the grid is the static worst
-// case, blockIdx.x an n tile, blockIdx.y an instance (so the CTAs reading one
-// expert's panel launch side by side and read its k-rows together), and a
-// CTA at or past the live count (read from device memory) exits at once.  A live CTA owns
-// the (bm x bn) C tile at m tile m_tile_ids[i] and streams the A rows of that
-// tile and its expert's (k x bn) slab of B through two cp.async stages of
-// kBK k-rows, so the next stage's loads are in flight during this stage's
-// products.  A thread owns one C column and kRows rows (at most 4, templated
-// so the row loops unroll to exactly the rows in use), and computes only
-// the rows its group owns.
+// Steering: the tables are built on the device by the wrapper with a static
+// length tiles_m + E - 1 at the CTA's m tile (kernels/gemm_grouped.py
+// group_metadata), so no host ever learns the live instance count: the grid
+// is the static worst case, blockIdx.x an n tile, blockIdx.y an instance (so
+// the CTAs reading one expert's panel launch side by side and read its
+// k-rows together), and a CTA at or past the live count (read from device
+// memory) exits at once.  A live CTA owns the rows [lo, lo + rows) of its m
+// tile that its group owns, and the columns of its n tile.
+//
+// Design (bf16 operands): B1's tensor-core dataflow (gemm_aie.cu) on the
+// group's rows.  The CTA stages only those rows, from row 0 of its A tile,
+// so its 16-row warps hold no other group's rows, and a warp whose 16-row
+// block holds none of them skips the products; the expert's BK x BN slabs
+// come through a ring of kStages shared-memory stages filled by 16-byte
+// cp.async (staging.cuh) into mma_chain.cuh's swizzled tiles, several slabs
+// in flight while the warps multiply the oldest.  The wrapper
+// (kernels/gemm_grouped.py cta_tile) picks the CTA shape by rows per expert:
+// at decode one 16-row block and eight warps across a 128-column n tile, so
+// no warp idles on rows another group owns; in prefill a 64-row m tile of
+// four 16-row blocks by two 64-column halves, so most experts' rows fit one
+// instance and their panels stream once.
+//
+// f32 operands keep the CUDA-core body (gemm_grouped_f32_kernel): a thread
+// owns one C column and kRows rows of the tile, and one fmaf chain over
+// k = 0..K-1 per element, through two cp.async stages.
 //
 // No blend: the Pallas body merges a tile shared by several groups by
 // reading its output block back (gemm_grouped.py:131), which is sound only
@@ -35,64 +50,84 @@
 // concurrently, so each CTA stores only the rows its group owns; the rows of
 // a straddled tile are disjoint between its CTAs, and nothing is read back.
 //
-// Order invariance: every C element is one fmaf chain over k = 0..K-1 in
-// that order (the zero-filled tail of the last stage adds exact zeros),
-// flushed through the epilogue() of common.cuh that B1 and B6 use.  Row r of
-// B7 is therefore B1's A[r] @ B[g(r)] bit for bit, and a token's expert
-// output does not depend on which other tokens share the batch.
+// Order invariance: every C element is B1's chain, flushed through the
+// epilogue() of common.cuh that B1 and B6 use: for bf16 one mma.sync
+// m16n8k16 sequence over k = 0, 16, 32, ... ascending, from zero, the k tail
+// zero-filled up to the 16-grid (mma_chain.cuh's mma_slab, the one B1 runs);
+// for f32 one fmaf chain over k in order.  Nothing splits k.  Row r of B7 is
+// therefore B1's A[r] @ B[g(r)] on the same operands bit for bit, at any CTA
+// shape, group layout or batch, and a token's expert output does not depend
+// on which other tokens share the batch.
+#include "mma_chain.cuh"
 #include "staging.cuh"
 
 namespace repro {
 namespace {
 
-constexpr int kThreads = 256;     // core/hardware.py B7_THREADS
-constexpr int kMaxRows = 4;       // core/hardware.py B7_MAX_ROWS_PER_THREAD
-constexpr int kBK = 64;           // k rows a stage (kernels/gemm_grouped.py)
 constexpr int kMaxSmem = 232448;  // 227 KiB: one CTA's limit on sm_90
+constexpr int kSmSmem = 233472;   // 228 KiB: one SM's shared memory
 
 struct GroupedArgs {
   int M, N, K;
-  int bm, bn;     // the plan's C tile
+  int bm, bn;     // the C tile (the f32 body's; the bf16 shape fixes its own)
   int act;
   int out_dtype;  // kF32 / kBF16
   int mode_a, mode_b;  // staging modes (staging.cuh)
 };
 
-__host__ __device__ inline size_t smem_bytes(int bm, int bn, int in_size) {
-  return 2 * static_cast<size_t>(bm + bn) * kBK * in_size;  // A + B, 2 stages
+// The instance this CTA runs (blockIdx.y) on an m tile of bm rows: its group
+// g, the tile's first row row0, and the rows [lo, hi) of the tile that g
+// owns.  False for an instance past the live count or an empty row range.
+__device__ __forceinline__ bool instance_rows(const int* offsets,
+                                              const int* group_ids,
+                                              const int* m_tile_ids,
+                                              const int* num_instances,
+                                              int bm, int M, int& g,
+                                              int& row0, int& lo, int& hi) {
+  const int inst = blockIdx.y;
+  if (inst >= *num_instances) return false;  // past the live count
+  g = group_ids[inst];
+  row0 = m_tile_ids[inst] * bm;
+  lo = max(offsets[g], row0);
+  hi = min(min(offsets[g + 1], row0 + bm), M);
+  return lo < hi;
 }
 
-template <typename TIn, int kRows>
-__global__ void __launch_bounds__(kThreads)
-gemm_grouped_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
-                    void* C, const float* __restrict__ bias,
-                    const int* __restrict__ offsets,
-                    const int* __restrict__ group_ids,
-                    const int* __restrict__ m_tile_ids,
-                    const int* __restrict__ num_instances, GroupedArgs p) {
-  const int inst = blockIdx.y;
-  if (inst >= *num_instances) return;  // past the live count
-  const int g = group_ids[inst];
-  const int row0 = m_tile_ids[inst] * p.bm;
-  // the rows of this tile that group g owns
-  const int lo = max(offsets[g], row0);
-  const int hi = min(min(offsets[g + 1], row0 + p.bm), p.M);
-  if (lo >= hi) return;
+// ---------------------------------------------------------------------------
+// The CUDA-core body (f32 operands)
+// ---------------------------------------------------------------------------
 
+constexpr int kF32Threads = 256;
+constexpr int kRows = 4;    // rows a thread at either f32 tile
+constexpr int kF32BK = 64;  // k rows a stage
+
+__global__ void __launch_bounds__(kF32Threads)
+gemm_grouped_f32_kernel(const float* __restrict__ A,
+                        const float* __restrict__ B, void* C,
+                        const float* __restrict__ bias,
+                        const int* __restrict__ offsets,
+                        const int* __restrict__ group_ids,
+                        const int* __restrict__ m_tile_ids,
+                        const int* __restrict__ num_instances,
+                        GroupedArgs p) {
+  int g, row0, lo, hi;
+  if (!instance_rows(offsets, group_ids, m_tile_ids, num_instances, p.bm,
+                     p.M, g, row0, lo, hi))
+    return;
   extern __shared__ __align__(16) unsigned char smem[];
   const int bm = p.bm, bn = p.bn;
-  TIn* As = reinterpret_cast<TIn*>(smem);  // 2 stages of bm x kBK
-  TIn* Bs = As + 2 * bm * kBK;             // 2 stages of kBK x bn
+  float* As = reinterpret_cast<float*>(smem);  // 2 stages of bm x kF32BK
+  float* Bs = As + 2 * bm * kF32BK;            // 2 stages of kF32BK x bn
   const int col0 = blockIdx.x * bn;
   const int rows_valid = min(bm, p.M - row0);
   const int cols_valid = min(bn, p.N - col0);
-  const int groups = kThreads / bn;  // row groups of bn threads
+  const int groups = kF32Threads / bn;  // row groups of bn threads
   const int tx = threadIdx.x % bn, ty = threadIdx.x / bn;
-  // rows r = ty, ty + groups, ... < bm of this thread (0 for idle threads);
+  // rows r = ty, ty + groups, ... < bm of this thread (kRows at both tiles);
   // bit i of live: row ty + groups * i belongs to group g.  A warp's 32
   // threads share ty (bn is a multiple of 32), so the branches on live
   // are uniform, and a warp whose rows all belong to other groups skips
-  // the products: at decode a tile holds one or two of g's rows.
+  // the products.
   const int my_rows =
       ty < groups ? max(0, (bm - ty + groups - 1) / groups) : 0;
   unsigned live = 0;
@@ -101,16 +136,16 @@ gemm_grouped_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
     const int row = row0 + ty + groups * i;
     if (i < my_rows && row >= lo && row < hi) live |= 1u << i;
   }
-  const TIn* Bg = B + static_cast<size_t>(g) * p.K * p.N;
+  const float* Bg = B + static_cast<size_t>(g) * p.K * p.N;
 
   auto issue = [&](int k0, int s) {
-    const int kc = min(kBK, p.K - k0);
-    stage<kThreads>(As + s * bm * kBK, kBK,
-                    A + static_cast<size_t>(row0) * p.K + k0, p.K, bm, kBK,
-                    rows_valid, kc, p.mode_a);
-    stage<kThreads>(Bs + s * kBK * bn, bn,
-                    Bg + static_cast<size_t>(k0) * p.N + col0, p.N, kBK, bn,
-                    kc, cols_valid, p.mode_b);
+    const int kc = min(kF32BK, p.K - k0);
+    stage<kF32Threads>(As + s * bm * kF32BK, kF32BK,
+                       A + static_cast<size_t>(row0) * p.K + k0, p.K, bm,
+                       kF32BK, rows_valid, kc, p.mode_a);
+    stage<kF32Threads>(Bs + s * kF32BK * bn, bn,
+                       Bg + static_cast<size_t>(k0) * p.N + col0, p.N,
+                       kF32BK, bn, kc, cols_valid, p.mode_b);
   };
 
   float acc[kRows];
@@ -118,9 +153,9 @@ gemm_grouped_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   for (int i = 0; i < kRows; ++i) acc[i] = 0.0f;
   issue(0, 0);
   cp_async_commit();
-  for (int k0 = 0, s = 0; k0 < p.K; k0 += kBK, s ^= 1) {
-    if (k0 + kBK < p.K) {
-      issue(k0 + kBK, s ^ 1);
+  for (int k0 = 0, s = 0; k0 < p.K; k0 += kF32BK, s ^= 1) {
+    if (k0 + kF32BK < p.K) {
+      issue(k0 + kF32BK, s ^ 1);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
@@ -128,19 +163,19 @@ gemm_grouped_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
     }
     __syncthreads();
     if (live != 0) {
-      const TIn* At = As + s * bm * kBK;
-      const TIn* Bt = Bs + s * kBK * bn;
+      const float* At = As + s * bm * kF32BK;
+      const float* Bt = Bs + s * kF32BK * bn;
 #pragma unroll 4
-      for (int kk = 0; kk < kBK; kk += 4) {
-        const float b0 = to_f32(Bt[(kk + 0) * bn + tx]);
-        const float b1 = to_f32(Bt[(kk + 1) * bn + tx]);
-        const float b2 = to_f32(Bt[(kk + 2) * bn + tx]);
-        const float b3 = to_f32(Bt[(kk + 3) * bn + tx]);
+      for (int kk = 0; kk < kF32BK; kk += 4) {
+        const float b0 = Bt[(kk + 0) * bn + tx];
+        const float b1 = Bt[(kk + 1) * bn + tx];
+        const float b2 = Bt[(kk + 2) * bn + tx];
+        const float b3 = Bt[(kk + 3) * bn + tx];
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           if (live & (1u << i)) {
             float a[4];
-            load4(At + (ty + groups * i) * kBK + kk, a);
+            load4(At + (ty + groups * i) * kF32BK + kk, a);
             acc[i] = fmaf(a[0], b0, acc[i]);
             acc[i] = fmaf(a[1], b1, acc[i]);
             acc[i] = fmaf(a[2], b2, acc[i]);
@@ -170,51 +205,280 @@ gemm_grouped_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   }
 }
 
-template <typename TIn, int kRows>
-int launch_rows(const void* a, const void* b, void* c, const void* bias,
-                const int* offsets, const int* group_ids,
-                const int* m_tile_ids, const int* num_instances,
-                int n_instances, const GroupedArgs& p, size_t smem,
-                cudaStream_t stream) {
-  auto kernel = gemm_grouped_kernel<TIn, kRows>;
-  static bool configured = false;  // one attribute call per instantiation
+// The f32 body's C tiles, by the config index kernels/gemm_grouped.py
+// F32_TILES gives them: 8 x 128 at decode, 16 x 64 in prefill.
+int launch_f32(int config, const void* a, const void* b, void* c,
+               const void* bias, const int* offsets, const int* group_ids,
+               const int* m_tile_ids, const int* num_instances,
+               int n_instances, GroupedArgs p, cudaStream_t stream) {
+  if (config == 1)
+    p.bm = 8, p.bn = 128;
+  else if (config == 2)
+    p.bm = 16, p.bn = 64;
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_instances > 65535)  // gridDim.y's limit
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * static_cast<size_t>(p.bm + p.bn) * kF32BK *
+                      sizeof(float);  // A + B, 2 stages
+  auto kernel = gemm_grouped_f32_kernel;
+  static bool configured = false;  // one attribute call
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kMaxSmem);
     configured = true;
   }
-  dim3 grid((p.N + p.bn - 1) / p.bn, n_instances);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b), c,
+  dim3 grid(cdiv(p.N, p.bn), n_instances);
+  kernel<<<grid, kF32Threads, smem, stream>>>(
+      static_cast<const float*>(a), static_cast<const float*>(b), c,
       static_cast<const float*>(bias), offsets, group_ids, m_tile_ids,
       num_instances, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Checks the tile against the kernel's limits and picks the row count a
-// thread needs.
-template <typename TIn>
-int launch(const void* a, const void* b, void* c, const void* bias,
-           const int* offsets, const int* group_ids, const int* m_tile_ids,
-           const int* num_instances, int n_instances, const GroupedArgs& p,
-           cudaStream_t stream) {
-  if (p.bn < 1 || p.bn > kThreads || p.bm < 1 || n_instances < 1 ||
-      n_instances > 65535)  // gridDim.y's limit
-    return static_cast<int>(cudaErrorInvalidValue);
-  const int groups = kThreads / p.bn;
-  const int rows = (p.bm + groups - 1) / groups;
-  const size_t smem = smem_bytes(p.bm, p.bn, sizeof(TIn));
-  if (rows > kMaxRows || smem > static_cast<size_t>(kMaxSmem))
-    return static_cast<int>(cudaErrorInvalidValue);
-  if (rows <= 1)
-    return launch_rows<TIn, 1>(a, b, c, bias, offsets, group_ids, m_tile_ids,
-                               num_instances, n_instances, p, smem, stream);
-  if (rows <= 2)
-    return launch_rows<TIn, 2>(a, b, c, bias, offsets, group_ids, m_tile_ids,
-                               num_instances, n_instances, p, smem, stream);
-  return launch_rows<TIn, kMaxRows>(a, b, c, bias, offsets, group_ids,
-                                    m_tile_ids, num_instances, n_instances, p,
-                                    smem, stream);
+// ---------------------------------------------------------------------------
+// The tensor-core body (bf16 operands)
+// ---------------------------------------------------------------------------
+
+// A CTA shape: kWM x kWN MMA warps, each owning one 16-row block of the m
+// tile and kFN m16n8 fragments of the n tile, so a BM x BN tile of C;
+// BK-deep slabs through a ring of kStages stages, every warp staging.  A
+// stage holds the A slab, then the B slab.  Two CTAs share an SM when their
+// shared memory fits.
+template <int kWM, int kWN, int kFN, int kBK_, int kStages_>
+struct GroupedShape {
+  static constexpr int kWarps = kWM * kWN, kThreads = 32 * kWarps;
+  static constexpr int kBM = 16 * kWM, kBN = 8 * kFN * kWN;
+  static constexpr int kBK = kBK_, kStages = kStages_;
+  static constexpr int kWarpN = kWN, kFragN = kFN;
+  static constexpr int kAElems = kBM * kBK;
+  static constexpr int kStageElems = kAElems + kBK * kBN;
+  static constexpr size_t kSmem = 2 * static_cast<size_t>(kStages) *
+                                  kStageElems;
+  static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= kSmSmem ? 2 : 1;
+};
+
+// One work item of the persistent grid: the n tile col0 of one live
+// instance, i.e. the rows [lo, lo + rows) of its m tile that its group g
+// owns (rows > 0 for every live instance of group_metadata's tables), and
+// the rows of the A tile staged for them: the rows rounded up to whole
+// 16-row blocks, the rest zero-filled; a 16-row tile with at most 8 rows
+// stages 8, and its fragment's other 8 read as zero (B1's edge).
+struct Item {
+  int g, lo, rows, a_rows, col0, cols_valid;
+};
+
+template <typename S>
+__device__ __forceinline__ Item item_at(int t, int n_tiles,
+                                        const int* offsets,
+                                        const int* group_ids,
+                                        const int* m_tile_ids,
+                                        const GroupedArgs& p) {
+  const int inst = t / n_tiles, nt = t - inst * n_tiles;
+  Item it;
+  it.g = group_ids[inst];
+  const int row0 = m_tile_ids[inst] * S::kBM;
+  it.lo = max(offsets[it.g], row0);
+  it.rows = max(0, min(min(offsets[it.g + 1], row0 + S::kBM), p.M) - it.lo);
+  it.a_rows = S::kBM == 16 && it.rows <= 8
+                  ? 8
+                  : min(S::kBM, max(16, (it.rows + 15) & ~15));
+  it.col0 = nt * S::kBN;
+  it.cols_valid = min(S::kBN, p.N - it.col0);
+  return it;
+}
+
+// The persistent grid: CTA c runs the live work items t = c, c + G, c + 2G,
+// ... (G CTAs, t = instance * n_tiles + n tile, the live count read from
+// device memory), so the CTAs of a wave stream the panels of neighbouring
+// instances together and no wave is left part-empty.  The ring runs over
+// the CTA's items' slabs in one sequence: the slabs of the next item are in
+// flight while the warps finish the one before, and an item's flush (the
+// epilogue and its stores) does not drain the ring.
+template <typename S>
+__global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
+gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
+                        const __nv_bfloat16* __restrict__ B, void* C,
+                        const float* __restrict__ bias,
+                        const int* __restrict__ offsets,
+                        const int* __restrict__ group_ids,
+                        const int* __restrict__ m_tile_ids,
+                        const int* __restrict__ num_instances,
+                        GroupedArgs p) {
+  const int n_tiles = (p.N + S::kBN - 1) / S::kBN;
+  const int items = *num_instances * n_tiles;
+  const int c = blockIdx.x, G = gridDim.x;
+  if (c >= items) return;
+  const int slabs = (p.K + S::kBK - 1) / S::kBK;
+  const int total = ((items - c + G - 1) / G) * slabs;  // this CTA's slabs
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  const int warp = threadIdx.x >> 5;
+  const int wr = (warp / S::kWarpN) * 16;               // warp's rows
+  const int wc = (warp % S::kWarpN) * 8 * S::kFragN;   // warp's columns
+  constexpr bool kEdge = S::kBM == 16;
+  auto a_tile = [&](int s) {
+    return smem_tile(ring + s * S::kStageElems, S::kBK);
+  };
+  auto b_tile = [&](int s) {
+    return smem_tile(ring + s * S::kStageElems + S::kAElems, S::kBN);
+  };
+
+  // the loader walks the CTA's slabs in order: slab ls of item li (t = lt)
+  int lt = c, ls = 0;
+  Item li = item_at<S>(lt, n_tiles, offsets, group_ids, m_tile_ids, p);
+  auto load = [&](int q) {
+    constexpr int kT = S::kThreads;
+    const int s = q % S::kStages, k0 = ls * S::kBK;
+    const int depth = min(S::kBK, p.K - k0);
+    const SmemTile at = a_tile(s), bt = b_tile(s);
+    const __nv_bfloat16* a = A + static_cast<size_t>(li.lo) * p.K + k0;
+    if (p.mode_a == 2)
+      stage_rows16<kT, S::kBK>(at.p, at, a, p.K, li.a_rows, li.rows, depth,
+                               threadIdx.x);
+    else
+      stage_rows<kT>(at.p, at, a, p.K, li.a_rows, S::kBK, li.rows, depth,
+                     p.mode_a, threadIdx.x);
+    const __nv_bfloat16* b = B + static_cast<size_t>(li.g) * p.K * p.N +
+                             static_cast<size_t>(k0) * p.N + li.col0;
+    if (p.mode_b == 2)
+      stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth,
+                               li.cols_valid, threadIdx.x);
+    else
+      stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth, li.cols_valid,
+                     p.mode_b, threadIdx.x);
+    if (++ls == slabs && q + 1 < total) {  // the loader's next item
+      ls = 0;
+      lt += G;
+      li = item_at<S>(lt, n_tiles, offsets, group_ids, m_tile_ids, p);
+    }
+  };
+
+  float acc[1][S::kFragN][4];
+#pragma unroll
+  for (int j = 0; j < S::kFragN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[0][j][e] = 0.0f;
+
+  // the warps compute slab cs of item ci (t = ct); a warp whose 16-row
+  // block holds none of the item's rows skips its products (uniform over
+  // the warp)
+  int ct = c, cs = 0;
+  Item ci = li;
+  bool live = wr < ci.rows;
+  // The ring, as B1's: kStages - 1 slabs in flight before the first
+  // products; slab q + kStages - 1 is issued in iteration q, into the stage
+  // that slab q - 1 left, after the barrier that says every warp is done
+  // with it, so the wait for a slab overlaps the products of the slab
+  // before it.
+#pragma unroll
+  for (int q = 0; q < S::kStages - 1; ++q) {
+    if (q < total) load(q);
+    cp_async_commit();
+  }
+  for (int q = 0; q < total; ++q) {
+    cp_async_wait<S::kStages - 2>();
+    __syncthreads();  // slab q landed; every warp is done with slab q - 1
+    if (q + S::kStages - 1 < total) load(q + S::kStages - 1);
+    cp_async_commit();
+    if (live) {
+      const int s = q % S::kStages;
+      // the slab is zero-filled past K, so its last step runs whole
+      const int depth = min(S::kBK, p.K - cs * S::kBK);
+      const int k_len = depth == S::kBK ? S::kBK : (depth + 15) & ~15;
+      mma_slab<1, S::kFragN, kEdge>(acc, a_tile(s), wr, ci.a_rows - wr,
+                                    b_tile(s), wc, S::kBN - wc, k_len);
+    }
+    if (++cs < slabs) continue;
+    // the item's last slab: flush its rows and start the next item
+    if (live) {
+      const bool has_bias = bias != nullptr;
+      const float* bg =
+          has_bias ? bias + static_cast<size_t>(ci.g) * p.N + ci.col0
+                   : nullptr;
+#pragma unroll
+      for (int j = 0; j < S::kFragN; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = wr + frag_row(0, e), col = wc + frag_col(j, e);
+          if (r < ci.rows && col < ci.cols_valid) {
+            const size_t at =
+                static_cast<size_t>(ci.lo + r) * p.N + ci.col0 + col;
+            const float x = epilogue(acc[0][j][e], has_bias,
+                                     has_bias ? bg[col] : 0.0f, p.act,
+                                     false, 0.0f);
+            if (p.out_dtype == kBF16)
+              static_cast<__nv_bfloat16*>(C)[at] =
+                  from_f32<__nv_bfloat16>(x);
+            else
+              static_cast<float*>(C)[at] = x;
+          }
+          acc[0][j][e] = 0.0f;
+        }
+    }
+    cs = 0;
+    ct += G;
+    if (q + 1 < total) {
+      ci = item_at<S>(ct, n_tiles, offsets, group_ids, m_tile_ids, p);
+      live = wr < ci.rows;
+    }
+  }
+}
+
+template <typename S>
+int launch_mma(const void* a, const void* b, void* c, const void* bias,
+               const int* offsets, const int* group_ids,
+               const int* m_tile_ids, const int* num_instances,
+               int n_instances, const GroupedArgs& p, cudaStream_t stream) {
+  auto kernel = gemm_grouped_mma_kernel<S>;
+  static int resident = 0;  // CTAs the card holds at once, found once
+  if (resident == 0) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(S::kSmem));
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                  S::kThreads, S::kSmem);
+    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  // the static worst case of items, or as many CTAs as the card holds
+  const long long most =
+      static_cast<long long>(n_instances) * cdiv(p.N, S::kBN);
+  const int grid = most < resident ? static_cast<int>(most) : resident;
+  kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a),
+      static_cast<const __nv_bfloat16*>(b), c,
+      static_cast<const float*>(bias), offsets, group_ids, m_tile_ids,
+      num_instances, p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The CTA shapes of the bf16 body, by the index kernels/gemm_grouped.py
+// BF16_TILES gives them (its (bm, bk, bn) must match).
+int launch_bf16(int config, const void* a, const void* b, void* c,
+                const void* bias, const int* offsets, const int* group_ids,
+                const int* m_tile_ids, const int* num_instances,
+                int n_instances, const GroupedArgs& p, cudaStream_t s) {
+#define REPRO_B7(...)                                                   \
+  return launch_mma<GroupedShape<__VA_ARGS__>>(a, b, c, bias, offsets,  \
+                                               group_ids, m_tile_ids,   \
+                                               num_instances,           \
+                                               n_instances, p, s)
+  switch (config) {
+    case 1: REPRO_B7(1, 8, 2, 64, 6);
+    case 2: REPRO_B7(4, 2, 8, 64, 4);
+    case 3: REPRO_B7(1, 8, 2, 64, 12);
+    case 4: REPRO_B7(1, 8, 1, 64, 10);
+    case 5: REPRO_B7(1, 8, 2, 128, 3);
+    case 6: REPRO_B7(1, 8, 4, 64, 3);
+    case 7: REPRO_B7(4, 2, 4, 64, 6);
+    case 8: REPRO_B7(4, 2, 8, 64, 9);
+    case 9: REPRO_B7(2, 4, 4, 64, 5);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef REPRO_B7
 }
 
 }  // namespace
@@ -222,19 +486,22 @@ int launch(const void* a, const void* b, void* c, const void* bias,
 
 // A (m,k) group-sorted rows, B (E,k,n), C (m,n) row-major and contiguous;
 // bias (E,n) f32 or null.  offsets (E+1,), group_ids and m_tile_ids
-// (n_instances,) and num_instances (a scalar) are int32 on the device.
-// Returns cudaGetLastError() after the launch.
+// (n_instances,) and num_instances (a scalar) are int32 on the device, the
+// tables built at the m tile of CTA shape ``config`` (kernels/gemm_grouped.py
+// BF16_TILES / F32_TILES); ``mode_a`` / ``mode_b`` are the staging copy
+// modes.  Returns cudaGetLastError() after the launch.
 extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
                                    const void* bias, const void* offsets,
                                    const void* group_ids,
                                    const void* m_tile_ids,
                                    const void* num_instances, int n_instances,
-                                   int m, int n, int k, int bm, int bn,
+                                   int m, int n, int k, int config,
                                    int in_dtype, int out_dtype, int act,
                                    int mode_a, int mode_b, void* stream) {
   using namespace repro;
+  if (n_instances < 1) return static_cast<int>(cudaErrorInvalidValue);
   GroupedArgs p;
-  p.M = m, p.N = n, p.K = k, p.bm = bm, p.bn = bn, p.act = act;
+  p.M = m, p.N = n, p.K = k, p.bm = 0, p.bn = 0, p.act = act;
   p.out_dtype = out_dtype, p.mode_a = mode_a, p.mode_b = mode_b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* offs = static_cast<const int*>(offsets);
@@ -242,8 +509,8 @@ extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
   const int* tids = static_cast<const int*>(m_tile_ids);
   const int* live = static_cast<const int*>(num_instances);
   if (in_dtype == kBF16)
-    return launch<__nv_bfloat16>(a, b, c, bias, offs, gids, tids, live,
-                                 n_instances, p, s);
-  return launch<float>(a, b, c, bias, offs, gids, tids, live, n_instances, p,
-                       s);
+    return launch_bf16(config, a, b, c, bias, offs, gids, tids, live,
+                       n_instances, p, s);
+  return launch_f32(config, a, b, c, bias, offs, gids, tids, live,
+                    n_instances, p, s);
 }

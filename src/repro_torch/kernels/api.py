@@ -14,8 +14,9 @@
   ``explain()`` says which kernel runs and why.
 * :func:`execute` — runs a plan: a gated plan launches kernel B2
   (``gemm_gated``), a grouped plan kernel B7 (``gemm_grouped``) and a
-  ``tb`` plan kernel B6 (``gemm_tb``), each with the plan's tile, anything
-  else kernel B1 (``gemm_aie``).  The kernels mask ragged edges, so
+  ``tb`` plan kernel B6 (``gemm_tb``) with the plan's tile, anything
+  else kernel B1 (``gemm_aie``); B1, B2 and B7 launch the CTA tile they
+  pick themselves.  The kernels mask ragged edges, so
   nothing is padded.  :func:`gemm` is the one-shot form every model
   layer calls, :func:`gemm_grouped` the MoE experts'.
 
@@ -46,7 +47,7 @@ from repro_torch.kernels.gemm_aie import cta_tile as _aie_cta
 from repro_torch.kernels.gemm_aie import gemm_aie
 from repro_torch.kernels.gemm_gated import cta_tile as _gated_cta
 from repro_torch.kernels.gemm_gated import gemm_gated
-from repro_torch.kernels.gemm_grouped import CTA_K as _GROUPED_CTA_K
+from repro_torch.kernels.gemm_grouped import cta_tile as _grouped_cta
 from repro_torch.kernels.gemm_grouped import gemm_grouped as _gemm_grouped
 from repro_torch.kernels.gemm_tb import feasible_bk, gemm_tb
 
@@ -222,17 +223,18 @@ def gemm_grouped_shapes(a, b, dense_rows: Optional[int] = None
 # GemmPlan and the plan cache
 # ---------------------------------------------------------------------------
 
-#: what each kernel is, for explain(): (kernel, source, CTA tile it
-#: launches whatever the plan's tile says — B1's and B2's by (m, n, dtype) —
-#: or None when it runs the plan's)
+#: what each kernel is, for explain(): (kernel, source, the (bm, bk, bn)
+#: CTA tile it launches whatever the plan's tile says — B1's and B2's by
+#: (m, n, dtype), B7's by rows per expert — or None when it runs the
+#: plan's)
 _KERNELS = {
     "aie": ("B1 gemm_aie", "src/repro_torch/csrc/gemm_aie.cu",
-            _aie_cta),
+            lambda pl, dtype: _aie_cta(pl.m, pl.n, dtype)),
     "gated": ("B2 gemm_gated", "src/repro_torch/csrc/gemm_gated.cu",
-              _gated_cta),
+              lambda pl, dtype: _gated_cta(pl.m, pl.n, dtype)),
     "tb": ("B6 gemm_tb", "src/repro_torch/csrc/gemm_tb.cu", None),
     "grouped": ("B7 gemm_grouped", "src/repro_torch/csrc/gemm_grouped.cu",
-                None),
+                lambda pl, dtype: _grouped_cta(pl.m, pl.n_groups, dtype)),
 }
 
 
@@ -315,18 +317,17 @@ class GemmPlan:
                    "each CTA keeps a (bm x chunk) A panel in shared memory "
                    "and sweeps its share of the n tiles (the panel re-read "
                    "per CTA hits L2; the model bills A once)")
-        elif self.kernel == "grouped":
-            how = (f"launches the plan's {t.bm}x{t.bn} (bm x bn) C tile "
-                   f"with its compiled k stage of {_GROUPED_CTA_K}: one "
-                   "CTA per (m-tile instance, n tile) of the static "
-                   "worst case, the CTAs past the device-side live count "
-                   "exit")
         else:
-            if callable(cta):
-                cta = cta(self.m, self.n, getattr(torch, p.a_dtype))
+            cta = cta(self, getattr(torch, p.a_dtype))
             how = (f"launches its compiled {cta[0]}x{cta[1]}x{cta[2]} "
                    "(bm x bk x bn) CTA tile whatever the plan's tile says; "
                    "the tile below is the cost model's")
+            if self.kernel == "grouped":
+                how += ("; the CTA shape goes by rows per expert (decode: "
+                        "at most one on average, else prefill), one CTA "
+                        "per (m-tile instance, n tile) of the static worst "
+                        "case, and the CTAs past the device-side live "
+                        "count exit")
         b_desc = ("2x " if s.gated else "") + p.b_dtype
         budget = budget_bytes(self.chip)
         tm = self.traffic
@@ -424,11 +425,10 @@ def _infeasible_reason(tile: TileConfig, p: GemmProblem,
     resident and refines its own k-chunking, so its gate is
     ``feasible_bk`` (and, on the card, a (bm, bn) tile kernel B6 can
     launch); 'aie' streams everything, so plain ``fits_vmem`` (and a
-    grouped tile must be one kernel B7 launches)."""
+    grouped tile must be a C block one CTA of kernel B7 covers)."""
     if p.n_groups and not chip.grouped_launchable(tile.bm, tile.bn):
-        return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
-                "kernel B7's 256 threads (bn <= 256, at most 4 rows a "
-                "thread)")
+        return (f"a ({tile.bm}, {tile.bn}) C tile is larger than any CTA "
+                "tile kernel B7 launches (bm <= 64, bn <= 128)")
     if tile.strategy == "tb":
         if not chip.launchable(tile.bm, tile.bn):
             return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
@@ -558,8 +558,7 @@ def plan(spec: GemmSpec, shapes: Tuple[int, ...]) -> GemmPlan:
 def _launch(pl: GemmPlan, a2, b, b2, bias, res2,
             group_sizes=None) -> torch.Tensor:
     """The one kernel fan-out, driven by the plan: B2 for a gated plan,
-    B7 for a grouped one and B6 for 'tb', each with the plan's tile,
-    else B1."""
+    B7 for a grouped one, B6 with the plan's tile for 'tb', else B1."""
     kind, act, out_dtype = pl._run
     if kind == "aie":
         return gemm_aie(a2, b, bias=bias, activation=act, residual=res2,
@@ -568,8 +567,8 @@ def _launch(pl: GemmPlan, a2, b, b2, bias, res2,
         return gemm_tb(a2, b, tile=pl.tile, out_dtype=out_dtype, bias=bias,
                        activation=act, residual=res2)
     if kind == "grouped":
-        return _gemm_grouped(a2, b, group_sizes, tile=pl.tile,
-                             out_dtype=out_dtype, bias=bias, activation=act)
+        return _gemm_grouped(a2, b, group_sizes, out_dtype=out_dtype,
+                             bias=bias, activation=act)
     return gemm_gated(a2, b, b2, activation=act, out_dtype=out_dtype)
 
 

@@ -6,12 +6,18 @@ the hand-written CUDA kernel ``csrc/gemm_grouped.cu``:
 ``C[r] = epilogue(A[r] @ B[g(r)])`` over group-sorted rows ``A`` (m, k)
 and an (E, k, n) expert bank, ``g(r)`` the group owning row ``r`` under
 ``group_sizes``; rows at and beyond ``sum(group_sizes)`` come back zero.
+bf16 operands run B1's m16n8k16 tensor-core chain
+(``csrc/mma_chain.cuh``) on each group's rows, so a row is bit for bit
+``gemm_aie`` of that row against its expert's weights; f32 operands run
+an fmaf chain, bit for bit B1's f32 body.  :func:`cta_tile` picks the
+CTA shape by rows per expert (decode or prefill), whatever the plan's
+tile says.
 
 The steering tables (:func:`group_metadata`, JAX :54) are built here
-with torch ops on the tensor's device, at the static length
-``tiles_m + E - 1``; the live instance count stays a device scalar, so
-a MoE layer makes no host sync: the kernel launches the static worst
-case and a CTA past the live count exits.
+with torch ops on the tensor's device, at the CTA's m tile and the
+static length ``tiles_m + E - 1``; the live instance count stays a
+device scalar, so a MoE layer makes no host sync: the kernel launches
+the static worst case and a CTA past the live count exits.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_grouped_plain`,
 a CUDA tensor launches the kernel or raises.
@@ -25,16 +31,39 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.hardware import HOPPER_H100
-from repro_torch.core.tiling import TileConfig, cdiv
+from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.ref import gemm_grouped_ref
 
-#: k rows the kernel streams a stage (csrc/gemm_grouped.cu kBK)
-CTA_K = 64
+#: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
+#: entry point takes (csrc/gemm_grouped.cu launch_bf16): 1 at decode (one
+#: 16-row block, eight warps across 128 columns), 2 in prefill (a 64-row
+#: m tile of four 16-row blocks by two 64-column halves)
+BF16_TILES = {1: (16, 64, 128), 2: (64, 64, 128), 3: (16, 64, 128),
+              4: (16, 64, 64), 5: (16, 128, 128), 6: (16, 64, 256),
+              7: (64, 64, 64), 8: (64, 64, 128), 9: (32, 64, 128)}
+#: the (bm, bk, bn) C tiles of the f32 body, by the same index
+#: (csrc/gemm_grouped.cu launch_f32)
+F32_TILES = {1: (8, 64, 128), 2: (16, 64, 64)}
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+
+
+def _tiles(dtype) -> dict:
+    return BF16_TILES if dtype == torch.bfloat16 else F32_TILES
+
+
+def _config(m: int, e: int) -> int:
+    """The regime of m routed rows over e experts: 1 (decode) with at
+    most one row an expert on average, else 2 (prefill)."""
+    return 1 if m <= e else 2
+
+
+def cta_tile(m: int, e: int, dtype=torch.bfloat16):
+    """The (bm, bk, bn) CTA tile the kernel launches for m routed rows
+    over e experts."""
+    return _tiles(dtype)[_config(m, e)]
 
 
 def _repeat(values: torch.Tensor, repeats: torch.Tensor, total: int
@@ -120,7 +149,7 @@ def _tables(group_sizes: torch.Tensor, m: int, bm: int):
     return hit[1]
 
 
-def _check(a, b, group_sizes, b_scale, bias, activation):
+def _check(a, b, group_sizes, b_scale, bias, activation, cta=None):
     if b_scale is not None or a.dtype == torch.int8 \
             or b.dtype == torch.int8:
         raise NotImplementedError(
@@ -138,17 +167,18 @@ def _check(a, b, group_sizes, b_scale, bias, activation):
     if bias is not None and bias.numel() != e * n:
         raise ValueError(f"bias must be per-expert ({e}, {n}), got "
                          f"{tuple(bias.shape)}")
+    if cta is not None and cta not in _tiles(a.dtype):
+        raise ValueError(f"gemm_grouped: no CTA shape {cta} for {a.dtype} "
+                         f"(one of {sorted(_tiles(a.dtype))})")
 
 
 def gemm_grouped_plain(a: torch.Tensor, b: torch.Tensor,
-                       group_sizes: torch.Tensor, *,
-                       tile: Optional[TileConfig] = None, out_dtype=None,
+                       group_sizes: torch.Tensor, *, out_dtype=None,
                        bias: Optional[torch.Tensor] = None,
                        activation: Optional[str] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device
     (:func:`repro_torch.kernels.ref.gemm_grouped_ref`: one full-k matmul
-    per group in f32, then the epilogue).  ``tile`` is accepted for
-    call compatibility and changes nothing."""
+    per group in f32, then the epilogue)."""
     gemm_grouped_plain.launches += 1
     e, _, n = b.shape
     return gemm_grouped_ref(
@@ -161,22 +191,24 @@ gemm_grouped_plain.launches = 0
 
 
 def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
-                 group_sizes: torch.Tensor, *, tile: TileConfig,
-                 out_dtype=None, b_scale: Optional[torch.Tensor] = None,
+                 group_sizes: torch.Tensor, *, out_dtype=None,
+                 b_scale: Optional[torch.Tensor] = None,
                  bias: Optional[torch.Tensor] = None,
-                 activation: Optional[str] = None) -> torch.Tensor:
+                 activation: Optional[str] = None,
+                 cta: Optional[int] = None) -> torch.Tensor:
     """``C[r, n] = epilogue(sum_k A[r, k] B[g(r), k, n])``, ``g(r)`` the
     group owning row ``r`` under ``group_sizes``.
 
     ``a``: (m, k) group-sorted rows; ``b``: (E, k, n) bank;
     ``group_sizes``: (E,) integers; ``bias``: per-expert (E, n) (or
     (E, 1, n)), applied with ``activation`` on the flush in f32.  Rows
-    at and beyond ``sum(group_sizes)`` come back zero.  ``tile`` is the
-    plan's: B7 launches its (bm, bn) with its compiled k stage of
-    :data:`CTA_K` rows.  ``out_dtype`` defaults to f32, as the Pallas
-    kernel's does.  Quantized banks (``b_scale``, int8) raise.
+    at and beyond ``sum(group_sizes)`` come back zero.  The kernel
+    launches the CTA shape :func:`cta_tile` picks, or the one of index
+    ``cta`` in :data:`BF16_TILES` / :data:`F32_TILES`.  ``out_dtype``
+    defaults to f32, as the Pallas kernel's does.  Quantized banks
+    (``b_scale``, int8) raise.
     """
-    _check(a, b, group_sizes, b_scale, bias, activation)
+    _check(a, b, group_sizes, b_scale, bias, activation, cta)
     out_dtype = out_dtype or torch.float32
     if a.device.type == "cpu":
         return gemm_grouped_plain(a, b, group_sizes, out_dtype=out_dtype,
@@ -185,18 +217,15 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
     _build.require_cuda("gemm_grouped", *ops)
     if a.dtype != b.dtype:
         raise TypeError(f"gemm_grouped: A {a.dtype} and B {b.dtype} differ")
-    bm, bn = tile.bm, tile.bn
-    if not HOPPER_H100.grouped_launchable(bm, bn):
-        raise ValueError(f"gemm_grouped: a ({bm}, {bn}) C tile does not map "
-                         "onto the kernel's 256 threads (bn <= 256, at "
-                         "most 4 rows a thread)")
-    m, k = a.shape
-    e, _, n = b.shape
-    if cdiv(m, bm) + e - 1 > 65535:
-        raise ValueError(f"gemm_grouped: {cdiv(m, bm) + e - 1} tile "
-                         "instances exceed the grid's 65535 rows")
     in_code = _build.dtype_code(a.dtype, "gemm_grouped A")
     out_code = _build.dtype_code(out_dtype, "gemm_grouped out")
+    m, k = a.shape
+    e, _, n = b.shape
+    config = _config(m, e) if cta is None else cta
+    bm, bk, bn = _tiles(a.dtype)[config]
+    if a.dtype == torch.float32 and cdiv(m, bm) + e - 1 > 65535:
+        raise ValueError(f"gemm_grouped: {cdiv(m, bm) + e - 1} tile "
+                         "instances exceed the f32 grid's 65535 rows")
     c = torch.zeros((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return c
@@ -208,8 +237,8 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         bias32.data_ptr() if bias32 is not None else None,
         offsets.data_ptr(), group_ids.data_ptr(), m_tile_ids.data_ptr(),
-        live.data_ptr(), group_ids.shape[0], m, n, k, bm, bn, in_code,
-        out_code, ACT_CODES[activation], _build.copy_mode(a, k, CTA_K),
+        live.data_ptr(), group_ids.shape[0], m, n, k, config, in_code,
+        out_code, ACT_CODES[activation], _build.copy_mode(a, k, bk),
         _build.copy_mode(b, n, bn), _build.stream_of(a))
     _build.check(rc, "gemm_grouped")
     gemm_grouped.launches += 1

@@ -545,7 +545,7 @@ def test_gemm_tb_refuses_what_it_cannot_launch(cuda_device):
 # ---------------------------------------------------------------------------
 
 from repro_torch.kernels.gemm_grouped import (  # noqa: E402
-    gemm_grouped, gemm_grouped_plain)
+    BF16_TILES, F32_TILES, gemm_grouped, gemm_grouped_plain)
 
 #: group sizes: routed decode rows over many experts (some empty), empty
 #: groups at both ends and in the middle, a dropped tail (rows past the
@@ -558,6 +558,33 @@ GROUP_CASES = {
 }
 
 
+def _routed(tokens, e, top_k, cap, seed):
+    """Group sizes of ``tokens`` routed top-k over e experts uniformly at
+    random, each clipped to the capacity ``cap``."""
+    rng = np.random.default_rng(seed)
+    counts = np.zeros(e, np.int64)
+    for _ in range(tokens):
+        counts[rng.choice(e, top_k, replace=False)] += 1
+    return np.minimum(counts, cap).tolist()
+
+
+#: qwen3-moe-235b-a22b's expert GEMMs (128 experts, top-8): an 8-slot
+#: decode step's 64 routed rows and a 300-token prefill's 2400 (capacity
+#: 24, so full experts drop their overflow into the tail)
+QWEN3_CASES = {
+    "qwen3_decode": (_routed(8, 128, 8, 8, 21), 64),
+    "qwen3_prefill": (_routed(300, 128, 8, 24, 22), 2400),
+}
+#: (case, k, n, dtype) of the match test: the edge cases at three (k, n),
+#: one of them k = 300 off the 16-grid, in both dtypes; qwen3's gate/up
+#: and down shapes in bf16
+MATCH_CASES = [(case, k, n, dtype) for case in sorted(GROUP_CASES)
+               for k, n in ((256, 192), (100, 70), (300, 200))
+               for dtype in (torch.float32, torch.bfloat16)] + \
+    [(case, k, n, torch.bfloat16) for case in sorted(QWEN3_CASES)
+     for k, n in ((4096, 1536), (1536, 4096))]
+
+
 def _grouped_operands(sizes, m, k, n, dtype, device, seed):
     e = len(sizes)
     a = _randn((m, k), dtype, device, seed) / k ** 0.5
@@ -567,67 +594,70 @@ def _grouped_operands(sizes, m, k, n, dtype, device, seed):
     return a, b, gs, bias
 
 
-@pytest.mark.parametrize("case", sorted(GROUP_CASES))
-@pytest.mark.parametrize("k,n", [(256, 192), (100, 70)])
-@pytest.mark.parametrize("tile", [(8, 128), (16, 64), (32, 32), (8, 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _ctas(dtype):
+    """Every CTA shape B7 launches for ``dtype``."""
+    return sorted(BF16_TILES if dtype == torch.bfloat16 else F32_TILES)
+
+
+@pytest.mark.parametrize("case,k,n,dtype", MATCH_CASES)
 @pytest.mark.parametrize("epi", ["none", "bias+silu", "f32out"])
-def test_gemm_grouped_kernel_matches_plain(cuda_device, case, k, n, tile,
-                                           dtype, epi):
-    sizes, m = GROUP_CASES[case]
+def test_gemm_grouped_kernel_matches_plain(cuda_device, case, k, n, dtype,
+                                           epi):
+    sizes, m = {**GROUP_CASES, **QWEN3_CASES}[case]
     a, b, gs, bias = _grouped_operands(sizes, m, k, n, dtype, cuda_device, 0)
     kw = {"out_dtype": torch.float32 if epi == "f32out" else dtype}
     if epi == "bias+silu":
         kw.update(bias=bias, activation="silu")
-    t = TileConfig(tile[0], 64, tile[1])
-    got = gemm_grouped(a, b, gs, tile=t, **kw)
     want = gemm_grouped_plain(a, b, gs, **kw)
-    assert got.dtype == want.dtype
-    _close(got, want, dtype)
     live = int(sum(sizes))
-    assert not got[live:].any(), "rows past the groups must be zero"
+    for cta in _ctas(dtype):
+        got = gemm_grouped(a, b, gs, cta=cta, **kw)
+        assert got.dtype == want.dtype
+        _close(got, want, dtype)
+        assert not got[live:].any(), "rows past the groups must be zero"
 
 
-@pytest.mark.parametrize("case", sorted(GROUP_CASES))
+@pytest.mark.parametrize("case", sorted(GROUP_CASES) + ["qwen3_decode"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epi", ["none", "bias+gelu"])
 def test_gemm_grouped_rows_equal_gemm_aie_bitwise(cuda_device, case, dtype,
                                                   epi):
-    """Each row is B1's A[r] @ B[g(r)] bit for bit on the operands widened
-    to f32 (exact, and a no-op for f32): B7 runs one fmaf chain over k in
-    order and the shared flush at every tile, as B1's f32 body does
-    (B1's bf16 body runs the tensor-core chain instead)."""
-    sizes, m = GROUP_CASES[case]
+    """Each row is B1's A[r] @ B[g(r)] bit for bit on the same operands,
+    at every CTA shape B7 launches: a bf16 row B1's tensor-core chain
+    (one m16n8k16 sequence over k ascending, the k = 300 tail zero-filled
+    to the 16-grid), an f32 row B1's fmaf body; the edge cases straddle
+    tiles with several groups."""
+    sizes, m = {**GROUP_CASES, **QWEN3_CASES}[case]
     k, n = 300, 200
     a, b, gs, bias = _grouped_operands(sizes, m, k, n, dtype, cuda_device, 3)
     kw = {"out_dtype": dtype}
     if epi != "none":
         kw.update(activation="gelu")
-    for tile in ((8, 128), (16, 64), (32, 32)):
-        got = gemm_grouped(a, b, gs, tile=TileConfig(tile[0], 64, tile[1]),
+    for cta in _ctas(dtype):
+        got = gemm_grouped(a, b, gs, cta=cta,
                            bias=bias if epi != "none" else None, **kw)
         torch.cuda.synchronize()
         start = 0
         for g, size in enumerate(sizes):
             if size:
-                want = gemm_aie(a[start:start + size].float(),
-                                b[g].float(),
+                want = gemm_aie(a[start:start + size], b[g],
                                 bias=bias[g] if epi != "none" else None,
                                 **kw)
-                assert torch.equal(got[start:start + size], want), (tile, g)
+                assert torch.equal(got[start:start + size], want), (cta, g)
             start += size
+        assert not got[start:].any(), cta
 
 
 def test_gemm_grouped_is_batch_invariant(cuda_device):
-    """One row's output does not depend on the other rows in the call."""
+    """One row's output does not depend on the other rows in the call, at
+    the decode CTA shape."""
     a, b, gs, _ = _grouped_operands([3, 0, 4, 1], 8, 512, 384,
                                     torch.bfloat16, cuda_device, 5)
-    full = gemm_grouped(a, b, gs, tile=TileConfig(8, 64, 128),
-                        out_dtype=torch.bfloat16)
+    full = gemm_grouped(a, b, gs, cta=1, out_dtype=torch.bfloat16)
     for r, g in ((0, 0), (5, 2), (7, 3)):
         one = torch.zeros(4, dtype=torch.int32, device=cuda_device)
         one[g] = 1
-        solo = gemm_grouped(a[r:r + 1], b, one, tile=TileConfig(8, 64, 128),
+        solo = gemm_grouped(a[r:r + 1], b, one, cta=1,
                             out_dtype=torch.bfloat16)
         torch.cuda.synchronize()
         assert torch.equal(solo[0], full[r]), r
@@ -648,12 +678,12 @@ def test_gemm_grouped_planned_launches_and_refusals(cuda_device):
         y.float(), gemm_grouped_plain(a, b, gs, activation="silu",
                                       out_dtype=torch.bfloat16).float(),
         atol=2e-2, rtol=2e-2)
-    with pytest.raises(ValueError, match="256 threads"):
-        gemm_grouped(a, b, gs, tile=TileConfig(16, 64, 256))
+    with pytest.raises(ValueError, match="no CTA shape"):
+        gemm_grouped(a, b, gs, cta=0)
     with pytest.raises(NotImplementedError, match="A8"):
-        gemm_grouped(a, b.to(torch.int8), gs, tile=TileConfig(8, 64, 128))
+        gemm_grouped(a, b.to(torch.int8), gs)
     with pytest.raises(TypeError, match="differ"):
-        gemm_grouped(a, b.float(), gs, tile=TileConfig(8, 64, 128))
+        gemm_grouped(a, b.float(), gs)
 
 
 def test_moe_ffn_is_batch_invariant_on_the_card(cuda_device):

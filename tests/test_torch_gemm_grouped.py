@@ -10,7 +10,7 @@ plans) against the JAX package's, on the CPU.
 * Grouped plans on the port's ``TPU_V5E`` copy equal
   ``repro.kernels.api.plan``'s: tile, instances, modeled bytes and flops
   to a relative 1e-12; the ``HOPPER_H100`` plans of the qwen3-moe serve
-  shapes are pinned.
+  shapes, and the CTA tile B7 launches for each, are pinned.
 
 The CUDA kernel itself is held against the plain version on the card
 (``tests/test_torch_cuda.py``).
@@ -34,6 +34,8 @@ from repro_torch.core import tiling as t_tiling
 from repro_torch.core.hardware import HOPPER_H100, TPU_V5E
 from repro_torch.kernels import api
 from repro_torch.kernels.epilogue import Epilogue
+from repro_torch.kernels.gemm_grouped import BF16_TILES, F32_TILES
+from repro_torch.kernels.gemm_grouped import cta_tile as grouped_cta_tile
 from repro_torch.kernels.gemm_grouped import (gemm_grouped,
                                               gemm_grouped_plain,
                                               group_metadata)
@@ -178,18 +180,18 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
     a, b, gs, bias = _operands([5, 0, 9], 20, 32, 24)
     ta, tb, tg = map(torch.as_tensor, (a, b, gs))
     before = (gemm_grouped.launches, gemm_grouped_plain.launches)
-    y = gemm_grouped(ta, tb, tg, tile=t_tiling.TileConfig(8, 32, 32),
-                     bias=torch.as_tensor(bias), activation="relu",
-                     out_dtype=torch.float32)
+    y = gemm_grouped(ta, tb, tg, bias=torch.as_tensor(bias),
+                     activation="relu", out_dtype=torch.float32)
     assert (gemm_grouped.launches, gemm_grouped_plain.launches) == \
         (before[0], before[1] + 1)
     assert y.shape == (20, 24) and not y[14:].any()
     assert (y[:14] >= 0).all()
     with pytest.raises(NotImplementedError, match="A8"):
-        gemm_grouped(ta, tb, tg, tile=t_tiling.TileConfig(8, 32, 32),
-                     b_scale=torch.ones(3, 1, 24))
+        gemm_grouped(ta, tb, tg, b_scale=torch.ones(3, 1, 24))
     with pytest.raises(ValueError, match="group_sizes"):
-        gemm_grouped(ta, tb, tg[:2], tile=t_tiling.TileConfig(8, 32, 32))
+        gemm_grouped(ta, tb, tg[:2])
+    with pytest.raises(ValueError, match="no CTA shape"):
+        gemm_grouped(ta, tb, tg, cta=0)
 
 
 def _jspec(epilogue="", **kw):
@@ -243,26 +245,40 @@ def test_grouped_search_ranks_like_the_reference():
 
 
 #: HOPPER_H100's plan (bm, bk, bn) of qwen3-moe-235b-a22b's expert GEMMs
+#: (the cost model's tile: at most the 64 x 128 C block one CTA of B7
+#: covers) and the (bm, bk, bn) CTA tile B7 launches for it
 HOPPER_GROUPED_PLANS = {
-    (64, 4096, 1536): (8, 32, 128),      # decode gate / up
-    (64, 1536, 4096): (8, 32, 128),      # decode down
-    (2400, 4096, 1536): (16, 32, 64),    # 300-token prefill gate / up
-    (2400, 1536, 4096): (16, 32, 64),    # 300-token prefill down
+    (64, 4096, 1536): ((8, 32, 128), (16, 64, 128)),     # decode gate / up
+    (64, 1536, 4096): ((8, 32, 128), (16, 64, 128)),     # decode down
+    (2400, 4096, 1536): ((32, 32, 128), (64, 64, 128)),  # prefill gate / up
+    (2400, 1536, 4096): ((32, 32, 128), (64, 64, 128)),  # prefill down
 }
 
 
 @pytest.mark.parametrize("mkn", sorted(HOPPER_GROUPED_PLANS))
 def test_hopper_grouped_plans_are_pinned_and_launchable(mkn):
+    plan_tile, launched = HOPPER_GROUPED_PLANS[mkn]
     for ep in ("", "silu"):
         pl = ops.plan(_tspec(ep), mkn + (128,))
         t = pl.tile
-        assert (t.strategy, t.bm, t.bk, t.bn) == \
-            ("aie",) + HOPPER_GROUPED_PLANS[mkn]
+        assert (t.strategy, t.bm, t.bk, t.bn) == ("aie",) + plan_tile
         assert pl.kernel == "grouped" and pl.launches == {"gemm_grouped": 1}
+        assert grouped_cta_tile(mkn[0], 128) == launched
+        assert HOPPER_H100.grouped_launchable(*launched[::2])
         for d in t_dse.solve(api._problem_for(_tspec(ep), *mkn, 128),
                              HOPPER_H100, top=50):
             assert HOPPER_H100.grouped_launchable(d.tile.bm, d.tile.bn)
             assert d.tile.strategy == "aie"
+
+
+def test_every_cta_tile_b7_launches_is_launchable():
+    """Each CTA tile of either body covers a C block the grouped search
+    admits, and a larger block is refused."""
+    for tiles in (BF16_TILES, F32_TILES):
+        for bm, _, bn in tiles.values():
+            assert HOPPER_H100.grouped_launchable(bm, bn)
+    assert not HOPPER_H100.grouped_launchable(128, 128)
+    assert not HOPPER_H100.grouped_launchable(64, 256)
 
 
 def test_grouped_explain_states_kernel_instances_and_padding():
@@ -271,7 +287,15 @@ def test_grouped_explain_states_kernel_instances_and_padding():
     assert "B7 gemm_grouped" in text and "csrc/gemm_grouped.cu" in text
     assert "E=128 groups, <=135 tile instances" in text
     assert "m=64 of 1024 dense-capacity" in text
-    assert "padding  :" in text and "compiled k stage of 64" in text
+    assert "padding  :" in text
+    # the CTA tile B7 launches, by rows per expert, beside the plan's
+    assert "launches its compiled 16x64x128 (bm x bk x bn) CTA tile" in text
+    assert "rows per expert" in text and "tile     : aie 8x32x128" in text
+    pre = ops.plan(_tspec("silu"), (2400, 4096, 1536, 128, 3072)).explain()
+    assert "launches its compiled 64x64x128 (bm x bk x bn) CTA tile" in pre
+    f32 = ops.plan(_tspec(a_dtype="float32", b_dtype="float32"),
+                   (64, 256, 256, 128)).explain()
+    assert "launches its compiled 8x64x128 (bm x bk x bn) CTA tile" in f32
 
 
 def test_grouped_plans_key_on_groups_and_dense_rows():
