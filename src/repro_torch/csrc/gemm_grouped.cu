@@ -245,8 +245,10 @@ int launch_f32(int config, const void* a, const void* b, void* c,
 // BK-deep slabs through a ring of kStages stages, every warp staging.  A
 // stage holds the A slab, then the B slab.  Two CTAs share an SM when their
 // shared memory fits.
-template <int kWM, int kWN, int kFN, int kBK_, int kStages_>
+template <int kWM, int kWN, int kFN, int kBK_, int kStages_,
+          bool kPersist_ = true, bool kCopyOnly_ = false>
 struct GroupedShape {
+  static constexpr bool kPersist = kPersist_, kCopyOnly = kCopyOnly_;
   static constexpr int kWarps = kWM * kWN, kThreads = 32 * kWarps;
   static constexpr int kBM = 16 * kWM, kBN = 8 * kFN * kWN;
   static constexpr int kBK = kBK_, kStages = kStages_;
@@ -381,7 +383,7 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
     __syncthreads();  // slab q landed; every warp is done with slab q - 1
     if (q + S::kStages - 1 < total) load(q + S::kStages - 1);
     cp_async_commit();
-    if (live) {
+    if (live && !S::kCopyOnly) {
       const int s = q % S::kStages;
       // the slab is zero-filled past K, so its last step runs whole
       const int depth = min(S::kBK, p.K - cs * S::kBK);
@@ -445,7 +447,8 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
   // the static worst case of items, or as many CTAs as the card holds
   const long long most =
       static_cast<long long>(n_instances) * cdiv(p.N, S::kBN);
-  const int grid = most < resident ? static_cast<int>(most) : resident;
+  const int grid = most < resident || !S::kPersist ? static_cast<int>(most)
+                                                  : resident;
   kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), c,
@@ -466,15 +469,19 @@ int launch_bf16(int config, const void* a, const void* b, void* c,
                                                num_instances,           \
                                                n_instances, p, s)
   switch (config) {
-    case 1: REPRO_B7(1, 8, 2, 64, 6);
-    case 2: REPRO_B7(4, 2, 8, 64, 4);
-    case 3: REPRO_B7(1, 8, 2, 64, 12);
-    case 4: REPRO_B7(1, 8, 1, 64, 10);
-    case 5: REPRO_B7(1, 8, 2, 128, 3);
-    case 6: REPRO_B7(1, 8, 4, 64, 3);
-    case 7: REPRO_B7(4, 2, 4, 64, 6);
-    case 8: REPRO_B7(4, 2, 8, 64, 9);
-    case 9: REPRO_B7(2, 4, 4, 64, 5);
+    case 1: REPRO_B7(1, 8, 2, 128, 4, false);
+    case 2: REPRO_B7(4, 2, 8, 64, 4, false);
+    case 3: REPRO_B7(1, 8, 2, 128, 3);
+    case 4: REPRO_B7(1, 8, 2, 128, 3, false);
+    case 5: REPRO_B7(1, 8, 4, 64, 3, false);
+    case 6: REPRO_B7(1, 8, 4, 32, 6, false);
+    case 7: REPRO_B7(1, 8, 4, 32, 6);
+    case 8: REPRO_B7(1, 8, 2, 64, 6, false);
+    case 9: REPRO_B7(2, 4, 4, 64, 5, false);
+    case 10: REPRO_B7(1, 8, 2, 128, 5, false);
+    case 11: REPRO_B7(1, 8, 2, 64, 6, false, true);
+    case 12: REPRO_B7(1, 8, 2, 128, 3, true, true);
+    case 13: REPRO_B7(1, 8, 4, 64, 3, false, true);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
