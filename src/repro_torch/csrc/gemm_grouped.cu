@@ -254,11 +254,58 @@ struct GroupedShape {
   static constexpr int kBK = kBK_, kStages = kStages_;
   static constexpr int kWarpN = kWN, kFragN = kFN;
   static constexpr int kAElems = kBM * kBK;
-  static constexpr int kStageElems = kAElems + kBK * kBN;
+  static constexpr int kBLd = kBN + 8;  // a padded B row: 16 bytes more
+  static constexpr int kStageElems = kAElems + kBK * kBLd;
   static constexpr size_t kSmem = 2 * static_cast<size_t>(kStages) *
                                   kStageElems;
-  static constexpr int kMinBlocks = 2 * (kSmem + 1024) <= kSmSmem ? 2 : 1;
+  // with the ring's barriers and the 1 KB the card reserves for each CTA
+  static constexpr int kMinBlocks =
+      2 * (kSmem + 8 * kStages + 1024) <= kSmSmem ? 2 : 1;
 };
+
+// The bulk-copy engine (TMA without a tensor map): cp.async.bulk copies
+// contiguous bytes from global to shared memory and reports them to an
+// mbarrier in shared memory, whose phase completes when every byte it
+// expects has landed.
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_addr(bar)),
+      "r"(bytes)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  unsigned done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
 
 // One work item of the persistent grid: the n tile col0 of one live
 // instance, i.e. the rows [lo, lo + rows) of its m tile that its group g
@@ -322,9 +369,18 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   auto a_tile = [&](int s) {
     return smem_tile(ring + s * S::kStageElems, S::kBK);
   };
+  // B rows padded by 16 bytes and not swizzled: the 8 rows an ldmatrix
+  // phase reads fall on 8 distinct groups of 4 banks all the same, and a
+  // row is one contiguous run for the bulk copies
   auto b_tile = [&](int s) {
-    return smem_tile(ring + s * S::kStageElems + S::kAElems, S::kBN);
+    return SmemTile{ring + s * S::kStageElems + S::kAElems, S::kBLd, 3, 0};
   };
+  __shared__ uint64_t full[S::kStages];  // stage s's bulk copies landed
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
   // the loader walks the CTA's slabs in order: slab ls of item li (t = lt)
   int lt = c, ls = 0;
@@ -343,12 +399,29 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
                      p.mode_a, threadIdx.x);
     const __nv_bfloat16* b = B + static_cast<size_t>(li.g) * p.K * p.N +
                              static_cast<size_t>(k0) * p.N + li.col0;
-    if (p.mode_b == 2)
-      stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth,
-                               li.cols_valid, threadIdx.x);
-    else
-      stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth, li.cols_valid,
-                     p.mode_b, threadIdx.x);
+    if (p.mode_b == 2 && depth == S::kBK && li.cols_valid == S::kBN) {
+      // a whole slab: one bulk copy a row, issued by warp 0
+      if (threadIdx.x < 32) {
+        if (threadIdx.x == 0) {
+          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+          mbar_expect(&full[s], S::kBK * S::kBN * 2);
+        }
+        __syncwarp();
+        for (int r = threadIdx.x; r < S::kBK; r += 32)
+          bulk_copy(bt.p + r * S::kBLd, b + static_cast<size_t>(r) * p.N,
+                    S::kBN * 2, &full[s]);
+      }
+    } else {
+      // a ragged slab (k tail, n edge) or an unaligned bank: cp.async,
+      // zero-filled, and the stage's barrier completes with no bytes
+      if (p.mode_b == 2)
+        stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth,
+                                 li.cols_valid, threadIdx.x);
+      else
+        stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth,
+                       li.cols_valid, p.mode_b, threadIdx.x);
+      if (threadIdx.x == 0) mbar_arrive(&full[s]);
+    }
     if (++ls == slabs && q + 1 < total) {  // the loader's next item
       ls = 0;
       lt += G;
@@ -380,6 +453,7 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   }
   for (int q = 0; q < total; ++q) {
     cp_async_wait<S::kStages - 2>();
+    mbar_wait(&full[q % S::kStages], (q / S::kStages) & 1);
     __syncthreads();  // slab q landed; every warp is done with slab q - 1
     if (q + S::kStages - 1 < total) load(q + S::kStages - 1);
     cp_async_commit();
@@ -469,19 +543,17 @@ int launch_bf16(int config, const void* a, const void* b, void* c,
                                                num_instances,           \
                                                n_instances, p, s)
   switch (config) {
-    case 1: REPRO_B7(1, 8, 2, 128, 4, false);
+    case 1: REPRO_B7(1, 8, 2, 64, 5, false);
     case 2: REPRO_B7(4, 2, 8, 64, 4, false);
-    case 3: REPRO_B7(1, 8, 2, 128, 3);
-    case 4: REPRO_B7(1, 8, 2, 128, 3, false);
-    case 5: REPRO_B7(1, 8, 4, 64, 3, false);
-    case 6: REPRO_B7(1, 8, 4, 32, 6, false);
-    case 7: REPRO_B7(1, 8, 4, 32, 6);
-    case 8: REPRO_B7(1, 8, 2, 64, 6, false);
-    case 9: REPRO_B7(2, 4, 4, 64, 5, false);
-    case 10: REPRO_B7(1, 8, 2, 128, 5, false);
-    case 11: REPRO_B7(1, 8, 2, 64, 6, false, true);
-    case 12: REPRO_B7(1, 8, 2, 128, 3, true, true);
-    case 13: REPRO_B7(1, 8, 4, 64, 3, false, true);
+    case 3: REPRO_B7(1, 8, 2, 64, 5);
+    case 4: REPRO_B7(1, 8, 2, 128, 4, false);
+    case 5: REPRO_B7(1, 8, 2, 64, 10);
+    case 6: REPRO_B7(1, 8, 2, 64, 10, false);
+    case 7: REPRO_B7(4, 2, 8, 64, 4);
+    case 8: REPRO_B7(1, 8, 4, 64, 3, false);
+    case 9: REPRO_B7(1, 8, 4, 64, 6, false);
+    case 10: REPRO_B7(1, 8, 2, 64, 5, true, true);
+    case 11: REPRO_B7(1, 8, 2, 64, 10, false, true);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

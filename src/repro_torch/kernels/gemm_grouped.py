@@ -40,11 +40,10 @@ from repro_torch.kernels.ref import gemm_grouped_ref
 #: entry point takes (csrc/gemm_grouped.cu launch_bf16): 1 at decode (one
 #: 16-row block, eight warps across 128 columns), 2 in prefill (a 64-row
 #: m tile of four 16-row blocks by two 64-column halves)
-BF16_TILES = {1: (16, 128, 128), 2: (64, 64, 128), 3: (16, 128, 128),
-              4: (16, 128, 128), 5: (16, 64, 256), 6: (16, 32, 256),
-              7: (16, 32, 256), 8: (16, 64, 128), 9: (32, 64, 128),
-              10: (16, 128, 128), 11: (16, 64, 128), 12: (16, 128, 128),
-              13: (16, 64, 256)}
+BF16_TILES = {1: (16, 64, 128), 2: (64, 64, 128), 3: (16, 64, 128),
+              4: (16, 128, 128), 5: (16, 64, 128), 6: (16, 64, 128),
+              7: (64, 64, 128), 8: (16, 64, 256), 9: (16, 64, 256),
+              10: (16, 64, 128), 11: (16, 64, 128)}
 #: the (bm, bk, bn) C tiles of the f32 body, by the same index
 #: (csrc/gemm_grouped.cu launch_f32)
 F32_TILES = {1: (8, 64, 128), 2: (16, 64, 64)}
