@@ -58,6 +58,8 @@
 // therefore B1's A[r] @ B[g(r)] on the same operands bit for bit, at any CTA
 // shape, group layout or batch, and a token's expert output does not depend
 // on which other tokens share the batch.
+#include <cuda.h>
+
 #include "mma_chain.cuh"
 #include "staging.cuh"
 
@@ -242,9 +244,12 @@ int launch_f32(int config, const void* a, const void* b, void* c,
 
 // A CTA shape: kWM x kWN MMA warps, each owning one 16-row block of the m
 // tile and kFN m16n8 fragments of the n tile, so a BM x BN tile of C;
-// BK-deep slabs through a ring of kStages stages, every warp staging.  A
-// stage holds the A slab, then the B slab.  Two CTAs share an SM when their
-// shared memory fits.
+// BK-deep slabs (a multiple of 64) through a ring of kStages stages.  A
+// stage holds the A slab as BK / 64 panels of BM rows x 64 columns, then
+// the B slab as BN / 64 panels of BK rows x 64 columns, each panel 128
+// bytes a row and swizzled as the tensor memory accelerator's 128-byte
+// swizzle (= mma_chain.cuh's smem_tile(p, 64)).  Two CTAs share an SM when
+// their shared memory fits.
 template <int kWM, int kWN, int kFN, int kBK_, int kStages_,
           bool kPersist_ = true, bool kCopyOnly_ = false>
 struct GroupedShape {
@@ -253,20 +258,31 @@ struct GroupedShape {
   static constexpr int kBM = 16 * kWM, kBN = 8 * kFN * kWN;
   static constexpr int kBK = kBK_, kStages = kStages_;
   static constexpr int kWarpN = kWN, kFragN = kFN;
+  static_assert(kBK % 64 == 0 && kBN % 64 == 0 && 64 % (8 * kFN) == 0,
+                "whole 64-column panels, a warp's columns inside one");
   static constexpr int kAElems = kBM * kBK;
-  static constexpr int kBLd = kBN + 8;  // a padded B row: 16 bytes more
-  static constexpr int kStageElems = kAElems + kBK * kBLd;
-  static constexpr size_t kSmem = 2 * static_cast<size_t>(kStages) *
-                                  kStageElems;
+  static constexpr int kStageElems = kAElems + kBK * kBN;
+  // the ring, and 1 KB to align it to the swizzle's 1024-byte period
+  static constexpr size_t kSmem =
+      2 * static_cast<size_t>(kStages) * kStageElems + 1024;
   // with the ring's barriers and the 1 KB the card reserves for each CTA
   static constexpr int kMinBlocks =
       2 * (kSmem + 8 * kStages + 1024) <= kSmSmem ? 2 : 1;
 };
 
-// The bulk-copy engine (TMA without a tensor map): cp.async.bulk copies
-// contiguous bytes from global to shared memory and reports them to an
-// mbarrier in shared memory, whose phase completes when every byte it
-// expects has landed.
+// Element (r, c) of a slab held as 64-column panels of kRows rows, each
+// swizzled like smem_tile(p, 64): the layout the tensor memory accelerator
+// writes with its 128-byte swizzle, for the cp.async path to match.
+template <int kRows>
+struct Panels {
+  __device__ __forceinline__ int at(int r, int c) const {
+    return (c >> 6) * (kRows * 64) + r * 64 +
+           (((((c >> 3) & 7) ^ (r & 7)) << 3) | (c & 7));
+  }
+};
+
+// mbarriers in shared memory: a stage's barrier completes its phase when
+// its one arrival (with the bytes it expects) and those bytes have landed.
 __device__ __forceinline__ void mbar_init(uint64_t* bar) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
                    smem_addr(bar))
@@ -298,12 +314,28 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
   } while (!done);
 }
-__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
-                                          int bytes, uint64_t* bar) {
+
+// One tensor-memory-accelerator copy of the box at coordinates (x, y[, z])
+// of a tensor map into shared memory, reported to bar.  Elements outside
+// the tensor land as zeros.
+__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
+                                       int x, int y, uint64_t* bar) {
   asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
-      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
+      "r"(smem_addr(bar))
+      : "memory");
+}
+__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
+                                       int x, int y, int z, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
+      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
+      "r"(smem_addr(bar))
       : "memory");
 }
 
@@ -311,8 +343,8 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 // instance, i.e. the rows [lo, lo + rows) of its m tile that its group g
 // owns (rows > 0 for every live instance of group_metadata's tables), and
 // the rows of the A tile staged for them: the rows rounded up to whole
-// 16-row blocks, the rest zero-filled; a 16-row tile with at most 8 rows
-// stages 8, and its fragment's other 8 read as zero (B1's edge).
+// 16-row blocks; a 16-row tile with at most 8 rows uses 8, and its
+// fragment's other 8 read as zero (B1's edge).
 struct Item {
   int g, lo, rows, a_rows, col0, cols_valid;
 };
@@ -343,7 +375,10 @@ __device__ __forceinline__ Item item_at(int t, int n_tiles,
 // instances together and no wave is left part-empty.  The ring runs over
 // the CTA's items' slabs in one sequence: the slabs of the next item are in
 // flight while the warps finish the one before, and an item's flush (the
-// epilogue and its stores) does not drain the ring.
+// epilogue and its stores) does not drain the ring.  With tensor maps
+// (tma) one thread fills a stage with a few box copies; without (an
+// operand whose rows are not whole 16-byte units), every thread stages it
+// by cp.async, zero-filled, into the same layout.
 template <typename S>
 __global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
@@ -353,7 +388,9 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
                         const int* __restrict__ group_ids,
                         const int* __restrict__ m_tile_ids,
                         const int* __restrict__ num_instances,
-                        GroupedArgs p) {
+                        const __grid_constant__ CUtensorMap map_a,
+                        const __grid_constant__ CUtensorMap map_b,
+                        GroupedArgs p, bool tma) {
   const int n_tiles = (p.N + S::kBN - 1) / S::kBN;
   const int items = *num_instances * n_tiles;
   const int c = blockIdx.x, G = gridDim.x;
@@ -361,21 +398,17 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   const int slabs = (p.K + S::kBK - 1) / S::kBK;
   const int total = ((items - c + G - 1) / G) * slabs;  // this CTA's slabs
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
+      smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
   const int warp = threadIdx.x >> 5;
   const int wr = (warp / S::kWarpN) * 16;               // warp's rows
   const int wc = (warp % S::kWarpN) * 8 * S::kFragN;   // warp's columns
   constexpr bool kEdge = S::kBM == 16;
-  auto a_tile = [&](int s) {
-    return smem_tile(ring + s * S::kStageElems, S::kBK);
+  auto a_slab = [&](int s) { return ring + s * S::kStageElems; };
+  auto b_slab = [&](int s) {
+    return ring + s * S::kStageElems + S::kAElems;
   };
-  // B rows padded by 16 bytes and not swizzled: the 8 rows an ldmatrix
-  // phase reads fall on 8 distinct groups of 4 banks all the same, and a
-  // row is one contiguous run for the bulk copies
-  auto b_tile = [&](int s) {
-    return SmemTile{ring + s * S::kStageElems + S::kAElems, S::kBLd, 3, 0};
-  };
-  __shared__ uint64_t full[S::kStages];  // stage s's bulk copies landed
+  __shared__ uint64_t full[S::kStages];  // stage s has landed
   if (threadIdx.x == 0) {
     for (int s = 0; s < S::kStages; ++s) mbar_init(&full[s]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -386,40 +419,29 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   int lt = c, ls = 0;
   Item li = item_at<S>(lt, n_tiles, offsets, group_ids, m_tile_ids, p);
   auto load = [&](int q) {
-    constexpr int kT = S::kThreads;
     const int s = q % S::kStages, k0 = ls * S::kBK;
-    const int depth = min(S::kBK, p.K - k0);
-    const SmemTile at = a_tile(s), bt = b_tile(s);
-    const __nv_bfloat16* a = A + static_cast<size_t>(li.lo) * p.K + k0;
-    if (p.mode_a == 2)
-      stage_rows16<kT, S::kBK>(at.p, at, a, p.K, li.a_rows, li.rows, depth,
-                               threadIdx.x);
-    else
-      stage_rows<kT>(at.p, at, a, p.K, li.a_rows, S::kBK, li.rows, depth,
-                     p.mode_a, threadIdx.x);
-    const __nv_bfloat16* b = B + static_cast<size_t>(li.g) * p.K * p.N +
-                             static_cast<size_t>(k0) * p.N + li.col0;
-    if (p.mode_b == 2 && depth == S::kBK && li.cols_valid == S::kBN) {
-      // a whole slab: one bulk copy a row, issued by warp 0
-      if (threadIdx.x < 32) {
-        if (threadIdx.x == 0) {
-          asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-          mbar_expect(&full[s], S::kBK * S::kBN * 2);
-        }
-        __syncwarp();
-        for (int r = threadIdx.x; r < S::kBK; r += 32)
-          bulk_copy(bt.p + r * S::kBLd, b + static_cast<size_t>(r) * p.N,
-                    S::kBN * 2, &full[s]);
+    if (tma) {
+      if (threadIdx.x == 0) {
+        const int a_boxes = (li.a_rows + 15) / 16;  // 16 rows x 64 columns
+        mbar_expect(&full[s], 2 * (a_boxes * 16 * S::kBK + S::kBK * S::kBN));
+        for (int u = 0; u < S::kBK / 64; ++u)
+          for (int i = 0; i < a_boxes; ++i)
+            tma_2d(a_slab(s) + u * S::kBM * 64 + i * 16 * 64, &map_a,
+                   k0 + 64 * u, li.lo + 16 * i, &full[s]);
+        for (int h = 0; h < S::kBN / 64; ++h)  // BK rows x 64 columns
+          tma_3d(b_slab(s) + h * S::kBK * 64, &map_b, li.col0 + 64 * h, k0,
+                 li.g, &full[s]);
       }
     } else {
-      // a ragged slab (k tail, n edge) or an unaligned bank: cp.async,
-      // zero-filled, and the stage's barrier completes with no bytes
-      if (p.mode_b == 2)
-        stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth,
-                                 li.cols_valid, threadIdx.x);
-      else
-        stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth,
-                       li.cols_valid, p.mode_b, threadIdx.x);
+      constexpr int kT = S::kThreads;
+      const int depth = min(S::kBK, p.K - k0);
+      const __nv_bfloat16* a = A + static_cast<size_t>(li.lo) * p.K + k0;
+      const __nv_bfloat16* b = B + static_cast<size_t>(li.g) * p.K * p.N +
+                               static_cast<size_t>(k0) * p.N + li.col0;
+      stage_rows<kT>(a_slab(s), Panels<S::kBM>{}, a, p.K, li.a_rows,
+                     S::kBK, li.rows, depth, p.mode_a, threadIdx.x);
+      stage_rows<kT>(b_slab(s), Panels<S::kBK>{}, b, p.N, S::kBK, S::kBN,
+                     depth, li.cols_valid, p.mode_b, threadIdx.x);
       if (threadIdx.x == 0) mbar_arrive(&full[s]);
     }
     if (++ls == slabs && q + 1 < total) {  // the loader's next item
@@ -441,29 +463,41 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   int ct = c, cs = 0;
   Item ci = li;
   bool live = wr < ci.rows;
-  // The ring, as B1's: kStages - 1 slabs in flight before the first
-  // products; slab q + kStages - 1 is issued in iteration q, into the stage
-  // that slab q - 1 left, after the barrier that says every warp is done
-  // with it, so the wait for a slab overlaps the products of the slab
-  // before it.
-#pragma unroll
+  const int wh = wc >> 6, wcol = wc & 63;  // the warp's panel, its column
+  // The ring: kStages - 1 slabs in flight before the first products; slab
+  // q + kStages - 1 is issued in iteration q, into the stage that slab
+  // q - 1 left, after the barrier that says every warp is done with it, so
+  // the wait for a slab overlaps the products of the slab before it.
   for (int q = 0; q < S::kStages - 1; ++q) {
     if (q < total) load(q);
     cp_async_commit();
   }
   for (int q = 0; q < total; ++q) {
+    const int s = q % S::kStages;
     cp_async_wait<S::kStages - 2>();
-    mbar_wait(&full[q % S::kStages], (q / S::kStages) & 1);
+    mbar_wait(&full[s], (q / S::kStages) & 1);
     __syncthreads();  // slab q landed; every warp is done with slab q - 1
-    if (q + S::kStages - 1 < total) load(q + S::kStages - 1);
+    if (q + S::kStages - 1 < total) {
+      if (tma && threadIdx.x == 0)  // generic reads of the stage, then
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      load(q + S::kStages - 1);     // the copy engine's writes
+    }
     cp_async_commit();
     if (live && !S::kCopyOnly) {
-      const int s = q % S::kStages;
-      // the slab is zero-filled past K, so its last step runs whole
+      // the k tail reads zeros up to the 16-grid (out of the tensor, or
+      // zero-filled)
       const int depth = min(S::kBK, p.K - cs * S::kBK);
-      const int k_len = depth == S::kBK ? S::kBK : (depth + 15) & ~15;
-      mma_slab<1, S::kFragN, kEdge>(acc, a_tile(s), wr, ci.a_rows - wr,
-                                    b_tile(s), wc, S::kBN - wc, k_len);
+      const int k_len = (depth + 15) & ~15;
+#pragma unroll
+      for (int u = 0; u < S::kBK / 64; ++u) {
+        const int kl = min(64, k_len - 64 * u);
+        if (kl <= 0) break;
+        mma_slab<1, S::kFragN, kEdge>(
+            acc, smem_tile(a_slab(s) + u * S::kBM * 64, 64), wr,
+            ci.a_rows - wr,
+            smem_tile(b_slab(s) + wh * S::kBK * 64 + u * 64 * 64, 64), wcol,
+            64 - wcol, kl);
+      }
     }
     if (++cs < slabs) continue;
     // the item's last slab: flush its rows and start the next item
@@ -501,11 +535,52 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   }
 }
 
+// cuTensorMapEncodeTiled, found through the runtime (no link to the driver
+// library); null if the driver lacks it.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  static bool looked = false;
+  if (!looked) {
+    looked = true;
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
+                                cudaEnableDefault, &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(f);
+  }
+  return fn;
+}
+
+// A bf16 tensor map of `rank` dims (innermost first, byte strides of the
+// outer ones) read in boxes of 64 elements x box[1] (x 1) with the 128-byte
+// swizzle; false if it cannot be made.
+bool bf16_map(CUtensorMap* map, const void* base, int rank,
+              const cuuint64_t* dims, const cuuint64_t* strides,
+              cuuint32_t box_rows) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint32_t box[3] = {64, box_rows, 1}, unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+                const_cast<void*>(base), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
 template <typename S>
 int launch_mma(const void* a, const void* b, void* c, const void* bias,
                const int* offsets, const int* group_ids,
                const int* m_tile_ids, const int* num_instances,
-               int n_instances, const GroupedArgs& p, cudaStream_t stream) {
+               int n_instances, int n_groups, const GroupedArgs& p,
+               cudaStream_t stream) {
   auto kernel = gemm_grouped_mma_kernel<S>;
   static int resident = 0;  // CTAs the card holds at once, found once
   if (resident == 0) {
@@ -518,6 +593,22 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
                                                   S::kThreads, S::kSmem);
     resident = sms * per_sm > 0 ? sms * per_sm : 1;
   }
+  // tensor maps need 16-byte aligned bases and rows (copy mode 2): A as
+  // (M rows, K), B as (E, K rows, N)
+  CUtensorMap map_a{}, map_b{};
+  bool tma = p.mode_a == 2 && p.mode_b == 2;
+  if (tma) {
+    const cuuint64_t da[2] = {static_cast<cuuint64_t>(p.K),
+                              static_cast<cuuint64_t>(p.M)};
+    const cuuint64_t sa[1] = {static_cast<cuuint64_t>(p.K) * 2};
+    const cuuint64_t db[3] = {static_cast<cuuint64_t>(p.N),
+                              static_cast<cuuint64_t>(p.K),
+                              static_cast<cuuint64_t>(n_groups)};
+    const cuuint64_t sb[2] = {static_cast<cuuint64_t>(p.N) * 2,
+                              static_cast<cuuint64_t>(p.N) * p.K * 2};
+    tma = bf16_map(&map_a, a, 2, da, sa, 16) &&
+          bf16_map(&map_b, b, 3, db, sb, S::kBK);
+  }
   // the static worst case of items, or as many CTAs as the card holds
   const long long most =
       static_cast<long long>(n_instances) * cdiv(p.N, S::kBN);
@@ -527,7 +618,7 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), c,
       static_cast<const float*>(bias), offsets, group_ids, m_tile_ids,
-      num_instances, p);
+      num_instances, map_a, map_b, p, tma);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -536,24 +627,26 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
 int launch_bf16(int config, const void* a, const void* b, void* c,
                 const void* bias, const int* offsets, const int* group_ids,
                 const int* m_tile_ids, const int* num_instances,
-                int n_instances, const GroupedArgs& p, cudaStream_t s) {
+                int n_instances, int n_groups, const GroupedArgs& p,
+                cudaStream_t s) {
 #define REPRO_B7(...)                                                   \
   return launch_mma<GroupedShape<__VA_ARGS__>>(a, b, c, bias, offsets,  \
                                                group_ids, m_tile_ids,   \
                                                num_instances,           \
-                                               n_instances, p, s)
+                                               n_instances, n_groups, p, \
+                                               s)
   switch (config) {
-    case 1: REPRO_B7(1, 8, 2, 64, 5, false);
+    case 1: REPRO_B7(1, 8, 2, 64, 6, false);
     case 2: REPRO_B7(4, 2, 8, 64, 4, false);
-    case 3: REPRO_B7(1, 8, 2, 64, 5);
-    case 4: REPRO_B7(1, 8, 2, 128, 4, false);
-    case 5: REPRO_B7(1, 8, 2, 64, 10);
-    case 6: REPRO_B7(1, 8, 2, 64, 10, false);
+    case 3: REPRO_B7(1, 8, 2, 64, 6);
+    case 4: REPRO_B7(1, 8, 2, 128, 3, false);
+    case 5: REPRO_B7(1, 8, 2, 128, 3);
+    case 6: REPRO_B7(1, 8, 2, 64, 12);
     case 7: REPRO_B7(4, 2, 8, 64, 4);
     case 8: REPRO_B7(1, 8, 4, 64, 3, false);
-    case 9: REPRO_B7(1, 8, 4, 64, 6, false);
-    case 10: REPRO_B7(1, 8, 2, 64, 5, true, true);
-    case 11: REPRO_B7(1, 8, 2, 64, 10, false, true);
+    case 9: REPRO_B7(1, 8, 2, 128, 4, false);
+    case 10: REPRO_B7(1, 8, 2, 64, 6, false, true);
+    case 11: REPRO_B7(4, 2, 8, 64, 8);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -574,7 +667,7 @@ extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
                                    const void* group_ids,
                                    const void* m_tile_ids,
                                    const void* num_instances, int n_instances,
-                                   int m, int n, int k, int config,
+                                   int m, int n, int k, int e, int config,
                                    int in_dtype, int out_dtype, int act,
                                    int mode_a, int mode_b, void* stream) {
   using namespace repro;
@@ -589,7 +682,7 @@ extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
   const int* live = static_cast<const int*>(num_instances);
   if (in_dtype == kBF16)
     return launch_bf16(config, a, b, c, bias, offs, gids, tids, live,
-                       n_instances, p, s);
+                       n_instances, e, p, s);
   return launch_f32(config, a, b, c, bias, offs, gids, tids, live,
                     n_instances, p, s);
 }

@@ -41,14 +41,14 @@ from repro_torch.kernels.ref import gemm_grouped_ref
 #: 16-row block, eight warps across 128 columns), 2 in prefill (a 64-row
 #: m tile of four 16-row blocks by two 64-column halves)
 BF16_TILES = {1: (16, 64, 128), 2: (64, 64, 128), 3: (16, 64, 128),
-              4: (16, 128, 128), 5: (16, 64, 128), 6: (16, 64, 128),
-              7: (64, 64, 128), 8: (16, 64, 256), 9: (16, 64, 256),
-              10: (16, 64, 128), 11: (16, 64, 128)}
+              4: (16, 128, 128), 5: (16, 128, 128), 6: (16, 64, 128),
+              7: (64, 64, 128), 8: (16, 64, 256), 9: (16, 128, 128),
+              10: (16, 64, 128), 11: (64, 64, 128)}
 #: the (bm, bk, bn) C tiles of the f32 body, by the same index
 #: (csrc/gemm_grouped.cu launch_f32)
 F32_TILES = {1: (8, 64, 128), 2: (16, 64, 64)}
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
 
 
 def _tiles(dtype) -> dict:
@@ -238,7 +238,7 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         bias32.data_ptr() if bias32 is not None else None,
         offsets.data_ptr(), group_ids.data_ptr(), m_tile_ids.data_ptr(),
-        live.data_ptr(), group_ids.shape[0], m, n, k, config, in_code,
+        live.data_ptr(), group_ids.shape[0], m, n, k, e, config, in_code,
         out_code, ACT_CODES[activation], _build.copy_mode(a, k, bk),
         _build.copy_mode(b, n, bn), _build.stream_of(a))
     _build.check(rc, "gemm_grouped")
