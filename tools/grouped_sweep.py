@@ -8,8 +8,10 @@ decode step and 300-token prefill expert GEMMs) and each CTA shape in
 ``BF16_TILES``: every group's rows must equal ``gemm_aie`` on them bit
 for bit and the rows past the groups must be zero (the run fails
 otherwise); then the launch is timed as ``chip_smoke.py`` times it
-(CUDA-graph replays over cold operands), beside ``torch._grouped_mm``
-in the same call.  Prints one line a (case, shape) and writes them to
+(CUDA-graph replays over cold operands), and again with its steering
+tables built once outside the timed calls (``shared_tables``, as a MoE
+layer shares them among its three GEMMs), beside the tables alone and
+``torch._grouped_mm`` in the same call.  Prints one line a (case, shape) and writes them to
 ``chiprun_out/grouped_sweep.json``.
 """
 
@@ -28,7 +30,7 @@ import chip_smoke as S  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.gemm_aie import gemm_aie  # noqa: E402
 from repro_torch.kernels.gemm_grouped import (  # noqa: E402
-    BF16_TILES, gemm_grouped)
+    BF16_TILES, cta_tile, gemm_grouped, group_metadata, shared_tables)
 
 
 def check(args, kw, cta):
@@ -65,6 +67,12 @@ def main() -> None:
             lib = S.device_ms(case["library"], inputs)
             b, _ = case["cost"](args, kw)
             bound = b / S.PEAK_BYTES * 1e3
+            m, e = args[0].shape[0], args[2].shape[0]
+            tables = S.device_ms(
+                lambda a_, b_, gs, **k_: group_metadata(
+                    gs, m, cta_tile(m, e)[0]), inputs)
+            S.log(f"  {case['name']:36s} steering tables alone "
+                  f"{tables * 1e3:8.1f} us")
             for cta, tile in BF16_TILES.items():
                 bad, past = check(args, kw, cta)
                 if bad or past:
@@ -75,13 +83,21 @@ def main() -> None:
                 ms = S.device_ms(
                     lambda *a_, **k_: gemm_grouped(*a_, cta=cta, **k_),
                     inputs)
+                # the tables built once, outside the timed calls, as a MoE
+                # layer builds them once for its three GEMMs
+                with shared_tables():
+                    shared = S.device_ms(
+                        lambda *a_, **k_: gemm_grouped(*a_, cta=cta, **k_),
+                        inputs)
                 rows.append({"case": case["name"], "cta": cta,
-                             "tile": tile, "ms": ms, "library_ms": lib,
+                             "tile": tile, "ms": ms, "shared_ms": shared,
+                             "tables_ms": tables, "library_ms": lib,
                              "bound_ms": bound, "bitwise": not bad,
                              "rows_past_zero": not past})
                 S.log(f"  {case['name']:36s} CTA {cta:2d} "
                       f"{tile[0]:3d}x{tile[1]:3d}x{tile[2]:3d}  "
-                      f"{ms * 1e3:8.1f} us  _grouped_mm {lib * 1e3:8.1f} us"
+                      f"{ms * 1e3:8.1f} us ({shared * 1e3:8.1f} with shared "
+                      f"tables)  _grouped_mm {lib * 1e3:8.1f} us"
                       f"  bound {bound * 1e3:7.1f} us")
             del inputs, args, kw
             torch.cuda.empty_cache()
