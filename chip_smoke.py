@@ -112,7 +112,8 @@ from repro_torch.kernels import api  # noqa: E402
 from repro_torch.kernels.gemm_gated import (  # noqa: E402
     cta_tile as gated_cta_tile, gemm_gated, gemm_gated_plain)
 from repro_torch.kernels.gemm_grouped import (  # noqa: E402
-    cta_tile as grouped_cta_tile, gemm_grouped, gemm_grouped_plain)
+    cta_tile as grouped_cta_tile, gemm_grouped, gemm_grouped_plain,
+    group_metadata, steering_tables)
 from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
@@ -883,11 +884,21 @@ def grouped_bitwise_phase():
     case launches one), row block ``g`` of the grouped GEMM equals
     gemm_aie of those rows against expert ``g``'s weights with the same
     epilogue, on the same operands: a bf16 row B1's tensor-core chain,
-    an f32 row B1's fmaf body.  Rows past the groups are zero."""
+    an f32 row B1's fmaf body.  Rows past the groups are zero.  The
+    steering tables the card builds (one launch of B7's table kernel)
+    equal group_metadata's on the CPU at both shapes' m tiles."""
     checked = 0
     for case in grouped_cases():
         (a, b, gs), kw = case["make"]()
         sizes = gs.tolist()
+        for bm in {grouped_cta_tile(1, 1, a.dtype)[0],
+                   grouped_cta_tile(2, 1, a.dtype)[0]}:
+            got = steering_tables(gs, a.shape[0], bm)
+            want = group_metadata(gs.cpu(), a.shape[0], bm)
+            for x, y in zip((*got[0], got[1]), (*want[0], want[1])):
+                if not torch.equal(x.cpu(), y):
+                    raise RuntimeError(f"steering tables != group_metadata "
+                                       f"for {case['name']} at bm {bm}")
         for cta in (1, 2):
             got = gemm_grouped(a, b, gs, cta=cta, **kw)
             start = 0
@@ -910,7 +921,8 @@ def grouped_bitwise_phase():
         del a, b
     log(f"gemm_grouped == gemm_aie (bf16: the tensor-core chain; f32: the "
         f"fmaf body), bit for bit: {checked} groups over the B7 cases at "
-        "both CTA shapes each; rows past the groups zero")
+        "both CTA shapes each; rows past the groups zero; the card's "
+        "steering tables == group_metadata's")
     return checked
 
 

@@ -18,27 +18,33 @@
 // enough bytes in flight on every SM (one SM streams 5.5 / 9.2 / 13.5 B a
 // cycle with 32 / 64 / 128 KB of cp.async in flight: PERF.md §6).
 //
-// Steering: the tables are built on the device by the wrapper with a static
-// length tiles_m + E - 1 at the CTA's m tile (kernels/gemm_grouped.py
-// group_metadata), so no host ever learns the live instance count: the grid
-// is the static worst case, blockIdx.x an n tile, blockIdx.y an instance (so
-// the CTAs reading one expert's panel launch side by side and read its
-// k-rows together), and a CTA at or past the live count (read from device
-// memory) exits at once.  A live CTA owns the rows [lo, lo + rows) of its m
-// tile that its group owns, and the columns of its n tile.
+// Steering: the tables are built on the device with a static length
+// tiles_m + E - 1 at the CTA's m tile (grouped_tables_kernel below, the
+// function of kernels/gemm_grouped.py group_metadata), so no host ever learns
+// the live instance count: the grid is the static worst case, blockIdx.x an
+// n tile, blockIdx.y an instance (so the CTAs reading one expert's panel
+// launch side by side and read its k-rows together), and a CTA at or past
+// the live count (read from device memory) exits at once.  A live CTA owns
+// the rows [lo, lo + rows) of its m tile that its group owns, and the
+// columns of its n tile.  The CTAs zero the rows past the groups between
+// them, so C needs no clearing first.
 //
-// Design (bf16 operands): B1's tensor-core dataflow (gemm_aie.cu) on the
-// group's rows.  The CTA stages only those rows, from row 0 of its A tile,
-// so its 16-row warps hold no other group's rows, and a warp whose 16-row
-// block holds none of them skips the products; the expert's BK x BN slabs
-// come through a ring of kStages shared-memory stages filled by 16-byte
-// cp.async (staging.cuh) into mma_chain.cuh's swizzled tiles, several slabs
-// in flight while the warps multiply the oldest.  The wrapper
-// (kernels/gemm_grouped.py cta_tile) picks the CTA shape by rows per expert:
-// at decode one 16-row block and eight warps across a 128-column n tile, so
-// no warp idles on rows another group owns; in prefill a 64-row m tile of
-// four 16-row blocks by two 64-column halves, so most experts' rows fit one
-// instance and their panels stream once.
+// Design (bf16 operands): B1's tensor-core chain (mma_chain.cuh) on the
+// group's rows, fed by the tensor memory accelerator.  One thread fills each
+// stage of a ring of kStages with a few box copies (the expert's BK x 64
+// column panels of B, and the group's rows of A from its first row, 16 at a
+// time), which land on the stage's mbarrier in the 128-byte swizzle that
+// mma_chain.cuh's ldmatrix reads; several stages are in flight while the
+// warps multiply the oldest.  A warp whose 16-row block holds none of the
+// group's rows skips the products.  The wrapper (kernels/gemm_grouped.py
+// cta_tile) picks the CTA shape by rows per expert: at decode one 16-row
+// block and eight warps across a 128-column n tile, 128-deep slabs, four
+// stages (144 KB: one CTA an SM, 108 KB of B in flight), so no warp idles
+// on rows another group owns; in prefill a 64-row m tile of four 16-row
+// blocks by two 64-column halves, 64-deep slabs, four stages (96 KB, two
+// CTAs an SM), so most experts' rows fit one instance and their panels
+// stream once.  An operand whose rows are not whole 16-byte units (no
+// tensor map) is staged by cp.async into the same layout instead.
 //
 // f32 operands keep the CUDA-core body (gemm_grouped_f32_kernel): a thread
 // owns one C column and kRows rows of the tile, and one fmaf chain over
@@ -58,7 +64,7 @@
 // therefore B1's A[r] @ B[g(r)] on the same operands bit for bit, at any CTA
 // shape, group layout or batch, and a token's expert output does not depend
 // on which other tokens share the batch.
-#include <cuda.h>
+#include <cuda.h>  // CUtensorMap (no link to the driver library)
 
 #include "mma_chain.cuh"
 #include "staging.cuh"
@@ -70,7 +76,7 @@ constexpr int kMaxSmem = 232448;  // 227 KiB: one CTA's limit on sm_90
 constexpr int kSmSmem = 233472;   // 228 KiB: one SM's shared memory
 
 struct GroupedArgs {
-  int M, N, K;
+  int M, N, K, E;
   int bm, bn;     // the C tile (the f32 body's; the bf16 shape fixes its own)
   int act;
   int out_dtype;  // kF32 / kBF16
@@ -95,6 +101,60 @@ __device__ __forceinline__ bool instance_rows(const int* offsets,
   return lo < hi;
 }
 
+// Rows at and past the groups' end belong to no group: every CTA of the
+// grid zeroes its share of them, before it looks at its instance.
+__device__ __forceinline__ void zero_tail(void* C, const int* offsets,
+                                          const GroupedArgs& p) {
+  const size_t end = static_cast<size_t>(p.M) * p.N;
+  const size_t step =
+      static_cast<size_t>(gridDim.x) * gridDim.y * blockDim.x;
+  for (size_t i = static_cast<size_t>(min(offsets[p.E], p.M)) * p.N +
+                  (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                      blockDim.x +
+                  threadIdx.x;
+       i < end; i += step) {
+    if (p.out_dtype == kBF16)
+      static_cast<__nv_bfloat16*>(C)[i] = from_f32<__nv_bfloat16>(0.0f);
+    else
+      static_cast<float*>(C)[i] = 0.0f;
+  }
+}
+
+// The steering tables of group_metadata (kernels/gemm_grouped.py), by one
+// thread: offsets (E + 1) the groups' row offsets; the live instances in
+// group order, group g owning the m tiles floor(start / bm) ..
+// ceil(end / bm) - 1 (none when empty), their count in num_instances.  The
+// entries past it pad as the reference's repeats do: the last group, and
+// the m tiles after the last live one, then the last m tile.
+__global__ void grouped_tables_kernel(const int* __restrict__ sizes, int e,
+                                      int m, int bm, int n_instances,
+                                      int* __restrict__ offsets,
+                                      int* __restrict__ group_ids,
+                                      int* __restrict__ m_tile_ids,
+                                      int* __restrict__ num_instances) {
+  __shared__ int live, next_tile;
+  if (threadIdx.x == 0) {
+    int start = 0, inst = 0;
+    offsets[0] = 0;
+    for (int g = 0; g < e; ++g) {
+      const int end = start + sizes[g];
+      offsets[g + 1] = end;
+      if (end > start)
+        for (int t = start / bm; t < (end + bm - 1) / bm && inst < n_instances;
+             ++t, ++inst)
+          group_ids[inst] = g, m_tile_ids[inst] = t;
+      start = end;
+    }
+    *num_instances = live = inst;
+    next_tile = start > 0 ? (start - 1) / bm + 1 : 0;
+  }
+  __syncthreads();
+  const int last_tile = (m + bm - 1) / bm - 1;
+  for (int i = live + threadIdx.x; i < n_instances; i += blockDim.x)
+    group_ids[i] = e - 1,
+    m_tile_ids[i] = min(next_tile + (i - live), last_tile);
+}
+
 // ---------------------------------------------------------------------------
 // The CUDA-core body (f32 operands)
 // ---------------------------------------------------------------------------
@@ -112,6 +172,7 @@ gemm_grouped_f32_kernel(const float* __restrict__ A,
                         const int* __restrict__ m_tile_ids,
                         const int* __restrict__ num_instances,
                         GroupedArgs p) {
+  zero_tail(C, offsets, p);
   int g, row0, lo, hi;
   if (!instance_rows(offsets, group_ids, m_tile_ids, num_instances, p.bm,
                      p.M, g, row0, lo, hi))
@@ -219,8 +280,6 @@ int launch_f32(int config, const void* a, const void* b, void* c,
     p.bm = 16, p.bn = 64;
   else
     return static_cast<int>(cudaErrorInvalidValue);
-  if (n_instances > 65535)  // gridDim.y's limit
-    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(p.bm + p.bn) * kF32BK *
                       sizeof(float);  // A + B, 2 stages
   auto kernel = gemm_grouped_f32_kernel;
@@ -247,13 +306,11 @@ int launch_f32(int config, const void* a, const void* b, void* c,
 // BK-deep slabs (a multiple of 64) through a ring of kStages stages.  A
 // stage holds the A slab as BK / 64 panels of BM rows x 64 columns, then
 // the B slab as BN / 64 panels of BK rows x 64 columns, each panel 128
-// bytes a row and swizzled as the tensor memory accelerator's 128-byte
-// swizzle (= mma_chain.cuh's smem_tile(p, 64)).  Two CTAs share an SM when
-// their shared memory fits.
-template <int kWM, int kWN, int kFN, int kBK_, int kStages_,
-          bool kPersist_ = true, bool kCopyOnly_ = false>
+// bytes a row in the tensor memory accelerator's 128-byte swizzle (=
+// mma_chain.cuh's smem_tile(p, 64)).  Two CTAs share an SM when their
+// shared memory fits.
+template <int kWM, int kWN, int kFN, int kBK_, int kStages_>
 struct GroupedShape {
-  static constexpr bool kPersist = kPersist_, kCopyOnly = kCopyOnly_;
   static constexpr int kWarps = kWM * kWN, kThreads = 32 * kWarps;
   static constexpr int kBM = 16 * kWM, kBN = 8 * kFN * kWN;
   static constexpr int kBK = kBK_, kStages = kStages_;
@@ -339,46 +396,9 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
-// One work item of the persistent grid: the n tile col0 of one live
-// instance, i.e. the rows [lo, lo + rows) of its m tile that its group g
-// owns (rows > 0 for every live instance of group_metadata's tables), and
-// the rows of the A tile staged for them: the rows rounded up to whole
-// 16-row blocks; a 16-row tile with at most 8 rows uses 8, and its
-// fragment's other 8 read as zero (B1's edge).
-struct Item {
-  int g, lo, rows, a_rows, col0, cols_valid;
-};
-
-template <typename S>
-__device__ __forceinline__ Item item_at(int t, int n_tiles,
-                                        const int* offsets,
-                                        const int* group_ids,
-                                        const int* m_tile_ids,
-                                        const GroupedArgs& p) {
-  const int inst = t / n_tiles, nt = t - inst * n_tiles;
-  Item it;
-  it.g = group_ids[inst];
-  const int row0 = m_tile_ids[inst] * S::kBM;
-  it.lo = max(offsets[it.g], row0);
-  it.rows = max(0, min(min(offsets[it.g + 1], row0 + S::kBM), p.M) - it.lo);
-  it.a_rows = S::kBM == 16 && it.rows <= 8
-                  ? 8
-                  : min(S::kBM, max(16, (it.rows + 15) & ~15));
-  it.col0 = nt * S::kBN;
-  it.cols_valid = min(S::kBN, p.N - it.col0);
-  return it;
-}
-
-// The persistent grid: CTA c runs the live work items t = c, c + G, c + 2G,
-// ... (G CTAs, t = instance * n_tiles + n tile, the live count read from
-// device memory), so the CTAs of a wave stream the panels of neighbouring
-// instances together and no wave is left part-empty.  The ring runs over
-// the CTA's items' slabs in one sequence: the slabs of the next item are in
-// flight while the warps finish the one before, and an item's flush (the
-// epilogue and its stores) does not drain the ring.  With tensor maps
-// (tma) one thread fills a stage with a few box copies; without (an
-// operand whose rows are not whole 16-byte units), every thread stages it
-// by cp.async, zero-filled, into the same layout.
+// With tensor maps (tma), thread 0 fills a stage with box copies; without
+// (an operand whose rows are not whole 16-byte units), every thread stages
+// it by cp.async, zero-filled, into the same layout.
 template <typename S>
 __global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
@@ -391,19 +411,30 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
                         const __grid_constant__ CUtensorMap map_a,
                         const __grid_constant__ CUtensorMap map_b,
                         GroupedArgs p, bool tma) {
-  const int n_tiles = (p.N + S::kBN - 1) / S::kBN;
-  const int items = *num_instances * n_tiles;
-  const int c = blockIdx.x, G = gridDim.x;
-  if (c >= items) return;
-  const int slabs = (p.K + S::kBK - 1) / S::kBK;
-  const int total = ((items - c + G - 1) / G) * slabs;  // this CTA's slabs
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
-      smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
+  zero_tail(C, offsets, p);
+  int g, row0, lo, hi;
+  if (!instance_rows(offsets, group_ids, m_tile_ids, num_instances, S::kBM,
+                     p.M, g, row0, lo, hi))
+    return;
+  const int rows = hi - lo;  // the group's rows, from A tile row 0
+  // rows staged: rounded up to whole 16-row blocks; a 16-row tile with at
+  // most 8 rows uses 8, and its fragment's other 8 read as zero (B1's edge)
+  constexpr bool kEdge = S::kBM == 16;
+  const int a_rows =
+      kEdge && rows <= 8 ? 8 : min(S::kBM, (rows + 15) & ~15);
+  const int col0 = blockIdx.x * S::kBN;
+  const int cols_valid = min(S::kBN, p.N - col0);
   const int warp = threadIdx.x >> 5;
   const int wr = (warp / S::kWarpN) * 16;               // warp's rows
   const int wc = (warp % S::kWarpN) * 8 * S::kFragN;   // warp's columns
-  constexpr bool kEdge = S::kBM == 16;
+  const int wh = wc >> 6, wcol = wc & 63;  // its panel, its column there
+  // a warp whose 16-row block holds none of the group's rows skips the
+  // products (uniform over the warp)
+  const bool live = wr < rows;
+
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
+      smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
   auto a_slab = [&](int s) { return ring + s * S::kStageElems; };
   auto b_slab = [&](int s) {
     return ring + s * S::kStageElems + S::kAElems;
@@ -415,39 +446,35 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   }
   __syncthreads();
 
-  // the loader walks the CTA's slabs in order: slab ls of item li (t = lt)
-  int lt = c, ls = 0;
-  Item li = item_at<S>(lt, n_tiles, offsets, group_ids, m_tile_ids, p);
-  auto load = [&](int q) {
-    const int s = q % S::kStages, k0 = ls * S::kBK;
+  const int slabs = (p.K + S::kBK - 1) / S::kBK;
+  auto load = [&](int slab) {
+    const int s = slab % S::kStages, k0 = slab * S::kBK;
     if (tma) {
       if (threadIdx.x == 0) {
-        const int a_boxes = (li.a_rows + 15) / 16;  // 16 rows x 64 columns
+        // the stage's last generic reads (ldmatrix), then the copy
+        // engine's writes
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        const int a_boxes = (a_rows + 15) / 16;  // 16 rows x 64 columns
         mbar_expect(&full[s], 2 * (a_boxes * 16 * S::kBK + S::kBK * S::kBN));
         for (int u = 0; u < S::kBK / 64; ++u)
           for (int i = 0; i < a_boxes; ++i)
             tma_2d(a_slab(s) + u * S::kBM * 64 + i * 16 * 64, &map_a,
-                   k0 + 64 * u, li.lo + 16 * i, &full[s]);
+                   k0 + 64 * u, lo + 16 * i, &full[s]);
         for (int h = 0; h < S::kBN / 64; ++h)  // BK rows x 64 columns
-          tma_3d(b_slab(s) + h * S::kBK * 64, &map_b, li.col0 + 64 * h, k0,
-                 li.g, &full[s]);
+          tma_3d(b_slab(s) + h * S::kBK * 64, &map_b, col0 + 64 * h, k0, g,
+                 &full[s]);
       }
     } else {
       constexpr int kT = S::kThreads;
       const int depth = min(S::kBK, p.K - k0);
-      const __nv_bfloat16* a = A + static_cast<size_t>(li.lo) * p.K + k0;
-      const __nv_bfloat16* b = B + static_cast<size_t>(li.g) * p.K * p.N +
-                               static_cast<size_t>(k0) * p.N + li.col0;
-      stage_rows<kT>(a_slab(s), Panels<S::kBM>{}, a, p.K, li.a_rows,
-                     S::kBK, li.rows, depth, p.mode_a, threadIdx.x);
+      const __nv_bfloat16* a = A + static_cast<size_t>(lo) * p.K + k0;
+      const __nv_bfloat16* b = B + static_cast<size_t>(g) * p.K * p.N +
+                               static_cast<size_t>(k0) * p.N + col0;
+      stage_rows<kT>(a_slab(s), Panels<S::kBM>{}, a, p.K, a_rows, S::kBK,
+                     rows, depth, p.mode_a, threadIdx.x);
       stage_rows<kT>(b_slab(s), Panels<S::kBK>{}, b, p.N, S::kBK, S::kBN,
-                     depth, li.cols_valid, p.mode_b, threadIdx.x);
+                     depth, cols_valid, p.mode_b, threadIdx.x);
       if (threadIdx.x == 0) mbar_arrive(&full[s]);
-    }
-    if (++ls == slabs && q + 1 < total) {  // the loader's next item
-      ls = 0;
-      lt += G;
-      li = item_at<S>(lt, n_tiles, offsets, group_ids, m_tile_ids, p);
     }
   };
 
@@ -457,82 +484,54 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[0][j][e] = 0.0f;
 
-  // the warps compute slab cs of item ci (t = ct); a warp whose 16-row
-  // block holds none of the item's rows skips its products (uniform over
-  // the warp)
-  int ct = c, cs = 0;
-  Item ci = li;
-  bool live = wr < ci.rows;
-  const int wh = wc >> 6, wcol = wc & 63;  // the warp's panel, its column
   // The ring: kStages - 1 slabs in flight before the first products; slab
-  // q + kStages - 1 is issued in iteration q, into the stage that slab
-  // q - 1 left, after the barrier that says every warp is done with it, so
+  // i + kStages - 1 is issued in iteration i, into the stage that slab
+  // i - 1 left, after the barrier that says every warp is done with it, so
   // the wait for a slab overlaps the products of the slab before it.
-  for (int q = 0; q < S::kStages - 1; ++q) {
-    if (q < total) load(q);
+  for (int s = 0; s < S::kStages - 1; ++s) {
+    if (s < slabs) load(s);
     cp_async_commit();
   }
-  for (int q = 0; q < total; ++q) {
-    const int s = q % S::kStages;
+  for (int i = 0; i < slabs; ++i) {
+    const int s = i % S::kStages;
     cp_async_wait<S::kStages - 2>();
-    mbar_wait(&full[s], (q / S::kStages) & 1);
-    __syncthreads();  // slab q landed; every warp is done with slab q - 1
-    if (q + S::kStages - 1 < total) {
-      if (tma && threadIdx.x == 0)  // generic reads of the stage, then
-        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-      load(q + S::kStages - 1);     // the copy engine's writes
-    }
+    mbar_wait(&full[s], (i / S::kStages) & 1);
+    __syncthreads();  // slab i landed; every warp is done with slab i - 1
+    if (i + S::kStages - 1 < slabs) load(i + S::kStages - 1);
     cp_async_commit();
-    if (live && !S::kCopyOnly) {
-      // the k tail reads zeros up to the 16-grid (out of the tensor, or
-      // zero-filled)
-      const int depth = min(S::kBK, p.K - cs * S::kBK);
-      const int k_len = (depth + 15) & ~15;
+    if (!live) continue;
+    // the k tail reads zeros up to the 16-grid (out of the tensor, or
+    // zero-filled)
+    const int k_len = (min(S::kBK, p.K - i * S::kBK) + 15) & ~15;
 #pragma unroll
-      for (int u = 0; u < S::kBK / 64; ++u) {
-        const int kl = min(64, k_len - 64 * u);
-        if (kl <= 0) break;
-        mma_slab<1, S::kFragN, kEdge>(
-            acc, smem_tile(a_slab(s) + u * S::kBM * 64, 64), wr,
-            ci.a_rows - wr,
-            smem_tile(b_slab(s) + wh * S::kBK * 64 + u * 64 * 64, 64), wcol,
-            64 - wcol, kl);
-      }
-    }
-    if (++cs < slabs) continue;
-    // the item's last slab: flush its rows and start the next item
-    if (live) {
-      const bool has_bias = bias != nullptr;
-      const float* bg =
-          has_bias ? bias + static_cast<size_t>(ci.g) * p.N + ci.col0
-                   : nullptr;
-#pragma unroll
-      for (int j = 0; j < S::kFragN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wr + frag_row(0, e), col = wc + frag_col(j, e);
-          if (r < ci.rows && col < ci.cols_valid) {
-            const size_t at =
-                static_cast<size_t>(ci.lo + r) * p.N + ci.col0 + col;
-            const float x = epilogue(acc[0][j][e], has_bias,
-                                     has_bias ? bg[col] : 0.0f, p.act,
-                                     false, 0.0f);
-            if (p.out_dtype == kBF16)
-              static_cast<__nv_bfloat16*>(C)[at] =
-                  from_f32<__nv_bfloat16>(x);
-            else
-              static_cast<float*>(C)[at] = x;
-          }
-          acc[0][j][e] = 0.0f;
-        }
-    }
-    cs = 0;
-    ct += G;
-    if (q + 1 < total) {
-      ci = item_at<S>(ct, n_tiles, offsets, group_ids, m_tile_ids, p);
-      live = wr < ci.rows;
+    for (int u = 0; u < S::kBK / 64; ++u) {
+      const int kl = min(64, k_len - 64 * u);
+      if (kl <= 0) break;
+      mma_slab<1, S::kFragN, kEdge>(
+          acc, smem_tile(a_slab(s) + u * S::kBM * 64, 64), wr, a_rows - wr,
+          smem_tile(b_slab(s) + wh * S::kBK * 64 + u * 64 * 64, 64), wcol,
+          64 - wcol, kl);
     }
   }
+
+  if (!live) return;
+  const bool has_bias = bias != nullptr;
+  const float* bg = has_bias ? bias + static_cast<size_t>(g) * p.N : nullptr;
+#pragma unroll
+  for (int j = 0; j < S::kFragN; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = wr + frag_row(0, e), col = wc + frag_col(j, e);
+      if (r >= rows || col >= cols_valid) continue;
+      const size_t at = static_cast<size_t>(lo + r) * p.N + col0 + col;
+      const float x = epilogue(acc[0][j][e], has_bias,
+                               has_bias ? bg[col0 + col] : 0.0f, p.act,
+                               false, 0.0f);
+      if (p.out_dtype == kBF16)
+        static_cast<__nv_bfloat16*>(C)[at] = from_f32<__nv_bfloat16>(x);
+      else
+        static_cast<float*>(C)[at] = x;
+    }
 }
 
 // cuTensorMapEncodeTiled, found through the runtime (no link to the driver
@@ -560,8 +559,8 @@ EncodeTiled encode_tiled() {
 }
 
 // A bf16 tensor map of `rank` dims (innermost first, byte strides of the
-// outer ones) read in boxes of 64 elements x box[1] (x 1) with the 128-byte
-// swizzle; false if it cannot be made.
+// outer ones) read in boxes of 64 elements x box_rows (x 1) with the
+// 128-byte swizzle; false if it cannot be made.
 bool bf16_map(CUtensorMap* map, const void* base, int rank,
               const cuuint64_t* dims, const cuuint64_t* strides,
               cuuint32_t box_rows) {
@@ -579,19 +578,13 @@ template <typename S>
 int launch_mma(const void* a, const void* b, void* c, const void* bias,
                const int* offsets, const int* group_ids,
                const int* m_tile_ids, const int* num_instances,
-               int n_instances, int n_groups, const GroupedArgs& p,
-               cudaStream_t stream) {
+               int n_instances, const GroupedArgs& p, cudaStream_t stream) {
   auto kernel = gemm_grouped_mma_kernel<S>;
-  static int resident = 0;  // CTAs the card holds at once, found once
-  if (resident == 0) {
+  static bool configured = false;  // one attribute call per shape
+  if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(S::kSmem));
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                  S::kThreads, S::kSmem);
-    resident = sms * per_sm > 0 ? sms * per_sm : 1;
+    configured = true;
   }
   // tensor maps need 16-byte aligned bases and rows (copy mode 2): A as
   // (M rows, K), B as (E, K rows, N)
@@ -603,17 +596,13 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
     const cuuint64_t sa[1] = {static_cast<cuuint64_t>(p.K) * 2};
     const cuuint64_t db[3] = {static_cast<cuuint64_t>(p.N),
                               static_cast<cuuint64_t>(p.K),
-                              static_cast<cuuint64_t>(n_groups)};
+                              static_cast<cuuint64_t>(p.E)};
     const cuuint64_t sb[2] = {static_cast<cuuint64_t>(p.N) * 2,
                               static_cast<cuuint64_t>(p.N) * p.K * 2};
     tma = bf16_map(&map_a, a, 2, da, sa, 16) &&
           bf16_map(&map_b, b, 3, db, sb, S::kBK);
   }
-  // the static worst case of items, or as many CTAs as the card holds
-  const long long most =
-      static_cast<long long>(n_instances) * cdiv(p.N, S::kBN);
-  const int grid = most < resident || !S::kPersist ? static_cast<int>(most)
-                                                  : resident;
+  dim3 grid(cdiv(p.N, S::kBN), n_instances);
   kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), c,
@@ -623,45 +612,54 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
 }
 
 // The CTA shapes of the bf16 body, by the index kernels/gemm_grouped.py
-// BF16_TILES gives them (its (bm, bk, bn) must match).
+// BF16_TILES gives them (its (bm, bk, bn) must match): 1 at decode, one
+// 16-row block by eight warps of 16 columns, 128-deep slabs, 4 stages
+// (144 KB); 2 in prefill, four 16-row blocks by two warps of 64 columns,
+// 64-deep slabs, 4 stages (96 KB).
 int launch_bf16(int config, const void* a, const void* b, void* c,
                 const void* bias, const int* offsets, const int* group_ids,
                 const int* m_tile_ids, const int* num_instances,
-                int n_instances, int n_groups, const GroupedArgs& p,
-                cudaStream_t s) {
-#define REPRO_B7(...)                                                   \
-  return launch_mma<GroupedShape<__VA_ARGS__>>(a, b, c, bias, offsets,  \
-                                               group_ids, m_tile_ids,   \
-                                               num_instances,           \
-                                               n_instances, n_groups, p, \
-                                               s)
+                int n_instances, const GroupedArgs& p, cudaStream_t s) {
   switch (config) {
-    case 1: REPRO_B7(1, 8, 2, 64, 6, false);
-    case 2: REPRO_B7(4, 2, 8, 64, 4, false);
-    case 3: REPRO_B7(1, 8, 2, 64, 6);
-    case 4: REPRO_B7(1, 8, 2, 128, 3, false);
-    case 5: REPRO_B7(1, 8, 2, 128, 3);
-    case 6: REPRO_B7(1, 8, 2, 64, 12);
-    case 7: REPRO_B7(4, 2, 8, 64, 4);
-    case 8: REPRO_B7(1, 8, 4, 64, 3, false);
-    case 9: REPRO_B7(1, 8, 2, 128, 4, false);
-    case 10: REPRO_B7(1, 8, 2, 64, 6, false, true);
-    case 11: REPRO_B7(4, 2, 8, 64, 8);
+    case 1:
+      return launch_mma<GroupedShape<1, 8, 2, 128, 4>>(
+          a, b, c, bias, offsets, group_ids, m_tile_ids, num_instances,
+          n_instances, p, s);
+    case 2:
+      return launch_mma<GroupedShape<4, 2, 8, 64, 4>>(
+          a, b, c, bias, offsets, group_ids, m_tile_ids, num_instances,
+          n_instances, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-#undef REPRO_B7
 }
 
 }  // namespace
 }  // namespace repro
+
+// The steering tables of m rows over the E groups of sizes (int32, on the
+// device) at an m tile of bm rows, into offsets (E+1,), group_ids and
+// m_tile_ids (n_instances,) and num_instances (a scalar), int32 on the
+// device.  Returns cudaGetLastError() after the launch.
+extern "C" int grouped_tables_launch(const void* sizes, int e, int m, int bm,
+                                     int n_instances, void* offsets,
+                                     void* group_ids, void* m_tile_ids,
+                                     void* num_instances, void* stream) {
+  using namespace repro;
+  grouped_tables_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int*>(sizes), e, m, bm, n_instances,
+      static_cast<int*>(offsets), static_cast<int*>(group_ids),
+      static_cast<int*>(m_tile_ids), static_cast<int*>(num_instances));
+  return static_cast<int>(cudaGetLastError());
+}
 
 // A (m,k) group-sorted rows, B (E,k,n), C (m,n) row-major and contiguous;
 // bias (E,n) f32 or null.  offsets (E+1,), group_ids and m_tile_ids
 // (n_instances,) and num_instances (a scalar) are int32 on the device, the
 // tables built at the m tile of CTA shape ``config`` (kernels/gemm_grouped.py
 // BF16_TILES / F32_TILES); ``mode_a`` / ``mode_b`` are the staging copy
-// modes.  Returns cudaGetLastError() after the launch.
+// modes.  Every element of C is written.  Returns cudaGetLastError() after
+// the launch.
 extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
                                    const void* bias, const void* offsets,
                                    const void* group_ids,
@@ -671,9 +669,10 @@ extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
                                    int in_dtype, int out_dtype, int act,
                                    int mode_a, int mode_b, void* stream) {
   using namespace repro;
-  if (n_instances < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_instances < 1 || n_instances > 65535)  // gridDim.y's limit
+    return static_cast<int>(cudaErrorInvalidValue);
   GroupedArgs p;
-  p.M = m, p.N = n, p.K = k, p.bm = 0, p.bn = 0, p.act = act;
+  p.M = m, p.N = n, p.K = k, p.E = e, p.bm = 0, p.bn = 0, p.act = act;
   p.out_dtype = out_dtype, p.mode_a = mode_a, p.mode_b = mode_b;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* offs = static_cast<const int*>(offsets);
@@ -682,7 +681,7 @@ extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
   const int* live = static_cast<const int*>(num_instances);
   if (in_dtype == kBF16)
     return launch_bf16(config, a, b, c, bias, offs, gids, tids, live,
-                       n_instances, e, p, s);
+                       n_instances, p, s);
   return launch_f32(config, a, b, c, bias, offs, gids, tids, live,
                     n_instances, p, s);
 }

@@ -13,11 +13,12 @@ an fmaf chain, bit for bit B1's f32 body.  :func:`cta_tile` picks the
 CTA shape by rows per expert (decode or prefill), whatever the plan's
 tile says.
 
-The steering tables (:func:`group_metadata`, JAX :54) are built here
-with torch ops on the tensor's device, at the CTA's m tile and the
-static length ``tiles_m + E - 1``; the live instance count stays a
-device scalar, so a MoE layer makes no host sync: the kernel launches
-the static worst case and a CTA past the live count exits.
+The steering tables (:func:`group_metadata`, JAX :54, with torch ops;
+on a card one launch of a table kernel, :func:`steering_tables`) are
+built at the CTA's m tile and the static length ``tiles_m + E - 1``;
+the live instance count stays a device scalar, so a MoE layer makes no
+host sync: the kernel launches the static worst case and a CTA past the
+live count exits.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_grouped_plain`,
 a CUDA tensor launches the kernel or raises.
@@ -38,17 +39,16 @@ from repro_torch.kernels.ref import gemm_grouped_ref
 
 #: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
 #: entry point takes (csrc/gemm_grouped.cu launch_bf16): 1 at decode (one
-#: 16-row block, eight warps across 128 columns), 2 in prefill (a 64-row
-#: m tile of four 16-row blocks by two 64-column halves)
-BF16_TILES = {1: (16, 64, 128), 2: (64, 64, 128), 3: (16, 64, 128),
-              4: (16, 128, 128), 5: (16, 128, 128), 6: (16, 64, 128),
-              7: (64, 64, 128), 8: (16, 64, 256), 9: (16, 128, 128),
-              10: (16, 64, 128), 11: (64, 64, 128)}
+#: 16-row block, eight warps across 128 columns, 128-deep slabs), 2 in
+#: prefill (a 64-row m tile of four 16-row blocks by two 64-column halves)
+BF16_TILES = {1: (16, 128, 128), 2: (64, 64, 128)}
 #: the (bm, bk, bn) C tiles of the f32 body, by the same index
 #: (csrc/gemm_grouped.cu launch_f32)
 F32_TILES = {1: (8, 64, 128), 2: (16, 64, 64)}
 
 _ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_TABLE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 4 + \
+    [ctypes.c_void_p] * 5
 
 
 def _tiles(dtype) -> dict:
@@ -116,6 +116,28 @@ def group_metadata(group_sizes: torch.Tensor, m: int, bm: int
             tiles_per_group.sum().to(i32))
 
 
+def steering_tables(group_sizes: torch.Tensor, m: int, bm: int):
+    """:func:`group_metadata`'s tables: on a CUDA tensor by one launch of
+    ``csrc/gemm_grouped.cu``'s table kernel (the same live entries and
+    padding), on a CPU tensor by :func:`group_metadata` itself."""
+    if group_sizes.device.type == "cpu":
+        return group_metadata(group_sizes, m, bm)
+    e = group_sizes.shape[0]
+    n_inst = cdiv(m, bm) + e - 1
+    sizes = group_sizes.to(torch.int32).contiguous()
+    i32 = dict(dtype=torch.int32, device=group_sizes.device)
+    offsets = torch.empty(e + 1, **i32)
+    group_ids = torch.empty(n_inst, **i32)
+    m_tile_ids = torch.empty(n_inst, **i32)
+    live = torch.empty((), **i32)
+    rc = _build.entry("grouped_tables_launch", _TABLE_ARGTYPES)(
+        sizes.data_ptr(), e, m, bm, n_inst, offsets.data_ptr(),
+        group_ids.data_ptr(), m_tile_ids.data_ptr(), live.data_ptr(),
+        _build.stream_of(sizes))
+    _build.check(rc, "grouped_tables")
+    return (offsets, group_ids, m_tile_ids), live
+
+
 #: steering tables built inside a :func:`shared_tables` block, by
 #: (id(group_sizes), m, bm); None outside any block
 _shared: Optional[dict] = None
@@ -138,15 +160,15 @@ def shared_tables():
 
 
 def _tables(group_sizes: torch.Tensor, m: int, bm: int):
-    """:func:`group_metadata`, reused inside a :func:`shared_tables`
+    """:func:`steering_tables`, reused inside a :func:`shared_tables`
     block (the entry holds ``group_sizes`` so its id stays its own)."""
     if _shared is None:
-        return group_metadata(group_sizes, m, bm)
+        return steering_tables(group_sizes, m, bm)
     key = (id(group_sizes), m, bm)
     hit = _shared.get(key)
     if hit is None or hit[0] is not group_sizes:
         hit = _shared[key] = (group_sizes,
-                              group_metadata(group_sizes, m, bm))
+                              steering_tables(group_sizes, m, bm))
     return hit[1]
 
 
@@ -224,10 +246,11 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
     e, _, n = b.shape
     config = _config(m, e) if cta is None else cta
     bm, bk, bn = _tiles(a.dtype)[config]
-    if a.dtype == torch.float32 and cdiv(m, bm) + e - 1 > 65535:
+    if cdiv(m, bm) + e - 1 > 65535:
         raise ValueError(f"gemm_grouped: {cdiv(m, bm) + e - 1} tile "
-                         "instances exceed the f32 grid's 65535 rows")
-    c = torch.zeros((m, n), dtype=out_dtype, device=a.device)
+                         "instances exceed the grid's 65535 rows")
+    # the kernel writes every element, zeroing the rows past the groups
+    c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return c
     a, b = a.contiguous(), b.contiguous()

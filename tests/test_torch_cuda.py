@@ -648,6 +648,23 @@ def test_gemm_grouped_rows_equal_gemm_aie_bitwise(cuda_device, case, dtype,
         assert not got[start:].any(), cta
 
 
+@pytest.mark.parametrize("case", sorted(GROUP_CASES) + sorted(QWEN3_CASES))
+@pytest.mark.parametrize("bm", [8, 16, 64])
+def test_table_kernel_equals_group_metadata(cuda_device, case, bm):
+    """The card's steering tables (one launch of the table kernel) are
+    group_metadata's on the CPU, entry for entry, padding included."""
+    from repro_torch.kernels.gemm_grouped import (group_metadata,
+                                                  steering_tables)
+    sizes, m = {**GROUP_CASES, **QWEN3_CASES}[case]
+    gs = torch.as_tensor(np.asarray(sizes, np.int32))
+    (offs, gids, tids), live = steering_tables(gs.to(cuda_device), m, bm)
+    (w_offs, w_gids, w_tids), w_live = group_metadata(gs, m, bm)
+    for got, want in ((offs, w_offs), (gids, w_gids), (tids, w_tids),
+                      (live, w_live)):
+        assert got.dtype == torch.int32 and got.device.type == "cuda"
+        assert torch.equal(got.cpu(), want)
+
+
 def test_gemm_grouped_is_batch_invariant(cuda_device):
     """One row's output does not depend on the other rows in the call, at
     the decode CTA shape."""
@@ -709,8 +726,8 @@ def test_moe_layer_builds_its_steering_tables_once(cuda_device,
     from repro_torch.kernels import gemm_grouped as G
     from repro_torch.models import moe as TM
     built = []
-    real = G.group_metadata
-    monkeypatch.setattr(G, "group_metadata",
+    real = G.steering_tables
+    monkeypatch.setattr(G, "steering_tables",
                         lambda gs, m, bm: built.append((m, bm)) or
                         real(gs, m, bm))
     g = torch.Generator(device=cuda_device).manual_seed(0)

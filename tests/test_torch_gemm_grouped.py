@@ -248,8 +248,8 @@ def test_grouped_search_ranks_like_the_reference():
 #: (the cost model's tile: at most the 64 x 128 C block one CTA of B7
 #: covers) and the (bm, bk, bn) CTA tile B7 launches for it
 HOPPER_GROUPED_PLANS = {
-    (64, 4096, 1536): ((8, 32, 128), (16, 64, 128)),     # decode gate / up
-    (64, 1536, 4096): ((8, 32, 128), (16, 64, 128)),     # decode down
+    (64, 4096, 1536): ((8, 32, 128), (16, 128, 128)),    # decode gate / up
+    (64, 1536, 4096): ((8, 32, 128), (16, 128, 128)),    # decode down
     (2400, 4096, 1536): ((32, 32, 128), (64, 64, 128)),  # prefill gate / up
     (2400, 1536, 4096): ((32, 32, 128), (64, 64, 128)),  # prefill down
 }
@@ -289,7 +289,7 @@ def test_grouped_explain_states_kernel_instances_and_padding():
     assert "m=64 of 1024 dense-capacity" in text
     assert "padding  :" in text
     # the CTA tile B7 launches, by rows per expert, beside the plan's
-    assert "launches its compiled 16x64x128 (bm x bk x bn) CTA tile" in text
+    assert "launches its compiled 16x128x128 (bm x bk x bn) CTA tile" in text
     assert "rows per expert" in text and "tile     : aie 8x32x128" in text
     pre = ops.plan(_tspec("silu"), (2400, 4096, 1536, 128, 3072)).explain()
     assert "launches its compiled 64x64x128 (bm x bk x bn) CTA tile" in pre

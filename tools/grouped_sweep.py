@@ -30,7 +30,7 @@ import chip_smoke as S  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.gemm_aie import gemm_aie  # noqa: E402
 from repro_torch.kernels.gemm_grouped import (  # noqa: E402
-    BF16_TILES, cta_tile, gemm_grouped, group_metadata, shared_tables)
+    BF16_TILES, cta_tile, gemm_grouped, shared_tables, steering_tables)
 
 
 def check(args, kw, cta):
@@ -69,7 +69,7 @@ def main() -> None:
             bound = b / S.PEAK_BYTES * 1e3
             m, e = args[0].shape[0], args[2].shape[0]
             tables = S.device_ms(
-                lambda a_, b_, gs, **k_: group_metadata(
+                lambda a_, b_, gs, **k_: steering_tables(
                     gs, m, cta_tile(m, e)[0]), inputs)
             S.log(f"  {case['name']:36s} steering tables alone "
                   f"{tables * 1e3:8.1f} us")
