@@ -120,37 +120,75 @@ __device__ __forceinline__ void zero_tail(void* C, const int* offsets,
   }
 }
 
-// The steering tables of group_metadata (kernels/gemm_grouped.py), by one
-// thread: offsets (E + 1) the groups' row offsets; the live instances in
-// group order, group g owning the m tiles floor(start / bm) ..
-// ceil(end / bm) - 1 (none when empty), their count in num_instances.  The
-// entries past it pad as the reference's repeats do: the last group, and
-// the m tiles after the last live one, then the last m tile.
-__global__ void grouped_tables_kernel(const int* __restrict__ sizes, int e,
-                                      int m, int bm, int n_instances,
-                                      int* __restrict__ offsets,
-                                      int* __restrict__ group_ids,
-                                      int* __restrict__ m_tile_ids,
-                                      int* __restrict__ num_instances) {
-  __shared__ int live, next_tile;
-  if (threadIdx.x == 0) {
-    int start = 0, inst = 0;
-    offsets[0] = 0;
-    for (int g = 0; g < e; ++g) {
-      const int end = start + sizes[g];
-      offsets[g + 1] = end;
-      if (end > start)
-        for (int t = start / bm; t < (end + bm - 1) / bm && inst < n_instances;
-             ++t, ++inst)
-          group_ids[inst] = g, m_tile_ids[inst] = t;
-      start = end;
-    }
-    *num_instances = live = inst;
-    next_tile = start > 0 ? (start - 1) / bm + 1 : 0;
+// An exclusive prefix sum over the kTablesThreads threads of a CTA, and the
+// total; every thread calls it.
+constexpr int kTablesThreads = 256;
+
+__device__ __forceinline__ int block_exclusive_sum(int x, int& total) {
+  __shared__ int warp_sums[kTablesThreads / 32];
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  int incl = x;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += y;
   }
+  if (lane == 31) warp_sums[w] = incl;
   __syncthreads();
+  int before = 0;
+  total = 0;
+#pragma unroll
+  for (int i = 0; i < kTablesThreads / 32; ++i) {
+    before += i < w ? warp_sums[i] : 0;
+    total += warp_sums[i];
+  }
+  __syncthreads();  // warp_sums is free for the next call
+  return before + incl - x;
+}
+
+// The steering tables of group_metadata (kernels/gemm_grouped.py) in one
+// CTA: offsets (E + 1) the groups' row offsets; the live instances in group
+// order, group g owning the m tiles floor(start / bm) .. ceil(end / bm) - 1
+// (none when empty), their count in num_instances.  The entries past it
+// pad as the reference's repeats do: the last group, and the m tiles after
+// the last live one, then the last m tile.  Thread t takes a run of
+// ceil(E / 256) groups; two prefix sums over the threads give each run its
+// first row and its first instance.
+__global__ void __launch_bounds__(kTablesThreads)
+grouped_tables_kernel(const int* __restrict__ sizes, int e, int m, int bm,
+                      int n_instances, int* __restrict__ offsets,
+                      int* __restrict__ group_ids,
+                      int* __restrict__ m_tile_ids,
+                      int* __restrict__ num_instances) {
+  const int per = (e + kTablesThreads - 1) / kTablesThreads;
+  const int g0 = min(e, static_cast<int>(threadIdx.x) * per);
+  const int g1 = min(e, g0 + per);
+  int rows = 0;
+  for (int g = g0; g < g1; ++g) rows += sizes[g];
+  int all_rows;
+  const int start = block_exclusive_sum(rows, all_rows);
+  int count = 0;
+  for (int g = g0, s = start; g < g1; ++g) {
+    const int end = s + sizes[g];
+    offsets[g + 1] = end;
+    if (end > s) count += (end + bm - 1) / bm - s / bm;
+    s = end;
+  }
+  if (threadIdx.x == 0) offsets[0] = 0;
+  int all_instances;
+  int inst = block_exclusive_sum(count, all_instances);
+  for (int g = g0, s = start; g < g1; ++g) {
+    const int end = s + sizes[g];
+    if (end > s)
+      for (int t = s / bm; t < (end + bm - 1) / bm; ++t, ++inst)
+        if (inst < n_instances) group_ids[inst] = g, m_tile_ids[inst] = t;
+    s = end;
+  }
+  const int live = min(all_instances, n_instances);
+  if (threadIdx.x == 0) *num_instances = live;
+  const int next_tile = all_rows > 0 ? (all_rows - 1) / bm + 1 : 0;
   const int last_tile = (m + bm - 1) / bm - 1;
-  for (int i = live + threadIdx.x; i < n_instances; i += blockDim.x)
+  for (int i = live + threadIdx.x; i < n_instances; i += kTablesThreads)
     group_ids[i] = e - 1,
     m_tile_ids[i] = min(next_tile + (i - live), last_tile);
 }
@@ -646,7 +684,8 @@ extern "C" int grouped_tables_launch(const void* sizes, int e, int m, int bm,
                                      void* group_ids, void* m_tile_ids,
                                      void* num_instances, void* stream) {
   using namespace repro;
-  grouped_tables_kernel<<<1, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+  grouped_tables_kernel<<<1, kTablesThreads, 0,
+                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(sizes), e, m, bm, n_instances,
       static_cast<int*>(offsets), static_cast<int*>(group_ids),
       static_cast<int*>(m_tile_ids), static_cast<int*>(num_instances));

@@ -7,10 +7,12 @@ zeroed, and nothing else.  Its bits rest on a row being computed from
 that row alone, so a CTA may read a row that another group owns only
 into a fragment row it never stores.  This file emulates, in Python,
 
-* the table kernel (``grouped_tables_kernel``): one thread walking the
-  groups, the padding after the live entries filled as the reference
-  pads; held to :func:`group_metadata` (itself held to the JAX
-  package's in ``tests/test_torch_gemm_grouped.py``), entry for entry;
+* the table kernel (``grouped_tables_kernel``): 256 threads, each a run
+  of groups, whose first row and first instance come from two prefix
+  sums over the threads, and the padding after the live entries filled
+  as the reference pads; held to :func:`group_metadata` (itself held to
+  the JAX package's in ``tests/test_torch_gemm_grouped.py``), entry for
+  entry;
 * the launch's coverage at every CTA tile B7 launches, both bodies: the
   bf16 body's 16-row warps over the group's rows staged from A tile row
   0, each lane's fragment rows and the 16-row boxes that fill them; the
@@ -55,27 +57,51 @@ CASES = {
     "ragged_m": ([5, 0, 9], 14),
     "qwen3_decode": (_routed(8, 128, 8, 8, 21), 64),
     "qwen3_prefill": (_routed(300, 128, 8, 24, 22), 2400),
+    # more groups than the table kernel's threads: runs of 2 groups
+    "many_groups": (_routed(40, 300, 4, 3, 23), 200),
 }
 #: every (m tile) B7's tables are built at: the CTA tiles of both bodies
 M_TILES = sorted({t[0] for t in (*BF16_TILES.values(), *F32_TILES.values())})
 
 
+TABLE_THREADS = 256
+
+
 def emulate_tables(sizes, m, bm):
-    """``grouped_tables_kernel``, step for step."""
+    """``grouped_tables_kernel``: thread t's run of groups, its first row
+    and first instance by exclusive prefix sums over the threads."""
     e, n_inst = len(sizes), cdiv(m, bm) + len(sizes) - 1
-    offsets, group_ids, m_tile_ids = [0], [None] * n_inst, [None] * n_inst
-    start = inst = 0
-    for g in range(e):
-        end = start + sizes[g]
-        offsets.append(end)
-        if end > start:
-            t = start // bm
-            while t < (end + bm - 1) // bm and inst < n_inst:
-                group_ids[inst], m_tile_ids[inst] = g, t
-                t, inst = t + 1, inst + 1
-        start = end
-    live = inst
-    next_tile = (start - 1) // bm + 1 if start > 0 else 0
+    per = cdiv(e, TABLE_THREADS)
+    runs = [range(min(e, t * per), min(e, t * per + per))
+            for t in range(TABLE_THREADS)]
+    rows = [sum(sizes[g] for g in run) for run in runs]
+    starts = np.concatenate([[0], np.cumsum(rows)[:-1]]).tolist()
+    offsets, group_ids, m_tile_ids = [0] * (e + 1), [None] * n_inst, \
+        [None] * n_inst
+    counts = []
+    for run, start in zip(runs, starts):
+        count, s = 0, start
+        for g in run:
+            end = s + sizes[g]
+            offsets[g + 1] = end
+            if end > s:
+                count += (end + bm - 1) // bm - s // bm
+            s = end
+        counts.append(count)
+    firsts = np.concatenate([[0], np.cumsum(counts)[:-1]]).tolist()
+    for run, start, inst in zip(runs, starts, firsts):
+        s = start
+        for g in run:
+            end = s + sizes[g]
+            if end > s:
+                for t in range(s // bm, (end + bm - 1) // bm):
+                    if inst < n_inst:
+                        group_ids[inst], m_tile_ids[inst] = g, t
+                    inst += 1
+            s = end
+    live = min(sum(counts), n_inst)
+    all_rows = sum(rows)
+    next_tile = (all_rows - 1) // bm + 1 if all_rows > 0 else 0
     for i in range(live, n_inst):
         group_ids[i] = e - 1
         m_tile_ids[i] = min(next_tile + (i - live), cdiv(m, bm) - 1)
