@@ -693,12 +693,13 @@ extern "C" int grouped_tables_launch(const void* sizes, int e, int m, int bm,
 }
 
 // A (m,k) group-sorted rows, B (E,k,n), C (m,n) row-major and contiguous;
-// bias (E,n) f32 or null.  offsets (E+1,), group_ids and m_tile_ids
-// (n_instances,) and num_instances (a scalar) are int32 on the device, the
-// tables built at the m tile of CTA shape ``config`` (kernels/gemm_grouped.py
-// BF16_TILES / F32_TILES); ``mode_a`` / ``mode_b`` are the staging copy
-// modes.  Every element of C is written.  Returns cudaGetLastError() after
-// the launch.
+// bias (E,n) f32 or null.  offsets (E+1,), group_ids and m_tile_ids and
+// num_instances (a scalar) are int32 on the device, the tables built at the
+// m tile of CTA shape ``config`` (kernels/gemm_grouped.py BF16_TILES /
+// F32_TILES); the grid runs their first n_instances entries, which hold
+// every live one.  ``mode_a`` / ``mode_b`` are the staging copy modes.
+// Every element of C is written.  Returns cudaGetLastError() after the
+// launch.
 extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
                                    const void* bias, const void* offsets,
                                    const void* group_ids,

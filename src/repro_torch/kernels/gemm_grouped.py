@@ -257,11 +257,14 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
     bias32 = bias.reshape(e, n).float().contiguous() if bias is not None \
         else None
     (offsets, group_ids, m_tile_ids), live = _tables(group_sizes, m, bm)
+    # the grid: every instance that can be live (at most min(E, m) groups
+    # hold rows, each one more instance a tile boundary it straddles)
+    grid_instances = min(group_ids.shape[0], min(e, m) + cdiv(m, bm) - 1)
     rc = _build.entry("gemm_grouped_launch", _ARGTYPES)(
         a.data_ptr(), b.data_ptr(), c.data_ptr(),
         bias32.data_ptr() if bias32 is not None else None,
         offsets.data_ptr(), group_ids.data_ptr(), m_tile_ids.data_ptr(),
-        live.data_ptr(), group_ids.shape[0], m, n, k, e, config, in_code,
+        live.data_ptr(), grid_instances, m, n, k, e, config, in_code,
         out_code, ACT_CODES[activation], _build.copy_mode(a, k, bk),
         _build.copy_mode(b, n, bn), _build.stream_of(a))
     _build.check(rc, "gemm_grouped")

@@ -120,6 +120,17 @@ def test_table_kernel_equals_group_metadata(case, bm):
     assert got[3] == int(live)
 
 
+@pytest.mark.parametrize("bm", M_TILES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_live_instances_fit_the_launched_grid(case, bm):
+    """The wrapper launches min(E, m) + tiles_m - 1 instances of the
+    tables' tiles_m + E - 1: at most min(E, m) groups hold rows, and each
+    adds one instance a tile boundary it straddles."""
+    sizes, m = CASES[case]
+    live = emulate_tables(sizes, m, bm)[3]
+    assert live <= min(len(sizes), m) + cdiv(m, bm) - 1
+
+
 def _owner(sizes, m):
     """The group owning each row, -1 past the groups."""
     own = np.full(m, -1)
@@ -141,9 +152,10 @@ def emulate_bf16(sizes, m, tile):
     """The bf16 body's writes and reads of C rows and A rows: per live
     instance, its rows staged from A tile row 0 (the group's first row)
     by 16-row boxes, each live warp's fragment rows (lane / 4 and + 8),
-    the rows it stores; then the tail the CTAs zero.  Returns the write
-    count of each row, the instance groups that wrote it, and whether
-    any stored row was read outside the staged rows."""
+    the rows it stores (every fragment row read lies inside the staged
+    boxes); then the tail the CTAs zero.  Returns the write count of
+    each row, the groups whose instances wrote it, and where the tail
+    starts."""
     bm, _, bn = tile
     wm = bm // 16                       # 16-row warps
     offsets, gids, tids, live = emulate_tables(sizes, m, bm)
@@ -182,7 +194,7 @@ def emulate_bf16(sizes, m, tile):
 def emulate_f32(sizes, m, tile):
     """The f32 body's writes: 256 threads, a column each, 256 / bn row
     groups of 4 rows; a row is stored by the thread that owns it when
-    its group owns it."""
+    its group owns it.  Returns as :func:`emulate_bf16` does."""
     bm, _, bn = tile
     groups = 256 // bn
     offsets, gids, tids, live = emulate_tables(sizes, m, bm)
