@@ -21,7 +21,7 @@
 // Steering: the tables are built on the device with a static length
 // tiles_m + E - 1 at the CTA's m tile (grouped_tables_kernel below, the
 // function of kernels/gemm_grouped.py group_metadata), so no host ever learns
-// the live instance count: the grid is the static worst case, blockIdx.x an
+// the live instance count: the grid is a static bound on it, blockIdx.x an
 // n tile, blockIdx.y an instance (so the CTAs reading one expert's panel
 // launch side by side and read its k-rows together), and a CTA at or past
 // the live count (read from device memory) exits at once.  A live CTA owns
@@ -39,7 +39,7 @@
 // group's rows skips the products.  The wrapper (kernels/gemm_grouped.py
 // cta_tile) picks the CTA shape by rows per expert: at decode one 16-row
 // block and eight warps across a 128-column n tile, 128-deep slabs, four
-// stages (144 KB: one CTA an SM, 108 KB of B in flight), so no warp idles
+// stages (144 KB: one CTA an SM, 96 KB of B in flight), so no warp idles
 // on rows another group owns; in prefill a 64-row m tile of four 16-row
 // blocks by two 64-column halves, 64-deep slabs, four stages (96 KB, two
 // CTAs an SM), so most experts' rows fit one instance and their panels

@@ -325,9 +325,9 @@ class GemmPlan:
             if self.kernel == "grouped":
                 how += ("; the CTA shape goes by rows per expert (decode: "
                         "at most one on average, else prefill), one CTA "
-                        "per (m-tile instance, n tile) of the static worst "
-                        "case, and the CTAs past the device-side live "
-                        "count exit")
+                        "per (m-tile instance, n tile) that can be live, "
+                        "and the CTAs past the device-side live count "
+                        "exit")
         b_desc = ("2x " if s.gated else "") + p.b_dtype
         budget = budget_bytes(self.chip)
         tm = self.traffic

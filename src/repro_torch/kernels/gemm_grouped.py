@@ -17,8 +17,8 @@ The steering tables (:func:`group_metadata`, JAX :54, with torch ops;
 on a card one launch of a table kernel, :func:`steering_tables`) are
 built at the CTA's m tile and the static length ``tiles_m + E - 1``;
 the live instance count stays a device scalar, so a MoE layer makes no
-host sync: the kernel launches the static worst case and a CTA past the
-live count exits.
+host sync: the kernel launches every instance that can be live (a
+static bound) and a CTA past the live count exits.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_grouped_plain`,
 a CUDA tensor launches the kernel or raises.
