@@ -21,15 +21,13 @@
 // Steering: the tables are built on the device with a static length
 // tiles_m + E - 1 at the CTA's m tile (grouped_tables_kernel below, the
 // function of kernels/gemm_grouped.py group_metadata), so no host ever learns
-// the live instance count: the grid is a static bound on it, blockIdx.x an
+// the live instance count: the grid is the static worst case, blockIdx.x an
 // n tile, blockIdx.y an instance (so the CTAs reading one expert's panel
 // launch side by side and read its k-rows together), and a CTA at or past
 // the live count (read from device memory) exits at once.  A live CTA owns
 // the rows [lo, lo + rows) of its m tile that its group owns, and the
 // columns of its n tile.  The CTAs zero the rows past the groups between
-// them, so C needs no clearing first.  The kernel launches as a
-// programmatic dependent: its CTAs set up their shared memory while the
-// kernel before it (the table kernel) finishes.
+// them, so C needs no clearing first.
 //
 // Design (bf16 operands): B1's tensor-core chain (mma_chain.cuh) on the
 // group's rows, fed by the tensor memory accelerator.  One thread fills each
@@ -41,7 +39,7 @@
 // group's rows skips the products.  The wrapper (kernels/gemm_grouped.py
 // cta_tile) picks the CTA shape by rows per expert: at decode one 16-row
 // block and eight warps across a 128-column n tile, 128-deep slabs, four
-// stages (144 KB: one CTA an SM, 96 KB of B in flight), so no warp idles
+// stages (144 KB: one CTA an SM, 108 KB of B in flight), so no warp idles
 // on rows another group owns; in prefill a 64-row m tile of four 16-row
 // blocks by two 64-column halves, 64-deep slabs, four stages (96 KB, two
 // CTAs an SM), so most experts' rows fit one instance and their panels
@@ -162,7 +160,6 @@ grouped_tables_kernel(const int* __restrict__ sizes, int e, int m, int bm,
                       int* __restrict__ group_ids,
                       int* __restrict__ m_tile_ids,
                       int* __restrict__ num_instances) {
-  grid_launch_dependents();  // B7's CTAs may set up meanwhile
   const int per = (e + kTablesThreads - 1) / kTablesThreads;
   const int g0 = min(e, static_cast<int>(threadIdx.x) * per);
   const int g1 = min(e, g0 + per);
@@ -452,20 +449,6 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
                         const __grid_constant__ CUtensorMap map_a,
                         const __grid_constant__ CUtensorMap map_b,
                         GroupedArgs p, bool tma) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
-      smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
-  __shared__ uint64_t full[S::kStages];  // stage s has landed
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < S::kStages; ++s) mbar_init(&full[s]);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
-  // Launched as a programmatic dependent (launch_mma), the CTAs set up
-  // their shared memory while the kernel before them (the table kernel,
-  // when the tables were just built) runs, and wait for it to complete
-  // before they touch global memory.
-  grid_dependency_wait();
   zero_tail(C, offsets, p);
   int g, row0, lo, hi;
   if (!instance_rows(offsets, group_ids, m_tile_ids, num_instances, S::kBM,
@@ -487,10 +470,19 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   // products (uniform over the warp)
   const bool live = wr < rows;
 
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
+      smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
   auto a_slab = [&](int s) { return ring + s * S::kStageElems; };
   auto b_slab = [&](int s) {
     return ring + s * S::kStageElems + S::kAElems;
   };
+  __shared__ uint64_t full[S::kStages];  // stage s has landed
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S::kStages; ++s) mbar_init(&full[s]);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
   const int slabs = (p.K + S::kBK - 1) / S::kBK;
   auto load = [&](int slab) {
@@ -648,21 +640,13 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
     tma = bf16_map(&map_a, a, 2, da, sa, 16) &&
           bf16_map(&map_b, b, 3, db, sb, S::kBK);
   }
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cdiv(p.N, S::kBN), n_instances);
-  cfg.blockDim = dim3(S::kThreads);
-  cfg.dynamicSmemBytes = S::kSmem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(a),
+  dim3 grid(cdiv(p.N, S::kBN), n_instances);
+  kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a),
       static_cast<const __nv_bfloat16*>(b), c,
       static_cast<const float*>(bias), offsets, group_ids, m_tile_ids,
-      num_instances, map_a, map_b, p, tma));
+      num_instances, map_a, map_b, p, tma);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // The CTA shapes of the bf16 body, by the index kernels/gemm_grouped.py
