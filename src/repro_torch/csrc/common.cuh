@@ -53,10 +53,10 @@ __device__ __forceinline__ float activate(float x, int act) {
 }
 
 // The fused flush on a finished f32 accumulator: + bias -> activation ->
-// + residual.  Kernels B1 (gemm_aie.cu) and B6 (gemm_tb.cu) both call it,
-// on the accumulators of mma_chain.cuh's tensor-core chain (bf16 operands)
-// and of their fmaf chains (f32 operands), and B7 (gemm_grouped.cu) on its
-// fmaf chain's; the adds are __fadd_rn (never contracted into an FMA with
+// + residual.  Kernels B1 (gemm_aie.cu), B6 (gemm_tb.cu) and B7
+// (gemm_grouped.cu) all call it, on the accumulators of mma_chain.cuh's
+// tensor-core chain (bf16 operands) and of their fmaf chains (f32
+// operands); the adds are __fadd_rn (never contracted into an FMA with
 // what comes before), so the dataflows round identically.
 __device__ __forceinline__ float epilogue(float x, bool has_bias, float bias,
                                           int act, bool has_res, float res) {

@@ -1,6 +1,7 @@
 // The one tensor-core chain of the bf16 GEMMs, shared by kernel B1
-// (gemm_aie.cu, output-stationary) and kernel B6 (gemm_tb.cu,
-// A-stationary), and the fragment -> (row, col) map of their flush; and the
+// (gemm_aie.cu, output-stationary), kernel B6 (gemm_tb.cu, A-stationary),
+// B2 (gemm_gated.cu) and B7 (gemm_grouped.cu, on each group's rows), and
+// the fragment -> (row, col) map of their flush; and the
 // two products of the attention block step (mma_qkt, mma_pv), shared by B3
 // and the decode kernels B4 and B5.
 //
