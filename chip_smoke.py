@@ -40,6 +40,16 @@ Phases (any failure raises and the script exits non-zero):
    bf16 body with relu must equal relu(B1) * B1 bit for bit at m = 1, 8,
    9, 16 and 300, and its rows at m = 9, 16 and 300 those of its 300-row
    call; every B2 and B3 case names the body and CTA shape that ran;
+3b. the int8 paths of B1, B2, B6 and B7 at both models' served shapes
+   (smollm-360m's decode step and 300-token prefill, qwen3-moe's decode
+   step, with B7's twelve decode and two prefill launches, and prefill):
+   W8A16 on all four, W8A8 on B1 and B6, one out-quant case on B1 and on
+   B6b, each held against its plain version and timed beside its byte
+   or op bound, ``torch._int_mm`` x the scale (W8A8, where its shape
+   rules allow) or the unfused dequantize + library call (W8A16); then
+   their bitwise gates: W8A8 == plain, W8A16 == B1's bf16 body on
+   q.to(bfloat16) then * scale, B6 == B1 on every int8 path, B7's int8
+   rows == B1's W8A16 rows, and B2 on int8 weights == relu(B1) * B1;
 4. the operator API: for each dense GEMM shape of both models' serve
    paths at m = 8 and m = 300 and for the 1024^3 GEMM, print the
    HOPPER_H100 plan's ``explain()`` and time the one-shot ``ops.gemm``
@@ -62,20 +72,26 @@ Phases (any failure raises and the script exits non-zero):
    the acceptance trace plus a short and a 96-token prompt, and on two
    prompts sharing a prefix with the prefix cache on;
 7. smollm-360m-smoke (f32): prefill + 8 decode steps on the card match
-   the same port on the CPU within atol=rtol=1e-4;
+   the same port on the CPU within atol=rtol=1e-4, in f32, W8A16 and
+   W8A8; then smollm-360m's weights are quantized to int8 and served
+   again, W8A16 dense and paged and W8A8 dense (phase 5), with
+   continuous == solo and paged == dense solo greedy in both modes;
 8. with smollm-360m freed, qwen3-moe-235b-a22b at full width with its
    depth cut to 4 layers (printed with the reason; random weights from
    seed 0): phases 5 and 6 again, dense and paged, every MoE layer
    launching B7 three times a pass and no plain version running; its
    paged greedy is held to paged solo greedy (chunked prefill sets the
    expert capacity by the chunk, so it may drop otherwise than a
-   whole-prompt prefill).
+   whole-prompt prefill); then its int8 copy (the bf16 copy freed),
+   served as smollm-360m's was, the experts staying W8A16 under W8A8.
 
 Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
 sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
-splits each count by model; each entry's times sum the step its
-``timed_on`` names, and a ``qwen3-moe-235b-a22b`` key holds the 4-layer
-MoE step's) and the card line before the last line, which is
+splits each count by model and mode; each entry's times sum the step
+its ``timed_on`` names, a ``qwen3-moe-235b-a22b`` key holds the 4-layer
+MoE step's, and the four GEMMs' ``int8`` objects hold their int8 cases,
+step sums by mode and launches on the int8 paths) and the card line
+before the last line, which is
 ``{"ok": true, "device": {...}}``.  Details go to
 ``chiprun_out/chip_smoke.json``.
 """
@@ -97,7 +113,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch import ops  # noqa: E402
+from repro_torch import ops, quant  # noqa: E402
 from repro_torch.bridge import to_device  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -121,9 +137,10 @@ from repro_torch.serve.engine import (  # noqa: E402
     solo_greedy)
 
 # H100 SXM datasheet peaks: HBM bytes/s and
-# dense operations/s by operand type (bf16 tensor cores; f32 outside them)
+# dense operations/s by operand type (bf16 and int8 tensor cores; f32
+# outside them)
 PEAK_BYTES = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12, torch.int8: 1979e12}
 TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-5}
 COLD_BYTES = 128 << 20        # operands cycled per timing, > 50 MB L2
 REPS = 20
@@ -547,7 +564,7 @@ def check_kernel(name, cases):
         if not torch.isfinite(got.float()).all():
             raise RuntimeError(f"{name} {case['name']}: non-finite output")
         err = (got.float() - want.float()).abs()
-        tol = TOL[case["dtype"]]
+        tol = case.get("tol", TOL.get(case["dtype"]))
         bad = err > tol + tol * want.float().abs()
         if bad.any():
             raise RuntimeError(
@@ -565,8 +582,11 @@ def check_kernel(name, cases):
             copies = max(1, min(64, math.ceil(COLD_BYTES / per)))
             inputs = [first] + [case["make"]() for _ in range(copies - 1)]
             b, ops = case["cost"](args, kw)
+            peak = case.get("peak_ops", PEAK_OPS.get(case["dtype"]))
             if "two_calls" in case:
                 row["gather_sdpa_ms"] = device_ms(case["two_calls"], inputs)
+            if "dequant" in case:
+                row["dequant_ms"] = device_ms(case["dequant"], inputs)
             library = case["library"]
             row.update(
                 ms=device_ms(kernel, inputs),
@@ -574,14 +594,13 @@ def check_kernel(name, cases):
                           else device_ms)(plain, inputs),
                 library_ms=device_ms(library, inputs) if library else None,
                 bytes=b, ops=ops,
-                bound_ms=max(b / PEAK_BYTES, ops / PEAK_OPS[case["dtype"]])
-                * 1e3,
-                bound_by="bytes" if b / PEAK_BYTES
-                >= ops / PEAK_OPS[case["dtype"]] else "operations")
+                bound_ms=max(b / PEAK_BYTES, ops / peak) * 1e3,
+                bound_by="bytes" if b / PEAK_BYTES >= ops / peak
+                else "operations")
             del inputs
         rows.append(row)
         lib = row.get("library_ms")
-        log(f"  {name:18s} {case['name']:32s} err {row['max_abs_err']:.2e}"
+        log(f"  {name:18s} {case['name']:38s} err {row['max_abs_err']:.2e}"
             + (f"  kernel {row['ms']*1e3:8.1f} us  plain "
                f"{row['plain_ms']*1e3:8.1f} us  library "
                + (f"{lib*1e3:8.1f} us" if lib is not None else "       —")
@@ -589,6 +608,8 @@ def check_kernel(name, cases):
                + (f"  gather+sdpa (2 calls) "
                   f"{row['gather_sdpa_ms']*1e3:.1f} us"
                   if "gather_sdpa_ms" in row else "")
+               + (f"  dequant+library {row['dequant_ms']*1e3:.1f} us"
+                  if "dequant_ms" in row else "")
                if "ms" in row else "  (edge shape, not timed)")
             + (f"  [{row['body']}]" if "body" in row else ""))
     return rows, worst, weighted(rows, "weight"), weighted(rows, "moe_weight")
@@ -606,6 +627,8 @@ def weighted(rows, weight):
     libs = [r["library_ms"] for r in timed]
     total["library_ms"] = None if None in libs else \
         sum(r[weight] * r["library_ms"] for r in timed)
+    if all("dequant_ms" in r for r in timed):
+        total["dequant_ms"] = sum(r[weight] * r["dequant_ms"] for r in timed)
     by_bytes = sum(r[weight] * r["bound_ms"] for r in timed
                    if r["bound_by"] == "bytes")
     total["bound_by"] = "bytes" if 2 * by_bytes >= total["bound_ms"] \
@@ -1068,6 +1091,378 @@ def api_phase():
     return {"rows": rows, "launches": launches}
 
 
+# ------------------------------------------------------- phase 3: int8
+
+#: the int8 modes of the kernel phase: W8A16 (bf16 A, int8 weights widened
+#: in registers) and W8A8 (A quantized per row, int8 x int8 into int32)
+INT8_MODES = ("w8a16", "w8a8")
+
+
+def int8_weight(k, n, lead=()):
+    """A random weight quantized per output channel: (q int8, scale f32
+    (..., 1, n))."""
+    w = quant.quantize_weight(rand(lead + (k, n), torch.float32, k ** -0.5))
+    return w["q"], w["scale"]
+
+
+def _int_mm_ok(m, k, n):
+    """torch._int_mm's shape rules on the card: m > 16, k and n
+    multiples of 8."""
+    return m > 16 and k % 8 == 0 and n % 8 == 0
+
+
+def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
+                   out_dtype=None, out_scale=None, tb=False, tile=None,
+                   **extra):
+    """B1 or, ``tb``, B6 (at ``tile`` or its int8 'tb' plan's) on an int8
+    weight: W8A16 (bf16 A, bf16 or ``out_dtype`` C) or W8A8 (A int8, f32
+    C, or int8 under ``out_scale``).  Library yardstick: W8A8
+    ``torch._int_mm`` x the scale where its shape rules allow, else none;
+    W8A16 has no one call, and the unfused dequantize + matmul is timed
+    beside it."""
+    w8a8 = mode == "w8a8"
+    out_dtype = out_dtype or (torch.int8 if out_scale is not None else
+                              torch.float32 if w8a8 else torch.bfloat16)
+    if tb and tile is None:
+        spec = ops.GemmSpec(a_dtype="int8" if w8a8 else "bfloat16",
+                            b_quant=True, out_dtype=out_dtype,
+                            epilogue=ops.Epilogue(
+                                residual=residual,
+                                out_quant=out_scale is not None),
+                            strategy="tb")
+        try:
+            tile = ops.plan(spec, (m, k, n)).tile
+        except ValueError:      # no 'tb' design in the search's top ten
+            tile = tb_tile(m, k, n, torch.bfloat16, residual=residual,
+                           out_dtype=torch.float32)
+
+    def make():
+        a = rand((m, k), torch.bfloat16)
+        if w8a8:
+            a = quant.quantize_activations(a)[0]
+        q, scale = int8_weight(k, n)
+        kw = {"out_dtype": out_dtype, "b_scale": scale}
+        if tile is not None:
+            kw["tile"] = tile
+        if residual:
+            kw["residual"] = rand((m, n), torch.bfloat16)
+        if out_scale is not None:
+            kw["out_scale"] = out_scale
+        return (a, q), kw
+
+    def int_mm(a, q, b_scale, out_dtype, tile=None, **_):
+        return torch._int_mm(a, q).float() * b_scale
+
+    def dequant(a, q, b_scale, out_dtype, residual=None, tile=None):
+        x = torch.matmul(a, q * b_scale.to(a.dtype))
+        return (x + residual if residual is not None else x).to(out_dtype)
+
+    def cost(args, kw):
+        a, q = args
+        out = m * n * torch.empty((), dtype=out_dtype).element_size()
+        return (nbytes(a, q, kw["b_scale"], kw.get("residual")) + out,
+                2.0 * m * n * k)
+    if tile is not None:
+        name += f" tile {tile.bm}x{tile.bk}x{tile.bn}"
+    case = dict(name=f"{mode} {name}", weight=weight, make=make, cost=cost,
+                dtype=torch.float32 if out_dtype != torch.bfloat16
+                else torch.bfloat16,
+                peak_ops=PEAK_OPS[torch.int8 if w8a8 else torch.bfloat16],
+                library=int_mm if w8a8 and out_scale is None
+                and _int_mm_ok(m, k, n) else None, **extra)
+    if out_scale is not None:
+        case["tol"] = 0.0               # int8 C: equal, value for value
+    if not w8a8:
+        case["dequant"] = dequant
+    return case
+
+
+def int8_moe_cases(mode):
+    """qwen3-moe-235b-a22b's quantized dense GEMMs at an 8-slot decode
+    step (``moe_weight`` = launches in one step of the 4-layer model) and
+    a 300-token prefill (timed), each on the kernel its int8 HOPPER_H100
+    plan picks (W8A8: the re-routed int8 x int8 plan, the residual
+    outside).  Returns {kernel: [cases]}."""
+    d, q, kv, V = 4096, 8192, 512, 151936
+    w8a8 = mode == "w8a8"
+    out = {"gemm_aie": [], "gemm_tb": []}
+    for m, per_step, tag in ((8, 1, "decode"), (300, 0, "prefill")):
+        shapes = [(f"qwen3 {tag} wq {m}x{d}x{q}", per_step * MOE_LAYERS, d, q,
+                   False, None),
+                  (f"qwen3 {tag} wk/wv {m}x{d}x{kv}",
+                   per_step * 2 * MOE_LAYERS, d, kv, False, None),
+                  (f"qwen3 {tag} wo{'' if w8a8 else '+res'} {m}x{q}x{d}",
+                   per_step * MOE_LAYERS, q, d, not w8a8, None)]
+        if m == 8:
+            shapes.append((f"qwen3 decode lm_head 8x{d}x{V}", 1, d, V, False,
+                           torch.float32))
+        for name, steps, k, n, res, out_dtype in shapes:
+            spec = ops.GemmSpec(
+                a_dtype="int8" if w8a8 else "bfloat16", b_quant=True,
+                out_dtype="float32" if w8a8 or out_dtype else None,
+                epilogue=ops.Epilogue(residual=res))
+            tile = ops.plan(spec, (m, k, n)).tile
+            tb = tile.strategy == "tb"
+            out["gemm_tb" if tb else "gemm_aie"].append(int8_gemm_case(
+                name, 0, m, k, n, mode, residual=res, out_dtype=out_dtype,
+                tb=tb, tile=tile if tb else None, moe_weight=steps,
+                timed=True))
+    return out
+
+
+def int8_gated_case(name, weight, m, k, n, **extra):
+    """B2 with int8 gate/up weights (W8A16); the unfused dequantize +
+    gate composition is timed beside it (no one PyTorch call)."""
+    def make():
+        qg, sg = int8_weight(k, n)
+        qu, su = int8_weight(k, n)
+        return (rand((m, k), torch.bfloat16), qg, qu), \
+            {"bg_scale": sg, "bu_scale": su}
+
+    def dequant(a, qg, qu, bg_scale, bu_scale):
+        return F.silu(torch.matmul(a, qg * bg_scale.to(a.dtype))) \
+            * torch.matmul(a, qu * bu_scale.to(a.dtype))
+
+    def cost(args, kw):
+        a, qg, qu = args
+        return nbytes(a, qg, qu, kw["bg_scale"], kw["bu_scale"],
+                      a.new_empty((m, n))), 4.0 * m * n * k
+    bm, bk, bn = gated_cta_tile(m, n, torch.bfloat16)
+    return dict(name=f"w8a16 {name}", weight=weight, dtype=torch.bfloat16,
+                make=make, library=None, dequant=dequant, cost=cost,
+                body=f"tensor cores, int8 weights, CTA tile {bm}x{bk}x{bn}",
+                **extra)
+
+
+def int8_grouped_case(name, weight, sizes, m, k, n, *, act=None,
+                      timed=False):
+    """B7 on an int8 expert bank with its (E, 1, n) scale rows (W8A16);
+    the unfused dequantize + ``torch._grouped_mm`` is timed beside it."""
+    sizes = np.asarray(sizes, np.int64)
+    e = len(sizes)
+
+    def make():
+        q, scale = int8_weight(k, n, (e,))
+        kw = {"out_dtype": torch.bfloat16, "b_scale": scale}
+        if act:
+            kw["activation"] = act
+        gs = torch.as_tensor(sizes.astype(np.int32), device="cuda")
+        return (rand((m, k), torch.bfloat16), q, gs), kw
+
+    def dequant(a, q, gs, out_dtype, b_scale, activation=None):
+        offs = torch.cumsum(gs, 0, dtype=torch.int32)
+        x = torch._grouped_mm(a, q * b_scale.to(a.dtype), offs=offs)
+        return (F.silu(x) if activation == "silu" else x).to(out_dtype)
+
+    def cost(args, kw):
+        """Bytes: the live experts' int8 panels and scale rows, A and C;
+        operations: the routed rows' products."""
+        live = int((sizes > 0).sum())
+        return (live * (k * n + 4 * n) + 2 * (m * k + m * n),
+                2.0 * float(sizes.sum()) * k * n)
+    bm, bk, bn = grouped_cta_tile(m, e, torch.bfloat16)
+    return dict(name=f"w8a16 {name}", weight=weight, moe_weight=weight,
+                dtype=torch.bfloat16, make=make, library=None,
+                dequant=dequant, cost=cost, timed=timed or weight > 0,
+                plain_eager=True,
+                body=f"tensor cores, int8 bank, CTA tile {bm}x{bk}x{bn}")
+
+
+def int8_cases():
+    """The int8 kernel cases, {kernel: {mode: [cases]}}, at the served
+    shapes of both models: smollm-360m's 8-slot decode step (weights =
+    launches of that shape in one step) and 300-token prefill, and
+    qwen3-moe's decode step and prefill; one out-quant case on B1 and on
+    B6b; the edges k = 300 and n = 200 (B7: rows not whole 16-byte
+    units, so the cp.async path)."""
+    d, ff, V = 960, 2560, 49152
+    out = {"gemm_aie": {}, "gemm_tb": {}, "gemm_gated": {},
+           "gemm_grouped": {}}
+    for mode in INT8_MODES:
+        w8a8 = mode == "w8a8"
+        res = not w8a8          # W8A8 adds the residual outside the kernel
+        for name, tb in (("gemm_aie", False), ("gemm_tb", True)):
+            out[name][mode] = [
+                int8_gemm_case("decode wq 8x960x960", 32, 8, d, d, mode,
+                               tb=tb),
+                int8_gemm_case("decode wk/wv 8x960x320", 64, 8, d, 320, mode,
+                               tb=tb),
+                int8_gemm_case(f"decode wo{'+res' if res else ''} 8x960x960",
+                               32, 8, d, d, mode, residual=res, tb=tb),
+                int8_gemm_case(f"decode down{'+res' if res else ''} "
+                               "8x2560x960", 32, 8, ff, d, mode,
+                               residual=res, tb=tb),
+                int8_gemm_case("decode lm_head 8x960x49152", 1, 8, d, V,
+                               mode, out_dtype=torch.float32, tb=tb),
+                int8_gemm_case("prefill wq 300x960x960", 0, 300, d, d, mode,
+                               tb=tb, timed=True),
+                int8_gemm_case("prefill down 300x2560x960", 0, 300, ff, d,
+                               mode, tb=tb, timed=True),
+                int8_gemm_case("edge 9x300x200 k % 16 != 0", 0, 9, 300, 200,
+                               mode, tb=tb),
+            ] + int8_moe_cases(mode)[name]
+            if w8a8:
+                out[name][mode].append(int8_gemm_case(
+                    "out-quant 8x960x960 scale 0.37", 0, 8, d, d, mode,
+                    out_scale=0.37, tb=tb, timed=True))
+    out["gemm_gated"]["w8a16"] = [
+        int8_gated_case("decode gate/up 8x960x2560", 32, 8, d, ff),
+        int8_gated_case("prefill gate/up 300x960x2560", 0, 300, d, ff,
+                        timed=True),
+        int8_gated_case("edge 37x300x200", 0, 37, 300, 200),
+    ]
+    dk, dff, e = 4096, 1536, 128
+    dec = routed_sizes(8, e, 8, 8, seed=21)
+    pre = routed_sizes(300, e, 8, 24, seed=22)
+    out["gemm_grouped"]["w8a16"] = [
+        int8_grouped_case("decode gate+silu 64x4096x1536", MOE_LAYERS, dec,
+                          64, dk, dff, act="silu"),
+        int8_grouped_case("decode up 64x4096x1536", MOE_LAYERS, dec, 64, dk,
+                          dff),
+        int8_grouped_case("decode down 64x1536x4096", MOE_LAYERS, dec, 64,
+                          dff, dk),
+        int8_grouped_case("prefill gate+silu 2400x4096x1536", 0, pre, 2400,
+                          dk, dff, act="silu", timed=True),
+        int8_grouped_case("prefill down 2400x1536x4096", 0, pre, 2400, dff,
+                          dk, timed=True),
+        int8_grouped_case("edge straddled 63x300x200", 0,
+                          [3, 2, 1, 1, 4, 2, 50], 63, 300, 200),
+    ]
+    return out
+
+
+def int8_kernel_phase():
+    """Each int8 case against its plain version (bf16 C 2e-2, f32 C
+    1e-5, int8 C equal), timed beside its byte or op bound, its library
+    call where one exists and the unfused dequantize + library
+    composition where none does.  {kernel: {mode: check_kernel(...)}}."""
+    out = {}
+    for name, by_mode in int8_cases().items():
+        out[name] = {}
+        for mode, cases in by_mode.items():
+            for case in cases:      # the library yardstick, where it runs
+                if case["library"] is not None:
+                    args, kw = case["make"]()
+                    try:
+                        case["library"](*args, **kw)
+                    except RuntimeError as exc:
+                        log(f"  {case['name']}: torch._int_mm refused "
+                            f"({str(exc).splitlines()[0]}); no yardstick")
+                        case["library"] = None
+            out[name][mode] = check_kernel(name, cases)
+    return out
+
+
+def int8_bitwise_phase():
+    """The bitwise gates of the int8 paths, at both models' served
+    shapes: (a) W8A8 == its plain version (int32 sums exact, one f32
+    multiply) on B1 and B6, f32 and int32 C; (b) W8A16 on B1 == B1's bf16
+    body on q.to(bfloat16) with f32 output, then * b_scale; (c) B6 == B1
+    on every int8 path (W8A16, W8A8, out-quant) at the 'tb' plan's tile
+    and tiles giving one, two and four or more k-chunks; (d) B7's int8
+    rows == B1's W8A16 rows, at both CTA shapes; (e) B2 with int8
+    weights and relu == relu(B1 W8A16) * B1 W8A16."""
+    shapes = [(8, 960, 960), (8, 960, 320), (8, 2560, 960), (300, 960, 960),
+              (8, 4096, 8192), (8, 8192, 4096), (300, 4096, 512),
+              (9, 300, 200)]
+    n_a = n_b = n_c = 0
+    for m, k, n in shapes:
+        a = rand((m, k), torch.bfloat16)
+        a8 = quant.quantize_activations(a)[0]
+        q, scale = int8_weight(k, n)
+        f32 = torch.float32
+        for got, want, what in (
+                (gemm_aie(a8, q, b_scale=scale, out_dtype=f32),
+                 gemm_aie_plain(a8, q, b_scale=scale, out_dtype=f32),
+                 "B1 W8A8"),
+                (gemm_tb(a8, q, b_scale=scale, out_dtype=f32,
+                         tile=ops.TileConfig(16, 512, 64, "tb")),
+                 gemm_aie_plain(a8, q, b_scale=scale, out_dtype=f32),
+                 "B6 W8A8"),
+                (gemm_aie(a8, q), gemm_aie_plain(a8, q,
+                                                 out_dtype=torch.int32),
+                 "B1 W8A8 int32 sums"),
+                (gemm_aie(a, q, b_scale=scale, out_dtype=f32),
+                 gemm_aie(a, q.to(torch.bfloat16), out_dtype=f32) * scale,
+                 "B1 W8A16 == B1 bf16 on the widened weights")):
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise RuntimeError(f"{what} differs at {m}x{k}x{n}")
+            n_a += 1
+        res = rand((m, n), torch.bfloat16)
+        variants = {
+            "w8a16": (a, {"b_scale": scale, "out_dtype": torch.bfloat16}),
+            "w8a16+res": (a, {"b_scale": scale, "residual": res,
+                              "out_dtype": torch.bfloat16}),
+            "w8a8": (a8, {"b_scale": scale, "out_dtype": f32}),
+            "out-quant": (a8, {"b_scale": scale, "out_scale": 0.37,
+                               "out_dtype": torch.int8}),
+        }
+        half = -(-k // 2 // 32) * 32
+        for label, (x, kw) in variants.items():
+            want = gemm_aie(x, q, **kw)
+            spec = ops.GemmSpec(a_dtype=x.dtype, b_quant=True,
+                                out_dtype=kw["out_dtype"], strategy="tb",
+                                epilogue=ops.Epilogue(
+                                    residual="residual" in kw,
+                                    out_quant="out_scale" in kw))
+            try:
+                pt = ops.plan(spec, (m, k, n)).tile
+                tiles = [(pt.bm, pt.bk, pt.bn)]
+            except ValueError:  # no 'tb' design in the search's top ten
+                tiles = []
+            for tile in tiles + [(8, 4096, 16), (16, half, 32),
+                                 (8, 128, 64)]:
+                got = gemm_tb(x, q, tile=ops.TileConfig(*tile, "tb"), **kw)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise RuntimeError(f"gemm_tb != gemm_aie ({label}) at "
+                                       f"{m}x{k}x{n} tile {tile}")
+                n_b += 1
+        del a, a8, q, scale, res
+    for case in int8_cases()["gemm_grouped"]["w8a16"]:
+        (a, q, gs), kw = case["make"]()
+        sizes = gs.tolist()
+        for cta in (1, 2):
+            got = gemm_grouped(a, q, gs, cta=cta, **kw)
+            start = 0
+            for g, size in enumerate(sizes):
+                if size:
+                    want = gemm_aie(a[start:start + size], q[g],
+                                    b_scale=kw["b_scale"][g],
+                                    activation=kw.get("activation"),
+                                    out_dtype=kw["out_dtype"])
+                    if not torch.equal(got[start:start + size], want):
+                        raise RuntimeError(
+                            f"int8 gemm_grouped != gemm_aie W8A16 on group "
+                            f"{g} of {case['name']} at CTA shape {cta}")
+                    n_c += 1
+                start += size
+            if got[start:].any():
+                raise RuntimeError(f"int8 gemm_grouped: rows past the groups "
+                                   f"of {case['name']} are not zero")
+        del a, q
+    a = rand((300, 960), torch.bfloat16, 960 ** -0.5)
+    qg, sg = int8_weight(960, 2560)
+    qu, su = int8_weight(960, 2560)
+    for m in (1, 8, 9, 16, 300):
+        got = gemm_gated(a[:m], qg, qu, bg_scale=sg, bu_scale=su,
+                         activation="relu", out_dtype=torch.float32)
+        want = torch.relu(gemm_aie(a[:m], qg, b_scale=sg,
+                                   out_dtype=torch.float32)) \
+            * gemm_aie(a[:m], qu, b_scale=su, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise RuntimeError(f"int8 gemm_gated != relu(B1) * B1 at m = {m}")
+    log(f"int8 bitwise: W8A8 == plain and W8A16 == B1 bf16 on the widened "
+        f"weights in {n_a} cases; gemm_tb == gemm_aie on W8A16, W8A16+res, "
+        f"W8A8 and out-quant in {n_b} cases; int8 gemm_grouped == gemm_aie "
+        f"W8A16 on {n_c} groups at both CTA shapes; int8 gemm_gated == "
+        "relu(B1) * B1 at m = 1, 8, 9, 16, 300")
+    return {"w8a8_and_widened_cases": n_a, "tb_equals_aie_cases": n_b,
+            "grouped_groups": n_c, "gated_m": [1, 8, 9, 16, 300]}
+
+
 # ---------------------------------------------------------------- phase 4
 
 #: prompts of the serve trace: mostly short, two past 128 tokens
@@ -1096,9 +1491,9 @@ class PlanRecorder:
         self.plans = {}
         self._launch = api._launch
 
-        def record(pl, *args):
+        def record(pl, *args, **kw):
             self.plans[pl] = self.plans.get(pl, 0) + 1
-            return self._launch(pl, *args)
+            return self._launch(pl, *args, **kw)
         api._launch = record
         return self
 
@@ -1130,7 +1525,7 @@ def shared_prefix_requests(cfg, prefix_len, tail_len, max_tokens, seed):
         max_tokens=max_tokens) for _ in range(2)]
 
 
-def serve_phase(cfg, params, *, paged):
+def serve_phase(cfg, params, *, paged, mode=None):
     """Serve the trace through the dense engine or, ``paged``, through
     the paged one (16-token pages, 64-token chunks, prefix cache on)
     with two shared-prefix requests added.  The kernel counts are set to
@@ -1209,7 +1604,8 @@ def serve_phase(cfg, params, *, paged):
            "gemm_plans_executed": by_kernel,
            "plain_launches": plain, "prefill_chunks": prefills,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    tag = ("paged serve" if paged else "serve") + f" {cfg.name}"
+    tag = ("paged serve" if paged else "serve") + f" {cfg.name}" \
+        + (f" {mode}" if mode else "")
     if paged:
         out.update({k: m[k] for k in (
             "max_prefill_stall_tokens", "prefix_hits", "prefix_misses",
@@ -1232,7 +1628,7 @@ def serve_phase(cfg, params, *, paged):
 
 
 @torch.inference_mode()
-def step_phase(cfg, params, *, paged):
+def step_phase(cfg, params, *, paged, mode=None):
     """Device time of one 8-slot decode step (with its greedy argmax),
     from CUDA-graph replays that take the host out of the step, beside
     the same step run eagerly; the difference is the device's idle time
@@ -1271,7 +1667,8 @@ def step_phase(cfg, params, *, paged):
     eager = (time.perf_counter() - t0) / REPS * 1e3
     out = {"device_ms_per_step": device, "eager_ms_per_step": eager,
            "device_idle_share": 1.0 - device / eager}
-    log(f"{cfg.name} {'paged' if paged else 'dense'} decode step (8 "
+    log(f"{cfg.name} {mode or cfg.dtype} {'paged' if paged else 'dense'} "
+        "decode step (8 "
         "slots): device "
         f"{device:.2f} ms (CUDA graph), eager {eager:.2f} ms; device idle "
         f"{out['device_idle_share']:.1%} of an eager step")
@@ -1289,8 +1686,9 @@ def bit_identity_phase(cfg, params):
         if not np.array_equal(results[req.rid], want):
             raise RuntimeError(f"continuous != solo greedy for request "
                                f"{req.rid}: {results[req.rid]} vs {want}")
-    log(f"bit identity: {len(reqs)} acceptance requests, continuous "
-        "batch == solo greedy at full width")
+    log(f"bit identity ({cfg.name}, activations {quant.activation_mode()})"
+        f": {len(reqs)} acceptance requests, continuous batch == solo "
+        "greedy at full width")
     return len(reqs)
 
 
@@ -1343,17 +1741,24 @@ def paged_bit_identity_phase(cfg, params, *, reference="dense"):
             raise RuntimeError("paged bit identity: the shared prefix was "
                                "not shared")
         n += len(trace)
-    log(f"paged bit identity ({cfg.name}): {n} requests, paged greedy "
+    log(f"paged bit identity ({cfg.name}, activations "
+        f"{quant.activation_mode()}): {n} requests, paged greedy "
         f"(pages 16, chunks 16) == {reference} solo greedy at full width, "
         "2 of them sharing a 32-token prefix")
     return n
 
 
 @torch.inference_mode()
-def cross_device_phase():
+def cross_device_phase(mode=None):
+    """smollm-360m-smoke (f32) on the card against the same port on the
+    CPU: bf16-free f32 weights, or (``mode`` "w8a16" / "w8a8") its
+    quantized weights, run in that activation mode."""
     cfg = get_smoke_config("smollm-360m")
     cpu_params = T.init_params(cfg, torch.Generator().manual_seed(0),
                                device="cpu")
+    if mode:
+        cpu_params, _ = quant.quantize_params(cpu_params)
+    quant.set_activation_mode("w8a8" if mode == "w8a8" else "none")
     gpu_params = to_device(cpu_params, "cuda")
     toks = torch.as_tensor(np.random.default_rng(3).integers(
         0, cfg.vocab, (2, 12)))
@@ -1371,9 +1776,56 @@ def cross_device_phase():
         tok = torch.argmax(c_log, -1)[:, None]
         c_log, c_cache = T.decode_step(cpu_params, cfg, tok, c_cache)
         g_log, g_cache = T.decode_step(gpu_params, cfg, tok.cuda(), g_cache)
-    log(f"cross-device: smoke prefill + 8 decode steps, card vs CPU max "
-        f"abs err {worst:.2e} (tolerance 1e-4)")
+    quant.set_activation_mode("none")
+    log(f"cross-device{' ' + mode if mode else ''}: smoke prefill + 8 "
+        f"decode steps, card vs CPU max abs err {worst:.2e} (tolerance "
+        "1e-4)")
     return worst
+
+
+def int8_serve_phases(cfg, qparams, *, reference="dense"):
+    """Serve the quantized weights: W8A16 on the dense cache and the page
+    pool, W8A8 on the dense cache, each pass's launches held to its
+    executed plans and its decode step timed from CUDA-graph replays;
+    then continuous == solo greedy and paged == ``reference`` solo greedy
+    in both modes.  The activation mode is W8A16 again after."""
+    out = {}
+    try:
+        for mode in INT8_MODES:
+            quant.set_activation_mode("w8a8" if mode == "w8a8" else "none")
+            run = {"serve": serve_phase(cfg, qparams, paged=False, mode=mode)}
+            run["serve"]["step"] = step_phase(cfg, qparams, paged=False,
+                                              mode=mode)
+            if mode == "w8a16":
+                run["paged_serve"] = serve_phase(cfg, qparams, paged=True,
+                                                 mode=mode)
+                run["paged_serve"]["step"] = step_phase(cfg, qparams,
+                                                        paged=True, mode=mode)
+            run["bit_identity_requests"] = bit_identity_phase(cfg, qparams)
+            run["paged_bit_identity_requests"] = paged_bit_identity_phase(
+                cfg, qparams, reference=reference)
+            out[mode] = run
+    finally:
+        quant.set_activation_mode("none")
+    return out
+
+
+@torch.no_grad()
+def quantize(params, name):
+    """The weights' int8 copy (``quant.quantize_params``), with the bytes
+    before and after logged."""
+    t0 = time.perf_counter()
+    before = quant.param_bytes(params)
+    qparams, n = quant.quantize_params(params)
+    torch.cuda.synchronize()
+    after = quant.param_bytes(qparams)
+    log(f"{name}: int8-quantized {n} weight banks, {before / 1e9:.2f} -> "
+        f"{after / 1e9:.2f} GB ({before} -> {after} bytes) in "
+        f"{time.perf_counter() - t0:.1f} s; GEMM weight stream "
+        f"{quant.gemm_weight_bytes(qparams) / 1e9:.3f} GB a step")
+    return qparams, {"quantized_leaves": n, "bytes_before": before,
+                     "bytes_after": after,
+                     "gemm_weight_bytes": quant.gemm_weight_bytes(qparams)}
 
 
 def main() -> None:
@@ -1385,6 +1837,7 @@ def main() -> None:
     log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    quant.set_activation_mode("none")
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -1398,6 +1851,8 @@ def main() -> None:
         tb_bitwise = tb_bitwise_phase()
         grouped_bitwise = grouped_bitwise_phase()
         redesign_bitwise = redesign_bitwise_phase()
+        checked8 = int8_kernel_phase()
+        int8_bitwise = int8_bitwise_phase()
         api_run = api_phase()
     torch.cuda.empty_cache()
 
@@ -1411,7 +1866,12 @@ def main() -> None:
     n_bit = bit_identity_phase(cfg, params)
     n_paged_bit = paged_bit_identity_phase(cfg, params)
     cross = cross_device_phase()
+    cross8 = {mode: cross_device_phase(mode) for mode in INT8_MODES}
+    qparams, q_bytes = quantize(params, cfg.name)
     del params
+    int8_run = int8_serve_phases(cfg, qparams)
+    int8_run.update(q_bytes)
+    del qparams
     torch.cuda.empty_cache()
 
     full = get_config("qwen3-moe-235b-a22b")
@@ -1437,21 +1897,35 @@ def main() -> None:
     moe_bit = bit_identity_phase(moe_cfg, moe_params)
     moe_paged_bit = paged_bit_identity_phase(moe_cfg, moe_params,
                                              reference="paged")
+    # the int8 copy of the same seed-0 weights; the bf16 copy is freed
+    moe_q, moe_q_bytes = quantize(moe_params, moe_cfg.name)
     del moe_params
+    torch.cuda.empty_cache()
+    moe_int8 = int8_serve_phases(moe_cfg, moe_q, reference="paged")
+    moe_int8.update(moe_q_bytes)
+    del moe_q
     torch.cuda.empty_cache()
 
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
              "operator_api": (api_run,)}
+    int8_paths = {}
+    for name, run in ((cfg.name, int8_run), (moe_cfg.name, moe_int8)):
+        int8_paths[f"{name} w8a16"] = (run["w8a16"]["serve"],
+                                       run["w8a16"]["paged_serve"])
+        int8_paths[f"{name} w8a8"] = (run["w8a8"]["serve"],)
+    paths.update(int8_paths)
 
     def driven(counter, runs=sum(paths.values(), ())):
         """Launches on the paths the script drives (by default all:
-        dense and paged serving of both models and the operator-API
-        phase)."""
+        dense and paged serving of both models in bf16, W8A16 and W8A8,
+        and the operator-API phase)."""
         return sum(run["launches"][counter] for run in runs)
 
     def times(total, timed_on):
         keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        return dict({k: total[k] for k in keys}, timed_on=timed_on)
+        extra = {"dequant_ms": total["dequant_ms"]} \
+            if "dequant_ms" in total else {}
+        return dict({k: total[k] for k in keys}, timed_on=timed_on, **extra)
 
     line = []
     for name, (rows, worst, total, moe_total) in checked.items():
@@ -1469,6 +1943,33 @@ def main() -> None:
         if name == "gemm_tb":       # two Pallas sites: B6a and B6b
             entry["sites"] = {replaces: driven("gemm_tb"),
                               GEMM_TB_FINAL_SITE: driven("gemm_tb_final")}
+        if name in checked8:
+            int8_runs = sum(int8_paths.values(), ())
+            by_mode = checked8[name]
+            entry["int8"] = {
+                "launches": sum(driven(c, int8_runs) for c in counters),
+                "launches_by_path": {
+                    p: sum(driven(c, runs) for c in counters)
+                    for p, runs in int8_paths.items()},
+                "max_abs_err": max(w for _, w, _, _ in by_mode.values()),
+                "cases": [dict({k: r[k] for k in (
+                    "case", "max_abs_err", "ms", "plain_ms", "library_ms",
+                    "dequant_ms", "bound_ms", "bound_by") if k in r})
+                    for rows8, _, _, _ in by_mode.values() for r in rows8]}
+            for mode, (_, _, tot, moe_tot) in by_mode.items():
+                if tot is not None:
+                    entry["int8"][mode] = times(
+                        tot, f"smollm-360m: one 8-slot decode step under "
+                        f"{mode}" + (", the shape set of gemm_aie"
+                                     if name == "gemm_tb" else ""))
+                if moe_tot is not None:
+                    entry["int8"][f"{moe_cfg.name} {mode}"] = times(
+                        moe_tot, f"the 4-layer MoE's 8-slot decode step "
+                        f"under {mode}: the GEMMs its plans give this "
+                        "kernel")
+            if entry["int8"]["launches"] == 0:
+                raise RuntimeError(f"{name} was launched on no int8 path "
+                                   "the script drives")
         line.append(entry)
     for name in KERNELS:
         if driven(name) == 0:
@@ -1480,29 +1981,36 @@ def main() -> None:
         "card": card, "torch": torch.__version__,
         "cuda": torch.version.cuda, "kernels": line,
         "cases": {n: rows for n, (rows, *_) in checked.items()},
-        "serve": serve, "paged_serve": paged,
+        "int8_cases": {n: {m: rows for m, (rows, *_) in by.items()}
+                       for n, by in checked8.items()},
+        "serve": serve, "paged_serve": paged, "int8": int8_run,
         "moe": {"config": moe_cfg.name, "layers": MOE_LAYERS,
                 "weights_gb": weights_gb, "serve": moe_serve,
                 "paged_serve": moe_paged,
                 "bit_identity_requests": moe_bit,
                 "paged_bit_identity_requests": moe_paged_bit,
-                "paged_bit_identity_reference": "paged solo"},
+                "paged_bit_identity_reference": "paged solo",
+                "int8": moe_int8},
         "paged_bitwise": paged_bitwise,
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
-        "b3_b2_bitwise": redesign_bitwise,
+        "b3_b2_bitwise": redesign_bitwise, "int8_bitwise": int8_bitwise,
         "operator_api": api_run,
         "bit_identity_requests": n_bit,
         "paged_bit_identity_requests": n_paged_bit,
         "cross_device_max_abs_err": cross,
+        "cross_device_int8_max_abs_err": cross8,
         "build_seconds": _build.build_seconds,
         "seconds": time.perf_counter() - t_start}, indent=1))
     if _build.build_log:
         (out_dir / "ptxas.log").write_text(_build.build_log)
     log("kernels line: ms / plain_ms / bound_ms / library_ms are summed "
         "over the shapes of the step each entry's timed_on names, the "
-        f"{moe_cfg.name} key holds the same for the 4-layer MoE; launches "
-        "sum the dense and paged serve runs of both models and the "
-        "operator-API phase (launches_by_path splits them)")
+        f"{moe_cfg.name} key holds the same for the 4-layer MoE, and each "
+        "GEMM's int8 object the same for its int8 cases by mode; launches "
+        "sum the dense and paged serve runs of both models in bf16, W8A16 "
+        "and W8A8 and the operator-API phase (launches_by_path splits "
+        "them)")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)
     print(json.dumps({"ok": True, "device": {

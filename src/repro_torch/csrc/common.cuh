@@ -8,8 +8,9 @@
 
 namespace repro {
 
-// Operand / output type codes passed from Python (kernels/*.py).
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// Operand / output type codes passed from Python (kernels/_build.py
+// DTYPE_CODES).
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kI32 = 3 };
 
 // Activation codes (kernels/epilogue.py ACT_CODES).
 enum Act : int { kNone = 0, kSilu = 1, kGelu = 2, kRelu = 3 };
@@ -24,6 +25,9 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(int8_t x) {  // exact
+  return static_cast<float>(x);
+}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -34,6 +38,14 @@ __device__ __forceinline__ float from_f32<float>(float x) {
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);  // round to nearest even, like torch's cast
+}
+template <>  // the staging copies' zero fill (an integral x)
+__device__ __forceinline__ int8_t from_f32<int8_t>(float x) {
+  return static_cast<int8_t>(x);
+}
+template <>  // the same, for B6's int32 partial sums
+__device__ __forceinline__ int from_f32<int>(float x) {
+  return static_cast<int>(x);
 }
 
 // The epilogue activations in f32; gelu is the tanh approximation.
@@ -64,6 +76,33 @@ __device__ __forceinline__ float epilogue(float x, bool has_bias, float bias,
   x = activate(x, act);
   if (has_res) x = __fadd_rn(x, res);
   return x;
+}
+
+// The epilogue's int8 output quantization (repro/kernels/epilogue.py:126-128,
+// after the residual): x / s, divided (not multiplied by a reciprocal),
+// rounded half to even, clipped to +-127.
+__device__ __forceinline__ int8_t quantize_out(float x, float s) {
+  const float q = rintf(__fdiv_rn(x, s));
+  return static_cast<int8_t>(fminf(fmaxf(q, -127.0f), 127.0f));
+}
+
+// A flushed value stored at C[at] in C's type: f32, bf16 (nearest even),
+// or int8 quantized by the output scale *out_scale.
+__device__ __forceinline__ void store_out(void* C, size_t at, float x,
+                                          int dtype, const float* out_scale) {
+  if (dtype == kBF16)
+    static_cast<__nv_bfloat16*>(C)[at] = __float2bfloat16(x);
+  else if (dtype == kI8)
+    static_cast<int8_t*>(C)[at] = quantize_out(x, *out_scale);
+  else
+    static_cast<float*>(C)[at] = x;
+}
+
+// The weight dequantization of a W8A16 / W8A8 flush: the accumulator times
+// its column's scale, one rounding (never contracted with the bias add).
+__device__ __forceinline__ float dequant(float x, const float* scale,
+                                         int col) {
+  return scale != nullptr ? __fmul_rn(x, scale[col]) : x;
 }
 
 __device__ __forceinline__ float warp_max(float x) {

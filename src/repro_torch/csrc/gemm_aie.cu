@@ -29,6 +29,22 @@
 // fmaf chain over k = 0..K-1 per element, the next tile prefetched into
 // registers during the products.
 //
+// The int8 paths (repro/kernels/gemm_aie.py:60-62, :72, :111 and the
+// out-quant of epilogue.py:126-128), at the same CTA shapes:
+//   W8A16: a bf16 A against an int8 B (a quantized weight).  B is staged at
+//     one byte an element, the halving of the weight bytes that bound the
+//     decode GEMMs, and widened to bf16 in registers (mma_chain.cuh
+//     mma_slab_w8): the bf16 chain runs on exactly the widened values, so a
+//     row equals this kernel's bf16 body on q.to(bfloat16), and the (1, n)
+//     b_scale multiplies the f32 accumulator once on the flush, before the
+//     epilogue.  The f32 body takes an int8 B too, widened as it loads.
+//   W8A8: int8 A and B on mma.sync m16n8k32 s8 with int32 accumulators
+//     (mma_slab_s8), exact for any k served here (k 127^2 < 2^31 up to
+//     k ~ 133,000); the flush converts to f32 and multiplies by b_scale, or
+//     stores the bare int32 sums when nothing is fused.
+//   out-quant: after the epilogue an int8 C takes x / out_scale, rounded
+//     half to even and clipped to +-127 (common.cuh quantize_out).
+//
 // Order invariance: every C element is one chain over k in a fixed order
 // (the tensor-core chain of mma_chain.cuh for bf16, the fmaf chain for
 // f32), whatever m is, whichever CTA shape runs it and wherever the row
@@ -36,6 +52,8 @@
 // and inside a continuous batch, which is what keeps continuous-batched
 // greedy decoding identical to solo greedy decoding; and B6 (gemm_tb.cu)
 // runs the same chains, so it equals this kernel bit for bit.
+#include <type_traits>
+
 #include "mma_chain.cuh"
 #include "staging.cuh"
 
@@ -51,11 +69,14 @@ constexpr int kRowsPerThread = kBM / kRowGroups;
 constexpr int kALoads = kBM * kBK / kThreads;  // A elements per thread/step
 constexpr int kBLoads = kBK * kBN / kThreads;  // B elements per thread/step
 
-template <typename TIn, typename TOut, typename TRes>
+template <typename TB, typename TRes>
 __global__ void __launch_bounds__(kThreads)
-gemm_aie_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
-                TOut* __restrict__ C, const float* __restrict__ bias,
-                const TRes* __restrict__ res, int M, int N, int K, int act) {
+gemm_aie_kernel(const float* __restrict__ A, const TB* __restrict__ B,
+                void* __restrict__ C, const float* __restrict__ bias,
+                const float* __restrict__ scale,
+                const TRes* __restrict__ res,
+                const float* __restrict__ out_scale, int M, int N, int K,
+                int act, int out_dtype) {
   __shared__ float As[kBM][kBK];
   __shared__ float Bs[kBK][kBN];
   const int tid = threadIdx.x;
@@ -73,12 +94,13 @@ gemm_aie_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
     for (int it = 0; it < kALoads; ++it) {
       const int i = tid + it * kThreads;
       const int gr = row0 + i / kBK, gc = k0 + i % kBK;
-      ra[it] = (gr < M && gc < K) ? to_f32(A[(size_t)gr * K + gc]) : 0.0f;
+      ra[it] = (gr < M && gc < K) ? A[(size_t)gr * K + gc] : 0.0f;
     }
 #pragma unroll
     for (int it = 0; it < kBLoads; ++it) {
       const int i = tid + it * kThreads;
       const int gr = k0 + i / kBN, gc = col0 + i % kBN;
+      // an int8 B (W8A16 on f32 activations) widens on load, exactly
       rb[it] = (gr < K && gc < N) ? to_f32(B[(size_t)gr * N + gc]) : 0.0f;
     }
   };
@@ -114,44 +136,37 @@ gemm_aie_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
     const int row = row0 + ty + kRowGroups * i;
     if (row >= M) continue;
     const float x = epilogue(
-        acc[i], bias != nullptr, bias != nullptr ? bias[col] : 0.0f, act,
-        res != nullptr,
+        dequant(acc[i], scale, col), bias != nullptr,
+        bias != nullptr ? bias[col] : 0.0f, act, res != nullptr,
         res != nullptr ? to_f32(res[(size_t)row * N + col]) : 0.0f);
-    C[(size_t)row * N + col] = from_f32<TOut>(x);
+    store_out(C, (size_t)row * N + col, x, out_dtype, out_scale);
   }
 }
 
-template <typename TIn, typename TOut, typename TRes>
-void launch(const void* a, const void* b, void* c, const void* bias,
-            const void* res, int m, int n, int k, int act,
-            cudaStream_t stream) {
+struct Operands {
+  const void *a, *b;
+  void* c;
+  const void *bias, *scale, *res, *out_scale;
+};
+
+template <typename TB>
+int launch_f32(const Operands& o, int m, int n, int k, int act,
+               int out_dtype, int res_dtype, cudaStream_t stream) {
   dim3 grid(cdiv(n, kBN), cdiv(m, kBM));
-  gemm_aie_kernel<TIn, TOut, TRes><<<grid, kThreads, 0, stream>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b),
-      static_cast<TOut*>(c), static_cast<const float*>(bias),
-      static_cast<const TRes*>(res), m, n, k, act);
-}
-
-template <typename TIn, typename TOut>
-void launch_res(int res_dtype, const void* a, const void* b, void* c,
-                const void* bias, const void* res, int m, int n, int k,
-                int act, cudaStream_t stream) {
+  const float* a = static_cast<const float*>(o.a);
+  const TB* b = static_cast<const TB*>(o.b);
+  const float* bias = static_cast<const float*>(o.bias);
+  const float* scale = static_cast<const float*>(o.scale);
+  const float* osc = static_cast<const float*>(o.out_scale);
   if (res_dtype == kBF16)
-    launch<TIn, TOut, __nv_bfloat16>(a, b, c, bias, res, m, n, k, act, stream);
+    gemm_aie_kernel<TB, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
+        a, b, o.c, bias, scale, static_cast<const __nv_bfloat16*>(o.res),
+        osc, m, n, k, act, out_dtype);
   else
-    launch<TIn, TOut, float>(a, b, c, bias, res, m, n, k, act, stream);
-}
-
-template <typename TIn>
-void launch_out(int out_dtype, int res_dtype, const void* a, const void* b,
-                void* c, const void* bias, const void* res, int m, int n,
-                int k, int act, cudaStream_t stream) {
-  if (out_dtype == kBF16)
-    launch_res<TIn, __nv_bfloat16>(res_dtype, a, b, c, bias, res, m, n, k,
-                                   act, stream);
-  else
-    launch_res<TIn, float>(res_dtype, a, b, c, bias, res, m, n, k, act,
-                           stream);
+    gemm_aie_kernel<TB, float><<<grid, kThreads, 0, stream>>>(
+        a, b, o.c, bias, scale, static_cast<const float*>(o.res), osc, m, n,
+        k, act, out_dtype);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
@@ -160,14 +175,20 @@ void launch_out(int out_dtype, int res_dtype, const void* a, const void* b,
 
 struct AieArgs {
   int M, N, K, act;
-  int out_dtype, res_dtype;  // C's and the residual's type (kF32 / kBF16)
+  int out_dtype, res_dtype;  // C's and the residual's type (DType)
   int mode_a, mode_b;        // staging.cuh copy modes of A and B
 };
+
+// The operand variants of the tensor-core body: bf16 x bf16, W8A16 (bf16 A,
+// int8 B widened in registers, mma_chain.cuh mma_slab_w8) and W8A8 (int8 A
+// and B, int32 accumulators, mma_slab_s8).
+enum Variant : int { kVBf16 = 0, kVW8A16 = 1, kVW8A8 = 2 };
 
 // A CTA shape: kWM x kWN warps, each owning kFM x kFN m16n8 fragments, so a
 // BM x BN tile of C; BK-deep slabs through kStages stages.  With kCopyWarps
 // > 0 that many more warps do all the staging, so the MMA warps of a
-// narrow tile never stall on issuing copies; with 0 every warp stages.
+// narrow tile never stall on issuing copies; with 0 every warp stages.  A
+// stage holds the A slab, then the B slab, each at its operand's width.
 template <int kWM, int kWN, int kFM, int kFN, int kBK_, int kStages_,
           int kCopyWarps_ = 0>
 struct MmaShape {
@@ -177,48 +198,82 @@ struct MmaShape {
   static constexpr int kBM = 16 * kFM * kWM, kBN = 8 * kFN * kWN;
   static constexpr int kBK = kBK_, kStages = kStages_;
   static constexpr int kWarpM = kWM, kWarpN = kWN, kFragM = kFM, kFragN = kFN;
-  static constexpr int kStageElems = kBM * kBK + kBK * kBN;
-  static constexpr size_t kSmem = 2 * static_cast<size_t>(kStages) *
-                                  kStageElems;
+  template <int kV>
+  __host__ __device__ static constexpr int a_bytes() {
+    return kBM * kBK * (kV == kVW8A8 ? 1 : 2);
+  }
+  template <int kV>
+  __host__ __device__ static constexpr int stage_bytes() {
+    return a_bytes<kV>() + kBK * kBN * (kV == kVBf16 ? 2 : 1);
+  }
+  template <int kV>
+  __host__ __device__ static constexpr size_t smem() {
+    return static_cast<size_t>(kStages) * stage_bytes<kV>();
+  }
 };
 
 // One BM x BK slab of A and one BK x BN slab of B into a stage, zero-filled
 // past K, M and N, by the S::kCopyThreads threads (tid: this one's index
 // among them).  With m <= 8 rows a 16-row A slab stages only its first 8
-// rows (a_rows).
-template <typename S>
-__device__ __forceinline__ void aie_load(const SmemTile& at,
-                                         const SmemTile& bt,
-                                         const __nv_bfloat16* A,
-                                         const __nv_bfloat16* B,
-                                         const AieArgs& p, int row0, int col0,
-                                         int rows_valid, int cols_valid,
-                                         int a_rows, int k0, int tid) {
+// rows (a_rows).  bf16 operands land in mma_chain.cuh's swizzled tiles,
+// int8 ones row-major (Rows8) at one byte an element.
+template <typename S, int kV>
+__device__ __forceinline__ void aie_load(unsigned char* stage, const void* A,
+                                         const void* B, const AieArgs& p,
+                                         int row0, int col0, int rows_valid,
+                                         int cols_valid, int a_rows, int k0,
+                                         int tid) {
   constexpr int kT = S::kCopyThreads;
   const int depth = min(S::kBK, p.K - k0);
-  const __nv_bfloat16* a = A + static_cast<size_t>(row0) * p.K + k0;
-  const __nv_bfloat16* b = B + static_cast<size_t>(k0) * p.N + col0;
-  if (p.mode_a == 2)
-    stage_rows16<kT, S::kBK>(at.p, at, a, p.K, a_rows, rows_valid, depth, tid);
-  else
-    stage_rows<kT>(at.p, at, a, p.K, a_rows, S::kBK, rows_valid, depth,
-                   p.mode_a, tid);
-  if (p.mode_b == 2)
-    stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth, cols_valid,
-                             tid);
-  else
-    stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth, cols_valid,
-                   p.mode_b, tid);
+  const size_t a_at = static_cast<size_t>(row0) * p.K + k0;
+  const size_t b_at = static_cast<size_t>(k0) * p.N + col0;
+  if constexpr (kV == kVW8A8) {
+    const int8_t* a = static_cast<const int8_t*>(A) + a_at;
+    int8_t* at = reinterpret_cast<int8_t*>(stage);
+    if (p.mode_a == 2)
+      stage_rows16<kT, S::kBK>(at, Rows8{S::kBK}, a, p.K, a_rows, rows_valid,
+                               depth, tid);
+    else
+      stage_rows<kT>(at, Rows8{S::kBK}, a, p.K, a_rows, S::kBK, rows_valid,
+                     depth, p.mode_a, tid);
+  } else {
+    const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(A) + a_at;
+    const SmemTile at =
+        smem_tile(reinterpret_cast<__nv_bfloat16*>(stage), S::kBK);
+    if (p.mode_a == 2)
+      stage_rows16<kT, S::kBK>(at.p, at, a, p.K, a_rows, rows_valid, depth,
+                               tid);
+    else
+      stage_rows<kT>(at.p, at, a, p.K, a_rows, S::kBK, rows_valid, depth,
+                     p.mode_a, tid);
+  }
+  unsigned char* bs = stage + S::template a_bytes<kV>();
+  if constexpr (kV == kVBf16) {
+    const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(B) + b_at;
+    const SmemTile bt = smem_tile(reinterpret_cast<__nv_bfloat16*>(bs), S::kBN);
+    if (p.mode_b == 2)
+      stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth, cols_valid,
+                               tid);
+    else
+      stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth, cols_valid,
+                     p.mode_b, tid);
+  } else {
+    // the wrapper picks mode 2 only when a row of the tile is 16-byte units
+    stage_rows<kT>(reinterpret_cast<int8_t*>(bs), Rows8{S::kBN},
+                   static_cast<const int8_t*>(B) + b_at, p.N, S::kBK, S::kBN,
+                   depth, cols_valid, p.mode_b, tid);
+  }
 }
 
-template <typename S>
+template <typename S, int kV>
 __global__ void __launch_bounds__(S::kThreads)
-gemm_aie_mma_kernel(const __nv_bfloat16* __restrict__ A,
-                    const __nv_bfloat16* __restrict__ B, void* C,
-                    const float* __restrict__ bias, const void* res,
-                    AieArgs p) {
+gemm_aie_mma_kernel(const void* __restrict__ A, const void* __restrict__ B,
+                    void* C, const float* __restrict__ bias,
+                    const float* __restrict__ scale, const void* res,
+                    const float* __restrict__ out_scale, AieArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  constexpr int kStage = S::template stage_bytes<kV>();
+  constexpr int kABytes = S::template a_bytes<kV>();
   const int row0 = blockIdx.y * S::kBM, col0 = blockIdx.x * S::kBN;
   const int rows_valid = min(S::kBM, p.M - row0);
   const int cols_valid = min(S::kBN, p.N - col0);
@@ -236,25 +291,30 @@ gemm_aie_mma_kernel(const __nv_bfloat16* __restrict__ A,
   const int a_rows = kEdge && rows_valid <= 8 ? 8 : S::kBM;
   // stage s: the BM x BK slab of A, then the BK x BN slab of B
   auto a_tile = [&](int s) {
-    return smem_tile(ring + s * S::kStageElems, S::kBK);
+    return smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + s * kStage),
+                     S::kBK);
   };
   auto b_tile = [&](int s) {
-    return smem_tile(ring + s * S::kStageElems + S::kBM * S::kBK, S::kBN);
+    return smem_tile(
+        reinterpret_cast<__nv_bfloat16*>(smem + s * kStage + kABytes), S::kBN);
+  };
+  auto bytes = [&](int s, int off) {
+    return reinterpret_cast<const int8_t*>(smem + s * kStage + off);
   };
   const int slabs = (p.K + S::kBK - 1) / S::kBK;
   auto load = [&](int slab) {
-    const int s = slab % S::kStages;
-    aie_load<S>(a_tile(s), b_tile(s), A, B, p, row0, col0, rows_valid,
-                cols_valid, a_rows, slab * S::kBK, tid);
+    aie_load<S, kV>(smem + (slab % S::kStages) * kStage, A, B, p, row0, col0,
+                    rows_valid, cols_valid, a_rows, slab * S::kBK, tid);
   };
 
-  float acc[S::kFragM][S::kFragN][4];
+  using Acc = std::conditional_t<kV == kVW8A8, int, float>;
+  Acc acc[S::kFragM][S::kFragN][4];
 #pragma unroll
   for (int i = 0; i < S::kFragM; ++i)
 #pragma unroll
     for (int j = 0; j < S::kFragN; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
   // The ring: with copy warps, slab 0 goes first and the MMA warps start on
   // it while the copy warps fill the other stages; without, kStages - 1
@@ -287,14 +347,23 @@ gemm_aie_mma_kernel(const __nv_bfloat16* __restrict__ A,
     const int s = i % S::kStages;
     // the slab is zero-filled past K, so its last step runs whole
     const int depth = min(S::kBK, p.K - i * S::kBK);
-    if (depth == S::kBK)
+    if constexpr (kV == kVW8A8) {
+      mma_slab_s8<S::kFragM, S::kFragN>(
+          acc, bytes(s, 0), Rows8{S::kBK}, wr, a_rows - wr, bytes(s, kABytes),
+          Rows8{S::kBN}, wc, S::kBN - wc, (depth + 31) & ~31);
+    } else if constexpr (kV == kVW8A16) {
+      mma_slab_w8<S::kFragM, S::kFragN, kEdge>(
+          acc, a_tile(s), wr, a_rows - wr, bytes(s, kABytes), Rows8{S::kBN},
+          wc, S::kBN - wc, depth == S::kBK ? S::kBK : (depth + 15) & ~15);
+    } else if (depth == S::kBK) {
       mma_slab<S::kFragM, S::kFragN, kEdge>(acc, a_tile(s), wr, a_rows - wr,
                                             b_tile(s), wc, S::kBN - wc,
                                             S::kBK);
-    else
+    } else {
       mma_slab<S::kFragM, S::kFragN, kEdge>(acc, a_tile(s), wr, a_rows - wr,
                                             b_tile(s), wc, S::kBN - wc,
                                             (depth + 15) & ~15);
+    }
   }
 
   if (!mma_warp) return;
@@ -307,63 +376,64 @@ gemm_aie_mma_kernel(const __nv_bfloat16* __restrict__ A,
         const int r = wr + frag_row(i, e), c = wc + frag_col(j, e);
         if (r >= rows_valid || c >= cols_valid) continue;
         const size_t at = static_cast<size_t>(row0 + r) * p.N + col0 + c;
+        if constexpr (kV == kVW8A8) {
+          if (p.out_dtype == kI32) {  // the bare int32 sums
+            static_cast<int*>(C)[at] = acc[i][j][e];
+            continue;
+          }
+        }
         float rv = 0.0f;
         if (res != nullptr)
           rv = p.res_dtype == kBF16
                    ? to_f32(static_cast<const __nv_bfloat16*>(res)[at])
                    : static_cast<const float*>(res)[at];
-        const float x =
-            epilogue(acc[i][j][e], bias != nullptr,
+        float x = static_cast<float>(acc[i][j][e]);
+        if constexpr (kV != kVBf16) x = dequant(x, scale, col0 + c);
+        x = epilogue(x, bias != nullptr,
                      bias != nullptr ? bias[col0 + c] : 0.0f, p.act,
                      res != nullptr, rv);
-        if (p.out_dtype == kBF16)
-          static_cast<__nv_bfloat16*>(C)[at] = from_f32<__nv_bfloat16>(x);
-        else
-          static_cast<float*>(C)[at] = x;
+        store_out(C, at, x, p.out_dtype, out_scale);
       }
 }
 
-template <typename S>
-int launch_mma(const void* a, const void* b, void* c, const void* bias,
-               const void* res, const AieArgs& p, cudaStream_t stream) {
-  auto kernel = gemm_aie_mma_kernel<S>;
+template <typename S, int kV>
+int launch_mma(const Operands& o, const AieArgs& p, cudaStream_t stream) {
+  auto kernel = gemm_aie_mma_kernel<S, kV>;
+  constexpr size_t kSmem = S::template smem<kV>();
   static bool configured = false;  // one attribute call per shape
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(S::kSmem));
+                         static_cast<int>(kSmem));
     configured = true;
   }
   dim3 grid(cdiv(p.N, S::kBN), cdiv(p.M, S::kBM));
-  kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), c,
-      static_cast<const float*>(bias), res, p);
+  kernel<<<grid, S::kThreads, kSmem, stream>>>(
+      o.a, o.b, o.c, static_cast<const float*>(o.bias),
+      static_cast<const float*>(o.scale), o.res,
+      static_cast<const float*>(o.out_scale), p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The CTA shapes of the bf16 body, by the index kernels/gemm_aie.py
-// BF16_TILES gives them (its (bm, bk, bn) must match): with m <= 16 one
-// 16-row fragment and 1, 4 or 8 MMA warps of one 8-column fragment each,
-// 128-deep slabs; the two narrow shapes beside 4 copy warps and 8 stages
-// (so 16 KB or more of B is in flight and the MMA warps start on the first
-// slab), the widest (many CTAs) staging itself through 4; with more rows
-// 64 x 64 (4 warps of 2 x 4 fragments that stage too), 64-deep slabs, 4
-// stages.
-int launch_bf16(int config, const void* a, const void* b, void* c,
-                const void* bias, const void* res, const AieArgs& p,
-                cudaStream_t s) {
+// The CTA shapes of the tensor-core body, by the index kernels/gemm_aie.py
+// BF16_TILES gives them (its (bm, bk, bn) must match; every operand variant
+// runs them): with m <= 16 one 16-row fragment and 1, 4 or 8 MMA warps of
+// one 8-column fragment each, 128-deep slabs; the two narrow shapes beside
+// 4 copy warps and 8 stages (so 16 KB or more of bf16 B is in flight and
+// the MMA warps start on the first slab), the widest (many CTAs) staging
+// itself through 4; with more rows 64 x 64 (4 warps of 2 x 4 fragments that
+// stage too), 64-deep slabs, 4 stages.
+template <int kV>
+int launch_tc(int config, const Operands& o, const AieArgs& p,
+              cudaStream_t s) {
   switch (config) {
     case 1:
-      return launch_mma<MmaShape<1, 1, 1, 1, 128, 8, 4>>(a, b, c, bias, res,
-                                                          p, s);
+      return launch_mma<MmaShape<1, 1, 1, 1, 128, 8, 4>, kV>(o, p, s);
     case 2:
-      return launch_mma<MmaShape<1, 4, 1, 1, 128, 8, 4>>(a, b, c, bias, res,
-                                                          p, s);
+      return launch_mma<MmaShape<1, 4, 1, 1, 128, 8, 4>, kV>(o, p, s);
     case 3:
-      return launch_mma<MmaShape<1, 8, 1, 1, 128, 4>>(a, b, c, bias, res, p,
-                                                       s);
+      return launch_mma<MmaShape<1, 8, 1, 1, 128, 4>, kV>(o, p, s);
     case 4:
-      return launch_mma<MmaShape<2, 2, 2, 4, 64, 4>>(a, b, c, bias, res, p, s);
+      return launch_mma<MmaShape<2, 2, 2, 4, 64, 4>, kV>(o, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -373,25 +443,33 @@ int launch_bf16(int config, const void* a, const void* b, void* c,
 }  // namespace repro
 
 // A (m,k), B (k,n), C (m,n) row-major and contiguous; bias (n,) f32 or
-// null; residual (m,n) or null.  bf16 operands run the tensor-core body with
-// CTA shape ``config`` (1..4, see launch_bf16) and the staging copy modes
-// ``modes`` (2 bits each: A, then B); f32 operands the fmaf body, which
-// ignores both.  Returns cudaGetLastError() after the launch.
+// null; b_scale (n,) f32 or null (an int8 B's per-column dequant scale,
+// applied before the epilogue); residual (m,n) or null; out_scale a
+// device f32 scalar or null (int8 C: the flush's output quantization).
+// Operand types: bf16 x bf16, bf16 x int8 (W8A16) and int8 x int8 (W8A8)
+// run the tensor-core body with CTA shape ``config`` (1..4, see launch_tc)
+// and the staging copy modes ``modes`` (2 bits each: A, then B); f32 x f32
+// and f32 x int8 the fmaf body, which ignores both.  C is f32, bf16, int8
+// (with out_scale) or, for W8A8 with nothing fused, the int32 sums.
+// Returns cudaGetLastError() after the launch.
 extern "C" int gemm_aie_launch(const void* a, const void* b, void* c,
-                               const void* bias, const void* res, int m,
-                               int n, int k, int in_dtype, int out_dtype,
-                               int res_dtype, int act, int config, int modes,
-                               void* stream) {
+                               const void* bias, const void* b_scale,
+                               const void* res, const void* out_scale, int m,
+                               int n, int k, int a_dtype, int b_dtype,
+                               int out_dtype, int res_dtype, int act,
+                               int config, int modes, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == kBF16) {
-    AieArgs p;
-    p.M = m, p.N = n, p.K = k, p.act = act;
-    p.out_dtype = out_dtype, p.res_dtype = res_dtype;
-    p.mode_a = modes & 3, p.mode_b = (modes >> 2) & 3;
-    return launch_bf16(config, a, b, c, bias, res, p, s);
-  }
-  launch_out<float>(out_dtype, res_dtype, a, b, c, bias, res, m, n, k, act,
-                    s);
-  return static_cast<int>(cudaGetLastError());
+  const Operands o{a, b, c, bias, b_scale, res, out_scale};
+  if (a_dtype == kF32)
+    return b_dtype == kI8
+               ? launch_f32<int8_t>(o, m, n, k, act, out_dtype, res_dtype, s)
+               : launch_f32<float>(o, m, n, k, act, out_dtype, res_dtype, s);
+  AieArgs p;
+  p.M = m, p.N = n, p.K = k, p.act = act;
+  p.out_dtype = out_dtype, p.res_dtype = res_dtype;
+  p.mode_a = modes & 3, p.mode_b = (modes >> 2) & 3;
+  if (a_dtype == kI8) return launch_tc<kVW8A8>(config, o, p, s);
+  if (b_dtype == kI8) return launch_tc<kVW8A16>(config, o, p, s);
+  return launch_tc<kVBf16>(config, o, p, s);
 }

@@ -37,6 +37,14 @@
 // f32 operands keep the CUDA-core body (gemm_gated_kernel below): a fixed
 // 16 x 64 x 32 tile, one fmaf chain over k = 0..K-1 per element, the next
 // tile prefetched into registers during the products.
+//
+// W8A16 (repro/kernels/gemm_gated.py:50-51, :104-108): int8 gate and up
+// weights are staged at one byte an element and widened in registers
+// (mma_chain.cuh mma_slab_w8, B1's widening), and each accumulator is
+// scaled by its (1, n) scale on the flush, before the gate; so relu(B1
+// W8A16) * B1 W8A16 still holds bit for bit.  The f32 body widens int8
+// weights as it loads them.  An int8 A is not taken: the planner never
+// routes a gated GEMM to W8A8 (repro/kernels/api.py:1106-1109).
 #include "mma_chain.cuh"
 #include "staging.cuh"
 
@@ -52,11 +60,12 @@ constexpr int kRowsPerThread = kBM / kRowGroups;
 constexpr int kALoads = kBM * kBK / kThreads;
 constexpr int kBLoads = kBK * kBN / kThreads;
 
-template <typename TOut>
+template <typename TB>
 __global__ void __launch_bounds__(kThreads)
-gemm_gated_kernel(const float* __restrict__ A, const float* __restrict__ Bg,
-                  const float* __restrict__ Bu, TOut* __restrict__ C, int M,
-                  int N, int K, int act) {
+gemm_gated_kernel(const float* __restrict__ A, const TB* __restrict__ Bg,
+                  const TB* __restrict__ Bu, const float* __restrict__ sg,
+                  const float* __restrict__ su, void* __restrict__ C, int M,
+                  int N, int K, int act, int out_dtype) {
   __shared__ float As[kBM][kBK];
   __shared__ float Gs[kBK][kBN];
   __shared__ float Us[kBK][kBN];
@@ -83,8 +92,9 @@ gemm_gated_kernel(const float* __restrict__ A, const float* __restrict__ Bg,
       const int gr = k0 + i / kBN, gc = col0 + i % kBN;
       const bool ok = gr < K && gc < N;
       const size_t at = (size_t)gr * N + gc;
-      rg[it] = ok ? Bg[at] : 0.0f;
-      ru[it] = ok ? Bu[at] : 0.0f;
+      // int8 weights (W8A16 on f32 activations) widen on load, exactly
+      rg[it] = ok ? to_f32(Bg[at]) : 0.0f;
+      ru[it] = ok ? to_f32(Bu[at]) : 0.0f;
     }
   };
 
@@ -123,21 +133,26 @@ gemm_gated_kernel(const float* __restrict__ A, const float* __restrict__ Bg,
   for (int i = 0; i < kRowsPerThread; ++i) {
     const int row = row0 + ty + kRowGroups * i;
     if (row >= M) continue;
-    C[(size_t)row * N + col] = from_f32<TOut>(activate(acc_g[i], act) * acc_u[i]);
+    const float x = activate(dequant(acc_g[i], sg, col), act) *
+                    dequant(acc_u[i], su, col);
+    store_out(C, (size_t)row * N + col, x, out_dtype, nullptr);
   }
 }
 
-template <typename TOut>
-void launch_f32(const void* a, const void* bg, const void* bu, void* c, int m,
-                int n, int k, int act, cudaStream_t stream) {
+template <typename TB>
+int launch_f32(const void* a, const void* bg, const void* bu, const void* sg,
+               const void* su, void* c, int m, int n, int k, int act,
+               int out_dtype, cudaStream_t stream) {
   dim3 grid(cdiv(n, kBN), cdiv(m, kBM));
-  gemm_gated_kernel<TOut><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(bg),
-      static_cast<const float*>(bu), static_cast<TOut*>(c), m, n, k, act);
+  gemm_gated_kernel<TB><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(a), static_cast<const TB*>(bg),
+      static_cast<const TB*>(bu), static_cast<const float*>(sg),
+      static_cast<const float*>(su), c, m, n, k, act, out_dtype);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ---------------------------------------------------------------------------
-// The tensor-core body (bf16 operands)
+// The tensor-core body (bf16 activations)
 // ---------------------------------------------------------------------------
 
 struct GatedArgs {
@@ -150,7 +165,8 @@ struct GatedArgs {
 // of both products, so a BM x BN tile; BK-deep slabs through kStages
 // stages.  With kCopyWarps > 0 that many more warps do all the staging;
 // with 0 every warp stages.  A stage holds the A slab, then the Wg slab,
-// then the Wu slab.
+// then the Wu slab, the weights at kBSize bytes an element (2: bf16; 1:
+// int8, W8A16).
 template <int kWM, int kWN, int kFM, int kFN, int kBK_, int kStages_,
           int kCopyWarps_ = 0>
 struct GatedShape {
@@ -160,36 +176,50 @@ struct GatedShape {
   static constexpr int kBM = 16 * kFM * kWM, kBN = 8 * kFN * kWN;
   static constexpr int kBK = kBK_, kStages = kStages_;
   static constexpr int kWarpN = kWN, kFragM = kFM, kFragN = kFN;
-  static constexpr int kAElems = kBM * kBK, kBElems = kBK * kBN;
-  static constexpr int kStageElems = kAElems + 2 * kBElems;
-  static constexpr size_t kSmem = 2 * static_cast<size_t>(kStages) *
-                                  kStageElems;
+  static constexpr int kABytes = 2 * kBM * kBK;
+  template <int kBSize>
+  __host__ __device__ static constexpr int stage_bytes() {
+    return kABytes + 2 * kBK * kBN * kBSize;
+  }
 };
 
-// One BK x BN slab of a B stream into its stage tile, zero-filled past K
-// and N, by the S::kCopyThreads threads (tid: this one's index among them).
-template <typename S>
-__device__ __forceinline__ void stage_b(const SmemTile& bt,
-                                        const __nv_bfloat16* b,
-                                        const GatedArgs& p, int depth,
-                                        int cols_valid, int tid) {
+// One BK x BN slab of a B stream into its stage, zero-filled past K and N,
+// by the S::kCopyThreads threads (tid: this one's index among them): bf16
+// into mma_chain.cuh's swizzled tile, int8 row-major at one byte an element.
+template <typename S, bool kB8>
+__device__ __forceinline__ void stage_b(unsigned char* dst, const void* src,
+                                        size_t at, const GatedArgs& p,
+                                        int depth, int cols_valid, int tid) {
   constexpr int kT = S::kCopyThreads;
-  if (p.mode_b == 2)
-    stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth, cols_valid,
-                             tid);
-  else
-    stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth, cols_valid,
-                   p.mode_b, tid);
+  if constexpr (kB8) {
+    // the wrapper picks mode 2 only when a row of the tile is 16-byte units
+    stage_rows<kT>(reinterpret_cast<int8_t*>(dst), Rows8{S::kBN},
+                   static_cast<const int8_t*>(src) + at, p.N, S::kBK, S::kBN,
+                   depth, cols_valid, p.mode_b, tid);
+  } else {
+    const SmemTile bt = smem_tile(reinterpret_cast<__nv_bfloat16*>(dst), S::kBN);
+    const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(src) + at;
+    if (p.mode_b == 2)
+      stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth, cols_valid,
+                               tid);
+    else
+      stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth, cols_valid,
+                     p.mode_b, tid);
+  }
 }
 
-template <typename S>
+// kB8: int8 weights (W8A16), widened in registers by mma_slab_w8 and scaled
+// by sg / su on the flush, before the gate.
+template <typename S, bool kB8>
 __global__ void __launch_bounds__(S::kThreads)
 gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
-                      const __nv_bfloat16* __restrict__ Bg,
-                      const __nv_bfloat16* __restrict__ Bu, void* C,
-                      GatedArgs p) {
+                      const void* __restrict__ Bg,
+                      const void* __restrict__ Bu,
+                      const float* __restrict__ sg,
+                      const float* __restrict__ su, void* C, GatedArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+  constexpr int kBBytes = S::kBK * S::kBN * (kB8 ? 1 : 2);
+  constexpr int kStage = S::template stage_bytes<kB8 ? 1 : 2>();
   const int row0 = blockIdx.y * S::kBM, col0 = blockIdx.x * S::kBN;
   const int rows_valid = min(S::kBM, p.M - row0);
   const int cols_valid = min(S::kBN, p.N - col0);
@@ -203,15 +233,25 @@ gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
   // are staged, and the fragment's other 8 read as zero
   constexpr bool kEdge = S::kBM == 16;
   const int a_rows = kEdge && rows_valid <= 8 ? 8 : S::kBM;
+  auto stage_at = [&](int s) { return smem + s * kStage; };
   auto a_tile = [&](int s) {
-    return smem_tile(ring + s * S::kStageElems, S::kBK);
+    return smem_tile(reinterpret_cast<__nv_bfloat16*>(stage_at(s)), S::kBK);
   };
   auto g_tile = [&](int s) {
-    return smem_tile(ring + s * S::kStageElems + S::kAElems, S::kBN);
+    return smem_tile(
+        reinterpret_cast<__nv_bfloat16*>(stage_at(s) + S::kABytes), S::kBN);
   };
   auto u_tile = [&](int s) {
-    return smem_tile(ring + s * S::kStageElems + S::kAElems + S::kBElems,
-                     S::kBN);
+    return smem_tile(
+        reinterpret_cast<__nv_bfloat16*>(stage_at(s) + S::kABytes + kBBytes),
+        S::kBN);
+  };
+  auto g_bytes = [&](int s) {
+    return reinterpret_cast<const int8_t*>(stage_at(s) + S::kABytes);
+  };
+  auto u_bytes = [&](int s) {
+    return reinterpret_cast<const int8_t*>(stage_at(s) + S::kABytes +
+                                           kBBytes);
   };
   const int slabs = (p.K + S::kBK - 1) / S::kBK;
   auto load = [&](int slab) {
@@ -226,8 +266,10 @@ gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
       stage_rows<S::kCopyThreads>(at.p, at, a, p.K, a_rows, S::kBK,
                                   rows_valid, depth, p.mode_a, tid);
     const size_t b_at = static_cast<size_t>(k0) * p.N + col0;
-    stage_b<S>(g_tile(s), Bg + b_at, p, depth, cols_valid, tid);
-    stage_b<S>(u_tile(s), Bu + b_at, p, depth, cols_valid, tid);
+    stage_b<S, kB8>(stage_at(s) + S::kABytes, Bg, b_at, p, depth, cols_valid,
+                    tid);
+    stage_b<S, kB8>(stage_at(s) + S::kABytes + kBBytes, Bu, b_at, p, depth,
+                    cols_valid, tid);
   };
 
   float acc_g[S::kFragM][S::kFragN][4], acc_u[S::kFragM][S::kFragN][4];
@@ -271,10 +313,19 @@ gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
     const int depth = min(S::kBK, p.K - i * S::kBK);
     const int k_len = depth == S::kBK ? S::kBK : (depth + 15) & ~15;
     const SmemTile at = a_tile(s);
-    mma_slab<S::kFragM, S::kFragN, kEdge>(acc_g, at, wr, a_rows - wr,
-                                          g_tile(s), wc, S::kBN - wc, k_len);
-    mma_slab<S::kFragM, S::kFragN, kEdge>(acc_u, at, wr, a_rows - wr,
-                                          u_tile(s), wc, S::kBN - wc, k_len);
+    if constexpr (kB8) {
+      mma_slab_w8<S::kFragM, S::kFragN, kEdge>(acc_g, at, wr, a_rows - wr,
+                                               g_bytes(s), Rows8{S::kBN}, wc,
+                                               S::kBN - wc, k_len);
+      mma_slab_w8<S::kFragM, S::kFragN, kEdge>(acc_u, at, wr, a_rows - wr,
+                                               u_bytes(s), Rows8{S::kBN}, wc,
+                                               S::kBN - wc, k_len);
+    } else {
+      mma_slab<S::kFragM, S::kFragN, kEdge>(acc_g, at, wr, a_rows - wr,
+                                            g_tile(s), wc, S::kBN - wc, k_len);
+      mma_slab<S::kFragM, S::kFragN, kEdge>(acc_u, at, wr, a_rows - wr,
+                                            u_tile(s), wc, S::kBN - wc, k_len);
+    }
   }
 
   if (!mma_warp) return;
@@ -287,46 +338,54 @@ gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
         const int r = wr + frag_row(i, e), c = wc + frag_col(j, e);
         if (r >= rows_valid || c >= cols_valid) continue;
         const size_t at = static_cast<size_t>(row0 + r) * p.N + col0 + c;
-        const float x =
-            __fmul_rn(activate(acc_g[i][j][e], p.act), acc_u[i][j][e]);
-        if (p.out_dtype == kBF16)
-          static_cast<__nv_bfloat16*>(C)[at] = from_f32<__nv_bfloat16>(x);
-        else
-          static_cast<float*>(C)[at] = x;
+        float xg = acc_g[i][j][e], xu = acc_u[i][j][e];
+        if constexpr (kB8) {
+          xg = dequant(xg, sg, col0 + c);
+          xu = dequant(xu, su, col0 + c);
+        }
+        store_out(C, at, __fmul_rn(activate(xg, p.act), xu), p.out_dtype,
+                  nullptr);
       }
 }
 
-template <typename S>
-int launch_mma(const void* a, const void* bg, const void* bu, void* c,
-               const GatedArgs& p, cudaStream_t stream) {
-  auto kernel = gemm_gated_mma_kernel<S>;
+template <typename S, bool kB8>
+int launch_mma(const void* a, const void* bg, const void* bu, const void* sg,
+               const void* su, void* c, const GatedArgs& p,
+               cudaStream_t stream) {
+  auto kernel = gemm_gated_mma_kernel<S, kB8>;
+  constexpr size_t kSmem = static_cast<size_t>(S::kStages) *
+                           S::template stage_bytes<kB8 ? 1 : 2>();
   static bool configured = false;  // one attribute call per shape
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(S::kSmem));
+                         static_cast<int>(kSmem));
     configured = true;
   }
   dim3 grid(cdiv(p.N, S::kBN), cdiv(p.M, S::kBM));
-  kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(bg),
-      static_cast<const __nv_bfloat16*>(bu), c, p);
+  kernel<<<grid, S::kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(a), bg, bu,
+      static_cast<const float*>(sg), static_cast<const float*>(su), c, p);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The CTA shapes of the bf16 body, by the index kernels/gemm_gated.py
-// BF16_TILES gives them (its (bm, bk, bn) must match): with m <= 16 one
-// 16-row fragment and 2 MMA warps of one 8-column fragment of each
-// product, 128-deep slabs, 4 copy warps and 8 stages (8 x 12 KB of shared
-// memory); with more rows 64 x 64 (4 warps of 2 x 4 fragments of each
-// product that stage too), 64-deep slabs, 4 stages (96 KB).
-int launch_bf16(int config, const void* a, const void* bg, const void* bu,
-                void* c, const GatedArgs& p, cudaStream_t s) {
+// The CTA shapes of the tensor-core body, by the index kernels/gemm_gated.py
+// BF16_TILES gives them (its (bm, bk, bn) must match; bf16 and int8 weights
+// run the same ones): with m <= 16 one 16-row fragment and 2 MMA warps of
+// one 8-column fragment of each product, 128-deep slabs, 4 copy warps and
+// 8 stages (8 x 12 KB of shared memory with bf16 weights); with more rows
+// 64 x 64 (4 warps of 2 x 4 fragments of each product that stage too),
+// 64-deep slabs, 4 stages (96 KB with bf16 weights).
+template <bool kB8>
+int launch_tc(int config, const void* a, const void* bg, const void* bu,
+              const void* sg, const void* su, void* c, const GatedArgs& p,
+              cudaStream_t s) {
   switch (config) {
     case 1:
-      return launch_mma<GatedShape<1, 2, 1, 1, 128, 8, 4>>(a, bg, bu, c, p, s);
+      return launch_mma<GatedShape<1, 2, 1, 1, 128, 8, 4>, kB8>(a, bg, bu, sg,
+                                                                 su, c, p, s);
     case 2:
-      return launch_mma<GatedShape<2, 2, 2, 4, 64, 4>>(a, bg, bu, c, p, s);
+      return launch_mma<GatedShape<2, 2, 2, 4, 64, 4>, kB8>(a, bg, bu, sg, su,
+                                                             c, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -335,26 +394,32 @@ int launch_bf16(int config, const void* a, const void* bg, const void* bu,
 }  // namespace
 }  // namespace repro
 
-// A (m,k), Wg/Wu (k,n), C (m,n) row-major and contiguous.  bf16 operands run
-// the tensor-core body with CTA shape ``config`` (1 or 2, see launch_bf16)
+// A (m,k), Wg/Wu (k,n), C (m,n) row-major and contiguous; with int8
+// weights (W8A16) sg / su (n,) f32 are their per-column dequant scales (or
+// null), applied to each accumulator before the gate.  bf16 activations run
+// the tensor-core body with CTA shape ``config`` (1 or 2, see launch_tc)
 // and the staging copy modes ``modes`` (2 bits each: A, then both Bs); f32
-// operands the fmaf body, which ignores both.  Returns cudaGetLastError()
-// after the launch.
+// activations the fmaf body, which ignores both.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int gemm_gated_launch(const void* a, const void* bg,
-                                 const void* bu, void* c, int m, int n,
-                                 int k, int in_dtype, int out_dtype, int act,
-                                 int config, int modes, void* stream) {
+                                 const void* bu, const void* sg,
+                                 const void* su, void* c, int m, int n,
+                                 int k, int a_dtype, int b_dtype,
+                                 int out_dtype, int act, int config,
+                                 int modes, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == kBF16) {
+  if (a_dtype == kBF16) {
     GatedArgs p;
     p.M = m, p.N = n, p.K = k, p.act = act, p.out_dtype = out_dtype;
     p.mode_a = modes & 3, p.mode_b = (modes >> 2) & 3;
-    return launch_bf16(config, a, bg, bu, c, p, s);
+    return b_dtype == kI8
+               ? launch_tc<true>(config, a, bg, bu, sg, su, c, p, s)
+               : launch_tc<false>(config, a, bg, bu, sg, su, c, p, s);
   }
-  if (out_dtype == kBF16)
-    launch_f32<__nv_bfloat16>(a, bg, bu, c, m, n, k, act, s);
-  else
-    launch_f32<float>(a, bg, bu, c, m, n, k, act, s);
-  return static_cast<int>(cudaGetLastError());
+  return b_dtype == kI8
+             ? launch_f32<int8_t>(a, bg, bu, sg, su, c, m, n, k, act,
+                                  out_dtype, s)
+             : launch_f32<float>(a, bg, bu, sg, su, c, m, n, k, act,
+                                 out_dtype, s);
 }

@@ -46,6 +46,14 @@
 // stream once.  An operand whose rows are not whole 16-byte units (no
 // tensor map) is staged by cp.async into the same layout instead.
 //
+// W8A16 (repro/kernels/gemm_grouped.py:109-111, :177): an int8 expert bank is
+// staged as 128-column panels of 128-byte rows (the same tensor-map box
+// and 128-byte swizzle, now over int8; cp.async rows that are not whole
+// 16-byte units, here 16 columns, in the same layout), widened in
+// registers by mma_slab_w8, and scaled on the flush by its expert's row of
+// the (E, 1, n) scale, steered by the same tables; so an int8 row equals
+// B1's W8A16 row bit for bit.  The f32 body takes an int8 bank too.
+//
 // f32 operands keep the CUDA-core body (gemm_grouped_f32_kernel): a thread
 // owns one C column and kRows rows of the tile, and one fmaf chain over
 // k = 0..K-1 per element, through two cp.async stages.
@@ -201,10 +209,12 @@ constexpr int kF32Threads = 256;
 constexpr int kRows = 4;    // rows a thread at either f32 tile
 constexpr int kF32BK = 64;  // k rows a stage
 
+template <typename TB>
 __global__ void __launch_bounds__(kF32Threads)
 gemm_grouped_f32_kernel(const float* __restrict__ A,
-                        const float* __restrict__ B, void* C,
+                        const TB* __restrict__ B, void* C,
                         const float* __restrict__ bias,
+                        const float* __restrict__ scale,
                         const int* __restrict__ offsets,
                         const int* __restrict__ group_ids,
                         const int* __restrict__ m_tile_ids,
@@ -218,7 +228,7 @@ gemm_grouped_f32_kernel(const float* __restrict__ A,
   extern __shared__ __align__(16) unsigned char smem[];
   const int bm = p.bm, bn = p.bn;
   float* As = reinterpret_cast<float*>(smem);  // 2 stages of bm x kF32BK
-  float* Bs = As + 2 * bm * kF32BK;            // 2 stages of kF32BK x bn
+  TB* Bs = reinterpret_cast<TB*>(As + 2 * bm * kF32BK);  // 2 of kF32BK x bn
   const int col0 = blockIdx.x * bn;
   const int rows_valid = min(bm, p.M - row0);
   const int cols_valid = min(bn, p.N - col0);
@@ -237,7 +247,7 @@ gemm_grouped_f32_kernel(const float* __restrict__ A,
     const int row = row0 + ty + groups * i;
     if (i < my_rows && row >= lo && row < hi) live |= 1u << i;
   }
-  const float* Bg = B + static_cast<size_t>(g) * p.K * p.N;
+  const TB* Bg = B + static_cast<size_t>(g) * p.K * p.N;
 
   auto issue = [&](int k0, int s) {
     const int kc = min(kF32BK, p.K - k0);
@@ -265,13 +275,14 @@ gemm_grouped_f32_kernel(const float* __restrict__ A,
     __syncthreads();
     if (live != 0) {
       const float* At = As + s * bm * kF32BK;
-      const float* Bt = Bs + s * kF32BK * bn;
+      const TB* Bt = Bs + s * kF32BK * bn;
 #pragma unroll 4
       for (int kk = 0; kk < kF32BK; kk += 4) {
-        const float b0 = Bt[(kk + 0) * bn + tx];
-        const float b1 = Bt[(kk + 1) * bn + tx];
-        const float b2 = Bt[(kk + 2) * bn + tx];
-        const float b3 = Bt[(kk + 3) * bn + tx];
+        // an int8 bank (W8A16 on f32 activations) widens as it is read
+        const float b0 = to_f32(Bt[(kk + 0) * bn + tx]);
+        const float b1 = to_f32(Bt[(kk + 1) * bn + tx]);
+        const float b2 = to_f32(Bt[(kk + 2) * bn + tx]);
+        const float b3 = to_f32(Bt[(kk + 3) * bn + tx]);
 #pragma unroll
         for (int i = 0; i < kRows; ++i) {
           if (live & (1u << i)) {
@@ -297,19 +308,31 @@ gemm_grouped_f32_kernel(const float* __restrict__ A,
   for (int i = 0; i < kRows; ++i) {
     if (!(live & (1u << i))) continue;
     const int row = row0 + ty + groups * i;
-    const float x = epilogue(acc[i], has_bias, bv, p.act, false, 0.0f);
-    const size_t at = static_cast<size_t>(row) * p.N + col;
-    if (p.out_dtype == kBF16)
-      static_cast<__nv_bfloat16*>(C)[at] = from_f32<__nv_bfloat16>(x);
-    else
-      static_cast<float*>(C)[at] = x;
+    const float x = epilogue(
+        dequant(acc[i],
+                scale != nullptr ? scale + static_cast<size_t>(g) * p.N
+                                 : nullptr,
+                col),
+        has_bias, bv, p.act, false, 0.0f);
+    store_out(C, static_cast<size_t>(row) * p.N + col, x, p.out_dtype,
+              nullptr);
   }
 }
 
+// The operands of one launch: A, the bank B, C, and the per-expert bias
+// and (an int8 bank's) scale rows, or null.
+struct GroupedOperands {
+  const void *a, *b;
+  void* c;
+  const float *bias, *scale;
+};
+
 // The f32 body's C tiles, by the config index kernels/gemm_grouped.py
-// F32_TILES gives them: 8 x 128 at decode, 16 x 64 in prefill.
-int launch_f32(int config, const void* a, const void* b, void* c,
-               const void* bias, const int* offsets, const int* group_ids,
+// F32_TILES gives them: 8 x 128 at decode, 16 x 64 in prefill.  TB is the
+// bank's type (f32, or int8).
+template <typename TB>
+int launch_f32(int config, const GroupedOperands& o, const int* offsets,
+               const int* group_ids,
                const int* m_tile_ids, const int* num_instances,
                int n_instances, GroupedArgs p, cudaStream_t stream) {
   if (config == 1)
@@ -318,9 +341,10 @@ int launch_f32(int config, const void* a, const void* b, void* c,
     p.bm = 16, p.bn = 64;
   else
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * static_cast<size_t>(p.bm + p.bn) * kF32BK *
-                      sizeof(float);  // A + B, 2 stages
-  auto kernel = gemm_grouped_f32_kernel;
+  // A + B, 2 stages
+  const size_t smem = 2 * static_cast<size_t>(kF32BK) *
+                      (p.bm * sizeof(float) + p.bn * sizeof(TB));
+  auto kernel = gemm_grouped_f32_kernel<TB>;
   static bool configured = false;  // one attribute call
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -329,9 +353,8 @@ int launch_f32(int config, const void* a, const void* b, void* c,
   }
   dim3 grid(cdiv(p.N, p.bn), n_instances);
   kernel<<<grid, kF32Threads, smem, stream>>>(
-      static_cast<const float*>(a), static_cast<const float*>(b), c,
-      static_cast<const float*>(bias), offsets, group_ids, m_tile_ids,
-      num_instances, p);
+      static_cast<const float*>(o.a), static_cast<const TB*>(o.b), o.c,
+      o.bias, o.scale, offsets, group_ids, m_tile_ids, num_instances, p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -373,6 +396,15 @@ struct Panels {
   __device__ __forceinline__ int at(int r, int c) const {
     return (c >> 6) * (kRows * 64) + r * 64 +
            (((((c >> 3) & 7) ^ (r & 7)) << 3) | (c & 7));
+  }
+};
+
+// The same for an int8 bank: 128-column panels of kRows rows of 128 bytes,
+// each in the 128-byte swizzle (mma_chain.cuh Swz128).
+template <int kRows>
+struct Panels8 {
+  __device__ __forceinline__ int at(int r, int c) const {
+    return (c >> 7) * (kRows * 128) + Swz128{}.at(r, c & 127);
   }
 };
 
@@ -436,12 +468,16 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
 
 // With tensor maps (tma), thread 0 fills a stage with box copies; without
 // (an operand whose rows are not whole 16-byte units), every thread stages
-// it by cp.async, zero-filled, into the same layout.
-template <typename S>
+// it by cp.async, zero-filled, into the same layout.  kB8: an int8 bank
+// (W8A16), staged as 128-column panels at one byte an element, widened in
+// registers by mma_slab_w8 and scaled by its expert's row of ``scale`` on
+// the flush.
+template <typename S, bool kB8>
 __global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
-                        const __nv_bfloat16* __restrict__ B, void* C,
+                        const void* __restrict__ B, void* C,
                         const float* __restrict__ bias,
+                        const float* __restrict__ scale,
                         const int* __restrict__ offsets,
                         const int* __restrict__ group_ids,
                         const int* __restrict__ m_tile_ids,
@@ -465,18 +501,18 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   const int warp = threadIdx.x >> 5;
   const int wr = (warp / S::kWarpN) * 16;               // warp's rows
   const int wc = (warp % S::kWarpN) * 8 * S::kFragN;   // warp's columns
-  const int wh = wc >> 6, wcol = wc & 63;  // its panel, its column there
   // a warp whose 16-row block holds none of the group's rows skips the
   // products (uniform over the warp)
   const bool live = wr < rows;
 
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(
-      smem + ((1024 - (smem_addr(smem) & 1023)) & 1023));
-  auto a_slab = [&](int s) { return ring + s * S::kStageElems; };
-  auto b_slab = [&](int s) {
-    return ring + s * S::kStageElems + S::kAElems;
+  constexpr int kBBytes = S::kBK * S::kBN * (kB8 ? 1 : 2);
+  constexpr int kStage = 2 * S::kAElems + kBBytes;
+  unsigned char* ring = smem + ((1024 - (smem_addr(smem) & 1023)) & 1023);
+  auto a_slab = [&](int s) {
+    return reinterpret_cast<__nv_bfloat16*>(ring + s * kStage);
   };
+  auto b_slab = [&](int s) { return ring + s * kStage + 2 * S::kAElems; };
   __shared__ uint64_t full[S::kStages];  // stage s has landed
   if (threadIdx.x == 0) {
     for (int s = 0; s < S::kStages; ++s) mbar_init(&full[s]);
@@ -493,25 +529,35 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
         // engine's writes
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
         const int a_boxes = (a_rows + 15) / 16;  // 16 rows x 64 columns
-        mbar_expect(&full[s], 2 * (a_boxes * 16 * S::kBK + S::kBK * S::kBN));
+        mbar_expect(&full[s], 2 * a_boxes * 16 * S::kBK + kBBytes);
         for (int u = 0; u < S::kBK / 64; ++u)
           for (int i = 0; i < a_boxes; ++i)
             tma_2d(a_slab(s) + u * S::kBM * 64 + i * 16 * 64, &map_a,
                    k0 + 64 * u, lo + 16 * i, &full[s]);
-        for (int h = 0; h < S::kBN / 64; ++h)  // BK rows x 64 columns
-          tma_3d(b_slab(s) + h * S::kBK * 64, &map_b, col0 + 64 * h, k0, g,
-                 &full[s]);
+        // BK rows x 64 bf16 columns, or x 128 int8 columns: 128-byte rows
+        constexpr int kPanel = kB8 ? 128 : 64;
+        for (int h = 0; h < S::kBN / kPanel; ++h)
+          tma_3d(b_slab(s) + h * S::kBK * 128, &map_b, col0 + kPanel * h, k0,
+                 g, &full[s]);
       }
     } else {
       constexpr int kT = S::kThreads;
       const int depth = min(S::kBK, p.K - k0);
       const __nv_bfloat16* a = A + static_cast<size_t>(lo) * p.K + k0;
-      const __nv_bfloat16* b = B + static_cast<size_t>(g) * p.K * p.N +
-                               static_cast<size_t>(k0) * p.N + col0;
+      const size_t b_at = static_cast<size_t>(g) * p.K * p.N +
+                          static_cast<size_t>(k0) * p.N + col0;
       stage_rows<kT>(a_slab(s), Panels<S::kBM>{}, a, p.K, a_rows, S::kBK,
                      rows, depth, p.mode_a, threadIdx.x);
-      stage_rows<kT>(b_slab(s), Panels<S::kBK>{}, b, p.N, S::kBK, S::kBN,
-                     depth, cols_valid, p.mode_b, threadIdx.x);
+      if constexpr (kB8)
+        stage_rows<kT>(reinterpret_cast<int8_t*>(b_slab(s)), Panels8<S::kBK>{},
+                       static_cast<const int8_t*>(B) + b_at, p.N, S::kBK,
+                       S::kBN, depth, cols_valid, p.mode_b, threadIdx.x);
+      else
+        stage_rows<kT>(reinterpret_cast<__nv_bfloat16*>(b_slab(s)),
+                       Panels<S::kBK>{},
+                       static_cast<const __nv_bfloat16*>(B) + b_at, p.N,
+                       S::kBK, S::kBN, depth, cols_valid, p.mode_b,
+                       threadIdx.x);
       if (threadIdx.x == 0) mbar_arrive(&full[s]);
     }
   };
@@ -545,10 +591,24 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
     for (int u = 0; u < S::kBK / 64; ++u) {
       const int kl = min(64, k_len - 64 * u);
       if (kl <= 0) break;
-      mma_slab<1, S::kFragN, kEdge>(
-          acc, smem_tile(a_slab(s) + u * S::kBM * 64, 64), wr, a_rows - wr,
-          smem_tile(b_slab(s) + wh * S::kBK * 64 + u * 64 * 64, 64), wcol,
-          64 - wcol, kl);
+      // the warp's B panel (128 bytes a row: 64 bf16 or 128 int8 columns)
+      // and its column there
+      constexpr int kPanel = kB8 ? 128 : 64;
+      const int wh = wc / kPanel, wcol = wc % kPanel;
+      const SmemTile at = smem_tile(a_slab(s) + u * S::kBM * 64, 64);
+      if constexpr (kB8)
+        mma_slab_w8<1, S::kFragN, kEdge>(
+            acc, at, wr, a_rows - wr,
+            reinterpret_cast<const int8_t*>(b_slab(s)) +
+                wh * S::kBK * 128 + u * 64 * 128,
+            Swz128{}, wcol, 128 - wcol, kl);
+      else
+        mma_slab<1, S::kFragN, kEdge>(
+            acc, at, wr, a_rows - wr,
+            smem_tile(reinterpret_cast<__nv_bfloat16*>(b_slab(s)) +
+                          wh * S::kBK * 64 + u * 64 * 64,
+                      64),
+            wcol, 64 - wcol, kl);
     }
   }
 
@@ -562,13 +622,15 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
       const int r = wr + frag_row(0, e), col = wc + frag_col(j, e);
       if (r >= rows || col >= cols_valid) continue;
       const size_t at = static_cast<size_t>(lo + r) * p.N + col0 + col;
-      const float x = epilogue(acc[0][j][e], has_bias,
-                               has_bias ? bg[col0 + col] : 0.0f, p.act,
-                               false, 0.0f);
-      if (p.out_dtype == kBF16)
-        static_cast<__nv_bfloat16*>(C)[at] = from_f32<__nv_bfloat16>(x);
-      else
-        static_cast<float*>(C)[at] = x;
+      float x = acc[0][j][e];
+      if constexpr (kB8)
+        x = dequant(x,
+                    scale != nullptr ? scale + static_cast<size_t>(g) * p.N
+                                     : nullptr,
+                    col0 + col);
+      x = epilogue(x, has_bias, has_bias ? bg[col0 + col] : 0.0f, p.act,
+                   false, 0.0f);
+      store_out(C, at, x, p.out_dtype, nullptr);
     }
 }
 
@@ -596,34 +658,45 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor map of `rank` dims (innermost first, byte strides of the
-// outer ones) read in boxes of 64 elements x box_rows (x 1) with the
-// 128-byte swizzle; false if it cannot be made.
-bool bf16_map(CUtensorMap* map, const void* base, int rank,
-              const cuuint64_t* dims, const cuuint64_t* strides,
-              cuuint32_t box_rows) {
+// A tensor map of `rank` dims (innermost first, byte strides of the outer
+// ones) over bf16 or (int8) bytes, read in boxes of 128-byte rows (64 bf16
+// or 128 int8 elements) x box_rows (x 1) with the 128-byte swizzle; false
+// if it cannot be made.
+bool tensor_map(CUtensorMap* map, const void* base, bool bytes, int rank,
+                const cuuint64_t* dims, const cuuint64_t* strides,
+                cuuint32_t box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
-  const cuuint32_t box[3] = {64, box_rows, 1}, unit[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  const cuuint32_t box[3] = {bytes ? 128u : 64u, box_rows, 1},
+                   unit[3] = {1, 1, 1};
+  return encode(map,
+                bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
+                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                rank,
                 const_cast<void*>(base), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <typename S>
-int launch_mma(const void* a, const void* b, void* c, const void* bias,
-               const int* offsets, const int* group_ids,
-               const int* m_tile_ids, const int* num_instances,
-               int n_instances, const GroupedArgs& p, cudaStream_t stream) {
-  auto kernel = gemm_grouped_mma_kernel<S>;
+template <typename S, bool kB8>
+int launch_mma(const GroupedOperands& o, const int* offsets,
+               const int* group_ids, const int* m_tile_ids,
+               const int* num_instances, int n_instances,
+               const GroupedArgs& p, cudaStream_t stream) {
+  auto kernel = gemm_grouped_mma_kernel<S, kB8>;
+  // the ring (its B slab at the bank's width) and the 1 KB alignment slack
+  constexpr size_t kSmem =
+      static_cast<size_t>(S::kStages) *
+          (2 * S::kAElems + S::kBK * S::kBN * (kB8 ? 1 : 2)) +
+      1024;
   static bool configured = false;  // one attribute call per shape
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         static_cast<int>(S::kSmem));
+                         static_cast<int>(kSmem));
     configured = true;
   }
+  const int eb = kB8 ? 1 : 2;  // the bank's bytes an element
   // tensor maps need 16-byte aligned bases and rows (copy mode 2): A as
   // (M rows, K), B as (E, K rows, N)
   CUtensorMap map_a{}, map_b{};
@@ -635,17 +708,15 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
     const cuuint64_t db[3] = {static_cast<cuuint64_t>(p.N),
                               static_cast<cuuint64_t>(p.K),
                               static_cast<cuuint64_t>(p.E)};
-    const cuuint64_t sb[2] = {static_cast<cuuint64_t>(p.N) * 2,
-                              static_cast<cuuint64_t>(p.N) * p.K * 2};
-    tma = bf16_map(&map_a, a, 2, da, sa, 16) &&
-          bf16_map(&map_b, b, 3, db, sb, S::kBK);
+    const cuuint64_t sb[2] = {static_cast<cuuint64_t>(p.N) * eb,
+                              static_cast<cuuint64_t>(p.N) * p.K * eb};
+    tma = tensor_map(&map_a, o.a, false, 2, da, sa, 16) &&
+          tensor_map(&map_b, o.b, kB8, 3, db, sb, S::kBK);
   }
   dim3 grid(cdiv(p.N, S::kBN), n_instances);
-  kernel<<<grid, S::kThreads, S::kSmem, stream>>>(
-      static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), c,
-      static_cast<const float*>(bias), offsets, group_ids, m_tile_ids,
-      num_instances, map_a, map_b, p, tma);
+  kernel<<<grid, S::kThreads, kSmem, stream>>>(
+      static_cast<const __nv_bfloat16*>(o.a), o.b, o.c, o.bias, o.scale,
+      offsets, group_ids, m_tile_ids, num_instances, map_a, map_b, p, tma);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -654,19 +725,20 @@ int launch_mma(const void* a, const void* b, void* c, const void* bias,
 // 16-row block by eight warps of 16 columns, 128-deep slabs, 4 stages
 // (144 KB); 2 in prefill, four 16-row blocks by two warps of 64 columns,
 // 64-deep slabs, 4 stages (96 KB).
-int launch_bf16(int config, const void* a, const void* b, void* c,
-                const void* bias, const int* offsets, const int* group_ids,
-                const int* m_tile_ids, const int* num_instances,
-                int n_instances, const GroupedArgs& p, cudaStream_t s) {
+template <bool kB8>
+int launch_tc(int config, const GroupedOperands& o, const int* offsets,
+              const int* group_ids, const int* m_tile_ids,
+              const int* num_instances, int n_instances,
+              const GroupedArgs& p, cudaStream_t s) {
   switch (config) {
     case 1:
-      return launch_mma<GroupedShape<1, 8, 2, 128, 4>>(
-          a, b, c, bias, offsets, group_ids, m_tile_ids, num_instances,
-          n_instances, p, s);
+      return launch_mma<GroupedShape<1, 8, 2, 128, 4>, kB8>(
+          o, offsets, group_ids, m_tile_ids, num_instances, n_instances, p,
+          s);
     case 2:
-      return launch_mma<GroupedShape<4, 2, 8, 64, 4>>(
-          a, b, c, bias, offsets, group_ids, m_tile_ids, num_instances,
-          n_instances, p, s);
+      return launch_mma<GroupedShape<4, 2, 8, 64, 4>, kB8>(
+          o, offsets, group_ids, m_tile_ids, num_instances, n_instances, p,
+          s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -693,7 +765,8 @@ extern "C" int grouped_tables_launch(const void* sizes, int e, int m, int bm,
 }
 
 // A (m,k) group-sorted rows, B (E,k,n), C (m,n) row-major and contiguous;
-// bias (E,n) f32 or null.  offsets (E+1,), group_ids and m_tile_ids and
+// bias (E,n) f32 or null; b_scale (E,n) f32 or null, an int8 bank's
+// per-expert dequant rows (W8A16; applied before the epilogue).  offsets (E+1,), group_ids and m_tile_ids and
 // num_instances (a scalar) are int32 on the device, the tables built at the
 // m tile of CTA shape ``config`` (kernels/gemm_grouped.py BF16_TILES /
 // F32_TILES); the grid runs their first n_instances entries, which hold
@@ -701,12 +774,14 @@ extern "C" int grouped_tables_launch(const void* sizes, int e, int m, int bm,
 // Every element of C is written.  Returns cudaGetLastError() after the
 // launch.
 extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
-                                   const void* bias, const void* offsets,
+                                   const void* bias, const void* b_scale,
+                                   const void* offsets,
                                    const void* group_ids,
                                    const void* m_tile_ids,
                                    const void* num_instances, int n_instances,
                                    int m, int n, int k, int e, int config,
-                                   int in_dtype, int out_dtype, int act,
+                                   int a_dtype, int b_dtype, int out_dtype,
+                                   int act,
                                    int mode_a, int mode_b, void* stream) {
   using namespace repro;
   if (n_instances < 1 || n_instances > 65535)  // gridDim.y's limit
@@ -719,9 +794,16 @@ extern "C" int gemm_grouped_launch(const void* a, const void* b, void* c,
   const int* gids = static_cast<const int*>(group_ids);
   const int* tids = static_cast<const int*>(m_tile_ids);
   const int* live = static_cast<const int*>(num_instances);
-  if (in_dtype == kBF16)
-    return launch_bf16(config, a, b, c, bias, offs, gids, tids, live,
-                       n_instances, p, s);
-  return launch_f32(config, a, b, c, bias, offs, gids, tids, live,
-                    n_instances, p, s);
+  const GroupedOperands o{a, b, c, static_cast<const float*>(bias),
+                          static_cast<const float*>(b_scale)};
+  const bool b8 = b_dtype == kI8;
+  if (a_dtype == kBF16)
+    return b8 ? launch_tc<true>(config, o, offs, gids, tids, live,
+                                n_instances, p, s)
+              : launch_tc<false>(config, o, offs, gids, tids, live,
+                                 n_instances, p, s);
+  return b8 ? launch_f32<int8_t>(config, o, offs, gids, tids, live,
+                                 n_instances, p, s)
+            : launch_f32<float>(config, o, offs, gids, tids, live,
+                                n_instances, p, s);
 }

@@ -41,6 +41,13 @@
 // Ragged edges (m, n and the last chunk of k) are zero-filled or skipped,
 // so no caller pads.
 //
+// The int8 paths (repro/kernels/gemm_tb.py:59, :77, :124-134, :232) are B1's:
+// W8A16 stages the int8 B tile at one byte an element and widens it in
+// registers (mma_slab_w8, bf16 chunk boundaries on the 16-grid), W8A8 runs
+// the m16n8k32 s8 chain on an int8 panel with an int32 partial between
+// chunks, as the JAX package does; b_scale and the int8 out-quant apply on
+// the last chunk (B6b), the scale staged beside the bias.
+//
 // Order invariance: every C element is one chain over k = 0..K-1 (B1's:
 // the tensor-core chain for bf16, the fmaf chain for f32): chunk 0 starts
 // from 0, each later chunk continues from the stored f32 partial (the store
@@ -49,6 +56,8 @@
 // gemm_tb therefore equals gemm_aie bit for bit at any tile, chunk count
 // and n split, and the planner may switch dataflow with the batch size
 // without changing a token.
+#include <type_traits>
+
 #include "mma_chain.cuh"
 #include "staging.cuh"
 
@@ -66,25 +75,43 @@ __host__ __device__ inline size_t align16(size_t x) {
 }
 
 // Byte offsets of the shared-memory regions of one CTA: the resident A
-// panel, two B stages, two f32 partial-C stages, two bias and two residual
-// stages (the last two only when the plan's epilogue has them).
+// panel, two B stages (each operand at its own width: int8 at one byte),
+// two partial-C stages (f32, or int32 when A is int8), two b_scale stages
+// (an int8 B's dequant scale), two bias and two residual stages (the last
+// three only when the plan has them).
 struct TbLayout {
-  size_t a, b, c, bias, res, total;
+  size_t a, b, c, scale, bias, res, total;
 };
 
 __host__ __device__ inline TbLayout tb_layout(int bm, int bk, int bn,
-                                              int in_size, int res_size,
+                                              int a_size, int b_size,
+                                              int res_size, bool has_scale,
                                               bool has_bias, bool has_res) {
   TbLayout L;
   L.a = 0;
-  L.b = align16(static_cast<size_t>(bm) * bk * in_size);
-  L.c = L.b + align16(2 * static_cast<size_t>(bk) * bn * in_size);
-  L.bias = L.c + align16(2 * static_cast<size_t>(bm) * bn * 4);
+  L.b = align16(static_cast<size_t>(bm) * bk * a_size);
+  L.c = L.b + align16(2 * static_cast<size_t>(bk) * bn * b_size);
+  L.scale = L.c + align16(2 * static_cast<size_t>(bm) * bn * 4);
+  L.bias =
+      L.scale + (has_scale ? align16(2 * static_cast<size_t>(bn) * 4) : 0);
   L.res = L.bias + (has_bias ? align16(2 * static_cast<size_t>(bn) * 4) : 0);
   L.total =
       L.res + (has_res ? align16(2 * static_cast<size_t>(bm) * bn * res_size)
                        : 0);
   return L;
+}
+
+// The operand variants: the tensor-core bodies (bf16 x bf16, W8A16: bf16 A
+// with an int8 B widened in registers, W8A8: int8 A and B into int32) and
+// the fmaf bodies (f32 x f32, f32 x int8).
+enum Variant : int { kVBf16 = 0, kVW8A16 = 1, kVW8A8 = 2, kVF32 = 3,
+                     kVF32W8 = 4 };
+
+__host__ __device__ constexpr int a_size(int v) {
+  return v == kVW8A8 ? 1 : v >= kVF32 ? 4 : 2;
+}
+__host__ __device__ constexpr int b_size(int v) {
+  return v == kVBf16 ? 2 : v == kVF32 ? 4 : 1;
 }
 
 struct TbArgs {
@@ -93,29 +120,47 @@ struct TbArgs {
   int bm, bk, bn;      // the plan's tile (bk: the panel's row stride)
   int tiles_per_cta;   // n tiles one CTA sweeps
   int act;
-  int out_dtype, res_dtype;  // B6b's C and residual types (kF32 / kBF16)
-  int modes;           // 2 bits an operand: A, B, C, bias, residual
+  int out_dtype, res_dtype;  // B6b's C and residual types (DType)
+  int modes;           // 2 bits an operand: A, B, C, bias, residual, scale
 };
 
-// The f32 body.  kFinal false: B6a, writes the f32 partial to Cacc.
-// kFinal true: B6b, applies the epilogue and writes C at the out dtype
-// (p.out_dtype; the residual's p.res_dtype).  Cin is the partial of the earlier chunks (null
-// on the first chunk); Cin and Cacc may alias: a CTA reads each partial
-// tile before it writes that tile, and no two CTAs share a tile.  kRows is
-// the most C rows a thread owns (cdiv(bm, 256 / bn) rounded up to a power
-// of two), so the row loops below unroll to exactly the rows in use.
-template <typename TIn, int kRows, bool kFinal>
+// The operands of one launch: A, B, the partial of the earlier chunks (cin,
+// null on the first; it may alias cacc), the partial this chunk writes
+// (cacc, B6a) or C (B6b), and B6b's epilogue operands.
+struct TbOperands {
+  const void *a, *b;
+  const void* cin;
+  void *cacc, *c;
+  const float *bias, *scale;
+  const void* res;
+  const float* out_scale;
+};
+
+// The f32 body.  kFinal false: B6a, writes the f32 partial to o.cacc.
+// kFinal true: B6b, applies the b_scale, the epilogue and writes C at the
+// out dtype (p.out_dtype; the residual's p.res_dtype).  o.cin is the
+// partial of the earlier chunks (null on the first chunk); cin and cacc may
+// alias: a CTA reads each partial tile before it writes that tile, and no
+// two CTAs share a tile.  kRows is the most C rows a thread owns (cdiv(bm,
+// 256 / bn) rounded up to a power of two), so the row loops below unroll to
+// exactly the rows in use.  TB is B's type: f32, or int8 (W8A16 on f32
+// activations), widened as it is read.
+template <typename TB, int kRows, bool kFinal>
 __global__ void __launch_bounds__(kThreads)
-gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
-               const float* Cin, float* Cacc, void* C,
-               const float* __restrict__ bias, const void* res, TbArgs p) {
+gemm_tb_kernel(TbOperands o, TbArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
+  const float* __restrict__ A = static_cast<const float*>(o.a);
+  const TB* __restrict__ B = static_cast<const TB*>(o.b);
+  const float* Cin = static_cast<const float*>(o.cin);
+  float* Cacc = static_cast<float*>(o.cacc);
   const int res_size = p.res_dtype == kBF16 ? 2 : 4;
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, sizeof(TIn), res_size,
-                               bias != nullptr, res != nullptr);
-  TIn* As = reinterpret_cast<TIn*>(smem + L.a);
-  TIn* Bs = reinterpret_cast<TIn*>(smem + L.b);
+  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, 4, sizeof(TB), res_size,
+                               o.scale != nullptr, o.bias != nullptr,
+                               o.res != nullptr);
+  float* As = reinterpret_cast<float*>(smem + L.a);
+  TB* Bs = reinterpret_cast<TB*>(smem + L.b);
   float* Cs = reinterpret_cast<float*>(smem + L.c);
+  float* Scale_s = reinterpret_cast<float*>(smem + L.scale);
   float* Bias_s = reinterpret_cast<float*>(smem + L.bias);
   unsigned char* Rs = smem + L.res;
 
@@ -133,7 +178,7 @@ gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
                                   : 0;
   const int mode_a = p.modes & 3, mode_b = (p.modes >> 2) & 3,
             mode_c = (p.modes >> 4) & 3, mode_bias = (p.modes >> 6) & 3,
-            mode_r = (p.modes >> 8) & 3;
+            mode_r = (p.modes >> 8) & 3, mode_s = (p.modes >> 10) & 3;
   const size_t tile_b = static_cast<size_t>(p.bk) * bn;
   const size_t tile_c = static_cast<size_t>(bm) * bn;
 
@@ -147,18 +192,21 @@ gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
       stage<kThreads>(Cs + s * tile_c, bn,
                       Cin + static_cast<size_t>(row0) * p.N + col0, p.N, bm,
                       bn, rows_valid, cols_valid, mode_c);
-    if (kFinal && bias != nullptr)
-      stage<kThreads>(Bias_s + s * bn, bn, bias + col0, 0, 1, bn, 1,
+    if (kFinal && o.scale != nullptr)
+      stage<kThreads>(Scale_s + s * bn, bn, o.scale + col0, 0, 1, bn, 1,
+                      cols_valid, mode_s);
+    if (kFinal && o.bias != nullptr)
+      stage<kThreads>(Bias_s + s * bn, bn, o.bias + col0, 0, 1, bn, 1,
                       cols_valid, mode_bias);
-    if (kFinal && res != nullptr) {
+    if (kFinal && o.res != nullptr) {
       const size_t at = static_cast<size_t>(row0) * p.N + col0;
       if (res_size == 2)
         stage<kThreads>(reinterpret_cast<__nv_bfloat16*>(Rs) + s * tile_c,
-                        bn, static_cast<const __nv_bfloat16*>(res) + at, p.N,
-                        bm, bn, rows_valid, cols_valid, mode_r);
+                        bn, static_cast<const __nv_bfloat16*>(o.res) + at,
+                        p.N, bm, bn, rows_valid, cols_valid, mode_r);
       else
         stage<kThreads>(reinterpret_cast<float*>(Rs) + s * tile_c, bn,
-                        static_cast<const float*>(res) + at, p.N, bm, bn,
+                        static_cast<const float*>(o.res) + at, p.N, bm, bn,
                         rows_valid, cols_valid, mode_r);
     }
   };
@@ -179,7 +227,7 @@ gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
     }
     __syncthreads();
     if (my_rows > 0) {
-      const TIn* Bt = Bs + s * tile_b;
+      const TB* Bt = Bs + s * tile_b;
       float acc[kRows];
 #pragma unroll
       for (int i = 0; i < kRows; ++i)
@@ -211,8 +259,7 @@ gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
 #pragma unroll
         for (int i = 0; i < kRows; ++i)
           if (i < my_rows)
-            acc[i] = fmaf(to_f32(As[(ty + groups * i) * p.bk + kk]), b,
-                          acc[i]);
+            acc[i] = fmaf(As[(ty + groups * i) * p.bk + kk], b, acc[i]);
       }
       const int col = t * bn + tx;
       if (col < p.N) {
@@ -223,20 +270,19 @@ gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
           const size_t at = static_cast<size_t>(row0 + r) * p.N + col;
           if (kFinal) {
             float rv = 0.0f;
-            if (res != nullptr) {
+            if (o.res != nullptr) {
               const size_t ri = s * tile_c + r * bn + tx;
               rv = res_size == 2
                        ? to_f32(reinterpret_cast<__nv_bfloat16*>(Rs)[ri])
                        : reinterpret_cast<float*>(Rs)[ri];
             }
             const float x = epilogue(
-                acc[i], bias != nullptr,
-                bias != nullptr ? Bias_s[s * bn + tx] : 0.0f, p.act,
-                res != nullptr, rv);
-            if (p.out_dtype == kBF16)
-              static_cast<__nv_bfloat16*>(C)[at] = from_f32<__nv_bfloat16>(x);
-            else
-              static_cast<float*>(C)[at] = x;
+                dequant(acc[i], o.scale != nullptr ? Scale_s + s * bn : nullptr,
+                        tx),
+                o.bias != nullptr,
+                o.bias != nullptr ? Bias_s[s * bn + tx] : 0.0f, p.act,
+                o.res != nullptr, rv);
+            store_out(o.c, at, x, p.out_dtype, o.out_scale);
           } else {
             Cacc[at] = acc[i];
           }
@@ -247,27 +293,35 @@ gemm_tb_kernel(const TIn* __restrict__ A, const TIn* __restrict__ B,
   }
 }
 
-// The bf16 body: as gemm_tb_kernel, with the products on the tensor cores.
-// The tile's cdiv(bm, 16) x cdiv(bn, 8) fragments go to the warps kFN at a
-// time along a 16-row block: warp w owns block w / G, fragments
-// (w % G) kFN .. +kFN of it (G = cdiv(cdiv(bn, 8), kFN)); the host picks the
-// least kFN that needs at most 8 warps.
-template <int kFN, bool kFinal>
+// The tensor-core bodies: as gemm_tb_kernel, with the products on the
+// tensor cores.  The tile's cdiv(bm, 16) x cdiv(bn, 8) fragments go to the
+// warps kFN at a time along a 16-row block: warp w owns block w / G,
+// fragments (w % G) kFN .. +kFN of it (G = cdiv(cdiv(bn, 8), kFN)); the
+// host picks the least kFN that needs at most 8 warps.  kV: bf16 runs
+// mma_slab on the swizzled panel and B tile; W8A16 mma_slab_w8 on the same
+// bf16 panel and a row-major int8 B tile (the chain of bf16 on the widened
+// B); W8A8 mma_slab_s8 on a row-major int8 panel and B tile, the partial
+// between chunks int32 (exact, so the chunking changes no value).
+template <int kFN, bool kFinal, int kV>
 __global__ void __launch_bounds__(kThreads)
-gemm_tb_mma_kernel(const __nv_bfloat16* __restrict__ A,
-                   const __nv_bfloat16* __restrict__ B, const float* Cin,
-                   float* Cacc, void* C, const float* __restrict__ bias,
-                   const void* res, TbArgs p) {
+gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int res_size = p.res_dtype == kBF16 ? 2 : 4;
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, 2, res_size,
-                               bias != nullptr, res != nullptr);
-  __nv_bfloat16* Bs = reinterpret_cast<__nv_bfloat16*>(smem + L.b);
+  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, a_size(kV), b_size(kV),
+                               res_size, o.scale != nullptr,
+                               o.bias != nullptr, o.res != nullptr);
+  unsigned char* Bs = smem + L.b;
   float* Cs = reinterpret_cast<float*>(smem + L.c);
+  float* Scale_s = reinterpret_cast<float*>(smem + L.scale);
   float* Bias_s = reinterpret_cast<float*>(smem + L.bias);
   unsigned char* Rs = smem + L.res;
   const SmemTile Ap =
       smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + L.a), p.bk);
+  int8_t* Ap8 = reinterpret_cast<int8_t*>(smem + L.a);
+  using Acc = std::conditional_t<kV == kVW8A8, int, float>;
+  const Acc* Cin = static_cast<const Acc*>(o.cin);
+  Acc* Cacc = static_cast<Acc*>(o.cacc);
+  const Acc* Cst = reinterpret_cast<const Acc*>(Cs);
 
   const int bm = p.bm, bn = p.bn, kc = p.kc;
   const int n_tiles = (p.N + bn - 1) / bn;
@@ -278,10 +332,15 @@ gemm_tb_mma_kernel(const __nv_bfloat16* __restrict__ A,
   const int rows_valid = min(bm, p.M - row0);
   const int mode_a = p.modes & 3, mode_b = (p.modes >> 2) & 3,
             mode_c = (p.modes >> 4) & 3, mode_bias = (p.modes >> 6) & 3,
-            mode_r = (p.modes >> 8) & 3;
-  const size_t tile_b = static_cast<size_t>(p.bk) * bn;
+            mode_r = (p.modes >> 8) & 3, mode_s = (p.modes >> 10) & 3;
+  const size_t tile_b = static_cast<size_t>(p.bk) * bn * b_size(kV);
   const size_t tile_c = static_cast<size_t>(bm) * bn;
-  auto b_tile = [&](int s) { return smem_tile(Bs + s * tile_b, bn); };
+  auto b_tile = [&](int s) {
+    return smem_tile(reinterpret_cast<__nv_bfloat16*>(Bs + s * tile_b), bn);
+  };
+  auto b_bytes = [&](int s) {
+    return reinterpret_cast<int8_t*>(Bs + s * tile_b);
+  };
 
   const int groups = ((bn + 7) / 8 + kFN - 1) / kFN;  // fragment runs a block
   const int warp = threadIdx.x >> 5;
@@ -289,36 +348,47 @@ gemm_tb_mma_kernel(const __nv_bfloat16* __restrict__ A,
   const int wr = (warp / groups) * 16;   // the warp's first row
   const int wc = (warp % groups) * 8 * kFN;  // and first column
 
-  // a tile's B, then (issue_rest) its partial C, bias and residual tiles
+  // a tile's B, then (issue_rest) its partial C, scale, bias and residual
+  // tiles
   auto issue_b = [&](int t, int s) {
-    const SmemTile bt = b_tile(s);
-    stage_rows<kThreads>(bt.p, bt, B + static_cast<size_t>(p.k0) * p.N + t * bn,
-                         p.N, kc, bn, kc, min(bn, p.N - t * bn), mode_b,
-                         threadIdx.x);
+    const size_t at = static_cast<size_t>(p.k0) * p.N + t * bn;
+    const int cols_valid = min(bn, p.N - t * bn);
+    if constexpr (kV == kVBf16) {
+      const SmemTile bt = b_tile(s);
+      stage_rows<kThreads>(bt.p, bt, static_cast<const __nv_bfloat16*>(o.b) + at,
+                           p.N, kc, bn, kc, cols_valid, mode_b, threadIdx.x);
+    } else {
+      stage_rows<kThreads>(b_bytes(s), Rows8{bn},
+                           static_cast<const int8_t*>(o.b) + at, p.N, kc, bn,
+                           kc, cols_valid, mode_b, threadIdx.x);
+    }
   };
   auto issue_rest = [&](int t, int s) {
     const int col0 = t * bn;
     const int cols_valid = min(bn, p.N - col0);
     const RowMajor plain{bn};
     if (Cin != nullptr)
-      stage_rows<kThreads>(Cs + s * tile_c, plain,
+      stage_rows<kThreads>(reinterpret_cast<Acc*>(Cs) + s * tile_c, plain,
                            Cin + static_cast<size_t>(row0) * p.N + col0, p.N,
                            bm, bn, rows_valid, cols_valid, mode_c,
                            threadIdx.x);
-    if (kFinal && bias != nullptr)
-      stage_rows<kThreads>(Bias_s + s * bn, plain, bias + col0, 0, 1, bn, 1,
+    if (kFinal && o.scale != nullptr)
+      stage_rows<kThreads>(Scale_s + s * bn, plain, o.scale + col0, 0, 1, bn,
+                           1, cols_valid, mode_s, threadIdx.x);
+    if (kFinal && o.bias != nullptr)
+      stage_rows<kThreads>(Bias_s + s * bn, plain, o.bias + col0, 0, 1, bn, 1,
                            cols_valid, mode_bias, threadIdx.x);
-    if (kFinal && res != nullptr) {
+    if (kFinal && o.res != nullptr) {
       const size_t at = static_cast<size_t>(row0) * p.N + col0;
       if (res_size == 2)
         stage_rows<kThreads>(
             reinterpret_cast<__nv_bfloat16*>(Rs) + s * tile_c, plain,
-            static_cast<const __nv_bfloat16*>(res) + at, p.N, bm, bn,
+            static_cast<const __nv_bfloat16*>(o.res) + at, p.N, bm, bn,
             rows_valid, cols_valid, mode_r, threadIdx.x);
       else
         stage_rows<kThreads>(reinterpret_cast<float*>(Rs) + s * tile_c,
-                             plain, static_cast<const float*>(res) + at, p.N,
-                             bm, bn, rows_valid, cols_valid, mode_r,
+                             plain, static_cast<const float*>(o.res) + at,
+                             p.N, bm, bn, rows_valid, cols_valid, mode_r,
                              threadIdx.x);
     }
   };
@@ -331,9 +401,13 @@ gemm_tb_mma_kernel(const __nv_bfloat16* __restrict__ A,
   if (Cin == nullptr) grid_dependency_wait();
   grid_launch_dependents();
   // The A panel, resident for the whole sweep, rides in the first group.
-  stage_rows<kThreads>(Ap.p, Ap, A + static_cast<size_t>(row0) * p.K + p.k0,
-                       p.K, bm, kc, rows_valid, kc, mode_a,
-                         threadIdx.x);
+  const size_t a_at = static_cast<size_t>(row0) * p.K + p.k0;
+  if constexpr (kV == kVW8A8)
+    stage_rows<kThreads>(Ap8, Rows8{p.bk}, static_cast<const int8_t*>(o.a) + a_at,
+                         p.K, bm, kc, rows_valid, kc, mode_a, threadIdx.x);
+  else
+    stage_rows<kThreads>(Ap.p, Ap, static_cast<const __nv_bfloat16*>(o.a) + a_at,
+                         p.K, bm, kc, rows_valid, kc, mode_a, threadIdx.x);
   issue_b(t_begin, 0);
   if (Cin != nullptr) grid_dependency_wait();
   issue_rest(t_begin, 0);
@@ -349,18 +423,25 @@ gemm_tb_mma_kernel(const __nv_bfloat16* __restrict__ A,
     }
     __syncthreads();
     if (active) {
-      float acc[1][kFN][4];
+      Acc acc[1][kFN][4];
 #pragma unroll
       for (int j = 0; j < kFN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int r = wr + frag_row(0, e), c = wc + frag_col(j, e);
           acc[0][j][e] = (Cin != nullptr && r < bm && c < bn)
-                             ? Cs[s * tile_c + r * bn + c]
-                             : 0.0f;
+                             ? Cst[s * tile_c + r * bn + c]
+                             : Acc(0);
         }
-      mma_slab<1, kFN, true>(acc, Ap, wr, bm - wr, b_tile(s), wc, bn - wc,
-                             kc);
+      if constexpr (kV == kVW8A8)
+        mma_slab_s8<1, kFN>(acc, Ap8, Rows8{p.bk}, wr, bm - wr, b_bytes(s),
+                            Rows8{bn}, wc, bn - wc, kc);
+      else if constexpr (kV == kVW8A16)
+        mma_slab_w8<1, kFN, true>(acc, Ap, wr, bm - wr, b_bytes(s), Rows8{bn},
+                                  wc, bn - wc, kc);
+      else
+        mma_slab<1, kFN, true>(acc, Ap, wr, bm - wr, b_tile(s), wc, bn - wc,
+                               kc);
 #pragma unroll
       for (int j = 0; j < kFN; ++j)
 #pragma unroll
@@ -370,21 +451,27 @@ gemm_tb_mma_kernel(const __nv_bfloat16* __restrict__ A,
           if (r >= rows_valid || c >= bn || col >= p.N) continue;
           const size_t at = static_cast<size_t>(row0 + r) * p.N + col;
           if (kFinal) {
+            if constexpr (kV == kVW8A8) {
+              if (p.out_dtype == kI32) {  // the bare int32 sums
+                static_cast<int*>(o.c)[at] = acc[0][j][e];
+                continue;
+              }
+            }
             float rv = 0.0f;
-            if (res != nullptr) {
+            if (o.res != nullptr) {
               const size_t ri = s * tile_c + r * bn + c;
               rv = res_size == 2
                        ? to_f32(reinterpret_cast<__nv_bfloat16*>(Rs)[ri])
                        : reinterpret_cast<float*>(Rs)[ri];
             }
-            const float x = epilogue(
-                acc[0][j][e], bias != nullptr,
-                bias != nullptr ? Bias_s[s * bn + c] : 0.0f, p.act,
-                res != nullptr, rv);
-            if (p.out_dtype == kBF16)
-              static_cast<__nv_bfloat16*>(C)[at] = from_f32<__nv_bfloat16>(x);
-            else
-              static_cast<float*>(C)[at] = x;
+            float x = static_cast<float>(acc[0][j][e]);
+            if constexpr (kV != kVBf16)
+              x = dequant(x, o.scale != nullptr ? Scale_s + s * bn : nullptr,
+                          c);
+            x = epilogue(x, o.bias != nullptr,
+                         o.bias != nullptr ? Bias_s[s * bn + c] : 0.0f, p.act,
+                         o.res != nullptr, rv);
+            store_out(o.c, at, x, p.out_dtype, o.out_scale);
           } else {
             Cacc[at] = acc[0][j][e];
           }
@@ -394,11 +481,10 @@ gemm_tb_mma_kernel(const __nv_bfloat16* __restrict__ A,
   }
 }
 
-template <int kFN, bool kFinal>
-int launch_mma(const void* a, const void* b, const void* c_in, void* c_acc,
-               void* c, const void* bias, const void* res, const TbArgs& p,
-               size_t smem, cudaStream_t stream) {
-  auto kernel = gemm_tb_mma_kernel<kFN, kFinal>;
+template <int kFN, bool kFinal, int kV>
+int launch_mma(const TbOperands& o, const TbArgs& p, size_t smem,
+               cudaStream_t stream) {
+  auto kernel = gemm_tb_mma_kernel<kFN, kFinal, kV>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -418,18 +504,13 @@ int launch_mma(const void* a, const void* b, const void* c_in, void* c_acc,
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(
-      &cfg, kernel, static_cast<const __nv_bfloat16*>(a),
-      static_cast<const __nv_bfloat16*>(b), static_cast<const float*>(c_in),
-      static_cast<float*>(c_acc), c, static_cast<const float*>(bias), res,
-      p));
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, o, p));
 }
 
-template <typename TIn, int kRows, bool kFinal>
-int launch_rows(const void* a, const void* b, const void* c_in, void* c_acc,
-                void* c, const void* bias, const void* res, const TbArgs& p,
-                size_t smem, cudaStream_t stream) {
-  auto kernel = gemm_tb_kernel<TIn, kRows, kFinal>;
+template <typename TB, int kRows, bool kFinal>
+int launch_rows(const TbOperands& o, const TbArgs& p, size_t smem,
+                cudaStream_t stream) {
+  auto kernel = gemm_tb_kernel<TB, kRows, kFinal>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -439,59 +520,74 @@ int launch_rows(const void* a, const void* b, const void* c_in, void* c_acc,
   const int n_tiles = (p.N + p.bn - 1) / p.bn;
   dim3 grid((n_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta,
             (p.M + p.bm - 1) / p.bm);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const TIn*>(a), static_cast<const TIn*>(b),
-      static_cast<const float*>(c_in), static_cast<float*>(c_acc), c,
-      static_cast<const float*>(bias), res, p);
+  kernel<<<grid, kThreads, smem, stream>>>(o, p);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename TB, bool kFinal>
+int launch_f32(const TbOperands& o, const TbArgs& p, size_t smem,
+               cudaStream_t stream) {
+  const int groups = kThreads / p.bn;
+  const int rows = (p.bm + groups - 1) / groups;
+  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows <= 1) return launch_rows<TB, 1, kFinal>(o, p, smem, stream);
+  if (rows <= 2) return launch_rows<TB, 2, kFinal>(o, p, smem, stream);
+  if (rows <= 4) return launch_rows<TB, 4, kFinal>(o, p, smem, stream);
+  if (rows <= 8) return launch_rows<TB, 8, kFinal>(o, p, smem, stream);
+  return launch_rows<TB, kMaxRows, kFinal>(o, p, smem, stream);
+}
+
+template <bool kFinal, int kV>
+int launch_tc(const TbOperands& o, const TbArgs& p, size_t smem,
+              cudaStream_t stream) {
+  const int blocks = (p.bm + 15) / 16, frags = (p.bn + 7) / 8;
+  if (blocks * frags <= kWarps)
+    return launch_mma<1, kFinal, kV>(o, p, smem, stream);
+  if (blocks * ((frags + 1) / 2) <= kWarps)
+    return launch_mma<2, kFinal, kV>(o, p, smem, stream);
+  if (blocks * ((frags + kMaxFrags - 1) / kMaxFrags) <= kWarps)
+    return launch_mma<kMaxFrags, kFinal, kV>(o, p, smem, stream);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // Checks the tile against the kernel's limits, sizes the plan's whole
-// layout (bias and residual stages included, also for B6a, which leaves
-// them unused) and picks the body's instantiation: for bf16 the fragments a
-// warp owns, for f32 the rows a thread owns.
-template <typename TIn, bool kFinal>
-int launch(const void* a, const void* b, const void* c_in, void* c_acc,
-           void* c, const void* bias, const void* res, const TbArgs& p,
+// layout (scale, bias and residual stages included, also for B6a, which
+// leaves them unused) and picks the body's instantiation: for the tensor
+// cores the fragments a warp owns, for f32 the rows a thread owns.
+template <bool kFinal>
+int launch(int variant, const TbOperands& o, const TbArgs& p, bool has_scale,
            bool has_bias, bool has_res, cudaStream_t stream) {
   if (p.bn < 1 || p.bn > kThreads || p.bm < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, sizeof(TIn),
-                               p.res_dtype == kBF16 ? 2 : 4, has_bias,
-                               has_res);
+  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, a_size(variant),
+                               b_size(variant), p.res_dtype == kBF16 ? 2 : 4,
+                               has_scale, has_bias, has_res);
   if (L.total > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (sizeof(TIn) == 2) {
-    const int blocks = (p.bm + 15) / 16, frags = (p.bn + 7) / 8;
-    if (blocks * frags <= kWarps)
-      return launch_mma<1, kFinal>(a, b, c_in, c_acc, c, bias, res, p,
-                                   L.total, stream);
-    if (blocks * ((frags + 1) / 2) <= kWarps)
-      return launch_mma<2, kFinal>(a, b, c_in, c_acc, c, bias, res, p,
-                                   L.total, stream);
-    if (blocks * ((frags + kMaxFrags - 1) / kMaxFrags) <= kWarps)
-      return launch_mma<kMaxFrags, kFinal>(a, b, c_in, c_acc, c, bias, res,
-                                           p, L.total, stream);
-    return static_cast<int>(cudaErrorInvalidValue);
-  } else {
-    const int groups = kThreads / p.bn;
-    const int rows = (p.bm + groups - 1) / groups;
-    if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-    if (rows <= 1)
-      return launch_rows<float, 1, kFinal>(a, b, c_in, c_acc, c, bias, res, p,
-                                           L.total, stream);
-    if (rows <= 2)
-      return launch_rows<float, 2, kFinal>(a, b, c_in, c_acc, c, bias, res, p,
-                                           L.total, stream);
-    if (rows <= 4)
-      return launch_rows<float, 4, kFinal>(a, b, c_in, c_acc, c, bias, res, p,
-                                           L.total, stream);
-    if (rows <= 8)
-      return launch_rows<float, 8, kFinal>(a, b, c_in, c_acc, c, bias, res, p,
-                                           L.total, stream);
-    return launch_rows<float, kMaxRows, kFinal>(a, b, c_in, c_acc, c, bias, res,
-                                                p, L.total, stream);
+  switch (variant) {
+    case kVBf16:
+      return launch_tc<kFinal, kVBf16>(o, p, L.total, stream);
+    case kVW8A16:
+      return launch_tc<kFinal, kVW8A16>(o, p, L.total, stream);
+    case kVW8A8:
+      return launch_tc<kFinal, kVW8A8>(o, p, L.total, stream);
+    case kVF32:
+      return launch_f32<float, kFinal>(o, p, L.total, stream);
+    case kVF32W8:
+      return launch_f32<int8_t, kFinal>(o, p, L.total, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// The variant of an (A, B) type pair, or -1.
+int variant_of(int a_dtype, int b_dtype) {
+  if (a_dtype == kBF16) return b_dtype == kBF16 ? kVBf16
+                               : b_dtype == kI8 ? kVW8A16 : -1;
+  if (a_dtype == kI8) return b_dtype == kI8 ? kVW8A8 : -1;
+  if (a_dtype == kF32) return b_dtype == kF32 ? kVF32
+                              : b_dtype == kI8 ? kVF32W8 : -1;
+  return -1;
 }
 
 TbArgs make_args(int m, int n, int k, int k0, int kc, int bm, int bk, int bn,
@@ -507,57 +603,71 @@ TbArgs make_args(int m, int n, int k, int k0, int kc, int bm, int bk, int bn,
 }  // namespace
 }  // namespace repro
 
-// Bytes of dynamic shared memory one CTA takes for a tile.
-extern "C" int gemm_tb_smem_bytes(int bm, int bk, int bn, int in_dtype,
-                                  int res_dtype, int has_bias, int has_res) {
+// Bytes of dynamic shared memory one CTA takes for a tile (-1 for an
+// operand pair no body takes).
+extern "C" int gemm_tb_smem_bytes(int bm, int bk, int bn, int a_dtype,
+                                  int b_dtype, int res_dtype, int has_scale,
+                                  int has_bias, int has_res) {
   using namespace repro;
-  return static_cast<int>(tb_layout(bm, bk, bn, in_dtype == kBF16 ? 2 : 4,
-                                    res_dtype == kBF16 ? 2 : 4, has_bias != 0,
+  const int v = variant_of(a_dtype, b_dtype);
+  if (v < 0) return -1;
+  return static_cast<int>(tb_layout(bm, bk, bn, a_size(v), b_size(v),
+                                    res_dtype == kBF16 ? 2 : 4,
+                                    has_scale != 0, has_bias != 0,
                                     has_res != 0)
                               .total);
 }
 
-// B6a: one k-chunk [k0, k0 + kc) accumulated into the (m,n) f32 partial
-// c_acc; c_in is the partial of the earlier chunks (null on the first; it
-// may be c_acc itself).  A (m,k), B (k,n) row-major and contiguous.
-// Returns cudaGetLastError() after the launch.
+// B6a: one k-chunk [k0, k0 + kc) accumulated into the (m,n) partial c_acc
+// (f32, or int32 when A is int8); c_in is the partial of the earlier chunks
+// (null on the first; it may be c_acc itself).  A (m,k), B (k,n) row-major
+// and contiguous.  The layout flags describe the plan's B6b, whose whole
+// layout every chunk sizes.  Returns cudaGetLastError() after the launch.
 extern "C" int gemm_tb_accumulate_launch(const void* a, const void* b,
                                          const void* c_in, void* c_acc, int m,
                                          int n, int k, int k0, int kc, int bm,
                                          int bk, int bn, int tiles_per_cta,
-                                         int in_dtype, int res_dtype,
+                                         int a_dtype, int b_dtype,
+                                         int res_dtype, int has_scale,
                                          int has_bias, int has_res, int modes,
                                          void* stream) {
   using namespace repro;
   const TbArgs p = make_args(m, n, k, k0, kc, bm, bk, bn, tiles_per_cta,
                              kNone, kF32, res_dtype, modes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == kBF16)
-    return launch<__nv_bfloat16, false>(a, b, c_in, c_acc, nullptr, nullptr,
-                                        nullptr, p, has_bias != 0,
-                                        has_res != 0, s);
-  return launch<float, false>(a, b, c_in, c_acc, nullptr, nullptr, nullptr, p,
-                              has_bias != 0, has_res != 0, s);
+  const TbOperands o{a, b, c_in, c_acc, nullptr, nullptr, nullptr, nullptr,
+                     nullptr};
+  return launch<false>(variant_of(a_dtype, b_dtype), o, p, has_scale != 0,
+                       has_bias != 0, has_res != 0,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // B6b: the last k-chunk [k0, k0 + kc) on top of the partial c_in (null when
-// it is the only chunk), then bias (n,) f32 or null -> activation ->
-// residual (m,n) or null, written to c (m,n) at out_dtype.
+// it is the only chunk), then b_scale (n,) f32 or null -> bias (n,) f32 or
+// null -> activation -> residual (m,n) or null, written to c (m,n) at
+// out_dtype (int8: quantized by the device scalar out_scale; int32: the bare
+// sums of an int8 A, nothing fused).
 extern "C" int gemm_tb_final_launch(const void* a, const void* b,
                                     const void* c_in, void* c,
-                                    const void* bias, const void* res, int m,
-                                    int n, int k, int k0, int kc, int bm,
-                                    int bk, int bn, int tiles_per_cta,
-                                    int in_dtype, int out_dtype,
+                                    const void* bias, const void* b_scale,
+                                    const void* res, const void* out_scale,
+                                    int m, int n, int k, int k0, int kc,
+                                    int bm, int bk, int bn, int tiles_per_cta,
+                                    int a_dtype, int b_dtype, int out_dtype,
                                     int res_dtype, int act, int modes,
                                     void* stream) {
   using namespace repro;
   const TbArgs p = make_args(m, n, k, k0, kc, bm, bk, bn, tiles_per_cta, act,
                              out_dtype, res_dtype, modes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_dtype == kBF16)
-    return launch<__nv_bfloat16, true>(a, b, c_in, nullptr, c, bias, res, p,
-                                       bias != nullptr, res != nullptr, s);
-  return launch<float, true>(a, b, c_in, nullptr, c, bias, res, p,
-                             bias != nullptr, res != nullptr, s);
+  const TbOperands o{a,
+                     b,
+                     c_in,
+                     nullptr,
+                     c,
+                     static_cast<const float*>(bias),
+                     static_cast<const float*>(b_scale),
+                     res,
+                     static_cast<const float*>(out_scale)};
+  return launch<true>(variant_of(a_dtype, b_dtype), o, p, b_scale != nullptr,
+                      bias != nullptr, res != nullptr,
+                      static_cast<cudaStream_t>(stream));
 }

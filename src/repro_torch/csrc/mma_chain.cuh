@@ -1,4 +1,5 @@
-// The one tensor-core chain of the bf16 GEMMs, shared by kernel B1
+// The one tensor-core chain of the bf16 GEMMs (and, at the end of this
+// file, of their int8 paths: mma_slab_w8, mma_slab_s8), shared by kernel B1
 // (gemm_aie.cu, output-stationary), kernel B6 (gemm_tb.cu, A-stationary),
 // B2 (gemm_gated.cu) and B7 (gemm_grouped.cu, on each group's rows), and
 // the fragment -> (row, col) map of their flush; and the
@@ -292,6 +293,179 @@ __device__ __forceinline__ void mma_slab(float (&acc)[kFM][kFN][4],
   for (; kk < k_len; kk += 16)
     mma_step_masked<kFM, kFN>(acc, A, a_r0, a_rows, B, b_c0, b_cols, kk,
                               k_len);
+}
+
+// ---------------------------------------------------------------------------
+// The int8 operand paths (W8A16, W8A8) of B1, B2, B6 and B7
+// ---------------------------------------------------------------------------
+//
+// An int8 operand is staged into shared memory at one byte an element (the
+// point of int8 weights: half the bytes of bf16 from device memory) and is
+// read by bytes into the fragment registers, so no transpose of the (k, n)
+// weight layout is needed anywhere.  Layouts map (row, column) to a byte
+// offset: Rows8 plain row-major, Swz128 the tensor memory accelerator's
+// 128-byte swizzle over 128-byte rows (B7's int8 panels).
+
+struct Rows8 {
+  int ld;  // bytes a row
+  __device__ __forceinline__ int at(int r, int c) const { return r * ld + c; }
+};
+
+struct Swz128 {
+  __device__ __forceinline__ int at(int r, int c) const {
+    return r * 128 + ((((c >> 4) ^ (r & 7)) << 4) | (c & 15));
+  }
+};
+
+// Two int8 values widened to bf16 (exact: |v| <= 128 needs 8 significand
+// bits) and packed low, high.
+__device__ __forceinline__ uint32_t widen2(int8_t lo, int8_t hi) {
+  return static_cast<uint32_t>(
+             __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(lo)))) |
+         static_cast<uint32_t>(
+             __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(hi))))
+             << 16;
+}
+
+// d = a (16x32 s8, row) * b (32x8 s8, col) + d, int32 accumulate (exact).
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The A fragments of one k16 step of mma_slab, as mma_slab builds them:
+// ldmatrix for a whole step of a chunked tile, else element loads (A rows
+// >= a_rows and k >= k_len read as zero).  Rows past a_rows only ever feed
+// C rows that are not stored.
+template <int kFM, bool kEdge>
+__device__ __forceinline__ void a_frags(uint32_t (&a)[kFM][4],
+                                        const SmemTile& A, int a_r0,
+                                        int a_rows, int kk, int k_len) {
+  const int lane = threadIdx.x & 31;
+  if (A.chunked() && kk + 16 <= k_len) {
+#pragma unroll
+    for (int i = 0; i < kFM; ++i) {
+      const int rows = a_rows - 16 * i;
+      const int r = a_r0 + 16 * i +
+                    (kEdge ? min(lane & 15, max(rows - 1, 0)) : (lane & 15));
+      const int f = ((r >> A.sh) & A.mask) ^ (lane >> 4);
+      ldsm_x4(a[i], A.p + r * A.ld + (((kk >> 3) ^ f) << 3));
+      if (kEdge) {  // a block of at most 8 rows: its other 8 are zero
+        a[i][1] = rows > 8 ? a[i][1] : 0u;
+        a[i][3] = rows > 8 ? a[i][3] : 0u;
+      }
+    }
+    return;
+  }
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int i = 0; i < kFM; ++i)
+#pragma unroll
+    for (int h = 0; h < 4; ++h) {
+      const int rr = g + 8 * (h & 1), c = kk + 2 * t + 8 * (h >> 1);
+      const bool ok = rr < a_rows - 16 * i;
+      const int r = a_r0 + 16 * i + rr;
+      a[i][h] = bits(A, r, c, ok && c < k_len) |
+                bits(A, r, c + 1, ok && c + 1 < k_len) << 16;
+    }
+}
+
+// mma_slab with B an int8 tile (W8A16): each B fragment register is built
+// from two bytes, widened to bf16, so it holds exactly the registers
+// mma_slab would load from B.to(bfloat16), and the chain (k = 0, 16, 32,
+// ... ascending, the k tail read as zero) is mma_slab's step for step: an
+// element's bits equal the bf16 chain's on the widened weights.  B entries
+// at k >= k_len or columns >= b_cols read as zero (they feed only C
+// elements past the tile).  B points at the tile's row 0 in layout BL.
+template <int kFM, int kFN, bool kEdge, typename BL>
+__device__ __forceinline__ void mma_slab_w8(float (&acc)[kFM][kFN][4],
+                                            const SmemTile& A, int a_r0,
+                                            int a_rows, const int8_t* B,
+                                            const BL& bl, int b_c0,
+                                            int b_cols, int k_len) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int kk = 0; kk < k_len; kk += 16) {
+    uint32_t a[kFM][4], b[kFN][2];
+    a_frags<kFM, kEdge>(a, A, a_r0, a_rows, kk, k_len);
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) {
+      const int n = 8 * j + g;
+      const bool ok = n < b_cols;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = kk + 2 * t + 8 * h;
+        const int8_t lo = ok && k < k_len ? B[bl.at(k, b_c0 + n)] : 0;
+        const int8_t hi = ok && k + 1 < k_len ? B[bl.at(k + 1, b_c0 + n)] : 0;
+        b[j][h] = widen2(lo, hi);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kFM; ++i)
+#pragma unroll
+      for (int j = 0; j < kFN; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+  }
+}
+
+// Four int8 values packed low to high (k ascending), zero where !ok.
+__device__ __forceinline__ uint32_t pack4(int8_t v0, int8_t v1, int8_t v2,
+                                          int8_t v3) {
+  return static_cast<uint32_t>(static_cast<uint8_t>(v0)) |
+         static_cast<uint32_t>(static_cast<uint8_t>(v1)) << 8 |
+         static_cast<uint32_t>(static_cast<uint8_t>(v2)) << 16 |
+         static_cast<uint32_t>(static_cast<uint8_t>(v3)) << 24;
+}
+
+// The W8A8 chain over one staged k-slab for one warp: int8 A (layout AL)
+// against int8 B (layout BL) on mma.sync m16n8k32 with int32 accumulators,
+// k = 0, 32, 64, ... < k_len.  Register h of an A fragment holds row
+// g + 8 (h & 1), k 4t + 16 (h >> 1) .. +3; of a B fragment, k 4t + 16 h ..
+// +3 of column g (g = lane / 4, t = lane % 4), packed from bytes.  A rows
+// >= a_rows, B columns >= b_cols and k >= k_len read as zero.  The sums are
+// exact, so an element's value does not depend on the k order or split.
+template <int kFM, int kFN, typename AL, typename BL>
+__device__ __forceinline__ void mma_slab_s8(int (&acc)[kFM][kFN][4],
+                                            const int8_t* A, const AL& al,
+                                            int a_r0, int a_rows,
+                                            const int8_t* B, const BL& bl,
+                                            int b_c0, int b_cols, int k_len) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  for (int kk = 0; kk < k_len; kk += 32) {
+    uint32_t a[kFM][4], b[kFN][2];
+#pragma unroll
+    for (int i = 0; i < kFM; ++i)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) {
+        const int rr = g + 8 * (h & 1), c = kk + 4 * t + 16 * (h >> 1);
+        const bool ok = rr < a_rows - 16 * i;
+        const int r = a_r0 + 16 * i + rr;
+        int8_t v[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          v[x] = ok && c + x < k_len ? A[al.at(r, c + x)] : 0;
+        a[i][h] = pack4(v[0], v[1], v[2], v[3]);
+      }
+#pragma unroll
+    for (int j = 0; j < kFN; ++j) {
+      const int n = 8 * j + g;
+      const bool ok = n < b_cols;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int k = kk + 4 * t + 16 * h;
+        int8_t v[4];
+#pragma unroll
+        for (int x = 0; x < 4; ++x)
+          v[x] = ok && k + x < k_len ? B[bl.at(k + x, b_c0 + n)] : 0;
+        b[j][h] = pack4(v[0], v[1], v[2], v[3]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kFM; ++i)
+#pragma unroll
+      for (int j = 0; j < kFN; ++j) mma_s8(acc[i][j], a[i], b[j][0], b[j][1]);
+  }
 }
 
 }  // namespace repro

@@ -63,18 +63,31 @@ def library_path() -> Path:
     return BUILD_DIR / f"librepro_torch_{h.hexdigest()[:16]}.so"
 
 
-def _run_all(cmds):
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    logs = []
-    for cmd, p in zip(cmds, procs):
-        out, _ = p.communicate()
-        logs.append(out)
+def _run_all(cmds, tmp: Path):
+    """Run the commands together, each writing to its own log file; wait
+    for all of them, then raise on the first that failed.  Each log ends
+    with the seconds its command took (a build's critical path)."""
+    t0 = time.perf_counter()
+    logs = [tmp / f"cmd{i}.log" for i in range(len(cmds))]
+    procs = []
+    for cmd, log in zip(cmds, logs):
+        with open(log, "w") as f:
+            procs.append(subprocess.Popen(cmd, stdout=f,
+                                          stderr=subprocess.STDOUT))
+    seconds = [None] * len(procs)
+    while None in seconds:
+        for i, p in enumerate(procs):
+            if seconds[i] is None and p.poll() is not None:
+                seconds[i] = time.perf_counter() - t0
+        time.sleep(0.05)
+    out = []
+    for cmd, p, log, sec in zip(cmds, procs, logs, seconds):
+        text = log.read_text()
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed ({p.returncode}): "
-                               f"{' '.join(cmd)}\n{out}")
-    return "".join(logs)
+                               f"{' '.join(cmd)}\n{text}")
+        out.append(f"{text}[build] {Path(cmd[-1]).name}: {sec:.1f} s\n")
+    return "".join(out)
 
 
 def build() -> Path:
@@ -91,10 +104,10 @@ def build() -> Path:
         cus = [p for p in _sources() if p.suffix == ".cu"]
         objs = [tmp / (p.stem + ".o") for p in cus]
         log = _run_all([[nvcc, *COMPILE_FLAGS, "-c", str(p), "-o", str(o)]
-                        for p, o in zip(cus, objs)])
+                        for p, o in zip(cus, objs)], tmp)
         so = tmp / target.name
         log += _run_all([[nvcc, *LINK_FLAGS, *map(str, objs),
-                          "-o", str(so)]])
+                          "-o", str(so)]], tmp)
         os.replace(so, target)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -121,14 +134,16 @@ def entry(name: str, argtypes) -> ctypes._CFuncPtr:
     return fn
 
 
-#: torch dtype -> the type code the C entry points take (csrc/common.cuh)
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: torch dtype -> the type code the C entry points take (csrc/common.cuh
+#: DType)
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+               torch.int32: 3}
 
 
 def dtype_code(dtype: torch.dtype, what: str) -> int:
     if dtype not in DTYPE_CODES:
         raise TypeError(f"{what}: dtype {dtype} not supported by the CUDA "
-                        "kernel (float32 or bfloat16)")
+                        "kernels (float32, bfloat16, int8 or int32)")
     return DTYPE_CODES[dtype]
 
 
@@ -150,6 +165,11 @@ def copy_mode(t: Optional[torch.Tensor], ld: int, tile_cols: int) -> int:
                 and (tile_cols * es) % unit == 0:
             return mode
     return 0
+
+
+def ptr(t: Optional[torch.Tensor]):
+    """A tensor's device address for a C entry point, None for none."""
+    return t.data_ptr() if t is not None else None
 
 
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:

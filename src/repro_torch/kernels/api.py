@@ -20,10 +20,19 @@
   nothing is padded.  :func:`gemm` is the one-shot form every model
   layer calls, :func:`gemm_grouped` the MoE experts'.
 
+Quantized weights arrive as ``{"q": int8, "scale": f32}`` structs
+(:mod:`repro_torch.quant`): the plan bills q at one byte an element plus
+its scale vector, and the kernels run their int8 paths (W8A16: the int8
+weights widened in registers, the scale on the flush).  Under
+``quant.activation_mode() == "w8a8"`` a quantized, non-gated plan with a
+linear epilogue re-routes, as the JAX package's ``execute`` does: the
+activations are quantized per row, an int8 x int8 plan runs with int32
+accumulation and an f32 output, and the row scale, bias and residual
+apply outside.  An int8 output (``out_scale``) quantizes on the flush.
+
 The plan is the same on every device: a CPU tensor runs the chosen
 kernel's plain version, a CUDA tensor the kernel itself.  Not in the
 port yet, and raising ``NotImplementedError`` with their ROADMAP item:
-int8 operands and quantized weights (A8; quantized expert banks too),
 measured tuning (A10), and the gradient (A7).
 """
 
@@ -35,6 +44,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch import quant as _quant
 from repro_torch.core import dse
 from repro_torch.core.bandwidth import TrafficEstimate, estimate
 from repro_torch.core.hardware import HOPPER_H100
@@ -81,9 +91,14 @@ class GemmSpec:
     * ``grouped`` — the ragged MoE member: A is (m, k) tokens sorted by
       expert, B an (E, k, n) bank; plans take ``(m, k, n, E[,
       dense_rows])``; 'aie' only, single-B, bias + activation only.
-    * ``out_dtype`` — ``None`` resolves to ``a_dtype``.
-    * ``b_quant``, ``tune`` — the JAX package's quantized and tuned
-      members; the port raises for them (A8, A10).
+    * ``b_quant`` — B arrives as a ``{"q", "scale"}`` int8 struct
+      (``b_dtype`` is forced to int8); an int8 ``a_dtype`` is the W8A8
+      member (int8 x int8, int32 accumulation), which only a non-gated,
+      non-grouped spec takes.
+    * ``out_dtype`` — ``None`` resolves to ``a_dtype`` (int8 when the
+      epilogue quantizes the output).
+    * ``tune`` — the JAX package's measured tuning; the port raises for
+      it (A10).
     """
 
     a_dtype: str = "bfloat16"
@@ -145,11 +160,13 @@ class GemmSpec:
                 raise ValueError(
                     "the grouped ragged kernel is output-stationary "
                     "('aie') only; strategy/tile 'tb' is infeasible")
+        if self.a_dtype == "int8" and (self.gated or self.grouped):
+            raise ValueError(
+                "the gated and grouped kernels take float activations: "
+                "W8A8 runs non-gated, non-grouped GEMMs only")
+        if self.a_dtype == "int8" and self.b_dtype != "int8":
+            raise ValueError("an int8 A needs an int8 B (W8A8)")
         # what the JAX package has and this slice of the port does not
-        if self.b_quant or "int8" in (self.a_dtype, self.b_dtype) \
-                or self.epilogue.out_quant:
-            raise _not_yet("int8 operands, quantized weights and int8 "
-                           "output", "A8")
         if self.tune:
             raise _not_yet("measured tile tuning", "A10")
 
@@ -179,10 +196,12 @@ class GemmSpec:
                      out_scale=None, strategy: Optional[str] = None,
                      tile: Optional[TileConfig] = None, out_dtype=None,
                      tune: Optional[bool] = None) -> "GemmSpec":
-        """Spec inferred from concrete operands plus the optional
-        epilogue set — what the one-shot :func:`gemm` builds."""
-        if _is_quant(b) or (b2 is not None and _is_quant(b2)):
-            raise _not_yet("quantized {'q', 'scale'} weights", "A8")
+        """Spec inferred from concrete operands (tensors or ``{"q",
+        "scale"}`` weight structs) plus the optional epilogue set — what
+        the one-shot :func:`gemm` builds."""
+        bq = _is_quant(b)
+        if b2 is not None and _is_quant(b2) != bq:
+            raise ValueError("quantize both gated operands or neither")
         gated = b2 is not None
         if gated:
             if bias is not None or residual is not None \
@@ -192,8 +211,9 @@ class GemmSpec:
             ep = Epilogue(activation=activation)
         else:
             ep = Epilogue.from_args(bias, activation, residual, out_scale)
-        return cls(a_dtype=dtype_name(a.dtype), b_dtype=dtype_name(b.dtype),
-                   gated=gated, epilogue=ep,
+        return cls(a_dtype=dtype_name(a.dtype),
+                   b_dtype="int8" if bq else dtype_name(b.dtype),
+                   b_quant=bq, gated=gated, epilogue=ep,
                    out_dtype=None if out_dtype is None
                    else dtype_name(out_dtype),
                    strategy=strategy, tile=tile, tune=tune)
@@ -214,7 +234,7 @@ def gemm_grouped_shapes(a, b, dense_rows: Optional[int] = None
     capacity-padded formulation would multiply (E * capacity); it rides
     the plan so ``explain()`` can state the padding flops saved, and
     defaults to ``m``."""
-    e, k, n = b.shape
+    e, k, n = (b["q"] if _is_quant(b) else b).shape
     m = math.prod(a.shape[:-1])
     return (m, k, n, e, int(dense_rows) if dense_rows else m)
 
@@ -328,7 +348,8 @@ class GemmPlan:
                         "per (m-tile instance, n tile) that can be live, "
                         "and the CTAs past the device-side live count "
                         "exit")
-        b_desc = ("2x " if s.gated else "") + p.b_dtype
+        b_desc = ("2x " if s.gated else "") + p.b_dtype \
+            + (" {q,scale}" if s.b_quant else "")
         budget = budget_bytes(self.chip)
         tm = self.traffic
         lines = [
@@ -370,9 +391,36 @@ class GemmPlan:
                 f"  padding  : {self.flops / 1e9:.2f} GFLOP executed vs "
                 f"{dense_flops / 1e9:.2f} dense-capacity "
                 f"({saved:+.0%} saved)"))
+        int8 = _int8_path(self)
+        if int8:
+            lines.insert(3, f"  int8     : {int8}")
         if self.fallback_reason:
             lines.append(f"  fallback : {self.fallback_reason}")
         return "\n".join(lines)
+
+
+def _int8_path(pl: GemmPlan) -> Optional[str]:
+    """What the kernel's int8 path does with this plan, for explain()."""
+    s, p = pl.spec, pl.problem
+    parts = []
+    if p.a_dtype == "int8":
+        parts.append("W8A8: int8 A and B staged at one byte an element, "
+                     "mma.sync m16n8k32 s8 with int32 accumulators (exact), "
+                     "b_scale on the flush")
+    elif p.b_dtype == "int8":
+        parts.append("W8A16: int8 B staged at one byte an element, widened "
+                     "to " + p.a_dtype + " in registers (exact), the "
+                     + ("per-expert (E, 1, n)" if s.grouped else "(1, n)")
+                     + " scale" + (" of each accumulator" if s.gated else "")
+                     + " on the flush")
+        if s.b_quant and not s.gated and not s.grouped \
+                and not s.epilogue.activation and not s.epilogue.out_quant:
+            parts.append("re-routed to W8A8 when quant.activation_mode() "
+                         "is 'w8a8'")
+    if s.epilogue.out_quant:
+        parts.append("int8 C: divide by out_scale, round half to even, "
+                     "clip to +-127 on the flush")
+    return "; ".join(parts) or None
 
 
 class PlanCacheInfo(NamedTuple):
@@ -452,7 +500,8 @@ def _infeasible_reason(tile: TileConfig, p: GemmProblem,
 def _problem_for(spec: GemmSpec, m: int, k: int, n: int,
                  n_groups: int = 0) -> GemmProblem:
     """The cost-model problem a spec resolves to at concrete shapes."""
-    out_dtype = spec.out_dtype or spec.a_dtype
+    out_dtype = spec.out_dtype or ("int8" if spec.epilogue.out_quant
+                                   else spec.a_dtype)
     return GemmProblem(m, k, n, spec.a_dtype, out_dtype,
                        _acc_name(spec.a_dtype), spec.b_dtype,
                        spec.epilogue.key, 2 if spec.gated else 1,
@@ -555,21 +604,70 @@ def plan(spec: GemmSpec, shapes: Tuple[int, ...]) -> GemmPlan:
 # execute and the one-shot gemm
 # ---------------------------------------------------------------------------
 
-def _launch(pl: GemmPlan, a2, b, b2, bias, res2,
-            group_sizes=None) -> torch.Tensor:
+def _launch(pl: GemmPlan, a2, b, b2, bias, res2, group_sizes=None,
+            b_scale=None, b2_scale=None, out_scale=None) -> torch.Tensor:
     """The one kernel fan-out, driven by the plan: B2 for a gated plan,
-    B7 for a grouped one, B6 with the plan's tile for 'tb', else B1."""
+    B7 for a grouped one, B6 with the plan's tile for 'tb', else B1.
+    Quantized weights arrive unpacked: q as ``b`` / ``b2``, their scales
+    as ``b_scale`` / ``b2_scale``."""
     kind, act, out_dtype = pl._run
     if kind == "aie":
         return gemm_aie(a2, b, bias=bias, activation=act, residual=res2,
-                        out_dtype=out_dtype)
+                        out_dtype=out_dtype, b_scale=b_scale,
+                        out_scale=out_scale)
     if kind == "tb":
         return gemm_tb(a2, b, tile=pl.tile, out_dtype=out_dtype, bias=bias,
-                       activation=act, residual=res2)
+                       activation=act, residual=res2, b_scale=b_scale,
+                       out_scale=out_scale)
     if kind == "grouped":
         return _gemm_grouped(a2, b, group_sizes, out_dtype=out_dtype,
-                             bias=bias, activation=act)
-    return gemm_gated(a2, b, b2, activation=act, out_dtype=out_dtype)
+                             b_scale=b_scale, bias=bias, activation=act)
+    return gemm_gated(a2, b, b2, activation=act, out_dtype=out_dtype,
+                      bg_scale=b_scale, bu_scale=b2_scale)
+
+
+def _w8a8_plan(pl: GemmPlan) -> Optional[GemmPlan]:
+    """The int8 x int8 plan a quantized plan re-routes to under W8A8, or
+    None when it never does (gated, grouped, an activation or int8
+    output in the epilogue, or an int8 A already): JAX's execute
+    (repro/kernels/api.py:1106-1125).  Resolved once a plan."""
+    sub = pl.__dict__.get("_w8a8")
+    if sub is None:
+        spec, ep = pl.spec, pl.spec.epilogue
+        ok = (spec.b_quant and not spec.gated and not spec.grouped
+              and ep.activation is None and not ep.out_quant
+              and spec.a_dtype != "int8")
+        sub = plan(dataclasses.replace(
+            spec, a_dtype="int8", epilogue=Epilogue(), out_dtype="float32",
+            tune=False), (pl.m, pl.k, pl.n)) if ok else False
+        object.__setattr__(pl, "_w8a8", sub)
+    return sub or None
+
+
+def _dispatch(pl: GemmPlan, a2, b, b2, bias, res2, out_scale=None,
+         group_sizes=None) -> torch.Tensor:
+    """Launch a checked plan on (m, k) rows: plain weights go straight to
+    :func:`_launch`; ``{"q", "scale"}`` structs are unpacked, and under
+    W8A8 a plan that re-routes quantizes its rows (each row alone, so
+    its bits do not depend on the batch), runs the int8 x int8 plan to
+    f32 and applies the row scale, bias and residual outside."""
+    if not pl.spec.b_quant:
+        return _launch(pl, a2, b, b2, bias, res2, group_sizes,
+                       out_scale=out_scale)
+    q, scale = b["q"], b["scale"]
+    sub = _w8a8_plan(pl)
+    if sub is not None and _quant.activation_mode() == "w8a8":
+        a_q, a_s = _quant.quantize_activations(a2, axis=-1)
+        out = _launch(sub, a_q, q, None, None, None, b_scale=scale) * a_s
+        if bias is not None:
+            out = out + bias.reshape(1, -1).float()
+        if res2 is not None:
+            out = out + res2.float()
+        return out.to(pl.out_dtype)
+    return _launch(pl, a2, q, b2["q"] if b2 is not None else None, bias,
+                   res2, group_sizes, b_scale=scale,
+                   b2_scale=b2["scale"] if b2 is not None else None,
+                   out_scale=out_scale)
 
 
 def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
@@ -579,14 +677,22 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
     """Run a resolved plan on concrete operands.
 
     ``a``: (..., k) — leading dims flatten into the planned M; ``b`` /
-    ``b2``: (k, n).  Epilogue operands must match the spec (a plan for a
-    bias epilogue requires ``bias=``, and vice versa); mismatches raise
+    ``b2``: (k, n) tensors, or ``{"q", "scale"}`` structs (q int8 (k, n),
+    scale f32 (1, n)) when the spec says ``b_quant``.  Epilogue operands
+    must match the spec (a plan for a bias epilogue requires ``bias=``,
+    and vice versa; an out-quant plan ``out_scale=``); mismatches raise
     rather than silently computing something else.
 
     A grouped plan requires ``group_sizes=`` (an (E,) integer vector on
-    A's device) and takes ``b`` as the (E, k, n) expert bank; ``bias``
-    is then per-expert (E, n).  Rows of ``a`` must be group-sorted; rows
-    at and beyond ``sum(group_sizes)`` come back zero.
+    A's device) and takes ``b`` as the (E, k, n) expert bank (quantized:
+    q (E, k, n), scale (E, 1, n)); ``bias`` is then per-expert (E, n).
+    Rows of ``a`` must be group-sorted; rows at and beyond
+    ``sum(group_sizes)`` come back zero.  A quantized bank always runs
+    W8A16.
+
+    Under ``quant.activation_mode() == "w8a8"`` a quantized, non-gated,
+    linear-epilogue plan re-routes through per-row int8 activations
+    (see :func:`_dispatch`).
     """
     spec = pl.spec
     ep = spec.epilogue
@@ -606,28 +712,37 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             raise ValueError(
                 f"plan epilogue {ep.key or '(none)'!r} "
                 f"{'requires' if want else 'forbids'} `{name}=`")
-    if spec.b_quant != _is_quant(b):
+    if spec.b_quant != _is_quant(b) or (
+            b2 is not None and spec.b_quant != _is_quant(b2)):
         raise ValueError(
             "plan expects B as a {'q','scale'} struct" if spec.b_quant
             else "plan expects a plain B array, got a quant struct")
+    bw = b["q"] if spec.b_quant else b
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
     if dtype_name(a2.dtype) != spec.a_dtype \
-            or dtype_name(b.dtype) != spec.b_dtype:
+            or dtype_name(bw.dtype) != spec.b_dtype:
         raise ValueError(
             f"operand dtypes ({dtype_name(a2.dtype)}, "
-            f"{dtype_name(b.dtype)}) do not match the spec "
+            f"{dtype_name(bw.dtype)}) do not match the spec "
             f"({spec.a_dtype}, {spec.b_dtype})")
     if spec.grouped:
-        return _execute_grouped(pl, a2, b, bias, group_sizes) \
-            .reshape(*lead, pl.n)
-    if tuple(a2.shape) != (pl.m, pl.k) or tuple(b.shape) != (pl.k, pl.n):
+        _check_grouped(pl, a2, b, bias, group_sizes)
+        return _dispatch(pl, a2, b, None, bias, None,
+                         group_sizes=group_sizes).reshape(*lead, pl.n)
+    if tuple(a2.shape) != (pl.m, pl.k) or tuple(bw.shape) != (pl.k, pl.n):
         raise ValueError(
-            f"operands {tuple(a.shape)} @ {tuple(b.shape)} do not match "
+            f"operands {tuple(a.shape)} @ {tuple(bw.shape)} do not match "
             f"the plan's {pl.m}x{pl.k}x{pl.n}")
-    if b2 is not None and tuple(b2.shape) != (pl.k, pl.n):
+    if spec.b_quant:
+        for w in (b, b2):
+            if w is not None and w["scale"].numel() != pl.n:
+                raise ValueError(f"quant scale must be (1, {pl.n}), got "
+                                 f"{tuple(w['scale'].shape)}")
+    b2w = b2["q"] if spec.b_quant and b2 is not None else b2
+    if b2w is not None and tuple(b2w.shape) != (pl.k, pl.n):
         raise ValueError(
-            f"gated operand b2 {tuple(b2.shape)} does not match the "
+            f"gated operand b2 {tuple(b2w.shape)} does not match the "
             f"plan's ({pl.k}, {pl.n})")
     n = pl.n
     if bias is not None and bias.numel() != n:
@@ -638,21 +753,26 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
         raise ValueError(
             f"residual {tuple(residual.shape)} does not match the plan's "
             f"({pl.m}, {n}) output")
-    return _launch(pl, a2, b, b2, bias, res2).reshape(*lead, n)
+    return _dispatch(pl, a2, b, b2, bias, res2, out_scale) \
+        .reshape(*lead, n)
 
 
-def _execute_grouped(pl: GemmPlan, a2, b, bias, group_sizes
-                     ) -> torch.Tensor:
-    """A grouped plan's operand checks, then its launch."""
+def _check_grouped(pl: GemmPlan, a2, b, bias, group_sizes) -> None:
+    """A grouped plan's operand checks."""
     e = pl.n_groups
-    if tuple(b.shape) != (e, pl.k, pl.n):
+    bank = b["q"] if pl.spec.b_quant else b
+    if tuple(bank.shape) != (e, pl.k, pl.n):
         raise ValueError(
             f"grouped plan expects the ({e}, {pl.k}, {pl.n}) expert bank, "
-            f"got B {tuple(b.shape)}")
+            f"got B {tuple(bank.shape)}")
+    if pl.spec.b_quant and tuple(b["scale"].shape) != (e, 1, pl.n):
+        raise ValueError(
+            f"grouped quant scale must be ({e}, 1, {pl.n}), got "
+            f"{tuple(b['scale'].shape)}")
     if tuple(a2.shape) != (pl.m, pl.k):
         raise ValueError(
-            f"operands {tuple(a2.shape)} @ {tuple(b.shape)} do not match "
-            f"the plan's {pl.m}x{pl.k}x{pl.n}")
+            f"operands {tuple(a2.shape)} @ {tuple(bank.shape)} do not "
+            f"match the plan's {pl.m}x{pl.k}x{pl.n}")
     if not isinstance(group_sizes, torch.Tensor) \
             or tuple(group_sizes.shape) != (e,) \
             or group_sizes.dtype.is_floating_point:
@@ -661,7 +781,15 @@ def _execute_grouped(pl: GemmPlan, a2, b, bias, group_sizes
     if bias is not None and bias.numel() != e * pl.n:
         raise ValueError(f"grouped bias must be per-expert ({e}, {pl.n}), "
                          f"got {tuple(bias.shape)}")
-    return _launch(pl, a2, b, None, bias, None, group_sizes)
+
+
+def _operand_key(b):
+    """A B operand's part of the one-shot cache key: a tensor's shape and
+    dtype, or a quantized struct's, marked apart from any tensor and
+    tagged with the activation mode (W8A16 and W8A8 run other plans)."""
+    if isinstance(b, dict):
+        return ("q", b["q"].shape, b["q"].dtype, _quant.activation_mode())
+    return (b.shape, b.dtype)
 
 
 def gemm(a: torch.Tensor, b, *, b2=None,
@@ -685,9 +813,7 @@ def gemm(a: torch.Tensor, b, *, b2=None,
     tuple key and one dict lookup and launches, building no spec.
     """
     global _plan_hits
-    if isinstance(b, dict):
-        raise _not_yet("quantized {'q', 'scale'} weights", "A8")
-    key = (a.shape, b.shape, a.dtype, b.dtype, b2 is not None,
+    key = (a.shape, _operand_key(b), a.dtype, b2 is not None,
            bias is not None, activation, residual is not None,
            out_scale is not None, out_dtype, strategy, tile, tune)
     pl = _oneshot.get(key)
@@ -703,11 +829,11 @@ def gemm(a: torch.Tensor, b, *, b2=None,
         return out
     _plan_hits += 1
     if a.dim() == 2 and (residual is None or residual.dim() == 2):
-        return _launch(pl, a, b, b2, bias, residual)
+        return _dispatch(pl, a, b, b2, bias, residual, out_scale)
     n = pl.n
     res2 = residual.reshape(-1, n) if residual is not None else None
-    return _launch(pl, a.reshape(-1, pl.k), b, b2, bias, res2) \
-        .reshape(*a.shape[:-1], n)
+    return _dispatch(pl, a.reshape(-1, pl.k), b, b2, bias, res2,
+                     out_scale).reshape(*a.shape[:-1], n)
 
 
 def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
@@ -720,22 +846,23 @@ def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
     row ``r`` under ``group_sizes``.
 
     ``a``: (..., k) tokens sorted by expert (leading dims flatten into
-    the routed row count m); ``b``: (E, k, n) expert bank; ``bias``:
-    per-expert (E, n).  Rows at and beyond ``sum(group_sizes)`` come
+    the routed row count m); ``b``: (E, k, n) expert bank, or a ``{"q",
+    "scale"}`` W8A16 struct with scale (E, 1, n); ``bias``: per-expert
+    (E, n).  Rows at and beyond ``sum(group_sizes)`` come
     back zero.  ``dense_rows`` (the E*capacity rows a padded einsum
     would multiply) feeds ``explain()``'s padding line.  As with
     :func:`gemm`, a repeat resolves its plan with one tuple key and one
     dict lookup; ``group_sizes`` stays on the device.
     """
     global _plan_hits
-    if isinstance(b, dict):
-        raise _not_yet("quantized {'q', 'scale'} expert banks", "A8")
-    key = ("grouped", a.shape, b.shape, a.dtype, b.dtype, bias is not None,
+    key = ("grouped", a.shape, _operand_key(b), a.dtype, bias is not None,
            activation, tile, out_dtype, dense_rows)
     pl = _oneshot.get(key)
     if pl is None:
+        bq = _is_quant(b)
         spec = GemmSpec(
-            a_dtype=dtype_name(a.dtype), b_dtype=dtype_name(b.dtype),
+            a_dtype=dtype_name(a.dtype),
+            b_dtype="int8" if bq else dtype_name(b.dtype), b_quant=bq,
             grouped=True, epilogue=Epilogue.from_args(bias, activation),
             out_dtype=None if out_dtype is None else dtype_name(out_dtype),
             tile=tile)
@@ -744,5 +871,5 @@ def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
         _oneshot[key] = pl
         return out
     _plan_hits += 1
-    return _launch(pl, a.reshape(-1, pl.k), b, None, bias, None,
-                   group_sizes).reshape(*a.shape[:-1], pl.n)
+    return _dispatch(pl, a.reshape(-1, pl.k), b, None, bias, None,
+                group_sizes=group_sizes).reshape(*a.shape[:-1], pl.n)

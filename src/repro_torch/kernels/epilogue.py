@@ -3,9 +3,9 @@
 :class:`Epilogue` is the declarative, hashable description of what a
 GEMM's flush applies; its ``key`` string (``"bias+silu+res"``) is what
 the cost model's ``GemmProblem`` carries.  Fixed application order, all
-in f32 on the accumulator::
+in f32 on the accumulator (after an int8 weight's dequant scale)::
 
-    x -> + bias -> activation -> + residual
+    x -> + bias -> activation -> + residual -> [/ out_scale, round, clip]
 
 ``gelu`` is the tanh approximation, like ``jax.nn.gelu``'s default —
 ``torch.nn.functional.gelu`` defaults to the exact form, so it is named
@@ -93,14 +93,20 @@ class Epilogue:
 
 def apply_epilogue(x: torch.Tensor, *, activation: Optional[str] = None,
                    bias: Optional[torch.Tensor] = None,
-                   residual: Optional[torch.Tensor] = None
+                   residual: Optional[torch.Tensor] = None,
+                   out_scale: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
-    """bias -> activation -> residual on an f32 accumulator; the caller
-    casts to the output dtype."""
+    """bias -> activation -> residual -> output quantization on an f32
+    accumulator; the caller casts to the output dtype (int8 when
+    ``out_scale`` quantizes).  The quantization divides by the scale,
+    rounds half to even (``torch.round``, as ``jnp.round``) and clips to
+    [-127, 127]."""
     if bias is not None:
         x = x + bias.float()
     if activation is not None:
         x = ACTIVATIONS[activation](x)
     if residual is not None:
         x = x + residual.float()
+    if out_scale is not None:
+        x = torch.clamp(torch.round(x / out_scale.float()), -127, 127)
     return x

@@ -10,8 +10,15 @@ bf16 operands run the m16n8k16 tensor-core chain of
 ``csrc/mma_chain.cuh`` (shared with kernel B6) at a CTA shape
 :func:`cta_tile` picks by m and n, f32 operands an fmaf chain.
 
+The int8 paths run the same CTA shapes: W8A16 (a bf16 or f32 A
+against an int8 weight, widened in registers, its per-column scale on
+the flush; bit for bit the bf16 body on the widened weights, then the
+scale), W8A8 (int8 A and B on the int8 tensor cores, int32 sums), and
+an int8 C quantized on the flush by ``out_scale``.
+
 Dispatch goes by device: a CPU tensor takes :func:`gemm_aie_plain`, a
-CUDA tensor launches the kernel or raises.
+CUDA tensor launches the kernel or raises: an int8 operand never
+falls back to a dequantized bf16 call.
 """
 
 from __future__ import annotations
@@ -23,9 +30,9 @@ import torch
 
 from repro_torch.core.hardware import HOPPER_H100
 from repro_torch.core.tiling import cdiv
-from repro_torch.kernels import _build
+from repro_torch.kernels import _build, acc_dtype
 from repro_torch.kernels.epilogue import ACT_CODES
-from repro_torch.kernels.ref import gemm_epilogue_ref
+from repro_torch.kernels.ref import gemm_epilogue_ref, gemm_ref
 
 #: the (bm, bk, bn) CTA tile of the f32 body (csrc/gemm_aie.cu kBM, kBK,
 #: kBN)
@@ -36,16 +43,17 @@ F32_TILE = (16, 128, 32)
 BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 32), 3: (16, 128, 64),
               4: (64, 64, 64)}
 
-_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
 def _config(m: int, n: int, dtype) -> int:
-    """The bf16 body's CTA shape for an (m, n) C (0: the f32 body).  With
-    m <= 16 rows the widest n split that still gives 7 of every 8 SMs a
-    CTA (one SM streams only a share of the card's memory rate, so the
-    decode GEMMs spread their weights over as many SMs as n / 8 allows);
-    with more rows 64 x 64."""
-    if dtype != torch.bfloat16:
+    """The tensor-core body's CTA shape for an (m, n) C with A of
+    ``dtype`` (0: the f32 body).  bf16 and int8 A (every int8 variant)
+    run the same shapes.  With m <= 16 rows the widest n split that
+    still gives 7 of every 8 SMs a CTA (one SM streams only a share of
+    the card's memory rate, so the decode GEMMs spread their weights
+    over as many SMs as n / 8 allows); with more rows 64 x 64."""
+    if dtype not in (torch.bfloat16, torch.int8):
         return 0
     if m > 16:
         return 4
@@ -56,21 +64,80 @@ def _config(m: int, n: int, dtype) -> int:
 
 
 def cta_tile(m: int, n: int, dtype=torch.bfloat16):
-    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C."""
+    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C
+    with A of ``dtype``."""
     config = _config(m, n, dtype)
     return BF16_TILES[config] if config else F32_TILE
+
+
+def default_out_dtype(a_dtype, *, fused: bool, out_scale=None):
+    """The Pallas kernel's output dtype when the caller names none
+    (gemm_aie.py:114): int8 under output quantization, else f32 when
+    anything is fused (a dequant scale included) or A is a float, else
+    the int32 sums of an int8 A."""
+    if out_scale is not None:
+        return torch.int8
+    return torch.float32 if fused or a_dtype != torch.int8 \
+        else acc_dtype(a_dtype)
+
+
+def check_int8(name: str, a: torch.Tensor, b: torch.Tensor, b_scale,
+               n: int) -> None:
+    """The int8 operand pairs: a float A against an int8 B (W8A16: B
+    widened), or int8 against int8 (W8A8); a ``b_scale`` ((n,) or (1,
+    n)) only with an int8 B.  An int8 A against a float B would narrow
+    silently and raises.  (On a card the float pairs must also be of one
+    dtype: :func:`check_cuda_pair`.)"""
+    if a.dtype == torch.int8 and b.dtype != torch.int8:
+        raise TypeError(f"{name}: an int8 A needs an int8 B, got {b.dtype}")
+    if b_scale is not None:
+        if b.dtype != torch.int8:
+            raise TypeError(f"{name}: b_scale dequantizes an int8 B, got "
+                            f"{b.dtype}")
+        if b_scale.numel() != n:
+            raise ValueError(f"{name}: b_scale must hold {n} values, got "
+                             f"{tuple(b_scale.shape)}")
+
+
+def check_cuda_pair(name: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    """The kernels take float A and B of one dtype, or an int8 B."""
+    if b.dtype != torch.int8 and a.dtype != b.dtype:
+        raise TypeError(f"{name}: A {a.dtype} and B {b.dtype} differ")
+
+
+def scale_vector(scale: Optional[torch.Tensor], n: int):
+    """A (1, n) / (n,) scale as the contiguous (n,) f32 the kernels read."""
+    if scale is None:
+        return None
+    return scale.reshape(n).float().contiguous()
+
+
+def out_scale_scalar(out_scale, device):
+    """The output scale as a one-element f32 tensor on ``device`` (from a
+    Python number, made there: no host copy, so a CUDA graph can capture
+    the call; or from a one-element tensor), or None."""
+    if out_scale is None:
+        return None
+    if isinstance(out_scale, torch.Tensor):
+        return out_scale.reshape(1).to(device=device, dtype=torch.float32)
+    return torch.full((1,), float(out_scale), dtype=torch.float32,
+                      device=device)
 
 
 def gemm_aie_plain(a: torch.Tensor, b: torch.Tensor, *,
                    bias: Optional[torch.Tensor] = None,
                    activation: Optional[str] = None,
                    residual: Optional[torch.Tensor] = None,
-                   out_dtype=None) -> torch.Tensor:
+                   out_dtype=None, b_scale: Optional[torch.Tensor] = None,
+                   out_scale=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device."""
     gemm_aie_plain.launches += 1
-    return gemm_epilogue_ref(a, b, bias=bias, activation=activation,
-                             residual=residual,
-                             out_dtype=out_dtype or torch.float32)
+    if out_dtype == torch.int32:  # the bare int32 sums, exactly
+        return gemm_ref(a, b, out_dtype=torch.int32)
+    return gemm_epilogue_ref(
+        a, b, b_scale=b_scale, bias=bias, activation=activation,
+        residual=residual, out_scale=out_scale_scalar(out_scale, a.device),
+        out_dtype=out_dtype or torch.float32)
 
 
 gemm_aie_plain.launches = 0
@@ -81,17 +148,20 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
              activation: Optional[str] = None,
              residual: Optional[torch.Tensor] = None,
              out_dtype=None,
-             b_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """C[m,n] = epilogue(sum_k A[m,k] B[k,n]) with bias (n,) ->
-    activation -> residual (m,n) in f32.
+             b_scale: Optional[torch.Tensor] = None,
+             out_scale=None) -> torch.Tensor:
+    """C[m,n] = epilogue(sum_k A[m,k] B[k,n]) with b_scale (n,) ->
+    bias (n,) -> activation -> residual (m,n) -> out-quant in f32.
 
-    ``out_dtype`` defaults to f32, as the Pallas kernel's does
-    (gemm_aie.py:114); ``ops.gemm`` passes A's dtype instead.
+    Operands: bf16 or f32 A and B; a bf16 or f32 A against an int8 B
+    (W8A16: B widened in registers, its per-column ``b_scale`` on the
+    flush); int8 A and B (W8A8: int32 sums, ``b_scale`` on the flush).
+    ``out_scale`` (a scalar) quantizes C to int8 after the epilogue:
+    divide, round half to even, clip to +-127.  ``out_dtype`` defaults
+    as the Pallas kernel's does (:func:`default_out_dtype`); ``ops.gemm``
+    passes its own.  An int32 ``out_dtype`` (W8A8, nothing fused) gives
+    the bare sums.
     """
-    if b_scale is not None or a.dtype == torch.int8 \
-            or b.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 operands / b_scale dequant arrive with ROADMAP queue A8")
     if activation not in ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -99,19 +169,32 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
+    check_int8("gemm_aie", a, b, b_scale, n)
     if bias is not None and bias.numel() != n:
         raise ValueError(f"bias must hold {n} values, got {bias.shape}")
     if residual is not None and tuple(residual.shape) != (m, n):
         raise ValueError(f"residual {tuple(residual.shape)} != ({m}, {n})")
-    out_dtype = out_dtype or torch.float32
+    fused = any(x is not None for x in (b_scale, bias, activation,
+                                        residual, out_scale))
+    out_dtype = out_dtype or default_out_dtype(a.dtype, fused=fused,
+                                               out_scale=out_scale)
+    if out_dtype == torch.int32 and (fused or a.dtype != torch.int8):
+        raise TypeError("gemm_aie: an int32 C holds the bare sums of an "
+                        "int8 A, with nothing fused")
+    if (out_dtype == torch.int8) != (out_scale is not None):
+        raise TypeError("gemm_aie: an int8 C needs out_scale, and "
+                        "out_scale an int8 C")
     if a.device.type == "cpu":
         return gemm_aie_plain(a, b, bias=bias, activation=activation,
-                              residual=residual, out_dtype=out_dtype)
-    ops = [t for t in (a, b, bias, residual) if t is not None]
+                              residual=residual, out_dtype=out_dtype,
+                              b_scale=b_scale, out_scale=out_scale)
+    osc = out_scale_scalar(out_scale, a.device)
+    scale = scale_vector(b_scale, n)
+    ops = [t for t in (a, b, bias, residual, scale, osc) if t is not None]
     _build.require_cuda("gemm_aie", *ops)
-    if a.dtype != b.dtype:
-        raise TypeError(f"gemm_aie: A {a.dtype} and B {b.dtype} differ")
-    in_code = _build.dtype_code(a.dtype, "gemm_aie A")
+    check_cuda_pair("gemm_aie", a, b)
+    a_code = _build.dtype_code(a.dtype, "gemm_aie A")
+    b_code = _build.dtype_code(b.dtype, "gemm_aie B")
     out_code = _build.dtype_code(out_dtype, "gemm_aie out")
     res_code = 0
     if residual is not None:
@@ -122,15 +205,14 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
         else None
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     config, modes = _config(m, n, a.dtype), 0
-    if config:  # the bf16 body's staging copy modes of A and B
+    if config:  # the tensor-core body's staging copy modes of A and B
         _, bk, bn = BF16_TILES[config]
         modes = _build.copy_mode(a, k, bk) | _build.copy_mode(b, n, bn) << 2
+    ptr = _build.ptr
     rc = _build.entry("gemm_aie_launch", _ARGTYPES)(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        bias32.data_ptr() if bias32 is not None else None,
-        residual.data_ptr() if residual is not None else None,
-        m, n, k, in_code, out_code, res_code, ACT_CODES[activation],
-        config, modes, _build.stream_of(a))
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), ptr(bias32), ptr(scale),
+        ptr(residual), ptr(osc), m, n, k, a_code, b_code, out_code, res_code,
+        ACT_CODES[activation], config, modes, _build.stream_of(a))
     _build.check(rc, "gemm_aie")
     gemm_aie.launches += 1
     return c

@@ -10,6 +10,9 @@ on both accumulators, at a CTA shape :func:`cta_tile` picks by m, so
 each accumulator is bit for bit ``gemm_aie(a, b, out_dtype=float32)``
 and a row's bits do not depend on m; f32 operands run an fmaf chain.
 
+int8 gate/up weights (W8A16) are widened in registers into the same
+chain and each accumulator scaled before the gate.
+
 Dispatch goes by device: a CPU tensor takes :func:`gemm_gated_plain`, a
 CUDA tensor launches the kernel or raises.
 """
@@ -23,6 +26,8 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
+from repro_torch.kernels.gemm_aie import check_cuda_pair, check_int8, \
+    scale_vector
 from repro_torch.kernels.ref import gemm_gated_ref
 
 #: the (bm, bk, bn) CTA tile of the f32 body (csrc/gemm_gated.cu kBM, kBK,
@@ -35,7 +40,7 @@ F32_TILE = (16, 64, 32)
 #: of the card's memory rate), 64 x 64 for more rows
 BF16_TILES = {1: (16, 128, 16), 2: (64, 64, 64)}
 
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
 
 def _config(m: int, dtype) -> int:
@@ -54,11 +59,16 @@ def cta_tile(m: int, n: int, dtype=torch.bfloat16):
 
 def gemm_gated_plain(a: torch.Tensor, b_gate: torch.Tensor,
                      b_up: torch.Tensor, *, activation: str = "silu",
-                     out_dtype=None) -> torch.Tensor:
+                     out_dtype=None, bg_scale: Optional[torch.Tensor] = None,
+                     bu_scale: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device."""
     gemm_gated_plain.launches += 1
-    return gemm_gated_ref(a, b_gate, b_up, activation=activation,
-                          out_dtype=out_dtype)
+    n = b_gate.shape[1]
+    return gemm_gated_ref(
+        a, b_gate, b_up, activation=activation, out_dtype=out_dtype,
+        bg_scale=bg_scale.reshape(1, n) if bg_scale is not None else None,
+        bu_scale=bu_scale.reshape(1, n) if bu_scale is not None else None)
 
 
 gemm_gated_plain.launches = 0
@@ -68,12 +78,12 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
                *, activation: str = "silu", out_dtype=None,
                bg_scale: Optional[torch.Tensor] = None,
                bu_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """C[m,n] = act(A @ B_gate) * (A @ B_up); output A's dtype by
-    default (gemm_gated.py:94)."""
-    if bg_scale is not None or bu_scale is not None \
-            or a.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 operands / dequant scales arrive with ROADMAP queue A8")
+    """C[m,n] = act((A @ B_gate) * bg_scale) * ((A @ B_up) * bu_scale);
+    output A's dtype by default (gemm_gated.py:94).  The weights are of
+    A's float dtype or both int8 (W8A16: widened in registers, each
+    accumulator scaled by its (n,) / (1, n) scale before the gate).  An
+    int8 A raises: the planner never sends W8A8 to the gated kernel
+    (repro/kernels/api.py:1106-1109)."""
     if activation is None or activation not in ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if a.dim() != 2 or b_gate.dim() != 2 or a.shape[1] != b_gate.shape[0] \
@@ -82,14 +92,26 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
                          f"{tuple(b_gate.shape)}, {tuple(b_up.shape)}")
     m, k = a.shape
     n = b_gate.shape[1]
+    if a.dtype == torch.int8:
+        raise TypeError("gemm_gated: the gated kernel takes float "
+                        "activations (W8A8 never routes a gated plan)")
+    if (bg_scale is None) != (bu_scale is None):
+        raise ValueError("gemm_gated: give both dequant scales or neither")
+    check_int8("gemm_gated", a, b_gate, bg_scale, n)
+    check_int8("gemm_gated", a, b_up, bu_scale, n)
     out_dtype = out_dtype or a.dtype
     if a.device.type == "cpu":
         return gemm_gated_plain(a, b_gate, b_up, activation=activation,
-                                out_dtype=out_dtype)
-    _build.require_cuda("gemm_gated", a, b_gate, b_up)
-    if not a.dtype == b_gate.dtype == b_up.dtype:
+                                out_dtype=out_dtype, bg_scale=bg_scale,
+                                bu_scale=bu_scale)
+    sg, su = scale_vector(bg_scale, n), scale_vector(bu_scale, n)
+    _build.require_cuda("gemm_gated", a, b_gate, b_up,
+                        *(t for t in (sg, su) if t is not None))
+    if b_gate.dtype != b_up.dtype:
         raise TypeError("gemm_gated: operand dtypes differ")
-    in_code = _build.dtype_code(a.dtype, "gemm_gated A")
+    check_cuda_pair("gemm_gated", a, b_gate)
+    a_code = _build.dtype_code(a.dtype, "gemm_gated A")
+    b_code = _build.dtype_code(b_gate.dtype, "gemm_gated B")
     out_code = _build.dtype_code(out_dtype, "gemm_gated out")
     a, b_gate, b_up = a.contiguous(), b_gate.contiguous(), \
         b_up.contiguous()
@@ -100,10 +122,11 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
         modes = _build.copy_mode(a, k, bk) | min(
             _build.copy_mode(b_gate, n, bn),
             _build.copy_mode(b_up, n, bn)) << 2
+    ptr = _build.ptr
     rc = _build.entry("gemm_gated_launch", _ARGTYPES)(
-        a.data_ptr(), b_gate.data_ptr(), b_up.data_ptr(), c.data_ptr(),
-        m, n, k, in_code, out_code, ACT_CODES[activation], config, modes,
-        _build.stream_of(a))
+        a.data_ptr(), b_gate.data_ptr(), b_up.data_ptr(), ptr(sg), ptr(su),
+        c.data_ptr(), m, n, k, a_code, b_code, out_code,
+        ACT_CODES[activation], config, modes, _build.stream_of(a))
     _build.check(rc, "gemm_gated")
     gemm_gated.launches += 1
     return c

@@ -9,9 +9,11 @@ and an (E, k, n) expert bank, ``g(r)`` the group owning row ``r`` under
 bf16 operands run B1's m16n8k16 tensor-core chain
 (``csrc/mma_chain.cuh``) on each group's rows, so a row is bit for bit
 ``gemm_aie`` of that row against its expert's weights; f32 operands run
-an fmaf chain, bit for bit B1's f32 body.  :func:`cta_tile` picks the
-CTA shape by rows per expert (decode or prefill), whatever the plan's
-tile says.
+an fmaf chain, bit for bit B1's f32 body.  An int8 bank (W8A16) is
+widened in registers and scaled by its expert's (1, n) scale row, so an
+int8 row is bit for bit B1's W8A16 row.  :func:`cta_tile` picks the CTA
+shape by rows per expert (decode or prefill), whatever the plan's tile
+says.
 
 The steering tables (:func:`group_metadata`, JAX :54, with torch ops;
 on a card one launch of a table kernel, :func:`steering_tables`) are
@@ -46,7 +48,7 @@ BF16_TILES = {1: (16, 128, 128), 2: (64, 64, 128)}
 #: (csrc/gemm_grouped.cu launch_f32)
 F32_TILES = {1: (8, 64, 128), 2: (16, 64, 64)}
 
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 11 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _TABLE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p] * 5
 
@@ -173,11 +175,10 @@ def _tables(group_sizes: torch.Tensor, m: int, bm: int):
 
 
 def _check(a, b, group_sizes, b_scale, bias, activation, cta=None):
-    if b_scale is not None or a.dtype == torch.int8 \
-            or b.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 expert banks / b_scale dequant arrive with ROADMAP "
-            "queue A8")
+    if a.dtype == torch.int8:
+        raise TypeError("gemm_grouped: the grouped kernel takes float "
+                        "activations (a quantized bank always runs W8A16, "
+                        "repro/kernels/api.py:1008-1010)")
     if activation not in ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if a.dim() != 2 or b.dim() != 3 or a.shape[1] != b.shape[1]:
@@ -190,6 +191,11 @@ def _check(a, b, group_sizes, b_scale, bias, activation, cta=None):
     if bias is not None and bias.numel() != e * n:
         raise ValueError(f"bias must be per-expert ({e}, {n}), got "
                          f"{tuple(bias.shape)}")
+    if b_scale is not None and (b.dtype != torch.int8
+                                or b_scale.numel() != e * n):
+        raise ValueError(f"b_scale dequantizes an int8 bank, per expert "
+                         f"({e}, 1, {n}); got {tuple(b_scale.shape)} over "
+                         f"{b.dtype}")
     if cta is not None and cta not in _tiles(a.dtype):
         raise ValueError(f"gemm_grouped: no CTA shape {cta} for {a.dtype} "
                          f"(one of {sorted(_tiles(a.dtype))})")
@@ -197,15 +203,18 @@ def _check(a, b, group_sizes, b_scale, bias, activation, cta=None):
 
 def gemm_grouped_plain(a: torch.Tensor, b: torch.Tensor,
                        group_sizes: torch.Tensor, *, out_dtype=None,
+                       b_scale: Optional[torch.Tensor] = None,
                        bias: Optional[torch.Tensor] = None,
                        activation: Optional[str] = None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device
     (:func:`repro_torch.kernels.ref.gemm_grouped_ref`: one full-k matmul
-    per group in f32, then the epilogue)."""
+    per group in f32, an int8 bank widened to A's dtype first, times the
+    group's scale row, then the epilogue)."""
     gemm_grouped_plain.launches += 1
     e, _, n = b.shape
     return gemm_grouped_ref(
         a, b, group_sizes, activation=activation,
+        b_scale=b_scale.reshape(e, n) if b_scale is not None else None,
         bias=bias.reshape(e, n) if bias is not None else None,
         out_dtype=out_dtype or torch.float32)
 
@@ -224,23 +233,26 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
 
     ``a``: (m, k) group-sorted rows; ``b``: (E, k, n) bank;
     ``group_sizes``: (E,) integers; ``bias``: per-expert (E, n) (or
-    (E, 1, n)), applied with ``activation`` on the flush in f32.  Rows
-    at and beyond ``sum(group_sizes)`` come back zero.  The kernel
+    (E, 1, n)), applied with ``activation`` on the flush in f32.  An
+    int8 bank (W8A16) is widened to A's dtype in registers and scaled by
+    its expert's row of ``b_scale`` ((E, 1, n)) before the epilogue.
+    Rows at and beyond ``sum(group_sizes)`` come back zero.  The kernel
     launches the CTA shape :func:`cta_tile` picks, or the one of index
     ``cta`` in :data:`BF16_TILES` / :data:`F32_TILES`.  ``out_dtype``
-    defaults to f32, as the Pallas kernel's does.  Quantized banks
-    (``b_scale``, int8) raise.
+    defaults to f32, as the Pallas kernel's does.
     """
     _check(a, b, group_sizes, b_scale, bias, activation, cta)
     out_dtype = out_dtype or torch.float32
     if a.device.type == "cpu":
         return gemm_grouped_plain(a, b, group_sizes, out_dtype=out_dtype,
-                                  bias=bias, activation=activation)
-    ops = [t for t in (a, b, group_sizes, bias) if t is not None]
+                                  b_scale=b_scale, bias=bias,
+                                  activation=activation)
+    ops = [t for t in (a, b, group_sizes, bias, b_scale) if t is not None]
     _build.require_cuda("gemm_grouped", *ops)
-    if a.dtype != b.dtype:
+    if b.dtype != torch.int8 and a.dtype != b.dtype:
         raise TypeError(f"gemm_grouped: A {a.dtype} and B {b.dtype} differ")
-    in_code = _build.dtype_code(a.dtype, "gemm_grouped A")
+    a_code = _build.dtype_code(a.dtype, "gemm_grouped A")
+    b_code = _build.dtype_code(b.dtype, "gemm_grouped B")
     out_code = _build.dtype_code(out_dtype, "gemm_grouped out")
     m, k = a.shape
     e, _, n = b.shape
@@ -256,17 +268,19 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
     a, b = a.contiguous(), b.contiguous()
     bias32 = bias.reshape(e, n).float().contiguous() if bias is not None \
         else None
+    scale32 = b_scale.reshape(e, n).float().contiguous() \
+        if b_scale is not None else None
     (offsets, group_ids, m_tile_ids), live = _tables(group_sizes, m, bm)
     # the grid: every instance that can be live (at most min(E, m) groups
     # hold rows, each one more instance a tile boundary it straddles)
     grid_instances = min(group_ids.shape[0], min(e, m) + cdiv(m, bm) - 1)
     rc = _build.entry("gemm_grouped_launch", _ARGTYPES)(
-        a.data_ptr(), b.data_ptr(), c.data_ptr(),
-        bias32.data_ptr() if bias32 is not None else None,
-        offsets.data_ptr(), group_ids.data_ptr(), m_tile_ids.data_ptr(),
-        live.data_ptr(), grid_instances, m, n, k, e, config, in_code,
-        out_code, ACT_CODES[activation], _build.copy_mode(a, k, bk),
-        _build.copy_mode(b, n, bn), _build.stream_of(a))
+        a.data_ptr(), b.data_ptr(), c.data_ptr(), _build.ptr(bias32),
+        _build.ptr(scale32), offsets.data_ptr(), group_ids.data_ptr(),
+        m_tile_ids.data_ptr(), live.data_ptr(), grid_instances, m, n, k, e,
+        config, a_code, b_code, out_code, ACT_CODES[activation],
+        _build.copy_mode(a, k, bk), _build.copy_mode(b, n, bn),
+        _build.stream_of(a))
     _build.check(rc, "gemm_grouped")
     gemm_grouped.launches += 1
     return c

@@ -22,6 +22,10 @@ The bf16 chunks launch as programmatic dependents: a chunk's CTAs stage
 the A panel and their first B tile while the chunk before it finishes,
 and wait for it only before reading its partial.
 
+The int8 paths are B1's (W8A16, W8A8, out-quant on the last chunk);
+under an int8 A the partial between chunks is int32, as in the JAX
+package, and exact, so B6 == B1 holds on every int8 path too.
+
 Dispatch goes by device: a CPU tensor takes :func:`gemm_tb_plain`, a
 CUDA tensor launches the kernel or raises.
 """
@@ -40,12 +44,15 @@ from repro_torch.core.tiling import GemmProblem, TileConfig, cdiv, \
 from repro_torch.kernels import _build, acc_dtype
 from repro_torch.kernels.epilogue import ACT_CODES, Epilogue, \
     apply_epilogue
+from repro_torch.kernels.gemm_aie import check_cuda_pair, check_int8, \
+    out_scale_scalar, scale_vector
+from repro_torch.kernels.ref import int_dot
 
-_ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 14 \
+_ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 \
     + [ctypes.c_void_p]
-_FINAL_ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 14 \
+_FINAL_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 \
     + [ctypes.c_void_p]
-_SMEM_ARGTYPES = [ctypes.c_int] * 7
+_SMEM_ARGTYPES = [ctypes.c_int] * 9
 #: the k-depth of one tensor-core step of the bf16 body (m16n8k16)
 MMA_K = 16
 
@@ -68,11 +75,12 @@ def feasible_bk(m: int, k: int, n: int, tile: TileConfig, a_dtype,
     return 0
 
 
-def _chunk(a, b, tile, out_dtype, bias, activation, residual) -> int:
+def _chunk(a, b, tile, out_dtype, bias, activation, residual,
+           out_scale=None) -> int:
     """The k-chunk a call runs at, or ValueError when none fits."""
     m, k = a.shape
     n = b.shape[1]
-    ep = Epilogue.from_args(bias, activation, residual).key
+    ep = Epilogue.from_args(bias, activation, residual, out_scale).key
     bk = feasible_bk(m, k, n, tile, a.dtype, b.dtype, out_dtype,
                      acc_dtype(a.dtype), ep)
     if bk == 0:
@@ -83,32 +91,51 @@ def _chunk(a, b, tile, out_dtype, bias, activation, residual) -> int:
     return min(tile.bk, bk)
 
 
-def _out_dtype(a, out_dtype, bias, activation, residual):
-    """f32 when anything is fused, else the accumulator's dtype
-    (gemm_tb.py:214)."""
+def _out_dtype(a, out_dtype, fused, out_scale):
+    """int8 under output quantization, f32 when anything is fused, else
+    the accumulator's dtype (gemm_tb.py:214)."""
     if out_dtype is not None:
         return out_dtype
-    fused = bias is not None or activation is not None \
-        or residual is not None
+    if out_scale is not None:
+        return torch.int8
     return torch.float32 if fused else acc_dtype(a.dtype)
 
 
 def gemm_tb_plain(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
                   out_dtype=None, bias: Optional[torch.Tensor] = None,
                   activation: Optional[str] = None,
-                  residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  residual: Optional[torch.Tensor] = None,
+                  b_scale: Optional[torch.Tensor] = None,
+                  out_scale=None) -> torch.Tensor:
     """The kernel's function in plain PyTorch, on any device: the same
-    k-chunks accumulated in f32, the epilogue after the last one."""
+    k-chunks accumulated in f32 (int32 for an int8 A, exactly; an int8 B
+    under a float A widened first), then the dequant scale and the
+    epilogue after the last one."""
     gemm_tb_plain.launches += 1
-    out_dtype = _out_dtype(a, out_dtype, bias, activation, residual)
-    bk = _chunk(a, b, tile, out_dtype, bias, activation, residual)
+    fused = any(x is not None for x in (b_scale, bias, activation,
+                                        residual, out_scale))
+    out_dtype = _out_dtype(a, out_dtype, fused, out_scale)
+    bk = _chunk(a, b, tile, out_dtype, bias, activation, residual,
+                out_scale)
     k = a.shape[1]
-    c = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+    int8 = a.dtype == torch.int8
+    c = torch.zeros((a.shape[0], b.shape[1]),
+                    dtype=torch.int32 if int8 else torch.float32,
                     device=a.device)
     for k0 in range(0, k, bk):
-        c = c + a[:, k0:k0 + bk].float() @ b[k0:k0 + bk].float()
-    x = apply_epilogue(c, activation=activation, bias=bias,
-                       residual=residual)
+        ac, bc = a[:, k0:k0 + bk], b[k0:k0 + bk]
+        if int8:
+            c = c + int_dot(ac, bc)
+        else:
+            c = c + ac.float() @ bc.to(a.dtype).float()
+    if out_dtype == torch.int32:
+        return c
+    x = c.float()
+    if b_scale is not None:
+        x = x * b_scale.reshape(1, -1).float()
+    x = apply_epilogue(x, activation=activation, bias=bias,
+                       residual=residual,
+                       out_scale=out_scale_scalar(out_scale, a.device))
     return x.to(out_dtype)
 
 
@@ -127,34 +154,39 @@ def n_split(gm: int, n_tiles: int, smem: int) -> int:
     return cdiv(n_tiles, ctas)
 
 
-def smem_bytes(bm: int, bk: int, bn: int, in_dtype, res_dtype=None, *,
-               bias: bool = False, residual: bool = False) -> int:
+def smem_bytes(bm: int, bk: int, bn: int, a_dtype, res_dtype=None, *,
+               b_dtype=None, scale: bool = False, bias: bool = False,
+               residual: bool = False) -> int:
     """Dynamic shared memory B6 allocates for a tile (``tb_layout`` in
     ``csrc/gemm_tb.cu``); equal to ``vmem_footprint`` on
     ``HOPPER_H100`` whenever the residual's dtype is the out dtype."""
     fn = _build.entry("gemm_tb_smem_bytes", _SMEM_ARGTYPES)
-    return fn(bm, bk, bn, _build.dtype_code(in_dtype, "gemm_tb A"),
+    return fn(bm, bk, bn, _build.dtype_code(a_dtype, "gemm_tb A"),
+              _build.dtype_code(b_dtype or a_dtype, "gemm_tb B"),
               _build.dtype_code(res_dtype or torch.float32,
                                 "gemm_tb residual"),
-              int(bias), int(residual))
+              int(scale), int(bias), int(residual))
 
 
 def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
             out_dtype=None, bias: Optional[torch.Tensor] = None,
             activation: Optional[str] = None,
             residual: Optional[torch.Tensor] = None,
+            b_scale: Optional[torch.Tensor] = None,
+            out_scale=None,
             n_split_tiles: Optional[int] = None) -> torch.Tensor:
-    """C[m,n] = epilogue(sum_k A[m,k] B[k,n]), A-stationary, with bias
-    (n,) -> activation -> residual (m,n) in f32 on the last k-chunk.
+    """C[m,n] = epilogue(sum_k A[m,k] B[k,n]), A-stationary, with
+    b_scale (n,) -> bias (n,) -> activation -> residual (m,n) ->
+    out-quant in f32 on the last k-chunk.
 
-    ``tile`` is the plan's (bm, bk, bn); ``bk`` is refined by
-    :func:`feasible_bk`.  ``out_dtype`` defaults to f32 when anything is
-    fused (gemm_tb.py:214).  ``n_split_tiles`` sets how many n tiles one
+    Operands as :func:`repro_torch.kernels.gemm_aie.gemm_aie`'s (float
+    A and B, W8A16, W8A8); under an int8 A the partial between chunks is
+    int32.  ``tile`` is the plan's (bm, bk, bn); ``bk`` is refined by
+    :func:`feasible_bk`.  ``out_dtype`` defaults to int8 under
+    ``out_scale``, f32 when anything is fused (gemm_tb.py:214), else the
+    accumulator's dtype.  ``n_split_tiles`` sets how many n tiles one
     CTA sweeps (default :func:`n_split`); it changes no bit of C.
     """
-    if a.dtype == torch.int8 or b.dtype == torch.int8:
-        raise NotImplementedError(
-            "int8 operands / b_scale dequant arrive with ROADMAP queue A8")
     if activation not in ACT_CODES:
         raise ValueError(f"unknown activation {activation!r}")
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
@@ -162,20 +194,32 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
                          f"{tuple(b.shape)}")
     m, k = a.shape
     n = b.shape[1]
+    check_int8("gemm_tb", a, b, b_scale, n)
     if bias is not None and bias.numel() != n:
         raise ValueError(f"bias must hold {n} values, got {bias.shape}")
     if residual is not None and tuple(residual.shape) != (m, n):
         raise ValueError(f"residual {tuple(residual.shape)} != ({m}, {n})")
-    out_dtype = _out_dtype(a, out_dtype, bias, activation, residual)
+    fused = any(x is not None for x in (b_scale, bias, activation,
+                                        residual, out_scale))
+    out_dtype = _out_dtype(a, out_dtype, fused, out_scale)
+    if out_dtype == torch.int32 and (fused or a.dtype != torch.int8):
+        raise TypeError("gemm_tb: an int32 C holds the bare sums of an "
+                        "int8 A, with nothing fused")
+    if (out_dtype == torch.int8) != (out_scale is not None):
+        raise TypeError("gemm_tb: an int8 C needs out_scale, and "
+                        "out_scale an int8 C")
     if a.device.type == "cpu":
         return gemm_tb_plain(a, b, tile=tile, out_dtype=out_dtype,
                              bias=bias, activation=activation,
-                             residual=residual)
-    ops = [t for t in (a, b, bias, residual) if t is not None]
+                             residual=residual, b_scale=b_scale,
+                             out_scale=out_scale)
+    osc = out_scale_scalar(out_scale, a.device)
+    scale = scale_vector(b_scale, n)
+    ops = [t for t in (a, b, bias, residual, scale, osc) if t is not None]
     _build.require_cuda("gemm_tb", *ops)
-    if a.dtype != b.dtype:
-        raise TypeError(f"gemm_tb: A {a.dtype} and B {b.dtype} differ")
-    bk = _chunk(a, b, tile, out_dtype, bias, activation, residual)
+    check_cuda_pair("gemm_tb", a, b)
+    bk = _chunk(a, b, tile, out_dtype, bias, activation, residual,
+                out_scale)
     bm, bn = tile.bm, tile.bn
     if not HOPPER_H100.launchable(bm, bn):
         raise ValueError(f"gemm_tb: a ({bm}, {bn}) C tile does not map "
@@ -185,7 +229,8 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     if a.dtype == torch.bfloat16 and bk < k:
         # the chunks continue one tensor-core chain: boundaries on its k-grid
         bk = max(MMA_K, bk - bk % MMA_K)
-    in_code = _build.dtype_code(a.dtype, "gemm_tb A")
+    a_code = _build.dtype_code(a.dtype, "gemm_tb A")
+    b_code = _build.dtype_code(b.dtype, "gemm_tb B")
     out_code = _build.dtype_code(out_dtype, "gemm_tb out")
     res_code = 0
     if residual is not None:
@@ -193,6 +238,7 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
         residual = residual.contiguous()
     smem = smem_bytes(bm, bk, bn, a.dtype,
                       residual.dtype if residual is not None else None,
+                      b_dtype=b.dtype, scale=scale is not None,
                       bias=bias is not None, residual=residual is not None)
     if smem > HOPPER_H100.vmem_bytes:
         raise ValueError(f"gemm_tb: tile ({bm}, {bk}, {bn}) needs {smem} "
@@ -205,30 +251,29 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     per_cta = n_split_tiles or n_split(cdiv(m, bm), n_tiles, smem)
     stream = _build.stream_of(a)
     gk = cdiv(k, bk)
-    part = torch.empty((m, n), dtype=torch.float32, device=a.device) \
+    part = torch.empty((m, n), dtype=acc_dtype(a.dtype), device=a.device) \
         if gk > 1 else None
-    # 2 bits an operand: A, B, the f32 partial C, bias, residual
+    # 2 bits an operand: A, B, the partial C, bias, residual, b_scale
     mode = _build.copy_mode
     modes = (mode(a, k, bk) | mode(b, n, bn) << 2 | mode(part, n, bn) << 4
-             | mode(bias32, 0, bn) << 6 | mode(residual, n, bn) << 8)
+             | mode(bias32, 0, bn) << 6 | mode(residual, n, bn) << 8
+             | mode(scale, 0, bn) << 10)
+    ptr = _build.ptr
     for i in range(gk - 1):
         rc = _build.entry("gemm_tb_accumulate_launch", _ACC_ARGTYPES)(
-            a.data_ptr(), b.data_ptr(),
-            part.data_ptr() if i else None, part.data_ptr(),
-            m, n, k, i * bk, bk, bm, bk, bn, per_cta, in_code, res_code,
-            int(bias is not None), int(residual is not None), modes,
-            stream)
+            a.data_ptr(), b.data_ptr(), ptr(part) if i else None,
+            part.data_ptr(), m, n, k, i * bk, bk, bm, bk, bn, per_cta,
+            a_code, b_code, res_code, int(scale is not None),
+            int(bias is not None), int(residual is not None), modes, stream)
         _build.check(rc, "gemm_tb")
         gemm_tb.launches += 1
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     k0 = (gk - 1) * bk
     rc = _build.entry("gemm_tb_final_launch", _FINAL_ARGTYPES)(
-        a.data_ptr(), b.data_ptr(),
-        part.data_ptr() if part is not None else None, c.data_ptr(),
-        bias32.data_ptr() if bias32 is not None else None,
-        residual.data_ptr() if residual is not None else None,
-        m, n, k, k0, k - k0, bm, bk, bn, per_cta, in_code, out_code,
-        res_code, ACT_CODES[activation], modes, stream)
+        a.data_ptr(), b.data_ptr(), ptr(part), c.data_ptr(), ptr(bias32),
+        ptr(scale), ptr(residual), ptr(osc), m, n, k, k0, k - k0, bm, bk,
+        bn, per_cta, a_code, b_code, out_code, res_code,
+        ACT_CODES[activation], modes, stream)
     _build.check(rc, "gemm_tb final chunk")
     gemm_tb.final_launches += 1
     return c

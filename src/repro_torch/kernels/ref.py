@@ -18,22 +18,63 @@ from repro_torch.kernels.epilogue import ACTIVATIONS, apply_epilogue
 NEG_INF = -1e30          # large-negative for masking (bf16-safe)
 
 
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The int32 sums of an int8 x int8 product, exactly: f64 holds every
+    partial sum of int8 products exactly (|sum| < 2^31 < 2^53), so any
+    summation order gives the same integers, on any device (CUDA has no
+    int32 matmul)."""
+    return (a.double() @ b.double()).to(torch.int32)
+
+
 def gemm_ref(a: torch.Tensor, b: torch.Tensor, *,
              acc_dtype=torch.float32, out_dtype=None) -> torch.Tensor:
     """C = A @ B with explicit accumulation dtype: int8 x int8
     accumulates in int32, floats in f32."""
     if a.dtype == torch.int8 and b.dtype == torch.int8:
-        out = a.to(torch.int32) @ b.to(torch.int32)
-        return out.to(out_dtype or torch.int32)
+        return int_dot(a, b).to(out_dtype or torch.int32)
     out = (a.to(acc_dtype) @ b.to(acc_dtype)).to(acc_dtype)
     return out.to(out_dtype or acc_dtype)
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1):
+    """Symmetric per-channel int8 quantization -> (q, scale): the scale
+    is amax / 127 over ``axis`` (1 where the amax is 0), q the values
+    divided by it, rounded half to even and clipped to +-127."""
+    xf = x.float()
+    amax = torch.amax(torch.abs(xf), dim=axis, keepdim=True)
+    scale = torch.where(amax > 0, amax / 127.0, torch.ones_like(amax))
+    q = torch.clamp(torch.round(xf / scale), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def dequantize(q: torch.Tensor, scale: torch.Tensor,
+               dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale).to(dtype)
+
+
+def gemm_fused_ref(a: torch.Tensor, b_q: torch.Tensor,
+                   b_scale: torch.Tensor, *, out_dtype=None) -> torch.Tensor:
+    """Oracle of the fused weight dequant: B stays int8 through the
+    product, its (1, n) scale multiplies the accumulator once (W8A16: f32
+    accumulation; W8A8: int8 operands, int32 accumulation)."""
+    return (_acc_f32(a, b_q) * b_scale.float()).to(out_dtype
+                                                   or torch.float32)
+
+
+def gemm_int8_ref(a_q: torch.Tensor, b_q: torch.Tensor,
+                  a_scale: torch.Tensor, b_scale: torch.Tensor,
+                  out_dtype=torch.float32) -> torch.Tensor:
+    """Quantized GEMM: int8 operands, int32 accumulation, the (m, 1) row
+    and (1, n) column scales applied after."""
+    acc = int_dot(a_q, b_q)
+    return (acc.float() * a_scale * b_scale).to(out_dtype)
 
 
 def _acc_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Accumulate A @ B into f32 the way the kernels do: int8 x int8 in
     int32 then widened; a float A sees B widened to its dtype first."""
     if a.dtype == torch.int8 and b.dtype == torch.int8:
-        return (a.to(torch.int32) @ b.to(torch.int32)).float()
+        return int_dot(a, b).float()
     if b.dtype == torch.int8:
         b = b.to(a.dtype)
     return a.float() @ b.float()
@@ -44,16 +85,20 @@ def gemm_epilogue_ref(a: torch.Tensor, b: torch.Tensor, *,
                       bias: Optional[torch.Tensor] = None,
                       activation: Optional[str] = None,
                       residual: Optional[torch.Tensor] = None,
+                      out_scale: Optional[torch.Tensor] = None,
                       out_dtype=None) -> torch.Tensor:
     """Oracle for the fused-epilogue flush: accumulate, optional
     per-output-channel dequant scale, then bias -> activation ->
-    residual, all in f32.  Default output f32."""
+    residual -> output quantization, all in f32.  Default output f32
+    (int8 with ``out_scale``)."""
     x = _acc_f32(a, b)
     if b_scale is not None:
         x = x * b_scale.float()
     x = apply_epilogue(x, activation=activation, bias=bias,
-                       residual=residual)
-    return x.to(out_dtype or torch.float32)
+                       residual=residual, out_scale=out_scale)
+    if out_dtype is None:
+        out_dtype = torch.int8 if out_scale is not None else torch.float32
+    return x.to(out_dtype)
 
 
 def gemm_gated_ref(a: torch.Tensor, b_gate: torch.Tensor,
@@ -76,6 +121,7 @@ def gemm_gated_ref(a: torch.Tensor, b_gate: torch.Tensor,
 
 def gemm_grouped_ref(a: torch.Tensor, b: torch.Tensor,
                      group_sizes: torch.Tensor, *,
+                     b_scale: Optional[torch.Tensor] = None,
                      bias: Optional[torch.Tensor] = None,
                      activation: Optional[str] = None,
                      out_dtype=None) -> torch.Tensor:
@@ -97,8 +143,11 @@ def gemm_grouped_ref(a: torch.Tensor, b: torch.Tensor,
                             .tolist()):
         end = min(end, m)
         if end > start:
+            z = _acc_f32(a[start:end], b[g])
+            if b_scale is not None:
+                z = z * b_scale.reshape(e, n)[g].float()
             out[start:end] = apply_epilogue(
-                _acc_f32(a[start:end], b[g]), activation=activation,
+                z, activation=activation,
                 bias=bias.reshape(e, n)[g] if bias is not None else None)
         start = max(start, end)
     return out.to(out_dtype or torch.float32)

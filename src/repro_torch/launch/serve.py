@@ -11,6 +11,12 @@ continuous-batching engine on the CUDA card (or on the CPU when asked).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --page-size 16 --prefill-chunk 8 --device cpu
 
+    # int8 weights (W8A16), or int8 weights and activations (W8A8)
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --int8 \
+        --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke --w8a8 \
+        --device cpu
+
 Weights are random, drawn from ``--seed``.  Prints the same ``[serve]``
 lines as ``repro.launch.serve``.
 """
@@ -24,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import quant, resolve_device
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import DecodeEngine, Request
@@ -130,6 +136,12 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--no-prefix-cache", action="store_true",
                     help="disable content-hash prefix sharing of paged "
                          "prompt pages")
+    ap.add_argument("--int8", action="store_true",
+                    help="int8 weights, bf16 activations (W8A16)")
+    ap.add_argument("--w8a8", action="store_true",
+                    help="int8 weights + dynamic per-row int8 activations "
+                         "(the paper's int8 x int8 / int32-accumulate "
+                         "scheme); implies --int8")
     args = ap.parse_args(argv)
     if args.trace < 1:
         ap.error("--trace must be at least 1")
@@ -138,12 +150,20 @@ def main(argv: Optional[List[str]] = None) -> None:
         ap.error("--pages, --prefill-chunk and --no-prefix-cache need "
                  "--page-size")
 
+    quant.set_activation_mode("w8a8" if args.w8a8 else "none")
     device = resolve_device(args.device)
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
+    if args.int8 or args.w8a8:  # the paper's precision: int8 weights
+        before = quant.param_bytes(params)
+        params, n = quant.quantize_params(params)
+        print(f"[serve] int8-quantized {n} weight banks: "
+              f"{before / 2**20:.0f} -> "
+              f"{quant.param_bytes(params) / 2**20:.0f} MiB "
+              f"({before} -> {quant.param_bytes(params)} bytes)")
     # trace prompts come from the buckets; the warm-up needs 2 tokens
     max_len = args.max_len or max(TRACE_PROMPT_BUCKETS) + max(args.steps, 2)
     engine = DecodeEngine(params, cfg, batch=args.slots, max_len=max_len,
@@ -155,6 +175,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         else "cpu"
     print(f"[serve] {cfg.name} ({cfg.dtype}) on {name}: {args.slots} "
           f"slots x {engine.max_len} positions")
+    mode = "w8a8" if args.w8a8 else "w8a16" if args.int8 else cfg.dtype
+    print(f"[serve] {mode}: GEMM weight stream "
+          f"{quant.gemm_weight_bytes(params) / 2**20:.1f} MiB a step")
     if engine.paged:
         print(f"[serve] paged KV: {engine.kv.pool.n_pages - 1} pages x "
               f"{engine.page_size} tokens (+1 sink), "

@@ -4,8 +4,10 @@ attention over a dense per-slot KV cache or a shared page pool,
 embeddings.
 
 Parameters are plain dicts of tensors in the JAX layout ((d_in, d_out)
-weights).  Every projection goes through :func:`repro_torch.ops.gemm`,
-so on a card each one launches a hand-written kernel.
+weights); a projection may be a quantized ``{"q", "scale"}`` struct
+(:mod:`repro_torch.quant`).  Every projection goes through
+:func:`repro_torch.ops.gemm`, so on a card each one launches a
+hand-written kernel, on its int8 path for a quantized weight.
 """
 
 from __future__ import annotations

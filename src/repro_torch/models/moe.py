@@ -36,7 +36,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import ops
+from repro_torch import ops, quant
 from repro_torch.kernels.gemm_grouped import shared_tables
 from repro_torch.models.layers import _row_sum, dense_init
 
@@ -142,12 +142,20 @@ def _aux_loss(counts: torch.Tensor, probs: torch.Tensor, n_tokens
     return n_experts * torch.sum(freq * torch.mean(probs, dim=0))
 
 
+def _bank(w, dtype) -> torch.Tensor:
+    """Dense view of an expert bank (dequantizes ``{"q", "scale"}``)."""
+    return quant.dequantize_weight(w, dtype) if quant.is_quantized(w) \
+        else w
+
+
 def _expert_gemms(params: dict, xs: torch.Tensor, sizes: torch.Tensor,
                   dtype, dense_rows: int = 0) -> torch.Tensor:
     """SwiGLU over the ragged expert-sorted rows: three grouped ragged
     GEMMs against the stacked banks, silu fused into the gate GEMM's
-    flush.  ``dense_rows`` is the E*C row count a capacity-padded
-    formulation would compute (plan billing context only)."""
+    flush.  Quantized banks (``{"q", "scale"}``) stream int8 and widen in
+    registers (W8A16).  ``dense_rows`` is the E*C row count a
+    capacity-padded formulation would compute (plan billing context
+    only)."""
     dr = dense_rows or None
     with shared_tables():       # the three GEMMs share one set of tables
         gate = ops.gemm_grouped(xs, params["w_gate"], sizes,
@@ -206,7 +214,8 @@ def moe_ffn_dense_ref(params: dict, x: torch.Tensor, *, top_k: int
                       ) -> torch.Tensor:
     """Dense oracle: every expert computed for every token, combined with
     the same renormalised top-k gates, no capacity drops (a test oracle
-    of the dispatch path when nothing drops)."""
+    of the dispatch path when nothing drops); quantized banks are
+    dequantized up front (``repro/models/moe.py`` ``_bank``)."""
     b, s, d = x.shape
     xe = x.reshape(b * s, d)
     probs = torch.softmax(xe.float() @ params["router"], dim=-1)
@@ -215,9 +224,9 @@ def moe_ffn_dense_ref(params: dict, x: torch.Tensor, *, top_k: int
     gate_vals, top_ids = gate_vals[:, :top_k], top_ids[:, :top_k]
     gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
     combine = torch.zeros_like(probs).scatter_(1, top_ids, gate_vals)
-    gate = torch.einsum("td,edf->tef", xe, params["w_gate"])
-    up = torch.einsum("td,edf->tef", xe, params["w_up"])
+    gate = torch.einsum("td,edf->tef", xe, _bank(params["w_gate"], x.dtype))
+    up = torch.einsum("td,edf->tef", xe, _bank(params["w_up"], x.dtype))
     h = F.silu(gate.float()).to(x.dtype) * up
-    out = torch.einsum("tef,efd->ted", h, params["w_down"])
+    out = torch.einsum("tef,efd->ted", h, _bank(params["w_down"], x.dtype))
     y = torch.einsum("ted,te->td", out.float(), combine)
     return y.to(x.dtype).reshape(b, s, d)

@@ -697,8 +697,8 @@ def test_gemm_grouped_planned_launches_and_refusals(cuda_device):
         atol=2e-2, rtol=2e-2)
     with pytest.raises(ValueError, match="no CTA shape"):
         gemm_grouped(a, b, gs, cta=0)
-    with pytest.raises(NotImplementedError, match="A8"):
-        gemm_grouped(a, b.to(torch.int8), gs)
+    with pytest.raises(TypeError, match="float activations"):
+        gemm_grouped(a.to(torch.int8), b.to(torch.int8), gs)
     with pytest.raises(TypeError, match="differ"):
         gemm_grouped(a, b.float(), gs)
 
@@ -762,3 +762,256 @@ def test_moe_smoke_model_on_the_card_matches_the_cpu(cuda_device):
         g_log, g_cache = T.decode_step(gpu, cfg, tok.to(cuda_device),
                                        g_cache)
     torch.testing.assert_close(g_log.cpu(), c_log, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The int8 paths of B1, B2, B6 and B7 (W8A16, W8A8, out-quant)
+# ---------------------------------------------------------------------------
+
+from repro_torch.quant import quantize_activations, quantize_weight  # noqa
+
+
+def _int8_weight(k, n, device, seed, lead=()):
+    """A random (k, n) weight (stacked under ``lead``), made and quantized
+    per output channel on ``device``: (q int8, scale f32 (..., 1, n))."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    w = quantize_weight(torch.randn(lead + (k, n), generator=g,
+                                    device=device))
+    return w["q"], w["scale"]
+
+
+def _int8_operands(m, k, n, mode, epi, device, seed=0):
+    """A, the int8 weight and its (1, n) scale, and the epilogue keywords
+    of one int8 case: ``mode`` "w8a16" (bf16 A), "w8a16_f32" (f32 A) or
+    "w8a8" (A quantized per row)."""
+    dtype = torch.float32 if mode == "w8a16_f32" else torch.bfloat16
+    a = _randn((m, k), dtype, device, seed) / k ** 0.5
+    if mode == "w8a8":
+        a = quantize_activations(a)[0]
+    q, s = _int8_weight(k, n, device, seed + 1)
+    kw = {"out_dtype": torch.float32 if epi == "f32out" or mode != "w8a16"
+          else torch.bfloat16, "b_scale": s}
+    if epi in ("residual", "bias+silu+res"):
+        kw["residual"] = _randn((m, n), dtype, device, seed + 2)
+    if epi == "bias+silu+res":
+        kw["bias"] = _randn((n,), torch.float32, device, seed + 3)
+        kw["activation"] = "silu"
+    return a, q, kw
+
+
+def _tol_dtype(mode, kw):
+    return torch.bfloat16 if kw["out_dtype"] == torch.bfloat16 \
+        else torch.float32
+
+
+#: the served int8 shapes: smollm-360m's decode GEMMs and its 300-token
+#: prefill, qwen3-moe's decode wq / wo and prefill wk/wv; edges off the
+#: 16-grid (k = 131, k = 300, n = 77)
+INT8_SHAPES = [(8, 960, 960), (8, 960, 320), (8, 2560, 960), (8, 960, 49152),
+               (300, 960, 960), (300, 2560, 960), (8, 4096, 8192),
+               (8, 8192, 4096), (300, 4096, 512), (5, 131, 77),
+               (9, 300, 200), (16, 960, 960)]
+
+
+@pytest.mark.parametrize("m,k,n,mode", [
+    (m, k, n, mode) for m, k, n in INT8_SHAPES for mode in ("w8a16", "w8a8")]
+    # the f32 body (the f32 smoke models' W8A16) at k <= 4096: at k = 8192
+    # its fmaf order reads ~1e-5 off the plain matmul (ROADMAP queue C)
+    + [(m, k, n, "w8a16_f32") for m, k, n in INT8_SHAPES
+       if k <= 4096 and m * k * n <= 300 * 2560 * 960])
+@pytest.mark.parametrize("epi", ["none", "residual", "bias+silu+res"])
+def test_int8_gemm_aie_matches_plain(cuda_device, m, k, n, mode, epi):
+    """B1's int8 paths against the plain version: W8A16 within the
+    working dtype's tolerance, W8A8 with a linear epilogue bit for bit
+    (int32 sums are exact and the flush is one f32 multiply and adds)."""
+    a, q, kw = _int8_operands(m, k, n, mode, epi, cuda_device)
+    got = gemm_aie(a, q, **kw)
+    want = gemm_aie_plain(a, q, **kw)
+    torch.cuda.synchronize()
+    if mode == "w8a8" and epi != "bias+silu+res":
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, _tol_dtype(mode, kw))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 960, 320), (300, 960, 960),
+                                   (8, 4096, 512), (9, 300, 200),
+                                   (5, 131, 77)])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res", [False, True])
+def test_w8a16_equals_bf16_on_the_widened_weights_bitwise(cuda_device, m, k,
+                                                          n, out_dtype, res):
+    """W8A16 on B1 == B1's bf16 body on q.to(bfloat16) with f32 output,
+    then * b_scale (then + residual, then the cast), bit for bit: the
+    widening is exact and the flush multiplies once, never fused with an
+    add."""
+    a = _randn((m, k), torch.bfloat16, cuda_device, 4)
+    q, s = _int8_weight(k, n, cuda_device, 5)
+    r = _randn((m, n), torch.bfloat16, cuda_device, 6) if res else None
+    got = gemm_aie(a, q, b_scale=s, residual=r, out_dtype=out_dtype)
+    want = gemm_aie(a, q.to(torch.bfloat16), out_dtype=torch.float32) * s
+    if r is not None:
+        want = want + r.float()
+    torch.cuda.synchronize()
+    assert torch.equal(got, want.to(out_dtype))
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 960, 320), (8, 2560, 960),
+                                   (300, 960, 960), (9, 300, 200),
+                                   (8, 4096, 8192)])
+@pytest.mark.parametrize("mode", ["w8a16", "w8a16_f32", "w8a8"])
+@pytest.mark.parametrize("epi", ["none", "residual", "bias+silu+res"])
+def test_int8_gemm_tb_equals_gemm_aie_bitwise(cuda_device, m, k, n, mode,
+                                              epi):
+    """B6 == B1 on every int8 path, at tiles giving one, two and four or
+    more k-chunks (W8A8 carries an int32 partial between chunks), and
+    both match the plain version."""
+    a, q, kw = _int8_operands(m, k, n, mode, epi, cuda_device, seed=9)
+    want = gemm_aie(a, q, **kw)
+    for tile in ((8, 1024, 256), (16, 512, 64), (64, 128, 32), (8, 32, 128)):
+        t = TileConfig(*tile, "tb")
+        got = gemm_tb(a, q, tile=t, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), tile
+    _close(want, gemm_tb_plain(a, q, tile=TileConfig(16, 512, 64, "tb"),
+                               **kw), _tol_dtype(mode, kw))
+
+
+@pytest.mark.parametrize("tb", [False, True])
+@pytest.mark.parametrize("mode", ["bf16", "w8a16", "w8a8"])
+def test_out_quant_rounds_half_to_even(cuda_device, tb, mode):
+    """Out-quant on B1 and B6b at values on exact .5 boundaries: integer
+    sums over an output scale of 2 (W8A8, W8A16 with integral bf16
+    activations, bf16 x bf16) give x / 2 = j + 0.5 for odd sums, which
+    must round half to even, then clip to +-127, as the plain version
+    (torch.round) does."""
+    m, k, n = 16, 96, 200
+    g = torch.Generator().manual_seed(3)
+    a = torch.randint(-6, 7, (m, k), generator=g)
+    b = torch.randint(-6, 7, (k, n), generator=g)
+    a = a.to(torch.int8 if mode == "w8a8" else torch.bfloat16)
+    b = b.to(torch.bfloat16 if mode == "bf16" else torch.int8)
+    kw = {"out_scale": 2.0, "out_dtype": torch.int8}
+    if mode != "bf16":
+        kw["b_scale"] = torch.ones(n)
+    a, b = a.to(cuda_device), b.to(cuda_device)
+    kw = {k_: v.to(cuda_device) if isinstance(v, torch.Tensor) else v
+          for k_, v in kw.items()}
+    want = gemm_aie_plain(a, b, **kw)
+    if tb:
+        got = gemm_tb(a, b, tile=TileConfig(16, 32, 64, "tb"), **kw)
+    else:
+        got = gemm_aie(a, b, **kw)
+    torch.cuda.synchronize()
+    x = gemm_aie_plain(a, b, out_dtype=torch.float32,
+                       b_scale=kw.get("b_scale"))
+    assert ((x / 2) % 1 == 0.5).any(), "no value sits on a .5 boundary"
+    assert got.dtype == torch.int8 and torch.equal(got, want)
+
+
+def test_w8a8_int32_sums_are_exact(cuda_device):
+    """The bare int32 sums of an int8 x int8 product, on B1 and B6 (an
+    int32 partial between chunks), equal the exact integers."""
+    g = torch.Generator().manual_seed(5)
+    a = torch.randint(-127, 128, (300, 4096), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    b = torch.randint(-127, 128, (4096, 512), generator=g,
+                      dtype=torch.int8).to(cuda_device)
+    want = gemm_aie_plain(a, b, out_dtype=torch.int32)
+    assert torch.equal(gemm_aie(a, b), want)
+    assert torch.equal(gemm_tb(a, b, tile=TileConfig(64, 512, 64, "tb")),
+                       want)
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 960, 2560), (8, 960, 2560),
+                                   (300, 960, 2560), (7, 131, 77),
+                                   (37, 300, 200)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_gemm_gated_matches_plain_and_b1(cuda_device, m, k, n, dtype):
+    """B2 with int8 weights (W8A16): within tolerance of the plain version,
+    and with relu and f32 output == relu(B1 W8A16) * B1 W8A16 bit for bit
+    (both accumulators run B1's chain on the widened weights and scale
+    once before the gate)."""
+    a = _randn((m, k), dtype, cuda_device, 0) / k ** 0.5
+    qg, sg = _int8_weight(k, n, cuda_device, 1)
+    qu, su = _int8_weight(k, n, cuda_device, 2)
+    kw = dict(bg_scale=sg, bu_scale=su)
+    _close(gemm_gated(a, qg, qu, **kw), gemm_gated_plain(a, qg, qu, **kw),
+           dtype)
+    got = gemm_gated(a, qg, qu, activation="relu", out_dtype=torch.float32,
+                     **kw)
+    want = torch.relu(gemm_aie(a, qg, b_scale=sg, out_dtype=torch.float32)) \
+        * gemm_aie(a, qu, b_scale=su, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+#: B7's int8 cases: (case, k, n); (256, 192) takes the tensor-map copies,
+#: (300, 200) and (100, 70) the cp.async path (rows not 16-byte units),
+#: qwen3's gate/up and down shapes in bf16
+INT8_GROUPED = [(case, k, n) for case in sorted(GROUP_CASES)
+                for k, n in ((256, 192), (300, 200), (100, 70))] + \
+    [(case, k, n) for case in sorted(QWEN3_CASES)
+     for k, n in ((4096, 1536), (1536, 4096))]
+
+
+@pytest.mark.parametrize("case,k,n", INT8_GROUPED)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_int8_gemm_grouped_matches_plain_and_b1(cuda_device, case, k, n,
+                                                dtype):
+    """B7 on an int8 bank with its per-expert (E, 1, n) scale (W8A16), at
+    both CTA shapes: within tolerance of the plain version, rows past the
+    groups zero, and each group's rows == B1's W8A16 rows against its
+    expert, bit for bit."""
+    if dtype == torch.float32 and k * n > 300 * 200:
+        pytest.skip("the f32 body is checked at the edge shapes")
+    sizes, m = {**GROUP_CASES, **QWEN3_CASES}[case]
+    e = len(sizes)
+    a = _randn((m, k), dtype, cuda_device, 0) / k ** 0.5
+    q, s = _int8_weight(k, n, cuda_device, 1, lead=(e,))
+    gs = torch.as_tensor(np.asarray(sizes, np.int32), device=cuda_device)
+    bias = _randn((e, n), torch.float32, cuda_device, 2)
+    kw = {"out_dtype": dtype, "b_scale": s, "bias": bias,
+          "activation": "silu"}
+    want = gemm_grouped_plain(a, q, gs, **kw)
+    for cta in _ctas(dtype):
+        got = gemm_grouped(a, q, gs, cta=cta, **kw)
+        _close(got, want, dtype)
+        start = 0
+        for g, size in enumerate(sizes):
+            if size:
+                row = gemm_aie(a[start:start + size], q[g], b_scale=s[g],
+                               bias=bias[g], activation="silu",
+                               out_dtype=dtype)
+                assert torch.equal(got[start:start + size], row), (cta, g)
+            start += size
+        assert not got[start:].any(), cta
+
+
+def test_int8_paths_launch_their_kernels_or_raise(cuda_device):
+    """On a card every int8 path launches its kernel (no plain version,
+    no dequantize-then-bf16 call) or raises."""
+    a = _randn((8, 256), torch.bfloat16, cuda_device, 0)
+    q, s = _int8_weight(256, 192, cuda_device, 1)
+    plain = (gemm_aie_plain.launches, gemm_gated_plain.launches,
+             gemm_tb_plain.launches, gemm_grouped_plain.launches)
+    before = (gemm_aie.launches, gemm_gated.launches, gemm_tb.final_launches,
+              gemm_grouped.launches)
+    gemm_aie(a, q, b_scale=s)
+    gemm_aie(quantize_activations(a)[0], q, b_scale=s)
+    gemm_gated(a, q, q, bg_scale=s, bu_scale=s)
+    gemm_tb(a, q, tile=TileConfig(8, 256, 64, "tb"), b_scale=s)
+    qe, se = _int8_weight(256, 192, cuda_device, 2, lead=(3,))
+    gemm_grouped(a, qe, torch.tensor([3, 0, 5], dtype=torch.int32,
+                                     device=cuda_device), b_scale=se)
+    assert (gemm_aie.launches - before[0], gemm_gated.launches - before[1],
+            gemm_tb.final_launches - before[2],
+            gemm_grouped.launches - before[3]) == (2, 1, 1, 1)
+    assert plain == (gemm_aie_plain.launches, gemm_gated_plain.launches,
+                     gemm_tb_plain.launches, gemm_grouped_plain.launches)
+    with pytest.raises(TypeError):
+        gemm_gated(quantize_activations(a)[0], q, q, bg_scale=s, bu_scale=s)
+    with pytest.raises(TypeError):
+        gemm_grouped(quantize_activations(a)[0], qe,
+                     torch.tensor([3, 0, 5], dtype=torch.int32,
+                                  device=cuda_device), b_scale=se)

@@ -252,15 +252,17 @@ def test_execute_rejects_operands_that_mismatch_the_plan():
 
 
 @pytest.mark.parametrize("make,item", [
-    (lambda: api.GemmSpec(b_quant=True), "A8"),
-    (lambda: api.GemmSpec(a_dtype="int8", b_dtype="int8"), "A8"),
-    (lambda: api.GemmSpec(epilogue="q8"), "A8"),
+    (lambda: T.check_supported(dataclasses.replace(
+        get_smoke_config("smollm-360m"), window=64)), "A12"),
+    (lambda: T.check_supported(dataclasses.replace(
+        get_smoke_config("smollm-360m"), layer_pattern=("rec",))), "A9"),
+    (lambda: api.GemmSpec(b_quant=True, tune=True), "A10"),
     (lambda: T.check_supported(dataclasses.replace(
         get_smoke_config("qwen3-moe-235b-a22b"), layer_pattern=("ssm",))),
      "A9"),
     (lambda: api.GemmSpec(tune=True), "A10"),
-    (lambda: ops.gemm(torch.zeros((2, 4)), {"q": torch.zeros(
-        (4, 3), dtype=torch.int8), "scale": torch.ones(3)}), "A8"),
+    (lambda: ops.gemm(torch.zeros((2, 4)), torch.zeros((4, 3)),
+                      tune=True), "A10"),
 ])
 def test_what_the_port_does_not_run_yet_raises(make, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):

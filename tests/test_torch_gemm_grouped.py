@@ -186,7 +186,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu():
         (before[0], before[1] + 1)
     assert y.shape == (20, 24) and not y[14:].any()
     assert (y[:14] >= 0).all()
-    with pytest.raises(NotImplementedError, match="A8"):
+    with pytest.raises(ValueError, match="int8 bank"):
         gemm_grouped(ta, tb, tg, b_scale=torch.ones(3, 1, 24))
     with pytest.raises(ValueError, match="group_sizes"):
         gemm_grouped(ta, tb, tg[:2])
@@ -349,6 +349,13 @@ def test_one_shot_and_execute_agree_and_check_operands():
         ops.execute(pl, ta, tb, bias=tbias, group_sizes=tg.float())
     with pytest.raises(ValueError, match="per-expert"):
         ops.execute(pl, ta, tb, bias=tbias[:2], group_sizes=tg)
-    with pytest.raises(NotImplementedError, match="A8"):
-        ops.gemm_grouped(ta, {"q": tb.to(torch.int8),
-                              "scale": torch.ones(4, 1, 48)}, tg)
+    q = torch.as_tensor(np.clip(np.round(b * 40), -127, 127)
+                        .astype(np.int8))
+    scale = torch.full((4, 1, 48), 0.025)
+    yq = ops.gemm_grouped(ta, {"q": q, "scale": scale}, tg)
+    torch.testing.assert_close(
+        yq, gemm_grouped_plain(ta, q, tg, b_scale=scale,
+                               out_dtype=torch.float32),
+        atol=0, rtol=0)
+    with pytest.raises(ValueError, match="scale"):
+        ops.gemm_grouped(ta, {"q": q, "scale": scale[:, :, :4]}, tg)

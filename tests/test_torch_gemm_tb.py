@@ -125,10 +125,20 @@ def test_ragged_chunks_and_the_explicit_tile_reach_the_plain_version():
 
 
 def test_gemm_tb_refuses_int8():
-    with pytest.raises(NotImplementedError, match="A8"):
-        gemm_tb(torch.zeros((2, 4), dtype=torch.int8),
-                torch.zeros((4, 3), dtype=torch.int8),
-                tile=TileConfig(8, 32, 32, "tb"))
+    """int8 operands run (W8A16, W8A8), but an int8 A against a float B,
+    a b_scale over a float B and an int8 C without its scale would
+    narrow or drop a value silently, and raise."""
+    a8 = torch.zeros((2, 4), dtype=torch.int8)
+    t = TileConfig(8, 32, 32, "tb")
+    assert gemm_tb(a8, a8.T.contiguous(), tile=t).dtype == torch.int32
+    with pytest.raises(TypeError, match="int8 A needs an int8 B"):
+        gemm_tb(a8, torch.zeros((4, 3)), tile=t)
+    with pytest.raises(TypeError, match="b_scale"):
+        gemm_tb(torch.zeros((2, 4)), torch.zeros((4, 3)), tile=t,
+                b_scale=torch.ones(3))
+    with pytest.raises(TypeError, match="out_scale"):
+        gemm_tb(a8, torch.zeros((4, 3), dtype=torch.int8), tile=t,
+                out_dtype=torch.int8)
 
 
 def test_smoke_model_on_the_tb_dataflow_matches_jax(monkeypatch):

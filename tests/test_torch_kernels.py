@@ -194,12 +194,12 @@ def test_epilogue_and_gemm_refs_match_jax():
 
 def test_wrappers_refuse_what_they_cannot_run():
     """Dispatch goes by device: a tensor that is neither on the CPU nor
-    on a CUDA card raises instead of falling back; int8 operands wait
-    for queue A8."""
+    on a CUDA card raises instead of falling back; a dequant scale over
+    a float B raises instead of scaling silently."""
     a = torch.zeros((2, 4), device="meta")
     with pytest.raises(ValueError):
         gemm_aie(a, torch.zeros((4, 3), device="meta"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         gemm_aie(torch.zeros((2, 4)), torch.zeros((4, 3)),
                  b_scale=torch.ones(3))
     with pytest.raises(ValueError):

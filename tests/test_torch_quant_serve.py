@@ -1,0 +1,130 @@
+"""The smoke models and engines of both served families under int8
+serving (W8A16 and W8A8) against the JAX package on the CPU.
+
+The JAX package makes and quantizes the parameters
+(``repro.quant.quantize_params``); the port gets that ``{q, scale}``
+tree across ``bridge.from_jax`` unchanged, and both packages run in the
+same activation mode, the JAX side with ``REPRO_KERNELS=ref``.  Logits
+must agree within ``atol=rtol=1e-4`` (f32 sums in another order through
+the layers), greedy tokens exactly, from both packages' dense and paged
+engines.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import quant as jquant
+from repro.configs.base import get_smoke_config as j_smoke
+from repro.models import transformer as JT
+from repro_torch import quant
+from repro_torch.bridge import from_jax
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import api
+from repro_torch.launch import serve as serve_cli
+from repro_torch.models import transformer as T
+from repro_torch.serve.engine import (ACCEPTANCE_TRACE, DecodeEngine,
+                                      acceptance_requests, solo_greedy)
+
+CPU = torch.device("cpu")
+ARCHS = ["smollm-360m", "qwen3-moe-235b-a22b"]
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def smoke(request):
+    jcfg = j_smoke(request.param)
+    jp, _ = jquant.quantize_params(
+        JT.init_params(jax.random.PRNGKey(0), jcfg))
+    tp = from_jax(jax.tree.map(np.asarray, jp))
+    return jcfg, jp, get_smoke_config(request.param), tp
+
+
+@pytest.fixture(params=["w8a16", "w8a8"])
+def mode(request, monkeypatch):
+    """Both packages in one activation mode for the test, W8A16 after."""
+    monkeypatch.setenv("REPRO_KERNELS", "ref")
+    monkeypatch.delenv("REPRO_W8A8", raising=False)
+    m = "w8a8" if request.param == "w8a8" else "none"
+    for mod in (quant, jquant):
+        mod.set_activation_mode(m)
+    api.plan_cache_clear()
+    yield request.param
+    for mod in (quant, jquant):
+        mod.set_activation_mode("none")
+
+
+def _tokens(shape, vocab, seed=0):
+    return np.random.default_rng(seed).integers(0, vocab, shape) \
+        .astype(np.int32)
+
+
+def test_int8_prefill_and_decode_logits_match_jax(smoke, mode):
+    """A 12-token prefill of two rows and 6 greedy decode steps: logits
+    within 1e-4 of the JAX package's, the same tokens."""
+    jcfg, jp, tcfg, tp = smoke
+    toks = _tokens((2, 12), jcfg.vocab)
+    jl, jc = JT.prefill(jp, jcfg, jnp.asarray(toks),
+                        JT.init_cache(jcfg, 2, 40))
+    tl, tc = T.prefill(tp, tcfg, torch.as_tensor(toks),
+                       T.init_cache(tcfg, 2, 40, device=CPU))
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                               rtol=1e-4)
+    step = jax.jit(lambda t, c: JT.decode_step(jp, jcfg, t, c))
+    for _ in range(6):
+        jt = jnp.argmax(jl, -1)[:, None].astype(jnp.int32)
+        tt = torch.argmax(tl, -1)[:, None]
+        np.testing.assert_array_equal(tt.numpy(), np.asarray(jt))
+        jl, jc = step(jt, jc)
+        tl, tc = T.decode_step(tp, tcfg, tt, tc)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=1e-4)
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_int8_engine_tokens_match_jax_engine(smoke, mode, paged):
+    """The acceptance trace through both packages' engines, dense and
+    paged (16-token pages, 8-token chunks): the same tokens, request by
+    request."""
+    from repro.serve.engine import DecodeEngine as JEngine
+    from repro.serve.engine import acceptance_requests as j_reqs
+    jcfg, jp, tcfg, tp = smoke
+    max_len = max(p + mt for p, mt in ACCEPTANCE_TRACE) + 1
+    kw = dict(page_size=16, prefill_chunk=8) if paged else {}
+    want = {r.rid: r.tokens for r in
+            JEngine(jp, jcfg, batch=2, max_len=max_len, **kw).run(
+                j_reqs(jcfg.vocab))}
+    got = {r.rid: r.tokens for r in
+           DecodeEngine(tp, tcfg, batch=2, max_len=max_len, device=CPU,
+                        **kw).run(acceptance_requests(tcfg.vocab))}
+    assert sorted(got) == sorted(want)
+    for rid in want:
+        np.testing.assert_array_equal(got[rid], want[rid])
+
+
+def test_int8_continuous_batch_equals_solo_greedy(smoke, mode):
+    """Per-row activation quantization touches a row alone, so a request
+    decodes the same tokens inside the 2-slot batch as alone."""
+    _, _, cfg, params = smoke
+    max_len = max(p + mt for p, mt in ACCEPTANCE_TRACE) + 1
+    reqs = acceptance_requests(cfg.vocab)
+    engine = DecodeEngine(params, cfg, batch=2, max_len=max_len, device=CPU)
+    results = {r.rid: r.tokens for r in engine.run(reqs)}
+    for req in reqs:
+        np.testing.assert_array_equal(
+            results[req.rid],
+            solo_greedy(params, cfg, req.prompt, req.max_tokens, max_len))
+
+
+@pytest.mark.parametrize("flag", ["--int8", "--w8a8"])
+def test_serve_cli_serves_int8_on_the_cpu(flag, capsys):
+    try:
+        serve_cli.main(["--smoke", flag, "--device", "cpu", "--trace", "3",
+                        "--slots", "2", "--steps", "4"])
+    finally:
+        quant.set_activation_mode("none")
+    out = capsys.readouterr().out
+    assert "[serve] int8-quantized 8 weight banks" in out and "bytes)" in out
+    assert ("w8a8" if flag == "--w8a8" else "w8a16") in out
+    assert "[serve] trace: 3/3 requests" in out
