@@ -1227,7 +1227,7 @@ def int8_gated_case(name, weight, m, k, n, **extra):
         a, qg, qu = args
         return nbytes(a, qg, qu, kw["bg_scale"], kw["bu_scale"],
                       a.new_empty((m, n))), 4.0 * m * n * k
-    bm, bk, bn = gated_cta_tile(m, n, torch.bfloat16)
+    bm, bk, bn = gated_cta_tile(m, n, torch.bfloat16, torch.int8)
     return dict(name=f"w8a16 {name}", weight=weight, dtype=torch.bfloat16,
                 make=make, library=None, dequant=dequant, cost=cost,
                 body=f"tensor cores, int8 weights, CTA tile {bm}x{bk}x{bn}",
@@ -1260,7 +1260,7 @@ def int8_grouped_case(name, weight, sizes, m, k, n, *, act=None,
         live = int((sizes > 0).sum())
         return (live * (k * n + 4 * n) + 2 * (m * k + m * n),
                 2.0 * float(sizes.sum()) * k * n)
-    bm, bk, bn = grouped_cta_tile(m, e, torch.bfloat16)
+    bm, bk, bn = grouped_cta_tile(m, e, torch.bfloat16, torch.int8)
     return dict(name=f"w8a16 {name}", weight=weight, moe_weight=weight,
                 dtype=torch.bfloat16, make=make, library=None,
                 dequant=dequant, cost=cost, timed=timed or weight > 0,

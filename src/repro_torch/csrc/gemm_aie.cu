@@ -33,15 +33,18 @@
 // out-quant of epilogue.py:126-128), at the same CTA shapes:
 //   W8A16: a bf16 A against an int8 B (a quantized weight).  B is staged at
 //     one byte an element, the halving of the weight bytes that bound the
-//     decode GEMMs, and widened to bf16 in registers (mma_chain.cuh
-//     mma_slab_w8): the bf16 chain runs on exactly the widened values, so a
-//     row equals this kernel's bf16 body on q.to(bfloat16), and the (1, n)
-//     b_scale multiplies the f32 accumulator once on the flush, before the
-//     epilogue.  The f32 body takes an int8 B too, widened as it loads.
-//   W8A8: int8 A and B on mma.sync m16n8k32 s8 with int32 accumulators
-//     (mma_slab_s8), exact for any k served here (k 127^2 < 2^31 up to
-//     k ~ 133,000); the flush converts to f32 and multiplies by b_scale, or
-//     stores the bare int32 sums when nothing is fused.
+//     decode GEMMs; once a slab lands, every thread widens it to bf16 into
+//     one swizzled tile (mma_chain.cuh widen_int8), and the bf16 chain runs
+//     on it unchanged: a row equals this kernel's bf16 body on
+//     q.to(bfloat16), and the (1, n) b_scale multiplies the f32 accumulator
+//     once on the flush, before the epilogue.  The f32 body takes an int8 B
+//     too, widened as it loads.
+//   W8A8: int8 A (staged in the bytes of a swizzled tile) and B (transposed
+//     k-major once a slab lands, transpose_int8) on mma.sync m16n8k32 s8
+//     with int32 accumulators, both read by ldmatrix (mma_slab_s8); exact
+//     for any k served here (k 127^2 < 2^31 up to k ~ 133,000).  The flush
+//     converts to f32 and multiplies by b_scale, or stores the bare int32
+//     sums when nothing is fused.
 //   out-quant: after the epilogue an int8 C takes x / out_scale, rounded
 //     half to even and clipped to +-127 (common.cuh quantize_out).
 //
@@ -180,8 +183,8 @@ struct AieArgs {
 };
 
 // The operand variants of the tensor-core body: bf16 x bf16, W8A16 (bf16 A,
-// int8 B widened in registers, mma_chain.cuh mma_slab_w8) and W8A8 (int8 A
-// and B, int32 accumulators, mma_slab_s8).
+// int8 B widened to bf16 once a slab lands) and W8A8 (int8 A and B, int32
+// accumulators, mma_chain.cuh mma_slab_s8).
 enum Variant : int { kVBf16 = 0, kVW8A16 = 1, kVW8A8 = 2 };
 
 // A CTA shape: kWM x kWN warps, each owning kFM x kFN m16n8 fragments, so a
@@ -206,17 +209,25 @@ struct MmaShape {
   __host__ __device__ static constexpr int stage_bytes() {
     return a_bytes<kV>() + kBK * kBN * (kV == kVBf16 ? 2 : 1);
   }
+  // the ring, then (int8 B) the slab the MMA warps read: widened to bf16
+  // (W8A16) or k-major (W8A8)
+  template <int kV>
+  __host__ __device__ static constexpr int conv_bytes() {
+    return kV == kVBf16 ? 0 : kBK * kBN * (kV == kVW8A16 ? 2 : 1);
+  }
   template <int kV>
   __host__ __device__ static constexpr size_t smem() {
-    return static_cast<size_t>(kStages) * stage_bytes<kV>();
+    return static_cast<size_t>(kStages) * stage_bytes<kV>() +
+           conv_bytes<kV>();
   }
 };
 
 // One BM x BK slab of A and one BK x BN slab of B into a stage, zero-filled
 // past K, M and N, by the S::kCopyThreads threads (tid: this one's index
 // among them).  With m <= 8 rows a 16-row A slab stages only its first 8
-// rows (a_rows).  bf16 operands land in mma_chain.cuh's swizzled tiles,
-// int8 ones row-major (Rows8) at one byte an element.
+// rows (a_rows).  bf16 operands land in mma_chain.cuh's swizzled tiles, an
+// int8 A in the bytes of one (Swz8, which ldmatrix reads), an int8 B
+// row-major (Rows8) at one byte an element, for the conversion pass.
 template <typename S, int kV>
 __device__ __forceinline__ void aie_load(unsigned char* stage, const void* A,
                                          const void* B, const AieArgs& p,
@@ -230,12 +241,14 @@ __device__ __forceinline__ void aie_load(unsigned char* stage, const void* A,
   if constexpr (kV == kVW8A8) {
     const int8_t* a = static_cast<const int8_t*>(A) + a_at;
     int8_t* at = reinterpret_cast<int8_t*>(stage);
+    const Swz8 al{smem_tile(reinterpret_cast<__nv_bfloat16*>(stage),
+                            S::kBK / 2)};
     if (p.mode_a == 2)
-      stage_rows16<kT, S::kBK>(at, Rows8{S::kBK}, a, p.K, a_rows, rows_valid,
-                               depth, tid);
+      stage_rows16<kT, S::kBK>(at, al, a, p.K, a_rows, rows_valid, depth,
+                               tid);
     else
-      stage_rows<kT>(at, Rows8{S::kBK}, a, p.K, a_rows, S::kBK, rows_valid,
-                     depth, p.mode_a, tid);
+      stage_rows<kT>(at, al, a, p.K, a_rows, S::kBK, rows_valid, depth,
+                     p.mode_a, tid);
   } else {
     const __nv_bfloat16* a = static_cast<const __nv_bfloat16*>(A) + a_at;
     const SmemTile at =
@@ -301,6 +314,10 @@ gemm_aie_mma_kernel(const void* __restrict__ A, const void* __restrict__ B,
   auto bytes = [&](int s, int off) {
     return reinterpret_cast<const int8_t*>(smem + s * kStage + off);
   };
+  // the converted B slab (int8 B): bf16 (W8A16) or k-major int8 (W8A8)
+  unsigned char* conv = smem + S::kStages * kStage;
+  const SmemTile bw = smem_tile(reinterpret_cast<__nv_bfloat16*>(conv),
+                                kV == kVW8A8 ? S::kBK / 2 : S::kBN);
   const int slabs = (p.K + S::kBK - 1) / S::kBK;
   auto load = [&](int slab) {
     aie_load<S, kV>(smem + (slab % S::kStages) * kStage, A, B, p, row0, col0,
@@ -343,18 +360,32 @@ gemm_aie_mma_kernel(const void* __restrict__ A, const void* __restrict__ B,
       if (copier && next < slabs) load(next);
       cp_async_commit();
     }
-    if (!mma_warp) continue;
     const int s = i % S::kStages;
+    // an int8 B slab, once landed, converted by every thread (the MMA warps
+    // of slab i - 1 are past the barrier above, so the buffer is free)
+    if constexpr (kV == kVW8A16) {
+      widen_int8<S::kThreads>(bytes(s, kABytes), Rows8{S::kBN}, bw.p,
+                              Tile16{bw}, S::kBK, S::kBN, threadIdx.x);
+      __syncthreads();
+    } else if constexpr (kV == kVW8A8) {
+      transpose_int8<S::kThreads>(bytes(s, kABytes), Rows8{S::kBN},
+                                  reinterpret_cast<int8_t*>(conv), Swz8{bw},
+                                  S::kBK, S::kBK, S::kBN, threadIdx.x);
+      __syncthreads();
+    }
+    if (!mma_warp) continue;
     // the slab is zero-filled past K, so its last step runs whole
     const int depth = min(S::kBK, p.K - i * S::kBK);
     if constexpr (kV == kVW8A8) {
-      mma_slab_s8<S::kFragM, S::kFragN>(
-          acc, bytes(s, 0), Rows8{S::kBK}, wr, a_rows - wr, bytes(s, kABytes),
-          Rows8{S::kBN}, wc, S::kBN - wc, (depth + 31) & ~31);
+      mma_slab_s8<S::kFragM, S::kFragN, kEdge>(
+          acc,
+          smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + s * kStage),
+                    S::kBK / 2),
+          wr, a_rows - wr, 0, bw, wc, (depth + 31) & ~31);
     } else if constexpr (kV == kVW8A16) {
-      mma_slab_w8<S::kFragM, S::kFragN, kEdge>(
-          acc, a_tile(s), wr, a_rows - wr, bytes(s, kABytes), Rows8{S::kBN},
-          wc, S::kBN - wc, depth == S::kBK ? S::kBK : (depth + 15) & ~15);
+      mma_slab<S::kFragM, S::kFragN, kEdge>(
+          acc, a_tile(s), wr, a_rows - wr, bw, wc, S::kBN - wc,
+          depth == S::kBK ? S::kBK : (depth + 15) & ~15);
     } else if (depth == S::kBK) {
       mma_slab<S::kFragM, S::kFragN, kEdge>(acc, a_tile(s), wr, a_rows - wr,
                                             b_tile(s), wc, S::kBN - wc,
@@ -415,25 +446,28 @@ int launch_mma(const Operands& o, const AieArgs& p, cudaStream_t stream) {
 }
 
 // The CTA shapes of the tensor-core body, by the index kernels/gemm_aie.py
-// BF16_TILES gives them (its (bm, bk, bn) must match; every operand variant
-// runs them): with m <= 16 one 16-row fragment and 1, 4 or 8 MMA warps of
-// one 8-column fragment each, 128-deep slabs; the two narrow shapes beside
-// 4 copy warps and 8 stages (so 16 KB or more of bf16 B is in flight and
-// the MMA warps start on the first slab), the widest (many CTAs) staging
-// itself through 4; with more rows 64 x 64 (4 warps of 2 x 4 fragments that
-// stage too), 64-deep slabs, 4 stages.
+// BF16_TILES / INT8_TILES gives them (its (bm, bk, bn) must match): with
+// m <= 16 one 16-row fragment and 1, 4 or 8 MMA warps of one 8-column
+// fragment each; the two narrow shapes beside 4 copy warps and 8 stages (so
+// 16 KB or more of bf16 B is in flight and the MMA warps start on the first
+// slab), the widest (many CTAs) staging itself through 4; with more rows
+// 64 x 64 (4 warps of 2 x 4 fragments that stage too), 4 stages.  Slabs are
+// 128 deep (64 for 64 x 64) with bf16 B and twice as deep with an int8 B,
+// so a stage holds as many bytes of B (the bytes in flight set one SM's
+// streaming rate) and the conversion pass runs half as often a k.
 template <int kV>
 int launch_tc(int config, const Operands& o, const AieArgs& p,
               cudaStream_t s) {
+  constexpr int kD = kV == kVBf16 ? 1 : 2;  // the slab depth's factor
   switch (config) {
     case 1:
-      return launch_mma<MmaShape<1, 1, 1, 1, 128, 8, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<1, 1, 1, 1, 128 * kD, 8, 4>, kV>(o, p, s);
     case 2:
-      return launch_mma<MmaShape<1, 4, 1, 1, 128, 8, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<1, 4, 1, 1, 128 * kD, 8, 4>, kV>(o, p, s);
     case 3:
-      return launch_mma<MmaShape<1, 8, 1, 1, 128, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<1, 8, 1, 1, 128 * kD, 4>, kV>(o, p, s);
     case 4:
-      return launch_mma<MmaShape<2, 2, 2, 4, 64, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<2, 2, 2, 4, 64 * kD, 4>, kV>(o, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

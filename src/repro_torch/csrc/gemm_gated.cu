@@ -39,8 +39,8 @@
 // tile prefetched into registers during the products.
 //
 // W8A16 (repro/kernels/gemm_gated.py:50-51, :104-108): int8 gate and up
-// weights are staged at one byte an element and widened in registers
-// (mma_chain.cuh mma_slab_w8, B1's widening), and each accumulator is
+// weights are staged at one byte an element and widened to bf16 once each
+// slab lands (mma_chain.cuh widen_int8, B1's widening), and each accumulator is
 // scaled by its (1, n) scale on the flush, before the gate; so relu(B1
 // W8A16) * B1 W8A16 still holds bit for bit.  The f32 body widens int8
 // weights as it loads them.  An int8 A is not taken: the planner never
@@ -181,6 +181,12 @@ struct GatedShape {
   __host__ __device__ static constexpr int stage_bytes() {
     return kABytes + 2 * kBK * kBN * kBSize;
   }
+  // the ring, then (int8 weights) both slabs widened to bf16
+  template <int kBSize>
+  __host__ __device__ static constexpr size_t smem() {
+    return static_cast<size_t>(kStages) * stage_bytes<kBSize>() +
+           (kBSize == 1 ? 2 * kBK * kBN * 2 : 0);
+  }
 };
 
 // One BK x BN slab of a B stream into its stage, zero-filled past K and N,
@@ -208,8 +214,8 @@ __device__ __forceinline__ void stage_b(unsigned char* dst, const void* src,
   }
 }
 
-// kB8: int8 weights (W8A16), widened in registers by mma_slab_w8 and scaled
-// by sg / su on the flush, before the gate.
+// kB8: int8 weights (W8A16), widened to bf16 once each slab lands and
+// scaled by sg / su on the flush, before the gate.
 template <typename S, bool kB8>
 __global__ void __launch_bounds__(S::kThreads)
 gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
@@ -253,6 +259,12 @@ gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
     return reinterpret_cast<const int8_t*>(stage_at(s) + S::kABytes +
                                            kBBytes);
   };
+  // int8 weights: the landed gate and up slabs widened to bf16, after the
+  // ring
+  __nv_bfloat16* wide =
+      reinterpret_cast<__nv_bfloat16*>(smem + S::kStages * kStage);
+  const SmemTile gw = smem_tile(wide, S::kBN);
+  const SmemTile uw = smem_tile(wide + S::kBK * S::kBN, S::kBN);
   const int slabs = (p.K + S::kBK - 1) / S::kBK;
   auto load = [&](int slab) {
     const int s = slab % S::kStages, k0 = slab * S::kBK;
@@ -307,19 +319,26 @@ gemm_gated_mma_kernel(const __nv_bfloat16* __restrict__ A,
       if (copier && next < slabs) load(next);
       cp_async_commit();
     }
-    if (!mma_warp) continue;
     const int s = i % S::kStages;
+    // int8 weights, once landed, widened to bf16 by every thread (the MMA
+    // warps of slab i - 1 are past the barrier above)
+    if constexpr (kB8) {
+      widen_int8<S::kThreads>(g_bytes(s), Rows8{S::kBN}, gw.p, Tile16{gw},
+                              S::kBK, S::kBN, threadIdx.x);
+      widen_int8<S::kThreads>(u_bytes(s), Rows8{S::kBN}, uw.p, Tile16{uw},
+                              S::kBK, S::kBN, threadIdx.x);
+      __syncthreads();
+    }
+    if (!mma_warp) continue;
     // the slab is zero-filled past K, so its last step runs whole
     const int depth = min(S::kBK, p.K - i * S::kBK);
     const int k_len = depth == S::kBK ? S::kBK : (depth + 15) & ~15;
     const SmemTile at = a_tile(s);
     if constexpr (kB8) {
-      mma_slab_w8<S::kFragM, S::kFragN, kEdge>(acc_g, at, wr, a_rows - wr,
-                                               g_bytes(s), Rows8{S::kBN}, wc,
-                                               S::kBN - wc, k_len);
-      mma_slab_w8<S::kFragM, S::kFragN, kEdge>(acc_u, at, wr, a_rows - wr,
-                                               u_bytes(s), Rows8{S::kBN}, wc,
-                                               S::kBN - wc, k_len);
+      mma_slab<S::kFragM, S::kFragN, kEdge>(acc_g, at, wr, a_rows - wr, gw,
+                                            wc, S::kBN - wc, k_len);
+      mma_slab<S::kFragM, S::kFragN, kEdge>(acc_u, at, wr, a_rows - wr, uw,
+                                            wc, S::kBN - wc, k_len);
     } else {
       mma_slab<S::kFragM, S::kFragN, kEdge>(acc_g, at, wr, a_rows - wr,
                                             g_tile(s), wc, S::kBN - wc, k_len);
@@ -353,8 +372,7 @@ int launch_mma(const void* a, const void* bg, const void* bu, const void* sg,
                const void* su, void* c, const GatedArgs& p,
                cudaStream_t stream) {
   auto kernel = gemm_gated_mma_kernel<S, kB8>;
-  constexpr size_t kSmem = static_cast<size_t>(S::kStages) *
-                           S::template stage_bytes<kB8 ? 1 : 2>();
+  constexpr size_t kSmem = S::template smem<kB8 ? 1 : 2>();
   static bool configured = false;  // one attribute call per shape
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -369,23 +387,25 @@ int launch_mma(const void* a, const void* bg, const void* bu, const void* sg,
 }
 
 // The CTA shapes of the tensor-core body, by the index kernels/gemm_gated.py
-// BF16_TILES gives them (its (bm, bk, bn) must match; bf16 and int8 weights
-// run the same ones): with m <= 16 one 16-row fragment and 2 MMA warps of
-// one 8-column fragment of each product, 128-deep slabs, 4 copy warps and
-// 8 stages (8 x 12 KB of shared memory with bf16 weights); with more rows
-// 64 x 64 (4 warps of 2 x 4 fragments of each product that stage too),
-// 64-deep slabs, 4 stages (96 KB with bf16 weights).
+// BF16_TILES / INT8_TILES gives them (its (bm, bk, bn) must match): with
+// m <= 16 one 16-row fragment and 2 MMA warps of one 8-column fragment of
+// each product, 4 copy warps and 8 stages (8 x 12 KB of shared memory with
+// bf16 weights); with more rows 64 x 64 (4 warps of 2 x 4 fragments of each
+// product that stage too), 4 stages (96 KB with bf16 weights).  Slabs are
+// 128 deep (64 for 64 x 64) with bf16 weights and twice as deep with int8
+// ones, so a stage holds as many bytes of weights.
 template <bool kB8>
 int launch_tc(int config, const void* a, const void* bg, const void* bu,
               const void* sg, const void* su, void* c, const GatedArgs& p,
               cudaStream_t s) {
+  constexpr int kD = kB8 ? 2 : 1;  // the slab depth's factor
   switch (config) {
     case 1:
-      return launch_mma<GatedShape<1, 2, 1, 1, 128, 8, 4>, kB8>(a, bg, bu, sg,
-                                                                 su, c, p, s);
+      return launch_mma<GatedShape<1, 2, 1, 1, 128 * kD, 8, 4>, kB8>(
+          a, bg, bu, sg, su, c, p, s);
     case 2:
-      return launch_mma<GatedShape<2, 2, 2, 4, 64, 4>, kB8>(a, bg, bu, sg, su,
-                                                             c, p, s);
+      return launch_mma<GatedShape<2, 2, 2, 4, 64 * kD, 4>, kB8>(
+          a, bg, bu, sg, su, c, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

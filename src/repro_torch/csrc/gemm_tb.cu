@@ -1,554 +1,10 @@
-// gemm_tb — the A-stationary GEMM with the fused epilogue on its last
-// k-chunk (kernel B6), for Hopper.
-//
-// Replaces: repro/kernels/gemm_tb.py gemm_tb, both Pallas sites:
-//   B6a  _tb_call        (pallas_call at :96, body _gemm_tb_kernel at :52):
-//        one k-chunk, C_acc += A[:, chunk] B[chunk, :], C read-modify-
-//        written in place;
-//   B6b  _tb_call_final  (pallas_call at :139, body _gemm_tb_final_kernel
-//        at :65): the last chunk, then bias (1,n) -> silu/gelu(tanh)/relu
-//        -> residual (m,n) in f32, C written once at the out dtype.
-// The host (kernels/gemm_tb.py) chunks K, as the JAX package does; the first
-// chunk starts from zeros in registers, so C_acc needs no memset.
-//
-// What bounds it on an H100: the bytes of B, re-read once per m-block, and
-// the f32 partial C, read and written once per chunk; at decode the
-// operations stay far below the card's rate, at a 300-row prefill they
-// reach the tensor cores' side.
-//
-// Design: the TPU grid (m, n) ran n sequentially past one resident A block.
-// Here a CTA owns a (bm x kc) panel of A, staged once into shared memory,
-// and sweeps a contiguous range of n tiles; each m-block's sweep is split
-// over several CTAs, each with its own copy of the panel, so the grid fills
-// the card even at m = 8.  Per n tile the CTA streams one (kc x bn) tile of
-// B and the (bm x bn) f32 partial (plus the bias and residual tiles on the
-// last chunk) through two cp.async stages, so the next tile's loads are in
-// flight during this tile's products.  The dynamic shared memory is
-// tb_layout below, sized from the plan's (bm, bk, bn): exactly what
-// core/memory_model.py bills a 'tb' tile on HOPPER_H100.
-//   bf16 operands (gemm_tb_mma_kernel): the products are mma_chain.cuh's
-//   tensor-core chain.  The C tile is cdiv(bm, 16) x cdiv(bn, 8) m16n8
-//   fragments; each of the 8 warps owns kFN (1, 2 or 4) neighbouring
-//   fragments of one 16-row block and walks the whole chunk for them,
-//   reading the resident panel and the streamed B stage (both XOR-swizzled,
-//   mma_chain.cuh SmemTile) through ldmatrix.  Its accumulators start from
-//   the staged f32 partial, so the partial is the first MMA's C operand.
-//   Its chunks launch as programmatic dependents (launch_mma): a chunk's
-//   CTAs stage the panel and their first B tile while the chunk before
-//   runs, and wait for that chunk only before its partial.
-//   f32 operands (gemm_tb_kernel): the CUDA-core body, a thread owning one
-//   C column and up to 16 rows, one fmaf chain over the chunk.
-// Ragged edges (m, n and the last chunk of k) are zero-filled or skipped,
-// so no caller pads.
-//
-// The int8 paths (repro/kernels/gemm_tb.py:59, :77, :124-134, :232) are B1's:
-// W8A16 stages the int8 B tile at one byte an element and widens it in
-// registers (mma_slab_w8, bf16 chunk boundaries on the 16-grid), W8A8 runs
-// the m16n8k32 s8 chain on an int8 panel with an int32 partial between
-// chunks, as the JAX package does; b_scale and the int8 out-quant apply on
-// the last chunk (B6b), the scale staged beside the bias.
-//
-// Order invariance: every C element is one chain over k = 0..K-1 (B1's:
-// the tensor-core chain for bf16, the fmaf chain for f32): chunk 0 starts
-// from 0, each later chunk continues from the stored f32 partial (the store
-// and load are exact, and the host puts bf16 chunk boundaries on the
-// 16-grid), and the flush is the one kernel B1 runs (common.cuh epilogue).
-// gemm_tb therefore equals gemm_aie bit for bit at any tile, chunk count
-// and n split, and the planner may switch dataflow with the batch size
-// without changing a token.
-#include <type_traits>
-
-#include "mma_chain.cuh"
-#include "staging.cuh"
+// gemm_tb — the A-stationary GEMM (kernel B6): its C entry points and the
+// dispatch of an operand pair to a body (gemm_tb.cuh, which says what each
+// body computes and what bounds it).
+#include "gemm_tb.cuh"
 
 namespace repro {
-namespace {
-
-constexpr int kThreads = 256;     // core/hardware.py B6_THREADS
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 16;      // core/hardware.py B6_MAX_ROWS_PER_THREAD
-constexpr int kMaxFrags = 4;      // core/hardware.py B6_MAX_FRAGS_PER_WARP
-constexpr int kMaxSmem = 232448;  // 227 KiB: one CTA's limit on sm_90
-
-__host__ __device__ inline size_t align16(size_t x) {
-  return (x + 15) & ~static_cast<size_t>(15);
-}
-
-// Byte offsets of the shared-memory regions of one CTA: the resident A
-// panel, two B stages (each operand at its own width: int8 at one byte),
-// two partial-C stages (f32, or int32 when A is int8), two b_scale stages
-// (an int8 B's dequant scale), two bias and two residual stages (the last
-// three only when the plan has them).
-struct TbLayout {
-  size_t a, b, c, scale, bias, res, total;
-};
-
-__host__ __device__ inline TbLayout tb_layout(int bm, int bk, int bn,
-                                              int a_size, int b_size,
-                                              int res_size, bool has_scale,
-                                              bool has_bias, bool has_res) {
-  TbLayout L;
-  L.a = 0;
-  L.b = align16(static_cast<size_t>(bm) * bk * a_size);
-  L.c = L.b + align16(2 * static_cast<size_t>(bk) * bn * b_size);
-  L.scale = L.c + align16(2 * static_cast<size_t>(bm) * bn * 4);
-  L.bias =
-      L.scale + (has_scale ? align16(2 * static_cast<size_t>(bn) * 4) : 0);
-  L.res = L.bias + (has_bias ? align16(2 * static_cast<size_t>(bn) * 4) : 0);
-  L.total =
-      L.res + (has_res ? align16(2 * static_cast<size_t>(bm) * bn * res_size)
-                       : 0);
-  return L;
-}
-
-// The operand variants: the tensor-core bodies (bf16 x bf16, W8A16: bf16 A
-// with an int8 B widened in registers, W8A8: int8 A and B into int32) and
-// the fmaf bodies (f32 x f32, f32 x int8).
-enum Variant : int { kVBf16 = 0, kVW8A16 = 1, kVW8A8 = 2, kVF32 = 3,
-                     kVF32W8 = 4 };
-
-__host__ __device__ constexpr int a_size(int v) {
-  return v == kVW8A8 ? 1 : v >= kVF32 ? 4 : 2;
-}
-__host__ __device__ constexpr int b_size(int v) {
-  return v == kVBf16 ? 2 : v == kVF32 ? 4 : 1;
-}
-
-struct TbArgs {
-  int M, N, K;
-  int k0, kc;          // this chunk: columns [k0, k0 + kc) of A
-  int bm, bk, bn;      // the plan's tile (bk: the panel's row stride)
-  int tiles_per_cta;   // n tiles one CTA sweeps
-  int act;
-  int out_dtype, res_dtype;  // B6b's C and residual types (DType)
-  int modes;           // 2 bits an operand: A, B, C, bias, residual, scale
-};
-
-// The operands of one launch: A, B, the partial of the earlier chunks (cin,
-// null on the first; it may alias cacc), the partial this chunk writes
-// (cacc, B6a) or C (B6b), and B6b's epilogue operands.
-struct TbOperands {
-  const void *a, *b;
-  const void* cin;
-  void *cacc, *c;
-  const float *bias, *scale;
-  const void* res;
-  const float* out_scale;
-};
-
-// The f32 body.  kFinal false: B6a, writes the f32 partial to o.cacc.
-// kFinal true: B6b, applies the b_scale, the epilogue and writes C at the
-// out dtype (p.out_dtype; the residual's p.res_dtype).  o.cin is the
-// partial of the earlier chunks (null on the first chunk); cin and cacc may
-// alias: a CTA reads each partial tile before it writes that tile, and no
-// two CTAs share a tile.  kRows is the most C rows a thread owns (cdiv(bm,
-// 256 / bn) rounded up to a power of two), so the row loops below unroll to
-// exactly the rows in use.  TB is B's type: f32, or int8 (W8A16 on f32
-// activations), widened as it is read.
-template <typename TB, int kRows, bool kFinal>
-__global__ void __launch_bounds__(kThreads)
-gemm_tb_kernel(TbOperands o, TbArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const float* __restrict__ A = static_cast<const float*>(o.a);
-  const TB* __restrict__ B = static_cast<const TB*>(o.b);
-  const float* Cin = static_cast<const float*>(o.cin);
-  float* Cacc = static_cast<float*>(o.cacc);
-  const int res_size = p.res_dtype == kBF16 ? 2 : 4;
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, 4, sizeof(TB), res_size,
-                               o.scale != nullptr, o.bias != nullptr,
-                               o.res != nullptr);
-  float* As = reinterpret_cast<float*>(smem + L.a);
-  TB* Bs = reinterpret_cast<TB*>(smem + L.b);
-  float* Cs = reinterpret_cast<float*>(smem + L.c);
-  float* Scale_s = reinterpret_cast<float*>(smem + L.scale);
-  float* Bias_s = reinterpret_cast<float*>(smem + L.bias);
-  unsigned char* Rs = smem + L.res;
-
-  const int bm = p.bm, bn = p.bn, kc = p.kc;
-  const int n_tiles = (p.N + bn - 1) / bn;
-  const int t_begin = blockIdx.x * p.tiles_per_cta;
-  const int t_end = min(n_tiles, t_begin + p.tiles_per_cta);
-  if (t_begin >= t_end) return;  // the whole CTA
-  const int row0 = blockIdx.y * bm;
-  const int rows_valid = min(bm, p.M - row0);
-  const int groups = kThreads / bn;  // row groups of bn threads
-  const int tx = threadIdx.x % bn, ty = threadIdx.x / bn;
-  // rows r = ty, ty + groups, ... < bm of this thread (0 for idle threads)
-  const int my_rows = ty < groups ? max(0, (bm - ty + groups - 1) / groups)
-                                  : 0;
-  const int mode_a = p.modes & 3, mode_b = (p.modes >> 2) & 3,
-            mode_c = (p.modes >> 4) & 3, mode_bias = (p.modes >> 6) & 3,
-            mode_r = (p.modes >> 8) & 3, mode_s = (p.modes >> 10) & 3;
-  const size_t tile_b = static_cast<size_t>(p.bk) * bn;
-  const size_t tile_c = static_cast<size_t>(bm) * bn;
-
-  auto issue = [&](int t, int s) {
-    const int col0 = t * bn;
-    const int cols_valid = min(bn, p.N - col0);
-    stage<kThreads>(Bs + s * tile_b, bn,
-                    B + static_cast<size_t>(p.k0) * p.N + col0, p.N, kc, bn,
-                    kc, cols_valid, mode_b);
-    if (Cin != nullptr)
-      stage<kThreads>(Cs + s * tile_c, bn,
-                      Cin + static_cast<size_t>(row0) * p.N + col0, p.N, bm,
-                      bn, rows_valid, cols_valid, mode_c);
-    if (kFinal && o.scale != nullptr)
-      stage<kThreads>(Scale_s + s * bn, bn, o.scale + col0, 0, 1, bn, 1,
-                      cols_valid, mode_s);
-    if (kFinal && o.bias != nullptr)
-      stage<kThreads>(Bias_s + s * bn, bn, o.bias + col0, 0, 1, bn, 1,
-                      cols_valid, mode_bias);
-    if (kFinal && o.res != nullptr) {
-      const size_t at = static_cast<size_t>(row0) * p.N + col0;
-      if (res_size == 2)
-        stage<kThreads>(reinterpret_cast<__nv_bfloat16*>(Rs) + s * tile_c,
-                        bn, static_cast<const __nv_bfloat16*>(o.res) + at,
-                        p.N, bm, bn, rows_valid, cols_valid, mode_r);
-      else
-        stage<kThreads>(reinterpret_cast<float*>(Rs) + s * tile_c, bn,
-                        static_cast<const float*>(o.res) + at, p.N, bm, bn,
-                        rows_valid, cols_valid, mode_r);
-    }
-  };
-
-  // The A panel, resident for the whole sweep, rides in the first group.
-  stage<kThreads>(As, p.bk, A + static_cast<size_t>(row0) * p.K + p.k0, p.K,
-                  bm, kc, rows_valid, kc, mode_a);
-  issue(t_begin, 0);
-  cp_async_commit();
-  const bool vec_a = (p.bk & 3) == 0;  // panel rows 8/16-byte aligned
-  for (int t = t_begin, s = 0; t < t_end; ++t, s ^= 1) {
-    if (t + 1 < t_end) {
-      issue(t + 1, s ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (my_rows > 0) {
-      const TB* Bt = Bs + s * tile_b;
-      float acc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        acc[i] = (i < my_rows && Cin != nullptr)
-                     ? Cs[s * tile_c + (ty + groups * i) * bn + tx]
-                     : 0.0f;
-      int kk = 0;
-      if (vec_a) {
-        for (; kk + 4 <= kc; kk += 4) {
-          const float b0 = to_f32(Bt[(kk + 0) * bn + tx]);
-          const float b1 = to_f32(Bt[(kk + 1) * bn + tx]);
-          const float b2 = to_f32(Bt[(kk + 2) * bn + tx]);
-          const float b3 = to_f32(Bt[(kk + 3) * bn + tx]);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            if (i < my_rows) {
-              float a[4];
-              load4(As + (ty + groups * i) * p.bk + kk, a);
-              acc[i] = fmaf(a[0], b0, acc[i]);
-              acc[i] = fmaf(a[1], b1, acc[i]);
-              acc[i] = fmaf(a[2], b2, acc[i]);
-              acc[i] = fmaf(a[3], b3, acc[i]);
-            }
-          }
-        }
-      }
-      for (; kk < kc; ++kk) {
-        const float b = to_f32(Bt[kk * bn + tx]);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          if (i < my_rows)
-            acc[i] = fmaf(As[(ty + groups * i) * p.bk + kk], b, acc[i]);
-      }
-      const int col = t * bn + tx;
-      if (col < p.N) {
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int r = ty + groups * i;
-          if (i >= my_rows || r >= rows_valid) continue;
-          const size_t at = static_cast<size_t>(row0 + r) * p.N + col;
-          if (kFinal) {
-            float rv = 0.0f;
-            if (o.res != nullptr) {
-              const size_t ri = s * tile_c + r * bn + tx;
-              rv = res_size == 2
-                       ? to_f32(reinterpret_cast<__nv_bfloat16*>(Rs)[ri])
-                       : reinterpret_cast<float*>(Rs)[ri];
-            }
-            const float x = epilogue(
-                dequant(acc[i], o.scale != nullptr ? Scale_s + s * bn : nullptr,
-                        tx),
-                o.bias != nullptr,
-                o.bias != nullptr ? Bias_s[s * bn + tx] : 0.0f, p.act,
-                o.res != nullptr, rv);
-            store_out(o.c, at, x, p.out_dtype, o.out_scale);
-          } else {
-            Cacc[at] = acc[i];
-          }
-        }
-      }
-    }
-    __syncthreads();  // stage s is refilled by the next iteration's issue
-  }
-}
-
-// The tensor-core bodies: as gemm_tb_kernel, with the products on the
-// tensor cores.  The tile's cdiv(bm, 16) x cdiv(bn, 8) fragments go to the
-// warps kFN at a time along a 16-row block: warp w owns block w / G,
-// fragments (w % G) kFN .. +kFN of it (G = cdiv(cdiv(bn, 8), kFN)); the
-// host picks the least kFN that needs at most 8 warps.  kV: bf16 runs
-// mma_slab on the swizzled panel and B tile; W8A16 mma_slab_w8 on the same
-// bf16 panel and a row-major int8 B tile (the chain of bf16 on the widened
-// B); W8A8 mma_slab_s8 on a row-major int8 panel and B tile, the partial
-// between chunks int32 (exact, so the chunking changes no value).
-template <int kFN, bool kFinal, int kV>
-__global__ void __launch_bounds__(kThreads)
-gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int res_size = p.res_dtype == kBF16 ? 2 : 4;
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, a_size(kV), b_size(kV),
-                               res_size, o.scale != nullptr,
-                               o.bias != nullptr, o.res != nullptr);
-  unsigned char* Bs = smem + L.b;
-  float* Cs = reinterpret_cast<float*>(smem + L.c);
-  float* Scale_s = reinterpret_cast<float*>(smem + L.scale);
-  float* Bias_s = reinterpret_cast<float*>(smem + L.bias);
-  unsigned char* Rs = smem + L.res;
-  const SmemTile Ap =
-      smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + L.a), p.bk);
-  int8_t* Ap8 = reinterpret_cast<int8_t*>(smem + L.a);
-  using Acc = std::conditional_t<kV == kVW8A8, int, float>;
-  const Acc* Cin = static_cast<const Acc*>(o.cin);
-  Acc* Cacc = static_cast<Acc*>(o.cacc);
-  const Acc* Cst = reinterpret_cast<const Acc*>(Cs);
-
-  const int bm = p.bm, bn = p.bn, kc = p.kc;
-  const int n_tiles = (p.N + bn - 1) / bn;
-  const int t_begin = blockIdx.x * p.tiles_per_cta;
-  const int t_end = min(n_tiles, t_begin + p.tiles_per_cta);
-  if (t_begin >= t_end) return;  // the whole CTA
-  const int row0 = blockIdx.y * bm;
-  const int rows_valid = min(bm, p.M - row0);
-  const int mode_a = p.modes & 3, mode_b = (p.modes >> 2) & 3,
-            mode_c = (p.modes >> 4) & 3, mode_bias = (p.modes >> 6) & 3,
-            mode_r = (p.modes >> 8) & 3, mode_s = (p.modes >> 10) & 3;
-  const size_t tile_b = static_cast<size_t>(p.bk) * bn * b_size(kV);
-  const size_t tile_c = static_cast<size_t>(bm) * bn;
-  auto b_tile = [&](int s) {
-    return smem_tile(reinterpret_cast<__nv_bfloat16*>(Bs + s * tile_b), bn);
-  };
-  auto b_bytes = [&](int s) {
-    return reinterpret_cast<int8_t*>(Bs + s * tile_b);
-  };
-
-  const int groups = ((bn + 7) / 8 + kFN - 1) / kFN;  // fragment runs a block
-  const int warp = threadIdx.x >> 5;
-  const bool active = warp < ((bm + 15) / 16) * groups;
-  const int wr = (warp / groups) * 16;   // the warp's first row
-  const int wc = (warp % groups) * 8 * kFN;  // and first column
-
-  // a tile's B, then (issue_rest) its partial C, scale, bias and residual
-  // tiles
-  auto issue_b = [&](int t, int s) {
-    const size_t at = static_cast<size_t>(p.k0) * p.N + t * bn;
-    const int cols_valid = min(bn, p.N - t * bn);
-    if constexpr (kV == kVBf16) {
-      const SmemTile bt = b_tile(s);
-      stage_rows<kThreads>(bt.p, bt, static_cast<const __nv_bfloat16*>(o.b) + at,
-                           p.N, kc, bn, kc, cols_valid, mode_b, threadIdx.x);
-    } else {
-      stage_rows<kThreads>(b_bytes(s), Rows8{bn},
-                           static_cast<const int8_t*>(o.b) + at, p.N, kc, bn,
-                           kc, cols_valid, mode_b, threadIdx.x);
-    }
-  };
-  auto issue_rest = [&](int t, int s) {
-    const int col0 = t * bn;
-    const int cols_valid = min(bn, p.N - col0);
-    const RowMajor plain{bn};
-    if (Cin != nullptr)
-      stage_rows<kThreads>(reinterpret_cast<Acc*>(Cs) + s * tile_c, plain,
-                           Cin + static_cast<size_t>(row0) * p.N + col0, p.N,
-                           bm, bn, rows_valid, cols_valid, mode_c,
-                           threadIdx.x);
-    if (kFinal && o.scale != nullptr)
-      stage_rows<kThreads>(Scale_s + s * bn, plain, o.scale + col0, 0, 1, bn,
-                           1, cols_valid, mode_s, threadIdx.x);
-    if (kFinal && o.bias != nullptr)
-      stage_rows<kThreads>(Bias_s + s * bn, plain, o.bias + col0, 0, 1, bn, 1,
-                           cols_valid, mode_bias, threadIdx.x);
-    if (kFinal && o.res != nullptr) {
-      const size_t at = static_cast<size_t>(row0) * p.N + col0;
-      if (res_size == 2)
-        stage_rows<kThreads>(
-            reinterpret_cast<__nv_bfloat16*>(Rs) + s * tile_c, plain,
-            static_cast<const __nv_bfloat16*>(o.res) + at, p.N, bm, bn,
-            rows_valid, cols_valid, mode_r, threadIdx.x);
-      else
-        stage_rows<kThreads>(reinterpret_cast<float*>(Rs) + s * tile_c,
-                             plain, static_cast<const float*>(o.res) + at,
-                             p.N, bm, bn, rows_valid, cols_valid, mode_r,
-                             threadIdx.x);
-    }
-  };
-
-  // Chunks launch as programmatic dependents (launch_mma): the first chunk
-  // waits for the kernels before it and then lets the next chunk start, so
-  // a later chunk's CTAs stage the panel and their first B tile, inputs of
-  // this call, while the chunk before it still runs, and wait only before
-  // the partial it wrote.
-  if (Cin == nullptr) grid_dependency_wait();
-  grid_launch_dependents();
-  // The A panel, resident for the whole sweep, rides in the first group.
-  const size_t a_at = static_cast<size_t>(row0) * p.K + p.k0;
-  if constexpr (kV == kVW8A8)
-    stage_rows<kThreads>(Ap8, Rows8{p.bk}, static_cast<const int8_t*>(o.a) + a_at,
-                         p.K, bm, kc, rows_valid, kc, mode_a, threadIdx.x);
-  else
-    stage_rows<kThreads>(Ap.p, Ap, static_cast<const __nv_bfloat16*>(o.a) + a_at,
-                         p.K, bm, kc, rows_valid, kc, mode_a, threadIdx.x);
-  issue_b(t_begin, 0);
-  if (Cin != nullptr) grid_dependency_wait();
-  issue_rest(t_begin, 0);
-  cp_async_commit();
-  for (int t = t_begin, s = 0; t < t_end; ++t, s ^= 1) {
-    if (t + 1 < t_end) {
-      issue_b(t + 1, s ^ 1);
-      issue_rest(t + 1, s ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (active) {
-      Acc acc[1][kFN][4];
-#pragma unroll
-      for (int j = 0; j < kFN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wr + frag_row(0, e), c = wc + frag_col(j, e);
-          acc[0][j][e] = (Cin != nullptr && r < bm && c < bn)
-                             ? Cst[s * tile_c + r * bn + c]
-                             : Acc(0);
-        }
-      if constexpr (kV == kVW8A8)
-        mma_slab_s8<1, kFN>(acc, Ap8, Rows8{p.bk}, wr, bm - wr, b_bytes(s),
-                            Rows8{bn}, wc, bn - wc, kc);
-      else if constexpr (kV == kVW8A16)
-        mma_slab_w8<1, kFN, true>(acc, Ap, wr, bm - wr, b_bytes(s), Rows8{bn},
-                                  wc, bn - wc, kc);
-      else
-        mma_slab<1, kFN, true>(acc, Ap, wr, bm - wr, b_tile(s), wc, bn - wc,
-                               kc);
-#pragma unroll
-      for (int j = 0; j < kFN; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = wr + frag_row(0, e), c = wc + frag_col(j, e);
-          const int col = t * bn + c;
-          if (r >= rows_valid || c >= bn || col >= p.N) continue;
-          const size_t at = static_cast<size_t>(row0 + r) * p.N + col;
-          if (kFinal) {
-            if constexpr (kV == kVW8A8) {
-              if (p.out_dtype == kI32) {  // the bare int32 sums
-                static_cast<int*>(o.c)[at] = acc[0][j][e];
-                continue;
-              }
-            }
-            float rv = 0.0f;
-            if (o.res != nullptr) {
-              const size_t ri = s * tile_c + r * bn + c;
-              rv = res_size == 2
-                       ? to_f32(reinterpret_cast<__nv_bfloat16*>(Rs)[ri])
-                       : reinterpret_cast<float*>(Rs)[ri];
-            }
-            float x = static_cast<float>(acc[0][j][e]);
-            if constexpr (kV != kVBf16)
-              x = dequant(x, o.scale != nullptr ? Scale_s + s * bn : nullptr,
-                          c);
-            x = epilogue(x, o.bias != nullptr,
-                         o.bias != nullptr ? Bias_s[s * bn + c] : 0.0f, p.act,
-                         o.res != nullptr, rv);
-            store_out(o.c, at, x, p.out_dtype, o.out_scale);
-          } else {
-            Cacc[at] = acc[0][j][e];
-          }
-        }
-    }
-    __syncthreads();  // stage s is refilled by the next iteration's issue
-  }
-}
-
-template <int kFN, bool kFinal, int kV>
-int launch_mma(const TbOperands& o, const TbArgs& p, size_t smem,
-               cudaStream_t stream) {
-  auto kernel = gemm_tb_mma_kernel<kFN, kFinal, kV>;
-  static bool configured = false;  // one attribute call per instantiation
-  if (!configured) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kMaxSmem);
-    configured = true;
-  }
-  const int n_tiles = (p.N + p.bn - 1) / p.bn;
-  dim3 grid((n_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta,
-            (p.M + p.bm - 1) / p.bm);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = grid;
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, o, p));
-}
-
-template <typename TB, int kRows, bool kFinal>
-int launch_rows(const TbOperands& o, const TbArgs& p, size_t smem,
-                cudaStream_t stream) {
-  auto kernel = gemm_tb_kernel<TB, kRows, kFinal>;
-  static bool configured = false;  // one attribute call per instantiation
-  if (!configured) {
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kMaxSmem);
-    configured = true;
-  }
-  const int n_tiles = (p.N + p.bn - 1) / p.bn;
-  dim3 grid((n_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta,
-            (p.M + p.bm - 1) / p.bm);
-  kernel<<<grid, kThreads, smem, stream>>>(o, p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename TB, bool kFinal>
-int launch_f32(const TbOperands& o, const TbArgs& p, size_t smem,
-               cudaStream_t stream) {
-  const int groups = kThreads / p.bn;
-  const int rows = (p.bm + groups - 1) / groups;
-  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows <= 1) return launch_rows<TB, 1, kFinal>(o, p, smem, stream);
-  if (rows <= 2) return launch_rows<TB, 2, kFinal>(o, p, smem, stream);
-  if (rows <= 4) return launch_rows<TB, 4, kFinal>(o, p, smem, stream);
-  if (rows <= 8) return launch_rows<TB, 8, kFinal>(o, p, smem, stream);
-  return launch_rows<TB, kMaxRows, kFinal>(o, p, smem, stream);
-}
-
-template <bool kFinal, int kV>
-int launch_tc(const TbOperands& o, const TbArgs& p, size_t smem,
-              cudaStream_t stream) {
-  const int blocks = (p.bm + 15) / 16, frags = (p.bn + 7) / 8;
-  if (blocks * frags <= kWarps)
-    return launch_mma<1, kFinal, kV>(o, p, smem, stream);
-  if (blocks * ((frags + 1) / 2) <= kWarps)
-    return launch_mma<2, kFinal, kV>(o, p, smem, stream);
-  if (blocks * ((frags + kMaxFrags - 1) / kMaxFrags) <= kWarps)
-    return launch_mma<kMaxFrags, kFinal, kV>(o, p, smem, stream);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
+namespace tb {
 
 // Checks the tile against the kernel's limits, sizes the plan's whole
 // layout (scale, bias and residual stages included, also for B6a, which
@@ -559,9 +15,9 @@ int launch(int variant, const TbOperands& o, const TbArgs& p, bool has_scale,
            bool has_bias, bool has_res, cudaStream_t stream) {
   if (p.bn < 1 || p.bn > kThreads || p.bm < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, a_size(variant),
-                               b_size(variant), p.res_dtype == kBF16 ? 2 : 4,
-                               has_scale, has_bias, has_res);
+  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, variant,
+                               p.res_dtype == kBF16 ? 2 : 4, has_scale,
+                               has_bias, has_res);
   if (L.total > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (variant) {
@@ -600,7 +56,7 @@ TbArgs make_args(int m, int n, int k, int k0, int kc, int bm, int bk, int bn,
   return p;
 }
 
-}  // namespace
+}  // namespace tb
 }  // namespace repro
 
 // Bytes of dynamic shared memory one CTA takes for a tile (-1 for an
@@ -609,9 +65,10 @@ extern "C" int gemm_tb_smem_bytes(int bm, int bk, int bn, int a_dtype,
                                   int b_dtype, int res_dtype, int has_scale,
                                   int has_bias, int has_res) {
   using namespace repro;
+  using namespace repro::tb;
   const int v = variant_of(a_dtype, b_dtype);
   if (v < 0) return -1;
-  return static_cast<int>(tb_layout(bm, bk, bn, a_size(v), b_size(v),
+  return static_cast<int>(tb_layout(bm, bk, bn, v,
                                     res_dtype == kBF16 ? 2 : 4,
                                     has_scale != 0, has_bias != 0,
                                     has_res != 0)
@@ -632,6 +89,7 @@ extern "C" int gemm_tb_accumulate_launch(const void* a, const void* b,
                                          int has_bias, int has_res, int modes,
                                          void* stream) {
   using namespace repro;
+  using namespace repro::tb;
   const TbArgs p = make_args(m, n, k, k0, kc, bm, bk, bn, tiles_per_cta,
                              kNone, kF32, res_dtype, modes);
   const TbOperands o{a, b, c_in, c_acc, nullptr, nullptr, nullptr, nullptr,
@@ -656,6 +114,7 @@ extern "C" int gemm_tb_final_launch(const void* a, const void* b,
                                     int res_dtype, int act, int modes,
                                     void* stream) {
   using namespace repro;
+  using namespace repro::tb;
   const TbArgs p = make_args(m, n, k, k0, kc, bm, bk, bn, tiles_per_cta, act,
                              out_dtype, res_dtype, modes);
   const TbOperands o{a,

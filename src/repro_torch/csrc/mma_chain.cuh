@@ -1,5 +1,6 @@
 // The one tensor-core chain of the bf16 GEMMs (and, at the end of this
-// file, of their int8 paths: mma_slab_w8, mma_slab_s8), shared by kernel B1
+// file, the conversion passes and the s8 chain of their int8 paths),
+// shared by kernel B1
 // (gemm_aie.cu, output-stationary), kernel B6 (gemm_tb.cu, A-stationary),
 // B2 (gemm_gated.cu) and B7 (gemm_grouped.cu, on each group's rows), and
 // the fragment -> (row, col) map of their flush; and the
@@ -300,11 +301,19 @@ __device__ __forceinline__ void mma_slab(float (&acc)[kFM][kFN][4],
 // ---------------------------------------------------------------------------
 //
 // An int8 operand is staged into shared memory at one byte an element (the
-// point of int8 weights: half the bytes of bf16 from device memory) and is
-// read by bytes into the fragment registers, so no transpose of the (k, n)
-// weight layout is needed anywhere.  Layouts map (row, column) to a byte
-// offset: Rows8 plain row-major, Swz128 the tensor memory accelerator's
-// 128-byte swizzle over 128-byte rows (B7's int8 panels).
+// point of int8 weights: half the bytes of bf16 from device memory).  Once a
+// staged slab has landed, all threads of the CTA convert it in one pass:
+//   W8A16: widen_int8 writes the slab as bf16 (exact: |v| <= 128 needs 8
+//     significand bits) into the swizzled tile mma_slab reads, so the bf16
+//     chain runs unchanged on the widened weights, step for step and bit
+//     for bit;
+//   W8A8: transpose_int8 writes the (k, n) slab k-major ([n][k]), the
+//     layout whose ldmatrix gives the .col B fragment of mma.sync m16n8k32
+//     s8 (four consecutive k of one column a register), for mma_slab_s8.
+// Layouts map (row, column) to a byte offset: Rows8 plain row-major, Swz128
+// the tensor memory accelerator's 128-byte swizzle over 128-byte rows (B7's
+// int8 panels), Swz8 the bytes of a swizzled SmemTile viewed as b16 (an int8
+// tile that ldmatrix reads).
 
 struct Rows8 {
   int ld;  // bytes a row
@@ -317,14 +326,79 @@ struct Swz128 {
   }
 };
 
-// Two int8 values widened to bf16 (exact: |v| <= 128 needs 8 significand
-// bits) and packed low, high.
-__device__ __forceinline__ uint32_t widen2(int8_t lo, int8_t hi) {
-  return static_cast<uint32_t>(
-             __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(lo)))) |
-         static_cast<uint32_t>(
-             __bfloat16_as_ushort(__float2bfloat16_rn(static_cast<float>(hi))))
-             << 16;
+// An int8 tile of rows of 2 * t.ld bytes, whose 16-byte chunks are placed as
+// those of the b16 tile t: ldmatrix on t reads it.
+struct Swz8 {
+  SmemTile t;
+  __device__ __forceinline__ int at(int r, int c) const {
+    return 2 * t.at(r, c >> 1) + (c & 1);
+  }
+};
+
+// Element offsets of a bf16 SmemTile, as a layout.
+struct Tile16 {
+  SmemTile t;
+  __device__ __forceinline__ int at(int r, int c) const { return t.at(r, c); }
+};
+
+// The rows x cols int8 values at src (layout sl) widened to bf16 at dst
+// (element layout dl), four a thread at a time: cols % 4 == 0, and both
+// layouts keep each group of four columns whole (16-byte / 8-element
+// chunks).  kThreads threads take part, tid being this one's index.
+template <int kThreads, typename SL, typename DL>
+__device__ __forceinline__ void widen_int8(const int8_t* src, const SL& sl,
+                                           __nv_bfloat16* dst, const DL& dl,
+                                           int rows, int cols, int tid) {
+  const int units = cols >> 2;
+  for (int i = tid; i < rows * units; i += kThreads) {
+    const int r = i / units, c = (i - r * units) << 2;
+    const uint32_t w = *reinterpret_cast<const uint32_t*>(src + sl.at(r, c));
+    const __nv_bfloat162 lo = __floats2bfloat162_rn(
+        static_cast<float>(static_cast<int8_t>(w)),
+        static_cast<float>(static_cast<int8_t>(w >> 8)));
+    const __nv_bfloat162 hi = __floats2bfloat162_rn(
+        static_cast<float>(static_cast<int8_t>(w >> 16)),
+        static_cast<float>(static_cast<int8_t>(w >> 24)));
+    uint2 v;
+    v.x = *reinterpret_cast<const uint32_t*>(&lo);
+    v.y = *reinterpret_cast<const uint32_t*>(&hi);
+    *reinterpret_cast<uint2*>(dst + dl.at(r, c)) = v;
+  }
+}
+
+// The k_rows x n_cols int8 slab at src (layout sl, row k) transposed into
+// dst (layout dl, row n, column k), 4 x 4 bytes a thread; rows k >= k_valid
+// read as zero.  k_rows % 4 == 0 and n_cols % 4 == 0.
+template <int kThreads, typename SL, typename DL>
+__device__ __forceinline__ void transpose_int8(const int8_t* src,
+                                               const SL& sl, int8_t* dst,
+                                               const DL& dl, int k_rows,
+                                               int k_valid, int n_cols,
+                                               int tid) {
+  const int nb = n_cols >> 2;
+  for (int i = tid; i < (k_rows >> 2) * nb; i += kThreads) {
+    const int k0 = (i / nb) << 2, n0 = (i - (i / nb) * nb) << 2;
+    uint32_t w[4];
+#pragma unroll
+    for (int x = 0; x < 4; ++x)
+      w[x] = k0 + x < k_valid
+                 ? *reinterpret_cast<const uint32_t*>(src + sl.at(k0 + x, n0))
+                 : 0u;
+    // byte j of w[x] is (k0 + x, n0 + j); output word j packs (k0 .. +3,
+    // n0 + j), k ascending from the low byte
+    const uint32_t t0 = __byte_perm(w[0], w[1], 0x5140);
+    const uint32_t t1 = __byte_perm(w[2], w[3], 0x5140);
+    const uint32_t t2 = __byte_perm(w[0], w[1], 0x7362);
+    const uint32_t t3 = __byte_perm(w[2], w[3], 0x7362);
+    *reinterpret_cast<uint32_t*>(dst + dl.at(n0 + 0, k0)) =
+        __byte_perm(t0, t1, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + dl.at(n0 + 1, k0)) =
+        __byte_perm(t0, t1, 0x7632);
+    *reinterpret_cast<uint32_t*>(dst + dl.at(n0 + 2, k0)) =
+        __byte_perm(t2, t3, 0x5410);
+    *reinterpret_cast<uint32_t*>(dst + dl.at(n0 + 3, k0)) =
+        __byte_perm(t2, t3, 0x7632);
+  }
 }
 
 // d = a (16x32 s8, row) * b (32x8 s8, col) + d, int32 accumulate (exact).
@@ -336,129 +410,60 @@ __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// The A fragments of one k16 step of mma_slab, as mma_slab builds them:
-// ldmatrix for a whole step of a chunked tile, else element loads (A rows
-// >= a_rows and k >= k_len read as zero).  Rows past a_rows only ever feed
-// C rows that are not stored.
-template <int kFM, bool kEdge>
-__device__ __forceinline__ void a_frags(uint32_t (&a)[kFM][4],
-                                        const SmemTile& A, int a_r0,
-                                        int a_rows, int kk, int k_len) {
-  const int lane = threadIdx.x & 31;
-  if (A.chunked() && kk + 16 <= k_len) {
+__device__ __forceinline__ void ldsm_x2(uint32_t& r0, uint32_t& r1,
+                                        const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r0), "=r"(r1)
+      : "r"(smem_addr(p)));
+}
+
+// The W8A8 chain over one staged k-slab for one warp, on mma.sync m16n8k32
+// s8 with int32 accumulators: for kk = 0, 32, ... < k_len (a multiple of 32;
+// the slab zero-filled to it), acc[i][j] += A[a_r0 + 16 i .. +16][a_k0 + kk
+// .. +32] * B[kk .. +32][b_c0 + 8 j .. +8].  A is an int8 tile (the b16
+// view of its Swz8 layout: ld, in b16, a multiple of 8), Bt the slab
+// k-major (transpose_int8, the same view); both by ldmatrix, as mma_slab
+// reads bf16 A and mma_qkt reads K.  kEdge: as mma_slab's (A rows past
+// a_rows read a copy of the last row present; a block of at most 8 rows has
+// its other 8 zero).  The sums are exact, so an element's value does not
+// depend on the k order or split.
+template <int kFM, int kFN, bool kEdge>
+__device__ __forceinline__ void mma_slab_s8(int (&acc)[kFM][kFN][4],
+                                            const SmemTile& A, int a_r0,
+                                            int a_rows, int a_k0,
+                                            const SmemTile& Bt, int b_c0,
+                                            int k_len) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  for (int kk = 0; kk < k_len; kk += 32) {
+    uint32_t a[kFM][4], b[kFN][2];
 #pragma unroll
     for (int i = 0; i < kFM; ++i) {
       const int rows = a_rows - 16 * i;
       const int r = a_r0 + 16 * i +
                     (kEdge ? min(lane & 15, max(rows - 1, 0)) : (lane & 15));
-      const int f = ((r >> A.sh) & A.mask) ^ (lane >> 4);
-      ldsm_x4(a[i], A.p + r * A.ld + (((kk >> 3) ^ f) << 3));
-      if (kEdge) {  // a block of at most 8 rows: its other 8 are zero
+      const int chunk = ((a_k0 + kk) >> 4) + (lane >> 4);
+      ldsm_x4(a[i], A.p + r * A.ld + ((chunk ^ ((r >> A.sh) & A.mask)) << 3));
+      if (kEdge) {
         a[i][1] = rows > 8 ? a[i][1] : 0u;
         a[i][3] = rows > 8 ? a[i][3] : 0u;
       }
     }
-    return;
-  }
-  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int i = 0; i < kFM; ++i)
-#pragma unroll
-    for (int h = 0; h < 4; ++h) {
-      const int rr = g + 8 * (h & 1), c = kk + 2 * t + 8 * (h >> 1);
-      const bool ok = rr < a_rows - 16 * i;
-      const int r = a_r0 + 16 * i + rr;
-      a[i][h] = bits(A, r, c, ok && c < k_len) |
-                bits(A, r, c + 1, ok && c + 1 < k_len) << 16;
-    }
-}
-
-// mma_slab with B an int8 tile (W8A16): each B fragment register is built
-// from two bytes, widened to bf16, so it holds exactly the registers
-// mma_slab would load from B.to(bfloat16), and the chain (k = 0, 16, 32,
-// ... ascending, the k tail read as zero) is mma_slab's step for step: an
-// element's bits equal the bf16 chain's on the widened weights.  B entries
-// at k >= k_len or columns >= b_cols read as zero (they feed only C
-// elements past the tile).  B points at the tile's row 0 in layout BL.
-template <int kFM, int kFN, bool kEdge, typename BL>
-__device__ __forceinline__ void mma_slab_w8(float (&acc)[kFM][kFN][4],
-                                            const SmemTile& A, int a_r0,
-                                            int a_rows, const int8_t* B,
-                                            const BL& bl, int b_c0,
-                                            int b_cols, int k_len) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int kk = 0; kk < k_len; kk += 16) {
-    uint32_t a[kFM][4], b[kFN][2];
-    a_frags<kFM, kEdge>(a, A, a_r0, a_rows, kk, k_len);
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) {
-      const int n = 8 * j + g;
-      const bool ok = n < b_cols;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = kk + 2 * t + 8 * h;
-        const int8_t lo = ok && k < k_len ? B[bl.at(k, b_c0 + n)] : 0;
-        const int8_t hi = ok && k + 1 < k_len ? B[bl.at(k + 1, b_c0 + n)] : 0;
-        b[j][h] = widen2(lo, hi);
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kFM; ++i)
-#pragma unroll
-      for (int j = 0; j < kFN; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
-  }
-}
-
-// Four int8 values packed low to high (k ascending), zero where !ok.
-__device__ __forceinline__ uint32_t pack4(int8_t v0, int8_t v1, int8_t v2,
-                                          int8_t v3) {
-  return static_cast<uint32_t>(static_cast<uint8_t>(v0)) |
-         static_cast<uint32_t>(static_cast<uint8_t>(v1)) << 8 |
-         static_cast<uint32_t>(static_cast<uint8_t>(v2)) << 16 |
-         static_cast<uint32_t>(static_cast<uint8_t>(v3)) << 24;
-}
-
-// The W8A8 chain over one staged k-slab for one warp: int8 A (layout AL)
-// against int8 B (layout BL) on mma.sync m16n8k32 with int32 accumulators,
-// k = 0, 32, 64, ... < k_len.  Register h of an A fragment holds row
-// g + 8 (h & 1), k 4t + 16 (h >> 1) .. +3; of a B fragment, k 4t + 16 h ..
-// +3 of column g (g = lane / 4, t = lane % 4), packed from bytes.  A rows
-// >= a_rows, B columns >= b_cols and k >= k_len read as zero.  The sums are
-// exact, so an element's value does not depend on the k order or split.
-template <int kFM, int kFN, typename AL, typename BL>
-__device__ __forceinline__ void mma_slab_s8(int (&acc)[kFM][kFN][4],
-                                            const int8_t* A, const AL& al,
-                                            int a_r0, int a_rows,
-                                            const int8_t* B, const BL& bl,
-                                            int b_c0, int b_cols, int k_len) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  for (int kk = 0; kk < k_len; kk += 32) {
-    uint32_t a[kFM][4], b[kFN][2];
-#pragma unroll
-    for (int i = 0; i < kFM; ++i)
-#pragma unroll
-      for (int h = 0; h < 4; ++h) {
-        const int rr = g + 8 * (h & 1), c = kk + 4 * t + 16 * (h >> 1);
-        const bool ok = rr < a_rows - 16 * i;
-        const int r = a_r0 + 16 * i + rr;
-        int8_t v[4];
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-          v[x] = ok && c + x < k_len ? A[al.at(r, c + x)] : 0;
-        a[i][h] = pack4(v[0], v[1], v[2], v[3]);
-      }
-#pragma unroll
-    for (int j = 0; j < kFN; ++j) {
-      const int n = 8 * j + g;
-      const bool ok = n < b_cols;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int k = kk + 4 * t + 16 * h;
-        int8_t v[4];
-#pragma unroll
-        for (int x = 0; x < 4; ++x)
-          v[x] = ok && k + x < k_len ? B[bl.at(k + x, b_c0 + n)] : 0;
-        b[j][h] = pack4(v[0], v[1], v[2], v[3]);
+    for (int j = 0; j < kFN; j += 2) {
+      if (j + 1 < kFN) {
+        const int n = b_c0 + 8 * j + 8 * (mi >> 1) + (lane & 7);
+        const int chunk = (kk >> 4) + (mi & 1);
+        uint32_t r[4];
+        ldsm_x4(r, Bt.p + n * Bt.ld +
+                       ((chunk ^ ((n >> Bt.sh) & Bt.mask)) << 3));
+        b[j][0] = r[0], b[j][1] = r[1], b[j + 1][0] = r[2],
+        b[j + 1][1] = r[3];
+      } else {
+        const int n = b_c0 + 8 * j + (lane & 7);
+        const int chunk = (kk >> 4) + (mi & 1);
+        ldsm_x2(b[j][0], b[j][1],
+                Bt.p + n * Bt.ld + ((chunk ^ ((n >> Bt.sh) & Bt.mask)) << 3));
       }
     }
 #pragma unroll

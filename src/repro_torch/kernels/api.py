@@ -245,16 +245,16 @@ def gemm_grouped_shapes(a, b, dense_rows: Optional[int] = None
 
 #: what each kernel is, for explain(): (kernel, source, the (bm, bk, bn)
 #: CTA tile it launches whatever the plan's tile says — B1's and B2's by
-#: (m, n, dtype), B7's by rows per expert — or None when it runs the
-#: plan's)
+#: (m, n) and the operand dtypes, B7's by rows per expert — or None when
+#: it runs the plan's)
 _KERNELS = {
     "aie": ("B1 gemm_aie", "src/repro_torch/csrc/gemm_aie.cu",
-            lambda pl, dtype: _aie_cta(pl.m, pl.n, dtype)),
+            lambda pl, a, b: _aie_cta(pl.m, pl.n, a, b)),
     "gated": ("B2 gemm_gated", "src/repro_torch/csrc/gemm_gated.cu",
-              lambda pl, dtype: _gated_cta(pl.m, pl.n, dtype)),
+              lambda pl, a, b: _gated_cta(pl.m, pl.n, a, b)),
     "tb": ("B6 gemm_tb", "src/repro_torch/csrc/gemm_tb.cu", None),
     "grouped": ("B7 gemm_grouped", "src/repro_torch/csrc/gemm_grouped.cu",
-                lambda pl, dtype: _grouped_cta(pl.m, pl.n_groups, dtype)),
+                lambda pl, a, b: _grouped_cta(pl.m, pl.n_groups, a, b)),
 }
 
 
@@ -338,7 +338,8 @@ class GemmPlan:
                    "and sweeps its share of the n tiles (the panel re-read "
                    "per CTA hits L2; the model bills A once)")
         else:
-            cta = cta(self, getattr(torch, p.a_dtype))
+            cta = cta(self, getattr(torch, p.a_dtype),
+                      getattr(torch, p.b_dtype))
             how = (f"launches its compiled {cta[0]}x{cta[1]}x{cta[2]} "
                    "(bm x bk x bn) CTA tile whatever the plan's tile says; "
                    "the tile below is the cost model's")

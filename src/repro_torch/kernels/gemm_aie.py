@@ -42,6 +42,9 @@ F32_TILE = (16, 128, 32)
 #: and 8, 32 or 64 columns for few rows, 64 x 64 for more
 BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 32), 3: (16, 128, 64),
               4: (64, 64, 64)}
+#: the same CTA shapes with an int8 B (W8A16, W8A8): slabs twice as deep,
+#: so a stage holds as many bytes of B
+INT8_TILES = {c: (bm, 2 * bk, bn) for c, (bm, bk, bn) in BF16_TILES.items()}
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
@@ -63,11 +66,14 @@ def _config(m: int, n: int, dtype) -> int:
     return 1
 
 
-def cta_tile(m: int, n: int, dtype=torch.bfloat16):
+def cta_tile(m: int, n: int, dtype=torch.bfloat16, b_dtype=None):
     """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C
-    with A of ``dtype``."""
+    with A of ``dtype`` and B of ``b_dtype`` (default A's)."""
     config = _config(m, n, dtype)
-    return BF16_TILES[config] if config else F32_TILE
+    if not config:
+        return F32_TILE
+    return (INT8_TILES if torch.int8 in (dtype, b_dtype)
+            else BF16_TILES)[config]
 
 
 def default_out_dtype(a_dtype, *, fused: bool, out_scale=None):
@@ -206,7 +212,7 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     config, modes = _config(m, n, a.dtype), 0
     if config:  # the tensor-core body's staging copy modes of A and B
-        _, bk, bn = BF16_TILES[config]
+        _, bk, bn = cta_tile(m, n, a.dtype, b.dtype)
         modes = _build.copy_mode(a, k, bk) | _build.copy_mode(b, n, bn) << 2
     ptr = _build.ptr
     rc = _build.entry("gemm_aie_launch", _ARGTYPES)(

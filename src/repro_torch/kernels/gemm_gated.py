@@ -39,6 +39,8 @@ F32_TILE = (16, 64, 32)
 #: gives 160 CTAs, at least 7 of every 8 SMs: one SM streams only a share
 #: of the card's memory rate), 64 x 64 for more rows
 BF16_TILES = {1: (16, 128, 16), 2: (64, 64, 64)}
+#: the same CTA shapes with int8 weights: slabs twice as deep
+INT8_TILES = {c: (bm, 2 * bk, bn) for c, (bm, bk, bn) in BF16_TILES.items()}
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
@@ -50,11 +52,14 @@ def _config(m: int, dtype) -> int:
     return 1 if m <= 16 else 2
 
 
-def cta_tile(m: int, n: int, dtype=torch.bfloat16):
-    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C; n
-    does not choose it (ragged n is masked)."""
+def cta_tile(m: int, n: int, dtype=torch.bfloat16, b_dtype=None):
+    """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C
+    with A of ``dtype`` and weights of ``b_dtype`` (default A's); n does
+    not choose it (ragged n is masked)."""
     config = _config(m, dtype)
-    return BF16_TILES[config] if config else F32_TILE
+    if not config:
+        return F32_TILE
+    return (INT8_TILES if b_dtype == torch.int8 else BF16_TILES)[config]
 
 
 def gemm_gated_plain(a: torch.Tensor, b_gate: torch.Tensor,
@@ -118,7 +123,7 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     config, modes = _config(m, a.dtype), 0
     if config:  # the bf16 body's staging copy modes of A and of both Bs
-        _, bk, bn = BF16_TILES[config]
+        _, bk, bn = cta_tile(m, n, a.dtype, b_gate.dtype)
         modes = _build.copy_mode(a, k, bk) | min(
             _build.copy_mode(b_gate, n, bn),
             _build.copy_mode(b_up, n, bn)) << 2

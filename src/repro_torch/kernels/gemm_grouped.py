@@ -44,6 +44,9 @@ from repro_torch.kernels.ref import gemm_grouped_ref
 #: 16-row block, eight warps across 128 columns, 128-deep slabs), 2 in
 #: prefill (a 64-row m tile of four 16-row blocks by two 64-column halves)
 BF16_TILES = {1: (16, 128, 128), 2: (64, 64, 128)}
+#: the same with an int8 bank (W8A16): the decode slabs twice as deep, so a
+#: stage holds as many bytes of B
+INT8_TILES = {1: (16, 256, 128), 2: (64, 64, 128)}
 #: the (bm, bk, bn) C tiles of the f32 body, by the same index
 #: (csrc/gemm_grouped.cu launch_f32)
 F32_TILES = {1: (8, 64, 128), 2: (16, 64, 64)}
@@ -53,8 +56,10 @@ _TABLE_ARGTYPES = [ctypes.c_void_p] + [ctypes.c_int] * 4 + \
     [ctypes.c_void_p] * 5
 
 
-def _tiles(dtype) -> dict:
-    return BF16_TILES if dtype == torch.bfloat16 else F32_TILES
+def _tiles(dtype, b_dtype=None) -> dict:
+    if dtype != torch.bfloat16:
+        return F32_TILES
+    return INT8_TILES if b_dtype == torch.int8 else BF16_TILES
 
 
 def _config(m: int, e: int) -> int:
@@ -63,10 +68,11 @@ def _config(m: int, e: int) -> int:
     return 1 if m <= e else 2
 
 
-def cta_tile(m: int, e: int, dtype=torch.bfloat16):
+def cta_tile(m: int, e: int, dtype=torch.bfloat16, b_dtype=None):
     """The (bm, bk, bn) CTA tile the kernel launches for m routed rows
-    over e experts."""
-    return _tiles(dtype)[_config(m, e)]
+    over e experts, A of ``dtype`` and a bank of ``b_dtype`` (default
+    A's)."""
+    return _tiles(dtype, b_dtype)[_config(m, e)]
 
 
 def _repeat(values: torch.Tensor, repeats: torch.Tensor, total: int
@@ -257,7 +263,7 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
     m, k = a.shape
     e, _, n = b.shape
     config = _config(m, e) if cta is None else cta
-    bm, bk, bn = _tiles(a.dtype)[config]
+    bm, bk, bn = _tiles(a.dtype, b.dtype)[config]
     if cdiv(m, bm) + e - 1 > 65535:
         raise ValueError(f"gemm_grouped: {cdiv(m, bm) + e - 1} tile "
                          "instances exceed the grid's 65535 rows")

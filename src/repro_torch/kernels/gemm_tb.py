@@ -53,8 +53,10 @@ _ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 \
 _FINAL_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 \
     + [ctypes.c_void_p]
 _SMEM_ARGTYPES = [ctypes.c_int] * 9
-#: the k-depth of one tensor-core step of the bf16 body (m16n8k16)
+#: the k-depth of one tensor-core step of the bf16 body (m16n8k16) and of
+#: the int8 x int8 body (m16n8k32)
 MMA_K = 16
+MMA_K_S8 = 32
 
 
 def feasible_bk(m: int, k: int, n: int, tile: TileConfig, a_dtype,
@@ -158,7 +160,7 @@ def smem_bytes(bm: int, bk: int, bn: int, a_dtype, res_dtype=None, *,
                b_dtype=None, scale: bool = False, bias: bool = False,
                residual: bool = False) -> int:
     """Dynamic shared memory B6 allocates for a tile (``tb_layout`` in
-    ``csrc/gemm_tb.cu``); equal to ``vmem_footprint`` on
+    ``csrc/gemm_tb.cuh``); equal to ``vmem_footprint`` on
     ``HOPPER_H100`` whenever the residual's dtype is the out dtype."""
     fn = _build.entry("gemm_tb_smem_bytes", _SMEM_ARGTYPES)
     return fn(bm, bk, bn, _build.dtype_code(a_dtype, "gemm_tb A"),
@@ -229,6 +231,14 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     if a.dtype == torch.bfloat16 and bk < k:
         # the chunks continue one tensor-core chain: boundaries on its k-grid
         bk = max(MMA_K, bk - bk % MMA_K)
+    if a.dtype == torch.int8:
+        # the int8 panel is read in 32-byte k-steps: its width, and every
+        # chunk boundary, on that grid
+        bk = max(MMA_K_S8, bk - bk % MMA_K_S8) if bk < k \
+            else cdiv(k, MMA_K_S8) * MMA_K_S8
+    if b.dtype == torch.int8 and bn % 4:
+        raise ValueError(f"gemm_tb: an int8 B is converted four columns at "
+                         f"a time; bn {bn} is not a multiple of 4")
     a_code = _build.dtype_code(a.dtype, "gemm_tb A")
     b_code = _build.dtype_code(b.dtype, "gemm_tb B")
     out_code = _build.dtype_code(out_dtype, "gemm_tb out")
