@@ -6,9 +6,9 @@ with every block padded to (sublane, lane) tiles; on ``HOPPER_H100`` it
 is the dynamic shared memory of one CTA, with no padding.  For the
 A-stationary ``tb`` strategy on ``HOPPER_H100`` the footprint is exactly
 what kernel B6 allocates (``csrc/gemm_tb.cuh``, ``tb_layout``): the
-resident A panel, two B stages (and an int8 B's converted 128-row
-sub-slab), two C-partial stages, and two stages of each fused epilogue
-operand.
+resident A panel, two B stages (and, int8 x int8, the 128-row
+transposed sub-slab), two C-partial stages, and two stages of each fused
+epilogue operand.
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ from repro_torch.core.tiling import (
 
 # Streams from device memory are double-buffered: two stages in flight.
 PIPELINE_STAGES = 2
-# The k-rows of an int8 B tile kernel B6 converts at a time (gemm_tb.cuh
-# kSub), on a sheet that does not pad tiles
+# The k-rows of an int8 B tile kernel B6's W8A8 body transposes at a time
+# (gemm_tb.cuh kSub), on a sheet that does not pad tiles
 TB_CONV_ROWS = 128
 
 
@@ -111,10 +111,10 @@ def vmem_footprint(tile: TileConfig, p: GemmProblem,
             residual_bytes=residual,
         )
     conv = 0
-    if not chip.pads_tiles and p.b_dtype == "int8":
-        # kernel B6 converts an int8 B tile TB_CONV_ROWS k-rows at a time:
-        # widened to bf16 under a float A, k-major int8 under an int8 A
-        conv = TB_CONV_ROWS * tile.bn * (1 if p.a_dtype == "int8" else 2)
+    if not chip.pads_tiles and p.b_dtype == "int8" and p.a_dtype == "int8":
+        # kernel B6's W8A8 body transposes its int8 B tile TB_CONV_ROWS
+        # k-rows at a time into a k-major sub-slab
+        conv = TB_CONV_ROWS * tile.bn
     return VmemFootprint(
         a_bytes=a,
         b_bytes=PIPELINE_STAGES * b + conv,

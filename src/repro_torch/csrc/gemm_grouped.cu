@@ -49,12 +49,12 @@
 // W8A16 (repro/kernels/gemm_grouped.py:109-111, :177): an int8 expert bank is
 // staged as 128-column panels of 128-byte rows (the same tensor-map box
 // and 128-byte swizzle, now over int8; cp.async rows that are not whole
-// 16-byte units, here 16 columns, in the same layout), widened by every
-// thread into the bf16 slab's layout once it lands (mma_chain.cuh
-// widen_int8), so the bf16 chain runs unchanged, and scaled on the flush by
-// its expert's row of the (E, 1, n) scale, steered by the same tables; an
-// int8 row equals B1's W8A16 row bit for bit.  The f32 body takes an int8
-// bank too.
+// 16-byte units, here 16 columns, in the same layout), widened in registers
+// as ldmatrix reads it (mma_chain.cuh mma_slab_b8: the bf16 chain on the
+// widened values, no conversion pass and no extra barrier), and scaled on
+// the flush by its expert's row of the (E, 1, n) scale, steered by the same
+// tables; an int8 row equals B1's W8A16 row bit for bit.  The f32 body
+// takes an int8 bank too.
 //
 // f32 operands keep the CUDA-core body (gemm_grouped_f32_kernel): a thread
 // owns one C column and kRows rows of the tile, and one fmaf chain over
@@ -471,9 +471,9 @@ __device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
 // With tensor maps (tma), thread 0 fills a stage with box copies; without
 // (an operand whose rows are not whole 16-byte units), every thread stages
 // it by cp.async, zero-filled, into the same layout.  kB8: an int8 bank
-// (W8A16), staged as 128-column panels at one byte an element, widened to
-// the bf16 slab's layout once it lands, and scaled by its expert's row of
-// ``scale`` on the flush.
+// (W8A16), staged as 128-column panels at one byte an element, widened in
+// registers as the chain reads it (mma_slab_b8), and scaled by its
+// expert's row of ``scale`` on the flush.
 template <typename S, bool kB8>
 __global__ void __launch_bounds__(S::kThreads, S::kMinBlocks)
 gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
@@ -515,10 +515,6 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
     return reinterpret_cast<__nv_bfloat16*>(ring + s * kStage);
   };
   auto b_slab = [&](int s) { return ring + s * kStage + 2 * S::kAElems; };
-  // an int8 bank: the landed slab widened to bf16, in the bf16 slab's
-  // layout, after the ring
-  __nv_bfloat16* wide =
-      reinterpret_cast<__nv_bfloat16*>(ring + S::kStages * kStage);
   __shared__ uint64_t full[S::kStages];  // stage s has landed
   if (threadIdx.x == 0) {
     for (int s = 0; s < S::kStages; ++s) mbar_init(&full[s]);
@@ -589,12 +585,6 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
     __syncthreads();  // slab i landed; every warp is done with slab i - 1
     if (i + S::kStages - 1 < slabs) load(i + S::kStages - 1);
     cp_async_commit();
-    if constexpr (kB8) {  // every thread; the buffer's last readers are done
-      widen_int8<S::kThreads>(reinterpret_cast<const int8_t*>(b_slab(s)),
-                              Panels8<S::kBK>{}, wide, Panels<S::kBK>{},
-                              S::kBK, S::kBN, threadIdx.x);
-      __syncthreads();
-    }
     if (!live) continue;
     // the k tail reads zeros up to the 16-grid (out of the tensor, or
     // zero-filled)
@@ -603,15 +593,24 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
     for (int u = 0; u < S::kBK / 64; ++u) {
       const int kl = min(64, k_len - 64 * u);
       if (kl <= 0) break;
-      // the warp's 64-column B panel and its column there, in the landed
-      // bf16 slab or the widened int8 one
-      const int wh = wc >> 6, wcol = wc & 63;
-      __nv_bfloat16* bs =
-          kB8 ? wide : reinterpret_cast<__nv_bfloat16*>(b_slab(s));
-      mma_slab<1, S::kFragN, kEdge>(
-          acc, smem_tile(a_slab(s) + u * S::kBM * 64, 64), wr, a_rows - wr,
-          smem_tile(bs + wh * S::kBK * 64 + u * 64 * 64, 64), wcol, 64 - wcol,
-          kl);
+      const SmemTile at = smem_tile(a_slab(s) + u * S::kBM * 64, 64);
+      if constexpr (kB8) {  // the warp's 128-column int8 panel, widened
+        mma_slab_b8<1, S::kFragN, kEdge>(
+            acc, at, wr, a_rows - wr,
+            smem_tile(reinterpret_cast<__nv_bfloat16*>(
+                          b_slab(s) + (wc >> 7) * S::kBK * 128 +
+                          u * 64 * 128),
+                      64),
+            wc & 127, kl);
+      } else {  // the warp's 64-column bf16 panel and its column there
+        const int wh = wc >> 6, wcol = wc & 63;
+        mma_slab<1, S::kFragN, kEdge>(
+            acc, at, wr, a_rows - wr,
+            smem_tile(reinterpret_cast<__nv_bfloat16*>(b_slab(s)) +
+                          wh * S::kBK * 64 + u * 64 * 64,
+                      64),
+            wcol, 64 - wcol, kl);
+      }
     }
   }
 
@@ -622,7 +621,8 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
   for (int j = 0; j < S::kFragN; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int r = wr + frag_row(0, e), col = wc + frag_col(j, e);
+      const int r = wr + frag_row(0, e),
+                col = wc + (kB8 ? b8_col(j, e) : frag_col(j, e));
       if (r >= rows || col >= cols_valid) continue;
       const size_t at = static_cast<size_t>(lo + r) * p.N + col0 + col;
       float x = acc[0][j][e];
@@ -688,12 +688,11 @@ int launch_mma(const GroupedOperands& o, const int* offsets,
                const int* num_instances, int n_instances,
                const GroupedArgs& p, cudaStream_t stream) {
   auto kernel = gemm_grouped_mma_kernel<S, kB8>;
-  // the ring (its B slab at the bank's width), an int8 bank's widened slab
-  // and the 1 KB alignment slack
+  // the ring (its B slab at the bank's width) and the 1 KB alignment slack
   constexpr size_t kSmem =
       static_cast<size_t>(S::kStages) *
           (2 * S::kAElems + S::kBK * S::kBN * (kB8 ? 1 : 2)) +
-      (kB8 ? 2 * S::kBK * S::kBN : 0) + 1024;
+      1024;
   static bool configured = false;  // one attribute call per shape
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -728,9 +727,9 @@ int launch_mma(const GroupedOperands& o, const int* offsets,
 // BF16_TILES / INT8_TILES gives them (its (bm, bk, bn) must match): 1 at
 // decode, one 16-row block by eight warps of 16 columns, 4 stages, 128-deep
 // slabs with a bf16 bank (144 KB) and 256-deep with an int8 one (as many
-// bytes of B a stage, 96 KB of it in flight; 225 KB with the widened slab);
-// 2 in prefill, four 16-row blocks by two warps of 64 columns, 64-deep
-// slabs, 4 stages (96 KB bf16, 80 KB int8: two CTAs an SM).
+// bytes of B a stage, 96 KB of it in flight; 161 KB); 2 in prefill, four
+// 16-row blocks by two warps of 64 columns, 64-deep slabs, 4 stages (96 KB
+// bf16, 65 KB int8: two CTAs an SM).
 template <bool kB8>
 int launch_tc(int config, const GroupedOperands& o, const int* offsets,
               const int* group_ids, const int* m_tile_ids,

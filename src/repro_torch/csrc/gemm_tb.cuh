@@ -91,12 +91,12 @@ __host__ __device__ constexpr int b_size(int v) {
   return v == kVBf16 ? 2 : v == kVF32 ? 4 : 1;
 }
 
-// The tensor-core bodies convert an int8 B tile kSub k-rows at a time: the
-// widened (W8A16) or k-major (W8A8) sub-slab the MMA warps read.
+// The W8A8 body transposes its int8 B tile kSub k-rows at a time into the
+// k-major sub-slab its chain reads (W8A16 widens B in registers).
 constexpr int kSub = 128;
 
 __host__ __device__ constexpr int conv_size(int v) {
-  return v == kVW8A16 ? 2 : v == kVW8A8 ? 1 : 0;
+  return v == kVW8A8 ? 1 : 0;
 }
 
 // Byte offsets of the shared-memory regions of one CTA: the resident A
@@ -336,11 +336,9 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
   const SmemTile Ap = smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + L.a),
                                 kV == kVW8A8 ? p.bk / 2 : p.bk);
   int8_t* Ap8 = reinterpret_cast<int8_t*>(smem + L.a);
-  // the converted sub-slab: kSub rows of bn bf16 (W8A16), or bn rows of
-  // kSub int8 (W8A8)
-  const SmemTile cw = smem_tile(
-      reinterpret_cast<__nv_bfloat16*>(smem + L.conv),
-      kV == kVW8A8 ? kSub / 2 : p.bn);
+  // W8A8's transposed sub-slab: bn rows of kSub int8
+  const SmemTile cw =
+      smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + L.conv), kSub / 2);
   using Acc = std::conditional_t<kV == kVW8A8, int, float>;
   const Acc* Cin = static_cast<const Acc*>(o.cin);
   Acc* Cacc = static_cast<Acc*>(o.cacc);
@@ -364,12 +362,25 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
   auto b_bytes = [&](int s) {
     return reinterpret_cast<int8_t*>(Bs + s * tile_b);
   };
+  // W8A16: the int8 B tile in the bytes of a b16 tile of bn / 2 columns
+  // (bn a multiple of 16), which ldmatrix reads as mma_slab_b8 widens it;
+  // its rows and the panel's columns zero-filled to the 16-grid
+  auto b8_tile = [&](int s) {
+    return smem_tile(reinterpret_cast<__nv_bfloat16*>(Bs + s * tile_b),
+                     bn / 2);
+  };
+  const int kc16 = (kc + 15) & ~15;
 
   const int groups = ((bn + 7) / 8 + kFN - 1) / kFN;  // fragment runs a block
   const int warp = threadIdx.x >> 5;
   const bool active = warp < ((bm + 15) / 16) * groups;
   const int wr = (warp / groups) * 16;   // the warp's first row
   const int wc = (warp % groups) * 8 * kFN;  // and first column
+  // a C element's column in the warp's fragments (mma_slab_b8 holds the
+  // even and the odd columns of a 16-column group in two fragments)
+  auto col_of = [&](int j, int e) {
+    return wc + (kV == kVW8A16 ? b8_col(j, e) : frag_col(j, e));
+  };
 
   // a tile's B, then (issue_rest) its partial C, scale, bias and residual
   // tiles
@@ -380,6 +391,10 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
       const SmemTile bt = b_tile(s);
       stage_rows<kThreads>(bt.p, bt, static_cast<const __nv_bfloat16*>(o.b) + at,
                            p.N, kc, bn, kc, cols_valid, mode_b, threadIdx.x);
+    } else if constexpr (kV == kVW8A16) {
+      stage_rows<kThreads>(b_bytes(s), Swz8{b8_tile(s)},
+                           static_cast<const int8_t*>(o.b) + at, p.N, kc16,
+                           bn, kc, cols_valid, mode_b, threadIdx.x);
     } else {
       stage_rows<kThreads>(b_bytes(s), Rows8{bn},
                            static_cast<const int8_t*>(o.b) + at, p.N, kc, bn,
@@ -429,9 +444,10 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
     stage_rows<kThreads>(Ap8, Swz8{Ap}, static_cast<const int8_t*>(o.a) + a_at,
                          p.K, bm, (kc + 31) & ~31, rows_valid, kc, mode_a,
                          threadIdx.x);
-  else
+  else  // (W8A16: zero-filled to the 16-grid of the k-steps)
     stage_rows<kThreads>(Ap.p, Ap, static_cast<const __nv_bfloat16*>(o.a) + a_at,
-                         p.K, bm, kc, rows_valid, kc, mode_a, threadIdx.x);
+                         p.K, bm, kV == kVW8A16 ? kc16 : kc, rows_valid, kc,
+                         mode_a, threadIdx.x);
   issue_b(t_begin, 0);
   if (Cin != nullptr) grid_dependency_wait();
   issue_rest(t_begin, 0);
@@ -452,7 +468,7 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
       for (int j = 0; j < kFN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = wr + frag_row(0, e), c = wc + frag_col(j, e);
+          const int r = wr + frag_row(0, e), c = col_of(j, e);
           acc[0][j][e] = (Cin != nullptr && r < bm && c < bn)
                              ? Cst[s * tile_c + r * bn + c]
                              : Acc(0);
@@ -462,30 +478,23 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
       if (active)
         mma_slab<1, kFN, true>(acc, Ap, wr, bm - wr, b_tile(s), wc, bn - wc,
                                kc);
+    } else if constexpr (kV == kVW8A16) {
+      if (active)
+        mma_slab_b8<1, kFN, true>(acc, Ap, wr, bm - wr, b8_tile(s), wc,
+                                  kc16);
     } else {
-      // an int8 B tile, kSub k-rows at a time: every thread converts them,
-      // then the chain continues over them (the sub-slab boundaries are on
-      // the k-steps' grid, so the chain is one sequence over the chunk)
+      // W8A8: the int8 B tile, kSub k-rows at a time, transposed k-major by
+      // every thread, then the s8 chain over them (exact int32 sums)
       for (int kk0 = 0; kk0 < kc; kk0 += kSub) {
         const int len = min(kSub, kc - kk0);
-        const int8_t* bsub = b_bytes(s) + static_cast<size_t>(kk0) * bn;
-        if constexpr (kV == kVW8A16)
-          widen_int8<kThreads>(bsub, Rows8{bn}, cw.p, Tile16{cw}, len, bn,
-                               threadIdx.x);
-        else
-          transpose_int8<kThreads>(bsub, Rows8{bn},
-                                   reinterpret_cast<int8_t*>(cw.p), Swz8{cw},
-                                   (len + 31) & ~31, len, bn, threadIdx.x);
+        transpose_int8<kThreads>(b_bytes(s) + static_cast<size_t>(kk0) * bn,
+                                 Rows8{bn}, reinterpret_cast<int8_t*>(cw.p),
+                                 Swz8{cw}, (len + 31) & ~31, len, bn,
+                                 threadIdx.x);
         __syncthreads();
-        if (active) {
-          if constexpr (kV == kVW8A16)
-            mma_slab<1, kFN, true>(
-                acc, SmemTile{Ap.p + kk0, Ap.ld, Ap.sh, Ap.mask}, wr, bm - wr,
-                cw, wc, bn - wc, len);
-          else
-            mma_slab_s8<1, kFN, true>(acc, Ap, wr, bm - wr, kk0, cw, wc,
-                                      (len + 31) & ~31);
-        }
+        if (active)
+          mma_slab_s8<1, kFN, true>(acc, Ap, wr, bm - wr, kk0, cw, wc,
+                                    (len + 31) & ~31);
         __syncthreads();  // the sub-slab is rewritten next
       }
     }
@@ -494,7 +503,7 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
       for (int j = 0; j < kFN; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int r = wr + frag_row(0, e), c = wc + frag_col(j, e);
+          const int r = wr + frag_row(0, e), c = col_of(j, e);
           const int col = t * bn + c;
           if (r >= rows_valid || c >= bn || col >= p.N) continue;
           const size_t at = static_cast<size_t>(row0 + r) * p.N + col;
@@ -589,7 +598,8 @@ template <bool kFinal, int kV>
 int launch_tc(const TbOperands& o, const TbArgs& p, size_t smem,
               cudaStream_t stream) {
   const int blocks = (p.bm + 15) / 16, frags = (p.bn + 7) / 8;
-  if (blocks * frags <= kWarps)
+  // (W8A16 takes its fragments in 16-column pairs)
+  if (kV != kVW8A16 && blocks * frags <= kWarps)
     return launch_mma<1, kFinal, kV>(o, p, smem, stream);
   if (blocks * ((frags + 1) / 2) <= kWarps)
     return launch_mma<2, kFinal, kV>(o, p, smem, stream);

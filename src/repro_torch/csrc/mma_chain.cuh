@@ -306,7 +306,8 @@ __device__ __forceinline__ void mma_slab(float (&acc)[kFM][kFN][4],
 //   W8A16: widen_int8 writes the slab as bf16 (exact: |v| <= 128 needs 8
 //     significand bits) into the swizzled tile mma_slab reads, so the bf16
 //     chain runs unchanged on the widened weights, step for step and bit
-//     for bit;
+//     for bit (B7 instead widens its swizzled int8 panels in registers,
+//     mma_slab_b8, the same chain);
 //   W8A8: transpose_int8 writes the (k, n) slab k-major ([n][k]), the
 //     layout whose ldmatrix gives the .col B fragment of mma.sync m16n8k32
 //     s8 (four consecutive k of one column a register), for mma_slab_s8.
@@ -399,6 +400,80 @@ __device__ __forceinline__ void transpose_int8(const int8_t* src,
     *reinterpret_cast<uint32_t*>(dst + dl.at(n0 + 3, k0)) =
         __byte_perm(t2, t3, 0x7632);
   }
+}
+
+// Bytes s and s + 2 of w (int8) widened to bf16 and packed low, high.
+__device__ __forceinline__ uint32_t widen_bytes(uint32_t w, int s) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(
+      static_cast<float>(static_cast<int8_t>(w >> (8 * s))),
+      static_cast<float>(static_cast<int8_t>(w >> (8 * s + 16))));
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The W8A16 chain over one staged k-slab for one warp with B an int8 tile
+// widened in registers, with no pass through shared memory.  B is the b16
+// view of the int8 tile (its chunks swizzled as a SmemTile's: Swz8, or B7's
+// 128-byte swizzle, which is smem_tile(p, 64)'s); ldmatrix.trans of it gives
+// lane (g, t), for the 16 columns c0 .. c0 + 15, the bytes B[k][c0 + 2g],
+// B[k][c0 + 2g + 1] of rows k = kk + 2t, kk + 2t + 1 (and + 8).  The even
+// bytes widened are the B fragment of a virtual n8 fragment of the columns
+// c0, c0 + 2, .., c0 + 14, the odd bytes of c0 + 1, .., c0 + 15.  So
+// fragment 2p of the warp holds the even and 2p + 1 the odd columns of its
+// 16-column group p (b8_col gives a C element's column), and each C element
+// is mma_slab's chain on B.to(bfloat16), step for step.  A is a chunked
+// tile read as mma_slab reads it; k_len a multiple of 16 (both zero-filled
+// to it); b_c0 a multiple of 16; kFN even.
+template <int kFM, int kFN, bool kEdge>
+__device__ __forceinline__ void mma_slab_b8(float (&acc)[kFM][kFN][4],
+                                            const SmemTile& A, int a_r0,
+                                            int a_rows, const SmemTile& B,
+                                            int b_c0, int k_len) {
+  static_assert(kFN % 2 == 0, "16-column groups");
+  const int lane = threadIdx.x & 31;
+  const __nv_bfloat16* pa[kFM];
+  int fa[kFM];
+  bool hi[kFM];
+#pragma unroll
+  for (int i = 0; i < kFM; ++i) {
+    const int rows = a_rows - 16 * i;
+    const int r = a_r0 + 16 * i +
+                  (kEdge ? min(lane & 15, max(rows - 1, 0)) : (lane & 15));
+    pa[i] = A.p + r * A.ld;
+    fa[i] = ((r >> A.sh) & A.mask) ^ (lane >> 4);
+    hi[i] = rows > 8;
+  }
+#pragma unroll 2
+  for (int kk = 0; kk < k_len; kk += 16) {
+    uint32_t a[kFM][4];
+#pragma unroll
+    for (int i = 0; i < kFM; ++i) {
+      ldsm_x4(a[i], pa[i] + (((kk >> 3) ^ fa[i]) << 3));
+      if (kEdge) {  // a block of at most 8 rows: its other 8 are zero
+        a[i][1] = hi[i] ? a[i][1] : 0u;
+        a[i][3] = hi[i] ? a[i][3] : 0u;
+      }
+    }
+    const int r = kk + (lane & 15);
+#pragma unroll
+    for (int p = 0; p < kFN / 2; ++p) {
+      const int ch = (b_c0 >> 4) + p;
+      uint32_t w0, w1;
+      ldsm_x2_t(w0, w1, B.p + r * B.ld + ((ch ^ ((r >> B.sh) & B.mask)) << 3));
+      const uint32_t e0 = widen_bytes(w0, 0), e1 = widen_bytes(w1, 0);
+      const uint32_t o0 = widen_bytes(w0, 1), o1 = widen_bytes(w1, 1);
+#pragma unroll
+      for (int i = 0; i < kFM; ++i) {
+        mma_bf16(acc[i][2 * p], a[i], e0, e1);
+        mma_bf16(acc[i][2 * p + 1], a[i], o0, o1);
+      }
+    }
+  }
+}
+
+// The column (from the warp's first) of element e of fragment j in
+// mma_slab_b8's layout.
+__device__ __forceinline__ int b8_col(int j, int e) {
+  return 16 * (j >> 1) + 2 * frag_col(0, e) + (j & 1);
 }
 
 // d = a (16x32 s8, row) * b (32x8 s8, col) + d, int32 accumulate (exact).

@@ -39,8 +39,6 @@ F32_TILE = (16, 64, 32)
 #: gives 160 CTAs, at least 7 of every 8 SMs: one SM streams only a share
 #: of the card's memory rate), 64 x 64 for more rows
 BF16_TILES = {1: (16, 128, 16), 2: (64, 64, 64)}
-#: the same CTA shapes with int8 weights: slabs twice as deep
-INT8_TILES = {c: (bm, 2 * bk, bn) for c, (bm, bk, bn) in BF16_TILES.items()}
 
 _ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 
@@ -54,12 +52,10 @@ def _config(m: int, dtype) -> int:
 
 def cta_tile(m: int, n: int, dtype=torch.bfloat16, b_dtype=None):
     """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C
-    with A of ``dtype`` and weights of ``b_dtype`` (default A's); n does
-    not choose it (ragged n is masked)."""
+    with A of ``dtype`` (int8 weights run the same ones); n does not
+    choose it (ragged n is masked)."""
     config = _config(m, dtype)
-    if not config:
-        return F32_TILE
-    return (INT8_TILES if b_dtype == torch.int8 else BF16_TILES)[config]
+    return BF16_TILES[config] if config else F32_TILE
 
 
 def gemm_gated_plain(a: torch.Tensor, b_gate: torch.Tensor,

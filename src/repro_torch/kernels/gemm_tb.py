@@ -236,9 +236,10 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
         # chunk boundary, on that grid
         bk = max(MMA_K_S8, bk - bk % MMA_K_S8) if bk < k \
             else cdiv(k, MMA_K_S8) * MMA_K_S8
-    if b.dtype == torch.int8 and bn % 4:
-        raise ValueError(f"gemm_tb: an int8 B is converted four columns at "
-                         f"a time; bn {bn} is not a multiple of 4")
+    if b.dtype == torch.int8 and bn % (4 if a.dtype == torch.int8 else 16):
+        raise ValueError(f"gemm_tb: an int8 B tile is read in 16-column "
+                         f"groups (W8A16) or transposed four columns at a "
+                         f"time (W8A8); bn {bn} does not fit")
     a_code = _build.dtype_code(a.dtype, "gemm_tb A")
     b_code = _build.dtype_code(b.dtype, "gemm_tb B")
     out_code = _build.dtype_code(out_dtype, "gemm_tb out")
