@@ -598,9 +598,10 @@ template <bool kFinal, int kV>
 int launch_tc(const TbOperands& o, const TbArgs& p, size_t smem,
               cudaStream_t stream) {
   const int blocks = (p.bm + 15) / 16, frags = (p.bn + 7) / 8;
-  // (W8A16 takes its fragments in 16-column pairs)
-  if (kV != kVW8A16 && blocks * frags <= kWarps)
-    return launch_mma<1, kFinal, kV>(o, p, smem, stream);
+  if constexpr (kV != kVW8A16) {  // (W8A16 takes fragments in pairs)
+    if (blocks * frags <= kWarps)
+      return launch_mma<1, kFinal, kV>(o, p, smem, stream);
+  }
   if (blocks * ((frags + 1) / 2) <= kWarps)
     return launch_mma<2, kFinal, kV>(o, p, smem, stream);
   if (blocks * ((frags + kMaxFrags - 1) / kMaxFrags) <= kWarps)

@@ -231,6 +231,9 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     if a.dtype == torch.bfloat16 and bk < k:
         # the chunks continue one tensor-core chain: boundaries on its k-grid
         bk = max(MMA_K, bk - bk % MMA_K)
+    elif a.dtype == torch.bfloat16 and b.dtype == torch.int8:
+        # one chunk, its int8 tile zero-filled to the 16-grid
+        bk = cdiv(k, MMA_K) * MMA_K
     if a.dtype == torch.int8:
         # the int8 panel is read in 32-byte k-steps: its width, and every
         # chunk boundary, on that grid
