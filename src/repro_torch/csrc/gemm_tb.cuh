@@ -42,13 +42,14 @@
 // Ragged edges (m, n and the last chunk of k) are zero-filled or skipped,
 // so no caller pads.
 //
-// The int8 paths (repro/kernels/gemm_tb.py:59, :77, :124-134, :232) are B1's:
-// the int8 B tile is staged at one byte an element and converted, kSub
-// k-rows at a time, by every thread: W8A16 widens it to bf16 for the bf16
-// chain (chunk boundaries on the 16-grid), W8A8 transposes it k-major for
-// the m16n8k32 s8 chain on the int8 panel, with an int32 partial between
-// chunks, as the JAX package has; b_scale and the int8 out-quant apply on
-// the last chunk (B6b), the scale staged beside the bias.
+// The int8 paths (repro/kernels/gemm_tb.py:59, :77, :124-134, :232): the int8
+// B tile is staged at one byte an element.  W8A16 widens it in registers as
+// ldmatrix reads it (mma_chain.cuh mma_slab_b8: the bf16 chain on the
+// widened values, chunk boundaries on the 16-grid); W8A8 transposes it
+// k-major, kSub k-rows at a time, for the m16n8k32 s8 chain on the int8
+// panel, with an int32 partial between chunks, as the JAX package has.
+// b_scale and the int8 out-quant apply on the last chunk (B6b), the scale
+// staged beside the bias.
 //
 // Order invariance: every C element is one chain over k = 0..K-1 (B1's:
 // the tensor-core chain for bf16, the fmaf chain for f32): chunk 0 starts
@@ -313,11 +314,12 @@ gemm_tb_kernel(TbOperands o, TbArgs p) {
 // tensor cores.  The tile's cdiv(bm, 16) x cdiv(bn, 8) fragments go to the
 // warps kFN at a time along a 16-row block: warp w owns block w / G,
 // fragments (w % G) kFN .. +kFN of it (G = cdiv(cdiv(bn, 8), kFN)); the
-// host picks the least kFN that needs at most 8 warps.  kV: bf16 runs
-// mma_slab on the swizzled panel and B tile; W8A16 the same chain on the
-// panel and the B tile widened kSub rows at a time; W8A8 mma_slab_s8 on the
-// int8 panel and the B tile transposed kSub rows at a time, the partial
-// between chunks int32 (exact, so the chunking changes no value).
+// host picks the least kFN that needs at most 8 warps (W8A16: an even
+// kFN).  kV: bf16 runs mma_slab on the swizzled panel and B tile; W8A16
+// mma_slab_b8, the same chain on the B tile widened in registers; W8A8
+// mma_slab_s8 on the int8 panel and the B tile transposed kSub rows at a
+// time, the partial between chunks int32 (exact, so the chunking changes
+// no value).
 template <int kFN, bool kFinal, int kV>
 __global__ void __launch_bounds__(kThreads)
 gemm_tb_mma_kernel(TbOperands o, TbArgs p) {

@@ -37,6 +37,7 @@ import torch
 from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
+from repro_torch.kernels.gemm_aie import check_cuda_pair
 from repro_torch.kernels.ref import gemm_grouped_ref
 
 #: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
@@ -255,8 +256,7 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
                                   activation=activation)
     ops = [t for t in (a, b, group_sizes, bias, b_scale) if t is not None]
     _build.require_cuda("gemm_grouped", *ops)
-    if b.dtype != torch.int8 and a.dtype != b.dtype:
-        raise TypeError(f"gemm_grouped: A {a.dtype} and B {b.dtype} differ")
+    check_cuda_pair("gemm_grouped", a, b)
     a_code = _build.dtype_code(a.dtype, "gemm_grouped A")
     b_code = _build.dtype_code(b.dtype, "gemm_grouped B")
     out_code = _build.dtype_code(out_dtype, "gemm_grouped out")
