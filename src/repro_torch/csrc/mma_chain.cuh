@@ -306,8 +306,8 @@ __device__ __forceinline__ void mma_slab(float (&acc)[kFM][kFN][4],
 //   W8A16: widen_int8 writes the slab as bf16 (exact: |v| <= 128 needs 8
 //     significand bits) into the swizzled tile mma_slab reads, so the bf16
 //     chain runs unchanged on the widened weights, step for step and bit
-//     for bit (B7 instead widens its swizzled int8 panels in registers,
-//     mma_slab_b8, the same chain);
+//     for bit (B6 and B7 instead widen their swizzled int8 tiles in
+//     registers, mma_slab_b8, the same chain);
 //   W8A8: transpose_int8 writes the (k, n) slab k-major ([n][k]), the
 //     layout whose ldmatrix gives the .col B fragment of mma.sync m16n8k32
 //     s8 (four consecutive k of one column a register), for mma_slab_s8.

@@ -23,7 +23,7 @@
 Quantized weights arrive as ``{"q": int8, "scale": f32}`` structs
 (:mod:`repro_torch.quant`): the plan bills q at one byte an element plus
 its scale vector, and the kernels run their int8 paths (W8A16: the int8
-weights widened in registers, the scale on the flush).  Under
+weights widened to bf16 on chip, the scale on the flush).  Under
 ``quant.activation_mode() == "w8a8"`` a quantized, non-gated plan with a
 linear epilogue re-routes, as the JAX package's ``execute`` does: the
 activations are quantized per row, an int8 x int8 plan runs with int32
@@ -410,7 +410,7 @@ def _int8_path(pl: GemmPlan) -> Optional[str]:
                      "b_scale on the flush")
     elif p.b_dtype == "int8":
         parts.append("W8A16: int8 B staged at one byte an element, widened "
-                     "to " + p.a_dtype + " in registers (exact), the "
+                     "to " + p.a_dtype + " on chip (exact), the "
                      + ("per-expert (E, 1, n)" if s.grouped else "(1, n)")
                      + " scale" + (" of each accumulator" if s.gated else "")
                      + " on the flush")

@@ -11,7 +11,8 @@ bf16 operands run the m16n8k16 tensor-core chain of
 :func:`cta_tile` picks by m and n, f32 operands an fmaf chain.
 
 The int8 paths run the same CTA shapes: W8A16 (a bf16 or f32 A
-against an int8 weight, widened in registers, its per-column scale on
+against an int8 weight, widened to bf16 in shared memory once each slab
+lands, its per-column scale on
 the flush; bit for bit the bf16 body on the widened weights, then the
 scale), W8A8 (int8 A and B on the int8 tensor cores, int32 sums), and
 an int8 C quantized on the flush by ``out_scale``.
@@ -160,7 +161,7 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
     bias (n,) -> activation -> residual (m,n) -> out-quant in f32.
 
     Operands: bf16 or f32 A and B; a bf16 or f32 A against an int8 B
-    (W8A16: B widened in registers, its per-column ``b_scale`` on the
+    (W8A16: B widened to bf16 on chip, its per-column ``b_scale`` on the
     flush); int8 A and B (W8A8: int32 sums, ``b_scale`` on the flush).
     ``out_scale`` (a scalar) quantizes C to int8 after the epilogue:
     divide, round half to even, clip to +-127.  ``out_dtype`` defaults

@@ -10,8 +10,9 @@ on both accumulators, at a CTA shape :func:`cta_tile` picks by m, so
 each accumulator is bit for bit ``gemm_aie(a, b, out_dtype=float32)``
 and a row's bits do not depend on m; f32 operands run an fmaf chain.
 
-int8 gate/up weights (W8A16) are widened in registers into the same
-chain and each accumulator scaled before the gate.
+int8 gate/up weights (W8A16) are widened to bf16 in shared memory once
+each slab lands, for the same chain, and each accumulator is scaled
+before the gate.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_gated_plain`, a
 CUDA tensor launches the kernel or raises.
@@ -81,7 +82,7 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
                bu_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
     """C[m,n] = act((A @ B_gate) * bg_scale) * ((A @ B_up) * bu_scale);
     output A's dtype by default (gemm_gated.py:94).  The weights are of
-    A's float dtype or both int8 (W8A16: widened in registers, each
+    A's float dtype or both int8 (W8A16: widened to bf16 on chip, each
     accumulator scaled by its (n,) / (1, n) scale before the gate).  An
     int8 A raises: the planner never sends W8A8 to the gated kernel
     (repro/kernels/api.py:1106-1109)."""
