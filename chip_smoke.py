@@ -76,6 +76,21 @@ Phases (any failure raises and the script exits non-zero):
    W8A8; then smollm-360m's weights are quantized to int8 and served
    again, W8A16 dense and paged and W8A8 dense (phase 5), with
    continuous == solo and paged == dense solo greedy in both modes;
+7b. training: one AdamW step of smollm-360m-smoke (f32) from one state
+   on the card and on the CPU, loss, grad norm, gradients, parameters and
+   moments within 1e-4; then ``repro_torch.launch.train.train`` on
+   smollm-360m at full width in bf16 (seq 512, global batch 8, AdamW, 4
+   steps, seed 0): every step's loss and grad norm finite, every
+   gradient leaf finite and non-zero at step 0, each step's launches
+   equal to its executed plans (928 planned GEMMs a step, on B1, B2 and
+   B6, and B3 twice a layer: forward and remat recompute) with B2, B3 and
+   B6 in every step and no plain version; each step's wall and device
+   ms, tokens/s, model-FLOP share and the peak memory printed with the
+   card's name and power limit; the device time of the contiguous copies
+   of the backward's transposed operands; then every distinct GEMM plan
+   of one step, on the kernel and tile it picked, held to its plain
+   version and timed beside ``torch.matmul``, and B3 at b 8 x s 512
+   beside SDPA;
 8. with smollm-360m freed, qwen3-moe-235b-a22b at full width with its
    depth cut to 4 layers (printed with the reason; random weights from
    seed 0): phases 5 and 6 again, dense and paged, every MoE layer
@@ -89,7 +104,8 @@ Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
 sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
 splits each count by model and mode; each entry's times sum the step
 its ``timed_on`` names, a ``qwen3-moe-235b-a22b`` key holds the 4-layer
-MoE step's, and the four GEMMs' ``int8`` objects hold their int8 cases,
+MoE step's, a ``train`` key the full-width training step's, and the
+four GEMMs' ``int8`` objects hold their int8 cases,
 step sums by mode and launches on the int8 paths) and the card line
 before the last line, which is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -114,7 +130,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import ops, quant  # noqa: E402
-from repro_torch.bridge import to_device  # noqa: E402
+from repro_torch.bridge import to_device, tree_leaves  # noqa: E402
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -131,7 +147,10 @@ from repro_torch.kernels.gemm_grouped import (  # noqa: E402
     cta_tile as grouped_cta_tile, gemm_grouped, gemm_grouped_plain,
     group_metadata, steering_tables)
 from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
+from repro_torch.data import pipeline  # noqa: E402
+from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.train import train_step as TS  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     ACCEPTANCE_TRACE, DecodeEngine, Request, acceptance_requests,
     solo_greedy)
@@ -179,6 +198,18 @@ TIMED_ON = {
     "flash_decode_paged": "smollm-360m: one 8-slot decode step",
     "gemm_grouped": "qwen3-moe-235b-a22b at 4 layers: one 8-slot decode "
                     "step",
+}
+#: the same for one full-width smollm-360m training step, under "train"
+TRAIN_TIMED_ON = {
+    "gemm_aie": "smollm-360m training: one step's GEMMs (b 8 x s 512, "
+                "forward, remat recompute and backward) that the "
+                "HOPPER_H100 planner gives this kernel",
+    "gemm_tb": "smollm-360m training: one step's GEMMs that the "
+               "HOPPER_H100 planner gives this kernel",
+    "gemm_gated": "smollm-360m training: one step's gated GEMMs (forward "
+                  "and remat recompute)",
+    "flash_attention": "smollm-360m training: one step's 64 launches "
+                       "(b 8 x s 512, forward and remat recompute)",
 }
 #: the same for qwen3-moe-235b-a22b at 4 layers, under its own key
 MOE_TIMED_ON = {
@@ -1828,6 +1859,251 @@ def quantize(params, name):
                      "gemm_weight_bytes": quant.gemm_weight_bytes(qparams)}
 
 
+# ------------------------------------------------------------ training
+
+#: smollm-360m's training run: the JAX CLI's defaults (sequence 512,
+#: global batch 8), AdamW, seed 0, full width and depth, nothing cut
+TRAIN_STEPS, TRAIN_SEQ, TRAIN_BATCH, LOSS_CHUNKS = 4, 512, 8, 8
+
+
+def train_gemms_per_step(cfg) -> int:
+    """The planned GEMMs of one remat training step: per layer the six
+    forward GEMMs twice (the forward and its recompute), dA and dB of q,
+    k, v, o and down, and the gated pair's two f32 pre-activation
+    recomputes, two dA and two dB; per loss chunk the lm_head forward,
+    its recompute, dA and dB."""
+    return cfg.n_layers * (2 * 6 + 5 * 2 + 6) + 4 * LOSS_CHUNKS
+
+
+class TransposeRecorder:
+    """Counts the operands of the backward's planned GEMMs that arrive as
+    strided views (Wᵀ for dA, Aᵀ for dB), which the kernels' wrappers
+    copy contiguous, by wrapping ``api._plain`` for a ``with``."""
+
+    def __enter__(self):
+        self.views = {}
+        self._plain = api._plain
+
+        def record(a, b, *args, **kw):
+            for t in (a, b):
+                if not t.is_contiguous():
+                    key = (tuple(t.shape), t.dtype)
+                    self.views[key] = self.views.get(key, 0) + 1
+            return self._plain(a, b, *args, **kw)
+        api._plain = record
+        return self
+
+    def __exit__(self, *exc):
+        api._plain = self._plain
+
+
+def train_cross_device_phase():
+    """One ``make_train_step`` step of smollm-360m-smoke (f32, TF32 off)
+    from one state on the card and on the CPU: loss, grad norm, every
+    gradient leaf, and every updated parameter and AdamW moment within
+    1e-4.  The learning rate is 3e-5 from step 0 (no warmup): AdamW's
+    first step moves an element by about lr times its gradient's sign,
+    so an element whose gradient is ~0 and takes another sign on the
+    other device ends at most 2 lr = 6e-5 apart.  The card's side must
+    launch B1 or B6, B2 and B3 and no plain version."""
+    cfg = get_smoke_config("smollm-360m")
+    state = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = pipeline.make_batch(
+        cfg, pipeline.DataConfig(seq_len=32, global_batch=4), 0)
+    step = TS.make_train_step(cfg, peak_lr=3e-5, warmup_steps=0,
+                              return_grads=True)
+    c_state, c_m = step(state, batch)
+    reset_counters()
+    g_state, g_m = step(to_device(state, "cuda"), to_device(batch, "cuda"))
+    torch.cuda.synchronize()
+    launches = counts()
+    plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
+    if any(plain.values()) or not launches["gemm_gated"] \
+            or not launches["flash_attention"] \
+            or not (launches["gemm_aie"] + launches["gemm_tb_final"]):
+        raise RuntimeError(f"train cross-device: card launches {launches}, "
+                           f"plain versions {plain}")
+    worst = {}
+    pairs = [("loss", c_m["loss"], g_m["loss"]),
+             ("grad_norm", c_m["grad_norm"], g_m["grad_norm"])]
+    for tag, c_tree, g_tree in (("grad", c_m["grads"], g_m["grads"]),
+                                ("param", c_state.params, g_state.params),
+                                ("mu", c_state.opt.mu, g_state.opt.mu),
+                                ("nu", c_state.opt.nu, g_state.opt.nu)):
+        pairs += [(tag, c, g) for c, g in zip(tree_leaves(c_tree),
+                                              tree_leaves(g_tree))]
+    for tag, c, g in pairs:
+        torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
+        worst[tag] = max(worst.get(tag, 0.0),
+                         (g.cpu() - c).abs().max().item())
+    log(f"train cross-device: smollm-360m-smoke one AdamW step (f32, lr "
+        f"3e-5), card vs CPU max abs err: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in worst.items())
+        + f" (tolerance 1e-4); card launches {launches}")
+    return {"max_abs_err": worst, "launches": launches}
+
+
+def train_phase(cfg, card):
+    """``repro_torch.launch.train.train`` on smollm-360m at full width in
+    bf16: TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens from
+    seed 0.  Kernel counts and the executed plans are set to 0 just
+    before the run and read, then set to 0 again, after every step: each
+    step's launches must equal its executed plans (B1, B2, B6's chunks),
+    B3 twice a layer (forward and remat recompute), no decode kernel and
+    no plain version; B2, B3 and B6 must launch in every step.  Every
+    step's loss and grad norm must be finite and every parameter leaf's
+    gradient at step 0 finite and non-zero."""
+    if TS.select_optimizer(cfg) != "adamw":
+        raise RuntimeError(f"{cfg.name} would not train with AdamW")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = cfg.model_flops(tokens, training=True)
+    rows, out = [], {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with PlanRecorder() as rec, TransposeRecorder() as tr:
+        def on_step(step, state, m, times):
+            launches = counts()
+            plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
+            want = dict({n: 0 for n in launches}, **rec.implied())
+            want["flash_attention"] = 2 * cfg.n_layers
+            executed = sum(rec.plans.values())
+            if executed != train_gemms_per_step(cfg):
+                raise RuntimeError(f"train step {step}: {executed} GEMMs "
+                                   f"ran, expected "
+                                   f"{train_gemms_per_step(cfg)}")
+            if launches != want or any(plain.values()):
+                raise RuntimeError(f"train step {step}: launches {launches}"
+                                   f" (expected {want}), plain versions "
+                                   f"{plain}")
+            for k in ("gemm_gated", "flash_attention", "gemm_tb_final"):
+                if not launches[k]:
+                    raise RuntimeError(f"train step {step}: {k} never ran")
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gn)):
+                raise RuntimeError(f"train step {step}: loss {loss}, "
+                                   f"grad norm {gn}")
+            if step == 0:
+                for key, g in _paths(m["grads"]):
+                    if not torch.isfinite(g.float()).all() \
+                            or not g.float().abs().sum() > 0:
+                        raise RuntimeError(f"train step 0: the gradient of "
+                                           f"{key} is zero or non-finite")
+            rows.append({
+                "step": step, "loss": loss, "grad_norm": gn,
+                "lr": float(m["lr"]), "wall_ms": times["wall_ms"],
+                "device_ms": times["device_ms"],
+                "tokens_per_s": tokens / times["wall_ms"] * 1e3,
+                "model_flop_share": flops / (times["wall_ms"] * 1e-3)
+                / PEAK_OPS[torch.bfloat16],
+                "launches": launches, "gemms_executed": executed})
+            out["step_plans"], out["step_views"] = dict(rec.plans), \
+                dict(tr.views)
+            log(f"train step {step}: loss {loss:.4f} gnorm {gn:.3f}; wall "
+                f"{times['wall_ms']:.1f} ms, device {times['device_ms']:.1f} "
+                f"ms (CUDA events), {rows[-1]['tokens_per_s']:.0f} tok/s, "
+                f"model-FLOP share {rows[-1]['model_flop_share']:.2%} of "
+                f"989 TFLOP/s; launches {launches} [{card}]")
+            reset_counters()
+            rec.plans = {}
+            tr.views = {}
+
+        t0 = time.perf_counter()
+        final = train_launch.train(
+            cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, seed=0, device="cuda", log_every=1,
+            on_step=on_step, return_grads=True)
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    steady = rows[1:]
+    out.update({"config": cfg.name, "dtype": cfg.dtype, "steps": rows,
+                "final": final, "seconds": seconds,
+                "tokens_per_step": tokens, "model_flops_per_step": flops,
+                "peak_memory_bytes": peak,
+                "launches": {k: sum(r["launches"][k] for r in rows)
+                             for k in rows[0]["launches"]}})
+    for key in ("wall_ms", "device_ms", "tokens_per_s", "model_flop_share"):
+        out[f"steady_{key}"] = float(np.median([r[key] for r in steady]))
+    log(f"train {cfg.name} bf16 b {TRAIN_BATCH} x s {TRAIN_SEQ}, AdamW, "
+        f"steps 1-{TRAIN_STEPS - 1} (median): wall "
+        f"{out['steady_wall_ms']:.1f} ms, device "
+        f"{out['steady_device_ms']:.1f} ms, "
+        f"{out['steady_tokens_per_s']:.0f} tok/s, model-FLOP share "
+        f"{out['steady_model_flop_share']:.2%} ({flops / 1e12:.2f} TFLOP a "
+        f"step over 989 TFLOP/s); peak memory {peak / 1e9:.2f} GB "
+        f"(max_memory_allocated); launches a step "
+        f"{rows[-1]['launches']} [{card}]")
+    return out
+
+
+def _paths(tree, pre=""):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _paths(v, f"{pre}/{k}")
+        else:
+            yield f"{pre}/{k}", v
+
+
+def transpose_copy_phase(views, card):
+    """Device time of the contiguous copies the backward's strided
+    operands cost in one training step (each view shape timed on its
+    own, times its count in the step)."""
+    total, rows = 0.0, []
+    for (shape, dtype), n in sorted(views.items(), key=str):
+        def make(shape=shape, dtype=dtype):
+            return (rand(shape[::-1], dtype).T,), {}
+        first = make()
+        copies = max(1, min(64, math.ceil(COLD_BYTES / nbytes(first[0][0]))))
+        inputs = [first] + [make() for _ in range(copies - 1)]
+        ms = device_ms(lambda t: t.contiguous(), inputs)
+        del inputs
+        rows.append({"shape": list(shape), "dtype": str(dtype),
+                     "per_step": n, "ms": ms})
+        total += n * ms
+    log(f"train: the backward's transposed operands, copied contiguous by "
+        f"the kernels' wrappers: {sum(views.values())} copies a step, "
+        f"{total:.2f} ms of device time a step [{card}]")
+    return {"ms_per_step": total, "views": rows}
+
+
+def train_kernel_phase(step_plans):
+    """Each distinct GEMM plan one full-width training step executed, on
+    the kernel and tile its HOPPER_H100 plan picks, held to its plain
+    version and timed beside torch.matmul (weight = its executions in
+    the step); B3 at b 8 x s 512 (64 launches a step) beside SDPA."""
+    distinct = {}     # plans that differ only in how their spec names
+    for pl, times in step_plans.items():     # the output dtype run alike
+        p = pl.problem
+        key = (pl.kernel, pl.m, pl.k, pl.n, p.a_dtype, p.b_dtype,
+               p.out_dtype, p.epilogue, pl.tile)
+        first, n = distinct.get(key, (pl, 0))
+        distinct[key] = (first, n + times)
+    cases = {"gemm_aie": [], "gemm_tb": [], "gemm_gated": []}
+    for key in sorted(distinct, key=str):
+        pl, times = distinct[key]
+        ep = pl.spec.epilogue
+        dtype = getattr(torch, pl.problem.a_dtype)
+        out = getattr(torch, pl.problem.out_dtype)
+        name = (f"train {pl.m}x{pl.k}x{pl.n} {ep.key or 'plain'}"
+                + (" ->f32" if out == torch.float32 else ""))
+        if pl.kernel == "gated":
+            cases["gemm_gated"].append(gated_case(name, times, pl.m, pl.k,
+                                                  pl.n, dtype))
+            continue
+        cases["gemm_tb" if pl.kernel == "tb" else "gemm_aie"].append(
+            gemm_case(name, times, pl.m, pl.k, pl.n, dtype,
+                      residual=ep.residual, bias=ep.bias,
+                      act=ep.activation, out_dtype=out,
+                      tb=pl.kernel == "tb",
+                      tile=pl.tile if pl.kernel == "tb" else None))
+    cases["flash_attention"] = [attn_case(
+        "train b8 s512 h15/5 d64", 64, TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64,
+        torch.bfloat16)]
+    with torch.inference_mode():
+        return {name: check_kernel(name, c) for name, c in cases.items()
+                if c}
+
+
 def main() -> None:
     global _GEN
     if not torch.cuda.is_available():
@@ -1867,6 +2143,14 @@ def main() -> None:
     n_paged_bit = paged_bit_identity_phase(cfg, params)
     cross = cross_device_phase()
     cross8 = {mode: cross_device_phase(mode) for mode in INT8_MODES}
+    train_cross = train_cross_device_phase()
+    train_run = train_phase(cfg, card)
+    step_plans = train_run.pop("step_plans")
+    train_run["transpose_copies"] = transpose_copy_phase(
+        train_run.pop("step_views"), card)
+    train_checked = train_kernel_phase(step_plans)
+    del step_plans
+    torch.cuda.empty_cache()
     qparams, q_bytes = quantize(params, cfg.name)
     del params
     int8_run = int8_serve_phases(cfg, qparams)
@@ -1907,7 +2191,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
-             "operator_api": (api_run,)}
+             "operator_api": (api_run,), "train": (train_run,)}
     int8_paths = {}
     for name, run in ((cfg.name, int8_run), (moe_cfg.name, moe_int8)):
         int8_paths[f"{name} w8a16"] = (run["w8a16"]["serve"],
@@ -1940,6 +2224,10 @@ def main() -> None:
             "max_abs_err": worst, **times(total, TIMED_ON[name])}
         if moe_total is not None and name != "gemm_grouped":
             entry[moe_cfg.name] = times(moe_total, MOE_TIMED_ON[name])
+        if name in train_checked:
+            _, t_worst, t_total, _ = train_checked[name]
+            entry["max_abs_err"] = max(worst, t_worst)
+            entry["train"] = times(t_total, TRAIN_TIMED_ON[name])
         if name == "gemm_tb":       # two Pallas sites: B6a and B6b
             entry["sites"] = {replaces: driven("gemm_tb"),
                               GEMM_TB_FINAL_SITE: driven("gemm_tb_final")}
@@ -1991,6 +2279,8 @@ def main() -> None:
                 "paged_bit_identity_requests": moe_paged_bit,
                 "paged_bit_identity_reference": "paged solo",
                 "int8": moe_int8},
+        "train": train_run, "train_cross_device": train_cross,
+        "train_cases": {n: rows for n, (rows, *_) in train_checked.items()},
         "paged_bitwise": paged_bitwise,
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
         "b3_b2_bitwise": redesign_bitwise, "int8_bitwise": int8_bitwise,
@@ -2005,11 +2295,12 @@ def main() -> None:
         (out_dir / "ptxas.log").write_text(_build.build_log)
     log("kernels line: ms / plain_ms / bound_ms / library_ms are summed "
         "over the shapes of the step each entry's timed_on names, the "
-        f"{moe_cfg.name} key holds the same for the 4-layer MoE, and each "
+        f"{moe_cfg.name} key holds the same for the 4-layer MoE, the "
+        "train key for one full-width smollm-360m training step, and each "
         "GEMM's int8 object the same for its int8 cases by mode; launches "
         "sum the dense and paged serve runs of both models in bf16, W8A16 "
-        "and W8A8 and the operator-API phase (launches_by_path splits "
-        "them)")
+        "and W8A8, the operator-API phase and the training run "
+        "(launches_by_path splits them)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)

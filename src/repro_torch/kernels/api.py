@@ -31,9 +31,15 @@ accumulation and an f32 output, and the row scale, bias and residual
 apply outside.  An int8 output (``out_scale``) quantizes on the flush.
 
 The plan is the same on every device: a CPU tensor runs the chosen
-kernel's plain version, a CUDA tensor the kernel itself.  Not in the
-port yet, and raising ``NotImplementedError`` with their ROADMAP item:
-measured tuning (A10), and the gradient (A7).
+kernel's plain version, a CUDA tensor the kernel itself.  With grad mode
+on, a dense GEMM runs inside one ``torch.autograd.Function``
+(:class:`_GemmCore`, the JAX package's ``_gemm_core`` custom VJP): its
+forward launches the planned kernel, its backward is the unfused
+composition of planned plain GEMMs (:func:`_plain`), so the gradient
+reaches the weights through the same kernels on every device.  Not in
+the port yet, and raising ``NotImplementedError`` with their ROADMAP
+item: measured tuning (A10), and the grouped GEMM's gradient (MoE
+training, A7).
 """
 
 from __future__ import annotations
@@ -68,6 +74,18 @@ def _is_quant(b) -> bool:
 
 def _not_yet(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} arrives with ROADMAP queue {item}")
+
+
+def forward_only(what: str, *operands) -> None:
+    """Raise when grad mode is on and an operand of a kernel that has no
+    backward in the port yet requires a gradient: on a card its output
+    would be cut off from autograd without a word."""
+    if not torch.is_grad_enabled():
+        return
+    for t in operands:
+        ts = t.values() if isinstance(t, dict) else (t,)
+        if any(isinstance(x, torch.Tensor) and x.requires_grad for x in ts):
+            raise _not_yet(f"the gradient of {what}", "A7 (MoE training)")
 
 
 # ---------------------------------------------------------------------------
@@ -431,7 +449,7 @@ class PlanCacheInfo(NamedTuple):
 
 
 _plan_cache: dict = {}
-_oneshot: dict = {}             # gemm()'s operand key -> plan
+_oneshot: dict = {}             # gemm()'s and _plain()'s operand key -> plan
 _plan_hits = 0
 _plan_misses = 0
 
@@ -671,6 +689,135 @@ def _dispatch(pl: GemmPlan, a2, b, b2, bias, res2, out_scale=None,
                    out_scale=out_scale)
 
 
+# ---------------------------------------------------------------------------
+# The ONE autograd Function of the dense GEMM family
+# ---------------------------------------------------------------------------
+
+def _act_bwd(activation: Optional[str], z: torch.Tensor, g: torch.Tensor
+             ) -> torch.Tensor:
+    """dL/dz given dL/d(act(z)) — the unfused-composition backward."""
+    if activation is None:
+        return g
+    with torch.enable_grad():
+        zz = z.detach().requires_grad_()
+        return torch.autograd.grad(ACTIVATIONS[activation](zz), zz, g)[0]
+
+
+def _plain(a: torch.Tensor, b: torch.Tensor, b_scale, out_dtype,
+           strategy: Optional[str] = None) -> torch.Tensor:
+    """A planned plain GEMM (no epilogue) — the recompute primitive the
+    backward is composed from (``tune=False``, as in the JAX package).
+    Its plan is looked up by operand signature, so a backward builds no
+    spec after its first step; transposed operands arrive as views and
+    the kernels' wrappers copy them contiguous."""
+    m, k = a.shape
+    n = b.shape[1]
+    key = ("plain", a.dtype, b.dtype, b_scale is not None, out_dtype,
+           strategy, m, k, n)
+    pl = _oneshot.get(key)
+    if pl is None:
+        spec = GemmSpec(a_dtype=a.dtype, b_dtype=b.dtype,
+                        b_quant=b_scale is not None, out_dtype=out_dtype,
+                        strategy=strategy, tune=False)
+        pl = _oneshot[key] = plan(spec, (m, k, n))
+    bb = {"q": b, "scale": b_scale} if b_scale is not None else b
+    return _run(pl, a, bb, None, None, None)
+
+
+def _bwd_weight(q: torch.Tensor, b_scale, dtype) -> torch.Tensor:
+    """The ONLY place a quantized weight is dequantized — the backward's
+    rematerialization; the forward never pays 2-byte weight traffic."""
+    if b_scale is None:
+        return q
+    return (q.float() * b_scale.reshape(1, -1).float()).to(dtype)
+
+
+class _GemmCore(torch.autograd.Function):
+    """epilogue(A @ B) (or the gated dual-B form), forward and backward
+    both driven by the plan (``repro/kernels/api.py`` ``_gemm_core``).
+    Absent operands are None; a quantized weight arrives as its int8 q
+    and f32 (1, n) scale."""
+
+    @staticmethod
+    def forward(ctx, pl, a, b, b_scale, b2, b2_scale, bias, residual):
+        ctx.pl = pl
+        ctx.res_dtype = residual.dtype if residual is not None else None
+        ctx.save_for_backward(a, b, b_scale, b2, b2_scale, bias)
+        return _launch(pl, a, b, b2, bias, residual, b_scale=b_scale,
+                       b2_scale=b2_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        # Recompute the pre-activation z (one extra GEMM), then the
+        # standard cotangents through the elementwise epilogue.  An int8
+        # weight (q and its scale) gets no gradient; it is dequantized
+        # only here, for dA.
+        a, b, b_scale, b2, b2_scale, bias = ctx.saved_tensors
+        need_a, need_b, _, need_b2, _, need_bias, need_res = \
+            ctx.needs_input_grad[1:]
+        spec = ctx.pl.spec
+        act = spec.epilogue.activation
+        strat = spec.strategy
+        gf = g.float()
+        dres = gf.to(ctx.res_dtype) if need_res else None
+        float_b = b.dtype != torch.int8
+        if spec.gated:
+            zg = _plain(a, b, b_scale, torch.float32)
+            zu = _plain(a, b2, b2_scale, torch.float32)
+            dzu = gf * ACTIVATIONS[act](zg)
+            dzg = _act_bwd(act, zg, gf * zu).to(a.dtype)
+            dzu = dzu.to(a.dtype)
+            da = dbg = dbu = None
+            if need_a:
+                wg = _bwd_weight(b, b_scale, a.dtype)
+                wu = _bwd_weight(b2, b2_scale, a.dtype)
+                da = (_plain(dzg, wg.T, None, a.dtype)
+                      + _plain(dzu, wu.T, None, a.dtype)).to(a.dtype)
+            if need_b and float_b:
+                dbg = _plain(a.T, dzg, None, b.dtype).to(b.dtype)
+            if need_b2 and float_b:
+                dbu = _plain(a.T, dzu, None, b2.dtype).to(b2.dtype)
+            return None, da, dbg, None, dbu, None, None, None
+        if act is not None:
+            z = _plain(a, b, b_scale, torch.float32, strat)
+            if bias is not None:
+                z = z + bias.reshape(1, -1).float()
+            dz = _act_bwd(act, z, gf)
+        else:
+            dz = gf
+        dbias = dz.sum(0).reshape(bias.shape).to(bias.dtype) \
+            if need_bias else None
+        da = db = None
+        if need_a and a.dtype != torch.int8:
+            w = _bwd_weight(b, b_scale, a.dtype)
+            da = _plain(dz.to(a.dtype), w.T, None, a.dtype,
+                        strat).to(a.dtype)
+        if need_b and float_b and b_scale is None:
+            db = _plain(a.T, dz.to(a.dtype), None, b.dtype,
+                        strat).to(b.dtype)
+        return None, da, db, None, None, None, dbias, dres
+
+
+def _run(pl: GemmPlan, a2, b, b2, bias, res2, out_scale=None
+         ) -> torch.Tensor:
+    """Run a checked plan on (m, k) rows.  With grad mode on, through
+    :class:`_GemmCore`; with it off (serving's ``inference_mode``) there
+    is nothing to record and the plan dispatches directly.  An int8
+    output and the W8A8 re-route are forward-only, as in the JAX
+    package (which dispatches the first outside its VJP and stops the
+    gradient at the second's quantized rows)."""
+    if out_scale is not None or not torch.is_grad_enabled() or (
+            pl.spec.b_quant and _w8a8_plan(pl) is not None
+            and _quant.activation_mode() == "w8a8"):
+        return _dispatch(pl, a2, b, b2, bias, res2, out_scale)
+    if pl.spec.b_quant:
+        return _GemmCore.apply(pl, a2, b["q"], b["scale"],
+                               b2["q"] if b2 is not None else None,
+                               b2["scale"] if b2 is not None else None,
+                               bias, res2)
+    return _GemmCore.apply(pl, a2, b, None, b2, None, bias, res2)
+
+
 def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             bias: Optional[torch.Tensor] = None,
             residual: Optional[torch.Tensor] = None,
@@ -729,6 +876,7 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             f"({spec.a_dtype}, {spec.b_dtype})")
     if spec.grouped:
         _check_grouped(pl, a2, b, bias, group_sizes)
+        forward_only("the grouped GEMM", a2, b, bias)
         return _dispatch(pl, a2, b, None, bias, None,
                          group_sizes=group_sizes).reshape(*lead, pl.n)
     if tuple(a2.shape) != (pl.m, pl.k) or tuple(bw.shape) != (pl.k, pl.n):
@@ -754,8 +902,7 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
         raise ValueError(
             f"residual {tuple(residual.shape)} does not match the plan's "
             f"({pl.m}, {n}) output")
-    return _dispatch(pl, a2, b, b2, bias, res2, out_scale) \
-        .reshape(*lead, n)
+    return _run(pl, a2, b, b2, bias, res2, out_scale).reshape(*lead, n)
 
 
 def _check_grouped(pl: GemmPlan, a2, b, bias, group_sizes) -> None:
@@ -830,11 +977,11 @@ def gemm(a: torch.Tensor, b, *, b2=None,
         return out
     _plan_hits += 1
     if a.dim() == 2 and (residual is None or residual.dim() == 2):
-        return _dispatch(pl, a, b, b2, bias, residual, out_scale)
+        return _run(pl, a, b, b2, bias, residual, out_scale)
     n = pl.n
     res2 = residual.reshape(-1, n) if residual is not None else None
-    return _dispatch(pl, a.reshape(-1, pl.k), b, b2, bias, res2,
-                     out_scale).reshape(*a.shape[:-1], n)
+    return _run(pl, a.reshape(-1, pl.k), b, b2, bias, res2,
+                out_scale).reshape(*a.shape[:-1], n)
 
 
 def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
@@ -872,5 +1019,6 @@ def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
         _oneshot[key] = pl
         return out
     _plan_hits += 1
+    forward_only("the grouped GEMM", a, b, bias)
     return _dispatch(pl, a.reshape(-1, pl.k), b, None, bias, None,
-                group_sizes=group_sizes).reshape(*a.shape[:-1], pl.n)
+                     group_sizes=group_sizes).reshape(*a.shape[:-1], pl.n)

@@ -1,7 +1,7 @@
 """Shared model layers (port of ``repro/models/layers.py``, dense
 self-attention path): RMS norm, rotary embeddings, the SwiGLU MLP, GQA
 attention over a dense per-slot KV cache or a shared page pool,
-embeddings.
+embeddings, and the chunked cross-entropy of training.
 
 Parameters are plain dicts of tensors in the JAX layout ((d_in, d_out)
 weights); a projection may be a quantized ``{"q", "scale"}`` struct
@@ -17,6 +17,7 @@ import math
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import ops
 
@@ -205,3 +206,49 @@ def init_embedding(generator: torch.Generator, vocab: int, d: int,
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return table[tokens.long()]
+
+
+def _chunk_loss(hc: torch.Tensor, lm_head: torch.Tensor, lc: torch.Tensor,
+                mc: torch.Tensor):
+    """One sequence chunk's summed cross-entropy and label count.  The
+    f32 logits come straight out of the GEMM's accumulator
+    (``out_dtype``): no bf16 logits are written and widened again."""
+    logits = ops.gemm(hc, lm_head, out_dtype=torch.float32)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.take_along_dim(logits, lc.long()[..., None],
+                                dim=-1)[..., 0]
+    return ((logz - gold) * mc).sum(), mc.sum()
+
+
+def chunked_softmax_xent(h: torch.Tensor, lm_head: torch.Tensor,
+                         labels: torch.Tensor, *, n_chunks: int = 8,
+                         label_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+    """Cross-entropy over a large vocab without materializing full logits.
+
+    h: (b, s, d); lm_head: (d, V); labels: (b, s) ints.  Chunks run over
+    the *sequence* axis, each keeping the batch dim, so peak logits
+    memory is (b, s / n_chunks, V) instead of (b, s, V); each chunk is
+    checkpointed, and its backward recomputes its logits.  Positions
+    padded to a whole number of chunks carry mask 0.
+    """
+    b, s, d = h.shape
+    n_chunks = max(1, min(n_chunks, s))
+    pad = (-s) % n_chunks
+    mf = torch.ones((b, s), dtype=torch.float32, device=h.device) \
+        if label_mask is None else label_mask.float()
+    if pad:
+        h = torch.nn.functional.pad(h, (0, 0, 0, pad))
+        labels = torch.nn.functional.pad(labels, (0, pad))
+        mf = torch.nn.functional.pad(mf, (0, pad))
+    cs = (s + pad) // n_chunks
+    losses, counts = [], []
+    for i in range(n_chunks):
+        sl = slice(i * cs, (i + 1) * cs)
+        loss, count = checkpoint(_chunk_loss, h[:, sl], lm_head,
+                                 labels[:, sl], mf[:, sl],
+                                 use_reentrant=False)
+        losses.append(loss)
+        counts.append(count)
+    return torch.stack(losses).sum() / torch.clamp(
+        torch.stack(counts).sum(), min=1.0)

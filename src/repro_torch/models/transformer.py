@@ -1,9 +1,10 @@
-"""Decoder stack for serving (port of ``repro/models/transformer.py``,
-``attn`` and ``moe`` layers): parameter init, the dense per-slot KV cache,
-prefill, one decode step, slot-targeted prefill for continuous
-batching, and the block-paged cache (pool init, chunked prefill into
-pages, copy-on-write page copies; ``decode_step`` takes the pool's
-page table when the cache has one).
+"""Decoder stack (port of ``repro/models/transformer.py``, ``attn`` and
+``moe`` layers): parameter init, the full-sequence ``forward`` and
+``loss_fn`` of training (``attn`` layers), and for serving the dense
+per-slot KV cache, prefill, one decode step, slot-targeted prefill for
+continuous batching, and the block-paged cache (pool init, chunked
+prefill into pages, copy-on-write page copies; ``decode_step`` takes
+the pool's page table when the cache has one).
 
 The JAX package scans one compiled unit (``layers/u{i}``, one entry per
 position of ``cfg.layer_pattern``) over the stacked ``repeats`` axis;
@@ -12,15 +13,19 @@ view ``leaf[r]``.  A ``moe`` layer is an ``attn`` layer whose SwiGLU MLP
 is the mixture of experts (:mod:`repro_torch.models.moe`), its output
 added to the residual stream as ``x + y``.  Caches are updated in place
 (one resident cache, no per-step copy); the functions still return the
-cache so call sites read like the JAX ones.
+cache so call sites read like the JAX ones.  ``forward(remat=True)``
+checkpoints each unit (``torch.utils.checkpoint``, non-reentrant) as
+the reference's ``jax.checkpoint`` of the scanned unit does.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import ops, resolve_device
 from repro_torch.bridge import map_tree
@@ -36,6 +41,10 @@ KINDS = ("attn", "moe")
 
 #: the MoE layer's capacity factor at decode (the JAX package's, :369)
 DECODE_CAPACITY_FACTOR = 4.0
+
+#: weight of the MoE load-balancing loss in ``loss_fn`` (as the JAX
+#: package's; the port's trainable layers have none yet)
+AUX_LOSS_WEIGHT = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -137,6 +146,82 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         "lm_head": L.dense_init(generator, (d, cfg.vocab), dt),
         "layers": layers,
     }
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence apply (training)
+# ---------------------------------------------------------------------------
+
+def apply_layer(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
+                causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One layer, full sequence.  Returns (x, aux_loss).  The
+    residual-stream adds ride the output and down projections' flushes."""
+    if kind == "moe":
+        raise NotImplementedError(
+            "MoE training (the grouped GEMM's gradient) is not ported yet "
+            "(ROADMAP queue A7)")
+    if kind != "attn":
+        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
+    spec = dataclasses.replace(_attn_spec(cfg), causal=causal)
+    x = L.attention_block(p["attn"], L.rms_norm(p["norm1"], x,
+                                                cfg.norm_eps),
+                          spec, residual=x)
+    h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
+    x = L.swiglu(p["mlp"], h, residual=x)
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _unit(unit: dict, cfg: ModelConfig, x: torch.Tensor):
+    """One repeat of the layer pattern over ``x`` (``unit``: each
+    position's layer parameters): (x, summed aux)."""
+    aux = None
+    for ck, kind in _units(cfg):
+        x, a = apply_layer(unit[ck], cfg, kind, x)
+        aux = a if aux is None else aux + a
+    return x, aux
+
+
+def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
+            prefix_embeds=None, frames=None, remat: bool = True
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward.  Returns (hidden (b, s, d), aux_loss).
+    ``remat`` checkpoints each repeat of the layer pattern, so its
+    backward recomputes the unit's activations (kernels included)."""
+    check_supported(cfg)
+    if prefix_embeds is not None or frames is not None:
+        raise NotImplementedError(
+            "prefix embeddings and encoder frames are not ported yet "
+            "(ROADMAP queue A9)")
+    x = L.embed(params["embed"], tokens)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    # one view a repeat of every stacked leaf, taken at once: the views'
+    # gradients stack into the leaf's in one op, where a view taken per
+    # repeat (leaf[r]) would add a zero-padded full-size gradient per
+    # repeat, quadratic in the depth
+    stacks = map_tree(lambda t: t.unbind(0), params["layers"])
+    for r in range(cfg.repeats):
+        unit = map_tree(lambda views: views[r], stacks)
+        if remat:
+            x, a = checkpoint(_unit, unit, cfg, x, use_reentrant=False,
+                              preserve_rng_state=False)
+        else:
+            x, a = _unit(unit, cfg, x)
+        aux = aux + a
+    return L.rms_norm(params["final_norm"], x, cfg.norm_eps), aux
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            n_chunks: int = 8, remat: bool = True
+            ) -> Tuple[torch.Tensor, dict]:
+    """batch: tokens (b, s), labels (b, s), optional mask."""
+    h, aux = forward(params, cfg, batch["tokens"],
+                     prefix_embeds=batch.get("prefix_embeds"),
+                     frames=batch.get("frames"), remat=remat)
+    ce = L.chunked_softmax_xent(h, params["lm_head"], batch["labels"],
+                                n_chunks=n_chunks,
+                                label_mask=batch.get("mask"))
+    loss = ce + AUX_LOSS_WEIGHT * aux
+    return loss, {"ce": ce, "aux": aux}
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,

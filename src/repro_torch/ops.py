@@ -23,6 +23,11 @@ tuple key and one dict lookup before its launch.
 Attention keeps the JAX package's one-shot entry points
 (``attention``, ``decode_attention``, ``decode_attention_paged``); their
 planner (``AttnSpec``) arrives with the rest of ROADMAP queue A6.
+Prefill ``attention`` is differentiable: with grad mode on it runs
+inside :class:`_AttnCore` (the prefill half of the JAX package's
+``_attn_core`` custom VJP), kernel B3 forward, a backward that
+recomputes through the plain reference (the blocked one past
+``BLOCKED_ATTN_THRESHOLD`` positions).
 """
 
 from __future__ import annotations
@@ -48,9 +53,39 @@ from repro_torch.kernels.api import (  # noqa: F401
     solve_topk,
 )
 from repro_torch.kernels.epilogue import ACTIVATIONS, Epilogue  # noqa: F401
+from repro_torch.kernels.blocked_attention import (BLOCKED_ATTN_THRESHOLD,
+                                                   attention_blocked)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import (flash_decode,
                                               flash_decode_paged)
+from repro_torch.kernels.ref import attention_ref
+
+
+class _AttnCore(torch.autograd.Function):
+    """Prefill attention, forward on kernel B3 (its plain version on the
+    CPU), backward by recomputing through the differentiable reference
+    composition and pulling the cotangent through it: B3 is forward-only,
+    as the Pallas kernel is (``repro/kernels/attn_api.py:849-899``).
+    Past ``BLOCKED_ATTN_THRESHOLD`` positions the recompute is the
+    blocked one, so no (b, hq, sq, skv) scores are materialized."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale, q_offset):
+        ctx.opts = dict(causal=causal, window=window, scale=scale,
+                        q_offset=q_offset)
+        ctx.save_for_backward(q, k, v)
+        return flash_attention(q, k, v, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = ctx.saved_tensors
+        fwd = attention_blocked if max(q.shape[1], k.shape[1]) \
+            > BLOCKED_ATTN_THRESHOLD else attention_ref
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            out = fwd(*qkv, **ctx.opts)
+            dq, dk, dv = torch.autograd.grad(out, qkv, g)
+        return dq, dk, dv, None, None, None, None
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -59,6 +94,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               q_offset: Optional[int] = None) -> torch.Tensor:
     """Multi-head attention with GQA and an optional sliding window.
     q: (b, sq, hq, d); k/v: (b, skv, hkv, d) -> (b, sq, hq, d)."""
+    if torch.is_grad_enabled():
+        return _AttnCore.apply(q, k, v, causal, window, scale, q_offset)
     return flash_attention(q, k, v, causal=causal, window=window,
                            scale=scale, q_offset=q_offset)
 

@@ -1016,3 +1016,121 @@ def test_int8_paths_launch_their_kernels_or_raise(cuda_device):
         gemm_grouped(quantize_activations(a)[0], qe,
                      torch.tensor([3, 0, 5], dtype=torch.int32,
                                   device=cuda_device), b_scale=se)
+
+
+# ------------------------------------------------------------ training
+
+#: smollm-360m's training GEMMs at b 8 x s 512 (4096 tokens): one layer's
+#: dA (m 4096: wq/wo, wk/wv, w_down, the gated pair) and dB (m = d_model
+#: 960 and d_ff 2560, k 4096), and one loss chunk's lm_head dA (512 x
+#: 49152 x 960, B6 in 96 k-chunks) and dB (960 x 512 x 49152); the A of
+#: a dB and the B of a dA arrive transposed, as views
+TRAIN_GEMMS = [(4096, 960, 960, "b"), (4096, 320, 960, "b"),
+               (4096, 960, 2560, "b"), (4096, 2560, 960, "b"),
+               (960, 4096, 960, "a"), (960, 4096, 320, "a"),
+               (960, 4096, 2560, "a"), (2560, 4096, 960, "a"),
+               (512, 49152, 960, "b"), (960, 512, 49152, "a")]
+
+
+def _train_operands(m, k, n, view, device):
+    a = _randn((k, m) if view == "a" else (m, k), torch.bfloat16, device,
+               0) * k ** -0.5
+    w = _randn((n, k) if view == "b" else (k, n), torch.bfloat16, device, 1)
+    return (a.T if view == "a" else a), (w.T if view == "b" else w)
+
+
+@pytest.mark.parametrize("m,k,n,view", TRAIN_GEMMS)
+@pytest.mark.parametrize("out", ["bf16", "f32"])
+def test_training_gemm_shapes_match_plain(cuda_device, m, k, n, view, out):
+    """B1, and B6 at the tile its 'tb' plan gives, on a transposed view
+    at the backward's shapes, against their plain versions (bf16 2e-2);
+    f32 out is what the gated pair's pre-activation recompute asks."""
+    a, w = _train_operands(m, k, n, view, cuda_device)
+    kw = {"out_dtype": torch.float32 if out == "f32" else torch.bfloat16}
+    _close(gemm_aie(a, w, **kw), gemm_aie_plain(a, w, **kw), torch.bfloat16)
+    pl = ops.plan(ops.GemmSpec(strategy="tb", out_dtype=kw["out_dtype"]),
+                  (m, k, n))
+    assert pl.chunk_bk > 0
+    _close(gemm_tb(a, w, tile=pl.tile, **kw),
+           gemm_tb_plain(a, w, tile=pl.tile, **kw), torch.bfloat16)
+
+
+GRAD_GEMMS = {"plain": {}, "bias+silu": {"bias": True,
+                                         "activation": "silu"},
+              "residual tb": {"residual": True, "strategy": "tb"},
+              "gated": {"gated": True, "activation": "silu"}}
+
+
+@pytest.mark.parametrize("case", list(GRAD_GEMMS))
+def test_gemm_function_grads_on_the_card_match_the_cpu(cuda_device, case):
+    """The GEMM Function's gradients with CUDA tensors (kernels forward
+    and backward) against the same Function on CPU tensors (plain
+    versions), f32, atol = rtol = 1e-5."""
+    opt = GRAD_GEMMS[case]
+    m, k, n = 96, 200, 136
+    names = ["a", "b"] + [x for x in ("b2", "bias", "residual")
+                          if opt.get("gated" if x == "b2" else x)]
+    shapes = {"a": (m, k), "b": (k, n), "b2": (k, n), "bias": (n,),
+              "residual": (m, n)}
+    vals = {x: _randn(shapes[x], torch.float32, "cpu", i) * (
+        k ** -0.5 if x in ("b", "b2") else 1.0) for i, x in enumerate(names)}
+    g = _randn((m, n), torch.float32, "cpu", 9)
+    kw = {x: opt[x] for x in ("activation", "strategy") if x in opt}
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = {x: v.to(dev, copy=True).requires_grad_()
+                  for x, v in vals.items()}
+        out = ops.gemm(leaves["a"], leaves["b"], b2=leaves.get("b2"),
+                       bias=leaves.get("bias"),
+                       residual=leaves.get("residual"), **kw)
+        (out * g.to(dev)).sum().backward()
+        grads[str(dev)] = {x: t.grad.cpu() for x, t in leaves.items()}
+    for x in names:
+        torch.testing.assert_close(grads["cuda"][x], grads["cpu"][x],
+                                   atol=1e-5, rtol=1e-5, msg=x)
+
+
+@pytest.mark.parametrize("s,dtype", [(96, torch.float32),
+                                     (512, torch.bfloat16),
+                                     (1100, torch.float32)])
+def test_attention_function_grads_on_the_card_match_the_cpu(cuda_device, s,
+                                                            dtype):
+    """B3 forward and the recompute backward on the card against the
+    same Function on the CPU: f32 atol = rtol = 1e-5, bf16 2e-2; s = 1100
+    recomputes through the blocked path."""
+    shapes = ((2, s, 15, 64), (2, s, 5, 64), (2, s, 5, 64))
+    vals = [_randn(sh, dtype, "cpu", i) for i, sh in enumerate(shapes)]
+    g = _randn(shapes[0], dtype, "cpu", 7)
+    res = {}
+    for dev in ("cpu", cuda_device):
+        qkv = [v.to(dev, copy=True).requires_grad_() for v in vals]
+        out = ops.attention(*qkv)
+        (out.float() * g.to(dev).float()).sum().backward()
+        res[str(dev)] = [out.detach().cpu()] + [t.grad.cpu() for t in qkv]
+    tol = TOL[dtype]
+    for got, want in zip(res["cuda"], res["cpu"]):
+        torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                   rtol=tol)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda_device):
+    """One AdamW step of smollm-360m-smoke (f32) from one state: loss,
+    grad norm, every gradient, parameter and moment within 1e-4 (lr 3e-5
+    from step 0, so a near-zero gradient of another sign moves its
+    element at most 6e-5 apart)."""
+    from repro_torch.bridge import to_device, tree_leaves
+    from repro_torch.data import pipeline
+    from repro_torch.train import train_step as TS
+    cfg = get_smoke_config("smollm-360m")
+    state = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    batch = pipeline.make_batch(
+        cfg, pipeline.DataConfig(seq_len=32, global_batch=4), 0)
+    step = TS.make_train_step(cfg, peak_lr=3e-5, warmup_steps=0,
+                              return_grads=True)
+    c_state, c_m = step(state, batch)
+    g_state, g_m = step(to_device(state, cuda_device),
+                        to_device(batch, cuda_device))
+    for c_tree, g_tree in ((c_m, g_m), (c_state.params, g_state.params),
+                           (c_state.opt.mu, g_state.opt.mu)):
+        for c, gv in zip(tree_leaves(c_tree), tree_leaves(g_tree)):
+            torch.testing.assert_close(gv.cpu(), c, atol=1e-4, rtol=1e-4)
