@@ -78,7 +78,8 @@ Phases (any failure raises and the script exits non-zero):
    continuous == solo and paged == dense solo greedy in both modes;
 7b. training: one AdamW step of smollm-360m-smoke (f32) from one state
    on the card and on the CPU, loss, grad norm, gradients, parameters and
-   moments within 1e-4; then ``repro_torch.launch.train.train`` on
+   moments within 1e-4, the update over lr within 1e-2 where the
+   gradient is clear of zero; then ``repro_torch.launch.train.train`` on
    smollm-360m at full width in bf16 (seq 512, global batch 8, AdamW, 4
    steps, seed 0): every step's loss and grad norm finite, every
    gradient leaf finite and non-zero at step 0, each step's launches
@@ -1904,7 +1905,12 @@ def train_cross_device_phase():
     1e-4.  The learning rate is 3e-5 from step 0 (no warmup): AdamW's
     first step moves an element by about lr times its gradient's sign,
     so an element whose gradient is ~0 and takes another sign on the
-    other device ends at most 2 lr = 6e-5 apart.  The card's side must
+    other device ends at most 2 lr = 6e-5 apart.  That same smallness
+    would let a step that applied no update pass, so the update itself,
+    (p_new - p_old) / lr (about sign(g) + 0.1 p under weight decay),
+    must agree within 1e-2 on every element whose gradient is clear of
+    zero (|g| > 1e-5 on both devices, at least half of all elements);
+    the f32 rounding of p_new is ~2e-3 of it.  The card's side must
     launch B1 or B6, B2 and B3 and no plain version."""
     cfg = get_smoke_config("smollm-360m")
     state = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
@@ -1936,10 +1942,25 @@ def train_cross_device_phase():
         torch.testing.assert_close(g.cpu(), c, atol=1e-4, rtol=1e-4)
         worst[tag] = max(worst.get(tag, 0.0),
                          (g.cpu() - c).abs().max().item())
+    lr, clear_n, all_n = float(c_m["lr"]), 0, 0
+    for p0, c, g, gc, gg in zip(*(tree_leaves(t) for t in (
+            state.params, c_state.params, g_state.params, c_m["grads"],
+            g_m["grads"]))):
+        clear = (gc.abs() > 1e-5) & (gg.cpu().abs() > 1e-5)
+        uc, ug = ((c - p0) / lr)[clear], ((g.cpu() - p0) / lr)[clear]
+        torch.testing.assert_close(ug, uc, atol=1e-2, rtol=0)
+        if clear.any():
+            worst["update/lr"] = max(worst.get("update/lr", 0.0),
+                                     (ug - uc).abs().max().item())
+        clear_n, all_n = clear_n + int(clear.sum()), all_n + clear.numel()
+    if clear_n < all_n / 2:
+        raise RuntimeError(f"train cross-device: only {clear_n} of {all_n} "
+                           f"gradient elements clear of zero")
     log(f"train cross-device: smollm-360m-smoke one AdamW step (f32, lr "
         f"3e-5), card vs CPU max abs err: " + ", ".join(
             f"{k} {v:.2e}" for k, v in worst.items())
-        + f" (tolerance 1e-4); card launches {launches}")
+        + f" (tolerance 1e-4; update/lr 1e-2 on the {clear_n} of {all_n} "
+        f"elements whose |grad| > 1e-5); card launches {launches}")
     return {"max_abs_err": worst, "launches": launches}
 
 
@@ -2011,7 +2032,7 @@ def train_phase(cfg, card):
         t0 = time.perf_counter()
         final = train_launch.train(
             cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
-            global_batch=TRAIN_BATCH, seed=0, device="cuda", log_every=1,
+            global_batch=TRAIN_BATCH, seed=0, device="cuda",
             on_step=on_step, return_grads=True)
         seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()

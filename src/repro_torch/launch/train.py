@@ -10,7 +10,8 @@ CPU when asked).
         --device cpu
 
 Prints the same ``[train] step N loss ... gnorm ... ms`` lines as the
-JAX driver (every ``--log-every`` steps and the last).  Checkpointing
+JAX driver, for every step (the JAX driver prints every tenth and the
+last).  Checkpointing
 (``--ckpt-dir``, ROADMAP queue A11) and telemetry (``--telemetry``,
 A10) are not ported yet and raise.
 """
@@ -46,12 +47,13 @@ def build(cfg, *, device, peak_lr: float = 3e-4, total_steps: int = 1000,
 
 def train(cfg, *, steps: int, seq_len: int, global_batch: int,
           microbatches: int = 1, seed: int = 0, device=None,
-          log_every: int = 10, on_step: Optional[Callable] = None,
+          on_step: Optional[Callable] = None,
           return_grads: bool = False) -> dict:
     """Run a training job from step 0; returns the last step's metrics
-    as floats.  ``on_step(step, state, metrics, times)`` is called after
-    every step with the new state, the step's metrics (``grads`` among
-    them under ``return_grads``) and ``times``: ``wall_ms`` (host clock
+    as floats, and prints every step's line.  ``on_step(step, state,
+    metrics, times)`` is called after every step with the new state, the
+    step's metrics (``grads`` among them under ``return_grads``) and
+    ``times``: ``wall_ms`` (host clock
     around the step, ended by a synchronize) and, on a card,
     ``device_ms`` (CUDA events around the step)."""
     device = resolve_device(device)
@@ -76,11 +78,9 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
         times = {"wall_ms": (time.perf_counter() - t0) * 1e3}
         if cuda:
             times["device_ms"] = ev[0].elapsed_time(ev[1])
-        if step % log_every == 0 or step == steps - 1:
-            print(f"[train] step {step} loss "
-                  f"{float(metrics['loss']):.4f} "
-                  f"gnorm {float(metrics['grad_norm']):.3f} "
-                  f"{times['wall_ms']:.0f}ms", flush=True)
+        print(f"[train] step {step} loss {float(metrics['loss']):.4f} "
+              f"gnorm {float(metrics['grad_norm']):.3f} "
+              f"{times['wall_ms']:.0f}ms", flush=True)
         if on_step is not None:
             on_step(step, state, metrics, times)
     return {k: float(v) for k, v in metrics.items() if k != "grads"}
@@ -96,7 +96,6 @@ def main(argv=None) -> None:
     ap.add_argument("--global-batch", type=int, default=8)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--log-every", type=int, default=1)
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the CUDA card (raises without one)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -113,7 +112,7 @@ def main(argv=None) -> None:
     out = train(cfg, steps=args.steps, seq_len=args.seq_len,
                 global_batch=args.global_batch,
                 microbatches=args.microbatches, seed=args.seed,
-                device=args.device, log_every=args.log_every)
+                device=args.device)
     print("[train] final:", {k: round(v, 4) for k, v in out.items()})
 
 

@@ -93,7 +93,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None,
               q_offset: Optional[int] = None) -> torch.Tensor:
     """Multi-head attention with GQA and an optional sliding window.
-    q: (b, sq, hq, d); k/v: (b, skv, hkv, d) -> (b, sq, hq, d)."""
+    q: (b, sq, hq, d); k/v: (b, skv, hkv, d) -> (b, sq, hq, d).  With
+    grad mode off (serving) B3 is called directly, as ``api._run``
+    dispatches a GEMM: the Functions cost the host-bound serving path
+    time (``tools/dispatch_probe.py``)."""
     if torch.is_grad_enabled():
         return _AttnCore.apply(q, k, v, causal, window, scale, q_offset)
     return flash_attention(q, k, v, causal=causal, window=window,
