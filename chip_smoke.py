@@ -92,6 +92,11 @@ Phases (any failure raises and the script exits non-zero):
    of one step, on the kernel and tile it picked, held to its plain
    version and timed beside ``torch.matmul``, and B3 at b 8 x s 512
    beside SDPA;
+7c. resume: one smollm-360m step run twice from one state (its spread,
+   0 when bit for bit, bounds the check), then ``train`` for 2 steps with
+   a checkpoint directory in the checkout and ``train(resume=True)`` to
+   step 4: the resumed steps' losses and final parameters equal the
+   unbroken run's within that spread; the directory is deleted;
 8. with smollm-360m freed, qwen3-moe-235b-a22b at full width with its
    depth cut to 4 layers (printed with the reason; random weights from
    seed 0): phases 5 and 6 again, dense and paged, every MoE layer
@@ -99,13 +104,28 @@ Phases (any failure raises and the script exits non-zero):
    paged greedy is held to paged solo greedy (chunked prefill sets the
    expert capacity by the chunk, so it may drop otherwise than a
    whole-prompt prefill); then its int8 copy (the bf16 copy freed),
-   served as smollm-360m's was, the experts staying W8A16 under W8A8.
+   served as smollm-360m's was, the experts staying W8A16 under W8A8;
+9. MoE training: one Adafactor step of qwen3-moe-235b-a22b-smoke (f32)
+   on the card against the CPU, as 7b (and whether two card steps agree
+   bit for bit); then ``train`` on qwen3-moe-235b-a22b at full width with
+   its depth cut to 1 layer (printed with the reason), bf16, Adafactor,
+   b 8 x s 512, 3 steps: launches equal the executed plans, B7 10 times a
+   layer-step (3 forward, 3 remat, the gate's f32 pre-activation
+   recompute, 3 dA), no plain version, every gradient leaf finite and
+   non-zero at step 0; wall and device ms, tokens/s, model-FLOP share,
+   peak memory, the last step traced (device busy time by kernel
+   family), and the gradients taken twice (deterministic or not); then
+   B7 at that step's shapes and group sizes against its plain version,
+   ``torch._grouped_mm`` and its bound, the transposed-bank copies, the
+   plain dB, and the f32 router GEMMs on B1 / B6.
 
 Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
 sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
 splits each count by model and mode; each entry's times sum the step
 its ``timed_on`` names, a ``qwen3-moe-235b-a22b`` key holds the 4-layer
-MoE step's, a ``train`` key the full-width training step's, and the
+MoE step's, a ``train`` key the full-width training step's (B7's: the
+MoE training layer-step's), a ``train qwen3-moe-235b-a22b`` key B1's and
+B6's f32 router GEMMs of that step, and the
 four GEMMs' ``int8`` objects hold their int8 cases,
 step sums by mode and launches on the int8 paths) and the card line
 before the last line, which is
@@ -119,19 +139,22 @@ import dataclasses
 import json
 import math
 import pathlib
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT / "tools"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import ops, quant  # noqa: E402
-from repro_torch.bridge import to_device, tree_leaves  # noqa: E402
+from repro_torch.bridge import map_tree, to_device, tree_leaves  # noqa
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -152,6 +175,7 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
+import train_profile  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
     ACCEPTANCE_TRACE, DecodeEngine, Request, acceptance_requests,
     solo_greedy)
@@ -221,6 +245,19 @@ MOE_TIMED_ON = {
     "flash_attention": "one 300-token prefill",
     "flash_decode": "one 8-slot decode step",
     "flash_decode_paged": "one 8-slot decode step",
+}
+#: the same for qwen3-moe-235b-a22b's full-width 1-layer training step
+MOE_TRAIN_TIMED_ON = {
+    "gemm_grouped": "qwen3-moe-235b-a22b training at 1 layer: one "
+                    "layer-step's 10 launches (b 8 x s 512, 32768 routed "
+                    "rows: the three forwards twice, the gate's f32 "
+                    "pre-activation recompute, the three dA on contiguous "
+                    "transposed banks)",
+    "gemm_aie": "qwen3-moe-235b-a22b training at 1 layer: the step's f32 "
+                "router GEMMs (forward, recompute, dA, dB) the HOPPER_H100 "
+                "planner gives this kernel",
+    "gemm_tb": "qwen3-moe-235b-a22b training at 1 layer: the step's f32 "
+               "router GEMMs the HOPPER_H100 planner gives this kernel",
 }
 #: qwen3-moe-235b-a22b is served at full width with its depth cut to this
 #: many layers: 94 layers of bf16 weights (about 470 GB) do not fit one
@@ -494,15 +531,16 @@ def routed_sizes(tokens, n_experts, top_k, cap, seed):
 
 
 def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
-                 bias=False, timed=False):
+                 bias=False, timed=False, out_dtype=None):
     """A case for B7 at the CTA shape it picks for m rows over the
     experts; ``sizes`` are the group sizes, ``m`` >= their sum the
-    rows."""
+    rows; the output is ``out_dtype`` (default A's ``dtype``)."""
     sizes = np.asarray(sizes, np.int64)
     e = len(sizes)
+    out_dtype = out_dtype or dtype
 
     def make():
-        kw = {"out_dtype": dtype}
+        kw = {"out_dtype": out_dtype}
         if act:
             kw["activation"] = act
         if bias:
@@ -526,7 +564,8 @@ def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
         a, b, _ = args
         es = a.element_size()
         live = int((sizes > 0).sum())
-        byts = (live * k * n + m * k + m * n) * es \
+        byts = (live * k * n + m * k) * es \
+            + m * n * torch.finfo(out_dtype).bits // 8 \
             + (live * n * 4 if bias else 0)
         return byts, 2.0 * float(sizes.sum()) * k * n
     bm, bk, bn = grouped_cta_tile(m, e, dtype)
@@ -1521,10 +1560,14 @@ class PlanRecorder:
 
     def __enter__(self):
         self.plans = {}
+        self.group_sizes = None       # the first grouped launch's sizes
         self._launch = api._launch
 
         def record(pl, *args, **kw):
             self.plans[pl] = self.plans.get(pl, 0) + 1
+            if pl.spec.grouped and self.group_sizes is None:
+                self.group_sizes = args[5] if len(args) > 5 \
+                    else kw["group_sizes"]
             return self._launch(pl, *args, **kw)
         api._launch = record
         return self
@@ -1898,44 +1941,50 @@ class TransposeRecorder:
         api._plain = self._plain
 
 
-def train_cross_device_phase():
-    """One ``make_train_step`` step of smollm-360m-smoke (f32, TF32 off)
-    from one state on the card and on the CPU: loss, grad norm, every
-    gradient leaf, and every updated parameter and AdamW moment within
+def train_cross_device_phase(arch="smollm-360m", optimizer="adamw"):
+    """One ``make_train_step`` step of ``arch``'s smoke config (f32, TF32
+    off) from one state on the card and on the CPU: loss, grad norm, every
+    gradient leaf, and every updated parameter and optimizer moment within
     1e-4.  The learning rate is 3e-5 from step 0 (no warmup): AdamW's
     first step moves an element by about lr times its gradient's sign,
     so an element whose gradient is ~0 and takes another sign on the
     other device ends at most 2 lr = 6e-5 apart.  That same smallness
     would let a step that applied no update pass, so the update itself,
-    (p_new - p_old) / lr (about sign(g) + 0.1 p under weight decay),
-    must agree within 1e-2 on every element whose gradient is clear of
-    zero (|g| > 1e-5 on both devices, at least half of all elements);
-    the f32 rounding of p_new is ~2e-3 of it.  The card's side must
-    launch B1 or B6, B2 and B3 and no plain version."""
-    cfg = get_smoke_config("smollm-360m")
-    state = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu")
+    (p_new - p_old) / lr (about sign(g) + 0.1 p under weight decay;
+    Adafactor's: the gradient over its factored RMS, clipped), must agree
+    within 1e-2 on every element whose gradient is clear of zero
+    (|g| > 1e-5 on both devices, at least half of all elements); the f32
+    rounding of p_new is ~2e-3 of it.  The card's side must launch B1 or
+    B6 and B3 (smollm-360m: B2; qwen3-moe: B7) and no plain version.
+    The card's step then runs again from the same state: whether the two
+    card steps agree bit for bit is reported (``deterministic``)."""
+    cfg = get_smoke_config(arch)
+    state = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu",
+                          optimizer=optimizer)
     batch = pipeline.make_batch(
         cfg, pipeline.DataConfig(seq_len=32, global_batch=4), 0)
     step = TS.make_train_step(cfg, peak_lr=3e-5, warmup_steps=0,
-                              return_grads=True)
+                              optimizer=optimizer, return_grads=True)
     c_state, c_m = step(state, batch)
     reset_counters()
     g_state, g_m = step(to_device(state, "cuda"), to_device(batch, "cuda"))
     torch.cuda.synchronize()
     launches = counts()
     plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
-    if any(plain.values()) or not launches["gemm_gated"] \
+    ffn = "gemm_grouped" if cfg.n_experts else "gemm_gated"
+    if any(plain.values()) or not launches[ffn] \
             or not launches["flash_attention"] \
             or not (launches["gemm_aie"] + launches["gemm_tb_final"]):
-        raise RuntimeError(f"train cross-device: card launches {launches}, "
-                           f"plain versions {plain}")
+        raise RuntimeError(f"train cross-device {arch}: card launches "
+                           f"{launches}, plain versions {plain}")
     worst = {}
     pairs = [("loss", c_m["loss"], g_m["loss"]),
              ("grad_norm", c_m["grad_norm"], g_m["grad_norm"])]
-    for tag, c_tree, g_tree in (("grad", c_m["grads"], g_m["grads"]),
-                                ("param", c_state.params, g_state.params),
-                                ("mu", c_state.opt.mu, g_state.opt.mu),
-                                ("nu", c_state.opt.nu, g_state.opt.nu)):
+    moments = [(f, getattr(c_state.opt, f), getattr(g_state.opt, f))
+               for f in c_state.opt._fields if f != "step"]
+    for tag, c_tree, g_tree in [("grad", c_m["grads"], g_m["grads"]),
+                                ("param", c_state.params, g_state.params)
+                                ] + moments:
         pairs += [(tag, c, g) for c, g in zip(tree_leaves(c_tree),
                                               tree_leaves(g_tree))]
     for tag, c, g in pairs:
@@ -1954,14 +2003,25 @@ def train_cross_device_phase():
                                      (ug - uc).abs().max().item())
         clear_n, all_n = clear_n + int(clear.sum()), all_n + clear.numel()
     if clear_n < all_n / 2:
-        raise RuntimeError(f"train cross-device: only {clear_n} of {all_n} "
-                           f"gradient elements clear of zero")
-    log(f"train cross-device: smollm-360m-smoke one AdamW step (f32, lr "
+        raise RuntimeError(f"train cross-device {arch}: only {clear_n} of "
+                           f"{all_n} gradient elements clear of zero")
+    again_state, again_m = step(to_device(state, "cuda"),
+                                to_device(batch, "cuda"))
+    same = [torch.equal(a, b) for a, b in zip(
+        tree_leaves(dict(grads=g_m["grads"], params=g_state.params)),
+        tree_leaves(dict(grads=again_m["grads"],
+                         params=again_state.params)))]
+    deterministic = all(same) and torch.equal(g_m["loss"], again_m["loss"])
+    log(f"train cross-device: {cfg.name} one {optimizer} step (f32, lr "
         f"3e-5), card vs CPU max abs err: " + ", ".join(
             f"{k} {v:.2e}" for k, v in worst.items())
         + f" (tolerance 1e-4; update/lr 1e-2 on the {clear_n} of {all_n} "
-        f"elements whose |grad| > 1e-5); card launches {launches}")
-    return {"max_abs_err": worst, "launches": launches}
+        f"elements whose |grad| > 1e-5); card launches {launches}; two "
+        f"card steps from one state equal bit for bit: {deterministic} "
+        f"({sum(same)} of {len(same)} gradient and parameter leaves)")
+    return {"config": cfg.name, "optimizer": optimizer,
+            "max_abs_err": worst, "launches": launches,
+            "deterministic": deterministic}
 
 
 def train_phase(cfg, card):
@@ -2020,6 +2080,9 @@ def train_phase(cfg, card):
                 "launches": launches, "gemms_executed": executed})
             out["step_plans"], out["step_views"] = dict(rec.plans), \
                 dict(tr.views)
+            if step == TRAIN_STEPS - 1:        # for the resume phase
+                out["final_params"] = map_tree(
+                    lambda t: t.detach().cpu(), state.params)
             log(f"train step {step}: loss {loss:.4f} gnorm {gn:.3f}; wall "
                 f"{times['wall_ms']:.1f} ms, device {times['device_ms']:.1f} "
                 f"ms (CUDA events), {rows[-1]['tokens_per_s']:.0f} tok/s, "
@@ -2087,13 +2150,16 @@ def transpose_copy_phase(views, card):
     return {"ms_per_step": total, "views": rows}
 
 
-def train_kernel_phase(step_plans):
-    """Each distinct GEMM plan one full-width training step executed, on
-    the kernel and tile its HOPPER_H100 plan picks, held to its plain
-    version and timed beside torch.matmul (weight = its executions in
-    the step); B3 at b 8 x s 512 (64 launches a step) beside SDPA."""
+def train_kernel_phase(step_plans, attn=True, keep=lambda pl: True):
+    """Each distinct GEMM plan one full-width training step executed
+    (those ``keep`` takes), on the kernel and tile its HOPPER_H100 plan
+    picks, held to its plain version and timed beside torch.matmul
+    (weight = its executions in the step); with ``attn``, B3 at smollm-
+    360m's b 8 x s 512 (64 launches a step) beside SDPA."""
     distinct = {}     # plans that differ only in how their spec names
     for pl, times in step_plans.items():     # the output dtype run alike
+        if pl.spec.grouped or not keep(pl):
+            continue
         p = pl.problem
         key = (pl.kernel, pl.m, pl.k, pl.n, p.a_dtype, p.b_dtype,
                p.out_dtype, p.epilogue, pl.tile)
@@ -2117,12 +2183,344 @@ def train_kernel_phase(step_plans):
                       act=ep.activation, out_dtype=out,
                       tb=pl.kernel == "tb",
                       tile=pl.tile if pl.kernel == "tb" else None))
-    cases["flash_attention"] = [attn_case(
-        "train b8 s512 h15/5 d64", 64, TRAIN_BATCH, TRAIN_SEQ, 15, 5, 64,
-        torch.bfloat16)]
+    if attn:
+        cases["flash_attention"] = [attn_case(
+            "train b8 s512 h15/5 d64", 64, TRAIN_BATCH, TRAIN_SEQ, 15, 5,
+            64, torch.bfloat16)]
     with torch.inference_mode():
         return {name: check_kernel(name, c) for name, c in cases.items()
                 if c}
+
+
+# ------------------------------------------------------------- resume
+
+#: the resume check stops smollm-360m's run after this many steps and
+#: resumes it to TRAIN_STEPS
+RESUME_AT = 2
+
+
+def _tree_spread(a, b) -> float:
+    """The largest |a - b| over two trees' matching leaves."""
+    return max((x.float() - y.float()).abs().max().item()
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def resume_phase(cfg, unbroken, card):
+    """Checkpoint and resume through ``repro_torch.launch.train.train`` on
+    smollm-360m at full width: the unbroken step is first run twice from
+    one state (the seed-0 init, batch 0), and the two runs' spread over
+    the loss, the parameters and the AdamW moments bounds the check (0:
+    bit for bit).  Then RESUME_AT steps with ``ckpt_dir`` (a directory in
+    the checkout, deleted afterwards) and ``ckpt_every=RESUME_AT`` on the
+    whole run's schedule, and a second ``train`` call that resumes from
+    that checkpoint to TRAIN_STEPS: its losses and final parameters must
+    equal train_phase's unbroken run's within that spread."""
+    kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0,
+              device="cuda")
+    state, step_fn = train_launch.build(cfg, device=torch.device("cuda"),
+                                        total_steps=TRAIN_STEPS, seed=0)
+    batch = pipeline.make_batch(
+        cfg, pipeline.DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                 seed=0), 0, "cuda")
+    (s1, m1), (s2, m2) = (step_fn(state, batch) for _ in range(2))
+    spread = max(abs(float(m1["loss"]) - float(m2["loss"])),
+                 _tree_spread(s1.params, s2.params),
+                 _tree_spread(s1.opt.mu, s2.opt.mu),
+                 _tree_spread(s1.opt.nu, s2.opt.nu))
+    del state, s1, s2, m1, m2
+    torch.cuda.empty_cache()
+    directory = tempfile.mkdtemp(prefix=".resume_check_", dir=ROOT)
+    resumed = {}
+
+    def on_step(step, state, m, times):
+        resumed[step] = float(m["loss"])
+        if step == TRAIN_STEPS - 1:
+            resumed["params"] = map_tree(lambda t: t.detach().cpu(),
+                                         state.params)
+    try:
+        t0 = time.perf_counter()
+        train_launch.train(cfg, steps=RESUME_AT, total_steps=TRAIN_STEPS,
+                           ckpt_dir=directory, ckpt_every=RESUME_AT, **kw)
+        first_s = time.perf_counter() - t0
+        step_dir = pathlib.Path(directory) / f"step_{RESUME_AT:08d}"
+        disk = sum(f.stat().st_size for f in step_dir.iterdir())
+        t0 = time.perf_counter()
+        train_launch.train(cfg, steps=TRAIN_STEPS, ckpt_dir=directory,
+                           ckpt_every=RESUME_AT, on_step=on_step, **kw)
+        second_s = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    want = {r["step"]: r["loss"] for r in unbroken["steps"]}
+    if sorted(k for k in resumed if k != "params") \
+            != list(range(RESUME_AT, TRAIN_STEPS)):
+        raise RuntimeError(f"resume: the resumed run ran steps "
+                           f"{sorted(k for k in resumed if k != 'params')}")
+    loss_err = max(abs(resumed[k] - want[k])
+                   for k in range(RESUME_AT, TRAIN_STEPS))
+    param_err = _tree_spread(resumed["params"], unbroken["final_params"])
+    if loss_err > spread or param_err > spread:
+        raise RuntimeError(f"resume: the resumed run is {loss_err:.3e} "
+                           f"(loss) / {param_err:.3e} (parameters) from the "
+                           f"unbroken one, beyond the two-run spread "
+                           f"{spread:.3e}")
+    log(f"resume: {cfg.name} bf16 AdamW, {RESUME_AT} steps saved "
+        f"({disk / 1e9:.2f} GB on disk, run {first_s:.1f} s), resumed to "
+        f"step {TRAIN_STEPS} ({second_s:.1f} s): steps "
+        f"{RESUME_AT}-{TRAIN_STEPS - 1} losses "
+        f"{[resumed[k] for k in range(RESUME_AT, TRAIN_STEPS)]} against the "
+        f"unbroken {[want[k] for k in range(RESUME_AT, TRAIN_STEPS)]}; max "
+        f"|loss| diff {loss_err:.3e}, max |param| diff {param_err:.3e}; one "
+        f"step run twice from one state differs by {spread:.3e} "
+        + ("(deterministic: the check is bit for bit)" if spread == 0
+           else "(the check's bound)") + f" [{card}]")
+    return {"config": cfg.name, "resume_at": RESUME_AT,
+            "steps": TRAIN_STEPS, "checkpoint_bytes": disk,
+            "first_run_s": first_s, "resumed_run_s": second_s,
+            "resumed_losses": {k: resumed[k]
+                               for k in range(RESUME_AT, TRAIN_STEPS)},
+            "max_loss_diff": loss_err, "max_param_diff": param_err,
+            "two_run_spread": spread, "bitwise": spread == 0}
+
+
+# ------------------------------------------------------- MoE training
+
+#: qwen3-moe-235b-a22b trains at full width with its depth cut to this
+#: many layers: at 1 the parameters, their gradients, the clipped
+#: gradients and the new parameters (four bf16 trees of 3.73 G elements,
+#: 29.9 GB) and Adafactor's f32 temporaries of one 805 M-element expert
+#: bank (~16 GB) fit the card; at 2 (~82 GB) they do not
+MOE_TRAIN_LAYERS = 1
+MOE_TRAIN_STEPS = 3
+#: B7 launches of one MoE layer's training step: three forward, three in
+#: the remat recompute, the gate's f32 pre-activation recompute and three
+#: dA against the transposed banks
+B7_PER_LAYER_STEP = 10
+
+
+def moe_train_gemms_per_step(cfg) -> int:
+    """The planned GEMMs of one remat MoE training step: per layer q, k,
+    v, o and the f32 router twice (forward and recompute) with their dA
+    and dB, the three grouped expert GEMMs twice, the gate's
+    pre-activation recompute and three grouped dA; per loss chunk the
+    lm_head forward, its recompute, dA and dB."""
+    return cfg.n_layers * (2 * 5 + 2 * 5 + B7_PER_LAYER_STEP) \
+        + 4 * LOSS_CHUNKS
+
+
+def moe_train_phase(full, card):
+    """``repro_torch.launch.train.train`` on qwen3-moe-235b-a22b at full
+    width with its depth cut to MOE_TRAIN_LAYERS, bf16, Adafactor (the
+    full model's optimizer), b 8 x s 512, seed 0, MOE_TRAIN_STEPS steps.
+    Counts and executed plans are set to 0 before the run and after every
+    step: each step's launches must equal its executed plans, B7 launch
+    B7_PER_LAYER_STEP times a layer, B3 twice a layer, and no plain
+    version run; loss and grad norm finite, every gradient leaf finite
+    and non-zero at step 0 (router and banks included).  The last step
+    is traced with ``torch.profiler`` (device busy time by kernel
+    family, ``tools/train_profile.py``'s summary).  Then the loss and
+    gradients at the final parameters are taken twice: whether they
+    agree bit for bit says whether the MoE step is deterministic."""
+    cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
+    optimizer = TS.select_optimizer(full)
+    log(f"{full.name} training: full width, depth cut {full.n_layers} -> "
+        f"{MOE_TRAIN_LAYERS} layer(s), {optimizer} (the full model's "
+        f"optimizer): at 1 layer the parameters, gradients, clipped "
+        f"gradients and new parameters (4 x {cfg.param_count() * 2 / 1e9:.2f}"
+        f" GB of bf16) and Adafactor's f32 temporaries of one expert bank "
+        f"fit 80 GB; at 2 layers they do not")
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = cfg.model_flops(tokens, training=True)
+    rows, out, kept = [], {}, {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    with PlanRecorder() as rec, TransposeRecorder() as tr:
+        def on_step(step, state, m, times):
+            if step == MOE_TRAIN_STEPS - 1:
+                kept["prof"].__exit__(None, None, None)
+            launches = counts()
+            plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
+            want = dict({n: 0 for n in launches}, **rec.implied())
+            want["flash_attention"] = 2 * cfg.n_layers
+            executed = sum(rec.plans.values())
+            if executed != moe_train_gemms_per_step(cfg):
+                raise RuntimeError(f"MoE train step {step}: {executed} "
+                                   f"GEMMs ran, expected "
+                                   f"{moe_train_gemms_per_step(cfg)}")
+            if launches != want or any(plain.values()) \
+                    or launches["gemm_grouped"] \
+                    != B7_PER_LAYER_STEP * cfg.n_layers:
+                raise RuntimeError(f"MoE train step {step}: launches "
+                                   f"{launches} (expected {want}, B7 "
+                                   f"{B7_PER_LAYER_STEP} a layer), plain "
+                                   f"versions {plain}")
+            loss, gn = float(m["loss"]), float(m["grad_norm"])
+            if not (math.isfinite(loss) and math.isfinite(gn)):
+                raise RuntimeError(f"MoE train step {step}: loss {loss}, "
+                                   f"grad norm {gn}")
+            if step == 0:
+                for key, g in _paths(m.pop("grads")):
+                    if not torch.isfinite(g.float()).all() \
+                            or not g.float().abs().sum() > 0:
+                        raise RuntimeError(f"MoE train step 0: the gradient "
+                                           f"of {key} is zero or non-finite")
+                out["step_plans"], out["step_views"] = dict(rec.plans), \
+                    dict(tr.views)
+                out["group_sizes"] = rec.group_sizes.cpu().tolist()
+            m.pop("grads", None)
+            rows.append({
+                "step": step, "loss": loss, "grad_norm": gn,
+                "aux": float(m["aux"]), "lr": float(m["lr"]),
+                "wall_ms": times["wall_ms"],
+                "device_ms": times["device_ms"],
+                "tokens_per_s": tokens / times["wall_ms"] * 1e3,
+                "model_flop_share": flops / (times["wall_ms"] * 1e-3)
+                / PEAK_OPS[torch.bfloat16], "launches": launches,
+                "gemms_executed": executed,
+                "traced": step == MOE_TRAIN_STEPS - 1})
+            log(f"MoE train step {step}: loss {loss:.4f} gnorm {gn:.3f}; "
+                f"wall {times['wall_ms']:.1f} ms, device "
+                f"{times['device_ms']:.1f} ms (CUDA events), "
+                f"{rows[-1]['tokens_per_s']:.0f} tok/s, model-FLOP share "
+                f"{rows[-1]['model_flop_share']:.2%} of 989 TFLOP/s"
+                + (" (traced)" if rows[-1]["traced"] else "")
+                + f"; launches {launches} [{card}]")
+            reset_counters()
+            rec.plans = {}
+            tr.views = {}
+            if step == MOE_TRAIN_STEPS - 1:
+                kept["params"] = state.params
+            if step == MOE_TRAIN_STEPS - 2:       # trace the last step
+                kept["prof"] = train_profile.profile(activities=[
+                    train_profile.ProfilerActivity.CPU,
+                    train_profile.ProfilerActivity.CUDA])
+                kept["prof"].__enter__()
+
+        t0 = time.perf_counter()
+        final = train_launch.train(
+            cfg, steps=MOE_TRAIN_STEPS, seq_len=TRAIN_SEQ,
+            global_batch=TRAIN_BATCH, seed=0, device="cuda",
+            optimizer=optimizer, on_step=on_step, return_grads=True)
+        seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    profile = train_profile.summarize(kept.pop("prof"))
+    # the same loss and gradients twice, at the final parameters
+    batch = pipeline.make_batch(
+        cfg, pipeline.DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                 seed=0), 0, "cuda")
+    (l1, _, g1), (l2, _, g2) = (TS.value_and_grad(kept["params"], cfg, batch)
+                                for _ in range(2))
+    spread = max(abs(float(l1) - float(l2)), _tree_spread(g1, g2))
+    del g1, g2, kept
+    reset_counters()
+    clean = rows[1:-1] or rows[1:]
+    out.update({"config": cfg.name, "layers": MOE_TRAIN_LAYERS,
+                "optimizer": optimizer, "dtype": cfg.dtype, "steps": rows,
+                "final": final, "seconds": seconds,
+                "tokens_per_step": tokens, "model_flops_per_step": flops,
+                "peak_memory_bytes": peak, "profile": profile,
+                "gradient_two_run_spread": spread,
+                "deterministic": spread == 0,
+                "launches": {k: sum(r["launches"][k] for r in rows)
+                             for k in rows[0]["launches"]}})
+    for key in ("wall_ms", "device_ms", "tokens_per_s", "model_flop_share"):
+        out[f"steady_{key}"] = float(np.median([r[key] for r in clean]))
+    log(f"MoE train {cfg.name} ({MOE_TRAIN_LAYERS} layer) bf16 b "
+        f"{TRAIN_BATCH} x s {TRAIN_SEQ}, {optimizer}, untraced steps "
+        f"{[r['step'] for r in clean]}: wall {out['steady_wall_ms']:.1f} ms,"
+        f" device {out['steady_device_ms']:.1f} ms, "
+        f"{out['steady_tokens_per_s']:.0f} tok/s, model-FLOP share "
+        f"{out['steady_model_flop_share']:.2%} ({flops / 1e12:.2f} TFLOP a "
+        f"step over 989 TFLOP/s); peak memory {peak / 1e9:.2f} GB "
+        f"(max_memory_allocated); the loss and gradients taken twice "
+        f"differ by {spread:.3e} ("
+        + ("deterministic" if spread == 0 else "not deterministic")
+        + f") [{card}]")
+    if profile is None:
+        log("MoE train: the trace holds no device events: device busy "
+            "time not measured")
+    else:
+        busy, window = profile["device_busy_ms"], profile["device_window_ms"]
+        log(f"MoE train: traced step {MOE_TRAIN_STEPS - 1}: wall "
+            f"{rows[-1]['wall_ms']:.1f} ms, device window {window:.1f} ms, "
+            f"busy {busy:.1f} ms, idle {1 - busy / window:.1%} of the "
+            f"window; by family [{card}]:")
+        train_profile.report(profile, prefix="[chip_smoke]")
+    return out
+
+
+def moe_train_kernel_phase(cfg, sizes, step_plans, card):
+    """B7 at the MoE training step's own shapes and group sizes (32768
+    routed rows; weight = launches a layer-step): the gate + silu, up and
+    down forwards, the gate's f32 pre-activation recompute and the three
+    dA (against contiguous transposed banks), each against its plain
+    version, ``torch._grouped_mm`` and its bound; the device time of
+    copying each transposed bank contiguous (what B7's wrapper does in
+    the step); the plain dB (per-expert f32 products over the sizes read
+    on the host), from a CUDA graph and eagerly; and the step's f32
+    router GEMMs on B1 / B6 (forward, recompute, dA, dB)."""
+    bf, f32 = torch.bfloat16, torch.float32
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+    m = TRAIN_SEQ * TRAIN_BATCH * cfg.top_k
+    rows = int(sum(sizes))
+    cases = [
+        grouped_case(f"train gate+silu {m}x{d}x{f} (fwd, remat)", 2, sizes,
+                     m, d, f, bf, act="silu", timed=True),
+        grouped_case(f"train up {m}x{d}x{f} (fwd, remat)", 2, sizes, m, d,
+                     f, bf, timed=True),
+        grouped_case(f"train down {m}x{f}x{d} (fwd, remat)", 2, sizes, m, f,
+                     d, bf, timed=True),
+        grouped_case(f"train gate pre-activation {m}x{d}x{f} ->f32", 1,
+                     sizes, m, d, f, bf, out_dtype=f32, timed=True),
+        grouped_case(f"train dA gate/up {m}x{f}x{d} (bank transposed)", 2,
+                     sizes, m, f, d, bf, timed=True),
+        grouped_case(f"train dA down {m}x{d}x{f} (bank transposed)", 1,
+                     sizes, m, d, f, bf, timed=True)]
+    for c in cases:
+        c["moe_weight"] = 0
+    with torch.inference_mode():
+        checked = {"gemm_grouped": check_kernel("gemm_grouped", cases)}
+        copies, db = [], []
+        for (k, n), per_step in (((d, f), 2), ((f, d), 1)):
+            bank = rand((e, k, n), bf)
+            ms = device_ms(lambda w: w.transpose(1, 2).contiguous(),
+                           [((bank,), {})])
+            copies.append({"bank": [e, k, n], "per_step": per_step,
+                           "ms": ms, "bytes": 2 * bank.numel() * 2})
+            a, dz = rand((m, k), bf), rand((m, n), f32)
+            host = tuple(int(x) for x in sizes)
+            inputs = [((a, dz, host, bf), {})]
+            db.append({
+                "shape": f"dB ({e}, {k}, {n}) over {rows} rows",
+                "per_step": per_step,
+                "ms": device_ms(api._grouped_db, inputs),
+                "eager_ms": eager_ms(api._grouped_db, inputs),
+                "bytes": rows * (k * 2 + n * 4) + e * k * n * 2,
+                "transient_bytes": k * n * 4 + max(sizes) * k * 4,
+                "ops": 2.0 * rows * k * n})
+            del bank, a, dz
+        router = train_kernel_phase(
+            step_plans, attn=False,
+            keep=lambda pl: pl.problem.a_dtype == "float32")
+    copy_ms = sum(c["per_step"] * c["ms"] for c in copies)
+    db_ms = sum(r["per_step"] * r["ms"] for r in db)
+    db_eager = sum(r["per_step"] * r["eager_ms"] for r in db)
+    log(f"MoE train: the transposed banks copied contiguous by B7's "
+        f"wrapper, {sum(c['per_step'] for c in copies)} a layer-step: "
+        + ", ".join(f"({c['bank'][0]}, {c['bank'][1]}, {c['bank'][2]}) "
+                    f"{c['ms']:.3f} ms" for c in copies)
+        + f"; {copy_ms:.3f} ms a layer-step [{card}]")
+    log(f"MoE train: plain dB (per-expert f32 products, no (r, e, k) "
+        f"tensor): " + ", ".join(
+            f"{r['shape']} {r['ms']:.3f} ms graph / {r['eager_ms']:.3f} ms "
+            f"eager, {r['bytes'] / 1e9:.2f} GB moved, "
+            f"{r['transient_bytes'] / 1e6:.0f} MB transient" for r in db)
+        + f"; {db_ms:.3f} ms a layer-step ({db_eager:.3f} eager) [{card}]")
+    checked.update(router)
+    return checked, {"transposed_bank_copies": copies,
+                     "copy_ms_per_layer_step": copy_ms, "plain_db": db,
+                     "db_ms_per_layer_step": db_ms,
+                     "db_eager_ms_per_layer_step": db_eager}
 
 
 def main() -> None:
@@ -2172,6 +2570,9 @@ def main() -> None:
     train_checked = train_kernel_phase(step_plans)
     del step_plans
     torch.cuda.empty_cache()
+    resume = resume_phase(cfg, train_run, card)
+    del train_run["final_params"]
+    torch.cuda.empty_cache()
     qparams, q_bytes = quantize(params, cfg.name)
     del params
     int8_run = int8_serve_phases(cfg, qparams)
@@ -2211,8 +2612,21 @@ def main() -> None:
     del moe_q
     torch.cuda.empty_cache()
 
+    moe_train_cross = train_cross_device_phase(full.name, "adafactor")
+    moe_train = moe_train_phase(full, card)
+    moe_plans = moe_train.pop("step_plans")
+    moe_train["dense_transposed_operands"] = sum(
+        moe_train.pop("step_views").values())
+    torch.cuda.empty_cache()
+    moe_train_checked, moe_train_extra = moe_train_kernel_phase(
+        full, moe_train["group_sizes"], moe_plans, card)
+    moe_train.update(moe_train_extra)
+    del moe_plans
+    torch.cuda.empty_cache()
+
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
-             "operator_api": (api_run,), "train": (train_run,)}
+             "operator_api": (api_run,), "train": (train_run,),
+             f"train {full.name}": (moe_train,)}
     int8_paths = {}
     for name, run in ((cfg.name, int8_run), (moe_cfg.name, moe_int8)):
         int8_paths[f"{name} w8a16"] = (run["w8a16"]["serve"],
@@ -2249,6 +2663,12 @@ def main() -> None:
             _, t_worst, t_total, _ = train_checked[name]
             entry["max_abs_err"] = max(worst, t_worst)
             entry["train"] = times(t_total, TRAIN_TIMED_ON[name])
+        if name in moe_train_checked:
+            _, t_worst, t_total, _ = moe_train_checked[name]
+            entry["max_abs_err"] = max(entry["max_abs_err"], t_worst)
+            key = "train" if name == "gemm_grouped" \
+                else f"train {full.name}"
+            entry[key] = times(t_total, MOE_TRAIN_TIMED_ON[name])
         if name == "gemm_tb":       # two Pallas sites: B6a and B6b
             entry["sites"] = {replaces: driven("gemm_tb"),
                               GEMM_TB_FINAL_SITE: driven("gemm_tb_final")}
@@ -2302,6 +2722,10 @@ def main() -> None:
                 "int8": moe_int8},
         "train": train_run, "train_cross_device": train_cross,
         "train_cases": {n: rows for n, (rows, *_) in train_checked.items()},
+        "resume": resume, "moe_train": moe_train,
+        "moe_train_cross_device": moe_train_cross,
+        "moe_train_cases": {n: rows for n, (rows, *_) in
+                            moe_train_checked.items()},
         "paged_bitwise": paged_bitwise,
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
         "b3_b2_bitwise": redesign_bitwise, "int8_bitwise": int8_bitwise,
@@ -2317,10 +2741,12 @@ def main() -> None:
     log("kernels line: ms / plain_ms / bound_ms / library_ms are summed "
         "over the shapes of the step each entry's timed_on names, the "
         f"{moe_cfg.name} key holds the same for the 4-layer MoE, the "
-        "train key for one full-width smollm-360m training step, and each "
-        "GEMM's int8 object the same for its int8 cases by mode; launches "
-        "sum the dense and paged serve runs of both models in bf16, W8A16 "
-        "and W8A8, the operator-API phase and the training run "
+        "train key for one full-width smollm-360m training step (B7: one "
+        f"layer-step of {full.name} training), the train {full.name} key "
+        "B1's and B6's f32 router GEMMs of that step, and each GEMM's int8 "
+        "object the same for its int8 cases by mode; launches sum the "
+        "dense and paged serve runs of both models in bf16, W8A16 and "
+        "W8A8, the operator-API phase and both training runs "
         "(launches_by_path splits them)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -36,10 +36,12 @@ on, a dense GEMM runs inside one ``torch.autograd.Function``
 (:class:`_GemmCore`, the JAX package's ``_gemm_core`` custom VJP): its
 forward launches the planned kernel, its backward is the unfused
 composition of planned plain GEMMs (:func:`_plain`), so the gradient
-reaches the weights through the same kernels on every device.  Not in
-the port yet, and raising ``NotImplementedError`` with their ROADMAP
-item: measured tuning (A10), and the grouped GEMM's gradient (MoE
-training, A7).
+reaches the weights through the same kernels on every device.  A grouped
+GEMM runs inside :class:`_GroupedCore` (``_grouped_core``): dA and the
+activation's pre-activation recompute are planned grouped GEMMs (B7 on a
+card), dB the per-expert outer product in plain f32.  With grad mode off
+both dispatch directly.  Not in the port yet, and raising
+``NotImplementedError`` with its ROADMAP item: measured tuning (A10).
 """
 
 from __future__ import annotations
@@ -70,22 +72,6 @@ from repro_torch.kernels.gemm_tb import feasible_bk, gemm_tb
 
 def _is_quant(b) -> bool:
     return isinstance(b, dict) and {"q", "scale"} <= set(b)
-
-
-def _not_yet(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} arrives with ROADMAP queue {item}")
-
-
-def forward_only(what: str, *operands) -> None:
-    """Raise when grad mode is on and an operand of a kernel that has no
-    backward in the port yet requires a gradient: on a card its output
-    would be cut off from autograd without a word."""
-    if not torch.is_grad_enabled():
-        return
-    for t in operands:
-        ts = t.values() if isinstance(t, dict) else (t,)
-        if any(isinstance(x, torch.Tensor) and x.requires_grad for x in ts):
-            raise _not_yet(f"the gradient of {what}", "A7 (MoE training)")
 
 
 # ---------------------------------------------------------------------------
@@ -186,7 +172,8 @@ class GemmSpec:
             raise ValueError("an int8 A needs an int8 B (W8A8)")
         # what the JAX package has and this slice of the port does not
         if self.tune:
-            raise _not_yet("measured tile tuning", "A10")
+            raise NotImplementedError(
+                "measured tile tuning arrives with ROADMAP queue A10")
 
     @property
     def key(self) -> str:
@@ -821,6 +808,123 @@ def _run(pl: GemmPlan, a2, b, b2, bias, res2, out_scale=None
     return _GemmCore.apply(pl, a2, b, None, b2, None, bias, res2)
 
 
+# ---------------------------------------------------------------------------
+# The grouped family's autograd Function (backward = grouped GEMMs with the
+# transposed expert bank steered by the SAME group sizes)
+# ---------------------------------------------------------------------------
+
+def _group_rows(sizes: torch.Tensor, m: int):
+    """Per-row group id (clamped) and liveness under ``sizes`` — the
+    backward's reconstruction of the forward's steering tables."""
+    ends = torch.cumsum(sizes.to(torch.int64), 0)
+    rows = torch.arange(m, dtype=torch.int64, device=sizes.device)
+    gid = torch.searchsorted(ends, rows, right=True)
+    return torch.clamp(gid, max=sizes.shape[0] - 1), rows < ends[-1]
+
+
+def _grouped_plain(a: torch.Tensor, b: torch.Tensor, b_scale, sizes,
+                   out_dtype) -> torch.Tensor:
+    """A planned plain grouped GEMM — the recompute/backward primitive
+    (``tune=False`` like :func:`_plain`; dense_rows defaults to m, so
+    internal plans claim no padding savings).  A transposed bank arrives
+    as a view and B7's wrapper copies it contiguous."""
+    m, k = a.shape
+    e, _, n = b.shape
+    key = ("grouped plain", a.dtype, b.dtype, b_scale is not None,
+           out_dtype, m, k, n, e)
+    pl = _oneshot.get(key)
+    if pl is None:
+        spec = GemmSpec(a_dtype=a.dtype, b_dtype=b.dtype,
+                        b_quant=b_scale is not None, grouped=True,
+                        out_dtype=out_dtype, tune=False)
+        pl = _oneshot[key] = plan(spec, (m, k, n, e))
+    return _launch(pl, a, b, None, None, None, sizes, b_scale=b_scale)
+
+
+def _expert_rows(sizes: Tuple[int, ...]):
+    """Each expert's slice of the group-sorted rows, from host sizes."""
+    start = 0
+    for size in sizes:
+        yield slice(start, start + size)
+        start += size
+
+
+def _grouped_db(a: torch.Tensor, dz: torch.Tensor, sizes: Tuple[int, ...],
+                dtype) -> torch.Tensor:
+    """dB of a grouped GEMM: expert ``e``'s ``A[rows_e]^T dz[rows_e]`` in
+    f32, rounded to ``dtype`` — the reference's one-hot
+    ``einsum("re,rk,rn->ekn")`` contracted over each expert's own rows
+    (``sizes`` read on the host), so no (r, e, k) tensor and no f32
+    (E, k, n) bank is ever built."""
+    db = torch.zeros((len(sizes), a.shape[1], dz.shape[1]), dtype=dtype,
+                     device=a.device)
+    for i, rows in enumerate(_expert_rows(sizes)):
+        if rows.stop > rows.start:
+            db[i] = a[rows].float().T @ dz[rows]
+    return db
+
+
+class _GroupedCore(torch.autograd.Function):
+    """epilogue(A[r] @ B[g(r)]) over the ragged groups, forward and
+    backward driven by the plan (``repro/kernels/api.py``
+    ``_grouped_core``).  A quantized bank arrives as its int8 q and f32
+    (E, 1, n) scale; ``group_sizes`` takes no gradient."""
+
+    @staticmethod
+    def forward(ctx, pl, a, b, b_scale, group_sizes, bias):
+        ctx.pl = pl
+        ctx.save_for_backward(a, b, b_scale, group_sizes, bias)
+        return _launch(pl, a, b, None, bias, None, group_sizes,
+                       b_scale=b_scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        # dA rows see only their own expert's panel, so dA is itself a
+        # grouped GEMM against the transposed bank with the same sizes; dB
+        # is the per-expert outer product.  An int8 bank (q and its
+        # scale) gets no gradient; it is dequantized only here, for dA.
+        a, b, b_scale, sizes, bias = ctx.saved_tensors
+        _, need_a, need_b, _, _, need_bias = ctx.needs_input_grad
+        act = ctx.pl.spec.epilogue.activation
+        e = b.shape[0]
+        gid, live = _group_rows(sizes, a.shape[0])
+        gf = torch.where(live[:, None], g.float(), 0.0)
+        if act is not None:
+            z = _grouped_plain(a, b, b_scale, sizes, torch.float32)
+            if bias is not None:
+                z = z + bias.reshape(e, -1)[gid].float()
+            dz = torch.where(live[:, None], _act_bwd(act, z, gf), 0.0)
+        else:
+            dz = gf
+        need_b = need_b and b.dtype != torch.int8 and b_scale is None
+        host = tuple(sizes.tolist()) if need_b or need_bias else None
+        dbias = db = da = None
+        if need_bias:
+            dbias = torch.stack([dz[rows].sum(0) for rows in
+                                 _expert_rows(host)]) \
+                .reshape(bias.shape).to(bias.dtype)
+        if need_a:
+            w = b if b_scale is None else \
+                (b.float() * b_scale.reshape(e, 1, -1).float()).to(a.dtype)
+            da = _grouped_plain(dz.to(a.dtype), w.transpose(1, 2), None,
+                                sizes, a.dtype).to(a.dtype)
+        if need_b:
+            db = _grouped_db(a, dz, host, b.dtype)
+        return None, da, db, None, None, dbias
+
+
+def _run_grouped(pl: GemmPlan, a2, b, bias, group_sizes) -> torch.Tensor:
+    """Run a checked grouped plan: through :class:`_GroupedCore` with grad
+    mode on, directly with it off (serving), as :func:`_run` does."""
+    if not torch.is_grad_enabled():
+        return _dispatch(pl, a2, b, None, bias, None,
+                         group_sizes=group_sizes)
+    if pl.spec.b_quant:
+        return _GroupedCore.apply(pl, a2, b["q"], b["scale"], group_sizes,
+                                  bias)
+    return _GroupedCore.apply(pl, a2, b, None, group_sizes, bias)
+
+
 def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             bias: Optional[torch.Tensor] = None,
             residual: Optional[torch.Tensor] = None,
@@ -879,9 +983,8 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             f"({spec.a_dtype}, {spec.b_dtype})")
     if spec.grouped:
         _check_grouped(pl, a2, b, bias, group_sizes)
-        forward_only("the grouped GEMM", a2, b, bias)
-        return _dispatch(pl, a2, b, None, bias, None,
-                         group_sizes=group_sizes).reshape(*lead, pl.n)
+        return _run_grouped(pl, a2, b, bias, group_sizes).reshape(
+            *lead, pl.n)
     if tuple(a2.shape) != (pl.m, pl.k) or tuple(bw.shape) != (pl.k, pl.n):
         raise ValueError(
             f"operands {tuple(a.shape)} @ {tuple(bw.shape)} do not match "
@@ -1022,6 +1125,5 @@ def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
         _oneshot[key] = pl
         return out
     _plan_hits += 1
-    forward_only("the grouped GEMM", a, b, bias)
-    return _dispatch(pl, a.reshape(-1, pl.k), b, None, bias, None,
-                     group_sizes=group_sizes).reshape(*a.shape[:-1], pl.n)
+    return _run_grouped(pl, a.reshape(-1, pl.k), b, bias,
+                        group_sizes).reshape(*a.shape[:-1], pl.n)

@@ -271,6 +271,9 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
     if m == 0 or n == 0:
         return c
+    # the backward's dA passes the bank transposed, as a view: copying a
+    # qwen3-moe bank takes 6.0-6.1 ms on an NVIDIA H100 80GB HBM3 at
+    # 700 W (PERF.md section 6; ROADMAP queue B part 3, item 2)
     a, b = a.contiguous(), b.contiguous()
     bias32 = bias.reshape(e, n).float().contiguous() if bias is not None \
         else None

@@ -9,11 +9,18 @@ CPU when asked).
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --steps 3 \
         --device cpu
 
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-235b-a22b --smoke --steps 4 --device cpu \
+        --ckpt-dir /tmp/ckpt
+
 Prints the same ``[train] step N loss ... gnorm ... ms`` lines as the
 JAX driver, for every step (the JAX driver prints every tenth and the
-last).  Checkpointing
-(``--ckpt-dir``, ROADMAP queue A11) and telemetry (``--telemetry``,
-A10) are not ported yet and raise.
+last).  With ``--ckpt-dir`` the run resumes from the newest committed
+checkpoint there (``[train] resumed from step N``), saves every
+``ckpt_every`` steps without blocking and once more, blocking, at the
+end, in the JAX package's on-disk format
+(:mod:`repro_torch.checkpoint.checkpointer`).  Telemetry
+(``--telemetry``, ROADMAP queue A10) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data import pipeline
 from repro_torch.train import train_step as TS
@@ -47,24 +55,41 @@ def build(cfg, *, device, peak_lr: float = 3e-4, total_steps: int = 1000,
 
 def train(cfg, *, steps: int, seq_len: int, global_batch: int,
           microbatches: int = 1, seed: int = 0, device=None,
+          optimizer: Optional[str] = None, ckpt_dir: Optional[str] = None,
+          ckpt_every: int = 50, resume: bool = True,
+          total_steps: Optional[int] = None,
           on_step: Optional[Callable] = None,
           return_grads: bool = False) -> dict:
-    """Run a training job from step 0; returns the last step's metrics
-    as floats, and prints every step's line.  ``on_step(step, state,
-    metrics, times)`` is called after every step with the new state, the
-    step's metrics (``grads`` among them under ``return_grads``) and
-    ``times``: ``wall_ms`` (host clock
+    """Run (or resume) a training job up to step ``steps``; returns the
+    last step's metrics as floats, and prints every step's line.
+    ``optimizer`` picks AdamW or Adafactor (default: by model size);
+    ``total_steps`` is the learning-rate schedule's length (default
+    ``steps``: a run stopped early and resumed passes the whole run's,
+    so both halves follow one schedule).  With ``ckpt_dir`` a
+    committed checkpoint there is restored when ``resume`` is set (the
+    run then starts at its step), the state is saved every
+    ``ckpt_every`` steps without blocking, and once more, blocking, at
+    the end.  ``on_step(step, state, metrics, times)`` is called after
+    every step with the new state, the step's metrics (``grads`` among
+    them under ``return_grads``) and ``times``: ``wall_ms`` (host clock
     around the step, ended by a synchronize) and, on a card,
     ``device_ms`` (CUDA events around the step)."""
     device = resolve_device(device)
-    state, step_fn = build(cfg, device=device, total_steps=steps,
+    state, step_fn = build(cfg, device=device,
+                           total_steps=total_steps or steps,
                            microbatches=microbatches, seed=seed,
-                           return_grads=return_grads)
+                           optimizer=optimizer, return_grads=return_grads)
+    ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
+    start = 0
+    if ckpt and resume and ckpt.latest_step() is not None:
+        state = ckpt.restore(state)
+        start = int(state.step)
+        print(f"[train] resumed from step {start}", flush=True)
     data_cfg = pipeline.DataConfig(seq_len=seq_len,
                                    global_batch=global_batch, seed=seed)
     cuda = device.type == "cuda"
     metrics = {}
-    for step in range(steps):
+    for step in range(start, steps):
         batch = pipeline.make_batch(cfg, data_cfg, step, device)
         if cuda:
             torch.cuda.synchronize(device)
@@ -83,6 +108,10 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
               f"{times['wall_ms']:.0f}ms", flush=True)
         if on_step is not None:
             on_step(step, state, metrics, times)
+        if ckpt and (step + 1) % ckpt_every == 0:
+            ckpt.save(step + 1, state, blocking=False)
+    if ckpt:
+        ckpt.save(steps, state, blocking=True)
     return {k: float(v) for k, v in metrics.items() if k != "grads"}
 
 
@@ -101,9 +130,6 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--telemetry", default=None, metavar="PATH")
     args = ap.parse_args(argv)
-    if args.ckpt_dir:
-        raise NotImplementedError(
-            "checkpointing is not ported yet (ROADMAP queue A11)")
     if args.telemetry:
         raise NotImplementedError(
             "telemetry is not ported yet (ROADMAP queue A10)")
@@ -112,7 +138,7 @@ def main(argv=None) -> None:
     out = train(cfg, steps=args.steps, seq_len=args.seq_len,
                 global_batch=args.global_batch,
                 microbatches=args.microbatches, seed=args.seed,
-                device=args.device)
+                device=args.device, ckpt_dir=args.ckpt_dir)
     print("[train] final:", {k: round(v, 4) for k, v in out.items()})
 
 

@@ -1,6 +1,6 @@
 """Decoder stack (port of ``repro/models/transformer.py``, ``attn`` and
 ``moe`` layers): parameter init, the full-sequence ``forward`` and
-``loss_fn`` of training (``attn`` layers), and for serving the dense
+``loss_fn`` of training, and for serving the dense
 per-slot KV cache, prefill, one decode step, slot-targeted prefill for
 continuous batching, and the block-paged cache (pool init, chunked
 prefill into pages, copy-on-write page copies; ``decode_step`` takes
@@ -43,7 +43,7 @@ KINDS = ("attn", "moe")
 DECODE_CAPACITY_FACTOR = 4.0
 
 #: weight of the MoE load-balancing loss in ``loss_fn`` (as the JAX
-#: package's; the port's trainable layers have none yet)
+#: package's; each ``moe`` layer returns its own, summed over the stack)
 AUX_LOSS_WEIGHT = 0.01
 
 
@@ -155,18 +155,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 def apply_layer(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
                 causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """One layer, full sequence.  Returns (x, aux_loss).  The
-    residual-stream adds ride the output and down projections' flushes."""
-    if kind == "moe":
-        raise NotImplementedError(
-            "MoE training (the grouped GEMM's gradient) is not ported yet "
-            "(ROADMAP queue A7)")
-    if kind != "attn":
+    residual-stream adds ride the output and down projections' flushes;
+    a ``moe`` layer adds its experts' output to ``x`` and returns the
+    load-balancing loss."""
+    if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     spec = dataclasses.replace(_attn_spec(cfg), causal=causal)
     x = L.attention_block(p["attn"], L.rms_norm(p["norm1"], x,
                                                 cfg.norm_eps),
                           spec, residual=x)
     h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
+    if kind == "moe":
+        y, aux = MOE.moe_ffn(p["moe"], h, top_k=cfg.top_k,
+                             capacity_factor=cfg.capacity_factor)
+        return x + y, aux
     x = L.swiglu(p["mlp"], h, residual=x)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 

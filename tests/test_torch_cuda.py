@@ -1145,3 +1145,96 @@ def test_train_step_on_the_card_matches_the_cpu(cuda_device):
                                    ((c - p0) / lr)[clear], atol=1e-2, rtol=0)
         clear_n, all_n = clear_n + int(clear.sum()), all_n + clear.numel()
     assert clear_n >= all_n / 2
+
+
+# -------------------------------------------------------- MoE training
+
+#: qwen3-moe-235b-a22b's training step at b 8 x s 512: 4096 tokens routed
+#: top-8 over 128 experts, capacity 320 (32768 routed rows)
+QWEN3_TRAIN_SIZES = _routed(4096, 128, 8, 320, 23)
+
+
+@pytest.mark.parametrize("k,n", [(4096, 1536), (1536, 4096)])
+@pytest.mark.parametrize("out", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("transposed", [False, True])
+def test_gemm_grouped_at_the_training_shapes(cuda_device, k, n, out,
+                                             transposed):
+    """B7 at the MoE training step's shapes (32768 rows), with an f32
+    output (the gate's pre-activation recompute) and on a transposed
+    bank view (dA), against its plain version (bf16 2e-2); the rows past
+    the groups come back zero."""
+    sizes = QWEN3_TRAIN_SIZES
+    m, e = 4096 * 8, len(sizes)
+    a = _randn((m, k), torch.bfloat16, cuda_device, 0) / k ** 0.5
+    bank = _randn((e, n, k) if transposed else (e, k, n), torch.bfloat16,
+                  cuda_device, 1)
+    if transposed:
+        bank = bank.transpose(1, 2)
+    gs = torch.as_tensor(np.asarray(sizes, np.int32), device=cuda_device)
+    got = gemm_grouped(a, bank, gs, out_dtype=out)
+    want = gemm_grouped_plain(a, bank, gs, out_dtype=out)
+    assert got.dtype == out
+    _close(got, want, torch.bfloat16)
+    assert not got[int(sum(sizes)):].any()
+
+
+@pytest.mark.parametrize("case,dtype", [("plain", torch.float32),
+                                        ("bias+silu", torch.float32),
+                                        ("silu", torch.bfloat16)])
+def test_grouped_function_grads_on_the_card_match_the_cpu(cuda_device, case,
+                                                          dtype):
+    """The grouped GEMM's Function with CUDA tensors (B7 forward, f32
+    recompute and dA; the plain dB) against the same Function on CPU
+    tensors, with an empty group and rows past the groups: f32 atol =
+    rtol = 1e-5, bf16 2e-2."""
+    sizes, m, k, n = [40, 0, 70, 33, 12], 170, 136, 200
+    e = len(sizes)
+    vals = {"a": _randn((m, k), dtype, "cpu", 0),
+            "b": _randn((e, k, n), dtype, "cpu", 1) * k ** -0.5}
+    if case == "bias+silu":
+        vals["bias"] = _randn((e, n), dtype, "cpu", 2)
+    act = None if case == "plain" else "silu"
+    g = _randn((m, n), torch.float32, "cpu", 3)
+    grads = {}
+    for dev in ("cpu", cuda_device):
+        leaves = {x: v.to(dev, copy=True).requires_grad_()
+                  for x, v in vals.items()}
+        gs = torch.as_tensor(np.asarray(sizes, np.int32), device=dev)
+        out = ops.gemm_grouped(leaves["a"], leaves["b"], gs,
+                               bias=leaves.get("bias"), activation=act,
+                               out_dtype=torch.float32)
+        (out * g.to(dev)).sum().backward()
+        grads[str(dev)] = {x: t.grad.cpu() for x, t in leaves.items()}
+    for x in vals:
+        _close(grads["cuda"][x], grads["cpu"][x], dtype)
+
+
+def test_moe_smoke_resume_on_the_card(cuda_device, tmp_path):
+    """qwen3-moe smoke (f32) on the card: two steps saved and resumed to
+    four against four unbroken steps.  When two unbroken runs agree bit
+    for bit, the resumed one must too; otherwise it must lie within
+    their spread."""
+    from repro_torch.bridge import tree_leaves
+    from repro_torch.launch import train as train_cli
+    cfg = get_smoke_config("qwen3-moe-235b-a22b")
+    kw = dict(seq_len=32, global_batch=4, device=cuda_device)
+
+    def run(**extra):
+        seen = {}
+
+        def keep(step, state, m, times):
+            seen[step] = (m["loss"].cpu(), [t.cpu() for t in
+                                            tree_leaves(state.params)])
+        train_cli.train(cfg, on_step=keep, **dict(kw, **extra))
+        return seen
+
+    first, second = run(steps=4), run(steps=4)
+    run(steps=2, total_steps=4, ckpt_dir=str(tmp_path), ckpt_every=2)
+    resumed = run(steps=4, ckpt_dir=str(tmp_path), ckpt_every=2)
+    assert sorted(resumed) == [2, 3]
+
+    def spread(x, y):
+        return max((a - b).abs().max().item() for a, b in
+                   zip([x[3][0]] + x[3][1], [y[3][0]] + y[3][1]))
+    bound = spread(first, second)
+    assert spread(resumed, first) <= bound

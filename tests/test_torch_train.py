@@ -135,8 +135,6 @@ def test_forward_raises_for_what_is_not_ported(smoke):
         T.forward(tp, tcfg, toks, prefix_embeds=torch.zeros((1, 2, 60)))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
         T.forward(tp, tcfg, toks, frames=torch.zeros((1, 2, 60)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A7"):
-        T.apply_layer({}, tcfg, "moe", torch.zeros((1, 4, 60)))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
         T.apply_layer({}, tcfg, "ssm", torch.zeros((1, 4, 60)))
 
@@ -236,17 +234,27 @@ def test_gemm_function_is_off_without_grad_mode():
 
 
 def test_grouped_gemm_refuses_a_gradient():
-    """B7 has no backward in the port yet: asking for one raises rather
-    than cutting the graph."""
+    """B7 has a backward: with grad mode on the grouped GEMM (first call
+    and the one-shot repeat) carries a graph and its gradients equal the
+    dense masked composition's; under no_grad it dispatches without the
+    Function and carries none."""
     a = torch.randn(6, 8, requires_grad=True)
-    bank = torch.randn(2, 8, 4)
-    sizes = torch.tensor([3, 3], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A7"):
-        ops.gemm_grouped(a, bank, sizes)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A7"):
-        ops.gemm_grouped(a, bank, sizes)          # the one-shot repeat
+    bank = torch.randn(2, 8, 4, requires_grad=True)
+    sizes = torch.tensor([3, 2], dtype=torch.int32)
+    gid = torch.tensor([0, 0, 0, 1, 1, 1])
+    live = torch.tensor([1.0] * 5 + [0.0])[:, None]
+    want = torch.autograd.grad(
+        (torch.einsum("rk,rkn->rn", a, bank[gid]) * live).square().sum(),
+        (a, bank))
+    for _ in range(2):                          # the plan, then the repeat
+        out = ops.gemm_grouped(a, bank, sizes)
+        assert out.grad_fn is not None
+        got = torch.autograd.grad(out.square().sum(), (a, bank))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, atol=1e-5, rtol=1e-5)
     with torch.no_grad():
-        assert ops.gemm_grouped(a, bank, sizes).shape == (6, 4)
+        out = ops.gemm_grouped(a, bank, sizes)
+    assert out.shape == (6, 4) and out.grad_fn is None
 
 
 def test_backward_runs_planned_gemms():
@@ -511,8 +519,7 @@ def test_train_cli_smoke_prints_three_steps(capsys):
     assert lines[-1].startswith("[train] final:")
 
 
-@pytest.mark.parametrize("flag,item", [
-    (["--ckpt-dir", "x"], "A11"), (["--telemetry", "x"], "A10")])
+@pytest.mark.parametrize("flag,item", [(["--telemetry", "x"], "A10")])
 def test_train_cli_refuses_what_is_not_ported(flag, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
         train_cli.main(["--smoke", "--device", "cpu"] + flag)
