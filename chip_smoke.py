@@ -93,9 +93,10 @@ Phases (any failure raises and the script exits non-zero):
    version and timed beside ``torch.matmul``, and B3 at b 8 x s 512
    beside SDPA;
 7c. resume: one smollm-360m step run twice from one state (its spread,
-   0 when bit for bit, bounds the check), then ``train`` for 2 steps with
-   a checkpoint directory in the checkout and ``train(resume=True)`` to
-   step 4: the resumed steps' losses and final parameters equal the
+   0 when bit for bit, bounds the check); phase 7b's run checkpoints
+   every 2 steps into a directory in the checkout; its step-4
+   checkpoint is deleted and ``train(resume=True)`` resumes from step 2
+   to 4: the resumed steps' losses and final parameters equal the
    unbroken run's within that spread; the directory is deleted;
 8. with smollm-360m freed, qwen3-moe-235b-a22b at full width with its
    depth cut to 4 layers (printed with the reason; random weights from
@@ -173,6 +174,7 @@ from repro_torch.kernels.gemm_grouped import (  # noqa: E402
 from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
+from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
 import train_profile  # noqa: E402
@@ -531,10 +533,11 @@ def routed_sizes(tokens, n_experts, top_k, cap, seed):
 
 
 def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
-                 bias=False, timed=False, out_dtype=None):
+                 bias=False, timed=False, out_dtype=None, tol=None):
     """A case for B7 at the CTA shape it picks for m rows over the
     experts; ``sizes`` are the group sizes, ``m`` >= their sum the
-    rows; the output is ``out_dtype`` (default A's ``dtype``)."""
+    rows; the output is ``out_dtype`` (default A's ``dtype``); ``tol``
+    (atol = rtol) overrides the one A's dtype gives."""
     sizes = np.asarray(sizes, np.int64)
     e = len(sizes)
     out_dtype = out_dtype or dtype
@@ -573,7 +576,8 @@ def grouped_case(name, weight, sizes, m, k, n, dtype, *, act=None,
     return dict(name=name, weight=weight, moe_weight=weight, dtype=dtype,
                 make=make, library=library, cost=cost,
                 timed=timed or weight > 0, plain_eager=True,
-                body=f"{body}, CTA tile {bm}x{bk}x{bn}")
+                body=f"{body}, CTA tile {bm}x{bk}x{bn}",
+                **({"tol": tol} if tol is not None else {}))
 
 
 def device_ms(fn, inputs) -> float:
@@ -2024,10 +2028,12 @@ def train_cross_device_phase(arch="smollm-360m", optimizer="adamw"):
             "deterministic": deterministic}
 
 
-def train_phase(cfg, card):
+def train_phase(cfg, card, ckpt_dir):
     """``repro_torch.launch.train.train`` on smollm-360m at full width in
     bf16: TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens from
-    seed 0.  Kernel counts and the executed plans are set to 0 just
+    seed 0, checkpointed into ``ckpt_dir`` every RESUME_AT steps (the
+    saves write on a thread during the later steps; the resume phase
+    restarts from the first).  Kernel counts and the executed plans are set to 0 just
     before the run and read, then set to 0 again, after every step: each
     step's launches must equal its executed plans (B1, B2, B6's chunks),
     B3 twice a layer (forward and remat recompute), no decode kernel and
@@ -2096,7 +2102,8 @@ def train_phase(cfg, card):
         final = train_launch.train(
             cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
             global_batch=TRAIN_BATCH, seed=0, device="cuda",
-            on_step=on_step, return_grads=True)
+            ckpt_dir=ckpt_dir, ckpt_every=RESUME_AT, on_step=on_step,
+            return_grads=True)
         seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     steady = rows[1:]
@@ -2194,8 +2201,8 @@ def train_kernel_phase(step_plans, attn=True, keep=lambda pl: True):
 
 # ------------------------------------------------------------- resume
 
-#: the resume check stops smollm-360m's run after this many steps and
-#: resumes it to TRAIN_STEPS
+#: the resume check restarts smollm-360m's run from its checkpoint at
+#: this step and resumes it to TRAIN_STEPS
 RESUME_AT = 2
 
 
@@ -2205,16 +2212,16 @@ def _tree_spread(a, b) -> float:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def resume_phase(cfg, unbroken, card):
+def resume_phase(cfg, unbroken, ckpt_dir, card):
     """Checkpoint and resume through ``repro_torch.launch.train.train`` on
     smollm-360m at full width: the unbroken step is first run twice from
     one state (the seed-0 init, batch 0), and the two runs' spread over
     the loss, the parameters and the AdamW moments bounds the check (0:
-    bit for bit).  Then RESUME_AT steps with ``ckpt_dir`` (a directory in
-    the checkout, deleted afterwards) and ``ckpt_every=RESUME_AT`` on the
-    whole run's schedule, and a second ``train`` call that resumes from
-    that checkpoint to TRAIN_STEPS: its losses and final parameters must
-    equal train_phase's unbroken run's within that spread."""
+    bit for bit).  Then train_phase's checkpoint of step TRAIN_STEPS is
+    deleted from ``ckpt_dir`` and a second ``train`` call resumes from
+    the one of step RESUME_AT to TRAIN_STEPS: its losses and final
+    parameters must equal train_phase's unbroken run's within that
+    spread."""
     kw = dict(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0,
               device="cuda")
     state, step_fn = train_launch.build(cfg, device=torch.device("cuda"),
@@ -2229,7 +2236,14 @@ def resume_phase(cfg, unbroken, card):
                  _tree_spread(s1.opt.nu, s2.opt.nu))
     del state, s1, s2, m1, m2
     torch.cuda.empty_cache()
-    directory = tempfile.mkdtemp(prefix=".resume_check_", dir=ROOT)
+    saved = Checkpointer(ckpt_dir).all_steps()
+    if saved != [RESUME_AT, TRAIN_STEPS]:
+        raise RuntimeError(f"resume: the unbroken run saved steps {saved}, "
+                           f"expected {[RESUME_AT, TRAIN_STEPS]}")
+    directory = pathlib.Path(ckpt_dir)
+    disk = sum(f.stat().st_size
+               for f in (directory / f"step_{RESUME_AT:08d}").iterdir())
+    shutil.rmtree(directory / f"step_{TRAIN_STEPS:08d}")
     resumed = {}
 
     def on_step(step, state, m, times):
@@ -2237,19 +2251,10 @@ def resume_phase(cfg, unbroken, card):
         if step == TRAIN_STEPS - 1:
             resumed["params"] = map_tree(lambda t: t.detach().cpu(),
                                          state.params)
-    try:
-        t0 = time.perf_counter()
-        train_launch.train(cfg, steps=RESUME_AT, total_steps=TRAIN_STEPS,
-                           ckpt_dir=directory, ckpt_every=RESUME_AT, **kw)
-        first_s = time.perf_counter() - t0
-        step_dir = pathlib.Path(directory) / f"step_{RESUME_AT:08d}"
-        disk = sum(f.stat().st_size for f in step_dir.iterdir())
-        t0 = time.perf_counter()
-        train_launch.train(cfg, steps=TRAIN_STEPS, ckpt_dir=directory,
-                           ckpt_every=RESUME_AT, on_step=on_step, **kw)
-        second_s = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(directory, ignore_errors=True)
+    t0 = time.perf_counter()
+    train_launch.train(cfg, steps=TRAIN_STEPS, ckpt_dir=ckpt_dir,
+                       ckpt_every=RESUME_AT, on_step=on_step, **kw)
+    second_s = time.perf_counter() - t0
     want = {r["step"]: r["loss"] for r in unbroken["steps"]}
     if sorted(k for k in resumed if k != "params") \
             != list(range(RESUME_AT, TRAIN_STEPS)):
@@ -2263,9 +2268,10 @@ def resume_phase(cfg, unbroken, card):
                            f"(loss) / {param_err:.3e} (parameters) from the "
                            f"unbroken one, beyond the two-run spread "
                            f"{spread:.3e}")
-    log(f"resume: {cfg.name} bf16 AdamW, {RESUME_AT} steps saved "
-        f"({disk / 1e9:.2f} GB on disk, run {first_s:.1f} s), resumed to "
-        f"step {TRAIN_STEPS} ({second_s:.1f} s): steps "
+    log(f"resume: {cfg.name} bf16 AdamW, the unbroken run's checkpoint "
+        f"of step {RESUME_AT} ({disk / 1e9:.2f} GB on disk) resumed to "
+        f"step {TRAIN_STEPS} ({second_s:.1f} s with the restore and two "
+        f"saves): steps "
         f"{RESUME_AT}-{TRAIN_STEPS - 1} losses "
         f"{[resumed[k] for k in range(RESUME_AT, TRAIN_STEPS)]} against the "
         f"unbroken {[want[k] for k in range(RESUME_AT, TRAIN_STEPS)]}; max "
@@ -2275,7 +2281,7 @@ def resume_phase(cfg, unbroken, card):
            else "(the check's bound)") + f" [{card}]")
     return {"config": cfg.name, "resume_at": RESUME_AT,
             "steps": TRAIN_STEPS, "checkpoint_bytes": disk,
-            "first_run_s": first_s, "resumed_run_s": second_s,
+            "resumed_run_s": second_s,
             "resumed_losses": {k: resumed[k]
                                for k in range(RESUME_AT, TRAIN_STEPS)},
             "max_loss_diff": loss_err, "max_param_diff": param_err,
@@ -2470,8 +2476,11 @@ def moe_train_kernel_phase(cfg, sizes, step_plans, card):
                      f, bf, timed=True),
         grouped_case(f"train down {m}x{f}x{d} (fwd, remat)", 2, sizes, m, f,
                      d, bf, timed=True),
+        # exact bf16 products summed in f32 in another order: ~1e-5
+        # apart, where an output rounded to bf16 would be ~4e-3 off
         grouped_case(f"train gate pre-activation {m}x{d}x{f} ->f32", 1,
-                     sizes, m, d, f, bf, out_dtype=f32, timed=True),
+                     sizes, m, d, f, bf, out_dtype=f32, timed=True,
+                     tol=1e-4),
         grouped_case(f"train dA gate/up {m}x{f}x{d} (bank transposed)", 2,
                      sizes, m, f, d, bf, timed=True),
         grouped_case(f"train dA down {m}x{d}x{f} (bank transposed)", 1,
@@ -2490,14 +2499,20 @@ def moe_train_kernel_phase(cfg, sizes, step_plans, card):
             a, dz = rand((m, k), bf), rand((m, n), f32)
             host = tuple(int(x) for x in sizes)
             inputs = [((a, dz, host, bf), {})]
+            byts, ops = rows * (k * 2 + n * 4) + e * k * n * 2, \
+                2.0 * rows * k * n
             db.append({
                 "shape": f"dB ({e}, {k}, {n}) over {rows} rows",
                 "per_step": per_step,
                 "ms": device_ms(api._grouped_db, inputs),
                 "eager_ms": eager_ms(api._grouped_db, inputs),
-                "bytes": rows * (k * 2 + n * 4) + e * k * n * 2,
+                "bytes": byts, "ops": ops,
                 "transient_bytes": k * n * 4 + max(sizes) * k * 4,
-                "ops": 2.0 * rows * k * n})
+                # f32 products (as the reference's einsum), at the f32 peak
+                "bound_ms": max(byts / PEAK_BYTES,
+                                ops / PEAK_OPS[f32]) * 1e3,
+                "bound_by": "bytes" if byts / PEAK_BYTES
+                >= ops / PEAK_OPS[f32] else "operations"})
             del bank, a, dz
         router = train_kernel_phase(
             step_plans, attn=False,
@@ -2505,6 +2520,7 @@ def moe_train_kernel_phase(cfg, sizes, step_plans, card):
     copy_ms = sum(c["per_step"] * c["ms"] for c in copies)
     db_ms = sum(r["per_step"] * r["ms"] for r in db)
     db_eager = sum(r["per_step"] * r["eager_ms"] for r in db)
+    db_bound = sum(r["per_step"] * r["bound_ms"] for r in db)
     log(f"MoE train: the transposed banks copied contiguous by B7's "
         f"wrapper, {sum(c['per_step'] for c in copies)} a layer-step: "
         + ", ".join(f"({c['bank'][0]}, {c['bank'][1]}, {c['bank'][2]}) "
@@ -2513,14 +2529,18 @@ def moe_train_kernel_phase(cfg, sizes, step_plans, card):
     log(f"MoE train: plain dB (per-expert f32 products, no (r, e, k) "
         f"tensor): " + ", ".join(
             f"{r['shape']} {r['ms']:.3f} ms graph / {r['eager_ms']:.3f} ms "
-            f"eager, {r['bytes'] / 1e9:.2f} GB moved, "
-            f"{r['transient_bytes'] / 1e6:.0f} MB transient" for r in db)
-        + f"; {db_ms:.3f} ms a layer-step ({db_eager:.3f} eager) [{card}]")
+            f"eager, bound {r['bound_ms']:.3f} ms ({r['bound_by']}: "
+            f"{r['bytes'] / 1e9:.2f} GB moved, {r['ops'] / 1e9:.1f} f32 "
+            f"GFLOP), {r['transient_bytes'] / 1e6:.0f} MB transient"
+            for r in db)
+        + f"; {db_ms:.3f} ms a layer-step ({db_eager:.3f} eager) against "
+        f"a bound of {db_bound:.3f} ms [{card}]")
     checked.update(router)
     return checked, {"transposed_bank_copies": copies,
                      "copy_ms_per_layer_step": copy_ms, "plain_db": db,
                      "db_ms_per_layer_step": db_ms,
-                     "db_eager_ms_per_layer_step": db_eager}
+                     "db_eager_ms_per_layer_step": db_eager,
+                     "db_bound_ms_per_layer_step": db_bound}
 
 
 def main() -> None:
@@ -2563,14 +2583,18 @@ def main() -> None:
     cross = cross_device_phase()
     cross8 = {mode: cross_device_phase(mode) for mode in INT8_MODES}
     train_cross = train_cross_device_phase()
-    train_run = train_phase(cfg, card)
-    step_plans = train_run.pop("step_plans")
-    train_run["transpose_copies"] = transpose_copy_phase(
-        train_run.pop("step_views"), card)
-    train_checked = train_kernel_phase(step_plans)
-    del step_plans
-    torch.cuda.empty_cache()
-    resume = resume_phase(cfg, train_run, card)
+    ckpt_dir = tempfile.mkdtemp(prefix=".resume_check_", dir=ROOT)
+    try:
+        train_run = train_phase(cfg, card, ckpt_dir)
+        step_plans = train_run.pop("step_plans")
+        train_run["transpose_copies"] = transpose_copy_phase(
+            train_run.pop("step_views"), card)
+        train_checked = train_kernel_phase(step_plans)
+        del step_plans
+        torch.cuda.empty_cache()
+        resume = resume_phase(cfg, train_run, ckpt_dir, card)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
     del train_run["final_params"]
     torch.cuda.empty_cache()
     qparams, q_bytes = quantize(params, cfg.name)

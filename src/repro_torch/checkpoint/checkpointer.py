@@ -18,7 +18,9 @@ viewed back through the manifest's dtype.
 
 Async: ``save(..., blocking=False)`` copies the tree to host memory at
 once (so the caller may overwrite its tensors) and writes the files on a
-background thread; ``wait()`` joins.
+background thread; ``wait()`` joins.  The thread writes each array's
+buffer whole (:func:`_savez`), so it holds the GIL only for headers
+while the caller goes on dispatching steps.
 """
 
 from __future__ import annotations
@@ -28,11 +30,11 @@ import os
 import re
 import shutil
 import threading
+import zipfile
 from typing import Any, List, Optional, Tuple
 
 import numpy as np
 import torch
-
 
 
 def _children(tree):
@@ -87,6 +89,21 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.to("cpu", copy=True).contiguous().numpy()
 
 
+def _savez(path: str, arrays: dict) -> None:
+    """``np.savez(path, **arrays)``'s file (one uncompressed ``.npy``
+    entry a key), each array's bytes handed to the zip entry in one
+    write: the CRC and the file write release the GIL, where
+    ``np.savez`` copies 16 MB chunks while holding it."""
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, a in arrays.items():
+            a = np.asarray(a, order="C")        # keeps a 0-d array 0-d
+            with zf.open(f"{key}.npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array_header_1_0(
+                    f, np.lib.format.header_data_from_array_1_0(a))
+                f.write(memoryview(a.reshape(-1).view(np.uint8)))
+
+
 class Checkpointer:
     def __init__(self, directory: str, keep_last: int = 3):
         self.directory = directory
@@ -119,10 +136,10 @@ class Checkpointer:
         tmp = f"{final}.tmp{os.getpid()}_{threading.get_ident()}"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        np.savez(os.path.join(tmp, "arrays.npz"),
-                 **{k: (np.atleast_1d(v).view(np.uint8)
-                        if dt == "bfloat16" else v)
-                    for k, v, dt in flat})
+        _savez(os.path.join(tmp, "arrays.npz"),
+               {k: (np.atleast_1d(v).view(np.uint8)
+                    if dt == "bfloat16" else v)
+                for k, v, dt in flat})
         manifest = {
             "step": step,
             "treedef": treedef,

@@ -11,7 +11,7 @@ CPU when asked).
 
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch qwen3-moe-235b-a22b --smoke --steps 4 --device cpu \
-        --ckpt-dir /tmp/ckpt
+        --ckpt-dir "$(mktemp -d)"
 
 Prints the same ``[train] step N loss ... gnorm ... ms`` lines as the
 JAX driver, for every step (the JAX driver prints every tenth and the
@@ -57,15 +57,12 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
           microbatches: int = 1, seed: int = 0, device=None,
           optimizer: Optional[str] = None, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 50, resume: bool = True,
-          total_steps: Optional[int] = None,
           on_step: Optional[Callable] = None,
           return_grads: bool = False) -> dict:
     """Run (or resume) a training job up to step ``steps``; returns the
     last step's metrics as floats, and prints every step's line.
     ``optimizer`` picks AdamW or Adafactor (default: by model size);
-    ``total_steps`` is the learning-rate schedule's length (default
-    ``steps``: a run stopped early and resumed passes the whole run's,
-    so both halves follow one schedule).  With ``ckpt_dir`` a
+    the learning-rate schedule spans ``steps``.  With ``ckpt_dir`` a
     committed checkpoint there is restored when ``resume`` is set (the
     run then starts at its step), the state is saved every
     ``ckpt_every`` steps without blocking, and once more, blocking, at
@@ -76,7 +73,7 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
     ``device_ms`` (CUDA events around the step)."""
     device = resolve_device(device)
     state, step_fn = build(cfg, device=device,
-                           total_steps=total_steps or steps,
+                           total_steps=steps,
                            microbatches=microbatches, seed=seed,
                            optimizer=optimizer, return_grads=return_grads)
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None

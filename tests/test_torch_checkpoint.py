@@ -12,6 +12,7 @@ learning rate is ~3e-6 at step 1, so parameters move by less than that).
 
 import dataclasses
 import os
+import shutil
 
 import jax
 import jax.tree_util as jtu
@@ -194,11 +195,12 @@ def test_next_step_from_a_jax_checkpoint_matches_jax(tmp_path, optimizer):
 
 @pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-moe-235b-a22b"])
 def test_resumed_run_equals_an_unbroken_one(tmp_path, arch):
-    """Two steps saved, then resumed to four, against four unbroken
-    steps on one learning-rate schedule: steps 2-3's losses and the
-    final state equal bit for bit."""
+    """Four unbroken steps saved every two; the step-4 checkpoint is
+    deleted and the run resumed from step 2 to four: steps 2-3's losses
+    and the final state equal the unbroken run's bit for bit."""
     cfg = get_smoke_config(arch)
-    kw = dict(seq_len=16, global_batch=2, device="cpu")
+    kw = dict(seq_len=16, global_batch=2, device="cpu",
+              ckpt_dir=str(tmp_path), ckpt_every=2)
     runs = {"unbroken": {}, "resumed": {}}
 
     def keep(name):
@@ -207,11 +209,9 @@ def test_resumed_run_equals_an_unbroken_one(tmp_path, arch):
         return on_step
 
     train_cli.train(cfg, steps=4, on_step=keep("unbroken"), **kw)
-    train_cli.train(cfg, steps=2, total_steps=4, ckpt_dir=str(tmp_path),
-                    ckpt_every=2, **kw)
-    assert Checkpointer(str(tmp_path)).all_steps() == [2]
-    train_cli.train(cfg, steps=4, ckpt_dir=str(tmp_path), ckpt_every=2,
-                    on_step=keep("resumed"), **kw)
+    assert Checkpointer(str(tmp_path)).all_steps() == [2, 4]
+    shutil.rmtree(tmp_path / "step_00000004")
+    train_cli.train(cfg, steps=4, on_step=keep("resumed"), **kw)
     assert sorted(runs["resumed"]) == [2, 3]
     for step in (2, 3):
         assert runs["resumed"][step][0] == runs["unbroken"][step][0]

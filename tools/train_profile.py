@@ -1,16 +1,13 @@
 #!/usr/bin/env python3
-"""Where one full-width training step spends the card's time, from a
-``torch.profiler`` trace.
+"""Where one full-width training step of smollm-360m spends the card's
+time, from a ``torch.profiler`` trace.
 
     python3 tools/train_profile.py [--steps 3]
-    python3 tools/train_profile.py --arch qwen3-moe-235b-a22b --layers 1
 
-Trains ``--arch`` (default smollm-360m) at full width in bf16 (seq 512,
-global batch 8, seed 0; ``--layers`` cuts the depth) with the state and
-step of ``repro_torch.launch.train``, with the full model's optimizer
-(AdamW for smollm-360m, Adafactor for qwen3-moe-235b-a22b); the last
-step is traced (CPU and CUDA activities), the earlier ones warm the
-plans and the allocator.  Prints the step's wall ms, the device's busy
+Trains smollm-360m at full width in bf16 (seq 512, global batch 8,
+AdamW, seed 0) with the state and step of ``repro_torch.launch.train``;
+the last step is traced (CPU and CUDA activities), the earlier ones warm
+the plans and the allocator.  Prints the step's wall ms, the device's busy
 ms (the union of its kernel and copy intervals) and idle share, and the
 device time by kernel family: the port's hand-written kernels by name,
 the plain PyTorch work by category (matmul / einsum, elementwise,
@@ -23,7 +20,6 @@ reductions, copies, the rest).  Writes the rows to
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import json
 import pathlib
 import sys
@@ -38,7 +34,6 @@ from torch.profiler import ProfilerActivity, profile  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
-from repro_torch.train import train_step as TS  # noqa: E402
 
 #: the port's kernels, by a substring of their CUDA symbol
 PORT_KERNELS = ("gemm_tb", "gemm_aie", "gemm_gated", "flash_attention",
@@ -118,21 +113,16 @@ def report(summary: dict, prefix: str = "[train_profile]") -> None:
 
 def main() -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
-    ap.add_argument("--layers", type=int, default=None,
-                    help="cut the depth to this many layers")
     ap.add_argument("--steps", type=int, default=3)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("train_profile: no CUDA device is available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    full = get_config(args.arch)
-    cfg = dataclasses.replace(full, n_layers=args.layers or full.n_layers)
-    optimizer = TS.select_optimizer(full)
+    cfg = get_config("smollm-360m")
     state, step_fn = train_launch.build(cfg, device=torch.device("cuda"),
                                         total_steps=args.steps, seed=0,
-                                        optimizer=optimizer)
+                                        optimizer="adamw")
     data = pipeline.DataConfig(seq_len=512, global_batch=8, seed=0)
     for step in range(args.steps):
         batch = pipeline.make_batch(cfg, data, step, "cuda")
@@ -155,8 +145,8 @@ def main() -> None:
               "device busy time not measured")
         return
     busy, window = summary["device_busy_ms"], summary["device_window_ms"]
-    print(f"[train_profile] {card}: {cfg.name} ({cfg.n_layers} layers) "
-          f"bf16 b 8 x s 512 {optimizer}, one traced step (loss "
+    print(f"[train_profile] {card}: smollm-360m bf16 b 8 x s 512 AdamW, "
+          f"one traced step (loss "
           f"{loss:.4f}): wall {wall_ms:.1f} ms, device window {window:.1f} "
           f"ms, device busy {busy:.1f} ms ({summary['device_events']} "
           f"device events), idle {1 - busy / window:.1%} of the window")
@@ -164,8 +154,7 @@ def main() -> None:
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / "train_profile.json").write_text(json.dumps(dict(
-        card=card, config=cfg.name, layers=cfg.n_layers, optimizer=optimizer,
-        wall_ms=wall_ms, **summary), indent=1))
+        card=card, wall_ms=wall_ms, **summary), indent=1))
 
 
 if __name__ == "__main__":
