@@ -62,10 +62,28 @@ Phases (any failure raises and the script exits non-zero):
    each pass runs 193 planned GEMMs, and each kernel must have launched
    exactly as often as the executed plans (B1, B2, or B6's chunks) and
    the steps and prefill chunks say, the other decode kernel and every
-   plain version not at all; then one 8-slot decode step of each cache
-   is timed from CUDA-graph replays (device time alone) beside the same
-   step run eagerly, which gives the device's idle share of an eager
-   step;
+   plain version not at all; each trace is then served again with
+   telemetry on (``repro_torch.telemetry``; both artifacts exported to
+   ``chiprun_out/telemetry_*``): one ``serve.request`` span a request,
+   the decode bursts' steps summing to the engine's, the serve counters
+   equal to its metrics and the greedy tokens equal to the untraced
+   run's; then one 8-slot decode step of each cache is timed from
+   CUDA-graph replays (device time alone) beside the same step run
+   eagerly, which gives the device's idle share of an eager step, and
+   eagerly again with telemetry on;
+5b. model against measured: ``telemetry.report.model_vs_measured`` over
+   the serve phases' dense plans (modeled us against us measured between
+   device syncs; the table in ``chiprun_out/model_vs_measured_*.txt``);
+5c. autotune: the dense trace once more untuned with every plan cached
+   (the baseline), then with ``tune.enable(8)`` on a fresh tuning cache
+   (a directory of the checkout, deleted at exit) twice (the first pass
+   searches every GEMM it plans on the card), with
+   launches equal to the executed plans (the tuner's samples are not
+   executions), greedy tokens equal to the untuned run's bit for bit, no
+   B1 / B6 candidate failing, and a second pass over the cache file
+   measuring nothing; each tuned plan's analytic and measured winner,
+   the flop budget's skips, and decode tok/s, the device step and TTFT
+   beside the untuned run of the same call;
 6. continuous-batched greedy == solo greedy on the dense cache, token
    for token, at full width (the acceptance trace); then paged greedy
    (2 slots, 16-token pages, 16-token chunks) == dense solo greedy on
@@ -97,14 +115,24 @@ Phases (any failure raises and the script exits non-zero):
    every 2 steps into a directory in the checkout; its step-4
    checkpoint is deleted and ``train(resume=True)`` resumes from step 2
    to 4: the resumed steps' losses and final parameters equal the
-   unbroken run's within that spread; the directory is deleted;
+   unbroken run's within that spread; the directory is deleted; phase
+   7b's run records telemetry: one ``train.step`` span a step within 5 %
+   of the step's wall ms;
 8. with smollm-360m freed, qwen3-moe-235b-a22b at full width with its
    depth cut to 4 layers (printed with the reason; random weights from
    seed 0): phases 5 and 6 again, dense and paged, every MoE layer
    launching B7 three times a pass and no plain version running; its
    paged greedy is held to paged solo greedy (chunked prefill sets the
    expert capacity by the chunk, so it may drop otherwise than a
-   whole-prompt prefill); then its int8 copy (the bf16 copy freed),
+   whole-prompt prefill), with the dense trace's telemetry run (the MoE
+   counters' routed + dropped rows equal tokens x top-k over every MoE
+   layer and pass), 5b and 5c (qwen3's 300 x 4096 x 8192 and 300 x 8192
+   x 4096 named); then calibration: ``tune.calibrate.fit`` over the
+   tuning cache's samples, ``apply`` for the card, every dense GEMM of
+   both models' serve paths and of smollm-360m's training step
+   re-planned (which change tile or strategy; f32 plans priced at the
+   sheet's f32/bf16 ratio), and ``clear``; then its int8 copy (the bf16
+   copy freed),
    served as smollm-360m's was, the experts staying W8A16 under W8A8;
 9. MoE training: one Adafactor step of qwen3-moe-235b-a22b-smoke (f32)
    on the card against the CPU, as 7b (and whether two card steps agree
@@ -127,7 +155,8 @@ its ``timed_on`` names, a ``qwen3-moe-235b-a22b`` key holds the 4-layer
 MoE step's, a ``train`` key the full-width training step's (B7's: the
 MoE training layer-step's), a ``train qwen3-moe-235b-a22b`` key B1's and
 B6's f32 router GEMMs of that step, and the
-four GEMMs' ``int8`` objects hold their int8 cases,
+four GEMMs' ``int8`` objects hold their int8 cases, ``... tuned`` paths
+the autotune phases' second serve runs,
 step sums by mode and launches on the int8 paths) and the card line
 before the last line, which is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -136,9 +165,12 @@ before the last line, which is
 
 from __future__ import annotations
 
+import atexit
+import collections
 import dataclasses
 import json
 import math
+import os
 import pathlib
 import shutil
 import subprocess
@@ -154,7 +186,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch import ops, quant  # noqa: E402
+from repro_torch import ops, quant, telemetry, tune  # noqa: E402
 from repro_torch.bridge import map_tree, to_device, tree_leaves  # noqa
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -175,6 +207,11 @@ from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
+from repro_torch.core import bandwidth  # noqa: E402
+from repro_torch.core.hardware import HOPPER_H100  # noqa: E402
+from repro_torch.telemetry import report as treport  # noqa: E402
+from repro_torch.tune import autotune, calibrate  # noqa: E402
+from repro_torch.tune import measure as tune_measure  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
 import train_profile  # noqa: E402
@@ -281,6 +318,17 @@ def _leaves(tree):
             yield from _leaves(v)
         else:
             yield v
+
+
+def _public(value):
+    """``value`` without the dict keys that start with ``_`` (tokens and
+    plan objects a phase hands to a later one), for the JSON."""
+    if isinstance(value, dict):
+        return {k: _public(v) for k, v in value.items()
+                if not (isinstance(k, str) and k.startswith("_"))}
+    if isinstance(value, (list, tuple)):
+        return [_public(v) for v in value]
+    return value
 
 
 def log(msg: str) -> None:
@@ -1560,7 +1608,9 @@ def counts():
 
 class PlanRecorder:
     """Counts the GEMM plans the one-shot ops.gemm executes, by wrapping
-    the operator API's kernel fan-out for the length of a ``with``."""
+    the operator API's kernel fan-out for the length of a ``with``.  The
+    tuner's measurements are not executions of the step (their launches
+    are taken back off the counters too) and are not counted."""
 
     def __enter__(self):
         self.plans = {}
@@ -1568,6 +1618,8 @@ class PlanRecorder:
         self._launch = api._launch
 
         def record(pl, *args, **kw):
+            if tune_measure.measuring():    # a tuner's sample, not a step
+                return self._launch(pl, *args, **kw)
             self.plans[pl] = self.plans.get(pl, 0) + 1
             if pl.spec.grouped and self.group_sizes is None:
                 self.group_sizes = args[5] if len(args) > 5 \
@@ -1604,12 +1656,15 @@ def shared_prefix_requests(cfg, prefix_len, tail_len, max_tokens, seed):
         max_tokens=max_tokens) for _ in range(2)]
 
 
-def serve_phase(cfg, params, *, paged, mode=None):
+def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None):
     """Serve the trace through the dense engine or, ``paged``, through
     the paged one (16-token pages, 64-token chunks, prefix cache on)
     with two shared-prefix requests added.  The kernel counts are set to
     0 just before the run and read just after; a MoE model must launch
-    B7 three times a layer a pass."""
+    B7 three times a layer a pass.  With ``telemetry_base`` the trace is
+    served again with telemetry on (:func:`telemetry_run`).  The tokens
+    by trace position and the executed plans ride the result under
+    ``_tokens`` / ``_plans`` (the caller pops them before the JSON)."""
     trace = serve_trace(cfg)
     kw = dict(page_size=16, prefill_chunk=64) if paged else {}
     if paged:
@@ -1618,6 +1673,9 @@ def serve_phase(cfg, params, *, paged, mode=None):
                           **kw)
     engine.run([Request(prompt=trace[0].prompt[:5], max_tokens=2)])  # warm-up
     engine.reset_metrics()
+    if mode == "tuning":            # what only the search pass measures
+        log(f"serve {cfg.name}: the search pass, tok/s and TTFT include "
+            "the tile searches")
 
     reset_counters()
     with PlanRecorder() as rec:
@@ -1703,17 +1761,120 @@ def serve_phase(cfg, params, *, paged, mode=None):
             f"{m['peak_pages_used']} of {engine.kv.pool.n_pages - 1} pages "
             "in use")
     log(f"{tag}: launches {launches}; plain versions {plain}")
+    out["_tokens"] = [by_rid[req.rid].tokens for req in trace]
+    out["_plans"] = dict(rec.plans)
+    if telemetry_base:
+        out["telemetry"] = telemetry_run(cfg, params, trace, kw,
+                                         out["_tokens"], telemetry_base, tag)
+    return out
+
+
+def telemetry_run(cfg, params, trace, kw, want_tokens, base, tag):
+    """The serve trace again through a fresh engine, telemetry on (the
+    warm-up off), both artifacts exported to ``chiprun_out/base``.  The
+    trace must agree with the engine: one ``serve.request`` span a
+    request, the decode bursts' steps summing to the engine's decode
+    steps, the serve counters equal to its metrics, and for a MoE model
+    routed + dropped rows equal to tokens x top-k over every MoE layer
+    and pass; the greedy tokens must equal the untraced run's bit for
+    bit.  Prints what the spans show."""
+    engine = DecodeEngine(params, cfg, batch=8, max_len=1024, device="cuda",
+                          **kw)
+    engine.run([Request(prompt=trace[0].prompt[:5], max_tokens=2)])  # warm-up
+    engine.reset_metrics()
+    reqs = [dataclasses.replace(r, rid=-1) for r in trace]
+    rec = telemetry.enable(telemetry.Recorder())
+    try:
+        results = engine.run(reqs)
+        snap = rec.snapshot()
+    finally:
+        telemetry.disable()
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    paths = rec.export(str(out_dir / base))
+    by_rid = {r.rid: r for r in results}
+    for i, req in enumerate(reqs):
+        if not np.array_equal(by_rid[req.rid].tokens, want_tokens[i]):
+            raise RuntimeError(f"{tag} with telemetry: request {i} decoded "
+                               f"{by_rid[req.rid].tokens}, without "
+                               f"{want_tokens[i]}")
+    m, c = engine.metrics, snap["counters"]
+    spans = collections.defaultdict(list)
+    for e in rec.events:
+        if e["type"] == "span":
+            spans[e["name"]].append(e)
+    if len(spans["serve.request"]) != len(reqs):
+        raise RuntimeError(f"{tag}: {len(spans['serve.request'])} "
+                           f"serve.request spans for {len(reqs)} requests")
+    burst_steps = sum(e["attrs"]["steps"] for e in spans["serve.decode_burst"])
+    want = {"serve.decode_steps": m["decode_steps"],
+            "serve.prefill_tokens": m["prefill_tokens"],
+            "serve.generated_tokens": m["generated_tokens"],
+            "serve.completed": m["completed"]}
+    if engine.paged:
+        want.update({"serve.prefix_cache.hits": m["prefix_hits"],
+                     "serve.prefix_cache.misses": m["prefix_misses"]})
+    got = {k: c.get(k, 0) for k in want}
+    if burst_steps != m["decode_steps"] or got != want:
+        raise RuntimeError(f"{tag}: bursts {burst_steps} steps, counters "
+                           f"{got}, engine {want}")
+    out = {"events": len(rec.events), "artifacts": [
+        str(pathlib.Path(x).relative_to(ROOT)) for x in paths],
+        "counters": c, "gauges": snap["gauges"]}
+    n_moe = cfg.repeats * cfg.layer_pattern.count("moe")
+    if n_moe:
+        routed, dropped = c["moe.group_sizes"], c["moe.dropped_tokens"]
+        rows = (m["prefill_tokens"] + engine.n_slots * m["decode_steps"]) \
+            * cfg.top_k * n_moe
+        if routed + dropped != rows:
+            raise RuntimeError(f"{tag}: MoE counters {routed} routed + "
+                               f"{dropped} dropped != {rows} assignments")
+        out["moe_rows"] = {"routed": routed, "dropped": dropped}
+
+    def ms(name, key="dur"):
+        return [e[key] * 1e3 for e in spans[name]]
+
+    prefill = ms("serve.prefill") + ms("serve.prefill_chunk")
+    bursts = spans["serve.decode_burst"]
+    per_step = [e["dur"] * 1e3 / e["attrs"]["steps"] for e in bursts]
+    split = {k: float(np.mean(ms(f"serve.request.{k}")))
+             for k in ("queued", "prefill", "decode")}
+    out.update({
+        "prefill_spans": len(prefill),
+        "prefill_ms_mean": float(np.mean(prefill)),
+        "prefill_ms_total": float(np.sum(prefill)),
+        "decode_bursts": len(bursts),
+        "decode_burst_ms_per_step_median": float(np.median(per_step)),
+        "request_split_ms_mean": split,
+        "ttft_ms_mean": float(np.mean(
+            [e["attrs"]["ttft"] for e in spans["serve.request"]]) * 1e3)})
+    log(f"{tag} with telemetry: {len(rec.events)} events, tokens == the "
+        f"untraced run's; {len(prefill)} prefill spans, mean "
+        f"{out['prefill_ms_mean']:.2f} ms ({out['prefill_ms_total']:.1f} "
+        f"ms in all); {len(bursts)} decode bursts, median "
+        f"{out['decode_burst_ms_per_step_median']:.2f} ms a step; request "
+        f"means: queued {split['queued']:.1f} ms, prefill "
+        f"{split['prefill']:.1f} ms, decode {split['decode']:.1f} ms, TTFT "
+        f"{out['ttft_ms_mean']:.1f} ms"
+        + (f"; MoE {out['moe_rows']['routed']} rows routed, "
+           f"{out['moe_rows']['dropped']} dropped" if n_moe else "")
+        + f"; wrote {', '.join(out['artifacts'])}")
     return out
 
 
 @torch.inference_mode()
-def step_phase(cfg, params, *, paged, mode=None):
+def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False):
     """Device time of one 8-slot decode step (with its greedy argmax),
     from CUDA-graph replays that take the host out of the step, beside
-    the same step run eagerly; the difference is the device's idle time
-    in an eager step.  The same eight prompts sit in the dense cache or,
-    ``paged``, in 16-token pages of a pool (64 pages a slot, so the
-    gathered length equals the dense 1024)."""
+    the same step run eagerly: one loop of REPS steps right after the
+    replays, timed on the host's clock to a synchronize
+    (``eager_ms_per_step``); the difference is the device's idle time in
+    an eager step.  ``telemetry_on`` runs the eager loop seven more
+    times, telemetry off and on in turns, and compares the medians of
+    each mode's four loops (the first loop counts as an off one).  The
+    same eight prompts sit in the dense cache or, ``paged``, in 16-token
+    pages of a pool (64 pages a slot, so the gathered length equals the
+    dense 1024)."""
     rng = np.random.default_rng(11)
     if paged:
         cache = T.init_paged_cache(cfg, 8, 1 + 8 * 64, 16, 64, device="cuda")
@@ -1738,20 +1899,284 @@ def step_phase(cfg, params, *, paged, mode=None):
         return torch.argmax(logits, -1)
 
     device = device_ms(step, [((tok, cache), {})])
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(REPS):
-        step(tok, cache)
-    torch.cuda.synchronize()
-    eager = (time.perf_counter() - t0) / REPS * 1e3
+
+    def eager_loop():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            step(tok, cache)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / REPS * 1e3
+
+    def traced_loop():
+        rec = telemetry.enable(telemetry.Recorder())
+        try:
+            ms = eager_loop()
+            rec.snapshot()          # folds the MoE counters (one sync)
+        finally:
+            telemetry.disable()
+        return ms
+
+    eager = eager_loop()
     out = {"device_ms_per_step": device, "eager_ms_per_step": eager,
            "device_idle_share": 1.0 - device / eager}
+    if telemetry_on:        # in turns (ABBA BAAB), as the host drifts
+        order = (False, True, True, False, True, False, False, True)
+        runs = [eager] + [traced_loop() if on else eager_loop()
+                          for on in order[1:]]
+        off = [r for r, on in zip(runs, order) if not on]
+        on = [r for r, on in zip(runs, order) if on]
+        out.update({"eager_ms_off_median": float(np.median(off)),
+                    "eager_ms_per_step_telemetry_on": float(np.median(on)),
+                    "eager_ms_off": off, "eager_ms_on": on})
+        out["telemetry_on_over_off"] = \
+            out["eager_ms_per_step_telemetry_on"] / out["eager_ms_off_median"]
     log(f"{cfg.name} {mode or cfg.dtype} {'paged' if paged else 'dense'} "
         "decode step (8 "
         "slots): device "
         f"{device:.2f} ms (CUDA graph), eager {eager:.2f} ms; device idle "
-        f"{out['device_idle_share']:.1%} of an eager step")
+        f"{out['device_idle_share']:.1%} of an eager step"
+        + (f"; eager, medians of four loops each in turns, telemetry off "
+           f"{out['eager_ms_off_median']:.2f} ms, on "
+           f"{out['eager_ms_per_step_telemetry_on']:.2f} ms ("
+           f"{out['telemetry_on_over_off'] - 1:+.1%}; off "
+           f"{', '.join(f'{x:.2f}' for x in off)}; on "
+           f"{', '.join(f'{x:.2f}' for x in on)})" if telemetry_on else ""))
     return out
+
+
+# ------------------------------------------------- tuning and calibration
+
+#: candidates the measured search sweeps a shape: the reference's K = 4
+#: never reaches the first 'aie' design at qwen3-moe's 300-token wq
+TUNE_K = 8
+#: qwen3-moe's 300-token prefill GEMMs the Hopper plan sends to B6
+NAMED_SHAPES = {(300, 4096, 8192): "qwen3 wq, 300 tokens",
+                (300, 8192, 4096): "qwen3 wo + residual, 300 tokens"}
+
+
+def _tile(t) -> str:
+    return f"{t.strategy} {t.bm}x{t.bk}x{t.bn}"
+
+
+def autotune_phase(cfg, params, untuned, card):
+    """The dense serve trace once more untuned (every plan cached: the
+    baseline), then under ``tune.enable(TUNE_K)`` on the fresh tuning
+    cache ``$REPRO_TUNE_CACHE``: the plan cache starts empty, so every
+    GEMM the warm-up and the trace plan is searched on the card, and a
+    second tuned pass, every plan cached, is the one compared.  Gates:
+    launches equal the executed plans (serve_phase; the tuner's samples
+    are not executions), the greedy tokens equal
+    ``untuned``'s bit for bit, no B1 / B6 candidate fails at the model's
+    shapes, and a second pass (a fresh in-memory cache over the same
+    file) re-plans every plan with zero measurements and the same tiles.
+    Prints each tuned plan: the analytic first choice and its measured
+    us, the winner and its us; and the plans the flop budget skipped."""
+    errors0 = len(autotune.candidate_errors)
+    measured0 = tune.tuning_cache_info().measurements
+    # the untuned baseline with every plan already cached, as the tuned
+    # pass below finds them (the first untuned run plans each new prompt
+    # length on the host while it serves)
+    base = serve_phase(cfg, params, paged=False, mode="untuned, planned")
+    tune.enable(TUNE_K)
+    api.plan_cache_clear()
+    try:
+        t0 = time.perf_counter()     # the pass that searches
+        search = serve_phase(cfg, params, paged=False, mode="tuning")
+        seconds = time.perf_counter() - t0
+        run = serve_phase(cfg, params, paged=False, mode="tuned")
+        run["step"] = step_phase(cfg, params, paged=False, mode="tuned")
+        plans = [pl for pl in api.plans() if not pl.spec.grouped]
+        searched = tune.tuning_cache_info().measurements - measured0
+        tune.tuning_cache_reset()           # the second pass
+        api.plan_cache_clear()
+        again = [api.plan(pl.spec, (pl.m, pl.k, pl.n)) for pl in plans]
+        second = tune.tuning_cache_info()
+    finally:
+        tune.disable()
+        api.plan_cache_clear()
+    run.pop("_plans")
+    for tokens in (base.pop("_tokens"), search.pop("_tokens"),
+                   run.pop("_tokens")):
+        for i, (a, b) in enumerate(zip(tokens, untuned["_tokens"])):
+            if not np.array_equal(a, b):
+                raise RuntimeError(f"tuned {cfg.name}: request {i} decoded "
+                                   f"{a}, untuned {b}")
+    if second.measurements or [pl.tile for pl in again] != \
+            [pl.tile for pl in plans]:
+        raise RuntimeError(f"tuned {cfg.name}: the second pass measured "
+                           f"{second.measurements} plans or changed a tile")
+    errors = autotune.candidate_errors[errors0:]
+    failed = [e for e in errors if e[0] == "measure"]
+    if failed:
+        raise RuntimeError(f"tuned {cfg.name}: {len(failed)} candidate "
+                           f"executions failed: {failed[:3]}")
+    rows, skipped = [], []
+    for pl in plans:
+        shape = (pl.m, pl.k, pl.n)
+        if pl.tuned is None:
+            if pl.problem.flops > tune.DEFAULT_MAX_FLOPS:
+                skipped.append(f"{pl.spec.key} {pl.m}x{pl.k}x{pl.n}")
+            continue
+        ti = pl.tuned
+        row = {"spec": pl.spec.key, "shape": f"{pl.m}x{pl.k}x{pl.n}",
+               "analytic": ti.analytic_tile,
+               "analytic_us": ti.t_analytic_us, "winner": _tile(pl.tile),
+               "winner_kernel": pl.kernel, "winner_us": ti.t_measured_us,
+               "t_model_us": pl.traffic.t_model * 1e6,
+               "k_searched": ti.k_searched,
+               "name": NAMED_SHAPES.get(shape)}
+        rows.append(row)
+        # every row goes to the JSON; the log names the shapes asked
+        # for and every plan whose winner runs another kernel
+        if row["name"] or row["winner"].split()[0] != \
+                row["analytic"].split()[0]:
+            log(f"tuned {cfg.name} {row['spec']} {row['shape']}"
+                + (f" ({row['name']})" if row["name"] else "")
+                + f": analytic {row['analytic']} "
+                f"{row['analytic_us']:.1f} us, measured winner "
+                f"{row['winner']} ({pl.kernel}) {row['winner_us']:.1f} us"
+                f" [{card}]")
+    for shape, name in NAMED_SHAPES.items():
+        if cfg.name.startswith("qwen3") and not any(
+                r["shape"] == "x".join(map(str, shape)) for r in rows):
+            raise RuntimeError(f"tuned {cfg.name}: {name} was not tuned")
+    out = {"k": TUNE_K, "search_seconds": seconds, "searches": searched,
+           "search_pass_launches": search["launches"],
+           "second_pass_hits": second.hits,
+           "second_pass_measurements": second.measurements,
+           "candidate_errors": len(errors),
+           "candidate_errors_resolve": len(errors) - len(failed),
+           "plans": len(plans), "tuned": rows, "flop_budget_skipped": skipped,
+           "serve": run, "untuned": {
+               "tok_s_decode": base["tok_s_decode"],
+               "ttft_mean_ms": base["ttft_mean_ms"],
+               "device_ms_per_step":
+                   untuned["step"]["device_ms_per_step"],
+               "first_run_tok_s_decode": untuned["tok_s_decode"],
+               "first_run_ttft_mean_ms": untuned["ttft_mean_ms"]}}
+    log(f"autotune {cfg.name} (K = {TUNE_K}): {searched} searches in "
+        f"{seconds:.1f} s with the trace that ran them (launches == "
+        f"executed plans in it too), {len(rows)} of {len(plans)} plans "
+        f"tuned, {sum(r['winner'] != r['analytic'] for r in rows)} changed "
+        f"tile, {len(skipped)} over the flop budget {skipped}; "
+        f"{len(errors)} candidate errors ({len(failed)} executions failed, "
+        f"{len(errors) - len(failed)} tiles infeasible after clamping); "
+        f"second pass {second.hits} hits, {second.measurements} "
+        f"measurements; tokens == untuned")
+    log(f"autotune {cfg.name}: decode {run['tok_s_decode']:.1f} tok/s "
+        f"(untuned {base['tok_s_decode']:.1f}), device step "
+        f"{run['step']['device_ms_per_step']:.2f} ms (untuned "
+        f"{untuned['step']['device_ms_per_step']:.2f}), TTFT mean "
+        f"{run['ttft_mean_ms']:.0f} ms (untuned {base['ttft_mean_ms']:.0f};"
+        f" both with every plan cached) [{card}]")
+    return out
+
+
+def _plan_keys(plans):
+    """The distinct dense (spec, (m, k, n)) of some executed plans, the
+    spec untuned."""
+    keys = {}
+    for pl in plans:
+        if not pl.spec.grouped:
+            keys[(dataclasses.replace(pl.spec, tune=False),
+                  (pl.m, pl.k, pl.n))] = None
+    return list(keys)
+
+
+def calibration_phase(plan_sets, card):
+    """Fit the effective device-memory rate, compute rate and per-call
+    t0 from every sample the autotune phases left in the tuning cache,
+    install the card's fit, re-plan every dense GEMM of ``plan_sets``
+    (name -> (spec, shape) keys) and report which plans change strategy
+    or tile.  f32 plans must be priced at the fitted bf16 rate times the
+    sheet's f32/bf16 ratio.  The calibration is cleared at the end."""
+    mode = tune.device_mode("cuda")
+    fits = calibrate.fit()
+    log(calibrate.render(fits))
+    before = {name: [api._resolve(spec, *shape) for spec, shape in keys]
+              for name, keys in plan_sets.items()}
+    applied = calibrate.apply(fits, mode)
+    out = {"mode": mode, "fits": {k: v.as_dict() for k, v in fits.items()},
+           "applied": applied is not None}
+    if applied is None:
+        log(f"calibration: no usable fit for {mode}; nothing applied")
+        return out
+    try:
+        cal = bandwidth.get_calibration()
+        f32_rate = cal.peak_bf16_flops * HOPPER_H100.peak_f32_flops \
+            / HOPPER_H100.peak_bf16_flops if cal.peak_bf16_flops else None
+        flips, f32_checked = {}, 0
+        for name, keys in plan_sets.items():
+            rows = []
+            for (spec, shape), a in zip(keys, before[name]):
+                b = api._resolve(spec, *shape)
+                if spec.a_dtype == "float32" and f32_rate:
+                    f32_checked += 1
+                    if not math.isclose(b.traffic.t_compute,
+                                        b.flops / f32_rate, rel_tol=1e-9):
+                        raise RuntimeError(
+                            f"calibrated f32 plan {spec.key} {shape} priced "
+                            f"at {b.flops / b.traffic.t_compute:.3e} op/s, "
+                            f"not {f32_rate:.3e}")
+                if a.tile != b.tile:
+                    rows.append({"spec": spec.key,
+                                 "shape": "x".join(map(str, shape)),
+                                 "analytic": _tile(a.tile),
+                                 "calibrated": _tile(b.tile),
+                                 "strategy_changed":
+                                     a.tile.strategy != b.tile.strategy,
+                                 "name": NAMED_SHAPES.get(shape)})
+            flips[name] = {"plans": len(keys), "changed": rows}
+            n_strat = sum(r["strategy_changed"] for r in rows)
+            log(f"calibrated re-plan of {name}: {len(keys)} plans, "
+                f"{len(rows)} change tile, {n_strat} change strategy: "
+                + "; ".join(f"{r['spec']} {r['shape']} {r['analytic']} -> "
+                            f"{r['calibrated']}" for r in rows[:12])
+                + (" ..." if len(rows) > 12 else ""))
+        for shape, name in NAMED_SHAPES.items():
+            hit = [r for rows in flips.values() for r in rows["changed"]
+                   if r["shape"] == "x".join(map(str, shape))]
+            log(f"calibration at {name}: "
+                + ("; ".join(f"{r['analytic']} -> {r['calibrated']}"
+                             for r in hit) if hit else "no change"))
+        out.update({"calibration": dataclasses.asdict(cal),
+                    "replanned": flips, "f32_plans_checked": f32_checked,
+                    "f32_rate": f32_rate})
+    finally:
+        calibrate.clear()
+    if bandwidth.get_calibration() is not None:
+        raise RuntimeError("the calibration outlived its phase")
+    log(f"calibration ({mode}): eff BW {applied.hbm_bw}, eff compute "
+        f"{applied.peak_flops}, t0 {applied.t0_us:.2f} us, R2 "
+        f"{applied.r2} ({applied.n_samples} samples); {f32_checked} f32 "
+        f"plans priced at the sheet's f32/bf16 ratio; cleared [{card}]")
+    return out
+
+
+def report_phase(plans, name, card):
+    """``telemetry.report.model_vs_measured`` over the executed dense
+    plans of a model's serve phases: modeled us against measured us
+    (between device syncs, the host's launch included) and the achieved
+    share; the whole table goes to ``chiprun_out``."""
+    # grouped plans are left out: the harness builds dense operands (the
+    # tuner keeps them analytic for the same reason)
+    rows = treport.model_vs_measured(
+        [pl for pl in dict.fromkeys(plans) if not pl.spec.grouped],
+        device="cuda")
+    path = ROOT / "chiprun_out" / f"model_vs_measured_{name}.txt"
+    path.write_text(f"{card}\n" + treport.render(rows) + "\n")
+    summary = treport.summarize(rows)
+    worst = sorted((r for r in rows if r["achieved"] is not None),
+                   key=lambda r: r["achieved"])
+    log(f"model against measured, {name} serve plans: {summary}; lowest "
+        "achieved " + ", ".join(
+            f"{r['spec']} {r['m']}x{r['k']}x{r['n']} {r['t_model_us']:.1f} "
+            f"/ {r['t_measured_us']:.1f} us" for r in worst[:3])
+        + f"; highest {worst[-1]['spec']} {worst[-1]['m']}x{worst[-1]['k']}"
+        f"x{worst[-1]['n']} {worst[-1]['achieved']:.3f}; table in "
+        f"{path.relative_to(ROOT)} [{card}]")
+    return {"rows": rows, "summary": summary}
 
 
 def bit_identity_phase(cfg, params):
@@ -2028,7 +2453,7 @@ def train_cross_device_phase(arch="smollm-360m", optimizer="adamw"):
             "deterministic": deterministic}
 
 
-def train_phase(cfg, card, ckpt_dir):
+def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
     """``repro_torch.launch.train.train`` on smollm-360m at full width in
     bf16: TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens from
     seed 0, checkpointed into ``ckpt_dir`` every RESUME_AT steps (the
@@ -2039,7 +2464,10 @@ def train_phase(cfg, card, ckpt_dir):
     B3 twice a layer (forward and remat recompute), no decode kernel and
     no plain version; B2, B3 and B6 must launch in every step.  Every
     step's loss and grad norm must be finite and every parameter leaf's
-    gradient at step 0 finite and non-zero."""
+    gradient at step 0 finite and non-zero.  With ``telemetry_base`` the
+    run records telemetry: one ``train.step`` span a step, whose ms must
+    agree with the step's wall ms within 5 % (the span waits for the
+    loss), exported to ``chiprun_out/telemetry_base``."""
     if TS.select_optimizer(cfg) != "adamw":
         raise RuntimeError(f"{cfg.name} would not train with AdamW")
     tokens = TRAIN_SEQ * TRAIN_BATCH
@@ -2099,12 +2527,40 @@ def train_phase(cfg, card, ckpt_dir):
             tr.views = {}
 
         t0 = time.perf_counter()
-        final = train_launch.train(
-            cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
-            global_batch=TRAIN_BATCH, seed=0, device="cuda",
-            ckpt_dir=ckpt_dir, ckpt_every=RESUME_AT, on_step=on_step,
-            return_grads=True)
+        trec = telemetry.enable(telemetry.Recorder()) if telemetry_base \
+            else None
+        try:
+            final = train_launch.train(
+                cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
+                global_batch=TRAIN_BATCH, seed=0, device="cuda",
+                ckpt_dir=ckpt_dir, ckpt_every=RESUME_AT, on_step=on_step,
+                return_grads=True)
+        finally:
+            telemetry.disable()
         seconds = time.perf_counter() - t0
+    if trec is not None:
+        spans = [e for e in trec.events if e["name"] == "train.step"]
+        if [e["attrs"]["step"] for e in spans] != list(range(TRAIN_STEPS)):
+            raise RuntimeError(f"train telemetry: spans {spans}")
+        for e, r in zip(spans, rows):
+            r["span_ms"] = e["dur"] * 1e3
+            if abs(r["span_ms"] - r["wall_ms"]) > 0.05 * r["wall_ms"]:
+                raise RuntimeError(f"train step {r['step']}: span "
+                                   f"{r['span_ms']:.1f} ms, wall "
+                                   f"{r['wall_ms']:.1f} ms")
+        paths = trec.export(str(ROOT / "chiprun_out" / telemetry_base))
+        out["telemetry"] = {
+            "artifacts": [str(pathlib.Path(x).relative_to(ROOT))
+                          for x in paths],
+            "events": len(trec.events),
+            "span_ms": [r["span_ms"] for r in rows],
+            "counters": trec.snapshot()["counters"]}
+        log("train telemetry: train.step spans "
+            + ", ".join(f"{r['span_ms']:.1f}" for r in rows)
+            + " ms against wall " + ", ".join(f"{r['wall_ms']:.1f}"
+                                              for r in rows)
+            + f" ms; {len(trec.events)} events; wrote "
+            + ", ".join(out["telemetry"]["artifacts"]))
     peak = torch.cuda.max_memory_allocated()
     steady = rows[1:]
     out.update({"config": cfg.name, "dtype": cfg.dtype, "steps": rows,
@@ -2553,6 +3009,13 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     quant.set_activation_mode("none")
+    # a fresh tuning cache for the autotune phases, deleted at exit
+    tune_dir = tempfile.mkdtemp(prefix=".tune_cache_", dir=ROOT)
+    atexit.register(shutil.rmtree, tune_dir, True)
+    os.environ["REPRO_TUNE_CACHE"] = os.path.join(tune_dir,
+                                                  "tune_cache.json")
+    tune.tuning_cache_reset()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
 
     t0 = time.perf_counter()
     lib = _build.build()
@@ -2574,10 +3037,19 @@ def main() -> None:
     cfg = get_config("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(cfg, gen, device="cuda")
-    serve = serve_phase(cfg, params, paged=False)
-    paged = serve_phase(cfg, params, paged=True)
-    serve["step"] = step_phase(cfg, params, paged=False)
-    paged["step"] = step_phase(cfg, params, paged=True)
+    serve = serve_phase(cfg, params, paged=False,
+                        telemetry_base="telemetry_smollm_dense")
+    paged = serve_phase(cfg, params, paged=True,
+                        telemetry_base="telemetry_smollm_paged")
+    serve["step"] = step_phase(cfg, params, paged=False, telemetry_on=True)
+    paged["step"] = step_phase(cfg, params, paged=True, telemetry_on=True)
+    paged.pop("_tokens")
+    serve_plans = list(serve.pop("_plans")) + list(paged.pop("_plans"))
+    plan_sets = {f"{cfg.name} serve": _plan_keys(serve_plans)}
+    report = {cfg.name: report_phase(serve_plans, cfg.name, card)}
+    del serve_plans
+    tuned = {cfg.name: autotune_phase(cfg, params, serve, card)}
+    serve.pop("_tokens")
     n_bit = bit_identity_phase(cfg, params)
     n_paged_bit = paged_bit_identity_phase(cfg, params)
     cross = cross_device_phase()
@@ -2585,8 +3057,10 @@ def main() -> None:
     train_cross = train_cross_device_phase()
     ckpt_dir = tempfile.mkdtemp(prefix=".resume_check_", dir=ROOT)
     try:
-        train_run = train_phase(cfg, card, ckpt_dir)
+        train_run = train_phase(cfg, card, ckpt_dir,
+                                telemetry_base="telemetry_smollm_train")
         step_plans = train_run.pop("step_plans")
+        plan_sets[f"{cfg.name} train step"] = _plan_keys(step_plans)
         train_run["transpose_copies"] = transpose_copy_phase(
             train_run.pop("step_views"), card)
         train_checked = train_kernel_phase(step_plans)
@@ -2620,10 +3094,22 @@ def main() -> None:
     log(f"{moe_cfg.name} at {MOE_LAYERS} layers: {weights_gb:.1f} GB of "
         f"weights made from seed 0 in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
-    moe_serve = serve_phase(moe_cfg, moe_params, paged=False)
+    moe_serve = serve_phase(moe_cfg, moe_params, paged=False,
+                            telemetry_base="telemetry_qwen3_moe_dense")
     moe_paged = serve_phase(moe_cfg, moe_params, paged=True)
-    moe_serve["step"] = step_phase(moe_cfg, moe_params, paged=False)
+    moe_serve["step"] = step_phase(moe_cfg, moe_params, paged=False,
+                                   telemetry_on=True)
     moe_paged["step"] = step_phase(moe_cfg, moe_params, paged=True)
+    moe_paged.pop("_tokens")
+    serve_plans = list(moe_serve.pop("_plans")) \
+        + list(moe_paged.pop("_plans"))
+    plan_sets[f"{moe_cfg.name} serve"] = _plan_keys(serve_plans)
+    report[moe_cfg.name] = report_phase(serve_plans, moe_cfg.name, card)
+    del serve_plans
+    tuned[moe_cfg.name] = autotune_phase(moe_cfg, moe_params, moe_serve,
+                                         card)
+    moe_serve.pop("_tokens")
+    calibration = calibration_phase(plan_sets, card)
     moe_bit = bit_identity_phase(moe_cfg, moe_params)
     moe_paged_bit = paged_bit_identity_phase(moe_cfg, moe_params,
                                              reference="paged")
@@ -2651,6 +3137,8 @@ def main() -> None:
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
              "operator_api": (api_run,), "train": (train_run,),
              f"train {full.name}": (moe_train,)}
+    for name, run in tuned.items():         # the tuned plans' serve run
+        paths[f"{name} tuned"] = (run["serve"],)
     int8_paths = {}
     for name, run in ((cfg.name, int8_run), (moe_cfg.name, moe_int8)):
         int8_paths[f"{name} w8a16"] = (run["w8a16"]["serve"],
@@ -2730,7 +3218,7 @@ def main() -> None:
                                "drives")
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / "chip_smoke.json").write_text(json.dumps({
+    (out_dir / "chip_smoke.json").write_text(json.dumps(_public({
         "card": card, "torch": torch.__version__,
         "cuda": torch.version.cuda, "kernels": line,
         "cases": {n: rows for n, (rows, *_) in checked.items()},
@@ -2754,12 +3242,14 @@ def main() -> None:
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
         "b3_b2_bitwise": redesign_bitwise, "int8_bitwise": int8_bitwise,
         "operator_api": api_run,
+        "autotune": tuned, "calibration": calibration,
+        "model_vs_measured": report,
         "bit_identity_requests": n_bit,
         "paged_bit_identity_requests": n_paged_bit,
         "cross_device_max_abs_err": cross,
         "cross_device_int8_max_abs_err": cross8,
         "build_seconds": _build.build_seconds,
-        "seconds": time.perf_counter() - t_start}, indent=1))
+        "seconds": time.perf_counter() - t_start}), indent=1))
     if _build.build_log:
         (out_dir / "ptxas.log").write_text(_build.build_log)
     log("kernels line: ms / plain_ms / bound_ms / library_ms are summed "

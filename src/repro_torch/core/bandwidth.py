@@ -44,6 +44,10 @@ def clear_calibration() -> None:
     set_calibration(None)
 
 
+def get_calibration() -> Optional[Calibration]:
+    return _calibration
+
+
 def calibration_version() -> int:
     return _cal_version
 
@@ -51,7 +55,10 @@ def calibration_version() -> int:
 def effective_rates(chip, int8: bool, f32: bool = False) -> tuple:
     """(peak op/s, device-memory bytes/s) after any installed
     calibration.  ``f32`` prices an f32 GEMM at the sheet's f32 rate
-    (the TPU sheet's equals its bf16 rate, as in the JAX package)."""
+    (the TPU sheet's equals its bf16 rate, as in the JAX package); under
+    a calibration it keeps the sheet's f32/bf16 ratio below the fitted
+    bf16 rate (Hopper's f32 rate is 67 of 989 TFLOP/s: the fitted bf16
+    rate alone would price an f32 GEMM some 15x too cheap)."""
     if int8:
         peak = chip.peak_int8_ops
     else:
@@ -59,8 +66,11 @@ def effective_rates(chip, int8: bool, f32: bool = False) -> tuple:
     bw = chip.hbm_bw
     cal = _calibration
     if cal is not None:
-        over = cal.peak_int8_ops if int8 else cal.peak_bf16_flops
-        peak = over or peak
+        if int8:
+            peak = cal.peak_int8_ops or peak
+        elif cal.peak_bf16_flops:
+            peak = cal.peak_bf16_flops * (
+                chip.peak_f32_flops / chip.peak_bf16_flops if f32 else 1.0)
         bw = cal.hbm_bw or bw
     return peak, bw
 
@@ -161,3 +171,30 @@ def estimate(tile: TileConfig, p: GemmProblem, chip=TPU_V5E
         t_memory=hbm / hbm_bw,
         arithmetic_intensity=flops / hbm,
     )
+
+
+def decode_kv_bytes(positions, *, n_kv_heads: int, head_dim: int,
+                    dtype="bfloat16", window: int = 0,
+                    page_size: Optional[int] = None) -> int:
+    """Modeled device-memory bytes ONE attention layer streams from its
+    KV cache for one decode step, billed at *true per-row positions* —
+    not the dense ``max_len`` rows the cache allocates.
+
+    A row at position ``p`` reads its ``p + 1``-entry causal history (k
+    and v each, at storage dtype); a sliding window clamps that to the
+    last ``window`` entries.  A block-paged cache bills whole pages
+    ``[0, ceil((p + 1) / page_size))`` and IGNORES the window: the paged
+    kernel (B5) walks every history page of the table and masks the
+    window in its tiles.  ``positions``: iterable of per-row cache
+    positions (the engine's live slots).
+    """
+    per_tok = 2 * n_kv_heads * head_dim * dtype_bytes(dtype)
+    tokens = 0
+    for p in positions:
+        hi = int(p) + 1                      # rows [0, hi) are live
+        if page_size:
+            tokens += -(-hi // page_size) * page_size
+        else:
+            lo = max(0, hi - window) if window > 0 else 0
+            tokens += hi - lo
+    return tokens * per_tok

@@ -90,6 +90,11 @@ class GemmProblem:
         if self.n_groups and self.n_b_operands != 1:
             raise ValueError("grouped GEMM is single-B")
 
+    @property
+    def flops(self) -> float:
+        """Logical (unpadded) flops — what the tuner's budget reads."""
+        return 2.0 * self.m * self.k * self.n * self.n_b_operands
+
 
 @dataclasses.dataclass(frozen=True)
 class TileConfig:

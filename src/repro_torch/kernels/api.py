@@ -40,8 +40,16 @@ reaches the weights through the same kernels on every device.  A grouped
 GEMM runs inside :class:`_GroupedCore` (``_grouped_core``): dA and the
 activation's pre-activation recompute are planned grouped GEMMs (B7 on a
 card), dB the per-expert outer product in plain f32.  With grad mode off
-both dispatch directly.  Not in the port yet, and raising
-``NotImplementedError`` with its ROADMAP item: measured tuning (A10).
+both dispatch directly.
+
+Measured tuning (``GemmSpec(tune=True)``, ``repro_torch.tune.enable()``
+or ``REPRO_AUTOTUNE``): ``plan()`` asks :mod:`repro_torch.tune` first —
+the persistent tuning cache, then a top-K sweep timed on the card — and
+falls back to the analytic winner, never raising; the plan's ``tuned``
+record and ``explain()``'s ``source`` line say which.  Grouped specs and
+the backward's GEMMs stay analytic.  With :mod:`repro_torch.telemetry`
+on, ``plan()`` emits one ``gemm.plan`` event a call and execution one
+``gemm.execute`` event per (spec, m, k, n).
 """
 
 from __future__ import annotations
@@ -53,6 +61,10 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from repro_torch import quant as _quant
+from repro_torch import telemetry
+from repro_torch.tune import autotune as _autotune
+from repro_torch.tune import measure as _tune_measure
+from repro_torch.tune.cache import device_mode
 from repro_torch.core import dse
 from repro_torch.core.bandwidth import TrafficEstimate, estimate
 from repro_torch.core.hardware import HOPPER_H100
@@ -101,8 +113,10 @@ class GemmSpec:
       non-grouped spec takes.
     * ``out_dtype`` — ``None`` resolves to ``a_dtype`` (int8 when the
       epilogue quantizes the output).
-    * ``tune`` — the JAX package's measured tuning; the port raises for
-      it (A10).
+    * ``tune`` — measured tuning for this spec: ``True`` / ``False``
+      win over the process switch and ``REPRO_AUTOTUNE``
+      (:func:`repro_torch.tune.autotune.is_enabled`), ``None`` defers to
+      them.
     """
 
     a_dtype: str = "bfloat16"
@@ -170,10 +184,6 @@ class GemmSpec:
                 "W8A8 runs non-gated, non-grouped GEMMs only")
         if self.a_dtype == "int8" and self.b_dtype != "int8":
             raise ValueError("an int8 A needs an int8 B (W8A8)")
-        # what the JAX package has and this slice of the port does not
-        if self.tune:
-            raise NotImplementedError(
-                "measured tile tuning arrives with ROADMAP queue A10")
 
     @property
     def key(self) -> str:
@@ -264,12 +274,28 @@ _KERNELS = {
 
 
 @dataclasses.dataclass(frozen=True)
+class TunedInfo:
+    """The measured-tuning record riding a tuned plan: the winner's
+    measured time (median, with spread), the analytic first choice it
+    was compared against, and whether the answer came from the
+    persistent cache (zero re-measurement) or a fresh top-K sweep."""
+
+    t_measured_us: float            # winner median wall clock
+    spread: float                   # (max-min)/median of kept samples
+    t_analytic_us: Optional[float]  # measured time of the search's rank-0
+    analytic_tile: str              # e.g. "tb 128x512x32"
+    k_searched: int
+    from_cache: bool
+
+
+@dataclasses.dataclass(frozen=True)
 class GemmPlan:
     """One resolved execution decision: spec x (m, k, n) on a sheet ->
     strategy, tile, and the modeled costs the search ranked it by.
     ``chunk_bk`` is the k-chunk a ``tb`` plan runs at (0 for ``aie``);
     a grouped plan carries its expert count ``n_groups`` and the
-    ``dense_rows`` a capacity-padded formulation would multiply."""
+    ``dense_rows`` a capacity-padded formulation would multiply; a tuned
+    plan its :class:`TunedInfo`."""
 
     spec: GemmSpec
     m: int
@@ -284,6 +310,13 @@ class GemmPlan:
     fallback_reason: Optional[str] = None
     n_groups: int = 0
     dense_rows: int = 0
+    tuned: Optional[TunedInfo] = None
+
+    @property
+    def source(self) -> str:
+        """How the tile was chosen: ``'tuned'`` (the measured winner) or
+        ``'analytic'`` (the cost-model search)."""
+        return "tuned" if self.tuned is not None else "analytic"
 
     @property
     def hbm_bytes(self) -> float:
@@ -382,7 +415,6 @@ class GemmPlan:
             f"t_mem {tm.t_memory * 1e6:.2f}); not a measurement",
             f"  epilogue : {s.epilogue.key or '(none)'}"
             + (f"  gated({s.epilogue.activation})" if s.gated else ""),
-            "  source   : analytic",
         ]
         if p.n_groups:
             inst = grouped_instances(t, p)
@@ -400,6 +432,24 @@ class GemmPlan:
         int8 = _int8_path(self)
         if int8:
             lines.insert(3, f"  int8     : {int8}")
+        if self.tuned is not None:
+            ti = self.tuned
+            t_model_us = tm.t_model * 1e6
+            how = "cache" if ti.from_cache else \
+                f"measured top-{ti.k_searched}"
+            lines.append(
+                f"  source   : tuned ({how})  {ti.t_measured_us:.1f} us "
+                f"measured vs {t_model_us:.1f} us modeled "
+                f"({ti.t_measured_us / t_model_us:.1f}x model, "
+                f"spread {ti.spread:.0%})")
+            if ti.t_analytic_us is not None and ti.analytic_tile != \
+                    f"{t.strategy} {t.bm}x{t.bk}x{t.bn}":
+                lines.append(
+                    f"             analytic first choice "
+                    f"{ti.analytic_tile} measured "
+                    f"{ti.t_analytic_us:.1f} us")
+        else:
+            lines.append("  source   : analytic")
         if self.fallback_reason:
             lines.append(f"  fallback : {self.fallback_reason}")
         return "\n".join(lines)
@@ -532,11 +582,14 @@ def solve_topk(spec: GemmSpec, shapes: Tuple[int, int, int], k: int = 5,
 def _resolve(spec: GemmSpec, m: int, k: int, n: int, chip=HOPPER_H100,
              n_groups: int = 0, dense_rows: int = 0) -> GemmPlan:
     """Strategy + tile for ``spec`` at (m, k, n) (and ``n_groups``
-    expert groups) on ``chip``: a checked explicit tile, else the
-    search's winner, falling back to its best 'aie' design when a 'tb'
-    winner fails the post-clamp check."""
+    expert groups) on ``chip``: a checked explicit tile, else (tuning
+    on, not grouped) the measured winner, else the search's winner,
+    falling back to its best 'aie' design when a 'tb' winner fails the
+    post-clamp check."""
     problem = _problem_for(spec, m, k, n, n_groups)
     fallback = None
+    tuned = None
+    tile = None
     if spec.tile is not None:
         tile = _clamp_tile(spec.tile, m, k, n, chip)
         err = _infeasible_reason(tile, problem, chip)
@@ -544,7 +597,26 @@ def _resolve(spec: GemmSpec, m: int, k: int, n: int, chip=HOPPER_H100,
             raise ValueError(
                 f"explicit tile {tile.strategy} {tile.bm}x{tile.bk}x"
                 f"{tile.bn} is infeasible for {problem}: {err}")
-    else:
+    elif _autotune.is_enabled(spec.tune) and not spec.grouped:
+        # measured tuning: the persistent tuning cache first, then a
+        # top-K sweep on the card; any degradation (over-budget problem,
+        # malformed cache, measurement failure, a cached tile that no
+        # longer fits) falls through to the analytic search below.
+        # Grouped specs stay analytic: the harness builds dense operands
+        # and would mis-time the ragged sweep.
+        found = _autotune.lookup_or_search(spec, (m, k, n), problem)
+        if found is not None:
+            cand, tuned = found
+            cand = _clamp_tile(cand, m, k, n, chip)
+            err = _infeasible_reason(cand, problem, chip)
+            if err:
+                fallback = (f"tuned tile {cand.strategy} {cand.bm}x"
+                            f"{cand.bk}x{cand.bn} infeasible here ({err}); "
+                            "re-resolved analytically")
+                tuned = None
+            else:
+                tile = cand
+    if tile is None:
         designs = dse.solve(problem, chip)
         chosen = next((d for d in designs
                        if spec.strategy in (None, d.tile.strategy)), None)
@@ -570,7 +642,8 @@ def _resolve(spec: GemmSpec, m: int, k: int, n: int, chip=HOPPER_H100,
     return GemmPlan(spec, m, k, n, problem, tile,
                     estimate(tile, problem, chip),
                     vmem_footprint(tile, problem, chip), chip, chunk,
-                    fallback, n_groups, dense_rows)
+                    fallback, n_groups, dense_rows, tuned)
+
 
 
 def plan(spec: GemmSpec, shapes: Tuple[int, ...]) -> GemmPlan:
@@ -598,12 +671,57 @@ def plan(spec: GemmSpec, shapes: Tuple[int, ...]) -> GemmPlan:
     cached = _plan_cache.get(key)
     if cached is not None:
         _plan_hits += 1
+        if telemetry.enabled():
+            _plan_event(cached, "hit")
         return cached
     _plan_misses += 1
     grouped = (HOPPER_H100, e, dense_rows) if spec.grouped else ()
     resolved = _resolve(spec, m, k, n, *grouped)
     _plan_cache[key] = resolved
+    if telemetry.enabled():
+        _plan_event(resolved, "miss")
     return resolved
+
+
+def _plan_event(pl: GemmPlan, cache: str) -> None:
+    """One telemetry event per plan() call: the decision record — spec
+    key, strategy / tile, modeled device-memory and on-chip bytes,
+    flops, roofline verdict, cache hit or miss, source and any fallback
+    reason."""
+    t = pl.tile
+    telemetry.counter(f"gemm.plan_cache.{cache}").add(1)
+    tuned = pl.tuned
+    t_model_us = pl.traffic.t_model * 1e6
+    telemetry.event(
+        "gemm.plan", cache=cache, spec=pl.spec.key,
+        m=pl.m, k=pl.k, n=pl.n, strategy=t.strategy,
+        tile=f"{t.bm}x{t.bk}x{t.bn}", hbm_bytes=pl.hbm_bytes,
+        vmem_bytes=pl.vmem_bytes, flops=pl.flops,
+        t_model_us=t_model_us, bound=pl.traffic.bound,
+        source=pl.source,
+        t_measured_us=tuned.t_measured_us if tuned else None,
+        measured_vs_model=(tuned.t_measured_us / t_model_us
+                           if tuned and t_model_us else None),
+        fallback_reason=pl.fallback_reason)
+
+
+def _execute_event(pl: GemmPlan, a: torch.Tensor) -> None:
+    """One ``gemm.execute`` event per plan, i.e. per (spec, m, k, n), and
+    recorder (the JAX package emits it once per trace; eager callers
+    would otherwise emit one a call, ~200 a decode step).  The plan
+    carries the recorder it reported to, so a repeat costs one attribute
+    read, not a hash of its spec.  ``mode`` is the device the operands
+    live on (:func:`repro_torch.tune.device_mode`)."""
+    rec = telemetry.recorder()
+    if pl.__dict__.get("_reported") is rec or _tune_measure.measuring():
+        return                          # a tuner's sample is no execution
+    object.__setattr__(pl, "_reported", rec)
+    spec = pl.spec
+    telemetry.event(
+        "gemm.execute", spec=spec.key, m=pl.m, k=pl.k, n=pl.n,
+        strategy=pl.tile.strategy, mode=device_mode(a.device),
+        kernel=pl.kernel, hbm_bytes=pl.hbm_bytes, flops=pl.flops)
+    telemetry.counter("gemm.execute.first_traces").add(1)
 
 
 # ---------------------------------------------------------------------------
@@ -973,6 +1091,8 @@ def execute(pl: GemmPlan, a: torch.Tensor, b, *, b2=None,
             "plan expects B as a {'q','scale'} struct" if spec.b_quant
             else "plan expects a plain B array, got a quant struct")
     bw = b["q"] if spec.b_quant else b
+    if telemetry.enabled():
+        _execute_event(pl, a)
     lead = a.shape[:-1]
     a2 = a.reshape(-1, a.shape[-1])
     if dtype_name(a2.dtype) != spec.a_dtype \
@@ -1082,6 +1202,8 @@ def gemm(a: torch.Tensor, b, *, b2=None,
         _oneshot[key] = pl
         return out
     _plan_hits += 1
+    if telemetry.enabled():
+        _execute_event(pl, a)
     if a.dim() == 2 and (residual is None or residual.dim() == 2):
         return _run(pl, a, b, b2, bias, residual, out_scale)
     n = pl.n
@@ -1125,5 +1247,7 @@ def gemm_grouped(a: torch.Tensor, b, group_sizes: torch.Tensor, *,
         _oneshot[key] = pl
         return out
     _plan_hits += 1
+    if telemetry.enabled():
+        _execute_event(pl, a)
     return _run_grouped(pl, a.reshape(-1, pl.k), b, bias,
                         group_sizes).reshape(*a.shape[:-1], pl.n)

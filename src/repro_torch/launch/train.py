@@ -19,8 +19,13 @@ last).  With ``--ckpt-dir`` the run resumes from the newest committed
 checkpoint there (``[train] resumed from step N``), saves every
 ``ckpt_every`` steps without blocking and once more, blocking, at the
 end, in the JAX package's on-disk format
-(:mod:`repro_torch.checkpoint.checkpointer`).  Telemetry
-(``--telemetry``, ROADMAP queue A10) is not ported yet and raises.
+(:mod:`repro_torch.checkpoint.checkpointer`).  ``--telemetry PATH``
+records one ``train.step`` span a step (waiting for the step's loss on
+the device), the ``train.tokens`` counter, the GEMM plan events and, for
+MoE models, the routed / dropped counters, and writes ``PATH.jsonl`` and
+``PATH.trace.json``.  Like the JAX driver it has no ``--autotune``: the
+forward GEMMs tune when ``REPRO_AUTOTUNE`` or ``tune.enable`` turns
+tuning on; the backward's never do.
 """
 
 from __future__ import annotations
@@ -31,7 +36,7 @@ from typing import Callable, Optional
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import resolve_device, telemetry
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import get_config, get_smoke_config
 from repro_torch.data import pipeline
@@ -93,7 +98,11 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
             ev[0].record()
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
+        with telemetry.span("train.step", step=step) as sp:
+            state, metrics = step_fn(state, batch)
+            sp.sync(metrics["loss"])
+        telemetry.counter("train.tokens").add(
+            data_cfg.seq_len * data_cfg.global_batch)
         if cuda:
             ev[1].record()
             torch.cuda.synchronize(device)
@@ -125,11 +134,12 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the CUDA card (raises without one)")
     ap.add_argument("--ckpt-dir", default=None)
-    ap.add_argument("--telemetry", default=None, metavar="PATH")
+    ap.add_argument("--telemetry", default=None, metavar="PATH",
+                    help="record per-step spans + GEMM plan events and "
+                         "write PATH.jsonl + PATH.trace.json")
     args = ap.parse_args(argv)
     if args.telemetry:
-        raise NotImplementedError(
-            "telemetry is not ported yet (ROADMAP queue A10)")
+        telemetry.enable()
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
     out = train(cfg, steps=args.steps, seq_len=args.seq_len,
@@ -137,6 +147,9 @@ def main(argv=None) -> None:
                 microbatches=args.microbatches, seed=args.seed,
                 device=args.device, ckpt_dir=args.ckpt_dir)
     print("[train] final:", {k: round(v, 4) for k, v in out.items()})
+    if args.telemetry:
+        _, lines = telemetry.export_report("train", args.telemetry)
+        print("\n".join(lines))
 
 
 if __name__ == "__main__":

@@ -21,11 +21,13 @@ the gate renormalisation sum with elementwise adds only
 (``layers._row_sum``), top-k is a stable sort (ties go to the lower
 expert id, as ``lax.top_k``'s), and the combine sums in a fixed order.
 Nothing here syncs the host: group sizes, offsets and capacity drops
-stay on the device.
+stay on the device.  With telemetry on, the ``moe.group_sizes`` (rows
+routed through the grouped GEMMs) and ``moe.dropped_tokens``
+(capacity-dropped assignments) counters keep their running sums on the
+device and read them once, at the recorder's snapshot.
 
 Not in the port yet (ROADMAP queue A9): the shard_map expert-parallel
-path, the ``REPRO_MOE_GROUPED=0`` dense-einsum baseline and the MoE
-telemetry counters.
+path and the ``REPRO_MOE_GROUPED=0`` dense-einsum baseline.
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch import ops, quant
+from repro_torch import ops, quant, telemetry
 from repro_torch.kernels.gemm_grouped import shared_tables
 from repro_torch.models.layers import _row_sum, dense_init
 
@@ -190,6 +192,21 @@ def _combine(ys: torch.Tensor, dsp: MoeDispatch, gate_vals: torch.Tensor,
     return y
 
 
+def _emit_moe_counters(n_assignments: int, sizes: torch.Tensor) -> None:
+    """``moe.group_sizes`` (rows routed through the grouped GEMMs) and
+    ``moe.dropped_tokens`` (capacity-dropped assignments), only while
+    telemetry is on.  The sums stay on the device (a ``.item()`` here
+    would sync every MoE layer of every step) until the snapshot reads
+    them; nothing is counted while a CUDA graph is being captured."""
+    if not telemetry.enabled():
+        return
+    if sizes.is_cuda and torch.cuda.is_current_stream_capturing():
+        return
+    kept = sizes.sum(dtype=torch.int64)
+    telemetry.counter("moe.group_sizes").add(kept)
+    telemetry.counter("moe.dropped_tokens").add(n_assignments - kept)
+
+
 def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25, aux_loss: bool = True
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
@@ -204,6 +221,7 @@ def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
     xe = x.reshape(t, d)
     probs, gate_vals, top_ids = _route(xe, params["router"], top_k)
     dsp = _sort_dispatch(xe, top_ids, top_k, n_experts, c)
+    _emit_moe_counters(t * top_k, dsp.sizes)
     aux = _aux_loss(dsp.counts, probs, t) if aux_loss else None
     ys = _expert_gemms(params, dsp.xs, dsp.sizes, x.dtype,
                        dense_rows=n_experts * c)

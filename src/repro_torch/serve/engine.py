@@ -21,9 +21,15 @@ Host syncs are amortized: decode runs in bursts of up to
 ``max_tokens``), EOS is detected at burst boundaries and tokens sampled
 after it are dropped before a result is returned.
 
-Not ported yet: telemetry spans (ROADMAP queue A10) and the
-modeled-bytes methods (``modeled_kv_bytes*``,
-``modeled_bytes_per_token``), which need the cost model (A6).
+With :mod:`repro_torch.telemetry` on, the engine emits the reference's
+events (``serve.request.queued`` / ``.admitted`` / ``.finished``), spans
+(``serve.prefill``, ``serve.prefill_chunk``, ``serve.decode_burst``, each
+waiting for its device work, and four per-request lifecycle spans on
+their own tracks), counters and gauges (slots active, pages used /
+free).  ``generate`` is the lockstep front end, and the engine models
+the device-memory bytes a decode step streams
+(``modeled_kv_bytes_per_step``, ``modeled_bytes_per_token``; the
+``modeled_kv_bytes*`` metrics add them up over a run).
 """
 
 from __future__ import annotations
@@ -36,8 +42,9 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import quant, resolve_device, telemetry
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import bandwidth
 from repro_torch.models import transformer as T
 from repro_torch.serve import paging
 
@@ -108,6 +115,13 @@ class RequestResult:
         return int(self.tokens.shape[0])
 
 
+@dataclasses.dataclass
+class GenerationResult:
+    """What :meth:`DecodeEngine.generate` returns."""
+    tokens: np.ndarray                   # (b, steps) generated ids
+    steps: int
+
+
 class SlotScheduler:
     """Pure-host slot allocator: FIFO request queue over ``n_slots``
     cache slots, lowest free slot first."""
@@ -166,7 +180,10 @@ class _SlotState:
     admitted_time: float
     queue_wait: float = 0.0
     first_token_time: float = 0.0
+    admitted_abs: float = 0.0            # perf_counter absolutes for the
+    first_abs: float = 0.0               # ... telemetry lifecycle spans
     prefill_chunks: int = 1
+    pos: int = 0                         # cache position (KV billing)
 
 
 @dataclasses.dataclass
@@ -181,13 +198,16 @@ class _PrefillState:
     chunks: int
     admitted_time: float
     queue_wait: float
+    admitted_abs: float = 0.0
 
 
 class DecodeEngine:
     """Continuous-batching serving engine over ``batch`` cache slots of
     ``max_len`` positions each, on ``device`` (default the CUDA card).
-    Temperature and EOS come with each request; temperature sampling
-    draws from a ``torch.Generator`` seeded with ``seed``.
+    Temperature and EOS come with each request (``temperature`` /
+    ``eos_id`` are the defaults :meth:`generate` gives its requests);
+    temperature sampling draws from a ``torch.Generator`` seeded with
+    ``seed``.
 
     ``page_size`` switches the KV cache from dense per-slot rows to a
     block-paged pool (``max_len`` rounds up to a page multiple):
@@ -199,7 +219,9 @@ class DecodeEngine:
     copy-on-write on the first divergent mid-page write)."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
-                 max_len: int, page_size: Optional[int] = None,
+                 max_len: int, temperature: float = 0.0,
+                 eos_id: Optional[int] = None,
+                 page_size: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
                  prefix_cache: bool = True, seed: int = 0, device=None):
@@ -211,6 +233,8 @@ class DecodeEngine:
         self.params = params
         self.cfg = cfg
         self.n_slots = self.batch = batch
+        self.temperature = temperature
+        self.eos_id = eos_id
         self.paged = page_size is not None
         self.page_size = page_size
         self.prefill_chunk = prefill_chunk
@@ -279,6 +303,10 @@ class DecodeEngine:
             "prefix_misses": 0,
             "shared_prompt_tokens": 0,   # prompt tokens never prefilled
             "peak_pages_used": 0,        # most pool pages held at once
+            # decode KV traffic billed at true per-row positions
+            # (page-rounded when paged) vs what dense max_len rows stream
+            "modeled_kv_bytes": 0,
+            "modeled_kv_bytes_dense_rows": 0,
         }
         self._stall_run = 0
 
@@ -319,6 +347,9 @@ class DecodeEngine:
         req.rid = rid
         self._requests[rid] = req
         self._sched.submit(rid)
+        telemetry.event("serve.request.queued", rid=rid,
+                        prompt_len=int(req.prompt.shape[0]),
+                        max_tokens=req.max_tokens, arrival=req.arrival)
         return rid
 
     def _ensure_cache(self) -> None:
@@ -340,6 +371,10 @@ class DecodeEngine:
             self.metrics["max_prefill_stall_tokens"] = max(
                 self.metrics["max_prefill_stall_tokens"], self._stall_run)
 
+    def _update_page_gauges(self) -> None:
+        telemetry.gauge("serve.kv_pages_used").set(self.kv.pool.n_used)
+        telemetry.gauge("serve.kv_pages_free").set(self.kv.pool.n_free)
+
     def _note_pages(self) -> None:
         self.metrics["peak_pages_used"] = max(
             self.metrics["peak_pages_used"], self.kv.pool.n_used)
@@ -353,29 +388,39 @@ class DecodeEngine:
         """Prefill the request into ``slot`` and sample its first token;
         admission is the time-to-first-token boundary, so the token is
         synced here."""
+        plen = int(req.prompt.shape[0])
         adm_time = clock()
-        t0 = time.perf_counter()
+        adm_abs = t0 = time.perf_counter()
+        queue_wait = max(adm_time - req.arrival, 0.0)
         toks = torch.as_tensor(req.prompt[None, :], dtype=torch.int64,
                                device=self.device)
-        logits, self._cache = T.prefill_into_slot(
-            self.params, self.cfg, toks, self._cache, slot,
-            max_len=self.max_len)
-        temp = np.float32(req.temperature)
-        first = self._sample(logits, temp[None])
+        with telemetry.span("serve.prefill", rid=req.rid, slot=slot,
+                            prompt_len=plen) as sp:
+            logits, self._cache = T.prefill_into_slot(
+                self.params, self.cfg, toks, self._cache, slot,
+                max_len=self.max_len)
+            temp = np.float32(req.temperature)
+            first = self._sample(logits, temp[None])
+            sp.sync(first)
         self._tok[slot, 0] = first[0]
         first_tok = int(first[0])                      # host sync
+        first_time = clock()
         self.metrics["prefill_time"] += time.perf_counter() - t0
         self._temps[slot] = temp
-        self.metrics["prefill_tokens"] += int(req.prompt.shape[0])
+        self.metrics["prefill_tokens"] += plen
         self.metrics["prefill_chunks"] += 1
-        self._note_prefill_stall(int(req.prompt.shape[0]))
+        self._note_prefill_stall(plen)
+        telemetry.counter("serve.prefill_tokens").add(plen)
+        telemetry.event("serve.request.admitted", rid=req.rid, slot=slot,
+                        queue_wait=queue_wait,
+                        step=self.metrics["decode_steps"])
         self._state[slot] = _SlotState(
             req=req, gen=[], first=first_tok,
             remaining=req.max_tokens - 1,
             admitted_step=self.metrics["decode_steps"],
-            admitted_time=adm_time,
-            queue_wait=max(adm_time - req.arrival, 0.0),
-            first_token_time=clock())
+            admitted_time=adm_time, queue_wait=queue_wait,
+            first_token_time=first_time, admitted_abs=adm_abs,
+            first_abs=time.perf_counter(), pos=plen)
 
     def _admit_paged(self, slot: int, req: Request,
                      clock: Callable[[], float]) -> None:
@@ -385,19 +430,31 @@ class DecodeEngine:
         :meth:`_run_prefill_chunk` lands its last chunk."""
         plen = int(req.prompt.shape[0])
         adm_time = clock()
+        adm_abs = time.perf_counter()
+        queue_wait = max(adm_time - req.arrival, 0.0)
         plan = self.kv.admit(slot, req.prompt, plen + req.max_tokens - 1)
         if plan.cow_src:
             self._cache = T.copy_kv_pages(self._cache, plan.cow_src,
                                           plan.cow_dst)
         if self.kv.prefix is not None:
-            key = "prefix_hits" if plan.prefix_hit else "prefix_misses"
-            self.metrics[key] += 1
+            if plan.prefix_hit:
+                self.metrics["prefix_hits"] += 1
+                telemetry.counter("serve.prefix_cache.hits").add(1)
+            else:
+                self.metrics["prefix_misses"] += 1
+                telemetry.counter("serve.prefix_cache.misses").add(1)
             self.metrics["shared_prompt_tokens"] += plan.shared_tokens
         self._note_pages()
+        self._update_page_gauges()
+        telemetry.event("serve.request.admitted", rid=req.rid, slot=slot,
+                        queue_wait=queue_wait,
+                        step=self.metrics["decode_steps"],
+                        pages=plan.n_pages,
+                        shared_tokens=plan.shared_tokens)
         self._prefilling[slot] = _PrefillState(
             req=req, row=self.kv.table_row(slot),
             next_pos=plan.shared_tokens, chunks=0, admitted_time=adm_time,
-            queue_wait=max(adm_time - req.arrival, 0.0))
+            queue_wait=queue_wait, admitted_abs=adm_abs)
 
     def _run_prefill_chunk(self, clock: Callable[[], float]
                            ) -> Optional[RequestResult]:
@@ -417,12 +474,16 @@ class DecodeEngine:
         t0 = time.perf_counter()
         toks = torch.as_tensor(chunk[None, :], dtype=torch.int64,
                                device=self.device)
-        logits, self._cache = T.prefill_paged_chunk(
-            self.params, self.cfg, toks, self._cache, slot, st.row,
-            st.next_pos)
+        with telemetry.span("serve.prefill_chunk", rid=req.rid,
+                            slot=slot, start=st.next_pos, tokens=s) as sp:
+            logits, self._cache = T.prefill_paged_chunk(
+                self.params, self.cfg, toks, self._cache, slot, st.row,
+                st.next_pos)
+            sp.sync(logits)
         st.next_pos += s
         st.chunks += 1
         self.metrics["prefill_tokens"] += s
+        telemetry.counter("serve.prefill_tokens").add(s)
         self._note_prefill_stall(s)
         if st.next_pos < plen:
             self.metrics["prefill_time"] += time.perf_counter() - t0
@@ -432,6 +493,7 @@ class DecodeEngine:
         first = self._sample(logits, temp[None])
         self._tok[slot, 0] = first[0]
         first_tok = int(first[0])                      # host sync
+        first_time = clock()
         self.metrics["prefill_time"] += time.perf_counter() - t0
         del self._prefilling[slot]
         self._temps[slot] = temp
@@ -440,12 +502,15 @@ class DecodeEngine:
         self.kv.register_prefix(slot, req.prompt)
         self.metrics["prefill_chunks"] += st.chunks
         self._note_pages()
+        self._update_page_gauges()
         self._state[slot] = _SlotState(
             req=req, gen=[], first=first_tok,
             remaining=req.max_tokens - 1,
             admitted_step=self.metrics["decode_steps"],
             admitted_time=st.admitted_time, queue_wait=st.queue_wait,
-            first_token_time=clock(), prefill_chunks=st.chunks)
+            first_token_time=first_time, admitted_abs=st.admitted_abs,
+            first_abs=time.perf_counter(), prefill_chunks=st.chunks,
+            pos=plen)
         if req.max_tokens <= 1:
             self._sync_slot(slot, None)
             return self._finish(slot, clock())
@@ -466,17 +531,41 @@ class DecodeEngine:
             self.kv.release(slot)
             self._table_np[slot] = paging.SINK_PAGE
             self._upload_table()
+            self._update_page_gauges()
         self._requests.pop(req.rid, None)
         self.metrics["generated_tokens"] += len(toks)
         self.metrics["completed"] += 1
+        ttft = max(st.first_token_time - req.arrival, 0.0)
+        if telemetry.enabled():
+            fin_abs = time.perf_counter()
+            arr_abs = st.admitted_abs - st.queue_wait
+            common = dict(tid=req.rid, rid=req.rid)
+            telemetry.complete_span("serve.request", arr_abs, fin_abs,
+                                    prompt_len=int(req.prompt.shape[0]),
+                                    n_tokens=len(toks), ttft=ttft,
+                                    queue_wait=st.queue_wait, **common)
+            telemetry.complete_span("serve.request.queued", arr_abs,
+                                    st.admitted_abs, **common)
+            telemetry.complete_span("serve.request.prefill",
+                                    st.admitted_abs, st.first_abs,
+                                    **common)
+            telemetry.complete_span("serve.request.decode", st.first_abs,
+                                    fin_abs, tokens=len(toks),
+                                    attn_plan=self._attn_plan_key(),
+                                    **common)
+            telemetry.event("serve.request.finished", rid=req.rid,
+                            n_tokens=len(toks), ttft=ttft,
+                            queue_wait=st.queue_wait,
+                            e2e=max(now - req.arrival, 0.0))
+            telemetry.counter("serve.generated_tokens").add(len(toks))
+            telemetry.counter("serve.completed").add(1)
         return RequestResult(
             rid=req.rid, prompt_len=int(req.prompt.shape[0]),
             tokens=np.asarray(toks, np.int32),
             admitted_step=st.admitted_step,
             finished_step=self.metrics["decode_steps"],
             arrival=req.arrival, admitted_time=st.admitted_time,
-            finished_time=now, queue_wait=st.queue_wait,
-            ttft=max(st.first_token_time - req.arrival, 0.0),
+            finished_time=now, queue_wait=st.queue_wait, ttft=ttft,
             prefill_chunks=st.prefill_chunks)
 
     def _sync_slot(self, slot: int, burst_host: Optional[np.ndarray]
@@ -548,6 +637,7 @@ class DecodeEngine:
 
             active = [s for s in self._sched.active_slots
                       if s in self._state]
+            telemetry.gauge("serve.slots_active").set(len(active))
             if not active:
                 if self._sched.queue and not self._prefilling:
                     time.sleep(poll)       # waiting on the next arrival
@@ -558,24 +648,127 @@ class DecodeEngine:
             k = min([EOS_CHECK_EVERY]
                     + [self._state[s].remaining for s in active])
             burst: List[torch.Tensor] = []
-            t_burst0 = time.perf_counter()
-            for _ in range(max(k, 1)):
-                logits, self._cache = T.decode_step(
-                    self.params, self.cfg, self._tok, self._cache)
-                samp = self._sample(logits, self._temps)
-                self._tok = samp[:, None]
-                burst.append(samp)
-            host = torch.stack(burst, dim=0).cpu().numpy()  # (k, slots)
+            with telemetry.span("serve.decode_burst", steps=max(k, 1),
+                                active=len(active),
+                                attn_plan=self._attn_plan_key()):
+                t_burst0 = time.perf_counter()
+                for _ in range(max(k, 1)):
+                    logits, self._cache = T.decode_step(
+                        self.params, self.cfg, self._tok, self._cache)
+                    samp = self._sample(logits, self._temps)
+                    self._tok = samp[:, None]
+                    burst.append(samp)
+                # (k, slots); the copy to the host waits for the burst
+                host = torch.stack(burst, dim=0).cpu().numpy()
             self.metrics["decode_time"] += time.perf_counter() - t_burst0
             self.metrics["decode_steps"] += len(burst)
             self.metrics["useful_slot_steps"] += len(burst) * len(active)
+            telemetry.counter("serve.decode_steps").add(len(burst))
             self._stall_run = 0            # decode ran; stall over
+            for j in range(len(burst)):    # KV billed at true positions
+                self.metrics["modeled_kv_bytes"] += \
+                    self.modeled_kv_bytes_per_step(
+                        [self._state[s].pos + j for s in active])
+            self.metrics["modeled_kv_bytes_dense_rows"] += \
+                len(burst) * self._dense_rows_kv_bytes_per_step()
             for s in active:
                 self._state[s].remaining -= len(burst)
+                self._state[s].pos += len(burst)
 
             # ---- sync + completions
             for s in active:
                 self._sync_slot(s, host)
                 if self._slot_done(s):
                     done.append(self._finish(s, clock()))
+            telemetry.gauge("serve.slots_active").set(self._sched.n_active)
         return done
+
+    # ---------------------------------------------------- lockstep front
+
+    def generate(self, prompts, n_steps: int, seed: int = 0
+                 ) -> GenerationResult:
+        """Lockstep front end: prompts (b, s) token ids (a tensor or an
+        array), up to ``n_steps`` tokens each, at the engine's
+        ``temperature`` / ``eos_id``, returned as a dense (b, steps)
+        array.  Rows that finish early (EOS) are padded with ``eos_id``
+        (0 without one) — post-EOS samples never leak into the result.
+        ``seed`` reseeds the sampling generator.  Each row admits through
+        the batch-1 slot prefill; decode runs batched."""
+        self._gen.manual_seed(seed)
+        if isinstance(prompts, torch.Tensor):
+            prompts = prompts.cpu().numpy()
+        prompts_np = np.asarray(prompts).astype(np.int32)
+        reqs = [Request(prompt=prompts_np[i], max_tokens=n_steps,
+                        temperature=self.temperature, eos_id=self.eos_id)
+                for i in range(prompts_np.shape[0])]
+        results = {r.rid: r for r in self.run(reqs)}
+        ordered = [results[req.rid] for req in reqs]
+        steps = max(r.n_tokens for r in ordered)
+        fill = self.eos_id if self.eos_id is not None else 0
+        out = np.full((len(ordered), steps), fill, np.int32)
+        for i, r in enumerate(ordered):
+            out[i, :r.n_tokens] = r.tokens
+        return GenerationResult(tokens=out, steps=steps)
+
+    # ------------------------------------------------------- cost model
+
+    def _attn_layer_windows(self) -> List[tuple]:
+        """(window, layer_count) per attention-family layer kind in the
+        stack — the layers that stream KV cache every decode step."""
+        cfg = self.cfg
+        out = []
+        for kind in cfg.layer_pattern:
+            if kind in ("attn", "moe"):
+                out.append((cfg.window, cfg.repeats))
+            elif kind == "local":
+                out.append((cfg.local_window, cfg.repeats))
+        for kind in cfg.tail_pattern:
+            if kind in ("attn", "moe"):
+                out.append((cfg.window, 1))
+            elif kind == "local":
+                out.append((cfg.local_window, 1))
+        return out
+
+    def _attn_plan_key(self) -> Optional[str]:
+        """The decode attention plan the steps resolve to, attached to the
+        decode spans.  ``None`` until the attention planner (ROADMAP
+        queue A6) lands: the port calls B4 / B5 one-shot."""
+        return None
+
+    def modeled_kv_bytes_per_step(self, positions) -> int:
+        """Modeled KV-cache device-memory bytes one batched decode step
+        streams, billed at the given true per-row positions
+        (window-clamped when dense; whole history pages when paged)."""
+        cfg = self.cfg
+        total = 0
+        for window, count in self._attn_layer_windows():
+            total += count * bandwidth.decode_kv_bytes(
+                positions, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                dtype=cfg.dtype, window=window, page_size=self.page_size)
+        return total
+
+    def _dense_rows_kv_bytes_per_step(self) -> int:
+        """What dense per-slot rows stream per step: every slot's full
+        ``max_len`` allocation (window-clamped for ring layers),
+        regardless of true positions."""
+        cfg = self.cfg
+        positions = [self.max_len - 1] * self.n_slots
+        total = 0
+        for window, count in self._attn_layer_windows():
+            total += count * bandwidth.decode_kv_bytes(
+                positions, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+                dtype=cfg.dtype, window=window)
+        return total
+
+    def modeled_bytes_per_token(self, positions=None) -> int:
+        """Modeled device-memory traffic of ONE batched decode step (the
+        whole slot pool shares it): the GEMM weight stream (every
+        projection leaf read once, at storage width) plus the KV-cache
+        stream billed at true per-row positions (live slots by
+        default)."""
+        total = quant.gemm_weight_bytes(self.params)
+        if positions is None:
+            positions = [self._state[s].pos for s in sorted(self._state)]
+        if positions:
+            total += self.modeled_kv_bytes_per_step(positions)
+        return total

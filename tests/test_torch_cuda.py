@@ -1245,3 +1245,95 @@ def test_moe_smoke_resume_on_the_card(cuda_device, tmp_path):
                    zip([x[3][0]] + x[3][1], [y[3][0]] + y[3][1]))
     bound = spread(first, second)
     assert spread(resumed, first) <= bound
+
+
+# ------------------------------------------------ telemetry and tuning
+
+
+def test_span_sync_waits_for_a_b1_launch(cuda_device):
+    """A span that syncs on B1's output lasts at least the kernel's
+    event-timed device time (the fastest of five): the wait is billed to
+    the span.  Without the sync the span ends at the launch."""
+    from repro_torch import telemetry
+    a = _randn((8192, 8192), torch.bfloat16, cuda_device, 0)
+    b = _randn((8192, 8192), torch.bfloat16, cuda_device, 1)
+    gemm_aie(a, b)                                   # build and warm
+    torch.cuda.synchronize()
+    kernel_ms = []
+    for _ in range(5):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        gemm_aie(a, b)
+        t1.record()
+        t1.synchronize()
+        kernel_ms.append(t0.elapsed_time(t1))
+    rec = telemetry.enable(telemetry.Recorder())
+    try:
+        with telemetry.span("synced") as sp:
+            sp.sync(gemm_aie(a, b))
+        with telemetry.span("unsynced"):
+            gemm_aie(a, b)
+        torch.cuda.synchronize()
+    finally:
+        telemetry.disable()
+    dur = {e["name"]: e["dur"] * 1e3 for e in rec.events}
+    assert dur["synced"] >= 0.95 * min(kernel_ms) > 0
+    assert dur["unsynced"] < 0.5 * min(kernel_ms)
+
+
+@pytest.mark.parametrize("strategy", ["aie", "tb"])
+def test_measure_plan_on_the_card(cuda_device, strategy):
+    """The harness times a plan on the card between device syncs and
+    leaves the launch counters as it found them."""
+    from repro_torch import ops
+    from repro_torch.kernels.gemm_tb import gemm_tb
+    from repro_torch.tune import measure
+    pl = ops.plan(ops.GemmSpec(strategy=strategy), (300, 4096, 8192))
+    before = (gemm_aie.launches, gemm_tb.launches, gemm_tb.final_launches)
+    meas = measure.measure_plan(pl, iters=5, warmup=2, device=cuda_device)
+    assert (gemm_aie.launches, gemm_tb.launches,
+            gemm_tb.final_launches) == before
+    assert meas.iters == 5 and 5e-6 < meas.median_s < 5e-2
+
+
+def test_tuned_smoke_serve_gives_the_same_tokens(cuda_device, tmp_path,
+                                                monkeypatch):
+    """smollm-360m-smoke (bf16) served with every GEMM tuned (K = 8, on
+    the card) decodes the untuned run's tokens bit for bit; a second
+    process over the cache file measures nothing."""
+    from repro_torch import ops, tune
+    from repro_torch.models import transformer as T
+    from repro_torch.serve.engine import DecodeEngine, acceptance_requests
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tc.json"))
+    tune.tuning_cache_reset()
+    cfg = dataclasses.replace(get_smoke_config("smollm-360m"),
+                              dtype="bfloat16")
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(0), device=cuda_device)
+
+    def serve():
+        eng = DecodeEngine(params, cfg, batch=2, max_len=64,
+                           device=cuda_device)
+        return [r.tokens for r in sorted(eng.run(
+            acceptance_requests(cfg.vocab)), key=lambda r: r.rid)]
+
+    ops.plan_cache_clear()
+    want = serve()
+    tune.enable(8)
+    ops.plan_cache_clear()
+    try:
+        got = serve()
+        tuned = [p for p in ops.plans() if p.source == "tuned"]
+        assert tuned and tune.tuning_cache_info().measurements > 0
+        tune.tuning_cache_reset()
+        ops.plan_cache_clear()
+        again = serve()
+        assert tune.tuning_cache_info().measurements == 0
+    finally:
+        tune.disable()
+        ops.plan_cache_clear()
+        tune.tuning_cache_reset()
+    for a, b, c in zip(want, got, again):
+        np.testing.assert_array_equal(a, b)
+        np.testing.assert_array_equal(a, c)

@@ -256,17 +256,40 @@ def test_execute_rejects_operands_that_mismatch_the_plan():
         get_smoke_config("smollm-360m"), window=64)), "A12"),
     (lambda: T.check_supported(dataclasses.replace(
         get_smoke_config("smollm-360m"), layer_pattern=("rec",))), "A9"),
-    (lambda: api.GemmSpec(b_quant=True, tune=True), "A10"),
     (lambda: T.check_supported(dataclasses.replace(
         get_smoke_config("qwen3-moe-235b-a22b"), layer_pattern=("ssm",))),
      "A9"),
-    (lambda: api.GemmSpec(tune=True), "A10"),
-    (lambda: ops.gemm(torch.zeros((2, 4)), torch.zeros((4, 3)),
-                      tune=True), "A10"),
 ])
 def test_what_the_port_does_not_run_yet_raises(make, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP queue {item}"):
         make()
+
+
+@pytest.mark.parametrize("make", [
+    lambda: ops.plan(api.GemmSpec(b_quant=True, tune=True), (2, 4, 3)),
+    lambda: ops.plan(api.GemmSpec(tune=True), (2, 4, 3)),
+    lambda: ops.gemm(torch.zeros((2, 4)), torch.zeros((4, 3)), tune=True),
+])
+def test_tuned_specs_plan_without_a_card(make, monkeypatch, tmp_path):
+    """Measured tuning (queue A10) is ported: a tuned spec plans.  The
+    search measures on the card; without one nothing is measured and the
+    plan stays analytic (it never falls back to timing the CPU)."""
+    from repro_torch.tune import autotune, cache
+    monkeypatch.setenv("REPRO_TUNE_CACHE", str(tmp_path / "tc.json"))
+    monkeypatch.setattr(autotune, "_device", None)
+    cache.tuning_cache_reset()
+    ops.plan_cache_clear()
+    try:
+        if torch.cuda.is_available():
+            make()
+        else:
+            with pytest.warns(UserWarning, match="none is available"):
+                make()
+            assert all(p.source == "analytic" for p in ops.plans())
+            assert cache.tuning_cache_info().measurements == 0
+    finally:
+        cache.tuning_cache_reset()
+        ops.plan_cache_clear()
 
 
 def test_explicit_unlaunchable_tb_tile_raises_at_plan_time():
