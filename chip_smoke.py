@@ -118,7 +118,25 @@ Phases (any failure raises and the script exits non-zero):
    unbroken run's within that spread; the directory is deleted; phase
    7b's run records telemetry: one ``train.step`` span a step within 5 %
    of the step's wall ms;
-8. with smollm-360m freed, qwen3-moe-235b-a22b at full width with its
+7d. with smollm-360m freed, h2o-danube-3-4b at full width and depth
+   (bf16, random weights from seed 0; a sliding window of 4096): phase
+   5's dense and paged serve runs with 8 slots of 8192 positions (the
+   dense cache a 4096-slot ring), on the serve trace plus a 4000-token
+   prompt with 160 new tokens (the ring wraps while it decodes) and a
+   5000-token prompt with 32 (its prefill keeps the ring's tail), the
+   paged run in 512-token chunks; every executed GEMM and attention plan
+   (B3 prefill, B4 over the ring at positions clamped to 4095, B5 with
+   the window) accounts for the launches; the decode step timed with
+   every slot at position 5000, beside its byte bound; continuous ==
+   solo greedy through the ring, paged == paged solo greedy, and the
+   5000-token prompt's chunked == unchunked == dense prefill, bit for
+   bit; the ring's decode logits against a full 8192-slot cache's
+   (B4 masking the window) within the bf16 tolerance; the three
+   attention families' plans (``explain()`` and ``attn.plan``); the
+   kernel phase holds B3 at the 5000-token windowed prefill, B4 at the
+   ring's clamped positions and B5 with the window past position 4096,
+   and h2o's GEMMs on B1 / B2 / B6, against their plain versions;
+8. with h2o-danube-3-4b freed, qwen3-moe-235b-a22b at full width with its
    depth cut to 4 layers (printed with the reason; random weights from
    seed 0): phases 5 and 6 again, dense and paged, every MoE layer
    launching B7 three times a pass and no plain version running; its
@@ -152,7 +170,8 @@ Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
 sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
 splits each count by model and mode; each entry's times sum the step
 its ``timed_on`` names, a ``qwen3-moe-235b-a22b`` key holds the 4-layer
-MoE step's, a ``train`` key the full-width training step's (B7's: the
+MoE step's, an ``h2o-danube-3-4b`` key h2o's decode step (B3: its
+5000-token prefill), a ``train`` key the full-width training step's (B7's: the
 MoE training layer-step's), a ``train qwen3-moe-235b-a22b`` key B1's and
 B6's f32 router GEMMs of that step, and the
 four GEMMs' ``int8`` objects hold their int8 cases, ``... tuned`` paths
@@ -197,7 +216,7 @@ from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain)
 from repro_torch.kernels.gemm_aie import gemm_aie, gemm_aie_plain  # noqa
-from repro_torch.kernels import api  # noqa: E402
+from repro_torch.kernels import api, attn_api  # noqa: E402
 from repro_torch.kernels.gemm_gated import (  # noqa: E402
     cta_tile as gated_cta_tile, gemm_gated, gemm_gated_plain)
 from repro_torch.kernels.gemm_grouped import (  # noqa: E402
@@ -285,6 +304,19 @@ MOE_TIMED_ON = {
     "flash_decode": "one 8-slot decode step",
     "flash_decode_paged": "one 8-slot decode step",
 }
+#: the same for h2o-danube-3-4b at full width, under its own key
+H2O_TIMED_ON = {
+    "gemm_aie": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+                "planner gives this kernel",
+    "gemm_tb": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+               "planner gives this kernel",
+    "gemm_gated": "one 8-slot decode step",
+    "flash_attention": "one 5000-token prefill (window 4096)",
+    "flash_decode": "one 8-slot decode step over the 4096-slot rings "
+                    "(positions clamped to 4095)",
+    "flash_decode_paged": "one 8-slot decode step, window 4096, slots past "
+                          "position 4096",
+}
 #: the same for qwen3-moe-235b-a22b's full-width 1-layer training step
 MOE_TRAIN_TIMED_ON = {
     "gemm_grouped": "qwen3-moe-235b-a22b training at 1 layer: one "
@@ -302,6 +334,24 @@ MOE_TRAIN_TIMED_ON = {
 #: many layers: 94 layers of bf16 weights (about 470 GB) do not fit one
 #: 80 GB card, 4 (about 22.4 GB) do
 MOE_LAYERS = 4
+#: the windowed model, served at full width and depth (about 7.9 GB of
+#: bf16 weights)
+H2O = "h2o-danube-3-4b"
+#: positions a slot may take: twice the 4096-token window, so the dense
+#: cache is a 4096-slot ring and the pool pages 8192 positions a slot
+H2O_MAX_LEN = 8192
+#: the long requests added to the serve trace: a 4000-token prompt whose
+#: 160 new tokens wrap the ring, a 5000-token prompt whose prefill keeps
+#: the ring's tail
+H2O_LONG = ((4000, 160), (5000, 32))
+#: the paged trace's prefill chunk
+H2O_CHUNK = 512
+#: every slot of the timed decode step decodes here, past the window
+H2O_STEP_POS = 5000
+#: the ring-against-full-cache gate: its slots' prompt lengths (all past
+#: the window) and the teacher-forced steps compared
+H2O_RING_PROMPTS = (4096, 4100, 4500, 4700, 5000, 5500, 6000, 6100)
+H2O_RING_STEPS = 4
 
 
 def gemms_per_pass(cfg) -> int:
@@ -447,6 +497,44 @@ def moe_gemm_cases():
     return out
 
 
+def h2o_gemm_cases():
+    """B1 or B6, as the HOPPER_H100 planner picks, at each dense GEMM of
+    h2o-danube-3-4b's served path and at its plan's tile: a decode step
+    of 8 slots (timed; ``h2o_weight`` = launches in one step of the
+    24-layer model), a 512-token paged chunk and a 5000-token prefill
+    (checked), and the prefill's last-token lm_head.  Returns {kernel:
+    [cases]}."""
+    bf, f32 = torch.bfloat16, torch.float32
+    cfg = get_config(H2O)
+    d, kv, ff, V, n_l = cfg.d_model, cfg.n_kv_heads * cfg.hd, cfg.d_ff, \
+        cfg.vocab, cfg.n_layers
+    shapes = []
+    for m, per_step, tag in ((8, 1, "decode"), (512, 0, "chunk"),
+                             (5000, 0, "prefill")):
+        shapes += [(f"{tag} wq {m}x{d}x{d}", per_step * n_l, m, d, d, {}),
+                   (f"{tag} wk/wv {m}x{d}x{kv}", per_step * 2 * n_l, m, d,
+                    kv, {}),
+                   (f"{tag} wo+res {m}x{d}x{d}", per_step * n_l, m, d, d,
+                    {"residual": True}),
+                   (f"{tag} down+res {m}x{ff}x{d}", per_step * n_l, m, ff,
+                    d, {"residual": True})]
+    shapes += [(f"decode lm_head 8x{d}x{V}", 1, 8, d, V,
+                {"out_dtype": f32}),
+               (f"prefill lm_head 1x{d}x{V}", 0, 1, d, V,
+                {"out_dtype": f32})]
+    out = {"gemm_aie": [], "gemm_tb": []}
+    for name, per_step, m, k, n, kw in shapes:
+        spec = ops.GemmSpec(out_dtype=kw.get("out_dtype", bf),
+                            epilogue=ops.Epilogue(
+                                residual=kw.get("residual", False)))
+        tile = ops.plan(spec, (m, k, n)).tile
+        tb = tile.strategy == "tb"
+        out["gemm_tb" if tb else "gemm_aie"].append(gemm_case(
+            "h2o " + name, 0, m, k, n, bf, tb=tb, tile=tile if tb else None,
+            h2o_weight=per_step, timed=per_step > 0, **kw))
+    return out
+
+
 def gated_case(name, weight, m, k, n, dtype, **extra):
     def make():
         return (rand((m, k), dtype), rand((k, n), dtype, k ** -0.5),
@@ -469,8 +557,15 @@ def attn_case(name, weight, b, s, hq, hkv, d, dtype, *, skv=None,
               causal=True, window=0, **extra):
     """B3 on q (b, s, hq, d) against ``skv`` keys (default s; the
     q_offset is skv - s); the library yardstick is SDPA where one call
-    computes the function (causal or not, no window, skv == s)."""
+    computes the function (skv == s; a window as a boolean mask made
+    once, outside the timed calls).  The operations count the (q, key)
+    pairs the mask keeps."""
     skv = skv or s
+    mask = None
+    if window:
+        rows = torch.arange(s, device="cuda")[:, None] + (skv - s)
+        keys = torch.arange(skv, device="cuda")[None, :]
+        mask = (keys <= rows) & (keys > rows - window)
 
     def make():
         return (rand((b, s, hq, d), dtype), rand((b, skv, hkv, d), dtype),
@@ -480,15 +575,19 @@ def attn_case(name, weight, b, s, hq, hkv, d, dtype, *, skv=None,
     def library(q, k, v, causal, window):
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=causal, enable_gqa=True)
+            attn_mask=mask, is_causal=causal and mask is None,
+            enable_gqa=True)
+
+    pairs = attn_api.AttnProblem(mode="prefill", b=b, sq=s, skv=skv, hq=hq,
+                                 hkv=hkv, d=d, causal=causal,
+                                 window=window).attended()
 
     def cost(args, kw):
         q, k, v = args
-        pairs = b * s * (s + 1) / 2                 # causal (q, k) pairs
         return nbytes(q, k, v, q), 4.0 * hq * d * pairs
     shape = attn_cta_shape(b, s, hq, hkv, d, dtype)
     return dict(name=name, weight=weight, dtype=dtype, make=make,
-                library=library if skv == s and not window else None,
+                library=library if skv == s else None,
                 cost=cost, body=f"{shape.body}, {shape.rows} rows x "
                 f"{shape.ctas} CTAs, head padded to {shape.head_dim}",
                 **extra)
@@ -506,32 +605,46 @@ def decode_body(pos, length, hq, hkv, d, dtype, window=0):
             f"CTAs, head padded to {g.head_dim}")
 
 
-def decode_case(name, weight, pos, S, hq, hkv, d, dtype):
+def _visible_keys(pos, S, window):
+    """Keys the slots at ``pos`` see in a cache of ``S`` keys, summed."""
+    return sum(len(range(max(0, p - window + 1) if window else 0,
+                         min(S, p + 1))) for p in pos)
+
+
+def _decode_mask(p, S, window):
+    keys = torch.arange(S, device="cuda")[None, :]
+    mask = keys <= p[:, None]
+    if window:
+        mask &= keys > p[:, None] - window
+    return mask[:, None, None, :]
+
+
+def decode_case(name, weight, pos, S, hq, hkv, d, dtype, *, window=0,
+                **extra):
     b = len(pos)
 
     def make():
         p = torch.as_tensor(pos, dtype=torch.int32, device="cuda")
         return (rand((b, hq, d), dtype), rand((b, S, hkv, d), dtype),
-                rand((b, S, hkv, d), dtype), p), {}
+                rand((b, S, hkv, d), dtype), p), {"window": window}
 
-    def library(q, k, v, p):
-        mask = torch.arange(S, device="cuda")[None, :] <= p[:, None]
+    def library(q, k, v, p, window):
         return F.scaled_dot_product_attention(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask[:, None, None, :], enable_gqa=True)[:, :, 0]
+            attn_mask=_decode_mask(p, S, window), enable_gqa=True)[:, :, 0]
 
     def cost(args, kw):
         q = args[0]
-        keys = sum(min(p, S - 1) + 1 for p in pos)  # rows each slot reads
+        keys = _visible_keys(pos, S, window)        # rows the slots read
         row = hkv * d * q.element_size()
         return nbytes(q, q) + 2 * keys * row, 4.0 * hq * d * keys
     return dict(name=name, weight=weight, dtype=dtype, make=make,
                 library=library, cost=cost,
-                body=decode_body(pos, S, hq, hkv, d, dtype))
+                body=decode_body(pos, S, hq, hkv, d, dtype, window), **extra)
 
 
 def paged_case(name, weight, pos, ps, max_pages, hq, hkv, d, dtype, *,
-               window=0, sink_row=None):
+               window=0, sink_row=None, **extra):
     """Decode over a pool of 1 + slots * max_pages pages, each slot's
     table a random permutation of physical pages (page 0, the sink,
     stays out of live tables; ``sink_row`` gets an all-sink table)."""
@@ -554,19 +667,18 @@ def paged_case(name, weight, pos, ps, max_pages, hq, hkv, d, dtype, *,
         two, the gather and scaled_dot_product_attention."""
         k = k_pages[table.long()].reshape(b, S, hkv, d)
         v = v_pages[table.long()].reshape(b, S, hkv, d)
-        mask = torch.arange(S, device="cuda")[None, :] <= p[:, None]
         return F.scaled_dot_product_attention(
             q[:, :, None], k.transpose(1, 2), v.transpose(1, 2),
-            attn_mask=mask[:, None, None, :], enable_gqa=True)[:, :, 0]
+            attn_mask=_decode_mask(p, S, window), enable_gqa=True)[:, :, 0]
 
     def cost(args, kw):
         q, table = args[0], args[3]
-        keys = sum(min(p, S - 1) + 1 for p in pos)  # rows each slot reads
+        keys = _visible_keys(pos, S, window)        # rows the slots read
         row = hkv * d * q.element_size()
         return nbytes(q, q, table) + 2 * keys * row, 4.0 * hq * d * keys
     return dict(name=name, weight=weight, dtype=dtype, make=make,
                 library=None, two_calls=gather_sdpa, cost=cost,
-                body=decode_body(pos, S, hq, hkv, d, dtype, window))
+                body=decode_body(pos, S, hq, hkv, d, dtype, window), **extra)
 
 
 def routed_sizes(tokens, n_experts, top_k, cap, seed):
@@ -695,6 +807,7 @@ def check_kernel(name, cases):
                 f"max abs err {err.max().item():.3e}")
         row = {"case": case["name"], "weight": case["weight"],
                "moe_weight": case.get("moe_weight", 0),
+               "h2o_weight": case.get("h2o_weight", 0),
                "max_abs_err": err.max().item()}
         if "body" in case:
             row["body"] = case["body"]
@@ -764,6 +877,11 @@ def kernel_phase():
     d, hq, hkv, ff, V = 960, 15, 5, 2560, 49152
     pos = [17, 40, 95, 160, 210, 300, 333, 363]
     moe_gemms = moe_gemm_cases()
+    h2o = get_config(H2O)
+    h2o_gemms = h2o_gemm_cases()
+    hh = dict(hq=h2o.n_heads, hkv=h2o.n_kv_heads, d=h2o.hd)
+    ring = h2o.window                   # the dense cache's ring slots
+    h2o_pos = [5, 900, 4095, 4096, 4097, 5000, 6100, 8000]
     plan = {
         # weights = launches of that shape in one decode step (8 slots)
         "gemm_aie": [
@@ -798,7 +916,7 @@ def kernel_phase():
                       bf, timed=True),
             gemm_case("qwen3 prefill wo+res 300x8192x4096", 0, 300, 8192,
                       4096, bf, residual=True, timed=True),
-        ] + moe_gemms["gemm_aie"],
+        ] + moe_gemms["gemm_aie"] + h2o_gemms["gemm_aie"],
         # weights: the decode step's non-gated GEMMs, as for gemm_aie, so
         # the two dataflows' sums compare on one shape set
         "gemm_tb": [
@@ -819,7 +937,7 @@ def kernel_phase():
                       residual=True, tb=True),
             gemm_case("edge f32 37x200x131 bias+silu+res", 0, 37, 200, 131,
                       f32, residual=True, bias=True, act="silu", tb=True),
-        ] + moe_gemms["gemm_tb"],
+        ] + moe_gemms["gemm_tb"] + h2o_gemms["gemm_tb"],
         "gemm_gated": [
             gated_case("decode gate/up 8x960x2560", 32, 8, d, ff, bf),
             # a 300-token prefill, timed beside silu(a@bg)*(a@bu)
@@ -832,6 +950,14 @@ def kernel_phase():
             gated_case("edge 7x131x77 k % 16 != 0", 0, 7, 131, 77, bf),
             gated_case("edge 37x200x131 ragged 64x64", 0, 37, 200, 131, bf),
             gated_case("edge f32 3x60x160", 0, 3, 60, 160, f32),
+            # h2o-danube-3-4b: h2o_weight = launches in one decode step
+            gated_case(f"h2o decode gate/up 8x{h2o.d_model}x{h2o.d_ff}", 0,
+                       8, h2o.d_model, h2o.d_ff, bf, timed=True,
+                       h2o_weight=h2o.n_layers),
+            gated_case(f"h2o chunk gate/up 512x{h2o.d_model}x{h2o.d_ff}", 0,
+                       512, h2o.d_model, h2o.d_ff, bf),
+            gated_case(f"h2o prefill gate/up 5000x{h2o.d_model}x"
+                       f"{h2o.d_ff}", 0, 5000, h2o.d_model, h2o.d_ff, bf),
         ],
         "flash_attention": [
             # weights = launches in one 300-token prefill
@@ -855,6 +981,14 @@ def kernel_phase():
             # launches in one prefill / decode step of the 4-layer model
             dict(attn_case("qwen3 prefill 1x300 h64/4 d128", 0, 1, 300, 64,
                            4, 128, bf), timed=True, moe_weight=MOE_LAYERS),
+            # h2o-danube-3-4b's window: a 5000-token prompt past it
+            # (h2o_weight = launches in one prefill) and its last
+            # 512-token paged chunk
+            attn_case("h2o prefill 1x5000 h32/8 d120 window 4096", 0, 1,
+                      5000, dtype=bf, window=h2o.window, timed=True,
+                      h2o_weight=h2o.n_layers, **hh),
+            attn_case("h2o chunk 512 of 5000 h32/8 d120 window 4096", 0, 1,
+                      512, dtype=bf, skv=5000, window=h2o.window, **hh),
         ],
         "flash_decode": [
             decode_case("decode 8 slots S1024 h15/5 d64", 32, pos, 1024,
@@ -864,6 +998,15 @@ def kernel_phase():
             dict(decode_case("qwen3 decode 8 slots S1024 h64/4 d128", 0, pos,
                              1024, 64, 4, 128, bf), timed=True,
                  moe_weight=MOE_LAYERS),
+            # h2o-danube-3-4b: the dense ring decode (4096 slots at
+            # positions clamped to 4095, no window; h2o_weight = launches
+            # in one decode step) and a full-length cache with the window
+            decode_case("h2o ring decode 8 slots S4096 h32/8 d120, "
+                        "positions clamped", 0,
+                        [min(p, ring - 1) for p in h2o_pos], ring,
+                        dtype=bf, timed=True, h2o_weight=h2o.n_layers, **hh),
+            decode_case("h2o decode 8 slots S8192 h32/8 d120 window 4096",
+                        0, h2o_pos, 8192, dtype=bf, window=h2o.window, **hh),
         ],
         "flash_decode_paged": [
             paged_case("decode 8 slots 64x16 h15/5 d64", 32, pos, 16, 64,
@@ -874,6 +1017,9 @@ def kernel_phase():
             dict(paged_case("qwen3 decode 8 slots 64x16 h64/4 d128", 0, pos,
                             16, 64, 64, 4, 128, bf), timed=True,
                  moe_weight=MOE_LAYERS),
+            paged_case("h2o decode 8 slots 512x16 h32/8 d120 window 4096",
+                       0, h2o_pos, 16, 512, dtype=bf, window=h2o.window,
+                       timed=True, h2o_weight=h2o.n_layers, **hh),
         ],
         # weights = launches in one decode step of the 4-layer MoE
         "gemm_grouped": grouped_cases(),
@@ -1614,8 +1760,10 @@ class PlanRecorder:
 
     def __enter__(self):
         self.plans = {}
+        self.attn_plans = {}          # attention plans, apart
         self.group_sizes = None       # the first grouped launch's sizes
         self._launch = api._launch
+        self._attn_launch = attn_api._launch
 
         def record(pl, *args, **kw):
             if tune_measure.measuring():    # a tuner's sample, not a step
@@ -1625,19 +1773,33 @@ class PlanRecorder:
                 self.group_sizes = args[5] if len(args) > 5 \
                     else kw["group_sizes"]
             return self._launch(pl, *args, **kw)
+
+        def record_attn(pl, *args):
+            self.attn_plans[pl] = self.attn_plans.get(pl, 0) + 1
+            return self._attn_launch(pl, *args)
         api._launch = record
+        attn_api._launch = record_attn
         return self
 
     def __exit__(self, *exc):
         api._launch = self._launch
+        attn_api._launch = self._attn_launch
 
-    def implied(self):
-        """Launches the executed plans imply, by counter."""
+    @staticmethod
+    def _sum(plans):
         out = {}
-        for pl, times in self.plans.items():
+        for pl, times in plans.items():
             for name, n in pl.launches.items():
                 out[name] = out.get(name, 0) + times * n
         return out
+
+    def implied(self):
+        """Launches the executed GEMM plans imply, by counter."""
+        return self._sum(self.plans)
+
+    def attn_implied(self):
+        """Launches the executed attention plans imply, by counter."""
+        return self._sum(self.attn_plans)
 
 
 def serve_trace(cfg):
@@ -1656,21 +1818,25 @@ def shared_prefix_requests(cfg, prefix_len, tail_len, max_tokens, seed):
         max_tokens=max_tokens) for _ in range(2)]
 
 
-def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None):
-    """Serve the trace through the dense engine or, ``paged``, through
-    the paged one (16-token pages, 64-token chunks, prefix cache on)
-    with two shared-prefix requests added.  The kernel counts are set to
-    0 just before the run and read just after; a MoE model must launch
-    B7 three times a layer a pass.  With ``telemetry_base`` the trace is
-    served again with telemetry on (:func:`telemetry_run`).  The tokens
-    by trace position and the executed plans ride the result under
-    ``_tokens`` / ``_plans`` (the caller pops them before the JSON)."""
-    trace = serve_trace(cfg)
-    kw = dict(page_size=16, prefill_chunk=64) if paged else {}
+def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None,
+                trace=None, max_len=1024, chunk=64):
+    """Serve the trace (default :func:`serve_trace`) through the dense
+    engine or, ``paged``, through the paged one (16-token pages,
+    ``chunk``-token chunks, prefix cache on) with two shared-prefix
+    requests added, 8 slots of ``max_len`` positions.  The kernel counts
+    are set to 0 just before the run and read just after, and must equal
+    what the executed GEMM and attention plans imply; a MoE model must
+    launch B7 three times a layer a pass.  With ``telemetry_base`` the
+    trace is served again with telemetry on (:func:`telemetry_run`).
+    The tokens by trace position and the executed plans ride the result
+    under ``_tokens`` / ``_plans`` (the caller pops them before the
+    JSON)."""
+    trace = list(trace or serve_trace(cfg))
+    kw = dict(page_size=16, prefill_chunk=chunk) if paged else {}
     if paged:
         trace += shared_prefix_requests(cfg, 64, 20, 32, seed=8)
-    engine = DecodeEngine(params, cfg, batch=8, max_len=1024, device="cuda",
-                          **kw)
+    engine = DecodeEngine(params, cfg, batch=8, max_len=max_len,
+                          device="cuda", **kw)
     engine.run([Request(prompt=trace[0].prompt[:5], max_tokens=2)])  # warm-up
     engine.reset_metrics()
     if mode == "tuning":            # what only the search pass measures
@@ -1708,6 +1874,11 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None):
     if want["gemm_grouped"] != 3 * n_moe * passes:
         raise RuntimeError(f"{want['gemm_grouped']} grouped GEMMs planned, "
                            f"expected 3 x {n_moe} MoE layers x {passes}")
+    attn_want = rec.attn_implied()
+    if any(attn_want.get(k, 0) != want[k] for k in
+           ("flash_attention", "flash_decode", "flash_decode_paged")):
+        raise RuntimeError(f"attention plans executed imply {attn_want}, "
+                           f"the passes {want}")
     if launches != want or any(plain.values()):
         raise RuntimeError(f"{'paged' if paged else 'dense'} path launches "
                            f"{launches} (expected {want}), plain versions "
@@ -1716,11 +1887,15 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None):
     for pl, times in rec.plans.items():
         key = f"{pl.kernel} m={pl.m} {pl.k}x{pl.n}"
         by_kernel[key] = by_kernel.get(key, 0) + times
+    attn_by_plan = {}
+    for pl, times in rec.attn_plans.items():
+        key = f"{pl.spec.key}@{pl.shape_key}->{pl.kernel}"
+        attn_by_plan[key] = attn_by_plan.get(key, 0) + times
     if paged and (m["prefix_hits"] < 1
-                  or m["max_prefill_stall_tokens"] > 64):
+                  or m["max_prefill_stall_tokens"] > chunk):
         raise RuntimeError(f"paged serve: {m['prefix_hits']} prefix hits, "
                            f"max stall {m['max_prefill_stall_tokens']} "
-                           "tokens (want >= 1 hit, <= 64 tokens)")
+                           f"tokens (want >= 1 hit, <= {chunk} tokens)")
     by_rid = {r.rid: r for r in results}
     for req in trace:
         r = by_rid[req.rid]
@@ -1739,6 +1914,7 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None):
            "ttft_p99_ms": float(np.percentile(ttft, 99) * 1e3),
            "occupancy": engine.occupancy(), "launches": launches,
            "gemm_plans_executed": by_kernel,
+           "attn_plans_executed": attn_by_plan,
            "plain_launches": plain, "prefill_chunks": prefills,
            "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     tag = ("paged serve" if paged else "serve") + f" {cfg.name}" \
@@ -1863,7 +2039,8 @@ def telemetry_run(cfg, params, trace, kw, want_tokens, base, tag):
 
 
 @torch.inference_mode()
-def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False):
+def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
+               max_len=1024, at_pos=None):
     """Device time of one 8-slot decode step (with its greedy argmax),
     from CUDA-graph replays that take the host out of the step, beside
     the same step run eagerly: one loop of REPS steps right after the
@@ -1873,15 +2050,24 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False):
     times, telemetry off and on in turns, and compares the medians of
     each mode's four loops (the first loop counts as an off one).  The
     same eight prompts sit in the dense cache or, ``paged``, in 16-token
-    pages of a pool (64 pages a slot, so the gathered length equals the
-    dense 1024)."""
+    pages of a pool (``max_len / 16`` pages a slot, so the gathered
+    length equals the dense ``max_len``).  With ``at_pos`` no prompt is
+    prefilled: every slot decodes at that position over the cache as it
+    stands (the kernels' work depends on the positions, not on the
+    values), and the step's byte bound (weights read once, each slot's
+    window of KV read once) rides the result."""
     rng = np.random.default_rng(11)
+    pages = max_len // 16
     if paged:
-        cache = T.init_paged_cache(cfg, 8, 1 + 8 * 64, 16, 64, device="cuda")
-        rows = np.arange(1, 1 + 8 * 64, dtype=np.int32).reshape(8, 64)
+        cache = T.init_paged_cache(cfg, 8, 1 + 8 * pages, 16, pages,
+                                   device="cuda")
+        rows = np.arange(1, 1 + 8 * pages, dtype=np.int32).reshape(8, pages)
     else:
-        cache = T.init_cache(cfg, 8, 1024, device="cuda")
-    for slot, p in enumerate(SERVE_PROMPT_LENS[:8]):
+        cache = T.init_cache(cfg, 8, max_len, device="cuda")
+    if at_pos is not None:
+        cache["pos"].fill_(at_pos)
+    for slot, p in enumerate(SERVE_PROMPT_LENS[:8] if at_pos is None
+                             else ()):
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, p)),
                                device="cuda")
         if paged:
@@ -1889,7 +2075,7 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False):
                                              rows[slot], 0)
         else:
             _, cache = T.prefill_into_slot(params, cfg, toks, cache, slot,
-                                           max_len=1024)
+                                           max_len=max_len)
     if paged:
         cache["page_table"].copy_(torch.as_tensor(rows))
     tok = torch.zeros((8, 1), dtype=torch.int64, device="cuda")
@@ -1920,6 +2106,13 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False):
     eager = eager_loop()
     out = {"device_ms_per_step": device, "eager_ms_per_step": eager,
            "device_idle_share": 1.0 - device / eager}
+    if at_pos is not None:
+        kv = cfg.n_layers * bandwidth.decode_kv_bytes(
+            [at_pos] * 8, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+            dtype=cfg.dtype, window=cfg.window)
+        weights = quant.gemm_weight_bytes(params)
+        out.update(at_pos=at_pos, weight_bytes=weights, kv_bytes=kv,
+                   bound_ms=(weights + kv) / PEAK_BYTES * 1e3)
     if telemetry_on:        # in turns (ABBA BAAB), as the host drifts
         order = (False, True, True, False, True, False, False, True)
         runs = [eager] + [traced_loop() if on else eager_loop()
@@ -1933,9 +2126,14 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False):
             out["eager_ms_per_step_telemetry_on"] / out["eager_ms_off_median"]
     log(f"{cfg.name} {mode or cfg.dtype} {'paged' if paged else 'dense'} "
         "decode step (8 "
-        "slots): device "
+        "slots" + (f" at position {at_pos}" if at_pos is not None else "")
+        + "): device "
         f"{device:.2f} ms (CUDA graph), eager {eager:.2f} ms; device idle "
         f"{out['device_idle_share']:.1%} of an eager step"
+        + (f"; byte bound {out['bound_ms']:.2f} ms ("
+           f"{out['weight_bytes'] / 1e9:.2f} GB of weights, "
+           f"{out['kv_bytes'] / 1e9:.2f} GB of KV)" if at_pos is not None
+           else "")
         + (f"; eager, medians of four loops each in turns, telemetry off "
            f"{out['eager_ms_off_median']:.2f} ms, on "
            f"{out['eager_ms_per_step_telemetry_on']:.2f} ms ("
@@ -2250,6 +2448,219 @@ def paged_bit_identity_phase(cfg, params, *, reference="dense"):
         f"(pages 16, chunks 16) == {reference} solo greedy at full width, "
         "2 of them sharing a 32-token prefix")
     return n
+
+
+# ------------------------------------------- windowed serving: h2o
+
+def h2o_trace(cfg):
+    """The serve trace plus :data:`H2O_LONG`'s two long requests."""
+    rng = np.random.default_rng(21)
+    return serve_trace(cfg) + [
+        Request(prompt=rng.integers(0, cfg.vocab, (p,)).astype(np.int32),
+                max_tokens=mt) for p, mt in H2O_LONG]
+
+
+def h2o_bit_identity_phase(cfg, params, dense_tokens, paged_tokens):
+    """Continuous == solo greedy through the dense ring (each request of
+    the dense trace alone at batch 1), and paged == paged solo (each
+    request of the paged trace alone on a 1-slot paged engine with the
+    same pages and chunks, prefix cache off), bit for bit."""
+    trace = h2o_trace(cfg)
+    for req, got in zip(trace, dense_tokens):
+        want = solo_greedy(params, cfg, req.prompt, req.max_tokens,
+                           H2O_MAX_LEN)
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"{cfg.name}: continuous != solo greedy for "
+                               f"a {len(req.prompt)}-token prompt: {got} vs "
+                               f"{want}")
+    paged_trace = trace + shared_prefix_requests(cfg, 64, 20, 32, seed=8)
+    for req, got in zip(paged_trace, paged_tokens):
+        (solo,) = DecodeEngine(
+            params, cfg, batch=1, max_len=H2O_MAX_LEN, page_size=16,
+            prefill_chunk=H2O_CHUNK, prefix_cache=False,
+            device="cuda").run([Request(prompt=req.prompt,
+                                        max_tokens=req.max_tokens)])
+        if not np.array_equal(got, solo.tokens):
+            raise RuntimeError(f"{cfg.name}: paged != paged solo greedy for "
+                               f"a {len(req.prompt)}-token prompt: {got} vs "
+                               f"{solo.tokens}")
+    log(f"bit identity ({cfg.name}): {len(trace)} requests continuous == "
+        f"solo greedy through the {cfg.window}-slot ring, "
+        f"{len(paged_trace)} paged == paged solo greedy (pages 16, chunks "
+        f"{H2O_CHUNK}), at full width")
+    return {"dense_requests": len(trace), "paged_requests": len(paged_trace)}
+
+
+@torch.inference_mode()
+def h2o_chunked_phase(cfg, params):
+    """Chunked == unchunked == dense prefill, bit for bit: the 5000-token
+    prompt into a 1-slot pool in :data:`H2O_CHUNK`-token chunks and in
+    one chunk (the last logits and every layer's pool pages), and into
+    the dense ring by ``prefill`` (the last logits)."""
+    rng = np.random.default_rng(22)
+    n = H2O_LONG[1][0]
+    toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)),
+                           device="cuda")
+    pages = H2O_MAX_LEN // 16
+    row = np.arange(1, 1 + pages, dtype=np.int32)
+    used = torch.as_tensor(row[:-(-n // 16)], device="cuda").long()
+    runs = []
+    for chunk in (H2O_CHUNK, n):
+        cache = T.init_paged_cache(cfg, 1, 1 + pages, 16, pages,
+                                   device="cuda")
+        for start in range(0, n, chunk):
+            logits, cache = T.prefill_paged_chunk(
+                params, cfg, toks[:, start:start + chunk], cache, 0, row,
+                start)
+        runs.append((logits, [kv[name][:, used] for kv in
+                              cache["layers"].values() for name in "kv"]))
+        del cache
+    dense, _ = T.prefill(params, cfg, toks,
+                         T.init_cache(cfg, 1, H2O_MAX_LEN, device="cuda"))
+    (a, pa), (b, pb) = runs
+    if not (torch.equal(a, b) and torch.equal(a, dense)
+            and all(torch.equal(x, y) for x, y in zip(pa, pb))):
+        raise RuntimeError(f"{cfg.name}: chunked != unchunked prefill of "
+                           f"{n} tokens")
+    log(f"chunked == unchunked prefill ({cfg.name}): {n} tokens in chunks "
+        f"of {H2O_CHUNK} == one chunk == the dense ring's prefill, logits "
+        "and pool pages bit for bit")
+    return {"prompt": n, "chunk": H2O_CHUNK}
+
+
+@torch.inference_mode()
+def h2o_ring_phase(cfg, params):
+    """The dense ring against a full-length cache that B4 masks to the
+    window: 8 slots prefilled with prompts past the window
+    (:data:`H2O_RING_PROMPTS`) into the 4096-slot ring and into an
+    8192-slot cache, then :data:`H2O_RING_STEPS` teacher-forced decode
+    steps on each.  The same keys are summed in another order, and 24
+    bf16 layers carry one rounding's change on: each row's logits must
+    agree within the bf16 tolerance relative to the row's largest logit
+    (max |ring - full| <= 2e-2 max |full|).  The elementwise error, the
+    share of logits off by more than 2e-2 + 2e-2 |logit|, the relative
+    L2 error and the greedy tokens' agreement are recorded beside it."""
+    rng = np.random.default_rng(23)
+    full_cfg = dataclasses.replace(cfg, window=0)   # a cache of max_len
+    ring = T.init_cache(cfg, 8, H2O_MAX_LEN, device="cuda")
+    full = T.init_cache(full_cfg, 8, H2O_MAX_LEN, device="cuda")
+    if ring["layers"]["u0"]["k"].shape[2] != cfg.window \
+            or full["layers"]["u0"]["k"].shape[2] != H2O_MAX_LEN:
+        raise RuntimeError("ring phase: the caches have the wrong length")
+    for slot, p in enumerate(H2O_RING_PROMPTS):
+        toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, p)),
+                               device="cuda")
+        _, ring = T.prefill_into_slot(params, cfg, toks, ring, slot,
+                                      max_len=H2O_MAX_LEN)
+        _, sub = T.prefill(params, cfg, toks, T.init_cache(
+            full_cfg, 1, H2O_MAX_LEN, device="cuda"))
+        T.insert_cache_slot(full, sub, slot)
+        del sub
+    tol = TOL[torch.bfloat16]
+    rows = []
+    for i in range(H2O_RING_STEPS):
+        tok = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 1)),
+                              device="cuda")
+        got, ring = T.decode_step(params, cfg, tok, ring)
+        want, full = T.decode_step(params, cfg, tok, full)
+        err = (got - want).abs()
+        scale = want.abs().max(-1).values
+        row = {"max_abs_err": err.max().item(),
+               "max_abs_logit": scale.max().item(),
+               "rel_err": (err.max(-1).values / scale).max().item(),
+               "rel_l2_err": ((got - want).norm(dim=-1)
+                              / want.norm(dim=-1)).max().item(),
+               "share_off_elementwise": (err > tol + tol * want.abs())
+               .float().mean().item(),
+               "argmax_agree": (got.argmax(-1) == want.argmax(-1))
+               .float().mean().item()}
+        rows.append(row)
+        if not torch.isfinite(got).all() or row["rel_err"] > tol:
+            raise RuntimeError(f"{cfg.name}: ring decode step {i} off the "
+                               f"full cache's: {row}")
+    def each(key, fmt):
+        return ", ".join(format(r[key], fmt) for r in rows)
+    log(f"ring vs full cache ({cfg.name}): {H2O_RING_STEPS} decode steps of "
+        f"8 slots at positions {H2O_RING_PROMPTS[0]}-"
+        f"{H2O_RING_PROMPTS[-1] + H2O_RING_STEPS - 1}: max |ring - full| / "
+        f"max |full| {each('rel_err', '.3e')} (gate {tol}); max abs err "
+        f"{each('max_abs_err', '.3e')} of logits up to "
+        f"{max(r['max_abs_logit'] for r in rows):.2f}; greedy tokens agree "
+        f"{each('argmax_agree', '.3f')}")
+    return {"positions": list(H2O_RING_PROMPTS), "steps": rows, "tol": tol}
+
+
+def h2o_plan_phase(cfg):
+    """The three attention families' plans at h2o's serving shapes (the
+    serve phases resolved them: ``attn.plan`` hits), with ``explain()``
+    and the ``attn.plan`` records."""
+    g = cfg.n_heads // cfg.n_kv_heads
+    heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
+    prompt = H2O_LONG[1][0]
+    rec = telemetry.enable(telemetry.Recorder())
+    try:
+        plans = {
+            "prefill": ops.attn_plan(
+                ops.AttnSpec(window=cfg.window, group=g),
+                (1, prompt, prompt) + heads),
+            "decode (ring)": ops.attn_plan(
+                ops.AttnSpec(mode="decode", group=g),
+                (8, cfg.window) + heads),
+            "decode_paged": ops.attn_plan(
+                ops.AttnSpec(mode="decode_paged", window=cfg.window,
+                             group=g), (8, H2O_MAX_LEN // 16, 16) + heads),
+        }
+    finally:
+        telemetry.disable()
+    for name, pl in plans.items():
+        log(f"{cfg.name} attention plan, {name}:\n{pl.explain()}")
+    return {"explain": {n: pl.explain() for n, pl in plans.items()},
+            "attn_plan_events": [e["attrs"] for e in rec.events
+                                 if e["name"] == "attn.plan"]}
+
+
+def h2o_phases(card):
+    """h2o-danube-3-4b at full width and depth (bf16, random weights from
+    seed 0): the dense-ring and paged serve phases on the trace with the
+    two long requests, each with its launches equal to the executed
+    plans; the decode step at position :data:`H2O_STEP_POS`, dense and
+    paged; then the bitwise gates, the ring against a full cache, and
+    the attention plans."""
+    cfg = get_config(H2O)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, gen, device="cuda")
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _leaves(params)) / 1e9
+    log(f"{cfg.name}: full width and depth ({cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.hd}, "
+        f"window {cfg.window}, bf16): {weights_gb:.2f} GB of weights made "
+        f"from seed 0 in {time.perf_counter() - t0:.1f} s; the dense cache "
+        f"is a ring of {T.cache_len(cfg, H2O_MAX_LEN)} slots, the pool "
+        f"pages {H2O_MAX_LEN} positions a slot [{card}]")
+    trace = h2o_trace(cfg)
+    torch.cuda.reset_peak_memory_stats()
+    dense = serve_phase(cfg, params, paged=False, trace=trace,
+                        max_len=H2O_MAX_LEN)
+    torch.cuda.reset_peak_memory_stats()
+    paged = serve_phase(cfg, params, paged=True, trace=trace,
+                        max_len=H2O_MAX_LEN, chunk=H2O_CHUNK)
+    dense.pop("_plans")
+    paged.pop("_plans")
+    dense["step"] = step_phase(cfg, params, paged=False,
+                               max_len=H2O_MAX_LEN, at_pos=H2O_STEP_POS)
+    paged["step"] = step_phase(cfg, params, paged=True, max_len=H2O_MAX_LEN,
+                               at_pos=H2O_STEP_POS)
+    out = {"config": cfg.name, "weights_gb": weights_gb, "serve": dense,
+           "paged_serve": paged,
+           "bit_identity": h2o_bit_identity_phase(
+               cfg, params, dense.pop("_tokens"), paged.pop("_tokens")),
+           "chunked_prefill": h2o_chunked_phase(cfg, params),
+           "ring_vs_full_cache": h2o_ring_phase(cfg, params),
+           "plans": h2o_plan_phase(cfg)}
+    del params
+    torch.cuda.empty_cache()
+    return out
 
 
 @torch.inference_mode()
@@ -3078,6 +3489,8 @@ def main() -> None:
     del qparams
     torch.cuda.empty_cache()
 
+    h2o = h2o_phases(card)
+
     full = get_config("qwen3-moe-235b-a22b")
     moe_cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
     log(f"{full.name}: full width (d {full.d_model}, {full.n_heads}/"
@@ -3135,6 +3548,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
+             H2O: (h2o["serve"], h2o["paged_serve"]),
              "operator_api": (api_run,), "train": (train_run,),
              f"train {full.name}": (moe_train,)}
     for name, run in tuned.items():         # the tuned plans' serve run
@@ -3171,6 +3585,9 @@ def main() -> None:
             "max_abs_err": worst, **times(total, TIMED_ON[name])}
         if moe_total is not None and name != "gemm_grouped":
             entry[moe_cfg.name] = times(moe_total, MOE_TIMED_ON[name])
+        h2o_total = weighted(rows, "h2o_weight")
+        if h2o_total is not None:
+            entry[H2O] = times(h2o_total, H2O_TIMED_ON[name])
         if name in train_checked:
             _, t_worst, t_total, _ = train_checked[name]
             entry["max_abs_err"] = max(worst, t_worst)
@@ -3232,6 +3649,7 @@ def main() -> None:
                 "paged_bit_identity_requests": moe_paged_bit,
                 "paged_bit_identity_reference": "paged solo",
                 "int8": moe_int8},
+        "h2o": h2o,
         "train": train_run, "train_cross_device": train_cross,
         "train_cases": {n: rows for n, (rows, *_) in train_checked.items()},
         "resume": resume, "moe_train": moe_train,
@@ -3254,13 +3672,15 @@ def main() -> None:
         (out_dir / "ptxas.log").write_text(_build.build_log)
     log("kernels line: ms / plain_ms / bound_ms / library_ms are summed "
         "over the shapes of the step each entry's timed_on names, the "
-        f"{moe_cfg.name} key holds the same for the 4-layer MoE, the "
+        f"{moe_cfg.name} key holds the same for the 4-layer MoE, the {H2O} "
+        "key for h2o's decode step (B3: its 5000-token prefill), the "
         "train key for one full-width smollm-360m training step (B7: one "
         f"layer-step of {full.name} training), the train {full.name} key "
         "B1's and B6's f32 router GEMMs of that step, and each GEMM's int8 "
         "object the same for its int8 cases by mode; launches sum the "
-        "dense and paged serve runs of both models in bf16, W8A16 and "
-        "W8A8, the operator-API phase and both training runs "
+        "dense and paged serve runs of the three models (smollm-360m and "
+        "qwen3-moe in bf16, W8A16 and W8A8), the operator-API phase and "
+        "both training runs "
         "(launches_by_path splits them)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

@@ -13,7 +13,7 @@ import importlib
 from typing import Dict, Optional, Tuple
 
 #: architectures with a config module in this package
-ARCH_IDS = ("smollm-360m", "qwen3-moe-235b-a22b")
+ARCH_IDS = ("smollm-360m", "qwen3-moe-235b-a22b", "h2o-danube-3-4b")
 
 # Layer kinds usable in ``layer_pattern`` (the JAX package's vocabulary;
 # the port's model code serves 'attn' and 'moe' so far):

@@ -11,6 +11,13 @@ continuous-batching engine on the CUDA card (or on the CPU when asked).
     PYTHONPATH=src python -m repro_torch.launch.serve --arch smollm-360m \
         --smoke --page-size 16 --prefill-chunk 8 --device cpu
 
+    # a sliding-window model: a ring-buffer dense cache, or the pool
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-3-4b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch h2o-danube-3-4b --smoke --page-size 16 --prefill-chunk 8 \
+        --device cpu
+
     # int8 weights (W8A16), or int8 weights and activations (W8A8)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --int8 \
         --device cpu
@@ -82,6 +89,11 @@ def _warmup(engine: DecodeEngine, cfg, prompt_lens,
     info = ops.plan_cache_info()
     print(f"[serve] gemm plan cache after warm-up: {info.entries} "
           f"plans ({info.hits} hits / {info.misses} misses)")
+    info = ops.attn_plan_cache_info()
+    kernels = sorted({pl.kernel for pl in ops.attn_plans()})
+    print(f"[serve] attention plan cache after warm-up: {info.entries} "
+          f"plans ({info.hits} hits / {info.misses} misses): "
+          f"{', '.join(kernels)}")
     _print_tune_info()
 
 
@@ -260,6 +272,9 @@ def main(argv: Optional[List[str]] = None) -> None:
         else "cpu"
     print(f"[serve] {cfg.name} ({cfg.dtype}) on {name}: {n_slots} "
           f"slots x {engine.max_len} positions")
+    if cfg.window and not engine.paged:
+        print(f"[serve] sliding window {cfg.window}: the dense cache is a "
+              f"ring of {T.cache_len(cfg, engine.max_len)} slots a layer")
     mode = "w8a8" if args.w8a8 else "w8a16" if args.int8 else cfg.dtype
     bpt = engine.modeled_bytes_per_token()
     print(f"[serve] {mode}: modeled GEMM weight stream "

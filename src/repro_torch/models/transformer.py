@@ -16,6 +16,13 @@ added to the residual stream as ``x + y``.  Caches are updated in place
 cache so call sites read like the JAX ones.  ``forward(remat=True)``
 checkpoints each unit (``torch.utils.checkpoint``, non-reentrant) as
 the reference's ``jax.checkpoint`` of the scanned unit does.
+
+A sliding-window model (``cfg.window``, h2o-danube-3-4b) keeps a dense
+cache of ``min(max_len, window)`` slots a layer: a ring that position
+``p`` writes at slot ``p % window`` (:func:`cache_len`,
+:func:`_decode_ring`), so a prompt may run past the cache's length and
+prefill keeps its ring-aligned tail.  On the page pool a windowed layer
+pages at full length and the kernel masks the window.
 """
 
 from __future__ import annotations
@@ -48,19 +55,15 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves ``attn`` and ``moe`` stacks with full attention,
-    on the dense cache and on the page pool; every other feature raises,
-    naming the ROADMAP queue item that brings it."""
+    """The port serves ``attn`` and ``moe`` stacks, with full or
+    sliding-window attention, on the dense cache and on the page pool;
+    every other feature raises, naming the ROADMAP queue item that
+    brings it."""
     bad = sorted({k for k in cfg.all_kinds if k not in KINDS})
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {bad} are not ported yet "
             "(ROADMAP queue A9)")
-    if cfg.window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window serving (the dense path's "
-            "ring-buffer decode, the window on the paged path) is not "
-            "ported yet (ROADMAP queue A12)")
     if cfg.tail_pattern or cfg.encoder_layers or cfg.prefix_tokens \
             or not cfg.use_rope:
         raise NotImplementedError(
@@ -226,14 +229,30 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     return loss, {"ce": ce, "aux": aux}
 
 
+def cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Slots a layer's dense cache holds (``_cache_len`` of the JAX
+    package): a sliding-window layer only ever needs ``window``."""
+    return min(max_len, cfg.window) if cfg.window > 0 else max_len
+
+
+def _is_ring(cfg: ModelConfig, slots: int) -> bool:
+    """Whether a dense cache of ``slots`` slots is a windowed ring (the
+    JAX package's test at ``decode_layer``): a windowed layer's cache no
+    longer than its window.  A longer cache keeps positions in place and
+    the kernels mask the window."""
+    return cfg.window > 0 and slots <= cfg.window
+
+
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
     """Dense per-slot KV cache: ``pos`` is a (batch,) int32 vector, every
     slot decoding at its own position; each unit's k/v leaves are
-    stacked (repeats, batch, max_len, n_kv_heads, head_dim)."""
+    stacked (repeats, batch, :func:`cache_len`, n_kv_heads, head_dim),
+    a ring of ``window`` slots for a windowed layer."""
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (cfg.repeats, batch, max_len, cfg.n_kv_heads, cfg.hd)
+    shape = (cfg.repeats, batch, cache_len(cfg, max_len), cfg.n_kv_heads,
+             cfg.hd)
     return {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
         "layers": _kv_units(cfg, shape, device),
@@ -265,14 +284,53 @@ def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
     if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+    spec = _attn_spec(cfg)
     if page_table is not None:
+        # windowed layers page at full length; B5 masks the window
         x, cache = L.paged_attention_decode(p["attn"], h, cache, page_table,
-                                            pos, _attn_spec(cfg), residual=x)
+                                            pos, spec, residual=x)
+    elif _is_ring(cfg, cache["k"].shape[1]):
+        x, cache = _decode_ring(p["attn"], cache, spec, h, pos, residual=x)
     else:
-        x, cache = L.attention_decode(p["attn"], h, cache, pos,
-                                      _attn_spec(cfg), residual=x)
+        x, cache = L.attention_decode(p["attn"], h, cache, pos, spec,
+                                      residual=x)
     h = L.rms_norm(p["norm2"], x, cfg.norm_eps)
     return _ffn(p, cfg, kind, h, x, DECODE_CAPACITY_FACTOR), cache
+
+
+def _sliding_pos(pos: torch.Tensor, slots: int) -> torch.Tensor:
+    """Ring write slot of each row's position, on the device (no host
+    scalar crosses to the card, so a captured step replays it)."""
+    return torch.remainder(pos, slots)
+
+
+def _decode_ring(params: dict, cache: dict, spec: L.AttnLayerSpec,
+                 x: torch.Tensor, pos: torch.Tensor,
+                 residual: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, dict]:
+    """Windowed decode against a ring cache of ``W <= window`` slots
+    (``_decode_ring`` of the JAX package): row ``i`` writes its k / v at
+    slot ``pos[i] % W`` and attends every slot it has written, which
+    the window holds by construction: slots ``<= pos[i]`` before the
+    ring wraps, all of them after.
+
+    Attention over a set of keys does not depend on their order, and
+    that mask is kernel B4's at position ``min(pos, W - 1)`` with no
+    window, so the ring runs through the planned B4 (one launch, f32
+    accumulation, a row's bits independent of the batch) where the JAX
+    package writes two einsums.  Rotary embedding takes the true
+    ``pos``.  x: (b, 1, d).  Returns (out (b, 1, d), cache updated in
+    place)."""
+    b = x.shape[0]
+    slots = cache["k"].shape[1]
+    q, k_new, v_new = L._project_qkv(params, x, spec, pos[:, None])
+    wpos = _sliding_pos(pos, slots)
+    L.scatter_rows(cache["k"], k_new, wpos)
+    L.scatter_rows(cache["v"], v_new, wpos)
+    out = ops.decode_attention(q[:, 0], cache["k"], cache["v"],
+                               pos.clamp(max=slots - 1))
+    out = ops.gemm(out.reshape(b, 1, -1), params["wo"], residual=residual)
+    return out, cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
@@ -295,21 +353,31 @@ def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
 def prefill_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
                   x: torch.Tensor) -> Tuple[torch.Tensor, dict]:
     """Full-prompt forward that also fills this layer's cache (the
-    prompt starts at position 0)."""
+    prompt starts at position 0).  A prompt longer than a windowed ring
+    leaves its last ``W`` positions there, position ``p`` at slot
+    ``p % W``."""
     if kind not in KINDS:
         raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     b, s, _ = x.shape
     spec = _attn_spec(cfg)
-    if s > cache["k"].shape[1]:
+    slots = cache["k"].shape[1]
+    if s > slots and not _is_ring(cfg, slots):
         raise ValueError(f"prompt of {s} tokens exceeds the cache's "
-                         f"{cache['k'].shape[1]} positions")
+                         f"{slots} positions")
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
     positions = torch.arange(s, device=x.device)
     q, k, v = L._project_qkv(p["attn"], h, spec, positions)
     out = ops.attention(q, k, v, causal=True, window=spec.window)
     x = ops.gemm(out.reshape(b, s, -1), p["attn"]["wo"], residual=x)
-    cache["k"][:, :s] = k
-    cache["v"][:, :s] = v
+    if s <= slots:
+        cache["k"][:, :s] = k
+        cache["v"][:, :s] = v
+    else:   # the ring-aligned tail: roll by (s - W) % W, in place
+        shift = (s - slots) % slots
+        for name, t in (("k", k), ("v", v)):
+            tail = t[:, s - slots:]
+            cache[name][:, shift:] = tail[:, :slots - shift]
+            cache[name][:, :shift] = tail[:, slots - shift:]
     hh = L.rms_norm(p["norm2"], x, cfg.norm_eps)
     return _ffn(p, cfg, kind, hh, x, cfg.capacity_factor), cache
 

@@ -42,7 +42,7 @@ from typing import Callable, Deque, Dict, List, Optional
 import numpy as np
 import torch
 
-from repro_torch import quant, resolve_device, telemetry
+from repro_torch import ops, quant, resolve_device, telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bandwidth
 from repro_torch.models import transformer as T
@@ -216,7 +216,12 @@ class DecodeEngine:
     ``prefill_chunk`` splits admissions into chunks of that many prompt
     tokens interleaved with decode bursts, and ``prefix_cache`` turns on
     content-hash prefix sharing (a shared prompt prefix prefills once;
-    copy-on-write on the first divergent mid-page write)."""
+    copy-on-write on the first divergent mid-page write).
+
+    A sliding-window model's dense cache is a ring of ``min(max_len,
+    window)`` slots a layer, and the engine still admits requests of up
+    to ``max_len`` positions: prefill keeps a longer prompt's
+    ring-aligned tail."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  max_len: int, temperature: float = 0.0,
@@ -730,9 +735,14 @@ class DecodeEngine:
         return out
 
     def _attn_plan_key(self) -> Optional[str]:
-        """The decode attention plan the steps resolve to, attached to the
-        decode spans.  ``None`` until the attention planner (ROADMAP
-        queue A6) lands: the port calls B4 / B5 one-shot."""
+        """The newest decode attention plan (``spec key @ shape ->
+        kernel``), attached to the decode-burst and per-request decode
+        spans; ``None`` until a decode has planned.  A windowed model's
+        dense ring decodes through B4 (``models/transformer.py``
+        ``_decode_ring``), so its plan names B4 too."""
+        for pl in reversed(ops.attn_plans()):
+            if pl.spec.mode in ("decode", "decode_paged"):
+                return f"{pl.spec.key}@{pl.shape_key}->{pl.kernel}"
         return None
 
     def modeled_kv_bytes_per_step(self, positions) -> int:

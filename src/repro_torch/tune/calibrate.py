@@ -178,11 +178,11 @@ def apply(fits: Optional[Dict[str, CalibrationFit]] = None,
           mode: Optional[str] = None) -> Optional[CalibrationFit]:
     """Push one mode's fitted constants (default: the autotuner's
     measurement device's) into the analytic model
-    (``bandwidth.set_calibration``), clearing the plan cache (and the
-    one-shot plan map) so every later ``plan()`` re-ranks under measured
-    rates.  Returns the fit applied, or ``None`` when nothing usable
-    exists."""
-    from repro_torch.kernels import api
+    (``bandwidth.set_calibration``), clearing the GEMM and attention
+    plan caches (and their one-shot plan maps) so every later plan
+    re-ranks, or re-prices, under measured rates.  Returns the fit
+    applied, or ``None`` when nothing usable exists."""
+    from repro_torch.kernels import api, attn_api
     from repro_torch.tune import autotune
     from repro_torch.tune.cache import device_mode
     if fits is None:
@@ -198,11 +198,13 @@ def apply(fits: Optional[Dict[str, CalibrationFit]] = None,
                        / chip.peak_bf16_flops if c.peak_flops else None),
         source=f"tune.calibrate[{mode}, n={c.n_samples}, r2={c.r2}]"))
     api.plan_cache_clear()
+    attn_api.attn_plan_cache_clear()    # attention prices at the same rates
     return c
 
 
 def clear() -> None:
-    """Back to datasheet constants (and a fresh plan cache)."""
-    from repro_torch.kernels import api
+    """Back to datasheet constants (and fresh plan caches)."""
+    from repro_torch.kernels import api, attn_api
     bandwidth.clear_calibration()
     api.plan_cache_clear()
+    attn_api.attn_plan_cache_clear()

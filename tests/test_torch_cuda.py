@@ -1337,3 +1337,88 @@ def test_tuned_smoke_serve_gives_the_same_tokens(cuda_device, tmp_path,
     for a, b, c in zip(want, got, again):
         np.testing.assert_array_equal(a, b)
         np.testing.assert_array_equal(a, c)
+
+
+# ------------------------------------ windowed serving: h2o-danube-3-4b
+
+#: h2o-danube-3-4b's attention: 32 q heads on 8 kv heads of 120, window
+#: 4096; slot positions before, at and past the window, and past a
+#: 4096-slot ring's wrap
+H2O = dict(hq=32, hkv=8, d=120, window=4096)
+H2O_POS = [5, 900, 4095, 4096, 4097, 5000, 6100, 8000]
+
+
+@pytest.mark.parametrize("sq,skv", [(5000, 5000), (512, 5000), (64, 64)])
+def test_h2o_flash_attention_window_matches_plain(cuda_device, sq, skv):
+    """B3 at h2o's heads with its window: a 5000-token prompt past the
+    window, the last 512-token chunk of it (q_offset 4488) and a short
+    prompt."""
+    bf = torch.bfloat16
+    q = _randn((1, sq, H2O["hq"], H2O["d"]), bf, cuda_device, 0)
+    k = _randn((1, skv, H2O["hkv"], H2O["d"]), bf, cuda_device, 1)
+    v = _randn((1, skv, H2O["hkv"], H2O["d"]), bf, cuda_device, 2)
+    kw = dict(causal=True, window=H2O["window"])
+    _close(flash_attention(q, k, v, **kw),
+           flash_attention_plain(q, k, v, **kw), bf)
+
+
+@pytest.mark.parametrize("case", ["window", "ring"])
+def test_h2o_flash_decode_matches_plain(cuda_device, case):
+    """B4 at h2o's heads: over a full-length cache of 8192 keys with the
+    4096 window masked, and over a 4096-slot ring at ring-clamped
+    positions min(pos, 4095) with no window (the dense ring decode)."""
+    bf = torch.bfloat16
+    S = 8192 if case == "window" else 4096
+    q = _randn((8, H2O["hq"], H2O["d"]), bf, cuda_device, 0)
+    k = _randn((8, S, H2O["hkv"], H2O["d"]), bf, cuda_device, 1)
+    v = _randn((8, S, H2O["hkv"], H2O["d"]), bf, cuda_device, 2)
+    pos = torch.as_tensor(H2O_POS, dtype=torch.int32, device=cuda_device)
+    window = H2O["window"]
+    if case == "ring":
+        pos, window = pos.clamp(max=S - 1), 0
+    _close(flash_decode(q, k, v, pos, window=window),
+           flash_decode_plain(q, k, v, pos, window=window), bf)
+
+
+def test_h2o_flash_decode_paged_window_matches_plain(cuda_device):
+    """B5 at h2o's heads with the 4096 window, 16-token pages, slots past
+    position 4096, and B5 == B4 bit for bit there."""
+    bf = torch.bfloat16
+    q = _randn((8, H2O["hq"], H2O["d"]), bf, cuda_device, 0)
+    k = _randn((8, 8192, H2O["hkv"], H2O["d"]), bf, cuda_device, 1)
+    v = _randn((8, 8192, H2O["hkv"], H2O["d"]), bf, cuda_device, 2)
+    k_pages, v_pages, table = _paged_pool(k, v, 16, 3)
+    pos = torch.as_tensor(H2O_POS, dtype=torch.int32, device=cuda_device)
+    got = flash_decode_paged(q, k_pages, v_pages, table, pos,
+                             window=H2O["window"])
+    _close(got, flash_decode_paged_plain(q, k_pages, v_pages, table, pos,
+                                         window=H2O["window"]), bf)
+    assert torch.equal(got, flash_decode(q, k, v, pos,
+                                         window=H2O["window"]))
+
+
+def test_attention_one_shot_repeat_resolves_no_plan(cuda_device,
+                                                    monkeypatch):
+    """A repeated one-shot attention call on the card reuses its plan: the
+    hit counter moves, the kernel launches, and no plan is resolved."""
+    from repro_torch import ops
+    from repro_torch.kernels import attn_api
+    bf = torch.bfloat16
+    q = _randn((8, 32, 120), bf, cuda_device, 0)
+    k = _randn((8, 4096, 8, 120), bf, cuda_device, 1)
+    pos = torch.full((8,), 4095, dtype=torch.int32, device=cuda_device)
+    ops.attn_plan_cache_clear()
+    first = ops.decode_attention(q, k, k, pos)
+    (pl,) = ops.attn_plans()
+    assert pl.kernel == "flash_decode" and pl.dispatch.startswith("cuda:")
+
+    def no_resolve(*a, **kw):
+        raise AssertionError("a one-shot repeat resolved a plan")
+    monkeypatch.setattr(attn_api, "_resolve", no_resolve)
+    monkeypatch.setattr(attn_api, "attn_plan", no_resolve)
+    hits, launches = ops.attn_plan_cache_info().hits, flash_decode.launches
+    again = ops.decode_attention(q, k, k, pos)
+    torch.cuda.synchronize()
+    assert ops.attn_plan_cache_info().hits == hits + 1
+    assert flash_decode.launches == launches + 1
+    assert torch.equal(first, again)

@@ -22,8 +22,9 @@ from hypothesis import given, settings, strategies as st
 from repro import quant as jquant
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.core import bandwidth as jbandwidth
+from repro.kernels import attn_api as jattn
 from repro.models import transformer as JT
-from repro_torch import quant
+from repro_torch import ops, quant
 from repro_torch.bridge import from_jax
 from repro_torch.configs import get_smoke_config
 from repro_torch.core import bandwidth
@@ -140,6 +141,8 @@ def test_modeled_bytes_equal_the_jax_engine(smoke, paged, precision):
     kw = dict(page_size=16) if paged else {}
     jeng = _jengine(jp, jcfg, batch=4, max_len=100, **kw)
     teng = DecodeEngine(tp, tcfg, batch=4, max_len=100, device=CPU, **kw)
+    jattn.attn_plan_cache_clear()       # the decode plan key reads them
+    ops.attn_plan_cache_clear()
     for positions in ([0], [5, 17, 33, 99], [15, 16, 31, 32], []):
         assert teng.modeled_kv_bytes_per_step(positions) == \
             jeng.modeled_kv_bytes_per_step(positions)
@@ -149,7 +152,9 @@ def test_modeled_bytes_equal_the_jax_engine(smoke, paged, precision):
     assert teng._dense_rows_kv_bytes_per_step() == \
         jeng._dense_rows_kv_bytes_per_step()
     assert teng._attn_layer_windows() == jeng._attn_layer_windows()
-    assert teng._attn_plan_key() is None
+    # no decode has planned yet: neither engine has a decode plan to
+    # name (tests/test_torch_telemetry.py holds the keys once they do)
+    assert teng._attn_plan_key() is None and jeng._attn_plan_key() is None
 
 
 @pytest.mark.parametrize("window", [0, 8])

@@ -16,6 +16,7 @@ import torch
 
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.models import transformer as JT
+from repro_torch import ops
 from repro_torch.bridge import from_jax
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.launch import serve as serve_cli
@@ -247,19 +248,26 @@ def test_full_width_config_matches_jax_and_defaults_need_a_card():
                                   "frames", "page_size"])
 def test_unported_features_raise(smoke, what):
     """Each feature outside the slice refuses with NotImplementedError,
-    naming the ROADMAP queue item that brings it."""
+    naming the ROADMAP queue item that brings it.  Windows are served
+    (dense ring and paged, tests/test_torch_window.py): what a window
+    still cannot have is an attention block choice other than the
+    kernel's compiled one (A6's tuning half), and on the pool a
+    local-window layer (A9)."""
     _, _, cfg, params = smoke
     toks = torch.as_tensor(_tokens((1, 4), cfg.vocab))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
         if what == "window":
-            T.init_cache(dataclasses.replace(cfg, window=8), 1, 8,
-                         device=CPU)
+            q = torch.zeros((1, 4, cfg.n_heads, cfg.hd))
+            kv = torch.zeros((1, 4, cfg.n_kv_heads, cfg.hd))
+            ops.attention(q, kv, kv, window=8, bq=128)
         elif what in ("local", "ssm"):
             T.init_params(dataclasses.replace(cfg, layer_pattern=(what,)),
                           torch.Generator().manual_seed(0), device=CPU)
-        elif what == "page_size":           # paging, but windowed
-            DecodeEngine(params, dataclasses.replace(cfg, window=8),
-                         batch=1, max_len=8, page_size=4, device=CPU)
+        elif what == "page_size":           # paging, with a local window
+            DecodeEngine(params, dataclasses.replace(
+                cfg, window=8, local_window=4,
+                layer_pattern=("attn", "local")),
+                batch=1, max_len=8, page_size=4, device=CPU)
         else:
             T.prefill(params, cfg, toks, T.init_cache(cfg, 1, 8, device=CPU),
                       **{what: torch.zeros((1, 2, cfg.d_model))})

@@ -11,8 +11,11 @@
   the same requests with telemetry on (smollm-360m-smoke and
   qwen3-moe-235b-a22b-smoke, dense and paged, the MoE one at a capacity
   that drops): the same multiset of serve event and span names, equal
-  serve and MoE counters, the same gauge sequences and the same
-  (spec key, m, k, n) set in ``gemm.execute``.
+  serve and MoE counters, the same gauge sequences, the same
+  (spec key, m, k, n) set in ``gemm.execute`` and the same decode plan
+  on the decode spans' ``attn_plan`` (the reference under
+  ``REPRO_KERNELS=ref`` plans its XLA decode paths where the port plans
+  B4 / B5: ``ATTN_KERNEL_NAMES``).
 * ``launch/train.py --telemetry --device cpu`` writes one
   ``train.step`` span a step.
 """
@@ -32,6 +35,7 @@ import torch
 from repro import telemetry as jtel
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.kernels import api as japi
+from repro.kernels import attn_api as jattn
 from repro.models import transformer as JT
 from repro_torch import ops, telemetry
 from repro_torch.bridge import from_jax
@@ -400,6 +404,27 @@ def _record(run):
     return r.events, snap
 
 
+#: the reference's decode families under REPRO_KERNELS=ref -> the port's
+#: kernels for the same plan
+ATTN_KERNEL_NAMES = {"xla_decode": "flash_decode",
+                     "xla_decode_paged": "flash_decode_paged"}
+
+
+def _decode_plans(events, rename=False):
+    """The ``attn_plan`` of every decode span, in order, with the
+    reference's family names mapped to the port's."""
+    out = []
+    for e in events:
+        if e["type"] == "span" and e["name"] in ("serve.decode_burst",
+                                                 "serve.request.decode"):
+            key = e["attrs"]["attn_plan"]
+            if rename and key is not None:
+                head, kernel = key.rsplit("->", 1)
+                key = f"{head}->{ATTN_KERNEL_NAMES[kernel]}"
+            out.append((e["name"], key))
+    return out
+
+
 def _serve_view(events, snap):
     names = collections.Counter(
         (e["type"], e["name"]) for e in events
@@ -427,6 +452,8 @@ def test_engines_emit_the_same_telemetry(smoke, monkeypatch, paged):
     kw = dict(page_size=16, prefill_chunk=8) if paged else {}
     japi.plan_cache_clear()
     api.plan_cache_clear()
+    jattn.attn_plan_cache_clear()
+    ops.attn_plan_cache_clear()
     jeng = JEngine(jp, jcfg, batch=2, max_len=max_len, **kw)
     teng = DecodeEngine(tp, tcfg, batch=2, max_len=max_len, device=CPU,
                         **kw)
@@ -441,6 +468,12 @@ def test_engines_emit_the_same_telemetry(smoke, monkeypatch, paged):
     assert t_gauges == j_gauges
     assert t_counters == j_counters
     assert t_execs == j_execs
+    t_plans = _decode_plans(tev)
+    assert t_plans == _decode_plans(jev, rename=True)
+    kernel = "flash_decode_paged" if paged else "flash_decode"
+    assert {k for _, k in t_plans} - {None} == {
+        next(f"{p.spec.key}@{p.shape_key}->{p.kernel}"
+             for p in ops.attn_plans() if p.kernel == kernel)}
     # the counters agree with the engine's own metrics
     m = teng.metrics
     assert t_counters["serve.decode_steps"] == m["decode_steps"]

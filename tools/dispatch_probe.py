@@ -6,13 +6,13 @@
 Serves smollm-360m at full width in bf16 (random weights from seed 0)
 under ``torch.inference_mode`` and times, on the host's clock ended by a
 synchronize, the mean eager 8-slot decode step (dense cache of 1024
-positions) and the mean 512-token prefill, with every GEMM and prefill
-attention reached two ways:
+positions) and the mean 512-token prefill, with every GEMM and
+attention (prefill and decode) reached two ways:
 
-* ``direct``: ``api._dispatch`` and ``flash_attention`` (what
-  ``api._run`` and ``ops.attention`` call when grad mode is off);
-* ``function``: ``_GemmCore.apply`` and ``_AttnCore.apply`` (the
-  autograd Functions training goes through).
+* ``direct``: ``api._dispatch`` and ``attn_api._launch`` (what
+  ``api._run`` and ``attn_api._run`` call when grad mode is off);
+* ``function``: ``_GemmCore.apply`` and ``attn_api._AttnCore.apply``
+  (the autograd Functions training goes through).
 
 The variants alternate direct, function, function, direct, ROUNDS
 times over, in one process on one card: the host's clock varies by
@@ -37,10 +37,8 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import ops  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
-from repro_torch.kernels import api  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa
+from repro_torch.kernels import api, attn_api  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 
 PROMPT_LENS = (12, 160, 8, 24, 300, 16, 32, 9)
@@ -58,15 +56,13 @@ def run_function(pl, a2, b, b2, bias, res2, out_scale=None):
     return api._GemmCore.apply(pl, a2, b, None, b2, None, bias, res2)
 
 
-def attention_direct(q, k, v, *, causal=True, window=0, scale=None,
-                     q_offset=None):
-    return flash_attention(q, k, v, causal=causal, window=window,
-                           scale=scale, q_offset=q_offset)
+def attention_direct(pl, scale, q_offset, q, k, v, pos, page_table):
+    return attn_api._launch(pl, scale, q_offset, q, k, v, pos, page_table)
 
 
-def attention_function(q, k, v, *, causal=True, window=0, scale=None,
-                       q_offset=None):
-    return ops._AttnCore.apply(q, k, v, causal, window, scale, q_offset)
+def attention_function(pl, scale, q_offset, q, k, v, pos, page_table):
+    return attn_api._AttnCore.apply(pl, scale, q_offset, q, k, v, pos,
+                                    page_table)
 
 
 VARIANTS = {"direct": (run_direct, attention_direct),
@@ -113,10 +109,10 @@ def probe(cfg, device, reps: int) -> dict:
         return torch.argmax(logits, -1)
 
     rows = []
-    saved = api._run, ops.attention
+    saved = api._run, attn_api._run
     try:
         for name in ("direct", "function", "function", "direct") * ROUNDS:
-            api._run, ops.attention = VARIANTS[name]
+            api._run, attn_api._run = VARIANTS[name]
             rows.append({
                 "variant": name,
                 "decode_step_ms": mean_ms(decode, reps, sync),
@@ -124,7 +120,7 @@ def probe(cfg, device, reps: int) -> dict:
                     lambda: T.prefill(params, cfg, prompt, fresh),
                     max(1, reps // 4), sync)})
     finally:
-        api._run, ops.attention = saved
+        api._run, attn_api._run = saved
     summary = {name: {f"{k}_{stat.__name__}": float(stat(
         [r[k] for r in rows if r["variant"] == name]))
         for k in ("decode_step_ms", "prefill_ms")
