@@ -136,6 +136,28 @@ Phases (any failure raises and the script exits non-zero):
    kernel phase holds B3 at the 5000-token windowed prefill, B4 at the
    ring's clamped positions and B5 with the window past position 4096,
    and h2o's GEMMs on B1 / B2 / B6, against their plain versions;
+7e. with h2o freed, the recurrent families at full width and depth
+   (bf16, random weights from seed 0) on the dense engine, 8 slots x
+   4096 positions: recurrentgemma-9b (26 RG-LRU and 12 local-attention
+   layers of head_dim 256, window 2048: the dense cache a 2048-slot ring
+   in each local layer; 20.9 GB of weights) on the serve trace plus a
+   2000-token prompt with 96 new tokens (the ring wraps) and a 3000-token
+   one with 32 (prefill keeps the ring's tail), then mamba2-370m (48
+   Mamba-2 layers) on the serve trace plus a 4000-token prompt with 64
+   (32 SSD chunks through the state); each with launches equal to the
+   executed GEMM and attention plans, the decode step (positions 3000 /
+   4000) from CUDA-graph replays beside the eager step and its byte
+   bound (weights, ring KV, the recurrent state read and written),
+   continuous == solo greedy on every request, bit for bit, and the
+   paged engine's refusal; recurrentgemma's ring against a full
+   4096-slot cache (every local layer's ring attention equal to the full
+   cache's on the same inputs within the bf16 gate, the logits' distance
+   recorded) and its local attention's three plans (``explain()``); the
+   kernel phase holds B3 at 1 x 3000 (h 16/1,
+   d 256, window 2048), B4 over the 2048-slot ring at group 16 and B5 at
+   d 256 with the window, in bf16 (timed, beside SDPA and the bound) and
+   f32, and both models' decode-step GEMMs on B1 / B2 / B6 (timed) and
+   their long prompts' prefill GEMMs (checked);
 8. with h2o-danube-3-4b freed, qwen3-moe-235b-a22b at full width with its
    depth cut to 4 layers (printed with the reason; random weights from
    seed 0): phases 5 and 6 again, dense and paged, every MoE layer
@@ -171,7 +193,10 @@ sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
 splits each count by model and mode; each entry's times sum the step
 its ``timed_on`` names, a ``qwen3-moe-235b-a22b`` key holds the 4-layer
 MoE step's, an ``h2o-danube-3-4b`` key h2o's decode step (B3: its
-5000-token prefill), a ``train`` key the full-width training step's (B7's: the
+5000-token prefill), ``recurrentgemma-9b`` and ``mamba2-370m`` keys their
+decode steps' (B3: recurrentgemma's 3000-token prefill; B5: its local
+layers' shape, which no served path runs), a ``train`` key the full-width
+training step's (B7's: the
 MoE training layer-step's), a ``train qwen3-moe-235b-a22b`` key B1's and
 B6's f32 router GEMMs of that step, and the
 four GEMMs' ``int8`` objects hold their int8 cases, ``... tuned`` paths
@@ -231,6 +256,7 @@ from repro_torch.core.hardware import HOPPER_H100  # noqa: E402
 from repro_torch.telemetry import report as treport  # noqa: E402
 from repro_torch.tune import autotune, calibrate  # noqa: E402
 from repro_torch.tune import measure as tune_measure  # noqa: E402
+from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
 import train_profile  # noqa: E402
@@ -352,14 +378,75 @@ H2O_STEP_POS = 5000
 #: the window) and the teacher-forced steps compared
 H2O_RING_PROMPTS = (4096, 4100, 4500, 4700, 5000, 5500, 6000, 6100)
 H2O_RING_STEPS = 4
+#: the recurrent families, served at full width and depth: recurrentgemma-9b
+#: (26 RG-LRU layers and 12 local-attention layers of head_dim 256, about
+#: 20.9 GB of bf16 weights) and mamba2-370m (48 Mamba-2 layers)
+RG = "recurrentgemma-9b"
+MAMBA = "mamba2-370m"
+#: positions a slot may take: twice recurrentgemma's 2048-token local
+#: window, so each local layer's dense cache is a 2048-slot ring
+RG_MAX_LEN = 4096
+#: the long requests added to the serve trace: a 2000-token prompt whose
+#: 96 new tokens wrap the ring, a 3000-token prompt whose prefill keeps
+#: the ring's tail
+RG_LONG = ((2000, 96), (3000, 32))
+#: every slot of the timed decode step decodes here, past the window
+RG_STEP_POS = 3000
+#: the ring-against-full-cache gate's prompt lengths (all past the window)
+RG_RING_PROMPTS = (2048, 2100, 2300, 2500, 2700, 3000, 3500, 4000)
+#: mamba2-370m: a 4000-token prompt (32 SSD chunks carried through the
+#: state) with 64 new tokens
+MAMBA_MAX_LEN = 4096
+MAMBA_LONG = ((4000, 64),)
+MAMBA_STEP_POS = 4000
+#: the kernels line's per-model keys: the decode step's times by kernel
+#: (B3: one prefill of the long prompt)
+RG_TIMED_ON = {
+    "gemm_aie": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+                "planner gives this kernel",
+    "gemm_tb": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+               "planner gives this kernel",
+    "gemm_gated": "one 8-slot decode step (38 layers)",
+    "flash_attention": "one 3000-token prefill (12 local layers, d 256, "
+                       "window 2048)",
+    "flash_decode": "one 8-slot decode step over the 2048-slot rings "
+                    "(12 local layers, d 256, group 16)",
+    "flash_decode_paged": "one 8-slot decode step's 12 local layers at d "
+                          "256, window 2048 (B5 is not on the served path: "
+                          "the paged engine refuses recurrent kinds)",
+}
+MAMBA_TIMED_ON = {
+    "gemm_aie": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+                "planner gives this kernel",
+    "gemm_tb": "one 8-slot decode step's GEMMs that the HOPPER_H100 "
+               "planner gives this kernel",
+}
+#: the row keys that weight a case in a per-model sum (its launches in
+#: that model's step)
+WEIGHT_KEYS = ("weight", "moe_weight", "h2o_weight", "rg_weight",
+               "mamba_weight")
+
+
+#: planned GEMMs a layer of each kind runs in a pass: q, k, v, o, then
+#: gate/up and down (attn, local) or the router and three grouped expert
+#: GEMMs (moe); in_proj, w_r, w_i, out_proj, gate/up and down (rec);
+#: in_proj and out_proj (ssm)
+GEMMS_PER_LAYER = {"attn": 6, "local": 6, "moe": 8, "rec": 6, "ssm": 2}
 
 
 def gemms_per_pass(cfg) -> int:
-    """The planned GEMMs of one decode step, prefill or prefill chunk: q,
-    k, v, o a layer, then gate/up and down (an attn layer) or the router
-    and three grouped expert GEMMs (a moe layer), and the lm_head."""
-    per_kind = {"attn": 6, "moe": 8}
-    return sum(per_kind[k] for k in cfg.layer_pattern) * cfg.repeats + 1
+    """The planned GEMMs of one decode step, prefill or prefill chunk:
+    every layer's, the tail's included, and the lm_head."""
+    return sum(GEMMS_PER_LAYER[k] for k in cfg.layer_pattern) \
+        * cfg.repeats + sum(GEMMS_PER_LAYER[k] for k in cfg.tail_pattern) \
+        + 1
+
+
+def attn_windows(cfg):
+    """The window of every attention layer in the stack, in order (0:
+    full); recurrent layers have none."""
+    kinds = list(cfg.layer_pattern) * cfg.repeats + list(cfg.tail_pattern)
+    return [T._window(cfg, k) for k in kinds if k in T.ATTN_KINDS]
 
 
 def _leaves(tree):
@@ -533,6 +620,73 @@ def h2o_gemm_cases():
             "h2o " + name, 0, m, k, n, bf, tb=tb, tile=tile if tb else None,
             h2o_weight=per_step, timed=per_step > 0, **kw))
     return out
+
+
+def step_gemm_cases(tag, shapes, weight_key):
+    """B1 or B6, as the HOPPER_H100 planner picks, at the plan's tile, for
+    each (name, launches in one decode step, m, k, n, extra) of
+    ``shapes``: timed where it runs in the decode step (``weight_key`` =
+    those launches), checked only elsewhere (prefill shapes).  Returns
+    {kernel: [cases]}."""
+    bf = torch.bfloat16
+    out = {"gemm_aie": [], "gemm_tb": []}
+    for name, per_step, m, k, n, kw in shapes:
+        spec = ops.GemmSpec(out_dtype=kw.get("out_dtype", bf),
+                            epilogue=ops.Epilogue(
+                                residual=kw.get("residual", False)))
+        tile = ops.plan(spec, (m, k, n)).tile
+        tb = tile.strategy == "tb"
+        out["gemm_tb" if tb else "gemm_aie"].append(gemm_case(
+            f"{tag} {name}", 0, m, k, n, bf, tb=tb,
+            tile=tile if tb else None, timed=per_step > 0,
+            **{weight_key: per_step}, **kw))
+    return out
+
+
+def recurrent_gemm_cases():
+    """The dense GEMMs of recurrentgemma-9b's and mamba2-370m's served
+    paths: each decode step's (8 slots, timed, weighted by launches in
+    one step of the full-depth model) and the long prompts' prefill
+    shapes (3000 and 4000 tokens, checked)."""
+    f32 = torch.float32
+    rg, mb = get_config(RG), get_config(MAMBA)
+    d, w, ff, kv, V = rg.d_model, rg.lru_width, rg.d_ff, \
+        rg.n_kv_heads * rg.hd, rg.vocab
+    n_rec = rg.layer_pattern.count("rec") * rg.repeats \
+        + rg.tail_pattern.count("rec")
+    n_loc = rg.layer_pattern.count("local") * rg.repeats
+    m = 8
+    rg_shapes = [
+        (f"decode rec in_proj {m}x{d}x{2 * w}", n_rec, m, d, 2 * w, {}),
+        (f"decode wq / w_r / w_i / out_proj {m}x{d}x{d}",
+         n_loc + 3 * n_rec, m, d, d, {}),
+        (f"decode wk/wv {m}x{d}x{kv}", 2 * n_loc, m, d, kv, {}),
+        (f"decode wo+res {m}x{d}x{d}", n_loc, m, d, d, {"residual": True}),
+        (f"decode down+res {m}x{ff}x{d}", rg.n_layers, m, ff, d,
+         {"residual": True}),
+        (f"decode lm_head {m}x{d}x{V}", 1, m, d, V, {"out_dtype": f32})]
+    p = RG_LONG[1][0]
+    rg_shapes += [
+        (f"prefill rec in_proj {p}x{d}x{2 * w}", 0, p, d, 2 * w, {}),
+        (f"prefill wq / w_r / w_i / out_proj {p}x{d}x{d}", 0, p, d, d, {}),
+        (f"prefill wk/wv {p}x{d}x{kv}", 0, p, d, kv, {}),
+        (f"prefill down+res {p}x{ff}x{d}", 0, p, ff, d, {"residual": True}),
+        (f"prefill lm_head 1x{d}x{V}", 0, 1, d, V, {"out_dtype": f32})]
+    dd = M2.dims(mb.d_model, mb.ssm_state)
+    md, mV, p = mb.d_model, mb.vocab, MAMBA_LONG[0][0]
+    mb_shapes = [
+        (f"decode in_proj {m}x{md}x{dd['proj_out']}", mb.n_layers, m, md,
+         dd["proj_out"], {}),
+        (f"decode out_proj {m}x{dd['d_inner']}x{md}", mb.n_layers, m,
+         dd["d_inner"], md, {}),
+        (f"decode lm_head {m}x{md}x{mV}", 1, m, md, mV, {"out_dtype": f32}),
+        (f"prefill in_proj {p}x{md}x{dd['proj_out']}", 0, p, md,
+         dd["proj_out"], {}),
+        (f"prefill out_proj {p}x{dd['d_inner']}x{md}", 0, p, dd["d_inner"],
+         md, {})]
+    a = step_gemm_cases("rg", rg_shapes, "rg_weight")
+    b = step_gemm_cases("mamba2", mb_shapes, "mamba_weight")
+    return {k: a[k] + b[k] for k in a}
 
 
 def gated_case(name, weight, m, k, n, dtype, **extra):
@@ -805,9 +959,8 @@ def check_kernel(name, cases):
             raise RuntimeError(
                 f"{name} {case['name']}: {int(bad.sum())} elements off, "
                 f"max abs err {err.max().item():.3e}")
-        row = {"case": case["name"], "weight": case["weight"],
-               "moe_weight": case.get("moe_weight", 0),
-               "h2o_weight": case.get("h2o_weight", 0),
+        row = {"case": case["name"],
+               **{key: case.get(key, 0) for key in WEIGHT_KEYS},
                "max_abs_err": err.max().item()}
         if "body" in case:
             row["body"] = case["body"]
@@ -882,6 +1035,12 @@ def kernel_phase():
     hh = dict(hq=h2o.n_heads, hkv=h2o.n_kv_heads, d=h2o.hd)
     ring = h2o.window                   # the dense cache's ring slots
     h2o_pos = [5, 900, 4095, 4096, 4097, 5000, 6100, 8000]
+    rg = get_config(RG)
+    rh = dict(hq=rg.n_heads, hkv=rg.n_kv_heads, d=rg.hd)
+    rw = rg.local_window                # the local layers' ring slots
+    rg_pos = [5, 900, 2047, 2048, 2049, 2500, 3000, 4000]
+    n_loc = rg.layer_pattern.count("local") * rg.repeats
+    rec_gemms = recurrent_gemm_cases()
     plan = {
         # weights = launches of that shape in one decode step (8 slots)
         "gemm_aie": [
@@ -916,7 +1075,8 @@ def kernel_phase():
                       bf, timed=True),
             gemm_case("qwen3 prefill wo+res 300x8192x4096", 0, 300, 8192,
                       4096, bf, residual=True, timed=True),
-        ] + moe_gemms["gemm_aie"] + h2o_gemms["gemm_aie"],
+        ] + moe_gemms["gemm_aie"] + h2o_gemms["gemm_aie"]
+        + rec_gemms["gemm_aie"],
         # weights: the decode step's non-gated GEMMs, as for gemm_aie, so
         # the two dataflows' sums compare on one shape set
         "gemm_tb": [
@@ -937,7 +1097,8 @@ def kernel_phase():
                       residual=True, tb=True),
             gemm_case("edge f32 37x200x131 bias+silu+res", 0, 37, 200, 131,
                       f32, residual=True, bias=True, act="silu", tb=True),
-        ] + moe_gemms["gemm_tb"] + h2o_gemms["gemm_tb"],
+        ] + moe_gemms["gemm_tb"] + h2o_gemms["gemm_tb"]
+        + rec_gemms["gemm_tb"],
         "gemm_gated": [
             gated_case("decode gate/up 8x960x2560", 32, 8, d, ff, bf),
             # a 300-token prefill, timed beside silu(a@bg)*(a@bu)
@@ -958,6 +1119,13 @@ def kernel_phase():
                        512, h2o.d_model, h2o.d_ff, bf),
             gated_case(f"h2o prefill gate/up 5000x{h2o.d_model}x"
                        f"{h2o.d_ff}", 0, 5000, h2o.d_model, h2o.d_ff, bf),
+            # recurrentgemma-9b: every layer's MLP (rec and local)
+            gated_case(f"rg decode gate/up 8x{rg.d_model}x{rg.d_ff}", 0,
+                       8, rg.d_model, rg.d_ff, bf, timed=True,
+                       rg_weight=rg.n_layers),
+            gated_case(f"rg prefill gate/up {RG_LONG[1][0]}x{rg.d_model}x"
+                       f"{rg.d_ff}", 0, RG_LONG[1][0], rg.d_model, rg.d_ff,
+                       bf),
         ],
         "flash_attention": [
             # weights = launches in one 300-token prefill
@@ -989,6 +1157,14 @@ def kernel_phase():
                       h2o_weight=h2o.n_layers, **hh),
             attn_case("h2o chunk 512 of 5000 h32/8 d120 window 4096", 0, 1,
                       512, dtype=bf, skv=5000, window=h2o.window, **hh),
+            # recurrentgemma-9b's local layers at head_dim 256 (the kD =
+            # 256 body): the 3000-token prompt past the window (rg_weight
+            # = launches in one prefill), in bf16 and in f32
+            attn_case("rg prefill 1x3000 h16/1 d256 window 2048", 0, 1,
+                      3000, dtype=bf, window=rw, timed=True,
+                      rg_weight=n_loc, **rh),
+            attn_case("rg f32 prefill 1x3000 h16/1 d256 window 2048", 0, 1,
+                      3000, dtype=f32, window=rw, **rh),
         ],
         "flash_decode": [
             decode_case("decode 8 slots S1024 h15/5 d64", 32, pos, 1024,
@@ -1007,6 +1183,18 @@ def kernel_phase():
                         dtype=bf, timed=True, h2o_weight=h2o.n_layers, **hh),
             decode_case("h2o decode 8 slots S8192 h32/8 d120 window 4096",
                         0, h2o_pos, 8192, dtype=bf, window=h2o.window, **hh),
+            # recurrentgemma-9b: the 2048-slot rings at group 16, d 256
+            # (rg_weight = launches in one decode step), in bf16 and f32,
+            # and a full-length cache with the window
+            decode_case("rg ring decode 8 slots S2048 h16/1 d256, "
+                        "positions clamped", 0,
+                        [min(p, rw - 1) for p in rg_pos], rw, dtype=bf,
+                        timed=True, rg_weight=n_loc, **rh),
+            decode_case("rg f32 ring decode 8 slots S2048 h16/1 d256", 0,
+                        [min(p, rw - 1) for p in rg_pos], rw, dtype=f32,
+                        **rh),
+            decode_case("rg decode 8 slots S4096 h16/1 d256 window 2048", 0,
+                        rg_pos, 4096, dtype=bf, window=rw, **rh),
         ],
         "flash_decode_paged": [
             paged_case("decode 8 slots 64x16 h15/5 d64", 32, pos, 16, 64,
@@ -1020,6 +1208,15 @@ def kernel_phase():
             paged_case("h2o decode 8 slots 512x16 h32/8 d120 window 4096",
                        0, h2o_pos, 16, 512, dtype=bf, window=h2o.window,
                        timed=True, h2o_weight=h2o.n_layers, **hh),
+            # head_dim 256 and group 16 with recurrentgemma's window (the
+            # paged engine refuses recurrent kinds: B5 takes the shape,
+            # no served path runs it there), in bf16 and f32
+            paged_case("rg decode 8 slots 256x16 h16/1 d256 window 2048", 0,
+                       rg_pos, 16, 256, dtype=bf, window=rw, timed=True,
+                       rg_weight=n_loc, **rh),
+            paged_case("rg f32 decode 8 slots 256x16 h16/1 d256 window "
+                       "2048", 0, rg_pos, 16, 256, dtype=f32, window=rw,
+                       **rh),
         ],
         # weights = launches in one decode step of the 4-layer MoE
         "gemm_grouped": grouped_cases(),
@@ -1869,8 +2066,9 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None,
     want = {"gemm_aie": 0, "gemm_gated": 0, "gemm_tb": 0,
             "gemm_tb_final": 0, "gemm_grouped": 0}
     want.update(rec.implied())
-    want.update({decode: cfg.n_layers * steps, other: 0,
-                 "flash_attention": cfg.n_layers * prefills})
+    n_attn = len(attn_windows(cfg))
+    want.update({decode: n_attn * steps, other: 0,
+                 "flash_attention": n_attn * prefills})
     if want["gemm_grouped"] != 3 * n_moe * passes:
         raise RuntimeError(f"{want['gemm_grouped']} grouped GEMMs planned, "
                            f"expected 3 x {n_moe} MoE layers x {passes}")
@@ -2107,12 +2305,14 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
     out = {"device_ms_per_step": device, "eager_ms_per_step": eager,
            "device_idle_share": 1.0 - device / eager}
     if at_pos is not None:
-        kv = cfg.n_layers * bandwidth.decode_kv_bytes(
+        kv = sum(bandwidth.decode_kv_bytes(
             [at_pos] * 8, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
-            dtype=cfg.dtype, window=cfg.window)
+            dtype=cfg.dtype, window=w) for w in attn_windows(cfg))
         weights = quant.gemm_weight_bytes(params)
+        state = 2 * recurrent_state_bytes(cfg, cache)   # read and written
         out.update(at_pos=at_pos, weight_bytes=weights, kv_bytes=kv,
-                   bound_ms=(weights + kv) / PEAK_BYTES * 1e3)
+                   state_bytes=state,
+                   bound_ms=(weights + kv + state) / PEAK_BYTES * 1e3)
     if telemetry_on:        # in turns (ABBA BAAB), as the host drifts
         order = (False, True, True, False, True, False, False, True)
         runs = [eager] + [traced_loop() if on else eager_loop()
@@ -2132,8 +2332,9 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
         f"{out['device_idle_share']:.1%} of an eager step"
         + (f"; byte bound {out['bound_ms']:.2f} ms ("
            f"{out['weight_bytes'] / 1e9:.2f} GB of weights, "
-           f"{out['kv_bytes'] / 1e9:.2f} GB of KV)" if at_pos is not None
-           else "")
+           f"{out['kv_bytes'] / 1e9:.2f} GB of KV, "
+           f"{out['state_bytes'] / 1e9:.2f} GB of recurrent state read "
+           "and written)" if at_pos is not None else "")
         + (f"; eager, medians of four loops each in turns, telemetry off "
            f"{out['eager_ms_off_median']:.2f} ms, on "
            f"{out['eager_ms_per_step_telemetry_on']:.2f} ms ("
@@ -2141,6 +2342,15 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
            f"{', '.join(f'{x:.2f}' for x in off)}; on "
            f"{', '.join(f'{x:.2f}' for x in on)})" if telemetry_on else ""))
     return out
+
+
+def recurrent_state_bytes(cfg, cache) -> int:
+    """Bytes of the recurrent layers' state in a dense cache (each read
+    and written once a decode step)."""
+    units = [(cache["layers"][ck], kind) for ck, kind in T._units(cfg)] \
+        + [(cache["tail"][tk], kind) for tk, kind in T._tail(cfg)]
+    return sum(nbytes(*c.values()) for c, kind in units
+               if kind in T.RECURRENT_KINDS)
 
 
 # ------------------------------------------------- tuning and calibration
@@ -2528,40 +2738,108 @@ def h2o_chunked_phase(cfg, params):
     return {"prompt": n, "chunk": H2O_CHUNK}
 
 
+class RingShadow:
+    """While a decode step runs on the ring, repeat each windowed layer's
+    attention on that layer of the full-length cache with the same
+    inputs: the ring call's q, and the new key and value the ring just
+    took written at the slot's true position, then B4 over ``max_len``
+    slots with the window.  Both calls see the same keys in another
+    order, so their outputs differ by the kernel's f32 order alone; each
+    must agree within the bf16 tolerance (2e-2 + 2e-2 |x| elementwise,
+    the kernels' gate)."""
+
+    def __init__(self, cfg, ring, full):
+        self.window = T._window(cfg, next(
+            k for _, k in T._units(cfg) if k in T.ATTN_KINDS))
+        self.pos = ring["pos"]
+        self.layers = {}        # ring k view's address -> full k, v
+        for ck, kind in T._units(cfg):
+            if kind in T.ATTN_KINDS:
+                for r in range(cfg.repeats):
+                    rk = ring["layers"][ck]["k"][r]
+                    self.layers[rk.data_ptr()] = (
+                        full["layers"][ck]["k"][r],
+                        full["layers"][ck]["v"][r])
+        self.worst = 0.0
+        self.calls = 0
+
+    def __enter__(self):
+        self._decode = ops.decode_attention
+
+        def shadow(q, k, v, pos, window=0):
+            out = self._decode(q, k, v, pos, window=window)
+            fk, fv = self.layers[k.data_ptr()]
+            rows = torch.arange(q.shape[0], device=q.device)
+            true = self.pos.long()
+            fk[rows, true] = k[rows, true % k.shape[1]]
+            fv[rows, true] = v[rows, true % v.shape[1]]
+            want = self._decode(q, fk, fv, self.pos, window=self.window)
+            err = (out.float() - want.float()).abs()
+            tol = TOL[torch.bfloat16]
+            if (err > tol + tol * want.float().abs()).any():
+                raise RuntimeError(f"ring attention off the full cache's by "
+                                   f"{err.max().item():.3e}")
+            self.worst = max(self.worst, err.max().item())
+            self.calls += 1
+            return out
+        ops.decode_attention = shadow
+        return self
+
+    def __exit__(self, *exc):
+        ops.decode_attention = self._decode
+
+
 @torch.inference_mode()
-def h2o_ring_phase(cfg, params):
+def ring_phase(cfg, params, prompts, steps, max_len, *, layer_gate=False):
     """The dense ring against a full-length cache that B4 masks to the
-    window: 8 slots prefilled with prompts past the window
-    (:data:`H2O_RING_PROMPTS`) into the 4096-slot ring and into an
-    8192-slot cache, then :data:`H2O_RING_STEPS` teacher-forced decode
-    steps on each.  The same keys are summed in another order, and 24
-    bf16 layers carry one rounding's change on: each row's logits must
-    agree within the bf16 tolerance relative to the row's largest logit
-    (max |ring - full| <= 2e-2 max |full|).  The elementwise error, the
-    share of logits off by more than 2e-2 + 2e-2 |logit|, the relative
-    L2 error and the greedy tokens' agreement are recorded beside it."""
+    window: 8 slots prefilled with ``prompts`` past the window into the
+    ring (a windowed layer's cache of ``window`` slots) and into a cache
+    of ``max_len`` slots, then ``steps`` teacher-forced decode steps on
+    each.  The same keys are summed in another order, and the bf16
+    layers carry one rounding's change on: each row's logits must agree
+    within the bf16 tolerance relative to the row's largest logit (max
+    |ring - full| <= 2e-2 max |full|).  The elementwise error, the share
+    of logits off by more than 2e-2 + 2e-2 |logit|, the relative L2
+    error and the greedy tokens' agreement are recorded beside it.
+
+    ``layer_gate`` (recurrentgemma-9b) holds each windowed layer's
+    attention output instead (:class:`RingShadow`, every layer of every
+    step) and records the logits' distance: through 38 layers of random
+    weights the logits of the two caches part by about 3 % of the row's
+    largest logit even when both run the plain f32 attention, which no
+    correct ring can undercut (``tools/ring_probe.py``, PERF.md §6)."""
     rng = np.random.default_rng(23)
-    full_cfg = dataclasses.replace(cfg, window=0)   # a cache of max_len
-    ring = T.init_cache(cfg, 8, H2O_MAX_LEN, device="cuda")
-    full = T.init_cache(full_cfg, 8, H2O_MAX_LEN, device="cuda")
-    if ring["layers"]["u0"]["k"].shape[2] != cfg.window \
-            or full["layers"]["u0"]["k"].shape[2] != H2O_MAX_LEN:
+    ck, kind = next((ck, k) for ck, k in T._units(cfg) if k in T.ATTN_KINDS)
+    window = T._window(cfg, kind)
+    # a cache of max_len slots a layer; the decode steps still window
+    full_cfg = dataclasses.replace(cfg, window=0, local_window=0)
+    ring = T.init_cache(cfg, 8, max_len, device="cuda")
+    full = T.init_cache(full_cfg, 8, max_len, device="cuda")
+    if ring["layers"][ck]["k"].shape[2] != window \
+            or full["layers"][ck]["k"].shape[2] != max_len:
         raise RuntimeError("ring phase: the caches have the wrong length")
-    for slot, p in enumerate(H2O_RING_PROMPTS):
+    for slot, p in enumerate(prompts):
         toks = torch.as_tensor(rng.integers(0, cfg.vocab, (1, p)),
                                device="cuda")
         _, ring = T.prefill_into_slot(params, cfg, toks, ring, slot,
-                                      max_len=H2O_MAX_LEN)
+                                      max_len=max_len)
         _, sub = T.prefill(params, cfg, toks, T.init_cache(
-            full_cfg, 1, H2O_MAX_LEN, device="cuda"))
+            full_cfg, 1, max_len, device="cuda"))
         T.insert_cache_slot(full, sub, slot)
         del sub
     tol = TOL[torch.bfloat16]
     rows = []
-    for i in range(H2O_RING_STEPS):
+    shadows = []
+    for i in range(steps):
         tok = torch.as_tensor(rng.integers(0, cfg.vocab, (8, 1)),
                               device="cuda")
-        got, ring = T.decode_step(params, cfg, tok, ring)
+        if layer_gate:
+            with RingShadow(cfg, ring, full) as shadow:
+                got, ring = T.decode_step(params, cfg, tok, ring)
+            shadows.append({"calls": shadow.calls,
+                            "max_abs_err": shadow.worst})
+        else:
+            got, ring = T.decode_step(params, cfg, tok, ring)
         want, full = T.decode_step(params, cfg, tok, full)
         err = (got - want).abs()
         scale = want.abs().max(-1).values
@@ -2575,40 +2853,53 @@ def h2o_ring_phase(cfg, params):
                "argmax_agree": (got.argmax(-1) == want.argmax(-1))
                .float().mean().item()}
         rows.append(row)
-        if not torch.isfinite(got).all() or row["rel_err"] > tol:
+        if not torch.isfinite(got).all() or (
+                not layer_gate and row["rel_err"] > tol):
             raise RuntimeError(f"{cfg.name}: ring decode step {i} off the "
                                f"full cache's: {row}")
     def each(key, fmt):
         return ", ".join(format(r[key], fmt) for r in rows)
-    log(f"ring vs full cache ({cfg.name}): {H2O_RING_STEPS} decode steps of "
-        f"8 slots at positions {H2O_RING_PROMPTS[0]}-"
-        f"{H2O_RING_PROMPTS[-1] + H2O_RING_STEPS - 1}: max |ring - full| / "
-        f"max |full| {each('rel_err', '.3e')} (gate {tol}); max abs err "
+    log(f"ring vs full cache ({cfg.name}): {steps} decode steps of "
+        f"8 slots at positions {prompts[0]}-"
+        f"{prompts[-1] + steps - 1}: max |ring - full| / "
+        f"max |full| {each('rel_err', '.3e')} ("
+        + ("recorded; the gate is by layer" if layer_gate else f"gate {tol}")
+        + f"); max abs err "
         f"{each('max_abs_err', '.3e')} of logits up to "
         f"{max(r['max_abs_logit'] for r in rows):.2f}; greedy tokens agree "
-        f"{each('argmax_agree', '.3f')}")
-    return {"positions": list(H2O_RING_PROMPTS), "steps": rows, "tol": tol}
+        f"{each('argmax_agree', '.3f')}"
+        + (f"; gated by layer: {sum(x['calls'] for x in shadows)} windowed "
+           "attention outputs equal the full cache's within 2e-2 + 2e-2 |x| "
+           f"(max abs err {max(x['max_abs_err'] for x in shadows):.3e})"
+           if layer_gate else ""))
+    out = {"positions": list(prompts), "steps": rows, "tol": tol,
+           "gate": "each windowed layer's attention output" if layer_gate
+           else "logits relative to the row's largest"}
+    if layer_gate:
+        out["layer_gate"] = shadows
+    return out
 
 
-def h2o_plan_phase(cfg):
-    """The three attention families' plans at h2o's serving shapes (the
-    serve phases resolved them: ``attn.plan`` hits), with ``explain()``
-    and the ``attn.plan`` records."""
+def attn_plan_phase(cfg, kind, prompt, max_len):
+    """The three attention families' plans at the serving shapes of the
+    model's ``kind`` layers (the serve phases resolved the first two:
+    ``attn.plan`` hits; B5 plans only where the model pages), with
+    ``explain()`` and the ``attn.plan`` records."""
     g = cfg.n_heads // cfg.n_kv_heads
     heads = (cfg.n_heads, cfg.n_kv_heads, cfg.hd)
-    prompt = H2O_LONG[1][0]
+    window = T._window(cfg, kind)
     rec = telemetry.enable(telemetry.Recorder())
     try:
         plans = {
             "prefill": ops.attn_plan(
-                ops.AttnSpec(window=cfg.window, group=g),
+                ops.AttnSpec(window=window, group=g),
                 (1, prompt, prompt) + heads),
             "decode (ring)": ops.attn_plan(
                 ops.AttnSpec(mode="decode", group=g),
-                (8, cfg.window) + heads),
+                (8, window) + heads),
             "decode_paged": ops.attn_plan(
-                ops.AttnSpec(mode="decode_paged", window=cfg.window,
-                             group=g), (8, H2O_MAX_LEN // 16, 16) + heads),
+                ops.AttnSpec(mode="decode_paged", window=window,
+                             group=g), (8, max_len // 16, 16) + heads),
         }
     finally:
         telemetry.disable()
@@ -2656,8 +2947,88 @@ def h2o_phases(card):
            "bit_identity": h2o_bit_identity_phase(
                cfg, params, dense.pop("_tokens"), paged.pop("_tokens")),
            "chunked_prefill": h2o_chunked_phase(cfg, params),
-           "ring_vs_full_cache": h2o_ring_phase(cfg, params),
-           "plans": h2o_plan_phase(cfg)}
+           "ring_vs_full_cache": ring_phase(cfg, params, H2O_RING_PROMPTS,
+                                            H2O_RING_STEPS, H2O_MAX_LEN),
+           "plans": attn_plan_phase(cfg, "attn", H2O_LONG[1][0],
+                                    H2O_MAX_LEN)}
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def long_trace(cfg, long, seed):
+    """The serve trace plus the ``long`` (prompt, new tokens) requests."""
+    rng = np.random.default_rng(seed)
+    return serve_trace(cfg) + [
+        Request(prompt=rng.integers(0, cfg.vocab, (p,)).astype(np.int32),
+                max_tokens=mt) for p, mt in long]
+
+
+def dense_bit_identity_phase(cfg, params, trace, tokens, max_len):
+    """Continuous == solo greedy on the dense cache: each request of the
+    served trace alone at batch 1 gives the tokens it got in the
+    continuous batch, bit for bit (the recurrent states copied in at
+    admission, the rings, and the batch-invariant kernels)."""
+    for req, got in zip(trace, tokens):
+        want = solo_greedy(params, cfg, req.prompt, req.max_tokens, max_len)
+        if not np.array_equal(got, want):
+            raise RuntimeError(f"{cfg.name}: continuous != solo greedy for "
+                               f"a {len(req.prompt)}-token prompt: {got} vs "
+                               f"{want}")
+    log(f"bit identity ({cfg.name}): {len(trace)} requests continuous == "
+        "solo greedy at full width and depth")
+    return len(trace)
+
+
+def recurrent_phases(name, card, *, max_len, long, step_pos,
+                     ring_prompts=()):
+    """A recurrent model at full width and depth (bf16, random weights
+    from seed 0) on the dense engine: the serve trace plus ``long``, 8
+    slots of ``max_len`` positions, launches equal to the executed GEMM
+    and attention plans; the decode step at ``step_pos`` (CUDA-graph
+    device ms, eager ms, its byte bound); continuous == solo greedy on
+    every request; the paged engine's refusal; and, with local layers,
+    the ring against a full cache at ``ring_prompts`` and the local
+    attention's three plans."""
+    cfg = get_config(name)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = T.init_params(cfg, gen, device="cuda")
+    weights_gb = sum(t.numel() * t.element_size() for t in
+                     _leaves(params)) / 1e9
+    log(f"{cfg.name}: full width and depth ({cfg.n_layers} layers "
+        f"{'+'.join(cfg.layer_pattern)} x {cfg.repeats}"
+        + (f" + {'+'.join(cfg.tail_pattern)}" if cfg.tail_pattern else "")
+        + f", d {cfg.d_model}, vocab {cfg.vocab}, bf16): {weights_gb:.2f} GB"
+        f" of weights made from seed 0 in {time.perf_counter() - t0:.1f} s "
+        f"[{card}]")
+    trace = long_trace(cfg, long, 21)
+    torch.cuda.reset_peak_memory_stats()
+    dense = serve_phase(cfg, params, paged=False, trace=trace,
+                        max_len=max_len)
+    dense.pop("_plans")
+    dense["step"] = step_phase(cfg, params, paged=False, max_len=max_len,
+                               at_pos=step_pos)
+    try:
+        DecodeEngine(params, cfg, batch=8, max_len=max_len, page_size=16,
+                     device="cuda")
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise RuntimeError(f"{cfg.name}: the paged engine took a recurrent "
+                           "model")
+    log(f"{cfg.name}: the paged engine refuses it: {refusal}")
+    out = {"config": cfg.name, "layers": cfg.n_layers,
+           "weights_gb": weights_gb, "long_requests": [list(r) for r in long],
+           "max_len": max_len, "serve": dense,
+           "bit_identity_requests": dense_bit_identity_phase(
+               cfg, params, trace, dense.pop("_tokens"), max_len),
+           "paged_refusal": refusal}
+    if ring_prompts:
+        out["ring_vs_full_cache"] = ring_phase(cfg, params, ring_prompts,
+                                               H2O_RING_STEPS, max_len,
+                                               layer_gate=True)
+        out["plans"] = attn_plan_phase(cfg, "local", long[-1][0], max_len)
     del params
     torch.cuda.empty_cache()
     return out
@@ -3490,6 +3861,10 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     h2o = h2o_phases(card)
+    rg = recurrent_phases(RG, card, max_len=RG_MAX_LEN, long=RG_LONG,
+                          step_pos=RG_STEP_POS, ring_prompts=RG_RING_PROMPTS)
+    mamba = recurrent_phases(MAMBA, card, max_len=MAMBA_MAX_LEN,
+                             long=MAMBA_LONG, step_pos=MAMBA_STEP_POS)
 
     full = get_config("qwen3-moe-235b-a22b")
     moe_cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
@@ -3549,6 +3924,7 @@ def main() -> None:
 
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
              H2O: (h2o["serve"], h2o["paged_serve"]),
+             RG: (rg["serve"],), MAMBA: (mamba["serve"],),
              "operator_api": (api_run,), "train": (train_run,),
              f"train {full.name}": (moe_train,)}
     for name, run in tuned.items():         # the tuned plans' serve run
@@ -3588,6 +3964,12 @@ def main() -> None:
         h2o_total = weighted(rows, "h2o_weight")
         if h2o_total is not None:
             entry[H2O] = times(h2o_total, H2O_TIMED_ON[name])
+        for model, key, timed_on in ((RG, "rg_weight", RG_TIMED_ON),
+                                     (MAMBA, "mamba_weight",
+                                      MAMBA_TIMED_ON)):
+            total = weighted(rows, key)
+            if total is not None:
+                entry[model] = times(total, timed_on[name])
         if name in train_checked:
             _, t_worst, t_total, _ = train_checked[name]
             entry["max_abs_err"] = max(worst, t_worst)
@@ -3649,7 +4031,7 @@ def main() -> None:
                 "paged_bit_identity_requests": moe_paged_bit,
                 "paged_bit_identity_reference": "paged solo",
                 "int8": moe_int8},
-        "h2o": h2o,
+        "h2o": h2o, "recurrentgemma": rg, "mamba2": mamba,
         "train": train_run, "train_cross_device": train_cross,
         "train_cases": {n: rows for n, (rows, *_) in train_checked.items()},
         "resume": resume, "moe_train": moe_train,
@@ -3674,11 +4056,13 @@ def main() -> None:
         "over the shapes of the step each entry's timed_on names, the "
         f"{moe_cfg.name} key holds the same for the 4-layer MoE, the {H2O} "
         "key for h2o's decode step (B3: its 5000-token prefill), the "
+        f"{RG} and {MAMBA} keys for their decode steps (B3: recurrentgemma's "
+        "3000-token prefill), the "
         "train key for one full-width smollm-360m training step (B7: one "
         f"layer-step of {full.name} training), the train {full.name} key "
         "B1's and B6's f32 router GEMMs of that step, and each GEMM's int8 "
         "object the same for its int8 cases by mode; launches sum the "
-        "dense and paged serve runs of the three models (smollm-360m and "
+        "dense and paged serve runs of the five models (smollm-360m and "
         "qwen3-moe in bf16, W8A16 and W8A8), the operator-API phase and "
         "both training runs "
         "(launches_by_path splits them)")

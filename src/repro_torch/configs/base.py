@@ -13,10 +13,11 @@ import importlib
 from typing import Dict, Optional, Tuple
 
 #: architectures with a config module in this package
-ARCH_IDS = ("smollm-360m", "qwen3-moe-235b-a22b", "h2o-danube-3-4b")
+ARCH_IDS = ("smollm-360m", "qwen3-moe-235b-a22b", "h2o-danube-3-4b",
+            "recurrentgemma-9b", "mamba2-370m")
 
-# Layer kinds usable in ``layer_pattern`` (the JAX package's vocabulary;
-# the port's model code serves 'attn' and 'moe' so far):
+# Layer kinds usable in ``layer_pattern`` (the JAX package's vocabulary,
+# all of which the port's model code serves):
 #   'attn'  GQA attention (+ SwiGLU MLP), window = cfg.window
 #   'local' GQA attention with window = cfg.local_window (+ MLP)
 #   'moe'   GQA attention + MoE FFN
@@ -114,8 +115,10 @@ class ModelConfig:
             return self._attn_params() + self.d_model * self.n_experts \
                 + experts * 3 * self.d_model * self.d_ff
         if kind == "ssm":
-            raise NotImplementedError(
-                "ssm layers are not ported yet (ROADMAP queue A9)")
+            from repro_torch.models.mamba2 import dims
+            dd = dims(self.d_model, self.ssm_state)
+            return (self.d_model * dd["proj_out"]
+                    + dd["d_inner"] * self.d_model)
         if kind == "rec":
             w = self.lru_width or self.d_model
             return (self.d_model * 2 * w + 2 * w * w + w * self.d_model

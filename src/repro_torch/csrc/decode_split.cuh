@@ -29,13 +29,18 @@
 //     ldmatrix and V by ldmatrix.trans (mma_chain.cuh); scores scaled in f32
 //     by d^-0.5 log2 e; P rounded to bf16 from S's accumulators; l sums the
 //     rounded P, its row reductions two quad shuffles.  head_dim is padded
-//     with zeros to kD = 32, 64 or 128.
+//     with zeros to kD = 32, 64, 128 or 256.  The K and V tiles live in
+//     dynamic shared memory: 64 KB at kD = 256 (recurrentgemma-9b's local
+//     layers), past the 48 KB a CTA gets without the opt-in.  A warp's
+//     q fragments (kD / 4 registers) die with S, before the O accumulator
+//     (kD / 2) fills, so kD = 256 keeps q in registers.
 //   * Each split writes its partial (m, l and acc, in f32, for the group's
 //     rows) to scratch the wrapper allocates.  decode_merge_kernel then
 //     folds a slot's partials in ascending split order, by
 //     merge_partial, and writes acc / (l > 0 ? l : 1); a thread takes four
 //     columns of one row, so a (kv head, slot) spreads over
-//     ceil(group * ceil(d / 4) / 128) CTAs (4 at qwen3-moe's 16 x 128).  It
+//     ceil(group * ceil(d / 4) / 128) CTAs (4 at qwen3-moe's 16 x 128, 8 at
+//     recurrentgemma-9b's 16 x 256).  It
 //     is launched as a programmatic dependent, so its launch overlaps the
 //     split grid.
 //
@@ -182,7 +187,8 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   visible_keys(pos[bi], p, lo, hi);
   if (kv0 >= hi || kv0 + kSplit <= lo) return;  // no visible key: no partial
 
-  __shared__ __align__(16) __nv_bfloat16 tiles[2 * kTile];  // K, then V
+  extern __shared__ __align__(16) unsigned char smem[];  // K, then V
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
   __shared__ size_t row_at[kSplit];
   const SmemTile kt = smem_tile(tiles, kD), vt = smem_tile(tiles + kTile, kD);
 
@@ -366,8 +372,17 @@ int launch_split_kd(const void* q, const void* k, const void* v,
                     const int* pos, void* o, float* part_acc, float2* part_ml,
                     int b, const SplitArgs& p, const Keys& keys,
                     cudaStream_t stream) {
+  auto kernel = decode_split_kernel<kD, Keys>;
+  constexpr size_t kSmem = 2 * static_cast<size_t>(kSplit) * kD *
+                           sizeof(__nv_bfloat16);
+  static bool configured = false;  // one attribute call per shape
+  if (kSmem > 48 * 1024 && !configured) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(kSmem));
+    configured = true;
+  }
   dim3 grid(p.n_splits, p.hkv, b);
-  decode_split_kernel<kD, Keys><<<grid, 32, 0, stream>>>(
+  kernel<<<grid, 32, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), pos, part_acc, part_ml, p, keys);
@@ -392,14 +407,15 @@ int launch_split_kd(const void* q, const void* k, const void* v,
 }
 
 // The bf16 decode: split grid, then merge.  part_acc holds b * hkv *
-// n_splits * group * kD floats (kD = head_dim padded to 32, 64 or 128),
+// n_splits * group * kD floats (kD = head_dim padded to 32, 64, 128 or
+// 256),
 // part_ml b * hkv * n_splits * group float2 (kernels/flash_attention.py
 // decode_grid gives both sizes).
 template <typename Keys>
 int launch_split(const void* q, const void* k, const void* v, const int* pos,
                  void* o, void* part_acc, void* part_ml, int b, SplitArgs p,
                  const Keys& keys, float scale, cudaStream_t s) {
-  if (p.d < 1 || p.d > 128 || p.group < 1 || p.group > 16)
+  if (p.d < 1 || p.d > 256 || p.group < 1 || p.group > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   p.n_splits = cdiv(p.length, kSplit);
   p.scale_log2 = scale * kLog2e;
@@ -409,7 +425,9 @@ int launch_split(const void* q, const void* k, const void* v, const int* pos,
     return launch_split_kd<32>(q, k, v, pos, o, acc, ml, b, p, keys, s);
   if (p.d <= 64)
     return launch_split_kd<64>(q, k, v, pos, o, acc, ml, b, p, keys, s);
-  return launch_split_kd<128>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+  if (p.d <= 128)
+    return launch_split_kd<128>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+  return launch_split_kd<256>(q, k, v, pos, o, acc, ml, b, p, keys, s);
 }
 
 }  // namespace

@@ -12,6 +12,14 @@
 // block's row max and row sum are one xor-shuffle tree over the warp and no
 // (rows x keys) score tile is ever kept beyond one 32-wide row of p.
 //
+// The tiles are sized for a head of up to kDmax columns, 128 (d <= 128) or
+// kFaDmax = 256, and live in dynamic shared memory: FlashSmem<256> is 82 KB,
+// past the 48 KB a CTA gets without flash_smem_optin.  Nothing in the
+// arithmetic depends on kDmax: a row's bits are the same in either.  The
+// kernels declare __launch_bounds__(kFaThreads, 1): with the tiles in
+// dynamic shared memory ptxas otherwise budgets registers for more CTAs
+// an SM than the tiles allow, and the paged kernel spilled.
+//
 // Accumulation order of one row (the paged decode kernel repeats it over
 // logical 32-key blocks, whatever the page size, so it is bit-identical to
 // the dense one; only where a key's row is found differs, DenseRows against
@@ -34,43 +42,68 @@ namespace repro {
 
 constexpr int kFaRows = 16;
 constexpr int kFaBkv = 32;
-constexpr int kFaDmax = 128;
+constexpr int kFaDmax = 256;  // the widest head of any instantiation
 constexpr int kFaThreads = 128;
 constexpr int kFaRowsPerWarp = kFaRows / (kFaThreads / 32);
-constexpr int kFaDChunks = kFaDmax / 32;
 
+template <int kDmax>
 struct FlashSmem {
-  float q[kFaRows][kFaDmax];
-  float k[kFaBkv][kFaDmax + 1];  // +1: lane j reads row j conflict-free
-  float v[kFaBkv][kFaDmax];
+  float q[kFaRows][kDmax];
+  float k[kFaBkv][kDmax + 1];  // +1: lane j reads row j conflict-free
+  float v[kFaBkv][kDmax];
   float p[kFaRows][kFaBkv];
 };
 
 // The running state of this thread's warp rows (each lane holds the row's
-// m and l; lane j holds acc columns j, j + 32, j + 64, j + 96).
+// m and l; lane j holds acc columns j, j + 32, j + 64, ...).
+template <int kDmax>
 struct FlashState {
   float m[kFaRowsPerWarp];
   float l[kFaRowsPerWarp];
-  float acc[kFaRowsPerWarp][kFaDChunks];
+  float acc[kFaRowsPerWarp][kDmax / 32];
 };
 
-__device__ __forceinline__ void flash_init(FlashState& st) {
+// The f32 kernels' shared memory, FlashSmem<kDmax> in the dynamic segment.
+template <int kDmax>
+__device__ __forceinline__ FlashSmem<kDmax>& flash_smem() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return *reinterpret_cast<FlashSmem<kDmax>*>(smem);
+}
+
+namespace {  // each including kernel file keeps its own flags
+// Let `kernel` take FlashSmem<kDmax> of dynamic shared memory (once per
+// kernel; a no-op below 48 KB).  Returns the bytes to launch with.
+template <int kDmax, typename Kernel>
+size_t flash_smem_optin(Kernel kernel) {
+  constexpr size_t kBytes = sizeof(FlashSmem<kDmax>);
+  static bool configured = false;
+  if (kBytes > 48 * 1024 && !configured) {
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         static_cast<int>(kBytes));
+    configured = true;
+  }
+  return kBytes;
+}
+}  // namespace
+
+template <int kDmax>
+__device__ __forceinline__ void flash_init(FlashState<kDmax>& st) {
 #pragma unroll
   for (int r = 0; r < kFaRowsPerWarp; ++r) {
     st.m[r] = kNegInf;
     st.l[r] = 0.0f;
 #pragma unroll
-    for (int c = 0; c < kFaDChunks; ++c) st.acc[r][c] = 0.0f;
+    for (int c = 0; c < kDmax / 32; ++c) st.acc[r][c] = 0.0f;
   }
 }
 
 // Stage n_rows query rows (row r at q + r * row_stride), pre-scaled.
-template <typename T>
-__device__ __forceinline__ void flash_load_q(FlashSmem& sm, const T* q,
+template <int kDmax, typename T>
+__device__ __forceinline__ void flash_load_q(FlashSmem<kDmax>& sm, const T* q,
                                              size_t row_stride, int n_rows,
                                              int d, float scale) {
-  for (int i = threadIdx.x; i < kFaRows * kFaDmax; i += kFaThreads) {
-    const int r = i / kFaDmax, c = i % kFaDmax;
+  for (int i = threadIdx.x; i < kFaRows * kDmax; i += kFaThreads) {
+    const int r = i / kDmax, c = i % kDmax;
     sm.q[r][c] =
         (r < n_rows && c < d) ? to_f32(q[(size_t)r * row_stride + c]) * scale
                               : 0.0f;
@@ -114,8 +147,9 @@ struct PagedRows {
 // k + rows.at(kp, kp - kv0).  Row r's query position is
 // qpos0 + r * qpos_step; a key is visible when kp < kv_len, kp <= qpos
 // (causal) and kp > qpos - window (window > 0).
-template <typename T, typename KeyRows>
-__device__ __forceinline__ void flash_block(FlashSmem& sm, FlashState& st,
+template <int kDmax, typename T, typename KeyRows>
+__device__ __forceinline__ void flash_block(FlashSmem<kDmax>& sm,
+                                            FlashState<kDmax>& st,
                                             const T* k, const T* v,
                                             const KeyRows& rows, int kv0,
                                             int kv_len, int d, int n_rows,
@@ -153,7 +187,7 @@ __device__ __forceinline__ void flash_block(FlashSmem& sm, FlashState& st,
     sm.p[row][lane] = p;
     __syncwarp();
 #pragma unroll
-    for (int cc = 0; cc < kFaDChunks; ++cc) {
+    for (int cc = 0; cc < kDmax / 32; ++cc) {
       const int dd = lane + 32 * cc;
       if (dd < d) {
         float a = st.acc[rr][cc] * alpha;
@@ -167,8 +201,8 @@ __device__ __forceinline__ void flash_block(FlashSmem& sm, FlashState& st,
 }
 
 // Write acc / (l > 0 ? l : 1) for n_rows rows (row r at o + r * row_stride).
-template <typename T>
-__device__ __forceinline__ void flash_store(const FlashState& st, T* o,
+template <int kDmax, typename T>
+__device__ __forceinline__ void flash_store(const FlashState<kDmax>& st, T* o,
                                             size_t row_stride, int n_rows,
                                             int d) {
   const int lane = threadIdx.x & 31;
@@ -179,7 +213,7 @@ __device__ __forceinline__ void flash_store(const FlashState& st, T* o,
     if (row >= n_rows) continue;
     const float denom = st.l[rr] > 0.0f ? st.l[rr] : 1.0f;
 #pragma unroll
-    for (int cc = 0; cc < kFaDChunks; ++cc) {
+    for (int cc = 0; cc < kDmax / 32; ++cc) {
       const int dd = lane + 32 * cc;
       if (dd < d) o[(size_t)row * row_stride + dd] = from_f32<T>(st.acc[rr][cc] / denom);
     }

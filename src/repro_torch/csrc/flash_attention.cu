@@ -34,7 +34,7 @@
 //     (staging.cuh) into a two-stage ring, so block j + 1 lands while block
 //     j computes.  Shared memory: 2 stages x (K + V) x 64 keys x kD x 2 B =
 //     512 kD bytes, 64 KB at d = 128 (of 227 KB; set through
-//     cudaFuncSetAttribute), 32 KB at d = 64.
+//     cudaFuncSetAttribute), 32 KB at d = 64, 128 KB (+ the q tile) at 256.
 //   * A CTA's rows are (q position, q head) pairs of one kv head's GQA
 //     group, flattened position-major, so each staged block serves every q
 //     head of the group (3 in smollm-360m, 16 in qwen3-moe): the old body
@@ -46,10 +46,19 @@
 //     stage each block more slowly.  128 rows were slower too: at d = 128
 //     a thread holds 248 registers, so one 256-thread CTA fills an SM's
 //     register file.
-//   * head_dim is padded in shared memory to kD = 32, 64 or 128 with zeros
-//     (QK^T's k-dim reads zeros up to the 16-grid; P V's columns past d are
-//     not stored).  Rows that are not whole 16-byte chunks (d = 20: 40-byte
-//     rows) stage by 4-byte cp.async or plain loads, zero-filling the tail.
+//   * head_dim is padded in shared memory to kD = 32, 64, 128 or 256 with
+//     zeros (QK^T's k-dim reads zeros up to the 16-grid; P V's columns past d
+//     are not stored).  Rows that are not whole 16-byte chunks (d = 20:
+//     40-byte rows) stage by 4-byte cp.async or plain loads, zero-filling the
+//     tail.
+//   * At kD = 256 (recurrentgemma-9b's local layers) a warp's 16 q
+//     fragments (64 registers) and a 128-register O accumulator beside the
+//     S tile pass 255 a thread.  So two warps share 16 rows, each computing
+//     their S and P in full (the same bits) and keeping O's columns of one
+//     half, 128 wide: a CTA holds 32 rows.  q is staged once into a swizzled
+//     [32 rows][256] tile after the ring (16 KB; 144 KB a CTA in all) and
+//     each k16 step's fragment is read by ldmatrix (mma_chain.cuh
+//     mma_qkt_smem): the same products in the same order.
 //
 // Invariance (chunked == unchunked == solo prefill, bit for bit): a row's
 // bits depend only on its absolute position, the keys and the fixed key
@@ -79,13 +88,14 @@ namespace {
 // The f32 body
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kFaThreads)
+template <int kDmax>
+__global__ void __launch_bounds__(kFaThreads, 1)
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
                        int sq, int skv, int hq, int hkv, int d, int causal,
                        int window, int q_offset, float scale) {
-  __shared__ FlashSmem sm;
+  FlashSmem<kDmax>& sm = flash_smem<kDmax>();
   const int q0 = blockIdx.x * kFaRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -97,7 +107,7 @@ flash_attention_kernel(const float* __restrict__ q,
   const size_t kv_at = (size_t)b * skv * hkv * d + (size_t)kvh * d;
 
   flash_load_q(sm, q + q_at, q_row_stride, n_rows, d, scale);
-  FlashState st;
+  FlashState<kDmax> st;
   flash_init(st);
   const int qpos_first = q_offset + q0;
   const int qpos_last = qpos_first + n_rows - 1;
@@ -110,6 +120,18 @@ flash_attention_kernel(const float* __restrict__ q,
   flash_store(st, o + q_at, q_row_stride, n_rows, d);
 }
 
+template <int kDmax>
+int launch_f32(const float* q, const float* k, const float* v, float* o,
+               int b, int sq, int skv, int hq, int hkv, int d, int causal,
+               int window, int q_offset, float scale, cudaStream_t s) {
+  auto kernel = flash_attention_kernel<kDmax>;
+  const size_t smem = flash_smem_optin<kDmax>(kernel);
+  dim3 grid(cdiv(sq, kFaRows), hq, b);
+  kernel<<<grid, kFaThreads, smem, s>>>(q, k, v, o, sq, skv, hq, hkv, d,
+                                        causal, window, q_offset, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 // ---------------------------------------------------------------------------
 // The tensor-core body (bf16)
 // ---------------------------------------------------------------------------
@@ -118,6 +140,15 @@ constexpr int kBkv = 64;     // keys a block: the fixed key grid
 constexpr int kWarps = 4;    // a warp holds 16 rows of the CTA's 64
 constexpr int kRows = 16 * kWarps, kThreads = 32 * kWarps;
 
+// The kD = 256 body's split: two warps a 16-row group, one O half each.
+template <int kD>
+constexpr bool kSplitCols = kD > 128;
+// Rows a CTA holds, and the output columns one warp keeps.
+template <int kD>
+constexpr int kRowsOf = kSplitCols<kD> ? kRows / 2 : kRows;
+template <int kD>
+constexpr int kColsOf = kSplitCols<kD> ? kD / 2 : kD;
+
 struct FaArgs {
   int batch, sq, skv, hq, hkv, d, group, causal, window, q_offset;
   int rows;            // sq * group: rows of one (batch row, kv head)
@@ -125,7 +156,7 @@ struct FaArgs {
   float scale_log2;    // softmax scale * log2 e
 };
 
-// kRows rows, head_dim padded to kD.
+// kRowsOf<kD> rows, head_dim padded to kD.
 template <int kD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
@@ -135,24 +166,29 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   constexpr int kQK = kD / 16;   // k16 steps of S = Q K^T
   constexpr int kSF = kBkv / 8;  // n8 score fragments a block
   constexpr int kPV = kBkv / 16; // k16 steps of O += P V
-  constexpr int kOF = kD / 8;    // n8 output fragments
+  constexpr bool kQSmem = kSplitCols<kD>;  // q from shared memory a step
+  constexpr int kR = kRowsOf<kD>;          // rows a CTA holds
+  constexpr int kOF = kColsOf<kD> / 8;     // the warp's n8 output fragments
   constexpr int kTile = kBkv * kD;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
 
   // the CTA's work: q tiles in descending order (causally heaviest first),
   // then kv head, then batch row
-  const int tiles = (p.rows + kRows - 1) / kRows;
+  const int tiles = (p.rows + kR - 1) / kR;
   const int per_tile = p.hkv * p.batch;
   const int tile = tiles - 1 - static_cast<int>(blockIdx.x) / per_tile;
   const int rest = static_cast<int>(blockIdx.x) % per_tile;
   const int kvh = rest % p.hkv, bi = rest / p.hkv;
-  const int f0 = tile * kRows;  // first flat row: position f / group,
-                                // q head kvh * group + f % group
-  const int f_last = min(f0 + kRows, p.rows) - 1;
+  const int f0 = tile * kR;  // first flat row: position f / group,
+                             // q head kvh * group + f % group
+  const int f_last = min(f0 + kR, p.rows) - 1;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
+  // the warp's 16-row group and its first output column
+  const int wrow = kQSmem ? warp >> 1 : warp;
+  const int col0 = kQSmem ? (warp & 1) * kColsOf<kD> : 0;
 
   // this thread's two rows (g and g + 8 of its warp's 16)
   int qpos[2];
@@ -160,7 +196,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const __nv_bfloat16* qrow[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int f = f0 + 16 * warp + g + 8 * h;
+    const int f = f0 + 16 * wrow + g + 8 * h;
     row_ok[h] = f < p.rows;
     const int fc = row_ok[h] ? f : 0;
     const int pos = fc / p.group;
@@ -169,20 +205,46 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     qrow[h] = q + ((static_cast<size_t>(bi) * p.sq + pos) * p.hq + head) *
                       p.d;
   }
-  // q as A fragments, zero past d and past the rows
-  uint32_t qa[kQK][4];
+  // q as A fragments, zero past d and past the rows; at kD = 256 as a
+  // shared tile of the CTA's rows instead (visible after the loop's first
+  // __syncthreads, before any product)
+  uint32_t qa[kQSmem ? 1 : kQK][4];
+  const SmemTile qt = smem_tile(ring + 4 * kTile, kD);
+  if constexpr (kQSmem) {
+    for (int i = tid; i < kR * (kD / 8); i += kThreads) {
+      const int r = i / (kD / 8), c = (i % (kD / 8)) * 8;
+      const int f = f0 + r;
+      const int pos = f / p.group;
+      const __nv_bfloat16* row =
+          q + ((static_cast<size_t>(bi) * p.sq + pos) * p.hq + kvh * p.group +
+               (f - pos * p.group)) * p.d;
+      uint32_t w[4];
 #pragma unroll
-  for (int s = 0; s < kQK; ++s)
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int h = r & 1, c = 16 * s + 2 * t + 8 * (r >> 1);
-      const __nv_bfloat16* row = qrow[h];
-      const uint32_t lo = row_ok[h] && c < p.d
-                              ? __bfloat16_as_ushort(row[c]) : 0u;
-      const uint32_t hi = row_ok[h] && c + 1 < p.d
-                              ? __bfloat16_as_ushort(row[c + 1]) : 0u;
-      qa[s][r] = lo | hi << 16;
+      for (int e = 0; e < 4; ++e) {
+        const int c0 = c + 2 * e;
+        const uint32_t lo = f < p.rows && c0 < p.d
+                                ? __bfloat16_as_ushort(row[c0]) : 0u;
+        const uint32_t hi = f < p.rows && c0 + 1 < p.d
+                                ? __bfloat16_as_ushort(row[c0 + 1]) : 0u;
+        w[e] = lo | hi << 16;
+      }
+      *reinterpret_cast<uint4*>(qt.p + qt.at(r, c)) =
+          make_uint4(w[0], w[1], w[2], w[3]);
     }
+  } else {
+#pragma unroll
+    for (int s = 0; s < kQK; ++s)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int h = r & 1, c = 16 * s + 2 * t + 8 * (r >> 1);
+        const __nv_bfloat16* row = qrow[h];
+        const uint32_t lo = row_ok[h] && c < p.d
+                                ? __bfloat16_as_ushort(row[c]) : 0u;
+        const uint32_t hi = row_ok[h] && c + 1 < p.d
+                                ? __bfloat16_as_ushort(row[c + 1]) : 0u;
+        qa[s][r] = lo | hi << 16;
+      }
+  }
 
   // the keys the CTA's rows can see, on the fixed grid
   const int qpos_lo = p.q_offset + f0 / p.group;
@@ -193,7 +255,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
   const int blocks = kv_end > kv_begin ? (kv_end - kv_begin + kBkv - 1) / kBkv
                                        : 0;
   // the warp's own rows, for skipping blocks masked for all of them
-  const int wf0 = f0 + 16 * warp;
+  const int wf0 = f0 + 16 * wrow;
   const bool warp_live = wf0 < p.rows;
   const int wq_lo = p.q_offset + min(wf0, p.rows - 1) / p.group;
   const int wq_hi = p.q_offset + min(wf0 + 15, p.rows - 1) / p.group;
@@ -250,7 +312,10 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
       for (int jj = 0; jj < kSF; ++jj)
 #pragma unroll
         for (int e = 0; e < 4; ++e) sc[jj][e] = 0.0f;
-      mma_qkt<kD>(sc, qa, kt);
+      if constexpr (kQSmem)
+        mma_qkt_smem<kD>(sc, qt, 16 * wrow, kt);
+      else
+        mma_qkt<kD>(sc, qa, kt);
       // scale and mask in f32; the row max over the quad
       uint32_t live = 0;  // bit 4 jj + e: (row, key) visible
       float mx[2] = {kNegInf, kNegInf};
@@ -303,8 +368,8 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           acc[jo][e] = __fmul_rn(acc[jo][e], alpha[e >> 1]);
-      // O += P V
-      mma_pv<kD>(acc, pa, vt);
+      // O += P V, over the warp's columns
+      mma_pv<kD>(acc, pa, vt, col0 / 8);
     }
     __syncthreads();  // every warp is done with block j's stage
   }
@@ -319,7 +384,7 @@ flash_attention_mma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int jo = 0; jo < kOF; ++jo)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const int c = 8 * jo + 2 * t + e;
+        const int c = col0 + 8 * jo + 2 * t + e;
         if (c < p.d) orow[c] = __float2bfloat16(acc[jo][2 * h + e] / denom);
       }
   }
@@ -329,7 +394,9 @@ template <int kD>
 int launch_mma(const void* q, const void* k, const void* v, void* o,
                const FaArgs& p, cudaStream_t stream) {
   auto kernel = flash_attention_mma_kernel<kD>;
-  constexpr size_t kSmem = 2 * 2 * static_cast<size_t>(kBkv) * kD *
+  // the ring (2 stages of K and V), and at kD = 256 the q tile
+  constexpr size_t kSmem = (2 * 2 * static_cast<size_t>(kBkv) +
+                            (kSplitCols<kD> ? kRowsOf<kD> : 0)) * kD *
                            sizeof(__nv_bfloat16);
   static bool configured = false;  // one attribute call per shape
   if (!configured) {
@@ -337,7 +404,7 @@ int launch_mma(const void* q, const void* k, const void* v, void* o,
                          static_cast<int>(kSmem));
     configured = true;
   }
-  const int tiles = cdiv(p.rows, kRows);
+  const int tiles = cdiv(p.rows, kRowsOf<kD>);
   kernel<<<tiles * p.hkv * p.batch, kThreads, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
@@ -351,7 +418,8 @@ int launch_bf16(const void* q, const void* k, const void* v, void* o,
   if (p.d < 1 || p.d > kFaDmax) return static_cast<int>(cudaErrorInvalidValue);
   if (p.d <= 32) return launch_mma<32>(q, k, v, o, p, s);
   if (p.d <= 64) return launch_mma<64>(q, k, v, o, p, s);
-  return launch_mma<128>(q, k, v, o, p, s);
+  if (p.d <= 128) return launch_mma<128>(q, k, v, o, p, s);
+  return launch_mma<256>(q, k, v, o, p, s);
 }
 
 }  // namespace
@@ -379,10 +447,14 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     p.scale_log2 = scale * kLog2e;
     return launch_bf16(q, k, v, o, p, s);
   }
-  dim3 grid(cdiv(sq, kFaRows), hq, b);
-  flash_attention_kernel<<<grid, kFaThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, skv, hq, hkv,
-      d, causal, window, q_offset, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (d < 1 || d > kFaDmax) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  if (d <= 128)
+    return launch_f32<128>(qf, kf, vf, of, b, sq, skv, hq, hkv, d, causal,
+                           window, q_offset, scale, s);
+  return launch_f32<256>(qf, kf, vf, of, b, sq, skv, hq, hkv, d, causal,
+                         window, q_offset, scale, s);
 }

@@ -38,7 +38,8 @@
 namespace repro {
 namespace {
 
-__global__ void __launch_bounds__(kFaThreads)
+template <int kDmax>
+__global__ void __launch_bounds__(kFaThreads, 1)
 flash_decode_paged_kernel(const float* __restrict__ q,
                           const float* __restrict__ k,
                           const float* __restrict__ v,
@@ -46,7 +47,7 @@ flash_decode_paged_kernel(const float* __restrict__ q,
                           const int* __restrict__ pos, float* __restrict__ o,
                           int ps, int max_pages, int hq, int hkv, int d,
                           int window, float scale) {
-  __shared__ FlashSmem sm;
+  FlashSmem<kDmax>& sm = flash_smem<kDmax>();
   __shared__ size_t row_at[kFaBkv];
   const int kvh = blockIdx.x;
   const int b = blockIdx.y;
@@ -60,7 +61,7 @@ flash_decode_paged_kernel(const float* __restrict__ q,
   const int p = pos[b];
 
   flash_load_q(sm, q + q_at, d, groups, d, scale);
-  FlashState st;
+  FlashState<kDmax> st;
   flash_init(st);
   const int kv_end = min(kv_len, p + 1);
   const int kv_begin = window > 0 ? max(0, p - window + 1) / kFaBkv * kFaBkv : 0;
@@ -68,6 +69,18 @@ flash_decode_paged_kernel(const float* __restrict__ q,
     flash_block(sm, st, k + head_at, v + head_at, rows, kv0, kv_len, d, groups,
                 p, 0, true, window);
   flash_store(st, o + q_at, d, groups, d);
+}
+
+template <int kDmax>
+int launch_f32(const float* q, const float* k, const float* v,
+               const int* table, const int* pos, float* o, int b, int ps,
+               int max_pages, int hq, int hkv, int d, int window, float scale,
+               cudaStream_t s) {
+  auto kernel = flash_decode_paged_kernel<kDmax>;
+  const size_t smem = flash_smem_optin<kDmax>(kernel);
+  kernel<<<dim3(hkv, b), kFaThreads, smem, s>>>(
+      q, k, v, table, pos, o, ps, max_pages, hq, hkv, d, window, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -102,10 +115,15 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k,
     return launch_split(q, k, v, p, o, part_acc, part_ml, b, a, keys, scale,
                         s);
   }
-  dim3 grid(hkv, b);
-  flash_decode_paged_kernel<<<grid, kFaThreads, 0, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), t, p, static_cast<float*>(o), ps,
-      max_pages, hq, hkv, d, window, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (d < 1 || d > kFaDmax || hq / hkv > kFaRows)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* qf = static_cast<const float*>(q);
+  const auto* kf = static_cast<const float*>(k);
+  const auto* vf = static_cast<const float*>(v);
+  auto* of = static_cast<float*>(o);
+  if (d <= 128)
+    return launch_f32<128>(qf, kf, vf, t, p, of, b, ps, max_pages, hq, hkv, d,
+                           window, scale, s);
+  return launch_f32<256>(qf, kf, vf, t, p, of, b, ps, max_pages, hq, hkv, d,
+                         window, scale, s);
 }

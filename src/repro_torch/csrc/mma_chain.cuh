@@ -125,19 +125,50 @@ __device__ __forceinline__ void mma_qkt(float (&sc)[kSF][4],
     }
 }
 
+// mma_qkt with Q's k16 steps read from shared memory instead of registers:
+// qt is a swizzled [row][kD] tile (smem_tile(p, kD)) and the warp's 16 rows
+// start at row0; each step's A fragment is one x4 ldmatrix (rows row0 ..
+// row0 + 15 at d chunks 2 s, 2 s + 1).  The products and their order are
+// mma_qkt's, so the bits are too.  For kD = 256, where kD / 16 fragments in
+// registers beside the O accumulator would pass 255 a thread.
+template <int kD, int kSF>
+__device__ __forceinline__ void mma_qkt_smem(float (&sc)[kSF][4],
+                                            const SmemTile& qt, int row0,
+                                            const SmemTile& kt) {
+  const int lane = threadIdx.x & 31, mi = lane >> 3;
+  const int qr = row0 + (lane & 15);
+#pragma unroll
+  for (int s = 0; s < kD / 16; ++s) {
+    uint32_t a[4];
+    const int qc = 2 * s + (lane >> 4);
+    ldsm_x4(a, qt.p + qr * kD + ((qc ^ ((qr >> qt.sh) & qt.mask)) << 3));
+#pragma unroll
+    for (int jj = 0; jj < kSF; jj += 2) {
+      const int key = 8 * jj + 8 * (mi >> 1) + (lane & 7);
+      const int chunk = 2 * s + (mi & 1);
+      uint32_t b[4];
+      ldsm_x4(b, kt.p + key * kD + ((chunk ^ ((key >> kt.sh) & kt.mask)) << 3));
+      mma_bf16(sc[jj], a, b[0], b[1]);
+      mma_bf16(sc[jj + 1], a, b[2], b[3]);
+    }
+  }
+}
+
 // O += P V over 16 kPV keys: pa holds P's k16 steps as A fragments; V is
 // read by x4 ldmatrix.trans, keys 16 s .. 16 s + 15 at d chunks jo, jo + 1.
-template <int kD, int kPV>
-__device__ __forceinline__ void mma_pv(float (&acc)[kD / 8][4],
+// acc holds kOF n8 fragments of O's columns from d chunk chunk0 on (all
+// kD / 8 of them, or B3's kD = 256 body's half a warp).
+template <int kD, int kPV, int kOF>
+__device__ __forceinline__ void mma_pv(float (&acc)[kOF][4],
                                       const uint32_t (&pa)[kPV][4],
-                                      const SmemTile& vt) {
+                                      const SmemTile& vt, int chunk0 = 0) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int s = 0; s < kPV; ++s)
 #pragma unroll
-    for (int jo = 0; jo < kD / 8; jo += 2) {
+    for (int jo = 0; jo < kOF; jo += 2) {
       const int key = 16 * s + (lane & 15);
-      const int chunk = jo + (lane >> 4);
+      const int chunk = chunk0 + jo + (lane >> 4);
       uint32_t b0, b1, b2, b3;
       ldsm_x4_t(b0, b1, b2, b3,
                 vt.p + key * kD + ((chunk ^ ((key >> vt.sh) & vt.mask)) << 3));

@@ -60,9 +60,9 @@ from repro_torch.core.hardware import HOPPER_H100, HopperChip
 from repro_torch.core.tiling import cdiv, dtype_bytes, dtype_name
 from repro_torch.kernels.blocked_attention import (BLOCKED_ATTN_THRESHOLD,
                                                    attention_blocked)
-from repro_torch.kernels.flash_attention import (BF16_ROWS, DECODE_SPLIT,
-                                                 F32_ROWS, KEY_BLOCK,
-                                                 MAX_HEAD_DIM, cta_shape,
+from repro_torch.kernels.flash_attention import (DECODE_SPLIT, F32_ROWS,
+                                                 KEY_BLOCK, MAX_HEAD_DIM,
+                                                 bf16_rows, cta_shape,
                                                  decode_grid,
                                                  flash_attention)
 from repro_torch.kernels.flash_decode import (MAX_GROUP, flash_decode,
@@ -302,12 +302,13 @@ class AttnProblem:
 def _b3_kv_bytes(p: AttnProblem) -> int:
     """K / V bytes B3 reads on the card: the bf16 body stages its kv
     head's blocks once for each CTA of 64 (q position, q head) rows of
-    the GQA group; the f32 body once for each 16 positions of one q
-    head."""
+    the GQA group (32 at head 256); the f32 body once for each 16
+    positions of one q head."""
     per_tok = 2 * p.d * dtype_bytes(p.kv_dtype)
     if p.q_dtype != "bfloat16":
         return p.kv_bytes(F32_ROWS)
-    return p.b * p.hkv * p._extents(BF16_ROWS, p.hq // p.hkv) * per_tok
+    return p.b * p.hkv * p._extents(bf16_rows(p.d), p.hq // p.hkv) \
+        * per_tok
 
 
 def attn_traffic(p: AttnProblem, kernel: str,
@@ -433,7 +434,7 @@ def _block_candidates(kernel: str, p: AttnProblem
     block, B4's key split, B5's page (no free block)."""
     bf16 = p.q_dtype == "bfloat16"
     if kernel == "flash_attention":
-        return ((BF16_ROWS, KEY_BLOCK) if bf16
+        return ((bf16_rows(p.d), KEY_BLOCK) if bf16
                 else (F32_ROWS, F32_KEY_BLOCK),)
     if kernel == "flash_decode":
         return ((None, DECODE_SPLIT if bf16 else F32_KEY_BLOCK),)

@@ -30,8 +30,9 @@ from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
 
-#: widest head the kernel's shared-memory tiles hold (csrc/flash.cuh)
-MAX_HEAD_DIM = 128
+#: widest head the kernels' shared-memory tiles hold (csrc/flash.cuh
+#: kFaDmax; the bf16 bodies pad to 32, 64, 128 or 256)
+MAX_HEAD_DIM = 256
 #: keys a block of the bf16 body (csrc/flash_attention.cu kBkv): blocks
 #: start at multiples of it from key 0
 KEY_BLOCK = 64
@@ -68,6 +69,33 @@ class CtaShape(NamedTuple):
     body: str
 
 
+def padded_head(d: int) -> int:
+    """The head width the bf16 bodies pad ``d`` to in shared memory
+    (their ``kD`` instantiations; a wider head, which the kernels
+    refuse, is billed at the widest)."""
+    return next((w for w in (32, 64, 128) if d <= w), MAX_HEAD_DIM)
+
+
+def bf16_rows(d: int) -> int:
+    """Rows a CTA of the bf16 body holds: :data:`BF16_ROWS`, or half of
+    them at head 256, where two warps share 16 rows (each keeping half of
+    O's columns)."""
+    return BF16_ROWS // 2 if padded_head(d) > 128 else BF16_ROWS
+
+
+def f32_head(d: int) -> int:
+    """The head width the f32 body's tiles are sized for (``kDmax`` of
+    csrc/flash.cuh)."""
+    return 128 if d <= 128 else MAX_HEAD_DIM
+
+
+def f32_smem_bytes(d: int) -> int:
+    """A CTA's shared memory in the f32 body (csrc/flash.cuh
+    ``FlashSmem<kDmax>``: q, k with one more column, v and p, in f32)."""
+    w = f32_head(d)
+    return 4 * (F32_ROWS * w + 32 * (w + 1) + 32 * w + F32_ROWS * 32)
+
+
 def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
               dtype=torch.bfloat16) -> CtaShape:
     """The CTA shape and grid the kernel launches for q (b, sq, hq, d)
@@ -79,20 +107,23 @@ def cta_shape(b: int, sq: int, hq: int, hkv: int, d: int,
     block serves the whole group.  CTA x runs q tile
     ``tiles - 1 - x // (hkv b)`` (the causally heaviest first), kv head
     ``x % (hkv b) % hkv`` and batch row ``x % (hkv b) // hkv``.  head_dim
-    is padded to 32, 64 or 128 in shared memory, two stages of K and V
-    blocks of :data:`KEY_BLOCK` keys.  f32: 16 positions of one q head a
-    CTA, the grid (q tiles, hq, b)."""
+    is padded to 32, 64, 128 or 256 in shared memory, two stages of K and
+    V blocks of :data:`KEY_BLOCK` keys.  At 256 two warps share 16 rows,
+    each keeping half of O's columns (registers would not hold all 256),
+    so a CTA holds half the rows, and their q takes a shared tile
+    (csrc/flash_attention.cu).  f32: 16 positions of one q head a CTA,
+    the grid (q tiles, hq, b)."""
     if dtype != torch.bfloat16:
         tiles = cdiv(sq, F32_ROWS)
-        # csrc/flash.cuh FlashSmem: q, k (+1 column), v, p in f32
-        smem = 4 * (F32_ROWS * MAX_HEAD_DIM + 32 * (MAX_HEAD_DIM + 1)
-                    + 32 * MAX_HEAD_DIM + F32_ROWS * 32)
-        return CtaShape(F32_ROWS, tiles, tiles * hq * b, MAX_HEAD_DIM, smem,
-                        "fmaf")
-    head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
-    tiles = cdiv(sq * (hq // hkv), BF16_ROWS)
-    return CtaShape(BF16_ROWS, tiles, tiles * hkv * b, head_dim,
-                    2 * 2 * KEY_BLOCK * head_dim * 2, "tensor cores")
+        return CtaShape(F32_ROWS, tiles, tiles * hq * b, f32_head(d),
+                        f32_smem_bytes(d), "fmaf")
+    head_dim = padded_head(d)
+    rows = bf16_rows(d)
+    tiles = cdiv(sq * (hq // hkv), rows)
+    q_tile = rows if head_dim > 128 else 0
+    return CtaShape(rows, tiles, tiles * hkv * b, head_dim,
+                    (2 * 2 * KEY_BLOCK + q_tile) * head_dim * 2,
+                    "tensor cores")
 
 
 class DecodeGrid(NamedTuple):
@@ -128,8 +159,8 @@ def decode_grid(b: int, hq: int, hkv: int, length: int, d: int,
     f32: one CTA per (kv head, slot) walks 32-key blocks
     (csrc/flash.cuh)."""
     if dtype != torch.bfloat16:
-        return DecodeGrid(1, hkv * b, 0, MAX_HEAD_DIM, 0, 0, "fmaf")
-    head_dim = 32 if d <= 32 else 64 if d <= 64 else MAX_HEAD_DIM
+        return DecodeGrid(1, hkv * b, 0, f32_head(d), 0, 0, "fmaf")
+    head_dim = padded_head(d)
     splits = cdiv(length, DECODE_SPLIT)
     parts = b * hkv * splits * (hq // hkv)
     merge_ctas = cdiv((hq // hkv) * cdiv(d, 4), 128) * hkv * b

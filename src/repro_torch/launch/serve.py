@@ -18,6 +18,12 @@ continuous-batching engine on the CUDA card (or on the CPU when asked).
         --arch h2o-danube-3-4b --smoke --page-size 16 --prefill-chunk 8 \
         --device cpu
 
+    # the recurrent families (dense cache only: the paged flags raise)
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mamba2-370m --smoke --device cpu
+
     # int8 weights (W8A16), or int8 weights and activations (W8A8)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --int8 \
         --device cpu
@@ -245,6 +251,8 @@ def main(argv: Optional[List[str]] = None) -> None:
                     device=device)
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
+    if args.page_size is not None:     # before any weights are made
+        T.check_paged(cfg, "paged engine")
     gen = torch.Generator(device=device)
     gen.manual_seed(args.seed)
     params = T.init_params(cfg, gen, device=device)
@@ -275,6 +283,15 @@ def main(argv: Optional[List[str]] = None) -> None:
     if cfg.window and not engine.paged:
         print(f"[serve] sliding window {cfg.window}: the dense cache is a "
               f"ring of {T.cache_len(cfg, engine.max_len)} slots a layer")
+    if "local" in cfg.all_kinds and not engine.paged:
+        print(f"[serve] local window {cfg.local_window}: each local "
+              "layer's dense cache is a ring of "
+              f"{T.cache_len(cfg, engine.max_len, 'local')} slots")
+    recurrent = sorted({k for k in cfg.all_kinds
+                        if k in T.RECURRENT_KINDS})
+    if recurrent:
+        print(f"[serve] recurrent layers {recurrent}: one state a slot, "
+              "copied in at admission")
     mode = "w8a8" if args.w8a8 else "w8a16" if args.int8 else cfg.dtype
     bpt = engine.modeled_bytes_per_token()
     print(f"[serve] {mode}: modeled GEMM weight stream "

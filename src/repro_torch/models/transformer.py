@@ -1,7 +1,8 @@
-"""Decoder stack (port of ``repro/models/transformer.py``, ``attn`` and
-``moe`` layers): parameter init, the full-sequence ``forward`` and
-``loss_fn`` of training, and for serving the dense
-per-slot KV cache, prefill, one decode step, slot-targeted prefill for
+"""Decoder stack (port of ``repro/models/transformer.py``; every layer
+kind: ``attn``, ``local``, ``moe``, ``ssm`` and ``rec``, and the
+unstacked ``tail_pattern``): parameter init, the full-sequence
+``forward`` and ``loss_fn`` of training, and for serving the dense
+per-slot cache, prefill, one decode step, slot-targeted prefill for
 continuous batching, and the block-paged cache (pool init, chunked
 prefill into pages, copy-on-write page copies; ``decode_step`` takes
 the pool's page table when the cache has one).
@@ -17,12 +18,24 @@ cache so call sites read like the JAX ones.  ``forward(remat=True)``
 checkpoints each unit (``torch.utils.checkpoint``, non-reentrant) as
 the reference's ``jax.checkpoint`` of the scanned unit does.
 
-A sliding-window model (``cfg.window``, h2o-danube-3-4b) keeps a dense
-cache of ``min(max_len, window)`` slots a layer: a ring that position
-``p`` writes at slot ``p % window`` (:func:`cache_len`,
-:func:`_decode_ring`), so a prompt may run past the cache's length and
-prefill keeps its ring-aligned tail.  On the page pool a windowed layer
-pages at full length and the kernel masks the window.
+A sliding-window layer (``cfg.window`` of ``attn`` / ``moe`` layers,
+h2o-danube-3-4b; ``cfg.local_window`` of ``local`` layers,
+recurrentgemma-9b) keeps a dense cache of ``min(max_len, window)``
+slots: a ring that position ``p`` writes at slot ``p % window``
+(:func:`cache_len`, :func:`_decode_ring`), so a prompt may run past the
+cache's length and prefill keeps its ring-aligned tail.  On the page
+pool a windowed layer pages at full length and the kernel masks the
+window.
+
+A recurrent layer (``ssm``: :mod:`repro_torch.models.mamba2`; ``rec``:
+:mod:`repro_torch.models.rglru`) keeps a per-slot state instead of k / v
+(``{"conv", "ssd"}`` / ``{"conv", "h"}``, the recurrences in f32),
+written in place by prefill and by each decode step.  Recurrent state
+has no page-table indirection, so those kinds serve on the dense cache
+only (:func:`init_paged_cache` refuses them, as the JAX package does).
+The tail's layers (``params["tail"]["t{i}"]``, ``cache["tail"]``) run
+after the repeats, unstacked: their cache leaves carry the batch at
+dim 0, the stacked ones at dim 1.
 """
 
 from __future__ import annotations
@@ -35,16 +48,20 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import ops, resolve_device
-from repro_torch.bridge import map_tree
+from repro_torch.bridge import map_tree, zip_trees
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M2
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-#: layer kinds the port serves
-KINDS = ("attn", "moe")
+#: layer kinds with attention (a k / v cache), and those with a recurrent
+#: state
+ATTN_KINDS = ("attn", "local", "moe")
+RECURRENT_KINDS = ("ssm", "rec")
 
 #: the MoE layer's capacity factor at decode (the JAX package's, :369)
 DECODE_CAPACITY_FACTOR = 4.0
@@ -55,27 +72,27 @@ AUX_LOSS_WEIGHT = 0.01
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves ``attn`` and ``moe`` stacks, with full or
-    sliding-window attention, on the dense cache and on the page pool;
-    every other feature raises, naming the ROADMAP queue item that
-    brings it."""
-    bad = sorted({k for k in cfg.all_kinds if k not in KINDS})
-    if bad:
+    """The port runs every layer kind and a tail; the encoder-decoder
+    (whisper), prefix embeddings (internvl2) and absolute positions
+    raise, naming the ROADMAP queue item that brings them."""
+    if cfg.encoder_layers or cfg.prefix_tokens or not cfg.use_rope:
         raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad} are not ported yet "
-            "(ROADMAP queue A9)")
-    if cfg.tail_pattern or cfg.encoder_layers or cfg.prefix_tokens \
-            or not cfg.use_rope:
-        raise NotImplementedError(
-            f"{cfg.name}: tail layers, encoder-decoder, prefix embeddings "
-            "and absolute positions are not ported yet (ROADMAP queue A9)")
+            f"{cfg.name}: encoder-decoder, prefix embeddings and absolute "
+            "positions are not ported yet (ROADMAP queue A9)")
 
 
-def _attn_spec(cfg: ModelConfig) -> L.AttnLayerSpec:
+def _window(cfg: ModelConfig, kind: str) -> int:
+    """An attention layer's window: ``cfg.window`` for ``attn`` / ``moe``
+    layers, ``cfg.local_window`` for ``local`` ones (0: full)."""
+    return cfg.window if kind in ("attn", "moe") else cfg.local_window
+
+
+def _attn_spec(cfg: ModelConfig, kind: str = "attn") -> L.AttnLayerSpec:
     return L.AttnLayerSpec(
         d_model=cfg.d_model, n_heads=cfg.n_heads,
-        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd, window=cfg.window,
-        rope_theta=cfg.rope_theta, causal=True, use_rope=cfg.use_rope)
+        n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
+        window=_window(cfg, kind), rope_theta=cfg.rope_theta, causal=True,
+        use_rope=cfg.use_rope)
 
 
 def _layer(tree: dict, r: int) -> dict:
@@ -86,6 +103,11 @@ def _layer(tree: dict, r: int) -> dict:
 def _units(cfg: ModelConfig):
     """(unit key, layer kind) of each position of the layer pattern."""
     return [(f"u{i}", kind) for i, kind in enumerate(cfg.layer_pattern)]
+
+
+def _tail(cfg: ModelConfig):
+    """(tail key, layer kind) of each layer after the repeats."""
+    return [(f"t{i}", kind) for i, kind in enumerate(cfg.tail_pattern)]
 
 
 def _ffn(p: dict, cfg: ModelConfig, kind: str, h: torch.Tensor,
@@ -105,49 +127,63 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     """Random parameters in the JAX layout and with the JAX init's
     standard deviations (embedding 0.02, projections 1/sqrt(d_in), norm
     scales 1 in f32; a ``moe`` unit's router in f32 and its (E, d, f) /
-    (E, f, d) banks), drawn from ``generator`` on ``device`` (default
-    the CUDA card; the generator must live on that device)."""
+    (E, f, d) banks; the ``rec`` / ``ssm`` blocks as
+    :func:`~repro_torch.models.rglru.init_rglru` /
+    :func:`~repro_torch.models.mamba2.init_mamba2` make them), drawn
+    from ``generator`` on ``device`` (default the CUDA card; the
+    generator must live on that device)."""
     check_supported(cfg)
     device = resolve_device(device)
     if generator.device.type != device.type:
         raise ValueError(f"generator is on {generator.device}, parameters "
                          f"go to {device}")
     dt = _DTYPES[cfg.dtype]
-    r, d, hd = cfg.repeats, cfg.d_model, cfg.hd
+    d, hd = cfg.d_model, cfg.hd
 
     def ones(*shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
 
-    def unit(kind):
-        u = {
-            "norm1": {"scale": ones(r, d)},
-            "attn": {
-                "wq": L.dense_init(generator, (r, d, cfg.n_heads * hd), dt),
-                "wk": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd),
-                                   dt),
-                "wv": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd),
-                                   dt),
-                "wo": L.dense_init(generator, (r, cfg.n_heads * hd, d), dt),
-            },
-            "norm2": {"scale": ones(r, d)},
+    def mlp(r):
+        return {"w_gate": L.dense_init(generator, (r, d, cfg.d_ff), dt),
+                "w_up": L.dense_init(generator, (r, d, cfg.d_ff), dt),
+                "w_down": L.dense_init(generator, (r, cfg.d_ff, d), dt)}
+
+    def unit(kind, r):
+        """``r`` stacked layers of ``kind``."""
+        u = {"norm1": {"scale": ones(r, d)}}
+        if kind == "ssm":
+            u["mixer"] = M2.init_mamba2(generator, d, cfg.ssm_state, dt, (r,))
+            return u
+        if kind == "rec":
+            u["rec"] = RG.init_rglru(generator, d, cfg.lru_width or d, dt,
+                                     (r,))
+            u["norm2"] = {"scale": ones(r, d)}
+            u["mlp"] = mlp(r)
+            return u
+        u["attn"] = {
+            "wq": L.dense_init(generator, (r, d, cfg.n_heads * hd), dt),
+            "wk": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd), dt),
+            "wv": L.dense_init(generator, (r, d, cfg.n_kv_heads * hd), dt),
+            "wo": L.dense_init(generator, (r, cfg.n_heads * hd, d), dt),
         }
+        u["norm2"] = {"scale": ones(r, d)}
         if kind == "moe":
             u["moe"] = MOE.init_moe(generator, d, cfg.d_ff, cfg.n_experts,
                                     dt, r)
         else:
-            u["mlp"] = {
-                "w_gate": L.dense_init(generator, (r, d, cfg.d_ff), dt),
-                "w_up": L.dense_init(generator, (r, d, cfg.d_ff), dt),
-                "w_down": L.dense_init(generator, (r, cfg.d_ff, d), dt),
-            }
+            u["mlp"] = mlp(r)
         return u
 
-    layers = {ck: unit(kind) for ck, kind in _units(cfg)}
+    params = {"layers": {ck: unit(kind, cfg.repeats)
+                         for ck, kind in _units(cfg)}}
+    if cfg.tail_pattern:
+        params["tail"] = {tk: _layer(unit(kind, 1), 0)
+                          for tk, kind in _tail(cfg)}
     return {
         "embed": L.init_embedding(generator, cfg.vocab, d, dt),
         "final_norm": {"scale": ones(d)},
         "lm_head": L.dense_init(generator, (d, cfg.vocab), dt),
-        "layers": layers,
+        **params,
     }
 
 
@@ -157,13 +193,21 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
 
 def apply_layer(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
                 causal: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One layer, full sequence.  Returns (x, aux_loss).  The
-    residual-stream adds ride the output and down projections' flushes;
-    a ``moe`` layer adds its experts' output to ``x`` and returns the
-    load-balancing loss."""
-    if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
-    spec = dataclasses.replace(_attn_spec(cfg), causal=causal)
+    """One layer, full sequence.  Returns (x, aux_loss).  An attention
+    layer's residual-stream adds ride the output and down projections'
+    flushes; a ``moe`` layer adds its experts' output to ``x`` and
+    returns the load-balancing loss; a recurrent block's output is added
+    to ``x`` (and a ``rec`` layer's SwiGLU MLP then fuses its residual),
+    as the JAX package adds them."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if kind in RECURRENT_KINDS:
+        h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+        if kind == "ssm":
+            return x + M2.mamba2_block(p["mixer"], h, cfg.ssm_state), zero
+        x = x + RG.rglru_block(p["rec"], h)
+        return L.swiglu(p["mlp"], L.rms_norm(p["norm2"], x, cfg.norm_eps),
+                        residual=x), zero
+    spec = dataclasses.replace(_attn_spec(cfg, kind), causal=causal)
     x = L.attention_block(p["attn"], L.rms_norm(p["norm1"], x,
                                                 cfg.norm_eps),
                           spec, residual=x)
@@ -173,7 +217,7 @@ def apply_layer(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor, *,
                              capacity_factor=cfg.capacity_factor)
         return x + y, aux
     x = L.swiglu(p["mlp"], h, residual=x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, zero
 
 
 def _unit(unit: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -212,6 +256,9 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor, *,
         else:
             x, a = _unit(unit, cfg, x)
         aux = aux + a
+    for tk, kind in _tail(cfg):               # after the repeats, as JAX
+        x, a = apply_layer(params["tail"][tk], cfg, kind, x)
+        aux = aux + a
     return L.rms_norm(params["final_norm"], x, cfg.norm_eps), aux
 
 
@@ -229,34 +276,63 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
     return loss, {"ce": ce, "aux": aux}
 
 
-def cache_len(cfg: ModelConfig, max_len: int) -> int:
-    """Slots a layer's dense cache holds (``_cache_len`` of the JAX
-    package): a sliding-window layer only ever needs ``window``."""
-    return min(max_len, cfg.window) if cfg.window > 0 else max_len
+def cache_len(cfg: ModelConfig, max_len: int, kind: str = "attn") -> int:
+    """Slots an attention layer's dense cache holds (``_cache_len`` of
+    the JAX package): a sliding-window layer only ever needs its
+    window."""
+    window = _window(cfg, kind)
+    return min(max_len, window) if window > 0 else max_len
 
 
-def _is_ring(cfg: ModelConfig, slots: int) -> bool:
+def _is_ring(spec: L.AttnLayerSpec, slots: int) -> bool:
     """Whether a dense cache of ``slots`` slots is a windowed ring (the
     JAX package's test at ``decode_layer``): a windowed layer's cache no
     longer than its window.  A longer cache keeps positions in place and
     the kernels mask the window."""
-    return cfg.window > 0 and slots <= cfg.window
+    return spec.window > 0 and slots <= spec.window
+
+
+def _layer_cache(cfg: ModelConfig, kind: str, lead: tuple, batch: int,
+                 max_len: int, device) -> dict:
+    """One layer's dense cache (``lead`` stacked): k / v of
+    :func:`cache_len` slots, or the recurrent state."""
+    dt = _DTYPES[cfg.dtype]
+    if kind == "ssm":
+        c = M2.init_mamba2_cache(batch, cfg.d_model, cfg.ssm_state, dt,
+                                 device)
+    elif kind == "rec":
+        c = RG.init_rglru_cache(batch, cfg.lru_width or cfg.d_model, dt,
+                                device)
+    else:
+        shape = (batch, cache_len(cfg, max_len, kind), cfg.n_kv_heads,
+                 cfg.hd)
+        c = {"k": torch.zeros(shape, dtype=dt, device=device),
+             "v": torch.zeros(shape, dtype=dt, device=device)}
+    return map_tree(lambda t: t.new_zeros(lead + tuple(t.shape)), c) \
+        if lead else c
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device=None) -> dict:
-    """Dense per-slot KV cache: ``pos`` is a (batch,) int32 vector, every
-    slot decoding at its own position; each unit's k/v leaves are
-    stacked (repeats, batch, :func:`cache_len`, n_kv_heads, head_dim),
-    a ring of ``window`` slots for a windowed layer."""
+    """Dense per-slot cache: ``pos`` is a (batch,) int32 vector, every
+    slot decoding at its own position; each unit's leaves are stacked
+    (repeats, batch, ...): k / v of (:func:`cache_len`, n_kv_heads,
+    head_dim), a ring of ``window`` slots for a windowed layer, or a
+    recurrent layer's ``{"conv", "ssd"}`` / ``{"conv", "h"}``.  The
+    tail's leaves (``cache["tail"]["t{i}"]``) are (batch, ...)."""
     check_supported(cfg)
     device = resolve_device(device)
-    shape = (cfg.repeats, batch, cache_len(cfg, max_len), cfg.n_kv_heads,
-             cfg.hd)
-    return {
+    cache = {
         "pos": torch.zeros((batch,), dtype=torch.int32, device=device),
-        "layers": _kv_units(cfg, shape, device),
+        "layers": {ck: _layer_cache(cfg, kind, (cfg.repeats,), batch,
+                                    max_len, device)
+                   for ck, kind in _units(cfg)},
     }
+    if cfg.tail_pattern:
+        cache["tail"] = {tk: _layer_cache(cfg, kind, (), batch, max_len,
+                                          device)
+                         for tk, kind in _tail(cfg)}
+    return cache
 
 
 def _kv_units(cfg: ModelConfig, shape, device) -> dict:
@@ -266,13 +342,42 @@ def _kv_units(cfg: ModelConfig, shape, device) -> dict:
             for ck, _ in _units(cfg)}
 
 
-def _layer_caches(cfg: ModelConfig, cache: dict):
-    """(layer params key, kind, this layer's {"k", "v"} views) of every
-    layer in order: repeat r, then the pattern's units."""
+def _layers(cfg: ModelConfig, params: dict, cache: dict):
+    """(layer params, kind, layer cache) of every layer in order: repeat
+    r's units, then the tail; a stacked layer's parameters and cache as
+    views of its leaves."""
     for r in range(cfg.repeats):
         for ck, kind in _units(cfg):
-            kv = cache["layers"][ck]
-            yield r, ck, kind, {"k": kv["k"][r], "v": kv["v"][r]}
+            yield (_layer(params["layers"][ck], r), kind,
+                   _layer(cache["layers"][ck], r))
+    for tk, kind in _tail(cfg):
+        yield params["tail"][tk], kind, cache["tail"][tk]
+
+
+def _write_state(cache: dict, new: dict) -> dict:
+    """A recurrent layer's new state into its cache leaves, in place (one
+    resident cache; a captured step replays the copies)."""
+    for name, t in new.items():
+        cache[name].copy_(t)
+    return cache
+
+
+def _recurrent(p: dict, cfg: ModelConfig, kind: str, x: torch.Tensor,
+               state: dict, decode: bool) -> Tuple[torch.Tensor, dict]:
+    """A recurrent layer from ``state``: its block (one token's update,
+    or the whole prompt's scan) added to ``x``, then a ``rec`` layer's
+    SwiGLU MLP with its residual fused.  Returns (x, new state)."""
+    h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
+    if kind == "ssm":
+        y, new = (M2.mamba2_decode(p["mixer"], h, state, cfg.ssm_state)
+                  if decode else
+                  M2.mamba2_scan(p["mixer"], h, cfg.ssm_state, state))
+        return x + y, new
+    y, new = (RG.rglru_decode(p["rec"], h, state) if decode else
+              RG.rglru_scan(p["rec"], h, state))
+    x = x + y
+    return L.swiglu(p["mlp"], L.rms_norm(p["norm2"], x, cfg.norm_eps),
+                    residual=x), new
 
 
 def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
@@ -280,16 +385,17 @@ def decode_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
                  page_table: Optional[torch.Tensor] = None
                  ) -> Tuple[torch.Tensor, dict]:
     """One layer of a decode step; ``page_table`` set means ``cache`` is
-    this layer's page pool."""
-    if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
+    this layer's page pool.  The layer's cache is written in place."""
+    if kind in RECURRENT_KINDS:
+        x, new = _recurrent(p, cfg, kind, x, cache, decode=True)
+        return x, _write_state(cache, new)
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
-    spec = _attn_spec(cfg)
+    spec = _attn_spec(cfg, kind)
     if page_table is not None:
         # windowed layers page at full length; B5 masks the window
         x, cache = L.paged_attention_decode(p["attn"], h, cache, page_table,
                                             pos, spec, residual=x)
-    elif _is_ring(cfg, cache["k"].shape[1]):
+    elif _is_ring(spec, cache["k"].shape[1]):
         x, cache = _decode_ring(p["attn"], cache, spec, h, pos, residual=x)
     else:
         x, cache = L.attention_decode(p["attn"], h, cache, pos, spec,
@@ -336,15 +442,16 @@ def _decode_ring(params: dict, cache: dict, spec: L.AttnLayerSpec,
 def decode_step(params: dict, cfg: ModelConfig, token: torch.Tensor,
                 cache: dict) -> Tuple[torch.Tensor, dict]:
     """One decode step.  token: (b, 1) ints.  Returns (logits (b, V) f32,
-    cache) — the cache's k/v are written in place and ``pos`` advances
-    by one for every slot.  A cache with a ``page_table`` (from
-    :func:`init_paged_cache`) is a page pool addressed through it."""
+    cache) — the cache's k / v and recurrent states are written in place
+    and ``pos`` advances by one for every slot.  A cache with a
+    ``page_table`` (from :func:`init_paged_cache`) is a page pool
+    addressed through it."""
     pos = cache["pos"]
     table = cache.get("page_table")
     x = L.embed(params["embed"], token)
-    for r, ck, kind, layer_cache in _layer_caches(cfg, cache):
-        x, _ = decode_layer(_layer(params["layers"][ck], r), layer_cache,
-                            cfg, kind, x, pos, page_table=table)
+    for p, kind, layer_cache in _layers(cfg, params, cache):
+        x, _ = decode_layer(p, layer_cache, cfg, kind, x, pos,
+                            page_table=table)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = ops.gemm(x[:, 0], params["lm_head"], out_dtype=torch.float32)
     return logits, dict(cache, pos=pos + 1)
@@ -355,13 +462,16 @@ def prefill_layer(p: dict, cache: dict, cfg: ModelConfig, kind: str,
     """Full-prompt forward that also fills this layer's cache (the
     prompt starts at position 0).  A prompt longer than a windowed ring
     leaves its last ``W`` positions there, position ``p`` at slot
-    ``p % W``."""
-    if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
+    ``p % W``; a recurrent layer leaves its state after the prompt's
+    last position (``_mamba2_prefill`` / ``_rglru_prefill`` of the JAX
+    package, from the cache's state)."""
+    if kind in RECURRENT_KINDS:
+        x, new = _recurrent(p, cfg, kind, x, cache, decode=False)
+        return x, _write_state(cache, new)
     b, s, _ = x.shape
-    spec = _attn_spec(cfg)
+    spec = _attn_spec(cfg, kind)
     slots = cache["k"].shape[1]
-    if s > slots and not _is_ring(cfg, slots):
+    if s > slots and not _is_ring(spec, slots):
         raise ValueError(f"prompt of {s} tokens exceeds the cache's "
                          f"{slots} positions")
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
@@ -392,9 +502,8 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             "prefix embeddings and encoder frames are not ported yet "
             "(ROADMAP queue A9)")
     x = L.embed(params["embed"], tokens)
-    for r, ck, kind, layer_cache in _layer_caches(cfg, cache):
-        x, _ = prefill_layer(_layer(params["layers"][ck], r), layer_cache,
-                             cfg, kind, x)
+    for p, kind, layer_cache in _layers(cfg, params, cache):
+        x, _ = prefill_layer(p, layer_cache, cfg, kind, x)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = ops.gemm(x[:, -1], params["lm_head"], out_dtype=torch.float32)
     b, s = tokens.shape
@@ -402,12 +511,20 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
     return logits, dict(cache, pos=pos)
 
 
+#: the batch axis of a cache subtree's leaves (``_cache_batch_dim`` of the
+#: JAX package): stacked (repeats, batch, ...) under ``layers``, (batch,
+#: ...) under ``tail``
+_BATCH_DIM = {"layers": 1, "tail": 0}
+
+
 def insert_cache_slot(live: dict, sub: dict, slot: int) -> dict:
     """Copy a batch-1 cache into batch row ``slot`` of a live multi-slot
-    cache, in place; resident slots are untouched."""
-    for ck, unit in live["layers"].items():
-        for name in ("k", "v"):
-            unit[name][:, slot] = sub["layers"][ck][name][:, 0]
+    cache, in place, every leaf (k / v and the recurrent states);
+    resident slots are untouched."""
+    for name, dim in _BATCH_DIM.items():
+        if name in live:
+            zip_trees(lambda t, u: t.select(dim, slot).copy_(u.select(dim, 0)),
+                      live[name], sub[name])
     live["pos"][slot] = sub["pos"][0]
     return live
 
@@ -434,14 +551,35 @@ def prefill_into_slot(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
 # Block-paged KV cache (serve)
 # ---------------------------------------------------------------------------
 
+def check_paged(cfg: ModelConfig, where: str = "paged cache") -> None:
+    """What the page pool holds: the k / v of ``attn`` and ``moe``
+    layers.  Recurrent kinds raise as the JAX package's engine does:
+    their per-slot state has no page-table indirection, so chunked
+    prefill would reuse a slot's stale state, interleaved decode bursts
+    would advance a mid-prefill slot's recurrence (only attention writes
+    go to the sink page), and prefix sharing cannot skip tokens through
+    a recurrence; those archs serve on the dense cache.  A ``local``
+    layer or a tail on the pool waits (ROADMAP queue A9)."""
+    check_supported(cfg)
+    bad = sorted({k for k in cfg.all_kinds if k in RECURRENT_KINDS})
+    if bad:
+        raise ValueError(f"{where}: recurrent layer kinds {bad} unsupported "
+                         f"(arch {cfg.name}); use the dense engine")
+    if "local" in cfg.all_kinds or cfg.tail_pattern:
+        raise NotImplementedError(
+            f"{cfg.name}: local-window layers and tail layers on the page "
+            "pool are not ported yet (ROADMAP queue A9)")
+
+
 def init_paged_cache(cfg: ModelConfig, batch: int, n_pages: int,
                      page_size: int, max_pages: int, device=None) -> dict:
     """Decode cache whose K/V live in a shared block pool: each unit's
     k/v leaves stacked (repeats, n_pages, page_size, n_kv_heads,
     head_dim); slots address them through ``page_table`` ((batch,
     max_pages) int32, all pointing at page 0, the serve loop's sink,
-    until a slot is promoted)."""
-    check_supported(cfg)
+    until a slot is promoted).  :func:`check_paged` says which configs
+    page."""
+    check_paged(cfg)
     device = resolve_device(device)
     shape = (cfg.repeats, n_pages, page_size, cfg.n_kv_heads, cfg.hd)
     return {
@@ -461,10 +599,8 @@ def _prefill_chunk_layer(p: dict, cache: dict, cfg: ModelConfig,
     ``(pages[j], offs[j])``; the history pages ``hist`` are gathered
     into an exact (1, start + s) view, so attention sees the operands a
     whole-prompt prefill's rows see."""
-    if kind not in KINDS:
-        raise NotImplementedError(f"layer kind {kind!r} (ROADMAP queue A9)")
     b, s, _ = x.shape
-    spec = _attn_spec(cfg)
+    spec = _attn_spec(cfg, kind)
     h = L.rms_norm(p["norm1"], x, cfg.norm_eps)
     positions = torch.arange(start, start + s, device=x.device)
     q, k, v = L._project_qkv(p["attn"], h, spec, positions)
@@ -514,10 +650,9 @@ def prefill_paged_chunk(params: dict, cfg: ModelConfig,
     idx = idx.to(kv["k"].device)
     pages, offs, hist = idx[:s], idx[s:2 * s], idx[2 * s:]
     x = L.embed(params["embed"], tokens)
-    for r, ck, kind, layer_cache in _layer_caches(cfg, cache):
-        x, _ = _prefill_chunk_layer(_layer(params["layers"][ck], r),
-                                    layer_cache, cfg, kind, x, pages, offs,
-                                    hist, start_pos)
+    for p, kind, layer_cache in _layers(cfg, params, cache):
+        x, _ = _prefill_chunk_layer(p, layer_cache, cfg, kind, x, pages,
+                                    offs, hist, start_pos)
     x = L.rms_norm(params["final_norm"], x, cfg.norm_eps)
     logits = ops.gemm(x[:, -1], params["lm_head"], out_dtype=torch.float32)
     cache["pos"][slot] = start_pos + s

@@ -8,7 +8,8 @@ kernels); per-slot temperature / eos / max_tokens, completion and
 eviction, and tokens/sec + occupancy metrics.
 
 * Dense cache: admission prefills ONE request into a free slot of the
-  live cache (resident slots untouched).
+  live cache (resident slots untouched); every leaf is copied, the
+  recurrent states of ``ssm`` / ``rec`` layers and the tail's too.
 * Paged pool (``page_size``): admission maps pages through
   :class:`~repro_torch.serve.paging.PagedKV` (content-hash prefix
   sharing, copy-on-write of a shared page the slot will write into),
@@ -221,7 +222,9 @@ class DecodeEngine:
     A sliding-window model's dense cache is a ring of ``min(max_len,
     window)`` slots a layer, and the engine still admits requests of up
     to ``max_len`` positions: prefill keeps a longer prompt's
-    ring-aligned tail."""
+    ring-aligned tail.  A recurrent model (``ssm`` / ``rec`` layers)
+    serves on the dense cache only: ``page_size`` raises for it, as in
+    the JAX package (``models.transformer.check_paged``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  max_len: int, temperature: float = 0.0,
@@ -246,6 +249,7 @@ class DecodeEngine:
         self.kv: Optional[paging.PagedKV] = None
         self._prefilling: Dict[int, _PrefillState] = {}
         if self.paged:
+            T.check_paged(cfg, "paged engine")
             if page_size < 1 or (prefill_chunk is not None
                                  and prefill_chunk < 1):
                 raise ValueError("page_size and prefill_chunk must be "

@@ -135,6 +135,8 @@ def test_gemm_gated_equals_relu_gemm_aie_bitwise(cuda_device, m):
     (1, 33, 100, 16, 1, 128, True, 0),       # q_offset, d 128, group 16
     (2, 70, 70, 6, 3, 112, True, 0),         # d 112, two batch rows
     (1, 50, 130, 3, 1, 20, False, 40),       # non-causal window, d 20
+    (1, 100, 130, 16, 1, 256, True, 64),     # recurrentgemma's d 256, MQA
+    (2, 45, 45, 4, 2, 200, True, 0),         # d 200: padded to 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
@@ -154,6 +156,8 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
     (2, 300, 16, 1, 128, 64),                # MQA group 16, window
     (8, 1024, 64, 4, 128, 0),                # qwen3-moe decode
     (2, 70, 4, 2, 17, 0),                    # odd head_dim: plain loads
+    (4, 300, 16, 1, 256, 100),               # d 256, group 16, window
+    (2, 70, 4, 2, 200, 0),                   # d 200: padded to 256
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(cuda_device, b, S, hq, hkv, d,
@@ -280,6 +284,7 @@ def _paged_pool(k, v, ps, seed, max_pages=None):
     (4, 256, 16, 1, 128, 0),                 # MQA group 16
     (4, 256, 4, 4, 120, 100),                # MHA, d 120, wide window
     (8, 1024, 64, 4, 128, 0),                # qwen3-moe decode
+    (4, 256, 16, 1, 256, 100),               # recurrentgemma's heads
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, b, S, hq,
@@ -368,6 +373,7 @@ def test_flash_decode_paged_is_batch_invariant(cuda_device):
     (300, 64, 4, 128, 0),                    # qwen3-moe, group 16
     (200, 8, 2, 120, 32),                    # h2o-danube's d 120, window
     (90, 3, 1, 20, 0),                       # the smoke config's d 20
+    (300, 16, 1, 256, 100),                  # recurrentgemma's d 256
 ])
 def test_flash_attention_q_split_invariance_bitwise(cuda_device, s, hq, hkv,
                                                     d, window):
@@ -1395,6 +1401,104 @@ def test_h2o_flash_decode_paged_window_matches_plain(cuda_device):
                                          window=H2O["window"]), bf)
     assert torch.equal(got, flash_decode(q, k, v, pos,
                                          window=H2O["window"]))
+
+
+# --------------------------- recurrentgemma-9b's local layers: head_dim 256
+
+#: recurrentgemma-9b's local attention: 16 q heads on one kv head of 256,
+#: window 2048; slot positions before, at and past the window and a
+#: 2048-slot ring's wrap
+RG = dict(hq=16, hkv=1, d=256, window=2048)
+RG_POS = [5, 900, 2047, 2048, 2049, 2500, 3000, 4000]
+
+
+@pytest.mark.parametrize("sq,skv", [(3000, 3000), (512, 3000), (64, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_flash_attention_window_matches_plain(cuda_device, sq, skv,
+                                                 dtype):
+    """B3 at head_dim 256 with recurrentgemma's window: a 3000-token
+    prompt past the window, its last 512-token chunk (q_offset 2488) and
+    a short prompt, in both bodies."""
+    q = _randn((1, sq, RG["hq"], RG["d"]), dtype, cuda_device, 0)
+    k = _randn((1, skv, RG["hkv"], RG["d"]), dtype, cuda_device, 1)
+    v = _randn((1, skv, RG["hkv"], RG["d"]), dtype, cuda_device, 2)
+    kw = dict(causal=True, window=RG["window"])
+    _close(flash_attention(q, k, v, **kw),
+           flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.parametrize("case", ["window", "ring"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_flash_decode_matches_plain(cuda_device, case, dtype):
+    """B4 at head_dim 256, group 16: over a 4096-key cache with the 2048
+    window masked, and over a 2048-slot ring at ring-clamped positions
+    with no window (the dense ring decode)."""
+    S = 4096 if case == "window" else RG["window"]
+    q = _randn((8, RG["hq"], RG["d"]), dtype, cuda_device, 0)
+    k = _randn((8, S, RG["hkv"], RG["d"]), dtype, cuda_device, 1)
+    v = _randn((8, S, RG["hkv"], RG["d"]), dtype, cuda_device, 2)
+    pos = torch.as_tensor(RG_POS, dtype=torch.int32, device=cuda_device)
+    window = RG["window"]
+    if case == "ring":
+        pos, window = pos.clamp(max=S - 1), 0
+    _close(flash_decode(q, k, v, pos, window=window),
+           flash_decode_plain(q, k, v, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rg_flash_decode_paged_window_matches_plain(cuda_device, dtype):
+    """B5 at head_dim 256 with the 2048 window, 16-token pages, slots past
+    position 2048; and B5 == B4 bit for bit there."""
+    q = _randn((8, RG["hq"], RG["d"]), dtype, cuda_device, 0)
+    k = _randn((8, 4096, RG["hkv"], RG["d"]), dtype, cuda_device, 1)
+    v = _randn((8, 4096, RG["hkv"], RG["d"]), dtype, cuda_device, 2)
+    k_pages, v_pages, table = _paged_pool(k, v, 16, 3)
+    pos = torch.as_tensor(RG_POS, dtype=torch.int32, device=cuda_device)
+    got = flash_decode_paged(q, k_pages, v_pages, table, pos,
+                             window=RG["window"])
+    _close(got, flash_decode_paged_plain(q, k_pages, v_pages, table, pos,
+                                         window=RG["window"]), dtype)
+    assert torch.equal(got, flash_decode(q, k, v, pos,
+                                         window=RG["window"]))
+
+
+def test_rg_decode_is_batch_invariant(cuda_device):
+    """B4 over recurrentgemma's ring: each slot's row alone has the bits
+    it has among eight."""
+    bf = torch.bfloat16
+    q = _randn((8, RG["hq"], RG["d"]), bf, cuda_device, 0)
+    k = _randn((8, 2048, RG["hkv"], RG["d"]), bf, cuda_device, 1)
+    v = _randn((8, 2048, RG["hkv"], RG["d"]), bf, cuda_device, 2)
+    pos = torch.as_tensor(RG_POS, dtype=torch.int32,
+                          device=cuda_device).clamp(max=2047)
+    out = flash_decode(q, k, v, pos)
+    for i in range(8):
+        one = slice(i, i + 1)
+        assert torch.equal(flash_decode(q[one], k[one], v[one], pos[one]),
+                           out[one]), i
+
+
+def test_mamba2_decode_is_batch_invariant_on_the_card(cuda_device):
+    """mamba2-370m's decode mixer at full width in bf16 (B1 projections,
+    the read-out summed by halving): each slot's output and state alone
+    have the bits they have among eight."""
+    from repro_torch.models import mamba2 as M2
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    p = M2.init_mamba2(gen, 1024, 128, torch.bfloat16)
+    dd = M2.dims(1024, 128)
+    x = _randn((8, 1, 1024), torch.bfloat16, cuda_device, 0)
+    cache = {"conv": _randn((8, 3, dd["d_inner"] + 256), torch.bfloat16,
+                            cuda_device, 1),
+             "ssd": _randn((8, dd["heads"], 64, 128), torch.float32,
+                           cuda_device, 2)}
+    with torch.inference_mode():
+        y, c = M2.mamba2_decode(p, x, cache, 128)
+        for i in range(8):
+            one = slice(i, i + 1)
+            yi, ci = M2.mamba2_decode(p, x[one], {k: v[one] for k, v in
+                                                  cache.items()}, 128)
+            assert torch.equal(yi, y[one]), i
+            assert torch.equal(ci["ssd"], c["ssd"][one]), i
 
 
 def test_attention_one_shot_repeat_resolves_no_plan(cuda_device,

@@ -304,6 +304,7 @@ def test_decode_splits_cover_each_visible_key_once(length, window):
     (8, 64, 4, 1024, 128),     # qwen3-moe step
     (8, 64, 4, 1280, 128),     # a longer table
     (3, 3, 1, 50, 20),         # the smoke config
+    (8, 16, 1, 2048, 256),     # recurrentgemma-9b's ring (8 merge CTAs)
 ])
 def test_decode_grid_sizes_the_split_axis_from_the_length(b, hq, hkv,
                                                           length, d):

@@ -217,13 +217,20 @@ def test_cta_shape_fills_the_card_at_a_300_token_prefill(hq, hkv, d):
 
 
 @pytest.mark.parametrize("d,head_dim", [(20, 32), (64, 64), (112, 128),
-                                        (120, 128), (128, 128)])
+                                        (120, 128), (128, 128), (200, 256),
+                                        (256, 256)])
 def test_cta_shape_pads_the_head_and_fits_shared_memory(d, head_dim):
     shape = cta_shape(1, 300, 64, 4, d)
     assert shape.head_dim == head_dim >= d
-    # two stages of K and V blocks, bf16: 64 KB at d = 128
-    assert shape.smem_bytes == 2 * 2 * KEY_BLOCK * head_dim * 2
+    # two stages of K and V blocks, bf16: 64 KB at d = 128; at 256 a CTA
+    # of 32 rows (two warps a 16-row group) and their q tile, 144 KB
+    q_tile = 32 if head_dim == 256 else 0
+    assert shape.rows == (32 if head_dim == 256 else 64)
+    assert shape.smem_bytes == (2 * 2 * KEY_BLOCK + q_tile) * head_dim * 2
     assert shape.smem_bytes <= 232448          # 227 KB a CTA on an H100
     f32 = cta_shape(1, 300, 64, 4, d, torch.float32)
     assert f32.body == "fmaf" and f32.rows == 16
-    assert f32.smem_bytes <= 48 * 1024 and MAX_HEAD_DIM == 128
+    # the f32 tiles: within the 48 KB a CTA gets without the opt-in up to
+    # d = 128, 82 KB (dynamic, opted in) at 256
+    assert f32.smem_bytes <= (48 if d <= 128 else 227) * 1024
+    assert MAX_HEAD_DIM == 256

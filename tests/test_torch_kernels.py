@@ -21,6 +21,7 @@ from repro.kernels import ref as jref
 from repro.kernels.attn_api import _decode_attention_xla
 from repro.kernels.flash_attention import flash_attention as j_flash
 from repro.kernels.flash_decode import flash_decode as j_decode
+from repro.kernels.flash_decode import flash_decode_paged as j_paged
 from repro.kernels.gemm_aie import gemm_aie as j_gemm_aie
 from repro.kernels.gemm_gated import gemm_gated as j_gemm_gated
 from repro_torch.bridge import from_jax, to_numpy
@@ -29,7 +30,9 @@ from repro_torch.kernels import ref as tref
 from repro_torch.kernels.epilogue import apply_epilogue
 from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import (flash_decode,
+                                              flash_decode_paged,
+                                              flash_decode_paged_plain)
 from repro_torch.kernels.gemm_aie import gemm_aie, gemm_aie_plain
 from repro_torch.kernels.gemm_gated import gemm_gated
 
@@ -116,6 +119,9 @@ def test_gemm_gated_matches_jax_interpret(m, k, n, dtype):
     (1, 64, 96, 4, 2, 64, True, 16, "float32"),     # q_offset + window
     (1, 40, 40, 2, 2, 20, False, 0, "float32"),     # non-causal
     (1, 50, 50, 6, 2, 64, True, 0, "bfloat16"),
+    # recurrentgemma-9b's local heads: 16 q on 1 kv head of 256, a window
+    (1, 100, 100, 16, 1, 256, True, 64, "float32"),
+    (1, 80, 80, 16, 1, 256, True, 32, "bfloat16"),
 ])
 def test_flash_attention_matches_jax_interpret(b, sq, skv, hq, hkv, d,
                                                causal, window, dtype):
@@ -135,6 +141,9 @@ def test_flash_attention_matches_jax_interpret(b, sq, skv, hq, hkv, d,
     (3, 300, 15, 5, 64, 0, "float32"),     # smollm heads
     (2, 256, 6, 2, 64, 40, "float32"),     # window
     (3, 160, 15, 5, 64, 0, "bfloat16"),
+    # recurrentgemma-9b's local heads (group 16, head_dim 256), a window
+    (2, 300, 16, 1, 256, 100, "float32"),
+    (2, 160, 16, 1, 256, 0, "bfloat16"),
 ])
 def test_flash_decode_matches_jax_interpret(b, S, hq, hkv, d, window,
                                             dtype):
@@ -145,6 +154,28 @@ def test_flash_decode_matches_jax_interpret(b, S, hq, hkv, d, window,
     want = j_decode(q_j, k_j, v_j, jnp.asarray(pos), window=window,
                     bkv=128, interpret=True)
     got = flash_decode(q_t, k_t, v_t, torch.as_tensor(pos), window=window)
+    _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_decode_paged_at_head_256_matches_jax_interpret(dtype):
+    """B5's plain version at recurrentgemma-9b's local heads (16 q heads
+    on one kv head of 256) with a window, through a permuted pool of
+    16-token pages, against the Pallas kernel in interpret mode."""
+    b, hq, hkv, d, ps, max_pages = 2, 16, 1, 256, 16, 6
+    n_pages = 1 + b * max_pages
+    q_j, q_t = _pair((b, hq, d), dtype, 0)
+    k_j, k_t = _pair((n_pages, ps, hkv, d), dtype, 1)
+    v_j, v_t = _pair((n_pages, ps, hkv, d), dtype, 2)
+    table = np.random.default_rng(3).permutation(np.arange(1, n_pages)) \
+        .reshape(b, max_pages).astype(np.int32)
+    pos = np.asarray([max_pages * ps - 3, 40], np.int32)
+    want = j_paged(q_j, k_j, v_j, jnp.asarray(table), jnp.asarray(pos),
+                   window=40, interpret=True)
+    before = flash_decode_paged_plain.launches
+    got = flash_decode_paged(q_t, k_t, v_t, torch.as_tensor(table),
+                             torch.as_tensor(pos), window=40)
+    assert flash_decode_paged_plain.launches == before + 1
     _close(got, want, dtype)
 
 

@@ -252,7 +252,9 @@ def test_unported_features_raise(smoke, what):
     (dense ring and paged, tests/test_torch_window.py): what a window
     still cannot have is an attention block choice other than the
     kernel's compiled one (A6's tuning half), and on the pool a
-    local-window layer (A9)."""
+    local-window layer (A9).  ``local`` and ``ssm`` layers are served
+    (tests/test_torch_recurrent.py); beside them, absolute positions
+    (whisper's) and an encoder (A9) still raise."""
     _, _, cfg, params = smoke
     toks = torch.as_tensor(_tokens((1, 4), cfg.vocab))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
@@ -261,7 +263,10 @@ def test_unported_features_raise(smoke, what):
             kv = torch.zeros((1, 4, cfg.n_kv_heads, cfg.hd))
             ops.attention(q, kv, kv, window=8, bq=128)
         elif what in ("local", "ssm"):
-            T.init_params(dataclasses.replace(cfg, layer_pattern=(what,)),
+            extra = dict(use_rope=False) if what == "local" \
+                else dict(encoder_layers=2)
+            T.init_params(dataclasses.replace(cfg, layer_pattern=(what,),
+                                              **extra),
                           torch.Generator().manual_seed(0), device=CPU)
         elif what == "page_size":           # paging, with a local window
             DecodeEngine(params, dataclasses.replace(

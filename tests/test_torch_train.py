@@ -136,7 +136,7 @@ def test_forward_raises_for_what_is_not_ported(smoke):
     with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
         T.forward(tp, tcfg, toks, frames=torch.zeros((1, 2, 60)))
     with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
-        T.apply_layer({}, tcfg, "ssm", torch.zeros((1, 4, 60)))
+        T.forward(tp, dataclasses.replace(tcfg, encoder_layers=2), toks)
 
 
 # -------------------------------------------------- the GEMM Function
