@@ -4,8 +4,11 @@ and the port.
 The JAX package hands its pytrees over as numpy arrays (``np.asarray``
 of each leaf); this module turns them into torch tensors with every key
 and the stacked ``layers/u{i}`` layout kept (the unstacked
-``tail/t{i}`` layers of recurrentgemma-9b too, and the recurrent blocks'
-f32 leaves: ``lambda``, ``a_log``, ``d_skip``, ``dt_bias``), and back.  bf16 leaves
+``tail/t{i}`` layers of recurrentgemma-9b too, the recurrent blocks'
+f32 leaves: ``lambda``, ``a_log``, ``d_skip``, ``dt_bias``, and
+whisper-medium's ``encoder`` subtree, each decoder layer's ``norm_x`` and
+``cross``, the LayerNorms' f32 ``scale`` / ``bias`` and the GELU MLP's
+``w_in`` / ``w_out``), and back.  bf16 leaves
 arrive as ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` rejects, so
 they cross as their raw ``uint16`` bits and are re-viewed as
 ``torch.bfloat16`` — a bit-exact round trip.  A training state (params,

@@ -1,8 +1,8 @@
 """Architecture configuration schema + registry (the port's own copy).
 
 Mirrors ``repro/configs/base.py`` field for field, so a config read by
-either package describes the same model.  Only the architectures the
-port serves have a module here; ``get_config`` imports
+either package describes the same model.  Every architecture of the JAX
+package has a module here; ``get_config`` imports
 ``repro_torch.configs.<arch>`` on first use.
 """
 
@@ -12,9 +12,19 @@ import dataclasses
 import importlib
 from typing import Dict, Optional, Tuple
 
-#: architectures with a config module in this package
-ARCH_IDS = ("smollm-360m", "qwen3-moe-235b-a22b", "h2o-danube-3-4b",
-            "recurrentgemma-9b", "mamba2-370m")
+#: the architectures, in the JAX package's order
+ARCH_IDS = (
+    "minitron-8b",
+    "deepseek-67b",
+    "smollm-360m",
+    "h2o-danube-3-4b",
+    "whisper-medium",
+    "kimi-k2-1t-a32b",
+    "qwen3-moe-235b-a22b",
+    "mamba2-370m",
+    "recurrentgemma-9b",
+    "internvl2-76b",
+)
 
 # Layer kinds usable in ``layer_pattern`` (the JAX package's vocabulary,
 # all of which the port's model code serves):

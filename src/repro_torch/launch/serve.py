@@ -24,6 +24,17 @@ continuous-batching engine on the CUDA card (or on the CPU when asked).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mamba2-370m --smoke --device cpu
 
+    # the encoder-decoder (dense cache only: a trace's requests carry no
+    # frames and cross-attend zeros, as in the JAX package; --batch
+    # draws each prompt's stub frames), the prefix family (served text
+    # only) and the other dense and MoE configs
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch whisper-medium --smoke --batch 2 --prompt-len 8 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch internvl2-76b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch kimi-k2-1t-a32b --smoke --device cpu
+
     # int8 weights (W8A16), or int8 weights and activations (W8A8)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke --int8 \
         --device cpu
@@ -54,7 +65,8 @@ import numpy as np
 import torch
 
 from repro_torch import ops, quant, resolve_device, telemetry, tune
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import ARCH_IDS, get_config, \
+    get_smoke_config
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import DecodeEngine, Request
 
@@ -162,15 +174,23 @@ def run_trace(engine: DecodeEngine, cfg, args) -> None:
 def run_batch(engine: DecodeEngine, cfg, args) -> None:
     """One lockstep batch of ``--batch`` prompts of ``--prompt-len``
     tokens through ``engine.generate``, after one throwaway generation
-    (kernel builds, allocator growth) of two tokens."""
+    (kernel builds, allocator growth) of two tokens.  An audio model's
+    rows get stub frames (b, encoder_seq, d) drawn after the prompts
+    from the same generator, in the model dtype, as the JAX launcher
+    draws them."""
     rng = np.random.default_rng(0)
     prompts = rng.integers(0, cfg.vocab, (args.batch, args.prompt_len)) \
         .astype(np.int32)
-    engine.generate(prompts, min(2, args.steps + 1))
+    frames = None
+    if cfg.family == "audio":
+        frames = torch.from_numpy(rng.standard_normal(
+            (args.batch, cfg.encoder_seq, cfg.d_model), dtype=np.float32)) \
+            .to(T._DTYPES[cfg.dtype])
+    engine.generate(prompts, min(2, args.steps + 1), frames=frames)
     engine.reset_metrics()
     _print_tune_info()
     t0 = time.perf_counter()
-    result = engine.generate(prompts, args.steps)
+    result = engine.generate(prompts, args.steps, frames=frames)
     dt = time.perf_counter() - t0
     tok_s = args.batch * result.steps / dt
     print(f"[serve] generated {result.steps} steps x {args.batch} seqs "
@@ -181,7 +201,7 @@ def run_batch(engine: DecodeEngine, cfg, args) -> None:
 
 def main(argv: Optional[List[str]] = None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--trace", type=int, default=8,
                     help="serve N Poisson-arrival requests")
@@ -287,6 +307,12 @@ def main(argv: Optional[List[str]] = None) -> None:
         print(f"[serve] local window {cfg.local_window}: each local "
               "layer's dense cache is a ring of "
               f"{T.cache_len(cfg, engine.max_len, 'local')} slots")
+    if cfg.encoder_layers:
+        print(f"[serve] encoder-decoder: {cfg.encoder_layers} encoder "
+              f"layers over {cfg.encoder_seq} frames; each slot's cross "
+              "k / v written at admission"
+              + ("" if args.batch is not None else
+                 " (trace requests carry no frames: zeros)"))
     recurrent = sorted({k for k in cfg.all_kinds
                         if k in T.RECURRENT_KINDS})
     if recurrent:

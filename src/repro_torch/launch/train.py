@@ -13,6 +13,13 @@ CPU when asked).
         --arch qwen3-moe-235b-a22b --smoke --steps 4 --device cpu \
         --ckpt-dir "$(mktemp -d)"
 
+    # the encoder-decoder and the prefix family: the data pipeline's
+    # batch carries stub frames / patch embeddings, which loss_fn takes
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch whisper-medium --smoke --steps 2 --seq-len 32 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch internvl2-76b --smoke --steps 2 --seq-len 40 --device cpu
+
 Prints the same ``[train] step N loss ... gnorm ... ms`` lines as the
 JAX driver, for every step (the JAX driver prints every tenth and the
 last).  With ``--ckpt-dir`` the run resumes from the newest committed
@@ -38,7 +45,8 @@ import torch
 
 from repro_torch import resolve_device, telemetry
 from repro_torch.checkpoint.checkpointer import Checkpointer
-from repro_torch.configs.base import get_config, get_smoke_config
+from repro_torch.configs.base import ARCH_IDS, get_config, \
+    get_smoke_config
 from repro_torch.data import pipeline
 from repro_torch.train import train_step as TS
 
@@ -123,7 +131,7 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="smollm-360m")
+    ap.add_argument("--arch", default="smollm-360m", choices=ARCH_IDS)
     ap.add_argument("--smoke", action="store_true",
                     help="use the arch's reduced smoke config")
     ap.add_argument("--steps", type=int, default=100)

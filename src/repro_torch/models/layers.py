@@ -1,7 +1,8 @@
-"""Shared model layers (port of ``repro/models/layers.py``, dense
-self-attention path): RMS norm, rotary embeddings, the SwiGLU MLP, GQA
-attention over a dense per-slot KV cache or a shared page pool,
-embeddings, and the chunked cross-entropy of training.
+"""Shared model layers (port of ``repro/models/layers.py``): RMS norm
+and LayerNorm, rotary embeddings, the SwiGLU and GELU MLPs, GQA
+self-attention over a dense per-slot KV cache or a shared page pool,
+cross-attention over an encoder's output, embeddings, and the chunked
+cross-entropy of training.
 
 Parameters are plain dicts of tensors in the JAX layout ((d_in, d_out)
 weights); a projection may be a quantized ``{"q", "scale"}`` struct
@@ -22,14 +23,37 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import ops
 
 
+#: elements drawn at once in f32 by :func:`normal_init`: a larger leaf is
+#: drawn in slices of this many into its output, so a full-width bank
+#: (kimi-k2's 384 experts: 5.6e9 elements a bank) never has a whole f32
+#: copy beside it on the card
+DRAW_CHUNK = 1 << 28
+
+
+def normal_init(generator: torch.Generator, shape, std: float, dtype
+                ) -> torch.Tensor:
+    """N(0, std^2) values of ``shape``, drawn in f32, scaled in place and
+    cast.  A leaf of at most :data:`DRAW_CHUNK` elements is one draw (the
+    bits of ``(randn(shape) * std).to(dtype)``); a larger one is drawn
+    :data:`DRAW_CHUNK` elements at a time in order, which bounds the f32
+    temporary at 1 GiB (other values, the same distribution)."""
+    shape = tuple(shape)
+    out = torch.empty(shape, dtype=dtype, device=generator.device)
+    flat = out.view(-1)
+    for i in range(0, flat.numel(), DRAW_CHUNK):
+        part = flat[i:i + DRAW_CHUNK]
+        w = torch.randn(part.shape if flat.numel() > DRAW_CHUNK else shape,
+                        generator=generator, device=generator.device,
+                        dtype=torch.float32)
+        part.copy_(w.mul_(std).reshape(-1))
+    return out
+
+
 def dense_init(generator: torch.Generator, shape, dtype) -> torch.Tensor:
     """N(0, 1/d_in) weights of ``shape`` (..., d_in, d_out), drawn in f32
     and cast, as ``layers.dense_init`` does; a leading repeats axis
     gives the stacked layout."""
-    std = 1.0 / math.sqrt(shape[-2])
-    w = torch.randn(tuple(shape), generator=generator,
-                    device=generator.device, dtype=torch.float32) * std
-    return w.to(dtype)
+    return normal_init(generator, shape, 1.0 / math.sqrt(shape[-2]), dtype)
 
 
 def _row_sum(x: torch.Tensor) -> torch.Tensor:
@@ -51,6 +75,29 @@ def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6
     xf = x.float()
     var = _row_sum(xf * xf) / x.shape[-1]
     out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+def init_layer_norm(d: int, device, lead: tuple = ()) -> dict:
+    """LayerNorm's f32 scale (ones) and bias (zeros); ``lead`` stacks."""
+    return {"scale": torch.ones(lead + (d,), dtype=torch.float32,
+                                device=device),
+            "bias": torch.zeros(lead + (d,), dtype=torch.float32,
+                                device=device)}
+
+
+def layer_norm(params: dict, x: torch.Tensor, eps: float = 1e-5
+               ) -> torch.Tensor:
+    """LayerNorm in f32 with the population variance, at the JAX
+    package's fixed eps of 1e-5 (the config's ``norm_eps`` is the RMS
+    norm's).  Mean and variance are sums by :func:`_row_sum`, so a row
+    has the same bits at batch 1 and inside a continuous batch."""
+    xf = x.float()
+    d = x.shape[-1]
+    mean = _row_sum(xf) / d
+    xc = xf - mean
+    var = _row_sum(xc * xc) / d
+    out = xc * torch.rsqrt(var + eps) * params["scale"] + params["bias"]
     return out.to(x.dtype)
 
 
@@ -83,6 +130,21 @@ def swiglu(params: dict, x: torch.Tensor,
     return ops.gemm(h, params["w_down"], residual=residual)
 
 
+def init_gelu_mlp(generator: torch.Generator, d: int, d_ff: int, dtype,
+                  lead: tuple = ()) -> dict:
+    """The GELU MLP's ``w_in`` (d, d_ff) and ``w_out`` (d_ff, d)."""
+    return {"w_in": dense_init(generator, lead + (d, d_ff), dtype),
+            "w_out": dense_init(generator, lead + (d_ff, d), dtype)}
+
+
+def gelu_mlp(params: dict, x: torch.Tensor,
+             residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """gelu(x W_in) with the activation (the tanh form) on the GEMM's
+    flush, then W_out with the residual add on its flush."""
+    h = ops.gemm(x, params["w_in"], activation="gelu")
+    return ops.gemm(h, params["w_out"], residual=residual)
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnLayerSpec:
     """Layer configuration (weights + head geometry)."""
@@ -110,17 +172,44 @@ def _project_qkv(params, x, spec: AttnLayerSpec, positions):
     return q, k, v
 
 
+def project_kv(params: dict, memory: torch.Tensor, spec: AttnLayerSpec
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Cross-attention's k / v heads from the raw encoder output (b, f,
+    d): (b, f, n_kv_heads, head_dim) each, with no rotary embedding."""
+    b, f, _ = memory.shape
+    k = ops.gemm(memory, params["wk"]).reshape(b, f, spec.n_kv_heads,
+                                               spec.head_dim)
+    v = ops.gemm(memory, params["wv"]).reshape(b, f, spec.n_kv_heads,
+                                               spec.head_dim)
+    return k, v
+
+
 def attention_block(params: dict, x: torch.Tensor, spec: AttnLayerSpec,
                     positions: Optional[torch.Tensor] = None,
+                    kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                    memory: Optional[torch.Tensor] = None,
                     residual: Optional[torch.Tensor] = None
                     ) -> torch.Tensor:
-    """Full-sequence self-attention; ``residual`` fuses into the output
-    projection's flush.  (Cross-attention arrives with ROADMAP A9.)"""
+    """Full-sequence (train / prefill / encoder) attention; ``residual``
+    fuses into the output projection's flush.
+
+    Cross-attention: ``memory`` (the raw (b, f, d) encoder output, k / v
+    projected here) or ``kv`` (heads already projected, e.g. from the
+    cross cache).  Either makes it non-causal with no window, and only q
+    takes the rotary embedding (when ``spec.use_rope``)."""
     b, s, _ = x.shape
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q, k, v = _project_qkv(params, x, spec, positions)
-    out = ops.attention(q, k, v, causal=spec.causal, window=spec.window)
+    if kv is None and memory is None:
+        q, k, v = _project_qkv(params, x, spec, positions)
+        out = ops.attention(q, k, v, causal=spec.causal, window=spec.window)
+    else:
+        q = ops.gemm(x, params["wq"]).reshape(b, s, spec.n_heads,
+                                              spec.head_dim)
+        if spec.use_rope:
+            q = rope(q, positions, spec.rope_theta)
+        k, v = kv if kv is not None else project_kv(params, memory, spec)
+        out = ops.attention(q, k, v, causal=False, window=0)
     return ops.gemm(out.reshape(b, s, -1), params["wo"], residual=residual)
 
 
@@ -199,9 +288,7 @@ def paged_attention_decode(params: dict, x: torch.Tensor, cache: dict,
 
 def init_embedding(generator: torch.Generator, vocab: int, d: int,
                    dtype) -> torch.Tensor:
-    e = torch.randn((vocab, d), generator=generator,
-                    device=generator.device, dtype=torch.float32) * 0.02
-    return e.to(dtype)
+    return normal_init(generator, (vocab, d), 0.02, dtype)
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:

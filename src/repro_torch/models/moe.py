@@ -40,18 +40,17 @@ import torch.nn.functional as F
 
 from repro_torch import ops, quant, telemetry
 from repro_torch.kernels.gemm_grouped import shared_tables
-from repro_torch.models.layers import _row_sum, dense_init
+from repro_torch.models.layers import _row_sum, dense_init, normal_init
 
 
 def init_moe(generator: torch.Generator, d: int, d_ff: int,
              n_experts: int, dtype, repeats: int) -> dict:
     """Router (f32) and expert banks of ``repeats`` stacked layers, with
     the JAX init's standard deviations (router 1/sqrt(d), gate/up
-    1/sqrt(d), down 1/sqrt(d_ff))."""
+    1/sqrt(d), down 1/sqrt(d_ff)); a bank is drawn in slices
+    (:func:`~repro_torch.models.layers.normal_init`)."""
     def bank(shape, std):
-        w = torch.randn((repeats,) + shape, generator=generator,
-                        device=generator.device, dtype=torch.float32)
-        return w.mul_(std).to(dtype)
+        return normal_init(generator, (repeats,) + shape, std, dtype)
 
     return {
         "router": dense_init(generator, (repeats, d, n_experts),

@@ -9,7 +9,10 @@ eviction, and tokens/sec + occupancy metrics.
 
 * Dense cache: admission prefills ONE request into a free slot of the
   live cache (resident slots untouched); every leaf is copied, the
-  recurrent states of ``ssm`` / ``rec`` layers and the tail's too.
+  recurrent states of ``ssm`` / ``rec`` layers and the tail's too, and
+  an encoder-decoder's cross k / v, projected from the request's
+  ``frames`` (a request without frames cross-attends zeros, as in the
+  JAX package).
 * Paged pool (``page_size``): admission maps pages through
   :class:`~repro_torch.serve.paging.PagedKV` (content-hash prefix
   sharing, copy-on-write of a shared page the slot will write into),
@@ -69,14 +72,18 @@ def acceptance_requests(vocab: int, seed: int = 0) -> List["Request"]:
 
 @torch.inference_mode()
 def solo_greedy(params, cfg: ModelConfig, prompt: np.ndarray,
-                max_tokens: int, max_len: int) -> np.ndarray:
+                max_tokens: int, max_len: int, frames=None) -> np.ndarray:
     """The parity oracle: one request alone at batch 1, greedy — prefill
-    then token-by-token decode, on the parameters' device."""
+    (with the request's (F, d) ``frames``, an array or a host tensor,
+    for an encoder-decoder) then token-by-token decode, on the
+    parameters' device."""
     device = params["embed"].device
     cache = T.init_cache(cfg, 1, max_len, device=device)
     toks = torch.as_tensor(np.asarray(prompt)[None], dtype=torch.int64,
                            device=device)
-    logits, cache = T.prefill(params, cfg, toks, cache)
+    if frames is not None:
+        frames = torch.as_tensor(frames)[None].to(device)
+    logits, cache = T.prefill(params, cfg, toks, cache, frames=frames)
     out = []
     tok = torch.argmax(logits, -1)[:, None]
     for _ in range(max_tokens):
@@ -95,6 +102,8 @@ class Request:
     eos_id: Optional[int] = None
     arrival: float = 0.0                 # seconds since trace start
     rid: int = -1                        # assigned by submit()
+    frames: Optional[np.ndarray] = None  # (F, d) audio stub frames (an
+    #                                      array or a host tensor)
 
 
 @dataclasses.dataclass
@@ -222,9 +231,10 @@ class DecodeEngine:
     A sliding-window model's dense cache is a ring of ``min(max_len,
     window)`` slots a layer, and the engine still admits requests of up
     to ``max_len`` positions: prefill keeps a longer prompt's
-    ring-aligned tail.  A recurrent model (``ssm`` / ``rec`` layers)
-    serves on the dense cache only: ``page_size`` raises for it, as in
-    the JAX package (``models.transformer.check_paged``)."""
+    ring-aligned tail.  A recurrent model (``ssm`` / ``rec`` layers) and
+    an encoder-decoder serve on the dense cache only: ``page_size``
+    raises for them, as in the JAX package
+    (``models.transformer.check_paged``)."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  max_len: int, temperature: float = 0.0,
@@ -344,6 +354,18 @@ class DecodeEngine:
                 f"request needs {need} cache positions (prompt "
                 f"{int(req.prompt.shape[0])} + max_tokens {req.max_tokens} "
                 f"- 1) but the engine was built with max_len={self.max_len}")
+        if req.frames is not None:
+            if self.paged:
+                # refused here, not at admission inside the serve loop: a
+                # bad request must not stop a trace midway
+                raise ValueError("paged engine: audio/enc-dec requests "
+                                 "unsupported")
+            want = (self.cfg.encoder_seq, self.cfg.d_model)
+            if not self.cfg.encoder_layers or \
+                    tuple(np.shape(req.frames)) != want:
+                raise ValueError(f"{self.cfg.name} takes frames of shape "
+                                 f"{want if self.cfg.encoder_layers else None}"
+                                 f", got {tuple(np.shape(req.frames))}")
         if self.paged:
             total = self.kv.total_pages(need)
             cap = self.kv.pool.n_pages - 1
@@ -403,11 +425,16 @@ class DecodeEngine:
         queue_wait = max(adm_time - req.arrival, 0.0)
         toks = torch.as_tensor(req.prompt[None, :], dtype=torch.int64,
                                device=self.device)
+        frames = req.frames
+        if frames is not None:
+            if not isinstance(frames, torch.Tensor):
+                frames = torch.from_numpy(np.asarray(frames))
+            frames = frames[None].to(self.device)
         with telemetry.span("serve.prefill", rid=req.rid, slot=slot,
                             prompt_len=plen) as sp:
             logits, self._cache = T.prefill_into_slot(
                 self.params, self.cfg, toks, self._cache, slot,
-                max_len=self.max_len)
+                max_len=self.max_len, frames=frames)
             temp = np.float32(req.temperature)
             first = self._sample(logits, temp[None])
             sp.sync(first)
@@ -694,21 +721,25 @@ class DecodeEngine:
 
     # ---------------------------------------------------- lockstep front
 
-    def generate(self, prompts, n_steps: int, seed: int = 0
+    def generate(self, prompts, n_steps: int, frames=None, seed: int = 0
                  ) -> GenerationResult:
         """Lockstep front end: prompts (b, s) token ids (a tensor or an
         array), up to ``n_steps`` tokens each, at the engine's
         ``temperature`` / ``eos_id``, returned as a dense (b, steps)
-        array.  Rows that finish early (EOS) are padded with ``eos_id``
-        (0 without one) — post-EOS samples never leak into the result.
+        array; ``frames`` (b, F, d) gives row i the frames ``frames[i]``.
+        Rows that finish early (EOS) are padded with ``eos_id`` (0
+        without one) — post-EOS samples never leak into the result.
         ``seed`` reseeds the sampling generator.  Each row admits through
         the batch-1 slot prefill; decode runs batched."""
         self._gen.manual_seed(seed)
         if isinstance(prompts, torch.Tensor):
             prompts = prompts.cpu().numpy()
+        if isinstance(frames, torch.Tensor):
+            frames = frames.cpu()
         prompts_np = np.asarray(prompts).astype(np.int32)
         reqs = [Request(prompt=prompts_np[i], max_tokens=n_steps,
-                        temperature=self.temperature, eos_id=self.eos_id)
+                        temperature=self.temperature, eos_id=self.eos_id,
+                        frames=None if frames is None else frames[i])
                 for i in range(prompts_np.shape[0])]
         results = {r.rid: r for r in self.run(reqs)}
         ordered = [results[req.rid] for req in reqs]

@@ -137,6 +137,13 @@ def test_gemm_gated_equals_relu_gemm_aie_bitwise(cuda_device, m):
     (1, 50, 130, 3, 1, 20, False, 40),       # non-causal window, d 20
     (1, 100, 130, 16, 1, 256, True, 64),     # recurrentgemma's d 256, MQA
     (2, 45, 45, 4, 2, 200, True, 0),         # d 200: padded to 256
+    # whisper-medium: the encoder (1500 frames, 1500 keys: not a multiple
+    # of the key block), cross-attention at prefill and at decode (one
+    # query a slot over its 1500 encoder keys), MHA d 64
+    (1, 1500, 1500, 16, 16, 64, False, 0),
+    (1, 200, 1500, 16, 16, 64, False, 0),
+    (8, 1, 1500, 16, 16, 64, False, 0),
+    (1, 300, 300, 64, 8, 112, True, 0),      # kimi-k2 prefill, d 112
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
@@ -158,6 +165,7 @@ def test_flash_attention_kernel_matches_plain(cuda_device, b, sq, skv, hq,
     (2, 70, 4, 2, 17, 0),                    # odd head_dim: plain loads
     (4, 300, 16, 1, 256, 100),               # d 256, group 16, window
     (2, 70, 4, 2, 200, 0),                   # d 200: padded to 256
+    (8, 1024, 64, 8, 112, 0),                # kimi-k2 decode, d 112
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_kernel_matches_plain(cuda_device, b, S, hq, hkv, d,
@@ -171,6 +179,21 @@ def test_flash_decode_kernel_matches_plain(cuda_device, b, S, hq, hkv, d,
     pos[0] = S + 5                            # an idle slot past the end
     _close(flash_decode(q, k, v, pos, window=window),
            flash_decode_plain(q, k, v, pos, window=window), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cross_attention_decode_is_batch_invariant(cuda_device, dtype):
+    """whisper-medium's cross-attention at decode (8 slots x 1 query over
+    1500 encoder keys, non-causal, MHA d 64): each slot alone has the
+    bits it has among eight, which continuous == solo greedy needs."""
+    q = _randn((8, 1, 16, 64), dtype, cuda_device, 0)
+    k = _randn((8, 1500, 16, 64), dtype, cuda_device, 1)
+    v = _randn((8, 1500, 16, 64), dtype, cuda_device, 2)
+    out = flash_attention(q, k, v, causal=False)
+    for i in range(8):
+        one = slice(i, i + 1)
+        assert torch.equal(flash_attention(q[one], k[one], v[one],
+                                           causal=False), out[one]), i
 
 
 def test_kernels_are_batch_invariant(cuda_device):
@@ -583,6 +606,13 @@ QWEN3_CASES = {
     "qwen3_decode": (_routed(8, 128, 8, 8, 21), 64),
     "qwen3_prefill": (_routed(300, 128, 8, 24, 22), 2400),
 }
+#: kimi-k2-1t-a32b's (384 experts, top-8, capacity 8): an 8-slot decode
+#: step's 64 routed rows (most groups empty) and a 200-token prefill's
+#: 1600 (full experts drop their overflow)
+KIMI_CASES = {
+    "kimi_decode": (_routed(8, 384, 8, 8, 23), 64),
+    "kimi_prefill": (_routed(200, 384, 8, 8, 24), 1600),
+}
 #: (case, k, n, dtype) of the match test: the edge cases at three (k, n),
 #: one of them k = 300 off the 16-grid, in both dtypes; qwen3's gate/up
 #: and down shapes in bf16
@@ -671,6 +701,33 @@ def test_table_kernel_equals_group_metadata(cuda_device, case, bm):
                       (live, w_live)):
         assert got.dtype == torch.int32 and got.device.type == "cuda"
         assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("case", sorted(KIMI_CASES))
+@pytest.mark.parametrize("k,n", [(7168, 2048), (2048, 7168)])
+def test_gemm_grouped_at_384_experts(cuda_device, case, k, n):
+    """B7 at kimi-k2's 384 experts, top-8 (steering tables of
+    cdiv(m, bm) + 383 entries), bf16, at both CTA shapes: against its
+    plain version, rows past the groups zero, and its steering tables
+    equal group_metadata's."""
+    from repro_torch.kernels.gemm_grouped import (group_metadata,
+                                                  steering_tables)
+    sizes, m = KIMI_CASES[case]
+    bf = torch.bfloat16
+    a, b, gs, bias = _grouped_operands(sizes, m, k, n, bf, cuda_device, 0)
+    kw = dict(bias=bias, activation="silu")
+    want = gemm_grouped_plain(a, b, gs, **kw)
+    live = int(sum(sizes))
+    for cta in _ctas(bf):
+        got = gemm_grouped(a, b, gs, cta=cta, **kw)
+        _close(got, want, bf)
+        assert not got[live:].any(), "rows past the groups must be zero"
+    for bm in (16, 64):
+        (offs, gids, tids), lv = steering_tables(gs, m, bm)
+        (w_offs, w_gids, w_tids), w_lv = group_metadata(gs.cpu(), m, bm)
+        for got, w in ((offs, w_offs), (gids, w_gids), (tids, w_tids),
+                       (lv, w_lv)):
+            assert torch.equal(got.cpu(), w)
 
 
 def test_gemm_grouped_is_batch_invariant(cuda_device):

@@ -256,14 +256,14 @@ def test_execute_rejects_operands_that_mismatch_the_plan():
     # kernel's compiled one waits for A6's tuning half
     (lambda: ops.attn_plan(ops.AttnSpec(window=64, bkv=256),
                            (1, 64, 64, 2, 2, 16), device="cpu"), "A6"),
-    # the recurrent kinds are served; an encoder and prefix embeddings
-    # (whisper, internvl2) are not
-    (lambda: T.check_supported(dataclasses.replace(
-        get_smoke_config("smollm-360m"), layer_pattern=("rec",),
-        encoder_layers=2)), "A9"),
-    (lambda: T.check_supported(dataclasses.replace(
-        get_smoke_config("qwen3-moe-235b-a22b"), layer_pattern=("ssm",),
-        prefix_tokens=4)),
+    # every layer kind, the encoder-decoder and prefix embeddings are
+    # served; a local-window layer or a tail on the page pool is not
+    (lambda: T.check_paged(dataclasses.replace(
+        get_smoke_config("smollm-360m"), layer_pattern=("local",),
+        local_window=4)), "A9"),
+    (lambda: T.check_paged(dataclasses.replace(
+        get_smoke_config("qwen3-moe-235b-a22b"), n_layers=3,
+        tail_pattern=("attn",))),
      "A9"),
 ])
 def test_what_the_port_does_not_run_yet_raises(make, item):

@@ -244,29 +244,46 @@ def test_full_width_config_matches_jax_and_defaults_need_a_card():
             T.init_cache(get_smoke_config("smollm-360m"), 1, 8)
 
 
+#: what each case raises: features outside the port name the ROADMAP
+#: queue item that brings them; inputs a config cannot take raise
+#: ValueError
+_REFUSALS = {
+    "window": (NotImplementedError, "ROADMAP queue A6"),
+    "local": (NotImplementedError, "ROADMAP queue A9"),
+    "ssm": (ValueError, "an encoder needs a stack of attention layers"),
+    "prefix_embeds": (ValueError, "prefix embeddings of width 2"),
+    "frames": (ValueError, "has no encoder to take frames"),
+    "page_size": (NotImplementedError, "ROADMAP queue A9"),
+}
+
+
 @pytest.mark.parametrize("what", ["window", "local", "ssm", "prefix_embeds",
                                   "frames", "page_size"])
 def test_unported_features_raise(smoke, what):
-    """Each feature outside the slice refuses with NotImplementedError,
-    naming the ROADMAP queue item that brings it.  Windows are served
-    (dense ring and paged, tests/test_torch_window.py): what a window
-    still cannot have is an attention block choice other than the
-    kernel's compiled one (A6's tuning half), and on the pool a
-    local-window layer (A9).  ``local`` and ``ssm`` layers are served
-    (tests/test_torch_recurrent.py); beside them, absolute positions
-    (whisper's) and an encoder (A9) still raise."""
+    """Each feature outside the port refuses with NotImplementedError,
+    naming the ROADMAP queue item that brings it: an attention block
+    other than the kernel's compiled one (A6's tuning half), and a
+    ``local`` layer on the page pool (A9), alone or beside ``attn``
+    layers.  Every layer kind, absolute positions, prefix embeddings and
+    the encoder-decoder are served (tests/test_torch_archs.py); what
+    raises ValueError there is an input the config cannot take: an
+    encoder over recurrent layers, prefix embeddings of another width,
+    frames for a model with no encoder."""
     _, _, cfg, params = smoke
     toks = torch.as_tensor(_tokens((1, 4), cfg.vocab))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A"):
+    err, match = _REFUSALS[what]
+    with pytest.raises(err, match=match):
         if what == "window":
             q = torch.zeros((1, 4, cfg.n_heads, cfg.hd))
             kv = torch.zeros((1, 4, cfg.n_kv_heads, cfg.hd))
             ops.attention(q, kv, kv, window=8, bq=128)
-        elif what in ("local", "ssm"):
-            extra = dict(use_rope=False) if what == "local" \
-                else dict(encoder_layers=2)
-            T.init_params(dataclasses.replace(cfg, layer_pattern=(what,),
-                                              **extra),
+        elif what == "local":
+            T.init_paged_cache(dataclasses.replace(
+                cfg, local_window=4, layer_pattern=("local",)),
+                1, 3, 4, 2, device=CPU)
+        elif what == "ssm":
+            T.init_params(dataclasses.replace(cfg, layer_pattern=("ssm",),
+                                              encoder_layers=2),
                           torch.Generator().manual_seed(0), device=CPU)
         elif what == "page_size":           # paging, with a local window
             DecodeEngine(params, dataclasses.replace(
@@ -274,8 +291,9 @@ def test_unported_features_raise(smoke, what):
                 layer_pattern=("attn", "local")),
                 batch=1, max_len=8, page_size=4, device=CPU)
         else:
+            width = 2 if what == "prefix_embeds" else cfg.d_model
             T.prefill(params, cfg, toks, T.init_cache(cfg, 1, 8, device=CPU),
-                      **{what: torch.zeros((1, 2, cfg.d_model))})
+                      **{what: torch.zeros((1, 2, width))})
 
 
 def test_serve_cli_runs_a_trace_on_the_cpu(capsys):

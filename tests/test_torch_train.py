@@ -129,14 +129,19 @@ def test_remat_does_not_change_the_gradient(smoke):
 
 
 def test_forward_raises_for_what_is_not_ported(smoke):
+    """Prefix embeddings and frames are ported (tests/test_torch_archs.py);
+    what ``forward`` still refuses is what the config cannot take:
+    prefix embeddings of another width, frames for a model with no
+    encoder, an encoder beside a tail."""
     _, _, tcfg, tp = smoke
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
-        T.forward(tp, tcfg, toks, prefix_embeds=torch.zeros((1, 2, 60)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
+    with pytest.raises(ValueError, match="prefix embeddings of width 59"):
+        T.forward(tp, tcfg, toks, prefix_embeds=torch.zeros((1, 2, 59)))
+    with pytest.raises(ValueError, match="no encoder to take frames"):
         T.forward(tp, tcfg, toks, frames=torch.zeros((1, 2, 60)))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A9"):
-        T.forward(tp, dataclasses.replace(tcfg, encoder_layers=2), toks)
+    with pytest.raises(ValueError, match="an encoder needs"):
+        T.forward(tp, dataclasses.replace(tcfg, encoder_layers=2, n_layers=3,
+                                          tail_pattern=("attn",)), toks)
 
 
 # -------------------------------------------------- the GEMM Function
