@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py
 
-Phases (any failure raises and the script exits non-zero):
+Phases (any failure raises and the script exits non-zero; each logs
+its seconds, kept under ``phase_seconds`` in the JSON):
 
 1. require CUDA; print the card's name and power limit; TF32 off;
 2. build the hand-written kernels from ``src/repro_torch/csrc``;
@@ -46,7 +47,11 @@ Phases (any failure raises and the script exits non-zero):
    W8A16 on all four, W8A8 on B1 and B6, one out-quant case on B1 and on
    B6b, each held against its plain version and timed beside its byte
    or op bound, ``torch._int_mm`` x the scale (W8A8, where its shape
-   rules allow) or the unfused dequantize + library call (W8A16); then
+   rules allow) or the unfused dequantize + library call (W8A16); the
+   same at the int8 shapes of the paths phases 7e and 10 serve in int8
+   (recurrentgemma's RG-LRU in_proj and w_r / w_i, whisper's w_in +
+   gelu with and without a bias, its encoder wq over 1500 rows under
+   W8A8) and at mamba2's in_proj (n 4384, W8A16); then
    their bitwise gates: W8A8 == plain, W8A16 == B1's bf16 body on
    q.to(bfloat16) then * scale, B6 == B1 on every int8 path, B7's int8
    rows == B1's W8A16 rows, and B2 on int8 weights == relu(B1) * B1;
@@ -150,7 +155,11 @@ Phases (any failure raises and the script exits non-zero):
    4000) from CUDA-graph replays beside the eager step and its byte
    bound (weights, ring KV, the recurrent state read and written),
    continuous == solo greedy on every request, bit for bit, and the
-   paged engine's refusal; recurrentgemma's ring against a full
+   paged engine's refusal; recurrentgemma's weights then quantized to
+   int8 (the bf16 copy freed) and served in W8A16 and W8A8 on the dense
+   engine (the serve trace, launches == executed plans, the decode step
+   at position 3000 beside the bf16 step's, continuous == solo greedy);
+   recurrentgemma's ring against a full
    4096-slot cache (every local layer's ring attention equal to the full
    cache's on the same inputs within the bf16 gate, the logits' distance
    recorded) and its local attention's three plans (``explain()``); the
@@ -197,18 +206,38 @@ Phases (any failure raises and the script exits non-zero):
    k / v, every pass's cross-attention on B3), the encoder's share of an
    admission, the decode step at position 400 beside its byte bound
    (decoder weights, self KV and every slot's cross k / v), continuous
-   == solo greedy with the frames, the paged engine's refusal and the
+   == solo greedy with the frames, the paged engine's refusal, its int8
+   copy (the bf16 copy freed) served in W8A16 and W8A8 on the same trace
+   with the same gates, and the
    f32 smoke model card vs CPU within 1e-4; then internvl2-76b (depth
    cut 80 -> 8 layers: its 256-embedding prefix prefill + decode held
    to ``forward(prefix_embeds=)`` within 2e-2 of the row's largest
    logit, then served text only), kimi-k2-1t-a32b (61 -> 1 layer: 384
    experts, top-8, head_dim 112), deepseek-67b (95 -> 4) and minitron-8b
    (full depth), each with launches == executed plans, the decode step
-   and continuous == solo; the kernel phase holds B3 at whisper's
+   and continuous == solo; kimi-k2 and deepseek-67b then on the page
+   pool with the same weights (launches == executed plans with B5 at
+   every decode, kimi's at head_dim 112; the paged decode step; paged
+   greedy == paged solo for kimi, == dense solo for deepseek); the
+   kernel phase holds B3 at whisper's
    encoder, cross-prefill and cross-decode shapes, B3 / B4 at head_dim
    112 and B7 at 384 experts (decode 64 rows, prefill 2400), all timed
-   beside SDPA / ``torch._grouped_mm`` and their bounds, and every new
-   config's decode GEMMs, gate / up and d 128 attention (checked).
+   beside SDPA / ``torch._grouped_mm`` and their bounds, B5 at kimi's
+   heads (timed beside the gather + SDPA), and every new
+   config's decode GEMMs, gate / up and d 128 attention (checked);
+11. training the windowed and encoder-decoder families: one AdamW step of
+   h2o-danube-3-4b-smoke (64 tokens past its 32-token window) and of
+   whisper-medium-smoke on the card against the CPU, as 7b; then
+   ``train`` on h2o-danube-3-4b at full width, 8 of 24 layers, b 1 x s
+   4608 (past its 4096-token window; the peak memory reckoned and
+   logged first) and on whisper-medium at full width and depth, b 8 x s
+   448 over 1500 stub frames a row, each with the optimizer
+   ``select_optimizer`` gives the full-depth config, 3 steps: launches
+   equal the executed plans (B3 with the window; non-causal for the
+   encoder and the cross-attention), no plain version, losses and grad
+   norms finite, every gradient leaf finite and non-zero at step 0;
+   step wall ms, tok/s and peak memory; then B3 at both training shapes
+   against its plain version, SDPA and its bound.
 
 Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
 sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
@@ -221,7 +250,8 @@ layers' shape, which no served path runs), ``whisper-medium`` and
 ``kimi-k2-1t-a32b`` keys their decode steps' (kimi's B3: a 300-token
 prefill), a ``train`` key the full-width training step's (B7's: the
 MoE training layer-step's), a ``train qwen3-moe-235b-a22b`` key B1's and
-B6's f32 router GEMMs of that step, and the
+B6's f32 router GEMMs of that step, B3's ``train h2o-danube-3-4b`` and
+``train whisper-medium`` keys its launches at those runs' shapes, and the
 four GEMMs' ``int8`` objects hold their int8 cases, ``... tuned`` paths
 the autotune phases' second serve runs,
 step sums by mode and launches on the int8 paths) and the card line
@@ -478,6 +508,14 @@ DEEPSEEK = "deepseek-67b"
 MINITRON = "minitron-8b"
 KIMI = "kimi-k2-1t-a32b"
 A9_LAYERS = {INTERNVL: 8, DEEPSEEK: 4, KIMI: 1, MINITRON: None}
+#: the last configs also served on the page pool, after their dense run
+#: on the same weights, and the reference their paged greedy is held to:
+#: deepseek-67b dense solo runs; kimi-k2 (a MoE: a prefill chunk sizes
+#: the expert capacity by its tokens) paged solo runs.  kimi's heads (64
+#: / 8 of 112) are the B5 shape no other served path launches;
+#: internvl2-76b's and minitron-8b's (group 8 and 4 at d 128) are B5's
+#: d-128 body at groups its card tests cover, and stay dense here
+A9_PAGED = {KIMI: "paged", DEEPSEEK: "dense"}
 WHISPER_MAX_LEN = 448
 #: every slot of whisper's timed decode step decodes here
 WHISPER_STEP_POS = 400
@@ -508,6 +546,18 @@ KIMI_TIMED_ON = {
     "flash_attention": "one 300-token prefill at 1 layer (h 64/8, d 112)",
     "flash_decode": "one 8-slot decode step at 1 layer (1024-slot cache, "
                     "h 64/8, d 112)",
+    "flash_decode_paged": "one 8-slot paged decode step at 1 layer (64 "
+                          "pages of 16 a slot, h 64/8, d 112)",
+}
+#: the same for B3 at the full-width training runs' shapes, under "train
+#: <model>"
+A9_TRAIN_TIMED_ON = {
+    H2O: "h2o-danube-3-4b training at 8 layers: one step's 16 launches "
+         "(1 x 4608, h 32/8, d 120, window 4096; forward and remat "
+         "recompute)",
+    WHISPER: "whisper-medium training: one step's 24 encoder launches (8 x "
+             "1500 frames, h 16/16, d 64, non-causal; the decoder's self "
+             "and cross launches are at other shapes, not timed)",
 }
 #: the row keys that weight a case in a per-model sum (its launches in
 #: that model's step)
@@ -573,6 +623,22 @@ def log(msg: str) -> None:
     started (a phase's cost is the difference of two stamps)."""
     print(f"[chip_smoke {time.perf_counter() - _T_START:7.1f}s] {msg}",
           flush=True)
+
+
+class PhaseClock:
+    """The seconds of each phase of the run: :meth:`mark` logs the time
+    since the previous mark (or the clock's start) as the named phase's
+    and keeps it in :attr:`seconds`."""
+
+    def __init__(self):
+        self.seconds = {}
+        self._last = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self._last
+        self._last = now
+        log(f"phase {name}: {self.seconds[name]:.1f} s")
 
 
 def card_line() -> str:
@@ -892,7 +958,7 @@ def a9_attention_cases():
         ],
         "flash_decode_paged": [
             paged_case("kimi decode 8 slots 64x16 h64/8 d112", 0, pos, 16,
-                       64, dtype=bf, **kd),
+                       64, dtype=bf, timed=True, kimi_weight=1, **kd),
         ],
         "gemm_gated": [],
     }
@@ -1823,14 +1889,14 @@ def _int_mm_ok(m, k, n):
 
 
 def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
-                   out_dtype=None, out_scale=None, tb=False, tile=None,
-                   **extra):
+                   bias=False, act=None, out_dtype=None, out_scale=None,
+                   tb=False, tile=None, **extra):
     """B1 or, ``tb``, B6 (at ``tile`` or its int8 'tb' plan's) on an int8
-    weight: W8A16 (bf16 A, bf16 or ``out_dtype`` C) or W8A8 (A int8, f32
-    C, or int8 under ``out_scale``).  Library yardstick: W8A8
-    ``torch._int_mm`` x the scale where its shape rules allow, else none;
-    W8A16 has no one call, and the unfused dequantize + matmul is timed
-    beside it."""
+    weight: W8A16 (bf16 A, bf16 or ``out_dtype`` C, an f32 ``bias`` and
+    ``act`` on the flush) or W8A8 (A int8, f32 C, or int8 under
+    ``out_scale``).  Library yardstick: W8A8 ``torch._int_mm`` x the
+    scale where its shape rules allow, else none; W8A16 has no one call,
+    and the unfused dequantize + matmul is timed beside it."""
     w8a8 = mode == "w8a8"
     out_dtype = out_dtype or (torch.int8 if out_scale is not None else
                               torch.float32 if w8a8 else torch.bfloat16)
@@ -1838,6 +1904,7 @@ def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
         spec = ops.GemmSpec(a_dtype="int8" if w8a8 else "bfloat16",
                             b_quant=True, out_dtype=out_dtype,
                             epilogue=ops.Epilogue(
+                                bias=bias, activation=act,
                                 residual=residual,
                                 out_quant=out_scale is not None),
                             strategy="tb")
@@ -1857,6 +1924,10 @@ def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
             kw["tile"] = tile
         if residual:
             kw["residual"] = rand((m, n), torch.bfloat16)
+        if bias:
+            kw["bias"] = rand((n,), torch.float32)
+        if act:
+            kw["activation"] = act
         if out_scale is not None:
             kw["out_scale"] = out_scale
         return (a, q), kw
@@ -1864,15 +1935,20 @@ def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
     def int_mm(a, q, b_scale, out_dtype, tile=None, **_):
         return torch._int_mm(a, q).float() * b_scale
 
-    def dequant(a, q, b_scale, out_dtype, residual=None, tile=None):
+    def dequant(a, q, b_scale, out_dtype, residual=None, bias=None,
+                activation=None, tile=None):
         x = torch.matmul(a, q * b_scale.to(a.dtype))
+        if bias is not None:
+            x = x + bias
+        if activation == "gelu":
+            x = F.gelu(x, approximate="tanh")
         return (x + residual if residual is not None else x).to(out_dtype)
 
     def cost(args, kw):
         a, q = args
         out = m * n * torch.empty((), dtype=out_dtype).element_size()
-        return (nbytes(a, q, kw["b_scale"], kw.get("residual")) + out,
-                2.0 * m * n * k)
+        return (nbytes(a, q, kw["b_scale"], kw.get("residual"),
+                       kw.get("bias")) + out, 2.0 * m * n * k)
     if tile is not None:
         name += f" tile {tile.bm}x{tile.bk}x{tile.bn}"
     case = dict(name=f"{mode} {name}", weight=weight, make=make, cost=cost,
@@ -1896,29 +1972,72 @@ def int8_moe_cases(mode):
     outside).  Returns {kernel: [cases]}."""
     d, q, kv, V = 4096, 8192, 512, 151936
     w8a8 = mode == "w8a8"
-    out = {"gemm_aie": [], "gemm_tb": []}
+    shapes = []
     for m, per_step, tag in ((8, 1, "decode"), (300, 0, "prefill")):
-        shapes = [(f"qwen3 {tag} wq {m}x{d}x{q}", per_step * MOE_LAYERS, d, q,
-                   False, None),
-                  (f"qwen3 {tag} wk/wv {m}x{d}x{kv}",
-                   per_step * 2 * MOE_LAYERS, d, kv, False, None),
-                  (f"qwen3 {tag} wo{'' if w8a8 else '+res'} {m}x{q}x{d}",
-                   per_step * MOE_LAYERS, q, d, not w8a8, None)]
-        if m == 8:
-            shapes.append((f"qwen3 decode lm_head 8x{d}x{V}", 1, d, V, False,
-                           torch.float32))
-        for name, steps, k, n, res, out_dtype in shapes:
-            spec = ops.GemmSpec(
-                a_dtype="int8" if w8a8 else "bfloat16", b_quant=True,
-                out_dtype="float32" if w8a8 or out_dtype else None,
-                epilogue=ops.Epilogue(residual=res))
-            tile = ops.plan(spec, (m, k, n)).tile
-            tb = tile.strategy == "tb"
-            out["gemm_tb" if tb else "gemm_aie"].append(int8_gemm_case(
-                name, 0, m, k, n, mode, residual=res, out_dtype=out_dtype,
-                tb=tb, tile=tile if tb else None, moe_weight=steps,
-                timed=True))
+        shapes += [
+            (f"qwen3 {tag} wq {m}x{d}x{q}", m, d, q,
+             {"moe_weight": per_step * MOE_LAYERS}),
+            (f"qwen3 {tag} wk/wv {m}x{d}x{kv}", m, d, kv,
+             {"moe_weight": per_step * 2 * MOE_LAYERS}),
+            (f"qwen3 {tag} wo{'' if w8a8 else '+res'} {m}x{q}x{d}", m, q, d,
+             {"moe_weight": per_step * MOE_LAYERS, "residual": not w8a8})]
+    shapes.append((f"qwen3 decode lm_head 8x{d}x{V}", 8, d, V,
+                   {"moe_weight": 1, "out_dtype": torch.float32}))
+    return int8_planned_cases(mode, shapes)
+
+
+def int8_planned_cases(mode, shapes):
+    """``shapes`` (name, m, k, n, keywords of :func:`int8_gemm_case`) as
+    int8 cases, each on the kernel its int8 HOPPER_H100 plan picks (B1,
+    or B6 at the plan's tile), timed: {kernel: [cases]}.  Under W8A8 a
+    linear epilogue runs outside the kernel (the re-route), so a W8A8
+    case is the bare int8 x int8 product with f32 C."""
+    w8a8 = mode == "w8a8"
+    out = {"gemm_aie": [], "gemm_tb": []}
+    for name, m, k, n, ep in shapes:
+        spec = ops.GemmSpec(
+            a_dtype="int8" if w8a8 else "bfloat16", b_quant=True,
+            out_dtype="float32" if w8a8 or ep.get("out_dtype") else None,
+            epilogue=ops.Epilogue(bias=ep.get("bias", False),
+                                  activation=ep.get("act"),
+                                  residual=ep.get("residual", False)))
+        tile = ops.plan(spec, (m, k, n)).tile
+        tb = tile.strategy == "tb"
+        out["gemm_tb" if tb else "gemm_aie"].append(int8_gemm_case(
+            name, 0, m, k, n, mode, tb=tb, tile=tile if tb else None,
+            timed=True, **ep))
     return out
+
+
+def int8_a9_cases(mode):
+    """The int8 GEMMs of the paths int8 serving had not run before:
+    recurrentgemma-9b's RG-LRU in_proj and gate projections (w_r / w_i,
+    their output read in f32) at an 8-slot decode step, in both modes;
+    whisper-medium's w_in + gelu at an 8-slot decode step (W8A16: a
+    non-linear epilogue stays off the W8A8 re-route), the same with an
+    f32 bias on the flush (no served GEMM of either package carries a
+    bias: the epilogue's bias path), and an encoder projection over the
+    1500 frames under W8A8 (each row quantized on its own); mamba2-370m's
+    in_proj (n 4384, not a multiple of 64) under W8A16.  Its int8
+    serving waits: a kernel row only."""
+    rg, wh, mb = get_config(RG), get_config(WHISPER), get_config(MAMBA)
+    d, w = rg.d_model, rg.lru_width
+    shapes = [(f"rg decode rec in_proj 8x{d}x{2 * w}", 8, d, 2 * w, {}),
+              (f"rg decode rec w_r / w_i 8x{w}x{w}", 8, w, w, {})]
+    wd, ff, F_ = wh.d_model, wh.d_ff, wh.encoder_seq
+    if mode == "w8a16":
+        dd = M2.dims(mb.d_model, mb.ssm_state)
+        shapes += [
+            (f"whisper decode w_in+gelu 8x{wd}x{ff}", 8, wd, ff,
+             {"act": "gelu"}),
+            (f"whisper decode w_in+bias+gelu 8x{wd}x{ff}", 8, wd, ff,
+             {"act": "gelu", "bias": True}),
+            (f"mamba2 decode in_proj 8x{mb.d_model}x{dd['proj_out']}", 8,
+             mb.d_model, dd["proj_out"], {})]
+    else:
+        shapes.append((f"whisper encoder wq {F_}x{wd}x{wd}", F_, wd, wd,
+                       {}))
+    return int8_planned_cases(mode, shapes)
 
 
 def int8_gated_case(name, weight, m, k, n, **extra):
@@ -1985,7 +2104,8 @@ def int8_cases():
     launches of that shape in one step) and 300-token prefill, and
     qwen3-moe's decode step and prefill; one out-quant case on B1 and on
     B6b; the edges k = 300 and n = 200 (B7: rows not whole 16-byte
-    units, so the cp.async path)."""
+    units, so the cp.async path); recurrentgemma-9b's, whisper-medium's
+    and mamba2-370m's shapes (:func:`int8_a9_cases`)."""
     d, ff, V = 960, 2560, 49152
     out = {"gemm_aie": {}, "gemm_tb": {}, "gemm_gated": {},
            "gemm_grouped": {}}
@@ -2011,7 +2131,7 @@ def int8_cases():
                                mode, tb=tb, timed=True),
                 int8_gemm_case("edge 9x300x200 k % 16 != 0", 0, 9, 300, 200,
                                mode, tb=tb),
-            ] + int8_moe_cases(mode)[name]
+            ] + int8_moe_cases(mode)[name] + int8_a9_cases(mode)[name]
             if w8a8:
                 out[name][mode].append(int8_gemm_case(
                     "out-quant 8x960x960 scale 0.37", 0, 8, d, d, mode,
@@ -2605,8 +2725,9 @@ def decode_weight_bytes(params) -> int:
     without an encoder and the decoder layers' cross k / v projections,
     which only a prefill with frames runs)."""
     dec = {k: v for k, v in params.items() if k != "encoder"}
-    unused = sum(nbytes(u["cross"]["wk"], u["cross"]["wv"])
-                 for u in params["layers"].values() if "cross" in u)
+    unused = sum(quant.gemm_weight_bytes(
+        {"cross": {w: u["cross"][w] for w in ("wk", "wv")}})
+        for u in params["layers"].values() if "cross" in u)
     return quant.gemm_weight_bytes(dec) - unused
 
 
@@ -2854,13 +2975,21 @@ def report_phase(plans, name, card):
 
 
 def bit_identity_phase(cfg, params):
+    """Continuous == solo greedy on the acceptance trace, 2 slots; an
+    encoder-decoder's requests carry their own stub frames (seed 5)."""
     max_len = max(p + mt for p, mt in ACCEPTANCE_TRACE) + 1
     reqs = acceptance_requests(cfg.vocab)
+    if cfg.encoder_layers:
+        rng = np.random.default_rng(5)
+        reqs = [dataclasses.replace(r, frames=rng.standard_normal(
+            (cfg.encoder_seq, cfg.d_model), dtype=np.float32))
+            for r in reqs]
     engine = DecodeEngine(params, cfg, batch=2, max_len=max_len,
                           device="cuda")
     results = {r.rid: r.tokens for r in engine.run(reqs)}
     for req in reqs:
-        want = solo_greedy(params, cfg, req.prompt, req.max_tokens, max_len)
+        want = solo_greedy(params, cfg, req.prompt, req.max_tokens, max_len,
+                           frames=req.frames)
         if not np.array_equal(results[req.rid], want):
             raise RuntimeError(f"continuous != solo greedy for request "
                                f"{req.rid}: {results[req.rid]} vs {want}")
@@ -3250,16 +3379,18 @@ def dense_bit_identity_phase(cfg, params, trace, tokens, max_len):
 
 
 def recurrent_phases(name, card, *, max_len, long, step_pos,
-                     ring_prompts=(), layers=None):
+                     ring_prompts=(), layers=None, int8=False):
     """A recurrent model at full width, its depth cut to ``layers``
     (bf16, random weights from seed 0) on the dense engine: the serve
     trace plus ``long``, 8
     slots of ``max_len`` positions, launches equal to the executed GEMM
     and attention plans; the decode step at ``step_pos`` (CUDA-graph
     device ms, eager ms, its byte bound); continuous == solo greedy on
-    every request; the paged engine's refusal; and, with local layers,
-    the ring against a full cache at ``ring_prompts`` and the local
-    attention's three plans."""
+    every request; the paged engine's refusal; with local layers, the
+    ring against a full cache at ``ring_prompts`` and the local
+    attention's three plans; with ``int8``, the weights' int8 copy
+    (the bf16 copy freed) served in W8A16 and W8A8 on the dense engine
+    (the serve trace, the step at ``step_pos``)."""
     cfg = get_config(name)
     if layers is not None:
         cfg = cut_depth(cfg, layers)
@@ -3301,7 +3432,26 @@ def recurrent_phases(name, card, *, max_len, long, step_pos,
                                                H2O_RING_STEPS, max_len,
                                                layer_gate=True)
         out["plans"] = attn_plan_phase(cfg, "local", long[-1][0], max_len)
+    if int8:
+        out["int8"] = int8_on_the_same_weights(
+            cfg, params, max_len=max_len, at_pos=step_pos,
+            bf16_step=dense["step"])
     del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def int8_on_the_same_weights(cfg, params, **kw):
+    """The int8 copy of ``params`` (the bf16 leaves freed as each is
+    quantized: the caller's tree is emptied) served by
+    :func:`int8_serve_phases` on the dense engine only (``kw`` its
+    trace, positions and the bf16 step)."""
+    qparams, q_bytes = quantize(params, cfg.name)
+    params.clear()
+    torch.cuda.empty_cache()
+    out = int8_serve_phases(cfg, qparams, paged=False, **kw)
+    out.update(q_bytes)
+    del qparams
     torch.cuda.empty_cache()
     return out
 
@@ -3453,7 +3603,8 @@ def whisper_phases(card):
     position :data:`WHISPER_STEP_POS` beside its byte bound (decoder
     weights, self KV and every slot's cross k / v); continuous == solo
     greedy with each request's frames; the paged engine's refusal; the
-    f32 smoke model on the card against the CPU."""
+    weights' int8 copy (the bf16 copy freed) in W8A16 and W8A8 on the
+    same trace; the f32 smoke model on the card against the CPU."""
     cfg, params, out = a9_params(WHISPER, card)
     trace = whisper_trace(cfg)
     torch.cuda.reset_peak_memory_stats()
@@ -3468,6 +3619,9 @@ def whisper_phases(card):
     out["bit_identity_requests"] = dense_bit_identity_phase(
         cfg, params, trace, dense.pop("_tokens"), WHISPER_MAX_LEN)
     out["paged_refusal"] = paged_refusal(cfg, params, WHISPER_MAX_LEN)
+    out["int8"] = int8_on_the_same_weights(
+        cfg, params, trace=trace, max_len=WHISPER_MAX_LEN,
+        at_pos=WHISPER_STEP_POS, bf16_step=dense["step"])
     del params
     torch.cuda.empty_cache()
     out["cross_device_max_abs_err"] = cross_device_phase(arch=WHISPER)
@@ -3481,7 +3635,11 @@ def a9_serve_phases(name, card):
     :data:`A9_STEP_POS` beside its byte bound (a MoE model's with the
     trace's prompts, no bound); continuous == solo greedy
     on every request; for a prefix model, first the prefix prefill +
-    decode against forward."""
+    decode against forward.  For a model of :data:`A9_PAGED`, then on
+    the same weights the paged engine: the serve trace with two
+    shared-prefix requests (launches equal to the executed plans, B5 at
+    every decode), its decode step, and paged greedy == the
+    :data:`A9_PAGED` reference's solo greedy."""
     cfg, params, out = a9_params(name, card)
     if cfg.prefix_tokens:
         out["prefix_vs_forward"] = prefix_phase(cfg, params)
@@ -3498,6 +3656,21 @@ def a9_serve_phases(name, card):
     out["serve"] = dense
     out["bit_identity_requests"] = dense_bit_identity_phase(
         cfg, params, serve_trace(cfg), dense.pop("_tokens"), 1024)
+    if name in A9_PAGED:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        paged = serve_phase(cfg, params, paged=True)
+        paged.pop("_plans")
+        paged.pop("_tokens")
+        paged["step"] = step_phase(cfg, params, paged=True,
+                                   at_pos=None if cfg.n_experts
+                                   else A9_STEP_POS)
+        out["paged_serve"] = paged
+        out["paged_bit_identity_reference"] = f"{A9_PAGED[name]} solo"
+        out["paged_bit_identity_requests"] = paged_bit_identity_phase(
+            cfg, params, reference=A9_PAGED[name])
+        out["paged_seconds"] = time.perf_counter() - t0
+        log(f"{name} paged phases: {out['paged_seconds']:.1f} s")
     del params
     torch.cuda.empty_cache()
     return out
@@ -3549,27 +3722,45 @@ def cross_device_phase(mode=None, arch="smollm-360m"):
     return worst
 
 
-def int8_serve_phases(cfg, qparams, *, reference="dense"):
-    """Serve the quantized weights: W8A16 on the dense cache and the page
-    pool, W8A8 on the dense cache, each pass's launches held to its
-    executed plans and its decode step timed from CUDA-graph replays;
-    then continuous == solo greedy and paged == ``reference`` solo greedy
-    in both modes.  The activation mode is W8A16 again after."""
+def int8_serve_phases(cfg, qparams, *, reference="dense", paged=True,
+                      trace=None, max_len=1024, at_pos=None, bf16_step=None):
+    """Serve the quantized weights: W8A16 on the dense cache and (with
+    ``paged``) the page pool, W8A8 on the dense cache, each pass's
+    launches held to its executed plans and its decode step timed from
+    CUDA-graph replays (``max_len`` positions a slot, every slot at
+    ``at_pos`` when given, beside the bf16 model's ``bf16_step``); then
+    continuous == solo greedy and (with ``paged``) paged == ``reference``
+    solo greedy in both modes.  ``trace`` defaults to the serve trace.
+    The activation mode is W8A16 again after."""
     out = {}
     try:
         for mode in INT8_MODES:
+            t0 = time.perf_counter()
+            torch.cuda.reset_peak_memory_stats()
             quant.set_activation_mode("w8a8" if mode == "w8a8" else "none")
-            run = {"serve": serve_phase(cfg, qparams, paged=False, mode=mode)}
-            run["serve"]["step"] = step_phase(cfg, qparams, paged=False,
-                                              mode=mode)
-            if mode == "w8a16":
+            run = {"serve": serve_phase(cfg, qparams, paged=False, mode=mode,
+                                        trace=trace, max_len=max_len)}
+            run["serve"]["step"] = step = step_phase(
+                cfg, qparams, paged=False, mode=mode, max_len=max_len,
+                at_pos=at_pos)
+            if bf16_step is not None:
+                ms, bf = step["device_ms_per_step"], \
+                    bf16_step["device_ms_per_step"]
+                step["bf16_device_ms_per_step"] = bf
+                log(f"{cfg.name} {mode} decode step: device {ms:.2f} ms "
+                    f"against bf16's {bf:.2f} ms ({ms / bf:.2f}x)")
+            if paged and mode == "w8a16":
                 run["paged_serve"] = serve_phase(cfg, qparams, paged=True,
                                                  mode=mode)
                 run["paged_serve"]["step"] = step_phase(cfg, qparams,
                                                         paged=True, mode=mode)
             run["bit_identity_requests"] = bit_identity_phase(cfg, qparams)
-            run["paged_bit_identity_requests"] = paged_bit_identity_phase(
-                cfg, qparams, reference=reference)
+            if paged:
+                run["paged_bit_identity_requests"] = \
+                    paged_bit_identity_phase(cfg, qparams,
+                                             reference=reference)
+            run["seconds"] = time.perf_counter() - t0
+            log(f"int8 {mode} ({cfg.name}) phases: {run['seconds']:.1f} s")
             out[mode] = run
     finally:
         quant.set_activation_mode("none")
@@ -3606,8 +3797,24 @@ def train_gemms_per_step(cfg) -> int:
     forward GEMMs twice (the forward and its recompute), dA and dB of q,
     k, v, o and down, and the gated pair's two f32 pre-activation
     recomputes, two dA and two dB; per loss chunk the lm_head forward,
-    its recompute, dA and dB."""
+    its recompute, dA and dB.  An encoder-decoder (GELU MLPs): per
+    decoder layer its ten GEMMs (self and cross q, k, v, o, w_in + gelu,
+    w_out) twice with their dA and dB and w_in's pre-activation
+    recompute; per encoder layer (not rematerialized) its six once with
+    their dA and dB and the same recompute."""
+    if cfg.encoder_layers:
+        return cfg.n_layers * (4 * 10 + 1) \
+            + cfg.encoder_layers * (3 * 6 + 1) + 4 * LOSS_CHUNKS
     return cfg.n_layers * (2 * 6 + 5 * 2 + 6) + 4 * LOSS_CHUNKS
+
+
+def train_attn_per_step(cfg) -> int:
+    """B3 launches of one remat training step: every attention layer's
+    forward and recompute, a decoder layer's cross-attention the same,
+    and each encoder layer's once (the backward recomputes through the
+    plain reference, which no counter counts)."""
+    cross = 2 * cfg.n_layers if cfg.encoder_layers else 0
+    return 2 * len(attn_windows(cfg)) + cross + cfg.encoder_layers
 
 
 class TransposeRecorder:
@@ -3632,7 +3839,8 @@ class TransposeRecorder:
         api._plain = self._plain
 
 
-def train_cross_device_phase(arch="smollm-360m", optimizer="adamw"):
+def train_cross_device_phase(arch="smollm-360m", optimizer="adamw",
+                             seq_len=32):
     """One ``make_train_step`` step of ``arch``'s smoke config (f32, TF32
     off) from one state on the card and on the CPU: loss, grad norm, every
     gradient leaf, and every updated parameter and optimizer moment within
@@ -3648,12 +3856,16 @@ def train_cross_device_phase(arch="smollm-360m", optimizer="adamw"):
     rounding of p_new is ~2e-3 of it.  The card's side must launch B1 or
     B6 and B3 (smollm-360m: B2; qwen3-moe: B7) and no plain version.
     The card's step then runs again from the same state: whether the two
-    card steps agree bit for bit is reported (``deterministic``)."""
+    card steps agree bit for bit is reported (``deterministic``).  A batch
+    of 4 rows of ``seq_len`` tokens (an encoder-decoder's with stub
+    frames; a windowed model's past its window, so the window masks keys
+    on both devices); a GELU MLP model launches no B2."""
+    t0 = time.perf_counter()
     cfg = get_smoke_config(arch)
     state = TS.init_state(cfg, torch.Generator().manual_seed(0), "cpu",
                           optimizer=optimizer)
     batch = pipeline.make_batch(
-        cfg, pipeline.DataConfig(seq_len=32, global_batch=4), 0)
+        cfg, pipeline.DataConfig(seq_len=seq_len, global_batch=4), 0)
     step = TS.make_train_step(cfg, peak_lr=3e-5, warmup_steps=0,
                               optimizer=optimizer, return_grads=True)
     c_state, c_m = step(state, batch)
@@ -3662,7 +3874,8 @@ def train_cross_device_phase(arch="smollm-360m", optimizer="adamw"):
     torch.cuda.synchronize()
     launches = counts()
     plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
-    ffn = "gemm_grouped" if cfg.n_experts else "gemm_gated"
+    ffn = "gemm_grouped" if cfg.n_experts else \
+        "flash_attention" if cfg.family == "audio" else "gemm_gated"
     if any(plain.values()) or not launches[ffn] \
             or not launches["flash_attention"] \
             or not (launches["gemm_aie"] + launches["gemm_tb_final"]):
@@ -3704,36 +3917,45 @@ def train_cross_device_phase(arch="smollm-360m", optimizer="adamw"):
                          params=again_state.params)))]
     deterministic = all(same) and torch.equal(g_m["loss"], again_m["loss"])
     log(f"train cross-device: {cfg.name} one {optimizer} step (f32, lr "
-        f"3e-5), card vs CPU max abs err: " + ", ".join(
+        f"3e-5, b 4 x s {seq_len}"
+        + (f", window {cfg.window}" if cfg.window else "")
+        + f"; {time.perf_counter() - t0:.1f} s), card vs CPU max abs err: "
+        + ", ".join(
             f"{k} {v:.2e}" for k, v in worst.items())
         + f" (tolerance 1e-4; update/lr 1e-2 on the {clear_n} of {all_n} "
         f"elements whose |grad| > 1e-5); card launches {launches}; two "
         f"card steps from one state equal bit for bit: {deterministic} "
         f"({sum(same)} of {len(same)} gradient and parameter leaves)")
-    return {"config": cfg.name, "optimizer": optimizer,
+    return {"config": cfg.name, "optimizer": optimizer, "seq_len": seq_len,
             "max_abs_err": worst, "launches": launches,
             "deterministic": deterministic}
 
 
-def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
-    """``repro_torch.launch.train.train`` on smollm-360m at full width in
-    bf16: TRAIN_STEPS AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens from
-    seed 0, checkpointed into ``ckpt_dir`` every RESUME_AT steps (the
-    saves write on a thread during the later steps; the resume phase
-    restarts from the first).  Kernel counts and the executed plans are set to 0 just
-    before the run and read, then set to 0 again, after every step: each
-    step's launches must equal its executed plans (B1, B2, B6's chunks),
-    B3 twice a layer (forward and remat recompute), no decode kernel and
-    no plain version; B2, B3 and B6 must launch in every step.  Every
+def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
+                steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
+                optimizer="adamw"):
+    """``repro_torch.launch.train.train`` on ``cfg`` (smollm-360m at full
+    width by default) in bf16: ``steps`` ``optimizer`` steps of ``batch``
+    x ``seq`` tokens from seed 0 (an encoder-decoder's rows with stub
+    frames), with ``ckpt_dir`` checkpointed there every RESUME_AT steps
+    (the saves write on a thread during the later steps; the resume
+    phase restarts from the first).  Kernel counts and the executed
+    plans are set to 0 just before the run and read, then set to 0
+    again, after every step: each step's launches must equal its
+    executed plans (B1, B2, B6's chunks), B3 :func:`train_attn_per_step`
+    times (forward and remat recompute; a window masks, an encoder and
+    the cross-attention run non-causal), no decode kernel and no plain
+    version; B3, B6 and (but for a GELU MLP) B2 must launch in every
+    step.  Every
     step's loss and grad norm must be finite and every parameter leaf's
     gradient at step 0 finite and non-zero.  With ``telemetry_base`` the
     run records telemetry: one ``train.step`` span a step, whose ms must
     agree with the step's wall ms within 5 % (the span waits for the
     loss), exported to ``chiprun_out/telemetry_base``."""
-    if TS.select_optimizer(cfg) != "adamw":
-        raise RuntimeError(f"{cfg.name} would not train with AdamW")
-    tokens = TRAIN_SEQ * TRAIN_BATCH
+    tokens = seq * batch
     flops = cfg.model_flops(tokens, training=True)
+    must = ("flash_attention", "gemm_tb_final") + (
+        () if cfg.family == "audio" else ("gemm_gated",))
     rows, out = [], {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -3743,7 +3965,7 @@ def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
             launches = counts()
             plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
             want = dict({n: 0 for n in launches}, **rec.implied())
-            want["flash_attention"] = 2 * cfg.n_layers
+            want["flash_attention"] = train_attn_per_step(cfg)
             executed = sum(rec.plans.values())
             if executed != train_gemms_per_step(cfg):
                 raise RuntimeError(f"train step {step}: {executed} GEMMs "
@@ -3753,7 +3975,7 @@ def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
                 raise RuntimeError(f"train step {step}: launches {launches}"
                                    f" (expected {want}), plain versions "
                                    f"{plain}")
-            for k in ("gemm_gated", "flash_attention", "gemm_tb_final"):
+            for k in must:
                 if not launches[k]:
                     raise RuntimeError(f"train step {step}: {k} never ran")
             loss, gn = float(m["loss"]), float(m["grad_norm"])
@@ -3776,10 +3998,11 @@ def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
                 "launches": launches, "gemms_executed": executed})
             out["step_plans"], out["step_views"] = dict(rec.plans), \
                 dict(tr.views)
-            if step == TRAIN_STEPS - 1:        # for the resume phase
+            if step == steps - 1 and ckpt_dir:    # for the resume phase
                 out["final_params"] = map_tree(
                     lambda t: t.detach().cpu(), state.params)
-            log(f"train step {step}: loss {loss:.4f} gnorm {gn:.3f}; wall "
+            log(f"train {cfg.name} step {step}: loss {loss:.4f} gnorm "
+                f"{gn:.3f}; wall "
                 f"{times['wall_ms']:.1f} ms, device {times['device_ms']:.1f} "
                 f"ms (CUDA events), {rows[-1]['tokens_per_s']:.0f} tok/s, "
                 f"model-FLOP share {rows[-1]['model_flop_share']:.2%} of "
@@ -3793,16 +4016,15 @@ def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
             else None
         try:
             final = train_launch.train(
-                cfg, steps=TRAIN_STEPS, seq_len=TRAIN_SEQ,
-                global_batch=TRAIN_BATCH, seed=0, device="cuda",
-                ckpt_dir=ckpt_dir, ckpt_every=RESUME_AT, on_step=on_step,
-                return_grads=True)
+                cfg, steps=steps, seq_len=seq, global_batch=batch, seed=0,
+                device="cuda", optimizer=optimizer, ckpt_dir=ckpt_dir,
+                ckpt_every=RESUME_AT, on_step=on_step, return_grads=True)
         finally:
             telemetry.disable()
         seconds = time.perf_counter() - t0
     if trec is not None:
         spans = [e for e in trec.events if e["name"] == "train.step"]
-        if [e["attrs"]["step"] for e in spans] != list(range(TRAIN_STEPS)):
+        if [e["attrs"]["step"] for e in spans] != list(range(steps)):
             raise RuntimeError(f"train telemetry: spans {spans}")
         for e, r in zip(spans, rows):
             r["span_ms"] = e["dur"] * 1e3
@@ -3826,6 +4048,7 @@ def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
     peak = torch.cuda.max_memory_allocated()
     steady = rows[1:]
     out.update({"config": cfg.name, "dtype": cfg.dtype, "steps": rows,
+                "optimizer": optimizer, "batch": batch, "seq": seq,
                 "final": final, "seconds": seconds,
                 "tokens_per_step": tokens, "model_flops_per_step": flops,
                 "peak_memory_bytes": peak,
@@ -3833,8 +4056,8 @@ def train_phase(cfg, card, ckpt_dir, telemetry_base=None):
                              for k in rows[0]["launches"]}})
     for key in ("wall_ms", "device_ms", "tokens_per_s", "model_flop_share"):
         out[f"steady_{key}"] = float(np.median([r[key] for r in steady]))
-    log(f"train {cfg.name} bf16 b {TRAIN_BATCH} x s {TRAIN_SEQ}, AdamW, "
-        f"steps 1-{TRAIN_STEPS - 1} (median): wall "
+    log(f"train {cfg.name} {cfg.dtype} b {batch} x s {seq}, {optimizer}, "
+        f"steps 1-{steps - 1} (median): wall "
         f"{out['steady_wall_ms']:.1f} ms, device "
         f"{out['steady_device_ms']:.1f} ms, "
         f"{out['steady_tokens_per_s']:.0f} tok/s, model-FLOP share "
@@ -3915,6 +4138,94 @@ def train_kernel_phase(step_plans, attn=True, keep=lambda pl: True):
     with torch.inference_mode():
         return {name: check_kernel(name, c) for name, c in cases.items()
                 if c}
+
+
+# --------------------- training the windowed and encoder-decoder families
+
+#: (layers, steps, batch, sequence) of each family's full-width training
+#: run: h2o-danube-3-4b at the depth its serve path runs (H2O_LAYERS),
+#: one row of 4608 tokens, past its 4096-token window; whisper-medium at
+#: full depth, 8 rows of its 448-token decoder context, each over 1500
+#: stub frames.  The attention backward recomputes through the plain f32
+#: reference (blocked past 1024 positions): its score blocks, h x s x s x
+#: 4 bytes a layer in all (2.7 GB for h2o's, 1.2 GB for whisper's
+#: encoder), bound the length
+A9_TRAIN = {H2O: (H2O_LAYERS, 3, 1, 4608), WHISPER: (None, 3, 8, 448)}
+#: the smoke configs' card-against-CPU step: h2o's 64 tokens run past its
+#: 32-token smoke window
+A9_TRAIN_CROSS_SEQ = {H2O: 64, WHISPER: 32}
+
+
+def a9_train_phase(name, card):
+    """:func:`train_phase` on ``name`` at full width (depth by
+    :data:`A9_TRAIN`), with the optimizer ``select_optimizer`` gives the
+    full-depth config; the peak memory is reckoned and logged first (16
+    bytes a parameter: the bf16 parameters, gradients, clipped gradients
+    and new parameters, and AdamW's two f32 moments; plus one layer's
+    f32 attention scores in the backward), then measured."""
+    t0 = time.perf_counter()
+    full = get_config(name)
+    layers, steps, batch, seq = A9_TRAIN[name]
+    cfg = full if layers is None else \
+        dataclasses.replace(full, n_layers=layers)
+    optimizer = TS.select_optimizer(full)
+    n = cfg.param_count()
+    per_param = 4 * 2 + (8 if optimizer == "adamw" else 0)
+    skv = cfg.encoder_seq or seq
+    scores = cfg.n_heads * (batch * skv * skv) * 4
+    reckoned = n * per_param + scores
+    log(f"train {name}: full width, {cfg.n_layers} of {full.n_layers} "
+        f"layers, {optimizer} (select_optimizer of the {full.n_layers}-"
+        f"layer config), b {batch} x s {seq}"
+        + (f" (window {cfg.window}: the window masks keys)" if cfg.window
+           else "")
+        + (f", {cfg.encoder_seq} stub frames a row" if cfg.encoder_layers
+           else "")
+        + f"; reckoned peak {reckoned / 1e9:.1f} GB: {n / 1e9:.2f} G "
+        f"parameters x {per_param} B (bf16 parameters, gradients, clipped "
+        f"gradients, new parameters"
+        + (", AdamW's two f32 moments" if optimizer == "adamw" else "")
+        + f") + {scores / 1e9:.2f} GB of one layer's f32 attention scores "
+        f"in the backward [{card}]")
+    torch.cuda.empty_cache()
+    run = train_phase(cfg, card, steps=steps, seq=seq, batch=batch,
+                      optimizer=optimizer)
+    run.pop("step_plans")
+    run.pop("step_views")
+    run.update(layers=cfg.n_layers, full_layers=full.n_layers,
+               reckoned_peak_bytes=reckoned,
+               phase_seconds=time.perf_counter() - t0)
+    log(f"train {name}: peak {run['peak_memory_bytes'] / 1e9:.2f} GB "
+        f"against {reckoned / 1e9:.1f} GB reckoned; phase "
+        f"{run['phase_seconds']:.1f} s")
+    torch.cuda.empty_cache()
+    return run
+
+
+def a9_train_kernel_phase():
+    """B3 at the two training shapes, held to its plain version and
+    timed beside SDPA and its bound: h2o's 1 x 4608 (h 32/8, d 120,
+    window 4096; 2 launches a layer a step, forward and recompute) and
+    whisper's encoder 8 x 1500 x 1500 (MHA h 16, d 64, non-causal; 24
+    launches a step).  {model: check_kernel(...)}."""
+    h2o, wh = get_config(H2O), get_config(WHISPER)
+    _, _, hb, hs = A9_TRAIN[H2O]
+    wb = A9_TRAIN[WHISPER][2]
+    F_ = wh.encoder_seq
+    cases = {
+        H2O: attn_case(
+            f"train h2o {hb}x{hs} h{h2o.n_heads}/{h2o.n_kv_heads} "
+            f"d{h2o.hd} window {h2o.window}", 2 * H2O_LAYERS, hb, hs,
+            h2o.n_heads, h2o.n_kv_heads, h2o.hd, torch.bfloat16,
+            window=h2o.window),
+        WHISPER: attn_case(
+            f"train whisper encoder {wb}x{F_} h{wh.n_heads}/"
+            f"{wh.n_kv_heads} d{wh.hd} non-causal", wh.encoder_layers, wb,
+            F_, wh.n_heads, wh.n_kv_heads, wh.hd, torch.bfloat16,
+            causal=False)}
+    with torch.inference_mode():
+        return {name: check_kernel("flash_attention", [case])
+                for name, case in cases.items()}
 
 
 # ------------------------------------------------------------- resume
@@ -4266,6 +4577,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device is available")
     t_start = time.perf_counter()
+    clock = PhaseClock()
     card = card_line()
     log(f"card: {card}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4283,18 +4595,23 @@ def main() -> None:
     lib = _build.build()
     _build.load()
     log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    clock.mark("build")
 
     _GEN = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         checked = kernel_phase()
+        clock.mark("kernels")
         paged_bitwise = paged_bitwise_phase()
         tb_bitwise = tb_bitwise_phase()
         grouped_bitwise = grouped_bitwise_phase()
         redesign_bitwise = redesign_bitwise_phase()
+        clock.mark("bitwise")
         checked8 = int8_kernel_phase()
         int8_bitwise = int8_bitwise_phase()
+        clock.mark("int8 kernels and bitwise")
         api_run = api_phase()
     torch.cuda.empty_cache()
+    clock.mark("operator API")
 
     cfg = get_config("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -4306,20 +4623,24 @@ def main() -> None:
     serve["step"] = step_phase(cfg, params, paged=False, telemetry_on=True)
     paged["step"] = step_phase(cfg, params, paged=True, telemetry_on=True)
     paged.pop("_tokens")
+    clock.mark(f"{cfg.name} serve")
     serve_plans = list(serve.pop("_plans")) + list(paged.pop("_plans"))
     plan_sets = {f"{cfg.name} serve": _plan_keys(serve_plans)}
     report = {cfg.name: report_phase(serve_plans, cfg.name, card)}
     del serve_plans
     tuned = {cfg.name: autotune_phase(cfg, params, serve, card)}
     serve.pop("_tokens")
+    clock.mark(f"{cfg.name} report and autotune")
     n_bit = bit_identity_phase(cfg, params)
     n_paged_bit = paged_bit_identity_phase(cfg, params)
     cross = cross_device_phase()
     cross8 = {mode: cross_device_phase(mode) for mode in INT8_MODES}
     train_cross = train_cross_device_phase()
+    clock.mark(f"{cfg.name} bit identity and cross-device")
     ckpt_dir = tempfile.mkdtemp(prefix=".resume_check_", dir=ROOT)
     try:
         train_run = train_phase(cfg, card, ckpt_dir,
+                                optimizer=TS.select_optimizer(cfg),
                                 telemetry_base="telemetry_smollm_train")
         step_plans = train_run.pop("step_plans")
         plan_sets[f"{cfg.name} train step"] = _plan_keys(step_plans)
@@ -4333,20 +4654,25 @@ def main() -> None:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del train_run["final_params"]
     torch.cuda.empty_cache()
+    clock.mark(f"{cfg.name} train and resume")
     qparams, q_bytes = quantize(params, cfg.name)
     del params
     int8_run = int8_serve_phases(cfg, qparams)
     int8_run.update(q_bytes)
     del qparams
     torch.cuda.empty_cache()
+    clock.mark(f"{cfg.name} int8")
 
     h2o = h2o_phases(card)
+    clock.mark(H2O)
     rg = recurrent_phases(RG, card, max_len=RG_MAX_LEN, long=RG_LONG,
                           step_pos=RG_STEP_POS, ring_prompts=RG_RING_PROMPTS,
-                          layers=RG_LAYERS)
+                          layers=RG_LAYERS, int8=True)
+    clock.mark(f"{RG} (bf16 and int8)")
     mamba = recurrent_phases(MAMBA, card, max_len=MAMBA_MAX_LEN,
                              long=MAMBA_LONG, step_pos=MAMBA_STEP_POS,
                              layers=MAMBA_LAYERS)
+    clock.mark(MAMBA)
 
     full = get_config("qwen3-moe-235b-a22b")
     moe_cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
@@ -4383,6 +4709,7 @@ def main() -> None:
     moe_bit = bit_identity_phase(moe_cfg, moe_params)
     moe_paged_bit = paged_bit_identity_phase(moe_cfg, moe_params,
                                              reference="paged")
+    clock.mark(f"{moe_cfg.name} serve, tuning and calibration")
     # the int8 copy of the same seed-0 weights; the bf16 copy is freed
     moe_q, moe_q_bytes = quantize(moe_params, moe_cfg.name)
     del moe_params
@@ -4391,6 +4718,7 @@ def main() -> None:
     moe_int8.update(moe_q_bytes)
     del moe_q
     torch.cuda.empty_cache()
+    clock.mark(f"{moe_cfg.name} int8")
 
     moe_train_cross = train_cross_device_phase(full.name, "adafactor")
     moe_train = moe_train_phase(full, card)
@@ -4403,30 +4731,49 @@ def main() -> None:
     moe_train.update(moe_train_extra)
     del moe_plans
     torch.cuda.empty_cache()
+    clock.mark(f"{full.name} train")
 
     a9 = {WHISPER: whisper_phases(card)}
+    clock.mark(f"{WHISPER} (bf16 and int8)")
     for name in (INTERNVL, KIMI, DEEPSEEK, MINITRON):
         a9[name] = a9_serve_phases(name, card)
+        clock.mark(name + (" (dense and paged)" if name in A9_PAGED else ""))
+
+    train_a9 = {}
+    for name in (H2O, WHISPER):
+        cross_train = train_cross_device_phase(
+            name, TS.select_optimizer(get_config(name)),
+            seq_len=A9_TRAIN_CROSS_SEQ[name])
+        train_a9[name] = a9_train_phase(name, card)
+        train_a9[name]["cross_device"] = cross_train
+        clock.mark(f"train {name}")
+    train_a9_checked = a9_train_kernel_phase()
+    clock.mark("training B3 rows")
 
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
              H2O: (h2o["serve"], h2o["paged_serve"]),
              RG: (rg["serve"],), MAMBA: (mamba["serve"],),
              "operator_api": (api_run,), "train": (train_run,),
              f"train {full.name}": (moe_train,),
-             **{name: (run["serve"],) for name, run in a9.items()}}
+             **{name: (run["serve"],) for name, run in a9.items()},
+             **{f"{name} paged": (run["paged_serve"],)
+                for name, run in a9.items() if "paged_serve" in run},
+             **{f"train {name}": (run,) for name, run in train_a9.items()}}
     for name, run in tuned.items():         # the tuned plans' serve run
         paths[f"{name} tuned"] = (run["serve"],)
     int8_paths = {}
-    for name, run in ((cfg.name, int8_run), (moe_cfg.name, moe_int8)):
-        int8_paths[f"{name} w8a16"] = (run["w8a16"]["serve"],
-                                       run["w8a16"]["paged_serve"])
+    for name, run in ((cfg.name, int8_run), (moe_cfg.name, moe_int8),
+                      (RG, rg["int8"]), (WHISPER, a9[WHISPER]["int8"])):
+        w8a16 = run["w8a16"]
+        int8_paths[f"{name} w8a16"] = (w8a16["serve"],) + (
+            (w8a16["paged_serve"],) if "paged_serve" in w8a16 else ())
         int8_paths[f"{name} w8a8"] = (run["w8a8"]["serve"],)
     paths.update(int8_paths)
 
     def driven(counter, runs=sum(paths.values(), ())):
-        """Launches on the paths the script drives (by default all:
-        dense and paged serving of both models in bf16, W8A16 and W8A8,
-        and the operator-API phase)."""
+        """Launches on the paths the script drives (by default all: the
+        serve runs, dense and paged, in bf16, W8A16 and W8A8, the
+        training runs and the operator-API phase)."""
         return sum(run["launches"][counter] for run in runs)
 
     def times(total, timed_on):
@@ -4470,6 +4817,11 @@ def main() -> None:
             key = "train" if name == "gemm_grouped" \
                 else f"train {full.name}"
             entry[key] = times(t_total, MOE_TRAIN_TIMED_ON[name])
+        if name == "flash_attention":
+            for model, (_, t_worst, t_total, _) in train_a9_checked.items():
+                entry["max_abs_err"] = max(entry["max_abs_err"], t_worst)
+                entry[f"train {model}"] = times(t_total,
+                                                A9_TRAIN_TIMED_ON[model])
         if name == "gemm_tb":       # two Pallas sites: B6a and B6b
             entry["sites"] = {replaces: driven("gemm_tb"),
                               GEMM_TB_FINAL_SITE: driven("gemm_tb_final")}
@@ -4522,6 +4874,9 @@ def main() -> None:
                 "paged_bit_identity_reference": "paged solo",
                 "int8": moe_int8},
         "h2o": h2o, "recurrentgemma": rg, "mamba2": mamba, "a9": a9,
+        "a9_train": train_a9,
+        "a9_train_cases": {n: rows for n, (rows, *_) in
+                           train_a9_checked.items()},
         "train": train_run, "train_cross_device": train_cross,
         "train_cases": {n: rows for n, (rows, *_) in train_checked.items()},
         "resume": resume, "moe_train": moe_train,
@@ -4539,6 +4894,7 @@ def main() -> None:
         "cross_device_max_abs_err": cross,
         "cross_device_int8_max_abs_err": cross8,
         "build_seconds": _build.build_seconds,
+        "phase_seconds": clock.seconds,
         "seconds": time.perf_counter() - t_start}), indent=1))
     if _build.build_log:
         (out_dir / "ptxas.log").write_text(_build.build_log)
@@ -4551,11 +4907,13 @@ def main() -> None:
         "one), the "
         "train key for one full-width smollm-360m training step (B7: one "
         f"layer-step of {full.name} training), the train {full.name} key "
-        "B1's and B6's f32 router GEMMs of that step, and each GEMM's int8 "
+        "B1's and B6's f32 router GEMMs of that step, B3's train "
+        f"{H2O} / train {WHISPER} keys its launches at those training "
+        "shapes, and each GEMM's int8 "
         "object the same for its int8 cases by mode; launches sum the "
-        "dense and paged serve runs of the ten models (smollm-360m and "
-        "qwen3-moe in bf16, W8A16 and W8A8), the operator-API phase and "
-        "both training runs "
+        "dense and paged serve runs of the ten models (smollm-360m, "
+        f"qwen3-moe, {RG} and {WHISPER} also in W8A16 and W8A8), the "
+        "operator-API phase and the four training runs "
         "(launches_by_path splits them)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))

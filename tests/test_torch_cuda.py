@@ -308,6 +308,7 @@ def _paged_pool(k, v, ps, seed, max_pages=None):
     (4, 256, 4, 4, 120, 100),                # MHA, d 120, wide window
     (8, 1024, 64, 4, 128, 0),                # qwen3-moe decode
     (4, 256, 16, 1, 256, 100),               # recurrentgemma's heads
+    (8, 1024, 64, 8, 112, 0),                # kimi-k2 paged decode, d 112
 ])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, b, S, hq,
@@ -331,13 +332,15 @@ def test_flash_decode_paged_kernel_matches_plain(cuda_device, ps, b, S, hq,
 
 @pytest.mark.parametrize("ps", [8, 16, 32, 64])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hq,hkv,d", [(15, 5, 64), (64, 4, 128)])
+@pytest.mark.parametrize("hq,hkv,d", [(15, 5, 64), (64, 4, 128),
+                                     (64, 8, 112)])
 @pytest.mark.parametrize("pool_len", [1024, 1280])
 def test_flash_decode_paged_equals_dense_bitwise(cuda_device, ps, dtype, hq,
                                                  hkv, d, pool_len):
     """One logical cache, dense and in a permuted pool: B5's output has
-    B4's bits at every page size, windows included, at smollm-360m's and
-    qwen3-moe's heads, with the pool's table as long as the dense cache
+    B4's bits at every page size, windows included, at smollm-360m's,
+    qwen3-moe's and kimi-k2's heads (d 112), with the pool's table as
+    long as the dense cache
     (1024 keys) or longer (1280): a row's bits do not depend on the
     length beyond pos + 1.  The slot past the dense cache's end (pos
     1500) sees the pool's extra keys, so it is compared only at equal

@@ -25,12 +25,11 @@ import torch
 
 from repro import ops as jops
 from repro import quant as jquant
-from repro.configs.base import get_smoke_config as j_smoke
 from repro.kernels import api as japi
 from repro.kernels.epilogue import Epilogue as JEpilogue
-from repro.models import transformer as JT
 from repro_torch import ops, quant
 from repro_torch.bridge import from_jax, to_numpy
+from repro_torch.configs import ARCH_IDS, get_smoke_config
 from repro_torch.core.hardware import TPU_V5E
 from repro_torch.core.tiling import TileConfig
 from repro_torch.kernels import api
@@ -39,6 +38,7 @@ from repro_torch.kernels.gemm_aie import gemm_aie
 from repro_torch.kernels.gemm_gated import gemm_gated
 from repro_torch.kernels.gemm_grouped import gemm_grouped
 from repro_torch.kernels.gemm_tb import gemm_tb
+from repro_torch.models import transformer as T
 
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 DT = {"float32": (jnp.float32, torch.float32),
@@ -125,9 +125,12 @@ def test_quantize_activations_matches_jax(dtype):
 
 
 def _smoke_params(arch):
-    jcfg = j_smoke(arch)
-    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
-    return jp, from_jax(jax.tree.map(np.asarray, jp))
+    """The smoke config's f32 parameters in both packages, the same
+    values: the port draws them (seed 0; the JAX init's per-leaf draws
+    cost seconds an arch, and any values serve a parity test)."""
+    tp = T.init_params(get_smoke_config(arch),
+                       torch.Generator().manual_seed(0), device="cpu")
+    return jax.tree.map(jnp.asarray, to_numpy(tp)), tp
 
 
 def _flat(tree, path=""):
@@ -138,11 +141,23 @@ def _flat(tree, path=""):
         yield path, tree
 
 
-@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-moe-235b-a22b"])
+#: leaves only the other families have, each of which must be quantized
+FAMILY_LEAVES = {
+    "recurrentgemma-9b": ("rec/in_proj", "rec/w_r", "rec/w_i",
+                          "rec/out_proj"),
+    "mamba2-370m": ("mixer/in_proj", "mixer/out_proj"),
+    "whisper-medium": ("cross/wq", "cross/wk", "encoder/layers/u0/mlp/w_in",
+                       "encoder/layers/u0/attn/wo"),
+}
+
+
+@pytest.mark.parametrize("arch", ARCH_IDS)
 def test_quantize_params_and_byte_counts_match_jax(arch):
     """Every GEMM leaf (stacked (r, k, n) projections and (r, E, k, n)
-    expert banks) quantized bit for bit, the same leaves left alone, the
-    same count; the parameter and weight-stream byte counts equal."""
+    expert banks; the recurrent, encoder and cross projections of the
+    other families) quantized bit for bit, the same leaves left alone,
+    the same count; the parameter and weight-stream byte counts equal,
+    for every arch of the JAX package."""
     jp, tp = _smoke_params(arch)
     jq, jn = jquant.quantize_params(jp)
     tq, tn = quant.quantize_params(tp)
@@ -157,6 +172,8 @@ def test_quantize_params_and_byte_counts_match_jax(arch):
         bank = tq["layers"]["u0"]["moe"]["w_gate"]
         assert bank["q"].dim() == 4 and bank["scale"].shape[-2] == 1
         assert not quant.is_quantized(tq["layers"]["u0"]["moe"]["router"])
+    for leaf in FAMILY_LEAVES.get(arch, ()):
+        assert any(p.endswith(f"/{leaf}/q") for p in got), leaf
     assert not quant.is_quantized(tq["embed"])
     for jt, tt in ((jp, tp), (jq, tq)):
         assert quant.param_bytes(tt) == jquant.param_bytes(jt)

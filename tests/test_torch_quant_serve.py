@@ -1,13 +1,20 @@
-"""The smoke models and engines of both served families under int8
-serving (W8A16 and W8A8) against the JAX package on the CPU.
+"""The smoke models and engines under int8 serving (W8A16 and W8A8)
+against the JAX package on the CPU.
 
-The JAX package makes and quantizes the parameters
+The JAX package quantizes the smoke parameters
 (``repro.quant.quantize_params``); the port gets that ``{q, scale}``
 tree across ``bridge.from_jax`` unchanged, and both packages run in the
 same activation mode, the JAX side with ``REPRO_KERNELS=ref``.  Logits
 must agree within ``atol=rtol=1e-4`` (f32 sums in another order through
 the layers), greedy tokens exactly, from both packages' dense and paged
-engines.
+engines; where the JAX engine refuses the page pool (recurrent layer
+kinds, an encoder-decoder) the port refuses it with the same error.  An
+encoder-decoder's requests carry their own stub frames.
+
+This file holds smollm-360m and qwen3-moe-235b-a22b; the other archs
+run the same tests through ``tests/test_torch_quant_serve_*.py``, which
+import them and give the ``smoke`` fixture their archs (tier-1 runs one
+file on one worker, so the archs are spread over files).
 """
 
 import jax
@@ -20,25 +27,35 @@ from repro import quant as jquant
 from repro.configs.base import get_smoke_config as j_smoke
 from repro.models import transformer as JT
 from repro_torch import quant
-from repro_torch.bridge import from_jax
+from repro_torch.bridge import from_jax, to_numpy
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import api
 from repro_torch.launch import serve as serve_cli
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import (ACCEPTANCE_TRACE, DecodeEngine,
-                                      acceptance_requests, solo_greedy)
+                                      Request, acceptance_requests,
+                                      solo_greedy)
 
 CPU = torch.device("cpu")
 ARCHS = ["smollm-360m", "qwen3-moe-235b-a22b"]
 
 
+def make_smoke(arch):
+    """(jax cfg, quantized jax params, port cfg, the same params in the
+    port) of ``arch``'s smoke config.  The port draws the f32 weights
+    (seed 0; the JAX init's per-leaf draws cost seconds an arch, and any
+    values serve a parity test); the JAX package quantizes them."""
+    tcfg = get_smoke_config(arch)
+    drawn = T.init_params(tcfg, torch.Generator().manual_seed(0),
+                          device=CPU)
+    jp, _ = jquant.quantize_params(jax.tree.map(jnp.asarray,
+                                                to_numpy(drawn)))
+    return j_smoke(arch), jp, tcfg, from_jax(jax.tree.map(np.asarray, jp))
+
+
 @pytest.fixture(scope="module", params=ARCHS)
 def smoke(request):
-    jcfg = j_smoke(request.param)
-    jp, _ = jquant.quantize_params(
-        JT.init_params(jax.random.PRNGKey(0), jcfg))
-    tp = from_jax(jax.tree.map(np.asarray, jp))
-    return jcfg, jp, get_smoke_config(request.param), tp
+    return make_smoke(request.param)
 
 
 @pytest.fixture(params=["w8a16", "w8a8"])
@@ -60,15 +77,45 @@ def _tokens(shape, vocab, seed=0):
         .astype(np.int32)
 
 
+def _frames(cfg, n, seed=5):
+    """``n`` requests' stub frames (F, d) for an encoder-decoder, else
+    ``n`` Nones."""
+    if not cfg.encoder_layers:
+        return [None] * n
+    rng = np.random.default_rng(seed)
+    return list(rng.standard_normal((n, cfg.encoder_seq, cfg.d_model))
+                .astype(np.float32))
+
+
+def _trace(cfg, request_cls):
+    """The acceptance trace as ``request_cls`` requests (either
+    package's), each with its own stub frames for an encoder-decoder."""
+    reqs = acceptance_requests(cfg.vocab)
+    return [request_cls(prompt=r.prompt, max_tokens=r.max_tokens, frames=f)
+            for r, f in zip(reqs, _frames(cfg, len(reqs)))]
+
+
+def _pages(cfg) -> bool:
+    """Whether the paged engine takes ``cfg`` (no recurrent layer kind,
+    no encoder)."""
+    return not cfg.encoder_layers \
+        and not set(cfg.all_kinds) & set(T.RECURRENT_KINDS)
+
+
 def test_int8_prefill_and_decode_logits_match_jax(smoke, mode):
     """A 12-token prefill of two rows and 6 greedy decode steps: logits
     within 1e-4 of the JAX package's, the same tokens."""
     jcfg, jp, tcfg, tp = smoke
     toks = _tokens((2, 12), jcfg.vocab)
+    frames = _frames(tcfg, 2)
+    jkw, tkw = {}, {}
+    if tcfg.encoder_layers:
+        jkw["frames"] = jnp.asarray(np.stack(frames))
+        tkw["frames"] = torch.as_tensor(np.stack(frames))
     jl, jc = JT.prefill(jp, jcfg, jnp.asarray(toks),
-                        JT.init_cache(jcfg, 2, 40))
+                        JT.init_cache(jcfg, 2, 40), **jkw)
     tl, tc = T.prefill(tp, tcfg, torch.as_tensor(toks),
-                       T.init_cache(tcfg, 2, 40, device=CPU))
+                       T.init_cache(tcfg, 2, 40, device=CPU), **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
                                rtol=1e-4)
     step = jax.jit(lambda t, c: JT.decode_step(jp, jcfg, t, c))
@@ -86,18 +133,27 @@ def test_int8_prefill_and_decode_logits_match_jax(smoke, mode):
 def test_int8_engine_tokens_match_jax_engine(smoke, mode, paged):
     """The acceptance trace through both packages' engines, dense and
     paged (16-token pages, 8-token chunks): the same tokens, request by
-    request."""
+    request; where the JAX engine refuses the pool, the port refuses it
+    with the same error type and message."""
     from repro.serve.engine import DecodeEngine as JEngine
-    from repro.serve.engine import acceptance_requests as j_reqs
+    from repro.serve.engine import Request as JRequest
     jcfg, jp, tcfg, tp = smoke
     max_len = max(p + mt for p, mt in ACCEPTANCE_TRACE) + 1
-    kw = dict(page_size=16, prefill_chunk=8) if paged else {}
+    kw = dict(batch=2, max_len=max_len)
+    if paged:
+        kw.update(page_size=16, prefill_chunk=8)
+    if paged and not _pages(tcfg):
+        with pytest.raises(ValueError) as jerr:
+            JEngine(jp, jcfg, **kw)
+        with pytest.raises(ValueError) as terr:
+            DecodeEngine(tp, tcfg, device=CPU, **kw)
+        assert str(terr.value) == str(jerr.value)
+        return
     want = {r.rid: r.tokens for r in
-            JEngine(jp, jcfg, batch=2, max_len=max_len, **kw).run(
-                j_reqs(jcfg.vocab))}
+            JEngine(jp, jcfg, **kw).run(_trace(tcfg, JRequest))}
     got = {r.rid: r.tokens for r in
-           DecodeEngine(tp, tcfg, batch=2, max_len=max_len, device=CPU,
-                        **kw).run(acceptance_requests(tcfg.vocab))}
+           DecodeEngine(tp, tcfg, device=CPU, **kw).run(
+               _trace(tcfg, Request))}
     assert sorted(got) == sorted(want)
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid])
@@ -108,13 +164,14 @@ def test_int8_continuous_batch_equals_solo_greedy(smoke, mode):
     decodes the same tokens inside the 2-slot batch as alone."""
     _, _, cfg, params = smoke
     max_len = max(p + mt for p, mt in ACCEPTANCE_TRACE) + 1
-    reqs = acceptance_requests(cfg.vocab)
+    reqs = _trace(cfg, Request)
     engine = DecodeEngine(params, cfg, batch=2, max_len=max_len, device=CPU)
     results = {r.rid: r.tokens for r in engine.run(reqs)}
     for req in reqs:
         np.testing.assert_array_equal(
             results[req.rid],
-            solo_greedy(params, cfg, req.prompt, req.max_tokens, max_len))
+            solo_greedy(params, cfg, req.prompt, req.max_tokens, max_len,
+                        frames=req.frames))
 
 
 @pytest.mark.parametrize("flag", ["--int8", "--w8a8"])
