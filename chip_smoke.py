@@ -41,6 +41,12 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    bf16 body with relu must equal relu(B1) * B1 bit for bit at m = 1, 8,
    9, 16 and 300, and its rows at m = 9, 16 and 300 those of its 300-row
    call; every B2 and B3 case names the body and CTA shape that ran;
+   then every launch-time shape of B3 (rows a CTA x keys a ring stage)
+   and every B4 grouping (64-key splits a CTA) at the served shapes
+   (smollm's, h2o's, recurrentgemma's, whisper's encoder, cross decode
+   and self decode, kimi's) must equal the default shape's output bit
+   for bit and the plain version within 2e-2, each timed beside SDPA
+   and the bound (key ``attn_blocks``);
 3b. the int8 paths of B1, B2, B6 and B7 at both models' served shapes
    (smollm-360m's decode step and 300-token prefill, qwen3-moe's decode
    step, with B7's twelve decode and two prefill launches, and prefill):
@@ -82,11 +88,13 @@ its seconds, kept under ``phase_seconds`` in the JSON):
 5c. autotune: the dense trace once more untuned with every plan cached
    (the baseline), then with ``tune.enable(8)`` on a fresh tuning cache
    (a directory of the checkout, deleted at exit) twice (the first pass
-   searches every GEMM it plans on the card), with
+   searches every GEMM and every B3 / B4 attention plan it plans on the
+   card), with
    launches equal to the executed plans (the tuner's samples are not
    executions), greedy tokens equal to the untuned run's bit for bit, no
-   B1 / B6 candidate failing, and a second pass over the cache file
-   measuring nothing; each tuned plan's analytic and measured winner,
+   B1 / B6 candidate and no attention candidate failing, and a second
+   pass over the cache file measuring nothing and keeping every tile
+   and block; each tuned plan's analytic and measured winner,
    the flop budget's skips, and decode tok/s, the device step and TTFT
    beside the untuned run of the same call;
 6. continuous-batched greedy == solo greedy on the dense cache, token
@@ -288,8 +296,8 @@ from repro_torch.bridge import map_tree, to_device, tree_leaves  # noqa
 from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
-    DECODE_SPLIT, cta_shape as attn_cta_shape, decode_grid,
-    decode_live_ctas, flash_attention, flash_attention_plain)
+    DECODE_SPLIT, b3_blocks, cta_shape as attn_cta_shape, decode_blocks,
+    decode_grid, decode_live_ctas, flash_attention, flash_attention_plain)
 from repro_torch.kernels.flash_decode import (  # noqa: E402
     flash_decode, flash_decode_paged, flash_decode_paged_plain,
     flash_decode_plain)
@@ -1795,6 +1803,110 @@ def redesign_bitwise_phase():
             "gemm_gated_batch_invariance_m": [9, 16, 300]}
 
 
+def attn_block_phase(card):
+    """Every launch-time shape B3 compiles (rows a CTA x keys a ring
+    stage) and every B4 grouping (64-key splits a CTA) at the served
+    shapes: B3 at smollm-360m's 300-token prefill (h 15/5, d 64), h2o's
+    5000-token prefill (h 32/8, d 120, window 4096), recurrentgemma's
+    3000-token one (h 16/1, d 256, window 2048), whisper's encoder (1 x
+    1500², non-causal, MHA, d 64) and cross decode (8 x 1 x 1500) and
+    kimi's 300-token prefill (h 64/8, d 112); B4 at smollm's decode step
+    (8 slots x 1024), kimi's (d 112), recurrentgemma's rings (8 x 2048,
+    group 16, d 256, positions clamped) and whisper's self-attention (8 x
+    448).  Gates: each shape's output equals the default's, torch.equal,
+    and is within the card tolerance of the plain version.  Each shape is
+    timed as the kernel phase times kernels (CUDA graphs, operands cycled
+    past the L2 cache) beside SDPA and the bound; the fastest is named.
+    A shape that fails to build or launch raises."""
+    bf = torch.bfloat16
+    h2o, rg, wh, ki = (get_config(n) for n in (H2O, RG, WHISPER, KIMI))
+    hh = dict(hq=h2o.n_heads, hkv=h2o.n_kv_heads, d=h2o.hd)
+    rh = dict(hq=rg.n_heads, hkv=rg.n_kv_heads, d=rg.hd)
+    wd = dict(hq=wh.n_heads, hkv=wh.n_kv_heads, d=wh.hd)
+    kd = dict(hq=ki.n_heads, hkv=ki.n_kv_heads, d=ki.hd)
+    rw, F_ = rg.local_window, wh.encoder_seq
+    pos = [17, 40, 95, 160, 210, 300, 333, 363]
+    rg_pos = [min(p, rw - 1) for p in (5, 900, 2047, 2048, 2049, 2500, 3000,
+                                       4000)]
+    w_pos = [5, 60, 120, 200, 300, 350, 400, 447]
+    b3 = [attn_case("smollm prefill 1x300 h15/5 d64", 0, 1, 300, 15, 5, 64,
+                    bf),
+          attn_case("h2o prefill 1x5000 h32/8 d120 window 4096", 0, 1, 5000,
+                    dtype=bf, window=h2o.window, **hh),
+          attn_case("rg prefill 1x3000 h16/1 d256 window 2048", 0, 1, 3000,
+                    dtype=bf, window=rw, **rh),
+          attn_case(f"whisper encoder 1x{F_} h16/16 d64 non-causal", 0, 1,
+                    F_, dtype=bf, causal=False, **wd),
+          attn_case(f"whisper cross decode 8x1x{F_} h16/16 d64", 0, 8, 1,
+                    dtype=bf, skv=F_, causal=False, **wd),
+          attn_case("kimi prefill 1x300 h64/8 d112", 0, 1, 300, dtype=bf,
+                    **kd)]
+    b4 = [decode_case("smollm decode 8 slots S1024 h15/5 d64", 0, pos, 1024,
+                      15, 5, 64, bf),
+          decode_case("kimi decode 8 slots S1024 h64/8 d112", 0, pos, 1024,
+                      dtype=bf, **kd),
+          decode_case(f"rg ring decode 8 slots S{rw} h16/1 d256, positions "
+                      "clamped", 0, rg_pos, rw, dtype=bf, **rh),
+          decode_case(f"whisper decode 8 slots S{WHISPER_MAX_LEN} h16/16 "
+                      "d64", 0, w_pos, WHISPER_MAX_LEN, dtype=bf, **wd)]
+    out = []
+    for name, cases, blocks_of in (
+            ("flash_attention", b3, lambda a: b3_blocks(a[0].shape[-1])),
+            ("flash_decode", b4,
+             lambda a: [(None, k) for k in decode_blocks(a[0].shape[-1])])):
+        kernel, plain, _, _ = KERNELS[name]
+        for case in cases:
+            first = case["make"]()
+            args, kw = first
+            want = plain(*args, **kw)
+            base = kernel(*args, **kw)
+            per = nbytes(*args)
+            copies = max(1, min(64, math.ceil(COLD_BYTES / per)))
+            inputs = [first] + [case["make"]() for _ in range(copies - 1)]
+            b, ops_ = case["cost"](args, kw)
+            bound = max(b / PEAK_BYTES, ops_ / PEAK_OPS[bf]) * 1e3
+            lib = device_ms(case["library"], inputs) \
+                if case["library"] else None
+            rows = []
+            for bq, bkv in blocks_of(args):
+                blk = {"bkv": bkv} if bq is None else {"bq": bq, "bkv": bkv}
+                got = kernel(*args, **kw, **blk)
+                torch.cuda.synchronize()
+                if not torch.equal(got, base):
+                    raise RuntimeError(f"{name} {case['name']} {blk}: not "
+                                       "bit for bit the default's output")
+                err = (got.float() - want.float()).abs()
+                tol = TOL[bf]
+                if (err > tol + tol * want.float().abs()).any():
+                    raise RuntimeError(f"{name} {case['name']} {blk}: max "
+                                       f"abs err {err.max().item():.3e}")
+                ms = device_ms(lambda *a, **k: kernel(*a, **k, **blk),
+                               inputs)
+                rows.append({"kernel": name, "case": case["name"], "bq": bq,
+                             "bkv": bkv, "default": not rows, "ms": ms,
+                             "library_ms": lib, "bound_ms": bound,
+                             "bound_by": "bytes" if b / PEAK_BYTES >=
+                             ops_ / PEAK_OPS[bf] else "operations",
+                             "share": bound / ms,
+                             "max_abs_err": err.max().item()})
+            del inputs
+            best = min(rows, key=lambda r: r["ms"])
+            for r in rows:
+                r["fastest"] = r is best
+            out += rows
+            log(f"  {name:15s} {case['name']:44s} "
+                + "  ".join(f"{r['bq'] or '-'}x{r['bkv']} "
+                            f"{r['ms'] * 1e3:.1f}" for r in rows)
+                + " us; SDPA " + (f"{lib * 1e3:.1f} us" if lib else "—")
+                + f", bound {bound * 1e3:.1f} us; fastest "
+                f"{best['bq'] or '-'}x{best['bkv']} (default "
+                f"{rows[0]['ms'] * 1e3:.1f} us) [{card}]")
+    log(f"attention blocks: {len(out)} shapes at {len(b3)} B3 and {len(b4)} "
+        "B4 served shapes, each == the default's output bit for bit and "
+        "within 2e-2 of the plain version")
+    return out
+
+
 def api_phase():
     """The paper's question on this card: which dataflow wins where.  For
     each dense GEMM shape of both models' serve paths (smollm-360m's and
@@ -2337,7 +2449,8 @@ class PlanRecorder:
             return self._launch(pl, *args, **kw)
 
         def record_attn(pl, *args):
-            self.attn_plans[pl] = self.attn_plans.get(pl, 0) + 1
+            if not tune_measure.measuring():    # a tuner's sample: no step
+                self.attn_plans[pl] = self.attn_plans.get(pl, 0) + 1
             return self._attn_launch(pl, *args)
         api._launch = record
         attn_api._launch = record_attn
@@ -2754,17 +2867,27 @@ def _tile(t) -> str:
     return f"{t.strategy} {t.bm}x{t.bk}x{t.bn}"
 
 
+def _attn_shapes(pl):
+    """The per-mode shape tuple an attention plan was resolved at."""
+    if pl.spec.mode == "prefill":
+        return (pl.b, pl.sq, pl.skv, pl.hq, pl.hkv, pl.d)
+    if pl.spec.mode == "decode":
+        return (pl.b, pl.skv, pl.hq, pl.hkv, pl.d)
+    return (pl.b, pl.max_pages, pl.page_size, pl.hq, pl.hkv, pl.d)
+
+
 def autotune_phase(cfg, params, untuned, card):
     """The dense serve trace once more untuned (every plan cached: the
     baseline), then under ``tune.enable(TUNE_K)`` on the fresh tuning
-    cache ``$REPRO_TUNE_CACHE``: the plan cache starts empty, so every
-    GEMM the warm-up and the trace plan is searched on the card, and a
-    second tuned pass, every plan cached, is the one compared.  Gates:
-    launches equal the executed plans (serve_phase; the tuner's samples
-    are not executions), the greedy tokens equal
-    ``untuned``'s bit for bit, no B1 / B6 candidate fails at the model's
-    shapes, and a second pass (a fresh in-memory cache over the same
-    file) re-plans every plan with zero measurements and the same tiles.
+    cache ``$REPRO_TUNE_CACHE``: the plan caches start empty, so every
+    GEMM and every B3 / B4 attention plan the warm-up and the trace plan
+    is searched on the card, and a second tuned pass, every plan cached,
+    is the one compared.  Gates: launches equal the executed plans
+    (serve_phase; the tuner's samples are not executions), the greedy
+    tokens equal ``untuned``'s bit for bit, no B1 / B6 candidate and no
+    attention candidate fails at the model's shapes, and a second pass
+    (a fresh in-memory cache over the same file) re-plans every GEMM and
+    attention plan with zero measurements and the same tiles and blocks.
     Prints each tuned plan: the analytic first choice and its measured
     us, the winner and its us; and the plans the flop budget skipped."""
     errors0 = len(autotune.candidate_errors)
@@ -2775,6 +2898,7 @@ def autotune_phase(cfg, params, untuned, card):
     base = serve_phase(cfg, params, paged=False, mode="untuned, planned")
     tune.enable(TUNE_K)
     api.plan_cache_clear()
+    attn_api.attn_plan_cache_clear()
     try:
         t0 = time.perf_counter()     # the pass that searches
         search = serve_phase(cfg, params, paged=False, mode="tuning")
@@ -2782,14 +2906,20 @@ def autotune_phase(cfg, params, untuned, card):
         run = serve_phase(cfg, params, paged=False, mode="tuned")
         run["step"] = step_phase(cfg, params, paged=False, mode="tuned")
         plans = [pl for pl in api.plans() if not pl.spec.grouped]
+        attn_plans = [pl for pl in attn_api.attn_plans()
+                      if pl.kernel in attn_api.TUNABLE_KERNELS]
         searched = tune.tuning_cache_info().measurements - measured0
         tune.tuning_cache_reset()           # the second pass
         api.plan_cache_clear()
+        attn_api.attn_plan_cache_clear()
         again = [api.plan(pl.spec, (pl.m, pl.k, pl.n)) for pl in plans]
+        attn_again = [attn_api.attn_plan(pl.spec, _attn_shapes(pl),
+                                         device="cuda") for pl in attn_plans]
         second = tune.tuning_cache_info()
     finally:
         tune.disable()
         api.plan_cache_clear()
+        attn_api.attn_plan_cache_clear()
     run.pop("_plans")
     for tokens in (base.pop("_tokens"), search.pop("_tokens"),
                    run.pop("_tokens")):
@@ -2801,11 +2931,41 @@ def autotune_phase(cfg, params, untuned, card):
             [pl.tile for pl in plans]:
         raise RuntimeError(f"tuned {cfg.name}: the second pass measured "
                            f"{second.measurements} plans or changed a tile")
+    blocks = [(pl.bq, pl.bkv) for pl in attn_plans]
+    if [(pl.bq, pl.bkv) for pl in attn_again] != blocks or any(
+            pl.tuned is None or not pl.tuned.from_cache
+            for pl in attn_again):
+        raise RuntimeError(f"tuned {cfg.name}: the second pass changed an "
+                           "attention plan's blocks or did not take it "
+                           "from the cache")
+    if any(pl.tuned is None for pl in attn_plans):
+        raise RuntimeError(f"tuned {cfg.name}: an attention plan was not "
+                           "tuned: " + ", ".join(
+                               f"{pl.spec.key} {pl.shape_key}"
+                               for pl in attn_plans if pl.tuned is None))
     errors = autotune.candidate_errors[errors0:]
+    attn_errors = [e for e in errors if e[1].startswith("attn|")]
     failed = [e for e in errors if e[0] == "measure"]
-    if failed:
+    if failed or attn_errors:
         raise RuntimeError(f"tuned {cfg.name}: {len(failed)} candidate "
-                           f"executions failed: {failed[:3]}")
+                           f"executions failed, {len(attn_errors)} "
+                           "attention candidates: "
+                           f"{(failed + attn_errors)[:3]}")
+    attn_rows = []
+    for pl in attn_plans:
+        ti = pl.tuned
+        row = {"spec": pl.spec.key, "shape": pl.shape_key,
+               "kernel": pl.kernel, "analytic": ti.analytic_tile,
+               "analytic_us": ti.t_analytic_us,
+               "winner": autotune._blocks_str(pl.bq, pl.bkv),
+               "winner_us": ti.t_measured_us,
+               "t_model_us": pl.traffic.t_model * 1e6,
+               "k_searched": ti.k_searched}
+        attn_rows.append(row)
+        log(f"tuned {cfg.name} {pl.kernel} {row['spec']} {row['shape']}: "
+            f"analytic {row['analytic']} {row['analytic_us']:.1f} us, "
+            f"measured winner {row['winner']} {row['winner_us']:.1f} us "
+            f"(K = {ti.k_searched}, host clock between syncs) [{card}]")
     rows, skipped = [], []
     for pl in plans:
         shape = (pl.m, pl.k, pl.n)
@@ -2843,6 +3003,9 @@ def autotune_phase(cfg, params, untuned, card):
            "candidate_errors": len(errors),
            "candidate_errors_resolve": len(errors) - len(failed),
            "plans": len(plans), "tuned": rows, "flop_budget_skipped": skipped,
+           "attn_plans": len(attn_plans), "attn_tuned": attn_rows,
+           "attn_changed": sum(r["winner"] != r["analytic"]
+                               for r in attn_rows),
            "serve": run, "untuned": {
                "tok_s_decode": base["tok_s_decode"],
                "ttft_mean_ms": base["ttft_mean_ms"],
@@ -2857,8 +3020,11 @@ def autotune_phase(cfg, params, untuned, card):
         f"tile, {len(skipped)} over the flop budget {skipped}; "
         f"{len(errors)} candidate errors ({len(failed)} executions failed, "
         f"{len(errors) - len(failed)} tiles infeasible after clamping); "
-        f"second pass {second.hits} hits, {second.measurements} "
-        f"measurements; tokens == untuned")
+        f"{len(attn_plans)} attention plans tuned, "
+        f"{sum(r['winner'] != r['analytic'] for r in attn_rows)} off the "
+        f"default blocks; second pass {second.hits} hits, "
+        f"{second.measurements} measurements, the same tiles and blocks; "
+        "tokens == untuned")
     log(f"autotune {cfg.name}: decode {run['tok_s_decode']:.1f} tok/s "
         f"(untuned {base['tok_s_decode']:.1f}), device step "
         f"{run['step']['device_ms_per_step']:.2f} ms (untuned "
@@ -4606,6 +4772,8 @@ def main() -> None:
         grouped_bitwise = grouped_bitwise_phase()
         redesign_bitwise = redesign_bitwise_phase()
         clock.mark("bitwise")
+        attn_blocks = attn_block_phase(card)
+        clock.mark("attention blocks")
         checked8 = int8_kernel_phase()
         int8_bitwise = int8_bitwise_phase()
         clock.mark("int8 kernels and bitwise")
@@ -4886,6 +5054,7 @@ def main() -> None:
         "paged_bitwise": paged_bitwise,
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
         "b3_b2_bitwise": redesign_bitwise, "int8_bitwise": int8_bitwise,
+        "attn_blocks": attn_blocks,
         "operator_api": api_run,
         "autotune": tuned, "calibration": calibration,
         "model_vs_measured": report,

@@ -12,12 +12,17 @@
 // slot's keys over CTAs that each wait out one round of loads, and keeps
 // every row's arithmetic on a grid fixed from key 0:
 //
-//   * The grid is (split, kv head, slot).  A split is kSplit = 64 keys
-//     counted from key 0, one CTA of one warp.  On an H100 one warp a CTA
-//     beat two and four (128- and 256-key splits) at both models' decode
-//     steps (PERF.md §6).  The split axis is sized from what the host
-//     knows (the cache's or the table's length), never from pos: a CTA
-//     whose split holds no key the slot sees returns at once.
+//   * The grid is (split group, kv head, slot).  A split is kSplit = 64
+//     keys counted from key 0, one warp, one partial; a CTA holds kG = 1, 2
+//     or 4 consecutive splits, a warp each, chosen at launch (B4's
+//     ``bkv`` = 64 kG keys a CTA; B5 takes kG = 1).  At kD = 256 four
+//     warps' tiles would take 256 KB of shared memory, past the 227 KB a
+//     CTA may have, so kD = 256 takes kG = 1 or 2.  The default is kG = 1:
+//     on an H100 one warp a CTA beat two and four (then 128- and 256-key
+//     splits of one warp) at smollm-360m's and qwen3-moe's decode steps
+//     (PERF.md §6).  The split axis is sized from what the host knows (the
+//     cache's or the table's length), never from pos: a warp whose split
+//     holds no key the slot sees returns at once.
 //   * The warp stages its split's K and V rows with 16-byte cp.async into
 //     swizzled [key][kD] tiles (4-byte copies or plain loads where rows are
 //     not 16-byte chunks), K and V in two commit groups so that V lands
@@ -46,7 +51,8 @@
 //
 // Invariance: a row's bits depend only on its q, the keys and values it
 // sees, its pos and the window: the split grid starts at key 0, a split's
-// partial does not depend on how many CTAs ran, and the merge visits the
+// partial does not depend on how many CTAs ran or how many splits share a
+// CTA (each warp's work is one split's, alone), and the merge visits the
 // splits [lo / 64, ceil(hi / 64)) in order, with
 // [lo, hi) = [max(0, pos - window + 1), min(length, pos + 1)).  Not on b,
 // other slots, the length beyond pos + 1, the page size or the table's
@@ -65,7 +71,7 @@
 namespace repro {
 namespace {  // each including kernel file gets its own copy
 
-constexpr int kSplit = 64;  // keys a split: one CTA of one warp, one partial
+constexpr int kSplit = 64;  // keys a split: one warp, one partial
 
 struct SplitArgs {
   int hq, hkv, d, group;
@@ -164,8 +170,9 @@ __device__ __forceinline__ void stage_split(const SmemTile& t,
   }
 }
 
-template <int kD, typename Keys>
-__global__ void __launch_bounds__(32)
+// kG splits a CTA, warp w taking split kG blockIdx.x + w.
+template <int kD, int kG, typename Keys>
+__global__ void __launch_bounds__(32 * kG)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k,
                     const __nv_bfloat16* __restrict__ v,
@@ -179,17 +186,21 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   // the merge kernel may launch now; it waits for this grid to finish
   grid_launch_dependents();
 
-  const int lane = threadIdx.x;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int g = lane >> 2, t = lane & 3;
-  const int split = blockIdx.x, kvh = blockIdx.y, bi = blockIdx.z;
+  const int split = blockIdx.x * kG + w, kvh = blockIdx.y, bi = blockIdx.z;
   const int kv0 = split * kSplit;
   int lo, hi;
   visible_keys(pos[bi], p, lo, hi);
-  if (kv0 >= hi || kv0 + kSplit <= lo) return;  // no visible key: no partial
+  // past the split axis, or no visible key: no partial (no warp of the CTA
+  // waits for another, so a warp may leave alone)
+  if (split >= p.n_splits || kv0 >= hi || kv0 + kSplit <= lo) return;
 
-  extern __shared__ __align__(16) unsigned char smem[];  // K, then V
-  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem);
-  __shared__ size_t row_at[kSplit];
+  // the warp's K, then V tile
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* tiles = reinterpret_cast<__nv_bfloat16*>(smem) + 2 * w * kTile;
+  __shared__ size_t row_ats[kG][kSplit];
+  size_t* row_at = row_ats[w];
   const SmemTile kt = smem_tile(tiles, kD), vt = smem_tile(tiles + kTile, kD);
 
   const size_t head = static_cast<size_t>(kvh) * p.d;
@@ -367,22 +378,23 @@ decode_merge_kernel(const float* __restrict__ part_acc,
     if (c + u < p.d) orow[c + u] = __float2bfloat16(A[u] / denom);
 }
 
-template <int kD, typename Keys>
+template <int kD, int kG, typename Keys>
 int launch_split_kd(const void* q, const void* k, const void* v,
                     const int* pos, void* o, float* part_acc, float2* part_ml,
                     int b, const SplitArgs& p, const Keys& keys,
                     cudaStream_t stream) {
-  auto kernel = decode_split_kernel<kD, Keys>;
-  constexpr size_t kSmem = 2 * static_cast<size_t>(kSplit) * kD *
+  auto kernel = decode_split_kernel<kD, kG, Keys>;
+  constexpr size_t kSmem = 2 * static_cast<size_t>(kG) * kSplit * kD *
                            sizeof(__nv_bfloat16);
+  static_assert(kSmem <= 227 * 1024, "a CTA's shared memory on an H100");
   static bool configured = false;  // one attribute call per shape
   if (kSmem > 48 * 1024 && !configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          static_cast<int>(kSmem));
     configured = true;
   }
-  dim3 grid(p.n_splits, p.hkv, b);
-  kernel<<<grid, 32, kSmem, stream>>>(
+  dim3 grid(cdiv(p.n_splits, kG), p.hkv, b);
+  kernel<<<grid, 32 * kG, kSmem, stream>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), pos, part_acc, part_ml, p, keys);
@@ -406,15 +418,35 @@ int launch_split_kd(const void* q, const void* k, const void* v,
       static_cast<__nv_bfloat16*>(o), p, kD));
 }
 
+// kG = ``per_cta`` splits a CTA at head kD (1, 2 or 4; 1 or 2 at kD =
+// 256; at most kMaxG), else cudaErrorInvalidValue.
+template <int kD, int kMaxG, typename Keys>
+int launch_split_g(const void* q, const void* k, const void* v,
+                   const int* pos, void* o, float* acc, float2* ml, int b,
+                   const SplitArgs& p, const Keys& keys, int per_cta,
+                   cudaStream_t s) {
+  if (per_cta == 1)
+    return launch_split_kd<kD, 1>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+  if constexpr (kMaxG >= 2)
+    if (per_cta == 2)
+      return launch_split_kd<kD, 2>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+  if constexpr (kMaxG >= 4 && kD < 256)
+    if (per_cta == 4)
+      return launch_split_kd<kD, 4>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 // The bf16 decode: split grid, then merge.  part_acc holds b * hkv *
 // n_splits * group * kD floats (kD = head_dim padded to 32, 64, 128 or
 // 256),
 // part_ml b * hkv * n_splits * group float2 (kernels/flash_attention.py
-// decode_grid gives both sizes).
-template <typename Keys>
+// decode_grid gives both sizes); ``per_cta`` splits a CTA, compiled up to
+// kMaxG (B4: 4; B5: 1).
+template <int kMaxG, typename Keys>
 int launch_split(const void* q, const void* k, const void* v, const int* pos,
                  void* o, void* part_acc, void* part_ml, int b, SplitArgs p,
-                 const Keys& keys, float scale, cudaStream_t s) {
+                 const Keys& keys, float scale, int per_cta,
+                 cudaStream_t s) {
   if (p.d < 1 || p.d > 256 || p.group < 1 || p.group > 16)
     return static_cast<int>(cudaErrorInvalidValue);
   p.n_splits = cdiv(p.length, kSplit);
@@ -422,12 +454,16 @@ int launch_split(const void* q, const void* k, const void* v, const int* pos,
   float* acc = static_cast<float*>(part_acc);
   float2* ml = static_cast<float2*>(part_ml);
   if (p.d <= 32)
-    return launch_split_kd<32>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+    return launch_split_g<32, kMaxG>(q, k, v, pos, o, acc, ml, b, p, keys,
+                                     per_cta, s);
   if (p.d <= 64)
-    return launch_split_kd<64>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+    return launch_split_g<64, kMaxG>(q, k, v, pos, o, acc, ml, b, p, keys,
+                                     per_cta, s);
   if (p.d <= 128)
-    return launch_split_kd<128>(q, k, v, pos, o, acc, ml, b, p, keys, s);
-  return launch_split_kd<256>(q, k, v, pos, o, acc, ml, b, p, keys, s);
+    return launch_split_g<128, kMaxG>(q, k, v, pos, o, acc, ml, b, p, keys,
+                                      per_cta, s);
+  return launch_split_g<256, kMaxG>(q, k, v, pos, o, acc, ml, b, p, keys,
+                                    per_cta, s);
 }
 
 }  // namespace

@@ -18,7 +18,9 @@
 // block order by a second kernel.  A slot of 364 keys thus waits for 6
 // warps that run side by side instead of 12 blocks one after another, and
 // its rows' bits do not depend on the batch, the cache length beyond pos + 1
-// or the grid.  flash_decode_paged.cu runs the same body over a page pool
+// or the grid: a CTA takes 1, 2 or 4 consecutive blocks, a warp each,
+// chosen at launch (``bkv`` = 64, 128 or 256 keys a CTA), with the same
+// bits.  flash_decode_paged.cu runs the same body over a page pool
 // and gives the same bits.
 //
 // f32 (the smoke models, the f32 edge cases): one CTA per (kv head, slot)
@@ -73,15 +75,16 @@ int launch_f32(const float* q, const float* k, const float* v, const int* pos,
 
 // q (b, hq, d), caches (b, S, hkv, d) contiguous; pos (b,) int32 on the
 // device.  bf16: part_acc / part_ml are the split grid's scratch (sizes in
-// kernels/flash_attention.py decode_grid) and modes the staging copy modes
-// of k and v (2 bits each); f32 ignores all three.  Returns
+// kernels/flash_attention.py decode_grid), modes the staging copy modes of
+// k and v (2 bits each) and per_cta the 64-key splits a CTA (1, 2 or 4; 1
+// or 2 at head_dim > 128); f32 ignores all four.  Returns
 // cudaGetLastError() after the launches.
 extern "C" int flash_decode_launch(const void* q, const void* k,
                                    const void* v, const void* pos, void* o,
                                    void* part_acc, void* part_ml, int b,
                                    int S, int hq, int hkv, int d, int window,
                                    float scale, int dtype, int modes,
-                                   void* stream) {
+                                   int per_cta, void* stream) {
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
@@ -91,8 +94,8 @@ extern "C" int flash_decode_launch(const void* q, const void* k,
     a.length = S, a.window = window;
     a.mode_k = modes & 3, a.mode_v = (modes >> 2) & 3;
     const DenseKeys keys{S, static_cast<size_t>(hkv) * d};
-    return launch_split(q, k, v, p, o, part_acc, part_ml, b, a, keys, scale,
-                        s);
+    return launch_split<4>(q, k, v, p, o, part_acc, part_ml, b, a, keys, scale,
+                        per_cta, s);
   }
   if (d < 1 || d > kFaDmax || hq / hkv > kFaRows)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -112,8 +112,8 @@ extern "C" int flash_decode_paged_launch(const void* q, const void* k,
     const size_t row_stride = static_cast<size_t>(hkv) * d;
     const PagedKeys keys{t, ps, max_pages,
                          static_cast<size_t>(ps) * row_stride, row_stride};
-    return launch_split(q, k, v, p, o, part_acc, part_ml, b, a, keys, scale,
-                        s);
+    return launch_split<1>(q, k, v, p, o, part_acc, part_ml, b, a, keys, scale,
+                        1, s);
   }
   if (d < 1 || d > kFaDmax || hq / hkv > kFaRows)
     return static_cast<int>(cudaErrorInvalidValue);

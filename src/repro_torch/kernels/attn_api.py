@@ -14,16 +14,22 @@ half).
   on-chip footprint and the modeled traffic.  Every prefill plans kernel
   B3 (``flash_attention``, at every sq: the TPU's sq >= 128 gate came
   from its (8, 128) tiling), decode B4 (``flash_decode``) and paged
-  decode B5 (``flash_decode_paged``).  The kernels fix their blocks when
-  they are compiled (B3: 64 (q position, q head) rows a CTA, 64-key
-  blocks; B4 / B5: 64-key splits; the f32 bodies 16 rows and 32-key
-  blocks), so each family has one design, and a block override that
-  differs from it raises ``NotImplementedError``: choosing blocks is the
-  tuning half of ROADMAP queue A6, which needs them as launch-time
-  choices first.  The footprint is what a CTA allocates, checked
-  against ``HOPPER_H100``'s 227 KiB.  :meth:`AttnPlan.explain` names the
-  kernel and its source, says that its plain version runs for CPU
-  tensors, and prints the modeled costs.
+  decode B5 (``flash_decode_paged``).  The blocks are launch-time shapes
+  the kernels compile (:func:`_block_candidates`): B3's bf16 body 16-128
+  (q position, q head) rows a CTA by 64- or 128-key ring stages, B4's 1,
+  2 or 4 64-key splits a CTA; the f32 bodies and B5 one shape each.  No
+  shape changes a bit of any output row, so the search may give two
+  shapes of one prompt different blocks.  An explicit compiled block is
+  honoured, one that is not compiled raises ``ValueError``; otherwise a
+  plan takes the family's default, or with measured tuning on
+  (``AttnSpec(tune=True)``, ``repro_torch.tune.enable()`` or
+  ``REPRO_AUTOTUNE``) the winner of :func:`repro_torch.tune.
+  attn_lookup_or_search` (persistent cache, then a top-K sweep on the
+  card), degrading to the default with a ``fallback_reason``, never
+  raising.  The footprint is what a CTA allocates, checked against
+  ``HOPPER_H100``'s 227 KiB.  :meth:`AttnPlan.explain` names the kernel
+  and its source, says that its plain version runs for CPU tensors, and
+  prints the modeled costs and, when tuned, the measured time.
 * :func:`attn_execute` — runs a plan on live operands, which must match
   it.  With grad mode on, every mode runs inside ONE autograd Function
   (:class:`_AttnCore`, the reference's single ``custom_vjp``): forward
@@ -58,16 +64,21 @@ from repro_torch import resolve_device, telemetry
 from repro_torch.core import bandwidth
 from repro_torch.core.hardware import HOPPER_H100, HopperChip
 from repro_torch.core.tiling import cdiv, dtype_bytes, dtype_name
+from repro_torch.kernels.api import TunedInfo
 from repro_torch.kernels.blocked_attention import (BLOCKED_ATTN_THRESHOLD,
                                                    attention_blocked)
-from repro_torch.kernels.flash_attention import (DECODE_SPLIT, F32_ROWS,
+from repro_torch.kernels.flash_attention import (DECODE_SPLIT,
+                                                 F32_KEY_BLOCK, F32_ROWS,
                                                  KEY_BLOCK, MAX_HEAD_DIM,
-                                                 bf16_rows, cta_shape,
+                                                 b3_blocks,
+                                                 cta_shape, decode_blocks,
                                                  decode_grid,
                                                  flash_attention)
 from repro_torch.kernels.flash_decode import (MAX_GROUP, flash_decode,
                                               flash_decode_paged)
 from repro_torch.kernels.ref import attention_ref, decode_attention_xla
+from repro_torch.tune import autotune as _autotune
+from repro_torch.tune import measure as _tune_measure
 from repro_torch.tune.cache import device_mode
 
 _MODES = ("prefill", "decode", "decode_paged")
@@ -92,10 +103,9 @@ KERNELS = {
                            "flash_decode_paged_plain"),
 }
 
-#: the f32 bodies' key block (csrc/flash.cuh kFaBkv)
-F32_KEY_BLOCK = 32
-
-_NOT_TUNABLE = "ROADMAP queue A6, tuning half"
+#: the families whose blocks the measured search chooses (B5's block is
+#: the page, as in the JAX package)
+TUNABLE_KERNELS = ("flash_attention", "flash_decode")
 
 
 # ---------------------------------------------------------------------------
@@ -116,10 +126,13 @@ class AttnSpec:
       dtypes; stored as names), floating.  ``kv_quant`` is the int8-KV
       hook and raises until a quantized cache lands.
     * ``bq`` / ``bkv`` — block overrides, validated as the JAX package
-      does (rejected for ``decode_paged``); a plan raises
-      ``NotImplementedError`` for one that differs from the kernel's
-      compiled design.  No attention family is tuned yet (the JAX
-      spec's ``tune`` waits for ROADMAP queue A6's tuning half).
+      does (rejected for ``decode_paged``); a plan honours one the
+      kernel compiles (B3: ``bq`` (q position, q head) rows a CTA and
+      ``bkv`` keys a ring stage; B4: ``bkv`` keys a CTA) and raises
+      ``ValueError`` for one it does not.
+    * ``tune`` — measured tuning for this spec (None: the process switch,
+      then ``REPRO_AUTOTUNE``; the three-level rule of ``GemmSpec.tune``).
+      Not part of :attr:`key`, as in the JAX package.
     """
 
     mode: str = "prefill"
@@ -131,6 +144,7 @@ class AttnSpec:
     kv_quant: bool = False
     bq: Optional[int] = None
     bkv: Optional[int] = None
+    tune: Optional[bool] = None
 
     def __post_init__(self):
         object.__setattr__(self, "q_dtype", dtype_name(self.q_dtype))
@@ -299,16 +313,16 @@ class AttnProblem:
         return 2 * self.b * self.hq * self.sq * self.skv * 4
 
 
-def _b3_kv_bytes(p: AttnProblem) -> int:
+def _b3_kv_bytes(p: AttnProblem, bq: Optional[int] = None) -> int:
     """K / V bytes B3 reads on the card: the bf16 body stages its kv
-    head's blocks once for each CTA of 64 (q position, q head) rows of
-    the GQA group (32 at head 256); the f32 body once for each 16
-    positions of one q head."""
+    head's blocks once for each CTA of ``bq`` (q position, q head) rows
+    of the GQA group (None: the default, 64, or 32 at head 256); the f32
+    body once for each 16 positions of one q head."""
     per_tok = 2 * p.d * dtype_bytes(p.kv_dtype)
     if p.q_dtype != "bfloat16":
         return p.kv_bytes(F32_ROWS)
-    return p.b * p.hkv * p._extents(bf16_rows(p.d), p.hq // p.hkv) \
-        * per_tok
+    rows = bq if bq is not None else b3_blocks(p.d)[0][0]
+    return p.b * p.hkv * p._extents(rows, p.hq // p.hkv) * per_tok
 
 
 def attn_traffic(p: AttnProblem, kernel: str,
@@ -317,11 +331,12 @@ def attn_traffic(p: AttnProblem, kernel: str,
     """Roofline estimate for one (kernel family, blocks) choice, on the
     GEMM estimator's rates (:func:`bandwidth.effective_rates`, an f32
     problem at the sheet's f32 rate).  On a Hopper sheet B3 bills the
-    staging its CTAs do (:func:`_b3_kv_bytes`); on the TPU sheet every
-    family bills as the JAX package does."""
+    staging its CTAs of ``bq`` rows do (:func:`_b3_kv_bytes`); B4's
+    bytes do not depend on its ``bkv``; on the TPU sheet every family
+    bills as the JAX package does."""
     hbm = float(p.q_bytes + p.o_bytes)
     if kernel == "flash_attention" and isinstance(chip, HopperChip):
-        hbm += _b3_kv_bytes(p)
+        hbm += _b3_kv_bytes(p, bq)
     elif kernel in ("flash_attention", "attention_blocked"):
         hbm += p.kv_bytes(bq or p.sq)
     elif kernel == "xla_ref":
@@ -357,41 +372,47 @@ class AttnFootprint:
     design: str
 
 
-def attn_footprint(p: AttnProblem, kernel: str) -> AttnFootprint:
-    """The CTA shape and grid the kernel launches for this problem
-    (``flash_attention.cta_shape`` / ``decode_grid``)."""
+def attn_footprint(p: AttnProblem, kernel: str, bq: Optional[int] = None,
+                   bkv: Optional[int] = None) -> AttnFootprint:
+    """The CTA shape and grid the kernel launches for this problem at
+    blocks ``bq`` / ``bkv`` (None: the default;
+    ``flash_attention.cta_shape`` / ``decode_grid``), with the shared
+    memory each compiled shape allocates, as the JAX package's
+    ``attn_vmem_footprint(p, kernel, bq, bkv)`` bills each block."""
     dt = getattr(torch, p.q_dtype)
     if kernel == "flash_attention":
-        s = cta_shape(p.b, p.sq, p.hq, p.hkv, p.d, dt)
+        s = cta_shape(p.b, p.sq, p.hq, p.hkv, p.d, dt, bq, bkv)
         if s.body == "fmaf":
             how = (f"fmaf, {s.rows} positions of one q head a CTA, "
                    f"{F32_KEY_BLOCK}-key blocks")
         else:
             how = (f"tensor cores, {s.rows} (q position, q head) rows of "
-                   f"one kv head's group a CTA, {KEY_BLOCK}-key blocks "
-                   "from key 0")
+                   f"one kv head's group a CTA, ring stages of "
+                   f"{bkv or KEY_BLOCK} keys, {KEY_BLOCK}-key blocks from "
+                   "key 0")
         return AttnFootprint(s.smem_bytes, s.ctas, 0, 0,
                              f"{how}; {s.tiles} q tiles x {p.hkv} kv heads"
                              f" x {p.b} batch rows = {s.ctas} CTAs, head "
                              f"padded to {s.head_dim}")
-    g = decode_grid(p.b, p.hq, p.hkv, p.skv, p.d, dt)
+    g = decode_grid(p.b, p.hq, p.hkv, p.skv, p.d, dt,
+                    bkv if kernel == "flash_decode" else None)
     if g.body == "fmaf":
         smem = cta_shape(1, 1, 1, 1, p.d, dt).smem_bytes
         return AttnFootprint(smem, g.ctas, 0, 0,
                              f"fmaf, one CTA per (kv head, slot) = {g.ctas}"
                              f" CTAs walking {F32_KEY_BLOCK}-key blocks")
-    # csrc/decode_split.cuh: K and V tiles of kSplit x kD bf16 and the
-    # split's row offsets
-    smem = 2 * DECODE_SPLIT * g.head_dim * 2 + DECODE_SPLIT * 8
+    # csrc/decode_split.cuh: each warp's K and V tiles of kSplit x kD
+    # bf16 and its split's row offsets
+    smem = g.per_cta * (2 * DECODE_SPLIT * g.head_dim * 2 + DECODE_SPLIT * 8)
     where = "the page table" if kernel == "flash_decode_paged" \
         else "the dense cache"
     return AttnFootprint(
         smem, g.ctas, g.merge_ctas, 4 * (g.acc_floats + g.ml_floats),
-        f"tensor cores, {DECODE_SPLIT}-key splits from key 0 (one warp a "
-        f"CTA) over {where}: {g.splits} splits x {p.hkv} kv heads x {p.b} "
-        f"slots = {g.ctas} CTAs (those with no key their slot sees return "
-        f"at once), then {g.merge_ctas} merge CTAs in ascending split "
-        f"order; head padded to {g.head_dim}")
+        f"tensor cores, {DECODE_SPLIT}-key splits from key 0 ({g.per_cta} "
+        f"a CTA, a warp each) over {where}: {g.splits} splits x {p.hkv} kv "
+        f"heads x {p.b} slots in {g.ctas} CTAs (a warp with no key its "
+        f"slot sees returns at once), then {g.merge_ctas} merge CTAs in "
+        f"ascending split order; head padded to {g.head_dim}")
 
 
 def _fits(fp: AttnFootprint, chip=HOPPER_H100) -> bool:
@@ -430,30 +451,38 @@ def _choose_kernel(spec: AttnSpec, p: AttnProblem
 
 def _block_candidates(kernel: str, p: AttnProblem
                       ) -> Tuple[Tuple[Optional[int], Optional[int]], ...]:
-    """Each family's one design, as compiled: B3's rows a CTA and key
-    block, B4's key split, B5's page (no free block)."""
-    bf16 = p.q_dtype == "bfloat16"
+    """Each family's compiled (bq, bkv) shapes, the default first: B3's
+    rows a CTA by keys a ring stage (``flash_attention.b3_blocks``), B4's
+    keys a CTA (``decode_blocks``), B5's page (no free block).  A head
+    past the kernels' tiles is billed at the widest."""
+    dt = getattr(torch, p.q_dtype)
+    d = min(p.d, MAX_HEAD_DIM)
     if kernel == "flash_attention":
-        return ((bf16_rows(p.d), KEY_BLOCK) if bf16
-                else (F32_ROWS, F32_KEY_BLOCK),)
+        return b3_blocks(d, dt)
     if kernel == "flash_decode":
-        return ((None, DECODE_SPLIT if bf16 else F32_KEY_BLOCK),)
+        return tuple((None, b) for b in decode_blocks(d, dt))
     return ((None, None),)
 
 
 def attn_solve_topk(spec: AttnSpec, shapes: Tuple[int, ...],
                     k: int = 5) -> Tuple[AttnBlockDesign, ...]:
-    """The ranked block candidates that fit a CTA's shared memory, best
-    modeled time first: each family's one compiled design."""
+    """The ranked block candidates the measured search sweeps, all
+    fitting a CTA's shared memory: the family's compiled default first,
+    then the other compiled shapes by modeled time (stable).  The
+    default leads because the card measured it fastest at the shapes it
+    was chosen on (PERF.md §6) for reasons the byte model cannot see
+    (CTAs against 132 SMs, warps a CTA staging a block), which would
+    rank the widest CTA first wherever bytes bind; so the default is
+    also what an untuned plan runs."""
     p = _problem_for(spec, shapes)
     kernel, _ = _choose_kernel(spec, p)
     designs = []
     for bq, bkv in _block_candidates(kernel, p):
-        fp = attn_footprint(p, kernel)
+        fp = attn_footprint(p, kernel, bq, bkv)
         if _fits(fp):
             designs.append(AttnBlockDesign(
                 bq, bkv, attn_traffic(p, kernel, bq, bkv), fp))
-    designs.sort(key=lambda d: d.traffic.t_model)
+    designs[1:] = sorted(designs[1:], key=lambda d: d.traffic.t_model)
     return tuple(designs[:max(int(k), 1)])
 
 
@@ -483,6 +512,7 @@ class AttnPlan:
     traffic: bandwidth.TrafficEstimate
     footprint: AttnFootprint
     fallback_reason: Optional[str] = None
+    tuned: Optional[TunedInfo] = None
 
     @property
     def flops(self) -> float:
@@ -499,7 +529,9 @@ class AttnPlan:
 
     @property
     def source(self) -> str:
-        return "analytic"
+        """How the blocks were chosen: ``'tuned'`` (the measured winner)
+        or ``'analytic'`` (an explicit block, or the family's default)."""
+        return "tuned" if self.tuned is not None else "analytic"
 
     @property
     def shape_key(self) -> str:
@@ -519,8 +551,9 @@ class AttnPlan:
 
     def explain(self) -> str:
         """Human-readable decision record: the kernel and its source, the
-        plain version that runs for CPU tensors, the compiled design, the
-        footprint and the modeled traffic."""
+        plain version that runs for CPU tensors, the launch-time design,
+        the footprint, the modeled traffic and, when tuned, the measured
+        winner."""
         t, fp, p = self.traffic, self.footprint, self.problem
         mib, kib = 2 ** 20, 1024
         name, src, plain = KERNELS[self.kernel]
@@ -531,7 +564,7 @@ class AttnPlan:
             f"  design   : {fp.design}",
             f"  blocks   : bq={self.bq or '-'} bkv={self.bkv or '-'}"
             + (f" page={self.page_size}" if self.page_size else "")
-            + f" (compiled into the kernel; not tunable: {_NOT_TUNABLE})",
+            + _shapes_note(len(_block_candidates(self.kernel, p))),
             f"  on-chip  : {fp.smem_bytes / kib:.1f} KiB shared memory a "
             f"CTA of {HOPPER_H100.vmem_bytes / kib:.0f} KiB on "
             f"{HOPPER_H100.name}"
@@ -551,11 +584,27 @@ class AttnPlan:
             f"modeled on {HOPPER_H100.name} (AI "
             f"{t.arithmetic_intensity:.1f} flop/B, {t.flops / 1e9:.2f} "
             "GFLOP); not a measurement")
-        lines.append("  source   : analytic (no attention family is "
-                     f"tunable yet: {_NOT_TUNABLE})")
+        if self.tuned is not None:
+            tu = self.tuned
+            how = "cache" if tu.from_cache else f"K={tu.k_searched} sweep"
+            lines.append(
+                f"  source   : tuned ({tu.t_measured_us:.1f} us measured"
+                f" ±{tu.spread:.2f}, {how})")
+            if tu.t_analytic_us is not None and tu.analytic_tile != \
+                    _autotune._blocks_str(self.bq, self.bkv):
+                lines.append(f"             analytic first choice "
+                             f"{tu.analytic_tile} measured "
+                             f"{tu.t_analytic_us:.1f} us")
+        else:
+            lines.append("  source   : analytic")
         if self.fallback_reason:
             lines.append(f"  fallback : {self.fallback_reason}")
         return "\n".join(lines)
+
+
+def _shapes_note(n: int) -> str:
+    return (f" (one of {n} compiled shapes, all giving the same bits)"
+            if n > 1 else " (the one compiled shape)")
 
 
 class AttnPlanCacheInfo(NamedTuple):
@@ -592,14 +641,18 @@ def attn_plans() -> Tuple[AttnPlan, ...]:
 
 def _plan_event(pl: AttnPlan, cache: str) -> None:
     telemetry.counter(f"attn.plan_cache.{cache}").add(1)
+    tuned = pl.tuned
+    t_model_us = pl.traffic.t_model * 1e6
     telemetry.event(
         "attn.plan", cache=cache, spec=pl.spec.key, shape=pl.shape_key,
         dispatch=pl.dispatch, kernel=pl.kernel,
         bq=pl.bq, bkv=pl.bkv, page_size=pl.page_size or None,
         hbm_bytes=pl.hbm_bytes, vmem_bytes=pl.vmem_bytes,
-        flops=pl.flops, t_model_us=pl.traffic.t_model * 1e6,
+        flops=pl.flops, t_model_us=t_model_us,
         bound=pl.traffic.bound, source=pl.source,
-        t_measured_us=None, measured_vs_model=None,
+        t_measured_us=tuned.t_measured_us if tuned else None,
+        measured_vs_model=(tuned.t_measured_us / t_model_us
+                           if tuned and t_model_us else None),
         fallback_reason=pl.fallback_reason)
 
 
@@ -646,19 +699,47 @@ def _problem_for(spec: AttnSpec, shapes: Tuple[int, ...]) -> AttnProblem:
         page_size=f["page_size"])
 
 
+def _tune_enabled(spec: AttnSpec) -> bool:
+    """The three-level rule: the spec's ``tune``, then the process
+    switch, then ``REPRO_AUTOTUNE``."""
+    return _autotune.is_enabled(spec.tune)
+
+
 def _resolve(spec: AttnSpec, shapes: Tuple[int, ...],
              dispatch: str) -> AttnPlan:
     f = _shape_fields(spec, shapes)
     p = _problem_for(spec, shapes)
     kernel, fallback = _choose_kernel(spec, p)
-    ((bq, bkv),) = _block_candidates(kernel, p)
-    if (spec.bq is not None and spec.bq != bq) \
-            or (spec.bkv is not None and spec.bkv != bkv):
-        raise NotImplementedError(
-            f"blocks bq={spec.bq} bkv={spec.bkv}: {KERNELS[kernel][0]} "
-            f"runs its compiled bq={bq} bkv={bkv}; other blocks need "
-            f"launch-time block choices ({_NOT_TUNABLE})")
-    fp = attn_footprint(p, kernel)
+    cands = _block_candidates(kernel, p)
+    tuned = None
+    if spec.bq is not None or spec.bkv is not None:
+        # an explicit block: honoured if compiled, else refused
+        bq = spec.bq if spec.bq is not None else cands[0][0]
+        bkv = spec.bkv if spec.bkv is not None else cands[0][1]
+        if (bq, bkv) not in cands:
+            raise ValueError(
+                f"explicit blocks bq={bq} bkv={bkv}: {KERNELS[kernel][0]} "
+                f"does not compile them for head_dim {p.d} in "
+                f"{p.q_dtype}; compiled (bq, bkv): {list(cands)}")
+    else:
+        # the default, which attn_solve_topk ranks first
+        bq, bkv = cands[0]
+        if kernel in TUNABLE_KERNELS and _tune_enabled(spec):
+            # measured tuning: the persistent cache first, then a top-K
+            # sweep; every degradation keeps the default, never raising
+            from repro_torch import tune as _tune
+            found = _tune.attn_lookup_or_search(spec, shapes, p)
+            if found is not None:
+                (tq, tkv), tuned = found
+                if (tq, tkv) in cands and _fits(
+                        attn_footprint(p, kernel, tq, tkv)):
+                    bq, bkv = tq, tkv
+                else:
+                    fallback = ((fallback + "; ") if fallback else "") + (
+                        f"tuned blocks bq={tq} bkv={tkv} infeasible here; "
+                        "re-resolved analytically")
+                    tuned = None
+    fp = attn_footprint(p, kernel, bq, bkv)
     if not _fits(fp):
         fallback = ((fallback + "; ") if fallback else "") + (
             f"{fp.smem_bytes} bytes of shared memory a CTA exceed "
@@ -669,7 +750,7 @@ def _resolve(spec: AttnSpec, shapes: Tuple[int, ...],
         max_pages=f["max_pages"], dispatch=dispatch, kernel=kernel,
         bq=bq, bkv=bkv, problem=p,
         traffic=attn_traffic(p, kernel, bq, bkv), footprint=fp,
-        fallback_reason=fallback)
+        fallback_reason=fallback, tuned=tuned)
 
 
 def attn_plan(spec: AttnSpec, shapes: Tuple[int, ...],
@@ -708,9 +789,9 @@ def _launch(pl: AttnPlan, scale, q_offset, q, k, v, pos, page_table):
     if kern == "flash_attention":
         return flash_attention(q, k, v, causal=spec.causal,
                                window=spec.window, scale=scale,
-                               q_offset=q_offset)
+                               q_offset=q_offset, bq=pl.bq, bkv=pl.bkv)
     if kern == "flash_decode":
-        return flash_decode(q, k, v, pos, window=spec.window)
+        return flash_decode(q, k, v, pos, window=spec.window, bkv=pl.bkv)
     return flash_decode_paged(q, k, v, page_table, pos, window=spec.window)
 
 
@@ -781,8 +862,8 @@ def _execute_event(pl: AttnPlan) -> None:
     """One ``attn.execute`` event a plan and recorder (the plan carries
     the recorder it reported to, as ``gemm.execute``'s plans do)."""
     rec = telemetry.recorder()
-    if pl.__dict__.get("_reported") is rec:
-        return
+    if pl.__dict__.get("_reported") is rec or _tune_measure.measuring():
+        return                          # a tuner's sample is no execution
     object.__setattr__(pl, "_reported", rec)
     telemetry.event("attn.execute", spec=pl.spec.key, shape=pl.shape_key,
                     dispatch=pl.dispatch, kernel=pl.kernel, bq=pl.bq,
@@ -871,18 +952,21 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               scale: Optional[float] = None,
               q_offset: Optional[int] = None,
               bq: Optional[int] = None,
-              bkv: Optional[int] = None) -> torch.Tensor:
+              bkv: Optional[int] = None,
+              tune: Optional[bool] = None) -> torch.Tensor:
     """Planned multi-head attention with GQA and an optional sliding
     window.  q: (b, sq, hq, d); k / v: (b, skv, hkv, d) -> (b, sq, hq,
-    d)."""
+    d).  ``tune`` is the spec's (``ops.attention(q, k, v, tune=True)``
+    searches the blocks as in the JAX package)."""
     key = ("prefill", q.shape, k.shape, q.dtype, k.dtype, q.device, causal,
-           window, bq, bkv)
+           window, bq, bkv, tune)
     pl = _oneshot.get(key)
     if pl is None:
         b, sq, hq, d = q.shape
         _, skv, hkv, _ = k.shape
         spec = AttnSpec.for_operands(q, k, mode="prefill", causal=causal,
-                                     window=window, bq=bq, bkv=bkv)
+                                     window=window, bq=bq, bkv=bkv,
+                                     tune=tune)
         pl = attn_plan(spec, (b, sq, skv, hq, hkv, d), device=q.device)
         out = attn_execute(pl, q, k, v, scale=scale, q_offset=q_offset)
         _oneshot[key] = pl
@@ -893,18 +977,19 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, pos, *, window: int = 0,
-                     bkv: Optional[int] = None) -> torch.Tensor:
+                     bkv: Optional[int] = None,
+                     tune: Optional[bool] = None) -> torch.Tensor:
     """Planned single-token attention over a dense KV cache.
     q: (b, hq, d); caches: (b, S, hkv, d); pos: (b,) int32 (a scalar
-    broadcasts) -> (b, hq, d)."""
+    broadcasts) -> (b, hq, d).  ``tune`` is the spec's."""
     key = ("decode", q.shape, k_cache.shape, q.dtype, k_cache.dtype,
-           q.device, window, bkv)
+           q.device, window, bkv, tune)
     pl = _oneshot.get(key)
     if pl is None:
         b, hq, d = q.shape
         _, skv, hkv, _ = k_cache.shape
         spec = AttnSpec.for_operands(q, k_cache, mode="decode",
-                                     window=window, bkv=bkv)
+                                     window=window, bkv=bkv, tune=tune)
         pl = attn_plan(spec, (b, skv, hq, hkv, d), device=q.device)
         out = attn_execute(pl, q, k_cache, v_cache, pos=pos)
         _oneshot[key] = pl

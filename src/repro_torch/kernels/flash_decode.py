@@ -9,17 +9,20 @@ lengths, by the latency of a launch and of one round of loads.  bf16
 operands run ``csrc/decode_split.cuh``: the keys split across CTAs on a
 grid of 64-key splits fixed from key 0
 (``flash_attention.decode_grid``), one warp a split on the tensor
-cores, then a merge of the splits' partials in ascending order
-(``flash_attention.decode_splits``); so a row's bits depend only on its
-q, its keys, its ``pos`` and the window.  f32 operands keep
-``csrc/flash.cuh``'s ``fmaf`` step, one CTA per (kv head, slot).  It
-reads ``pos`` from device memory (no host sync).
+cores, 1, 2 or 4 splits a CTA (``bkv`` = 64, 128 or 256 keys a CTA,
+chosen at launch), then a merge of the splits' partials in ascending
+order (``flash_attention.decode_splits``); so a row's bits depend only
+on its q, its keys, its ``pos`` and the window, whatever ``bkv``.  f32
+operands keep ``csrc/flash.cuh``'s ``fmaf`` step, one CTA per (kv
+head, slot).  It reads ``pos`` from device memory (no host sync).
 
 B5 replaces ``flash_decode_paged`` (pallas_call :275, body
 ``_flash_decode_paged_kernel`` :156) with ``csrc/flash_decode_paged.cu``:
-B4's grid, splits and merge, with each key's row looked up through the
-slot's page table, so paged decode equals dense decode bit for bit at
-any page size.  It reads ``pos`` and the table from device memory.
+B4's grid at one split a CTA, its splits and merge, with each key's
+row looked up through the slot's page table, so paged decode equals
+dense decode bit for bit at any page size.  Its block is the page: it
+takes no ``bkv``, as in the JAX package.  It reads ``pos`` and the
+table from device memory.
 
 Each launch counter counts wrapper calls that launch the kernel: a bf16
 call is two CUDA launches (the split grid and its merge) and counts one.
@@ -35,7 +38,9 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_attention import MAX_HEAD_DIM, decode_grid
+from repro_torch.kernels.flash_attention import (DECODE_SPLIT, MAX_HEAD_DIM,
+                                                 decode_cta_keys,
+                                                 decode_grid)
 from repro_torch.kernels.ref import (decode_attention_paged_ref,
                                     decode_attention_ref)
 
@@ -43,7 +48,7 @@ from repro_torch.kernels.ref import (decode_attention_paged_ref,
 MAX_GROUP = 16
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 \
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 _PAGED_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
 
@@ -72,7 +77,8 @@ def _check_operands(name: str, q: torch.Tensor, k: torch.Tensor,
 
 def _split_scratch(q: torch.Tensor, hkv: int, length: int, k, v):
     """The bf16 body's partials (None for f32) and the staging copy
-    modes of k and v, for keys of ``length`` slots."""
+    modes of k and v, for keys of ``length`` slots (the partials do not
+    depend on the splits a CTA)."""
     b, hq, d = q.shape
     grid = decode_grid(b, hq, hkv, length, d, q.dtype)
     if not grid.acc_floats:
@@ -100,18 +106,22 @@ flash_decode_plain.launches = 0
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
-                 v_cache: torch.Tensor, pos, *,
-                 window: int = 0) -> torch.Tensor:
+                 v_cache: torch.Tensor, pos, *, window: int = 0,
+                 bkv: Optional[int] = None) -> torch.Tensor:
     """q: (b, hq, d) one token per slot; caches: (b, S, hkv, d); pos:
     (b,) int32 per-slot positions (a scalar broadcasts).  Row i sees
     cache slots <= pos[i] (and > pos[i] - window when window > 0).
-    Returns (b, hq, d) in q's dtype."""
+    ``bkv`` (the JAX wrapper's keyword): keys a CTA, one of
+    ``flash_attention.decode_blocks`` (None: the default, 64); one that
+    is not compiled raises ``ValueError``; every one gives the same
+    bits.  Returns (b, hq, d) in q's dtype."""
     b, hq, d = q.shape
     bk, skv, hkv, dk = k_cache.shape
     if tuple(v_cache.shape) != tuple(k_cache.shape) or bk != b \
             or dk != d or hq % hkv != 0:
         raise ValueError(f"flash_decode: bad shapes q {tuple(q.shape)}, "
                          f"caches {tuple(k_cache.shape)}")
+    keys = decode_cta_keys(d, q.dtype, bkv)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos, window=window)
     pos = _pos_vector(pos, b, q.device, "flash_decode")
@@ -126,7 +136,7 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         pos.data_ptr(), o.data_ptr(), _ptr(part_acc), _ptr(part_ml), b, skv,
         hq, hkv, d, int(window), float(d ** -0.5), code, modes,
-        _build.stream_of(q))
+        keys // DECODE_SPLIT, _build.stream_of(q))
     _build.check(rc, "flash_decode")
     flash_decode.launches += 1
     return o

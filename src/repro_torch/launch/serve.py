@@ -46,7 +46,8 @@ continuous-batching engine on the CUDA card (or on the CPU when asked).
         --prompt-len 16 --steps 8 --device cpu
 
     # spans / counters to PATH.jsonl + PATH.trace.json; measured tile
-    # search (top-8) with winners kept in $REPRO_TUNE_CACHE
+    # and attention block search (top-8) with winners kept in
+    # $REPRO_TUNE_CACHE
     T=$(mktemp -d)
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
         --telemetry $T/serve --autotune 8 --device cpu
@@ -117,16 +118,21 @@ def _warmup(engine: DecodeEngine, cfg, prompt_lens,
 
 def _print_tune_info() -> None:
     """Tuning-cache state after warm-up (only when autotuning is on):
-    entries, hit / measure counters, and how many live plans took the
-    measured winner against the analytic answer."""
+    entries, hit / measure counters, and how many live GEMM plans took
+    the measured winner against the analytic answer; then the attention
+    plans by source."""
     if not tune.is_enabled():
         return
     ti = tune.tuning_cache_info()
     plans = ops.plans()
     tuned = sum(1 for p in plans if p.source == "tuned")
+    by_source = {}
+    for pl in ops.attn_plans():
+        by_source[pl.source] = by_source.get(pl.source, 0) + 1
     print(f"[serve] tuning cache {tune.cache_path()}: {ti.entries} "
           f"entries ({ti.hits} hits / {ti.measurements} measured); "
-          f"{tuned}/{len(plans)} plans tuned")
+          f"{tuned}/{len(plans)} plans tuned; attention plans "
+          + ", ".join(f"{n} {src}" for src, n in sorted(by_source.items())))
 
 
 def run_trace(engine: DecodeEngine, cfg, args) -> None:
@@ -241,7 +247,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--autotune", nargs="?", const=True, default=None,
                     metavar="K",
                     help="measured top-K tile search (on the serving "
-                         "device) for every GEMM the warm-up plans; "
+                         "device) for every GEMM the warm-up plans, and "
+                         "block search for every B3 / B4 attention plan; "
                          "winners persist to the tuning cache "
                          "($REPRO_TUNE_CACHE, default "
                          "artifacts/tune_cache.json), so a later serve "

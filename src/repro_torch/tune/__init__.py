@@ -1,6 +1,6 @@
-"""``repro_torch.tune`` — measured autotuning (port of ``repro/tune``,
-its GEMM half): the top-K tile search on the device, the persistent
-tuning cache, and cost-model calibration.
+"""``repro_torch.tune`` — measured autotuning (port of ``repro/tune``):
+the top-K tile and attention block search on the device, the
+persistent tuning cache, and cost-model calibration.
 
 The analytic search (:mod:`repro_torch.core.dse`, on the ``HOPPER_H100``
 sheet) picks tiles from a traffic model; this package closes the loop
@@ -10,7 +10,8 @@ against the card:
   (synthesized operands, warm-up, median-of-N between device syncs with
   outlier rejection and reported spread);
 * :mod:`repro_torch.tune.autotune` — when enabled, ``plan()`` times the
-  top-K analytic candidates and picks the measured winner;
+  top-K analytic candidates and picks the measured winner, and
+  ``attn_plan()`` the attention kernels' compiled blocks;
 * :mod:`repro_torch.tune.cache` — winners persist to a schema-versioned
   JSON file keyed like the plan cache (spec key + shape + device mode),
   so a second process re-measures nothing;
@@ -18,13 +19,15 @@ against the card:
   bandwidth / compute constants from the recorded samples, optionally
   fed back into the analytic model.
 
-Enable per spec (``GemmSpec(tune=True)``), per process (:func:`enable` /
-``--autotune`` on serve), or with the ``REPRO_AUTOTUNE`` env var.
+Enable per spec (``GemmSpec(tune=True)``, ``AttnSpec(tune=True)``), per
+process (:func:`enable` / ``--autotune`` on serve), or with the
+``REPRO_AUTOTUNE`` env var.
 """
 
 from repro_torch.tune import calibrate  # noqa: F401
 from repro_torch.tune.autotune import (  # noqa: F401
     DEFAULT_K,
+    attn_lookup_or_search,
     disable,
     enable,
     is_enabled,
@@ -36,6 +39,7 @@ from repro_torch.tune.cache import (  # noqa: F401
     SCHEMA_VERSION as CACHE_SCHEMA_VERSION,
     TuningCache,
     TuningCacheInfo,
+    attn_cache_key,
     cache_key,
     cache_path,
     device_mode,
@@ -48,6 +52,8 @@ from repro_torch.tune.measure import (  # noqa: F401
     DEFAULT_MAX_FLOPS,
     DEFAULT_WARMUP,
     Measurement,
+    measure_attn_plan,
     measure_plan,
+    synthesize_attn_operands,
     synthesize_operands,
 )

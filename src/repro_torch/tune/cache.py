@@ -1,10 +1,11 @@
 """The persistent tuning cache (port of ``repro/tune/cache.py``):
-measured tile winners, keyed exactly like the plan cache (spec key +
-shape) plus the device mode they were measured on.
+measured tile and attention block winners, keyed exactly like the plan
+cache (spec key + shape) plus the device mode they were measured on.
 
 One schema-versioned JSON file maps
 
     "<GemmSpec.key>|<m>x<k>x<n>|<mode>"  ->  winner entry
+    "<AttnSpec.key>|<shape tuple>|<mode>"  ->  winner entry (attn|...)
 
 where ``mode`` is the device the search measured on: ``"cpu"`` or
 ``"cuda:" + torch.cuda.get_device_name()`` (:func:`device_mode`) — a CPU
@@ -61,6 +62,15 @@ def cache_key(spec, shapes, mode: str) -> str:
     plus the device mode."""
     m, k, n = (int(x) for x in shapes)
     return f"{spec.key}|{m}x{k}x{n}|{mode}"
+
+
+def attn_cache_key(spec, shapes, mode: str) -> str:
+    """The attention join key — ``AttnSpec.key`` already starts with
+    ``attn|``, so attention winners live in their own namespace next to
+    the GEMM entries in the same file (shape tuples are per-mode, see
+    :func:`repro_torch.kernels.attn_api._shape_fields`)."""
+    dims = "x".join(str(int(x)) for x in shapes)
+    return f"{spec.key}|{dims}|{mode}"
 
 
 class TuningCacheInfo(NamedTuple):

@@ -1,6 +1,5 @@
 """The shared measurement harness — the *measured* half of every
-model-against-reality loop in the port (port of the GEMM half of
-``repro/tune/measure.py``).
+model-against-reality loop in the port (port of ``repro/tune/measure.py``).
 
 One plan, one number: synthesize operands matching the plan's spec
 (quantized ``{q, scale}`` structs, the gated second B, bias / residual /
@@ -20,9 +19,15 @@ launch counters are put back as they were found, so the serve paths'
 launches-equal-executed-plans checks stay exact under tuning.  Nothing
 measures while the current stream captures a CUDA graph.
 
+:func:`measure_attn_plan` is the same harness for attention plans
+(:func:`synthesize_attn_operands`: dense q / k / v, a full cache at the
+worst-case position the plan bills, or a pool where each slot owns its
+pages).
+
 Consumers: :mod:`repro_torch.telemetry.report` (the model-against-
-measured table), :mod:`repro_torch.tune.autotune` (the top-K tile
-search), and through the tuning cache :mod:`repro_torch.tune.calibrate`.
+measured table), :mod:`repro_torch.tune.autotune` (the top-K tile and
+block searches), and through the tuning cache
+:mod:`repro_torch.tune.calibrate`.
 
 The ``timer`` parameter exists for determinism tests: a fake clock makes
 the winner selection reproducible without a card.
@@ -154,13 +159,18 @@ def synthesize_operands(pl, rng: np.random.Generator, device="cuda"
 
 def _launch_counters():
     """Every kernel wrapper's launch counter, as (function, attribute)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels.gemm_aie import gemm_aie, gemm_aie_plain
     from repro_torch.kernels.gemm_gated import gemm_gated, gemm_gated_plain
     from repro_torch.kernels.gemm_grouped import gemm_grouped, \
         gemm_grouped_plain
     from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain
     fns = (gemm_aie, gemm_aie_plain, gemm_gated, gemm_gated_plain,
-           gemm_tb, gemm_tb_plain, gemm_grouped, gemm_grouped_plain)
+           gemm_tb, gemm_tb_plain, gemm_grouped, gemm_grouped_plain,
+           fa.flash_attention, fa.flash_attention_plain, fd.flash_decode,
+           fd.flash_decode_plain, fd.flash_decode_paged,
+           fd.flash_decode_paged_plain)
     return [(f, a) for f in fns for a in ("launches", "final_launches")
             if hasattr(f, a)]
 
@@ -168,6 +178,41 @@ def _launch_counters():
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _timed(run, device, iters, warmup, timer, span_name, **span):
+    """``warmup`` calls of ``run``, then ``iters`` samples each taken
+    between two device synchronizations, with the kernels' launch
+    counters put back as they were found (a measurement is no execution
+    of the served step)."""
+    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(f"{span_name} inside a CUDA-graph capture: a "
+                           "plan resolved during capture must not measure")
+    global _active
+    counters = [(f, a, getattr(f, a)) for f, a in _launch_counters()]
+    times = []
+    _active += 1
+    try:
+        with torch.inference_mode():
+            for _ in range(max(1, warmup)):
+                out = run()
+            _sync(device)
+            with telemetry.span(span_name, iters=iters, warmup=warmup,
+                                **span) as sp:
+                for _ in range(max(1, iters)):
+                    _sync(device)
+                    t0 = timer()
+                    out = run()
+                    _sync(device)
+                    times.append(timer() - t0)
+                sp.sync(out)
+    finally:
+        _active -= 1
+        for f, a, v in counters:
+            setattr(f, a, v)
+    return Measurement(times_s=tuple(times),
+                       kept_s=reject_outliers(tuple(times)),
+                       warmup=max(1, warmup))
 
 
 def measure_plan(pl, *, iters: int = DEFAULT_ITERS,
@@ -181,35 +226,61 @@ def measure_plan(pl, *, iters: int = DEFAULT_ITERS,
     outlier rejection).  Raises inside a CUDA-graph capture."""
     from repro_torch.kernels import api
     device = resolve_device(device)
-    if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-        raise RuntimeError("measure_plan inside a CUDA-graph capture: a "
-                           "plan resolved during capture must not measure")
     rng = rng or np.random.default_rng(0)
     ops = synthesize_operands(pl, rng, device)
     kw = {k: ops[k] for k in ("b2", "bias", "residual", "out_scale")}
-    global _active
-    counters = [(f, a, getattr(f, a)) for f, a in _launch_counters()]
-    times = []
-    _active += 1
-    try:
-        with torch.inference_mode():
-            for _ in range(max(1, warmup)):
-                out = api.execute(pl, ops["a"], ops["b"], **kw)
-            _sync(device)
-            with telemetry.span("measure.gemm", spec=pl.spec.key,
-                                m=pl.m, k=pl.k, n=pl.n, iters=iters,
-                                warmup=warmup) as sp:
-                for _ in range(max(1, iters)):
-                    _sync(device)
-                    t0 = timer()
-                    out = api.execute(pl, ops["a"], ops["b"], **kw)
-                    _sync(device)
-                    times.append(timer() - t0)
-                sp.sync(out)
-    finally:
-        _active -= 1
-        for f, a, v in counters:
-            setattr(f, a, v)
-    return Measurement(times_s=tuple(times),
-                       kept_s=reject_outliers(tuple(times)),
-                       warmup=max(1, warmup))
+    return _timed(lambda: api.execute(pl, ops["a"], ops["b"], **kw),
+                  device, iters, warmup, timer, "measure.gemm",
+                  spec=pl.spec.key, m=pl.m, k=pl.k, n=pl.n)
+
+
+def synthesize_attn_operands(pl, rng: np.random.Generator, device="cuda"
+                             ) -> dict:
+    """``attn_execute()`` operands matching an attention plan, on
+    ``device``: dense q / k / v at the spec's dtypes for prefill; for
+    decode a full cache and the worst-case ``pos`` (what the plan
+    bills); for paged decode a pool where each slot owns its own pages.
+    Drawn on the device from a torch generator the numpy one seeds."""
+    spec = pl.spec
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(rng.integers(0, 2**63 - 1)))
+    if spec.mode == "prefill":
+        return {
+            "q": _rand(gen, (pl.b, pl.sq, pl.hq, pl.d), spec.q_dtype),
+            "k": _rand(gen, (pl.b, pl.skv, pl.hkv, pl.d), spec.kv_dtype),
+            "v": _rand(gen, (pl.b, pl.skv, pl.hkv, pl.d), spec.kv_dtype),
+            "pos": None, "page_table": None,
+        }
+    q = _rand(gen, (pl.b, pl.hq, pl.d), spec.q_dtype)
+    pos = torch.full((pl.b,), pl.skv - 1, dtype=torch.int32, device=device)
+    if spec.mode == "decode":
+        kv = (pl.b, pl.skv, pl.hkv, pl.d)
+        return {"q": q, "k": _rand(gen, kv, spec.kv_dtype),
+                "v": _rand(gen, kv, spec.kv_dtype),
+                "pos": pos, "page_table": None}
+    pool = (pl.b * pl.max_pages, pl.page_size, pl.hkv, pl.d)
+    table = torch.arange(pl.b * pl.max_pages, dtype=torch.int32,
+                         device=device).reshape(pl.b, pl.max_pages)
+    return {"q": q, "k": _rand(gen, pool, spec.kv_dtype),
+            "v": _rand(gen, pool, spec.kv_dtype),
+            "pos": pos, "page_table": table}
+
+
+def measure_attn_plan(pl, *, iters: int = DEFAULT_ITERS,
+                      warmup: int = DEFAULT_WARMUP,
+                      rng: Optional[np.random.Generator] = None,
+                      timer: Callable[[], float] = time.perf_counter,
+                      device=None) -> Measurement:
+    """The :func:`measure_plan` harness for attention plans on ``device``
+    (default: the card): the same warm-up, device syncs, robust median,
+    launch counters put back and ``timer`` hook.  Raises inside a
+    CUDA-graph capture."""
+    from repro_torch.kernels import attn_api
+    device = resolve_device(device)
+    rng = rng or np.random.default_rng(0)
+    ops = synthesize_attn_operands(pl, rng, device)
+    return _timed(lambda: attn_api.attn_execute(
+        pl, ops["q"], ops["k"], ops["v"], pos=ops["pos"],
+        page_table=ops["page_table"]), device, iters, warmup, timer,
+        "measure.attn", spec=pl.spec.key, shape=pl.shape_key,
+        kernel=pl.kernel)

@@ -31,7 +31,8 @@ from repro_torch import ops, telemetry
 from repro_torch.core.hardware import HOPPER_H100, TPU_V5E
 from repro_torch.kernels import attn_api
 from repro_torch.kernels import ops as legacy
-from repro_torch.kernels.flash_attention import (cta_shape, decode_grid,
+from repro_torch.kernels.flash_attention import (b3_blocks, cta_shape,
+                                                 decode_grid,
                                                  flash_attention_plain)
 from repro_torch.kernels.flash_decode import (flash_decode_paged_plain,
                                               flash_decode_plain)
@@ -198,8 +199,9 @@ def test_decode_kv_billing_matches_the_reference_plans(monkeypatch):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 def test_each_mode_plans_its_kernel_and_footprint(dtype):
     """Prefill plans B3 at every sq (no sq >= 128 gate, no fallback),
-    decode B4, paged decode B5, each with its one compiled design and
-    the shared memory its CTA allocates."""
+    decode B4, paged decode B5, each untuned at its compiled default
+    design and the shared memory its CTA allocates; the search's ranked
+    candidates lead with that default and are the compiled shapes."""
     g = dict(group=4, q_dtype=dtype, kv_dtype=dtype)
     bf16 = dtype == "bfloat16"
     for sq in (1, 64, 5000):
@@ -225,8 +227,13 @@ def test_each_mode_plans_its_kernel_and_footprint(dtype):
     assert (paged.kernel, paged.bq, paged.bkv, paged.page_size) == \
         ("flash_decode_paged", None, None, 16)
     designs = ops.attn_solve_topk(ops.AttnSpec(**g), (1, 300, 300, 32, 8,
-                                                      120))
-    assert [(d.bq, d.bkv) for d in designs] == [(pl.bq, pl.bkv)]
+                                                      120), k=8)
+    compiled = b3_blocks(120, getattr(torch, dtype))
+    assert [(d.bq, d.bkv) for d in designs][0] == (pl.bq, pl.bkv)
+    assert sorted((d.bq, d.bkv) for d in designs) == sorted(compiled)
+    assert len(compiled) == (8 if bf16 else 1)
+    ts = [d.traffic.t_model for d in designs[1:]]
+    assert ts == sorted(ts)
 
 
 def test_b3_bills_the_staging_of_its_ctas():
@@ -254,18 +261,25 @@ def test_footprint_past_the_kernels_tiles_is_said_loudly():
 
 
 def test_block_override_other_than_the_design_raises():
-    """The kernels' blocks are compiled in: an override equal to the
-    design plans, any other raises naming A6's tuning half (and a
-    one-shot with one does too)."""
-    same = ops.attn_plan(ops.AttnSpec(bq=64), (1, 300, 300, 2, 2, 64),
-                         device=CPU)
+    """The kernels' blocks are launch-time shapes: an override the
+    kernel compiles plans as asked (the other block at its default), one
+    it does not compile raises ValueError naming the compiled set (and a
+    one-shot with one does too: B4's f32 body walks 32-key blocks)."""
+    shapes = (1, 300, 300, 2, 2, 64)
+    same = ops.attn_plan(ops.AttnSpec(bq=64), shapes, device=CPU)
     assert (same.bq, same.bkv) == (64, 64)
-    for kw in (dict(bq=128), dict(bkv=128), dict(bq=256, bkv=128)):
-        with pytest.raises(NotImplementedError, match="queue A6, tuning"):
-            ops.attn_plan(ops.AttnSpec(**kw), (1, 300, 300, 2, 2, 64),
-                          device=CPU)
+    for kw, blocks in ((dict(bq=128), (128, 64)), (dict(bkv=128), (64, 128)),
+                       (dict(bq=256, bkv=128), None)):
+        if blocks is None:
+            with pytest.raises(ValueError, match="compiled"):
+                ops.attn_plan(ops.AttnSpec(**kw), shapes, device=CPU)
+            continue
+        pl = ops.attn_plan(ops.AttnSpec(**kw), shapes, device=CPU)
+        assert (pl.bq, pl.bkv) == blocks and pl.source == "analytic"
+        assert pl.vmem_bytes == cta_shape(1, 300, 2, 2, 64, torch.bfloat16,
+                                          *blocks).smem_bytes
     q, kc, vc, pos = _decode_ops()
-    with pytest.raises(NotImplementedError, match="queue A6"):
+    with pytest.raises(ValueError, match="compiled"):
         ops.decode_attention(q, kc, vc, pos, bkv=256)
 
 
@@ -348,7 +362,8 @@ def test_explain_names_the_kernel_its_source_and_the_plain_path():
                              device=CPU).explain()
         for part in names[mode] + ("on CUDA tensors", "plain version",
                                    "on CPU tensors", "[cpu]",
-                                   "not tunable", "source   : analytic"):
+                                   "compiled shape",
+                                   "source   : analytic"):
             assert part in text, (mode, part)
         assert "fallback" not in text
 

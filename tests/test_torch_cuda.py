@@ -427,6 +427,88 @@ def test_flash_attention_q_split_invariance_bitwise(cuda_device, s, hq, hkv,
         assert torch.equal(solo[:, :, 0], full[:, :, h]), h
 
 
+#: (b, sq, skv, hq, hkv, d, causal, window, q_offset): causal, non-causal,
+#: a window, a q_offset against a longer key prefix, GQA groups 1, 3, 8 and
+#: 16 and heads 64, 112, 120 and 256
+B3_BLOCK_CASES = [
+    (1, 300, 300, 15, 5, 64, True, 0, None),        # smollm-360m, group 3
+    (2, 70, 70, 4, 4, 64, False, 0, None),          # non-causal, group 1
+    (1, 200, 200, 8, 1, 120, True, 64, None),       # d 120, window, group 8
+    (1, 33, 150, 64, 4, 112, True, 0, 117),         # q_offset, d 112, 16
+    (1, 260, 260, 16, 1, 256, True, 100, None),     # recurrentgemma's d 256
+    (8, 1, 200, 16, 16, 64, False, 0, None),        # whisper's cross decode
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window,q_offset",
+                         B3_BLOCK_CASES)
+def test_flash_attention_every_block_shape_bitwise(cuda_device, b, sq, skv,
+                                                   hq, hkv, d, causal,
+                                                   window, q_offset):
+    """Every launch-time shape B3 compiles (rows a CTA x keys a ring
+    stage) gives the default shape's output bit for bit, and the plain
+    version's within the bf16 tolerance."""
+    from repro_torch.kernels.flash_attention import b3_blocks
+    dt = torch.bfloat16
+    q = _randn((b, sq, hq, d), dt, cuda_device, 0)
+    k = _randn((b, skv, hkv, d), dt, cuda_device, 1)
+    v = _randn((b, skv, hkv, d), dt, cuda_device, 2)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    base = flash_attention(q, k, v, **kw)
+    _close(base, flash_attention_plain(q, k, v, **kw), dt)
+    blocks = b3_blocks(d)
+    assert len(blocks) == (3 if d > 128 else 8)
+    for bq, bkv in blocks:
+        got = flash_attention(q, k, v, bq=bq, bkv=bkv, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, base), (bq, bkv)
+
+
+@pytest.mark.parametrize("b,S,hq,hkv,d,window,pos", [
+    (8, 1024, 15, 5, 64, 0, STRADDLING_POS),        # smollm-360m, group 3
+    (8, 1024, 64, 8, 112, 0, STRADDLING_POS),       # kimi's d 112, group 8
+    (3, 300, 4, 4, 120, 0, [0, 150, 299]),          # group 1, d 120
+    (8, 2048, 16, 1, 256, 0,                        # recurrentgemma's ring
+     [5, 900, 2047, 2047, 2047, 2047, 2047, 2047]),
+    (4, 1024, 64, 4, 128, 200, [100, 300, 700, 1023]),  # past the window
+])
+def test_flash_decode_every_grouping_bitwise(cuda_device, b, S, hq, hkv, d,
+                                             window, pos):
+    """Every B4 grouping (1, 2 or 4 64-key splits a CTA; 1 or 2 at head
+    256) gives the default's output bit for bit, and the plain
+    version's within the bf16 tolerance, decode positions past the
+    window included."""
+    from repro_torch.kernels.flash_attention import decode_blocks
+    dt = torch.bfloat16
+    q = _randn((b, hq, d), dt, cuda_device, 3)
+    k = _randn((b, S, hkv, d), dt, cuda_device, 4)
+    v = _randn((b, S, hkv, d), dt, cuda_device, 5)
+    p = torch.as_tensor(pos, dtype=torch.int32, device=cuda_device)
+    base = flash_decode(q, k, v, p, window=window)
+    _close(base, flash_decode_plain(q, k, v, p, window=window), dt)
+    keys = decode_blocks(d)
+    assert keys == ((64, 128) if d > 128 else (64, 128, 256))
+    for bkv in keys:
+        got = flash_decode(q, k, v, p, window=window, bkv=bkv)
+        torch.cuda.synchronize()
+        assert torch.equal(got, base), bkv
+
+
+def test_uncompiled_blocks_raise_on_the_card(cuda_device):
+    """A shape that is not compiled never reaches the card: the wrappers
+    raise ValueError naming the compiled set (128 rows and 128-key
+    stages are out at head 256, four splits a CTA too)."""
+    dt = torch.bfloat16
+    q = _randn((1, 8, 2, 256), dt, cuda_device, 0)
+    k = _randn((1, 8, 2, 256), dt, cuda_device, 1)
+    for kw in (dict(bq=128), dict(bkv=128), dict(bq=48)):
+        with pytest.raises(ValueError, match="compiled"):
+            flash_attention(q, k, k, **kw)
+    p = torch.zeros((1,), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="compiled"):
+        flash_decode(q[:, 0], k, k, p, bkv=256)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_chunked_prefill_equals_unchunked_bitwise(cuda_device, dtype):
     """The smoke model on the card: a 45-token prompt prefilled into the

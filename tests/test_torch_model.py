@@ -245,10 +245,10 @@ def test_full_width_config_matches_jax_and_defaults_need_a_card():
 
 
 #: what each case raises: features outside the port name the ROADMAP
-#: queue item that brings them; inputs a config cannot take raise
-#: ValueError
+#: queue item that brings them; inputs a config cannot take, and an
+#: attention block the kernel does not compile, raise ValueError
 _REFUSALS = {
-    "window": (NotImplementedError, "ROADMAP queue A6"),
+    "window": (ValueError, "not compile"),
     "local": (NotImplementedError, "ROADMAP queue A9"),
     "ssm": (ValueError, "an encoder needs a stack of attention layers"),
     "prefix_embeds": (ValueError, "prefix embeddings of width 2"),
@@ -261,14 +261,14 @@ _REFUSALS = {
                                   "frames", "page_size"])
 def test_unported_features_raise(smoke, what):
     """Each feature outside the port refuses with NotImplementedError,
-    naming the ROADMAP queue item that brings it: an attention block
-    other than the kernel's compiled one (A6's tuning half), and a
-    ``local`` layer on the page pool (A9), alone or beside ``attn``
-    layers.  Every layer kind, absolute positions, prefix embeddings and
-    the encoder-decoder are served (tests/test_torch_archs.py); what
-    raises ValueError there is an input the config cannot take: an
-    encoder over recurrent layers, prefix embeddings of another width,
-    frames for a model with no encoder."""
+    naming the ROADMAP queue item that brings it: a ``local`` layer on
+    the page pool (A9), alone or beside ``attn`` layers.  Every layer
+    kind, absolute positions, prefix embeddings and the encoder-decoder
+    are served (tests/test_torch_archs.py); what raises ValueError there
+    is an input the config cannot take: an attention block the kernel
+    does not compile (a windowed prefill at bq=24), an encoder over
+    recurrent layers, prefix embeddings of another width, frames for a
+    model with no encoder."""
     _, _, cfg, params = smoke
     toks = torch.as_tensor(_tokens((1, 4), cfg.vocab))
     err, match = _REFUSALS[what]
@@ -276,7 +276,7 @@ def test_unported_features_raise(smoke, what):
         if what == "window":
             q = torch.zeros((1, 4, cfg.n_heads, cfg.hd))
             kv = torch.zeros((1, 4, cfg.n_kv_heads, cfg.hd))
-            ops.attention(q, kv, kv, window=8, bq=128)
+            ops.attention(q, kv, kv, window=8, bq=24)
         elif what == "local":
             T.init_paged_cache(dataclasses.replace(
                 cfg, local_window=4, layer_pattern=("local",)),

@@ -58,6 +58,28 @@ def smoke(request):
     return make_smoke(request.param)
 
 
+@pytest.fixture(scope="module")
+def dense_runs():
+    """The port's dense engine over the acceptance trace, by (arch,
+    mode): run once, read by the JAX-parity and the continuous == solo
+    cases (the importing files take this fixture with the tests)."""
+    return {}
+
+
+def _dense_tokens(runs, cfg, params, mode, max_len):
+    """The port's dense engine (2 slots) over the acceptance trace,
+    computed once for (arch, mode): ``{rid: tokens}`` and the tokens in
+    trace order."""
+    key = (cfg.name, mode)
+    if key not in runs:
+        engine = DecodeEngine(params, cfg, batch=2, max_len=max_len,
+                              device=CPU)
+        reqs = _trace(cfg, Request)
+        by_rid = {r.rid: r.tokens for r in engine.run(reqs)}
+        runs[key] = by_rid, [by_rid[r.rid] for r in reqs]
+    return runs[key]
+
+
 @pytest.fixture(params=["w8a16", "w8a8"])
 def mode(request, monkeypatch):
     """Both packages in one activation mode for the test, W8A16 after."""
@@ -112,8 +134,9 @@ def test_int8_prefill_and_decode_logits_match_jax(smoke, mode):
     if tcfg.encoder_layers:
         jkw["frames"] = jnp.asarray(np.stack(frames))
         tkw["frames"] = torch.as_tensor(np.stack(frames))
-    jl, jc = JT.prefill(jp, jcfg, jnp.asarray(toks),
-                        JT.init_cache(jcfg, 2, 40), **jkw)
+    # jitted, as the decode step: one compile, not one an op
+    jl, jc = jax.jit(lambda t, c: JT.prefill(jp, jcfg, t, c, **jkw))(
+        jnp.asarray(toks), JT.init_cache(jcfg, 2, 40))
     tl, tc = T.prefill(tp, tcfg, torch.as_tensor(toks),
                        T.init_cache(tcfg, 2, 40, device=CPU), **tkw)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
@@ -130,7 +153,8 @@ def test_int8_prefill_and_decode_logits_match_jax(smoke, mode):
 
 
 @pytest.mark.parametrize("paged", [False, True])
-def test_int8_engine_tokens_match_jax_engine(smoke, mode, paged):
+def test_int8_engine_tokens_match_jax_engine(smoke, mode, paged,
+                                             dense_runs):
     """The acceptance trace through both packages' engines, dense and
     paged (16-token pages, 8-token chunks): the same tokens, request by
     request; where the JAX engine refuses the pool, the port refuses it
@@ -153,23 +177,23 @@ def test_int8_engine_tokens_match_jax_engine(smoke, mode, paged):
             JEngine(jp, jcfg, **kw).run(_trace(tcfg, JRequest))}
     got = {r.rid: r.tokens for r in
            DecodeEngine(tp, tcfg, device=CPU, **kw).run(
-               _trace(tcfg, Request))}
+               _trace(tcfg, Request))} if paged \
+        else _dense_tokens(dense_runs, tcfg, tp, mode, max_len)[0]
     assert sorted(got) == sorted(want)
     for rid in want:
         np.testing.assert_array_equal(got[rid], want[rid])
 
 
-def test_int8_continuous_batch_equals_solo_greedy(smoke, mode):
+def test_int8_continuous_batch_equals_solo_greedy(smoke, mode, dense_runs):
     """Per-row activation quantization touches a row alone, so a request
     decodes the same tokens inside the 2-slot batch as alone."""
     _, _, cfg, params = smoke
     max_len = max(p + mt for p, mt in ACCEPTANCE_TRACE) + 1
     reqs = _trace(cfg, Request)
-    engine = DecodeEngine(params, cfg, batch=2, max_len=max_len, device=CPU)
-    results = {r.rid: r.tokens for r in engine.run(reqs)}
-    for req in reqs:
+    _, results = _dense_tokens(dense_runs, cfg, params, mode, max_len)
+    for req, tokens in zip(reqs, results):
         np.testing.assert_array_equal(
-            results[req.rid],
+            tokens,
             solo_greedy(params, cfg, req.prompt, req.max_tokens, max_len,
                         frames=req.frames))
 

@@ -7,7 +7,8 @@ against the JAX package.
 import pytest
 
 from tests.test_torch_quant_serve import (  # noqa: F401  (the same tests)
-    make_smoke, mode, test_int8_continuous_batch_equals_solo_greedy,
+    dense_runs, make_smoke, mode,
+    test_int8_continuous_batch_equals_solo_greedy,
     test_int8_engine_tokens_match_jax_engine,
     test_int8_prefill_and_decode_logits_match_jax)
 
