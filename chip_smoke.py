@@ -132,7 +132,7 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    7b's run records telemetry: one ``train.step`` span a step within 5 %
    of the step's wall ms;
 7d. with smollm-360m freed, h2o-danube-3-4b at full width, its depth cut
-   24 -> 8 layers (bf16, random weights from seed 0; a sliding window of
+   24 -> 4 layers (bf16, random weights from seed 0; a sliding window of
    4096): phase
    5's dense and paged serve runs with 8 slots of 8192 positions (the
    dense cache a 4096-slot ring), on the serve trace plus a 4000-token
@@ -152,12 +152,12 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    and h2o's GEMMs on B1 / B2 / B6, against their plain versions;
 7e. with h2o freed, the recurrent families at full width, their depth
    cut (bf16, random weights from seed 0) on the dense engine, 8 slots x
-   4096 positions: recurrentgemma-9b (38 -> 14 layers: 10 RG-LRU and 4
+   4096 positions: recurrentgemma-9b (38 -> 8 layers: 6 RG-LRU and 2
    local-attention layers of head_dim 256, window 2048: the dense cache
    a 2048-slot ring in each local layer) on the serve trace plus a
    2000-token prompt with 96 new tokens (the ring wraps) and a 3000-token
    one with 32 (prefill keeps the ring's tail), then mamba2-370m (48 ->
-   16 Mamba-2 layers) on the serve trace plus a 4000-token prompt with 64
+   8 Mamba-2 layers) on the serve trace plus a 4000-token prompt with 64
    (32 SSD chunks through the state); each with launches equal to the
    executed GEMM and attention plans, the decode step (positions 3000 /
    4000) from CUDA-graph replays beside the eager step and its byte
@@ -207,8 +207,8 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    plain dB, and the f32 router GEMMs on B1 / B6;
 10. the encoder-decoder, prefix and last three configs (bf16, random
    weights from seed 0, the dense engine, 8 slots): whisper-medium at
-   full width and depth (24 encoder layers over 1500 stub frames, 24
-   decoder layers; 448 positions, its decoder context) on the serve
+   full width (24 encoder layers over 1500 stub frames, its 24 decoder
+   layers cut to 6; 448 positions, its decoder context) on the serve
    trace with each request's own frames, launches equal to the executed
    GEMM and attention plans (each framed admission's encoder and cross
    k / v, every pass's cross-attention on B3), the encoder's share of an
@@ -222,7 +222,7 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    to ``forward(prefix_embeds=)`` within 2e-2 of the row's largest
    logit, then served text only), kimi-k2-1t-a32b (61 -> 1 layer: 384
    experts, top-8, head_dim 112), deepseek-67b (95 -> 4) and minitron-8b
-   (full depth), each with launches == executed plans, the decode step
+   (32 -> 8), each with launches == executed plans, the decode step
    and continuous == solo; kimi-k2 and deepseek-67b then on the page
    pool with the same weights (launches == executed plans with B5 at
    every decode, kimi's at head_dim 112; the paged decode step; paged
@@ -236,7 +236,7 @@ its seconds, kept under ``phase_seconds`` in the JSON):
 11. training the windowed and encoder-decoder families: one AdamW step of
    h2o-danube-3-4b-smoke (64 tokens past its 32-token window) and of
    whisper-medium-smoke on the card against the CPU, as 7b; then
-   ``train`` on h2o-danube-3-4b at full width, 8 of 24 layers, b 1 x s
+   ``train`` on h2o-danube-3-4b at full width, 4 of 24 layers, b 1 x s
    4608 (past its 4096-token window; the peak memory reckoned and
    logged first) and on whisper-medium at full width and depth, b 8 x s
    448 over 1500 stub frames a row, each with the optimizer
@@ -245,7 +245,26 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    encoder and the cross-attention), no plain version, losses and grad
    norms finite, every gradient leaf finite and non-zero at step 0;
    step wall ms, tok/s and peak memory; then B3 at both training shapes
-   against its plain version, SDPA and its bound.
+   against its plain version, SDPA and its bound;
+12. two ranks sharing the card (spawned processes, a gloo group, every
+   collective on a CUDA tensor staged through pinned host buffers): the
+   EP phase, qwen3-moe-235b-a22b's MoE FFN at full width (d 4096, 128
+   experts top-8, expert d_ff 1536, bf16) on a (data 1, model 2) mesh,
+   64 experts a rank, x 8 x 300 tokens at capacity factor 16: launches
+   == executed plans, B7 on every rank, no token dropped, the output ==
+   the one-process ``moe_ffn``'s bit for bit, the bank gradients, dx and
+   the router gradient within 2e-2 of their largest value; then the DP
+   phase, smollm-360m at full width on a (data 2, model 1) mesh under
+   ``choose_layout``'s layout, AdamW at lr 1e-2, two steps of b 8 x s
+   512 (4 rows a rank): launches == executed plans every step, the loss
+   and gradients == the one-process step with a rank's rows a
+   microbatch bit for bit, the loss, grad norm, AdamW moments and update
+   over lr held to the plain one-process step from the same state; its
+   checkpoint (rank 0 writes the gathered state),
+   restored by ``remesh_restore`` in this process, equal leaf by leaf
+   (SHA-256) to what was saved, and ``launch/serve.py --ckpt-dir`` on it
+   giving the greedy tokens the ranks' parameters give in memory
+   (key ``dist``).
 
 Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
 sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
@@ -261,7 +280,8 @@ MoE training layer-step's), a ``train qwen3-moe-235b-a22b`` key B1's and
 B6's f32 router GEMMs of that step, B3's ``train h2o-danube-3-4b`` and
 ``train whisper-medium`` keys its launches at those runs' shapes, and the
 four GEMMs' ``int8`` objects hold their int8 cases, ``... tuned`` paths
-the autotune phases' second serve runs,
+the autotune phases' second serve runs, ``ep ...`` / ``dp ...`` paths
+phase 12's ranks,
 step sums by mode and launches on the int8 paths) and the card line
 before the last line, which is
 ``{"ok": true, "device": {...}}``.  Details go to
@@ -486,13 +506,15 @@ MAMBA_TIMED_ON = {
 }
 #: depth cuts of earlier paths, made when the last five configs joined so
 #: the script stays near half its 1200 s limit (at full depth it took
-#: 809 s): their continuous == solo checks run each request alone at
-#: batch 1, eagerly, at a host cost that grows with the depth.  Widths,
-#: windows, rings, traces and gates stay as they were; the kernel phase
-#: still weighs its rows by the full-depth models' launches
-H2O_LAYERS = 8              # of 24
-RG_LAYERS = 14              # of 38: 4 x (rec, rec, local) + (rec, rec)
-MAMBA_LAYERS = 16           # of 48
+#: 809 s), and halved again when the two-rank phases joined (the script
+#: read 1009.0 s on one host, 717.9 s on another): their continuous ==
+#: solo checks run each request alone at batch 1, eagerly, at a host
+#: cost that grows with the depth.  Widths, windows, rings, traces and
+#: gates stay as they were; the kernel phase still weighs its rows by the
+#: full-depth models' launches
+H2O_LAYERS = 4              # of 24
+RG_LAYERS = 8               # of 38: 2 x (rec, rec, local) + (rec, rec)
+MAMBA_LAYERS = 8            # of 48
 
 
 def cut_depth(cfg, layers):
@@ -504,18 +526,28 @@ def cut_depth(cfg, layers):
 
 
 #: the encoder-decoder and prefix families and the last three configs:
-#: whisper-medium at full width and depth (24 encoder layers over 1500
-#: frames, 24 decoder layers; 448 positions, its decoder context);
+#: whisper-medium at full width (24 encoder layers over 1500 frames, 24
+#: decoder layers, cut to 6 by :data:`TIME_CUTS`; 448 positions, its
+#: decoder context);
 #: internvl2-76b at full width with its depth cut to 8 of 80 layers
 #: (about 18 GB of the 152 GB), deepseek-67b to 4 of 95 (about 9 GB of
 #: 134 GB), kimi-k2-1t-a32b to 1 of 61 (about 39 GB of 2 TB: 384 experts
-#: a layer), minitron-8b at full width and depth (about 20 GB)
+#: a layer), minitron-8b at full width (about 20 GB; 32 layers cut to 8
+#: by :data:`TIME_CUTS`)
 WHISPER = "whisper-medium"
 INTERNVL = "internvl2-76b"
 DEEPSEEK = "deepseek-67b"
 MINITRON = "minitron-8b"
 KIMI = "kimi-k2-1t-a32b"
 A9_LAYERS = {INTERNVL: 8, DEEPSEEK: 4, KIMI: 1, MINITRON: None}
+#: depth cuts made when the two-rank phases joined (the script read
+#: 1085.3 s with both at full depth, then 1009.0 s with whisper's decoder
+#: at 12 layers on a slower host): their continuous == solo checks run
+#: each request alone at batch 1, eagerly, at a host cost that grows with
+#: the depth.  whisper-medium keeps its 24 encoder layers; widths,
+#: traces and gates stay, and the kernel phase still weighs its rows by
+#: the full-depth models' launches
+TIME_CUTS = {WHISPER: 6, MINITRON: 8}
 #: the last configs also served on the page pool, after their dense run
 #: on the same weights, and the reference their paged greedy is held to:
 #: deepseek-67b dense solo runs; kimi-k2 (a MoE: a prefill chunk sizes
@@ -3644,6 +3676,8 @@ def a9_params(name, card):
     layers = A9_LAYERS.get(name)
     cfg = full if layers is None else dataclasses.replace(full,
                                                           n_layers=layers)
+    if name in TIME_CUTS:
+        cfg = cut_depth(full, TIME_CUTS[name])
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(cfg, gen, device="cuda")
@@ -3761,7 +3795,8 @@ def prefix_phase(cfg, params):
 
 
 def whisper_phases(card):
-    """whisper-medium at full width and depth on the dense engine: the
+    """whisper-medium at full width (decoder depth by :data:`TIME_CUTS`)
+    on the dense engine: the
     serve trace with per-request frames, 8 slots of 448 positions,
     launches equal to the executed GEMM and attention plans (the
     encoder, the cross k / v and every pass's cross-attention
@@ -4738,6 +4773,472 @@ def moe_train_kernel_phase(cfg, sizes, step_plans, card):
                      "db_bound_ms_per_layer_step": db_bound}
 
 
+# ---------------------------------------------------------------- phase 12
+
+#: the two-rank phases: two processes share the one card, on gloo, their
+#: collectives staged through pinned host buffers
+DIST_RANKS = 2
+#: a two-rank phase's time limit: ranks still running are killed
+DIST_TIMEOUT = 300
+#: the EP phase: one MoE FFN of qwen3-moe-235b-a22b at full width, x of
+#: 8 x 300 tokens, capacity factor 16 (nothing drops)
+EP_ARCH, EP_ROWS, EP_SEQ, EP_CAPACITY = "qwen3-moe-235b-a22b", 8, 300, 16.0
+#: the EP gradients against the one-process layer's: max |diff| over the
+#: tensor's largest |value| (the bf16 gate).  They are not bit for bit:
+#: a bank's dB sums each expert's rows, which EP receives source by
+#: source (a rank's sequence slice at a time) where one process holds
+#: them in token order, and dx sums a token's k contributions with an
+#: atomic scatter-add on either side
+EP_GRAD_TOL = 2e-2
+#: the DP phase: smollm-360m at full width, AdamW at lr 1e-2 from step 0
+#: (no warmup), b 8 x s 512 global (4 rows a rank), two steps
+DP_ARCH, DP_STEPS, DP_BATCH, DP_SEQ, DP_LR = "smollm-360m", 2, 8, 512, 1e-2
+#: its gates against the one-process step from the same state on the
+#: same global batch: the loss within 1e-3 of itself, the grad norm
+#: within 1e-2 (each rank's bf16 gradient is rounded before the f32
+#: mean); AdamW's f32 moments mu and nu (every element of the clipped
+#: gradient, and of its square), leaf by leaf, within DP_MOMENT_TOL of
+#: the leaf's largest |value|; and the update over lr, on every element
+#: whose two gradients are clear of zero (|g| > 1e-6) and of one sign (at
+#: least half of all elements: an embedding row no token of the batch
+#: reads has none, and a sign apart moves an element the other way),
+#: within DP_UPDATE_TOL_F32 on an f32 leaf (the norm scales) and, on a
+#: bf16 one, within DP_UPDATE_TOL_BF16 plus the bf16 rounding of the new
+#: parameters over lr (two roundings differ by at most one ulp, 2^-7 of
+#: the leaf's largest |value|).  The limits are about twice the largest
+#: readings of the sound runs (PERF.md section 6).  Against the one-
+#: process step that takes each rank's rows as a microbatch, the loss
+#: and every gradient (rounded to its leaf's dtype) bit for bit.
+DP_LOSS_RTOL, DP_GNORM_RTOL, DP_MOMENT_TOL = 1e-3, 1e-2, 4e-2
+DP_UPDATE_TOL_F32, DP_UPDATE_TOL_BF16 = 3e-4, 0.4
+#: the served check of the DP checkpoint (``launch/serve.py`` arguments)
+DP_SERVE = ("--batch", "2", "--prompt-len", "16", "--steps", "8")
+
+
+def _rank_main(rank, world, store, out, job, args):
+    """One rank of a two-rank phase (a spawned process): join the gloo
+    group on the card, run ``job(rank, *args)``, write its result."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as coll
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    line = coll.init_process_group("cuda", init_method=f"file://{store}",
+                                   rank=rank, world_size=world,
+                                   local_rank=rank)
+    if rank == 0:
+        log(f"[dist] {line}")
+    try:
+        torch.save(job(rank, *args), pathlib.Path(out) / f"rank{rank}.pt")
+        coll.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def run_ranks(job, *args, world=DIST_RANKS):
+    """``job(rank, *args)`` on ``world`` spawned processes sharing the
+    card; their results in rank order.  Raises when a rank fails or is
+    still running after :data:`DIST_TIMEOUT` s (it is then killed)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    tmp = pathlib.Path(tempfile.mkdtemp(prefix=".ranks_", dir=ROOT))
+    ctx = torch.multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=_rank_main, args=(
+        r, world, str(tmp / "store"), str(tmp), job, args))
+        for r in range(world)]
+    try:
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + DIST_TIMEOUT
+        for p in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+        late = [r for r, p in enumerate(procs) if p.is_alive()]
+        failed = [(r, p.exitcode) for r, p in enumerate(procs)
+                  if not p.is_alive() and p.exitcode != 0]
+        if late or failed:
+            raise RuntimeError(f"{job.__name__}: ranks still running after "
+                               f"{DIST_TIMEOUT} s: {late}; failed (rank, "
+                               f"exit code): {failed}")
+        # written by this script's own ranks
+        return [torch.load(tmp / f"rank{r}.pt", weights_only=False)
+                for r in range(world)]
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rel_err(got, ref) -> float:
+    """max |got - ref| over the largest |ref|."""
+    ref = ref.float()
+    return float((got.float() - ref).abs().max()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def ep_rank(rank, card):
+    """One rank of the EP phase: qwen3-moe-235b-a22b's MoE FFN at full
+    width (d 4096, 128 experts top-8, expert d_ff 1536, bf16, weights
+    and x from seed 0) on a (data 1, model 2) mesh, this rank holding 64
+    experts.  Kernel counts and executed plans are set to 0 just before
+    the forward and backward of sum(y * t) (t a seeded f32 weighting)
+    and read just after: the launches must equal the executed plans, B7
+    must run, no plain version, no token dropped.  Then the one-process
+    ``moe_ffn`` on the same weights and inputs (its launches uncounted):
+    the output must equal it bit for bit, the aux loss within 1e-5, and
+    this rank's bank gradients, its sequence slice of dx and the router
+    gradient summed over the ranks within :data:`EP_GRAD_TOL` (each
+    rank's gradient is its term of the summed loss: the replicas of the
+    rows double it)."""
+    import torch.distributed as dist
+    from repro_torch.dist import collectives as coll, sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import moe as MOE
+    cfg = get_config(EP_ARCH)
+    d, n_exp, k = cfg.d_model, cfg.n_experts, cfg.top_k
+    mesh = make_host_mesh(data=1, model=DIST_RANKS, device="cuda")
+    j, e_loc = mesh.coord["model"], n_exp // DIST_RANKS
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full = {n: v[0] for n, v in MOE.init_moe(gen, d, cfg.d_ff, n_exp,
+                                             torch.bfloat16, 1).items()}
+    x = torch.randn((EP_ROWS, EP_SEQ, d), generator=gen,
+                    device="cuda").to(torch.bfloat16)
+    t = torch.randn(x.shape, generator=gen, device="cuda")
+    block = slice(j * e_loc, (j + 1) * e_loc)
+    mine = {n: (v[block].clone() if n.startswith("w_") else v)
+            .detach().requires_grad_() for n, v in full.items()}
+    bank_gb = sum(v.numel() * v.element_size() for n, v in mine.items()
+                  if n.startswith("w_")) / 1e9
+    xr = x.detach().requires_grad_()
+    trec = telemetry.enable(telemetry.Recorder())
+    torch.cuda.synchronize()
+    reset_counters()
+    try:
+        with PlanRecorder() as rec:
+            t0 = time.perf_counter()
+            with shd.use_mesh(mesh):
+                y, aux = MOE.moe_ffn(mine, xr, top_k=k,
+                                     capacity_factor=EP_CAPACITY)
+                (y.float() * t).sum().backward()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        telemetry.disable()
+    plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
+    want = dict({n: 0 for n in launches}, **rec.implied())
+    grouped_plans = sum(n for pl, n in rec.plans.items() if pl.spec.grouped)
+    moe_counts = {c: int(trec.snapshot()["counters"].get(c, 0))
+                  for c in ("moe.group_sizes", "moe.dropped_tokens")}
+    if launches != want or any(plain.values()) \
+            or not launches["gemm_grouped"]:
+        raise RuntimeError(f"EP rank {rank}: launches {launches} (executed "
+                           f"plans {want}), plain versions {plain}")
+    if moe_counts["moe.dropped_tokens"] or moe_counts["moe.group_sizes"] \
+            != EP_ROWS * EP_SEQ // DIST_RANKS * k:
+        raise RuntimeError(f"EP rank {rank}: MoE counters {moe_counts}")
+    ref = {n: v.detach().requires_grad_() for n, v in full.items()}
+    xref = x.detach().requires_grad_()
+    y_ref, aux_ref = MOE.moe_ffn(ref, xref, top_k=k,
+                                 capacity_factor=EP_CAPACITY)
+    (y_ref.float() * t).sum().backward()
+    if not torch.equal(y, y_ref):
+        raise RuntimeError(f"EP rank {rank}: the output is not the one-"
+                           f"process moe_ffn's bit for bit (max abs diff "
+                           f"{(y.float() - y_ref.float()).abs().max()})")
+    aux_err = abs(float(aux.detach()) - float(aux_ref.detach())) \
+        / abs(float(aux_ref.detach()))
+    sl = slice(j * EP_SEQ // DIST_RANKS, (j + 1) * EP_SEQ // DIST_RANKS)
+    outside = torch.cat([xr.grad[:, :sl.start], xr.grad[:, sl.stop:]], 1)
+    router = coll.all_reduce(mine["router"].grad, dist.group.WORLD) / 2
+    errs = {n: _rel_err(mine[n].grad / 2, ref[n].grad[block])
+            for n in ("w_gate", "w_up", "w_down")}
+    errs["dx"] = _rel_err(xr.grad[:, sl] / 2, xref.grad[:, sl])
+    errs["router"] = _rel_err(router, ref["router"].grad)
+    if aux_err > 1e-5 or outside.abs().max() > 0 \
+            or max(errs.values()) > EP_GRAD_TOL:
+        raise RuntimeError(f"EP rank {rank}: gradient errors {errs} "
+                           f"(tolerance {EP_GRAD_TOL}), aux {aux_err:.2e}, "
+                           f"dx outside the rank's slice "
+                           f"{float(outside.abs().max())}")
+    log(f"EP rank {rank} ({mesh}): {e_loc} experts ({bank_gb:.2f} GB of "
+        f"banks), {EP_ROWS} x {EP_SEQ // DIST_RANKS} tokens of {EP_SEQ}; "
+        f"forward + backward {wall * 1e3:.1f} ms; B7 launches "
+        f"{launches['gemm_grouped']} against {grouped_plans} executed "
+        f"grouped plans (implied {want['gemm_grouped']}); launches "
+        f"{launches}; output == one-process moe_ffn bit for bit; gradient "
+        f"errors (over the largest |value|) "
+        + ", ".join(f"{n} {v:.2e}" for n, v in errs.items())
+        + f", aux {aux_err:.1e}; MoE counters {moe_counts} [{card}]")
+    return {"rank": rank, "coord": mesh.coord, "experts": e_loc,
+            "bank_gb": bank_gb, "wall_ms": wall * 1e3, "launches": launches,
+            "executed_grouped_plans": grouped_plans, "implied": want,
+            "grad_rel_err": errs, "aux_rel_err": aux_err,
+            "moe_counters": moe_counts, "output_bitwise": True}
+
+
+def _sha(t) -> str:
+    import hashlib
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha256(t.cpu().contiguous().numpy().tobytes()).hexdigest()
+
+
+def _dp_prompts(cfg):
+    """``launch/serve.py --batch 2 --prompt-len 16``'s prompts."""
+    return np.random.default_rng(0).integers(0, cfg.vocab, (2, 16)) \
+        .astype(np.int32)
+
+
+def _dp_readings(before, after, ref_after, m, ref_m) -> dict:
+    """The DP step against the one-process step from the same state:
+    each AdamW moment's largest leaf error over that leaf's largest
+    |value|; the update over lr's largest difference on the elements
+    whose two gradients are clear of zero and of one sign, on the f32
+    leaves and on the bf16 ones (also past their rounding term, see
+    :data:`DP_UPDATE_TOL_BF16`)."""
+    out = {"mu_rel_err": 0.0, "nu_rel_err": 0.0, "update_over_lr_f32": 0.0,
+           "update_over_lr_bf16": 0.0,
+           "update_over_lr_bf16_excess": -math.inf, "clear_elements": 0,
+           "elements": 0}
+    for name in ("mu", "nu"):
+        for a, b in zip(tree_leaves(getattr(after.opt, name)),
+                        tree_leaves(getattr(ref_after.opt, name))):
+            out[f"{name}_rel_err"] = max(out[f"{name}_rel_err"],
+                                         _rel_err(a, b))
+    for p0, a, b, ga, gb in zip(*(tree_leaves(x) for x in (
+            before.params, after.params, ref_after.params, m["grads"],
+            ref_m["grads"]))):
+        ga, gb = ga.float(), gb.float()
+        clear = (ga.abs() > 1e-6) & (gb.abs() > 1e-6) \
+            & (torch.sign(ga) == torch.sign(gb))
+        out["clear_elements"] += int(clear.sum())
+        out["elements"] += clear.numel()
+        if not clear.any():
+            continue
+        p0f, af, bf = p0.float(), a.float(), b.float()
+        worst = float((((af - p0f) - (bf - p0f)).abs() / DP_LR)[clear]
+                      .max())
+        if p0.dtype == torch.float32:
+            out["update_over_lr_f32"] = max(out["update_over_lr_f32"], worst)
+            continue
+        scale = torch.maximum(p0f.abs(), torch.maximum(af.abs(), bf.abs()))
+        out["update_over_lr_bf16"] = max(out["update_over_lr_bf16"], worst)
+        out["update_over_lr_bf16_excess"] = max(
+            out["update_over_lr_bf16_excess"],
+            worst - 2 ** -7 * float(scale.max()) / DP_LR)
+    return out
+
+
+def dp_rank(rank, ckpt_dir, card):
+    """One rank of the DP phase: smollm-360m at full width (bf16, seed
+    0) on a (data 2, model 1) mesh under ``choose_layout``'s layout,
+    AdamW at :data:`DP_LR` without warmup, :data:`DP_STEPS` steps of the
+    b 8 x s 512 global batch, this rank's 4 rows.  Kernel counts and
+    plans are set to 0 just before each step and read just after: the
+    launches must equal the executed plans (B1, B2, B6's chunks; B3 twice
+    a layer), with B2, B3 and B6 in the step and no plain version.  Rank
+    0 then runs the one-process step from the same state on the global
+    batch and holds the loss, grad norm, AdamW moments and update over
+    lr to it (the ``DP_*`` gates, :func:`_dp_readings`), and the loss
+    and gradients to the one-process step with a rank's rows a
+    microbatch, bit for bit.  After the last step every rank takes part in the
+    checkpoint (rank 0 writes the gathered state into ``ckpt_dir``);
+    rank 0 keeps each leaf's SHA-256 and the greedy tokens of
+    ``launch/serve.py --batch 2 --prompt-len 16 --steps 8``'s prompts
+    served from its parameters in memory."""
+    from repro_torch.dist import collectives as coll, layout
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import elastic
+    from repro_torch.checkpoint.checkpointer import _flatten
+    cfg = get_config(DP_ARCH)
+    mesh = make_host_mesh(data=DIST_RANKS, device="cuda")
+    struct = TS.state_struct(cfg, "adamw")
+    strategy = layout.choose_layout(cfg, shd.axis_sizes(mesh))
+    specs = elastic.state_specs(struct, cfg, mesh)
+    state = layout.shard_tree(TS.init_state(
+        cfg, torch.Generator(device="cuda").manual_seed(0), "cuda"),
+        specs, mesh)
+    step = TS.make_train_step(cfg, peak_lr=DP_LR, warmup_steps=0,
+                              return_grads=True, mesh=mesh, specs=specs)
+    ref_step = TS.make_train_step(cfg, peak_lr=DP_LR, warmup_steps=0,
+                                  return_grads=True)
+    micro_step = TS.make_train_step(cfg, peak_lr=DP_LR, warmup_steps=0,
+                                    microbatches=DIST_RANKS,
+                                    return_grads=True)
+    data = pipeline.DataConfig(seq_len=DP_SEQ, global_batch=DP_BATCH)
+    rows = []
+    for i in range(DP_STEPS):
+        batch = pipeline.make_batch(cfg, data, i, "cuda")
+        mine = train_launch.rank_rows(batch, mesh)
+        before = layout.gather_tree(state, specs, mesh)
+        torch.cuda.synchronize()
+        reset_counters()
+        with PlanRecorder() as rec:
+            t0 = time.perf_counter()
+            state, m = step(state, mine)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = counts()
+        plain = {n: p.launches for n, (_, p, _, _) in KERNELS.items()}
+        want = dict({n: 0 for n in launches}, **rec.implied())
+        want["flash_attention"] = train_attn_per_step(cfg)
+        executed = sum(rec.plans.values())
+        if launches != want or any(plain.values()) \
+                or executed != train_gemms_per_step(cfg) or not all(
+                    launches[n] for n in ("gemm_gated", "flash_attention",
+                                          "gemm_tb_final")):
+            raise RuntimeError(f"DP rank {rank} step {i}: launches "
+                               f"{launches} (executed plans {want}, "
+                               f"{executed} GEMMs), plain {plain}")
+        row = {"step": i, "wall_ms": wall * 1e3, "launches": launches,
+               "loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+               "rows": int(mine["tokens"].shape[0])}
+        after = layout.gather_tree(state, specs, mesh)
+        if rank == 0:
+            ref_after, ref_m = ref_step(before, batch)
+            row["ref_loss"] = float(ref_m["loss"])
+            row["ref_grad_norm"] = float(ref_m["grad_norm"])
+            row.update(_dp_readings(before, after, ref_after, m, ref_m))
+            loss_err = abs(row["loss"] - row["ref_loss"]) / row["ref_loss"]
+            gn_err = abs(row["grad_norm"] - row["ref_grad_norm"]) \
+                / row["ref_grad_norm"]
+            row.update({"loss_rel_err": loss_err, "grad_norm_rel_err": gn_err})
+            log(f"DP step {i}: loss {row['loss']:.5f} (one process "
+                f"{row['ref_loss']:.5f}), grad norm {row['grad_norm']:.4f} "
+                f"({row['ref_grad_norm']:.4f}); moments over their leaf's "
+                f"largest value: mu {row['mu_rel_err']:.3e}, nu "
+                f"{row['nu_rel_err']:.3e}; update over lr max diff: f32 "
+                f"leaves {row['update_over_lr_f32']:.3e}, bf16 leaves "
+                f"{row['update_over_lr_bf16']:.3e} "
+                f"({row['update_over_lr_bf16_excess']:.3e} past their "
+                f"rounding) on {row['clear_elements']} of "
+                f"{row['elements']} elements; rank 0 wall "
+                f"{row['wall_ms']:.1f} ms; launches {launches} [{card}]")
+            del ref_after, ref_m
+            _, micro_m = micro_step(before, batch)
+            row["micro_bitwise"] = bool(torch.equal(m["loss"],
+                                                    micro_m["loss"])) and all(
+                torch.equal(a, b.to(a.dtype)) for a, b in zip(
+                    tree_leaves(m["grads"]), tree_leaves(micro_m["grads"])))
+            del micro_m
+            log(f"DP step {i}: loss and gradients == the one-process step "
+                f"with a rank's rows a microbatch, bit for bit: "
+                f"{row['micro_bitwise']}")
+            if loss_err > DP_LOSS_RTOL or gn_err > DP_GNORM_RTOL \
+                    or max(row["mu_rel_err"], row["nu_rel_err"]) \
+                    > DP_MOMENT_TOL \
+                    or row["update_over_lr_f32"] > DP_UPDATE_TOL_F32 \
+                    or row["update_over_lr_bf16_excess"] \
+                    > DP_UPDATE_TOL_BF16 \
+                    or row["clear_elements"] < row["elements"] / 2 \
+                    or not row["micro_bitwise"]:
+                raise RuntimeError(f"DP step {i} off the one-process "
+                                   f"step's: {row}")
+        del before, after, m
+        torch.cuda.empty_cache()
+        coll.barrier()
+        rows.append(row)
+    t0 = time.perf_counter()
+    Checkpointer(ckpt_dir).save(DP_STEPS, state, shardings=elastic
+                                .state_shardings(struct, cfg, mesh))
+    out = {"rank": rank, "layout": strategy, "steps": rows,
+           "save_s": time.perf_counter() - t0,
+           "launches": {n: sum(r["launches"][n] for r in rows)
+                        for n in rows[0]["launches"]}}
+    whole = layout.gather_tree(state, specs, mesh)
+    if rank == 0:
+        out["sha256"] = {k: _sha(v) for k, v in _flatten(whole)}
+        engine = DecodeEngine(whole.params, cfg, batch=2, max_len=24,
+                              device="cuda")
+        out["tokens"] = np.asarray(engine.generate(_dp_prompts(cfg),
+                                                   8).tokens)
+    return out
+
+
+def dist_rank(rank, ckpt_dir, card):
+    """One rank of phase 12: the EP phase, then the DP phase, each with
+    its seconds on this rank's clock."""
+    t0 = time.perf_counter()
+    ep = ep_rank(rank, card)
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dp = dp_rank(rank, ckpt_dir, card)
+    return {"ep": dict(ep, seconds=t1 - t0),
+            "dp": dict(dp, seconds=time.perf_counter() - t1)}
+
+
+def dist_phases(card):
+    """Phase 12: the EP and DP phases on two ranks sharing the card, then
+    the DP checkpoint restored by ``remesh_restore`` in this process (one
+    rank) equal, leaf by leaf, to what rank 0 saved (SHA-256 of every
+    leaf's bytes), and ``launch/serve.py --ckpt-dir`` on it giving the
+    greedy tokens of the parameters the ranks held in memory."""
+    import contextlib
+    import io
+    from repro_torch.checkpoint.checkpointer import _flatten
+    from repro_torch.launch import serve as serve_launch
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.runtime import elastic
+    ckpt_dir = tempfile.mkdtemp(prefix=".dp_ckpt_", dir=ROOT)
+    try:
+        t0 = time.perf_counter()
+        ranks = run_ranks(dist_rank, ckpt_dir, card)
+        spawn_s = time.perf_counter() - t0
+        ep, dp = [r["ep"] for r in ranks], [r["dp"] for r in ranks]
+        ep_s = max(r["seconds"] for r in ep)
+        dp_s = max(r["seconds"] for r in dp)
+        log(f"two ranks: {spawn_s:.1f} s from spawn to exit; EP phase "
+            f"({EP_ARCH} MoE FFN) {ep_s:.1f} s, DP phase ({DP_ARCH}) "
+            f"{dp_s:.1f} s on the ranks' clocks")
+        cfg = get_config(DP_ARCH)
+        t0 = time.perf_counter()
+        restored = elastic.remesh_restore(
+            Checkpointer(ckpt_dir), TS.state_struct(cfg, "adamw"), cfg,
+            make_host_mesh(device="cuda"))
+        got = {k: _sha(v) for k, v in _flatten(restored)}
+        if got != dp[0]["sha256"]:
+            bad = [k for k in got if got[k] != dp[0]["sha256"].get(k)]
+            raise RuntimeError("DP checkpoint: the one-rank restore differs "
+                               f"from what rank 0 saved in leaves {bad}")
+        del restored
+        restore_s = time.perf_counter() - t0
+        engine = DecodeEngine(serve_launch.load_params(
+            cfg, torch.device("cuda"), ckpt_dir), cfg, batch=2, max_len=24,
+            device="cuda")
+        served = np.asarray(engine.generate(_dp_prompts(cfg), 8).tokens)
+        del engine
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            serve_launch.main(["--ckpt-dir", ckpt_dir, *DP_SERVE])
+        first = [ln for ln in buf.getvalue().splitlines()
+                 if ln.startswith("[serve] first sequence:")]
+        want = dp[0]["tokens"]
+        if not np.array_equal(served, want) or first != [
+                f"[serve] first sequence: {want[0][:16]} ..."]:
+            raise RuntimeError(f"serve --ckpt-dir: tokens {served} / CLI "
+                               f"{first}, in memory {want}")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    log(f"DP phase ({DIST_RANKS} ranks, {DP_ARCH}, layout "
+        f"{dp[0]['layout']}): checkpoint restored in one "
+        f"process == saved ({len(got)} leaves by SHA-256; "
+        f"{restore_s:.1f} s); serve --ckpt-dir tokens == in memory "
+        f"{want.tolist()} [{card}]")
+    return {"ep": {"config": EP_ARCH, "rows": EP_ROWS, "seq": EP_SEQ,
+                   "capacity_factor": EP_CAPACITY, "ranks": ep,
+                   "grad_tolerance": EP_GRAD_TOL, "seconds": ep_s},
+            "dp": {"config": DP_ARCH, "batch": DP_BATCH, "seq": DP_SEQ,
+                   "lr": DP_LR, "ranks": [
+                       {k: v for k, v in r.items()
+                        if k not in ("sha256", "tokens")} for r in dp],
+                   "tokens": want.tolist(), "leaves": len(got),
+                   "restore_s": restore_s, "seconds": dp_s},
+            "spawn_to_exit_s": spawn_s, "card": card}
+
+
 def main() -> None:
     global _GEN
     if not torch.cuda.is_available():
@@ -4917,6 +5418,8 @@ def main() -> None:
         clock.mark(f"train {name}")
     train_a9_checked = a9_train_kernel_phase()
     clock.mark("training B3 rows")
+    dist_run = dist_phases(card)
+    clock.mark(f"two ranks: EP ({EP_ARCH}) and DP ({DP_ARCH})")
 
     paths = {cfg.name: (serve, paged), moe_cfg.name: (moe_serve, moe_paged),
              H2O: (h2o["serve"], h2o["paged_serve"]),
@@ -4927,6 +5430,10 @@ def main() -> None:
              **{f"{name} paged": (run["paged_serve"],)
                 for name, run in a9.items() if "paged_serve" in run},
              **{f"train {name}": (run,) for name, run in train_a9.items()}}
+    paths[f"ep {EP_ARCH} ({DIST_RANKS} ranks)"] = tuple(
+        dist_run["ep"]["ranks"])
+    paths[f"dp {DP_ARCH} ({DIST_RANKS} ranks)"] = tuple(
+        dist_run["dp"]["ranks"])
     for name, run in tuned.items():         # the tuned plans' serve run
         paths[f"{name} tuned"] = (run["serve"],)
     int8_paths = {}
@@ -5042,6 +5549,7 @@ def main() -> None:
                 "paged_bit_identity_reference": "paged solo",
                 "int8": moe_int8},
         "h2o": h2o, "recurrentgemma": rg, "mamba2": mamba, "a9": a9,
+        "dist": dist_run,
         "a9_train": train_a9,
         "a9_train_cases": {n: rows for n, (rows, *_) in
                            train_a9_checked.items()},
@@ -5082,8 +5590,8 @@ def main() -> None:
         "object the same for its int8 cases by mode; launches sum the "
         "dense and paged serve runs of the ten models (smollm-360m, "
         f"qwen3-moe, {RG} and {WHISPER} also in W8A16 and W8A8), the "
-        "operator-API phase and the four training runs "
-        "(launches_by_path splits them)")
+        "operator-API phase, the four training runs and the two-rank EP "
+        "and DP phases (launches_by_path splits them)")
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": line}))
     print(card)

@@ -46,11 +46,14 @@ def tree_leaves(tree):
 
 
 def zip_trees(fn: Callable, first, *rest):
-    """``fn`` over the matching leaves of trees of nested dicts that
-    share ``first``'s keys."""
+    """``fn`` over the matching leaves of trees of nested dicts and named
+    tuples that share ``first``'s structure."""
     if isinstance(first, dict):
         return {k: zip_trees(fn, v, *(r[k] for r in rest))
                 for k, v in first.items()}
+    if isinstance(first, tuple) and hasattr(first, "_fields"):
+        return type(first)(*(zip_trees(fn, v, *(getattr(r, f) for r in rest))
+                             for f, v in zip(first._fields, first)))
     return fn(first, *rest)
 
 

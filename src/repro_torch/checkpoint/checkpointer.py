@@ -21,6 +21,15 @@ once (so the caller may overwrite its tensors) and writes the files on a
 background thread; ``wait()`` joins.  The thread writes each array's
 buffer whole (:func:`_savez`), so it holds the GIL only for headers
 while the caller goes on dispatching steps.
+
+On a mesh of several ranks (``shardings``: the
+:class:`~repro_torch.dist.sharding.NamedSharding` tree of the rank's
+blocks) every rank takes part in gathering the whole tree, rank 0 alone
+writes it, in the same format, and a blocking save ends at a barrier, so
+every rank sees the committed step.  ``restore(..., shardings=)`` gives
+each rank its block of every leaf under the (possibly other) mesh's
+layout, on that mesh's device: the elastic re-mesh
+(:mod:`repro_torch.runtime.elastic`).
 """
 
 from __future__ import annotations
@@ -113,18 +122,35 @@ class Checkpointer:
 
     # ------------------------------------------------------------- save
 
-    def save(self, step: int, tree, blocking: bool = True) -> None:
-        # the host copy is made now, whatever the caller does next
-        flat = [(k, _to_numpy(v), str(v.dtype).removeprefix("torch."))
-                for k, v in _flatten(tree)]
-        treedef = f"repro_torch {type(tree).__name__}"
-        self.wait()                 # never two writers at once
-        if blocking:
-            self._write(step, flat, treedef)
-        else:
-            self._thread = threading.Thread(
-                target=self._write, args=(step, flat, treedef), daemon=True)
-            self._thread.start()
+    def save(self, step: int, tree, blocking: bool = True,
+             shardings=None) -> None:
+        """Write ``tree`` as step ``step``.  With ``shardings`` (a tree
+        of the leaves' ``NamedSharding`` on a mesh of several ranks)
+        every rank must call this: the whole tree is gathered and rank 0
+        writes it."""
+        rank = 0
+        if shardings is not None:
+            from repro_torch.bridge import zip_trees
+            from repro_torch.dist import collectives, sharding
+            tree = zip_trees(
+                lambda t, sh: sharding.gather(t, sh.spec, sh.mesh),
+                tree, shardings)
+            rank = _flatten(shardings)[0][1].mesh.rank
+        if rank == 0:
+            # the host copy is made now, whatever the caller does next
+            flat = [(k, _to_numpy(v), str(v.dtype).removeprefix("torch."))
+                    for k, v in _flatten(tree)]
+            treedef = f"repro_torch {type(tree).__name__}"
+            self.wait()                 # never two writers at once
+            if blocking:
+                self._write(step, flat, treedef)
+            else:
+                self._thread = threading.Thread(
+                    target=self._write, args=(step, flat, treedef),
+                    daemon=True)
+                self._thread.start()
+        if shardings is not None and blocking:
+            collectives.barrier()
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -174,10 +200,23 @@ class Checkpointer:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, target, step: Optional[int] = None):
-        """Restore into the structure of ``target`` (a tree of tensors):
+    def keys(self, step: Optional[int] = None) -> List[str]:
+        """The leaf keys of a committed step's manifest (default: the
+        newest)."""
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.directory}")
+        with open(os.path.join(self.directory, f"step_{step:08d}",
+                               "manifest.json")) as f:
+            return [leaf["key"] for leaf in json.load(f)["leaves"]]
+
+    def restore(self, target, step: Optional[int] = None, shardings=None):
+        """Restore into the structure of ``target`` (a tree of tensors of
+        the whole shapes; the meta device's will do with ``shardings``):
         each leaf comes back with the target leaf's shape and dtype, on
-        its device."""
+        its device — or, with ``shardings`` (a matching tree of
+        :class:`~repro_torch.dist.sharding.NamedSharding`), as this
+        rank's block under its spec, on its mesh's device."""
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.directory}")
@@ -185,6 +224,7 @@ class Checkpointer:
         with open(os.path.join(d, "manifest.json")) as f:
             dtypes = {leaf["key"]: leaf["dtype"]
                       for leaf in json.load(f)["leaves"]}
+        places = {} if shardings is None else dict(_flatten(shardings))
         with np.load(os.path.join(d, "arrays.npz")) as data:
             def leaf(key, tgt):
                 arr = data[key]
@@ -196,5 +236,7 @@ class Checkpointer:
                 if t.dtype != tgt.dtype:
                     raise TypeError(f"{key}: the checkpoint holds "
                                     f"{t.dtype}, the target {tgt.dtype}")
-                return t.reshape(tgt.shape).to(tgt.device)
+                t = t.reshape(tgt.shape)
+                return places[key].place(t) if key in places \
+                    else t.to(tgt.device)
             return _rebuild(target, leaf)

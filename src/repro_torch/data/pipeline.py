@@ -6,6 +6,7 @@ A batch is drawn by numpy's generator seeded with
 package, so both packages see the same tokens bit for bit and a restart
 at a step reproduces its batch.  Each host draws only its rows of the
 global batch.  The batch comes back as tensors on the requested device.
+:func:`batch_spec` gives its shapes and dtypes as meta tensors.
 """
 
 from __future__ import annotations
@@ -70,3 +71,21 @@ def iterate(cfg: ModelConfig, data: DataConfig, start_step: int = 0,
     while True:
         yield make_batch(cfg, data, step, device)
         step += 1
+
+
+def batch_spec(cfg: ModelConfig, data: DataConfig) -> Dict[str, torch.Tensor]:
+    """Meta tensors of :func:`make_batch`'s shapes and dtypes (the JAX
+    package's ShapeDtypeStructs)."""
+    rows = data.rows if data.rows is not None else data.global_batch
+    text_len = data.seq_len - (cfg.prefix_tokens or 0)
+    spec = {k: torch.empty((rows, text_len), dtype=torch.int32,
+                           device="meta") for k in ("tokens", "labels")}
+    if cfg.family == "audio":
+        spec["frames"] = torch.empty(
+            (rows, cfg.encoder_seq, cfg.d_model),
+            dtype=_DTYPES[cfg.dtype], device="meta")
+    if cfg.family == "vlm":
+        spec["prefix_embeds"] = torch.empty(
+            (rows, cfg.prefix_tokens, cfg.d_model),
+            dtype=_DTYPES[cfg.dtype], device="meta")
+    return spec

@@ -52,8 +52,13 @@ continuous-batching engine on the CUDA card (or on the CPU when asked).
     PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
         --telemetry $T/serve --autotune 8 --device cpu
 
-Weights are random, drawn from ``--seed``.  Prints the same ``[serve]``
-lines as ``repro.launch.serve``.
+    # the weights of a checkpoint (a parameter tree, or a training
+    # state's parameters, in either package's format)
+    PYTHONPATH=src python -m repro_torch.launch.serve --smoke \
+        --ckpt-dir CKPT --batch 2 --prompt-len 8 --steps 4 --device cpu
+
+Weights are random, drawn from ``--seed``, unless ``--ckpt-dir`` names a
+checkpoint.  Prints the same ``[serve]`` lines as ``repro.launch.serve``.
 """
 
 from __future__ import annotations
@@ -66,13 +71,37 @@ import numpy as np
 import torch
 
 from repro_torch import ops, quant, resolve_device, telemetry, tune
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ARCH_IDS, get_config, \
     get_smoke_config
+from repro_torch.dist import layout
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import transformer as T
 from repro_torch.serve.engine import DecodeEngine, Request
+from repro_torch.train import train_step as TS
 
 #: prompt lengths a trace draws from
 TRACE_PROMPT_BUCKETS = (4, 8, 16, 32)
+
+
+def load_params(cfg, device, ckpt_dir: Optional[str] = None,
+                seed: int = 0) -> dict:
+    """Random parameters from ``seed`` on ``device``, or the newest
+    committed checkpoint's in ``ckpt_dir`` (the JAX launcher's
+    ``load_params``): a parameter tree, or a training state whose
+    ``.params`` are taken, restored under the layout engine's shardings
+    on the one-rank mesh."""
+    if not ckpt_dir:
+        gen = torch.Generator(device=device).manual_seed(seed)
+        return T.init_params(cfg, gen, device=device)
+    ckpt = Checkpointer(ckpt_dir)
+    struct = TS.state_struct(cfg).params
+    shardings = layout.param_shardings(struct, cfg,
+                                       make_host_mesh(device=device))
+    if any(k.startswith(".params/") for k in ckpt.keys()):
+        return ckpt.restore({".params": struct},
+                            shardings={".params": shardings})[".params"]
+    return ckpt.restore(struct, shardings=shardings)
 
 
 def make_trace(cfg, n_requests: int, rate: float, max_steps: int,
@@ -228,6 +257,8 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None, choices=("cuda", "cpu"),
                     help="default: the CUDA card (raises without one)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the newest committed checkpoint's weights")
     ap.add_argument("--page-size", type=int, default=None,
                     help="block-paged KV cache with this page size "
                          "(tokens); max_len rounds up to a page multiple")
@@ -280,9 +311,10 @@ def main(argv: Optional[List[str]] = None) -> None:
         else get_config(args.arch)
     if args.page_size is not None:     # before any weights are made
         T.check_paged(cfg, "paged engine")
-    gen = torch.Generator(device=device)
-    gen.manual_seed(args.seed)
-    params = T.init_params(cfg, gen, device=device)
+    params = load_params(cfg, device, args.ckpt_dir, args.seed)
+    if args.ckpt_dir:
+        print(f"[serve] weights of {args.ckpt_dir} step "
+              f"{Checkpointer(args.ckpt_dir).latest_step()}")
     if args.int8 or args.w8a8:  # the paper's precision: int8 weights
         before = quant.param_bytes(params)
         params, n = quant.quantize_params(params)

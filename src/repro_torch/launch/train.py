@@ -1,7 +1,7 @@
-"""Training entry point (port of the single-host path of
-``repro/launch/train.py``): config -> random state from ``--seed`` ->
-train step -> deterministic data pipeline, on the CUDA card (or on the
-CPU when asked).
+"""Training entry point (port of ``repro/launch/train.py``): config ->
+mesh -> layout engine -> random state from ``--seed`` -> train step ->
+deterministic data pipeline -> checkpoints -> straggler watchdog, on the
+CUDA card (or on the CPU when asked).
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch smollm-360m \
         --steps 4 --seq-len 512 --global-batch 8
@@ -20,12 +20,26 @@ CPU when asked).
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch internvl2-76b --smoke --steps 2 --seq-len 40 --device cpu
 
+    # several ranks: the process group from the torch.distributed.run
+    # environment, a ("data", "model") mesh of data = world (gloo on the
+    # CPU and when ranks share a card, NCCL with a card a rank)
+    PYTHONPATH=src python -m torch.distributed.run --nproc-per-node 2 \
+        -m repro_torch.launch.train --smoke --steps 3 --device cpu
+
 Prints the same ``[train] step N loss ... gnorm ... ms`` lines as the
-JAX driver, for every step (the JAX driver prints every tenth and the
-last).  With ``--ckpt-dir`` the run resumes from the newest committed
-checkpoint there (``[train] resumed from step N``), saves every
-``ckpt_every`` steps without blocking and once more, blocking, at the
-end, in the JAX package's on-disk format
+JAX driver (rank 0 only), for every step (the JAX driver prints every
+tenth and the last), and the watchdog's ``[train] straggler: ...`` line
+for a step slower than twice the running median.  Under
+``torch.distributed.run`` each rank holds its blocks of the state under
+the layout ``choose_layout`` picks for the mesh
+(:func:`repro_torch.runtime.elastic.state_specs`) and trains on its rows
+of each global batch; a checkpoint holds the whole state, and a resume
+restores each rank's blocks under the new mesh's layout
+(``remesh_restore``), whatever mesh wrote it.  With ``--ckpt-dir`` the
+run resumes from the newest committed checkpoint there (``[train]
+resumed from step N``), saves every ``ckpt_every`` steps without
+blocking and once more, blocking, at the end, in the JAX package's
+on-disk format
 (:mod:`repro_torch.checkpoint.checkpointer`).  ``--telemetry PATH``
 records one ``train.step`` span a step (waiting for the step's loss on
 the device), the ``train.tokens`` counter, the GEMM plan events and, for
@@ -38,32 +52,53 @@ tuning on; the backward's never do.
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device, telemetry
 from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.configs.base import ARCH_IDS, get_config, \
     get_smoke_config
 from repro_torch.data import pipeline
+from repro_torch.dist import collectives, layout, sharding as shd
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.runtime import elastic
+from repro_torch.runtime.fault_tolerance import StepWatchdog
 from repro_torch.train import train_step as TS
 
 
 def build(cfg, *, device, peak_lr: float = 3e-4, total_steps: int = 1000,
           microbatches: int = 1, seed: int = 0,
-          optimizer: Optional[str] = None, return_grads: bool = False):
+          optimizer: Optional[str] = None, return_grads: bool = False,
+          mesh=None):
     """(state, step function) on ``device``, the state drawn from
-    ``seed``."""
+    ``seed``.  On a mesh of several ranks the state is this rank's blocks
+    under ``choose_layout``'s layout and the step the sharded one."""
+    optimizer = optimizer or TS.select_optimizer(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    state = TS.init_state(cfg, gen, device=device, optimizer=optimizer)
+    specs = None
+    if mesh is not None and shd.mesh_devices(mesh) > 1:
+        specs = elastic.state_specs(TS.state_struct(cfg, optimizer), cfg,
+                                    mesh)
+        state = layout.shard_tree(state, specs, mesh)
     step_fn = TS.make_train_step(cfg, peak_lr=peak_lr,
                                  total_steps=total_steps,
                                  microbatches=microbatches,
                                  optimizer=optimizer,
-                                 return_grads=return_grads)
-    gen = torch.Generator(device=device).manual_seed(seed)
-    return TS.init_state(cfg, gen, device=device, optimizer=optimizer), \
-        step_fn
+                                 return_grads=return_grads, mesh=mesh,
+                                 specs=specs)
+    return state, step_fn
+
+
+def rank_rows(batch: dict, mesh) -> dict:
+    """This rank's rows of a global batch (``batch_specs``: the rows
+    split over the data axes, replicated when they do not divide)."""
+    return layout.shard_tree(batch, layout.batch_specs(batch, mesh), mesh)
 
 
 def train(cfg, *, steps: int, seq_len: int, global_batch: int,
@@ -71,36 +106,58 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
           optimizer: Optional[str] = None, ckpt_dir: Optional[str] = None,
           ckpt_every: int = 50, resume: bool = True,
           on_step: Optional[Callable] = None,
-          return_grads: bool = False) -> dict:
+          return_grads: bool = False, mesh=None,
+          watchdog: Optional[StepWatchdog] = None) -> dict:
     """Run (or resume) a training job up to step ``steps``; returns the
-    last step's metrics as floats, and prints every step's line.
-    ``optimizer`` picks AdamW or Adafactor (default: by model size);
-    the learning-rate schedule spans ``steps``.  With ``ckpt_dir`` a
+    last step's metrics as floats, and prints every step's line (rank 0
+    only).  ``optimizer`` picks AdamW or Adafactor (default: by model
+    size); the learning-rate schedule spans ``steps``.  ``mesh`` (default
+    ``make_host_mesh(data=world)``): on several ranks, the sharded step
+    of :mod:`repro_torch.train.train_step` under ``choose_layout``'s
+    layout on each rank's rows.  With ``ckpt_dir`` a
     committed checkpoint there is restored when ``resume`` is set (the
-    run then starts at its step), the state is saved every
-    ``ckpt_every`` steps without blocking, and once more, blocking, at
-    the end.  ``on_step(step, state, metrics, times)`` is called after
-    every step with the new state, the step's metrics (``grads`` among
-    them under ``return_grads``) and ``times``: ``wall_ms`` (host clock
-    around the step, ended by a synchronize) and, on a card,
-    ``device_ms`` (CUDA events around the step)."""
+    run then starts at its step; on a mesh through ``remesh_restore``),
+    the state is saved every ``ckpt_every`` steps without blocking, and
+    once more, blocking, at the end.  ``on_step(step, state, metrics,
+    times)`` is called after every step with the new state (this rank's
+    blocks), the step's metrics (``grads`` among them under
+    ``return_grads``) and ``times``: ``wall_ms`` (host clock around the
+    step, ended by a synchronize) and, on a card, ``device_ms`` (CUDA
+    events around the step)."""
     device = resolve_device(device)
-    state, step_fn = build(cfg, device=device,
-                           total_steps=steps,
-                           microbatches=microbatches, seed=seed,
-                           optimizer=optimizer, return_grads=return_grads)
+    optimizer = optimizer or TS.select_optimizer(cfg)
+    if mesh is None:
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = make_host_mesh(data=world, device=device)
+    lead = mesh.rank == 0
+    state, step_fn = build(
+        cfg, device=device, total_steps=steps, microbatches=microbatches,
+        seed=seed, optimizer=optimizer, return_grads=return_grads,
+        mesh=mesh)
+    shardings = None
+    if shd.mesh_devices(mesh) > 1:
+        shardings = elastic.state_shardings(TS.state_struct(cfg, optimizer),
+                                            cfg, mesh)
     ckpt = Checkpointer(ckpt_dir) if ckpt_dir else None
     start = 0
     if ckpt and resume and ckpt.latest_step() is not None:
-        state = ckpt.restore(state)
+        if shardings is None:
+            state = ckpt.restore(state)
+        else:
+            state = elastic.remesh_restore(
+                ckpt, TS.state_struct(cfg, optimizer), cfg, mesh)
         start = int(state.step)
-        print(f"[train] resumed from step {start}", flush=True)
+        if lead:
+            print(f"[train] resumed from step {start}", flush=True)
     data_cfg = pipeline.DataConfig(seq_len=seq_len,
                                    global_batch=global_batch, seed=seed)
+    watchdog = watchdog or StepWatchdog()
     cuda = device.type == "cuda"
     metrics = {}
     for step in range(start, steps):
         batch = pipeline.make_batch(cfg, data_cfg, step, device)
+        if shardings is not None:
+            batch = rank_rows(batch, mesh)
         if cuda:
             torch.cuda.synchronize(device)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -117,15 +174,21 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
         times = {"wall_ms": (time.perf_counter() - t0) * 1e3}
         if cuda:
             times["device_ms"] = ev[0].elapsed_time(ev[1])
-        print(f"[train] step {step} loss {float(metrics['loss']):.4f} "
-              f"gnorm {float(metrics['grad_norm']):.3f} "
-              f"{times['wall_ms']:.0f}ms", flush=True)
+        ev_slow = watchdog.observe(step, times["wall_ms"] / 1e3)
+        if lead and ev_slow:
+            print(f"[train] straggler: step {ev_slow.step} took "
+                  f"{ev_slow.duration:.2f}s (median {ev_slow.median:.2f}s)",
+                  flush=True)
+        if lead:
+            print(f"[train] step {step} loss {float(metrics['loss']):.4f} "
+                  f"gnorm {float(metrics['grad_norm']):.3f} "
+                  f"{times['wall_ms']:.0f}ms", flush=True)
         if on_step is not None:
             on_step(step, state, metrics, times)
         if ckpt and (step + 1) % ckpt_every == 0:
-            ckpt.save(step + 1, state, blocking=False)
+            ckpt.save(step + 1, state, blocking=False, shardings=shardings)
     if ckpt:
-        ckpt.save(steps, state, blocking=True)
+        ckpt.save(steps, state, blocking=True, shardings=shardings)
     return {k: float(v) for k, v in metrics.items() if k != "grads"}
 
 
@@ -150,14 +213,29 @@ def main(argv=None) -> None:
         telemetry.enable()
     cfg = get_smoke_config(args.arch) if args.smoke \
         else get_config(args.arch)
-    out = train(cfg, steps=args.steps, seq_len=args.seq_len,
-                global_batch=args.global_batch,
-                microbatches=args.microbatches, seed=args.seed,
-                device=args.device, ckpt_dir=args.ckpt_dir)
-    print("[train] final:", {k: round(v, 4) for k, v in out.items()})
-    if args.telemetry:
-        _, lines = telemetry.export_report("train", args.telemetry)
-        print("\n".join(lines))
+    device = resolve_device(args.device)
+    ranks = "WORLD_SIZE" in os.environ and not dist.is_initialized()
+    if ranks:                   # started by torch.distributed.run
+        line = collectives.init_process_group(device)
+        if dist.get_rank() == 0:
+            print(f"[dist] {line}", flush=True)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        out = train(cfg, steps=args.steps, seq_len=args.seq_len,
+                    global_batch=args.global_batch,
+                    microbatches=args.microbatches, seed=args.seed,
+                    device=device, ckpt_dir=args.ckpt_dir)
+        lead = not dist.is_initialized() or dist.get_rank() == 0
+        if lead:
+            print("[train] final:",
+                  {k: round(v, 4) for k, v in out.items()})
+        if args.telemetry and lead:
+            _, lines = telemetry.export_report("train", args.telemetry)
+            print("\n".join(lines))
+    finally:
+        if ranks:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -26,19 +26,44 @@ routed through the grouped GEMMs) and ``moe.dropped_tokens``
 (capacity-dropped assignments) counters keep their running sums on the
 device and read them once, at the recorder's snapshot.
 
-Not in the port yet (ROADMAP queue A9): the shard_map expert-parallel
-path and the ``REPRO_MOE_GROUPED=0`` dense-einsum baseline.
+**Expert parallelism** (:func:`_moe_ffn_ep`, the default under a mesh
+whose ``model`` axis has m > 1 ranks, E % m == 0 and s % m == 0;
+``REPRO_MOE_EP=0`` turns it off): each rank holds E/m experts (the
+banks' expert dim on ``model``, as the layout engine places them) and
+takes its s/m slice of the sequence of its rows (the caller has split
+the batch over the data axes, so the JAX condition's ``b % |batch|``
+holds by construction).  It routes and sorts its tokens into an
+``(E, C_src, d)`` send buffer, one all_to_all over ``model`` delivers
+every expert its tokens (the ``(E, 1)`` kept counts ride a second), the
+receiver packs the chunks ragged and runs the same three grouped GEMMs
+(:func:`_ep_grouped_gemms`, B7 on a card), and the mirror all_to_all
+brings the outputs back; the combine keeps its ascending expert order
+at the source, and the sequence is gathered over ``model``.  A row's
+bits do not depend on which rank computed it, so with nothing dropped
+the forward equals the single-process ``moe_ffn`` bit for bit.  The
+Switch aux loss sums its counts, probabilities and tokens over every
+rank.  Banks of the whole E on every rank are cut to the local experts;
+local banks off the EP path (s % m != 0) are gathered.
+
+``REPRO_MOE_GROUPED=0`` selects the padded dense-capacity baseline
+(:func:`_expert_gemms_dense`, an einsum over ``(E, C, d)``) on both
+paths, the A/B baseline and capacity-FLOPs reference of the JAX
+package.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import ops, quant, telemetry
+from repro_torch.dist import collectives as coll
+from repro_torch.dist import sharding as shd
 from repro_torch.kernels.gemm_grouped import shared_tables
 from repro_torch.models.layers import _row_sum, dense_init, normal_init
 
@@ -65,6 +90,16 @@ def capacity(n_tokens: int, n_experts: int, top_k: int,
              factor: float = 1.25, multiple: int = 8) -> int:
     c = math.ceil(n_tokens * top_k * factor / n_experts)
     return max(multiple, ((c + multiple - 1) // multiple) * multiple)
+
+
+def grouped_enabled() -> bool:
+    """Grouped ragged expert GEMMs (default); ``REPRO_MOE_GROUPED=0``
+    selects the padded dense-einsum baseline."""
+    return os.environ.get("REPRO_MOE_GROUPED", "1") != "0"
+
+
+def ep_enabled() -> bool:
+    return os.environ.get("REPRO_MOE_EP", "1") != "0"
 
 
 class MoeDispatch(NamedTuple):
@@ -143,6 +178,25 @@ def _aux_loss(counts: torch.Tensor, probs: torch.Tensor, n_tokens
     return n_experts * torch.sum(freq * torch.mean(probs, dim=0))
 
 
+def _aux_loss_mesh(counts: torch.Tensor, probs: torch.Tensor,
+                   n_tokens: int, mesh) -> torch.Tensor:
+    """The Switch loss of the whole mesh's tokens: the expert counts,
+    the summed probabilities and the token count summed over every rank
+    (one all-reduce; model-axis replicas of the same rows scale all
+    three alike, which leaves the loss as it is)."""
+    n_experts = counts.shape[0]
+    sums = torch.cat([counts.float(), torch.sum(probs, dim=0),
+                      torch.full((1,), float(n_tokens),
+                                 device=probs.device)])
+    sums = coll.all_reduce(sums, _world(mesh))
+    freq, prob, n = sums[:n_experts], sums[n_experts:-1], sums[-1]
+    return n_experts * torch.sum((freq / n) * (prob / n))
+
+
+def _world(mesh):
+    return dist.group.WORLD if shd.mesh_devices(mesh) > 1 else None
+
+
 def _bank(w, dtype) -> torch.Tensor:
     """Dense view of an expert bank (dequantizes ``{"q", "scale"}``)."""
     return quant.dequantize_weight(w, dtype) if quant.is_quantized(w) \
@@ -168,24 +222,45 @@ def _expert_gemms(params: dict, xs: torch.Tensor, sizes: torch.Tensor,
                                 out_dtype=dtype, dense_rows=dr)
 
 
-def _combine(ys: torch.Tensor, dsp: MoeDispatch, gate_vals: torch.Tensor,
-             t: int, top_k: int) -> torch.Tensor:
-    """``zeros.at[token_idx].add(ys[dest] * weights)``: a token's k
+def _expert_gemms_dense(params: dict, buf: torch.Tensor, dtype
+                        ) -> torch.Tensor:
+    """Padded dense-capacity baseline: batched einsum over (E, C, d)."""
+    gate = torch.einsum("ecd,edf->ecf", buf, _bank(params["w_gate"], dtype))
+    up = torch.einsum("ecd,edf->ecf", buf, _bank(params["w_up"], dtype))
+    h = F.silu(gate.float()).to(dtype) * up
+    return torch.einsum("ecf,efd->ecd", h, _bank(params["w_down"], dtype))
+
+
+def _capacity_buffer(xe: torch.Tensor, dsp: MoeDispatch, n_experts: int,
+                     c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the ``(E, c, d)`` buffer with each kept assignment's token at
+    (expert, slot), zeros elsewhere; each assignment's flat row in it,
+    ``E * c`` for a dropped one)."""
+    flat = torch.where(dsp.in_cap, dsp.sorted_e * c + dsp.slot,
+                       n_experts * c).long()
+    buf = xe.new_zeros((n_experts * c + 1, xe.shape[-1]))
+    buf[flat] = xe[dsp.token_idx]
+    return buf[:-1].view(n_experts, c, xe.shape[-1]), flat
+
+
+def _combine(gathered: torch.Tensor, dsp: MoeDispatch,
+             gate_vals: torch.Tensor, t: int, top_k: int) -> torch.Tensor:
+    """``zeros.at[token_idx].add(gathered * weights)`` with ``gathered``
+    each assignment's expert output in expert-sorted order: a token's k
     contributions, each rounded to the activation dtype, added in
     ascending expert order (the order of the sorted assignments) with a
     rounding after every add.  CUDA's scatter-add would add them in a
     varying order; here the order is fixed."""
     tk = t * top_k
-    gathered = ys[torch.clamp(dsp.dest, max=tk - 1).long()]
     weights = (gate_vals.reshape(-1)[dsp.order] * dsp.in_cap.float()) \
-        .to(ys.dtype)
+        .to(gathered.dtype)
     contrib = gathered * weights[:, None]                  # sorted order
     # each token's sorted positions, ascending = ascending expert id
     inv = torch.empty_like(dsp.order)
-    inv[dsp.order] = torch.arange(tk, device=ys.device)
+    inv[dsp.order] = torch.arange(tk, device=gathered.device)
     pos = torch.sort(inv.view(t, top_k), dim=-1).values
     per_token = contrib[pos]                               # (t, k, d)
-    y = ys.new_zeros((t, ys.shape[-1]))
+    y = gathered.new_zeros((t, gathered.shape[-1]))
     for j in range(top_k):
         y = y + per_token[:, j]
     return y
@@ -209,22 +284,167 @@ def _emit_moe_counters(n_assignments: int, sizes: torch.Tensor) -> None:
 def moe_ffn(params: dict, x: torch.Tensor, *, top_k: int,
             capacity_factor: float = 1.25, aux_loss: bool = True
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """x: (b, s, d) -> (y: (b, s, d), aux_loss: scalar) — the JAX
+    """x: (b, s, d) -> (y: (b, s, d), aux_loss: scalar).  Under a mesh
+    whose ``model`` axis has m > 1 ranks, with E % m == 0 and s % m == 0,
+    the expert-parallel path (``x``: this rank's rows); else the JAX
     package's ``_moe_ffn_pjit``.  The aux loss is a training value:
     ``aux_loss=False`` (serving) skips it and returns None in its
     place."""
+    mesh = shd.current_mesh()
+    n_experts = params["router"].shape[-1]
+    if mesh is not None and ep_enabled():
+        m = shd.axis_sizes(mesh).get("model", 1)
+        b, s, _ = x.shape
+        if m > 1 and n_experts % m == 0 and s % m == 0 and b * s >= m:
+            return _moe_ffn_ep(params, x, top_k=top_k,
+                               capacity_factor=capacity_factor, mesh=mesh,
+                               aux_loss=aux_loss)
+    return _moe_ffn_pjit(params, x, top_k=top_k,
+                         capacity_factor=capacity_factor, aux_loss=aux_loss,
+                         mesh=mesh)
+
+
+def _expert_block(w, n_experts: int, mesh):
+    """This rank's E/m experts of a bank: the bank itself when it holds
+    them already, else its block of the whole E (an int8 struct's
+    leaves alike)."""
+    if isinstance(w, dict):
+        return {k: _expert_block(v, n_experts, mesh) for k, v in w.items()}
+    if w.shape[-3] != n_experts:
+        return w
+    m = shd.axis_sizes(mesh)["model"]
+    e_loc = n_experts // m
+    return w.narrow(-3, mesh.coord["model"] * e_loc, e_loc)
+
+
+def _whole_banks(params: dict, mesh) -> dict:
+    """``params`` with every expert bank of the whole E: local blocks
+    are gathered over ``model``."""
+    n_experts = params["router"].shape[-1]
+
+    def whole(w):
+        if isinstance(w, dict):
+            return {k: whole(v) for k, v in w.items()}
+        if w.shape[-3] == n_experts:
+            return w
+        return coll.all_gather(w, w.dim() - 3, mesh.group("model"))
+
+    return {k: whole(v) if k.startswith("w_") else v
+            for k, v in params.items()}
+
+
+def _moe_ffn_pjit(params: dict, x: torch.Tensor, *, top_k: int,
+                  capacity_factor: float, aux_loss: bool, mesh=None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Every expert on this rank, over the rank's rows; under a mesh the
+    aux loss is the whole mesh's (:func:`_aux_loss_mesh`)."""
     b, s, d = x.shape
     t = b * s
+    if mesh is not None and shd.mesh_devices(mesh) > 1:
+        params = _whole_banks(params, mesh)
+    else:
+        mesh = None
     n_experts = params["router"].shape[-1]
     c = capacity(t, n_experts, top_k, capacity_factor)
     xe = x.reshape(t, d)
     probs, gate_vals, top_ids = _route(xe, params["router"], top_k)
     dsp = _sort_dispatch(xe, top_ids, top_k, n_experts, c)
     _emit_moe_counters(t * top_k, dsp.sizes)
-    aux = _aux_loss(dsp.counts, probs, t) if aux_loss else None
-    ys = _expert_gemms(params, dsp.xs, dsp.sizes, x.dtype,
-                       dense_rows=n_experts * c)
-    return _combine(ys, dsp, gate_vals, t, top_k).reshape(b, s, d), aux
+    aux = None
+    if aux_loss:
+        aux = _aux_loss(dsp.counts, probs, t) if mesh is None \
+            else _aux_loss_mesh(dsp.counts, probs, t, mesh)
+    if grouped_enabled():
+        ys = _expert_gemms(params, dsp.xs, dsp.sizes, x.dtype,
+                           dense_rows=n_experts * c)
+        gathered = ys[torch.clamp(dsp.dest, max=t * top_k - 1).long()]
+    else:
+        buf, flat = _capacity_buffer(xe, dsp, n_experts, c)
+        out = _expert_gemms_dense(params, buf, x.dtype).reshape(-1, d)
+        gathered = out[torch.clamp(flat, max=n_experts * c - 1)]
+    return _combine(gathered, dsp, gate_vals, t, top_k).reshape(b, s, d), \
+        aux
+
+
+def _ep_grouped_gemms(params: dict, recv: torch.Tensor, sz: torch.Tensor,
+                      c: int, dtype) -> torch.Tensor:
+    """Grouped expert GEMMs on one EP rank's receive buffer.
+
+    ``recv`` is the (E_loc, n_src*c, d) all_to_all product: each local
+    expert's tokens arrive as n_src chunks of capacity c with
+    ``sz[e, src]`` live rows each.  Pack them ragged (one scatter), run
+    the same grouped GEMMs as the single-rank path with group sizes
+    summed over the sources, and scatter back to the chunk layout the
+    mirror all_to_all expects (dead rows zero)."""
+    e_loc, n_src = sz.shape
+    d = recv.shape[-1]
+    rows = e_loc * n_src * c
+    gsize = torch.sum(sz, dim=1, dtype=torch.int32)
+    gstart = torch.cumsum(gsize, 0, dtype=torch.int32) - gsize
+    src_off = torch.cumsum(sz, 1, dtype=torch.int32) - sz
+    i = torch.arange(c, dtype=torch.int32, device=recv.device)
+    dest = gstart[:, None, None] + src_off[:, :, None] + i[None, None, :]
+    valid = i[None, None, :] < sz[:, :, None]
+    dest = torch.where(valid, dest, rows).reshape(rows).long()
+    xs = recv.new_zeros((rows + 1, d))
+    xs[dest] = recv.reshape(rows, d)
+    ys = _expert_gemms(params, xs[:rows], gsize, dtype, dense_rows=rows)
+    out = torch.where(valid.reshape(rows, 1),
+                      ys[torch.clamp(dest, max=rows - 1)], 0)
+    return out.reshape(e_loc, n_src * c, d)
+
+
+def _moe_ffn_ep(params: dict, x: torch.Tensor, *, top_k: int,
+                capacity_factor: float, mesh, aux_loss: bool
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Expert parallelism over ``model``: a local sort-dispatch and one
+    all_to_all each way (the JAX package's ``_moe_ffn_ep``).
+
+    This rank's tokens are the s/m positions at its ``model`` index of
+    its rows: t_loc = b * s / m; send buffer (E, C_src, d) with the
+    per-source capacity C_src; the all_to_all yields (E/m, m*C_src, d):
+    every local expert sees its tokens from all sources, and the kept
+    counts ride an (E, 1) int32 all_to_all so the receiver can pack the
+    chunks ragged."""
+    n_experts = params["router"].shape[-1]
+    m = shd.axis_sizes(mesh)["model"]
+    e_loc = n_experts // m
+    group = mesh.group("model")
+    banks = {k: _expert_block(params[k], n_experts, mesh)
+             for k in ("w_gate", "w_up", "w_down")}
+
+    def local(x_loc, router):
+        b, s_loc, d = x_loc.shape
+        t = b * s_loc
+        xe = x_loc.reshape(t, d)
+        probs, gate_vals, top_ids = _route(xe, router, top_k)
+        c = capacity(t, n_experts, top_k, capacity_factor)
+        dsp = _sort_dispatch(xe, top_ids, top_k, n_experts, c)
+        _emit_moe_counters(t * top_k, dsp.sizes)
+        buf, flat = _capacity_buffer(xe, dsp, n_experts, c)
+        # (E, C, d) -> (E/m, m*C, d): block r of the exchange is source r
+        recv = coll.all_to_all(buf, group).view(m, e_loc, c, d) \
+            .transpose(0, 1).reshape(e_loc, m * c, d)
+        if grouped_enabled():
+            sz = coll.all_to_all(dsp.sizes.view(n_experts, 1), group) \
+                .view(m, e_loc).t()
+            out_loc = _ep_grouped_gemms(banks, recv, sz, c, x_loc.dtype)
+        else:
+            out_loc = _expert_gemms_dense(banks, recv, x_loc.dtype)
+        # mirror: (E/m, m*C, d) -> (E, C, d) back at the source
+        back = coll.all_to_all(
+            out_loc.view(e_loc, m, c, d).transpose(0, 1).contiguous(),
+            group).reshape(n_experts * c, d)
+        gathered = back[torch.clamp(flat, max=n_experts * c - 1)]
+        y = _combine(gathered, dsp, gate_vals, t, top_k)
+        aux = _aux_loss_mesh(dsp.counts, probs, t, mesh) if aux_loss \
+            else torch.zeros((), device=x_loc.device)
+        return y.reshape(b, s_loc, d), aux
+
+    seq = shd.P(None, "model", None)
+    y, aux = shd.shard_map(local, mesh, in_specs=(seq, shd.P()),
+                           out_specs=(seq, shd.P()))(x, params["router"])
+    return y, (aux if aux_loss else None)
 
 
 def moe_ffn_dense_ref(params: dict, x: torch.Tensor, *, top_k: int

@@ -49,14 +49,36 @@ def init(params) -> AdafactorState:
                           vc=map_tree(vc_init, params))
 
 
+def state_specs(param_specs, params) -> AdafactorState:
+    """Spec tree mirroring :func:`init`: row stats drop the parameter
+    spec's last entry, col stats its second-to-last, so factored moments
+    stay sharded like the dims they summarize."""
+    from repro_torch.dist.sharding import P
+
+    def vr_spec(s, p):
+        return P(*s[:-1]) if _factored(p) else P(*s)
+
+    def vc_spec(s, p):
+        return P(*(tuple(s[:-2]) + (s[-1],))) if _factored(p) else P(None)
+
+    return AdafactorState(step=P(),
+                          vr=zip_trees(vr_spec, param_specs, params),
+                          vc=zip_trees(vc_spec, param_specs, params))
+
+
 @torch.no_grad()
 def update(grads, state: AdafactorState, params, *, lr,
-           weight_decay: float = 0.0) -> Tuple[dict, AdafactorState]:
+           weight_decay: float = 0.0, sum_over=None
+           ) -> Tuple[dict, AdafactorState]:
+    """One step: (new params, new state).  ``sum_over``: a tree like
+    ``params`` whose leaf is None, or, for a leaf this rank holds one
+    block of, a function summing a tensor over the ranks holding the
+    others; the RMS clip then takes the whole leaf's mean."""
     step = state.step + 1
     t = step.to(torch.float32)
     beta2 = 1.0 - torch.pow(t, -0.8)
 
-    def upd(g, vr, vc, p):
+    def upd(g, vr, vc, p, total):
         gf = g.float()
         g2 = gf * gf + EPS1
         if _factored(p):
@@ -70,13 +92,23 @@ def update(grads, state: AdafactorState, params, *, lr,
             vr_new = beta2 * vr + (1 - beta2) * g2
             vc_new = vc
             u = gf / (torch.sqrt(vr_new) + EPS1)
-        rms = torch.sqrt((u * u).mean() + EPS1)         # RMS clip
+        if total is None:
+            ms = (u * u).mean()
+        else:                           # the mean over every rank's block
+            sq_n = total(torch.stack([
+                (u * u).sum().double(),
+                torch.full((), u.numel(), dtype=torch.float64,
+                           device=u.device)]))
+            ms = (sq_n[0] / sq_n[1]).float()
+        rms = torch.sqrt(ms + EPS1)                      # RMS clip
         u = u / torch.clamp(rms / CLIP, min=1.0)
         if p.dim() >= 2 and weight_decay:
             u = u + weight_decay * p.float()
         return (p.float() - lr * u).to(p.dtype), vr_new, vc_new
 
-    out = zip_trees(upd, grads, state.vr, state.vc, params)
+    if sum_over is None:
+        sum_over = map_tree(lambda _: None, params)
+    out = zip_trees(upd, grads, state.vr, state.vc, params, sum_over)
     return (map_tree(lambda o: o[0], out),
             AdafactorState(step=step,
                            vr=map_tree(lambda o: o[1], out),

@@ -31,6 +31,14 @@ def init(params) -> AdamWState:
                       mu=map_tree(zeros, params), nu=map_tree(zeros, params))
 
 
+def state_specs(param_specs, params) -> AdamWState:
+    """Spec tree mirroring :func:`init` (the moments inherit each
+    parameter's spec verbatim)."""
+    from repro_torch.dist.sharding import P
+    return AdamWState(step=P(), mu=map_tree(lambda s: s, param_specs),
+                      nu=map_tree(lambda s: s, param_specs))
+
+
 @torch.no_grad()
 def update(grads, state: AdamWState, params, *, lr,
            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
