@@ -264,7 +264,20 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    restored by ``remesh_restore`` in this process, equal leaf by leaf
    (SHA-256) to what was saved, and ``launch/serve.py --ckpt-dir`` on it
    giving the greedy tokens the ranks' parameters give in memory
-   (key ``dist``).
+   (key ``dist``);
+13. the op counter and the dry-run (``repro_torch.core.op_cost``,
+   ``repro_torch.launch.dryrun``): one training step of smollm-360m (b 8
+   x s 512, AdamW) and of qwen3-moe-235b-a22b at 1 layer (Adafactor)
+   counted on the card, each against the meta trace of the same config
+   and batch (run in spawned processes meanwhile): FLOPs, bytes and
+   calls equal scope by scope but B7's row scopes (live routed rows on
+   the card, capacity rows on meta: printed apart), and the meta peak
+   within 10 % of the step's allocator peak; h2o-danube-3-4b training
+   at b 1 x s 4608 predicted on meta only, over the card's 80 GB at 24
+   layers and under it at 8; then the dry-run's ``--measure`` on the
+   decode_32k cells of smollm-360m (one rank) and qwen3-moe (rank 0 of
+   16): every planned GEMM executed on the card against its model, B1,
+   B2, B6 and B7 between them (key ``op_cost``).
 
 Prints a ``{"kernels": [...]}`` line (seven kernels; gemm_tb's launches
 sum its two Pallas sites, listed under ``sites``; ``launches_by_path``
@@ -332,7 +345,7 @@ from repro_torch.kernels.gemm_tb import gemm_tb, gemm_tb_plain  # noqa
 from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
-from repro_torch.core import bandwidth  # noqa: E402
+from repro_torch.core import bandwidth, op_cost  # noqa: E402
 from repro_torch.core.hardware import HOPPER_H100  # noqa: E402
 from repro_torch.telemetry import report as treport  # noqa: E402
 from repro_torch.tune import autotune, calibrate  # noqa: E402
@@ -4773,6 +4786,211 @@ def moe_train_kernel_phase(cfg, sizes, step_plans, card):
                      "db_bound_ms_per_layer_step": db_bound}
 
 
+# ---------------------------------------------------------------- phase 13
+
+#: the training steps the op counter wraps on the card, each against the
+#: meta trace of the same config and batch: (arch, layers or None, the
+#: optimizer) at b TRAIN_BATCH x s TRAIN_SEQ, as phases 7b and 9 train
+OP_COST_STEPS = (("smollm-360m", None, "adamw"),
+                 ("qwen3-moe-235b-a22b", MOE_TRAIN_LAYERS, "adafactor"))
+#: h2o-danube-3-4b training at b 1 x s 4608, predicted on meta only: at
+#: its full 24 layers launch/train.py ran out of memory on the card
+#: (72.77 GiB allocated), at 8 layers it peaked at 45.40 GB (PERF.md 5)
+OP_COST_H2O = ((24, "over"), (8, 45.40e9))
+#: the meta peak against max_memory_allocated for the same step
+PEAK_TOL = 0.10
+#: the cells the dry-run's --measure runs, with their debug meshes: the
+#: dense decode on one rank (B2 and B6 plans at 128 rows) and the MoE's
+#: on rank 0 of 16 data ranks (8 rows: B1 for wk / wv / wo and the f32
+#: router, B6, and B7 over 64 routed rows)
+MEASURE_CELLS = (("smollm-360m", "decode_32k", "1,1"),
+                 ("qwen3-moe-235b-a22b", "decode_32k", "16,1"))
+#: a plan's kernel by its GemmPlan.kernel
+PLAN_KERNEL = {"aie": "gemm_aie", "tb": "gemm_tb", "gated": "gemm_gated",
+               "grouped": "gemm_grouped"}
+#: scopes whose counts follow B7's rows (live on the card, capacity on
+#: meta), compared apart
+ROW_SCOPES = ("gemm_grouped", "grouped_db")
+
+
+def _op_cost_cfg(name, layers):
+    full = get_config(name)
+    return full if layers is None else dataclasses.replace(full,
+                                                           n_layers=layers)
+
+
+def meta_step_cost(name, layers, optimizer, batch, seq) -> dict:
+    """One training step of ``name`` (``layers`` deep) traced on the meta
+    device under ``repro_torch.core.op_cost``: its counts and peak (a
+    task of phase 13's process pool; it touches no card)."""
+    cfg = _op_cost_cfg(name, layers)
+    state = TS.state_struct(cfg, optimizer)
+    rows = pipeline.batch_spec(cfg, pipeline.DataConfig(
+        seq_len=seq, global_batch=batch))
+    step = TS.make_train_step(cfg, optimizer=optimizer)
+    t0 = time.perf_counter()
+    with op_cost.count(hold=(state, rows)) as c:
+        step(state, rows)
+    return dict(c.result().as_dict(), seconds=time.perf_counter() - t0)
+
+
+def card_step_cost(name, layers, optimizer, card) -> dict:
+    """The same step as :func:`meta_step_cost` on the card, from seed-0
+    weights: counted, and its peak read from the allocator (the growth of
+    ``max_memory_allocated`` over what was allocated before it, plus the
+    state and batch it holds)."""
+    cfg = _op_cost_cfg(name, layers)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    state = TS.init_state(cfg, gen, device="cuda", optimizer=optimizer)
+    rows = pipeline.make_batch(cfg, pipeline.DataConfig(
+        seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0), 0, "cuda")
+    step = TS.make_train_step(cfg, optimizer=optimizer)
+    held = sum(op_cost.storages((state, rows)).values())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    reset_counters()
+    t0 = time.perf_counter()
+    with op_cost.count(hold=(state, rows)) as c:
+        new, m = step(state, rows)
+        loss = float(m["loss"])
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - before + held
+    launches = counts()
+    del new, m, state, rows
+    torch.cuda.empty_cache()
+    if not math.isfinite(loss):
+        raise RuntimeError(f"op-cost step of {cfg.name}: loss {loss}")
+    return dict(c.result().as_dict(), allocator_peak_bytes=peak,
+                seconds=seconds, launches=launches, loss=loss)
+
+
+def _compare_counts(tag, card_run, meta_run) -> dict:
+    """Card and meta counts scope by scope: equal outside B7's row
+    scopes (else raise); those printed apart."""
+    out = {}
+    for key in ("flops_by_scope", "bytes_by_scope", "calls_by_scope"):
+        a, b = card_run[key], meta_run[key]
+        same = {s for s in a if s not in ROW_SCOPES}
+        if {s: a[s] for s in same} != {s: b.get(s) for s in same} \
+                or set(a) != set(b):
+            raise RuntimeError(f"op cost {tag}: {key} on the card {a} != "
+                               f"meta {b}")
+        out[key] = {s: (a[s], b[s]) for s in a if s in ROW_SCOPES}
+    if card_run["collective_bytes"] != meta_run["collective_bytes"]:
+        raise RuntimeError(f"op cost {tag}: collective bytes differ")
+    return out
+
+
+def op_cost_phase(card):
+    """Phase 13: the port's op counter and dry-run on the card.
+
+    1. For each step of :data:`OP_COST_STEPS`, one step on the card under
+       the counter against the meta trace of the same config and batch:
+       FLOPs, bytes and calls equal scope by scope but B7's row scopes
+       (live rows against capacity, printed apart), and the meta peak
+       within :data:`PEAK_TOL` of the card step's allocator peak.
+    2. h2o-danube-3-4b training at b 1 x s 4608, predicted on meta only:
+       over the card's 80 GB at 24 layers, under it at 8 (beside the 45.40
+       GB a card run measured).
+    3. ``repro_torch.launch.dryrun``'s ``--measure`` for each of
+       :data:`MEASURE_CELLS` on its debug mesh: every planned GEMM
+       executed on the card and held to its model; between them the
+       plans run B1, B2, B6 and B7.
+    The meta traces run in a pool of spawned processes while the card
+    works."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.launch import dryrun
+    t0 = time.perf_counter()
+    ctx = multiprocessing.get_context("spawn")
+    jobs = [(name, layers, opt, TRAIN_BATCH, TRAIN_SEQ)
+            for name, layers, opt in OP_COST_STEPS] + [
+        (H2O, layers, TS.select_optimizer(get_config(H2O)), 1, 4608)
+        for layers, _ in OP_COST_H2O]
+    out = {"card": card}
+    with concurrent.futures.ProcessPoolExecutor(3, mp_context=ctx) as pool:
+        metas = [pool.submit(meta_step_cost, *job) for job in jobs]
+        cards = {}
+        for name, layers, opt in OP_COST_STEPS:
+            cards[name] = card_step_cost(name, layers, opt, card)
+        measured = {}
+        for arch, shape, mesh in MEASURE_CELLS:
+            # the cell's own plans, alone in the plan caches
+            ops.plan_cache_clear()
+            ops.attn_plan_cache_clear()
+            rec = dryrun.run_cell(arch, shape, "single", debug_shape=mesh,
+                                  measure=True, device="cuda")
+            # the harness puts the launch counters back (a sample is no
+            # execution of a step): the kernels by the measured plans
+            rec["kernels"] = dict(collections.Counter(
+                PLAN_KERNEL[pl.kernel] for pl in ops.plans()))
+            measured[f"{arch} {shape}"] = rec
+        metas = [f.result(timeout=600) for f in metas]
+    for (name, layers, _), meta in zip(OP_COST_STEPS, metas):
+        run = cards[name]
+        tag = f"{name}" + (f" ({layers} layer)" if layers else "")
+        apart = _compare_counts(tag, run, meta)
+        ratio = meta["peak_bytes"] / run["allocator_peak_bytes"]
+        if abs(ratio - 1) > PEAK_TOL:
+            raise RuntimeError(
+                f"op cost {tag}: meta peak {meta['peak_bytes'] / 1e9:.2f} GB"
+                f" against the card's {run['allocator_peak_bytes'] / 1e9:.2f}"
+                f" GB (max_memory_allocated), past {PEAK_TOL:.0%}")
+        out[tag] = {"card": run, "meta": meta, "row_scopes": apart,
+                    "peak_ratio": ratio}
+        log(f"op cost {tag} b {TRAIN_BATCH} x s {TRAIN_SEQ}: card == meta "
+            f"in every scope but B7's rows; FLOPs {run['flops']:.6e} (meta "
+            f"{meta['flops']:.6e}), bytes {run['bytes_accessed']:.6e} "
+            f"(meta {meta['bytes_accessed']:.6e}); B7 rows live "
+            f"{run['grouped_rows']['live']} / capacity "
+            f"{meta['grouped_rows']['capacity']}, row scopes (card, meta) "
+            f"{apart}; peak: meta {meta['peak_bytes'] / 1e9:.3f} GB, card "
+            f"counter {run['peak_bytes'] / 1e9:.3f} GB, allocator "
+            f"{run['allocator_peak_bytes'] / 1e9:.3f} GB (ratio "
+            f"{ratio:.4f}); card step {run['seconds']:.1f} s counted, meta "
+            f"trace {meta['seconds']:.1f} s; launches {run['launches']} "
+            f"[{card}]")
+    for (layers, want), meta in zip(OP_COST_H2O, metas[len(OP_COST_STEPS):]):
+        peak = meta["peak_bytes"]
+        fits = peak <= HOPPER_H100.hbm_bytes
+        if fits != (want != "over"):
+            raise RuntimeError(f"op cost {H2O} at {layers} layers: meta "
+                               f"peak {peak / 1e9:.2f} GB, fits {fits}")
+        out[f"{H2O} ({layers} layers) meta"] = dict(meta, fits=fits)
+        log(f"op cost {H2O} {layers} layers b 1 x s 4608 (meta only): peak "
+            f"{peak / 1e9:.2f} GB, "
+            + ("over the card's 80 GB (launch/train.py ran out of memory "
+               "at 72.77 GiB allocated)" if want == "over" else
+               f"fits; a card run peaked at {want / 1e9:.2f} GB "
+               f"(ratio {peak / want:.4f})")
+            + f"; trace {meta['seconds']:.1f} s")
+    out["measure"] = {}
+    for cell, rec in measured.items():
+        summary = rec["model_vs_measured_summary"]
+        if not summary["n_measured"] \
+                or summary["n_measured"] != summary["n_plans"]:
+            raise RuntimeError(f"dry-run --measure {cell} left plans "
+                               f"unmeasured: {summary}")
+        out["measure"][cell] = {k: rec[k] for k in (
+            "mesh_shape", "layout", "fits", "roofline", "memory_analysis",
+            "gemm_plan_cache", "model_vs_measured",
+            "model_vs_measured_summary", "kernels", "lower_s")}
+        peak = rec["memory_analysis"]["peak_bytes_per_device"]
+        log(f"dry-run --measure {cell}, mesh {rec['mesh_shape']} "
+            f"({rec['rows_per_device']} rows a rank, cache 32768; peak "
+            f"{peak / 1e9:.1f} GB, fits "
+            f"{rec['fits']}; trace {rec['lower_s']} s): {summary}; plans by "
+            f"kernel {rec['kernels']} [{card}]")
+        print(treport.render(rec["model_vs_measured"]), flush=True)
+    ran = set().union(*(rec["kernels"] for rec in measured.values()))
+    if not {"gemm_aie", "gemm_tb", "gemm_grouped"} <= ran:
+        raise RuntimeError(f"dry-run --measure ran the plans of {ran}, "
+                           "not B1, B6 and B7")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
 # ---------------------------------------------------------------- phase 12
 
 #: the two-rank phases: two processes share the one card, on gloo, their
@@ -5418,6 +5636,8 @@ def main() -> None:
         clock.mark(f"train {name}")
     train_a9_checked = a9_train_kernel_phase()
     clock.mark("training B3 rows")
+    op_cost_run = op_cost_phase(card)
+    clock.mark("op cost and dry-run")
     dist_run = dist_phases(card)
     clock.mark(f"two ranks: EP ({EP_ARCH}) and DP ({DP_ARCH})")
 
@@ -5549,7 +5769,7 @@ def main() -> None:
                 "paged_bit_identity_reference": "paged solo",
                 "int8": moe_int8},
         "h2o": h2o, "recurrentgemma": rg, "mamba2": mamba, "a9": a9,
-        "dist": dist_run,
+        "dist": dist_run, "op_cost": op_cost_run,
         "a9_train": train_a9,
         "a9_train_cases": {n: rows for n, (rows, *_) in
                            train_a9_checked.items()},

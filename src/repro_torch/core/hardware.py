@@ -7,6 +7,9 @@
 * ``TPU_V5E`` — a copy of the JAX package's sheet, kept only so that the
   tests can hold this package's search against ``repro.core.dse``.  No
   number on it describes the port's card.
+* ``VERSAL_VC1902`` and ``STRATIX_NX2100`` with the AIE and Tensor Block
+  constants — copies of the paper's devices (Table I) from the JAX
+  sheet, which :mod:`repro_torch.core.paper_model` consumes.
 
 Besides the rates, a sheet carries what ``repro.core.dse`` and
 ``repro.core.memory_model`` hard-code for the TPU: the candidate tile
@@ -119,6 +122,9 @@ class HopperChip:
     hbm_bw: float                   # bytes/s
     vmem_bytes: int                 # shared memory per CTA
     sm_count: int
+    link_bw: float = 0.0            # bytes/s a card sends to its peers,
+                                    # one direction (the roofline's
+                                    # collective term)
     sublanes: int = 8               # smallest row edge of a tile
     lane: int = 32                  # warp width: the k / n edge quantum
     m_candidates: Tuple[int, ...] = (8, 16, 32, 64, 128)
@@ -173,4 +179,65 @@ HOPPER_H100 = HopperChip(
     # shared memory.
     vmem_bytes=227 * KiB,
     sm_count=132,           # H100 SXM
+    # NVIDIA H100 SXM datasheet: fourth-generation NVLink, 900 GB/s a card
+    # to the other cards of its host, both directions together; 450 GB/s
+    # is one direction.  Optimistic for collectives that leave the 8
+    # cards of a node (those cross the network at a fraction of it).
+    link_bw=450e9,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class FPGADevice:
+    """Paper Table I rows (only the fields the analytical models consume)."""
+
+    name: str
+    bram_36k: int            # Versal: 36Kb BRAM count; Stratix: M20K count
+    uram_288k: int           # Versal only (0 for Stratix)
+    onchip_mem_bytes: float
+    peak_tops_int8: float
+    peak_dram_bw: float      # bytes/s
+    peak_power_w: float
+    compute_units: int       # AIE cores (Versal) / Tensor Blocks (Stratix)
+
+
+# Versal VC1902: 967 36Kb BRAMs + 463 URAMs (AM007); paper quotes utilization
+# percentages that imply B36K=967 and U288K=463: e.g. Table II: 780/81%≈963,
+# 408/88%≈464, 912/94%≈970, 400/86%≈465 -> (967, 463) matches all rows.
+VERSAL_VC1902 = FPGADevice(
+    name="versal_vc1902",
+    bram_36k=967,
+    uram_288k=463,
+    onchip_mem_bytes=20.5e6 + 12.5e6,     # PL + AIE memory (Table I)
+    peak_tops_int8=135e12,
+    peak_dram_bw=102.4e9,
+    peak_power_w=165.0,
+    compute_units=400,                    # AIE cores
+)
+
+# Stratix 10 NX 2100: 6847 M20Ks (paper percentages: 6304/92%≈6852,
+# 5840/85%≈6871, 6464/94%≈6877 -> 6847 is the published device count).
+STRATIX_NX2100 = FPGADevice(
+    name="stratix_nx2100",
+    bram_36k=6847,                        # M20K blocks
+    uram_288k=0,
+    onchip_mem_bytes=16.75e6,
+    peak_tops_int8=143e12,
+    peak_dram_bw=512e9,
+    peak_power_w=125.0,
+    compute_units=3960,                   # Tensor Blocks
+)
+
+
+# Versal AIE single-kernel shape used by all MaxEVA solutions in the paper.
+AIE_KERNEL_M, AIE_KERNEL_K, AIE_KERNEL_N = 32, 128, 32
+AIE_FREQ_HZ = 1.25e9
+AIE_KERNEL_EFFICIENCY = 0.95              # paper §V-A: 95% MatMul efficiency
+AIE_MACS_PER_CYCLE = 128                  # int8 MACs/cycle/core (128 ops=2*128)
+
+# Stratix TB constants (paper §III-B).
+TB_CHAIN = 36                             # TBs per physical chain
+TB_DOT = 10                               # dot-product width
+TB_LANES = 3                              # parallel dot engines / TB
+TB_LOAD_CYCLES = 3                        # cascade loading cycles per TB
+TB_CASCADE_CYCLES = 2                     # dot+cascade latency per TB

@@ -24,6 +24,14 @@ collective is staged through pinned host buffers — by that rule, for
 gloo groups only, never as a fallback after a failure.  The launchers
 print the choice once.  A group of one rank (None) makes every
 collective the identity.
+
+**A dry group** (:class:`DryGroup`, the groups of
+:class:`repro_torch.dist.sharding.DryMesh`) stands for a process group
+that does not exist: the dry-run traces one rank's step on a production
+mesh of 256 or 512 ranks on the meta device.  Its collectives take meta
+tensors only, move nothing and return their results' shapes; they reach
+no ``torch.distributed`` call.  Every collective here, dry or real, adds
+its result's bytes to a running :mod:`repro_torch.core.op_cost` count.
 """
 
 from __future__ import annotations
@@ -33,6 +41,45 @@ from typing import Optional
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.core import op_cost
+
+
+class DryGroup:
+    """A process group of ``size`` ranks that moves nothing (module
+    docstring); this process is its rank 0."""
+
+    def __init__(self, size: int):
+        self.size = int(size)
+
+    def __repr__(self) -> str:
+        return f"DryGroup({self.size})"
+
+
+def _dry(group, t: torch.Tensor) -> bool:
+    """Whether ``t``'s collective over ``group`` only propagates shapes
+    (a dry group takes meta tensors only)."""
+    if not isinstance(group, DryGroup):
+        return False
+    if t.device.type != "meta":
+        raise ValueError(f"a dry group's collective takes meta tensors, "
+                         f"got one on {t.device}")
+    return True
+
+
+def group_size(group) -> int:
+    """Ranks in ``group`` (1 for None)."""
+    if group is None:
+        return 1
+    return group.size if isinstance(group, DryGroup) \
+        else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This process's rank in ``group`` (0 for None and a dry group)."""
+    if group is None or isinstance(group, DryGroup):
+        return 0
+    return dist.get_rank(group)
 
 
 def local_world_size() -> int:
@@ -103,7 +150,10 @@ def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.reshape(t.shape[0], -1).view(torch.uint8)
 
 
+@op_cost.collective("all-to-all")
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
+    if _dry(group, x):
+        return torch.empty_like(x)
     x = x.contiguous()
     src = _host(x) if _staged(group, x) else x
     out = torch.empty_like(src)
@@ -111,7 +161,12 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     return out.to(x.device, non_blocking=False)
 
 
+@op_cost.collective("all-gather")
 def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    if _dry(group, x):
+        shape = list(x.shape)
+        shape[dim] *= group.size
+        return x.new_empty(shape)
     x = x.contiguous()
     src = _host(x) if _staged(group, x) else x
     parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
@@ -119,9 +174,12 @@ def _all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
     return torch.cat(parts, dim).to(x.device)
 
 
+@op_cost.collective("all-reduce")
 def _all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum over ``group``, taken in f32 for 16-bit floats (and
     rounded back once)."""
+    if _dry(group, x):
+        return torch.empty_like(x)
     acc = x.float() if x.dtype in (torch.bfloat16, torch.float16) \
         else x.clone()
     buf = _host(acc) if _staged(group, acc) else acc.contiguous()
@@ -144,7 +202,7 @@ class _AllGather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dim, group):
         ctx.dim, ctx.group = dim, group
-        ctx.rank, ctx.n = dist.get_rank(group), x.shape[dim]
+        ctx.rank, ctx.n = group_rank(group), x.shape[dim]
         return _all_gather(x, dim, group)
 
     @staticmethod
@@ -178,7 +236,7 @@ def all_gather(x: torch.Tensor, dim: int, group) -> torch.Tensor:
 def all_reduce(x: torch.Tensor, group) -> torch.Tensor:
     """The sum of ``x`` over ``group`` (``dist.group.WORLD`` for every
     rank), as a new tensor."""
-    if group is None or dist.get_world_size(group) == 1:
+    if group_size(group) == 1:
         return x
     return _AllReduce.apply(x, group)
 

@@ -102,9 +102,41 @@ class Mesh:
         """The process group of ``axis`` (None when it has one rank)."""
         return self._groups.get(axis)
 
+    def world(self):
+        """The group of every rank of the mesh (None with one rank)."""
+        return dist.group.WORLD if self.devices.size > 1 else None
+
     def __repr__(self) -> str:
         return (f"Mesh({dict(zip(self.axis_names, self.devices.shape))}, "
                 f"rank {self.rank} at {self.coord}, {self.device})")
+
+
+class DryMesh(Mesh):
+    """A mesh of ``shape`` with no process group behind it, seen from
+    rank 0: each axis's group is a
+    :class:`~repro_torch.dist.collectives.DryGroup`, whose collectives
+    move nothing and only shape-propagate meta tensors.  The dry-run
+    traces one rank's step on a production mesh through it
+    (:mod:`repro_torch.launch.dryrun`); its device is ``meta``."""
+
+    def __init__(self, shape: Sequence[int], axis_names: Sequence[str]):
+        from repro_torch.dist.collectives import DryGroup
+        shape = tuple(int(s) for s in shape)
+        names = tuple(axis_names)
+        if len(shape) != len(names):
+            raise ValueError(f"mesh shape {shape} for axes {names}")
+        self.axis_names = names
+        self.devices = np.arange(math.prod(shape)).reshape(shape)
+        self.rank = 0
+        self.coord = {a: 0 for a in names}
+        self.device = torch.device("meta")
+        self.device_mesh = None
+        self._groups = {a: DryGroup(s) for a, s in zip(names, shape)
+                        if s > 1}
+        self._world = DryGroup(self.devices.size)
+
+    def world(self):
+        return self._world if self.devices.size > 1 else None
 
 
 def make_mesh(axis_shapes: Sequence[int], axis_names: Sequence[str], *,

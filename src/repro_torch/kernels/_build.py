@@ -172,6 +172,15 @@ def ptr(t: Optional[torch.Tensor]):
     return t.data_ptr() if t is not None else None
 
 
+def require_meta(name: str, *tensors) -> None:
+    """Every operand (None skipped) on the meta device, where a dry-run
+    traces shapes and nothing launches; a mix raises."""
+    for t in tensors:
+        if t is not None and t.device.type != "meta":
+            raise ValueError(f"{name}: a meta trace needs every operand on "
+                             f"the meta device, got one on {t.device}")
+
+
 def require_cuda(name: str, *tensors: torch.Tensor) -> None:
     """Every operand on one CUDA device; anything else raises."""
     dev = tensors[0].device

@@ -65,7 +65,7 @@ from repro_torch import telemetry
 from repro_torch.tune import autotune as _autotune
 from repro_torch.tune import measure as _tune_measure
 from repro_torch.tune.cache import device_mode
-from repro_torch.core import dse
+from repro_torch.core import dse, op_cost
 from repro_torch.core.bandwidth import TrafficEstimate, estimate
 from repro_torch.core.hardware import HOPPER_H100
 from repro_torch.core.memory_model import VmemFootprint, budget_bytes, \
@@ -982,6 +982,37 @@ def _grouped_db(a: torch.Tensor, dz: torch.Tensor, sizes: Tuple[int, ...],
     return db
 
 
+def _param_grads_cost(grads, a, dz, sizes, b_dtype, bias, need_b, need_bias):
+    """(FLOPs, bytes) of :func:`_grouped_param_grads` over B7's rows
+    (:func:`repro_torch.core.op_cost.grouped_rows`): dB's products, those
+    rows of A and dz read, the gradients written."""
+    rows = op_cost.grouped_rows(sizes, a.shape[0])
+    k, n = a.shape[1], dz.shape[1]
+    return (2 * rows * k * n if need_b else 0), rows * (
+        k * a.element_size() + n * dz.element_size()) + op_cost.boundary(
+            grads, sizes)
+
+
+@op_cost.scope("grouped_db", _param_grads_cost)
+def _grouped_param_grads(a: torch.Tensor, dz: torch.Tensor,
+                         sizes: torch.Tensor, b_dtype, bias, need_b: bool,
+                         need_bias: bool):
+    """(dB, dbias) of a grouped GEMM, each None where not needed: dB by
+    :func:`_grouped_db`, the bias's gradient each expert's rows of dz
+    summed, both over the group sizes read on the host.  On meta (a
+    dry-run's trace) there are no sizes to read: empty gradients of the
+    right shapes."""
+    e = sizes.shape[0]
+    if a.device.type == "meta":
+        return (a.new_empty((e, a.shape[1], dz.shape[1]), dtype=b_dtype)
+                if need_b else None,
+                torch.empty_like(bias) if need_bias else None)
+    host = tuple(sizes.tolist())
+    dbias = torch.stack([dz[rows].sum(0) for rows in _expert_rows(host)]) \
+        .reshape(bias.shape).to(bias.dtype) if need_bias else None
+    return _grouped_db(a, dz, host, b_dtype) if need_b else None, dbias
+
+
 class _GroupedCore(torch.autograd.Function):
     """epilogue(A[r] @ B[g(r)]) over the ragged groups, forward and
     backward driven by the plan (``repro/kernels/api.py``
@@ -1015,19 +1046,15 @@ class _GroupedCore(torch.autograd.Function):
         else:
             dz = gf
         need_b = need_b and b.dtype != torch.int8 and b_scale is None
-        host = tuple(sizes.tolist()) if need_b or need_bias else None
-        dbias = db = da = None
-        if need_bias:
-            dbias = torch.stack([dz[rows].sum(0) for rows in
-                                 _expert_rows(host)]) \
-                .reshape(bias.shape).to(bias.dtype)
+        db = dbias = da = None
+        if need_b or need_bias:
+            db, dbias = _grouped_param_grads(a, dz, sizes, b.dtype, bias,
+                                             need_b, need_bias)
         if need_a:
             w = b if b_scale is None else \
                 (b.float() * b_scale.reshape(e, 1, -1).float()).to(a.dtype)
             da = _grouped_plain(dz.to(a.dtype), w.transpose(1, 2), None,
                                 sizes, a.dtype).to(a.dtype)
-        if need_b:
-            db = _grouped_db(a, dz, host, b.dtype)
         return None, da, db, None, None, dbias
 
 

@@ -18,8 +18,11 @@ bit and every compiled shape gives the same output.  The TPU's sq >=
 128 gate (attn_api.py:403) came from its (8, 128) tiling: here every
 prefill, short prompts included, runs the kernel.
 
-Dispatch goes by device: a CPU tensor takes :func:`flash_attention_plain`,
-a CUDA tensor launches the kernel or raises.
+Dispatch goes by device: a CPU tensor takes
+:func:`flash_attention_plain`, a meta tensor (a dry-run's trace) gets an
+empty result of the kernel's shape and dtype and launches nothing, a
+CUDA tensor launches the kernel or raises.  The wrapper is the
+``flash_attention`` scope of :mod:`repro_torch.core.op_cost`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import attention_ref
@@ -277,6 +281,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
 flash_attention_plain.launches = 0
 
 
+def _cost(o, q, k, v, **_):
+    """(FLOPs, boundary bytes): QK^T and PV over the full sq x skv
+    rectangle (:mod:`repro_torch.core.op_cost`)."""
+    b, sq, hq, d = q.shape
+    return 4 * b * hq * sq * k.shape[1] * d, op_cost.boundary(o, q, k, v)
+
+
+@op_cost.scope("flash_attention", _cost)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None,
@@ -303,7 +315,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scale = float(scale if scale is not None else d ** -0.5)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
-                                     scale=scale, q_offset=q_offset)
+                                     scale=scale, q_offset=q_offset) \
+            .contiguous()               # the kernel's layout, as on a card
+    if q.device.type == "meta":
+        _build.require_meta("flash_attention", k, v)
+        return torch.empty_like(q)
     _build.require_cuda("flash_attention", q, k, v)
     if not q.dtype == k.dtype == v.dtype:
         raise TypeError("flash_attention: q, k, v dtypes differ")

@@ -27,7 +27,10 @@ table from device memory.
 Each launch counter counts wrapper calls that launch the kernel: a bf16
 call is two CUDA launches (the split grid and its merge) and counts one.
 Dispatch goes by device: a CPU tensor takes the ``*_plain`` version, a
-CUDA tensor launches the kernel or raises.
+meta tensor (a dry-run's trace) gets an empty result of the kernel's
+shape and dtype and launches nothing, a CUDA tensor launches the kernel
+or raises.  The wrappers are the ``flash_decode`` and
+``flash_decode_paged`` scopes of :mod:`repro_torch.core.op_cost`.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention import (DECODE_SPLIT, MAX_HEAD_DIM,
                                                  decode_cta_keys,
@@ -105,6 +109,14 @@ def flash_decode_plain(q: torch.Tensor, k_cache: torch.Tensor,
 flash_decode_plain.launches = 0
 
 
+def _decode_cost(o, q, k_cache, v_cache, pos, **_):
+    """(FLOPs, boundary bytes): QK^T and PV over the cache's S slots."""
+    b, hq, d = q.shape
+    return 4 * b * hq * k_cache.shape[1] * d, op_cost.boundary(
+        o, q, k_cache, v_cache, pos)
+
+
+@op_cost.scope("flash_decode", _decode_cost)
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, pos, *, window: int = 0,
                  bkv: Optional[int] = None) -> torch.Tensor:
@@ -124,6 +136,10 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     keys = decode_cta_keys(d, q.dtype, bkv)
     if q.device.type == "cpu":
         return flash_decode_plain(q, k_cache, v_cache, pos, window=window)
+    if q.device.type == "meta":
+        _build.require_meta("flash_decode", k_cache, v_cache,
+                            *(p for p in (pos,) if torch.is_tensor(p)))
+        return torch.empty_like(q)
     pos = _pos_vector(pos, b, q.device, "flash_decode")
     _build.require_cuda("flash_decode", q, k_cache, v_cache, pos)
     _check_operands("flash_decode", q, k_cache, v_cache, hq, hkv, d)
@@ -159,6 +175,17 @@ def flash_decode_paged_plain(q: torch.Tensor, k_pages: torch.Tensor,
 flash_decode_paged_plain.launches = 0
 
 
+def _paged_cost(o, q, k_pages, v_pages, page_table, pos, **_):
+    """(FLOPs, boundary bytes): QK^T and PV over the table's
+    ``max_pages * page_size`` keys; the pools, table and positions read
+    once."""
+    b, hq, d = q.shape
+    keys = page_table.shape[1] * k_pages.shape[1]
+    return 4 * b * hq * keys * d, op_cost.boundary(
+        o, q, k_pages, v_pages, page_table, pos)
+
+
+@op_cost.scope("flash_decode_paged", _paged_cost)
 def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
                        v_pages: torch.Tensor, page_table: torch.Tensor,
                        pos, *, window: int = 0) -> torch.Tensor:
@@ -185,6 +212,11 @@ def flash_decode_paged(q: torch.Tensor, k_pages: torch.Tensor,
     if q.device.type == "cpu":
         return flash_decode_paged_plain(q, k_pages, v_pages, page_table,
                                         pos, window=window)
+    if q.device.type == "meta":
+        _build.require_meta("flash_decode_paged", k_pages, v_pages,
+                            page_table,
+                            *(p for p in (pos,) if torch.is_tensor(p)))
+        return torch.empty_like(q)
     pos = _pos_vector(pos, b, q.device, "flash_decode_paged")
     _build.require_cuda("flash_decode_paged", q, k_pages, v_pages,
                         page_table, pos)

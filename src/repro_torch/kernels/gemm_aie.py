@@ -18,8 +18,11 @@ scale), W8A8 (int8 A and B on the int8 tensor cores, int32 sums), and
 an int8 C quantized on the flush by ``out_scale``.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_aie_plain`, a
-CUDA tensor launches the kernel or raises: an int8 operand never
-falls back to a dequantized bf16 call.
+meta tensor (a dry-run's trace, which has no data) gets an empty C of
+the kernel's shape and dtype and launches nothing, a CUDA tensor
+launches the kernel or raises: an int8 operand never falls back to a
+dequantized bf16 call.  The wrapper is the ``gemm_aie`` scope of
+:mod:`repro_torch.core.op_cost`.
 """
 
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.core.hardware import HOPPER_H100
 from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build, acc_dtype
@@ -150,6 +154,16 @@ def gemm_aie_plain(a: torch.Tensor, b: torch.Tensor, *,
 gemm_aie_plain.launches = 0
 
 
+def gemm_cost(c, a, b, *, bias=None, residual=None, b_scale=None,
+              out_scale=None, **_):
+    """(FLOPs, boundary bytes) of one C = A @ B call with its epilogue
+    operands (:mod:`repro_torch.core.op_cost`; B1's and B6's)."""
+    m, k = a.shape
+    return 2 * m * k * b.shape[1], op_cost.boundary(
+        c, a, b, bias, residual, b_scale, out_scale)
+
+
+@op_cost.scope("gemm_aie", gemm_cost)
 def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
              bias: Optional[torch.Tensor] = None,
              activation: Optional[str] = None,
@@ -195,6 +209,9 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
         return gemm_aie_plain(a, b, bias=bias, activation=activation,
                               residual=residual, out_dtype=out_dtype,
                               b_scale=b_scale, out_scale=out_scale)
+    if a.device.type == "meta":
+        _build.require_meta("gemm_aie", b, bias, residual, b_scale)
+        return torch.empty((m, n), dtype=out_dtype, device="meta")
     osc = out_scale_scalar(out_scale, a.device)
     scale = scale_vector(b_scale, n)
     ops = [t for t in (a, b, bias, residual, scale, osc) if t is not None]

@@ -15,7 +15,10 @@ each slab lands, for the same chain, and each accumulator is scaled
 before the gate.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_gated_plain`, a
-CUDA tensor launches the kernel or raises.
+meta tensor (a dry-run's trace) gets an empty result of the kernel's
+shape and dtype and launches nothing, a CUDA tensor launches the kernel
+or raises.  The wrapper is the ``gemm_gated`` scope of
+:mod:`repro_torch.core.op_cost`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.gemm_aie import check_cuda_pair, check_int8, \
@@ -76,6 +80,14 @@ def gemm_gated_plain(a: torch.Tensor, b_gate: torch.Tensor,
 gemm_gated_plain.launches = 0
 
 
+def _cost(c, a, b_gate, b_up, *, bg_scale=None, bu_scale=None, **_):
+    """(FLOPs, boundary bytes): two products of A, one C."""
+    m, k = a.shape
+    return 4 * m * k * b_gate.shape[1], op_cost.boundary(
+        c, a, b_gate, b_up, bg_scale, bu_scale)
+
+
+@op_cost.scope("gemm_gated", _cost)
 def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
                *, activation: str = "silu", out_dtype=None,
                bg_scale: Optional[torch.Tensor] = None,
@@ -106,6 +118,9 @@ def gemm_gated(a: torch.Tensor, b_gate: torch.Tensor, b_up: torch.Tensor,
         return gemm_gated_plain(a, b_gate, b_up, activation=activation,
                                 out_dtype=out_dtype, bg_scale=bg_scale,
                                 bu_scale=bu_scale)
+    if a.device.type == "meta":
+        _build.require_meta("gemm_gated", b_gate, b_up, bg_scale, bu_scale)
+        return torch.empty((m, n), dtype=out_dtype, device="meta")
     sg, su = scale_vector(bg_scale, n), scale_vector(bu_scale, n)
     _build.require_cuda("gemm_gated", a, b_gate, b_up,
                         *(t for t in (sg, su) if t is not None))

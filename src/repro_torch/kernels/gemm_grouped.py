@@ -23,7 +23,11 @@ host sync: the kernel launches every instance that can be live (a
 static bound) and a CTA past the live count exits.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_grouped_plain`,
-a CUDA tensor launches the kernel or raises.
+a meta tensor (a dry-run's trace) gets an empty result of the kernel's
+shape and dtype and launches nothing, a CUDA tensor launches the kernel
+or raises.  The wrapper is the ``gemm_grouped`` scope of
+:mod:`repro_torch.core.op_cost`, which counts the live routed rows with
+data and the capacity rows on meta.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch.core import op_cost
 from repro_torch.core.tiling import cdiv
 from repro_torch.kernels import _build
 from repro_torch.kernels.epilogue import ACT_CODES
@@ -133,6 +138,10 @@ def steering_tables(group_sizes: torch.Tensor, m: int, bm: int):
         return group_metadata(group_sizes, m, bm)
     e = group_sizes.shape[0]
     n_inst = cdiv(m, bm) + e - 1
+    if group_sizes.device.type == "meta":     # shapes only: nothing to run
+        meta = dict(dtype=torch.int32, device="meta")
+        return ((torch.empty(e + 1, **meta), torch.empty(n_inst, **meta),
+                 torch.empty(n_inst, **meta)), torch.empty((), **meta))
     sizes = group_sizes.to(torch.int32).contiguous()
     i32 = dict(dtype=torch.int32, device=group_sizes.device)
     offsets = torch.empty(e + 1, **i32)
@@ -229,6 +238,18 @@ def gemm_grouped_plain(a: torch.Tensor, b: torch.Tensor,
 gemm_grouped_plain.launches = 0
 
 
+def _cost(c, a, b, group_sizes, *, b_scale=None, bias=None, **_):
+    """(FLOPs, boundary bytes) over B7's rows
+    (:func:`repro_torch.core.op_cost.grouped_rows`): those rows of A read,
+    the bank and its epilogue operands read once, all of C written."""
+    m, k = a.shape
+    n = b.shape[2]
+    rows = op_cost.grouped_rows(group_sizes, m)
+    return 2 * rows * k * n, rows * k * a.element_size() + op_cost.boundary(
+        c, b, group_sizes, b_scale, bias)
+
+
+@op_cost.scope("gemm_grouped", _cost)
 def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
                  group_sizes: torch.Tensor, *, out_dtype=None,
                  b_scale: Optional[torch.Tensor] = None,
@@ -254,6 +275,10 @@ def gemm_grouped(a: torch.Tensor, b: torch.Tensor,
         return gemm_grouped_plain(a, b, group_sizes, out_dtype=out_dtype,
                                   b_scale=b_scale, bias=bias,
                                   activation=activation)
+    if a.device.type == "meta":
+        _build.require_meta("gemm_grouped", b, group_sizes, bias, b_scale)
+        return torch.empty((a.shape[0], b.shape[2]), dtype=out_dtype,
+                           device="meta")
     ops = [t for t in (a, b, group_sizes, bias, b_scale) if t is not None]
     _build.require_cuda("gemm_grouped", *ops)
     check_cuda_pair("gemm_grouped", a, b)

@@ -27,7 +27,10 @@ under an int8 A the partial between chunks is int32, as in the JAX
 package, and exact, so B6 == B1 holds on every int8 path too.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_tb_plain`, a
-CUDA tensor launches the kernel or raises.
+meta tensor (a dry-run's trace) gets an empty result of the kernel's
+shape and dtype and launches nothing, a CUDA tensor launches the kernel
+or raises.  The wrapper is the ``gemm_tb`` scope of
+:mod:`repro_torch.core.op_cost`.
 """
 
 from __future__ import annotations
@@ -37,7 +40,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import memory_model
+from repro_torch.core import memory_model, op_cost
 from repro_torch.core.hardware import HOPPER_H100
 from repro_torch.core.tiling import GemmProblem, TileConfig, cdiv, \
     dtype_name
@@ -45,7 +48,7 @@ from repro_torch.kernels import _build, acc_dtype
 from repro_torch.kernels.epilogue import ACT_CODES, Epilogue, \
     apply_epilogue
 from repro_torch.kernels.gemm_aie import check_cuda_pair, check_int8, \
-    out_scale_scalar, scale_vector
+    gemm_cost, out_scale_scalar, scale_vector
 from repro_torch.kernels.ref import int_dot
 
 _ACC_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 16 \
@@ -170,6 +173,7 @@ def smem_bytes(bm: int, bk: int, bn: int, a_dtype, res_dtype=None, *,
               int(scale), int(bias), int(residual))
 
 
+@op_cost.scope("gemm_tb", gemm_cost)
 def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
             out_dtype=None, bias: Optional[torch.Tensor] = None,
             activation: Optional[str] = None,
@@ -215,6 +219,9 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
                              bias=bias, activation=activation,
                              residual=residual, b_scale=b_scale,
                              out_scale=out_scale)
+    if a.device.type == "meta":
+        _build.require_meta("gemm_tb", b, bias, residual, b_scale)
+        return torch.empty((m, n), dtype=out_dtype, device="meta")
     osc = out_scale_scalar(out_scale, a.device)
     scale = scale_vector(b_scale, n)
     ops = [t for t in (a, b, bias, residual, scale, osc) if t is not None]

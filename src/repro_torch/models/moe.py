@@ -58,7 +58,6 @@ import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
 from repro_torch import ops, quant, telemetry
@@ -194,7 +193,7 @@ def _aux_loss_mesh(counts: torch.Tensor, probs: torch.Tensor,
 
 
 def _world(mesh):
-    return dist.group.WORLD if shd.mesh_devices(mesh) > 1 else None
+    return mesh.world() if shd.mesh_devices(mesh) > 1 else None
 
 
 def _bank(w, dtype) -> torch.Tensor:

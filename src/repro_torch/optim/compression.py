@@ -15,7 +15,6 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch.bridge import map_tree, zip_trees
 from repro_torch.dist import collectives as coll
@@ -32,7 +31,7 @@ def compress_psum(grads, err, group):
     """Quantize (grads + carried error), sum the int8 payloads over
     ``group`` (as int32), dequantize with the mean scale, and return
     (mean_grads, new_err); ``group`` None is a group of one rank."""
-    n = 1 if group is None else dist.get_world_size(group)
+    n = coll.group_size(group)
 
     def one(g, e):
         gf = g.float() + e

@@ -36,7 +36,6 @@ import contextlib
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
-import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.bridge import map_tree, tree_leaves, zip_trees
@@ -294,5 +293,5 @@ class _Ranks(_OneRank):
     def mean(self, loss, metrics: dict):
         every = coll.all_reduce(torch.stack(
             [loss.float()] + [v.float() for v in metrics.values()]),
-            dist.group.WORLD) / self.world
+            self.mesh.world()) / self.world
         return every[0], dict(zip(metrics, every[1:]))

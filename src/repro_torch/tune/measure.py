@@ -134,27 +134,38 @@ def synthesize_operands(pl, rng: np.random.Generator, device="cuda"
     term it declares (the reference's operands, in its order).  The
     numpy generator seeds a torch generator on the device, which draws
     them there: a host draw of qwen3-moe's 4096 x 151936 lm_head weight
-    alone takes seconds."""
+    alone takes seconds.  A grouped plan gets its (E, k, n) expert bank,
+    a per-expert bias where it declares one, and ``group_sizes`` that
+    spread its m rows as evenly as they go over the E experts (every
+    row live)."""
     spec, ep = pl.spec, pl.spec.epilogue
     m, k, n = pl.m, pl.k, pl.n
+    lead = (pl.n_groups,) if spec.grouped else ()
     gen = torch.Generator(device=device)
     gen.manual_seed(int(rng.integers(0, 2**63 - 1)))
 
     def weight():
         if spec.b_quant:
-            return {"q": _rand(gen, (k, n), "int8"),
-                    "scale": _rand(gen, (1, n), "float32") * 0.01 + 0.02}
-        return _rand(gen, (k, n), spec.b_dtype)
+            return {"q": _rand(gen, lead + (k, n), "int8"),
+                    "scale": _rand(gen, lead + (1, n), "float32") * 0.01
+                    + 0.02}
+        return _rand(gen, lead + (k, n), spec.b_dtype)
 
-    return {
+    out = {
         "a": _rand(gen, (m, k), spec.a_dtype),
         "b": weight(),
         "b2": weight() if spec.gated else None,
-        "bias": _rand(gen, (n,), spec.a_dtype) if ep.bias else None,
+        "bias": _rand(gen, lead + (n,), spec.a_dtype) if ep.bias else None,
         "residual": (_rand(gen, (m, n), spec.a_dtype)
                      if ep.residual else None),
         "out_scale": 0.05 if ep.out_quant else None,
     }
+    if spec.grouped:
+        e = pl.n_groups
+        sizes = torch.full((e,), m // e, dtype=torch.int32, device=device)
+        sizes[:m % e] += 1
+        out["group_sizes"] = sizes
+    return out
 
 
 def _launch_counters():
@@ -228,7 +239,8 @@ def measure_plan(pl, *, iters: int = DEFAULT_ITERS,
     device = resolve_device(device)
     rng = rng or np.random.default_rng(0)
     ops = synthesize_operands(pl, rng, device)
-    kw = {k: ops[k] for k in ("b2", "bias", "residual", "out_scale")}
+    kw = {k: ops[k] for k in ("b2", "bias", "residual", "out_scale",
+                              "group_sizes") if k in ops}
     return _timed(lambda: api.execute(pl, ops["a"], ops["b"], **kw),
                   device, iters, warmup, timer, "measure.gemm",
                   spec=pl.spec.key, m=pl.m, k=pl.k, n=pl.n)

@@ -1668,3 +1668,34 @@ def test_attention_one_shot_repeat_resolves_no_plan(cuda_device,
     assert ops.attn_plan_cache_info().hits == hits + 1
     assert flash_decode.launches == launches + 1
     assert torch.equal(first, again)
+
+
+@pytest.mark.parametrize("arch", ["smollm-360m", "qwen3-moe-235b-a22b"])
+def test_op_cost_card_equals_meta(cuda_device, arch):
+    """The op-by-op count (``repro_torch.core.op_cost``) of one smoke
+    train step on the card equals the meta trace's of the same config
+    and batch, scope by scope: the kernels count at their boundary
+    whatever runs inside them.  B7's rows are live on the card and
+    capacity on meta; the smoke MoE drops no token, so they agree."""
+    from repro_torch.core import op_cost
+    from repro_torch.data import pipeline as P
+    from repro_torch.train import train_step as TS
+    cfg = get_smoke_config(arch)
+    dc = P.DataConfig(seq_len=16, global_batch=4)
+    step = TS.make_train_step(cfg, optimizer="adamw", n_loss_chunks=4)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    runs = {}
+    for where, state, batch in (
+            ("cuda", TS.init_state(cfg, gen, device=cuda_device,
+                                   optimizer="adamw"),
+             P.make_batch(cfg, dc, 0, device=cuda_device)),
+            ("meta", TS.state_struct(cfg, "adamw"), P.batch_spec(cfg, dc))):
+        with op_cost.count() as c:
+            step(state, batch)
+        runs[where] = c.result()
+    torch.cuda.synchronize()
+    card, meta = runs["cuda"], runs["meta"]
+    assert card.flops_by_scope == meta.flops_by_scope
+    assert card.bytes_by_scope == meta.bytes_by_scope
+    assert card.calls_by_scope == meta.calls_by_scope
+    assert card.grouped_rows["live"] == meta.grouped_rows["capacity"]

@@ -224,16 +224,27 @@ def test_epilogue_and_gemm_refs_match_jax():
 
 
 def test_wrappers_refuse_what_they_cannot_run():
-    """Dispatch goes by device: a tensor that is neither on the CPU nor
-    on a CUDA card raises instead of falling back; a dequant scale over
-    a float B raises instead of scaling silently."""
+    """Dispatch goes by device: operands on meta (a dry-run's trace) give
+    a result of the kernel's shape and dtype and launch nothing, and a
+    meta operand beside one on another device raises instead of falling
+    back; a dequant scale over a float B raises instead of scaling
+    silently."""
     a = torch.zeros((2, 4), device="meta")
+    launches = gemm_aie.launches
+    c = gemm_aie(a, torch.zeros((4, 3), device="meta"))
+    assert (c.device.type, tuple(c.shape), c.dtype) == \
+        ("meta", (2, 3), torch.float32)
+    assert gemm_aie.launches == launches
     with pytest.raises(ValueError):
-        gemm_aie(a, torch.zeros((4, 3), device="meta"))
+        gemm_aie(a, torch.zeros((4, 3)))
     with pytest.raises(TypeError):
         gemm_aie(torch.zeros((2, 4)), torch.zeros((4, 3)),
                  b_scale=torch.ones(3))
-    with pytest.raises(ValueError):
-        flash_decode(torch.zeros((1, 3, 8), device="meta"),
+    o = flash_decode(torch.zeros((1, 3, 8), device="meta"),
                      torch.zeros((1, 4, 1, 8), device="meta"),
                      torch.zeros((1, 4, 1, 8), device="meta"), 0)
+    assert (o.device.type, tuple(o.shape)) == ("meta", (1, 3, 8))
+    with pytest.raises(ValueError):
+        flash_decode(torch.zeros((1, 3, 8), device="meta"),
+                     torch.zeros((1, 4, 1, 8)),
+                     torch.zeros((1, 4, 1, 8)), 0)

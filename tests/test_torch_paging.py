@@ -361,7 +361,11 @@ def test_flash_decode_paged_refuses_bad_operands():
     with pytest.raises(ValueError):          # table rows != batch
         flash_decode_paged(q, pool, pool,
                            torch.zeros((3, 2), dtype=torch.int32), 0)
-    with pytest.raises(ValueError):          # neither CPU nor CUDA
-        flash_decode_paged(q.to("meta"), pool.to("meta"), pool.to("meta"),
+    # meta operands trace shapes (a dry-run): no launch, no plain version
+    o = flash_decode_paged(q.to("meta"), pool.to("meta"), pool.to("meta"),
                            torch.zeros((2, 2), dtype=torch.int32,
                                        device="meta"), 0)
+    assert (o.device.type, tuple(o.shape)) == ("meta", (2, 3, 8))
+    with pytest.raises(ValueError):          # meta beside the CPU
+        flash_decode_paged(q.to("meta"), pool, pool,
+                           torch.zeros((2, 2), dtype=torch.int32), 0)
