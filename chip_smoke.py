@@ -369,7 +369,7 @@ COLD_BYTES = 128 << 20        # operands cycled per timing, > 50 MB L2
 REPS = 20
 
 KERNELS = {
-    "gemm_aie": (gemm_aie, gemm_aie_plain, "src/repro_torch/csrc/gemm_aie.cu",
+    "gemm_aie": (gemm_aie, gemm_aie_plain, "src/repro_torch/csrc/gemm_ws.cuh",
                  "src/repro/kernels/gemm_aie.py:143"),
     "gemm_gated": (gemm_gated, gemm_gated_plain,
                    "src/repro_torch/csrc/gemm_gated.cu",
@@ -383,7 +383,7 @@ KERNELS = {
     "flash_decode_paged": (flash_decode_paged, flash_decode_paged_plain,
                            "src/repro_torch/csrc/flash_decode_paged.cu",
                            "src/repro/kernels/flash_decode.py:275"),
-    "gemm_tb": (gemm_tb, gemm_tb_plain, "src/repro_torch/csrc/gemm_tb.cu",
+    "gemm_tb": (gemm_tb, gemm_tb_plain, "src/repro_torch/csrc/gemm_ws.cuh",
                 "src/repro/kernels/gemm_tb.py:96"),
     "gemm_grouped": (gemm_grouped, gemm_grouped_plain,
                      "src/repro_torch/csrc/gemm_grouped.cu",
@@ -805,6 +805,13 @@ def moe_gemm_cases():
             "qwen3 " + name, 0, m, k, n, dtype, tb=tb,
             tile=tile if tb else None, moe_weight=per_step,
             timed=per_step > 0 or m == 300, **kw))
+    # B6 at the prefill's wo + residual whatever the plan picks: the shape
+    # whose B6 time PERF.md §6 holds to a target (under 0.3 ms)
+    tile = ops.plan(ops.GemmSpec(epilogue=ops.Epilogue(residual=True),
+                                 strategy="tb"), (300, q, d)).tile
+    out["gemm_tb"].append(gemm_case(
+        f"qwen3 prefill wo+res 300x{q}x{d} (tb)", 0, 300, q, d, bf, tb=True,
+        tile=tile, moe_weight=0, timed=True, residual=True))
     return out
 
 
@@ -1667,13 +1674,21 @@ def paged_bitwise_phase():
             "heads": ["15/5 d64", "64/4 d128"]}
 
 
+#: B6 tiles the warp-specialised bf16 body runs at its large CTA shapes
+#: (one and two consumer warpgroups, wgmma N 128 / 256) and its swapped
+#: one (16 rows, 2 and 4 panels of 64 columns)
+WS_TB_TILES = [(64, 256, 128), (128, 256, 128), (64, 256, 256),
+               (16, 512, 256), (16, 1024, 128)]
+
+
 def tb_bitwise_phase():
     """B6 == B1, bit for bit: at every dense GEMM shape of both models'
     serve paths (smollm-360m and qwen3-moe-235b-a22b: decode m = 8, a
     300-token prefill, 12- and 16-token prompts, qwen3's 64-token paged
-    chunk and last-token lm_head) and an f32 edge shape, in bf16 and f32, with each epilogue,
-    at the tile HOPPER_H100's 'tb' plan gives the shape and three tiles
-    that give one k-chunk, two, and four or more."""
+    chunk and last-token lm_head) and an f32 edge shape, in bf16 and f32,
+    with each epilogue, at the tile HOPPER_H100's 'tb' plan gives the
+    shape, three tiles that give one k-chunk, two, and four or more, and,
+    in bf16, :data:`WS_TB_TILES`."""
     d, ff, V = 960, 2560, 49152
     qd, qq, qkv, qe, qV = 4096, 8192, 512, 128, 151936
     shapes = [(8, d, d), (8, d, 320), (8, ff, d), (8, d, V), (300, d, d),
@@ -1696,6 +1711,8 @@ def tb_bitwise_phase():
             pt = tb_tile(m, k, n, dtype)
             tiles = [(pt.bm, pt.bk, pt.bn), (8, 4096, 16), (16, half, 32),
                      (8, 128, 64)]
+            if dtype == torch.bfloat16:     # the warp-specialised body's
+                tiles += WS_TB_TILES        # large and swapped shapes
             for ep in epilogues:
                 kw = {"out_dtype": ep.get("out_dtype", dtype)}
                 if ep.get("residual"):
@@ -1726,9 +1743,64 @@ def tb_bitwise_phase():
     if not {1, 2} <= chunk_counts or max(chunk_counts) < 4:
         raise RuntimeError(f"tb bitwise: chunk counts {chunk_counts}")
     log(f"gemm_tb == gemm_aie, bit for bit: {checked} cases ({len(shapes)} "
-        f"shapes x bf16/f32 x {len(epilogues)} epilogues x 4 tiles; "
-        f"k-chunk counts {sorted(chunk_counts)})")
+        f"shapes x bf16/f32 x {len(epilogues)} epilogues x 4 tiles, "
+        f"{len(WS_TB_TILES)} more in bf16; k-chunk counts "
+        f"{sorted(chunk_counts)})")
     return {"cases": checked, "chunk_counts": sorted(chunk_counts)}
+
+
+#: (k, n) of the decode GEMMs decode_form_phase times at 8 rows:
+#: smollm-360m's wq, wk / wv, w_down, gate and lm_head, h2o-danube-3-4b's wq
+#: and w_down
+DECODE_FORM_KN = ((960, 960), (960, 320), (2560, 960), (960, 2560),
+                  (960, 49152), (3840, 3840), (10240, 3840))
+
+
+def decode_form_phase():
+    """B1's two few-row forms of the warp-specialised bf16 body at 8 rows,
+    in turns in this process: the swapped wgmma form (the rows on wgmma's
+    N side, 64 columns a CTA: BF16_TILES config 1) and the mma.sync form
+    at the columns ``cta_tile``'s split gives (8 to 64 a CTA; ``cta_tile``
+    takes the swapped form where that is 64), device time of each
+    (CUDA-graph replays over copies past the L2 cache) and their outputs
+    bit for bit."""
+    from repro_torch.kernels import gemm_aie as aie
+    fn = _build.entry("gemm_aie_launch", aie._ARGTYPES)
+    bf16, out = torch.bfloat16, []
+    for k, n in DECODE_FORM_KN:
+        # the mma.sync form at the split cta_tile's rule gives (it takes the
+        # swapped form where that is 64 columns)
+        mma = next((c for c in (9, 8, 7) if 8 * -(-n // aie.BF16_TILES[c][2])
+                    >= 7 * HOPPER_H100.sm_count), 6)
+
+        def launch(a, b, c, config):
+            _build.check(fn(a.data_ptr(), b.data_ptr(), c.data_ptr(), None,
+                            None, None, None, 8, n, k, 1, 1, 1, 0, 0, config,
+                            2 | 2 << 2, _build.stream_of(a)), "gemm_aie")
+        copies = max(2, min(64, math.ceil(COLD_BYTES / (2 * k * (8 + n)))))
+        sets = [((rand((8, k), bf16, k ** -0.5), rand((k, n), bf16),
+                  torch.empty((8, n), dtype=bf16, device="cuda")), {})
+                for _ in range(copies)]
+        row = {"k": k, "n": n, "mma_config": mma}
+        for config, tag in ((1, "swapped"), (mma, "mma"), (1, "swapped"),
+                            (mma, "mma")):
+            ms = device_ms(lambda a, b, c: launch(a, b, c, config), sets)
+            row.setdefault(f"{tag}_us", []).append(ms * 1e3)
+        a, b, _ = sets[0][0]
+        c1 = torch.empty((8, n), dtype=bf16, device="cuda")
+        c2 = torch.empty_like(c1)
+        launch(a, b, c1, 1)
+        launch(a, b, c2, mma)
+        torch.cuda.synchronize()
+        if not torch.equal(c1, c2):
+            raise RuntimeError(f"decode forms differ at 8x{k}x{n}")
+        out.append(row)
+        log(f"  B1 8x{k}x{n}: swapped wgmma {row['swapped_us'][0]:.1f} / "
+            f"{row['swapped_us'][1]:.1f} us, mma.sync (config {mma}) "
+            f"{row['mma_us'][0]:.1f} / {row['mma_us'][1]:.1f} us, bit for "
+            f"bit equal")
+        del sets
+    return out
 
 
 def grouped_bitwise_phase():
@@ -4168,7 +4240,7 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
     loss), exported to ``chiprun_out/telemetry_base``."""
     tokens = seq * batch
     flops = cfg.model_flops(tokens, training=True)
-    must = ("flash_attention", "gemm_tb_final") + (
+    must = ("flash_attention",) + (
         () if cfg.family == "audio" else ("gemm_gated",))
     rows, out = [], {}
     torch.cuda.synchronize()
@@ -4192,6 +4264,9 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
             for k in must:
                 if not launches[k]:
                     raise RuntimeError(f"train step {step}: {k} never ran")
+            if not launches["gemm_aie"] + launches["gemm_tb_final"]:
+                raise RuntimeError(f"train step {step}: no dense GEMM ran "
+                                   "(B1 or B6, as the plans pick)")
             loss, gn = float(m["loss"]), float(m["grad_norm"])
             if not (math.isfinite(loss) and math.isfinite(gn)):
                 raise RuntimeError(f"train step {step}: loss {loss}, "
@@ -5306,8 +5381,8 @@ def dp_rank(rank, ckpt_dir, card):
         executed = sum(rec.plans.values())
         if launches != want or any(plain.values()) \
                 or executed != train_gemms_per_step(cfg) or not all(
-                    launches[n] for n in ("gemm_gated", "flash_attention",
-                                          "gemm_tb_final")):
+                    launches[n] for n in ("gemm_gated", "flash_attention")) \
+                or not launches["gemm_aie"] + launches["gemm_tb_final"]:
             raise RuntimeError(f"DP rank {rank} step {i}: launches "
                                f"{launches} (executed plans {want}, "
                                f"{executed} GEMMs), plain {plain}")
@@ -5490,6 +5565,7 @@ def main() -> None:
         tb_bitwise = tb_bitwise_phase()
         grouped_bitwise = grouped_bitwise_phase()
         redesign_bitwise = redesign_bitwise_phase()
+        decode_forms = decode_form_phase()
         clock.mark("bitwise")
         attn_blocks = attn_block_phase(card)
         clock.mark("attention blocks")
@@ -5782,6 +5858,7 @@ def main() -> None:
         "paged_bitwise": paged_bitwise,
         "tb_bitwise": tb_bitwise, "grouped_bitwise_groups": grouped_bitwise,
         "b3_b2_bitwise": redesign_bitwise, "int8_bitwise": int8_bitwise,
+        "decode_forms": decode_forms,
         "attn_blocks": attn_blocks,
         "operator_api": api_run,
         "autotune": tuned, "calibration": calibration,

@@ -85,7 +85,7 @@ def _solve_cached(m: int, k: int, n: int, a_dtype: str, b_dtype: str,
             for bk in _lane_candidates(k, chip, chip.k_candidates):
                 for bn in _lane_candidates(n, chip, chip.n_candidates):
                     tile = TileConfig(bm, bk, bn, strategy)
-                    if not tile.mxu_aligned(chip):
+                    if not tile.mxu_aligned(chip, p):
                         continue
                     if n_groups and not chip.grouped_launchable(bm, bn):
                         continue

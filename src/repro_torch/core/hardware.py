@@ -27,10 +27,26 @@ KiB = 1024
 MiB = 1024 * KiB
 GiB = 1024 * MiB
 
-#: Kernel B6 (csrc/gemm_tb.cu) runs 256 threads (8 warps) a CTA.  Its bf16
-#: body splits the C tile into m16 x n8 tensor-core fragments, a warp owning
-#: at most 4 neighbouring ones of one 16-row block; its f32 body gives a
-#: thread one C column and at most 16 of its rows.
+#: Kernel B6's bf16 body (csrc/gemm_ws.cuh, shared with B1) runs one or two
+#: consumer warpgroups of 64 rows on wgmma (N up to 256), or, for at most 16
+#: rows, the mma.sync form (16 rows, 8 to 256 columns).  It launches any C
+#: tile of at most 128 x 256; the search proposes only the tiles it runs
+#: without padded work (at most 16 rows and a power-of-two width, or a
+#: multiple of 64 rows and whole 64-column panels).
+B6_WS_MAX_BM = 128
+B6_WS_MAX_BN = 256
+B6_WS_MMA_BM = 16
+B6_WS_PANEL = 64
+#: its ring of B slabs (csrc/gemm_ws.cuh kTbStages, kTbRingBytes,
+#: kMaxStages)
+B6_WS_STAGES = 4
+B6_WS_RING_BYTES = 65536
+B6_WS_MAX_STAGES = 16
+#: B6's other bodies (int8 and f32, csrc/gemm_tb.cuh) run 256 threads (8
+#: warps) a CTA.  The int8 tensor-core bodies split the C tile into m16 x n8
+#: fragments, a warp owning at most 4 neighbouring ones of one 16-row
+#: block; the f32 body gives a thread one C column and at most 16 of its
+#: rows.
 B6_THREADS = 256
 B6_MAX_FRAGS_PER_WARP = 4
 B6_MAX_ROWS_PER_THREAD = 16
@@ -42,6 +58,36 @@ B6_MAX_ROWS_PER_THREAD = 16
 #: f32 8 x 128 and 16 x 64) fit inside it.
 B7_MAX_BM = 64
 B7_MAX_BN = 128
+
+
+def _bf16_pair(a_dtype, b_dtype) -> bool:
+    """bf16 A and B (B: A's dtype when None), the pair kernel B6's
+    warp-specialised body takes."""
+    return str(a_dtype).replace("torch.", "") == "bfloat16" and str(
+        b_dtype or a_dtype).replace("torch.", "") == "bfloat16"
+
+
+def ws_tb_tile(bm: int, bn: int) -> Tuple[int, int]:
+    """The (rows, columns) one CTA of B6's bf16 body covers for a (bm,
+    bn) plan tile (csrc/gemm_tb.cuh ``ws_rows`` / ``ws_cols``): 16 rows
+    (the mma.sync form) for at most 16 rows, bn rounded up to a power of
+    two from 8; else 64 or 128 rows on wgmma, bn rounded up to 64, 128 or
+    256."""
+    rows = B6_WS_MMA_BM if bm <= B6_WS_MMA_BM else 64 if bm <= 64 else 128
+    cols = 8 if bm <= B6_WS_MMA_BM else B6_WS_PANEL
+    while cols < bn:
+        cols *= 2
+    return rows, cols
+
+
+def ws_tb_stages(bm: int, bn: int) -> int:
+    """The stages of B's 64-deep slabs in one CTA of B6's bf16 body
+    (csrc/gemm_tb.cuh ``ws_stages``): 4 on wgmma; the mma.sync form's
+    narrow slabs as many as hold 64 KiB, from 4 to 16."""
+    if bm > B6_WS_MMA_BM:
+        return B6_WS_STAGES
+    per = 64 * ws_tb_tile(bm, bn)[1] * 2
+    return min(B6_WS_MAX_STAGES, max(B6_WS_STAGES, B6_WS_RING_BYTES // per))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -68,6 +114,8 @@ class TPUChip:
     pads_tiles: bool = True         # blocks pad to (sublane, lane) tiles
     budget_fraction: float = 0.75   # compiler headroom in fits_vmem
     tb_c_buffers: int = 4           # C in + out, two pipeline stages each
+    pinned_top: int = 10            # a pinned strategy's design is looked
+                                    # for among the search's first 10
 
     @property
     def peak_f32_flops(self) -> float:
@@ -75,7 +123,8 @@ class TPUChip:
         return self.peak_bf16_flops
 
     @staticmethod
-    def launchable(bm: int, bn: int) -> bool:
+    def launchable(bm: int, bn: int, a_dtype: str = "bfloat16",
+                   b_dtype=None) -> bool:
         """Pallas launches any block the VMEM budget admits."""
         return True
 
@@ -84,7 +133,7 @@ class TPUChip:
         """The grouped Pallas sweep too."""
         return True
 
-    def tile_aligned(self, bm: int, bk: int, bn: int) -> bool:
+    def tile_aligned(self, bm: int, bk: int, bn: int, p=None) -> bool:
         """MXU-friendly: lane dims multiples of 128, sublane dim aligned
         (``repro/core/tiling.py:170``)."""
         return (bn % self.lane == 0 and bk % self.lane == 0
@@ -134,20 +183,50 @@ class HopperChip:
     budget_fraction: float = 1.0    # vmem_bytes is already the CTA limit
     tb_c_buffers: int = 2           # B6 prefetches C in; C leaves from
                                     # registers
+    pinned_top: int = 1 << 20       # a pinned strategy takes its best
+                                    # design, however far down the ranking
 
-    def tile_aligned(self, bm: int, bk: int, bn: int) -> bool:
-        """A DSE candidate: edges on the sheet's quanta and a (bm, bn)
-        tile that kernel B6 launches (:meth:`launchable`)."""
-        return (bm % self.sublanes == 0 and bk % self.lane == 0
-                and bn % self.lane == 0 and self.launchable(bm, bn))
+    def tile_aligned(self, bm: int, bk: int, bn: int, p=None) -> bool:
+        """A DSE candidate for the problem ``p`` (a ``GemmProblem``; None:
+        a dense bf16 one of unknown size): edges on the sheet's quanta
+        and a (bm, bn) tile that kernel B6 launches (:meth:`launchable`).
+        For a dense (single-B, ungrouped) bf16 problem, which B6's
+        warp-specialised body runs, also a tile whose CTA (``ws_tb_tile``)
+        does no padded work -- at most 16 rows or exactly 64 or 128, and
+        bn the CTA's width -- or one that covers all of m (n) already.  The gated and
+        grouped searches keep the 256-thread rule."""
+        if not (bm % self.sublanes == 0 and bk % self.lane == 0
+                and bn % self.lane == 0):
+            return False
+        a_dtype, b_dtype = (p.a_dtype, p.b_dtype) if p else ("bfloat16",
+                                                             None)
+        dense = p is None or (p.n_b_operands == 1 and not p.n_groups)
+        if not (dense and _bf16_pair(a_dtype, b_dtype)):
+            return self._launchable_256(bm, bn)
+        m, n = (p.m, p.n) if p else (0, 0)
+        rows, cols = ws_tb_tile(bm, bn)
+        return (self.launchable(bm, bn, a_dtype, b_dtype)
+                and (bm == rows or bm <= B6_WS_MMA_BM or bm >= m > 0)
+                and (bn == cols or bn >= n > 0))
 
     @staticmethod
-    def launchable(bm: int, bn: int) -> bool:
-        """Whether B6's 256 threads cover a (bm, bn) C tile in both of its
-        bodies: the bf16 one gives each of its 8 warps at most 4
-        neighbouring m16 x n8 fragments of one 16-row block
-        (``cdiv(bm, 16) * cdiv(bn, 32) <= 8``), the f32 one a thread one
-        column, ``256 // bn`` row groups, at most 16 rows a thread."""
+    def launchable(bm: int, bn: int, a_dtype: str = "bfloat16",
+                   b_dtype=None) -> bool:
+        """Whether kernel B6 covers a (bm, bn) C tile of A and B of these
+        dtypes (B: A's when None).  bf16 x bf16 runs the warp-specialised
+        body: any tile of at most 128 x 256.  The other pairs need both
+        256-thread bodies (:meth:`_launchable_256`)."""
+        if _bf16_pair(a_dtype, b_dtype):
+            return 1 <= bm <= B6_WS_MAX_BM and 1 <= bn <= B6_WS_MAX_BN
+        return HopperChip._launchable_256(bm, bn)
+
+    @staticmethod
+    def _launchable_256(bm: int, bn: int) -> bool:
+        """Whether B6's 256-thread bodies cover a (bm, bn) C tile: the int8
+        tensor-core one gives each of its 8 warps at most 4 neighbouring
+        m16 x n8 fragments of one 16-row block (``cdiv(bm, 16) *
+        cdiv(bn, 32) <= 8``), the f32 one a thread one column, ``256 //
+        bn`` row groups, at most 16 rows a thread."""
         if not 1 <= bn <= B6_THREADS or bm < 1:
             return False
         warps = B6_THREADS // 32

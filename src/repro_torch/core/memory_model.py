@@ -5,10 +5,16 @@ rejects tilings that over-subscribe it.  On the TPU sheet that is VMEM,
 with every block padded to (sublane, lane) tiles; on ``HOPPER_H100`` it
 is the dynamic shared memory of one CTA, with no padding.  For the
 A-stationary ``tb`` strategy on ``HOPPER_H100`` the footprint is exactly
-what kernel B6 allocates (``csrc/gemm_tb.cuh``, ``tb_layout``): the
-resident A panel, two B stages (and, int8 x int8, the 128-row
-transposed sub-slab), two C-partial stages, and two stages of each fused
-epilogue operand.
+what kernel B6 allocates: for bf16 operands its warp-specialised body
+(``csrc/gemm_tb.cuh`` ``ws_smem``): the resident A panel in 64-deep
+boxes of the CTA's rows, ``ws_tb_stages`` stages of B's panels, one f32
+C-partial stage and the barriers' 1 KiB; for the others ``tb_layout``: the resident
+A panel, two B stages (and, int8 x int8, the 128-row transposed
+sub-slab), two C-partial stages, and two stages of each fused epilogue
+operand.  For the output-stationary ``aie`` strategy on ``HOPPER_H100``
+it is the shared memory of the CTA shape kernel B1 launches for the
+problem (``kernels/gemm_aie.py`` ``cta_smem_bytes``), whatever the
+plan's tile.
 """
 
 from __future__ import annotations
@@ -16,7 +22,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.core.hardware import TPU_V5E
+from repro_torch.core.hardware import TPU_V5E, _bf16_pair, ws_tb_stages, \
+    ws_tb_tile
 from repro_torch.core.tiling import (
     GemmProblem,
     TileConfig,
@@ -30,6 +37,10 @@ PIPELINE_STAGES = 2
 # The k-rows of an int8 B tile kernel B6's W8A8 body transposes at a time
 # (gemm_tb.cuh kSub), on a sheet that does not pad tiles
 TB_CONV_ROWS = 128
+# Kernel B6's bf16 body: the k depth of a stage and of a panel box and the
+# barriers' static shared memory (csrc/gemm_ws.cuh kBK, kStaticSmem)
+WS_BK = 64
+WS_STATIC_SMEM = 1024
 
 
 def padded_tile_bytes(rows: int, cols: int, dtype, chip=TPU_V5E) -> int:
@@ -100,6 +111,22 @@ def vmem_footprint(tile: TileConfig, p: GemmProblem,
     if ep.residual:
         residual = PIPELINE_STAGES * padded_tile_bytes(
             tile.bm, tile.bn, p.out_dtype, chip)
+    if not chip.pads_tiles and p.n_b_operands == 1 and not p.n_groups:
+        if tile.strategy == "aie":
+            # the CTA shape kernel B1 launches for the problem
+            import torch
+            from repro_torch.kernels.gemm_aie import cta_smem_bytes
+            return VmemFootprint(a_bytes=0, b_bytes=cta_smem_bytes(
+                p.m, p.n, getattr(torch, p.a_dtype),
+                getattr(torch, p.b_dtype)), out_bytes=0, acc_bytes=0)
+        if _bf16_pair(p.a_dtype, p.b_dtype):
+            # kernel B6's warp-specialised body (gemm_tb.cuh ws_smem)
+            rows, cols = ws_tb_tile(tile.bm, tile.bn)
+            return VmemFootprint(
+                a_bytes=-(-tile.bk // WS_BK) * WS_BK * rows * 2,
+                b_bytes=ws_tb_stages(tile.bm, tile.bn) * WS_BK * cols * 2,
+                out_bytes=rows * tile.bn * 4,
+                acc_bytes=WS_STATIC_SMEM)
     if tile.strategy == "aie":
         return VmemFootprint(
             a_bytes=PIPELINE_STAGES * a,

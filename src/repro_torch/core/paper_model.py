@@ -462,9 +462,13 @@ def stratix_ip_solve(lay: TBLayout, device: FPGADevice = STRATIX_NX2100
                      ) -> StratixDesign:
     """SS IV-B5: maximize M'*K'*N' subject to the M20K capacity (eq. 15)
     and latency-hiding (eq. 16) constraints; dims are multiples of the
-    compute GEMM size.  Exhaustive over the multiple grid (the block-count
-    functions are monotone in each dim, so each inner loop breaks at the
-    first infeasible point)."""
+    compute GEMM size.  Exhaustive over the (K', M') multiple grid (the
+    block-count functions are monotone in each dim, so each loop breaks at
+    the first infeasible point); for each (K', M') the largest feasible N'
+    multiple, the one whose reuse beats every smaller N' there, is found
+    by doubling and bisection.  The winner is the one the reference's
+    walk over every N' (``repro/core/paper_model.py``) keeps: the first
+    of the largest reuse in (K', M') order."""
     dm, dk, dn = lay.compute_gemm
     best: Optional[StratixDesign] = None
     l_min = max(1, math.ceil(lay.min_nprime / dn))
@@ -473,26 +477,32 @@ def stratix_ip_solve(lay: TBLayout, device: FPGADevice = STRATIX_NX2100
         geom = stratix_geometry(lay, m, k, n)
         return geom if geom.m20ks <= device.bram_36k else None
 
+    def last_feasible(mprime: int, kprime: int) -> int:
+        """The largest l with N' = l * dn feasible (l_min is)."""
+        lo, step = l_min, 1
+        while feasible(mprime, kprime, (lo + step) * dn) is not None:
+            lo, step = lo + step, 2 * step
+        hi = lo + step          # infeasible
+        while hi - lo > 1:
+            mid = (lo + hi) // 2
+            if feasible(mprime, kprime, mid * dn) is not None:
+                lo = mid
+            else:
+                hi = mid
+        return lo
+
     j = 1
     while feasible(dm, j * dk, l_min * dn) is not None:
         kprime = j * dk
         i = 1
-        while True:
+        while feasible(i * dm, kprime, l_min * dn) is not None:
             mprime = i * dm
-            geom = feasible(mprime, kprime, l_min * dn)
-            if geom is None:
-                break
-            l = l_min
-            while True:
-                nprime = l * dn
-                g = feasible(mprime, kprime, nprime)
-                if g is None:
-                    break
-                reuse = mprime * kprime * nprime
-                if best is None or reuse > best.reuse:
-                    best = StratixDesign(lay, mprime, kprime, nprime, g,
-                                         reuse)
-                l += 1
+            nprime = last_feasible(mprime, kprime) * dn
+            reuse = mprime * kprime * nprime
+            if best is None or reuse > best.reuse:
+                best = StratixDesign(lay, mprime, kprime, nprime,
+                                     feasible(mprime, kprime, nprime),
+                                     reuse)
             i += 1
         j += 1
     if best is None:

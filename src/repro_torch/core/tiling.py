@@ -122,11 +122,12 @@ class TileConfig:
         pm_, pk, pn = self.padded_dims(p)
         return (p.m * p.k * p.n) / (pm_ * pk * pn)
 
-    def mxu_aligned(self, chip=TPU_V5E) -> bool:
+    def mxu_aligned(self, chip=TPU_V5E, p: "GemmProblem" = None) -> bool:
         """Whether the sheet admits this tile: on a TPU lane dims are
         multiples of 128 and the sublane dim of 8; on ``HOPPER_H100`` it
-        is a tile kernel B6 can launch (:meth:`HopperChip.tile_aligned`)."""
-        return chip.tile_aligned(self.bm, self.bk, self.bn)
+        is a tile kernel B6 launches for the problem ``p`` (a dense bf16
+        one when None; :meth:`HopperChip.tile_aligned`)."""
+        return chip.tile_aligned(self.bm, self.bk, self.bn, p)
 
 
 def grouped_instances(tile: TileConfig, p: GemmProblem) -> int:

@@ -10,19 +10,20 @@
 // matrix read once, so the kernel is bound by the bytes of B (3.35 TB/s);
 // only large-m prefill GEMMs reach the operations side (989 TFLOP/s bf16).
 //
-// Design (bf16 operands): one CTA owns one BM x BN tile of C and walks all
-// of k, so nothing is carried between blocks (the TPU grid's sequential k
-// axis becomes this loop).  A and B come in BK-deep slabs through a ring of
-// kStages shared-memory stages filled by 16-byte cp.async (staging.cuh), so
-// several slabs of B are in flight while the tensor cores multiply the
-// oldest one; the products are mma_chain.cuh's m16n8k16 chain, each warp
-// owning kFM x kFN fragments.  The wrapper (kernels/gemm_aie.py
-// cta_tile) picks the CTA shape by m and n: with few rows (m <= 16) one
-// 16-row fragment and n split 8, 32 or 64 columns a CTA so that the
-// weight-streaming CTAs cover the card (at least one an SM where n / 8
-// allows), each with 16 KB or more of B in flight; with more rows a
-// 64 x 64 tile.  Ragged edges (m, n, k) load zeros and are not stored,
-// so no caller pads.
+// Design (bf16 operands): gemm_ws.cuh's warp-specialised body, shared with
+// B6.  One CTA owns one BM x BN tile of C and walks all of k, so nothing is
+// carried between blocks (the TPU grid's sequential k axis becomes this
+// loop).  A producer warp keeps a ring of 64-deep TMA stages (A's slab and
+// B's 64-column panels, 128-byte swizzled) full, and one or two consumer
+// warpgroups run wgmma m64nNk16 on the stages that have landed.  The wrapper
+// (kernels/gemm_aie.py cta_tile) picks the CTA shape by m and n: with few
+// rows (m <= 16) the swapped form, 64 columns of B on wgmma's 64-row side
+// and the 16 rows on its N side, so the weight-streaming CTAs each keep
+// 64 KB of B in flight; with more rows the largest of 128 x 256, 128 x 128
+// and 64 x 128 that still gives every SM a CTA, else 64 x 64.  Ragged edges
+// (m, n, k) land as zeros from TMA and are not stored, so no caller pads.
+// The launch is a programmatic dependent, so the CTAs' set-up overlaps the
+// kernel before it.
 //
 // f32 operands keep the CUDA-core body (gemm_aie_kernel below): a fixed
 // 16 x 128 x 32 tile, each thread BM/4 accumulators of one column, one
@@ -30,7 +31,11 @@
 // registers during the products.
 //
 // The int8 paths (repro/kernels/gemm_aie.py:60-62, :72, :111 and the
-// out-quant of epilogue.py:126-128), at the same CTA shapes:
+// out-quant of epilogue.py:126-128) keep the sm_80 body below
+// (gemm_aie_mma_kernel: cp.async stages filled by every thread, the
+// mma.sync m16n8k16 chain of mma_chain.cuh) at its own CTA shapes
+// (kernels/gemm_aie.py INT8_TILES); that chain gives the bits of the bf16
+// body's wgmma chain (gemm_ws.cuh), so W8A16 still equals it:
 //   W8A16: a bf16 A against an int8 B (a quantized weight).  B is staged at
 //     one byte an element, the halving of the weight bytes that bound the
 //     decode GEMMs; once a slab lands, every thread widens it to bf16 into
@@ -49,14 +54,16 @@
 //     half to even and clipped to +-127 (common.cuh quantize_out).
 //
 // Order invariance: every C element is one chain over k in a fixed order
-// (the tensor-core chain of mma_chain.cuh for bf16, the fmaf chain for
-// f32), whatever m is, whichever CTA shape runs it and wherever the row
-// sits in the tile.  A row's result is therefore the same bits at batch 1
+// (the k16 tensor-core chain for bf16, whose bits wgmma and mma.sync give
+// alike, the fmaf chain for f32), whatever m is, whichever CTA shape runs
+// it and wherever the row sits in the tile.  A row's result is therefore
+// the same bits at batch 1
 // and inside a continuous batch, which is what keeps continuous-batched
 // greedy decoding identical to solo greedy decoding; and B6 (gemm_tb.cu)
 // runs the same chains, so it equals this kernel bit for bit.
 #include <type_traits>
 
+#include "gemm_ws.cuh"
 #include "mma_chain.cuh"
 #include "staging.cuh"
 
@@ -182,16 +189,16 @@ struct AieArgs {
   int mode_a, mode_b;        // staging.cuh copy modes of A and B
 };
 
-// The operand variants of the tensor-core body: bf16 x bf16, W8A16 (bf16 A,
-// int8 B widened to bf16 once a slab lands) and W8A8 (int8 A and B, int32
-// accumulators, mma_chain.cuh mma_slab_s8).
-enum Variant : int { kVBf16 = 0, kVW8A16 = 1, kVW8A8 = 2 };
+// The operand variants of the int8 tensor-core body: W8A16 (bf16 A, int8 B
+// widened to bf16 once a slab lands) and W8A8 (int8 A and B, int32
+// accumulators, mma_chain.cuh mma_slab_s8).  bf16 x bf16 runs gemm_ws.cuh.
+enum Variant : int { kVW8A16 = 1, kVW8A8 = 2 };
 
-// A CTA shape: kWM x kWN warps, each owning kFM x kFN m16n8 fragments, so a
-// BM x BN tile of C; BK-deep slabs through kStages stages.  With kCopyWarps
-// > 0 that many more warps do all the staging, so the MMA warps of a
-// narrow tile never stall on issuing copies; with 0 every warp stages.  A
-// stage holds the A slab, then the B slab, each at its operand's width.
+// A CTA shape of the int8 body: kWM x kWN warps, each owning kFM x kFN
+// m16n8 fragments, so a BM x BN tile of C; BK-deep slabs through kStages
+// stages.  With kCopyWarps > 0 that many more warps do all the staging, so
+// the MMA warps of a narrow tile never stall on issuing copies; with 0
+// every warp stages.  A stage holds the A slab, then the int8 B slab.
 template <int kWM, int kWN, int kFM, int kFN, int kBK_, int kStages_,
           int kCopyWarps_ = 0>
 struct MmaShape {
@@ -207,13 +214,13 @@ struct MmaShape {
   }
   template <int kV>
   __host__ __device__ static constexpr int stage_bytes() {
-    return a_bytes<kV>() + kBK * kBN * (kV == kVBf16 ? 2 : 1);
+    return a_bytes<kV>() + kBK * kBN;  // B at one byte an element
   }
   // the ring, then (int8 B) the slab the MMA warps read: widened to bf16
   // (W8A16) or k-major (W8A8)
   template <int kV>
   __host__ __device__ static constexpr int conv_bytes() {
-    return kV == kVBf16 ? 0 : kBK * kBN * (kV == kVW8A16 ? 2 : 1);
+    return kBK * kBN * (kV == kVW8A16 ? 2 : 1);
   }
   template <int kV>
   __host__ __device__ static constexpr size_t smem() {
@@ -225,7 +232,7 @@ struct MmaShape {
 // One BM x BK slab of A and one BK x BN slab of B into a stage, zero-filled
 // past K, M and N, by the S::kCopyThreads threads (tid: this one's index
 // among them).  With m <= 8 rows a 16-row A slab stages only its first 8
-// rows (a_rows).  bf16 operands land in mma_chain.cuh's swizzled tiles, an
+// rows (a_rows).  A bf16 A lands in mma_chain.cuh's swizzled tile, an
 // int8 A in the bytes of one (Swz8, which ldmatrix reads), an int8 B
 // row-major (Rows8) at one byte an element, for the conversion pass.
 template <typename S, int kV>
@@ -260,22 +267,10 @@ __device__ __forceinline__ void aie_load(unsigned char* stage, const void* A,
       stage_rows<kT>(at.p, at, a, p.K, a_rows, S::kBK, rows_valid, depth,
                      p.mode_a, tid);
   }
-  unsigned char* bs = stage + S::template a_bytes<kV>();
-  if constexpr (kV == kVBf16) {
-    const __nv_bfloat16* b = static_cast<const __nv_bfloat16*>(B) + b_at;
-    const SmemTile bt = smem_tile(reinterpret_cast<__nv_bfloat16*>(bs), S::kBN);
-    if (p.mode_b == 2)
-      stage_rows16<kT, S::kBN>(bt.p, bt, b, p.N, S::kBK, depth, cols_valid,
-                               tid);
-    else
-      stage_rows<kT>(bt.p, bt, b, p.N, S::kBK, S::kBN, depth, cols_valid,
-                     p.mode_b, tid);
-  } else {
-    // the wrapper picks mode 2 only when a row of the tile is 16-byte units
-    stage_rows<kT>(reinterpret_cast<int8_t*>(bs), Rows8{S::kBN},
-                   static_cast<const int8_t*>(B) + b_at, p.N, S::kBK, S::kBN,
-                   depth, cols_valid, p.mode_b, tid);
-  }
+  // the wrapper picks mode 2 only when a row of the tile is 16-byte units
+  stage_rows<kT>(reinterpret_cast<int8_t*>(stage + S::template a_bytes<kV>()),
+                 Rows8{S::kBN}, static_cast<const int8_t*>(B) + b_at, p.N,
+                 S::kBK, S::kBN, depth, cols_valid, p.mode_b, tid);
 }
 
 template <typename S, int kV>
@@ -306,10 +301,6 @@ gemm_aie_mma_kernel(const void* __restrict__ A, const void* __restrict__ B,
   auto a_tile = [&](int s) {
     return smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + s * kStage),
                      S::kBK);
-  };
-  auto b_tile = [&](int s) {
-    return smem_tile(
-        reinterpret_cast<__nv_bfloat16*>(smem + s * kStage + kABytes), S::kBN);
   };
   auto bytes = [&](int s, int off) {
     return reinterpret_cast<const int8_t*>(smem + s * kStage + off);
@@ -382,18 +373,10 @@ gemm_aie_mma_kernel(const void* __restrict__ A, const void* __restrict__ B,
           smem_tile(reinterpret_cast<__nv_bfloat16*>(smem + s * kStage),
                     S::kBK / 2),
           wr, a_rows - wr, 0, bw, wc, (depth + 31) & ~31);
-    } else if constexpr (kV == kVW8A16) {
+    } else {
       mma_slab<S::kFragM, S::kFragN, kEdge>(
           acc, a_tile(s), wr, a_rows - wr, bw, wc, S::kBN - wc,
           depth == S::kBK ? S::kBK : (depth + 15) & ~15);
-    } else if (depth == S::kBK) {
-      mma_slab<S::kFragM, S::kFragN, kEdge>(acc, a_tile(s), wr, a_rows - wr,
-                                            b_tile(s), wc, S::kBN - wc,
-                                            S::kBK);
-    } else {
-      mma_slab<S::kFragM, S::kFragN, kEdge>(acc, a_tile(s), wr, a_rows - wr,
-                                            b_tile(s), wc, S::kBN - wc,
-                                            (depth + 15) & ~15);
     }
   }
 
@@ -419,7 +402,7 @@ gemm_aie_mma_kernel(const void* __restrict__ A, const void* __restrict__ B,
                    ? to_f32(static_cast<const __nv_bfloat16*>(res)[at])
                    : static_cast<const float*>(res)[at];
         float x = static_cast<float>(acc[i][j][e]);
-        if constexpr (kV != kVBf16) x = dequant(x, scale, col0 + c);
+        x = dequant(x, scale, col0 + c);
         x = epilogue(x, bias != nullptr,
                      bias != nullptr ? bias[col0 + c] : 0.0f, p.act,
                      res != nullptr, rv);
@@ -445,33 +428,32 @@ int launch_mma(const Operands& o, const AieArgs& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The CTA shapes of the tensor-core body, by the index kernels/gemm_aie.py
-// BF16_TILES / INT8_TILES gives them (its (bm, bk, bn) must match): with
-// m <= 16 one 16-row fragment and 1, 4 or 8 MMA warps of one 8-column
-// fragment each; the two narrow shapes beside 4 copy warps and 8 stages (so
-// 16 KB or more of bf16 B is in flight and the MMA warps start on the first
-// slab), the widest (many CTAs) staging itself through 4; with more rows
-// 64 x 64 (4 warps of 2 x 4 fragments that stage too), 4 stages.  Slabs are
-// 128 deep (64 for 64 x 64) with bf16 B and twice as deep with an int8 B,
-// so a stage holds as many bytes of B (the bytes in flight set one SM's
-// streaming rate) and the conversion pass runs half as often a k.
+// The CTA shapes of the int8 bodies, by the index kernels/gemm_aie.py
+// INT8_TILES gives them (its (bm, bk, bn) must match): with m <= 16 one
+// 16-row fragment and 1, 4 or 8 MMA warps of one 8-column fragment each;
+// the two narrow shapes beside 4 copy warps and 8 stages (so 16 KB or more
+// of B is in flight and the MMA warps start on the first slab), the widest
+// (many CTAs) staging itself through 4; with more rows 64 x 64 (4 warps of
+// 2 x 4 fragments that stage too), 4 stages.  Slabs are 256 deep (128 for
+// 64 x 64), so a stage holds as many bytes of int8 B as the bf16 shapes
+// held, and the conversion pass runs half as often a k.
 template <int kV>
 int launch_tc(int config, const Operands& o, const AieArgs& p,
               cudaStream_t s) {
-  constexpr int kD = kV == kVBf16 ? 1 : 2;  // the slab depth's factor
   switch (config) {
     case 1:
-      return launch_mma<MmaShape<1, 1, 1, 1, 128 * kD, 8, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<1, 1, 1, 1, 256, 8, 4>, kV>(o, p, s);
     case 2:
-      return launch_mma<MmaShape<1, 4, 1, 1, 128 * kD, 8, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<1, 4, 1, 1, 256, 8, 4>, kV>(o, p, s);
     case 3:
-      return launch_mma<MmaShape<1, 8, 1, 1, 128 * kD, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<1, 8, 1, 1, 256, 4>, kV>(o, p, s);
     case 4:
-      return launch_mma<MmaShape<2, 2, 2, 4, 64 * kD, 4>, kV>(o, p, s);
+      return launch_mma<MmaShape<2, 2, 2, 4, 128, 4>, kV>(o, p, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
 
 }  // namespace
 }  // namespace repro
@@ -480,11 +462,13 @@ int launch_tc(int config, const Operands& o, const AieArgs& p,
 // null; b_scale (n,) f32 or null (an int8 B's per-column dequant scale,
 // applied before the epilogue); residual (m,n) or null; out_scale a
 // device f32 scalar or null (int8 C: the flush's output quantization).
-// Operand types: bf16 x bf16, bf16 x int8 (W8A16) and int8 x int8 (W8A8)
-// run the tensor-core body with CTA shape ``config`` (1..4, see launch_tc)
-// and the staging copy modes ``modes`` (2 bits each: A, then B); f32 x f32
-// and f32 x int8 the fmaf body, which ignores both.  C is f32, bf16, int8
-// (with out_scale) or, for W8A8 with nothing fused, the int32 sums.
+// Operand types: bf16 x bf16 runs the warp-specialised body at CTA shape
+// ``config`` (1..9, gemm_aie_ws.cu), bf16 x int8 (W8A16) and int8 x int8
+// (W8A8) the int8 bodies (1..4, see launch_tc), each with the staging copy
+// modes ``modes`` (2 bits each: A, then B; 2 lets bf16 x bf16 take tensor
+// maps); f32 x f32 and f32 x int8 the fmaf body, which ignores both.  C is
+// f32, bf16, int8 (with out_scale) or, for W8A8 with nothing fused, the
+// int32 sums.
 // Returns cudaGetLastError() after the launch.
 extern "C" int gemm_aie_launch(const void* a, const void* b, void* c,
                                const void* bias, const void* b_scale,
@@ -505,5 +489,15 @@ extern "C" int gemm_aie_launch(const void* a, const void* b, void* c,
   p.mode_a = modes & 3, p.mode_b = (modes >> 2) & 3;
   if (a_dtype == kI8) return launch_tc<kVW8A8>(config, o, p, s);
   if (b_dtype == kI8) return launch_tc<kVW8A16>(config, o, p, s);
-  return launch_tc<kVBf16>(config, o, p, s);
+  ws::Args w{};
+  w.M = m, w.N = n, w.K = k, w.k0 = 0, w.kc = k, w.tiles_per_cta = 1;
+  w.act = act, w.out_dtype = out_dtype, w.res_dtype = res_dtype;
+  w.mode_a = p.mode_a, w.mode_b = p.mode_b;
+  return gemm_aie_ws_launch(
+      config,
+      ws::Operands{static_cast<const __nv_bfloat16*>(a),
+                   static_cast<const __nv_bfloat16*>(b), nullptr, c,
+                   static_cast<const float*>(bias), res,
+                   static_cast<const float*>(out_scale)},
+      w, s);
 }

@@ -74,10 +74,9 @@
 // therefore B1's A[r] @ B[g(r)] on the same operands bit for bit, at any CTA
 // shape, group layout or batch, and a token's expert output does not depend
 // on which other tokens share the batch.
-#include <cuda.h>  // CUtensorMap (no link to the driver library)
-
 #include "mma_chain.cuh"
 #include "staging.cuh"
+#include "tma.cuh"
 
 namespace repro {
 namespace {
@@ -390,17 +389,6 @@ struct GroupedShape {
       2 * (kSmem + 8 * kStages + 1024) <= kSmSmem ? 2 : 1;
 };
 
-// Element (r, c) of a slab held as 64-column panels of kRows rows, each
-// swizzled like smem_tile(p, 64): the layout the tensor memory accelerator
-// writes with its 128-byte swizzle, for the cp.async path to match.
-template <int kRows>
-struct Panels {
-  __device__ __forceinline__ int at(int r, int c) const {
-    return (c >> 6) * (kRows * 64) + r * 64 +
-           (((((c >> 3) & 7) ^ (r & 7)) << 3) | (c & 7));
-  }
-};
-
 // The same for an int8 bank: 128-column panels of kRows rows of 128 bytes,
 // each in the 128-byte swizzle (mma_chain.cuh Swz128).
 template <int kRows>
@@ -409,64 +397,6 @@ struct Panels8 {
     return (c >> 7) * (kRows * 128) + Swz128{}.at(r, c & 127);
   }
 };
-
-// mbarriers in shared memory: a stage's barrier completes its phase when
-// its one arrival (with the bytes it expects) and those bytes have landed.
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect(uint64_t* bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_addr(bar)),
-      "r"(bytes)
-      : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
-                   smem_addr(bar))
-               : "memory");
-}
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
-  unsigned done = 0;
-  do {
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done)
-        : "r"(smem_addr(bar)), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// One tensor-memory-accelerator copy of the box at coordinates (x, y[, z])
-// of a tensor map into shared memory, reported to bar.  Elements outside
-// the tensor land as zeros.
-__device__ __forceinline__ void tma_2d(void* dst, const CUtensorMap* map,
-                                       int x, int y, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y),
-      "r"(smem_addr(bar))
-      : "memory");
-}
-__device__ __forceinline__ void tma_3d(void* dst, const CUtensorMap* map,
-                                       int x, int y, int z, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::"
-      "complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(
-          smem_addr(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(x), "r"(y), "r"(z),
-      "r"(smem_addr(bar))
-      : "memory");
-}
 
 // With tensor maps (tma), thread 0 fills a stage with box copies; without
 // (an operand whose rows are not whole 16-byte units), every thread stages
@@ -635,51 +565,6 @@ gemm_grouped_mma_kernel(const __nv_bfloat16* __restrict__ A,
                    false, 0.0f);
       store_out(C, at, x, p.out_dtype, nullptr);
     }
-}
-
-// cuTensorMapEncodeTiled, found through the runtime (no link to the driver
-// library); null if the driver lacks it.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  static bool looked = false;
-  if (!looked) {
-    looked = true;
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f,
-                                cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(f);
-  }
-  return fn;
-}
-
-// A tensor map of `rank` dims (innermost first, byte strides of the outer
-// ones) over bf16 or (int8) bytes, read in boxes of 128-byte rows (64 bf16
-// or 128 int8 elements) x box_rows (x 1) with the 128-byte swizzle; false
-// if it cannot be made.
-bool tensor_map(CUtensorMap* map, const void* base, bool bytes, int rank,
-                const cuuint64_t* dims, const cuuint64_t* strides,
-                cuuint32_t box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint32_t box[3] = {bytes ? 128u : 64u, box_rows, 1},
-                   unit[3] = {1, 1, 1};
-  return encode(map,
-                bytes ? CU_TENSOR_MAP_DATA_TYPE_UINT8
-                      : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                rank,
-                const_cast<void*>(base), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename S, bool kB8>

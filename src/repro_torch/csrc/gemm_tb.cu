@@ -8,11 +8,14 @@ namespace tb {
 
 // Checks the tile against the kernel's limits, sizes the plan's whole
 // layout (scale, bias and residual stages included, also for B6a, which
-// leaves them unused) and picks the body's instantiation: for the tensor
-// cores the fragments a warp owns, for f32 the rows a thread owns.
+// leaves them unused) and picks the body's instantiation: bf16 x bf16 the
+// warp-specialised body at the shape the tile maps to (launch_ws); for the
+// int8 tensor-core bodies the fragments a warp owns, for f32 the rows a
+// thread owns.
 template <bool kFinal>
 int launch(int variant, const TbOperands& o, const TbArgs& p, bool has_scale,
            bool has_bias, bool has_res, cudaStream_t stream) {
+  if (variant == kVBf16) return launch_ws<kFinal>(o, p, stream);
   if (p.bn < 1 || p.bn > kThreads || p.bm < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const TbLayout L = tb_layout(p.bm, p.bk, p.bn, variant,
@@ -21,8 +24,6 @@ int launch(int variant, const TbOperands& o, const TbArgs& p, bool has_scale,
   if (L.total > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (variant) {
-    case kVBf16:
-      return launch_tc<kFinal, kVBf16>(o, p, L.total, stream);
     case kVW8A16:
       return launch_tc<kFinal, kVW8A16>(o, p, L.total, stream);
     case kVW8A8:
@@ -59,8 +60,9 @@ TbArgs make_args(int m, int n, int k, int k0, int kc, int bm, int bk, int bn,
 }  // namespace tb
 }  // namespace repro
 
-// Bytes of dynamic shared memory one CTA takes for a tile (-1 for an
-// operand pair no body takes).
+// Bytes of shared memory one CTA takes for a tile: the dynamic array (and,
+// for the bf16 body, its barriers' 1 KiB); -1 for an operand pair no body
+// takes.
 extern "C" int gemm_tb_smem_bytes(int bm, int bk, int bn, int a_dtype,
                                   int b_dtype, int res_dtype, int has_scale,
                                   int has_bias, int has_res) {
@@ -68,6 +70,8 @@ extern "C" int gemm_tb_smem_bytes(int bm, int bk, int bn, int a_dtype,
   using namespace repro::tb;
   const int v = variant_of(a_dtype, b_dtype);
   if (v < 0) return -1;
+  if (v == kVBf16) return static_cast<int>(ws_smem(bm, bk, bn)) +
+                          ws::kStaticSmem;
   return static_cast<int>(tb_layout(bm, bk, bn, v,
                                     res_dtype == kBF16 ? 2 : 4,
                                     has_scale != 0, has_bias != 0,

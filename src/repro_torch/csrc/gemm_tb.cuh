@@ -18,27 +18,30 @@
 // reach the tensor cores' side.
 //
 // Design: the TPU grid (m, n) ran n sequentially past one resident A block.
-// Here a CTA owns a (bm x kc) panel of A, staged once into shared memory,
+// Here a CTA owns a (bm x kc) panel of A, loaded once into shared memory,
 // and sweeps a contiguous range of n tiles; each m-block's sweep is split
 // over several CTAs, each with its own copy of the panel, so the grid fills
-// the card even at m = 8.  Per n tile the CTA streams one (kc x bn) tile of
-// B and the (bm x bn) f32 partial (plus the bias and residual tiles on the
-// last chunk) through two cp.async stages, so the next tile's loads are in
-// flight during this tile's products.  The dynamic shared memory is
-// tb_layout below, sized from the plan's (bm, bk, bn): exactly what
-// core/memory_model.py bills a 'tb' tile on HOPPER_H100.
-//   bf16 operands (gemm_tb_mma_kernel): the products are mma_chain.cuh's
-//   tensor-core chain.  The C tile is cdiv(bm, 16) x cdiv(bn, 8) m16n8
-//   fragments; each of the 8 warps owns kFN (1, 2 or 4) neighbouring
-//   fragments of one 16-row block and walks the whole chunk for them,
-//   reading the resident panel and the streamed B stage (both XOR-swizzled,
-//   mma_chain.cuh SmemTile) through ldmatrix.  Its accumulators start from
-//   the staged f32 partial, so the partial is the first MMA's C operand.
-//   Its chunks launch as programmatic dependents (launch_mma): a chunk's
-//   CTAs stage the panel and their first B tile while the chunk before
-//   runs, and wait for that chunk only before its partial.
-//   f32 operands (gemm_tb_kernel): the CUDA-core body, a thread owning one
-//   C column and up to 16 rows, one fmaf chain over the chunk.
+// the card even at m = 8.  Its chunks launch as programmatic dependents: a
+// chunk's CTAs load the panel and their first B tile while the chunk before
+// runs, and wait for that chunk only before its partial.
+//   bf16 operands: gemm_ws.cuh's warp-specialised body (shared with B1),
+//   its panel, B slabs and f32 partial brought in by TMA, the products on
+//   wgmma, at the CTA shape ws_rows below maps the plan's tile to; its
+//   dynamic shared memory ws_smem, exactly what core/memory_model.py bills
+//   a bf16 'tb' tile on HOPPER_H100 (with the barriers' 1 KiB).
+//   int8 B (gemm_tb_mma_kernel) and f32 operands (gemm_tb_kernel): per n
+//   tile the CTA streams one (kc x bn) tile of B and the (bm x bn) partial
+//   (plus the scale, bias and residual tiles on the last chunk) through two
+//   cp.async stages, so the next tile's loads are in flight during this
+//   tile's products; their dynamic shared memory is tb_layout below, sized
+//   from the plan's (bm, bk, bn), again what core/memory_model.py bills.
+//   The int8 tensor-core body splits the C tile into cdiv(bm, 16) x
+//   cdiv(bn, 8) m16n8 fragments; each of the 8 warps owns kFN (1, 2 or 4)
+//   neighbouring fragments of one 16-row block and walks the whole chunk
+//   for them, reading the resident panel and the streamed B stage (both
+//   XOR-swizzled, mma_chain.cuh SmemTile) through ldmatrix, its
+//   accumulators starting from the staged partial.  The f32 body: a thread
+//   owns one C column and up to 16 rows, one fmaf chain over the chunk.
 // Ragged edges (m, n and the last chunk of k) are zero-filled or skipped,
 // so no caller pads.
 //
@@ -52,7 +55,8 @@
 // staged beside the bias.
 //
 // Order invariance: every C element is one chain over k = 0..K-1 (B1's:
-// the tensor-core chain for bf16, the fmaf chain for f32): chunk 0 starts
+// the k16 tensor-core chain for bf16, whose bits wgmma and mma.sync give
+// alike, the fmaf chain for f32): chunk 0 starts
 // from 0, each later chunk continues from the stored f32 partial (the store
 // and load are exact, and the host puts bf16 chunk boundaries on the
 // 16-grid), and the flush is the one kernel B1 runs (common.cuh epilogue).
@@ -63,6 +67,7 @@
 
 #include <type_traits>
 
+#include "gemm_ws.cuh"
 #include "mma_chain.cuh"
 #include "staging.cuh"
 
@@ -79,17 +84,17 @@ __host__ __device__ inline size_t align16(size_t x) {
   return (x + 15) & ~static_cast<size_t>(15);
 }
 
-// The operand variants: the tensor-core bodies (bf16 x bf16, W8A16: bf16 A
-// with an int8 B widened to bf16, W8A8: int8 A and B into int32) and the
-// fmaf bodies (f32 x f32, f32 x int8).
+// The operand variants: the tensor-core bodies (bf16 x bf16, gemm_ws.cuh;
+// W8A16: bf16 A with an int8 B widened to bf16; W8A8: int8 A and B into
+// int32) and the fmaf bodies (f32 x f32, f32 x int8).
 enum Variant : int { kVBf16 = 0, kVW8A16 = 1, kVW8A8 = 2, kVF32 = 3,
                      kVF32W8 = 4 };
 
 __host__ __device__ constexpr int a_size(int v) {
   return v == kVW8A8 ? 1 : v >= kVF32 ? 4 : 2;
 }
-__host__ __device__ constexpr int b_size(int v) {
-  return v == kVBf16 ? 2 : v == kVF32 ? 4 : 1;
+__host__ __device__ constexpr int b_size(int v) {  // (not bf16 x bf16)
+  return v == kVF32 ? 4 : 1;
 }
 
 // The W8A8 body transposes its int8 B tile kSub k-rows at a time into the
@@ -311,12 +316,12 @@ gemm_tb_kernel(TbOperands o, TbArgs p) {
 }
 
 // The tensor-core bodies: as gemm_tb_kernel, with the products on the
-// tensor cores.  The tile's cdiv(bm, 16) x cdiv(bn, 8) fragments go to the
-// warps kFN at a time along a 16-row block: warp w owns block w / G,
-// fragments (w % G) kFN .. +kFN of it (G = cdiv(cdiv(bn, 8), kFN)); the
-// host picks the least kFN that needs at most 8 warps (W8A16: an even
-// kFN).  kV: bf16 runs mma_slab on the swizzled panel and B tile; W8A16
-// mma_slab_b8, the same chain on the B tile widened in registers; W8A8
+// tensor cores, for an int8 B (bf16 x bf16 runs gemm_ws.cuh).  The tile's
+// cdiv(bm, 16) x cdiv(bn, 8) fragments go to the warps kFN at a time along
+// a 16-row block: warp w owns block w / G, fragments (w % G) kFN .. +kFN
+// of it (G = cdiv(cdiv(bn, 8), kFN)); the host picks the least kFN that
+// needs at most 8 warps (W8A16: an even kFN).  kV: W8A16 runs
+// mma_slab_b8, mma_slab's chain on the B tile widened in registers; W8A8
 // mma_slab_s8 on the int8 panel and the B tile transposed kSub rows at a
 // time, the partial between chunks int32 (exact, so the chunking changes
 // no value).
@@ -358,9 +363,6 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
             mode_r = (p.modes >> 8) & 3, mode_s = (p.modes >> 10) & 3;
   const size_t tile_b = static_cast<size_t>(p.bk) * bn * b_size(kV);
   const size_t tile_c = static_cast<size_t>(bm) * bn;
-  auto b_tile = [&](int s) {
-    return smem_tile(reinterpret_cast<__nv_bfloat16*>(Bs + s * tile_b), bn);
-  };
   auto b_bytes = [&](int s) {
     return reinterpret_cast<int8_t*>(Bs + s * tile_b);
   };
@@ -389,11 +391,7 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
   auto issue_b = [&](int t, int s) {
     const size_t at = static_cast<size_t>(p.k0) * p.N + t * bn;
     const int cols_valid = min(bn, p.N - t * bn);
-    if constexpr (kV == kVBf16) {
-      const SmemTile bt = b_tile(s);
-      stage_rows<kThreads>(bt.p, bt, static_cast<const __nv_bfloat16*>(o.b) + at,
-                           p.N, kc, bn, kc, cols_valid, mode_b, threadIdx.x);
-    } else if constexpr (kV == kVW8A16) {
+    if constexpr (kV == kVW8A16) {
       stage_rows<kThreads>(b_bytes(s), Swz8{b8_tile(s)},
                            static_cast<const int8_t*>(o.b) + at, p.N, kc16,
                            bn, kc, cols_valid, mode_b, threadIdx.x);
@@ -476,11 +474,7 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
                              : Acc(0);
         }
     }
-    if constexpr (kV == kVBf16) {
-      if (active)
-        mma_slab<1, kFN, true>(acc, Ap, wr, bm - wr, b_tile(s), wc, bn - wc,
-                               kc);
-    } else if constexpr (kV == kVW8A16) {
+    if constexpr (kV == kVW8A16) {
       if (active)
         mma_slab_b8<1, kFN, true>(acc, Ap, wr, bm - wr, b8_tile(s), wc,
                                   kc16);
@@ -524,9 +518,7 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
                        : reinterpret_cast<float*>(Rs)[ri];
             }
             float x = static_cast<float>(acc[0][j][e]);
-            if constexpr (kV != kVBf16)
-              x = dequant(x, o.scale != nullptr ? Scale_s + s * bn : nullptr,
-                          c);
+            x = dequant(x, o.scale != nullptr ? Scale_s + s * bn : nullptr, c);
             x = epilogue(x, o.bias != nullptr,
                          o.bias != nullptr ? Bias_s[s * bn + c] : 0.0f, p.act,
                          o.res != nullptr, rv);
@@ -609,6 +601,126 @@ int launch_tc(const TbOperands& o, const TbArgs& p, size_t smem,
   if (blocks * ((frags + kMaxFrags - 1) / kMaxFrags) <= kWarps)
     return launch_mma<kMaxFrags, kFinal, kV>(o, p, smem, stream);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The bf16 body: gemm_ws.cuh's, at the shape a plan tile maps to.  A tile
+// of at most 16 rows runs the mma.sync form (16 rows, bn rounded up to a
+// power of two from 8 to 256); any other runs one consumer warpgroup on
+// wgmma for up to 64 rows, two for up to 128, at N = 64, 128 or 256 (the
+// least that covers bn).  The columns past bn are loaded, multiplied and
+// not stored.  ws_stages stages of B.
+__host__ __device__ inline int ws_rows(int bm) {
+  return bm <= 16 ? 16 : bm <= 64 ? 64 : 128;
+}
+__host__ __device__ inline int ws_cols(int bm, int bn) {
+  int cols = bm <= 16 ? 8 : 64;
+  while (cols < bn) cols *= 2;
+  return cols;
+}
+__host__ __device__ inline int ws_stages(int bm, int bn) {
+  if (bm > 16) return ws::kTbStages;
+  const int stages = ws::kTbRingBytes / (ws::kBK * ws_cols(bm, bn) * 2);
+  return stages < ws::kTbStages  ? ws::kTbStages
+         : stages > ws::kMaxStages ? ws::kMaxStages
+                                   : stages;
+}
+__host__ __device__ inline size_t ws_smem(int bm, int bk, int bn) {
+  const int rows = ws_rows(bm);
+  const size_t stage = static_cast<size_t>(ws::kBK) * ws_cols(bm, bn) * 2;
+  return static_cast<size_t>((bk + ws::kBK - 1) / ws::kBK) * rows * 128 +
+         ws_stages(bm, bn) * stage + static_cast<size_t>(rows) * bn * 4;
+}
+
+template <typename S, bool kFinal>
+int launch_ws_shape(const TbOperands& o, const TbArgs& t,
+                    cudaStream_t stream) {
+  ws::Args p{};
+  p.M = t.M, p.N = t.N, p.K = t.K, p.k0 = t.k0, p.kc = t.kc, p.bk = t.bk;
+  p.bm = t.bm, p.bn = t.bn, p.tiles_per_cta = t.tiles_per_cta;
+  p.stages = ws_stages(t.bm, t.bn);
+  p.act = t.act, p.out_dtype = t.out_dtype, p.res_dtype = t.res_dtype;
+  p.mode_a = t.modes & 3, p.mode_b = (t.modes >> 2) & 3;
+  p.mode_c = (t.modes >> 4) & 3;
+  const ws::Operands w{static_cast<const __nv_bfloat16*>(o.a),
+                       static_cast<const __nv_bfloat16*>(o.b),
+                       static_cast<const float*>(o.cin),
+                       kFinal ? o.c : o.cacc,
+                       o.bias,
+                       o.res,
+                       o.out_scale};
+  return ws::launch<S, true, kFinal>(w, p, stream);
+}
+
+// The shapes (one consumer warpgroup, two, and the mma.sync form), compiled
+// in three translation units that build in parallel: gemm_tb_ws1.cu,
+// gemm_tb_ws2.cu and gemm_tb_wsd.cu.
+using Ws1x64 = ws::Shape<1, 64, 0>;
+using Ws1x128 = ws::Shape<1, 128, 0>;
+using Ws1x256 = ws::Shape<1, 256, 0>;
+using Ws2x64 = ws::Shape<2, 64, 0>;
+using Ws2x128 = ws::Shape<2, 128, 0>;
+using Ws2x256 = ws::Shape<2, 256, 0>;
+using WsM8 = ws::Shape<1, 8, 0, true>;
+using WsM16 = ws::Shape<1, 16, 0, true>;
+using WsM32 = ws::Shape<1, 32, 0, true>;
+using WsM64 = ws::Shape<1, 64, 0, true>;
+using WsM128 = ws::Shape<1, 128, 0, true>;
+using WsM256 = ws::Shape<1, 256, 0, true>;
+#define REPRO_TB_WS_EXTERN(S)                                             \
+  extern template int launch_ws_shape<S, false>(const TbOperands&,       \
+                                                const TbArgs&,           \
+                                                cudaStream_t);           \
+  extern template int launch_ws_shape<S, true>(const TbOperands&,        \
+                                               const TbArgs&, cudaStream_t);
+REPRO_TB_WS_EXTERN(Ws1x64)
+REPRO_TB_WS_EXTERN(Ws1x128)
+REPRO_TB_WS_EXTERN(Ws1x256)
+REPRO_TB_WS_EXTERN(Ws2x64)
+REPRO_TB_WS_EXTERN(Ws2x128)
+REPRO_TB_WS_EXTERN(Ws2x256)
+REPRO_TB_WS_EXTERN(WsM8)
+REPRO_TB_WS_EXTERN(WsM16)
+REPRO_TB_WS_EXTERN(WsM32)
+REPRO_TB_WS_EXTERN(WsM64)
+REPRO_TB_WS_EXTERN(WsM128)
+REPRO_TB_WS_EXTERN(WsM256)
+#undef REPRO_TB_WS_EXTERN
+#define REPRO_TB_WS_DEFINE(S)                                             \
+  template int launch_ws_shape<S, false>(const TbOperands&, const TbArgs&, \
+                                         cudaStream_t);                  \
+  template int launch_ws_shape<S, true>(const TbOperands&, const TbArgs&,  \
+                                        cudaStream_t);
+
+template <bool kFinal>
+int launch_ws(const TbOperands& o, const TbArgs& p, cudaStream_t s) {
+  if (p.bm < 1 || p.bm > 128 || p.bn < 1 || p.bn > 256)
+    return static_cast<int>(cudaErrorInvalidValue);
+  switch (ws_rows(p.bm) * 1000 + ws_cols(p.bm, p.bn)) {
+    case 16008:
+      return launch_ws_shape<WsM8, kFinal>(o, p, s);
+    case 16016:
+      return launch_ws_shape<WsM16, kFinal>(o, p, s);
+    case 16032:
+      return launch_ws_shape<WsM32, kFinal>(o, p, s);
+    case 16064:
+      return launch_ws_shape<WsM64, kFinal>(o, p, s);
+    case 16128:
+      return launch_ws_shape<WsM128, kFinal>(o, p, s);
+    case 16256:
+      return launch_ws_shape<WsM256, kFinal>(o, p, s);
+    case 64064:
+      return launch_ws_shape<Ws1x64, kFinal>(o, p, s);
+    case 64128:
+      return launch_ws_shape<Ws1x128, kFinal>(o, p, s);
+    case 64256:
+      return launch_ws_shape<Ws1x256, kFinal>(o, p, s);
+    case 128064:
+      return launch_ws_shape<Ws2x64, kFinal>(o, p, s);
+    case 128128:
+      return launch_ws_shape<Ws2x128, kFinal>(o, p, s);
+    default:
+      return launch_ws_shape<Ws2x256, kFinal>(o, p, s);
+  }
 }
 
 // The int8 bodies are compiled in their own translation units

@@ -67,7 +67,8 @@ from repro_torch.tune import measure as _tune_measure
 from repro_torch.tune.cache import device_mode
 from repro_torch.core import dse, op_cost
 from repro_torch.core.bandwidth import TrafficEstimate, estimate
-from repro_torch.core.hardware import HOPPER_H100
+from repro_torch.core.hardware import HOPPER_H100, ws_tb_stages, \
+    ws_tb_tile
 from repro_torch.core.memory_model import VmemFootprint, budget_bytes, \
     fits_vmem, vmem_efficiency, vmem_footprint
 from repro_torch.core.tiling import STRATEGIES, GemmProblem, TileConfig, \
@@ -258,6 +259,8 @@ def gemm_grouped_shapes(a, b, dense_rows: Optional[int] = None
 # GemmPlan and the plan cache
 # ---------------------------------------------------------------------------
 
+#: the warp-specialised bf16 body of B1 and B6
+_WS_SOURCE = "src/repro_torch/csrc/gemm_ws.cuh"
 #: what each kernel is, for explain(): (kernel, source, the (bm, bk, bn)
 #: CTA tile it launches whatever the plan's tile says — B1's and B2's by
 #: (m, n) and the operand dtypes, B7's by rows per expert — or None when
@@ -367,6 +370,10 @@ class GemmPlan:
         any fallback happened."""
         s, p, t = self.spec, self.problem, self.tile
         name, src, cta = _KERNELS[self.kernel]
+        ws = self.kernel in ("aie", "tb") and p.a_dtype == p.b_dtype \
+            == "bfloat16"
+        if ws:      # B1's and B6's bf16 body
+            src = _WS_SOURCE
         gm, gn, gk = t.grid(p)
         if self.kernel == "tb":
             chunks = cdiv(self.k, self.chunk_bk)
@@ -375,6 +382,14 @@ class GemmPlan:
                    "each CTA keeps a (bm x chunk) A panel in shared memory "
                    "and sweeps its share of the n tiles (the panel re-read "
                    "per CTA hits L2; the model bills A once)")
+            if ws:
+                rows, cols = ws_tb_tile(t.bm, t.bn)
+                form = ("the mma.sync form, up to 8 consumer warps"
+                        if rows < 64 else
+                        f"{rows // 64} consumer warpgroup(s) on wgmma")
+                how += (f"; launches a {rows}x{cols} CTA ({form}) of "
+                        "the warp-specialised body, "
+                        f"{ws_tb_stages(t.bm, t.bn)} TMA stages of B")
         else:
             cta = cta(self, getattr(torch, p.a_dtype),
                       getattr(torch, p.b_dtype))
@@ -534,11 +549,11 @@ def _infeasible_reason(tile: TileConfig, p: GemmProblem,
         return (f"a ({tile.bm}, {tile.bn}) C tile is larger than any CTA "
                 "tile kernel B7 launches (bm <= 64, bn <= 128)")
     if tile.strategy == "tb":
-        if not chip.launchable(tile.bm, tile.bn):
+        if not chip.launchable(tile.bm, tile.bn, p.a_dtype, p.b_dtype):
             return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
-                    "kernel B6's 256 threads (bn <= 256; bf16: at most 4 "
-                    "m16 x n8 fragments a warp, f32: at most 16 rows a "
-                    "thread)")
+                    "kernel B6's CTAs (bf16: at most 128 x 256; int8 and "
+                    "f32 B: 256 threads, bn <= 256, at most 4 m16 x n8 "
+                    "fragments a warp and 16 rows a thread)")
         if feasible_bk(round_up(p.m, tile.bm), round_up(p.k, tile.bk),
                            round_up(p.n, tile.bn), tile, p.a_dtype,
                            p.b_dtype, p.out_dtype, _acc_name(p.a_dtype),
@@ -617,7 +632,8 @@ def _resolve(spec: GemmSpec, m: int, k: int, n: int, chip=HOPPER_H100,
             else:
                 tile = cand
     if tile is None:
-        designs = dse.solve(problem, chip)
+        designs = dse.solve(problem, chip,
+                            top=chip.pinned_top if spec.strategy else 10)
         chosen = next((d for d in designs
                        if spec.strategy in (None, d.tile.strategy)), None)
         if chosen is None:

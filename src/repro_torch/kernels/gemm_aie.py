@@ -6,16 +6,18 @@ CUDA kernel ``csrc/gemm_aie.cu``.  On an H100 the serving-path calls are
 bound by the bytes of the weight matrix (few rows, B read once); the
 kernel keeps the epilogue on its register flush so C is written once,
 and walks k in a fixed order so a row's bits do not depend on the batch:
-bf16 operands run the m16n8k16 tensor-core chain of
-``csrc/mma_chain.cuh`` (shared with kernel B6) at a CTA shape
+bf16 operands run the warp-specialised, TMA-fed wgmma body of
+``csrc/gemm_ws.cuh`` (shared with kernel B6) at a CTA shape
 :func:`cta_tile` picks by m and n, f32 operands an fmaf chain.
 
-The int8 paths run the same CTA shapes: W8A16 (a bf16 or f32 A
-against an int8 weight, widened to bf16 in shared memory once each slab
-lands, its per-column scale on
-the flush; bit for bit the bf16 body on the widened weights, then the
-scale), W8A8 (int8 A and B on the int8 tensor cores, int32 sums), and
-an int8 C quantized on the flush by ``out_scale``.
+The int8 paths keep the sm_80 body (``cp.async`` stages, the mma.sync
+m16n8k16 chain of ``csrc/mma_chain.cuh``, whose bits wgmma's chain
+gives too) at their own CTA shapes (:data:`INT8_TILES`): W8A16 (a bf16
+or f32 A against an int8 weight, widened to bf16 in shared memory once
+each slab lands, its per-column scale on the flush; bit for bit the
+bf16 body on the widened weights, then the scale), W8A8 (int8 A and B
+on the int8 tensor cores, int32 sums), and an int8 C quantized on the
+flush by ``out_scale``.
 
 Dispatch goes by device: a CPU tensor takes :func:`gemm_aie_plain`, a
 meta tensor (a dry-run's trace, which has no data) gets an empty C of
@@ -43,42 +45,88 @@ from repro_torch.kernels.ref import gemm_epilogue_ref, gemm_ref
 #: kBN)
 F32_TILE = (16, 128, 32)
 #: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
-#: entry point takes (csrc/gemm_aie.cu launch_bf16): one 16-row fragment
-#: and 8, 32 or 64 columns for few rows, 64 x 64 for more
-BF16_TILES = {1: (16, 128, 8), 2: (16, 128, 32), 3: (16, 128, 64),
-              4: (64, 64, 64)}
-#: the same CTA shapes with an int8 B (W8A16, W8A8): slabs twice as deep,
-#: so a stage holds as many bytes of B
-INT8_TILES = {c: (bm, 2 * bk, bn) for c, (bm, bk, bn) in BF16_TILES.items()}
+#: entry point takes (csrc/gemm_aie_ws.cu; bk the stage depth): for few
+#: rows the swapped wgmma form 16 x 64 (1) and the mma.sync form 16 x 8,
+#: 16, 32 or 64 (6 .. 9); for more, wgmma at 64 x 64, 64 x 128, 128 x 128
+#: and 128 x 256 (2 .. 5)
+BF16_TILES = {1: (16, 64, 64), 2: (64, 64, 64), 3: (64, 64, 128),
+              4: (128, 64, 128), 5: (128, 64, 256), 6: (16, 64, 8),
+              7: (16, 64, 16), 8: (16, 64, 32), 9: (16, 64, 64)}
+#: the ring stages each bf16 shape keeps (csrc/gemm_aie_ws.cu)
+BF16_STAGES = {1: 8, 2: 6, 3: 4, 4: 6, 5: 4, 6: 16, 7: 16, 8: 16, 9: 16}
+#: the CTA tiles of the int8 bodies (csrc/gemm_aie.cu launch_tc): one
+#: 16-row fragment and 8, 32 or 64 columns for few rows, 64 x 64 for more
+INT8_TILES = {1: (16, 256, 8), 2: (16, 256, 32), 3: (16, 256, 64),
+              4: (64, 128, 64)}
+#: their ring stages
+INT8_STAGES = {1: 8, 2: 8, 3: 4, 4: 4}
 
 _ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
 
 
-def _config(m: int, n: int, dtype) -> int:
-    """The tensor-core body's CTA shape for an (m, n) C with A of
-    ``dtype`` (0: the f32 body).  bf16 and int8 A (every int8 variant)
-    run the same shapes.  With m <= 16 rows the widest n split that
-    still gives 7 of every 8 SMs a CTA (one SM streams only a share of
-    the card's memory rate, so the decode GEMMs spread their weights
-    over as many SMs as n / 8 allows); with more rows 64 x 64."""
+def _config(m: int, n: int, dtype, b_dtype=None) -> int:
+    """The tensor-core CTA shape for an (m, n) C with A of ``dtype`` and
+    B of ``b_dtype`` (default A's); 0: the f32 body.  With m <= 16 rows
+    the widest n split that still gives 7 of every 8 SMs a CTA (one SM
+    streams only a share of the card's memory rate, so the decode GEMMs
+    spread their weights over as many SMs as n / 8 allows): bf16 x bf16
+    the mma.sync form of :data:`BF16_TILES` at 8, 16 or 32 columns, or,
+    where 64 would do, the swapped wgmma form; an int8 operand
+    :data:`INT8_TILES`.  With more rows bf16 takes the largest wgmma
+    tile whose CTAs still give every SM one, else 64 x 64; int8 64 x
+    64."""
     if dtype not in (torch.bfloat16, torch.int8):
         return 0
+    sms = HOPPER_H100.sm_count
+    bf16 = torch.int8 not in (dtype, b_dtype)
     if m > 16:
-        return 4
-    for config in (3, 2):
-        if 8 * cdiv(n, BF16_TILES[config][2]) >= 7 * HOPPER_H100.sm_count:
-            return config
-    return 1
+        if not bf16:
+            return 4
+        for config in (5, 4, 3):
+            bm, _, bn = BF16_TILES[config]
+            if cdiv(m, bm) * cdiv(n, bn) >= sms:
+                return config
+        return 2
+    tiles, split = (BF16_TILES, (9, 8, 7)) if bf16 else (INT8_TILES, (3, 2))
+    for config in split:
+        if 8 * cdiv(n, tiles[config][2]) >= 7 * sms:
+            # at 64 columns a CTA the swapped wgmma form runs faster on
+            # the card, narrower the mma.sync form (PERF.md §6,
+            # chip_smoke.py decode_form_phase)
+            return 1 if config == 9 else config
+    return 6 if bf16 else 1
 
 
 def cta_tile(m: int, n: int, dtype=torch.bfloat16, b_dtype=None):
     """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C
     with A of ``dtype`` and B of ``b_dtype`` (default A's)."""
-    config = _config(m, n, dtype)
+    config = _config(m, n, dtype, b_dtype)
     if not config:
         return F32_TILE
     return (INT8_TILES if torch.int8 in (dtype, b_dtype)
             else BF16_TILES)[config]
+
+
+def cta_smem_bytes(m: int, n: int, dtype=torch.bfloat16,
+                   b_dtype=None) -> int:
+    """Shared memory one CTA takes at the shape :func:`cta_tile` picks:
+    the bf16 body's ring of stages, each A's (bm x 64) slab and B's
+    panels (``csrc/gemm_ws.cuh`` ``smem_bytes``), and its barriers'
+    1 KiB; the int8
+    bodies' ring of A and B slabs and the converted B slab
+    (``csrc/gemm_aie.cu`` ``MmaShape::smem``); the f32 body's two
+    static tiles."""
+    config = _config(m, n, dtype, b_dtype)
+    if not config:
+        bm, bk, bn = F32_TILE
+        return (bm * bk + bk * bn) * 4
+    if torch.int8 not in (dtype, b_dtype):
+        bm, bk, bn = BF16_TILES[config]
+        return BF16_STAGES[config] * bk * (bm + bn) * 2 + 1024
+    bm, bk, bn = INT8_TILES[config]
+    a_size = 1 if dtype == torch.int8 else 2
+    return (INT8_STAGES[config] * (bm * bk * a_size + bk * bn)
+            + bk * bn * a_size)
 
 
 def default_out_dtype(a_dtype, *, fused: bool, out_scale=None):
@@ -228,7 +276,7 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
     bias32 = bias.reshape(n).float().contiguous() if bias is not None \
         else None
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    config, modes = _config(m, n, a.dtype), 0
+    config, modes = _config(m, n, a.dtype, b.dtype), 0
     if config:  # the tensor-core body's staging copy modes of A and B
         _, bk, bn = cta_tile(m, n, a.dtype, b.dtype)
         modes = _build.copy_mode(a, k, bk) | _build.copy_mode(b, n, bn) << 2

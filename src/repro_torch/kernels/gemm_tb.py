@@ -230,11 +230,12 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
     bk = _chunk(a, b, tile, out_dtype, bias, activation, residual,
                 out_scale)
     bm, bn = tile.bm, tile.bn
-    if not HOPPER_H100.launchable(bm, bn):
+    if not HOPPER_H100.launchable(bm, bn, dtype_name(a.dtype),
+                                  dtype_name(b.dtype)):
         raise ValueError(f"gemm_tb: a ({bm}, {bn}) C tile does not map "
-                         "onto the kernel's 256 threads (bn <= 256; bf16: "
-                         "at most 4 m16 x n8 fragments a warp, f32: at "
-                         "most 16 rows a thread)")
+                         "onto the kernel's CTAs (bf16: at most 128 x 256; "
+                         "int8 and f32 B: 256 threads, bn <= 256, at most 4 "
+                         "m16 x n8 fragments a warp and 16 rows a thread)")
     if a.dtype == torch.bfloat16 and bk < k:
         # the chunks continue one tensor-core chain: boundaries on its k-grid
         bk = max(MMA_K, bk - bk % MMA_K)

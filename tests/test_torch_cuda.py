@@ -74,6 +74,12 @@ QWEN3_DENSE = [(m, k, n) for m in (8, 300)
     # unchanged), 12- and 16-token prompts included
     + [(m, k, n, torch.bfloat16) for m, k, n in
        QWEN3_DENSE + [(12, 4096, 512), (16, 8192, 4096)]]
+    # the warp-specialised body's CTA shapes: 64 x 128 (200 x 8192) and,
+    # at smollm-360m's training shapes (b 8 x s 512), 128 x 128
+    # (n 960) and 128 x 256 (n 2560, 49152)
+    + [(m, k, n, torch.bfloat16) for m, k, n in
+       [(200, 960, 8192), (4096, 960, 960), (4096, 2560, 960),
+        (4096, 960, 2560), (4096, 960, 49152)]]
     # the f32 body at qwen3-moe's router shape, k = 4096
     + [(8, 4096, 128, torch.float32)])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+silu",
@@ -585,6 +591,13 @@ def _tb_operands(m, k, n, dtype, epi, device, seed=0):
         (300, 4096, 8192, (128, 512, 32)),  # wq in prefill
         (300, 4096, 512, (128, 512, 32)),  # wk/wv in prefill
         (300, 8192, 4096, (64, 512, 32)),  # wo + residual in prefill
+        # the warp-specialised body's large and swapped shapes, at
+        # smollm-360m's training shapes and its decode lm_head
+        (4096, 960, 2560, (128, 256, 128)),
+        (4096, 2560, 960, (64, 256, 256)),
+        (4096, 960, 960, (128, 256, 128)),
+        (8, 960, 49152, (16, 512, 256)),
+        (300, 960, 960, (16, 1024, 128)),
     ]])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+silu", "f32out"])
 def test_gemm_tb_kernel_matches_plain(cuda_device, m, k, n, tile, dtype,
@@ -597,7 +610,8 @@ def test_gemm_tb_kernel_matches_plain(cuda_device, m, k, n, tile, dtype,
 
 @pytest.mark.parametrize("m,k,n", [(8, 960, 320), (8, 2560, 960),
                                    (12, 960, 320), (300, 960, 960),
-                                   (5, 131, 77), (300, 4096, 512)])
+                                   (5, 131, 77), (300, 4096, 512),
+                                   (4096, 960, 2560)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epi", ["none", "residual", "bias+gelu+res",
                                  "f32out"])
@@ -605,11 +619,14 @@ def test_gemm_tb_equals_gemm_aie_bitwise(cuda_device, m, k, n, dtype, epi):
     """Both dataflows run one chain over k in order per element (the
     tensor-core chain for bf16, the fmaf chain for f32) and the same
     flush, so B6 == B1 bit for bit at any tile (1, 2 and >= 4 k-chunks
-    here) and any split of the n sweep over CTAs."""
+    here; in bf16 also the warp-specialised body's 128 x 128, 64 x 256
+    and swapped 16 x 256 CTAs) and any split of the n sweep over CTAs."""
     a, w, kw = _tb_operands(m, k, n, dtype, epi, cuda_device, seed=7)
     want = gemm_aie(a, w, **kw)
-    for tile in ((8, 1024, 256), (16, 512, 64), (64, 128, 32),
-                 (8, 32, 128)):
+    tiles = [(8, 1024, 256), (16, 512, 64), (64, 128, 32), (8, 32, 128)]
+    if dtype == torch.bfloat16:     # the warp-specialised body's large
+        tiles += [(128, 256, 128), (64, 256, 256), (16, 512, 256)]
+    for tile in tiles:
         t = TileConfig(*tile, "tb")
         for split in (None, 1, 3):
             got = gemm_tb(a, w, tile=t, n_split_tiles=split, **kw)
@@ -636,7 +653,10 @@ def test_gemm_tb_launch_counters_follow_the_plan(cuda_device):
 @pytest.mark.parametrize("tile,epi,dtype", [
     ((8, 512, 32), "", "bfloat16"), ((128, 512, 32), "", "bfloat16"),
     ((64, 512, 32), "res", "bfloat16"), ((16, 256, 64), "bias+silu+res",
-                                         "float32")])
+                                         "float32"),
+    # the warp-specialised body's large and swapped CTAs
+    ((128, 256, 128), "res", "bfloat16"), ((64, 256, 256), "", "bfloat16"),
+    ((16, 512, 256), "bias+silu+res", "bfloat16")])
 def test_gemm_tb_smem_is_the_modeled_footprint(cuda_device, tile, epi,
                                                dtype):
     t = TileConfig(*tile, "tb")
@@ -648,12 +668,41 @@ def test_gemm_tb_smem_is_the_modeled_footprint(cuda_device, tile, epi,
 
 
 def test_gemm_tb_refuses_what_it_cannot_launch(cuda_device):
-    a = _randn((64, 960), torch.bfloat16, cuda_device, 0)
-    w = _randn((960, 320), torch.bfloat16, cuda_device, 1)
+    a = _randn((64, 960), torch.float32, cuda_device, 0)
+    w = _randn((960, 320), torch.float32, cuda_device, 1)
     with pytest.raises(ValueError, match="256 threads"):
         gemm_tb(a, w, tile=TileConfig(64, 128, 256, "tb"))
     with pytest.raises(ValueError, match="infeasible"):
         ops.gemm(a, w, tile=TileConfig(64, 128, 256, "tb"))
+    # bf16: the warp-specialised body covers at most 128 x 256
+    a16, w16 = a.to(torch.bfloat16), w.to(torch.bfloat16)
+    with pytest.raises(ValueError, match="128 x 256"):
+        gemm_tb(a16, w16, tile=TileConfig(256, 128, 64, "tb"))
+
+
+def test_hopper_probe_finds_wgmma_keeps_the_chain_bits(cuda_device,
+                                                      tmp_path):
+    """tools/hopper_probe.cu probe 4, built and run here: wgmma m64nNk16,
+    unswapped and with the roles swapped, gives the mma.sync m16n8k16
+    chain's f32 bits, from zero and from a non-zero C; the premise on
+    which B1 and B6 run wgmma while B2, B7 and the int8 W8A16 bodies keep
+    mma.sync, and every bitwise gate between them holds."""
+    import pathlib
+    import subprocess
+    from repro_torch.kernels import _build
+    root = pathlib.Path(__file__).resolve().parents[1]
+    exe = tmp_path / "hopper_probe"
+    subprocess.run([_build._nvcc(), *_build.ARCH_FLAGS, "-std=c++17",
+                    "-O3", "-o", str(exe),
+                    str(root / "tools" / "hopper_probe.cu")], check=True)
+    out = subprocess.run([str(exe)], capture_output=True, text=True,
+                         check=True).stdout
+    verdict = [ln for ln in out.splitlines()
+               if ln.startswith("probe 4 verdict")]
+    assert verdict == ["probe 4 verdict: (a) within 1e-5 of float64: yes; "
+                       "(b) wgmma == mma.sync chain bit for bit: yes (0 "
+                       "elements differ); (c) swapped wgmma == chain: yes "
+                       "(0 differ)"], out
 
 
 # ---------------------------------------------------------------------------

@@ -110,12 +110,12 @@ HOPPER_PLANS = {
     8: {"wq": ("aie", 8, 32, 256), "wk": ("aie", 8, 32, 64),
         "wo": ("aie", 8, 32, 256), "gate_up": ("aie", 8, 32, 256),
         "down": ("tb", 8, 512, 32), "lm_head": ("aie", 8, 32, 256)},
-    300: {"wq": ("tb", 128, 512, 32), "wk": ("tb", 128, 512, 32),
-          "wo": ("tb", 64, 512, 32), "gate_up": ("aie", 64, 32, 64),
-          "down": ("tb", 64, 512, 32), "lm_head": ("tb", 128, 512, 32)},
-    1024: {"wq": ("tb", 128, 512, 32), "wk": ("tb", 128, 512, 32),
-           "wo": ("tb", 128, 256, 32), "gate_up": ("aie", 64, 32, 64),
-           "down": ("tb", 128, 256, 32), "lm_head": ("tb", 128, 512, 32)},
+    300: {"wq": ("aie", 128, 32, 256), "wk": ("tb", 128, 512, 64),
+          "wo": ("aie", 128, 32, 256), "gate_up": ("aie", 64, 32, 64),
+          "down": ("aie", 128, 32, 256), "lm_head": ("aie", 128, 32, 256)},
+    1024: {"wq": ("aie", 128, 32, 256), "wk": ("tb", 128, 512, 64),
+           "wo": ("aie", 128, 32, 256), "gate_up": ("aie", 64, 32, 64),
+           "down": ("aie", 128, 32, 256), "lm_head": ("aie", 128, 32, 256)},
 }
 SERVE_SPECS = {
     "wq": (D, D, {}), "wk": (D, 320, {}),
@@ -136,14 +136,15 @@ def test_hopper_plans_of_the_serve_shapes_are_pinned(m):
 @pytest.mark.parametrize("m", [1, 8, 300, 1024])
 def test_every_hopper_candidate_fits_and_launches(m):
     """Every design the search ranks on HOPPER_H100 fits one CTA's
-    227 KiB and is a (bm, bn) tile kernel B6 launches."""
+    227 KiB and is a (bm, bn) tile kernel B6 launches for its dtypes."""
     for name, (k, n, kw) in SERVE_SPECS.items():
         spec = api.GemmSpec(**kw)
-        for d in t_dse.solve(api._problem_for(spec, m, k, n), HOPPER_H100,
-                             top=10_000):
+        p = api._problem_for(spec, m, k, n)
+        for d in t_dse.solve(p, HOPPER_H100, top=10_000):
             assert d.vmem_bytes <= 227 * 1024 == HOPPER_H100.vmem_bytes
-            assert HOPPER_H100.launchable(d.tile.bm, d.tile.bn), d.tile
-            assert d.tile.mxu_aligned(HOPPER_H100)
+            assert HOPPER_H100.launchable(d.tile.bm, d.tile.bn, p.a_dtype,
+                                          p.b_dtype), d.tile
+            assert d.tile.mxu_aligned(HOPPER_H100, p)
 
 
 def test_search_is_memoized_per_sheet():

@@ -195,8 +195,13 @@ def test_plans_target_the_hopper_sheet():
 
 
 @pytest.mark.parametrize("spec,shape,kernel,source", [
-    ({}, (8, D, 320), "B1 gemm_aie", "csrc/gemm_aie.cu"),
-    ({"strategy": "tb"}, (8, D, 320), "B6 gemm_tb", "csrc/gemm_tb.cu"),
+    # bf16 B1 and B6 run the warp-specialised body
+    ({}, (8, D, 320), "B1 gemm_aie", "csrc/gemm_ws.cuh"),
+    ({"strategy": "tb"}, (8, D, 320), "B6 gemm_tb", "csrc/gemm_ws.cuh"),
+    ({"a_dtype": "float32", "b_dtype": "float32", "strategy": "aie"},
+     (8, D, 320), "B1 gemm_aie", "csrc/gemm_aie.cu"),
+    ({"a_dtype": "float32", "b_dtype": "float32", "strategy": "tb"},
+     (8, D, 320), "B6 gemm_tb", "csrc/gemm_tb.cu"),
     ({"gated": True, "epilogue": "silu"}, (8, D, FF), "B2 gemm_gated",
      "csrc/gemm_gated.cu"),
 ])
@@ -308,8 +313,12 @@ def test_tuned_specs_plan_without_a_card(make, monkeypatch, tmp_path):
 
 def test_explicit_unlaunchable_tb_tile_raises_at_plan_time():
     with pytest.raises(ValueError, match="infeasible.*256 threads"):
-        ops.plan(ops.GemmSpec(tile=TileConfig(64, 128, 256, "tb")),
+        ops.plan(ops.GemmSpec(a_dtype="float32", b_dtype="float32",
+                              tile=TileConfig(64, 128, 256, "tb")),
                  (64, D, 320))
+    with pytest.raises(ValueError, match="infeasible.*128 x 256"):
+        ops.plan(ops.GemmSpec(tile=TileConfig(256, 128, 64, "tb")),
+                 (256, D, 320))
 
 
 def test_one_shot_repeat_builds_no_spec(monkeypatch):
@@ -393,22 +402,48 @@ if __name__ == "__main__":
 
 
 @pytest.mark.parametrize("m,n,dtype,tile", [
-    (8, 960, "bfloat16", (16, 128, 8)),      # 120 CTAs of one n8 fragment
-    (8, 320, "bfloat16", (16, 128, 8)),
-    (8, 4096, "bfloat16", (16, 128, 32)),    # 128 CTAs
-    (8, 49152, "bfloat16", (16, 128, 64)),
-    (300, 960, "bfloat16", (64, 64, 64)),
+    (8, 960, "bfloat16", (16, 64, 8)),       # mma.sync form, 120 CTAs
+    (8, 2560, "bfloat16", (16, 64, 16)),     # 160 CTAs
+    (8, 4096, "bfloat16", (16, 64, 32)),     # 128 CTAs
+    (16, 49152, "bfloat16", (16, 64, 64)),   # 64 columns: the swapped form
+    (17, 960, "bfloat16", (64, 64, 64)),     # 15 CTAs: the most there are
+    (300, 960, "bfloat16", (64, 64, 64)),    # 75 CTAs
+    (300, 8192, "bfloat16", (128, 64, 128)),  # 192 CTAs
+    (1024, 4096, "bfloat16", (128, 64, 128)),  # 128 x 256 gives 128
+    (4096, 960, "bfloat16", (128, 64, 128)),  # training: 256 CTAs
+    (4096, 2560, "bfloat16", (128, 64, 256)),  # 320 CTAs
+    (300, 2560, "bfloat16", (64, 64, 64)),   # 64 x 128 gives 100 < 132
     (8, 960, "float32", (16, 128, 32)),      # the f32 fmaf body
 ])
 def test_b1_cta_tile_follows_m_n_and_dtype(m, n, dtype, tile):
-    """B1 launches one 16-row fragment and the widest n split that still
-    reaches 7 of every 8 SMs for few rows, 64 x 64 for more; explain()
-    names the tile it launches."""
+    """B1's bf16 body launches, for few rows, the mma.sync form at the
+    widest of 32 and 16 columns a CTA that still reaches 7 of every 8
+    SMs, else 8, and the swapped wgmma form where 64 would; for more rows,
+    the largest of 128 x 256, 128 x 128 and 64 x 128 whose CTAs still give
+    every SM one, else 64 x 64; explain() names the tile it launches."""
     from repro_torch.kernels.gemm_aie import cta_tile
     assert cta_tile(m, n, getattr(torch, dtype)) == tile
     pl = ops.plan(ops.GemmSpec(a_dtype=dtype, b_dtype=dtype,
                                strategy="aie"), (m, D, n))
     assert "launches its compiled {}x{}x{}".format(*tile) in pl.explain()
+
+
+@pytest.mark.parametrize("m,n,b_dtype,tile", [
+    (8, 960, "int8", (16, 256, 8)),       # 120 CTAs of one n8 fragment
+    (8, 4096, "int8", (16, 256, 32)),     # 128 CTAs
+    (8, 49152, "int8", (16, 256, 64)),
+    (300, 960, "int8", (64, 128, 64)),
+])
+def test_b1_int8_cta_tile_keeps_the_int8_bodies(m, n, b_dtype, tile):
+    """An int8 B (W8A16) keeps the int8 bodies' shapes: one 16-row
+    fragment and the widest n split that still reaches 7 of every 8 SMs
+    for few rows, 64 x 64 for more, slabs twice as deep as bf16 ones."""
+    from repro_torch.kernels.gemm_aie import cta_smem_bytes, cta_tile
+    assert cta_tile(m, n, torch.bfloat16, getattr(torch, b_dtype)) == tile
+    bm, bk, bn = tile
+    stages = 8 if bm == 16 and bn < 64 else 4
+    assert cta_smem_bytes(m, n, torch.bfloat16, torch.int8) == \
+        stages * (2 * bm * bk + bk * bn) + 2 * bk * bn
 
 
 @pytest.mark.parametrize("m,n,dtype,tile", [

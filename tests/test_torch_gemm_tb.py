@@ -193,18 +193,24 @@ from repro_torch.core.hardware import HOPPER_H100  # noqa: E402
 from repro_torch.kernels.gemm_tb import n_split  # noqa: E402
 
 
-@pytest.mark.parametrize("bm,bn,ok", [
-    (8, 256, True), (16, 256, True),     # one 16-row block, 32 fragments
-    (32, 128, True), (64, 64, True),     # 4 fragments a warp
-    (128, 32, True), (8, 16, True),
-    (80, 48, False),   # f32 body fits (16 rows a thread), 10 warps needed
-    (32, 256, False),  # both bodies refuse
-    (64, 128, False)])
-def test_launchable_needs_both_bodies_of_b6(bm, bn, ok):
-    """A tile is launchable when B6's bf16 body (at most 4 m16 x n8
-    fragments of one 16-row block a warp, 8 warps) and its f32 body (one
-    column a thread, at most 16 rows) both cover it."""
-    assert HOPPER_H100.launchable(bm, bn) is ok
+@pytest.mark.parametrize("bm,bn,dtype,ok", [
+    (8, 256, "float32", True), (16, 256, "float32", True),  # 32 fragments
+    (32, 128, "float32", True), (64, 64, "int8", True),   # 4 a warp
+    (128, 32, "float32", True), (8, 16, "int8", True),
+    (80, 48, "float32", False),  # 16 rows a thread fit, 10 warps needed
+    (32, 256, "int8", False),    # both 256-thread bodies refuse
+    (64, 128, "float32", False),
+    # bf16 x bf16: the warp-specialised body takes up to 128 x 256
+    (64, 128, "bfloat16", True), (128, 256, "bfloat16", True),
+    (80, 48, "bfloat16", True), (8, 16, "bfloat16", True),
+    (129, 64, "bfloat16", False), (64, 257, "bfloat16", False)])
+def test_launchable_needs_both_bodies_of_b6(bm, bn, dtype, ok):
+    """A bf16 x bf16 tile is launchable when B6's warp-specialised body
+    covers it (at most 128 rows and 256 columns); any other when both of
+    its 256-thread bodies do (the int8 tensor-core one: at most 4 m16 x n8
+    fragments of one 16-row block a warp, 8 warps; the f32 one: one
+    column a thread, at most 16 rows)."""
+    assert HOPPER_H100.launchable(bm, bn, dtype, dtype) is ok
 
 
 @pytest.mark.parametrize("gm,n_tiles,smem,want", [
@@ -221,3 +227,102 @@ def test_n_split_gives_each_sm_what_its_shared_memory_holds(gm, n_tiles,
     ctas = -(-n_tiles // per) * gm
     per_sm = max(1, HOPPER_H100.vmem_bytes // smem)
     assert ctas <= per_sm * HOPPER_H100.sm_count + gm
+
+
+# ---------------------------------------------------------------------------
+# B6's warp-specialised bf16 body on the Hopper sheet (host side)
+# ---------------------------------------------------------------------------
+
+import re  # noqa: E402
+
+from repro_torch import ops  # noqa: E402
+from repro_torch.core import memory_model  # noqa: E402
+from repro_torch.core.hardware import TPU_V5E, ws_tb_tile  # noqa: E402
+from repro_torch.core.tiling import GemmProblem as TGemmProblem  # noqa
+from repro_torch.kernels import _build  # noqa: E402
+
+
+def _csrc_int(name: str, path: str) -> int:
+    """``constexpr int name = <int>;`` from a CUDA source of the port."""
+    text = (_build.CSRC_DIR / path).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+def test_ws_constants_are_the_kernels():
+    """The footprint model's stage depth, ring sizes and static bytes are
+    the ones csrc/gemm_ws.cuh compiles."""
+    from repro_torch.core import hardware as hw
+    assert memory_model.WS_BK == _csrc_int("kBK", "gemm_ws.cuh") == 64
+    assert hw.B6_WS_STAGES == _csrc_int("kTbStages", "gemm_ws.cuh")
+    assert hw.B6_WS_RING_BYTES == _csrc_int("kTbRingBytes", "gemm_ws.cuh")
+    assert hw.B6_WS_MAX_STAGES == _csrc_int("kMaxStages", "gemm_ws.cuh")
+    assert memory_model.WS_STATIC_SMEM == _csrc_int("kStaticSmem",
+                                                    "gemm_ws.cuh")
+
+
+@pytest.mark.parametrize("bm,bk,bn,rows,cols", [
+    (8, 512, 64, 16, 64),       # the mma.sync form: 16 rows, one panel
+    (16, 1024, 256, 16, 256),   # four panels
+    (8, 4096, 16, 16, 16),      # one narrow panel
+    (8, 512, 48, 16, 64),       # bn rounded up to a power of two
+    (64, 256, 32, 64, 64),      # one consumer warpgroup, N 64
+    (64, 256, 128, 64, 128),
+    (80, 256, 96, 128, 128),    # two; bn rounded up to whole panels
+    (128, 256, 256, 128, 256)])
+def test_ws_tb_footprint_is_the_kernels_smem_formula(bm, bk, bn, rows,
+                                                     cols):
+    """vmem_footprint of a bf16 'tb' tile on HOPPER_H100 is gemm_tb.cuh's
+    ws_smem (the A panel in 64-deep boxes of the CTA's rows, a ring of
+    B's panels -- 4 stages on wgmma, 64 KiB's worth (4 to 16) in the
+    mma.sync form -- and one f32 C stage) plus the barriers' 1 KiB, what
+    gemm_tb_smem_bytes returns on the card."""
+    assert ws_tb_tile(bm, bn) == (rows, cols)
+    p = TGemmProblem(300, 960, 960)
+    fp = memory_model.vmem_footprint(TileConfig(bm, bk, bn, "tb"), p,
+                                     HOPPER_H100)
+    stages = 4 if rows > 16 else min(16, max(4, 65536 // (128 * cols)))
+    want = (-(-bk // 64) * rows * 128 + stages * 64 * cols * 2
+            + rows * bn * 4 + 1024)
+    assert fp.total == want
+    # the epilogue's operands are read on the flush, not staged
+    pe = TGemmProblem(300, 960, 960, epilogue="bias+silu+res")
+    assert memory_model.vmem_footprint(TileConfig(bm, bk, bn, "tb"), pe,
+                                       HOPPER_H100).total == want
+
+
+def test_hopper_search_proposes_unpadded_bf16_tiles():
+    """The search's bf16 'tb' candidates are tiles the body runs without
+    padded work (at most 16 rows, or exactly the 64- or 128-row CTA, and
+    the CTA's width) or that cover the problem whole; f32 keeps the
+    256-thread rule."""
+    bf16 = TGemmProblem(300, 960, 960)
+    assert HOPPER_H100.tile_aligned(64, 256, 128, bf16)
+    assert HOPPER_H100.tile_aligned(16, 256, 256, bf16)
+    assert HOPPER_H100.tile_aligned(8, 256, 32, bf16)   # mma.sync form
+    assert not HOPPER_H100.tile_aligned(32, 256, 128, bf16)
+    assert not HOPPER_H100.tile_aligned(64, 256, 32, bf16)
+    assert HOPPER_H100.tile_aligned(8, 32, 32, TGemmProblem(2, 4, 3))
+    f32 = TGemmProblem(300, 960, 960, "float32", "float32")
+    assert HOPPER_H100.tile_aligned(32, 256, 128, f32)
+    assert not HOPPER_H100.tile_aligned(64, 256, 128, f32)
+    # the gated search keeps the 256-thread rule in bf16 too
+    gated = TGemmProblem(300, 960, 960, n_b_operands=2)
+    assert HOPPER_H100.tile_aligned(32, 256, 128, gated)
+    # the TPU sheet does not look at the problem
+    for p in (bf16, f32, None):
+        assert TPU_V5E.tile_aligned(128, 256, 128, p)
+
+
+@pytest.mark.parametrize("m,k,n,tile,cta", [
+    (8, 2560, 960, (8, 512, 64), "16x64 CTA (the mma.sync form"),
+    (300, 960, 960, (64, 256, 128), "64x128 CTA (1 consumer"),
+    (300, 960, 960, (128, 256, 128), "128x128 CTA (2 consumer")])
+def test_explain_names_the_cta_b6_launches(m, k, n, tile, cta):
+    pl = ops.plan(ops.GemmSpec(tile=TileConfig(*tile, "tb")), (m, k, n))
+    text = pl.explain()
+    assert "src/repro_torch/csrc/gemm_ws.cuh" in text
+    assert f"launches a {cta}" in text
+    f32 = ops.plan(ops.GemmSpec(a_dtype="float32", b_dtype="float32",
+                                tile=TileConfig(8, 512, 64, "tb")),
+                   (m, k, n)).explain()
+    assert "csrc/gemm_tb.cu" in f32 and "launches a" not in f32

@@ -17,8 +17,16 @@ attention (prefill and decode) reached two ways:
 The variants alternate direct, function, function, direct, ROUNDS
 times over, in one process on one card: the host's clock varies by
 several ms between readings of one variant, so each variant's median
-and minimum over its 2 * ROUNDS readings are compared.  Prints the
-card's name and power limit and every reading, and writes them to
+and minimum over its 2 * ROUNDS readings are compared.
+
+It first times the host's cost of one kernel call: the mean host
+microseconds to enqueue ``CALLS`` calls in a row (no synchronize
+between them) of ``gemm_aie`` at a decode and a prefill shape and of
+``gemm_tb`` at a decode shape's plan (five k-chunks, so five launches
+a call), ``CALL_ROUNDS`` readings each, interleaved; each case's
+median, minimum and spread (largest less smallest reading).  With
+``--calls-only`` it stops there.  Prints the card's name and power
+limit and every reading, and writes them to
 ``chiprun_out/dispatch_probe.json``.
 """
 
@@ -44,6 +52,13 @@ from repro_torch.models import transformer as T  # noqa: E402
 PROMPT_LENS = (12, 160, 8, 24, 300, 16, 32, 9)
 PREFILL_LEN = 512
 ROUNDS = 4
+CALLS = 200
+CALL_ROUNDS = 8
+#: (name, kernel, m, k, n): smollm-360m's wq at decode and in a 300-token
+#: prefill on B1, its w_down at decode on B6 at the 'tb' plan's tile
+CALL_CASES = (("gemm_aie 8x960x960", "aie", 8, 960, 960),
+              ("gemm_aie 300x960x960", "aie", 300, 960, 960),
+              ("gemm_tb 8x2560x960", "tb", 8, 2560, 960))
 
 
 def run_direct(pl, a2, b, b2, bias, res2, out_scale=None):
@@ -78,6 +93,48 @@ def mean_ms(fn, reps: int, sync) -> float:
         fn()
     sync()
     return (time.perf_counter() - t0) / reps * 1e3
+
+
+@torch.inference_mode()
+def call_probe(device) -> dict:
+    """Host µs a call of each :data:`CALL_CASES` kernel (bf16, seed-0
+    operands): the mean over ``CALLS`` enqueued calls, ``CALL_ROUNDS``
+    readings a case in turns; every reading, and each case's median,
+    minimum and spread."""
+    from repro_torch import ops
+    from repro_torch.kernels.gemm_aie import gemm_aie
+    from repro_torch.kernels.gemm_tb import gemm_tb
+    device = torch.device(device)
+    gen = torch.Generator(device=device).manual_seed(0)
+    fns = {}
+    for name, kernel, m, k, n in CALL_CASES:
+        a = torch.randn((m, k), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        b = torch.randn((k, n), generator=gen, device=device,
+                        dtype=torch.bfloat16)
+        if kernel == "aie":
+            fns[name] = (lambda a=a, b=b: gemm_aie(a, b,
+                                                   out_dtype=torch.bfloat16))
+        else:
+            tile = ops.plan(ops.GemmSpec(strategy="tb"), (m, k, n)).tile
+            fns[name] = (lambda a=a, b=b, tile=tile: gemm_tb(
+                a, b, tile=tile, out_dtype=torch.bfloat16))
+    for fn in fns.values():     # build, warm the tensor-map cache
+        fn()
+    torch.cuda.synchronize(device)
+    readings = {name: [] for name in fns}
+    for _ in range(CALL_ROUNDS):
+        for name, fn in fns.items():
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            for _ in range(CALLS):
+                fn()
+            readings[name].append((time.perf_counter() - t0) / CALLS * 1e6)
+            torch.cuda.synchronize(device)
+    return {name: {"us": r, "median": float(np.median(r)),
+                   "min": float(np.min(r)),
+                   "spread": float(np.max(r) - np.min(r))}
+            for name, r in readings.items()}
 
 
 @torch.inference_mode()
@@ -132,6 +189,8 @@ def probe(cfg, device, reps: int) -> dict:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--reps", type=int, default=40)
+    ap.add_argument("--calls-only", action="store_true",
+                    help="only the host µs a kernel call")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("dispatch_probe: no CUDA card")
@@ -139,7 +198,15 @@ def main(argv=None) -> None:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip()
-    out = probe(get_config("smollm-360m"), "cuda", args.reps)
+    calls = call_probe("cuda")
+    for name, c in calls.items():
+        print(f"[dispatch] host us a call, {name}: median "
+              f"{c['median']:.2f}, min {c['min']:.2f}, spread "
+              f"{c['spread']:.2f} over {CALL_ROUNDS} readings of {CALLS} "
+              f"calls [{card}]")
+    out = {"calls": calls, "rows": [], "summary": {}} if args.calls_only \
+        else probe(get_config("smollm-360m"), "cuda", args.reps) | {
+            "calls": calls}
     out["card"] = card
     for r in out["rows"]:
         print(f"[dispatch] {r['variant']:8s} decode step "

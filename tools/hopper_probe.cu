@@ -8,7 +8,21 @@
 //      flight (the B tiles of the decode GEMMs);
 //   3. the cycles a 16-deep step of the port's own chain (mma_chain.cuh
 //      mma_slab) takes for one warp owning one m16n8 fragment, the decode
-//      GEMMs' case, beside probe 1's bare dependent chain.
+//      GEMMs' case, beside probe 1's bare dependent chain;
+//   4. the bits of the chain: C (64 x N) = C0 + A (64 x k) B (k x N) over
+//      k = 16 .. 4096, from zero and from a non-zero f32 C0, computed (a) by
+//      mma_chain.cuh's mma_slab (mma.sync m16n8k16, k ascending), (b) by
+//      wgmma.mma_async m64nNk16 (wgmma.cuh; N = 8, 64, 128, 256) and (c) by
+//      wgmma with the operands' roles swapped (C^T = B^T A^T, the rows of C
+//      on wgmma's N side: N = 8, 16, 64), both operands of (b) and (c) read
+//      from the same 128-byte-swizzled stages that TMA (tma.cuh) filled and
+//      (a) reads by ldmatrix; each of (b) and (c) is held to (a) bit for bit
+//      and all three to a float64 sum (a layout error shows as a large
+//      difference, a rounding one as a small one);
+//   5. the rate at which TMA box copies stream rows of 128 bytes from
+//      device memory into one SM's shared memory, by box rows and by the
+//      stages in flight (one thread a CTA issues them; probe 2's cp.async
+//      rate beside it).
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o hopper_probe tools/hopper_probe.cu && ./hopper_probe
@@ -19,7 +33,13 @@
 #include <cstdint>
 #include <cstdio>
 
+#include <cmath>
+#include <cstring>
+#include <vector>
+
 #include "../src/repro_torch/csrc/mma_chain.cuh"
+#include "../src/repro_torch/csrc/tma.cuh"
+#include "../src/repro_torch/csrc/wgmma.cuh"
 
 template <int kChains>
 __global__ void mma_rate(float* out, int iters, long long* cycles) {
@@ -166,6 +186,320 @@ void probe_slab(float* out, long long* cycles) {
          *cycles / (8.0 * reps));
 }
 
+
+// ---------------------------------------------------------------------------
+// Probe 4: the chain's bits under mma.sync and wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kProbeK = 4096, kProbeN = 256;
+
+// One warpgroup; k in 64-deep slabs, each one TMA stage: A's 64 rows x 64 k
+// (8 KB) and four 64-column panels of B (64 k x 64 n, 8 KB each), all in the
+// 128-byte swizzle.  kMode 0: (a) mma_slab, each warp its 16 rows and N
+// columns; 1: (b) Wgmma<N, 0, 1> (A K-major, B MN-major); 2: (c)
+// Wgmma<N, 1, 0> with B's first panel as the 64-row operand (MN-major) and
+// A's first N rows as the N side (K-major), the accumulator C^T.  out and c0
+// are 64 x kProbeN f32, C[m][n] (c0 null: from zero).
+template <int kMode, int N>
+__global__ void __launch_bounds__(128)
+chain_bits(const __grid_constant__ CUtensorMap map_a,
+           const __grid_constant__ CUtensorMap map_b, const float* c0,
+           float* out, int K) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* sm =
+      smem_raw + ((1024 - (repro::smem_addr(smem_raw) & 1023)) & 1023);
+  __nv_bfloat16* as = reinterpret_cast<__nv_bfloat16*>(sm);
+  __nv_bfloat16* bs = as + 64 * 64;
+  __shared__ uint64_t bar;
+  if (threadIdx.x == 0) {
+    repro::mbar_init(&bar);
+    repro::fence_barrier_init();
+  }
+  __syncthreads();
+  const int warp = threadIdx.x >> 5;
+  float acc[N / 8][4];
+  // element (j, e): row r, column c of this warpgroup's 64 x N block
+  // (of C^T under kMode 2)
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + repro::frag_row(0, e);
+      const int c = repro::frag_col(j, e);
+      const int at = kMode == 2 ? c * kProbeN + r : r * kProbeN + c;
+      acc[j][e] = c0 != nullptr ? c0[at] : 0.0f;
+    }
+  int phase = 0;
+  for (int k0 = 0; k0 < K; k0 += 64) {
+    if (threadIdx.x == 0) {
+      repro::fence_proxy_async();
+      repro::mbar_expect(&bar, 5 * 8192);
+      repro::tma_2d(as, &map_a, k0, 0, &bar);
+      for (int p = 0; p < 4; ++p)
+        repro::tma_2d(bs + p * 64 * 64, &map_b, 64 * p, k0, &bar);
+    }
+    repro::mbar_wait(&bar, phase);
+    phase ^= 1;
+    const int klen = (min(64, K - k0) + 15) & ~15;
+    if constexpr (kMode == 0) {
+      constexpr int kFN = N < 64 ? N / 8 : 8;
+#pragma unroll
+      for (int p = 0; p < (N + 63) / 64; ++p)
+        repro::mma_slab<1, kFN, false>(
+            *reinterpret_cast<float(*)[1][kFN][4]>(&acc[8 * p]),
+            repro::smem_tile(as, 64), 16 * warp, 16,
+            repro::smem_tile(bs + p * 64 * 64, 64), 0, 64, klen);
+    } else {
+      const uint64_t da = repro::wgmma_desc(as, repro::kWg128, 16, 1024);
+      const uint64_t db = repro::wgmma_desc(bs, repro::kWg128, 8192, 1024);
+      // one product at a time, waited for: nothing else touches the
+      // accumulators while wgmma writes them
+      for (int s = 0; s < klen / 16; ++s) {
+        repro::wgmma_hold(acc);
+        repro::wgmma_fence();
+        if constexpr (kMode == 1)
+          repro::Wgmma<N, 0, 1>::run(acc, repro::wgmma_desc_add(da, 32 * s),
+                                     repro::wgmma_desc_add(db, 2048 * s));
+        else
+          repro::Wgmma<N, 1, 0>::run(acc, repro::wgmma_desc_add(db, 2048 * s),
+                                     repro::wgmma_desc_add(da, 32 * s));
+        repro::wgmma_commit();
+        repro::wgmma_wait<0>();
+        repro::wgmma_hold(acc);
+      }
+    }
+    __syncthreads();  // every warp is done with the stage
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = 16 * warp + repro::frag_row(0, e);
+      const int c = repro::frag_col(j, e);
+      out[kMode == 2 ? c * kProbeN + r : r * kProbeN + c] = acc[j][e];
+    }
+}
+
+struct Lcg {
+  uint64_t s;
+  uint32_t next() {
+    s = s * 6364136223846793005ull + 1442695040888963407ull;
+    return static_cast<uint32_t>(s >> 33);
+  }
+  // sign * [1, 2) * 2^[lo, hi]
+  float value(int lo, int hi) {
+    const float m = 1.0f + (next() % 1024) / 1024.0f;
+    const int e = lo + static_cast<int>(next() % (hi - lo + 1));
+    return (next() & 1 ? -1.0f : 1.0f) * std::ldexp(m, e);
+  }
+};
+
+template <int kMode, int N>
+void run_bits(const CUtensorMap& ma, const CUtensorMap& mb, const float* c0,
+              float* out, int K) {
+  cudaMemset(out, 0xff, 64 * kProbeN * sizeof(float));  // NaN: not written
+  chain_bits<kMode, N><<<1, 128, 1024 + 5 * 8192>>>(ma, mb, c0, out, K);
+  cudaDeviceSynchronize();
+}
+
+// Compares rows x cols of got against ref (both 64 x kProbeN): elements whose
+// bits differ, and the largest difference.
+int differ(const std::vector<float>& got, const std::vector<float>& ref,
+           int rows, int cols, double* max_diff) {
+  int n = 0;
+  *max_diff = 0.0;
+  for (int r = 0; r < rows; ++r)
+    for (int c = 0; c < cols; ++c) {
+      const float g = got[r * kProbeN + c], w = ref[r * kProbeN + c];
+      uint32_t gb, wb;
+      memcpy(&gb, &g, 4), memcpy(&wb, &w, 4);
+      n += gb != wb;
+      const double d = std::fabs(static_cast<double>(g) - w);
+      *max_diff = std::isnan(d) ? INFINITY : std::fmax(*max_diff, d);
+    }
+  return n;
+}
+
+bool probe_bits() {
+  const int M = 64;
+  std::vector<__nv_bfloat16> ha(M * kProbeK), hb(kProbeK * kProbeN);
+  std::vector<float> fa(M * kProbeK), fb(kProbeK * kProbeN), hc(M * kProbeN);
+  Lcg g{12345};
+  for (int i = 0; i < M * kProbeK; ++i) {
+    ha[i] = __float2bfloat16(g.value(-6, 6));
+    fa[i] = __bfloat162float(ha[i]);
+  }
+  // columns 0..63: B[k][c] = +-A[c][k] with alternating signs, so row c of
+  // C sums nearly cancelling terms; the rest random
+  for (int k = 0; k < kProbeK; ++k)
+    for (int c = 0; c < kProbeN; ++c) {
+      const float v = c < M ? (k & 1 ? -1.0f : 1.0f) * fa[c * kProbeK + k] *
+                                  std::ldexp(1.0f, (k % 5) - 2)
+                            : g.value(-6, 6);
+      hb[k * kProbeN + c] = __float2bfloat16(v);
+      fb[k * kProbeN + c] = __bfloat162float(hb[k * kProbeN + c]);
+    }
+  for (int i = 0; i < M * kProbeN; ++i) hc[i] = g.value(-20, 12);
+  __nv_bfloat16 *da, *db;
+  float *dc, *da_out, *db_out;
+  cudaMalloc(&da, ha.size() * 2);
+  cudaMalloc(&db, hb.size() * 2);
+  cudaMalloc(&dc, hc.size() * 4);
+  cudaMalloc(&da_out, hc.size() * 4);
+  cudaMalloc(&db_out, hc.size() * 4);
+  cudaMemcpy(da, ha.data(), ha.size() * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(db, hb.data(), hb.size() * 2, cudaMemcpyHostToDevice);
+  cudaMemcpy(dc, hc.data(), hc.size() * 4, cudaMemcpyHostToDevice);
+  std::vector<float> ra(hc.size()), rb(hc.size());
+  bool same_b = true, same_c = true, sane = true;
+  long long n_b = 0, n_c = 0;
+  for (int K : {16, 48, 64, 208, 1000, 1024, 4096}) {
+    // the k tail past K lands as zeros: the maps end at K
+    CUtensorMap ma, mb;
+    if (!repro::tensor_map_2d(&ma, da, 2, M, K, kProbeK, 64, 64) ||
+        !repro::tensor_map_2d(&mb, db, 2, K, kProbeN, kProbeN, 64, 64)) {
+      printf("probe 4: no tensor map\n");
+      return false;
+    }
+    for (int init = 0; init < 2; ++init) {
+      const float* c0 = init ? dc : nullptr;
+      run_bits<0, 256>(ma, mb, c0, da_out, K);
+      cudaMemcpy(ra.data(), da_out, ra.size() * 4, cudaMemcpyDeviceToHost);
+      // (a) against a float64 sum
+      double worst = 0.0;
+      for (int r = 0; r < M; ++r)
+        for (int c = 0; c < kProbeN; ++c) {
+          double s = init ? hc[r * kProbeN + c] : 0.0, mag = std::fabs(s);
+          for (int k = 0; k < K; ++k) {
+            const double p = static_cast<double>(fa[r * kProbeK + k]) *
+                             fb[k * kProbeN + c];
+            s += p, mag += std::fabs(p);
+          }
+          worst = std::fmax(worst, std::fabs(ra[r * kProbeN + c] - s) /
+                                       (mag > 0 ? mag : 1.0));
+        }
+      sane = sane && worst < 1e-5;
+      printf("probe 4: K %4d, C0 %s: (a) mma_slab vs float64: largest "
+             "error %.3g of the sum of |terms|\n",
+             K, init ? "non-zero" : "zero", worst);
+      auto report = [&](const char* what, int n, int rows, int cols,
+                        bool swapped) {
+        cudaMemcpy(rb.data(), db_out, rb.size() * 4, cudaMemcpyDeviceToHost);
+        double md;
+        const int d = differ(rb, ra, rows, cols, &md);
+        printf("probe 4: K %4d, C0 %s: (%c) %s n%-3d: %d of %d elements "
+               "differ in bits from (a), largest difference %.3g\n",
+               K, init ? "non-zero" : "zero", swapped ? 'c' : 'b', what, n,
+               d, rows * cols, md);
+        if (swapped)
+          same_c = same_c && d == 0, n_c += d;
+        else
+          same_b = same_b && d == 0, n_b += d;
+      };
+      run_bits<1, 8>(ma, mb, c0, db_out, K);
+      report("wgmma m64k16", 8, M, 8, false);
+      run_bits<1, 64>(ma, mb, c0, db_out, K);
+      report("wgmma m64k16", 64, M, 64, false);
+      run_bits<1, 128>(ma, mb, c0, db_out, K);
+      report("wgmma m64k16", 128, M, 128, false);
+      run_bits<1, 256>(ma, mb, c0, db_out, K);
+      report("wgmma m64k16", 256, M, 256, false);
+      run_bits<2, 8>(ma, mb, c0, db_out, K);
+      report("wgmma m64k16 swapped", 8, 8, 64, true);
+      run_bits<2, 16>(ma, mb, c0, db_out, K);
+      report("wgmma m64k16 swapped", 16, 16, 64, true);
+      run_bits<2, 64>(ma, mb, c0, db_out, K);
+      report("wgmma m64k16 swapped", 64, 64, 64, true);
+    }
+  }
+  cudaFree(da), cudaFree(db), cudaFree(dc), cudaFree(da_out),
+      cudaFree(db_out);
+  printf("probe 4 verdict: (a) within 1e-5 of float64: %s; (b) wgmma == "
+         "mma.sync chain bit for bit: %s (%lld elements differ); (c) "
+         "swapped wgmma == chain: %s (%lld differ)\n",
+         sane ? "yes" : "no", same_b ? "yes" : "no", n_b,
+         same_c ? "yes" : "no", n_c);
+  return sane;
+}
+
+// ---------------------------------------------------------------------------
+// Probe 5: TMA's streaming rate into one SM
+// ---------------------------------------------------------------------------
+
+// CTA b streams `rows` rows of 128 bytes (its own 64-column strip of a bf16
+// tensor) as boxes of box_rows rows through `stages` stages, all of them in
+// flight; one thread issues and waits.
+__global__ void tma_rate(const __grid_constant__ CUtensorMap map, int rows,
+                         int box_rows, int stages, long long* cycles,
+                         float* sink) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* ring =
+      smem_raw + ((1024 - (repro::smem_addr(smem_raw) & 1023)) & 1023);
+  __shared__ uint64_t full[16];
+  if (threadIdx.x != 0) return;
+  for (int s = 0; s < stages; ++s) repro::mbar_init(&full[s]);
+  repro::fence_barrier_init();
+  const int box = box_rows * 128, n = rows / box_rows, col = 64 * blockIdx.x;
+  float acc = 0.0f;
+  const long long t0 = clock64();
+  for (int i = 0; i < stages && i < n; ++i) {
+    repro::mbar_expect(&full[i], box);
+    repro::tma_2d(ring + i * box, &map, col, i * box_rows, &full[i]);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % stages;
+    repro::mbar_wait(&full[s], (i / stages) & 1);
+    acc += ring[s * box + (i & 127)];
+    if (i + stages < n) {
+      repro::fence_proxy_async();
+      repro::mbar_expect(&full[s], box);
+      repro::tma_2d(ring + s * box, &map, col, (i + stages) * box_rows,
+                    &full[s]);
+    }
+  }
+  if (blockIdx.x == 0) *cycles = clock64() - t0;
+  sink[blockIdx.x] = acc;
+}
+
+void probe_tma(long long* cycles, float* sink) {
+  const int rows = 8192, cols = 64 * 132;
+  __nv_bfloat16* src;
+  cudaMalloc(&src, static_cast<size_t>(rows) * cols * 2);
+  cudaMemset(src, 1, static_cast<size_t>(rows) * cols * 2);
+  cudaFuncSetAttribute(tma_rate, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       200 * 1024);
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0), cudaEventCreate(&e1);
+  for (int ctas : {30, 132})
+    for (int box_rows : {32, 64, 128, 256})
+      for (int stages : {2, 4, 8}) {
+        const int smem = stages * box_rows * 128 + 1024;
+        if (smem > 200 * 1024) continue;
+        CUtensorMap map;
+        if (!repro::tensor_map_2d(&map, src, 2, rows, cols, cols, 64,
+                                  box_rows)) {
+          printf("probe 5: no tensor map\n");
+          return;
+        }
+        float ms = 0.0f;
+        for (int rep = 0; rep < 2; ++rep) {
+          cudaEventRecord(e0);
+          tma_rate<<<ctas, 32, smem>>>(map, rows, box_rows, stages, cycles,
+                                       sink);
+          cudaEventRecord(e1);
+          cudaEventSynchronize(e1);
+          cudaEventElapsedTime(&ms, e0, e1);
+        }
+        const double per_sm = static_cast<double>(rows) * 128 / *cycles;
+        printf("TMA: %3d CTAs, boxes of %3d rows x 128 B, %d stages (%6d B "
+               "in flight a CTA): %5.1f B a cycle an SM, %6.1f GB/s the "
+               "card\n",
+               ctas, box_rows, stages, stages * box_rows * 128, per_sm,
+               static_cast<double>(rows) * 128 * ctas / (ms * 1e6));
+      }
+  cudaFree(src);
+}
+
 int main() {
   float* out;
   long long* cycles;
@@ -176,7 +510,9 @@ int main() {
   probe_mma<4>(out, cycles);
   probe_stream(cycles, out);
   probe_slab(out, cycles);
+  const bool sane = probe_bits();
+  probe_tma(cycles, out);
   const cudaError_t err = cudaGetLastError();
   printf("%s\n", cudaGetErrorString(err));
-  return err == cudaSuccess ? 0 : 1;
+  return err == cudaSuccess && sane ? 0 : 1;
 }
