@@ -69,19 +69,31 @@ its seconds, kept under ``phase_seconds`` in the JSON):
 5. serve smollm-360m at full width (bf16, random weights from seed 0)
    through ``DecodeEngine`` with 8 slots x 1024 positions, on the dense
    cache and then on the page pool (16-token pages, 64-token prefill
-   chunks, prefix cache on, two requests sharing a 64-token prefix):
+   chunks, prefix cache on, two requests sharing a 64-token prefix),
+   the engine's decode step replayed from a CUDA graph after its first
+   burst (``repro_torch.runtime.graphs``; every serve phase below runs
+   this captured engine, the card's default):
    each pass runs 193 planned GEMMs, and each kernel must have launched
    exactly as often as the executed plans (B1, B2, or B6's chunks) and
    the steps and prefill chunks say, the other decode kernel and every
-   plain version not at all; each trace is then served again with
+   plain version not at all, every replay counted (its captured
+   launches added to the counters, its plans announced to the
+   recorder; a run that replayed nothing fails); then the graph ==
+   eager gate: the trace again through an engine run eagerly
+   (``graphs=False``), its tokens equal bit for bit and its launch counts
+   equal, its decode tok/s, step ms and TTFT beside the graph's (the
+   same gate for qwen3-moe dense, h2o's ring, recurrentgemma, mamba2
+   and whisper below); each trace is then served again with
    telemetry on (``repro_torch.telemetry``; both artifacts exported to
    ``chiprun_out/telemetry_*``): one ``serve.request`` span a request,
    the decode bursts' steps summing to the engine's, the serve counters
    equal to its metrics and the greedy tokens equal to the untraced
    run's; then one 8-slot decode step of each cache is timed from
    CUDA-graph replays (device time alone) beside the same step run
-   eagerly, which gives the device's idle share of an eager step, and
-   eagerly again with telemetry on;
+   eagerly, which gives the device's idle share of an eager step, the
+   step captured as the engine captures it and replayed back to back
+   (the idle share of a replayed step), and eagerly again with
+   telemetry on;
 5b. model against measured: ``telemetry.report.model_vs_measured`` over
    the serve phases' dense plans (modeled us against us measured between
    device syncs; the table in ``chiprun_out/model_vs_measured_*.txt``);
@@ -116,21 +128,29 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    gradient leaf finite and non-zero at step 0, each step's launches
    equal to its executed plans (928 planned GEMMs a step, on B1, B2 and
    B6, and B3 twice a layer: forward and remat recompute) with B2, B3 and
-   B6 in every step and no plain version; each step's wall and device
+   B6 in every step and no plain version (the step consumes its state
+   and, from step 1, replays from one CUDA graph: forward, backward and
+   update; step 0 is the capture's eager warm-up); each step's wall and
+   device
    ms, tokens/s, model-FLOP share and the peak memory printed with the
    card's name and power limit; the device time of the contiguous copies
    of the backward's transposed operands; then every distinct GEMM plan
    of one step, on the kernel and tile it picked, held to its plain
    version and timed beside ``torch.matmul``, and B3 at b 8 x s 512
    beside SDPA;
-7c. resume: one smollm-360m step run twice from one state (its spread,
-   0 when bit for bit, bounds the check); phase 7b's run checkpoints
+7c. resume: one smollm-360m step run twice from copies of one state
+   (its spread, 0 when bit for bit, bounds the check); phase 7b's run
+   checkpoints
    every 2 steps into a directory in the checkout; its step-4
    checkpoint is deleted and ``train(resume=True)`` resumes from step 2
    to 4: the resumed steps' losses and final parameters equal the
    unbroken run's within that spread; the directory is deleted; phase
    7b's run records telemetry: one ``train.step`` span a step within 5 %
-   of the step's wall ms;
+   of the step's wall ms; then the train graph gate: three steps from
+   one state of the step that returns a new state, the eager consuming
+   step and the captured one, equal bit for bit after every step (loss,
+   grad norm, every parameter, both AdamW moments) with equal launches,
+   each mode's steady step ms, tok/s and model-FLOP share;
 7d. with smollm-360m freed, h2o-danube-3-4b at full width, its depth cut
    24 -> 4 layers (bf16, random weights from seed 0; a sliding window of
    4096): phase
@@ -184,7 +204,8 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    expert capacity by the chunk, so it may drop otherwise than a
    whole-prompt prefill), with the dense trace's telemetry run (the MoE
    counters' routed + dropped rows equal tokens x top-k over every MoE
-   layer and pass), 5b and 5c (qwen3's 300 x 4096 x 8192 and 300 x 8192
+   layer and pass, and equal to an eager engine's run of the same
+   trace), 5b and 5c (qwen3's 300 x 4096 x 8192 and 300 x 8192
    x 4096 named); then calibration: ``tune.calibrate.fit`` over the
    tuning cache's samples, ``apply`` for the card, every dense GEMM of
    both models' serve paths and of smollm-360m's training step
@@ -195,13 +216,15 @@ its seconds, kept under ``phase_seconds`` in the JSON):
 9. MoE training: one Adafactor step of qwen3-moe-235b-a22b-smoke (f32)
    on the card against the CPU, as 7b (and whether two card steps agree
    bit for bit); then ``train`` on qwen3-moe-235b-a22b at full width with
-   its depth cut to 1 layer (printed with the reason), bf16, Adafactor,
+   its depth cut to 3 layers (the deepest whose consuming step the
+   dry-run fits in 80 GB with 5 % to spare; eager: MoE training reads the
+   group sizes on the host), bf16, Adafactor,
    b 8 x s 512, 3 steps: launches equal the executed plans, B7 10 times a
    layer-step (3 forward, 3 remat, the gate's f32 pre-activation
-   recompute, 3 dA), no plain version, every gradient leaf finite and
-   non-zero at step 0; wall and device ms, tokens/s, model-FLOP share,
-   peak memory, the last step traced (device busy time by kernel
-   family), and the gradients taken twice (deterministic or not); then
+   recompute, 3 dA), no plain version; wall and device ms, tokens/s,
+   model-FLOP share, peak memory, the last step traced (device busy time
+   by kernel family), and the gradients at the final parameters taken
+   twice (every leaf finite and non-zero; deterministic or not); then
    B7 at that step's shapes and group sizes against its plain version,
    ``torch._grouped_mm`` and its bound, the transposed-bank copies, the
    plain dB, and the f32 router GEMMs on B1 / B6;
@@ -236,15 +259,16 @@ its seconds, kept under ``phase_seconds`` in the JSON):
 11. training the windowed and encoder-decoder families: one AdamW step of
    h2o-danube-3-4b-smoke (64 tokens past its 32-token window) and of
    whisper-medium-smoke on the card against the CPU, as 7b; then
-   ``train`` on h2o-danube-3-4b at full width, 4 of 24 layers, b 1 x s
-   4608 (past its 4096-token window; the peak memory reckoned and
-   logged first) and on whisper-medium at full width and depth, b 8 x s
+   ``train`` on h2o-danube-3-4b at full width and its full 24 layers
+   (the consuming step, captured), b 1 x s 4608 (past its 4096-token
+   window; the peak memory reckoned and logged first) and on whisper-medium at full width and depth, b 8 x s
    448 over 1500 stub frames a row, each with the optimizer
    ``select_optimizer`` gives the full-depth config, 3 steps: launches
    equal the executed plans (B3 with the window; non-causal for the
    encoder and the cross-attention), no plain version, losses and grad
-   norms finite, every gradient leaf finite and non-zero at step 0;
-   step wall ms, tok/s and peak memory; then B3 at both training shapes
+   norms finite, every gradient leaf finite and non-zero at the final
+   parameters (the steps keep no gradient); step wall ms, tok/s and
+   peak memory; then B3 at both training shapes
    against its plain version, SDPA and its bound;
 12. two ranks sharing the card (spawned processes, a gloo group, every
    collective on a CUDA tensor staged through pinned host buffers): the
@@ -267,14 +291,16 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    (key ``dist``);
 13. the op counter and the dry-run (``repro_torch.core.op_cost``,
    ``repro_torch.launch.dryrun``): one training step of smollm-360m (b 8
-   x s 512, AdamW) and of qwen3-moe-235b-a22b at 1 layer (Adafactor)
-   counted on the card, each against the meta trace of the same config
+   x s 512, AdamW) and of qwen3-moe-235b-a22b at 3 layers (Adafactor),
+   both the consuming step, counted on the card, each against the meta
+   trace of the same config
    and batch (run in spawned processes meanwhile): FLOPs, bytes and
    calls equal scope by scope but B7's row scopes (live routed rows on
    the card, capacity rows on meta: printed apart), and the meta peak
    within 10 % of the step's allocator peak; h2o-danube-3-4b training
-   at b 1 x s 4608 predicted on meta only, over the card's 80 GB at 24
-   layers and under it at 8; then the dry-run's ``--measure`` on the
+   at b 1 x s 4608 predicted on meta only, under the card's 80 GB at 24
+   layers (beside phase 11's run there) and at 8; then the dry-run's
+   ``--measure`` on the
    decode_32k cells of smollm-360m (one rank) and qwen3-moe (rank 0 of
    16): every planned GEMM executed on the card against its model, B1,
    B2, B6 and B7 between them (key ``op_cost``).
@@ -306,6 +332,7 @@ from __future__ import annotations
 import atexit
 import collections
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -353,6 +380,7 @@ from repro_torch.tune import measure as tune_measure  # noqa: E402
 from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.models import mamba2 as M2  # noqa: E402
 from repro_torch.models import transformer as T  # noqa: E402
+from repro_torch.runtime import graphs as G  # noqa: E402
 from repro_torch.train import train_step as TS  # noqa: E402
 import train_profile  # noqa: E402
 from repro_torch.serve.engine import (  # noqa: E402
@@ -438,17 +466,17 @@ H2O_TIMED_ON = {
     "flash_decode_paged": "one 8-slot decode step, window 4096, slots past "
                           "position 4096",
 }
-#: the same for qwen3-moe-235b-a22b's full-width 1-layer training step
+#: the same for qwen3-moe-235b-a22b's full-width 3-layer training step
 MOE_TRAIN_TIMED_ON = {
-    "gemm_grouped": "qwen3-moe-235b-a22b training at 1 layer: one "
+    "gemm_grouped": "qwen3-moe-235b-a22b training at 3 layers: one "
                     "layer-step's 10 launches (b 8 x s 512, 32768 routed "
                     "rows: the three forwards twice, the gate's f32 "
                     "pre-activation recompute, the three dA on contiguous "
                     "transposed banks)",
-    "gemm_aie": "qwen3-moe-235b-a22b training at 1 layer: the step's f32 "
+    "gemm_aie": "qwen3-moe-235b-a22b training at 3 layers: the step's f32 "
                 "router GEMMs (forward, recompute, dA, dB) the HOPPER_H100 "
                 "planner gives this kernel",
-    "gemm_tb": "qwen3-moe-235b-a22b training at 1 layer: the step's f32 "
+    "gemm_tb": "qwen3-moe-235b-a22b training at 3 layers: the step's f32 "
                "router GEMMs the HOPPER_H100 planner gives this kernel",
 }
 #: qwen3-moe-235b-a22b is served at full width with its depth cut to this
@@ -605,7 +633,7 @@ KIMI_TIMED_ON = {
 #: the same for B3 at the full-width training runs' shapes, under "train
 #: <model>"
 A9_TRAIN_TIMED_ON = {
-    H2O: "h2o-danube-3-4b training at 8 layers: one step's 16 launches "
+    H2O: "h2o-danube-3-4b training at 24 layers: one step's 48 launches "
          "(1 x 4608, h 32/8, d 120, window 4096; forward and remat "
          "recompute)",
     WHISPER: "whisper-medium training: one step's 24 encoder launches (8 x "
@@ -691,7 +719,16 @@ class PhaseClock:
         now = time.perf_counter()
         self.seconds[name] = now - self._last
         self._last = now
-        log(f"phase {name}: {self.seconds[name]:.1f} s")
+        log(f"phase {name}: {self.seconds[name]:.1f} s; "
+            f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, "
+            f"{graph_pool_bytes() / 1e9:.2f} GB of it in CUDA-graph pools")
+
+
+def graph_pool_bytes() -> int:
+    """Bytes allocated in CUDA-graph private pools: the live outputs of
+    the graphs still held."""
+    return sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
 
 
 def card_line() -> str:
@@ -2545,20 +2582,26 @@ def counts():
 
 class PlanRecorder:
     """Counts the GEMM plans the one-shot ops.gemm executes, by wrapping
-    the operator API's kernel fan-out for the length of a ``with``.  The
-    tuner's measurements are not executions of the step (their launches
-    are taken back off the counters too) and are not counted."""
+    the operator API's kernel fan-out for the length of a ``with``, and
+    the plans of every CUDA-graph replay, which
+    ``repro_torch.runtime.graphs`` announces (a replay never passes the
+    fan-out; its launches it adds to the counters).  The tuner's
+    measurements are not executions of the step (their launches are
+    taken back off the counters too), nor is a capture (it launches
+    nothing); neither is counted.  ``replays`` counts the replays
+    announced."""
 
     def __enter__(self):
         self.plans = {}
         self.attn_plans = {}          # attention plans, apart
         self.group_sizes = None       # the first grouped launch's sizes
+        self.replays = 0
         self._launch = api._launch
         self._attn_launch = attn_api._launch
 
         def record(pl, *args, **kw):
-            if tune_measure.measuring():    # a tuner's sample, not a step
-                return self._launch(pl, *args, **kw)
+            if tune_measure.measuring() or G.recording():
+                return self._launch(pl, *args, **kw)   # not an execution
             self.plans[pl] = self.plans.get(pl, 0) + 1
             if pl.spec.grouped and self.group_sizes is None:
                 self.group_sizes = args[5] if len(args) > 5 \
@@ -2566,16 +2609,25 @@ class PlanRecorder:
             return self._launch(pl, *args, **kw)
 
         def record_attn(pl, *args):
-            if not tune_measure.measuring():    # a tuner's sample: no step
+            if not (tune_measure.measuring() or G.recording()):
                 self.attn_plans[pl] = self.attn_plans.get(pl, 0) + 1
             return self._attn_launch(pl, *args)
         api._launch = record
         attn_api._launch = record_attn
+        G.add_replay_hook(self._replayed)
         return self
+
+    def _replayed(self, plans, attn_plans):
+        self.replays += 1
+        for mine, theirs in ((self.plans, plans),
+                             (self.attn_plans, attn_plans)):
+            for pl, n in theirs.items():
+                mine[pl] = mine.get(pl, 0) + n
 
     def __exit__(self, *exc):
         api._launch = self._launch
         attn_api._launch = self._attn_launch
+        G.remove_replay_hook(self._replayed)
 
     @staticmethod
     def _sum(plans):
@@ -2611,18 +2663,27 @@ def shared_prefix_requests(cfg, prefix_len, tail_len, max_tokens, seed):
 
 
 def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None,
-                trace=None, max_len=1024, chunk=64):
+                trace=None, max_len=1024, chunk=64, eager_gate=False):
     """Serve the trace (default :func:`serve_trace`) through the dense
     engine or, ``paged``, through the paged one (16-token pages,
     ``chunk``-token chunks, prefix cache on) with two shared-prefix
-    requests added, 8 slots of ``max_len`` positions.  The kernel counts
-    are set to 0 just before the run and read just after, and must equal
-    what the executed GEMM and attention plans imply; a MoE model must
-    launch B7 three times a layer a pass.  With ``telemetry_base`` the
-    trace is served again with telemetry on (:func:`telemetry_run`).
-    The tokens by trace position and the executed plans ride the result
-    under ``_tokens`` / ``_plans`` (the caller pops them before the
-    JSON)."""
+    requests added, 8 slots of ``max_len`` positions.  The engine is the
+    card's default: its first burst (the warm-up request's) runs
+    eagerly, the trace's first burst captures the decode step, and every
+    later step replays it from the CUDA graph.  The kernel counts are
+    set to 0 just before the run and read just after, and must equal
+    what the executed GEMM and attention plans imply, the replays'
+    included (each replay adds its captured launches to the counters and
+    announces its plans to the recorder); the run must have replayed,
+    one capture, every replay announced.  A MoE model must launch B7
+    three times a layer a pass.  With ``eager_gate`` the trace is served
+    again through an engine that runs every step eagerly
+    (``graphs=False``): its tokens must equal the graph engine's bit for
+    bit and its launch counts the graph run's (:func:`eager_gate_run`).
+    With ``telemetry_base`` the trace is served again with telemetry on
+    (:func:`telemetry_run`).  The tokens by trace position and the
+    executed plans ride the result under ``_tokens`` / ``_plans`` (the
+    caller pops them before the JSON)."""
     trace = list(trace or serve_trace(cfg))
     kw = dict(page_size=16, prefill_chunk=chunk) if paged else {}
     if paged:
@@ -2647,6 +2708,12 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None,
     m = engine.metrics
     steps = m["decode_steps"]
     prefills = m["prefill_chunks"]
+    if m["graph_captures"] != 1 or not m["graph_replays"] \
+            or rec.replays != m["graph_replays"] or not sum(launches.values()):
+        raise RuntimeError(f"serve {cfg.name}: {m['graph_captures']} "
+                           f"captures, {m['graph_replays']} steps replayed, "
+                           f"{rec.replays} replays announced, launches "
+                           f"{launches}")
     decode, other = ("flash_decode_paged", "flash_decode") if paged \
         else ("flash_decode", "flash_decode_paged")
     # every pass runs gemms_per_pass planned GEMMs; their plans say which
@@ -2713,6 +2780,8 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None,
            "ttft_mean_ms": float(ttft.mean() * 1e3),
            "ttft_p99_ms": float(np.percentile(ttft, 99) * 1e3),
            "occupancy": engine.occupancy(), "launches": launches,
+           "graph_replays": m["graph_replays"],
+           "graph_captures": m["graph_captures"],
            "gemm_plans_executed": by_kernel,
            "attn_plans_executed": attn_by_plan,
            "plain_launches": plain, "prefill_chunks": prefills,
@@ -2729,7 +2798,8 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None,
         f"{out['tok_s_decode']:.1f} tok/s decode, "
         f"{out['decode_ms_per_step']:.2f} ms/step); ttft mean "
         f"{out['ttft_mean_ms']:.0f} ms p99 {out['ttft_p99_ms']:.0f} ms; "
-        f"occupancy {out['occupancy']:.2f}")
+        f"occupancy {out['occupancy']:.2f}; {m['graph_replays']} of "
+        f"{steps} decode steps replayed from the CUDA graph")
     if paged:
         log(f"{tag}: {prefills} prefill chunks, max stall "
             f"{m['max_prefill_stall_tokens']} tokens; prefix "
@@ -2740,9 +2810,68 @@ def serve_phase(cfg, params, *, paged, mode=None, telemetry_base=None,
     log(f"{tag}: launches {launches}; plain versions {plain}")
     out["_tokens"] = [by_rid[req.rid].tokens for req in trace]
     out["_plans"] = dict(rec.plans)
+    if eager_gate:
+        out["eager"] = eager_gate_run(cfg, params, trace, kw, max_len, out,
+                                      tag)
     if telemetry_base:
         out["telemetry"] = telemetry_run(cfg, params, trace, kw,
                                          out["_tokens"], telemetry_base, tag)
+    return out
+
+
+def _engine_run(cfg, params, trace, kw, max_len, recorder=None,
+                **engine_kw):
+    """A fresh 8-slot engine, warmed up on a short request, serving a
+    copy of ``trace`` (with ``recorder`` enabled after the warm-up; the
+    caller disables it): (engine, its results by trace position, the
+    launch counts of the trace's run, its seconds)."""
+    engine = DecodeEngine(params, cfg, batch=8, max_len=max_len,
+                          device="cuda", **kw, **engine_kw)
+    engine.run([Request(prompt=trace[0].prompt[:5], max_tokens=2)])
+    engine.reset_metrics()
+    if recorder is not None:
+        telemetry.enable(recorder)
+    reqs = [dataclasses.replace(r, rid=-1) for r in trace]
+    reset_counters()
+    t0 = time.perf_counter()
+    results = engine.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    by_rid = {r.rid: r for r in results}
+    return engine, [by_rid[r.rid] for r in reqs], counts(), dt
+
+
+def eager_gate_run(cfg, params, trace, kw, max_len, graph_run, tag):
+    """The graph == eager gate: ``trace`` through an engine that runs
+    every decode step eagerly (``graphs=False``); each request's tokens
+    must equal the graph engine's bit for bit, and the kernels' launch
+    counts the graph run's (each replay adds what its capture launched).
+    Returns the eager run's decode tok/s, step ms and TTFT."""
+    engine, results, launches, dt = _engine_run(cfg, params, trace, kw,
+                                                max_len, graphs=False)
+    for i, (r, want) in enumerate(zip(results, graph_run["_tokens"])):
+        if not np.array_equal(r.tokens, want):
+            raise RuntimeError(f"{tag}: graph != eager engine on request "
+                               f"{i}: {want} vs {r.tokens}")
+    if launches != graph_run["launches"] or engine.metrics["graph_replays"]:
+        raise RuntimeError(f"{tag}: eager launches {launches}, graph run "
+                           f"{graph_run['launches']}")
+    m = engine.metrics
+    ttft = np.asarray([r.ttft for r in results])
+    out = {"tok_s_decode": engine.tokens_per_sec(), "seconds": dt,
+           "decode_ms_per_step": m["decode_time"] / max(m["decode_steps"],
+                                                        1) * 1e3,
+           "ttft_mean_ms": float(ttft.mean() * 1e3),
+           "ttft_p99_ms": float(np.percentile(ttft, 99) * 1e3),
+           "requests": len(results)}
+    log(f"{tag}: graph == eager engine, {len(results)} requests bit for "
+        f"bit, launches equal; eager {out['tok_s_decode']:.1f} tok/s "
+        f"decode, {out['decode_ms_per_step']:.2f} ms/step, ttft mean "
+        f"{out['ttft_mean_ms']:.0f} ms p99 {out['ttft_p99_ms']:.0f} ms "
+        f"against the graph's {graph_run['tok_s_decode']:.1f} tok/s, "
+        f"{graph_run['decode_ms_per_step']:.2f} ms/step, "
+        f"{graph_run['ttft_mean_ms']:.0f} / {graph_run['ttft_p99_ms']:.0f} "
+        "ms")
     return out
 
 
@@ -2754,7 +2883,11 @@ def telemetry_run(cfg, params, trace, kw, want_tokens, base, tag):
     steps, the serve counters equal to its metrics, and for a MoE model
     routed + dropped rows equal to tokens x top-k over every MoE layer
     and pass; the greedy tokens must equal the untraced run's bit for
-    bit.  Prints what the spans show."""
+    bit.  The engine replays its decode step from a graph captured under
+    the recorder; a MoE model's trace is then served by an eager engine
+    (``graphs=False``) with telemetry on, and the routed / dropped
+    counters of the two runs must be equal.  Prints what the spans
+    show."""
     engine = DecodeEngine(params, cfg, batch=8, max_len=1024, device="cuda",
                           **kw)
     engine.run([Request(prompt=trace[0].prompt[:5], max_tokens=2)])  # warm-up
@@ -2807,6 +2940,21 @@ def telemetry_run(cfg, params, trace, kw, want_tokens, base, tag):
             raise RuntimeError(f"{tag}: MoE counters {routed} routed + "
                                f"{dropped} dropped != {rows} assignments")
         out["moe_rows"] = {"routed": routed, "dropped": dropped}
+        erec = telemetry.Recorder()
+        try:
+            _engine_run(cfg, params, trace, kw, 1024, recorder=erec,
+                        graphs=False)
+            ec = erec.snapshot()["counters"]
+        finally:
+            telemetry.disable()
+        eager = {k: ec[k] for k in ("moe.group_sizes", "moe.dropped_tokens")}
+        if eager != {"moe.group_sizes": routed, "moe.dropped_tokens": dropped}:
+            raise RuntimeError(f"{tag}: MoE counters of the captured run "
+                               f"{routed} / {dropped}, of the eager run "
+                               f"{eager}")
+        out["moe_rows_eager"] = eager
+    if not m["graph_replays"]:
+        raise RuntimeError(f"{tag} with telemetry: no step replayed")
 
     def ms(name, key="dur"):
         return [e[key] * 1e3 for e in spans[name]]
@@ -2841,13 +2989,19 @@ def telemetry_run(cfg, params, trace, kw, want_tokens, base, tag):
 
 @torch.inference_mode()
 def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
-               max_len=1024, at_pos=None):
+               max_len=1024, at_pos=None, engine_ms=None):
     """Device time of one 8-slot decode step (with its greedy argmax),
     from CUDA-graph replays that take the host out of the step, beside
     the same step run eagerly: one loop of REPS steps right after the
     replays, timed on the host's clock to a synchronize
     (``eager_ms_per_step``); the difference is the device's idle time in
-    an eager step.  ``telemetry_on`` runs the eager loop seven more
+    an eager step.  The same step captured by
+    ``repro_torch.runtime.graphs`` (as the engine captures it) is
+    replayed REPS times back to back on the host's clock
+    (``graph_ms_per_step``); with ``engine_ms``, the graph engine's decode
+    ms a step over a trace, the device's idle share of the engine's
+    decode (``engine_idle_share``: 1 - the device step / it; the step at
+    this phase's positions, not the trace's).  ``telemetry_on`` runs the eager loop seven more
     times, telemetry off and on in turns, and compares the medians of
     each mode's four loops (the first loop counts as an off one).  The
     same eight prompts sit in the dense cache or, ``paged``, in 16-token
@@ -2886,6 +3040,15 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
         return torch.argmax(logits, -1)
 
     device = device_ms(step, [((tok, cache), {})])
+    graph = G.capture(lambda: step(tok, cache))
+
+    def graph_loop():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(REPS):
+            graph.replay()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / REPS * 1e3
 
     def eager_loop():
         torch.cuda.synchronize()
@@ -2905,8 +3068,14 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
         return ms
 
     eager = eager_loop()
+    replayed = graph_loop()
+    del graph
     out = {"device_ms_per_step": device, "eager_ms_per_step": eager,
-           "device_idle_share": 1.0 - device / eager}
+           "device_idle_share": 1.0 - device / eager,
+           "graph_ms_per_step": replayed}
+    if engine_ms is not None:
+        out.update(engine_ms_per_step=engine_ms,
+                   engine_idle_share=1.0 - device / engine_ms)
     if at_pos is not None:
         kv = sum(bandwidth.decode_kv_bytes(
             [at_pos] * 8, n_kv_heads=cfg.n_kv_heads, head_dim=cfg.hd,
@@ -2935,7 +3104,11 @@ def step_phase(cfg, params, *, paged, mode=None, telemetry_on=False,
         "slots" + (f" at position {at_pos}" if at_pos is not None else "")
         + "): device "
         f"{device:.2f} ms (CUDA graph), eager {eager:.2f} ms; device idle "
-        f"{out['device_idle_share']:.1%} of an eager step"
+        f"{out['device_idle_share']:.1%} of an eager step; the captured "
+        f"step replayed back to back {replayed:.2f} ms a step (host clock)"
+        + (f"; the graph engine's decode {engine_ms:.2f} ms a step over "
+           f"the trace: the device idle {out['engine_idle_share']:.1%} of "
+           "it" if engine_ms is not None else "")
         + (f"; byte bound {out['bound_ms']:.2f} ms ("
            f"{out['weight_bytes'] / 1e9:.2f} GB of weights, "
            f"{out['kv_bytes'] / 1e9:.2f} GB of KV, "
@@ -3021,7 +3194,8 @@ def autotune_phase(cfg, params, untuned, card):
         search = serve_phase(cfg, params, paged=False, mode="tuning")
         seconds = time.perf_counter() - t0
         run = serve_phase(cfg, params, paged=False, mode="tuned")
-        run["step"] = step_phase(cfg, params, paged=False, mode="tuned")
+        run["step"] = step_phase(cfg, params, paged=False, mode="tuned",
+                                 engine_ms=run["decode_ms_per_step"])
         plans = [pl for pl in api.plans() if not pl.spec.grouped]
         attn_plans = [pl for pl in attn_api.attn_plans()
                       if pl.kernel in attn_api.TUNABLE_KERNELS]
@@ -3611,16 +3785,18 @@ def h2o_phases(card):
     trace = h2o_trace(cfg)
     torch.cuda.reset_peak_memory_stats()
     dense = serve_phase(cfg, params, paged=False, trace=trace,
-                        max_len=H2O_MAX_LEN)
+                        max_len=H2O_MAX_LEN, eager_gate=True)
     torch.cuda.reset_peak_memory_stats()
     paged = serve_phase(cfg, params, paged=True, trace=trace,
                         max_len=H2O_MAX_LEN, chunk=H2O_CHUNK)
     dense.pop("_plans")
     paged.pop("_plans")
     dense["step"] = step_phase(cfg, params, paged=False,
-                               max_len=H2O_MAX_LEN, at_pos=H2O_STEP_POS)
+                               max_len=H2O_MAX_LEN, at_pos=H2O_STEP_POS,
+                               engine_ms=dense["decode_ms_per_step"])
     paged["step"] = step_phase(cfg, params, paged=True, max_len=H2O_MAX_LEN,
-                               at_pos=H2O_STEP_POS)
+                               at_pos=H2O_STEP_POS,
+                               engine_ms=paged["decode_ms_per_step"])
     out = {"config": cfg.name, "layers": cfg.n_layers,
            "weights_gb": weights_gb, "serve": dense,
            "paged_serve": paged,
@@ -3691,10 +3867,11 @@ def recurrent_phases(name, card, *, max_len, long, step_pos,
     trace = long_trace(cfg, long, 21)
     torch.cuda.reset_peak_memory_stats()
     dense = serve_phase(cfg, params, paged=False, trace=trace,
-                        max_len=max_len)
+                        max_len=max_len, eager_gate=True)
     dense.pop("_plans")
     dense["step"] = step_phase(cfg, params, paged=False, max_len=max_len,
-                               at_pos=step_pos)
+                               at_pos=step_pos,
+                               engine_ms=dense["decode_ms_per_step"])
     try:
         DecodeEngine(params, cfg, batch=8, max_len=max_len, page_size=16,
                      device="cuda")
@@ -3895,12 +4072,13 @@ def whisper_phases(card):
     trace = whisper_trace(cfg)
     torch.cuda.reset_peak_memory_stats()
     dense = serve_phase(cfg, params, paged=False, trace=trace,
-                        max_len=WHISPER_MAX_LEN)
+                        max_len=WHISPER_MAX_LEN, eager_gate=True)
     dense.pop("_plans")
     out["encoder"] = encoder_share(cfg, params, trace[0].frames, dense)
     dense["step"] = step_phase(cfg, params, paged=False,
                                max_len=WHISPER_MAX_LEN,
-                               at_pos=WHISPER_STEP_POS)
+                               at_pos=WHISPER_STEP_POS,
+                               engine_ms=dense["decode_ms_per_step"])
     out["serve"] = dense
     out["bit_identity_requests"] = dense_bit_identity_phase(
         cfg, params, trace, dense.pop("_tokens"), WHISPER_MAX_LEN)
@@ -3938,7 +4116,8 @@ def a9_serve_phases(name, card):
     # the trace's prompts with no bound
     dense["step"] = step_phase(cfg, params, paged=False,
                                at_pos=None if cfg.n_experts
-                               else A9_STEP_POS)
+                               else A9_STEP_POS,
+                               engine_ms=dense["decode_ms_per_step"])
     out["serve"] = dense
     out["bit_identity_requests"] = dense_bit_identity_phase(
         cfg, params, serve_trace(cfg), dense.pop("_tokens"), 1024)
@@ -3950,7 +4129,8 @@ def a9_serve_phases(name, card):
         paged.pop("_tokens")
         paged["step"] = step_phase(cfg, params, paged=True,
                                    at_pos=None if cfg.n_experts
-                                   else A9_STEP_POS)
+                                   else A9_STEP_POS,
+                                   engine_ms=paged["decode_ms_per_step"])
         out["paged_serve"] = paged
         out["paged_bit_identity_reference"] = f"{A9_PAGED[name]} solo"
         out["paged_bit_identity_requests"] = paged_bit_identity_phase(
@@ -4028,7 +4208,7 @@ def int8_serve_phases(cfg, qparams, *, reference="dense", paged=True,
                                         trace=trace, max_len=max_len)}
             run["serve"]["step"] = step = step_phase(
                 cfg, qparams, paged=False, mode=mode, max_len=max_len,
-                at_pos=at_pos)
+                at_pos=at_pos, engine_ms=run["serve"]["decode_ms_per_step"])
             if bf16_step is not None:
                 ms, bf = step["device_ms_per_step"], \
                     bf16_step["device_ms_per_step"]
@@ -4038,8 +4218,9 @@ def int8_serve_phases(cfg, qparams, *, reference="dense", paged=True,
             if paged and mode == "w8a16":
                 run["paged_serve"] = serve_phase(cfg, qparams, paged=True,
                                                  mode=mode)
-                run["paged_serve"]["step"] = step_phase(cfg, qparams,
-                                                        paged=True, mode=mode)
+                run["paged_serve"]["step"] = step_phase(
+                    cfg, qparams, paged=True, mode=mode,
+                    engine_ms=run["paged_serve"]["decode_ms_per_step"])
             run["bit_identity_requests"] = bit_identity_phase(cfg, qparams)
             if paged:
                 run["paged_bit_identity_requests"] = \
@@ -4113,7 +4294,7 @@ class TransposeRecorder:
         self._plain = api._plain
 
         def record(a, b, *args, **kw):
-            for t in (a, b):
+            for t in (a, b) if not G.recording() else ():
                 if not t.is_contiguous():
                     key = (tuple(t.shape), t.dtype)
                     self.views[key] = self.views.get(key, 0) + 1
@@ -4219,7 +4400,7 @@ def train_cross_device_phase(arch="smollm-360m", optimizer="adamw",
 
 def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
                 steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH,
-                optimizer="adamw"):
+                optimizer="adamw", grads_at_end=False):
     """``repro_torch.launch.train.train`` on ``cfg`` (smollm-360m at full
     width by default) in bf16: ``steps`` ``optimizer`` steps of ``batch``
     x ``seq`` tokens from seed 0 (an encoder-decoder's rows with stub
@@ -4234,7 +4415,10 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
     version; B3, B6 and (but for a GELU MLP) B2 must launch in every
     step.  Every
     step's loss and grad norm must be finite and every parameter leaf's
-    gradient at step 0 finite and non-zero.  With ``telemetry_base`` the
+    gradient at step 0 finite and non-zero; with ``grads_at_end`` the
+    steps keep no gradient (the step frees each leaf once used, as a
+    model near the card's memory needs) and the gradient is taken at the
+    final parameters instead.  With ``telemetry_base`` the
     run records telemetry: one ``train.step`` span a step, whose ms must
     agree with the step's wall ms within 5 % (the span waits for the
     loss), exported to ``chiprun_out/telemetry_base``."""
@@ -4242,7 +4426,7 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
     flops = cfg.model_flops(tokens, training=True)
     must = ("flash_attention",) + (
         () if cfg.family == "audio" else ("gemm_gated",))
-    rows, out = [], {}
+    rows, out, kept = [], {"step_views": {}}, {}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_counters()
@@ -4271,12 +4455,8 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
             if not (math.isfinite(loss) and math.isfinite(gn)):
                 raise RuntimeError(f"train step {step}: loss {loss}, "
                                    f"grad norm {gn}")
-            if step == 0:
-                for key, g in _paths(m["grads"]):
-                    if not torch.isfinite(g.float()).all() \
-                            or not g.float().abs().sum() > 0:
-                        raise RuntimeError(f"train step 0: the gradient of "
-                                           f"{key} is zero or non-finite")
+            if step == 0 and not grads_at_end:
+                _check_grads(m["grads"], "train step 0")
             rows.append({
                 "step": step, "loss": loss, "grad_norm": gn,
                 "lr": float(m["lr"]), "wall_ms": times["wall_ms"],
@@ -4285,11 +4465,14 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
                 "model_flop_share": flops / (times["wall_ms"] * 1e-3)
                 / PEAK_OPS[torch.bfloat16],
                 "launches": launches, "gemms_executed": executed})
-            out["step_plans"], out["step_views"] = dict(rec.plans), \
-                dict(tr.views)
+            out["step_plans"] = dict(rec.plans)
+            if tr.views:        # a replayed step passes no wrapper
+                out["step_views"] = dict(tr.views)
             if step == steps - 1 and ckpt_dir:    # for the resume phase
                 out["final_params"] = map_tree(
                     lambda t: t.detach().cpu(), state.params)
+            if step == steps - 1 and grads_at_end:
+                kept["params"] = state.params
             log(f"train {cfg.name} step {step}: loss {loss:.4f} gnorm "
                 f"{gn:.3f}; wall "
                 f"{times['wall_ms']:.1f} ms, device {times['device_ms']:.1f} "
@@ -4307,10 +4490,18 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
             final = train_launch.train(
                 cfg, steps=steps, seq_len=seq, global_batch=batch, seed=0,
                 device="cuda", optimizer=optimizer, ckpt_dir=ckpt_dir,
-                ckpt_every=RESUME_AT, on_step=on_step, return_grads=True)
+                ckpt_every=RESUME_AT, on_step=on_step,
+                return_grads=not grads_at_end)
         finally:
             telemetry.disable()
         seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    if grads_at_end:        # the steps' state is freed but its parameters
+        batch_ = pipeline.make_batch(cfg, pipeline.DataConfig(
+            seq_len=seq, global_batch=batch, seed=0), 0, "cuda")
+        _check_grads(TS.value_and_grad(kept.pop("params"), cfg, batch_)[2],
+                     f"train {cfg.name} at the final parameters")
+        del batch_
     if trec is not None:
         spans = [e for e in trec.events if e["name"] == "train.step"]
         if [e["attrs"]["step"] for e in spans] != list(range(steps)):
@@ -4334,7 +4525,6 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
                                               for r in rows)
             + f" ms; {len(trec.events)} events; wrote "
             + ", ".join(out["telemetry"]["artifacts"]))
-    peak = torch.cuda.max_memory_allocated()
     steady = rows[1:]
     out.update({"config": cfg.name, "dtype": cfg.dtype, "steps": rows,
                 "optimizer": optimizer, "batch": batch, "seq": seq,
@@ -4355,6 +4545,108 @@ def train_phase(cfg, card, ckpt_dir=None, telemetry_base=None, *,
         f"(max_memory_allocated); launches a step "
         f"{rows[-1]['launches']} [{card}]")
     return out
+
+
+#: the graph == eager train gate's steps
+TRAIN_GRAPH_STEPS = 3
+
+
+def train_graph_phase(cfg, card):
+    """The compiled training step against the eager ones: from one seed-0
+    state of ``cfg`` (smollm-360m at full width, bf16, b 8 x s 512,
+    AdamW, warmup 1, peak lr 3e-4) three copies run TRAIN_GRAPH_STEPS
+    steps on the same batches: the step that returns a new state
+    (``make_train_step``), the eager consuming step
+    (``consume=True``) and the consuming step replayed from one CUDA
+    graph (``launch.train.CapturedStep``; its first call is the
+    capture's eager warm-up).  After every step the three agree bit for
+    bit on the loss, the grad norm, every parameter and both AdamW
+    moments, and launch the same kernels as often.  Each step's wall ms
+    (host clock between synchronizes), tokens/s and model-FLOP share
+    are reported, the steady figures (steps 1 on) by mode, with the
+    peak memory of each mode's run."""
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    flops = cfg.model_flops(tokens, training=True)
+    base = TS.init_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device="cuda", optimizer="adamw")
+    kw = dict(optimizer="adamw", warmup_steps=1, peak_lr=3e-4,
+              total_steps=TRAIN_GRAPH_STEPS, n_loss_chunks=LOSS_CHUNKS)
+    modes = {"new_state": TS.make_train_step(cfg, **kw),
+             "consuming": TS.make_train_step(cfg, consume=True, **kw),
+             "graph": train_launch.CapturedStep(
+                 TS.make_train_step(cfg, consume=True, **kw))}
+    states = {name: map_tree(torch.clone, base) for name in modes}
+    del base
+    data = pipeline.DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                               seed=0)
+    ms = {name: [] for name in modes}
+    peaks = {name: 0 for name in modes}
+    for i in range(TRAIN_GRAPH_STEPS):
+        batch = pipeline.make_batch(cfg, data, i, "cuda")
+        got, launched = {}, {}
+        for name, fn in modes.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_counters()
+            t0 = time.perf_counter()
+            states[name], m = fn(states[name], batch)
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+            peaks[name] = max(peaks[name], torch.cuda.max_memory_allocated())
+            launched[name] = counts()
+            got[name] = (m["loss"].clone(), m["grad_norm"].clone())
+        for name in ("consuming", "graph"):
+            same = [torch.equal(a, b) for a, b in zip(got[name],
+                                                      got["new_state"])]
+            same += [torch.equal(a, b) for a, b in zip(
+                tree_leaves(dict(p=states[name].params,
+                                 mu=states[name].opt.mu,
+                                 nu=states[name].opt.nu)),
+                tree_leaves(dict(p=states["new_state"].params,
+                                 mu=states["new_state"].opt.mu,
+                                 nu=states["new_state"].opt.nu)))]
+            if not all(same) or launched[name] != launched["new_state"]:
+                raise RuntimeError(
+                    f"train graph gate, step {i}: the {name} step differs "
+                    f"from the new-state step in {same.count(False)} of "
+                    f"{len(same)} values (loss, grad norm, leaves); "
+                    f"launches {launched[name]} against "
+                    f"{launched['new_state']}")
+    if modes["graph"].graph.replays != TRAIN_GRAPH_STEPS - 1:
+        raise RuntimeError(f"train graph gate: "
+                           f"{modes['graph'].graph.replays} replays")
+    out = {"config": cfg.name, "steps": TRAIN_GRAPH_STEPS,
+           "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "wall_ms": ms,
+           "peak_memory_bytes": peaks, "launches_a_step":
+               launched["graph"]}
+    for name, walls in ms.items():
+        steady = float(np.median(walls[1:]))
+        out[name] = {"steady_wall_ms": steady,
+                     "tokens_per_s": tokens / steady * 1e3,
+                     "model_flop_share": flops / (steady * 1e-3)
+                     / PEAK_OPS[torch.bfloat16]}
+    log(f"train graph gate {cfg.name} bf16 b {TRAIN_BATCH} x s {TRAIN_SEQ} "
+        f"AdamW, {TRAIN_GRAPH_STEPS} steps: the captured step == the eager "
+        "consuming step == the new-state step bit for bit (loss, grad norm, "
+        "every parameter and both moments, each step), launches equal; "
+        "steady wall (steps 1 on) "
+        + "; ".join(f"{name} {out[name]['steady_wall_ms']:.1f} ms, "
+                    f"{out[name]['tokens_per_s']:.0f} tok/s, model-FLOP "
+                    f"share {out[name]['model_flop_share']:.2%}, peak "
+                    f"{peaks[name] / 1e9:.2f} GB" for name in modes)
+        + f" (steps {', '.join(f'{n}: ' + ' / '.join(f'{x:.1f}' for x in w) for n, w in ms.items())} ms) [{card}]")
+    del states, modes
+    torch.cuda.empty_cache()
+    return out
+
+
+def _check_grads(grads, tag):
+    """Every gradient leaf finite and non-zero, or raise."""
+    for key, g in _paths(grads):
+        if not torch.isfinite(g.float()).all() \
+                or not g.float().abs().sum() > 0:
+            raise RuntimeError(f"{tag}: the gradient of {key} is zero or "
+                               "non-finite")
 
 
 def _paths(tree, pre=""):
@@ -4432,14 +4724,15 @@ def train_kernel_phase(step_plans, attn=True, keep=lambda pl: True):
 # --------------------- training the windowed and encoder-decoder families
 
 #: (layers, steps, batch, sequence) of each family's full-width training
-#: run: h2o-danube-3-4b at the depth its serve path runs (H2O_LAYERS),
+#: run: h2o-danube-3-4b at its full 24 layers (the consuming step's meta
+#: peak 55.09 GB; the step that returned a new state needed 112.07 GB),
 #: one row of 4608 tokens, past its 4096-token window; whisper-medium at
 #: full depth, 8 rows of its 448-token decoder context, each over 1500
 #: stub frames.  The attention backward recomputes through the plain f32
 #: reference (blocked past 1024 positions): its score blocks, h x s x s x
 #: 4 bytes a layer in all (2.7 GB for h2o's, 1.2 GB for whisper's
 #: encoder), bound the length
-A9_TRAIN = {H2O: (H2O_LAYERS, 3, 1, 4608), WHISPER: (None, 3, 8, 448)}
+A9_TRAIN = {H2O: (None, 3, 1, 4608), WHISPER: (None, 3, 8, 448)}
 #: the smoke configs' card-against-CPU step: h2o's 64 tokens run past its
 #: 32-token smoke window
 A9_TRAIN_CROSS_SEQ = {H2O: 64, WHISPER: 32}
@@ -4448,10 +4741,10 @@ A9_TRAIN_CROSS_SEQ = {H2O: 64, WHISPER: 32}
 def a9_train_phase(name, card):
     """:func:`train_phase` on ``name`` at full width (depth by
     :data:`A9_TRAIN`), with the optimizer ``select_optimizer`` gives the
-    full-depth config; the peak memory is reckoned and logged first (16
-    bytes a parameter: the bf16 parameters, gradients, clipped gradients
-    and new parameters, and AdamW's two f32 moments; plus one layer's
-    f32 attention scores in the backward), then measured."""
+    full-depth config; the peak memory is reckoned and logged first (12
+    bytes a parameter under the consuming step: the bf16 parameters and
+    gradients, and AdamW's two f32 moments; plus one layer's f32
+    attention scores in the backward), then measured."""
     t0 = time.perf_counter()
     full = get_config(name)
     layers, steps, batch, seq = A9_TRAIN[name]
@@ -4459,7 +4752,7 @@ def a9_train_phase(name, card):
         dataclasses.replace(full, n_layers=layers)
     optimizer = TS.select_optimizer(full)
     n = cfg.param_count()
-    per_param = 4 * 2 + (8 if optimizer == "adamw" else 0)
+    per_param = 2 * 2 + (8 if optimizer == "adamw" else 0)
     skv = cfg.encoder_seq or seq
     scores = cfg.n_heads * (batch * skv * skv) * 4
     reckoned = n * per_param + scores
@@ -4471,14 +4764,16 @@ def a9_train_phase(name, card):
         + (f", {cfg.encoder_seq} stub frames a row" if cfg.encoder_layers
            else "")
         + f"; reckoned peak {reckoned / 1e9:.1f} GB: {n / 1e9:.2f} G "
-        f"parameters x {per_param} B (bf16 parameters, gradients, clipped "
-        f"gradients, new parameters"
+        f"parameters x {per_param} B (bf16 parameters and gradients"
         + (", AdamW's two f32 moments" if optimizer == "adamw" else "")
         + f") + {scores / 1e9:.2f} GB of one layer's f32 attention scores "
         f"in the backward [{card}]")
+    gc.collect()
     torch.cuda.empty_cache()
+    log(f"train {name}: {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+        "allocated before the run")
     run = train_phase(cfg, card, steps=steps, seq=seq, batch=batch,
-                      optimizer=optimizer)
+                      optimizer=optimizer, grads_at_end=True)
     run.pop("step_plans")
     run.pop("step_views")
     run.update(layers=cfg.n_layers, full_layers=full.n_layers,
@@ -4504,7 +4799,8 @@ def a9_train_kernel_phase():
     cases = {
         H2O: attn_case(
             f"train h2o {hb}x{hs} h{h2o.n_heads}/{h2o.n_kv_heads} "
-            f"d{h2o.hd} window {h2o.window}", 2 * H2O_LAYERS, hb, hs,
+            f"d{h2o.hd} window {h2o.window}",
+            2 * (A9_TRAIN[H2O][0] or h2o.n_layers), hb, hs,
             h2o.n_heads, h2o.n_kv_heads, h2o.hd, torch.bfloat16,
             window=h2o.window),
         WHISPER: attn_case(
@@ -4547,7 +4843,9 @@ def resume_phase(cfg, unbroken, ckpt_dir, card):
     batch = pipeline.make_batch(
         cfg, pipeline.DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                                  seed=0), 0, "cuda")
-    (s1, m1), (s2, m2) = (step_fn(state, batch) for _ in range(2))
+    # the step consumes its state: each run on a copy of it
+    (s1, m1), (s2, m2) = (step_fn(map_tree(torch.clone, state), batch)
+                          for _ in range(2))
     spread = max(abs(float(m1["loss"]) - float(m2["loss"])),
                  _tree_spread(s1.params, s2.params),
                  _tree_spread(s1.opt.mu, s2.opt.mu),
@@ -4609,11 +4907,11 @@ def resume_phase(cfg, unbroken, ckpt_dir, card):
 # ------------------------------------------------------- MoE training
 
 #: qwen3-moe-235b-a22b trains at full width with its depth cut to this
-#: many layers: at 1 the parameters, their gradients, the clipped
-#: gradients and the new parameters (four bf16 trees of 3.73 G elements,
-#: 29.9 GB) and Adafactor's f32 temporaries of one 805 M-element expert
-#: bank (~16 GB) fit the card; at 2 (~82 GB) they do not
-MOE_TRAIN_LAYERS = 1
+#: many layers: the deepest whose consuming step the dry-run fits in 80
+#: GB with 5 % to spare (meta peaks 22.41 / 41.46 / 60.95 GB at 1 / 2 / 3
+#: layers, about 80.4 at 4; the step that returned a new state peaked at
+#: 47.60 GB at 1)
+MOE_TRAIN_LAYERS = 3
 MOE_TRAIN_STEPS = 3
 #: B7 launches of one MoE layer's training step: three forward, three in
 #: the remat recompute, the gate's f32 pre-activation recompute and three
@@ -4638,20 +4936,24 @@ def moe_train_phase(full, card):
     Counts and executed plans are set to 0 before the run and after every
     step: each step's launches must equal its executed plans, B7 launch
     B7_PER_LAYER_STEP times a layer, B3 twice a layer, and no plain
-    version run; loss and grad norm finite, every gradient leaf finite
-    and non-zero at step 0 (router and banks included).  The last step
+    version run; loss and grad norm finite.  The last step
     is traced with ``torch.profiler`` (device busy time by kernel
     family, ``tools/train_profile.py``'s summary).  Then the loss and
-    gradients at the final parameters are taken twice: whether they
-    agree bit for bit says whether the MoE step is deterministic."""
+    gradients at the final parameters are taken twice: every gradient
+    leaf must be finite and non-zero (router and banks included), and
+    whether the two agree bit for bit says whether the MoE step is
+    deterministic.  The steps keep no gradient (``return_grads`` off:
+    the step the dry-run fits in 80 GB frees each gradient leaf once the
+    optimizer has used it); the first gradients are copied to the host
+    before the second are taken."""
     cfg = dataclasses.replace(full, n_layers=MOE_TRAIN_LAYERS)
     optimizer = TS.select_optimizer(full)
     log(f"{full.name} training: full width, depth cut {full.n_layers} -> "
         f"{MOE_TRAIN_LAYERS} layer(s), {optimizer} (the full model's "
-        f"optimizer): at 1 layer the parameters, gradients, clipped "
-        f"gradients and new parameters (4 x {cfg.param_count() * 2 / 1e9:.2f}"
-        f" GB of bf16) and Adafactor's f32 temporaries of one expert bank "
-        f"fit 80 GB; at 2 layers they do not")
+        f"optimizer), the consuming step (eager: MoE training reads the "
+        f"group sizes on the host): the deepest the dry-run fits in 80 GB "
+        f"with 5 % to spare ({cfg.param_count() * 2 / 1e9:.2f} GB of bf16 "
+        f"parameters)")
     tokens = TRAIN_SEQ * TRAIN_BATCH
     flops = cfg.model_flops(tokens, training=True)
     rows, out, kept = [], {}, {}
@@ -4683,15 +4985,9 @@ def moe_train_phase(full, card):
                 raise RuntimeError(f"MoE train step {step}: loss {loss}, "
                                    f"grad norm {gn}")
             if step == 0:
-                for key, g in _paths(m.pop("grads")):
-                    if not torch.isfinite(g.float()).all() \
-                            or not g.float().abs().sum() > 0:
-                        raise RuntimeError(f"MoE train step 0: the gradient "
-                                           f"of {key} is zero or non-finite")
                 out["step_plans"], out["step_views"] = dict(rec.plans), \
                     dict(tr.views)
                 out["group_sizes"] = rec.group_sizes.cpu().tolist()
-            m.pop("grads", None)
             rows.append({
                 "step": step, "loss": loss, "grad_norm": gn,
                 "aux": float(m["aux"]), "lr": float(m["lr"]),
@@ -4724,7 +5020,7 @@ def moe_train_phase(full, card):
         final = train_launch.train(
             cfg, steps=MOE_TRAIN_STEPS, seq_len=TRAIN_SEQ,
             global_batch=TRAIN_BATCH, seed=0, device="cuda",
-            optimizer=optimizer, on_step=on_step, return_grads=True)
+            optimizer=optimizer, on_step=on_step)
         seconds = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     profile = train_profile.summarize(kept.pop("prof"))
@@ -4732,9 +5028,13 @@ def moe_train_phase(full, card):
     batch = pipeline.make_batch(
         cfg, pipeline.DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
                                  seed=0), 0, "cuda")
-    (l1, _, g1), (l2, _, g2) = (TS.value_and_grad(kept["params"], cfg, batch)
-                                for _ in range(2))
-    spread = max(abs(float(l1) - float(l2)), _tree_spread(g1, g2))
+    l1, _, g1 = TS.value_and_grad(kept["params"], cfg, batch)
+    _check_grads(g1, "MoE train at the final parameters")
+    g1 = map_tree(lambda t: t.cpu(), g1)
+    l2, _, g2 = TS.value_and_grad(kept["params"], cfg, batch)
+    spread = max([abs(float(l1) - float(l2))] + [
+        (a.to(b.device).float() - b.float()).abs().max().item()
+        for a, b in zip(tree_leaves(g1), tree_leaves(g2))])
     del g1, g2, kept
     reset_counters()
     clean = rows[1:-1] or rows[1:]
@@ -4868,10 +5168,11 @@ def moe_train_kernel_phase(cfg, sizes, step_plans, card):
 #: optimizer) at b TRAIN_BATCH x s TRAIN_SEQ, as phases 7b and 9 train
 OP_COST_STEPS = (("smollm-360m", None, "adamw"),
                  ("qwen3-moe-235b-a22b", MOE_TRAIN_LAYERS, "adafactor"))
-#: h2o-danube-3-4b training at b 1 x s 4608, predicted on meta only: at
-#: its full 24 layers launch/train.py ran out of memory on the card
-#: (72.77 GiB allocated), at 8 layers it peaked at 45.40 GB (PERF.md 5)
-OP_COST_H2O = ((24, "over"), (8, 45.40e9))
+#: h2o-danube-3-4b training at b 1 x s 4608, traced on meta only, at 24
+#: and 8 layers: the consuming step fits both (the step that returned a
+#: new state needed 112.07 GB at 24, and ran out of memory on the card);
+#: phase 11 trains the 24 layers on the card
+OP_COST_H2O = (24, 8)
 #: the meta peak against max_memory_allocated for the same step
 PEAK_TOL = 0.10
 #: the cells the dry-run's --measure runs, with their debug meshes: the
@@ -4895,14 +5196,14 @@ def _op_cost_cfg(name, layers):
 
 
 def meta_step_cost(name, layers, optimizer, batch, seq) -> dict:
-    """One training step of ``name`` (``layers`` deep) traced on the meta
-    device under ``repro_torch.core.op_cost``: its counts and peak (a
-    task of phase 13's process pool; it touches no card)."""
+    """One consuming training step of ``name`` (``layers`` deep) traced
+    on the meta device under ``repro_torch.core.op_cost``: its counts and
+    peak (a task of phase 13's process pool; it touches no card)."""
     cfg = _op_cost_cfg(name, layers)
     state = TS.state_struct(cfg, optimizer)
     rows = pipeline.batch_spec(cfg, pipeline.DataConfig(
         seq_len=seq, global_batch=batch))
-    step = TS.make_train_step(cfg, optimizer=optimizer)
+    step = TS.make_train_step(cfg, optimizer=optimizer, consume=True)
     t0 = time.perf_counter()
     with op_cost.count(hold=(state, rows)) as c:
         step(state, rows)
@@ -4919,7 +5220,7 @@ def card_step_cost(name, layers, optimizer, card) -> dict:
     state = TS.init_state(cfg, gen, device="cuda", optimizer=optimizer)
     rows = pipeline.make_batch(cfg, pipeline.DataConfig(
         seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, seed=0), 0, "cuda")
-    step = TS.make_train_step(cfg, optimizer=optimizer)
+    step = TS.make_train_step(cfg, optimizer=optimizer, consume=True)
     held = sum(op_cost.storages((state, rows)).values())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4957,7 +5258,7 @@ def _compare_counts(tag, card_run, meta_run) -> dict:
     return out
 
 
-def op_cost_phase(card):
+def op_cost_phase(card, h2o_peak=None):
     """Phase 13: the port's op counter and dry-run on the card.
 
     1. For each step of :data:`OP_COST_STEPS`, one step on the card under
@@ -4966,8 +5267,8 @@ def op_cost_phase(card):
        (live rows against capacity, printed apart), and the meta peak
        within :data:`PEAK_TOL` of the card step's allocator peak.
     2. h2o-danube-3-4b training at b 1 x s 4608, predicted on meta only:
-       over the card's 80 GB at 24 layers, under it at 8 (beside the 45.40
-       GB a card run measured).
+       under the card's 80 GB at 24 layers and at 8 (the 24-layer peak
+       beside phase 11's run at that depth, ``h2o_peak``).
     3. ``repro_torch.launch.dryrun``'s ``--measure`` for each of
        :data:`MEASURE_CELLS` on its debug mesh: every planned GEMM
        executed on the card and held to its model; between them the
@@ -4982,7 +5283,7 @@ def op_cost_phase(card):
     jobs = [(name, layers, opt, TRAIN_BATCH, TRAIN_SEQ)
             for name, layers, opt in OP_COST_STEPS] + [
         (H2O, layers, TS.select_optimizer(get_config(H2O)), 1, 4608)
-        for layers, _ in OP_COST_H2O]
+        for layers in OP_COST_H2O]
     out = {"card": card}
     with concurrent.futures.ProcessPoolExecutor(3, mp_context=ctx) as pool:
         metas = [pool.submit(meta_step_cost, *job) for job in jobs]
@@ -5026,19 +5327,22 @@ def op_cost_phase(card):
             f"{ratio:.4f}); card step {run['seconds']:.1f} s counted, meta "
             f"trace {meta['seconds']:.1f} s; launches {run['launches']} "
             f"[{card}]")
-    for (layers, want), meta in zip(OP_COST_H2O, metas[len(OP_COST_STEPS):]):
+    for layers, meta in zip(OP_COST_H2O, metas[len(OP_COST_STEPS):]):
         peak = meta["peak_bytes"]
         fits = peak <= HOPPER_H100.hbm_bytes
-        if fits != (want != "over"):
+        if not fits:
             raise RuntimeError(f"op cost {H2O} at {layers} layers: meta "
-                               f"peak {peak / 1e9:.2f} GB, fits {fits}")
-        out[f"{H2O} ({layers} layers) meta"] = dict(meta, fits=fits)
+                               f"peak {peak / 1e9:.2f} GB, over 80 GB")
+        card_peak = h2o_peak if layers == get_config(H2O).n_layers else None
+        out[f"{H2O} ({layers} layers) meta"] = dict(
+            meta, fits=fits, card_train_peak_bytes=card_peak)
         log(f"op cost {H2O} {layers} layers b 1 x s 4608 (meta only): peak "
-            f"{peak / 1e9:.2f} GB, "
-            + ("over the card's 80 GB (launch/train.py ran out of memory "
-               "at 72.77 GiB allocated)" if want == "over" else
-               f"fits; a card run peaked at {want / 1e9:.2f} GB "
-               f"(ratio {peak / want:.4f})")
+            f"{peak / 1e9:.2f} GB, fits"
+            + (f"; phase 11's run at this depth peaked at "
+               f"{card_peak / 1e9:.2f} GB (max_memory_allocated over its "
+               f"three steps, the first the capture's; ratio "
+               f"{peak / card_peak:.4f})"
+               if card_peak else "")
             + f"; trace {meta['seconds']:.1f} s")
     out["measure"] = {}
     for cell, rec in measured.items():
@@ -5579,12 +5883,14 @@ def main() -> None:
     cfg = get_config("smollm-360m")
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = T.init_params(cfg, gen, device="cuda")
-    serve = serve_phase(cfg, params, paged=False,
+    serve = serve_phase(cfg, params, paged=False, eager_gate=True,
                         telemetry_base="telemetry_smollm_dense")
-    paged = serve_phase(cfg, params, paged=True,
+    paged = serve_phase(cfg, params, paged=True, eager_gate=True,
                         telemetry_base="telemetry_smollm_paged")
-    serve["step"] = step_phase(cfg, params, paged=False, telemetry_on=True)
-    paged["step"] = step_phase(cfg, params, paged=True, telemetry_on=True)
+    serve["step"] = step_phase(cfg, params, paged=False, telemetry_on=True,
+                               engine_ms=serve["decode_ms_per_step"])
+    paged["step"] = step_phase(cfg, params, paged=True, telemetry_on=True,
+                               engine_ms=paged["decode_ms_per_step"])
     paged.pop("_tokens")
     clock.mark(f"{cfg.name} serve")
     serve_plans = list(serve.pop("_plans")) + list(paged.pop("_plans"))
@@ -5613,6 +5919,7 @@ def main() -> None:
         del step_plans
         torch.cuda.empty_cache()
         resume = resume_phase(cfg, train_run, ckpt_dir, card)
+        train_graph = train_graph_phase(cfg, card)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     del train_run["final_params"]
@@ -5654,11 +5961,14 @@ def main() -> None:
         f"weights made from seed 0 in {time.perf_counter() - t0:.1f} s")
     torch.cuda.reset_peak_memory_stats()
     moe_serve = serve_phase(moe_cfg, moe_params, paged=False,
+                            eager_gate=True,
                             telemetry_base="telemetry_qwen3_moe_dense")
     moe_paged = serve_phase(moe_cfg, moe_params, paged=True)
     moe_serve["step"] = step_phase(moe_cfg, moe_params, paged=False,
-                                   telemetry_on=True)
-    moe_paged["step"] = step_phase(moe_cfg, moe_params, paged=True)
+                                   telemetry_on=True,
+                                   engine_ms=moe_serve["decode_ms_per_step"])
+    moe_paged["step"] = step_phase(moe_cfg, moe_params, paged=True,
+                                   engine_ms=moe_paged["decode_ms_per_step"])
     moe_paged.pop("_tokens")
     serve_plans = list(moe_serve.pop("_plans")) \
         + list(moe_paged.pop("_plans"))
@@ -5712,7 +6022,8 @@ def main() -> None:
         clock.mark(f"train {name}")
     train_a9_checked = a9_train_kernel_phase()
     clock.mark("training B3 rows")
-    op_cost_run = op_cost_phase(card)
+    op_cost_run = op_cost_phase(
+        card, h2o_peak=train_a9[H2O]["peak_memory_bytes"])
     clock.mark("op cost and dry-run")
     dist_run = dist_phases(card)
     clock.mark(f"two ranks: EP ({EP_ARCH}) and DP ({DP_ARCH})")
@@ -5850,6 +6161,7 @@ def main() -> None:
         "a9_train_cases": {n: rows for n, (rows, *_) in
                            train_a9_checked.items()},
         "train": train_run, "train_cross_device": train_cross,
+        "train_graph": train_graph,
         "train_cases": {n: rows for n, (rows, *_) in train_checked.items()},
         "resume": resume, "moe_train": moe_train,
         "moe_train_cross_device": moe_train_cross,

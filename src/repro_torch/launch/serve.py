@@ -190,6 +190,8 @@ def run_trace(engine: DecodeEngine, cfg, args) -> None:
           f"p99 {np.percentile(ttft, 99)*1e3:.0f} ms; "
           f"queue wait: mean {qwait.mean()*1e3:.0f} ms, "
           f"p99 {np.percentile(qwait, 99)*1e3:.0f} ms")
+    print(f"[serve] decode steps: {m['graph_replays']} replayed from a "
+          f"CUDA graph ({m['graph_captures']} captured), the rest eager")
     if engine.paged:
         print(f"[serve] paged KV: {m['prefill_chunks']} prefill "
               f"chunks, max decode stall "

@@ -9,10 +9,13 @@ whole SPMD program; the port runs eagerly, one process a rank, so a cell
 is one rank's step, traced by running it on meta tensors under
 :mod:`repro_torch.core.op_cost` (:mod:`repro_torch.launch.dryrun`).
 
-* **train** (:func:`_train_problem`): ``make_train_step(cfg,
-  n_loss_chunks=32)`` on the mesh over this rank's blocks of
-  ``state_struct(cfg)`` under ``runtime.elastic.state_specs`` and this
-  rank's rows of ``data.pipeline.batch_spec``.  The step gathers every
+* **train** (:func:`_train_problem`): the consuming
+  ``make_train_step(cfg, n_loss_chunks=32, consume=True)`` (the
+  reference lowers its step with ``donate_argnums=(0,)``) on the mesh
+  over this rank's blocks of ``state_struct(cfg)`` under
+  ``runtime.elastic.state_specs`` and this rank's rows of
+  ``data.pipeline.batch_spec``: the state's blocks are written in place,
+  so ``memory_analysis`` counts them as aliased.  The step gathers every
   leaf whole at its start but the expert banks (``ROADMAP.md`` A11,
   "per-layer FSDP gathering"), which the peak shows.
 * **prefill / decode** (:func:`_prefill_problem`,
@@ -97,7 +100,7 @@ def _train_problem(cfg: ModelConfig, shape: ShapeSpec, mesh,
     batch = pipeline.batch_spec(cfg, pipeline.DataConfig(
         seq_len=shape.seq_len, global_batch=shape.global_batch, rows=rows))
     step = TS.make_train_step(cfg, n_loss_chunks=DRYRUN_LOSS_CHUNKS,
-                              mesh=mesh, specs=specs)
+                              mesh=mesh, specs=specs, consume=True)
     return CellProblem(
         arch=cfg.name, shape=shape.name, kind="train", fn=step,
         args=(state, batch), tokens=shape.global_batch * shape.seq_len,

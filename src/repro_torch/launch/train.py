@@ -47,6 +47,16 @@ MoE models, the routed / dropped counters, and writes ``PATH.jsonl`` and
 ``PATH.trace.json``.  Like the JAX driver it has no ``--autotune``: the
 forward GEMMs tune when ``REPRO_AUTOTUNE`` or ``tune.enable`` turns
 tuning on; the backward's never do.
+
+The step consumes its state (the JAX launcher's ``donate_argnums=(0,)``:
+the new parameters and optimizer state are written into the state's own
+tensors).  On the card a one-rank step of a model without MoE layers
+replays from one CUDA graph (:class:`CapturedStep`: forward, backward
+with its remat recompute, and the update); ``train(graphs=False)`` runs
+it eagerly.  Two steps stay eager by rule: MoE training (the grouped
+GEMM's weight gradient reads the group sizes on the host,
+``kernels/api.py`` ``_grouped_param_grads``) and a step on a mesh of
+several ranks (its gloo exchanges are staged through host memory).
 """
 
 from __future__ import annotations
@@ -66,7 +76,7 @@ from repro_torch.configs.base import ARCH_IDS, get_config, \
 from repro_torch.data import pipeline
 from repro_torch.dist import collectives, layout, sharding as shd
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.runtime import elastic
+from repro_torch.runtime import elastic, graphs as G
 from repro_torch.runtime.fault_tolerance import StepWatchdog
 from repro_torch.train import train_step as TS
 
@@ -75,9 +85,10 @@ def build(cfg, *, device, peak_lr: float = 3e-4, total_steps: int = 1000,
           microbatches: int = 1, seed: int = 0,
           optimizer: Optional[str] = None, return_grads: bool = False,
           mesh=None):
-    """(state, step function) on ``device``, the state drawn from
-    ``seed``.  On a mesh of several ranks the state is this rank's blocks
-    under ``choose_layout``'s layout and the step the sharded one."""
+    """(state, consuming step function) on ``device``, the state drawn
+    from ``seed``.  On a mesh of several ranks the state is this rank's
+    blocks under ``choose_layout``'s layout and the step the sharded
+    one."""
     optimizer = optimizer or TS.select_optimizer(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     state = TS.init_state(cfg, gen, device=device, optimizer=optimizer)
@@ -91,8 +102,55 @@ def build(cfg, *, device, peak_lr: float = 3e-4, total_steps: int = 1000,
                                  microbatches=microbatches,
                                  optimizer=optimizer,
                                  return_grads=return_grads, mesh=mesh,
-                                 specs=specs)
+                                 specs=specs, consume=True)
     return state, step_fn
+
+
+def eager_reason(cfg, device, mesh=None) -> Optional[str]:
+    """Why a step of ``cfg`` on ``device`` and ``mesh`` cannot replay
+    from a CUDA graph, or None when it can."""
+    if torch.device(device).type != "cuda":
+        return "CUDA graphs need the card"
+    if cfg.n_experts:
+        return ("MoE training reads the group sizes on the host "
+                "(kernels/api.py _grouped_param_grads)")
+    if mesh is not None and shd.mesh_devices(mesh) > 1:
+        return ("a step on a mesh of several ranks stages its gloo "
+                "exchanges through host memory")
+    return None
+
+
+class CapturedStep:
+    """A consuming one-rank train step replayed from one CUDA graph
+    (:mod:`repro_torch.runtime.graphs`).  The first call runs the step
+    eagerly on its batch (the capture's warm-up) and captures it over
+    the state and over static copies of that batch; every later call
+    copies its batch into those buffers and replays.  The metrics a call
+    returns are the graph's static tensors, which the next call
+    rewrites; the state must be the one the step was captured on."""
+
+    def __init__(self, step_fn: Callable):
+        self.step_fn = step_fn
+        self.graph: Optional[G.Graph] = None
+        self.state = self.batch = None
+
+    def __call__(self, state, batch: dict):
+        if self.graph is None:
+            self.state = state
+            self.batch = {k: v.clone() for k, v in batch.items()}
+            self.graph = G.capture(
+                lambda: self.step_fn(self.state, self.batch))
+            return self.graph.take_first()
+        if state is not self.state:
+            raise ValueError("a captured step replays on the state it was "
+                             "captured with")
+        if batch.keys() != self.batch.keys() or any(
+                v.shape != self.batch[k].shape for k, v in batch.items()):
+            raise ValueError("a captured step replays on batches of the "
+                             "shapes it was captured with")
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        return self.graph.replay()
 
 
 def rank_rows(batch: dict, mesh) -> dict:
@@ -107,7 +165,8 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
           ckpt_every: int = 50, resume: bool = True,
           on_step: Optional[Callable] = None,
           return_grads: bool = False, mesh=None,
-          watchdog: Optional[StepWatchdog] = None) -> dict:
+          watchdog: Optional[StepWatchdog] = None,
+          graphs: Optional[bool] = None) -> dict:
     """Run (or resume) a training job up to step ``steps``; returns the
     last step's metrics as floats, and prints every step's line (rank 0
     only).  ``optimizer`` picks AdamW or Adafactor (default: by model
@@ -123,7 +182,10 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
     blocks), the step's metrics (``grads`` among them under
     ``return_grads``) and ``times``: ``wall_ms`` (host clock around the
     step, ended by a synchronize) and, on a card, ``device_ms`` (CUDA
-    events around the step)."""
+    events around the step).  ``graphs`` (default: wherever
+    :func:`eager_reason` finds none) replays the step from a CUDA graph
+    (:class:`CapturedStep`); ``graphs=False`` runs it eagerly, and
+    ``graphs=True`` raises where it cannot be captured."""
     device = resolve_device(device)
     optimizer = optimizer or TS.select_optimizer(cfg)
     if mesh is None:
@@ -134,6 +196,14 @@ def train(cfg, *, steps: int, seq_len: int, global_batch: int,
         cfg, device=device, total_steps=steps, microbatches=microbatches,
         seed=seed, optimizer=optimizer, return_grads=return_grads,
         mesh=mesh)
+    reason = eager_reason(cfg, device, mesh)
+    if graphs and reason:
+        raise ValueError(f"{cfg.name}: the step cannot be captured: "
+                         f"{reason}")
+    if graphs is None:
+        graphs = reason is None
+    if graphs:
+        step_fn = CapturedStep(step_fn)
     shardings = None
     if shd.mesh_devices(mesh) > 1:
         shardings = elastic.state_shardings(TS.state_struct(cfg, optimizer),

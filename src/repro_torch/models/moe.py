@@ -65,6 +65,7 @@ from repro_torch.dist import collectives as coll
 from repro_torch.dist import sharding as shd
 from repro_torch.kernels.gemm_grouped import shared_tables
 from repro_torch.models.layers import _row_sum, dense_init, normal_init
+from repro_torch.runtime import graphs
 
 
 def init_moe(generator: torch.Generator, d: int, d_ff: int,
@@ -270,10 +271,17 @@ def _emit_moe_counters(n_assignments: int, sizes: torch.Tensor) -> None:
     ``moe.dropped_tokens`` (capacity-dropped assignments), only while
     telemetry is on.  The sums stay on the device (a ``.item()`` here
     would sync every MoE layer of every step) until the snapshot reads
-    them; nothing is counted while a CUDA graph is being captured."""
+    them.  While a step is captured by :func:`repro_torch.runtime.graphs.
+    capture` they go to the capture's static accumulators, made before
+    it, which count every replay; under any other capture nothing is
+    counted."""
     if not telemetry.enabled():
         return
     if sizes.is_cuda and torch.cuda.is_current_stream_capturing():
+        if graphs.recording():
+            kept = sizes.sum(dtype=torch.int64)
+            graphs.device_count("moe.group_sizes", kept)
+            graphs.device_count("moe.dropped_tokens", n_assignments - kept)
         return
     kept = sizes.sum(dtype=torch.int64)
     telemetry.counter("moe.group_sizes").add(kept)

@@ -9,7 +9,7 @@ stacked norm scale is 2-D and decays, exactly as in the reference.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import Iterable, NamedTuple, Tuple
 
 import torch
 
@@ -39,6 +39,23 @@ def state_specs(param_specs, params) -> AdamWState:
                       nu=map_tree(lambda s: s, param_specs))
 
 
+def _leaf(g, m, v, p, *, c1, c2, lr, b1, b2, eps, weight_decay, decay):
+    """One leaf's (new p, new m, new v); elementwise, so a slice of the
+    leaves gives the same bits as the whole leaf."""
+    gf = g.float()
+    m_new = b1 * m + (1 - b1) * gf
+    v_new = b2 * v + (1 - b2) * gf * gf
+    delta = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
+    if decay:                            # no decay on norms / biases
+        delta = delta + weight_decay * p.float()
+    return (p.float() - lr * delta).to(p.dtype), m_new, v_new
+
+
+def _bias_corrections(step, b1: float, b2: float):
+    t = step.to(torch.float32)
+    return 1.0 - torch.pow(b1, t), 1.0 - torch.pow(b2, t)
+
+
 @torch.no_grad()
 def update(grads, state: AdamWState, params, *, lr,
            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
@@ -46,20 +63,45 @@ def update(grads, state: AdamWState, params, *, lr,
     """One step: (new params, new state).  ``lr`` is a float or a 0-d
     tensor on the parameters' device."""
     step = state.step + 1
-    t = step.to(torch.float32)
-    c1 = 1.0 - torch.pow(b1, t)
-    c2 = 1.0 - torch.pow(b2, t)
-
-    def upd(g, m, v, p):
-        gf = g.float()
-        m_new = b1 * m + (1 - b1) * gf
-        v_new = b2 * v + (1 - b2) * gf * gf
-        delta = (m_new / c1) / (torch.sqrt(v_new / c2) + eps)
-        if p.dim() >= 2:                     # no decay on norms / biases
-            delta = delta + weight_decay * p.float()
-        return (p.float() - lr * delta).to(p.dtype), m_new, v_new
-
-    out = zip_trees(upd, grads, state.mu, state.nu, params)
+    c1, c2 = _bias_corrections(step, b1, b2)
+    kw = dict(c1=c1, c2=c2, lr=lr, b1=b1, b2=b2, eps=eps,
+              weight_decay=weight_decay)
+    out = zip_trees(lambda g, m, v, p: _leaf(g, m, v, p, decay=p.dim() >= 2,
+                                             **kw),
+                    grads, state.mu, state.nu, params)
     return (map_tree(lambda o: o[0], out),
             AdamWState(step=step, mu=map_tree(lambda o: o[1], out),
                        nu=map_tree(lambda o: o[2], out)))
+
+
+@torch.no_grad()
+def update_(grads: Iterable, state: AdamWState, params, *, lr,
+            b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
+            weight_decay: float = 0.1) -> None:
+    """:func:`update` written into ``params`` and ``state`` in place (the
+    JAX step's donated state), the same bits.  ``grads`` yields each
+    leaf's gradient in leaf order and is drawn one leaf at a time, so a
+    gradient the caller no longer holds is freed once used.  A stacked
+    leaf (three or more dims) is updated a layer at a time, which keeps
+    the f32 temporaries to one layer's."""
+    state.step.add_(1)
+    c1, c2 = _bias_corrections(state.step, b1, b2)
+    kw = dict(c1=c1, c2=c2, lr=lr, b1=b1, b2=b2, eps=eps,
+              weight_decay=weight_decay)
+    for g, m, v, p in zip(grads, tree_leaves(state.mu),
+                          tree_leaves(state.nu), tree_leaves(params)):
+        kw["decay"] = p.dim() >= 2
+        if p.dim() >= 3:
+            for i in range(p.shape[0]):
+                _write(g[i], m[i], v[i], p[i], **kw)
+        else:
+            _write(g, m, v, p, **kw)
+        del g
+
+
+def _write(g, m, v, p, **kw) -> None:
+    """:func:`_leaf` into ``p``, ``m``, ``v``; its temporaries die here."""
+    p_new, m_new, v_new = _leaf(g, m, v, p, **kw)
+    p.copy_(p_new)
+    m.copy_(m_new)
+    v.copy_(v_new)

@@ -25,6 +25,21 @@ Host syncs are amortized: decode runs in bursts of up to
 ``max_tokens``), EOS is detected at burst boundaries and tokens sampled
 after it are dropped before a result is returned.
 
+On the card the decode step (``decode_step`` + the greedy argmax, the
+JAX engine's jitted ``_step`` + ``_argmax``) replays from a CUDA graph
+(:mod:`repro_torch.runtime.graphs`): the engine's first burst runs
+eagerly (it plans, tunes, builds the kernels), the next one captures
+the step over the engine's static buffers -- the token, the cache as
+allocated, its ``pos`` and ``page_table`` -- and every later step
+replays it.  Everything that writes those buffers between replays
+writes in place: admission prefills, chunked prefills, page copies,
+the page-table upload, ``pos`` (advanced in place by the step).
+Temperature sampling stays outside the graph and reads its static
+logits.  Prefill and the page copies stay eager (each prompt length
+would be a graph of its own).  A graph serves only the telemetry
+recorder it was captured under (or none); another one re-captures.
+``graphs=False`` runs every step eagerly; the CPU engine always does.
+
 With :mod:`repro_torch.telemetry` on, the engine emits the reference's
 events (``serve.request.queued`` / ``.admitted`` / ``.finished``), spans
 (``serve.prefill``, ``serve.prefill_chunk``, ``serve.decode_burst``, each
@@ -41,7 +56,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
-from typing import Callable, Deque, Dict, List, Optional
+from typing import Callable, Deque, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,6 +65,7 @@ from repro_torch import ops, quant, resolve_device, telemetry
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import bandwidth
 from repro_torch.models import transformer as T
+from repro_torch.runtime import graphs as G
 from repro_torch.serve import paging
 
 # EOS completion is checked on the host only every this-many steps; a
@@ -234,7 +250,11 @@ class DecodeEngine:
     ring-aligned tail.  A recurrent model (``ssm`` / ``rec`` layers) and
     an encoder-decoder serve on the dense cache only: ``page_size``
     raises for them, as in the JAX package
-    (``models.transformer.check_paged``)."""
+    (``models.transformer.check_paged``).
+
+    ``graphs`` (default: on the card) replays the decode step from a
+    CUDA graph (module docstring); ``graphs=False`` runs it eagerly, and
+    on the CPU ``graphs=True`` raises."""
 
     def __init__(self, params, cfg: ModelConfig, *, batch: int,
                  max_len: int, temperature: float = 0.0,
@@ -242,12 +262,21 @@ class DecodeEngine:
                  page_size: Optional[int] = None,
                  n_pages: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 prefix_cache: bool = True, seed: int = 0, device=None):
+                 prefix_cache: bool = True, seed: int = 0, device=None,
+                 graphs: Optional[bool] = None):
         T.check_supported(cfg)
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"parameters are on {params['embed'].device}, "
                              f"the engine runs on {self.device}")
+        cuda = self.device.type == "cuda"
+        if graphs and not cuda:
+            raise ValueError("CUDA graphs need the card; the engine on "
+                             f"{self.device} runs its steps eagerly")
+        self.graphs = cuda if graphs is None else graphs
+        self._graph: Optional[G.Graph] = None
+        self._graph_recorder = None     # the telemetry recorder it serves
+        self._warm = False              # an eager burst has run
         self.params = params
         self.cfg = cfg
         self.n_slots = self.batch = batch
@@ -284,6 +313,8 @@ class DecodeEngine:
         self._cache = None
         self._tok = torch.zeros((self.n_slots, 1), dtype=torch.int64,
                                 device=self.device)
+        self._burst = torch.zeros((EOS_CHECK_EVERY, self.n_slots),
+                                  dtype=torch.int64, device=self.device)
         self._temps = np.zeros((self.n_slots,), np.float32)
         self._gen = torch.Generator(device=self.device)
         self._gen.manual_seed(seed)
@@ -326,6 +357,8 @@ class DecodeEngine:
             # (page-rounded when paged) vs what dense max_len rows stream
             "modeled_kv_bytes": 0,
             "modeled_kv_bytes_dense_rows": 0,
+            "graph_captures": 0,         # decode-step captures
+            "graph_replays": 0,          # decode steps replayed
         }
         self._stall_run = 0
 
@@ -382,6 +415,53 @@ class DecodeEngine:
                         prompt_len=int(req.prompt.shape[0]),
                         max_tokens=req.max_tokens, arrival=req.arrival)
         return rid
+
+    # --------------------------------------------------------- decode step
+
+    def _step(self) -> torch.Tensor:
+        """One decode step over the engine's static buffers: ``pos``
+        advanced in place, the greedy tokens written into the token
+        buffer.  Returns the (slots, V) f32 logits."""
+        logits, new = T.decode_step(self.params, self.cfg, self._tok,
+                                    self._cache)
+        self._cache["pos"].copy_(new["pos"])
+        self._tok.copy_(torch.argmax(logits, -1)[:, None])
+        return logits
+
+    def _step_graph(self) -> Tuple[Optional[G.Graph], bool]:
+        """(the captured step, whether it was captured just now: its
+        warm-up ran this burst's first step); (None, False) to run the
+        burst eagerly (graphs off, or the engine's first burst)."""
+        if not self.graphs or not self._warm:
+            return None, False
+        rec = telemetry.recorder()
+        if self._graph is not None and self._graph_recorder is rec:
+            return self._graph, False
+        self._graph = None          # frees the old graph's pool first
+        self._graph = G.capture(self._step)
+        self._graph_recorder = rec
+        self.metrics["graph_captures"] += 1
+        return self._graph, True
+
+    def _decode_burst(self, k: int) -> np.ndarray:
+        """``k`` decode steps; their tokens (k, slots) on the host (the
+        burst's one sync)."""
+        graph, fresh = self._step_graph()
+        for j in range(k):
+            if graph is None:
+                logits = self._step()
+            elif j == 0 and fresh:
+                logits = graph.take_first()     # the capture's warm-up
+            else:
+                logits = graph.replay()
+                self.metrics["graph_replays"] += 1
+            if (self._temps > 0).any():
+                self._tok.copy_(self._sample(logits, self._temps)[:, None])
+            self._burst[j].copy_(self._tok[:, 0])
+        self._warm = True
+        if graph is not None:
+            graph.fold()
+        return self._burst[:k].cpu().numpy()
 
     def _ensure_cache(self) -> None:
         if self._cache is None:
@@ -683,33 +763,26 @@ class DecodeEngine:
             #      EOS checked at the boundary
             k = min([EOS_CHECK_EVERY]
                     + [self._state[s].remaining for s in active])
-            burst: List[torch.Tensor] = []
-            with telemetry.span("serve.decode_burst", steps=max(k, 1),
+            n = max(k, 1)
+            with telemetry.span("serve.decode_burst", steps=n,
                                 active=len(active),
                                 attn_plan=self._attn_plan_key()):
                 t_burst0 = time.perf_counter()
-                for _ in range(max(k, 1)):
-                    logits, self._cache = T.decode_step(
-                        self.params, self.cfg, self._tok, self._cache)
-                    samp = self._sample(logits, self._temps)
-                    self._tok = samp[:, None]
-                    burst.append(samp)
-                # (k, slots); the copy to the host waits for the burst
-                host = torch.stack(burst, dim=0).cpu().numpy()
+                host = self._decode_burst(n)    # (n, slots)
             self.metrics["decode_time"] += time.perf_counter() - t_burst0
-            self.metrics["decode_steps"] += len(burst)
-            self.metrics["useful_slot_steps"] += len(burst) * len(active)
-            telemetry.counter("serve.decode_steps").add(len(burst))
+            self.metrics["decode_steps"] += n
+            self.metrics["useful_slot_steps"] += n * len(active)
+            telemetry.counter("serve.decode_steps").add(n)
             self._stall_run = 0            # decode ran; stall over
-            for j in range(len(burst)):    # KV billed at true positions
+            for j in range(n):             # KV billed at true positions
                 self.metrics["modeled_kv_bytes"] += \
                     self.modeled_kv_bytes_per_step(
                         [self._state[s].pos + j for s in active])
             self.metrics["modeled_kv_bytes_dense_rows"] += \
-                len(burst) * self._dense_rows_kv_bytes_per_step()
+                n * self._dense_rows_kv_bytes_per_step()
             for s in active:
-                self._state[s].remaining -= len(burst)
-                self._state[s].pos += len(burst)
+                self._state[s].remaining -= n
+                self._state[s].pos += n
 
             # ---- sync + completions
             for s in active:

@@ -11,8 +11,13 @@
 * the optimizer by model size (AdamW; Adafactor from ~100B parameters);
 * global grad-norm clipping, then a warmup-cosine learning rate.
 
-The state is a plain tuple of tensor trees; the step returns a new one
-and never mutates its argument's tensors.
+The state is a plain tuple of tensor trees.  The default step returns
+a new one and never mutates its argument's tensors; the consuming step
+(``make_train_step(consume=True)``, the JAX step's
+``donate_argnums=(0,)``) writes the new parameters, optimizer state and
+step counter into the state's own tensors, the same bits, and frees
+each gradient leaf once the optimizer has used it, so the parameters
+and moments are never held twice.
 
 **On a mesh of several ranks** (``mesh``, ``specs``: the TrainState's
 spec tree from :func:`repro_torch.runtime.elastic.state_specs`) the
@@ -91,9 +96,34 @@ def state_struct(cfg: ModelConfig, optimizer: Optional[str] = None
                       optimizer=optimizer)
 
 
+def _clip_scale(gn, max_norm: float):
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
+
+
+def _clip_leaf(g, scale):
+    return (g.float() * scale).to(g.dtype)
+
+
 def _clip(grads, gn, max_norm: float):
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return map_tree(lambda g: (g.float() * scale).to(g.dtype), grads)
+    scale = _clip_scale(gn, max_norm)
+    return map_tree(lambda g: _clip_leaf(g, scale), grads)
+
+
+def _clipped(flat: list, scale):
+    """The gradients of ``flat`` clipped as :func:`_clip` does, one at a
+    time in order; each entry is cleared as it is drawn, so a gradient
+    no one else holds dies once the optimizer has used it."""
+    for i in range(len(flat)):
+        g, flat[i] = flat[i], None
+        c = _clip_leaf(g, scale)
+        del g
+        yield c
+        del c
+
+
+def _copy_into(dst: torch.Tensor, src: torch.Tensor) -> None:
+    if src is not dst:
+        dst.copy_(src)
 
 
 def _sum_in_order(xs):
@@ -134,16 +164,22 @@ def make_train_step(cfg: ModelConfig, *, optimizer: Optional[str] = None,
                     grad_clip: float = 1.0, microbatches: int = 1,
                     remat: bool = True, n_loss_chunks: int = 8,
                     return_grads: bool = False, mesh=None,
-                    specs: Optional[TrainState] = None) -> Callable:
+                    specs: Optional[TrainState] = None,
+                    consume: bool = False) -> Callable:
     """Build ``train_step(state, batch) -> (new_state, metrics)``.
     ``metrics`` holds the loss, the grad norm before clipping and the
     learning rate (and, with one microbatch, ``ce`` and ``aux``);
-    ``return_grads`` adds the unclipped gradient tree as ``grads``.
-    With a ``mesh`` of several ranks and the state's ``specs``, the step
-    of the module docstring."""
+    ``return_grads`` adds the unclipped gradient tree as ``grads`` (which
+    the consuming step then keeps until it returns).  With a ``mesh`` of
+    several ranks and the state's ``specs``, the step of the module
+    docstring.  ``consume`` builds the consuming step: ``new_state`` is
+    ``state``, its tensors written in place (on a mesh, this rank's
+    blocks of the gathered update)."""
     optimizer = optimizer or select_optimizer(cfg)
     opt_update = adamw.update if optimizer == "adamw" \
         else adafactor.update
+    opt_update_ = adamw.update_ if optimizer == "adamw" \
+        else adafactor.update_
 
     def grads_of(params, batch):
         if microbatches == 1:
@@ -195,7 +231,31 @@ def make_train_step(cfg: ModelConfig, *, optimizer: Optional[str] = None,
             out["grads"] = grads
         return new_state, out
 
-    return train_step
+    def consuming_step(state: TrainState, batch) -> Tuple[TrainState, dict]:
+        with ranks.scope():
+            params, opt = ranks.gather(state)
+            loss, metrics, grads = grads_of(params, batch)
+        grads = ranks.reduce(grads)
+        gnorm = torch.sqrt(_sum_in_order(ranks.squares(grads)))
+        lr = sched.warmup_cosine(state.step, peak_lr=peak_lr,
+                                 warmup_steps=warmup_steps,
+                                 total_steps=total_steps)
+        kept = grads if return_grads else None
+        flat = list(tree_leaves(grads))
+        del grads
+        opt_update_(_clipped(flat, _clip_scale(gnorm, grad_clip)), opt,
+                    params, lr=lr, weight_decay=weight_decay,
+                    **ranks.update_args)
+        ranks.write_back(state, params, opt)
+        state.step.add_(1)
+        loss, metrics = ranks.mean(loss, metrics)
+        out = {"loss": loss, "grad_norm": gnorm, "lr": lr}
+        out.update(metrics)
+        if return_grads:
+            out["grads"] = kept
+        return state, out
+
+    return consuming_step if consume else train_step
 
 
 class _OneRank:
@@ -218,6 +278,10 @@ class _OneRank:
 
     def shard(self, params, opt):
         return params, opt
+
+    def write_back(self, state: TrainState, params, opt) -> None:
+        """The updated ``params`` / ``opt`` into the state's own tensors
+        (one rank: they are the state's)."""
 
     def mean(self, loss, metrics: dict):
         return loss, metrics
@@ -289,6 +353,11 @@ class _Ranks(_OneRank):
     def shard(self, params, opt):
         return (layout.shard_tree(params, self.p_drop, self.mesh),
                 layout.shard_tree(opt, self.o_drop, self.mesh))
+
+    def write_back(self, state: TrainState, params, opt) -> None:
+        params, opt = self.shard(params, opt)
+        zip_trees(_copy_into, state.params, params)
+        zip_trees(_copy_into, state.opt, opt)
 
     def mean(self, loss, metrics: dict):
         every = coll.all_reduce(torch.stack(

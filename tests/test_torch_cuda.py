@@ -1748,3 +1748,123 @@ def test_op_cost_card_equals_meta(cuda_device, arch):
     assert card.bytes_by_scope == meta.bytes_by_scope
     assert card.calls_by_scope == meta.calls_by_scope
     assert card.grouped_rows["live"] == meta.grouped_rows["capacity"]
+
+
+# ------------------------------------------------ compiled steps (A13)
+
+#: one smoke config of each cache kind: dense, paged, MoE, a windowed
+#: ring, recurrent (rec + local ring; ssm), the encoder-decoder's cross
+#: cache
+GRAPH_ENGINES = [("smollm-360m", {}),
+                 ("smollm-360m", dict(page_size=8, prefill_chunk=8)),
+                 ("qwen3-moe-235b-a22b", {}), ("h2o-danube-3-4b", {}),
+                 ("recurrentgemma-9b", {}), ("mamba2-370m", {}),
+                 ("whisper-medium", {})]
+
+
+def _graph_trace(cfg):
+    """The acceptance trace plus a prompt past the smoke window (the
+    ring wraps while it decodes); an encoder-decoder's requests carry
+    their own frames."""
+    from repro_torch.serve.engine import Request, acceptance_requests
+    rng = np.random.default_rng(21)
+    reqs = acceptance_requests(cfg.vocab) + [Request(
+        prompt=rng.integers(0, cfg.vocab, (40,)).astype(np.int32),
+        max_tokens=24)]
+    if cfg.encoder_layers:
+        for i, r in enumerate(reqs):
+            r.frames = rng.standard_normal(
+                (cfg.encoder_seq, cfg.d_model)).astype(np.float32)
+    return reqs
+
+
+@pytest.mark.parametrize("arch,kw", GRAPH_ENGINES,
+                         ids=[a + ("-paged" if k else "")
+                              for a, k in GRAPH_ENGINES])
+def test_graph_engine_equals_eager_engine(cuda_device, arch, kw):
+    """The same trace through an engine that replays its decode step
+    from a CUDA graph and one that runs it eagerly (``graphs=False``):
+    equal tokens, request by request; the kernels' launch counters equal
+    (each replay adds the captured launches); and with telemetry on, a
+    MoE model's routed / dropped counters equal the eager run's."""
+    from repro_torch import telemetry
+    from repro_torch.models import transformer as T
+    from repro_torch.runtime import graphs
+    from repro_torch.serve.engine import DecodeEngine
+    cfg = get_smoke_config(arch)
+    params = T.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(0), device=cuda_device)
+    runs = {}
+    for on in (False, True):
+        eng = DecodeEngine(params, cfg, batch=2, max_len=72,
+                           device=cuda_device, graphs=on, **kw)
+        keys = graphs.counters()
+        before = {k: getattr(*k) for k in keys}
+        rec = telemetry.enable(telemetry.Recorder())
+        try:
+            toks = [r.tokens for r in sorted(eng.run(_graph_trace(cfg)),
+                                             key=lambda r: r.rid)]
+            counters = rec.snapshot()["counters"]
+        finally:
+            telemetry.disable()
+        runs[on] = (toks, {k: getattr(*k) - before[k] for k in keys},
+                    {k: v for k, v in counters.items()
+                     if k.startswith("moe.")}, dict(eng.metrics))
+    (want, eager_launches, eager_moe, _), (got, launches, moe, m) = \
+        runs[False], runs[True]
+    for a, b in zip(want, got):
+        np.testing.assert_array_equal(b, a)
+    assert launches == eager_launches
+    assert sum(launches.values()) > 0
+    assert m["graph_captures"] == 1 and m["graph_replays"] > 0
+    assert moe == eager_moe and (bool(moe) == bool(cfg.n_experts))
+
+
+def test_captured_train_step_equals_the_eager_steps(cuda_device):
+    """smollm-360m-smoke (bf16), three AdamW steps from one state: the
+    step replayed from a CUDA graph (``launch.train.CapturedStep``), the
+    eager consuming step and the step that returns a new state agree bit
+    for bit (loss, grad norm, every parameter and both moments), and
+    the replays count their launches as the eager steps do."""
+    from repro_torch.bridge import map_tree, tree_leaves
+    from repro_torch.data import pipeline as P
+    from repro_torch.launch import train as train_cli
+    from repro_torch.runtime import graphs
+    from repro_torch.train import train_step as TS
+    cfg = dataclasses.replace(get_smoke_config("smollm-360m"),
+                              dtype="bfloat16")
+    base = TS.init_state(cfg, torch.Generator(device="cuda").manual_seed(0),
+                         device=cuda_device, optimizer="adamw")
+    kw = dict(optimizer="adamw", warmup_steps=1, peak_lr=1e-2)
+    steps = {"new": (TS.make_train_step(cfg, **kw), map_tree(torch.clone,
+                                                             base)),
+             "eager": (TS.make_train_step(cfg, consume=True, **kw),
+                       map_tree(torch.clone, base)),
+             "graph": (train_cli.CapturedStep(TS.make_train_step(
+                 cfg, consume=True, **kw)), map_tree(torch.clone, base))}
+    keys = graphs.counters()
+    launches = {}
+    for i in range(3):
+        batch = P.make_batch(cfg, P.DataConfig(seq_len=32, global_batch=4),
+                             i, device=cuda_device)
+        metrics = {}
+        for name, (fn, state) in steps.items():
+            before = {k: getattr(*k) for k in keys}
+            state, m = fn(state, batch)
+            steps[name] = (fn, state)
+            metrics[name] = {k: m[k].clone() for k in ("loss", "grad_norm")}
+            launches[name] = {k: getattr(*k) - before[k] for k in keys}
+        for name in ("eager", "graph"):
+            for k in ("loss", "grad_norm"):
+                assert torch.equal(metrics[name][k], metrics["new"][k]), \
+                    (i, name, k)
+        assert launches["graph"] == launches["eager"] == launches["new"]
+    want = list(tree_leaves(dict(p=steps["new"][1].params,
+                                 mu=steps["new"][1].opt.mu,
+                                 nu=steps["new"][1].opt.nu)))
+    for name in ("eager", "graph"):
+        got = list(tree_leaves(dict(p=steps[name][1].params,
+                                    mu=steps[name][1].opt.mu,
+                                    nu=steps[name][1].opt.nu)))
+        assert all(torch.equal(a, b) for a, b in zip(want, got)), name
+    assert steps["graph"][0].graph.replays == 2
