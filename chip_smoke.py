@@ -25,7 +25,12 @@ its seconds, kept under ``phase_seconds`` in the JSON):
    at edges with empty groups, a dropped tail and a straddled tile, each
    case naming its body and the CTA shape B7 picked; the
    attention kernels also at qwen3-moe's GQA group of 16 and head_dim
-   of 128;
+   of 128; the f32 router GEMMs (qwen3-moe at decode, in a 300-token
+   prefill and a 64-token chunk, kimi-k2 at decode) on B1 and on B6 at
+   its 'tb' plan's tile whichever the plan takes, and one f32 W8A16
+   case on each, every f32 row beside the chain floor of its k (k
+   dependent fmaf at the latency tools/hopper_probe.cu probe 6 reads,
+   at the card's highest SM clock);
    each decode case names the split grid it launched (the split, the
    CTAs launched and live, the merge CTAs); then the paged decode kernel
    must equal the dense one bit for bit on one logical cache scattered
@@ -332,6 +337,7 @@ from __future__ import annotations
 import atexit
 import collections
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -373,7 +379,7 @@ from repro_torch.data import pipeline  # noqa: E402
 from repro_torch.launch import train as train_launch  # noqa: E402
 from repro_torch.checkpoint.checkpointer import Checkpointer  # noqa: E402
 from repro_torch.core import bandwidth, op_cost  # noqa: E402
-from repro_torch.core.hardware import HOPPER_H100  # noqa: E402
+from repro_torch.core.hardware import F32_FFMA_CYCLES, HOPPER_H100  # noqa
 from repro_torch.telemetry import report as treport  # noqa: E402
 from repro_torch.tune import autotune, calibrate  # noqa: E402
 from repro_torch.tune import measure as tune_measure  # noqa: E402
@@ -523,6 +529,14 @@ RG_RING_PROMPTS = (2048, 2100, 2300, 2500, 2700, 3000, 3500, 4000)
 MAMBA_MAX_LEN = 4096
 MAMBA_LONG = ((4000, 64),)
 MAMBA_STEP_POS = 4000
+#: the f32 router GEMMs, which the kernel phase times on B1 and on B6 (at
+#: the tile its 'tb' plan gives) whichever its plan takes: qwen3-moe's at
+#: an 8-slot decode step, a 300-token prefill and a 64-token paged chunk,
+#: kimi-k2's at decode
+ROUTERS = {"qwen3 decode router f32 8x4096x128": (8, 4096, 128),
+           "qwen3 prefill router f32 300x4096x128": (300, 4096, 128),
+           "qwen3 chunk router f32 64x4096x128": (64, 4096, 128),
+           "kimi decode router f32 8x7168x384": (8, 7168, 384)}
 #: the kernels line's per-model keys: the decode step's times by kernel
 #: (B3: one prefill of the long prompt)
 RG_TIMED_ON = {
@@ -802,6 +816,8 @@ def gemm_case(name, weight, m, k, n, dtype, *, residual=False, bias=False,
                 2.0 * m * n * k)
     if tile is not None:
         name += f" tile {tile.bm}x{tile.bk}x{tile.bn}"
+    if dtype == torch.float32:      # one fmaf chain over k an element
+        extra.setdefault("chain_k", k)
     return dict(name=name, weight=weight, dtype=dtype, make=make,
                 library=library, cost=cost, **extra)
 
@@ -841,7 +857,7 @@ def moe_gemm_cases():
         out["gemm_tb" if tb else "gemm_aie"].append(gemm_case(
             "qwen3 " + name, 0, m, k, n, dtype, tb=tb,
             tile=tile if tb else None, moe_weight=per_step,
-            timed=per_step > 0 or m == 300, **kw))
+            timed=per_step > 0 or m == 300 or dtype == f32, **kw))
     # B6 at the prefill's wo + residual whatever the plan picks: the shape
     # whose B6 time PERF.md §6 holds to a target (under 0.3 ms)
     tile = ops.plan(ops.GemmSpec(epilogue=ops.Epilogue(residual=True),
@@ -1347,6 +1363,23 @@ def eager_ms(fn, inputs) -> float:
     return t0.elapsed_time(t1) / REPS
 
 
+@functools.lru_cache(maxsize=None)
+def sm_clock_mhz() -> float:
+    """The card's highest SM clock (nvidia-smi clocks.max.sm, MHz)."""
+    return float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0])
+
+
+def chain_floor_ms(k: int) -> float:
+    """The least time of one fmaf chain over ``k`` steps: k times an
+    fmaf's latency (``F32_FFMA_CYCLES``, tools/hopper_probe.cu probe 6) at
+    the highest SM clock; B1's and B6's f32 bodies run one a C
+    element."""
+    return k * F32_FFMA_CYCLES / (sm_clock_mhz() * 1e3)
+
+
 def check_kernel(name, cases):
     kernel, plain, _, _ = KERNELS[name]
     rows, worst = [], 0.0
@@ -1392,6 +1425,9 @@ def check_kernel(name, cases):
                 bound_ms=max(b / PEAK_BYTES, ops / peak) * 1e3,
                 bound_by="bytes" if b / PEAK_BYTES >= ops / peak
                 else "operations")
+            if case.get("chain_k"):
+                # the f32 bodies' third floor: k dependent fmaf a chain
+                row["chain_floor_ms"] = chain_floor_ms(case["chain_k"])
             del inputs
         rows.append(row)
         lib = row.get("library_ms")
@@ -1400,6 +1436,8 @@ def check_kernel(name, cases):
                f"{row['plain_ms']*1e3:8.1f} us  library "
                + (f"{lib*1e3:8.1f} us" if lib is not None else "       —")
                + f"  bound {row['bound_ms']*1e3:7.1f} us ({row['bound_by']})"
+               + (f"  chain {row['chain_floor_ms']*1e3:.1f} us"
+                  if "chain_floor_ms" in row else "")
                + (f"  gather+sdpa (2 calls) "
                   f"{row['gather_sdpa_ms']*1e3:.1f} us"
                   if "gather_sdpa_ms" in row else "")
@@ -1483,7 +1521,9 @@ def kernel_phase():
                       bf, timed=True),
             gemm_case("qwen3 prefill wo+res 300x8192x4096", 0, 300, 8192,
                       4096, bf, residual=True, timed=True),
-        ] + moe_gemms["gemm_aie"] + h2o_gemms["gemm_aie"]
+        ] + [gemm_case(f"{name} (B1)", 0, m, k, n, f32, timed=True)
+             for name, (m, k, n) in ROUTERS.items()]
+        + moe_gemms["gemm_aie"] + h2o_gemms["gemm_aie"]
         + rec_gemms["gemm_aie"] + a9_gemms["gemm_aie"],
         # weights: the decode step's non-gated GEMMs, as for gemm_aie, so
         # the two dataflows' sums compare on one shape set
@@ -1505,7 +1545,9 @@ def kernel_phase():
                       residual=True, tb=True),
             gemm_case("edge f32 37x200x131 bias+silu+res", 0, 37, 200, 131,
                       f32, residual=True, bias=True, act="silu", tb=True),
-        ] + moe_gemms["gemm_tb"] + h2o_gemms["gemm_tb"]
+        ] + [gemm_case(f"{name} (tb)", 0, m, k, n, f32, tb=True, timed=True)
+             for name, (m, k, n) in ROUTERS.items()]
+        + moe_gemms["gemm_tb"] + h2o_gemms["gemm_tb"]
         + rec_gemms["gemm_tb"] + a9_gemms["gemm_tb"],
         "gemm_gated": [
             gated_case("decode gate/up 8x960x2560", 32, 8, d, ff, bf),
@@ -1746,8 +1788,10 @@ def tb_bitwise_phase():
             bias = rand((n,), torch.float32)
             half = -(-k // 2 // 32) * 32
             pt = tb_tile(m, k, n, dtype)
-            tiles = [(pt.bm, pt.bk, pt.bn), (8, 4096, 16), (16, half, 32),
-                     (8, 128, 64)]
+            # (the f32 body takes 32 columns or more)
+            tiles = [(pt.bm, pt.bk, pt.bn),
+                     (8, 4096, 16 if dtype == torch.bfloat16 else 32),
+                     (16, half, 32), (8, 128, 64)]
             if dtype == torch.bfloat16:     # the warp-specialised body's
                 tiles += WS_TB_TILES        # large and swapped shapes
             for ep in epilogues:
@@ -2162,12 +2206,17 @@ def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
     ``act`` on the flush) or W8A8 (A int8, f32 C, or int8 under
     ``out_scale``).  Library yardstick: W8A8 ``torch._int_mm`` x the
     scale where its shape rules allow, else none; W8A16 has no one call,
-    and the unfused dequantize + matmul is timed beside it."""
+    and the unfused dequantize + matmul is timed beside it.  Mode
+    "w8a16_f32": W8A16 on f32 activations (the f32 body, f32 C)."""
     w8a8 = mode == "w8a8"
+    f32a = mode == "w8a16_f32"
+    a_dtype = torch.float32 if f32a else torch.bfloat16
     out_dtype = out_dtype or (torch.int8 if out_scale is not None else
-                              torch.float32 if w8a8 else torch.bfloat16)
+                              torch.float32 if w8a8 or f32a
+                              else torch.bfloat16)
     if tb and tile is None:
-        spec = ops.GemmSpec(a_dtype="int8" if w8a8 else "bfloat16",
+        spec = ops.GemmSpec(a_dtype="int8" if w8a8 else
+                            "float32" if f32a else "bfloat16",
                             b_quant=True, out_dtype=out_dtype,
                             epilogue=ops.Epilogue(
                                 bias=bias, activation=act,
@@ -2181,7 +2230,7 @@ def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
                            out_dtype=torch.float32)
 
     def make():
-        a = rand((m, k), torch.bfloat16)
+        a = rand((m, k), a_dtype)
         if w8a8:
             a = quant.quantize_activations(a)[0]
         q, scale = int8_weight(k, n)
@@ -2189,7 +2238,7 @@ def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
         if tile is not None:
             kw["tile"] = tile
         if residual:
-            kw["residual"] = rand((m, n), torch.bfloat16)
+            kw["residual"] = rand((m, n), a_dtype)
         if bias:
             kw["bias"] = rand((n,), torch.float32)
         if act:
@@ -2220,13 +2269,15 @@ def int8_gemm_case(name, weight, m, k, n, mode, *, residual=False,
     case = dict(name=f"{mode} {name}", weight=weight, make=make, cost=cost,
                 dtype=torch.float32 if out_dtype != torch.bfloat16
                 else torch.bfloat16,
-                peak_ops=PEAK_OPS[torch.int8 if w8a8 else torch.bfloat16],
+                peak_ops=PEAK_OPS[torch.int8 if w8a8 else a_dtype],
                 library=int_mm if w8a8 and out_scale is None
                 and _int_mm_ok(m, k, n) else None, **extra)
     if out_scale is not None:
         case["tol"] = 0.0               # int8 C: equal, value for value
     if not w8a8:
         case["dequant"] = dequant
+    if f32a:                            # one fmaf chain over k an element
+        case["chain_k"] = k
     return case
 
 
@@ -2402,6 +2453,12 @@ def int8_cases():
                 out[name][mode].append(int8_gemm_case(
                     "out-quant 8x960x960 scale 0.37", 0, 8, d, d, mode,
                     out_scale=0.37, tb=tb, timed=True))
+    # the f32 body on an int8 weight (W8A16 on f32 activations: the f32
+    # smoke models' int8 path) at smollm-360m's decode wq shape
+    for name, tb in (("gemm_aie", False), ("gemm_tb", True)):
+        out[name]["w8a16"].append(int8_gemm_case(
+            "decode wq 8x960x960", 0, 8, d, d, "w8a16_f32", tb=tb,
+            timed=True))
     out["gemm_gated"]["w8a16"] = [
         int8_gated_case("decode gate/up 8x960x2560", 32, 8, d, ff),
         int8_gated_case("prefill gate/up 300x960x2560", 0, 300, d, ff,

@@ -167,7 +167,7 @@ def estimate(tile: TileConfig, p: GemmProblem, chip=TPU_V5E
     return TrafficEstimate(
         hbm_bytes=hbm,
         flops=flops,
-        t_compute=flops / peak,
+        t_compute=chip.compute_seconds(tile, p, flops, peak),
         t_memory=hbm / hbm_bw,
         arithmetic_intensity=flops / hbm,
     )

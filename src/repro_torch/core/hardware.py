@@ -42,14 +42,28 @@ B6_WS_PANEL = 64
 B6_WS_STAGES = 4
 B6_WS_RING_BYTES = 65536
 B6_WS_MAX_STAGES = 16
-#: B6's other bodies (int8 and f32, csrc/gemm_tb.cuh) run 256 threads (8
-#: warps) a CTA.  The int8 tensor-core bodies split the C tile into m16 x n8
-#: fragments, a warp owning at most 4 neighbouring ones of one 16-row
-#: block; the f32 body gives a thread one C column and at most 16 of its
-#: rows.
+#: B6's int8 tensor-core bodies (csrc/gemm_tb.cuh) run 256 threads (8
+#: warps) a CTA and split the C tile into m16 x n8 fragments, a warp owning
+#: at most 4 neighbouring ones of one 16-row block.
 B6_THREADS = 256
 B6_MAX_FRAGS_PER_WARP = 4
-B6_MAX_ROWS_PER_THREAD = 16
+#: B6's f32 body (csrc/gemm_f32.cuh, shared with B1) runs 256 threads too,
+#: each a block of rows x columns of fmaf chains (min(4, bm bn / 256)
+#: columns): tiles whose edges are powers of two, 8 to 128 rows, 32 to 256
+#: columns and 1 to 16 chains a thread.  Its ring holds B6_F32_STAGES
+#: stages of B6_F32_STAGE_BYTES of B and its A panel is held as panels of
+#: at most B6_F32_PANEL_COLS columns (csrc/gemm_f32.cuh kTbStages,
+#: kTbStageBytes, kTbPanelCols), its chunks on the 32-grid (kGrid).
+B6_F32_BM = (8, 128)
+B6_F32_BN = (32, 256)
+B6_F32_MAX_CHAINS = 16
+B6_F32_STAGES = 6
+B6_F32_STAGE_BYTES = 16384
+B6_F32_PANEL_COLS = 256
+B6_F32_GRID = 32
+#: cycles of one dependent fmaf on the card (tools/hopper_probe.cu probe 6
+#: reads 4.06): a chain's step, the f32 bodies' floor a k step
+F32_FFMA_CYCLES = 4
 #: Kernel B7 (csrc/gemm_grouped.cu) launches one of its compiled CTA
 #: shapes, picked by rows per expert (kernels/gemm_grouped.py cta_tile)
 #: whatever the plan's tile says.  The largest C block one of them covers
@@ -65,6 +79,25 @@ def _bf16_pair(a_dtype, b_dtype) -> bool:
     warp-specialised body takes."""
     return str(a_dtype).replace("torch.", "") == "bfloat16" and str(
         b_dtype or a_dtype).replace("torch.", "") == "bfloat16"
+
+
+def _f32_a(a_dtype) -> bool:
+    """An f32 A: kernel B6's f32 body (f32 or int8 B)."""
+    return str(a_dtype).replace("torch.", "") == "float32"
+
+
+def _pow2(x: int) -> bool:
+    return x > 0 and x & (x - 1) == 0
+
+
+def f32_tb_smem(bm: int, bk: int) -> int:
+    """Shared memory one CTA of B6's f32 body takes for a (bm, bk) panel
+    (csrc/gemm_f32.cuh ``tb_smem``): the panel as panels of at most
+    :data:`B6_F32_PANEL_COLS` columns (a chunk on the 32-grid), the ring,
+    and an mbarrier a stage and one for the panel."""
+    pw = min(B6_F32_PANEL_COLS, -(-bk // B6_F32_GRID) * B6_F32_GRID)
+    return (bm * pw * -(-bk // pw) * 4 + B6_F32_STAGES * B6_F32_STAGE_BYTES
+            + (B6_F32_STAGES + 1) * 8)
 
 
 def ws_tb_tile(bm: int, bn: int) -> Tuple[int, int]:
@@ -129,6 +162,12 @@ class TPUChip:
         return True
 
     @staticmethod
+    def compute_seconds(tile, p, flops: float, peak: float) -> float:
+        """The operations at the sheet's rate (``repro/core/bandwidth.py``
+        estimate)."""
+        return flops / peak
+
+    @staticmethod
     def grouped_launchable(bm: int, bn: int) -> bool:
         """The grouped Pallas sweep too."""
         return True
@@ -185,6 +224,33 @@ class HopperChip:
                                     # registers
     pinned_top: int = 1 << 20       # a pinned strategy takes its best
                                     # design, however far down the ranking
+    sm_clock_hz: float = 1.98e9     # the highest SM clock (datasheet)
+
+    def compute_seconds(self, tile, p, flops: float, peak: float) -> float:
+        """The operations' time.  A dense f32 GEMM runs B1's or B6's f32
+        body (csrc/gemm_f32.cuh) on the CUDA cores of the SMs its CTAs
+        occupy: its operations go at the sheet's f32 rate times the share
+        of the card those CTAs fill (B1's grid at the CTA shape it picks
+        by m and n whatever the plan's tile; B6's at the plan's tile and
+        n split), and no faster than one fmaf chain over k, k dependent
+        fmaf at :data:`F32_FFMA_CYCLES` each.  Anything else at the
+        sheet's rate."""
+        if not (_f32_a(p.a_dtype) and p.n_b_operands == 1
+                and not p.n_groups):
+            return flops / peak
+        from repro_torch.core.tiling import cdiv
+        from repro_torch.kernels.gemm_aie import F32_TILES, _f32_config
+        from repro_torch.kernels.gemm_tb import n_split
+        if tile.strategy == "aie":
+            bm, _, bn = F32_TILES[_f32_config(p.m, p.n)]
+            ctas = cdiv(p.m, bm) * cdiv(p.n, bn)
+        else:
+            gm, n_tiles = cdiv(p.m, tile.bm), cdiv(p.n, tile.bn)
+            per = n_split(gm, n_tiles, f32_tb_smem(tile.bm, tile.bk))
+            ctas = gm * cdiv(n_tiles, per)
+        share = min(1.0, ctas / self.sm_count)
+        chain = p.k * F32_FFMA_CYCLES / self.sm_clock_hz
+        return max(flops / (peak * share), chain)
 
     def tile_aligned(self, bm: int, bk: int, bn: int, p=None) -> bool:
         """A DSE candidate for the problem ``p`` (a ``GemmProblem``; None:
@@ -193,16 +259,20 @@ class HopperChip:
         For a dense (single-B, ungrouped) bf16 problem, which B6's
         warp-specialised body runs, also a tile whose CTA (``ws_tb_tile``)
         does no padded work -- at most 16 rows or exactly 64 or 128, and
-        bn the CTA's width -- or one that covers all of m (n) already.  The gated and
-        grouped searches keep the 256-thread rule."""
+        bn the CTA's width -- or one that covers all of m (n) already.  A
+        dense f32 problem takes the f32 body's rule; the gated and
+        grouped searches keep the int8 bodies' (the old 256-thread rule,
+        unchanged)."""
         if not (bm % self.sublanes == 0 and bk % self.lane == 0
                 and bn % self.lane == 0):
             return False
         a_dtype, b_dtype = (p.a_dtype, p.b_dtype) if p else ("bfloat16",
                                                              None)
         dense = p is None or (p.n_b_operands == 1 and not p.n_groups)
+        if dense and _f32_a(a_dtype):
+            return self._launchable_f32(bm, bn)
         if not (dense and _bf16_pair(a_dtype, b_dtype)):
-            return self._launchable_256(bm, bn)
+            return self._launchable_int8(bm, bn)
         m, n = (p.m, p.n) if p else (0, 0)
         rows, cols = ws_tb_tile(bm, bn)
         return (self.launchable(bm, bn, a_dtype, b_dtype)
@@ -214,26 +284,37 @@ class HopperChip:
                    b_dtype=None) -> bool:
         """Whether kernel B6 covers a (bm, bn) C tile of A and B of these
         dtypes (B: A's when None).  bf16 x bf16 runs the warp-specialised
-        body: any tile of at most 128 x 256.  The other pairs need both
-        256-thread bodies (:meth:`_launchable_256`)."""
+        body: any tile of at most 128 x 256; an f32 A the f32 body
+        (:meth:`_launchable_f32`); the int8 pairs the int8 tensor-core
+        bodies (:meth:`_launchable_int8`)."""
         if _bf16_pair(a_dtype, b_dtype):
             return 1 <= bm <= B6_WS_MAX_BM and 1 <= bn <= B6_WS_MAX_BN
-        return HopperChip._launchable_256(bm, bn)
+        if _f32_a(a_dtype):
+            return HopperChip._launchable_f32(bm, bn)
+        return HopperChip._launchable_int8(bm, bn)
 
     @staticmethod
-    def _launchable_256(bm: int, bn: int) -> bool:
-        """Whether B6's 256-thread bodies cover a (bm, bn) C tile: the int8
-        tensor-core one gives each of its 8 warps at most 4 neighbouring
-        m16 x n8 fragments of one 16-row block (``cdiv(bm, 16) *
-        cdiv(bn, 32) <= 8``), the f32 one a thread one column, ``256 //
-        bn`` row groups, at most 16 rows a thread."""
+    def _launchable_int8(bm: int, bn: int) -> bool:
+        """Whether B6's int8 tensor-core bodies cover a (bm, bn) C tile:
+        each of their 8 warps owns at most 4 neighbouring m16 x n8
+        fragments of one 16-row block (``cdiv(bm, 16) * cdiv(bn, 32) <=
+        8``), bn at most 256."""
         if not 1 <= bn <= B6_THREADS or bm < 1:
             return False
         warps = B6_THREADS // 32
         per_warp = 8 * B6_MAX_FRAGS_PER_WARP
-        groups = B6_THREADS // bn
-        return (-(-bm // 16) * -(-bn // per_warp) <= warps
-                and -(-bm // groups) <= B6_MAX_ROWS_PER_THREAD)
+        return -(-bm // 16) * -(-bn // per_warp) <= warps
+
+    @staticmethod
+    def _launchable_f32(bm: int, bn: int) -> bool:
+        """Whether B6's f32 body covers a (bm, bn) C tile: edges powers of
+        two in :data:`B6_F32_BM` and :data:`B6_F32_BN`, and 1 to
+        :data:`B6_F32_MAX_CHAINS` chains for each of its 256 threads."""
+        chains = bm * bn / B6_THREADS
+        return (_pow2(bm) and _pow2(bn)
+                and B6_F32_BM[0] <= bm <= B6_F32_BM[1]
+                and B6_F32_BN[0] <= bn <= B6_F32_BN[1]
+                and 1 <= chains <= B6_F32_MAX_CHAINS)
 
     @staticmethod
     def grouped_launchable(bm: int, bn: int) -> bool:

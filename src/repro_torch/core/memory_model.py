@@ -8,10 +8,12 @@ A-stationary ``tb`` strategy on ``HOPPER_H100`` the footprint is exactly
 what kernel B6 allocates: for bf16 operands its warp-specialised body
 (``csrc/gemm_tb.cuh`` ``ws_smem``): the resident A panel in 64-deep
 boxes of the CTA's rows, ``ws_tb_stages`` stages of B's panels, one f32
-C-partial stage and the barriers' 1 KiB; for the others ``tb_layout``: the resident
-A panel, two B stages (and, int8 x int8, the 128-row transposed
-sub-slab), two C-partial stages, and two stages of each fused epilogue
-operand.  For the output-stationary ``aie`` strategy on ``HOPPER_H100``
+C-partial stage and the barriers' 1 KiB; for an f32 A its f32 body
+(``csrc/gemm_f32.cuh``): the resident A panel and a ring of B stages;
+for the int8 pairs ``tb_layout``: the resident A panel, two B stages
+(and, int8 x int8, the 128-row transposed sub-slab), two C-partial
+stages, and two stages of each fused epilogue operand.  For the
+output-stationary ``aie`` strategy on ``HOPPER_H100``
 it is the shared memory of the CTA shape kernel B1 launches for the
 problem (``kernels/gemm_aie.py`` ``cta_smem_bytes``), whatever the
 plan's tile.
@@ -22,8 +24,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict
 
-from repro_torch.core.hardware import TPU_V5E, _bf16_pair, ws_tb_stages, \
-    ws_tb_tile
+from repro_torch.core.hardware import B6_F32_STAGE_BYTES, B6_F32_STAGES, \
+    TPU_V5E, _bf16_pair, _f32_a, f32_tb_smem, ws_tb_stages, ws_tb_tile
 from repro_torch.core.tiling import (
     GemmProblem,
     TileConfig,
@@ -127,6 +129,15 @@ def vmem_footprint(tile: TileConfig, p: GemmProblem,
                 b_bytes=ws_tb_stages(tile.bm, tile.bn) * WS_BK * cols * 2,
                 out_bytes=rows * tile.bn * 4,
                 acc_bytes=WS_STATIC_SMEM)
+        if _f32_a(p.a_dtype):
+            # kernel B6's f32 body (gemm_f32.cuh tb_smem): the panel, the
+            # ring of B and the mbarriers; the partial C and the epilogue's
+            # operands are read on the flush
+            ring = B6_F32_STAGES * B6_F32_STAGE_BYTES
+            bars = (B6_F32_STAGES + 1) * 8
+            return VmemFootprint(
+                a_bytes=f32_tb_smem(tile.bm, tile.bk) - ring - bars,
+                b_bytes=ring, out_bytes=0, acc_bytes=bars)
     if tile.strategy == "aie":
         return VmemFootprint(
             a_bytes=PIPELINE_STAGES * a,

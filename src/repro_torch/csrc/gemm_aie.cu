@@ -25,10 +25,10 @@
 // The launch is a programmatic dependent, so the CTAs' set-up overlaps the
 // kernel before it.
 //
-// f32 operands keep the CUDA-core body (gemm_aie_kernel below): a fixed
-// 16 x 128 x 32 tile, each thread BM/4 accumulators of one column, one
-// fmaf chain over k = 0..K-1 per element, the next tile prefetched into
-// registers during the products.
+// f32 operands run the CUDA-core body of gemm_f32.cuh (shared with B6):
+// one fmaf chain over k = 0..K-1 an element, each thread a block of rows x
+// columns of chains, at a CTA shape the wrapper picks by m and n
+// (kernels/gemm_aie.py F32_TILES), operands through a cp.async ring.
 //
 // The int8 paths (repro/kernels/gemm_aie.py:60-62, :72, :111 and the
 // out-quant of epilogue.py:126-128) keep the sm_80 body below
@@ -43,7 +43,7 @@
 //     on it unchanged: a row equals this kernel's bf16 body on
 //     q.to(bfloat16), and the (1, n) b_scale multiplies the f32 accumulator
 //     once on the flush, before the epilogue.  The f32 body takes an int8 B
-//     too, widened as it loads.
+//     too, widened as it is read.
 //   W8A8: int8 A (staged in the bytes of a swizzled tile) and B (transposed
 //     k-major once a slab lands, transpose_int8) on mma.sync m16n8k32 s8
 //     with int32 accumulators, both read by ldmatrix (mma_slab_s8); exact
@@ -63,6 +63,7 @@
 // runs the same chains, so it equals this kernel bit for bit.
 #include <type_traits>
 
+#include "gemm_f32.cuh"
 #include "gemm_ws.cuh"
 #include "mma_chain.cuh"
 #include "staging.cuh"
@@ -70,114 +71,11 @@
 namespace repro {
 namespace {
 
-constexpr int kBM = 16;
-constexpr int kBN = 32;
-constexpr int kBK = 128;
-constexpr int kThreads = 256;
-constexpr int kRowGroups = kThreads / kBN;  // threads per C column
-constexpr int kRowsPerThread = kBM / kRowGroups;
-constexpr int kALoads = kBM * kBK / kThreads;  // A elements per thread/step
-constexpr int kBLoads = kBK * kBN / kThreads;  // B elements per thread/step
-
-template <typename TB, typename TRes>
-__global__ void __launch_bounds__(kThreads)
-gemm_aie_kernel(const float* __restrict__ A, const TB* __restrict__ B,
-                void* __restrict__ C, const float* __restrict__ bias,
-                const float* __restrict__ scale,
-                const TRes* __restrict__ res,
-                const float* __restrict__ out_scale, int M, int N, int K,
-                int act, int out_dtype) {
-  __shared__ float As[kBM][kBK];
-  __shared__ float Bs[kBK][kBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % kBN;  // C column within the tile
-  const int ty = tid / kBN;  // row group: rows ty, ty + kRowGroups, ...
-  const int row0 = blockIdx.y * kBM;
-  const int col0 = blockIdx.x * kBN;
-  float acc[kRowsPerThread];
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) acc[i] = 0.0f;
-
-  float ra[kALoads], rb[kBLoads];
-  auto load = [&](int k0) {
-#pragma unroll
-    for (int it = 0; it < kALoads; ++it) {
-      const int i = tid + it * kThreads;
-      const int gr = row0 + i / kBK, gc = k0 + i % kBK;
-      ra[it] = (gr < M && gc < K) ? A[(size_t)gr * K + gc] : 0.0f;
-    }
-#pragma unroll
-    for (int it = 0; it < kBLoads; ++it) {
-      const int i = tid + it * kThreads;
-      const int gr = k0 + i / kBN, gc = col0 + i % kBN;
-      // an int8 B (W8A16 on f32 activations) widens on load, exactly
-      rb[it] = (gr < K && gc < N) ? to_f32(B[(size_t)gr * N + gc]) : 0.0f;
-    }
-  };
-
-  load(0);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-#pragma unroll
-    for (int it = 0; it < kALoads; ++it) {
-      const int i = tid + it * kThreads;
-      As[i / kBK][i % kBK] = ra[it];
-    }
-#pragma unroll
-    for (int it = 0; it < kBLoads; ++it) {
-      const int i = tid + it * kThreads;
-      Bs[i / kBN][i % kBN] = rb[it];
-    }
-    __syncthreads();
-    if (k0 + kBK < K) load(k0 + kBK);  // in flight during the products
-#pragma unroll 8
-    for (int kk = 0; kk < kBK; ++kk) {
-      const float b = Bs[kk][tx];
-#pragma unroll
-      for (int i = 0; i < kRowsPerThread; ++i)
-        acc[i] = fmaf(As[ty + kRowGroups * i][kk], b, acc[i]);
-    }
-    __syncthreads();
-  }
-
-  const int col = col0 + tx;
-  if (col >= N) return;
-#pragma unroll
-  for (int i = 0; i < kRowsPerThread; ++i) {
-    const int row = row0 + ty + kRowGroups * i;
-    if (row >= M) continue;
-    const float x = epilogue(
-        dequant(acc[i], scale, col), bias != nullptr,
-        bias != nullptr ? bias[col] : 0.0f, act, res != nullptr,
-        res != nullptr ? to_f32(res[(size_t)row * N + col]) : 0.0f);
-    store_out(C, (size_t)row * N + col, x, out_dtype, out_scale);
-  }
-}
-
 struct Operands {
   const void *a, *b;
   void* c;
   const void *bias, *scale, *res, *out_scale;
 };
-
-template <typename TB>
-int launch_f32(const Operands& o, int m, int n, int k, int act,
-               int out_dtype, int res_dtype, cudaStream_t stream) {
-  dim3 grid(cdiv(n, kBN), cdiv(m, kBM));
-  const float* a = static_cast<const float*>(o.a);
-  const TB* b = static_cast<const TB*>(o.b);
-  const float* bias = static_cast<const float*>(o.bias);
-  const float* scale = static_cast<const float*>(o.scale);
-  const float* osc = static_cast<const float*>(o.out_scale);
-  if (res_dtype == kBF16)
-    gemm_aie_kernel<TB, __nv_bfloat16><<<grid, kThreads, 0, stream>>>(
-        a, b, o.c, bias, scale, static_cast<const __nv_bfloat16*>(o.res),
-        osc, m, n, k, act, out_dtype);
-  else
-    gemm_aie_kernel<TB, float><<<grid, kThreads, 0, stream>>>(
-        a, b, o.c, bias, scale, static_cast<const float*>(o.res), osc, m, n,
-        k, act, out_dtype);
-  return static_cast<int>(cudaGetLastError());
-}
 
 // ---------------------------------------------------------------------------
 // The tensor-core body (bf16 operands)
@@ -464,11 +362,11 @@ int launch_tc(int config, const Operands& o, const AieArgs& p,
 // device f32 scalar or null (int8 C: the flush's output quantization).
 // Operand types: bf16 x bf16 runs the warp-specialised body at CTA shape
 // ``config`` (1..9, gemm_aie_ws.cu), bf16 x int8 (W8A16) and int8 x int8
-// (W8A8) the int8 bodies (1..4, see launch_tc), each with the staging copy
-// modes ``modes`` (2 bits each: A, then B; 2 lets bf16 x bf16 take tensor
-// maps); f32 x f32 and f32 x int8 the fmaf body, which ignores both.  C is
-// f32, bf16, int8 (with out_scale) or, for W8A8 with nothing fused, the
-// int32 sums.
+// (W8A8) the int8 bodies (1..4, see launch_tc), f32 x f32 and f32 x int8
+// the fmaf body (1..10, gemm_f32.cuh launch_aie), each with the staging
+// copy modes ``modes`` (2 bits each: A, then B; 2 lets bf16 x bf16 take
+// tensor maps).  C is f32, bf16, int8 (with out_scale) or, for W8A8 with
+// nothing fused, the int32 sums.
 // Returns cudaGetLastError() after the launch.
 extern "C" int gemm_aie_launch(const void* a, const void* b, void* c,
                                const void* bias, const void* b_scale,
@@ -479,10 +377,16 @@ extern "C" int gemm_aie_launch(const void* a, const void* b, void* c,
   using namespace repro;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Operands o{a, b, c, bias, b_scale, res, out_scale};
-  if (a_dtype == kF32)
-    return b_dtype == kI8
-               ? launch_f32<int8_t>(o, m, n, k, act, out_dtype, res_dtype, s)
-               : launch_f32<float>(o, m, n, k, act, out_dtype, res_dtype, s);
+  if (a_dtype == kF32) {
+    const f32::AieOperands fo{static_cast<const float*>(a), b, c,
+                              static_cast<const float*>(bias),
+                              static_cast<const float*>(b_scale), res,
+                              static_cast<const float*>(out_scale)};
+    const f32::AieArgs fp{m, n, k, act, out_dtype, res_dtype, modes & 3,
+                          (modes >> 2) & 3};
+    return b_dtype == kI8 ? f32::launch_aie<int8_t>(config, fo, fp, s)
+                          : f32::launch_aie<float>(config, fo, fp, s);
+  }
   AieArgs p;
   p.M = m, p.N = n, p.K = k, p.act = act;
   p.out_dtype = out_dtype, p.res_dtype = res_dtype;

@@ -6,32 +6,41 @@
 namespace repro {
 namespace tb {
 
-// Checks the tile against the kernel's limits, sizes the plan's whole
-// layout (scale, bias and residual stages included, also for B6a, which
-// leaves them unused) and picks the body's instantiation: bf16 x bf16 the
-// warp-specialised body at the shape the tile maps to (launch_ws); for the
-// int8 tensor-core bodies the fragments a warp owns, for f32 the rows a
-// thread owns.
+// Dynamic shared memory of one CTA of a non-bf16 body: the f32 body's
+// panel and ring (f32::tb_smem), or the int8 bodies' whole layout (scale,
+// bias and residual stages included, also for B6a, which leaves them
+// unused).
+size_t smem_of(int variant, int bm, int bk, int bn, int res_dtype,
+               bool has_scale, bool has_bias, bool has_res) {
+  if (variant == kVF32 || variant == kVF32W8) return f32::tb_smem(bm, bk);
+  return tb_layout(bm, bk, bn, variant, res_dtype == kBF16 ? 2 : 4,
+                   has_scale, has_bias, has_res)
+      .total;
+}
+
+// Checks the tile against the kernel's limits, sizes the plan's layout and
+// picks the body's instantiation: bf16 x bf16 the warp-specialised body at
+// the shape the tile maps to (launch_ws); for the int8 tensor-core bodies
+// the fragments a warp owns, for f32 the chains a thread keeps.
 template <bool kFinal>
 int launch(int variant, const TbOperands& o, const TbArgs& p, bool has_scale,
            bool has_bias, bool has_res, cudaStream_t stream) {
   if (variant == kVBf16) return launch_ws<kFinal>(o, p, stream);
   if (p.bn < 1 || p.bn > kThreads || p.bm < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn, variant,
-                               p.res_dtype == kBF16 ? 2 : 4, has_scale,
-                               has_bias, has_res);
-  if (L.total > static_cast<size_t>(kMaxSmem))
+  const size_t smem = smem_of(variant, p.bm, p.bk, p.bn, p.res_dtype,
+                              has_scale, has_bias, has_res);
+  if (smem > static_cast<size_t>(kMaxSmem))
     return static_cast<int>(cudaErrorInvalidValue);
   switch (variant) {
     case kVW8A16:
-      return launch_tc<kFinal, kVW8A16>(o, p, L.total, stream);
+      return launch_tc<kFinal, kVW8A16>(o, p, smem, stream);
     case kVW8A8:
-      return launch_tc<kFinal, kVW8A8>(o, p, L.total, stream);
+      return launch_tc<kFinal, kVW8A8>(o, p, smem, stream);
     case kVF32:
-      return launch_f32<float, kFinal>(o, p, L.total, stream);
+      return launch_f32<float, kFinal>(o, p, smem, stream);
     case kVF32W8:
-      return launch_f32<int8_t, kFinal>(o, p, L.total, stream);
+      return launch_f32<int8_t, kFinal>(o, p, smem, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -72,11 +81,8 @@ extern "C" int gemm_tb_smem_bytes(int bm, int bk, int bn, int a_dtype,
   if (v < 0) return -1;
   if (v == kVBf16) return static_cast<int>(ws_smem(bm, bk, bn)) +
                           ws::kStaticSmem;
-  return static_cast<int>(tb_layout(bm, bk, bn, v,
-                                    res_dtype == kBF16 ? 2 : 4,
-                                    has_scale != 0, has_bias != 0,
-                                    has_res != 0)
-                              .total);
+  return static_cast<int>(smem_of(v, bm, bk, bn, res_dtype, has_scale != 0,
+                                  has_bias != 0, has_res != 0));
 }
 
 // B6a: one k-chunk [k0, k0 + kc) accumulated into the (m,n) partial c_acc

@@ -29,19 +29,24 @@
 //   wgmma, at the CTA shape ws_rows below maps the plan's tile to; its
 //   dynamic shared memory ws_smem, exactly what core/memory_model.py bills
 //   a bf16 'tb' tile on HOPPER_H100 (with the barriers' 1 KiB).
-//   int8 B (gemm_tb_mma_kernel) and f32 operands (gemm_tb_kernel): per n
-//   tile the CTA streams one (kc x bn) tile of B and the (bm x bn) partial
-//   (plus the scale, bias and residual tiles on the last chunk) through two
-//   cp.async stages, so the next tile's loads are in flight during this
-//   tile's products; their dynamic shared memory is tb_layout below, sized
-//   from the plan's (bm, bk, bn), again what core/memory_model.py bills.
-//   The int8 tensor-core body splits the C tile into cdiv(bm, 16) x
-//   cdiv(bn, 8) m16n8 fragments; each of the 8 warps owns kFN (1, 2 or 4)
-//   neighbouring fragments of one 16-row block and walks the whole chunk
-//   for them, reading the resident panel and the streamed B stage (both
-//   XOR-swizzled, mma_chain.cuh SmemTile) through ldmatrix, its
-//   accumulators starting from the staged partial.  The f32 body: a thread
-//   owns one C column and up to 16 rows, one fmaf chain over the chunk.
+//   int8 B (gemm_tb_mma_kernel): per n tile the CTA streams one (kc x bn)
+//   tile of B and the (bm x bn) partial (plus the scale, bias and residual
+//   tiles on the last chunk) through two cp.async stages, so the next
+//   tile's loads are in flight during this tile's products; its dynamic
+//   shared memory is tb_layout below, sized from the plan's (bm, bk, bn),
+//   again what core/memory_model.py bills.  The int8 tensor-core body
+//   splits the C tile into cdiv(bm, 16) x cdiv(bn, 8) m16n8 fragments;
+//   each of the 8 warps owns kFN (1, 2 or 4) neighbouring fragments of one
+//   16-row block and walks the whole chunk for them, reading the resident
+//   panel and the streamed B stage (both XOR-swizzled, mma_chain.cuh
+//   SmemTile) through ldmatrix, its accumulators starting from the staged
+//   partial.
+//   f32 A (gemm_tb_f32_kernel): gemm_f32.cuh's chain, shared with B1, each
+//   of 256 threads a block of rows x columns of chains; the panel resident,
+//   B's rows streamed through a ring of stages across the whole sweep, the
+//   partial read into the chains at a tile's start and the epilogue's
+//   operands on the flush, so shared memory holds A and B only
+//   (f32::tb_smem).
 // Ragged edges (m, n and the last chunk of k) are zero-filled or skipped,
 // so no caller pads.
 //
@@ -67,6 +72,7 @@
 
 #include <type_traits>
 
+#include "gemm_f32.cuh"
 #include "gemm_ws.cuh"
 #include "mma_chain.cuh"
 #include "staging.cuh"
@@ -76,8 +82,8 @@ namespace tb {
 
 constexpr int kThreads = 256;     // core/hardware.py B6_THREADS
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxRows = 16;      // core/hardware.py B6_MAX_ROWS_PER_THREAD
 constexpr int kMaxFrags = 4;      // core/hardware.py B6_MAX_FRAGS_PER_WARP
+constexpr int kMaxChains = 16;    // core/hardware.py B6_F32_MAX_CHAINS
 constexpr int kMaxSmem = 232448;  // 227 KiB: one CTA's limit on sm_90
 
 __host__ __device__ inline size_t align16(size_t x) {
@@ -86,15 +92,12 @@ __host__ __device__ inline size_t align16(size_t x) {
 
 // The operand variants: the tensor-core bodies (bf16 x bf16, gemm_ws.cuh;
 // W8A16: bf16 A with an int8 B widened to bf16; W8A8: int8 A and B into
-// int32) and the fmaf bodies (f32 x f32, f32 x int8).
+// int32) and the fmaf body (f32 x f32, f32 x int8; gemm_f32.cuh).
 enum Variant : int { kVBf16 = 0, kVW8A16 = 1, kVW8A8 = 2, kVF32 = 3,
                      kVF32W8 = 4 };
 
-__host__ __device__ constexpr int a_size(int v) {
-  return v == kVW8A8 ? 1 : v >= kVF32 ? 4 : 2;
-}
-__host__ __device__ constexpr int b_size(int v) {  // (not bf16 x bf16)
-  return v == kVF32 ? 4 : 1;
+__host__ __device__ constexpr int a_size(int v) {  // (the int8 variants)
+  return v == kVW8A8 ? 1 : 2;
 }
 
 // The W8A8 body transposes its int8 B tile kSub k-rows at a time into the
@@ -105,8 +108,8 @@ __host__ __device__ constexpr int conv_size(int v) {
   return v == kVW8A8 ? 1 : 0;
 }
 
-// Byte offsets of the shared-memory regions of one CTA: the resident A
-// panel, two B stages (each operand at its own width: int8 at one byte),
+// Byte offsets of the shared-memory regions of one CTA of the int8 bodies:
+// the resident A panel, two int8 B stages,
 // the converted int8 sub-slab, two partial-C stages (f32, or int32 when A
 // is int8), two b_scale stages (an int8 B's dequant scale), two bias and
 // two residual stages (the last three only when the plan has them).
@@ -121,7 +124,7 @@ __host__ __device__ inline TbLayout tb_layout(int bm, int bk, int bn,
   TbLayout L;
   L.a = 0;
   L.b = align16(static_cast<size_t>(bm) * bk * a_size(variant));
-  L.conv = L.b + align16(2 * static_cast<size_t>(bk) * bn * b_size(variant));
+  L.conv = L.b + align16(2 * static_cast<size_t>(bk) * bn);
   L.c = L.conv +
         align16(static_cast<size_t>(kSub) * bn * conv_size(variant));
   L.scale = L.c + align16(2 * static_cast<size_t>(bm) * bn * 4);
@@ -157,170 +160,11 @@ struct TbOperands {
   const float* out_scale;
 };
 
-// The f32 body.  kFinal false: B6a, writes the f32 partial to o.cacc.
-// kFinal true: B6b, applies the b_scale, the epilogue and writes C at the
-// out dtype (p.out_dtype; the residual's p.res_dtype).  o.cin is the
-// partial of the earlier chunks (null on the first chunk); cin and cacc may
-// alias: a CTA reads each partial tile before it writes that tile, and no
-// two CTAs share a tile.  kRows is the most C rows a thread owns (cdiv(bm,
-// 256 / bn) rounded up to a power of two), so the row loops below unroll to
-// exactly the rows in use.  TB is B's type: f32, or int8 (W8A16 on f32
-// activations), widened as it is read.
-template <typename TB, int kRows, bool kFinal>
-__global__ void __launch_bounds__(kThreads)
-gemm_tb_kernel(TbOperands o, TbArgs p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const float* __restrict__ A = static_cast<const float*>(o.a);
-  const TB* __restrict__ B = static_cast<const TB*>(o.b);
-  const float* Cin = static_cast<const float*>(o.cin);
-  float* Cacc = static_cast<float*>(o.cacc);
-  const int res_size = p.res_dtype == kBF16 ? 2 : 4;
-  const TbLayout L = tb_layout(p.bm, p.bk, p.bn,
-                               sizeof(TB) == 1 ? kVF32W8 : kVF32, res_size,
-                               o.scale != nullptr, o.bias != nullptr,
-                               o.res != nullptr);
-  float* As = reinterpret_cast<float*>(smem + L.a);
-  TB* Bs = reinterpret_cast<TB*>(smem + L.b);
-  float* Cs = reinterpret_cast<float*>(smem + L.c);
-  float* Scale_s = reinterpret_cast<float*>(smem + L.scale);
-  float* Bias_s = reinterpret_cast<float*>(smem + L.bias);
-  unsigned char* Rs = smem + L.res;
-
-  const int bm = p.bm, bn = p.bn, kc = p.kc;
-  const int n_tiles = (p.N + bn - 1) / bn;
-  const int t_begin = blockIdx.x * p.tiles_per_cta;
-  const int t_end = min(n_tiles, t_begin + p.tiles_per_cta);
-  if (t_begin >= t_end) return;  // the whole CTA
-  const int row0 = blockIdx.y * bm;
-  const int rows_valid = min(bm, p.M - row0);
-  const int groups = kThreads / bn;  // row groups of bn threads
-  const int tx = threadIdx.x % bn, ty = threadIdx.x / bn;
-  // rows r = ty, ty + groups, ... < bm of this thread (0 for idle threads)
-  const int my_rows = ty < groups ? max(0, (bm - ty + groups - 1) / groups)
-                                  : 0;
-  const int mode_a = p.modes & 3, mode_b = (p.modes >> 2) & 3,
-            mode_c = (p.modes >> 4) & 3, mode_bias = (p.modes >> 6) & 3,
-            mode_r = (p.modes >> 8) & 3, mode_s = (p.modes >> 10) & 3;
-  const size_t tile_b = static_cast<size_t>(p.bk) * bn;
-  const size_t tile_c = static_cast<size_t>(bm) * bn;
-
-  auto issue = [&](int t, int s) {
-    const int col0 = t * bn;
-    const int cols_valid = min(bn, p.N - col0);
-    stage<kThreads>(Bs + s * tile_b, bn,
-                    B + static_cast<size_t>(p.k0) * p.N + col0, p.N, kc, bn,
-                    kc, cols_valid, mode_b);
-    if (Cin != nullptr)
-      stage<kThreads>(Cs + s * tile_c, bn,
-                      Cin + static_cast<size_t>(row0) * p.N + col0, p.N, bm,
-                      bn, rows_valid, cols_valid, mode_c);
-    if (kFinal && o.scale != nullptr)
-      stage<kThreads>(Scale_s + s * bn, bn, o.scale + col0, 0, 1, bn, 1,
-                      cols_valid, mode_s);
-    if (kFinal && o.bias != nullptr)
-      stage<kThreads>(Bias_s + s * bn, bn, o.bias + col0, 0, 1, bn, 1,
-                      cols_valid, mode_bias);
-    if (kFinal && o.res != nullptr) {
-      const size_t at = static_cast<size_t>(row0) * p.N + col0;
-      if (res_size == 2)
-        stage<kThreads>(reinterpret_cast<__nv_bfloat16*>(Rs) + s * tile_c,
-                        bn, static_cast<const __nv_bfloat16*>(o.res) + at,
-                        p.N, bm, bn, rows_valid, cols_valid, mode_r);
-      else
-        stage<kThreads>(reinterpret_cast<float*>(Rs) + s * tile_c, bn,
-                        static_cast<const float*>(o.res) + at, p.N, bm, bn,
-                        rows_valid, cols_valid, mode_r);
-    }
-  };
-
-  // The A panel, resident for the whole sweep, rides in the first group.
-  stage<kThreads>(As, p.bk, A + static_cast<size_t>(row0) * p.K + p.k0, p.K,
-                  bm, kc, rows_valid, kc, mode_a);
-  issue(t_begin, 0);
-  cp_async_commit();
-  const bool vec_a = (p.bk & 3) == 0;  // panel rows 8/16-byte aligned
-  for (int t = t_begin, s = 0; t < t_end; ++t, s ^= 1) {
-    if (t + 1 < t_end) {
-      issue(t + 1, s ^ 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (my_rows > 0) {
-      const TB* Bt = Bs + s * tile_b;
-      float acc[kRows];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        acc[i] = (i < my_rows && Cin != nullptr)
-                     ? Cs[s * tile_c + (ty + groups * i) * bn + tx]
-                     : 0.0f;
-      int kk = 0;
-      if (vec_a) {
-        for (; kk + 4 <= kc; kk += 4) {
-          const float b0 = to_f32(Bt[(kk + 0) * bn + tx]);
-          const float b1 = to_f32(Bt[(kk + 1) * bn + tx]);
-          const float b2 = to_f32(Bt[(kk + 2) * bn + tx]);
-          const float b3 = to_f32(Bt[(kk + 3) * bn + tx]);
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            if (i < my_rows) {
-              float a[4];
-              load4(As + (ty + groups * i) * p.bk + kk, a);
-              acc[i] = fmaf(a[0], b0, acc[i]);
-              acc[i] = fmaf(a[1], b1, acc[i]);
-              acc[i] = fmaf(a[2], b2, acc[i]);
-              acc[i] = fmaf(a[3], b3, acc[i]);
-            }
-          }
-        }
-      }
-      for (; kk < kc; ++kk) {
-        const float b = to_f32(Bt[kk * bn + tx]);
-#pragma unroll
-        for (int i = 0; i < kRows; ++i)
-          if (i < my_rows)
-            acc[i] = fmaf(As[(ty + groups * i) * p.bk + kk], b, acc[i]);
-      }
-      const int col = t * bn + tx;
-      if (col < p.N) {
-#pragma unroll
-        for (int i = 0; i < kRows; ++i) {
-          const int r = ty + groups * i;
-          if (i >= my_rows || r >= rows_valid) continue;
-          const size_t at = static_cast<size_t>(row0 + r) * p.N + col;
-          if (kFinal) {
-            float rv = 0.0f;
-            if (o.res != nullptr) {
-              const size_t ri = s * tile_c + r * bn + tx;
-              rv = res_size == 2
-                       ? to_f32(reinterpret_cast<__nv_bfloat16*>(Rs)[ri])
-                       : reinterpret_cast<float*>(Rs)[ri];
-            }
-            const float x = epilogue(
-                dequant(acc[i], o.scale != nullptr ? Scale_s + s * bn : nullptr,
-                        tx),
-                o.bias != nullptr,
-                o.bias != nullptr ? Bias_s[s * bn + tx] : 0.0f, p.act,
-                o.res != nullptr, rv);
-            store_out(o.c, at, x, p.out_dtype, o.out_scale);
-          } else {
-            Cacc[at] = acc[i];
-          }
-        }
-      }
-    }
-    __syncthreads();  // stage s is refilled by the next iteration's issue
-  }
-}
-
-// The tensor-core bodies: as gemm_tb_kernel, with the products on the
-// tensor cores, for an int8 B (bf16 x bf16 runs gemm_ws.cuh).  The tile's
-// cdiv(bm, 16) x cdiv(bn, 8) fragments go to the warps kFN at a time along
-// a 16-row block: warp w owns block w / G, fragments (w % G) kFN .. +kFN
-// of it (G = cdiv(cdiv(bn, 8), kFN)); the host picks the least kFN that
-// needs at most 8 warps (W8A16: an even kFN).  kV: W8A16 runs
+// The tensor-core bodies, for an int8 B (bf16 x bf16 runs gemm_ws.cuh).
+// The tile's cdiv(bm, 16) x cdiv(bn, 8) fragments go to the warps kFN at a
+// time along a 16-row block: warp w owns block w / G, fragments (w % G) kFN
+// .. +kFN of it (G = cdiv(cdiv(bn, 8), kFN)); the host picks the least kFN
+// that needs at most 8 warps (W8A16: an even kFN).  kV: W8A16 runs
 // mma_slab_b8, mma_slab's chain on the B tile widened in registers; W8A8
 // mma_slab_s8 on the int8 panel and the B tile transposed kSub rows at a
 // time, the partial between chunks int32 (exact, so the chunking changes
@@ -361,7 +205,7 @@ gemm_tb_mma_kernel(TbOperands o, TbArgs p) {
   const int mode_a = p.modes & 3, mode_b = (p.modes >> 2) & 3,
             mode_c = (p.modes >> 4) & 3, mode_bias = (p.modes >> 6) & 3,
             mode_r = (p.modes >> 8) & 3, mode_s = (p.modes >> 10) & 3;
-  const size_t tile_b = static_cast<size_t>(p.bk) * bn * b_size(kV);
+  const size_t tile_b = static_cast<size_t>(p.bk) * bn;  // int8 B
   const size_t tile_c = static_cast<size_t>(bm) * bn;
   auto b_bytes = [&](int s) {
     return reinterpret_cast<int8_t*>(Bs + s * tile_b);
@@ -558,34 +402,227 @@ int launch_mma(const TbOperands& o, const TbArgs& p, size_t smem,
   return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, o, p));
 }
 
-template <typename TB, int kRows, bool kFinal>
-int launch_rows(const TbOperands& o, const TbArgs& p, size_t smem,
-                cudaStream_t stream) {
-  auto kernel = gemm_tb_kernel<TB, kRows, kFinal>;
+// The f32 body: gemm_f32.cuh's chain at the plan's tile.  Each of the 256
+// threads keeps kR x kC chains, kC = min(4, bm bn / 256) (launch_f32):
+// thread (ty, tx) of bn / kC column threads holds rows ty + (256 / (bn /
+// kC)) i and columns tx kC + j.  The CTA's (bm x kc) panel of A stays
+// resident, held as panels of f32::tb_panel_cols columns (zero past kc on
+// the 32-grid of the k steps), and the B tiles of its n sweep stream
+// through a ring of f32::kTbStages stages of f32::kTbStageBytes, slab
+// after slab across tiles.  Where A and B are f32 with whole 16-byte rows
+// the host hands tensor maps and thread 0 issues the panel's boxes and
+// each stage's box onto mbarriers (the host keeps interior chunk
+// boundaries on the 32-grid, so a box's columns past kc are never
+// multiplied); else every thread copies by cp.async.  A tile's chains
+// start from the partial of the earlier chunks (o.cin, null on the first;
+// it may alias o.cacc: a thread reads its elements at the tile's start
+// and writes them at its end) and leave as the partial (kFinal false,
+// B6a) or, kFinal, through the flush with b_scale, bias and residual read
+// from device memory (B6b).  Chunks launch as programmatic dependents: a
+// chunk stages its panel and first slabs, inputs of this call, while the
+// chunk before it runs, and waits for it only before the partial.  TB is
+// B's type: f32, or int8 widened as it is read.
+template <int kR, int kC, bool kFinal, typename TB>
+__global__ void __launch_bounds__(kThreads)
+gemm_tb_f32_kernel(const __grid_constant__ CUtensorMap map_a,
+                   const __grid_constant__ CUtensorMap map_b, TbOperands o,
+                   TbArgs p, int tma) {
+  // (a tensor copy lands on a 128-byte-aligned address)
+  extern __shared__ __align__(128) unsigned char smem[];
+  const float* __restrict__ A = static_cast<const float*>(o.a);
+  const TB* __restrict__ B = static_cast<const TB*>(o.b);
+  const float* Cin = static_cast<const float*>(o.cin);
+  float* Cacc = static_cast<float*>(o.cacc);
+  const int bm = p.bm, bn = p.bn, kc = p.kc;
+  const int pw = f32::tb_panel_cols(p.bk);       // a panel's columns
+  constexpr int kG = f32::kGroup<kR, kC>;        // a chain_steps group
+  const int kcg = (kc + f32::kGrid - 1) & ~(f32::kGrid - 1);
+  float* As = reinterpret_cast<float*>(smem);
+  TB* Bs = reinterpret_cast<TB*>(smem + f32::tb_panel_bytes(bm, p.bk));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + f32::tb_smem(bm, p.bk) - (f32::kTbStages + 1) * 8);
+  uint64_t* panel_bar = bars + f32::kTbStages;
+  // B's rows a stage (a power of two, a multiple of kG, that divides a
+  // whole panel), and the slabs of one tile
+  const int ks = f32::tb_stage_rows(bn, sizeof(TB));
+  const int slabs = (kc + ks - 1) / ks;
+  const int n_tiles = (p.N + bn - 1) / bn;
+  const int t_begin = blockIdx.x * p.tiles_per_cta;
+  const int t_end = min(n_tiles, t_begin + p.tiles_per_cta);
+  if (t_begin >= t_end) return;  // the whole CTA
+  const int row0 = blockIdx.y * bm;
+  const int rows_valid = min(bm, p.M - row0);
+  const int tx_n = bn / kC, ty_n = kThreads / tx_n;
+  const int tx = threadIdx.x % tx_n, ty = threadIdx.x / tx_n;
+  const int mode_a = p.modes & 3, mode_b = (p.modes >> 2) & 3;
+  const int total = (t_end - t_begin) * slabs;
+  // slab g of the sweep: tile t_begin + g / slabs, its rows s ks .. of B
+  auto issue = [&](int g) {
+    const int t = t_begin + g / slabs, s = g % slabs;
+    const int col0 = t * bn, stage = g % f32::kTbStages;
+    TB* dst = Bs + static_cast<size_t>(stage) * ks * bn;
+    if (tma) {
+      mbar_expect(bars + stage, ks * bn * static_cast<int>(sizeof(TB)));
+      tma_2d(dst, &map_b, col0, p.k0 + s * ks, bars + stage);
+      return;
+    }
+    stage_rows<kThreads>(
+        dst, RowMajor{bn}, B + static_cast<size_t>(p.k0 + s * ks) * p.N + col0,
+        p.N, ks, bn, min(ks, kc - s * ks), min(bn, p.N - col0), mode_b,
+        threadIdx.x);
+  };
+
+  if (tma && threadIdx.x == 0) {
+    for (int s = 0; s <= f32::kTbStages; ++s) mbar_init(bars + s);
+    fence_barrier_init();
+  }
+  __syncthreads();
+  if (Cin == nullptr) grid_dependency_wait();
+  grid_launch_dependents();
+  // The panel rides in the first group (its own barrier), then kTbStages
+  // - 1 slabs; slab g + kTbStages - 1 is issued in iteration g into the
+  // stage slab g - 1 left, after the barrier that says every warp's reads
+  // of it are done (bar.sync completes them); the issuing thread's
+  // fence.proxy.async then orders the box after them.
+  const int panels = (kcg + pw - 1) / pw;
+  if (tma) {
+    if (threadIdx.x == 0) {
+      mbar_expect(panel_bar, panels * bm * pw * 4);
+      for (int j = 0; j < panels; ++j)
+        tma_2d(As + static_cast<size_t>(j) * bm * pw, &map_a,
+               p.k0 + j * pw, row0, panel_bar);
+      for (int g = 0; g < f32::kTbStages - 1 && g < total; ++g) issue(g);
+    }
+  } else {
+    for (int j = 0; j < panels; ++j)
+      stage_rows<kThreads>(As + static_cast<size_t>(j) * bm * pw,
+                           RowMajor{pw},
+                           A + static_cast<size_t>(row0) * p.K + p.k0 + j * pw,
+                           p.K, bm, min(pw, kcg - j * pw), rows_valid,
+                           kc - j * pw, mode_a, threadIdx.x);
+    for (int g = 0; g < f32::kTbStages - 1; ++g) {
+      if (g < total) issue(g);
+      cp_async_commit();
+    }
+  }
+  if (Cin != nullptr) grid_dependency_wait();  // the partial it wrote
+  if (tma) mbar_wait(panel_bar, 0);
+  const bool live = ty < rows_valid;  // rows past M chain nothing
+  float acc[kR][kC];
+  for (int g = 0; g < total; ++g) {
+    const int t = t_begin + g / slabs, s = g % slabs;
+    if (s == 0) {  // from zeros, or from the stored partial
+#pragma unroll
+      for (int i = 0; i < kR; ++i)
+#pragma unroll
+        for (int j = 0; j < kC; ++j) {
+          const int r = ty + ty_n * i, col = t * bn + tx * kC + j;
+          acc[i][j] = Cin != nullptr && r < rows_valid && col < p.N
+                          ? Cin[static_cast<size_t>(row0 + r) * p.N + col]
+                          : 0.0f;
+        }
+    }
+    if (tma)
+      mbar_wait(bars + g % f32::kTbStages, (g / f32::kTbStages) & 1);
+    else
+      cp_async_wait<f32::kTbStages - 2>();
+    __syncthreads();
+    if (g + f32::kTbStages - 1 < total && (!tma || threadIdx.x == 0)) {
+      if (tma) fence_proxy_async();
+      issue(g + f32::kTbStages - 1);
+    }
+    if (!tma) cp_async_commit();
+    if (live) {
+      const int k = s * ks;  // within one panel: ks divides pw or pw >= kc
+      f32::chain_steps<kR, kC>(
+          acc, As + static_cast<size_t>(k / pw) * bm * pw + ty * pw + k % pw,
+          ty_n * pw,
+          Bs + static_cast<size_t>(g % f32::kTbStages) * ks * bn + tx * kC,
+          bn, (min(ks, kc - k) + kG - 1) & ~(kG - 1));
+    }
+    if (!live || s + 1 < slabs) continue;
+#pragma unroll
+    for (int i = 0; i < kR; ++i) {
+      const int r = ty + ty_n * i;
+      if (r >= rows_valid) continue;
+#pragma unroll
+      for (int j = 0; j < kC; ++j) {
+        const int col = t * bn + tx * kC + j;
+        if (col >= p.N) continue;
+        const size_t at = static_cast<size_t>(row0 + r) * p.N + col;
+        if (kFinal)
+          store_out(o.c, at,
+                    f32::flush(acc[i][j], o.scale, o.bias, o.res,
+                               p.res_dtype, p.act, col, at),
+                    p.out_dtype, o.out_scale);
+        else
+          Cacc[at] = acc[i][j];
+      }
+    }
+  }
+}
+
+template <int kR, int kC, bool kFinal, typename TB>
+int launch_f32_shape(const TbOperands& o, const TbArgs& p, size_t smem,
+                     cudaStream_t stream) {
+  auto kernel = gemm_tb_f32_kernel<kR, kC, kFinal, TB>;
   static bool configured = false;  // one attribute call per instantiation
   if (!configured) {
     cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          kMaxSmem);
     configured = true;
   }
+  // tensor maps where A and B are f32 with whole 16-byte rows (copy mode
+  // 2): A in boxes of a panel's columns x bm rows, B in a stage's rows
+  const int ks = f32::tb_stage_rows(p.bn, sizeof(TB));
+  CUtensorMap ma{}, mb{};
+  const int tma =
+      sizeof(TB) == 4 && (p.modes & 3) == 2 && ((p.modes >> 2) & 3) == 2 &&
+      tensor_map_2d_cached(&ma, o.a, 4, p.M, p.K, p.K,
+                           f32::tb_panel_cols(p.bk), p.bm) &&
+      tensor_map_2d_cached(&mb, o.b, 4, p.K, p.N, p.N, p.bn, ks);
   const int n_tiles = (p.N + p.bn - 1) / p.bn;
-  dim3 grid((n_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta,
-            (p.M + p.bm - 1) / p.bm);
-  kernel<<<grid, kThreads, smem, stream>>>(o, p);
-  return static_cast<int>(cudaGetLastError());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((n_tiles + p.tiles_per_cta - 1) / p.tiles_per_cta,
+                     (p.M + p.bm - 1) / p.bm);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kernel, ma, mb, o, p, tma));
 }
 
+__host__ __device__ constexpr bool pow2(int x) {
+  return x > 0 && (x & (x - 1)) == 0;
+}
+
+// The f32 body's rule (core/hardware.py HopperChip._launchable_f32): bm
+// and bn powers of two, 8 <= bm <= 128, 32 <= bn <= 256, 1 to kMaxChains
+// chains a thread, min(4, chains) of them columns.
 template <typename TB, bool kFinal>
 int launch_f32(const TbOperands& o, const TbArgs& p, size_t smem,
                cudaStream_t stream) {
-  const int groups = kThreads / p.bn;
-  const int rows = (p.bm + groups - 1) / groups;
-  if (rows > kMaxRows) return static_cast<int>(cudaErrorInvalidValue);
-  if (rows <= 1) return launch_rows<TB, 1, kFinal>(o, p, smem, stream);
-  if (rows <= 2) return launch_rows<TB, 2, kFinal>(o, p, smem, stream);
-  if (rows <= 4) return launch_rows<TB, 4, kFinal>(o, p, smem, stream);
-  if (rows <= 8) return launch_rows<TB, 8, kFinal>(o, p, smem, stream);
-  return launch_rows<TB, kMaxRows, kFinal>(o, p, smem, stream);
+  const int chains = p.bm * p.bn / kThreads;
+  if (!pow2(p.bm) || !pow2(p.bn) || p.bm < 8 || p.bm > 128 || p.bn < 32 ||
+      p.bn > 256 || chains < 1 || chains > kMaxChains)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int cols = chains < 4 ? chains : 4;
+  switch (chains / cols * 10 + cols) {
+    case 11:
+      return launch_f32_shape<1, 1, kFinal, TB>(o, p, smem, stream);
+    case 12:
+      return launch_f32_shape<1, 2, kFinal, TB>(o, p, smem, stream);
+    case 14:
+      return launch_f32_shape<1, 4, kFinal, TB>(o, p, smem, stream);
+    case 24:
+      return launch_f32_shape<2, 4, kFinal, TB>(o, p, smem, stream);
+    default:
+      return launch_f32_shape<4, 4, kFinal, TB>(o, p, smem, stream);
+  }
 }
 
 template <bool kFinal, int kV>
@@ -723,9 +760,9 @@ int launch_ws(const TbOperands& o, const TbArgs& p, cudaStream_t s) {
   }
 }
 
-// The int8 bodies are compiled in their own translation units
-// (gemm_tb_w8a16.cu, gemm_tb_w8a8.cu, gemm_tb_f32w8.cu), in parallel with
-// this one's.
+// The int8 and f32 bodies are compiled in their own translation units
+// (gemm_tb_w8a16.cu, gemm_tb_w8a8.cu, gemm_tb_f32.cu, gemm_tb_f32w8.cu),
+// in parallel with gemm_tb.cu.
 extern template int launch_tc<false, kVW8A16>(const TbOperands&,
                                               const TbArgs&, size_t,
                                               cudaStream_t);
@@ -737,6 +774,12 @@ extern template int launch_tc<false, kVW8A8>(const TbOperands&,
                                              cudaStream_t);
 extern template int launch_tc<true, kVW8A8>(const TbOperands&, const TbArgs&,
                                             size_t, cudaStream_t);
+extern template int launch_f32<float, false>(const TbOperands&,
+                                             const TbArgs&, size_t,
+                                             cudaStream_t);
+extern template int launch_f32<float, true>(const TbOperands&,
+                                            const TbArgs&, size_t,
+                                            cudaStream_t);
 extern template int launch_f32<int8_t, false>(const TbOperands&,
                                               const TbArgs&, size_t,
                                               cudaStream_t);

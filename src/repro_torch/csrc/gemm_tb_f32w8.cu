@@ -1,5 +1,6 @@
-// Kernel B6's f32-activation bodies on an int8 B, compiled in
-// their own translation unit so the build runs them beside gemm_tb.cu's.
+// Kernel B6's f32 bodies on an int8 B (W8A16 on f32 activations),
+// compiled in their own translation unit so the build runs them beside
+// gemm_tb.cu's.
 #include "gemm_tb.cuh"
 
 namespace repro {

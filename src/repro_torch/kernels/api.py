@@ -551,9 +551,10 @@ def _infeasible_reason(tile: TileConfig, p: GemmProblem,
     if tile.strategy == "tb":
         if not chip.launchable(tile.bm, tile.bn, p.a_dtype, p.b_dtype):
             return (f"a ({tile.bm}, {tile.bn}) C tile does not map onto "
-                    "kernel B6's CTAs (bf16: at most 128 x 256; int8 and "
-                    "f32 B: 256 threads, bn <= 256, at most 4 m16 x n8 "
-                    "fragments a warp and 16 rows a thread)")
+                    "kernel B6's CTAs (bf16: at most 128 x 256; int8: 256 "
+                    "threads, bn <= 256, at most 4 m16 x n8 fragments a "
+                    "warp; f32: 256 threads of 1 to 16 chains, edges "
+                    "powers of two, 8-128 x 32-256)")
         if feasible_bk(round_up(p.m, tile.bm), round_up(p.k, tile.bk),
                            round_up(p.n, tile.bn), tile, p.a_dtype,
                            p.b_dtype, p.out_dtype, _acc_name(p.a_dtype),

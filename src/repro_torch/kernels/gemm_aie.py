@@ -8,7 +8,9 @@ kernel keeps the epilogue on its register flush so C is written once,
 and walks k in a fixed order so a row's bits do not depend on the batch:
 bf16 operands run the warp-specialised, TMA-fed wgmma body of
 ``csrc/gemm_ws.cuh`` (shared with kernel B6) at a CTA shape
-:func:`cta_tile` picks by m and n, f32 operands an fmaf chain.
+:func:`cta_tile` picks by m and n; f32 operands one fmaf chain an
+element on the CUDA cores (``csrc/gemm_f32.cuh``, shared with B6), at a
+CTA shape :func:`cta_tile` also picks by m and n (:data:`F32_TILES`).
 
 The int8 paths keep the sm_80 body (``cp.async`` stages, the mma.sync
 m16n8k16 chain of ``csrc/mma_chain.cuh``, whose bits wgmma's chain
@@ -41,9 +43,17 @@ from repro_torch.kernels import _build, acc_dtype
 from repro_torch.kernels.epilogue import ACT_CODES
 from repro_torch.kernels.ref import gemm_epilogue_ref, gemm_ref
 
-#: the (bm, bk, bn) CTA tile of the f32 body (csrc/gemm_aie.cu kBM, kBK,
-#: kBN)
-F32_TILE = (16, 128, 32)
+#: the (bm, bk, bn) CTA tiles of the f32 body, by the config index the C
+#: entry point takes (csrc/gemm_f32.cuh launch_aie; bk a ring stage's
+#: depth): for few rows two warps of 8 rows x 8 columns (1), one chain a
+#: thread; for more, four warps of 8 x 16 threads, 8 to 64 rows and 64
+#: columns (2 .. 5), 4 to 32 chains a thread
+F32_TILES = {1: (8, 256, 8), 2: (8, 64, 64), 3: (16, 64, 64),
+             4: (32, 64, 64), 5: (64, 64, 64)}
+#: the (rows, columns) of chains each thread of a shape keeps
+F32_CHAINS = {1: (1, 1), 2: (1, 4), 3: (2, 4), 4: (4, 4), 5: (8, 4)}
+#: the ring stages of each f32 shape (csrc/gemm_f32.cuh AieShape kStages)
+F32_STAGES = {1: 6, 2: 6, 3: 4, 4: 4, 5: 3}
 #: the (bm, bk, bn) CTA tiles of the bf16 body, by the config index the C
 #: entry point takes (csrc/gemm_aie_ws.cu; bk the stage depth): for few
 #: rows the swapped wgmma form 16 x 64 (1) and the mma.sync form 16 x 8,
@@ -97,12 +107,29 @@ def _config(m: int, n: int, dtype, b_dtype=None) -> int:
     return 6 if bf16 else 1
 
 
+def _f32_config(m: int, n: int) -> int:
+    """The f32 shape for an (m, n) C: up to 64 rows the two-warp shape,
+    one chain a thread, so a decode router's weight streams through one
+    SM for every 8 of its columns; with more rows the four-warp shape of
+    the most rows whose CTAs still reach 7 of every 8 SMs, else 8 x 64.
+    (On the card, tools/f32_shapes.py: one chain a thread beats the
+    others at 1, 8 and 64 rows, 8 x 64 at 300, 64 x 64 at 4096; PERF.md
+    §6.)"""
+    if m <= 64:
+        return 1
+    for config in (5, 4, 3):
+        bm, _, bn = F32_TILES[config]
+        if 8 * cdiv(m, bm) * cdiv(n, bn) >= 7 * HOPPER_H100.sm_count:
+            return config
+    return 2
+
+
 def cta_tile(m: int, n: int, dtype=torch.bfloat16, b_dtype=None):
     """The (bm, bk, bn) CTA tile the kernel launches for an (m, n) C
     with A of ``dtype`` and B of ``b_dtype`` (default A's)."""
     config = _config(m, n, dtype, b_dtype)
     if not config:
-        return F32_TILE
+        return F32_TILES[_f32_config(m, n)]
     return (INT8_TILES if torch.int8 in (dtype, b_dtype)
             else BF16_TILES)[config]
 
@@ -114,12 +141,15 @@ def cta_smem_bytes(m: int, n: int, dtype=torch.bfloat16,
     panels (``csrc/gemm_ws.cuh`` ``smem_bytes``), and its barriers'
     1 KiB; the int8
     bodies' ring of A and B slabs and the converted B slab
-    (``csrc/gemm_aie.cu`` ``MmaShape::smem``); the f32 body's two
-    static tiles."""
+    (``csrc/gemm_aie.cu`` ``MmaShape::smem``); the f32 body's ring of
+    A's and B's slabs (B at its width) and an mbarrier a stage
+    (``csrc/gemm_f32.cuh`` ``AieShape::smem``)."""
     config = _config(m, n, dtype, b_dtype)
     if not config:
-        bm, bk, bn = F32_TILE
-        return (bm * bk + bk * bn) * 4
+        config = _f32_config(m, n)
+        bm, bk, bn = F32_TILES[config]
+        b_size = 1 if b_dtype == torch.int8 else 4
+        return F32_STAGES[config] * (bm * bk * 4 + bk * bn * b_size + 8)
     if torch.int8 not in (dtype, b_dtype):
         bm, bk, bn = BF16_TILES[config]
         return BF16_STAGES[config] * bk * (bm + bn) * 2 + 1024
@@ -276,10 +306,10 @@ def gemm_aie(a: torch.Tensor, b: torch.Tensor, *,
     bias32 = bias.reshape(n).float().contiguous() if bias is not None \
         else None
     c = torch.empty((m, n), dtype=out_dtype, device=a.device)
-    config, modes = _config(m, n, a.dtype, b.dtype), 0
-    if config:  # the tensor-core body's staging copy modes of A and B
-        _, bk, bn = cta_tile(m, n, a.dtype, b.dtype)
-        modes = _build.copy_mode(a, k, bk) | _build.copy_mode(b, n, bn) << 2
+    config = _config(m, n, a.dtype, b.dtype) or _f32_config(m, n)
+    # the staging copy modes of A and B at the launched CTA shape
+    _, bk, bn = cta_tile(m, n, a.dtype, b.dtype)
+    modes = _build.copy_mode(a, k, bk) | _build.copy_mode(b, n, bn) << 2
     ptr = _build.ptr
     rc = _build.entry("gemm_aie_launch", _ARGTYPES)(
         a.data_ptr(), b.data_ptr(), c.data_ptr(), ptr(bias32), ptr(scale),

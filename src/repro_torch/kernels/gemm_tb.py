@@ -15,8 +15,9 @@ against the sheet (and, for bf16, down to the tensor cores' k-depth of
 is the same chain over k = 0..K-1 as in kernel B1 — for bf16 operands
 the m16n8k16 tensor-core chain of ``csrc/mma_chain.cuh``, each later
 chunk starting from the stored f32 partial; for f32 operands the fmaf
-chain — so ``gemm_tb`` equals ``gemm_aie`` bit for bit at any tile, chunk
-count and n split.
+chain of ``csrc/gemm_f32.cuh``, shared with B1, each of 256 threads a
+block of chains — so ``gemm_tb`` equals
+``gemm_aie`` bit for bit at any tile, chunk count and n split.
 
 The bf16 chunks launch as programmatic dependents: a chunk's CTAs stage
 the A panel and their first B tile while the chunk before it finishes,
@@ -57,9 +58,10 @@ _FINAL_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 15 \
     + [ctypes.c_void_p]
 _SMEM_ARGTYPES = [ctypes.c_int] * 9
 #: the k-depth of one tensor-core step of the bf16 body (m16n8k16) and of
-#: the int8 x int8 body (m16n8k32)
+#: the int8 x int8 body (m16n8k32), and the grid of the f32 body's k steps
 MMA_K = 16
 MMA_K_S8 = 32
+F32_GRID = 32
 
 
 def feasible_bk(m: int, k: int, n: int, tile: TileConfig, a_dtype,
@@ -234,11 +236,16 @@ def gemm_tb(a: torch.Tensor, b: torch.Tensor, *, tile: TileConfig,
                                   dtype_name(b.dtype)):
         raise ValueError(f"gemm_tb: a ({bm}, {bn}) C tile does not map "
                          "onto the kernel's CTAs (bf16: at most 128 x 256; "
-                         "int8 and f32 B: 256 threads, bn <= 256, at most 4 "
-                         "m16 x n8 fragments a warp and 16 rows a thread)")
+                         "int8: 256 threads, bn <= 256, at most 4 m16 x n8 "
+                         "fragments a warp; f32: 256 threads of 1 to 16 "
+                         "chains, edges powers of two, 8-128 x 32-256)")
     if a.dtype == torch.bfloat16 and bk < k:
         # the chunks continue one tensor-core chain: boundaries on its k-grid
         bk = max(MMA_K, bk - bk % MMA_K)
+    elif a.dtype == torch.float32 and bk < k:
+        # the f32 body reads its panel and B in steps of F32_GRID: chunk
+        # boundaries on that grid keep a step from crossing one
+        bk = max(F32_GRID, bk - bk % F32_GRID)
     elif a.dtype == torch.bfloat16 and b.dtype == torch.int8:
         # one chunk, its int8 tile zero-filled to the 16-grid
         bk = cdiv(k, MMA_K) * MMA_K

@@ -641,7 +641,9 @@ def test_apply_prices_int8_at_the_sheets_ratio():
 @pytest.mark.parametrize("bf16_rate", [100e12, 989e12, 5e12])
 def test_f32_keeps_the_sheets_ratio_under_a_calibration(bf16_rate):
     """An f32 GEMM is priced at the fitted bf16 rate times the sheet's
-    f32/bf16 ratio (67/989 on HOPPER_H100), not at the bf16 rate."""
+    f32/bf16 ratio (67/989 on HOPPER_H100), not at the bf16 rate: exactly
+    where its plan's CTAs fill the card, and no faster where they fill a
+    share of it (HopperChip.compute_seconds)."""
     bandwidth.set_calibration(bandwidth.Calibration(
         hbm_bw=2e12, peak_bf16_flops=bf16_rate, peak_int8_ops=bf16_rate))
     try:
@@ -654,8 +656,10 @@ def test_f32_keeps_the_sheets_ratio_under_a_calibration(bf16_rate):
             / HOPPER_H100.peak_bf16_flops)
         assert f32 < bf16 / 10
         spec = ops.GemmSpec(a_dtype="float32", b_dtype="float32")
-        pl = ops.plan(spec, (4096, 4096, 128))
+        pl = ops.plan(spec, (4096, 128, 4096))
         assert pl.traffic.t_compute == pytest.approx(pl.flops / f32)
+        pl = ops.plan(spec, (4096, 4096, 128))
+        assert pl.traffic.t_compute >= pl.flops / f32 * (1 - 1e-9)
     finally:
         bandwidth.clear_calibration()
         api.plan_cache_clear()

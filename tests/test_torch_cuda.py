@@ -115,14 +115,33 @@ def test_gemm_gated_kernel_matches_plain(cuda_device, m, k, n, dtype):
     _close(gemm_gated(a, bg, bu), gemm_gated_plain(a, bg, bu), dtype)
 
 
-@pytest.mark.parametrize("m", [1, 8, 9, 16, 300])
-def test_gemm_gated_equals_relu_gemm_aie_bitwise(cuda_device, m):
+def _randn_card(shape, dtype, device, seed):
+    """Normal values drawn on the card itself: the long-k operands would
+    take seconds to draw in numpy."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(shape, generator=g, device=device).to(dtype)
+
+
+#: the k = 8192 and 28672 cases of the gates that hold B2's and the W8A16
+#: paths' mma.sync chain to B1's wgmma chain: internvl2-76b's gate / up
+#: (k 8192, n 8192 keeps B1 on the swapped wgmma form it launches at n
+#: 28672) and down (k 28672), at decode and in a 300-token prefill
+LONG_K = [(8, 8192, 8192), (300, 8192, 8192), (8, 28672, 8192),
+          (300, 28672, 1024)]
+
+
+@pytest.mark.parametrize("m,k,n", [(m, 960, 2560) for m in (1, 8, 9, 16,
+                                                            300)] + LONG_K)
+def test_gemm_gated_equals_relu_gemm_aie_bitwise(cuda_device, m, k, n):
     """Both accumulators of B2's bf16 body run B1's tensor-core chain, so
     relu(A Wg) * (A Wu) in f32 is relu(B1(A, Wg)) * B1(A, Wu) bit for bit,
-    at every CTA shape m picks, on smollm-360m's 960 x 2560."""
-    a = _randn((m, 960), torch.bfloat16, cuda_device, 0) / 960 ** 0.5
-    bg = _randn((960, 2560), torch.bfloat16, cuda_device, 1)
-    bu = _randn((960, 2560), torch.bfloat16, cuda_device, 2)
+    at every CTA shape m picks, on smollm-360m's 960 x 2560, and at k =
+    8192 and 28672 (B2 on mma.sync, B1 on wgmma: probe 4 covered k <=
+    4096)."""
+    draw = _randn_card if k > 960 else _randn
+    a = draw((m, k), torch.bfloat16, cuda_device, 0) / k ** 0.5
+    bg = draw((k, n), torch.bfloat16, cuda_device, 1)
+    bu = draw((k, n), torch.bfloat16, cuda_device, 2)
     f32 = torch.float32
     got = gemm_gated(a, bg, bu, activation="relu", out_dtype=f32)
     want = torch.relu(gemm_aie(a, bg, out_dtype=f32)) \
@@ -703,6 +722,137 @@ def test_hopper_probe_finds_wgmma_keeps_the_chain_bits(cuda_device,
                        "(b) wgmma == mma.sync chain bit for bit: yes (0 "
                        "elements differ); (c) swapped wgmma == chain: yes "
                        "(0 differ)"], out
+    # probe 6: an fmaf chain's step, the latency B1's and B6's f32 bodies
+    # are built around, and the chain floor it gives
+    lat = [ln for ln in out.splitlines()
+           if ln.startswith("probe 6: fmaf dependent chain")]
+    assert len(lat) == 1 and 2.0 <= float(lat[0].split()[5]) <= 8.0, out
+    assert any(ln.startswith("probe 6: SM clock under the chain")
+               for ln in out.splitlines()), out
+
+
+# ---------------------------------------------------------------------------
+# B1's and B6's f32 bodies (csrc/gemm_f32.cuh): the MoE routers' GEMMs
+# ---------------------------------------------------------------------------
+
+#: the served f32 router GEMMs: qwen3-moe-235b-a22b's at decode, in a
+#: 300-token prefill and a 64-token paged chunk (d 4096, 128 experts), and
+#: kimi-k2-1t-a32b's at decode (d 7168, 384 experts)
+F32_ROUTERS = [(8, 4096, 128), (300, 4096, 128), (64, 4096, 128),
+               (8, 7168, 384)]
+#: the reference's own gate for its f32 GEMM (tests/test_kernels.py:69-72),
+#: which holds the cases past k = 4096 and qwen3-moe's dense shapes at f32
+#: (ROADMAP queue C): there one fmaf chain over k reads past 1e-5 off the
+#: plain matmul's other order on a few of millions of elements (300 x 4096
+#: x 8192, bias + silu + residual: 1.30e-5 on 2 of 2457600; PERF.md §6)
+REF_F32_GATE = {"atol": 1e-3, "rtol": 1e-5}
+
+
+def _f32_close(got, want, k, ref_gate=False):
+    """f32 atol = rtol = 1e-5 (TOL) up to k = 4096, the reference's gate
+    beyond or where ``ref_gate`` says."""
+    torch.cuda.synchronize()
+    tol = REF_F32_GATE if k > 4096 or ref_gate else {
+        "atol": TOL[torch.float32], "rtol": TOL[torch.float32]}
+    torch.testing.assert_close(got, want, **tol)
+
+
+def _tb_plan_tile(m, k, n, **ep):
+    spec = ops.GemmSpec(a_dtype=torch.float32, b_dtype=torch.float32,
+                        out_dtype=torch.float32, strategy="tb",
+                        epilogue=ops.Epilogue(**ep))
+    return ops.plan(spec, (m, k, n)).tile
+
+
+@pytest.mark.parametrize("m,k,n", F32_ROUTERS + [
+    # qwen3-moe's dense GEMMs at f32 (wq, wk/wv, wo), decode and prefill
+    s for s in QWEN3_DENSE])
+@pytest.mark.parametrize("epi", ["none", "bias+silu+res"])
+def test_f32_bodies_match_plain_at_the_served_shapes(cuda_device, m, k, n,
+                                                     epi):
+    """B1's f32 body (the CTA shape cta_tile picks), B6's at the tile its
+    'tb' plan gives, and ops.gemm's planned path, each against its plain
+    version: the routers within 1e-5 at k <= 4096; qwen3's dense shapes
+    and k > 4096 within the reference's f32 gate."""
+    gate = (m, k, n) not in F32_ROUTERS
+    a = _randn_card((m, k), torch.float32, cuda_device, 0) / k ** 0.5
+    w = _randn_card((k, n), torch.float32, cuda_device, 1)
+    kw = {"out_dtype": torch.float32}
+    ep = {}
+    if epi != "none":
+        kw.update(bias=_randn((n,), torch.float32, cuda_device, 2),
+                  activation="silu",
+                  residual=_randn((m, n), torch.float32, cuda_device, 3))
+        ep = {"bias": True, "activation": "silu", "residual": True}
+    _f32_close(gemm_aie(a, w, **kw), gemm_aie_plain(a, w, **kw), k, gate)
+    t = _tb_plan_tile(m, k, n, **ep)
+    _f32_close(gemm_tb(a, w, tile=t, **kw), gemm_tb_plain(a, w, tile=t, **kw),
+               k, gate)
+    _f32_close(ops.gemm(a, w, **kw), gemm_aie_plain(a, w, **kw), k, gate)
+
+
+@pytest.mark.parametrize("m,k,n", F32_ROUTERS)
+def test_f32_gemm_tb_equals_gemm_aie_bitwise_at_the_routers(cuda_device, m,
+                                                            k, n):
+    """B6's f32 body == B1's bit for bit at the router shapes: tiles giving
+    one k-chunk (two at k 7168), two, and four or more (the 'tb' plan's
+    among them), each at three splits of the n sweep over CTAs."""
+    a = _randn_card((m, k), torch.float32, cuda_device, 4) / k ** 0.5
+    w = _randn_card((k, n), torch.float32, cuda_device, 5)
+    want = gemm_aie(a, w, out_dtype=torch.float32)
+    plan = _tb_plan_tile(m, k, n)
+    tiles = [(8, 8192, 64), (16, 2048, 128), (64, 512, 32), (128, 256, 32),
+             (plan.bm, plan.bk, plan.bn)]
+    chunks = set()
+    for tile in tiles:
+        t = TileConfig(*tile, "tb")
+        chunks.add(ops.plan(ops.GemmSpec(a_dtype=torch.float32,
+                                         b_dtype=torch.float32,
+                                         out_dtype=torch.float32, tile=t),
+                            (m, k, n)).launches["gemm_tb"] + 1)
+        for split in (None, 1, 3):
+            got = gemm_tb(a, w, tile=t, n_split_tiles=split,
+                          out_dtype=torch.float32)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (tile, split)
+    assert min(chunks) <= 2 and max(chunks) >= 4, chunks
+
+
+def test_f32_rows_are_batch_invariant(cuda_device):
+    """f32 rows at m = 1, 8, 9, 16 and 300 (B1's one-warp shapes of 8 and
+    16 rows and its four-warp ones; B6 at each m's 'tb' plan) equal the
+    same rows of the 300-row call, bit for bit, at qwen3-moe's router
+    shape: continuous == solo greedy for the MoE models rests on it."""
+    k, n = 4096, 128
+    big = _randn_card((300, k), torch.float32, cuda_device, 6) / k ** 0.5
+    w = _randn_card((k, n), torch.float32, cuda_device, 7)
+    ref = gemm_aie(big, w, out_dtype=torch.float32)
+    for m in (1, 8, 9, 16, 300):
+        t = _tb_plan_tile(m, k, n)
+        for r0 in sorted({0, 5, 300 - m}):
+            rows = slice(r0, r0 + m)
+            for got in (gemm_aie(big[rows], w, out_dtype=torch.float32),
+                        gemm_tb(big[rows], w, tile=t,
+                                out_dtype=torch.float32),
+                        ops.gemm(big[rows], w, out_dtype=torch.float32)):
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref[rows]), (m, r0, t)
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 8192, 4096), (300, 8192, 512)])
+def test_f32_w8a16_at_k_8192_holds_the_reference_gate(cuda_device, m, k, n):
+    """The f32 body on an int8 weight (W8A16 on f32 activations) at k =
+    8192, on B1 and on B6 at its 'tb' plan, within the reference's f32
+    GEMM gate of its plain version (one fmaf chain over 8192 steps against
+    the plain matmul's order), and B6 == B1 bit for bit."""
+    a, q, kw = _int8_operands(m, k, n, "w8a16_f32", "none", cuda_device)
+    want = gemm_aie_plain(a, q, **kw)
+    got = gemm_aie(a, q, **kw)
+    _f32_close(got, want, k)
+    t = _tb_plan_tile(m, k, n)
+    tb = gemm_tb(a, q, tile=t, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(tb, got), t
 
 
 # ---------------------------------------------------------------------------
@@ -1035,7 +1185,12 @@ def test_int8_gemm_aie_matches_plain(cuda_device, m, k, n, mode, epi):
 
 @pytest.mark.parametrize("m,k,n", [(8, 960, 320), (300, 960, 960),
                                    (8, 4096, 512), (9, 300, 200),
-                                   (5, 131, 77)])
+                                   (5, 131, 77),
+                                   # mma.sync (W8A16) against wgmma (bf16)
+                                   # at qwen3-moe's wo (k 8192) and
+                                   # internvl2-76b's down (k 28672)
+                                   (8, 8192, 4096), (300, 8192, 4096),
+                                   (8, 28672, 8192)])
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("res", [False, True])
 def test_w8a16_equals_bf16_on_the_widened_weights_bitwise(cuda_device, m, k,
@@ -1043,7 +1198,7 @@ def test_w8a16_equals_bf16_on_the_widened_weights_bitwise(cuda_device, m, k,
     """W8A16 on B1 == B1's bf16 body on q.to(bfloat16) with f32 output,
     then * b_scale (then + residual, then the cast), bit for bit: the
     widening is exact and the flush multiplies once, never fused with an
-    add."""
+    add; at k up to 28672 and the CTA shapes the two launch there."""
     a = _randn((m, k), torch.bfloat16, cuda_device, 4)
     q, s = _int8_weight(k, n, cuda_device, 5)
     r = _randn((m, n), torch.bfloat16, cuda_device, 6) if res else None

@@ -413,14 +413,16 @@ if __name__ == "__main__":
     (4096, 960, "bfloat16", (128, 64, 128)),  # training: 256 CTAs
     (4096, 2560, "bfloat16", (128, 64, 256)),  # 320 CTAs
     (300, 2560, "bfloat16", (64, 64, 64)),   # 64 x 128 gives 100 < 132
-    (8, 960, "float32", (16, 128, 32)),      # the f32 fmaf body
+    (8, 960, "float32", (8, 256, 8)),        # the f32 body: 120 CTAs
 ])
 def test_b1_cta_tile_follows_m_n_and_dtype(m, n, dtype, tile):
     """B1's bf16 body launches, for few rows, the mma.sync form at the
     widest of 32 and 16 columns a CTA that still reaches 7 of every 8
     SMs, else 8, and the swapped wgmma form where 64 would; for more rows,
     the largest of 128 x 256, 128 x 128 and 64 x 128 whose CTAs still give
-    every SM one, else 64 x 64; explain() names the tile it launches."""
+    every SM one, else 64 x 64; f32 its fmaf body's shape by m and n
+    (kernels/gemm_aie.py F32_TILES); explain() names the tile it
+    launches."""
     from repro_torch.kernels.gemm_aie import cta_tile
     assert cta_tile(m, n, getattr(torch, dtype)) == tile
     pl = ops.plan(ops.GemmSpec(a_dtype=dtype, b_dtype=dtype,

@@ -1,4 +1,4 @@
-// Two probes of an sm_90 card behind the port's GEMM kernels (PERF.md §6):
+// Probes of an sm_90 card behind the port's GEMM kernels (PERF.md §6):
 //
 //   1. mma.sync.m16n8k16 bf16 -> f32 throughput of one SM, by warps and by
 //      independent accumulator chains a warp (the shape of a warp's work in
@@ -22,7 +22,17 @@
 //   5. the rate at which TMA box copies stream rows of 128 bytes from
 //      device memory into one SM's shared memory, by box rows and by the
 //      stages in flight (one thread a CTA issues them; probe 2's cp.async
-//      rate beside it).
+//      rate beside it);
+//   6. the f32 chain of B1's and B6's f32 bodies (gemm_f32.cuh): (a) the
+//      cycles of one dependent fmaf (a chain's step), (b) the fmaf one SM
+//      issues a cycle by warps and independent chains a thread, (c) the
+//      cycles a k step of the port's own chain_steps takes by the chains a
+//      thread keeps (rows x columns) and warps, read from shared memory,
+//      (d) the SM clock under a long chain, timed by CUDA events beside
+//      clock64, which gives the chain floor k x latency / clock at the
+//      routers' k = 4096 and 7168, (e) the rate at which TMA boxes of f32
+//      rows 16 to 256 bytes wide fill one SM, and (f) B1's decode ring in
+//      miniature, whole, its ring alone and its products alone.
 //
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
 //       -o hopper_probe tools/hopper_probe.cu && ./hopper_probe
@@ -37,6 +47,7 @@
 #include <cstring>
 #include <vector>
 
+#include "../src/repro_torch/csrc/gemm_f32.cuh"
 #include "../src/repro_torch/csrc/mma_chain.cuh"
 #include "../src/repro_torch/csrc/tma.cuh"
 #include "../src/repro_torch/csrc/wgmma.cuh"
@@ -500,6 +511,285 @@ void probe_tma(long long* cycles, float* sink) {
   cudaFree(src);
 }
 
+// Probe 6 (a) and (d): one dependent chain acc = fmaf(acc, x, y), 64 a
+// loop trip (x, y arguments, so nothing folds).
+__global__ void ffma_chain(float* out, float x, float y, int iters,
+                           long long* cycles) {
+  float acc = static_cast<float>(threadIdx.x);
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 64; ++u) acc = fmaf(acc, x, y);
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+  out[threadIdx.x] = acc;
+}
+
+// Probe 6 (b): kChains independent chains a thread, 16 steps a loop trip.
+template <int kChains>
+__global__ void ffma_rate(float* out, float x, float y, int iters,
+                          long long* cycles) {
+  float acc[kChains];
+#pragma unroll
+  for (int j = 0; j < kChains; ++j) acc[j] = threadIdx.x + j;
+  const long long t0 = clock64();
+  for (int i = 0; i < iters; ++i) {
+#pragma unroll
+    for (int u = 0; u < 16; ++u)
+#pragma unroll
+      for (int j = 0; j < kChains; ++j) acc[j] = fmaf(acc[j], x, y);
+  }
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+  float s = 0.0f;
+#pragma unroll
+  for (int j = 0; j < kChains; ++j) s += acc[j];
+  out[threadIdx.x] = s;
+}
+
+template <int kChains>
+void probe_ffma_rate(float* out, long long* cycles) {
+  const int iters = 4096;
+  for (int warps : {1, 4, 8, 16, 32}) {
+    ffma_rate<kChains><<<1, 32 * warps>>>(out, 0.999f, 1e-3f, iters, cycles);
+    cudaDeviceSynchronize();
+    const double per = 32.0 * warps * kChains * 16 * iters / *cycles;
+    printf("probe 6: fmaf issue: %d chains a thread, %2d warps: %6.1f fmaf "
+           "a cycle an SM (%.2f cycles a chain step)\n",
+           kChains, warps, per, *cycles / (16.0 * iters));
+  }
+}
+
+// Probe 6 (c): the port's chain_steps, each thread kR x kC chains laid out
+// as in B1's one-warp shapes (thread (ty, tx) of 8 x 4: rows ty + 8 i of
+// an A slab of 132-value rows, columns tx kC + j of a B slab of 4 kC
+// columns), one 128-deep slab walked ``reps`` times.
+template <int kR, int kC>
+__global__ void chain_step_rate(float* out, int reps, long long* cycles) {
+  constexpr int kLda = 132, kLdb = 4 * kC, kDepth = 128;
+  __shared__ __align__(16) float As[8 * kR * kLda];
+  __shared__ __align__(16) float Bs[kDepth * kLdb];
+  for (int i = threadIdx.x; i < 8 * kR * kLda; i += blockDim.x)
+    As[i] = 1e-3f * (i % 7);
+  for (int i = threadIdx.x; i < kDepth * kLdb; i += blockDim.x)
+    Bs[i] = 1e-3f * (i % 5);
+  __syncthreads();
+  const int lane = threadIdx.x & 31, ty = lane / 4, tx = lane % 4;
+  float acc[kR][kC] = {};
+  const long long t0 = clock64();
+  for (int r = 0; r < reps; ++r)
+    repro::f32::chain_steps<kR, kC>(acc, As + ty * kLda, 8 * kLda,
+                                    Bs + tx * kC, kLdb, kDepth);
+  const long long t1 = clock64();
+  if (threadIdx.x == 0) *cycles = t1 - t0;
+  float s = 0.0f;
+  for (int i = 0; i < kR; ++i)
+    for (int j = 0; j < kC; ++j) s += acc[i][j];
+  out[threadIdx.x] = s;
+}
+
+template <int kR, int kC>
+void probe_chain_steps(float* out, long long* cycles) {
+  const int reps = 64;
+  for (int warps : {1, 4, 8}) {
+    chain_step_rate<kR, kC><<<1, 32 * warps>>>(out, reps, cycles);
+    cudaDeviceSynchronize();
+    printf("probe 6: chain_steps %d x %d chains a thread, %d warps: %6.2f "
+           "cycles a k step\n",
+           kR, kC, warps, *cycles / (128.0 * reps));
+  }
+}
+
+// Probe 6 (e): the rate at which TMA boxes of f32 rows fill one SM, by the
+// rows' bytes: each CTA streams its own strip of box_cols columns of a
+// 4096 x 4096 f32 matrix, box_rows rows a box, through ``stages`` stages
+// (the B strips of B1's decode shapes are 4 to 16 columns wide).
+__global__ void f32_box_rate(const __grid_constant__ CUtensorMap map,
+                             int rows, int box_rows, int box_cols,
+                             int stages, long long* cycles, float* sink) {
+  extern __shared__ __align__(16) unsigned char raw[];
+  unsigned char* ring = raw + ((128 - (repro::smem_addr(raw) & 127)) & 127);
+  __shared__ uint64_t full[16];
+  if (threadIdx.x != 0) return;
+  for (int s = 0; s < stages; ++s) repro::mbar_init(&full[s]);
+  repro::fence_barrier_init();
+  const int box = box_rows * box_cols * 4, n = rows / box_rows;
+  const int col = box_cols * blockIdx.x;
+  float acc = 0.0f;
+  const long long t0 = clock64();
+  for (int i = 0; i < stages && i < n; ++i) {
+    repro::mbar_expect(&full[i], box);
+    repro::tma_2d(ring + i * box, &map, col, i * box_rows, &full[i]);
+  }
+  for (int i = 0; i < n; ++i) {
+    const int s = i % stages;
+    repro::mbar_wait(&full[s], (i / stages) & 1);
+    acc += ring[s * box + (i & 15)];
+    if (i + stages < n) {
+      repro::fence_proxy_async();
+      repro::mbar_expect(&full[s], box);
+      repro::tma_2d(ring + s * box, &map, col, (i + stages) * box_rows,
+                    &full[s]);
+    }
+  }
+  if (blockIdx.x == 0) *cycles = clock64() - t0;
+  sink[blockIdx.x] = acc;
+}
+
+void probe_f32_boxes(long long* cycles, float* sink) {
+  const int n = 4096;
+  float* src;
+  cudaMalloc(&src, static_cast<size_t>(n) * n * 4);
+  cudaMemset(src, 0, static_cast<size_t>(n) * n * 4);
+  cudaFuncSetAttribute(f32_box_rate,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       200 * 1024);
+  for (int box_cols : {4, 8, 16, 32, 64})
+    for (int box_rows : {128, 256})
+      for (int stages : {4, 8}) {
+        const int smem = stages * box_rows * box_cols * 4 + 128;
+        if (smem > 200 * 1024) continue;
+        CUtensorMap map;
+        if (!repro::tensor_map_2d(&map, src, 4, n, n, n, box_cols,
+                                  box_rows)) {
+          printf("probe 6: no tensor map\n");
+          return;
+        }
+        for (int rep = 0; rep < 2; ++rep) {
+          f32_box_rate<<<32, 32, smem>>>(map, n, box_rows, box_cols, stages,
+                                         cycles, sink);
+          cudaDeviceSynchronize();
+        }
+        printf("probe 6: TMA f32 boxes %3d rows x %3d B, %d stages, 32 "
+               "CTAs: %5.1f B a cycle an SM\n",
+               box_rows, box_cols * 4, stages,
+               static_cast<double>(n) * box_cols * 4 / *cycles);
+      }
+  cudaFree(src);
+}
+
+// Probe 6 (f): B1's decode shape in miniature: two warps a CTA, 8 rows x 8
+// columns (a warp 4 rows x 8 lanes), a ring of 6 stages of 256-deep slabs
+// (A's 8 x 256 box and B's 256 x 8 box) filled by thread 0's TMA boxes,
+// chain_steps 1 x 1 on each; ``mode`` 0 runs it whole, 1 the ring alone
+// (no products), 2 the products alone on the first stage (no ring).  16
+// CTAs over a 4096-deep k: qwen3-moe's decode router.
+__global__ void decode_ring_rate(const __grid_constant__ CUtensorMap map_a,
+                                 const __grid_constant__ CUtensorMap map_b,
+                                 int k, int mode, long long* cycles,
+                                 float* sink) {
+  constexpr int kKS = 256, kStages = 6, kA = 8 * kKS, kB = kKS * 8;
+  extern __shared__ __align__(16) unsigned char raw[];
+  // a tensor copy lands on a 128-byte-aligned address
+  float* st = reinterpret_cast<float*>(
+      raw + ((128 - (repro::smem_addr(raw) & 127)) & 127));
+  __shared__ uint64_t full[kStages];
+  const int lane = threadIdx.x, ty = lane / 8, tx = lane % 8;
+  const int col0 = blockIdx.x * 8, slabs = k / kKS;
+  if (lane == 0) {
+    for (int s = 0; s < kStages; ++s) repro::mbar_init(&full[s]);
+    repro::fence_barrier_init();
+  }
+  __syncthreads();
+  auto issue = [&](int i) {
+    float* d = st + (i % kStages) * (kA + kB);
+    repro::mbar_expect(&full[i % kStages], (kA + kB) * 4);
+    repro::tma_2d(d, &map_a, i * kKS, 0, &full[i % kStages]);
+    repro::tma_2d(d + kA, &map_b, col0, i * kKS, &full[i % kStages]);
+  };
+  float acc[1][1] = {{0.0f}};
+  const long long t0 = clock64();
+  if (mode != 2 && lane == 0)
+    for (int i = 0; i < kStages - 1 && i < slabs; ++i) issue(i);
+  for (int i = 0; i < slabs; ++i) {
+    if (mode != 2) repro::mbar_wait(&full[i % kStages], (i / kStages) & 1);
+    __syncthreads();
+    if (mode != 2 && lane == 0 && i + kStages - 1 < slabs) {
+      repro::fence_proxy_async();
+      issue(i + kStages - 1);
+    }
+    if (mode != 1) {
+      const float* d = st + (mode == 2 ? 0 : (i % kStages) * (kA + kB));
+      repro::f32::chain_steps<1, 1>(acc, d + ty * kKS, 8 * kKS,
+                                    d + kA + tx, 8, kKS);
+    }
+  }
+  if (blockIdx.x == 0 && lane == 0) *cycles = clock64() - t0;
+  sink[blockIdx.x * 64 + lane] = acc[0][0];
+}
+
+void probe_decode_ring(long long* cycles, float* sink) {
+  const int k = 4096, n = 128;
+  float *a, *b;
+  cudaMalloc(&a, 8 * k * 4);
+  cudaMalloc(&b, static_cast<size_t>(k) * n * 4);
+  cudaMemset(a, 0, 8 * k * 4);
+  cudaMemset(b, 0, static_cast<size_t>(k) * n * 4);
+  CUtensorMap ma, mb;
+  if (!repro::tensor_map_2d(&ma, a, 4, 8, k, k, 256, 8) ||
+      !repro::tensor_map_2d(&mb, b, 4, k, n, n, 8, 256)) {
+    printf("probe 6: no tensor map\n");
+    return;
+  }
+  const int smem = 6 * (8 * 256 + 256 * 8) * 4 + 128;
+  cudaFuncSetAttribute(decode_ring_rate,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const char* what[] = {"whole", "ring alone", "products alone"};
+  for (int mode = 0; mode < 3; ++mode) {
+    for (int rep = 0; rep < 2; ++rep) {
+      decode_ring_rate<<<16, 64, smem>>>(ma, mb, k, mode, cycles, sink);
+      cudaDeviceSynchronize();
+    }
+    printf("probe 6: B1 decode ring (2 warps of 4 x 8, 256-deep slabs, 6 "
+           "stages), %s: %.2f cycles a k step\n", what[mode],
+           *cycles / static_cast<double>(k));
+  }
+  cudaFree(a);
+  cudaFree(b);
+}
+
+// Probe 6: prints the fmaf latency, the issue rates, the chain_steps rates,
+// the TMA fill of f32 boxes, the decode ring, and the clock and chain
+// floor.
+void probe_ffma(float* out, long long* cycles) {
+  const int iters = 1 << 14;
+  ffma_chain<<<1, 32>>>(out, 0.999f, 1e-3f, 16, cycles);  // warm-up
+  cudaDeviceSynchronize();
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  cudaEventRecord(e0);
+  ffma_chain<<<1, 32>>>(out, 0.999f, 1e-3f, iters, cycles);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float ms = 0.0f;
+  cudaEventElapsedTime(&ms, e0, e1);
+  const double lat = *cycles / (64.0 * iters);
+  const double mhz = *cycles / (ms * 1e3);
+  printf("probe 6: fmaf dependent chain: %.2f cycles an fmaf (one warp, "
+         "%d fmaf)\n", lat, 64 * iters);
+  probe_ffma_rate<1>(out, cycles);
+  probe_ffma_rate<2>(out, cycles);
+  probe_ffma_rate<4>(out, cycles);
+  probe_ffma_rate<8>(out, cycles);
+  probe_chain_steps<1, 1>(out, cycles);
+  probe_chain_steps<1, 2>(out, cycles);
+  probe_chain_steps<1, 4>(out, cycles);
+  probe_chain_steps<2, 1>(out, cycles);
+  probe_chain_steps<2, 4>(out, cycles);
+  probe_chain_steps<4, 4>(out, cycles);
+  probe_chain_steps<8, 4>(out, cycles);
+  probe_f32_boxes(cycles, out);
+  probe_decode_ring(cycles, out);
+  printf("probe 6: SM clock under the chain %.0f MHz (clock64 over CUDA "
+         "events, %.3f ms); chain floor k x %.2f cycles / clock: k 4096 "
+         "%.2f us, k 7168 %.2f us\n",
+         mhz, ms, lat, 4096 * lat / mhz, 7168 * lat / mhz);
+  cudaEventDestroy(e0);
+  cudaEventDestroy(e1);
+}
+
 int main() {
   float* out;
   long long* cycles;
@@ -512,6 +802,7 @@ int main() {
   probe_slab(out, cycles);
   const bool sane = probe_bits();
   probe_tma(cycles, out);
+  probe_ffma(out, cycles);
   const cudaError_t err = cudaGetLastError();
   printf("%s\n", cudaGetErrorString(err));
   return err == cudaSuccess && sane ? 0 : 1;
